@@ -2,7 +2,7 @@
 """Where a prefill and a decode step of the PyTorch / CUDA port spend
 their time.
 
-    python3 benchmarks_torch/profile_decode.py
+    python3 benchmarks_torch/profile_decode.py [--cache-quant-bits 8] [--spec-depth 3]
 
 Builds full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio
 0.5), bf16, random weights from seed 0, on one CUDA card, at the main
@@ -13,10 +13,17 @@ clock around synchronised work).  The warm prefill and the decode steps are trac
 with ``torch.profiler``: summed device time per kernel name and the
 device's busy share of the traced wall time.  Prints one JSON line at the
 end.  Needs a card; imports nothing of JAX.
+
+``--cache-quant-bits 8`` serves the int8 latent ring (decode runs K3);
+``--spec-depth N`` replaces each decode step by one speculative verify step
+over N + 1 fed tokens with all of them committed (``verify_step`` plus
+``commit_verify_writes``: K5, or K6 on the int8 ring).  Without flags it
+measures what it always did.
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
 import subprocess
@@ -62,6 +69,13 @@ def report(title, n, wall, busy, rows):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--cache-quant-bits", type=int, default=None,
+                    help="int8 latent ring (8); default: bf16 latents")
+    ap.add_argument("--spec-depth", type=int, default=0,
+                    help="time verify steps of spec_depth + 1 tokens instead "
+                         "of decode steps")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
@@ -75,7 +89,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     cfg = dataclasses.replace(get_config("qwen3-4b", recalkv_ratio=0.5),
-                              attn_backend="kernel", dtype=torch.bfloat16)
+                              attn_backend="kernel", dtype=torch.bfloat16,
+                              cache_quant_bits=args.cache_quant_bits)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = BATCH
@@ -94,18 +109,32 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     print(f"card: {card}")
-    print(f"qwen3-4b r={cfg.recalkv.rank_k} bf16, B={B}, prompt {PROMPT}, "
-          f"ring {MAX_LEN}: first (cold) prefill {cold_s:.4f} s")
+    print(f"qwen3-4b r={cfg.recalkv.rank_k} bf16, cache_quant_bits "
+          f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, B={B}, prompt "
+          f"{PROMPT}, ring {MAX_LEN}: first (cold) prefill {cold_s:.4f} s")
     out = {"card": card, "batch": B, "prompt": PROMPT,
-           "max_len": MAX_LEN, "cold_prefill_s": cold_s,
+           "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
+           "spec_depth": args.spec_depth, "cold_prefill_s": cold_s,
            "prefill": report("warm prefill", 1, *traced(prefill, 1))}
     tok, cur = state["logits"].argmax(-1), lens.clone()
     caches = state["caches"]
 
+    n_fed = args.spec_depth + 1
+    fed_gen = torch.Generator(device="cuda").manual_seed(2)
+
     def step():
         nonlocal tok, cur
-        lg, _ = T.decode_step(cfg, params, caches, tok, cur)
-        tok, cur = lg.argmax(-1), cur + 1
+        if not args.spec_depth:
+            lg, _ = T.decode_step(cfg, params, caches, tok, cur)
+            tok, cur = lg.argmax(-1), cur + 1
+            return
+        fed = torch.randint(0, cfg.vocab_size, (B, n_fed), generator=fed_gen,
+                            device="cuda")
+        fed[:, 0] = tok
+        mask = torch.ones((B, n_fed), dtype=torch.bool, device="cuda")
+        lg, upd = T.verify_step(cfg, params, caches, fed, cur, mask)
+        T.commit_verify_writes(caches, upd, cur, mask)
+        tok, cur = lg[:, -1].argmax(-1), cur + n_fed
 
     for _ in range(2):
         step()
@@ -115,9 +144,10 @@ def main() -> int:
         step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    print(f"decode step {step_ms:.3f} ms (host clock, synchronised, untraced)")
+    what = f"verify step ({n_fed} tokens)" if args.spec_depth else "decode step"
+    print(f"{what} {step_ms:.3f} ms (host clock, synchronised, untraced)")
     out["decode_step_ms"] = step_ms
-    out["decode"] = report("decode step", STEPS, *traced(step, STEPS))
+    out["decode"] = report(what, STEPS, *traced(step, STEPS))
     print(json.dumps(out))
     return 0
 

@@ -8,20 +8,26 @@ Phases, in order (any failure exits non-zero; none is caught):
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
    all at once) and print the build time;
-3. each kernel at the main path's shapes against its plain PyTorch
-   version, in float32 (TF32 off) and bf16, and timed beside the plain
-   version, a PyTorch library call where one computes the same function,
-   and the least time the card could take (its bound);
+3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
+   (int8 multi-query verify) — at the main path's shapes against its
+   plain PyTorch version, in float32 (TF32 off) and bf16, and timed
+   beside the plain version, a PyTorch library call where one computes
+   the same function, and the least time the card could take (its bound);
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
-   and decode steps through the einsum reference and the kernel backend;
-5. the same model served through ``Engine`` (8 slots, max_len 4096,
-   sync_every 16, one chunked prompt) with the kernel launch counts of
-   that run — the main path;
+   and decode steps, and prefill and one 4-token verify step on float and
+   int8 rings, through the einsum reference and the kernel backend;
+5. the same model served through ``Engine`` (8 slots, max_len 4096) in
+   three runs, each with the kernel launch counts of that run:
+   A, float ring, no speculation, one chunked prompt (K1, K2);
+   B, the slice's main path: int8 ring, spec_depth 3, draft "layers:4",
+   one chunked prompt (K2, K3 in the draft's decode steps, K6 in verify);
+   C, float ring, spec_depth 3, "ngram" draft on prompts that repeat a
+   motif (K2, K5);
 6. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
-   error), the card line, and the final ``{"ok": true, "device": {...}}``
-   line.
+   error, ``launches`` its launches over runs A-C), the card line, and the
+   final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
 JAX or of the JAX package.
@@ -35,6 +41,8 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parent
 SEED = 0
@@ -75,7 +83,8 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
 
 
 def nbytes(*ts) -> int:
-    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+    """Bytes of the tensors among ``ts`` (other arguments are skipped)."""
+    return sum(t.numel() * t.element_size() for t in ts if hasattr(t, "numel"))
 
 
 def bound(bytes_: int, flops: float) -> tuple[float, str]:
@@ -104,48 +113,93 @@ def compare(name, got, want, dtype) -> float:
     return diff.max().item()
 
 
-def phase_k1(torch, gen):
-    """K1 at B=8, a full 4096-token ring, G=2, r=256, s=4, dh=128 (+ self)."""
+def ring_inputs(torch, gen, nq=1):
+    """Main-path operands: B=8, a full 4096-token ring, G=2, Hg=16, dh=128,
+    r=256, s=4, with nq queries and their nq self columns (float32)."""
     from repro_torch.kernels import ops
-    from repro_torch.kernels.latent_decode import (
-        latent_decode_attention as k1, latent_decode_attention_plain as p1)
     B, S, G, Hg, dh, r, s = 8, 4096, 2, 16, 128, 256, 4
     dev = "cuda"
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)
-    f = dict(q=rn(B, G, Hg, dh), zk=rn(B, S, G, r), zv=rn(B, S, G, r),
-             r_k=rn(G, r, s * dh) * r ** -0.5, self_zk=rn(B, G, r),
-             self_zv=rn(B, G, r))
     pos = torch.arange(S, device=dev).expand(B, S).contiguous()
     cur = torch.full((B,), S, device=dev)
+    pos_q = cur[:, None] + torch.arange(nq, device=dev)
+    feed = torch.ones((B, nq), dtype=torch.bool, device=dev)
     cos, sin = ops.rope_tables_for(pos, dh, 1e6)
-    bias = ops.decode_bias(pos, cur, None)
-    cs, ss = ops.rope_tables_for(cur, dh, 1e6)
-    kn = 0.1 * rn(dh)
+    cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    return dict(q=rn(B, G, nq * Hg, dh), zk=rn(B, S, G, r), zv=rn(B, S, G, r),
+                r_k=rn(G, r, s * dh) * r ** -0.5, self_zk=rn(B, nq, G, r),
+                self_zv=rn(B, nq, G, r), cos=cos, sin=sin, self_cos=cs, self_sin=ss,
+                bias=bias, k_norm=0.1 * rn(dh), shape=(B, S, G, Hg, dh, r, s, nq))
+
+
+def kernel_phase(torch, name, kernel, plain, make, flops, meta):
+    """Check ``kernel`` against ``plain`` in f32 and bf16 on the operands
+    ``make(dtype)`` returns as (args, kwargs); time both (bf16) and return
+    the kernels-line entry with the bound from this call's bytes."""
     res = {}
     for dt in (torch.float32, torch.bfloat16):
-        t = {k: v.to(dt) for k, v in f.items()}
-        args = (t["q"], t["zk"], t["zv"], t["r_k"], cos, sin, bias)
-        kw = dict(scale=dh ** -0.5, k_norm=kn, self_zk=t["self_zk"],
-                  self_zv=t["self_zv"], self_cos=cs, self_sin=ss)
-        got = k1(*args, **kw)
+        args, kw = make(dt)
+        got = kernel(*args, **kw)
         torch.cuda.synchronize()
-        res[dt] = compare("K1", got, p1(*args, **kw), dt)
-    ms = cuda_ms(lambda: k1(*args, **kw))
-    plain_ms = cuda_ms(lambda: p1(*args, **kw), iters=3)
-    s_ext = S + 1
-    flops = 2.0 * B * G * s_ext * (r * s * dh + Hg * dh + Hg * r)
-    b_ms, by = bound(nbytes(*args, kn, t["self_zk"], t["self_zv"], cs, ss, got), flops)
-    log(f"K1 latent_decode B={B} S={S}+self G={G} r={r}: max err f32 {res[torch.float32]:.3e} "
-        f"bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+        res[dt] = compare(name, got, plain(*args, **kw), dt)
+    ms = cuda_ms(lambda: kernel(*args, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
+    b_ms, by = bound(nbytes(*args, *kw.values(), got), flops)
+    log(f"{name} {meta['shape']}: max err f32 {res[torch.float32]:.3e} bf16 "
+        f"{res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({by})")
-    return {"name": "latent_decode_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/latent_decode.cu",
-            "replaces": "src/repro/kernels/latent_decode.py:177",
-            "tpu_kernel": "src/repro/kernels/latent_decode.py::latent_decode_attention",
-            "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
-            "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "shape": f"B={B} S={S}+1 G={G} Hg={Hg} dh={dh} r={r} bf16"}
+    return {**meta, "route": "cuda", "max_abs_err": res[torch.bfloat16],
+            "max_err_f32": res[torch.float32], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": by, "library_ms": None}
+
+
+def decode_flops(B, S_ext, G, Hg, dh, r, s, nq):
+    """Key reconstruction once per column, then nq*Hg rows of scores and
+    latent values per column."""
+    return 2.0 * B * G * S_ext * (r * s * dh + nq * Hg * (dh + r))
+
+
+def phase_latent(torch, gen, nq, quant):
+    """K1 (nq=1, float), K3 (nq=1, int8), K5 (nq=4, float), K6 (nq=4,
+    int8) at the main path's shapes; the self columns ride as operands."""
+    from repro_torch.kernels import latent_decode as K1
+    from repro_torch.kernels import latent_decode_q as KQ
+    from repro_torch.quant import quantize
+    a = ring_inputs(torch, gen, nq)
+    B, S, G, Hg, dh, r, s, _ = a["shape"]
+    one = nq == 1
+    q8 = {k: quantize(a[k], 8) for k in ("zk", "zv", "self_zk", "self_zv")} if quant else {}
+
+    def make(dt):
+        t = {k: a[k].to(dt) for k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv")}
+        sel = (lambda x: x[:, 0]) if one else (lambda x: x)
+        bias = a["bias"][:, 0, :S].contiguous() if one else a["bias"]
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_cos=sel(a["self_cos"]),
+                  self_sin=sel(a["self_sin"]))
+        if quant:
+            lat = (q8["zk"][0], q8["zk"][1][..., 0], q8["zv"][0], q8["zv"][1][..., 0])
+            kw.update(self_zk_q=sel(q8["self_zk"][0]), self_zk_s=sel(q8["self_zk"][1][..., 0]),
+                      self_zv_q=sel(q8["self_zv"][0]), self_zv_s=sel(q8["self_zv"][1][..., 0]))
+        else:
+            lat = (t["zk"], t["zv"])
+            kw.update(self_zk=sel(t["self_zk"]), self_zv=sel(t["self_zv"]))
+        return (t["q"], *lat, t["r_k"], a["cos"], a["sin"], bias), kw
+
+    mod, base = (KQ, "latent_decode_attention") if quant else (K1, "latent_decode_attention")
+    fn = base + ("" if one else "_mq") + ("_quant" if quant else "")
+    where = {"latent_decode_attention": ("latent_decode.py", 177, "latent_decode"),
+             "latent_decode_attention_quant": ("latent_decode_q.py", 69, "latent_decode"),
+             "latent_decode_attention_mq": ("latent_decode.py", 338, "latent_decode"),
+             "latent_decode_attention_mq_quant": ("latent_decode_q.py", 158,
+                                                  "latent_decode")}[fn]
+    meta = {"name": fn, "source": f"src/repro_torch/csrc/{where[2]}.cu",
+            "replaces": f"src/repro/kernels/{where[0]}:{where[1]}",
+            "tpu_kernel": f"src/repro/kernels/{where[0]}::{fn}",
+            "shape": (f"B={B} S={S}+{nq} G={G} Hg={Hg} nq={nq} dh={dh} r={r} "
+                      f"{'int8 latents, ' if quant else ''}bf16")}
+    return kernel_phase(torch, fn, getattr(mod, fn), getattr(mod, fn + "_plain"), make,
+                        decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
 
 
 def phase_k2(torch, gen):
@@ -188,11 +242,14 @@ def phase_k2(torch, gen):
 
 def phase_backends(torch, cfg, params):
     """Prefill + 4 decode steps through both backends (kernel-backend
-    greedy tokens fed to both), B=2 with prompts of 512 and 300 tokens."""
+    greedy tokens fed to both), B=2 with prompts of 512 and 300 tokens;
+    then, on float and int8 rings, prefill + one 4-token verify step."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
     lens = torch.tensor([512, 300], device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (2, 4), generator=gen, device="cuda")
+    mask = torch.ones((2, 4), dtype=torch.bool, device="cuda")
     runs = {}
     feed = None
     for backend in ("kernel", "einsum"):
@@ -206,33 +263,67 @@ def phase_backends(torch, cfg, params):
             cur = cur + 1
         if feed is None:
             feed = [o.argmax(-1) for o in outs[:-1]]
-        runs[backend] = torch.stack(outs)
+        runs[("decode", backend)] = torch.stack(outs)
+        for bits in (None, 8):
+            cb = dataclasses.replace(c, cache_quant_bits=bits)
+            _, caches = T.prefill(cb, params, toks, lens, 1024)
+            runs[(f"verify {'int8' if bits else 'float'}", backend)], _ = T.verify_step(
+                cb, params, caches, fed, lens, mask)
         del caches
-    ker, ref = runs["kernel"], runs["einsum"]
-    if not torch.isfinite(ker).all():
-        raise AssertionError("kernel-backend logits are not finite")
-    err = (ker - ref).abs().max().item()
-    rel = err / ref.abs().max().item()
-    agree = (ker.argmax(-1) == ref.argmax(-1)).float().mean().item()
-    log(f"full-width backends: logits max abs err {err:.4e} (relative {rel:.3e}), "
-        f"greedy agreement {agree:.3f} over {ker.shape[0]} positions x 2 rows")
-    if rel > 5e-2:
-        raise AssertionError(f"kernel backend logits differ from einsum by {rel:.3e} "
-                             f"relative (bf16 bound 5e-2)")
-    return {"logits_max_abs_err": err, "logits_rel_err": rel, "greedy_agreement": agree}
+    out = {}
+    for what in ("decode", "verify float", "verify int8"):
+        ker, ref = runs[(what, "kernel")], runs[(what, "einsum")]
+        if not torch.isfinite(ker).all():
+            raise AssertionError(f"kernel-backend {what} logits are not finite")
+        err = (ker - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        agree = (ker.argmax(-1) == ref.argmax(-1)).float().mean().item()
+        log(f"full-width backends, {what}: logits max abs err {err:.4e} (relative "
+            f"{rel:.3e}), greedy agreement {agree:.3f} over {ker[..., 0].numel()} rows")
+        if rel > 5e-2:
+            raise AssertionError(f"kernel backend {what} logits differ from einsum by "
+                                 f"{rel:.3e} relative (bf16 bound 5e-2)")
+        out[what] = {"logits_max_abs_err": err, "logits_rel_err": rel,
+                     "greedy_agreement": agree}
+    return out
 
 
-def phase_engine(torch, cfg, params):
+# run: (cache_quant_bits, spec_depth, draft, prefill_chunk, sync_every,
+#       kernels that must launch)
+ENGINE_RUNS = {
+    "A": (None, 0, None, 1792, 16,
+          ("latent_decode_attention", "flash_prefill_attention")),
+    "B": (8, 3, "layers:4", 960, 8,
+          ("flash_prefill_attention", "latent_decode_attention_quant",
+           "latent_decode_attention_mq_quant")),
+    "C": (None, 3, "ngram", None, 8,
+          ("flash_prefill_attention", "latent_decode_attention_mq")),
+}
+
+
+def engine_prompts(torch, run, vocab):
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rand = lambda n: torch.randint(0, vocab, (n,), generator=gen).numpy()
+    if run == "A":          # 512..2048; the 2048 one streams 256 tokens
+        return [(rand(n), 32) for n in (512, 640, 768, 1024, 1280, 1536, 1792, 2048)]
+    if run == "B":          # 512..1024; the 1024 one streams 64 tokens
+        return [(rand(n), 32) for n in (512, 576, 640, 704, 768, 832, 896, 1024)]
+    motif = rand(64)        # C: a motif repeated, for prompt lookup
+    return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
+
+
+def phase_engine(torch, cfg, params, run):
     from repro_torch import kernels
     from repro_torch.serving import Engine, Request
+    bits, depth, draft, chunk, sync, must = ENGINE_RUNS[run]
+    c = dataclasses.replace(cfg, cache_quant_bits=bits)
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=16,
-                 prefill_chunk=1792)
-    lens = (512, 640, 768, 1024, 1280, 1536, 1792, 2048)
-    gen = torch.Generator().manual_seed(SEED + 2)
-    for uid, n in enumerate(lens):
-        prompt = torch.randint(0, cfg.vocab_size, (n,), generator=gen).numpy()
-        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=32))
+    eng = Engine(c, params, max_slots=8, max_len=4096, sync_every=sync,
+                 prefill_chunk=chunk, spec_depth=depth, draft=draft)
+    reqs = engine_prompts(torch, run, cfg.vocab_size)
+    for uid, (prompt, n_new) in enumerate(reqs):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     done = eng.run()
@@ -241,19 +332,26 @@ def phase_engine(torch, cfg, params):
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     m = eng.metrics()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"engine: {len(done)} requests, {m['tokens']} tokens in {wall:.3f} s, "
+    log(f"engine run {run} (int8 ring: {bits is not None}, spec_depth {depth}, draft "
+        f"{draft}): {len(done)} requests, {m['tokens']} tokens in {wall:.3f} s, "
         f"{m['tokens_per_s']:.2f} tok/s, ttft {m['ttft_s']:.3f} s, windows "
-        f"{m['windows']}, prefill calls {m['prefill_calls']}, peak memory "
+        f"{m['windows']}, accept rate {m['accept_rate']:.3f} ({m['draft_accepted']}/"
+        f"{m['draft_proposed']}), prefill calls {m['prefill_calls']}, peak memory "
         f"{peak:.2f} GiB, launches {launches}")
-    if len(done) != len(lens) or any(len(r.out_tokens) != 32 for r in done):
-        raise AssertionError("engine did not finish every request with 32 tokens")
+    if len(done) != len(reqs) or any(len(r.out_tokens) != n for r, (_, n) in
+                                     zip(sorted(done, key=lambda r: r.uid), reqs)):
+        raise AssertionError(f"engine run {run} did not finish every request")
     if any(not 0 <= t < cfg.vocab_size for r in done for t in r.out_tokens):
-        raise AssertionError("engine emitted an out-of-vocabulary token")
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"a kernel of the main path never launched: {launches}")
+        raise AssertionError(f"engine run {run} emitted an out-of-vocabulary token")
+    missing = [k for k in must if launches[k] <= 0]
+    if missing:
+        raise AssertionError(f"engine run {run}: kernels of its path never launched: "
+                             f"{missing} ({launches})")
     return launches, {**{k: m[k] for k in ("tokens", "tokens_per_s", "ttft_s", "windows",
-                                           "prefill_calls", "run_seconds")},
-                      "peak_gib": peak, "wall_s": wall}
+                                           "prefill_calls", "run_seconds", "spec_depth",
+                                           "draft", "draft_proposed", "draft_accepted",
+                                           "accept_rate")},
+                      "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall}
 
 
 def main() -> int:
@@ -281,7 +379,9 @@ def main() -> int:
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {built}")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    entries = [phase_k1(torch, gen), phase_k2(torch, gen)]
+    entries = [phase_latent(torch, gen, 1, False), phase_k2(torch, gen),
+               phase_latent(torch, gen, 1, True), phase_latent(torch, gen, 4, False),
+               phase_latent(torch, gen, 4, True)]
     torch.cuda.empty_cache()
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
@@ -296,9 +396,15 @@ def main() -> int:
         f"{cfg.recalkv.num_groups(cfg.num_kv_heads)}: {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.2f} s")
     backends = phase_backends(torch, cfg, params)
-    launches, serving = phase_engine(torch, cfg, params)
+    serving, by_run = {}, {}
+    for run in ENGINE_RUNS:
+        by_run[run], serving[run] = phase_engine(torch, cfg, params, run)
     for e in entries:
-        e["launches"] = launches[e["name"]]
+        e["launches_by_run"] = {run: by_run[run][e["name"]] for run in by_run}
+        e["launches"] = sum(e["launches_by_run"].values())
+    never = [e["name"] for e in entries if e["launches"] <= 0]
+    if never:
+        raise AssertionError(f"kernels never launched on the engine runs: {never}")
     log(json.dumps({"serving": serving, "backends": backends}))
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -4,6 +4,8 @@
 ``smoke=True`` a reduced same-family config for CPU tests, and
 ``recalkv_ratio=0.5`` attaches a uniform-rank ReCalKV latent cache at the
 given kept fraction — the same rank rule as the JAX package.
+``cache_quant_bits=8`` stores that ring as int8 latents with per-token
+scales (the JAX package sets the field with ``dataclasses.replace``).
 """
 
 from __future__ import annotations
@@ -26,7 +28,8 @@ def effective_rank_for_ratio(width: int, keep_ratio: float,
 
 
 def get_config(arch: str, *, smoke: bool = False,
-               recalkv_ratio: float | None = None) -> ModelConfig:
+               recalkv_ratio: float | None = None,
+               cache_quant_bits: int | None = None) -> ModelConfig:
     if arch not in _MODULES:
         raise KeyError(f"unknown or not yet ported arch {arch!r}; "
                        f"ported: {ARCHS}")
@@ -37,4 +40,6 @@ def get_config(arch: str, *, smoke: bool = False,
         rank = effective_rank_for_ratio(s * cfg.d_head, recalkv_ratio)
         cfg = dataclasses.replace(
             cfg, recalkv=ReCalKVRuntime(rank_k=rank, rank_v=rank, group_size=s))
+    if cache_quant_bits is not None:
+        cfg = dataclasses.replace(cfg, cache_quant_bits=cache_quant_bits)
     return cfg

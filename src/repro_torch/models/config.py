@@ -3,9 +3,9 @@
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
 (:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving main path needs — dense FFN ``attn`` blocks with a
-float ReCalKV latent ring — and :func:`check_supported` names anything
-else as not ported.
+subset the serving path needs — dense FFN ``attn`` blocks with a ReCalKV
+latent ring, float or int8 (``cache_quant_bits``) — and
+:func:`check_supported` names anything else as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -141,8 +141,12 @@ class ModelConfig:
             raise ValueError(
                 f"attn_backend must be one of {ATTN_BACKENDS}, "
                 f"got {self.attn_backend!r}")
-        if self.cache_quant_bits is not None and self.recalkv is None:
-            raise ValueError("cache_quant_bits requires a recalkv (latent) cache")
+        if self.cache_quant_bits is not None:
+            if self.recalkv is None:
+                raise ValueError("cache_quant_bits requires a recalkv "
+                                 "(latent) cache")
+            if self.cache_quant_bits not in (3, 4, 8):
+                raise ValueError("cache_quant_bits must be 3, 4 or 8")
         if self.num_layers - len(self.prefix_pattern) < 0:
             raise ValueError("prefix longer than the model")
 
@@ -212,8 +216,6 @@ def check_supported(cfg: ModelConfig) -> None:
     missing = []
     if cfg.recalkv is None:
         missing.append("dense (uncompressed) KV cache")
-    if cfg.cache_quant_bits is not None:
-        missing.append(f"int{cfg.cache_quant_bits} latent cache")
     for name in ("moe", "mla", "mamba", "rglru"):
         if getattr(cfg, name) is not None:
             missing.append(name)

@@ -1,5 +1,5 @@
-"""Transformer stack: prefill / decode (port of the serving half of
-``repro.models.transformer``).
+"""Transformer stack: prefill / decode / speculative verify (port of the
+serving half of ``repro.models.transformer``).
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
@@ -70,14 +70,33 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     return x, {"self": sc}
 
 
+def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 cache: Params, ctx: dict):
+    """One ``attn`` block for a (B, S, d) verify step over S fed tokens at
+    positions cur..cur+S-1.  Returns (x, deferred (B, S, ...) entries) —
+    the caller commits only the accepted prefix
+    (``kv_cache.apply_verify_writes``)."""
+    window = cfg.window_for(kind)
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    y, sc = KC.verify_attn_latent(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                                  ctx["feed_mask"], window,
+                                  theta=_theta(cfg, kind))
+    x = x + y
+    x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    return x, {"self": sc}
+
+
 def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
-              caches: list | None = None, *, decode: bool = False):
+              caches: list | None = None, *, decode: bool = False,
+              verify: bool = False):
     """Apply every layer in order.  Prefill returns (x, new caches); decode
-    returns (x, deferred updates)."""
+    and verify return (x, deferred updates)."""
     outs = []
     for i, kind in enumerate(cfg.expanded_layers()):
         p = params["layers"][i]
-        if decode:
+        if verify:
+            x, o = block_verify(cfg, kind, p, x, caches[i], ctx)
+        elif decode:
             x, o = block_decode(cfg, kind, p, x, caches[i], ctx)
         else:
             x, o = block_full(cfg, kind, p, x, ctx)
@@ -135,6 +154,30 @@ def decode_step(cfg: ModelConfig, params: Params, caches: list,
     KC.apply_decode_writes(caches, updates, cur, active)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_for(cfg, params, x)[:, 0], caches
+
+
+def verify_step(cfg: ModelConfig, params: Params, caches: list,
+                tokens: torch.Tensor, cur: torch.Tensor,
+                feed_mask: torch.Tensor):
+    """Speculative-decoding target pass: logits for S fed tokens in one
+    pass.  tokens (B, S) — column 0 is the slot's next sequential feed,
+    columns 1.. are draft proposals (-1 pads embed as token 0); cur (B,)
+    the position of column 0; feed_mask (B, S) marks candidate columns.
+    Cache writes are NOT applied: the deferred (B, S, ...) updates are
+    returned for :func:`commit_verify_writes`.  Returns
+    (logits (B, S, V) float32, updates)."""
+    x = embed_tokens(cfg, params, tokens.clamp(min=0))
+    ctx = {"cur": cur, "feed_mask": feed_mask}
+    x, updates = run_stack(cfg, params, x, ctx, caches, verify=True)
+    x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
+    return logits_for(cfg, params, x), updates
+
+
+def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
+                         mask: torch.Tensor) -> list:
+    """Write a verify step's deferred entries for the accepted prefix
+    (``mask`` (B, S) bool), in place."""
+    return KC.apply_verify_writes(caches, updates, cur, mask)
 
 
 def decode_loop(cfg: ModelConfig, params: Params, caches: list,

@@ -1,18 +1,24 @@
 """Token sampling for the serving engine (port of ``repro.serving.sampler``).
 
 ``SamplingParams`` is the per-request policy (greedy / temperature /
-top-k / top-p).  ``filtered_logits`` is an exact port.  Greedy rows are
-exact argmax.  Sampled rows draw Gumbel noise from a per-slot
-``torch.Generator`` seeded from ``(seed, uid)``, so a request's sampled
-stream is reproducible run to run; it does not reproduce ``jax.random``'s
-threefry bits (the bit-exact sampler is the next item in ROADMAP.md).
+top-k / top-p); ``sample_tokens`` is the batched sampler the engine calls
+every step, with every knob a per-slot tensor.  Greedy rows (temperature
+below ``_TEMP_EPS``) are exact argmax.  Sampled rows draw with
+``jax.random.categorical`` ported bit for bit (:mod:`.prng`): each slot
+carries its own (2,) key, ``fold_in(PRNGKey(seed), uid)`` at admission,
+split once per step and advanced only where the slot emitted — so a
+request's sampled stream is the JAX engine's, token for token, and does
+not depend on ``sync_every``, ``prefill_chunk`` or its batch-mates.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
+
+from repro_torch.serving import prng
 
 NEG_INF = -1e30
 _TEMP_EPS = 1e-6
@@ -20,12 +26,16 @@ _TEMP_EPS = 1e-6
 # temperature would push them to float32 infinity and NaN the top-p
 # softmax); NEG_INF masking stays strictly below the bound.
 _SCALED_MAX = 1e29
+# XLA's CPU backend rewrites a cumulative sum longer than this into
+# blocks of this length (ReduceWindowRewriter): sequential sums inside
+# each block plus the recursive cumulative sum of the block totals.
+_SCAN_BLOCK = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class SamplingParams:
     """temperature 0 -> greedy argmax; top_k 0 and top_p 1 disable their
-    filters; ``seed`` and the request uid seed the slot's generator."""
+    filters; ``seed`` is folded with the request uid into the slot's key."""
 
     temperature: float = 0.0
     top_k: int = 0
@@ -44,14 +54,35 @@ class SamplingParams:
     def greedy(self) -> bool:
         return self.temperature < _TEMP_EPS
 
-    def slot_generator(self, uid: int, device) -> torch.Generator:
-        """The generator a slot draws from for this request."""
-        g = torch.Generator(device=device)
-        g.manual_seed((self.seed * 1_000_003 + uid) % (2 ** 63))
-        return g
+    def slot_key(self, uid: int) -> np.ndarray:
+        """The (2,) uint32 key a slot starts from for this request:
+        ``fold_in(PRNGKey(seed), uid)``, as the JAX package derives it."""
+        key = prng.fold_in(prng.prng_key(self.seed), uid)
+        return key.numpy().astype(np.uint32)
 
 
 GREEDY = SamplingParams()
+
+
+def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """float32 cumulative sum over the last axis, in the summation order of
+    ``jnp.cumsum`` on XLA's CPU backend (``_SCAN_BLOCK``-wide blocks, each
+    summed in order, plus the recursive scan of the block totals).  Each
+    step is one float32 add (``torch.cumsum`` accumulates in double on the
+    CPU, which rounds differently)."""
+    *lead, n = x.shape
+    b = _SCAN_BLOCK
+    if n <= b:
+        cols = [x[..., 0]]
+        for j in range(1, n):
+            cols.append(cols[-1] + x[..., j])
+        return torch.stack(cols, dim=-1)
+    nb = -(-n // b)
+    xp = torch.nn.functional.pad(x, (0, nb * b - n)).reshape(*lead, nb, b)
+    within = blocked_cumsum(xp)
+    totals = blocked_cumsum(within[..., -1])
+    carry = torch.nn.functional.pad(totals[..., :-1], (1, 0))
+    return (within + carry[..., None]).reshape(*lead, nb * b)[..., :n]
 
 
 def filtered_logits(logits: torch.Tensor, top_k: torch.Tensor,
@@ -72,34 +103,38 @@ def filtered_logits(logits: torch.Tensor, top_k: torch.Tensor,
     masked = torch.where(keep_k, logits, neg)
     sorted_l = torch.gather(masked, -1, order)
     probs = torch.softmax(sorted_l, dim=-1)
-    before = torch.cumsum(probs, dim=-1) - probs
+    before = blocked_cumsum(probs) - probs
     keep_sorted = before < top_p[:, None]
     keep_sorted[:, 0] = True
     keep_p = torch.gather(keep_sorted, -1, ranks)
     return torch.where(keep_k & keep_p, logits, neg)
 
 
-def sample_row(logits: torch.Tensor, sp: SamplingParams,
-               gen: torch.Generator) -> torch.Tensor:
-    """One draw for one row (V,): temperature, filters, then Gumbel-max
-    with noise from ``gen`` (advanced by one draw)."""
-    t = max(sp.temperature, _TEMP_EPS)
-    scaled = (logits.float() / t).clamp(-_SCALED_MAX, _SCALED_MAX)[None]
-    dev = logits.device
-    masked = filtered_logits(scaled, torch.tensor([sp.top_k], device=dev),
-                             torch.tensor([sp.top_p], device=dev))[0]
-    u = torch.rand(masked.shape, generator=gen, device=dev)
-    gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
-    return (masked + gumbel).argmax()
+def split_keys(keys: torch.Tensor) -> torch.Tensor:
+    """Advance per-slot keys one step: (B, 2) -> (B, 2, 2); [:, 1] is this
+    step's draw key and [:, 0] the chain carried forward (the JAX
+    engine's use of ``jax.random.split``)."""
+    return prng.split(keys)
 
 
-def sample_tokens(logits: torch.Tensor, specs: list, gens: list) -> torch.Tensor:
-    """One token per row of ``logits`` (B, V).  ``specs[i]`` is row i's
-    SamplingParams (None for an idle row) and ``gens[i]`` its generator.
-    Greedy and idle rows are exact argmax; an all-greedy batch draws
-    nothing.  Stays on the device (no host sync)."""
-    out = logits.argmax(dim=-1)
-    for i, (sp, g) in enumerate(zip(specs, gens)):
-        if sp is not None and not sp.greedy:
-            out[i] = sample_row(logits[i], sp, g)
-    return out
+def sample_tokens(logits: torch.Tensor, temperature: torch.Tensor,
+                  top_k: torch.Tensor, top_p: torch.Tensor,
+                  keys: torch.Tensor, *, any_sampled: bool | None = None):
+    """One token per row.  logits (B, V); temperature / top_p (B,) float32,
+    top_k (B,) int; keys (B, 2) draw keys (use once).  Rows with
+    temperature below ``_TEMP_EPS`` return exact argmax.  An all-greedy
+    batch draws nothing: ``any_sampled`` says so from the host's own
+    knowledge (computed from ``temperature`` when None, which waits for the
+    device when the tensor lives on one)."""
+    logits = logits.float()
+    greedy = logits.argmax(dim=-1)
+    is_greedy = temperature < _TEMP_EPS
+    if any_sampled is None:
+        any_sampled = not bool(is_greedy.all())
+    if not any_sampled:
+        return greedy
+    t = temperature.float().clamp(min=_TEMP_EPS)[:, None]
+    scaled = (logits / t).clamp(-_SCALED_MAX, _SCALED_MAX)
+    masked = filtered_logits(scaled, top_k, top_p)
+    drawn = prng.categorical(keys, masked)
+    return torch.where(is_greedy, greedy, drawn)

@@ -97,8 +97,8 @@ def test_engine_ring_cap_stop_matches_jax(model):
 
 
 def test_sampled_streams_reproducible(model):
-    """Sampled rows draw from per-slot generators seeded by (seed, uid):
-    the same submissions give the same streams run to run."""
+    """Sampled rows draw with per-slot keys folded from (seed, uid): the
+    same submissions give the same streams run to run."""
     cfg, _, pcfg, pp = model
     prompts = [np.arange(3 + i, dtype=np.int32) for i in range(3)]
     sp = SamplingParams(temperature=0.8, top_k=20, top_p=0.9, seed=11)
