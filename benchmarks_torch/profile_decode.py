@@ -3,6 +3,7 @@
 their time.
 
     python3 benchmarks_torch/profile_decode.py [--cache-quant-bits 8] [--spec-depth 3]
+                                               [--page-size 16]
 
 Builds full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio
 0.5), bf16, random weights from seed 0, on one CUDA card, at the main
@@ -17,8 +18,11 @@ end.  Needs a card; imports nothing of JAX.
 ``--cache-quant-bits 8`` serves the int8 latent ring (decode runs K3);
 ``--spec-depth N`` replaces each decode step by one speculative verify step
 over N + 1 fed tokens with all of them committed (``verify_step`` plus
-``commit_verify_writes``: K5, or K6 on the int8 ring).  Without flags it
-measures what it always did.
+``commit_verify_writes``: K5, or K6 on the int8 ring).  ``--page-size N``
+moves the prefilled rings into a paged pool of N-token pages (every slot
+page mapped, in a shuffled order) and steps through the page table: K4 /
+K7 on the float pool, the gathered view with K3 / K6 on the int8 pool.
+Without flags it measures what it always did.
 """
 
 from __future__ import annotations
@@ -75,6 +79,9 @@ def main() -> int:
     ap.add_argument("--spec-depth", type=int, default=0,
                     help="time verify steps of spec_depth + 1 tokens instead "
                          "of decode steps")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="step over a paged pool of this page size; default: "
+                         "the ring")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -84,6 +91,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.weights import init_params
+    from repro_torch.serving.engine import _merge_slot_paged
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -110,14 +118,28 @@ def main() -> int:
     cold_s = time.perf_counter() - t0
     print(f"card: {card}")
     print(f"qwen3-4b r={cfg.recalkv.rank_k} bf16, cache_quant_bits "
-          f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, B={B}, prompt "
-          f"{PROMPT}, ring {MAX_LEN}: first (cold) prefill {cold_s:.4f} s")
+          f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, page_size "
+          f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}: first "
+          f"(cold) prefill {cold_s:.4f} s")
     out = {"card": card, "batch": B, "prompt": PROMPT,
            "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
-           "spec_depth": args.spec_depth, "cold_prefill_s": cold_s,
+           "spec_depth": args.spec_depth, "page_size": args.page_size,
+           "cold_prefill_s": cold_s,
            "prefill": report("warm prefill", 1, *traced(prefill, 1))}
     tok, cur = state["logits"].argmax(-1), lens.clone()
-    caches = state["caches"]
+    caches, pages = state.pop("caches"), None
+    if args.page_size:
+        ps = args.page_size
+        n_sp = MAX_LEN // ps
+        perm = torch.randperm(B * n_sp, generator=torch.Generator().manual_seed(3)) + 1
+        ptab = perm.reshape(B, n_sp).to(device="cuda", dtype=torch.int32)
+        pool = T.init_decode_cache(cfg, B, MAX_LEN, "cuda",
+                                   pages=(B * n_sp + 1, ps))
+        rows = torch.arange(B, device="cuda").repeat_interleave(n_sp)
+        cols = torch.arange(n_sp, device="cuda").repeat(B)
+        caches = _merge_slot_paged(pool, caches, rows, cols, ptab.reshape(-1).long(), ps)
+        pages = (ptab, ps)
+        torch.cuda.synchronize()
 
     n_fed = args.spec_depth + 1
     fed_gen = torch.Generator(device="cuda").manual_seed(2)
@@ -125,15 +147,15 @@ def main() -> int:
     def step():
         nonlocal tok, cur
         if not args.spec_depth:
-            lg, _ = T.decode_step(cfg, params, caches, tok, cur)
+            lg, _ = T.decode_step(cfg, params, caches, tok, cur, pages=pages)
             tok, cur = lg.argmax(-1), cur + 1
             return
         fed = torch.randint(0, cfg.vocab_size, (B, n_fed), generator=fed_gen,
                             device="cuda")
         fed[:, 0] = tok
         mask = torch.ones((B, n_fed), dtype=torch.bool, device="cuda")
-        lg, upd = T.verify_step(cfg, params, caches, fed, cur, mask)
-        T.commit_verify_writes(caches, upd, cur, mask)
+        lg, upd = T.verify_step(cfg, params, caches, fed, cur, mask, pages=pages)
+        T.commit_verify_writes(caches, upd, cur, mask, pages=pages)
         tok, cur = lg[:, -1].argmax(-1), cur + n_fed
 
     for _ in range(2):
@@ -145,6 +167,8 @@ def main() -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEPS * 1e3
     what = f"verify step ({n_fed} tokens)" if args.spec_depth else "decode step"
+    if pages is not None:
+        what += f", paged pool (page_size {args.page_size})"
     print(f"{what} {step_ms:.3f} ms (host clock, synchronised, untraced)")
     out["decode_step_ms"] = step_ms
     out["decode"] = report(what, STEPS, *traced(step, STEPS))

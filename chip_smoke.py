@@ -9,24 +9,35 @@ Phases, in order (any failure exits non-zero; none is caught):
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
    all at once) and print the build time;
 3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
-   (int8 multi-query verify) — at the main path's shapes against its
+   (int8 multi-query verify), K4 and K7 (K1 and K5 over the paged pool,
+   through a ragged page table) — at the main path's shapes against its
    plain PyTorch version, in float32 (TF32 off) and bf16, and timed
    beside the plain version, a PyTorch library call where one computes
    the same function, and the least time the card could take (its bound);
+   K4 and K7 must also equal K1 and K5 on the table-gathered ring bit for
+   bit, and are timed beside them;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
    and decode steps, and prefill and one 4-token verify step on float and
-   int8 rings, through the einsum reference and the kernel backend;
+   int8 rings, through the einsum reference and the kernel backend; then
+   one decode and one 4-token verify step on paged float and int8 pools
+   holding the ring's content, which must equal the ring's logits;
 5. the same model served through ``Engine`` (8 slots, max_len 4096) in
-   three runs, each with the kernel launch counts of that run:
+   five runs, each with the kernel launch counts of that run:
    A, float ring, no speculation, one chunked prompt (K1, K2);
-   B, the slice's main path: int8 ring, spec_depth 3, draft "layers:4",
-   one chunked prompt (K2, K3 in the draft's decode steps, K6 in verify);
+   B, int8 ring, spec_depth 3, draft "layers:4", one chunked prompt (K2,
+   K3 in the draft's decode steps, K6 in verify);
    C, float ring, spec_depth 3, "ngram" draft on prompts that repeat a
    motif (K2, K5);
+   D, the slice's main path: the paged float pool (page_size 16) with
+   prefix-affinity admission, lazy pages and one pinned prefix, 12
+   requests sharing a 1024-token system prompt in a pool small enough to
+   preempt (K2, K4); it must share pages and preempt at least once;
+   E, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
+   prompts (K2, K7); its streams must equal C's token for token;
 6. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
-   error, ``launches`` its launches over runs A-C), the card line, and the
+   error, ``launches`` its launches over runs A-E), the card line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
@@ -55,6 +66,7 @@ F32_TOL = 1e-4      # max |kernel - plain| in float32, TF32 off
 # Both sides round the same f32 result to bf16, so they may differ by one
 # bf16 step (at most 2^-7 of the value); the rms floor covers elements near 0.
 BF16_REL, BF16_RMS = 2e-2, 1e-2
+PAGE = 16           # the paged pool's page size (the engine's default at 4096)
 
 
 def log(*a):
@@ -202,6 +214,112 @@ def phase_latent(torch, gen, nq, quant):
                         decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
 
 
+def paged_inputs(torch, gen, nq):
+    """K4 / K7 operands: ``ring_inputs``' latents paged into a pool through
+    a ragged table.  Row b holds ``lens[b]`` tokens (1024..4096); its pages
+    sit at shuffled physical pages, pages past its length on the null page
+    0, and rows 0 and 1 share their first physical page (same content).
+    The bias and rotation tables are slot-major, from the positions the
+    table gathers.  Returns (operands, the K1 / K5 ring view of the same
+    content, the bound's byte and FLOP counts)."""
+    from repro_torch.kernels import ops
+    a = ring_inputs(torch, gen, nq)
+    B, S, G, Hg, dh, r, s, _ = a["shape"]
+    n_sp = S // PAGE
+    g = torch.Generator().manual_seed(SEED + 3)
+    lens = torch.randint(1024, S + 1, (B,), generator=g)
+    used = (lens + PAGE - 1) // PAGE
+    n_pages = int(used.sum()) + 1
+    perm = (torch.randperm(n_pages - 1, generator=g) + 1).tolist()
+    ptab = torch.zeros(B, n_sp, dtype=torch.int32)
+    for b in range(B):
+        ptab[b, :used[b]] = torch.tensor(perm[:used[b]], dtype=torch.int32)
+        perm = perm[used[b]:]
+    ptab[1, 0] = ptab[0, 0]
+    for k in ("zk", "zv"):
+        a[k][1, :PAGE] = a[k][0, :PAGE]
+    ptab = ptab.to("cuda")
+    pools = {}
+    for k in ("zk", "zv"):
+        pool = torch.zeros((n_pages, PAGE) + tuple(a[k].shape[2:]), device="cuda")
+        rows = a[k].reshape((B, n_sp, PAGE) + tuple(a[k].shape[2:]))
+        mapped = ptab != 0
+        pool[ptab[mapped].long()] = rows[mapped]
+        pools[k] = pool
+    # positions below a row's length are on its mapped pages; the rest
+    # (partly filled last page, null pages) read -1
+    cur = lens.to("cuda")
+    t = torch.arange(S, device="cuda")
+    pos = torch.where(t[None] < cur[:, None], t[None], -1)
+    pos_q = cur[:, None] + torch.arange(nq, device="cuda")
+    a["cos"], a["sin"] = ops.rope_tables_for(pos, dh, 1e6)
+    a["self_cos"], a["self_sin"] = ops.rope_tables_for(pos_q, dh, 1e6)
+    feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    a["bias"] = bias[:, 0, :S].contiguous() if nq == 1 else bias
+    cols = int(used.sum()) * PAGE          # mapped ring columns (tiles not skipped)
+    flops = 2.0 * G * (cols + B * nq) * (r * s * dh + nq * Hg * (dh + r))
+    return a, ptab, pools, cols, flops
+
+
+def phase_paged(torch, gen, nq):
+    """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
+    pool: against the plain version in f32 and bf16, then bit for bit
+    against K1 / K5 on the gathered ring, each timed; the bound counts the
+    mapped pages, the table and the slot-major tables of the mapped
+    columns."""
+    from repro_torch.kernels import latent_decode as K
+    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
+    B, S, G, Hg, dh, r, s, _ = a["shape"]
+    one = nq == 1
+    name = "latent_decode_attention_paged" if one else "latent_decode_attention_mq_paged"
+    kernel, plain = getattr(K, name), getattr(K, name + "_plain")
+    ring = K.latent_decode_attention if one else K.latent_decode_attention_mq
+    sel = (lambda x: x[:, 0]) if one else (lambda x: x)
+    res = {}
+    for dt in (torch.float32, torch.bfloat16):
+        zk, zv = pools["zk"].to(dt), pools["zv"].to(dt)
+        args = (ptab, a["q"].to(dt), zk, zv, a["r_k"].to(dt), a["cos"], a["sin"], a["bias"])
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_zk=sel(a["self_zk"]).to(dt),
+                  self_zv=sel(a["self_zv"]).to(dt), self_cos=sel(a["self_cos"]),
+                  self_sin=sel(a["self_sin"]))
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        res[dt] = compare(name, got, plain(*args, **kw), dt)
+        view_args = (args[1], K.gather_pages(zk, ptab), K.gather_pages(zv, ptab), *args[4:])
+        view = ring(*view_args, **kw)
+        torch.cuda.synchronize()
+        diff = (got.float() - view.float()).abs().max().item()
+        log(f"{name} {dt}: max abs diff against {ring.__name__} on the gathered ring "
+            f"{diff:.3e} (0 expected: same tiles, same order)")
+        if diff != 0:
+            raise AssertionError(f"{name} differs from {ring.__name__} on the gathered "
+                                 f"ring by {diff:.3e}")
+    ms = cuda_ms(lambda: kernel(*args, **kw))
+    view_ms = cuda_ms(lambda: ring(*view_args, **kw))
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
+    elt = args[2].element_size()
+    used_pages = int(torch.unique(ptab[ptab != 0]).numel())
+    lat = used_pages * PAGE * G * 2 * r * elt
+    tables = cols * (dh * 4 + 4 * nq)            # cos + sin (f32) + bias per column
+    b_ms, by = bound(lat + tables + nbytes(ptab, args[1], args[4], got,
+                                           *[v for v in kw.values()
+                                             if hasattr(v, "numel")]), flops)
+    log(f"{name} B={B} S={S} page_size={PAGE} {used_pages} pages nq={nq}: max err f32 "
+        f"{res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, "
+        f"{ring.__name__} on the view {view_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({by})")
+    line = 456 if one else 567
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/latent_decode.cu",
+            "replaces": f"src/repro/kernels/latent_decode.py:{line}",
+            "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
+            "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+            "library_ms": None, "view_ms": view_ms, "view_max_abs_diff": 0.0,
+            "shape": (f"B={B} S={S}+{nq} page_size={PAGE} pages={used_pages} G={G} "
+                      f"Hg={Hg} nq={nq} dh={dh} r={r} bf16, ragged table")}
+
+
 def phase_k2(torch, gen):
     """K2 at B=8, T=2048, H=32, Hkv=8, latent values Hv=2, dv=256, causal."""
     from repro_torch.kernels.flash_prefill import (
@@ -288,16 +406,72 @@ def phase_backends(torch, cfg, params):
     return out
 
 
-# run: (cache_quant_bits, spec_depth, draft, prefill_chunk, sync_every,
-#       kernels that must launch)
+def phase_paged_steps(torch, cfg, params):
+    """One decode step and one 4-token verify step on paged float and int8
+    pools (page_size 16, every slot page mapped at a shuffled physical
+    page) holding the content of a prefilled ring (B=2, prompts of 512
+    and 300 tokens, max_len 1024), through the kernel backend: the logits
+    must equal the same steps' on the ring (K4 / K7 run K1's / K5's tiles
+    in order on the same values; the int8 pool is read through the
+    gathered view with K3 / K6)."""
+    from repro_torch.models import transformer as T
+    from repro_torch.serving.engine import _merge_slot_paged
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    B, L = 2, 1024
+    toks = torch.randint(0, cfg.vocab_size, (B, 512), generator=gen, device="cuda")
+    lens = torch.tensor([512, 300], device="cuda")
+    tok = torch.randint(0, cfg.vocab_size, (B,), generator=gen, device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (B, 4), generator=gen, device="cuda")
+    mask = torch.ones((B, 4), dtype=torch.bool, device="cuda")
+    n_sp = L // PAGE
+    perm = torch.randperm(B * n_sp, generator=torch.Generator().manual_seed(SEED + 5)) + 1
+    ptab = perm.reshape(B, n_sp).to(device="cuda", dtype=torch.int32)
+    rows = torch.arange(B, device="cuda").repeat_interleave(n_sp)
+    cols = torch.arange(n_sp, device="cuda").repeat(B)
+    out = {}
+    for bits in (None, 8):
+        c = dataclasses.replace(cfg, cache_quant_bits=bits)
+        _, ring = T.prefill(c, params, toks, lens, L)
+        pool = T.init_decode_cache(c, B, L, "cuda", pages=(B * n_sp + 1, PAGE))
+        _merge_slot_paged(pool, ring, rows, cols, ptab.reshape(-1).long(), PAGE)
+        pages = (ptab, PAGE)
+        got = {"decode": T.decode_step(c, params, pool, tok, lens, pages=pages)[0]}
+        want = {"decode": T.decode_step(c, params, ring, tok, lens)[0]}
+        got["verify"] = T.verify_step(c, params, pool, fed, lens + 1, mask, pages=pages)[0]
+        want["verify"] = T.verify_step(c, params, ring, fed, lens + 1, mask)[0]
+        for what in ("decode", "verify"):
+            diff = (got[what] - want[what]).abs().max().item()
+            name = f"paged {'int8' if bits else 'float'} pool, {what}"
+            log(f"{name}: logits max abs diff against the ring {diff:.3e}")
+            if not torch.isfinite(got[what]).all() or diff != 0:
+                raise AssertionError(f"{name}: logits differ from the ring's by {diff:.3e}")
+            out[name] = diff
+        del ring, pool
+    return out
+
+
+# Engine runs: cache_quant_bits, spec_depth, draft, prefill_chunk, sync_every,
+# the kernels that must launch, and the paged pool's keywords (none: ring).
+D_SUFFIX = (865, 515, 569, 518, 348, 702, 628, 933, 233, 716, 296, 1011)
+D_NEW, D_PAGES = 256, 385
 ENGINE_RUNS = {
-    "A": (None, 0, None, 1792, 16,
-          ("latent_decode_attention", "flash_prefill_attention")),
-    "B": (8, 3, "layers:4", 960, 8,
-          ("flash_prefill_attention", "latent_decode_attention_quant",
-           "latent_decode_attention_mq_quant")),
-    "C": (None, 3, "ngram", None, 8,
-          ("flash_prefill_attention", "latent_decode_attention_mq")),
+    "A": dict(bits=None, depth=0, draft=None, chunk=1792, sync=16,
+              must=("latent_decode_attention", "flash_prefill_attention")),
+    "B": dict(bits=8, depth=3, draft="layers:4", chunk=960, sync=8,
+              must=("flash_prefill_attention", "latent_decode_attention_quant",
+                    "latent_decode_attention_mq_quant")),
+    "C": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
+              must=("flash_prefill_attention", "latent_decode_attention_mq")),
+    # a 385-page pool (384 usable; 433 MiB of bf16 latents at 72 KiB per
+    # token) holds one and a half full-length rings
+    "D": dict(bits=None, depth=0, draft=None, chunk=None, sync=16,
+              must=("flash_prefill_attention", "latent_decode_attention_paged"),
+              paged=dict(cache_layout="paged", page_size=PAGE, n_pages=D_PAGES,
+                         policy="prefix-affinity", lazy_pages=True, pin_prefixes=1)),
+    "E": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
+              must=("flash_prefill_attention", "latent_decode_attention_mq_paged"),
+              paged=dict(cache_layout="paged", page_size=PAGE,
+                         policy="reach-packing")),
 }
 
 
@@ -308,19 +482,24 @@ def engine_prompts(torch, run, vocab):
         return [(rand(n), 32) for n in (512, 640, 768, 1024, 1280, 1536, 1792, 2048)]
     if run == "B":          # 512..1024; the 1024 one streams 64 tokens
         return [(rand(n), 32) for n in (512, 576, 640, 704, 768, 832, 896, 1024)]
-    motif = rand(64)        # C: a motif repeated, for prompt lookup
+    if run == "D":          # a shared 1024-token system prompt + own suffixes
+        system = rand(1024)
+        return [(np.concatenate([system, rand(n)]), D_NEW) for n in D_SUFFIX]
+    motif = rand(64)        # C and E: a motif repeated, for prompt lookup
     return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
 
 
 def phase_engine(torch, cfg, params, run):
     from repro_torch import kernels
     from repro_torch.serving import Engine, Request
-    bits, depth, draft, chunk, sync, must = ENGINE_RUNS[run]
+    spec = ENGINE_RUNS[run]
+    bits, depth, draft, must = spec["bits"], spec["depth"], spec["draft"], spec["must"]
     c = dataclasses.replace(cfg, cache_quant_bits=bits)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(c, params, max_slots=8, max_len=4096, sync_every=sync,
-                 prefill_chunk=chunk, spec_depth=depth, draft=draft)
+    eng = Engine(c, params, max_slots=8, max_len=4096, sync_every=spec["sync"],
+                 prefill_chunk=spec["chunk"], spec_depth=depth, draft=draft,
+                 **spec.get("paged", {}))
     reqs = engine_prompts(torch, run, cfg.vocab_size)
     for uid, (prompt, n_new) in enumerate(reqs):
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
@@ -332,12 +511,16 @@ def phase_engine(torch, cfg, params, run):
     launches = {k.__name__: k.launches for k in kernels.KERNELS}
     m = eng.metrics()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"engine run {run} (int8 ring: {bits is not None}, spec_depth {depth}, draft "
+    pool = {k: m[k] for k in ("cache_layout", "page_size", "pages_total", "pages_peak",
+                              "pages_shared", "cow_forks", "preemptions",
+                              "prefill_calls_saved", "prefix_resurrections",
+                              "pages_pinned", "policy", "lazy_pages")}
+    log(f"engine run {run} (int8 cache: {bits is not None}, spec_depth {depth}, draft "
         f"{draft}): {len(done)} requests, {m['tokens']} tokens in {wall:.3f} s, "
         f"{m['tokens_per_s']:.2f} tok/s, ttft {m['ttft_s']:.3f} s, windows "
         f"{m['windows']}, accept rate {m['accept_rate']:.3f} ({m['draft_accepted']}/"
         f"{m['draft_proposed']}), prefill calls {m['prefill_calls']}, peak memory "
-        f"{peak:.2f} GiB, launches {launches}")
+        f"{peak:.2f} GiB, launches {launches}, pool {pool}")
     if len(done) != len(reqs) or any(len(r.out_tokens) != n for r, (_, n) in
                                      zip(sorted(done, key=lambda r: r.uid), reqs)):
         raise AssertionError(f"engine run {run} did not finish every request")
@@ -347,14 +530,18 @@ def phase_engine(torch, cfg, params, run):
     if missing:
         raise AssertionError(f"engine run {run}: kernels of its path never launched: "
                              f"{missing} ({launches})")
-    return launches, {**{k: m[k] for k in ("tokens", "tokens_per_s", "ttft_s", "windows",
-                                           "prefill_calls", "run_seconds", "spec_depth",
-                                           "draft", "draft_proposed", "draft_accepted",
-                                           "accept_rate")},
-                      "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall}
+    if run == "D" and (m["preemptions"] < 1 or m["pages_shared"] < 1):
+        raise AssertionError(f"engine run D must share pages and preempt: {pool}")
+    streams = {r.uid: list(r.out_tokens) for r in done}
+    return launches, streams, {
+        **{k: m[k] for k in ("tokens", "tokens_per_s", "ttft_s", "windows",
+                             "prefill_calls", "run_seconds", "spec_depth", "draft",
+                             "draft_proposed", "draft_accepted", "accept_rate")},
+        **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall}
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -380,8 +567,9 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = [phase_latent(torch, gen, 1, False), phase_k2(torch, gen),
-               phase_latent(torch, gen, 1, True), phase_latent(torch, gen, 4, False),
-               phase_latent(torch, gen, 4, True)]
+               phase_latent(torch, gen, 1, True), phase_paged(torch, gen, 1),
+               phase_latent(torch, gen, 4, False), phase_latent(torch, gen, 4, True),
+               phase_paged(torch, gen, 4)]
     torch.cuda.empty_cache()
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
@@ -396,9 +584,14 @@ def main() -> int:
         f"{cfg.recalkv.num_groups(cfg.num_kv_heads)}: {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.2f} s")
     backends = phase_backends(torch, cfg, params)
-    serving, by_run = {}, {}
+    backends["paged"] = phase_paged_steps(torch, cfg, params)
+    serving, by_run, streams = {}, {}, {}
     for run in ENGINE_RUNS:
-        by_run[run], serving[run] = phase_engine(torch, cfg, params, run)
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    if streams["E"] != streams["C"]:
+        raise AssertionError(f"engine run E (paged pool) streams differ from run C's "
+                             f"(ring): {streams['E']} vs {streams['C']}")
+    log("engine run E streams equal run C's token for token")
     for e in entries:
         e["launches_by_run"] = {run: by_run[run][e["name"]] for run in by_run}
         e["launches"] = sum(e["launches_by_run"].values())
@@ -406,6 +599,7 @@ def main() -> int:
     if never:
         raise AssertionError(f"kernels never launched on the engine runs: {never}")
     log(json.dumps({"serving": serving, "backends": backends}))
+    log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,4 @@
-// ReCalKV latent-ring flash decode for Hopper (sm_90a), CUDA C++: four
+// ReCalKV latent-ring flash decode for Hopper (sm_90a), CUDA C++: six
 // kernels from one template.
 //
 //   K1 recalkv_latent_decode           replaces src/repro/kernels/
@@ -6,6 +6,8 @@
 //   K3 recalkv_latent_decode_quant     latent_decode_q.py::latent_decode_attention_quant
 //   K5 recalkv_latent_decode_mq        latent_decode.py::latent_decode_attention_mq
 //   K6 recalkv_latent_decode_mq_quant  latent_decode_q.py::latent_decode_attention_mq_quant
+//   K4 recalkv_latent_decode_paged     latent_decode.py::latent_decode_attention_paged
+//   K7 recalkv_latent_decode_mq_paged  latent_decode.py::latent_decode_attention_mq_paged
 //
 // For every (batch b, latent group g) and the R = nq * Hg query rows of
 // that group (nq queries, Hg = s * qpk heads each, rows ordered (query,
@@ -27,15 +29,29 @@
 // value scale multiplies the softmax weight of its column, so the
 // dequantized values are never materialised.
 //
+// K4/K7 read a page-major pool instead of a slot-major ring: latents
+// (n_pages, page_size, G, r) and a (B, n_sp) int32 page table ``ptab``.
+// Ring column t < S = n_sp * page_size of batch row b lives in pool row
+// ptab[b, t / page_size] * page_size + t % page_size; the bias and the
+// rotation tables stay slot-major (B, S, ...), as the JAX wrappers build
+// them from the table-gathered positions.  The lookup is per row, because
+// a 32-column tile spans several pages when page_size < 32, and a tile
+// whose columns all sit on unmapped slot pages (the null page 0, pos = -1,
+// bias masked) is skipped before anything is loaded, as in the ring
+// kernels.  With the same chunking, K4 runs K1's tiles in K1's order on
+// the same values, so its output is K1's on the gathered ring, bit for bit.
+//
 // What bounds it on an H100: at the main-path shape (B=8, S=4096, G=2,
 // r=256, s=4, dh=128) a K1 call must read ~84 MB (zk, zv and the f32
 // cos/sin tables) — 25 us at 3.35 TB/s — and do ~17 GFLOP of key
 // reconstruction, 17 us on bf16 tensor cores.  The int8 ring reads
 // r_k + r_v + 8 = 520 bytes per token and group instead of 1,024; the
-// verify kernels add (nq - 1) * Hg rows of scoring per rebuilt key tile.
+// verify kernels add (nq - 1) * Hg rows of scoring per rebuilt key tile;
+// the paged kernels read the mapped pages and the page table instead of
+// the ring, the same bytes for a full table.
 // This version does the reconstruction on CUDA cores from shared memory
 // and is bound by that arithmetic (K1 takes ~1.4 ms at that shape on an
-// H100 80GB HBM3 at 700 W; chip_smoke.py measures all four and PERF.md
+// H100 80GB HBM3 at 700 W; chip_smoke.py measures all six and PERF.md
 // keeps the times); moving the (32 x r) @ (r x dh) product onto wgmma is
 // the next step.
 //
@@ -129,8 +145,21 @@ struct Args {
   float* part_l;              // (B, G, n_chunks, R)
   void* out;                  // (B, G, R, rv)
   int B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len;
+  const int* ptab;            // (B, S / page_size) page table, or null (ring)
+  int page_size, n_pages;     // pool latents (n_pages, page_size, G, r)
   float scale, eps;
 };
+
+// Latent row of ring column t < S of batch row b: the slot-major ring
+// row, or the pool row through the page table.  A page index outside the
+// pool reads nothing (-1), so a bad table cannot fault the card.
+__device__ __forceinline__ int latent_row(const Args& a, int b, int t) {
+  if (a.ptab == nullptr) return b * a.S + t;
+  const int n_sp = a.S / a.page_size;
+  const int page = a.ptab[b * n_sp + t / a.page_size];
+  if (page < 0 || page >= a.n_pages) return -1;
+  return page * a.page_size + t % a.page_size;
+}
 
 template <int DH>
 __host__ __device__ constexpr int k_stride() { return DH + 1; }
@@ -139,7 +168,7 @@ template <typename L, int DH>
 size_t smem_bytes(int R, int nq, int rk, int rv) {
   size_t floats = size_t(R) * DH + size_t(R) * rv + 3 * R + size_t(R) * SB +
                   size_t(nq) * SB + 2 * SB * (DH / 2) + SB * k_stride<DH>() + RC * DH +
-                  2 * SB;
+                  2 * SB + SB;  // + the tile's latent rows (int)
   return floats * sizeof(float) + size_t(SB) * (rk + rv) * sizeof(L);
 }
 
@@ -178,7 +207,8 @@ latent_decode_partial(Args a) {
   float* r_s = k_s + SB * KS;             // RC * DH
   float* ksc_s = r_s + RC * DH;           // SB key scales (int8 ring)
   float* vsc_s = ksc_s + SB;              // SB value scales
-  L* zk_s = reinterpret_cast<L*>(vsc_s + SB);  // SB * rk
+  int* row_s = reinterpret_cast<int*>(vsc_s + SB);  // SB latent rows (-1: none)
+  L* zk_s = reinterpret_cast<L*>(row_s + SB);  // SB * rk
   L* zv_s = zk_s + SB * rk;                    // SB * rv
 
   const T* q = static_cast<const T*>(a.q);
@@ -210,28 +240,40 @@ latent_decode_partial(Args a) {
     }
     if (!__syncthreads_or(valid)) continue;
 
+    // -- latent rows of the tile's ring columns (ring or page table) -----
+    if (tid < SB) {
+      const int t = tt + tid;
+      row_s[tid] = (t < t1 && t < S) ? latent_row(a, b, t) : -1;
+    }
+    __syncthreads();
+
     // -- latent, scale and rotation tiles -------------------------------
     for (int e = tid; e < SB * rk; e += THREADS) {
       const int i = e / rk, r = e - i * rk, t = tt + i;
+      const int row = row_s[i];
       L v = from_f<L>(0.f);
-      if (t < t1 && t < S) v = zk[((size_t(b) * S + t) * G + g) * rk + r];
-      else if (t < t1) v = zk_self[((size_t(b) * n_self + (t - S)) * G + g) * rk + r];
+      if (row >= 0) v = zk[(size_t(row) * G + g) * rk + r];
+      else if (t < t1 && t >= S)
+        v = zk_self[((size_t(b) * n_self + (t - S)) * G + g) * rk + r];
       zk_s[e] = v;
     }
     for (int e = tid; e < SB * rv; e += THREADS) {
       const int i = e / rv, c = e - i * rv, t = tt + i;
+      const int row = row_s[i];
       L v = from_f<L>(0.f);
-      if (t < t1 && t < S) v = zv[((size_t(b) * S + t) * G + g) * rv + c];
-      else if (t < t1) v = zv_self[((size_t(b) * n_self + (t - S)) * G + g) * rv + c];
+      if (row >= 0) v = zv[(size_t(row) * G + g) * rv + c];
+      else if (t < t1 && t >= S)
+        v = zv_self[((size_t(b) * n_self + (t - S)) * G + g) * rv + c];
       zv_s[e] = v;
     }
     if (QUANT && tid < SB) {
       const int t = tt + tid;
+      const int row = row_s[tid];
       float ks = 0.f, vs = 0.f;
-      if (t < t1 && t < S) {
-        ks = a.zk_scale[(size_t(b) * S + t) * G + g];
-        vs = a.zv_scale[(size_t(b) * S + t) * G + g];
-      } else if (t < t1) {
+      if (row >= 0) {
+        ks = a.zk_scale[size_t(row) * G + g];
+        vs = a.zv_scale[size_t(row) * G + g];
+      } else if (t < t1 && t >= S) {
         ks = a.zk_self_scale[(size_t(b) * n_self + (t - S)) * G + g];
         vs = a.zv_self_scale[(size_t(b) * n_self + (t - S)) * G + g];
       }
@@ -437,13 +479,15 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
   return static_cast<long long>(f - lat_f32 + lat);
 }
 
-// The four entry points share one argument list and return a cudaError_t
+// The six entry points share one argument list and return a cudaError_t
 // (0 = success).  All tensors contiguous, on the device of ``stream``;
 // ``is_bf16`` selects bf16 (1) or f32 (0) for q, r_k, out and (float
 // rings) the latents.  Null self latents mean no self column; null k_norm
 // means no key norm.  Each entry point checks that the operands match its
-// kernel: scales present only for the int8 kernels, one query for K1/K3.
-#define RECALKV_ENTRY(NAME, QUANT, MULTI)                                                \
+// kernel: scales present only for the int8 kernels, one query for
+// K1/K3/K4, and a page table (with page_size dividing S and a pool of
+// n_pages pages) present only for the paged kernels K4/K7.
+#define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED)                                         \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,          \
            const float* zk_scale, const float* zv_scale, const void* r_k,               \
            const float* cos, const float* sin, const float* bias, const float* k_norm,  \
@@ -451,21 +495,26 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
            const float* zv_self_scale, const float* cos_self, const float* sin_self,    \
            float* part_acc, float* part_m, float* part_l, void* out, int B, int S,      \
            int G, int Hg, int rk, int rv, int s, int nq, int n_self, int bias_cols,     \
-           int n_chunks, int chunk_len, float scale, float eps, void* stream) {         \
+           int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,    \
+           float scale, float eps, void* stream) {                                      \
     if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) ||                   \
-        ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr))                    \
+        ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                  \
+        (ptab != nullptr) != (PAGED) ||                                                 \
+        ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))              \
       return static_cast<int>(cudaErrorInvalidValue);                                   \
     Args a{q, zk, zv, zk_scale, zv_scale, r_k, cos, sin, bias, k_norm,                  \
            zk_self, zv_self, zk_self_scale, zv_self_scale, cos_self, sin_self,          \
            part_acc, part_m, part_l, out, B, S, G, Hg, rk, rv, s, nq, n_self,           \
-           bias_cols, n_chunks, chunk_len, scale, eps};                                 \
+           bias_cols, n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps};       \
     return dispatch(is_bf16, dh, QUANT, a, static_cast<cudaStream_t>(stream));          \
   }
 
-RECALKV_ENTRY(recalkv_latent_decode, false, false)           // K1
-RECALKV_ENTRY(recalkv_latent_decode_quant, true, false)      // K3
-RECALKV_ENTRY(recalkv_latent_decode_mq, false, true)         // K5
-RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true)    // K6
+RECALKV_ENTRY(recalkv_latent_decode, false, false, false)          // K1
+RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false)     // K3
+RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false)        // K5
+RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false)   // K6
+RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true)     // K4
+RECALKV_ENTRY(recalkv_latent_decode_mq_paged, false, true, true)   // K7
 
 #undef RECALKV_ENTRY
 

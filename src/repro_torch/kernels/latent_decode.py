@@ -1,13 +1,15 @@
-"""K1 and K5 — ReCalKV latent-ring flash decode and its multi-query form:
-CUDA kernels, plain versions, wrappers.
+"""K1, K5, K4 and K7 — ReCalKV latent flash decode over the ring and over
+the paged pool, single- and multi-query: CUDA kernels, plain versions,
+wrappers.
 
-K1 replaces ``src/repro/kernels/latent_decode.py::latent_decode_attention``
-and K5 ``latent_decode_attention_mq`` (the Pallas TPU kernels).  Both come
-from one templated kernel in ``csrc/latent_decode.cu`` (with K3 and K6 of
-``latent_decode_q``); its header says what bounds it on an H100 and how
-the design answers it (S split into chunks with an LSE merge for
+K1 replaces ``src/repro/kernels/latent_decode.py::latent_decode_attention``,
+K5 ``latent_decode_attention_mq``, K4 ``latent_decode_attention_paged`` and
+K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  All
+come from one templated kernel in ``csrc/latent_decode.cu`` (with K3 and
+K6 of ``latent_decode_q``); its header says what bounds it on an H100 and
+how the design answers it (S split into chunks with an LSE merge for
 parallelism, R_k streamed per head slot, keys never written to device
-memory).
+memory, pool rows looked up per ring column through the page table).
 
 Shapes (as in the JAX kernels):
   q      (B, G, Hg, dh)   post-RoPE grouped queries, Hg = s * q_per_kv;
@@ -19,6 +21,14 @@ Shapes (as in the JAX kernels):
                           K5: (B, nq, S_ext), one row per query
   k_norm (dh,) f32        optional per-head RMSNorm scale (1 + k_norm)
   out    (B, G, Hg, r_v)  latent attention outputs, q's dtype (K5: nq*Hg rows)
+
+K4 / K7 take the latents page-major instead, ``zk`` (n_pages, page_size,
+G, r_k) and ``zv`` likewise, plus ``ptab`` (B, n_sp) int32 mapping slot
+page j of row b to a physical page (page 0 is the null page, whose
+positions read -1).  ``cos``/``sin``/``bias`` stay slot-major over the
+S = n_sp * page_size ring columns of the gathered view, as the JAX
+wrappers build them.  The self tokens are operands as for K1 / K5 (the
+JAX wrappers pass padded self tiles instead).
 
 Beyond the JAX signatures, the deferred-write tokens may be passed as
 their own operands instead of being appended to a copy of the ring:
@@ -101,13 +111,41 @@ def latent_decode_attention_mq_plain(q, zk, zv, r_k, cos, sin, bias, *,
     return o.reshape(B, G, QH, zv.shape[-1]).to(q.dtype)
 
 
+def gather_pages(pool: torch.Tensor, ptab: torch.Tensor) -> torch.Tensor:
+    """Slot-major (B, n_sp * page_size, ...) view of a page-major pool
+    leaf (n_pages, page_size, ...) through the page table."""
+    B, n_sp = ptab.shape
+    v = pool[ptab.reshape(-1).long()]
+    return v.reshape((B, n_sp * pool.shape[1]) + tuple(pool.shape[2:]))
+
+
+def latent_decode_attention_paged_plain(ptab, q, zk, zv, r_k, cos, sin, bias,
+                                        **kw):
+    """Plain version of K4: gather the pool through the table, then K1's
+    plain version."""
+    return latent_decode_attention_plain(q, gather_pages(zk, ptab),
+                                         gather_pages(zv, ptab), r_k, cos, sin,
+                                         bias, **kw)
+
+
+def latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos, sin,
+                                           bias, **kw):
+    """Plain version of K7: gather, then K5's plain version."""
+    return latent_decode_attention_mq_plain(q, gather_pages(zk, ptab),
+                                            gather_pages(zv, ptab), r_k, cos,
+                                            sin, bias, **kw)
+
+
 _PTR = ctypes.c_void_p
-# (is_bf16, dh), 20 pointers, 12 ints, (scale, eps), stream — one argument
-# list for all four entry points (see csrc/latent_decode.cu).
-_ARGTYPES = ([ctypes.c_int, ctypes.c_int] + [_PTR] * 20 + [ctypes.c_int] * 12
+_INT = ctypes.c_int
+# (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
+# eps), stream — one argument list for all six entry points (see
+# csrc/latent_decode.cu).
+_ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
 ENTRY_POINTS = ("recalkv_latent_decode", "recalkv_latent_decode_quant",
-                "recalkv_latent_decode_mq", "recalkv_latent_decode_mq_quant")
+                "recalkv_latent_decode_mq", "recalkv_latent_decode_mq_quant",
+                "recalkv_latent_decode_paged", "recalkv_latent_decode_mq_paged")
 
 
 def _lib():
@@ -128,13 +166,27 @@ def _ptr(t):
 
 def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
            norm_eps, self_zk, self_zv, self_cos, self_sin, *, nq: int = 1,
-           scales=(None, None, None, None)):
-    """Check the operands and launch one of the four kernels of
+           scales=(None, None, None, None), ptab=None):
+    """Check the operands and launch one of the six kernels of
     ``csrc/latent_decode.cu`` (the caller counts the launch).  ``zk``/``zv``
     (and the self latents) are q's dtype, or int8 with ``scales`` =
-    (zk_scale, zv_scale, self_zk_scale, self_zv_scale) float32."""
+    (zk_scale, zv_scale, self_zk_scale, self_zv_scale) float32.  With
+    ``ptab`` (B, n_sp) int32 the latents are a page-major pool and the
+    ring has S = n_sp * page_size columns; the chunking is the ring's."""
     B, G, QH, dh = q.shape
     S, rk, rv = zk.shape[1], zk.shape[3], zv.shape[3]
+    page_size = n_pages = 0
+    if ptab is not None:
+        n_pages, page_size = zk.shape[0], zk.shape[1]
+        S = ptab.shape[1] * page_size
+        if (ptab.dtype != torch.int32 or ptab.dim() != 2 or ptab.shape[0] != B
+                or ptab.device != q.device):
+            raise TypeError(f"ptab must be ({B}, n_sp) int32 on {q.device}, got "
+                            f"{tuple(ptab.shape)} {ptab.dtype} on {ptab.device}")
+        if zv.shape[:2] != zk.shape[:2] or tuple(cos.shape[:2]) != (B, S):
+            raise ValueError(f"pool {tuple(zk.shape)} / {tuple(zv.shape)} and "
+                             f"slot-major tables {tuple(cos.shape)} do not match "
+                             f"the page table's {S} ring columns")
     s = r_k.shape[-1] // dh
     Hg = QH // nq
     dt = q.dtype
@@ -173,6 +225,7 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     ptrs = [c(t) for t in (q, zk, zv, scales[0], scales[1], r_k, cos, sin,
                            bias, k_norm, self_zk, self_zv, scales[2],
                            scales[3], self_cos, self_sin)]
+    ptab = c(ptab)
     # Chunk S (+ the self columns) into about 8 blocks per SM: a block's
     # chunk is its serial critical path, and chunks over empty ring
     # regions finish at once, so short chunks keep the SMs busy whatever
@@ -191,7 +244,8 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
         is_bf16, dh, *[_ptr(t) for t in ptrs],
         _ptr(part_acc), _ptr(part_m), _ptr(part_l), _ptr(out),
         B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len,
-        float(scale), float(norm_eps), torch.cuda.current_stream(dev).cuda_stream)
+        _ptr(ptab), page_size, n_pages, float(scale), float(norm_eps),
+        torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, entry)
     return out
 
@@ -240,5 +294,43 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
     return out
 
 
+def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
+                                  scale, k_norm=None, norm_eps=1e-6,
+                                  self_zk=None, self_zv=None, self_cos=None,
+                                  self_sin=None):
+    """K4: K1 over a page-major pool through ``ptab``.  Device rule as for
+    K1; ``.launches`` counts kernel launches."""
+    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+    if not _on_device("paged latent decode", q):
+        return latent_decode_attention_paged_plain(ptab, q, zk, zv, r_k, cos,
+                                                   sin, bias, **kw)
+    out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin, bias,
+                 scale, k_norm, norm_eps, self_zk, self_zv, self_cos, self_sin,
+                 ptab=ptab)
+    latent_decode_attention_paged.launches += 1
+    return out
+
+
+def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
+                                     scale, k_norm=None, norm_eps=1e-6,
+                                     self_zk=None, self_zv=None, self_cos=None,
+                                     self_sin=None):
+    """K7: K5 over a page-major pool through ``ptab``.  Device rule and
+    counter as for K1."""
+    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+    if not _on_device("paged multi-query latent decode", q):
+        return latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos,
+                                                      sin, bias, **kw)
+    out = launch("recalkv_latent_decode_mq_paged", q, zk, zv, r_k, cos, sin,
+                 bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
+                 self_sin, nq=bias.shape[1], ptab=ptab)
+    latent_decode_attention_mq_paged.launches += 1
+    return out
+
+
 latent_decode_attention.launches = 0
 latent_decode_attention_mq.launches = 0
+latent_decode_attention_paged.launches = 0
+latent_decode_attention_mq_paged.launches = 0

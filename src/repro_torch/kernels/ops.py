@@ -1,5 +1,5 @@
-"""Glue between the model's tensors and the kernels (port of the ring
-paths of ``repro.kernels.ops``).
+"""Glue between the model's tensors and the kernels (port of the ring and
+paged-pool paths of ``repro.kernels.ops``).
 
 These adapt model-layer tensors (cache dicts, position arrays) to the
 kernels' calling conventions.  Each kernel wrapper picks its own version
@@ -13,6 +13,14 @@ entries the same way, rotated at ``cur + j``.  The JAX wrappers append them
 to a copy of the ring instead (``_extend_ring``, ``_extend_ring_mq``); the
 function computed is the same.  A cache dict with ``zk_q`` is the int8
 ring: it routes to K3 / K6 with its scales, a float ring to K1 / K5.
+
+The paged wrappers take a page-major float pool {"zk", "zv", "pos"}
+(n_pages, page_size, ...) and a (B, n_sp) page table: the positions are
+gathered through the table (int32-cheap) to build slot-major bias and
+rotation tables, while the latents stay page-major and are read by K4 / K7
+through the table.  The int8 pool does not come here: the model reads it
+through the gathered view (``kv_cache.paged_view``) with K3 / K6, as the
+JAX package does.
 """
 
 from __future__ import annotations
@@ -20,8 +28,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
-from repro_torch.kernels.latent_decode import (NEG_INF, latent_decode_attention,
-                                               latent_decode_attention_mq)
+from repro_torch.kernels.latent_decode import (
+    NEG_INF, gather_pages, latent_decode_attention, latent_decode_attention_mq,
+    latent_decode_attention_mq_paged, latent_decode_attention_paged)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
 
@@ -103,6 +112,31 @@ def _ring_operands(cache: dict, entry: dict | None):
                                             self_zv=e.get("zv")), False
 
 
+def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
+            k_norm, norm_eps):
+    ring, selfs, quant = _ring_operands(cache, self_entry)
+    if quant and ptab is not None:
+        raise ValueError("an int8 pool is read through kv_cache.paged_view")
+    G = ring[0].shape[2]
+    dh = q.shape[-1]
+    pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
+    cos, sin = rope_tables_for(pos, dh, theta)
+    bias = decode_bias(pos, cur, window)
+    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps)
+    if self_entry is not None:
+        cos_s, sin_s = rope_tables_for(cur, dh, theta)
+        kw.update(selfs, self_cos=cos_s, self_sin=sin_s)
+    qg = group_queries(q, G)
+    if ptab is not None:
+        o = latent_decode_attention_paged(ptab, qg, *ring, r_k, cos, sin, bias,
+                                          **kw)
+    elif quant:
+        o = latent_decode_attention_quant(qg, *ring, r_k, cos, sin, bias, **kw)
+    else:
+        o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias, **kw)
+    return ungroup_outputs(o)
+
+
 def latent_decode(q, cache, r_k, cur, *, theta: float, window: int | None,
                   scale: float, self_entry: dict | None = None,
                   k_norm: torch.Tensor | None = None, norm_eps: float = 1e-6):
@@ -112,19 +146,49 @@ def latent_decode(q, cache, r_k, cur, *, theta: float, window: int | None,
     q: (B, H, dh) post-RoPE queries; ``self_entry`` the current token's
     latents in the ring's layout, scored as one extra column at position
     ``cur``.  Returns (B, H, r_v)."""
-    ring, selfs, quant = _ring_operands(cache, self_entry)
+    return _decode(q, cache, r_k, cur, None, theta=theta, window=window,
+                   scale=scale, self_entry=self_entry, k_norm=k_norm,
+                   norm_eps=norm_eps)
+
+
+def latent_decode_paged(q, cache, ptab, r_k, cur, *, theta: float,
+                        window: int | None, scale: float,
+                        self_entry: dict | None = None,
+                        k_norm: torch.Tensor | None = None,
+                        norm_eps: float = 1e-6):
+    """Latent decode over a page-major float pool {"zk", "zv", "pos"}
+    (n_pages, page_size, ...) through ``ptab`` (B, n_sp) int32, with K4.
+    Arguments otherwise as :func:`latent_decode`.  Returns (B, H, r_v)."""
+    return _decode(q, cache, r_k, cur, ptab, theta=theta, window=window,
+                   scale=scale, self_entry=self_entry, k_norm=k_norm,
+                   norm_eps=norm_eps)
+
+
+def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
+               window, scale, k_norm, norm_eps):
+    B, nq = feed_mask.shape
+    ring, selfs, quant = _ring_operands(cache, self_entries)
+    if quant and ptab is not None:
+        raise ValueError("an int8 pool is read through kv_cache.paged_view")
     G = ring[0].shape[2]
     dh = q.shape[-1]
-    pos = cache["pos"]
+    pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
+    pos_q = cur[:, None] + torch.arange(nq, dtype=cur.dtype, device=cur.device)
     cos, sin = rope_tables_for(pos, dh, theta)
-    bias = decode_bias(pos, cur, window)
-    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps)
-    if self_entry is not None:
-        cos_s, sin_s = rope_tables_for(cur, dh, theta)
-        kw.update(selfs, self_cos=cos_s, self_sin=sin_s)
-    kernel = latent_decode_attention_quant if quant else latent_decode_attention
-    o = kernel(group_queries(q, G), *ring, r_k, cos, sin, bias, **kw)
-    return ungroup_outputs(o)
+    cos_s, sin_s = rope_tables_for(pos_q, dh, theta)
+    bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
+                       feed_mask, window, pos.shape[1])
+    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_cos=cos_s,
+              self_sin=sin_s, **selfs)
+    qg = group_queries_mq(q, G)
+    if ptab is not None:
+        o = latent_decode_attention_mq_paged(ptab, qg, *ring, r_k, cos, sin,
+                                             bias, **kw)
+    elif quant:
+        o = latent_decode_attention_mq_quant(qg, *ring, r_k, cos, sin, bias, **kw)
+    else:
+        o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias, **kw)
+    return ungroup_outputs_mq(o, nq)
 
 
 def latent_decode_mq(q, cache, r_k, cur, feed_mask, self_entries, *,
@@ -138,22 +202,21 @@ def latent_decode_mq(q, cache, r_k, cur, feed_mask, self_entries, *,
     self_entries: the nq verify-window latents in the ring's layout at
     leading shape (B, nq, ...), scored as nq self columns.  One kernel
     call scores all nq queries.  Returns (B, nq, H, r_v)."""
-    B, nq = feed_mask.shape
-    ring, selfs, quant = _ring_operands(cache, self_entries)
-    G = ring[0].shape[2]
-    dh = q.shape[-1]
-    pos = cache["pos"]
-    pos_q = cur[:, None] + torch.arange(nq, dtype=cur.dtype, device=cur.device)
-    cos, sin = rope_tables_for(pos, dh, theta)
-    cos_s, sin_s = rope_tables_for(pos_q, dh, theta)
-    bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
-                       feed_mask, window, pos.shape[1])
-    kernel = (latent_decode_attention_mq_quant if quant
-              else latent_decode_attention_mq)
-    o = kernel(group_queries_mq(q, G), *ring, r_k, cos, sin, bias, scale=scale,
-               k_norm=k_norm, norm_eps=norm_eps, self_cos=cos_s,
-               self_sin=sin_s, **selfs)
-    return ungroup_outputs_mq(o, nq)
+    return _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, None,
+                      theta=theta, window=window, scale=scale, k_norm=k_norm,
+                      norm_eps=norm_eps)
+
+
+def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
+                           *, theta: float, window: int | None, scale: float,
+                           k_norm: torch.Tensor | None = None,
+                           norm_eps: float = 1e-6):
+    """Multi-query latent decode over a page-major float pool through
+    ``ptab``, with K7.  Arguments otherwise as :func:`latent_decode_mq`.
+    Returns (B, nq, H, r_v)."""
+    return _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab,
+                      theta=theta, window=window, scale=scale, k_norm=k_norm,
+                      norm_eps=norm_eps)
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -1,5 +1,5 @@
-"""Latent ring KV cache with its decode and verify readers (port of the
-ring subset of ``repro.models.kv_cache``).
+"""Latent KV cache — ring or paged pool — with its decode and verify
+readers (port of the latent subset of ``repro.models.kv_cache``).
 
 Per layer the cache is ``{"zk": (B, L, G, r_k), "zv": (B, L, G, r_v),
 "pos": (B, L) int64}`` with pre-RoPE latents, or, with
@@ -16,6 +16,14 @@ speculative decoding) returns (B, S, ...) entries, and
 :func:`apply_verify_writes` commits only the accepted prefix.  Unlike the
 JAX package (whose arrays are immutable) these writes update the ring
 tensors IN PLACE.
+
+Paged layout: the same leaves live page-major in a pool shared by all
+slots — ``(n_pages, page_size, ...)`` instead of ``(B, max_len, ...)``
+(int8 scales stay page-local) — and a ``(B, n_sp)`` int32 page table maps
+slot page j of row b to a physical page.  Page 0 is the null page: its
+``pos`` stays -1 and it is never written, so an unmapped slot page reads
+as empty.  ``pages = (ptab, page_size)`` switches the readers and writers
+below to the pool; ``None`` means the ring.
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ NEG_INF = L.NEG_INF
 
 def init_self_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                     device, layer_idx: int | None = None) -> Params:
+    """Empty ring leaves (batch, max_len, ...), or a page-major pool when
+    called with (n_pages, page_size) in their place."""
     rt = cfg.recalkv
     Lr = cfg.cache_len(kind, max_len)
     G = rt.num_groups(cfg.num_kv_heads)
@@ -117,6 +127,37 @@ def latent_cache_arrays(cache: Params, dtype) -> tuple[torch.Tensor, torch.Tenso
     return cache["zk"].to(dtype), cache["zv"].to(dtype)
 
 
+def paged_view(cache: Params, ptab: torch.Tensor) -> Params:
+    """Slot-major view of a page-major cache dict: each leaf's pages are
+    gathered through the table into a (B, n_sp * page_size, ...) ring —
+    the arrays the ring layout would hold, so every ring reader runs on
+    it unchanged."""
+    return {k: kops.gather_pages(v, ptab) for k, v in cache.items()}
+
+
+def _paged_merge_leaf(pool: torch.Tensor, new: torch.Tensor,
+                      ptab: torch.Tensor, pos: torch.Tensor,
+                      mask: torch.Tensor | None) -> None:
+    """Write entries (B, n, ...) at positions ``pos`` (B, n) through the
+    page table, in place: (page, offset) = (ptab[b, pos // ps], pos % ps).
+    Masked entries, positions past the table and unmapped slot pages
+    write nothing: they target the null page with its own value, so the
+    one index put stays free of duplicate targets with different values
+    (a live page has one writer, and a row's positions are distinct)."""
+    ps = pool.shape[1]
+    n_sp = ptab.shape[1]
+    pidx = torch.div(pos, ps, rounding_mode="floor").clamp(0, n_sp - 1)
+    page = torch.where(pos < n_sp * ps, ptab.long().gather(1, pidx), 0)
+    off = pos % ps
+    ok = page != 0
+    if mask is not None:
+        ok &= mask
+    page = torch.where(ok, page, 0)
+    shape = ok.shape + (1,) * (new.ndim - 2)
+    pool[page, off] = torch.where(ok.reshape(shape), new.to(pool.dtype),
+                                  pool[page, off])
+
+
 def _decode_mask(pos: torch.Tensor, cur: torch.Tensor,
                  window: int | None) -> torch.Tensor:
     """(B, S) validity mask for cache slots at decode time."""
@@ -136,12 +177,26 @@ def _two_part_softmax(logits_c: torch.Tensor, logits_s: torch.Tensor):
     return e_c / denom, e_s / denom
 
 
+def _pool_route(cfg: ModelConfig, cache: Params, pages):
+    """(cache, ptab) for a reader: the float pool under the kernel backend
+    stays page-major for K4 / K7; every other reader (einsum, and the int8
+    kernels) reads the gathered slot-major view, as in the JAX package."""
+    if pages is None:
+        return cache, None
+    if cfg.attn_backend == "kernel" and cfg.cache_quant_bits is None:
+        return cache, pages[0]
+    return paged_view(cache, pages[0]), None
+
+
 def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
                        cfg: ModelConfig, cur: torch.Tensor,
-                       window: int | None, theta: float | None = None):
+                       window: int | None, theta: float | None = None,
+                       pages: tuple | None = None):
     """ReCalKV decode: reconstruct keys from the latent ring, RoPE by stored
     positions, keep values latent, project through the fused W~_o.
-    Returns (y (B, 1, d), deferred update {"zk", "zv", "pos"})."""
+    ``pages`` = (ptab, page_size) reads a page-major pool.  Returns
+    (y (B, 1, d), deferred update {"zk", "zv", "pos"})."""
+    cache, ptab = _pool_route(cfg, cache, pages)
     theta = theta or cfg.rope_theta
     B = x.shape[0]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
@@ -161,10 +216,12 @@ def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
     if cfg.attn_backend == "kernel":
         # One kernel call scores [ring | self]; qk-norm is applied to the
         # reconstructed keys in-kernel.
-        o_lat = kops.latent_decode(
-            q[:, 0], cache, p["r_k"], cur, theta=theta, window=window,
-            scale=scale, self_entry=entry, k_norm=p.get("k_norm"),
-            norm_eps=cfg.norm_eps)
+        kw = dict(theta=theta, window=window, scale=scale, self_entry=entry,
+                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps)
+        o_lat = (kops.latent_decode(q[:, 0], cache, p["r_k"], cur, **kw)
+                 if ptab is None else
+                 kops.latent_decode_paged(q[:, 0], cache, ptab, p["r_k"], cur,
+                                          **kw))
         o_lat = o_lat.to(x.dtype).reshape(B, 1, H, -1)
         return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"]), updates
 
@@ -209,13 +266,19 @@ def _merge_leaf(cache_leaf: torch.Tensor, upd: torch.Tensor,
 
 
 def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
-                        active: torch.Tensor | None = None) -> list:
-    """Merge the deferred per-layer decode entries into the rings, in
-    place (one pass after the layer loop).  ``active`` (B,) bool freezes
-    the rows of inactive sequences entirely."""
+                        active: torch.Tensor | None = None,
+                        pages: tuple | None = None) -> list:
+    """Merge the deferred per-layer decode entries into the rings (or,
+    with ``pages``, the pools), in place (one pass after the layer loop).
+    ``active`` (B,) bool freezes the rows of inactive sequences entirely."""
     for cache, upd in zip(caches, updates):
         for name, leaf in cache["self"].items():
-            _merge_leaf(leaf, upd["self"][name], cur, active)
+            if pages is None:
+                _merge_leaf(leaf, upd["self"][name], cur, active)
+            else:
+                _paged_merge_leaf(leaf, upd["self"][name][:, None], pages[0],
+                                  cur.to(torch.int64)[:, None],
+                                  None if active is None else active[:, None])
     return caches
 
 
@@ -260,11 +323,14 @@ def _verify_masks(cache_pos: torch.Tensor, cur: torch.Tensor, S: int,
 def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
                        cfg: ModelConfig, cur: torch.Tensor,
                        feed_mask: torch.Tensor, window: int | None,
-                       theta: float | None = None):
+                       theta: float | None = None,
+                       pages: tuple | None = None):
     """ReCalKV S-token verify: cached keys reconstructed and rotated by
     stored position, fresh latents as a causal self block, values latent
-    through the fused W~_o.  Returns (y (B, S, d), deferred entries with
-    (B, S, ...) leaves and "pos" (B, S))."""
+    through the fused W~_o.  ``pages`` as for :func:`decode_attn_latent`.
+    Returns (y (B, S, d), deferred entries with (B, S, ...) leaves and
+    "pos" (B, S))."""
+    cache, ptab = _pool_route(cfg, cache, pages)
     theta = theta or cfg.rope_theta
     B, S = x.shape[:2]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
@@ -285,10 +351,13 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
     if cfg.attn_backend == "kernel":
         # One multi-query kernel call: the S fresh latents are its own
         # self-column operands (int8 round trip included), rotated at pos_q.
-        o_lat = kops.latent_decode_mq(
-            q, cache, p["r_k"], cur, feed_mask, entry, theta=theta,
-            window=window, scale=scale, k_norm=p.get("k_norm"),
-            norm_eps=cfg.norm_eps)
+        kw = dict(theta=theta, window=window, scale=scale,
+                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps)
+        o_lat = (kops.latent_decode_mq(q, cache, p["r_k"], cur, feed_mask,
+                                       entry, **kw)
+                 if ptab is None else
+                 kops.latent_decode_mq_paged(q, cache, ptab, p["r_k"], cur,
+                                             feed_mask, entry, **kw))
         o_lat = o_lat.to(x.dtype).reshape(B, S, H, -1)
         return torch.einsum("bjhr,hrd->bjd", o_lat, p["wo_fused"]), updates
 
@@ -321,19 +390,24 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
 
 
 def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
-                        mask: torch.Tensor) -> list:
+                        mask: torch.Tensor, pages: tuple | None = None) -> list:
     """Commit an S-position verify step's deferred entries for the
     accepted prefix only, in place: column j writes at position cur + j
     where ``mask[:, j]``, so the ring after a speculative round equals
     sequential decode of the accepted tokens.  With S <= L a row's S
     columns land on distinct slots and go in one write per leaf; a longer
     window writes column by column in ascending j (last write wins, as S
-    sequential decode writes would)."""
+    sequential decode writes would).  With ``pages`` the S positions of a
+    row are distinct pool rows, so one write per leaf always does."""
     S = mask.shape[1]
     cols = torch.arange(S, device=cur.device)
     for cache, upd in zip(caches, updates):
         for name, leaf in cache["self"].items():
             new = upd["self"][name]
+            if pages is not None:
+                _paged_merge_leaf(leaf, new, pages[0],
+                                  cur.to(torch.int64)[:, None] + cols, mask)
+                continue
             B, Lr = leaf.shape[:2]
             if S > Lr:
                 for j in range(S):

@@ -3,7 +3,9 @@ serving half of ``repro.models.transformer``).
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
-and caches are a list with one ``{"self": {...}}`` dict per layer.
+and caches are a list with one ``{"self": {...}}`` dict per layer.  With
+``pages = (ptab, page_size)`` the caches are page-major pools read and
+written through the page table (see :mod:`.kv_cache`).
 """
 
 from __future__ import annotations
@@ -64,7 +66,8 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     y, sc = KC.decode_attn_latent(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                  window, theta=_theta(cfg, kind))
+                                  window, theta=_theta(cfg, kind),
+                                  pages=ctx.get("pages"))
     x = x + y
     x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, {"self": sc}
@@ -80,7 +83,8 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     y, sc = KC.verify_attn_latent(p["attn"], h, cache["self"], cfg, ctx["cur"],
                                   ctx["feed_mask"], window,
-                                  theta=_theta(cfg, kind))
+                                  theta=_theta(cfg, kind),
+                                  pages=ctx.get("pages"))
     x = x + y
     x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, {"self": sc}
@@ -119,11 +123,15 @@ def logits_for(cfg: ModelConfig, params: Params,
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
-                      device=None) -> list:
-    """Empty ring caches, one dict per layer, on ``device`` (default cuda)."""
+                      device=None, pages: tuple[int, int] | None = None) -> list:
+    """Empty caches, one dict per layer, on ``device`` (default cuda):
+    rings (batch, max_len, ...), or with ``pages`` = (n_pages, page_size)
+    page-major pools (n_pages, page_size, ...) shared by all slots through
+    a page table (page 0 is the null page: pos -1, never written)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    return [KC.init_block_cache(cfg, k, batch, max_len, dev, layer_idx=i)
+    b, ml = (batch, max_len) if pages is None else pages
+    return [KC.init_block_cache(cfg, k, b, ml, dev, layer_idx=i)
             for i, k in enumerate(cfg.expanded_layers())]
 
 
@@ -145,39 +153,56 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: Params, caches: list,
                 tokens: torch.Tensor, cur: torch.Tensor,
-                active: torch.Tensor | None = None):
+                active: torch.Tensor | None = None, pages=None):
     """One decode step.  tokens (B,), cur (B,) absolute positions;
-    ``active`` (B,) bool masks cache writes for idle rows.  The rings are
-    updated in place after the layer loop.  Returns (logits (B, V), caches)."""
+    ``active`` (B,) bool masks cache writes for idle rows; ``pages`` =
+    (ptab (B, n_sp) int32, page_size) reads and writes page-major pools.
+    The caches are updated in place after the layer loop.  Returns
+    (logits (B, V), caches)."""
     x = embed_tokens(cfg, params, tokens[:, None])
-    x, updates = run_stack(cfg, params, x, {"cur": cur}, caches, decode=True)
-    KC.apply_decode_writes(caches, updates, cur, active)
+    ctx = {"cur": cur, "pages": pages}
+    x, updates = run_stack(cfg, params, x, ctx, caches, decode=True)
+    KC.apply_decode_writes(caches, updates, cur, active, pages=pages)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_for(cfg, params, x)[:, 0], caches
 
 
 def verify_step(cfg: ModelConfig, params: Params, caches: list,
                 tokens: torch.Tensor, cur: torch.Tensor,
-                feed_mask: torch.Tensor):
+                feed_mask: torch.Tensor, pages=None):
     """Speculative-decoding target pass: logits for S fed tokens in one
     pass.  tokens (B, S) — column 0 is the slot's next sequential feed,
     columns 1.. are draft proposals (-1 pads embed as token 0); cur (B,)
-    the position of column 0; feed_mask (B, S) marks candidate columns.
-    Cache writes are NOT applied: the deferred (B, S, ...) updates are
-    returned for :func:`commit_verify_writes`.  Returns
-    (logits (B, S, V) float32, updates)."""
+    the position of column 0; feed_mask (B, S) marks candidate columns;
+    ``pages`` as for :func:`decode_step`.  Cache writes are NOT applied:
+    the deferred (B, S, ...) updates are returned for
+    :func:`commit_verify_writes`.  Returns (logits (B, S, V) float32,
+    updates)."""
     x = embed_tokens(cfg, params, tokens.clamp(min=0))
-    ctx = {"cur": cur, "feed_mask": feed_mask}
+    ctx = {"cur": cur, "feed_mask": feed_mask, "pages": pages}
     x, updates = run_stack(cfg, params, x, ctx, caches, verify=True)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_for(cfg, params, x), updates
 
 
 def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
-                         mask: torch.Tensor) -> list:
+                         mask: torch.Tensor, pages=None) -> list:
     """Write a verify step's deferred entries for the accepted prefix
     (``mask`` (B, S) bool), in place."""
-    return KC.apply_verify_writes(caches, updates, cur, mask)
+    return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages)
+
+
+def wipe_pages(caches: list, pages: torch.Tensor) -> list:
+    """Reset the ``pos`` of physical ``pages`` (1-D) of page-major pools
+    to -1 (empty), in place.  Positions are the pool's only validity
+    mark: a recycled page keeps its last holder's positions, which a new
+    holder's mask would read as valid, so every page mapped without a
+    prefill scatter over it is wiped first.  Content leaves stay: latents
+    under pos = -1 are never read.  The null page 0 may appear (its pos
+    is -1 already)."""
+    for cache in caches:
+        cache["self"]["pos"][pages.long()] = -1
+    return caches
 
 
 def decode_loop(cfg: ModelConfig, params: Params, caches: list,

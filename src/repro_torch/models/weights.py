@@ -1,4 +1,5 @@
-"""Parameters of the port: the bridge from JAX param trees, and random init.
+"""Parameters of the port: the bridge from JAX param trees, and random init;
+and the bridge for decode-cache state (rings or paged pools) both ways.
 
 The port keeps parameters as plain dictionaries with the JAX leaf names
 and layouts (row-vector convention, ``y = x @ W``), but one dict per layer
@@ -137,3 +138,62 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                        "mlp": mlp})
     params["layers"] = layers
     return params
+
+
+def caches_from_jax(cfg: ModelConfig, tree: Params, device=None) -> list:
+    """Turn a JAX decode-cache tree (``{"prefix", "blocks", "suffix"}``,
+    stacked ``blocks`` leaves carrying a leading period axis; leaves as
+    numpy arrays) into the port's per-layer list of ``{"self": {...}}``
+    dicts.  Works for rings and page-major pools alike; ``pos`` becomes
+    int64, other leaves keep their dtype."""
+    dev = resolve_device(device)
+
+    def conv(block, index=None):
+        out = {}
+        for name, leaf in block["self"].items():
+            a = np.asarray(leaf)
+            if index is not None:
+                a = a[index]
+            out[name] = to_tensor(a, dev, torch.int64 if name == "pos" else None)
+        return {"self": out}
+
+    layers = [conv(b) for b in tree.get("prefix") or ()]
+    blocks = tree.get("blocks") or ()
+    if blocks:
+        n_per = np.asarray(blocks[0]["self"]["pos"]).shape[0]
+        for p in range(n_per):
+            layers += [conv(b, p) for b in blocks]
+    layers += [conv(b) for b in tree.get("suffix") or ()]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"cache tree holds {len(layers)} layers, config "
+                         f"{cfg.name!r} has {cfg.num_layers}")
+    return layers
+
+
+def caches_to_jax(cfg: ModelConfig, caches: list) -> Params:
+    """The inverse of :func:`caches_from_jax`: the JAX package's cache tree
+    for ``cfg``'s layer layout, with numpy leaves (``pos`` int32; bf16 as
+    ml_dtypes' bfloat16)."""
+    def arr(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            import ml_dtypes
+            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
+        return t.numpy()
+
+    def conv(c):
+        return {"self": {k: (arr(v).astype(np.int32) if k == "pos" else arr(v))
+                         for k, v in c["self"].items()}}
+
+    if not cfg.scan_layers:
+        return {"prefix": tuple(conv(c) for c in caches), "blocks": None,
+                "suffix": ()}
+    n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
+    body = caches[n_pre:n_pre + period * n_per]
+    blocks = tuple(
+        {"self": {k: np.stack([conv(body[p * period + i])["self"][k]
+                               for p in range(n_per)])
+                  for k in caches[n_pre + i]["self"]}}
+        for i in range(period)) if n_per else None
+    return {"prefix": tuple(conv(c) for c in caches[:n_pre]), "blocks": blocks,
+            "suffix": tuple(conv(c) for c in caches[n_pre + period * n_per:])}

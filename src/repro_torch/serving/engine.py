@@ -1,6 +1,6 @@
-"""Executor: slot-based batching over the latent ring with a multi-token
-decode window (port of the synchronous ring path of
-``repro.serving.engine``).
+"""Executor: slot-based batching over the latent cache — a ring per slot
+or a paged pool shared by all slots — with a multi-token decode window
+(port of the synchronous path of ``repro.serving.engine``).
 
 One window runs ``sync_every`` decode steps with the loop state
 (last token, cur, active mask, ingest buffer, budgets) held as device
@@ -28,8 +28,24 @@ next key split; the first mismatch emits that draw.  Only the accepted
 prefix is committed to the ring, so streams are invariant to
 ``spec_depth``.  The ring may be float or int8 (``cache_quant_bits``).
 
-Not ported yet (see ROADMAP.md): overlapped / continuous serving, the
-paged pool, adaptive speculation depth, meshes.
+Paged pool (``cache_layout="paged"``): every layer's latents live in one
+page-major pool and a per-slot page table (``ptab``, int32 on the device,
+riding the window state) maps slot pages to physical pages.  Admission
+maps each request's pages: the longest prompt prefix whose pages are
+registered (``PrefixRegistry``) is shared (retained, or resurrected from
+the free list), the first divergent page is a copy-on-write fork whose
+content comes from the request's own prefill, and only non-shared pages
+are scattered from the wave prefill.  Under ``prefix-affinity`` a request
+whose prompt is covered by resident pages but for one page skips the
+prefill (``prefill_calls_saved``).  With ``lazy_pages`` admission maps
+only the admitted prompt plus one window's headroom; the mapping grows at
+window boundaries, and when the pool runs dry the policy's victim is
+preempted (its state parked, its pages freed) and re-admitted later:
+surviving pages are resurrected, recycled ones rebuilt by prefilling the
+tokens the victim had fed, so streams are those of an unpreempted run.
+
+Not ported yet (see ROADMAP.md): overlapped / continuous / AOT serving,
+adaptive speculation depth, meshes, the dense paged path.
 """
 
 from __future__ import annotations
@@ -37,6 +53,7 @@ from __future__ import annotations
 import dataclasses
 import time
 import warnings
+from collections import deque
 from typing import Any
 
 import numpy as np
@@ -49,22 +66,56 @@ from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.serving import draft as D
 from repro_torch.serving import sampler as S
 from repro_torch.serving.draft import DraftSpec
-from repro_torch.serving.policy import AdmissionPolicy
+from repro_torch.serving.pages import PagePool, PrefixRegistry, prefix_key
+from repro_torch.serving.policy import AdmissionPolicy, get_policy
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["DraftSpec", "Engine", "Request", "SamplingParams"]
 
 
-def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor) -> list:
-    """Copy the leading ``len(slots)`` batch rows of ``new_cache`` into
-    ``pool_cache`` at ``slots``, in place (the prefill wave may be padded
-    past that for shape bucketing; the pad rows are dropped here)."""
+def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor,
+                rows: torch.Tensor | None = None) -> list:
+    """Copy batch rows of ``new_cache`` into ``pool_cache`` at ``slots``, in
+    place: the leading ``len(slots)`` rows (the prefill wave may be padded
+    past that for shape bucketing; the pad rows are dropped here), or the
+    wave rows ``rows`` when given."""
     n = slots.shape[0]
     for pool, new in zip(pool_cache, new_cache):
         for name, leaf in pool["self"].items():
-            leaf[slots] = new["self"][name][:n].to(leaf.dtype)
+            src = new["self"][name]
+            leaf[slots] = (src[:n] if rows is None else src[rows]).to(leaf.dtype)
     return pool_cache
+
+
+def _merge_slot_paged(pool_cache: list, new_cache: list, rows, cols, phys,
+                      page_size: int) -> list:
+    """Scatter prefill rows into the paged pool, in place: ``new_cache`` is
+    slot-major (W, L, ...); its page (rows[t], cols[t]) — wave row, slot
+    page index — lands in physical page ``phys[t]``.  Shared prefix pages
+    are absent from the lists: their content is already resident, so
+    admission never rewrites them."""
+    for pool, new in zip(pool_cache, new_cache):
+        for name, leaf in pool["self"].items():
+            src = new["self"][name]
+            tiles = src.reshape((src.shape[0], src.shape[1] // page_size,
+                                 page_size) + tuple(src.shape[2:]))
+            leaf[phys] = tiles[rows, cols].to(leaf.dtype)
+    return pool_cache
+
+
+@dataclasses.dataclass
+class PreemptedRecord:
+    """What re-admits a preempted slot: its window-state row at eviction,
+    the un-ingested prompt tail, and the pages it held with their alloc
+    stamps (an unchanged stamp proves the page still holds its content)."""
+
+    req: Request
+    host_row: dict            # state leaf name -> the slot's row (numpy)
+    pending: np.ndarray       # un-ingested prompt tail
+    pages: list[int]          # physical pages held at eviction
+    stamps: list[int]         # pool alloc stamp per page at eviction
+    cur: int                  # tokens fed (cache positions written)
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -74,14 +125,22 @@ def _bucket(n: int, cap: int) -> int:
 
 
 class Engine:
-    """Slot-based batching executor over the latent ring (float or int8).
+    """Slot-based batching executor over the latent cache (float or int8;
+    ring or paged pool).
 
     ``sync_every`` sets the decode window (iterations per host round
     trip); ``prefill_chunk`` bounds how much prompt one admission wave
     prefills at once.  ``spec_depth`` turns on speculative decoding, up to
     that many draft tokens verified per iteration; ``draft`` picks the
-    proposer, "ngram" (default) or "layers:K".  ``device`` defaults to
-    ``cuda``; ``params`` must already live there (see ``models.weights``)."""
+    proposer, "ngram" (default) or "layers:K".  ``cache_layout="paged"``
+    keeps the cache in a pool of ``n_pages`` pages of ``page_size`` tokens
+    (defaults: the first of 16, 8, 4, 2, 1 that divides ``max_len``, and
+    the ring's capacity plus the null page); ``policy`` picks the
+    admission order ("fifo", "prefix-affinity", "reach-packing");
+    ``pin_prefixes`` keeps the K most-hit prefix pages out of recycling;
+    ``lazy_pages`` reserves pages as decoding reaches them and preempts
+    when the pool runs dry.  ``device`` defaults to ``cuda``; ``params``
+    must already live there (see ``models.weights``)."""
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_len: int, backend: str | None = None,
@@ -89,7 +148,9 @@ class Engine:
                  sync_every: int = 8, prefill_chunk: int | None = None,
                  policy: str | AdmissionPolicy | None = None,
                  spec_depth: int = 0, draft: str | DraftSpec | None = None,
-                 device=None):
+                 cache_layout: str = "ring", page_size: int | None = None,
+                 n_pages: int | None = None, pin_prefixes: int = 0,
+                 lazy_pages: bool = False, device=None):
         if backend is not None:
             cfg = dataclasses.replace(cfg, attn_backend=backend)
         if sync_every < 1:
@@ -102,6 +163,28 @@ class Engine:
                 f"draft={draft!r} requires spec_depth > 0 — a draft with "
                 f"no speculation depth would be silently ignored")
         check_supported(cfg)
+        page_size, n_pages = self._check_layout(
+            cfg, max_slots, max_len, cache_layout, page_size, n_pages)
+        resolved_policy = get_policy(policy)
+        if pin_prefixes < 0:
+            raise ValueError("pin_prefixes must be >= 0")
+        if pin_prefixes > 0 and cache_layout != "paged":
+            raise ValueError("pin_prefixes pins page-pool prefixes; it "
+                             "needs cache_layout='paged'")
+        if resolved_policy.groups_by_prefix and cache_layout != "paged":
+            raise ValueError(
+                f"policy={resolved_policy.name!r} groups admissions by "
+                f"shared prompt prefix; it needs cache_layout='paged' "
+                f"(the prefix registry lives in the page pool)")
+        if lazy_pages:
+            if cache_layout != "paged":
+                raise ValueError("lazy_pages defers page reservation; it "
+                                 "needs cache_layout='paged'")
+            if parsed_draft is not None and parsed_draft.kind == "layers":
+                raise ValueError(
+                    "lazy_pages is incompatible with the layer-fraction "
+                    "draft: the draft's slot-major ring is not paged, so "
+                    "a preempted slot's draft state cannot be rebuilt")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
@@ -112,9 +195,23 @@ class Engine:
         self.sampling = sampling or S.GREEDY
         self.sync_every = sync_every
         self.scheduler = Scheduler(max_slots, max_len,
-                                   prefill_chunk=prefill_chunk, policy=policy)
+                                   prefill_chunk=prefill_chunk,
+                                   policy=resolved_policy)
         self.policy = self.scheduler.policy
-        self.cache = T.init_decode_cache(cfg, max_slots, max_len, self.device)
+        self.cache_layout = cache_layout
+        self.page_size, self.n_pages = page_size, n_pages
+        self.pin_prefixes = pin_prefixes
+        self.lazy_pages = bool(lazy_pages)
+        self._pages: PagePool | None = None
+        self._prefixes: PrefixRegistry | None = None
+        if cache_layout == "paged":
+            self._pages = PagePool(n_pages)
+            self._prefixes = PrefixRegistry()
+            self._slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
+        self.policy.configure(page_size=page_size, registry=self._prefixes)
+        self.cache = T.init_decode_cache(
+            cfg, max_slots, max_len, self.device,
+            pages=None if self._pages is None else (n_pages, page_size))
         self.spec_depth = spec_depth
         self.draft = (parsed_draft or DraftSpec("ngram")) if spec_depth else None
         # Layer draft: a view over the target's first K layers (no new
@@ -148,6 +245,12 @@ class Engine:
             # fed-token history: the n-gram draft's corpus, seeded with the
             # whole prompt at admission and extended as tokens are fed
             self._st["hist"] = np.zeros((max_slots, max_len), np.int64)
+        if self._pages is not None:
+            # slot page -> physical page; unmapped entries point at the
+            # null page 0, whose pos -1 masks them.  int32 on the device,
+            # as the paged kernels take it.
+            self._st["ptab"] = np.zeros((max_slots, max_len // page_size),
+                                        np.int32)
         self.draft_proposed = 0      # draft tokens fed to verification
         self.draft_accepted = 0      # ... accepted (free extra tokens)
         self.host_syncs = 0          # device->host sync points
@@ -161,13 +264,51 @@ class Engine:
         self._run_seconds = 0.0
         self._ttft_sum = 0.0
         self._ttft_n = 0
-        self.prefill_calls = 0
+        self.prefill_calls = 0       # admission and rebuild prefill calls
+        self.prefill_calls_saved = 0  # admissions served without a prefill
+        self.preemptions = 0         # slots evicted by lazy reservation
+        self._preempted: deque[PreemptedRecord] = deque()
+        self._prefix_hits: dict[int, int] = {}   # page -> registry hits
+
+    @staticmethod
+    def _check_layout(cfg, max_slots, max_len, cache_layout, page_size,
+                      n_pages):
+        """Validate the cache layout; returns (page_size, n_pages) with the
+        paged defaults filled in (None, None for the ring)."""
+        if cache_layout not in ("ring", "paged"):
+            raise ValueError(f"cache_layout={cache_layout!r}: expected "
+                             f"'ring' or 'paged'")
+        if cache_layout == "ring":
+            if page_size is not None or n_pages is not None:
+                raise ValueError(
+                    "page_size/n_pages only apply to cache_layout='paged'")
+            return None, None
+        short = sorted(k for k in set(cfg.expanded_layers())
+                       if cfg.cache_len(k, max_len) != max_len)
+        if short:
+            raise ValueError(f"cache_layout='paged' needs full-length rings; "
+                             f"{short} blocks keep ring length < "
+                             f"max_len={max_len}")
+        if page_size is None:
+            page_size = next(p for p in (16, 8, 4, 2, 1) if max_len % p == 0)
+        if page_size < 1 or max_len % page_size:
+            raise ValueError(f"page_size={page_size} must be >= 1 and divide "
+                             f"max_len={max_len}")
+        n_sp = max_len // page_size
+        if n_pages is None:
+            # the ring's capacity plus the reserved null page
+            n_pages = max_slots * n_sp + 1
+        if n_pages < n_sp + 1:
+            raise ValueError(f"n_pages={n_pages} cannot hold one full-length "
+                             f"request ({n_sp} pages + the reserved null page)")
+        return page_size, n_pages
 
     @classmethod
     def from_artifact(cls, path: str, *, max_slots: int, max_len: int,
                       device=None, **kw) -> "Engine":
         """Boot an engine from a compression artifact the JAX package
-        saved (other keywords as on the constructor)."""
+        saved (other keywords, the paged pool's included, as on the
+        constructor)."""
         from repro_torch.api import load_artifact
 
         art = load_artifact(path, device=device)
@@ -198,68 +339,275 @@ class Engine:
         st["bpos"][slot] = 0
         st["more"][slot] = False
         st["left"][slot] = 0
+        if self._pages is not None:
+            for pg in self._slot_pages[slot]:
+                # a refcount-0 page keeps its prefix key: its content stays
+                # resident until the free list recycles it
+                self._pages.free(pg)
+            self._slot_pages[slot] = []
+            st["ptab"][slot] = 0
 
-    def _bucket_prompts(self, reqs, first_lens):
-        """Pack a wave's first chunks into one power-of-two (rows,
-        prompt-len) bucket (the JAX engine's row cap, twice the slots)."""
-        W = _bucket(len(reqs), 2 * self.B)
-        P = _bucket(max(first_lens), self.max_len)
+    def _prefill(self, cfg, params, toks: np.ndarray, lens: np.ndarray):
+        return T.prefill(cfg, params, torch.as_tensor(toks, device=self.device),
+                         torch.as_tensor(lens, device=self.device), self.max_len)
+
+    def _wipe(self, pages: list[int]):
+        T.wipe_pages(self.cache, torch.as_tensor(pages, device=self.device))
+
+    # -- paged admission -----------------------------------------------------
+
+    def _reach(self, req: Request) -> int:
+        return min(len(req.prompt) + req.max_new_tokens, self.max_len)
+
+    def _pages_needed(self, req: Request) -> int:
+        """Worst-case pages for ``req``: its write reach (prompt plus
+        generation budget, capped by max_len) is known at admission."""
+        return -(-self._reach(req) // self.page_size)
+
+    @property
+    def _headroom(self) -> int:
+        """Tokens a slot can advance in one window (one fed or sampled
+        token plus up to ``spec_depth`` accepted drafts per iteration): how
+        far past ``cur`` lazy reservation maps before the next top-up."""
+        return self.sync_every * (self.spec_depth + 1)
+
+    def _admit_need(self, req: Request, first_len: int) -> int:
+        """Pages admission maps up front: the whole reach (eager), or the
+        admitted coverage plus one window's headroom (lazy)."""
+        if not self.lazy_pages:
+            return self._pages_needed(req)
+        return -(-min(first_len + self._headroom, self._reach(req))
+                 // self.page_size)
+
+    def _registered_prefix(self, req: Request, n: int) -> list[int]:
+        """Physical pages of the longest registered prefix of ``req``'s
+        prompt, over at most its first ``n`` slot pages."""
+        ps = self.page_size
+        pages = []
+        for j in range(n):
+            pg = self._prefixes.lookup(prefix_key(req.prompt, j, ps))
+            if pg is None:
+                break
+            pages.append(pg)
+        return pages
+
+    def _skip_prefill(self, req: Request) -> bool:
+        """Prefill-skip gate (prefix-affinity): admit with no prefill row
+        when resident pages cover all but at most one page of the prompt;
+        the rest streams through the ingest buffer.  The probe stops one
+        page short of the whole prompt: at least one prompt token must go
+        through the decode loop to sample the first generated token."""
+        if self._pages is None or not self.policy.groups_by_prefix:
+            return False
+        ps = self.page_size
+        hit = len(self._registered_prefix(req, (len(req.prompt) - 1) // ps)) * ps
+        return hit > 0 and len(req.prompt) - hit <= ps
+
+    def _hold_shared(self, shared: list[int]):
+        for pg in shared:
+            self._note_prefix_hit(pg)
+            if self._pages.refcount(pg) == 0:
+                # every holder retired but nothing recycled the page: its
+                # content is resident, so the prefix skips the prefill
+                self._pages.resurrect(pg)
+            else:
+                self._pages.retain(pg)
+
+    def _alloc_fresh(self, n: int) -> list[int]:
+        own = self._pages.alloc(n)
+        for pg in own:
+            # a recycled page's old prefix key is dead: the registry must
+            # never map a prefix to rewritten content
+            self._prefixes.drop_page(pg)
+            self._prefix_hits.pop(pg, None)
+        return own
+
+    def _bind_pages(self, slot: int, mapping: list[int]):
+        self._slot_pages[slot] = list(mapping)
+        row = self._st["ptab"][slot]
+        row[:] = 0
+        row[: len(mapping)] = mapping
+
+    def _assign_shared_pages(self, slot: int, req: Request) -> int:
+        """Skip-path mapping (no prefill row): the resident prefix is held,
+        the rest freshly allocated and position-wiped (no prefill covers
+        it, and a recycled page's old positions would read as valid).
+        Returns the shared coverage, the slot's admitted ``cur``."""
+        ps = self.page_size
+        shared = self._registered_prefix(req, (len(req.prompt) - 1) // ps)
+        self._hold_shared(shared)
+        hit_len = len(shared) * ps
+        own = self._alloc_fresh(max(self._admit_need(req, hit_len),
+                                    len(shared)) - len(shared))
+        if own:
+            self._wipe(own)
+        self._update_pins()
+        self._bind_pages(slot, shared + own)
+        self.prefill_calls_saved += 1
+        return hit_len
+
+    def _assign_pages(self, slot: int, req: Request, first_len: int):
+        """Map ``req``'s slot pages: the longest registered prefix fully
+        covered by this wave's prefill is shared, the rest allocated.
+        Copy-on-write resolves here: the first page past the shared run
+        diverges, and its content comes from the request's own prefill
+        scatter, so the fork needs no copy.  Returns (mapping, the slot
+        pages the prefill must scatter)."""
+        ps = self.page_size
+        n_need = self._admit_need(req, first_len)
+        shared = self._registered_prefix(req, min(n_need, first_len // ps))
+        self._hold_shared(shared)
+        if shared and n_need > len(shared):
+            self._pages.cow_forks += 1
+        mapping = shared + self._alloc_fresh(n_need - len(shared))
+        for j in range(len(shared), n_need):
+            # register pages whose content this prefill fully determines
+            if (j + 1) * ps <= first_len:
+                self._prefixes.register(prefix_key(req.prompt, j, ps),
+                                        mapping[j])
+        self._update_pins()
+        self._bind_pages(slot, mapping)
+        return mapping, list(range(len(shared), n_need))
+
+    def _note_prefix_hit(self, page: int):
+        if self.pin_prefixes:
+            self._prefix_hits[page] = self._prefix_hits.get(page, 0) + 1
+
+    def _update_pins(self):
+        """Keep the ``pin_prefixes`` most-hit registered prefix pages pinned
+        (exempt from recycling, parked at refcount 0)."""
+        if not self.pin_prefixes:
+            return
+        registered = self._prefixes.pages()
+        alive = {pg: h for pg, h in self._prefix_hits.items() if pg in registered}
+        want = set(sorted(alive, key=lambda p: (-alive[p], p))[: self.pin_prefixes])
+        for pg in range(1, self.n_pages):
+            if pg in want:
+                self._pages.pin(pg)
+            elif self._pages.is_pinned(pg):
+                self._pages.unpin(pg)
+
+    def _page_fits(self):
+        """Page-budget gate for ``take_wave``: each admitted request debits
+        its admission need from the free pages (ignoring sharing, so a
+        fitting wave has real pages even if every lookup misses).  Under
+        lazy reservation a request whose whole reach exceeds the pool never
+        fits: it must be able to finish once the pool is all its own."""
+        budget = self._pages.free_count
+
+        def fits(req: Request) -> bool:
+            nonlocal budget
+            if self.lazy_pages and self._pages_needed(req) > self.n_pages - 1:
+                return False
+            need = self._admit_need(req, self.scheduler.first_chunk_len(req))
+            if need > budget:
+                return False
+            budget -= need
+            return True
+
+        return fits
+
+    def _bucket_prompts(self, reqs, first_lens, rows, w):
+        """Pack the wave's prefill rows (``rows[i]`` >= 0) into one
+        power-of-two (rows, prompt-len) bucket (row cap twice the slots)."""
+        W = _bucket(w, 2 * self.B)
+        P = _bucket(max(fl for fl, ri in zip(first_lens, rows) if ri >= 0),
+                    self.max_len)
         toks = np.zeros((W, P), np.int64)
         lens = np.zeros((W,), np.int64)
         for i, r in enumerate(reqs):
-            toks[i, : first_lens[i]] = r.prompt[: first_lens[i]]
-            lens[i] = first_lens[i]
+            if rows[i] >= 0:
+                toks[rows[i], : first_lens[i]] = r.prompt[: first_lens[i]]
+                lens[rows[i]] = first_lens[i]
         return toks, lens
 
+    def _admit_prefill(self, wave, first_lens, rows, w):
+        """The wave prefill (when any row needs one) merged into the cache:
+        slot rows of the ring, or the non-shared pages of the pool.  Skip
+        members (rows[i] == -1) bind resident pages instead and get their
+        ``first_lens`` entry set to the shared coverage.  Returns the (W, V)
+        logits, or None for a wave with no prefill row."""
+        reqs = [r for _, r in wave]
+        t = lambda x: torch.as_tensor(x, device=self.device)
+        logits = new_cache = None
+        if w:
+            toks, lens = self._bucket_prompts(reqs, first_lens, rows, w)
+            self.prefill_calls += 1
+            logits, new_cache = self._prefill(self.cfg, self.params, toks, lens)
+        if self._pages is None:
+            _merge_slot(self.cache, new_cache, t([s for s, _ in wave]))
+        else:
+            rws, cols, phys = [], [], []
+            for i, (slot, r) in enumerate(wave):
+                if rows[i] < 0:
+                    first_lens[i] = self._assign_shared_pages(slot, r)
+                    continue
+                mapping, scat = self._assign_pages(slot, r, first_lens[i])
+                rws += [rows[i]] * len(scat)
+                cols += scat
+                phys += [mapping[j] for j in scat]
+            if phys:
+                _merge_slot_paged(self.cache, new_cache, t(rws), t(cols),
+                                  t(phys), self.page_size)
+        if self.draft_cache is not None and w:
+            # the layer draft consumes the same wave so its ring tracks the
+            # target's; a skip member's draft ring keeps stale content,
+            # which costs acceptance, never correctness
+            _, dnew = self._prefill(self.draft_cfg, self.draft_params, toks, lens)
+            _merge_slot(self.draft_cache, dnew,
+                        t([s for (s, _), ri in zip(wave, rows) if ri >= 0]),
+                        rows=t([ri for ri in rows if ri >= 0]))
+        return logits
+
     def _admit(self):
-        """Synchronous admission: one wave prefill (and the layer draft's,
-        so its ring tracks the target's), then the first token of every
-        fully prefilled prompt sampled with the slot's first key split
-        and emitted (one host sync), then the slots' mirror state."""
-        wave = self.scheduler.take_wave()
+        """Synchronous admission: take a wave (page-budget gated on the
+        pool), one wave prefill for the rows that need it, then the first
+        token of every fully prefilled prompt sampled with the slot's first
+        key split and emitted (one host sync), then the mirror state.  A
+        wave whose members all skip the prefill costs no device sync: their
+        first tokens come from the decode loop's ingest steps."""
+        wave = self.scheduler.take_wave(
+            None if self._pages is None else self._page_fits())
         if not wave:
             return
         reqs = [r for _, r in wave]
         first_lens = [self.scheduler.first_chunk_len(r) for r in reqs]
-        toks, lens = self._bucket_prompts(reqs, first_lens)
-        dev = self.device
-        self.prefill_calls += 1
-        toks_t = torch.as_tensor(toks, device=dev)
-        lens_t = torch.as_tensor(lens, device=dev)
-        logits, new_cache = T.prefill(self.cfg, self.params, toks_t, lens_t,
-                                      self.max_len)
-        slots = torch.as_tensor([s for s, _ in wave], device=dev)
-        _merge_slot(self.cache, new_cache, slots)
-        if self.draft_cache is not None:
-            _, dnew = T.prefill(self.draft_cfg, self.draft_params, toks_t,
-                                lens_t, self.max_len)
-            _merge_slot(self.draft_cache, dnew, slots)
+        rows, w = [], 0
+        for r in reqs:
+            skip = self._skip_prefill(r)
+            rows.append(-1 if skip else w)
+            w += not skip
+        logits = self._admit_prefill(wave, first_lens, rows, w)
         specs = [r.sampling or self.sampling for r in reqs]
         keys0 = np.stack([sp.slot_key(r.uid) for sp, r in zip(specs, reqs)])
         keys0 = keys0.astype(np.int64)
-        ks = S.split_keys(torch.as_tensor(keys0, device=dev))
-        first = S.sample_tokens(
-            logits[:len(wave)],
-            torch.tensor([sp.temperature for sp in specs], dtype=torch.float32,
-                         device=dev),
-            torch.tensor([sp.top_k for sp in specs], device=dev),
-            torch.tensor([sp.top_p for sp in specs], dtype=torch.float32,
-                         device=dev),
-            ks[:, 1], any_sampled=not all(sp.greedy for sp in specs))
-        first, ks = first.cpu().numpy(), ks.cpu().numpy()
-        self.host_syncs += 1
-        self.admission_syncs += 1
+        if logits is not None:
+            dev = self.device
+            pre = [i for i, ri in enumerate(rows) if ri >= 0]
+            ks = S.split_keys(torch.as_tensor(keys0[pre], device=dev))
+            first = S.sample_tokens(
+                logits[:len(pre)],
+                torch.tensor([specs[i].temperature for i in pre],
+                             dtype=torch.float32, device=dev),
+                torch.tensor([specs[i].top_k for i in pre], device=dev),
+                torch.tensor([specs[i].top_p for i in pre], dtype=torch.float32,
+                             device=dev),
+                ks[:, 1], any_sampled=not all(specs[i].greedy for i in pre))
+            first, ks = first.cpu().numpy(), ks.cpu().numpy()
+            self.host_syncs += 1
+            self.admission_syncs += 1
         st = self._st
         for i, (slot, r) in enumerate(wave):
             self._admit_bookkeep(slot, r, specs[i], first_lens[i])
             st["keys"][slot] = keys0[i]
-            if first_lens[i] == len(r.prompt):
+            ri = rows[i]
+            if ri >= 0 and first_lens[i] == len(r.prompt):
                 # whole prompt prefilled: emit the first generated token
                 # and advance the key, as the decode window would
-                st["keys"][slot] = ks[i, 0]
-                st["tok"][slot] = first[i]
+                st["keys"][slot] = ks[ri, 0]
+                st["tok"][slot] = first[ri]
                 self._admit_tokens += 1
-                self._record_token(r, int(first[i]))
+                self._record_token(r, int(first[ri]))
                 if r.done:
                     self._finish(slot)
 
@@ -307,7 +655,177 @@ class Engine:
                     and self.scheduler.pending_len(slot) > 0):
                 self._load_chunk(slot)
 
+    # -- lazy page reservation and preemption ---------------------------------
+    #
+    # With lazy_pages admission maps the admitted coverage plus one window's
+    # headroom; at every window boundary _lazy_topup extends each active
+    # slot's mapping ahead of its cur.  When the pool runs dry the policy
+    # names a victim: its state row, pages and alloc stamps are recorded,
+    # its fully written prompt pages registered (so it, or a sharer, can
+    # find them), its pages freed and the request parked.  Re-admission
+    # (ahead of fresh admissions) resurrects pages whose stamp is unchanged
+    # and rebuilds recycled ones by prefilling the tokens the slot had fed,
+    # then restores the state row verbatim, so the stream is unchanged.
+
+    def _lazy_topup(self):
+        """Extend every active slot's mapping to cover ``cur + headroom``
+        (capped at its reach); fresh pages are position-wiped, since no
+        prefill covers them."""
+        if not self.lazy_pages:
+            return
+        st = self._st
+        ps = self.page_size
+        for slot, r in enumerate(list(self.scheduler.slot_req)):
+            if r is None or not st["act"][slot]:
+                continue
+            tgt = -(-min(int(st["cur"][slot]) + self._headroom, self._reach(r))
+                    // ps)
+            have = len(self._slot_pages[slot])
+            if tgt <= have:
+                continue
+            if not self._make_room(slot, tgt - have):
+                continue                  # the slot itself was parked
+            own = self._alloc_fresh(tgt - have)
+            self._slot_pages[slot].extend(own)
+            st["ptab"][slot, have: have + len(own)] = own
+            self._wipe(own)
+        self._update_pins()
+
+    def _make_room(self, slot: int, need: int) -> bool:
+        """Preempt policy-chosen victims until ``need`` pages are free for
+        running ``slot``.  False when the slot itself had to be parked (no
+        other victim could cover it; admission's whole-reach check means it
+        can be re-seated once the pool drains)."""
+        tried = {slot}
+        while not self._pages.can_alloc(need):
+            cands = self._victim_candidates(tried)
+            if not cands:
+                self._preempt_slot(slot)
+                return False
+            victim = self.policy.pick_victim(cands)
+            tried.add(victim)
+            self._preempt_slot(victim)
+        return True
+
+    def _victim_candidates(self, exclude) -> list:
+        """Active slots in admission order, oldest first."""
+        order = {uid: i for i, uid in enumerate(self.scheduler.admitted_uids)}
+        cands = sorted((order.get(r.uid, -1), slot)
+                       for slot, r in enumerate(self.scheduler.slot_req)
+                       if r is not None and slot not in exclude
+                       and self._st["act"][slot])
+        return [(slot, self.scheduler.slot_req[slot]) for _, slot in cands]
+
+    def _preempt_slot(self, slot: int):
+        """Evict a running slot: record its state row and pages, register
+        its fully written prompt pages, free its pages, park the request."""
+        st = self._st
+        row = {k: np.array(v[slot]) for k, v in st.items()}
+        st["act"][slot] = False
+        st["avail"][slot] = 0
+        st["bpos"][slot] = 0
+        st["more"][slot] = False
+        st["left"][slot] = 0
+        req, pending = self.scheduler.preempt(slot)
+        ps = self.page_size
+        cur = int(row["cur"])
+        pages = list(self._slot_pages[slot])
+        stamps = [self._pages.alloc_stamp(pg) for pg in pages]
+        for j, pg in enumerate(pages):
+            if (j + 1) * ps <= min(cur, len(req.prompt)):
+                self._prefixes.register(prefix_key(req.prompt, j, ps), pg)
+        for pg in pages:
+            self._pages.free(pg)
+        self._slot_pages[slot] = []
+        st["ptab"][slot] = 0
+        self._preempted.append(PreemptedRecord(
+            req=req, host_row=row, pending=pending, pages=pages, stamps=stamps,
+            cur=cur))
+        self.preemptions += 1
+
+    def _readmit_preempted(self):
+        """Re-seat parked requests, oldest first, while a slot and the pages
+        to replace their lost ones are free.  Survivors (alloc stamp
+        unchanged) are resurrected or retained; lost pages below ``cur``
+        are rebuilt by one prefill of the fed tokens, lost pages ahead of
+        it wiped.  A re-admission that rebuilds nothing saves a prefill."""
+        pool = self._pages
+        while self._preempted:
+            rec = self._preempted[0]
+            free = self.scheduler.free_slots()
+            if not free:
+                return
+            surv = [pool.alloc_stamp(pg) == stp
+                    for pg, stp in zip(rec.pages, rec.stamps)]
+            lost = [j for j, ok in enumerate(surv) if not ok]
+            # survivors on the free list leave it on resurrect, so the lost
+            # pages' replacements must fit after them
+            surv_free = sum(1 for pg, ok in zip(rec.pages, surv)
+                            if ok and pool.refcount(pg) == 0
+                            and not pool.is_pinned(pg))
+            if pool.free_count - surv_free < len(lost):
+                return
+            slot = free[0]
+            self.scheduler.place(slot, rec.req)
+            # claim every survivor first: allocating a replacement earlier
+            # could recycle a survivor out from under its flag
+            mapping = list(rec.pages)
+            for pg, ok in zip(rec.pages, surv):
+                if ok and pool.refcount(pg) == 0:
+                    pool.resurrect(pg)
+                elif ok:
+                    pool.retain(pg)          # a prefix sharer holds it too
+            wipe, rebuild = [], []
+            for j in lost:
+                mapping[j] = self._alloc_fresh(1)[0]
+                if j * self.page_size < rec.cur:
+                    rebuild.append(j)
+                else:
+                    wipe.append(mapping[j])
+            if wipe:
+                self._wipe(wipe)
+            if rebuild:
+                self._rebuild_pages(rec, mapping, rebuild)
+            else:
+                self.prefill_calls_saved += 1
+            st = self._st
+            for k, v in rec.host_row.items():
+                st[k][slot] = v
+            self._bind_pages(slot, mapping)
+            self.scheduler.set_pending(slot, np.asarray(rec.pending, np.int64))
+            self._update_pins()
+            self._preempted.popleft()
+
+    def _rebuild_pages(self, rec: PreemptedRecord, mapping, rebuild):
+        """Recompute recycled pages: prefill the tokens the slot had fed
+        (cache content at position t is a function of the tokens fed up to
+        t) and scatter just the lost pages.  The fed tokens are the
+        speculative window's ``hist``, or the prompt plus the emitted
+        tokens."""
+        cur = rec.cur
+        if "hist" in rec.host_row:
+            fed = np.asarray(rec.host_row["hist"][:cur], np.int64)
+        else:
+            prompt = np.asarray(rec.req.prompt, np.int64)
+            P = len(prompt)
+            gen = np.asarray(rec.req.out_tokens[: max(cur - P, 0)], np.int64)
+            fed = np.concatenate([prompt[: min(cur, P)], gen])
+        toks = np.zeros((1, _bucket(cur, self.max_len)), np.int64)
+        toks[0, :cur] = fed
+        self.prefill_calls += 1
+        _, new_cache = self._prefill(self.cfg, self.params, toks,
+                                     np.array([cur], np.int64))
+        t = lambda x: torch.as_tensor(x, device=self.device)
+        _merge_slot_paged(self.cache, new_cache, t([0] * len(rebuild)),
+                          t(rebuild), t([mapping[j] for j in rebuild]),
+                          self.page_size)
+
     # -- decode window -------------------------------------------------------
+
+    def _pages_of(self, st):
+        """``pages`` for the step functions: (ptab, page_size) of the window
+        state, or None for the ring."""
+        return None if self._pages is None else (st["ptab"], self.page_size)
 
     def _sample(self, st, keys, logits, any_sampled: bool):
         """This step's token per row, with ``keys`` split once for the draw
@@ -344,7 +862,8 @@ class Engine:
         for _ in range(self.sync_every):
             feeding, tok_in, stepping, last_prompt = self._feed(st)
             logits, self.cache = T.decode_step(cfg, self.params, self.cache,
-                                               tok_in, st["cur"], stepping)
+                                               tok_in, st["cur"], stepping,
+                                               pages=self._pages_of(st))
             sampled, keys2 = self._sample(st, st["keys"], logits, any_sampled)
             emit = stepping & (~feeding | last_prompt)
             cur2 = st["cur"] + stepping.to(st["cur"].dtype)
@@ -408,8 +927,9 @@ class Engine:
             fed = torch.cat([tok_in[:, None], props], dim=1)
             cand = torch.cat([stepping[:, None],
                               speculating[:, None] & cap_ok[:, 1:]], dim=1)
+            pages = self._pages_of(st)
             logits, updates = T.verify_step(cfg, self.params, self.cache, fed,
-                                            cur, cand)
+                                            cur, cand, pages=pages)
             keys, tok2 = st["keys"], st["tok"]
             done_any = torch.zeros_like(st["act"])
             nemit = torch.zeros_like(cur)
@@ -434,7 +954,7 @@ class Engine:
                 toks.append(s_j)
             valid = torch.stack(valid, dim=1)                          # (B, S)
             # commit the accepted prefix (rejected tokens never wrote)
-            T.commit_verify_writes(self.cache, updates, cur, valid)
+            T.commit_verify_writes(self.cache, updates, cur, valid, pages=pages)
             if self.draft_cache is not None:
                 # the draft wrote as it proposed: strike rejected columns
                 # from its position index so they cannot shadow the slot
@@ -470,8 +990,12 @@ class Engine:
         and harvest it (the step's single host sync).  Idle calls (nothing
         active, nothing admitted) accrue no wall-clock."""
         t0 = time.perf_counter()
+        if self._pages is not None:
+            self._readmit_preempted()
         self._admit()
         self._refill()
+        if self._pages is not None:
+            self._lazy_topup()
         if not self._st["act"].any():
             return
         occ, qd = self.scheduler.occupancy, self.scheduler.queue_depth
@@ -533,14 +1057,33 @@ class Engine:
 
     def metrics(self) -> dict[str, Any]:
         """Serving counters since construction (host_syncs counts one per
-        window harvest plus one per admission wave)."""
+        window harvest plus one per admission wave).  ``pages_free`` counts
+        the allocatable free list only; pinned pages at refcount 0 are
+        parked (resident, not allocatable) and counted apart, and
+        ``pages_shared`` counts share events (retains) since construction."""
         tokens = self.tokens_emitted + self._admit_tokens
         w = max(self.windows, 1)
+        pool = self._pages
+        paged = {"page_size": 0, "pages_total": 0, "pages_free": 0,
+                 "pages_parked": 0, "pages_shared": 0, "pages_peak": 0,
+                 "cow_forks": 0, "pages_pinned": 0, "prefix_resurrections": 0}
+        if pool is not None:
+            paged = {"page_size": self.page_size, "pages_total": self.n_pages,
+                     "pages_free": pool.free_count, "pages_parked": pool.parked,
+                     "pages_shared": pool.share_events,
+                     "pages_peak": pool.peak_used, "cow_forks": pool.cow_forks,
+                     "pages_pinned": pool.pinned,
+                     "prefix_resurrections": pool.prefix_resurrections}
         return {
             "tokens": tokens,
             "windows": self.windows,
             "sync_every": self.sync_every,
-            "cache_layout": "ring",
+            "cache_layout": self.cache_layout,
+            **paged,
+            "pin_prefixes": self.pin_prefixes,
+            "lazy_pages": self.lazy_pages,
+            "preemptions": self.preemptions,
+            "prefill_calls_saved": self.prefill_calls_saved,
             "backend": self.cfg.attn_backend,
             "spec_depth": self.spec_depth,
             "draft": None if self.draft is None else str(self.draft),

@@ -85,6 +85,76 @@ def blocked_cumsum(x: torch.Tensor) -> torch.Tensor:
     return (within + carry[..., None]).reshape(*lead, nb * b)[..., :n]
 
 
+# XLA's CPU backend splits a row reduction longer than this into windows
+# of this length, zero-padded evenly on both sides, summed in order, and
+# reduces the window sums the same way until one window is left.
+_REDUCE_WINDOW = 32
+# XLA's CPU float32 exp (the Cephes range reduction and degree-5
+# polynomial it emits, with fused multiply-adds): log2(e), ln(2) split in
+# two, and the polynomial's coefficients, highest degree first — all
+# float32 constants.
+_f32 = lambda v: float(np.float32(v))
+_EXP_LOG2E = _f32(1.44269504088896341)
+_EXP_LN2 = (_f32(0.693359375), _f32(-2.12194440e-4))
+_EXP_POLY = tuple(_f32(c) for c in (1.9875691500e-4, 1.3981999507e-3,
+                                    8.3334519073e-3, 4.1665795894e-2,
+                                    1.6666665459e-1, 5.0000001201e-1))
+_F32_MIN_NORMAL = _f32(1.1754943508222875e-38)
+
+
+def _fma(a: torch.Tensor, b, c) -> torch.Tensor:
+    """float32 a * b + c rounded once (the product is exact in double)."""
+    return (a.double() * b + c).float()
+
+
+def xla_cpu_exp(x: torch.Tensor) -> torch.Tensor:
+    """float32 exp as XLA's CPU backend computes it: clamp to [-87.8, 88.8],
+    n = floor(x log2(e) + 1/2) clamped to [-127, 127], r = x - n ln(2) in
+    two parts, a degree-5 polynomial in r, times 2^n built in the exponent
+    bits; results below the smallest normal float flush to 0.  Equal to
+    ``jnp.exp`` on the CPU bit for bit (tests/test_torch_sampler.py)."""
+    x = x.float().clamp(-87.8, 88.8)
+    n = torch.floor(_fma(x, _EXP_LOG2E, 0.5)).clamp(-127, 127)
+    r = _fma(n, -_EXP_LN2[0], x)
+    r = _fma(n, -_EXP_LN2[1], r)
+    z = _fma(r, _EXP_POLY[0], _EXP_POLY[1])
+    for c in _EXP_POLY[2:]:
+        z = _fma(z, r.double(), c)
+    z = 1.0 + _fma(z, (r * r).double(), r)
+    pow2 = ((n.to(torch.int32) + 127) << 23).view(torch.float32)
+    out = z * pow2
+    return torch.where(out < _F32_MIN_NORMAL, 0.0, out)
+
+
+def xla_cpu_sum(x: torch.Tensor) -> torch.Tensor:
+    """float32 sum over the last axis in the order of ``jnp.sum`` on XLA's
+    CPU backend: windows of ``_REDUCE_WINDOW``, each summed in order,
+    recursively (one float32 add per step)."""
+    w = _REDUCE_WINDOW
+    while x.shape[-1] > w:
+        n = x.shape[-1]
+        pad = -n % w
+        x = torch.nn.functional.pad(x, (pad // 2, pad - pad // 2))
+        x = x.reshape(*x.shape[:-1], -1, w)
+        acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+        for j in range(w):
+            acc = acc + x[..., j]
+        x = acc
+    acc = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    for j in range(x.shape[-1]):
+        acc = acc + x[..., j]
+    return acc
+
+
+def _softmax(x: torch.Tensor) -> torch.Tensor:
+    """Last-axis softmax; on the CPU in XLA's CPU order and exp, so the
+    probabilities equal ``jax.nn.softmax``'s bit for bit."""
+    if x.device.type != "cpu":
+        return torch.softmax(x, dim=-1)
+    e = xla_cpu_exp(x - x.amax(dim=-1, keepdim=True))
+    return e / xla_cpu_sum(e)[..., None]
+
+
 def filtered_logits(logits: torch.Tensor, top_k: torch.Tensor,
                     top_p: torch.Tensor) -> torch.Tensor:
     """Per-row top-k then minimal-nucleus top-p masking.
@@ -102,7 +172,7 @@ def filtered_logits(logits: torch.Tensor, top_k: torch.Tensor,
     neg = torch.full_like(logits, NEG_INF)
     masked = torch.where(keep_k, logits, neg)
     sorted_l = torch.gather(masked, -1, order)
-    probs = torch.softmax(sorted_l, dim=-1)
+    probs = _softmax(sorted_l)
     before = blocked_cumsum(probs) - probs
     keep_sorted = before < top_p[:, None]
     keep_sorted[:, 0] = True

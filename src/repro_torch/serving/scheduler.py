@@ -1,11 +1,14 @@
-"""Admission and slot lifecycle for the serving engine (port of the ring
-path of ``repro.serving.scheduler``).
+"""Admission and slot lifecycle for the serving engine (port of the
+synchronous path of ``repro.serving.scheduler``).
 
 The scheduler owns everything about requests that is not model math: the
 queue, the slot -> request map, per-slot un-ingested prompt remainders
 (chunked prefill) and submit-time validation.  A prompt longer than
 ``prefill_chunk`` is admitted in pieces: the first chunk goes through the
 wave prefill, the rest streams through the decode loop's ingest buffer.
+Preempted requests (lazy page reservation ran the pool dry) wait in
+``parked`` until the engine re-seats them with ``place``.  The overlapped
+engine's staging (``take_staged`` / ``place_wave``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -57,7 +60,10 @@ class Scheduler:
         self.queue: deque[Request] = deque()
         self.slot_req: list[Request | None] = [None] * max_slots
         self._pending: list[np.ndarray | None] = [None] * max_slots
-        self.admitted_uids: list[int] = []
+        self.admitted_uids: list[int] = []    # admission order
+        # preempted requests awaiting re-admission: waiting work that the
+        # engine re-seats through ``place``, not through the queue
+        self.parked: list[Request] = []
 
     def submit(self, req: Request) -> Request:
         """Validate and enqueue.  Prompts are capped at ``max_len - 1`` (the
@@ -101,6 +107,20 @@ class Scheduler:
             wave.append((slot, req))
         return wave
 
+    def place(self, slot: int, req: Request):
+        """Re-bind a parked (preempted) request to a free slot."""
+        if self.slot_req[slot] is not None:
+            raise RuntimeError(f"slot {slot} is occupied by uid="
+                               f"{self.slot_req[slot].uid}; release it first")
+        for i, p in enumerate(self.parked):
+            if p is req:                  # identity, not __eq__ (arrays)
+                self.parked.pop(i)
+                break
+        else:
+            raise RuntimeError(f"place(uid={req.uid}): the request is not parked")
+        self.slot_req[slot] = req
+        self.admitted_uids.append(req.uid)
+
     def first_chunk_len(self, req: Request) -> int:
         """Prompt tokens the admission wave prefill covers for ``req``."""
         if self.prefill_chunk is None:
@@ -128,9 +148,23 @@ class Scheduler:
         self.slot_req[slot] = None
         self._pending[slot] = None
 
+    def preempt(self, slot: int) -> tuple[Request, np.ndarray]:
+        """Evict a running slot's request into ``parked``.  Returns the
+        request and its un-ingested prompt tail, for the engine's
+        re-admission record."""
+        req = self.slot_req[slot]
+        if req is None:
+            raise RuntimeError(f"preempt({slot}): slot is empty")
+        pending = self._pending[slot]
+        self.release(slot)
+        self.parked.append(req)
+        return req, (pending if pending is not None
+                     else np.zeros((0,), np.int64))
+
     @property
     def queue_depth(self) -> int:
-        return len(self.queue)
+        """Requests waiting for a slot: queued or parked."""
+        return len(self.queue) + len(self.parked)
 
     @property
     def occupancy(self) -> int:
@@ -138,4 +172,5 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        return bool(self.queue) or any(r is not None for r in self.slot_req)
+        return (bool(self.queue) or bool(self.parked)
+                or any(r is not None for r in self.slot_req))

@@ -9,7 +9,9 @@ only PyTorch:
 Tolerances: max |kernel - plain| <= 1e-4 in float32 (TF32 off; the
 summation order differs) and <= 2e-2 in bf16 (one bf16 rounding of
 outputs of order 1).  K3 / K6 compare with their plain versions on the
-same int8 latents and scales.
+same int8 latents and scales.  K4 / K7 (the paged pool) must also equal
+K1 / K5 on the table-gathered ring bit for bit: they run the same tiles in
+the same order on the same values.
 """
 
 import math
@@ -217,6 +219,90 @@ def test_k6_cuda_kernel_matches_plain(cuda, dtype):
         assert (got[2] == 0).all()
 
 
+def _paged(cuda, a, ps, seed):
+    """Page ``_ring``'s rows into a shuffled pool: row 1 shares row 0's
+    first page, row 1's pages past its length and all of row 2 (whose
+    bias is masked) sit on the null page 0.  Returns (ptab, zk pool, zv
+    pool) in float32."""
+    B, S = a["zk"].shape[:2]
+    n_sp = S // ps
+    for k in ("zk", "zv"):
+        a[k][1, :ps] = a[k][0, :ps]
+    g = torch.Generator().manual_seed(seed)
+    perm = (torch.randperm(B * n_sp, generator=g) + 1).tolist()
+    ptab = torch.zeros(B, n_sp, dtype=torch.int32)
+    for j in range(n_sp):
+        ptab[0, j] = perm.pop()
+    ptab[1, 0] = ptab[0, 0]
+    for j in range(1, 40 // ps + 1):      # row 1 is valid below position 40
+        ptab[1, j] = perm.pop()
+    pools = {}
+    for k in ("zk", "zv"):
+        pool = torch.zeros((B * n_sp + 1, ps) + tuple(a[k].shape[2:]), device=cuda)
+        for b in range(B):
+            for j in range(n_sp):
+                if ptab[b, j]:
+                    pool[ptab[b, j]] = a[k][b, j * ps:(j + 1) * ps]
+        pools[k] = pool
+    return ptab.to(cuda), pools["zk"], pools["zv"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
+def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
+    """The paged pool through a ragged table (shuffled pages, null pages,
+    one page shared by two rows; page_size below the 32-column tile): K4
+    against its plain version, and bit for bit against K1 on the gathered
+    ring, with and without the self column."""
+    a = _ring(cuda, 90 + dh, S=6 * ps, dh=dh)
+    ptab, pzk, pzv = _paged(cuda, a, ps, dh)
+    S = 6 * ps
+    q, r_k = a["q"].to(dtype), a["r_k"].to(dtype)
+    pzk, pzv = pzk.to(dtype), pzv.to(dtype)
+    bias = a["bias"][:, 0, :S].contiguous()
+    selfs = dict(self_zk=a["self_zk"][:, 0].to(dtype), self_zv=a["self_zv"][:, 0].to(dtype),
+                 self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    for kw in ({}, selfs):
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw)
+        got = _check(K1.latent_decode_attention_paged,
+                     K1.latent_decode_attention_paged_plain,
+                     (ptab, q, pzk, pzv, r_k, a["cos"], a["sin"], bias), kw, dtype,
+                     K1.latent_decode_attention_paged)
+        view = K1.latent_decode_attention(
+            q, K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab), r_k, a["cos"],
+            a["sin"], bias, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, view)
+        if "self_zk" not in kw:
+            assert (got[2] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
+def test_k7_cuda_kernel_matches_plain_and_k5_on_view(cuda, dtype, dh, ps):
+    """nq = 4 verify queries over the paged pool of the K4 test: against
+    the plain version, and bit for bit against K5 on the gathered ring."""
+    a = _ring(cuda, 110 + dh, S=6 * ps, dh=dh, nq=4)
+    ptab, pzk, pzv = _paged(cuda, a, ps, dh + 1)
+    q, r_k = a["q"].to(dtype), a["r_k"].to(dtype)
+    pzk, pzv = pzk.to(dtype), pzv.to(dtype)
+    kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_zk=a["self_zk"].to(dtype),
+              self_zv=a["self_zv"].to(dtype), self_cos=a["self_cos"],
+              self_sin=a["self_sin"])
+    got = _check(K1.latent_decode_attention_mq_paged,
+                 K1.latent_decode_attention_mq_paged_plain,
+                 (ptab, q, pzk, pzv, r_k, a["cos"], a["sin"], a["bias"]), kw, dtype,
+                 K1.latent_decode_attention_mq_paged)
+    view = K1.latent_decode_attention_mq(
+        q, K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab), r_k, a["cos"],
+        a["sin"], a["bias"], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, view)
+    assert (got[2] == 0).all()
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     """No silent fallback: shapes the kernels were not built for raise."""
@@ -237,3 +323,14 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="shared memory"):
         K1.latent_decode_attention_mq(qm, zm, zm, torch.randn(2, 256, 512, device=cuda),
                                       tm, tm, torch.zeros(1, 5, 8, device=cuda), scale=1.0)
+    # the same for K7 over a pool; and a page table must be int32
+    pm = torch.randn(3, 4, 2, 256, device=cuda)
+    tab2 = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        K1.latent_decode_attention_mq_paged(
+            tab2, qm, pm, pm, torch.randn(2, 256, 512, device=cuda), tm, tm,
+            torch.zeros(1, 5, 8, device=cuda), scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        K1.latent_decode_attention_paged(
+            tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
+            tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)

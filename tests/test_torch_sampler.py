@@ -80,6 +80,27 @@ def test_blocked_cumsum_is_xla_cpu_order():
                                       want, err_msg=f"n={n}")
 
 
+@pytest.mark.parametrize("lo,hi", [(-88.0, 0.0), (-1e30, -88.0), (-1e-2, 1e-2),
+                                   (0.0, 88.0)])
+def test_xla_cpu_exp_matches_jnp_exp(lo, hi):
+    """XLA's CPU float32 exp (Cephes reduction, fused degree-5 polynomial,
+    flushed subnormals), bit for bit on a million-point sweep."""
+    x = np.linspace(lo, hi, 1_000_001, dtype=np.float32)
+    want = np.asarray(jax.jit(jnp.exp)(jnp.asarray(x)))
+    np.testing.assert_array_equal(S.xla_cpu_exp(torch.from_numpy(x)).numpy(), want)
+
+
+def test_xla_cpu_sum_is_xla_cpu_order():
+    """jnp.sum on the CPU: 32-wide windows, zero-padded evenly on both
+    sides, summed recursively, bit for bit up to the full vocabulary."""
+    rng = np.random.default_rng(4)
+    for n in (5, 32, 33, 50, 1000, 4099, 151936):
+        x = (rng.random((3, n)) * np.exp(rng.normal(size=(3, n)))).astype(np.float32)
+        want = np.asarray(jax.jit(lambda v: jnp.sum(v, axis=-1))(jnp.asarray(x)))
+        np.testing.assert_array_equal(S.xla_cpu_sum(torch.from_numpy(x)).numpy(), want,
+                                      err_msg=f"n={n}")
+
+
 def test_sample_tokens_matches_jax_on_mixed_rows():
     """Greedy, sub-floor temperature, top-k, top-p and unfiltered rows in
     one batch, with per-row split keys."""

@@ -111,12 +111,12 @@ def test_sampled_streams_reproducible(model):
 def test_filtered_logits_matches_jax():
     """Distinct logits (no ties), mixed top-k / top-p per row; kept
     entries equal exactly, masked entries are NEG_INF on both sides.  The
-    logit spread (5) keeps every cumulative probability below 1 in
-    float32: where the tail's mass rounds the cumulative sum to 1, the
-    two cumsum orders drop different tail entries even at top_p = 1
-    (ROADMAP.md, Queue 3)."""
+    logit spread (28) drives the float32 cumulative probability to 1
+    before the last sorted entry, so at top_p = 1 the tail entries kept
+    depend on the softmax's exp and row sum: the CPU path computes both
+    in XLA's CPU order, and the kept sets are equal."""
     rng = np.random.default_rng(0)
-    logits = rng.permutation(4 * 50).reshape(4, 50).astype(np.float32) / 40.0
+    logits = rng.permutation(4 * 50).reshape(4, 50).astype(np.float32) * np.float32(0.14)
     top_k = np.array([0, 5, 0, 12], np.int32)
     top_p = np.array([1.0, 1.0, 0.6, 0.3], np.float32)
     want = np.asarray(jax_filtered_logits(jnp.asarray(logits), jnp.asarray(top_k),
