@@ -9,23 +9,59 @@
 // dv = r_v, which differ from Hkv and dh.
 //
 // What bounds it on an H100: at B=8, T=2048, H=32, dh=128, dv=256 the
-// causal work is ~0.4 TFLOP (0.42 ms on bf16 tensor cores) against
-// ~0.45 GB of traffic (0.14 ms), so it is bound by operations.  This
-// first version multiplies on CUDA cores (register-tiled from shared
-// memory): it takes about 18 ms at that shape on an H100 80GB HBM3 at
-// 700 W, some 44x the bound (chip_smoke.py measures it; PERF.md keeps the
-// current time); wgmma with TMA-fed tiles is the next step.
+// causal work is ~0.41 TFLOP (0.42 ms on bf16 tensor cores) against
+// ~0.45 GB of traffic (0.14 ms), so it is bound by operations.
 //
-// Design: grid (query tiles, H, B), 64 x 64 tiles, 256 threads; a
-// thread holds 4 query rows x (4 score / dv/16 output) columns in
-// registers, and the 16 threads of a row reduce its softmax state with
-// warp shuffles.  Key tiles above the diagonal or wholly outside the
-// window are skipped; keys at or beyond T are masked (NEG_INF = -1e30,
-// never -inf), as in the TPU kernel.  bf16 or f32 inputs, f32
-// accumulation.
+// Two bodies (chip_smoke.py measures both; PERF.md keeps the times):
+//  * bf16 (the serving path): flash_prefill_tc, on wgmma.  A block takes
+//    BQ = 128 query rows of one head as two warpgroups of 64 rows.  Per
+//    64-key tile a warpgroup starts S = Q K^T as wgmma.m64n64k16 from
+//    shared memory (Q and K K-major) and O += P V as wgmma.m64n{dv}k16
+//    with P in registers as the A operand and V MN-major from shared
+//    memory (wgmma.cuh).  S, P and O (64 x dv f32 per warpgroup: 128
+//    registers a thread at dv = 256) never leave registers; the S
+//    accumulator's layout is P's A-fragment layout, so P is packed in
+//    place.  Against the mma.sync shape (FlashAttention-2), where each
+//    warp re-reads every K and V tile through ldmatrix, a warpgroup reads
+//    each tile once per 64 rows.
+//  * Pipeline: Q, K and V arrive by 16-byte cp.async, in the 128-byte
+//    swizzle wgmma reads, into a three-stage K/V ring (a thread copies the
+//    same cells of every tile, so its addresses advance by adds).  In tile
+//    i a warpgroup starts S of tile i + 1 and then P V of tile i, runs the
+//    softmax of tile i + 1 on the CUDA cores while P V is on the tensor
+//    cores, and rescales O once P V is done; one block barrier per tile
+//    publishes the next tile's copies and frees the oldest stage.  The
+//    exponent base moves only when a score exceeds it by more than 8 (log2
+//    units, P <= 2^8), so O is rescaled rarely.  O leaves through shared
+//    memory in 16-byte row chunks.  The grid puts the query-tile index
+//    slowest and reversed, so the longest causal rows launch first.
+//    Masks are applied in registers only on tiles that need them (the
+//    diagonal, the T tail, the window edge); tiles above the diagonal or
+//    wholly outside the window are never loaded.
+//  * Precision: P enters P V as two bf16 A operands on the same V, hi =
+//    bf16(P) and lo = bf16(P - hi) (~2^-17 relative per weight).  One bf16
+//    P (2^-9) is large against the output on rows that have averaged few
+//    keys: it missed chip_smoke.py's per-element bf16 limit by 2.9x at its
+//    shape on an H100, on early causal rows.  tests/test_torch_tc_rounding.py
+//    emulates both roundings.
+//  * f32 (the CPU/GPU parity instantiation): flash_prefill_kernel, the
+//    first version, on CUDA cores (register-tiled from shared memory, 64 x
+//    64 tiles, 256 threads; a thread holds 4 query rows x (4 score / dv/16
+//    output) columns and 16 threads of a row reduce its softmax state with
+//    warp shuffles).  Tensor cores in TF32 or bf16 cannot meet the f32
+//    parity limit of 1e-4.
+//
+// Both mask keys at or beyond T (NEG_INF = -1e30, never -inf), as the TPU
+// kernel does.  In the bf16 body a row that sees no key of a tile keeps
+// its softmax state, so a row masked everywhere would finish as exact 0.
+// f32 accumulation throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "tc_helpers.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
@@ -200,24 +236,294 @@ flash_prefill_kernel(Args a) {
   }
 }
 
-template <typename T, int DH, int DV>
+// ---- bf16 body: wgmma (see the header) --------------------------------------
+
+namespace tcp {
+
+using bf16 = __nv_bfloat16;
+constexpr int BQ = 128, BK = 64, THREADS = 256;   // 2 warpgroups of 64 query rows
+constexpr int NS = 3;                              // K/V stages in the ring
+
+template <int DH, int DV>
+constexpr size_t smem_bytes() {   // Q and NS K/V stages; + 1 KB to align
+  return (size_t(BQ) * DH + NS * size_t(BK) * (DH + DV)) * sizeof(bf16) + 1024;
+}
+
+template <int DH, int DV>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_prefill_tc(Args a) {
+  constexpr int SN = BK / 8;   // score 8-column tiles of a warp (16 rows x 64 keys)
+  constexpr int ON = DV / 8;   // output 8-column tiles of a warp (16 rows x dv)
+  constexpr int QC = DH / 8, VC = DV / 8;   // 16-byte chunks per row
+  constexpr uint32_t Q_BYTES = BQ * DH * 2, K_BYTES = BK * DH * 2, V_BYTES = BK * DV * 2;
+  static_assert(DH % 64 == 0 && (DV == 64 || DV == 256), "instantiated for dv 64 and 256");
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int qt = gridDim.z - 1 - blockIdx.z;   // longest causal rows first
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int wgi = warp >> 2;                    // warpgroup: query rows 64 wgi..
+  const int g4 = lane >> 2, t4 = lane & 3;
+  const int T_ = a.T, H = a.H;
+  const int hk = h / (H / a.Hkv), hv = h / (H / a.Hv);
+  const int q_start = qt * BQ;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;                   // Q_BYTES, swizzled
+  unsigned char* k_s = q_s + Q_BYTES;          // NS stages of K_BYTES
+  unsigned char* v_s = k_s + NS * K_BYTES;     // NS stages of V_BYTES
+  const uint32_t q_a = tc::smem_u32(q_s), k_a = tc::smem_u32(k_s), v_a = tc::smem_u32(v_s);
+
+  const bf16* q = static_cast<const bf16*>(a.q);
+  const bf16* k = static_cast<const bf16*>(a.k);
+  const bf16* v = static_cast<const bf16*>(a.v);
+
+  // key tiles this query tile needs: none above the diagonal, none wholly
+  // below the window of its first row
+  const int n_k = (T_ + BK - 1) / BK;
+  const int kt_hi = a.causal ? min(n_k - 1, (q_start + BQ - 1) / BK) : n_k - 1;
+  int kt_lo = 0;
+  if (a.window > 0 && q_start - a.window + 1 > 0) kt_lo = (q_start - a.window + 1) / BK;
+  const int n_tiles = kt_hi - kt_lo + 1;
+
+  // -- async loads into the swizzled tiles: rows past T are zero-filled -------
+  for (int e = tid; e < BQ * QC; e += THREADS) {
+    const int r = e / QC, c = e - r * QC, t = q_start + r;
+    const bool ok = t < T_;
+    tc::cp_async16(q_s + wg::sw128(BQ, r, c),
+                   q + ((size_t(b) * T_ + (ok ? t : 0)) * H + h) * DH + c * 8, ok);
+  }
+  // A thread copies the same (row, 16-byte chunk) cells of every K and V
+  // tile: rows r0 + j * (THREADS / chunks per row), one chunk column, whose
+  // swizzled offsets differ by whole row steps (a multiple of 8 rows).
+  static_assert(THREADS % QC == 0 && THREADS % VC == 0 && (THREADS / QC) % 8 == 0 &&
+                (THREADS / VC) % 8 == 0, "the copy pattern needs 8-row steps");
+  constexpr int KR = THREADS / QC, VR = THREADS / VC;   // row steps
+  const int kr0 = tid / QC, vr0 = tid / VC;
+  const uint32_t k_off = wg::sw128(BK, kr0, tid % QC), v_off = wg::sw128(BK, vr0, tid % VC);
+  const bf16* k_src = k + (size_t(b) * T_ * a.Hkv + hk) * DH + (tid % QC) * 8;
+  const bf16* v_src = v + (size_t(b) * T_ * a.Hv + hv) * DV + (tid % VC) * 8;
+  const size_t k_rs = size_t(a.Hkv) * DH, v_rs = size_t(a.Hv) * DV;   // token strides
+  auto load_kv = [&](int i) {   // tile kt_lo + i into stage i % NS
+    const int k_start = (kt_lo + i) * BK, st = i % NS;
+#pragma unroll
+    for (int j = 0; j < BK / KR; ++j) {
+      const int t = k_start + kr0 + j * KR;
+      tc::cp_async16(k_s + st * K_BYTES + k_off + j * KR * 128, k_src + (t < T_ ? t : 0) * k_rs,
+                     t < T_);
+    }
+#pragma unroll
+    for (int j = 0; j < BK / VR; ++j) {
+      const int t = k_start + vr0 + j * VR;
+      tc::cp_async16(v_s + st * V_BYTES + v_off + j * VR * 128, v_src + (t < T_ ? t : 0) * v_rs,
+                     t < T_);
+    }
+  };
+  load_kv(0);
+  tc::cp_async_commit();
+  if (n_tiles > 1) load_kv(1);
+  tc::cp_async_commit();
+
+  float o[ON][4];
+#pragma unroll
+  for (int j = 0; j < ON; ++j)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) o[j][c] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f}, corr[2];
+  const float sl2 = a.scale * 1.4426950408889634f;   // scores in log2 units
+  const int row0 = q_start + warp * 16 + g4;          // rows of c0/c1; +8 for c2/c3
+
+  // S = Q K^T of tile i: 64 x 64 per warpgroup, 16 x 64 per warp (started,
+  // not waited for)
+  auto start_s = [&](float (&x)[SN][4], int i) {
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) x[j][c] = 0.f;
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk) {
+      const uint32_t qd = q_a + (kk >> 2) * (BQ * 128) + wgi * (64 * 128) + (kk & 3) * 32;
+      const uint32_t kd = k_a + (i % NS) * K_BYTES + (kk >> 2) * (BK * 128) + (kk & 3) * 32;
+      wg::wgmma_ss_n64(x, wg::desc_sw128(qd, 16, 1024), wg::desc_sw128(kd, 16, 1024), 1);
+    }
+    wg::commit();
+  };
+  // Mask (edge tiles only) and online softmax of tile i's scores, in log2
+  // units: x becomes P = 2^(S - m) (f32), l and m advance, corr is the
+  // factor that O (still in the old m's units) must take.
+  auto softmax = [&](float (&x)[SN][4], int i) {
+    const int k_start = (kt_lo + i) * BK;
+    const bool edge = k_start + BK > T_ || (a.causal && k_start + BK - 1 > q_start) ||
+                      (a.window > 0 && k_start <= q_start + BQ - 1 - a.window);
+    float mx[2] = {NEG_INF, NEG_INF};   // over raw scores (sl2 > 0)
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        if (edge) {
+          const int kp = k_start + j * 8 + 2 * t4 + (c & 1);
+          const int qp = row0 + (c >> 1) * 8;
+          bool ok = kp < T_;
+          if (a.causal) ok = ok && kp <= qp;
+          if (a.window > 0) ok = ok && kp > qp - a.window;
+          if (!ok) x[j][c] = NEG_INF;
+        }
+        mx[c >> 1] = fmaxf(mx[c >> 1], x[j][c]);
+      }
+    bool live[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      // m is the exponent base, not the running max: it moves only when a
+      // score exceeds it by more than 8 (P <= 2^8), so O is rescaled rarely.
+      // Liveness is read on the raw scores: a row that has seen no key yet
+      // keeps m = NEG_INF and its (empty) state.
+      const float raw = tc::quad_max(mx[r]);
+      const float m_tile = raw * sl2;
+      const float m_new = raw > NEG_INF * 0.5f && m_tile > m[r] + 8.f ? m_tile : m[r];
+      live[r] = m_new > NEG_INF * 0.5f;
+      corr[r] = live[r] && m_new != m[r] ? tc::fast_exp2(m[r] - m_new) : 1.f;
+      m[r] = m_new;
+    }
+    float ps[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < SN; ++j)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = c >> 1;
+        const float p = live[r] ? tc::fast_exp2(fmaf(x[j][c], sl2, -m[r])) : 0.f;
+        x[j][c] = p;
+        ps[r] += p;
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + tc::quad_sum(ps[r]);
+  };
+  uint32_t ph[BK / 16][4], pl[BK / 16][4];   // P of the tile in P V, bf16 hi / lo
+  // P (f32, in x) as bf16 A fragments: hi = bf16(P), lo = bf16(P - hi)
+  auto pack = [&](const float (&x)[SN][4]) {
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+#pragma unroll
+      for (int f = 0; f < 4; ++f) {
+        const float p0 = x[2 * kk + (f >> 1)][2 * (f & 1)];
+        const float p1 = x[2 * kk + (f >> 1)][2 * (f & 1) + 1];
+        ph[kk][f] = tc::pack_bf16(p0, p1);
+        pl[kk][f] = tc::pack_bf16(p0 - __uint_as_float(ph[kk][f] << 16),
+                                  p1 - __uint_as_float(ph[kk][f] & 0xffff0000u));
+      }
+  };
+
+  // prologue: tile 0's scores and P
+  float sc[SN][4];
+  tc::cp_async_wait<1>();   // Q and tile 0 have landed
+  wg::fence_proxy_async();
+  __syncthreads();
+  start_s(sc, 0);
+  wg::wait_all();
+  softmax(sc, 0);
+  pack(sc);
+
+  // Tile i: S of tile i + 1 starts before P V of tile i, so the softmax of
+  // tile i + 1 runs on the CUDA cores while P V of tile i is on the tensor
+  // cores; O takes tile i + 1's correction once P V of tile i is done.
+  for (int i = 0; i < n_tiles; ++i) {
+    tc::cp_async_wait<0>();   // tile i + 1 has landed
+    wg::fence_proxy_async();
+    __syncthreads();          // ... for every thread; stage (i + 2) % NS is free
+    if (i + 2 < n_tiles) load_kv(i + 2);
+    tc::cp_async_commit();
+    start_s(sc, i + 1);       // past the last tile: a stale stage, never read
+    wg::fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint64_t vd =
+          wg::desc_sw128(v_a + (i % NS) * V_BYTES + kk * (16 * 128), BK * 128, 1024);
+      if constexpr (DV == 256) {
+        wg::wgmma_rs_n256_tb(o, ph[kk], vd);
+        wg::wgmma_rs_n256_tb(o, pl[kk], vd);
+      } else {
+        wg::wgmma_rs_n64_tb(o, ph[kk], vd);
+        wg::wgmma_rs_n64_tb(o, pl[kk], vd);
+      }
+    }
+    wg::commit();
+    wg::wait_group<1>();      // S of tile i + 1 is done
+    if (i + 1 < n_tiles) softmax(sc, i + 1);
+    wg::wait_all();           // P V of tile i is done
+    if (i + 1 < n_tiles) {
+      if (__any_sync(0xffffffffu, corr[0] != 1.f || corr[1] != 1.f)) {
+#pragma unroll
+        for (int j = 0; j < ON; ++j) {
+          o[j][0] *= corr[0];
+          o[j][1] *= corr[0];
+          o[j][2] *= corr[1];
+          o[j][3] *= corr[1];
+        }
+      }
+      pack(sc);
+    }
+  }
+
+  // O / l to bf16 through shared memory (the K/V ring is free), then out in
+  // 16-byte row chunks: the output rows are dv * 2 bytes contiguous
+  constexpr int OS = DV * 2 + 16;   // staged row stride (bytes): rows 16 B apart in banks
+  static_assert(size_t(BQ) * OS <= NS * size_t(K_BYTES + V_BYTES), "O fits the ring");
+  __syncthreads();
+  unsigned char* o_s = k_s;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float inv = 1.f / fmaxf(l[r], 1e-30f);
+    uint32_t* orow = reinterpret_cast<uint32_t*>(o_s + (warp * 16 + g4 + 8 * r) * OS);
+#pragma unroll
+    for (int j = 0; j < ON; ++j)
+      orow[j * 4 + t4] = tc::pack_bf16(o[j][2 * r] * inv, o[j][2 * r + 1] * inv);
+  }
+  __syncthreads();
+  bf16* out = static_cast<bf16*>(a.out);
+  for (int e = tid; e < BQ * VC; e += THREADS) {
+    const int r = e / VC, c = e - r * VC, qp = q_start + r;
+    if (qp < T_)
+      *reinterpret_cast<uint4*>(out + ((size_t(b) * T_ + qp) * H + h) * DV + c * 8) =
+          *reinterpret_cast<const uint4*>(o_s + r * OS + c * 16);
+  }
+}
+
+template <int DH, int DV>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, DH, DV>();
-  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<T, DH, DV>,
+  constexpr size_t smem = smem_bytes<DH, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_tc<DH, DV>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  dim3 grid(a.H, a.B, (a.T + BQ - 1) / BQ);
+  flash_prefill_tc<DH, DV><<<grid, THREADS, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace tcp
+
+// ---- f32 body launch -----------------------------------------------------
+
+template <int DH, int DV>
+cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
+  const size_t smem = smem_bytes<float, DH, DV>();
+  cudaError_t err = cudaFuncSetAttribute(flash_prefill_kernel<float, DH, DV>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   dim3 grid((a.T + BQ - 1) / BQ, a.H, a.B);
-  flash_prefill_kernel<T, DH, DV><<<grid, THREADS, smem, stream>>>(a);
+  flash_prefill_kernel<float, DH, DV><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // (128, 256): qwen3-4b's dh with r_v = 256 latent values (the main path);
-// (64, 64): the small shape the GPU tests use.
-template <typename T>
-cudaError_t dispatch(int dh, int dv, const Args& a, cudaStream_t st) {
-  if (dh == 64 && dv == 64) return launch<T, 64, 64>(a, st);
-  if (dh == 128 && dv == 256) return launch<T, 128, 256>(a, st);
+// (64, 64): the small shape the GPU tests use.  bf16 runs the tensor-core
+// body, f32 the CUDA-core one.
+cudaError_t dispatch(int is_bf16, int dh, int dv, const Args& a, cudaStream_t st) {
+  if (dh == 64 && dv == 64)
+    return is_bf16 ? tcp::launch<64, 64>(a, st) : launch_f32<64, 64>(a, st);
+  if (dh == 128 && dv == 256)
+    return is_bf16 ? tcp::launch<128, 256>(a, st) : launch_f32<128, 256>(a, st);
   return cudaErrorInvalidValue;
 }
 
@@ -238,8 +544,7 @@ int recalkv_flash_prefill(int is_bf16, int dh, int dv, const void* q, const void
                           int causal, int window, float scale, void* stream) {
   Args a{q, k, v, out, B, T, H, Hkv, Hv, window, causal, scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(is_bf16 ? dispatch<__nv_bfloat16>(dh, dv, a, st)
-                                  : dispatch<float>(dh, dv, a, st));
+  return static_cast<int>(dispatch(is_bf16, dh, dv, a, st));
 }
 
 }  // extern "C"

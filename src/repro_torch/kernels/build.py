@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled on its
 own by ``nvcc`` into ``<repo>/build/kernels/<name>-<hash>.so`` (the hash
-covers the source and the flags, so an edited source rebuilds), then
+covers the source, the shared ``csrc/*.cuh`` headers and the flags, so an
+edited source or header rebuilds), then
 loaded with ``ctypes``.  Nothing is built when a module is imported: the
 first kernel launch builds what it needs, and :func:`build_all` starts one
 ``nvcc`` per source at once so a cold build takes as long as the slowest
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("latent_decode", "flash_prefill")
+SOURCES = ("latent_decode", "latent_decode_paged", "flash_prefill")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -41,7 +43,8 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 
@@ -75,6 +78,34 @@ def build_all(names=SOURCES) -> dict[str, dict]:
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return info
+
+
+def ptxas_summary(log: str) -> list[dict]:
+    """Per kernel entry of an ``nvcc -Xptxas -v`` log: its name (demangled
+    where ``c++filt`` exists), registers, and spill stores / loads in
+    bytes."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = {"kernel": m.group(1), "registers": None, "spill_stores": 0,
+                   "spill_loads": 0}
+            out.append(cur)
+        elif cur is not None:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                cur["spill_stores"], cur["spill_loads"] = int(m[1]), int(m[2])
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                cur["registers"] = int(m[1])
+    filt = shutil.which("c++filt")
+    if filt and out:
+        names = subprocess.run([filt], input="\n".join(e["kernel"] for e in out),
+                               capture_output=True, text=True).stdout.splitlines()
+        if len(names) == len(out):
+            for e, n in zip(out, names):
+                e["kernel"] = n
+    return out
 
 
 def load(name: str) -> ctypes.CDLL:

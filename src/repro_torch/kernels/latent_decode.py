@@ -4,12 +4,16 @@ wrappers.
 
 K1 replaces ``src/repro/kernels/latent_decode.py::latent_decode_attention``,
 K5 ``latent_decode_attention_mq``, K4 ``latent_decode_attention_paged`` and
-K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  All
-come from one templated kernel in ``csrc/latent_decode.cu`` (with K3 and
-K6 of ``latent_decode_q``); its header says what bounds it on an H100 and
-how the design answers it (S split into chunks with an LSE merge for
-parallelism, R_k streamed per head slot, keys never written to device
-memory, pool rows looked up per ring column through the page table).
+K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  K1, K5,
+K7 and K4 in float32 come from one templated kernel in
+``csrc/latent_decode.cu`` (with K3 and K6 of ``latent_decode_q``); its
+header says what bounds it on an H100 and how the design answers it (S
+split into chunks with an LSE merge for parallelism, R_k streamed per head
+slot, keys never written to device memory, pool rows looked up per ring
+column through the page table).  K4 in bf16, the serving path, is its own
+tensor-core kernel in ``csrc/latent_decode_paged.cu``; the float32
+instantiation of the template is K4's parity version (equal to K1 on the
+gathered ring, bit for bit).
 
 Shapes (as in the JAX kernels):
   q      (B, G, Hg, dh)   post-RoPE grouped queries, Hg = s * q_per_kv;
@@ -250,6 +254,82 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     return out
 
 
+_PAGED_TC_ARGTYPES = ([_INT] + [_PTR] * 17 + [_INT] * 10
+                      + [ctypes.c_float, ctypes.c_float, _PTR])
+
+
+def _lib_paged_tc():
+    lib = build.load("latent_decode_paged")
+    fn = lib.recalkv_latent_decode_paged_tc
+    if not fn.argtypes:
+        fn.argtypes = _PAGED_TC_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.recalkv_paged_tc_chunk.restype = ctypes.c_int
+        lib.recalkv_paged_tc_smem.argtypes = [ctypes.c_int] * 3
+        lib.recalkv_paged_tc_smem.restype = ctypes.c_longlong
+    return lib
+
+
+def launch_paged_tc(ptab, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
+                    norm_eps, self_zk, self_zv, self_cos, self_sin):
+    """Check the operands and launch K4's bf16 tensor-core kernel of
+    ``csrc/latent_decode_paged.cu`` (the caller counts the launch).  Pool
+    latents (n_pages, page_size, G, r) bf16, ``ptab`` (B, n_sp) int32,
+    slot-major f32 tables over S = n_sp * page_size columns, one optional
+    self column; 256 ring columns per block."""
+    B, G, Hg, dh = q.shape
+    n_pages, page_size, _, rk = zk.shape
+    rv = zv.shape[3]
+    S = ptab.shape[1] * page_size
+    s = r_k.shape[-1] // dh
+    bf = torch.bfloat16
+    selfs = [self_zk, self_zv] if self_zk is not None else []
+    if any(t.dtype != bf for t in [q, zk, zv, r_k] + selfs):
+        raise TypeError("the bf16 paged kernel takes bf16 q, pool latents, r_k "
+                        "and self latents")
+    f32 = [cos, sin, bias] + [t for t in (k_norm, self_cos, self_sin) if t is not None]
+    if any(t.dtype != torch.float32 for t in f32):
+        raise TypeError("cos, sin, bias, k_norm and the self tables must be "
+                        "float32")
+    if (ptab.dtype != torch.int32 or ptab.dim() != 2 or ptab.shape[0] != B
+            or ptab.device != q.device):
+        raise TypeError(f"ptab must be ({B}, n_sp) int32 on {q.device}, got "
+                        f"{tuple(ptab.shape)} {ptab.dtype} on {ptab.device}")
+    if (zv.shape[:3] != zk.shape[:3] or tuple(cos.shape[:2]) != (B, S)
+            or tuple(bias.shape) != (B, S)):
+        raise ValueError(f"pool {tuple(zk.shape)} / {tuple(zv.shape)}, tables "
+                         f"{tuple(cos.shape)} and bias {tuple(bias.shape)} do "
+                         f"not match the page table's {S} ring columns")
+    if (dh not in (64, 128) or Hg > 16 or Hg % s or Hg // s > 8
+            or r_k.shape != (G, rk, s * dh) or rk % 16 or not 16 <= rk <= 256
+            or rv % 8 or not 8 <= rv <= 256):
+        raise ValueError(f"unsupported shapes for the bf16 paged kernel: q "
+                         f"{tuple(q.shape)}, r_k {tuple(r_k.shape)}, r_v {rv} "
+                         f"(dh 64 or 128, Hg <= 16, Hg / s <= 8, r_k a multiple "
+                         f"of 16 and r_v of 8, both <= 256)")
+    lib = _lib_paged_tc()
+    smem = lib.recalkv_paged_tc_smem(dh, rk, rv)
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"bf16 paged kernel needs {smem} B of shared memory "
+                         f"(limit {_SMEM_LIMIT})")
+    dev = q.device
+    c = lambda t: None if t is None else t.contiguous()
+    n_self = int(self_zk is not None)
+    n_chunks = -(-(S + n_self) // lib.recalkv_paged_tc_chunk())
+    part_acc = torch.empty((B, G, n_chunks, Hg, rv), device=dev, dtype=torch.float32)
+    part_m = torch.empty((B, G, n_chunks, Hg), device=dev, dtype=torch.float32)
+    part_l = torch.empty_like(part_m)
+    out = torch.empty((B, G, Hg, rv), device=dev, dtype=bf)
+    ptrs = [c(t) for t in (q, zk, zv, r_k, cos, sin, bias, k_norm, self_zk,
+                           self_zv, self_cos, self_sin, ptab)]
+    err = lib.recalkv_latent_decode_paged_tc(
+        dh, *[_ptr(t) for t in ptrs], _ptr(part_acc), _ptr(part_m), _ptr(part_l),
+        _ptr(out), B, S, G, Hg, rk, rv, s, n_chunks, page_size, n_pages,
+        float(scale), float(norm_eps), torch.cuda.current_stream(dev).cuda_stream)
+    build.check(err, "recalkv_latent_decode_paged_tc")
+    return out
+
+
 def _on_device(name: str, q) -> bool:
     """True for a CUDA tensor (launch the kernel), False for a CPU tensor
     (run the plain version); any other device raises — no fallback."""
@@ -299,15 +379,21 @@ def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                   self_zk=None, self_zv=None, self_cos=None,
                                   self_sin=None):
     """K4: K1 over a page-major pool through ``ptab``.  Device rule as for
-    K1; ``.launches`` counts kernel launches."""
+    K1; ``.launches`` counts kernel launches.  bf16 runs the tensor-core
+    kernel, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("paged latent decode", q):
         return latent_decode_attention_paged_plain(ptab, q, zk, zv, r_k, cos,
                                                    sin, bias, **kw)
-    out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin, bias,
-                 scale, k_norm, norm_eps, self_zk, self_zv, self_cos, self_sin,
-                 ptab=ptab)
+    if q.dtype == torch.bfloat16:
+        out = launch_paged_tc(ptab, q, zk, zv, r_k, cos, sin, bias, scale,
+                              k_norm, norm_eps, self_zk, self_zv, self_cos,
+                              self_sin)
+    else:
+        out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin,
+                     bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
+                     self_sin, ptab=ptab)
     latent_decode_attention_paged.launches += 1
     return out
 

@@ -8,10 +8,14 @@ only PyTorch:
 
 Tolerances: max |kernel - plain| <= 1e-4 in float32 (TF32 off; the
 summation order differs) and <= 2e-2 in bf16 (one bf16 rounding of
-outputs of order 1).  K3 / K6 compare with their plain versions on the
-same int8 latents and scales.  K4 / K7 (the paged pool) must also equal
-K1 / K5 on the table-gathered ring bit for bit: they run the same tiles in
-the same order on the same values.
+outputs of order 1); the bf16 tensor-core bodies of K2 and K4 are also held
+to chip_smoke.py's per-element limit 2e-2 |plain| + 1e-2 rms(plain) at the
+main path's widths.  K3 / K6 compare with their plain versions on the same
+int8 latents and scales.  K7 (the paged pool), and K4 in float32, must also
+equal K5 / K1 on the table-gathered ring bit for bit: they run the same
+tiles in the same order on the same values.  K4 in bf16 is its own
+tensor-core kernel: it must equal itself on another placement of the same
+pages bit for bit.
 """
 
 import math
@@ -28,6 +32,15 @@ from repro_torch.quant import quantize
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _within_bf16_limit(got, want):
+    """chip_smoke.py's bf16 rule: |got - want| <= 2e-2 |want| + 1e-2 rms(want)."""
+    got, want = got.float(), want.float()
+    assert torch.isfinite(got).all()
+    limit = 2e-2 * want.abs() + 1e-2 * want.square().mean().sqrt()
+    worst = ((got - want).abs() / limit).max().item()
+    assert worst <= 1, f"worst err / limit {worst:.3f}"
 
 
 @pytest.fixture
@@ -110,6 +123,42 @@ def test_k2_cuda_kernel_matches_plain(cuda, dtype, dh, dv, Hkv, Hv):
         want = K2.flash_prefill_attention_plain(q, k, v, window=win)
         torch.testing.assert_close(got.float(), want.float(), atol=TOL[dtype],
                                    rtol=TOL[dtype])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T", [2048, 1000])
+def test_k2_bf16_tensor_cores_ragged_windowed(cuda, T):
+    """The bf16 tensor-core body at the main path's widths (dh 128, latent
+    values dv 256, Hv 2 < Hkv 4): T a multiple of the 128-row query tile
+    and a ragged one, causal with and without a 300-key window (windowed
+    query tiles skip their first key tiles, and rows that see no key of a
+    loaded tile keep an empty softmax state)."""
+    g = torch.Generator(device=cuda).manual_seed(T)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = rn(1, T, 8, 128), rn(1, T, 4, 128), rn(1, T, 2, 256)
+    for win in (None, 300):
+        n = K2.flash_prefill_attention.launches
+        got = K2.flash_prefill_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        assert K2.flash_prefill_attention.launches == n + 1
+        _within_bf16_limit(got, K2.flash_prefill_attention_plain(q, k, v, window=win))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,dv", [(128, 256), (64, 64)])
+def test_k2_bf16_single_key_rows_are_exact(cuda, dh, dv):
+    """The dead-row check of K2.  Its masks always leave a row its own key,
+    so no output row is dead, but with window 1 every loaded tile except
+    the diagonal one is dead for each row: such a row must keep its empty
+    softmax state (m = NEG_INF, l = 0) and its masked keys must add exact
+    zeros.  Then P is exactly 1 on the diagonal and each output row is its
+    value row bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(dh)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(torch.bfloat16)
+    q, k, v = rn(2, 333, 8, dh), rn(2, 333, 4, dh), rn(2, 333, 2, dv)
+    got = K2.flash_prefill_attention(q, k, v, window=1)
+    torch.cuda.synchronize()
+    assert torch.equal(got, v.repeat_interleave(4, dim=2))
 
 
 def _quant(x):
@@ -247,14 +296,33 @@ def _paged(cuda, a, ps, seed):
     return ptab.to(cuda), pools["zk"], pools["zv"]
 
 
+def _in_order(ptab, *pools):
+    """The same content through a second table: every mapped slot page at
+    its own physical page, in row-major slot order."""
+    mapped = ptab != 0
+    order = torch.zeros_like(ptab)
+    order[mapped] = torch.arange(1, int(mapped.sum()) + 1, device=ptab.device,
+                                 dtype=ptab.dtype)
+    out = []
+    for pool in pools:
+        p = torch.zeros((int(mapped.sum()) + 1,) + tuple(pool.shape[1:]),
+                        device=pool.device, dtype=pool.dtype)
+        p[order[mapped].long()] = pool[ptab[mapped].long()]
+        out.append(p)
+    return order, *out
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
 def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     """The paged pool through a ragged table (shuffled pages, null pages,
-    one page shared by two rows; page_size below the 32-column tile): K4
-    against its plain version, and bit for bit against K1 on the gathered
-    ring, with and without the self column."""
+    one page shared by two rows; page_size below the kernels' tiles), with
+    and without the self column: K4 against its plain version; in float32
+    bit for bit against K1 on the gathered ring (the template's parity
+    instantiation runs K1's tiles); in bf16 (the tensor-core kernel) bit
+    for bit against itself on an in-order placement of the same pages,
+    and within the bf16 limit of K1 on the gathered ring."""
     a = _ring(cuda, 90 + dh, S=6 * ps, dh=dh)
     ptab, pzk, pzv = _paged(cuda, a, ps, dh)
     S = 6 * ps
@@ -263,18 +331,54 @@ def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     bias = a["bias"][:, 0, :S].contiguous()
     selfs = dict(self_zk=a["self_zk"][:, 0].to(dtype), self_zv=a["self_zv"][:, 0].to(dtype),
                  self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    order, ozk, ozv = _in_order(ptab, pzk, pzv)
     for kw in ({}, selfs):
         kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw)
+        tables = (a["cos"], a["sin"], bias)
         got = _check(K1.latent_decode_attention_paged,
                      K1.latent_decode_attention_paged_plain,
-                     (ptab, q, pzk, pzv, r_k, a["cos"], a["sin"], bias), kw, dtype,
+                     (ptab, q, pzk, pzv, r_k, *tables), kw, dtype,
                      K1.latent_decode_attention_paged)
         view = K1.latent_decode_attention(
-            q, K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab), r_k, a["cos"],
-            a["sin"], bias, **kw)
+            q, K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab), r_k, *tables, **kw)
         torch.cuda.synchronize()
-        assert torch.equal(got, view)
+        if dtype == torch.float32:
+            assert torch.equal(got, view)
+        else:
+            _within_bf16_limit(got, view)
+            again = K1.latent_decode_attention_paged(order, q, ozk, ozv, r_k, *tables, **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(got, again)
         if "self_zk" not in kw:
+            assert (got[2] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
+def test_k4_bf16_null_page_tiles_and_dead_row(cuda, dh, ps):
+    """bf16 K4 over 40 slot pages (three 256-column blocks): row 1 is live
+    below position 40 only, so whole tiles and whole blocks of it sit on
+    the null page and are skipped; row 2 is masked everywhere and ends as
+    exact 0, or, with the self column (bias 0) its only live column, as
+    that column's value latent bit for bit."""
+    S = 40 * ps
+    a = _ring(cuda, 130 + dh, S=S, dh=dh, rk=64, rv=64)
+    ptab, pzk, pzv = _paged(cuda, a, ps, dh + 2)
+    bf = torch.bfloat16
+    q, r_k, pzk, pzv = a["q"].to(bf), a["r_k"].to(bf), pzk.to(bf), pzv.to(bf)
+    bias = a["bias"][:, 0, :S].contiguous()
+    self_zv = a["self_zv"][:, 0].to(bf)
+    selfs = dict(self_zk=a["self_zk"][:, 0].to(bf), self_zv=self_zv,
+                 self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    for kw in ({}, selfs):
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw)
+        args = (ptab, q, pzk, pzv, r_k, a["cos"], a["sin"], bias)
+        got = K1.latent_decode_attention_paged(*args, **kw)
+        torch.cuda.synchronize()
+        _within_bf16_limit(got, K1.latent_decode_attention_paged_plain(*args, **kw))
+        if "self_zk" in kw:
+            assert torch.equal(got[2], self_zv[2][:, None].expand_as(got[2]))
+        else:
             assert (got[2] == 0).all()
 
 
@@ -334,3 +438,10 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         K1.latent_decode_attention_paged(
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
             tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
+    # the bf16 K4 holds at most 16 query rows of a group, 8 per head slot
+    bf = torch.bfloat16
+    with pytest.raises(ValueError, match="bf16 paged kernel"):
+        K1.latent_decode_attention_paged(
+            tab2, qm[:, :, :32].to(bf), pm.to(bf), pm.to(bf),
+            torch.randn(2, 256, 512, device=cuda).to(bf), tm, tm,
+            torch.zeros(1, 8, device=cuda), scale=1.0)
