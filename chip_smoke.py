@@ -8,29 +8,28 @@ Phases, in order (any failure exits non-zero; none is caught):
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
    all at once) and print the build time and each kernel's ptxas
-   registers and spills;
+   registers and spills; the tensor-core bodies of
+   ``latent_decode_tc.cu`` (K1, K4, K6 in bf16) must not spill;
 3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
    (int8 multi-query verify), K4 and K7 (K1 and K5 over the paged pool,
    through a ragged page table) — at the main path's shapes against its
    plain PyTorch version, in float32 (TF32 off) and bf16, and timed
    beside the plain version, a PyTorch library call where one computes
    the same function, and the least time the card could take (its bound);
-   K2 and K4 are timed over 50 launches.  K7, and K4 in float32, must
-   also equal K5 and K1 on the table-gathered ring bit for bit (same
-   tiles, same order); K4 in bf16 (its own tensor-core kernel) must equal
-   itself on an in-order placement of the same pages bit for bit and stay
-   within the bf16 limit of K1 on the gathered ring; both are timed beside
-   K1 / K5 on that ring;
+   K2 and K4 are timed over 50 launches.  K4 and K7 must equal K1 and K5
+   on the table-gathered ring bit for bit in both types (same tiles, same
+   order; in bf16 K4 and K1 are one tensor-core body with two row maps),
+   and K4 in bf16 must also equal itself on an in-order placement of the
+   same pages; both are timed beside K1 / K5 on that ring.  Then the bf16
+   K1 and K6 bodies at widths off the main path (ranks 152, 384 and 512;
+   5 and 8 verify queries) within the bf16 limit;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
    and decode steps, and prefill and one 4-token verify step on float and
    int8 rings, through the einsum reference and the kernel backend; then
    a decode step and a 4-token verify step at the next position on paged
-   float and int8 pools holding the ring's content: on the int8 pool both
-   must equal the ring's logits; on the float pool a verify step before
-   any write must equal the ring's, and decode (K4 in bf16) and the verify
-   after it must equal a second page placement's logits bit for bit and
-   the ring's within 5e-2 relative;
+   float and int8 pools holding the ring's content: every logit must equal
+   the ring's bit for bit (on the float pool also before any write);
 5. the same model served through ``Engine`` (8 slots, max_len 4096) in
    five runs, each with the kernel launch counts of that run:
    A, float ring, no speculation, one chunked prompt (K1, K2);
@@ -209,18 +208,64 @@ def phase_latent(torch, gen, nq, quant):
 
     mod, base = (KQ, "latent_decode_attention") if quant else (K1, "latent_decode_attention")
     fn = base + ("" if one else "_mq") + ("_quant" if quant else "")
-    where = {"latent_decode_attention": ("latent_decode.py", 177, "latent_decode"),
+    where = {"latent_decode_attention": ("latent_decode.py", 177, "latent_decode_tc"),
              "latent_decode_attention_quant": ("latent_decode_q.py", 69, "latent_decode"),
              "latent_decode_attention_mq": ("latent_decode.py", 338, "latent_decode"),
              "latent_decode_attention_mq_quant": ("latent_decode_q.py", 158,
-                                                  "latent_decode")}[fn]
+                                                  "latent_decode_tc")}[fn]
     meta = {"name": fn, "source": f"src/repro_torch/csrc/{where[2]}.cu",
             "replaces": f"src/repro/kernels/{where[0]}:{where[1]}",
             "tpu_kernel": f"src/repro/kernels/{where[0]}::{fn}",
             "shape": (f"B={B} S={S}+{nq} G={G} Hg={Hg} nq={nq} dh={dh} r={r} "
                       f"{'int8 latents, ' if quant else ''}bf16")}
-    return kernel_phase(torch, fn, getattr(mod, fn), getattr(mod, fn + "_plain"), make,
-                        decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
+    entry = kernel_phase(torch, fn, getattr(mod, fn), getattr(mod, fn + "_plain"), make,
+                         decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
+    return entry
+
+
+def phase_tc_widths(torch, gen):
+    """The bf16 tensor-core bodies of K1 and K6 at widths off the main
+    path that the engine still serves, against their plain versions within
+    the bf16 limit: K1 at r = 152 (a multiple of 8, padded to 16 in the
+    kernel), 384 and 512 (recalkv ratios 0.3, 0.75 and 1: 128-column
+    chunks), and K6 at nq = 5 and 8 (spec_depth 4 and 7: query blocks
+    along grid z) and at r = 512 (a 64-row R_k stage).  B = 2 rows of a
+    1024-token ring; these launches are not the main path's."""
+    from repro_torch.kernels import latent_decode as K1
+    from repro_torch.kernels import latent_decode_q as KQ
+    from repro_torch.kernels import ops
+    from repro_torch.quant import quantize
+    B, S, G, Hg, dh, s = 2, 1024, 2, 16, 128, 4
+    bf = torch.bfloat16
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(B, S).contiguous()
+    pos[1, S // 3:] = -1                       # row 1 ragged: dead chunks
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    for kind, nq, r in (("K1", 1, 152), ("K1", 1, 384), ("K1", 1, 512),
+                        ("K6", 5, 256), ("K6", 8, 256), ("K6", 4, 512)):
+        pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
+        cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+        feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
+        bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+        q, r_k = rn(B, G, nq * Hg, dh).to(bf), (rn(G, r, s * dh) * r ** -0.5).to(bf)
+        zk, zv, szk, szv = rn(B, S, G, r), rn(B, S, G, r), rn(B, nq, G, r), rn(B, nq, G, r)
+        kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh))
+        if kind == "K1":
+            kernel, plain = K1.latent_decode_attention, K1.latent_decode_attention_plain
+            args = (q, zk.to(bf), zv.to(bf), r_k, cos, sin, bias[:, 0, :S].contiguous())
+            kw.update(self_zk=szk[:, 0].to(bf), self_zv=szv[:, 0].to(bf),
+                      self_cos=cs[:, 0], self_sin=ss[:, 0])
+        else:
+            kernel = KQ.latent_decode_attention_mq_quant
+            plain = KQ.latent_decode_attention_mq_quant_plain
+            q8 = [quantize(z, 8) for z in (zk, zv, szk, szv)]
+            args = (q, q8[0][0], q8[0][1][..., 0], q8[1][0], q8[1][1][..., 0], r_k, cos,
+                    sin, bias)
+            kw.update(self_zk_q=q8[2][0], self_zk_s=q8[2][1][..., 0], self_zv_q=q8[3][0],
+                      self_zv_s=q8[3][1][..., 0], self_cos=cs, self_sin=ss)
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        compare(f"{kernel.__name__} nq={nq} r={r}", got, plain(*args, **kw), bf)
 
 
 def paged_inputs(torch, gen, nq):
@@ -290,13 +335,12 @@ def in_order(torch, ptab, pools):
 
 def phase_paged(torch, gen, nq):
     """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
-    pool, against the plain version in f32 and bf16.  K7, and K4 in f32,
-    must equal K1 / K5 on the gathered ring bit for bit (same tiles, same
-    order).  K4 in bf16 is the tensor-core kernel: it must equal itself on
-    an in-order placement of the same pages bit for bit, and stay within
-    the bf16 limit of K1 on the gathered ring.  Each is timed; the bound
-    counts the mapped pages, the table and the slot-major tables of the
-    mapped columns."""
+    pool, against the plain version in f32 and bf16.  Both must equal K1 /
+    K5 on the gathered ring bit for bit in both types (same tiles, same
+    order; in bf16 K4 and K1 are the tensor-core body with two row maps),
+    and K4 in bf16 must equal itself on an in-order placement of the same
+    pages.  Each is timed; the bound counts the mapped pages, the table and
+    the slot-major tables of the mapped columns."""
     from repro_torch.kernels import latent_decode as K
     a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
@@ -319,14 +363,12 @@ def phase_paged(torch, gen, nq):
         view = ring(*view_args, **kw)
         torch.cuda.synchronize()
         diff = (got.float() - view.float()).abs().max().item()
-        if not one or dt == torch.float32:
-            log(f"{name} {dt}: max abs diff against {ring.__name__} on the gathered "
-                f"ring {diff:.3e} (0 expected: same tiles, same order)")
-            if diff != 0:
-                raise AssertionError(f"{name} differs from {ring.__name__} on the "
-                                     f"gathered ring by {diff:.3e}")
-        else:
-            compare(f"{name} against {ring.__name__} on the gathered ring", got, view, dt)
+        log(f"{name} {dt}: max abs diff against {ring.__name__} on the gathered "
+            f"ring {diff:.3e} (0 expected: same tiles, same order)")
+        if not torch.equal(got, view):
+            raise AssertionError(f"{name} differs from {ring.__name__} on the "
+                                 f"gathered ring by {diff:.3e}")
+        if one and dt == torch.bfloat16:
             order, opools = in_order(torch, ptab, {"zk": zk, "zv": zv})
             again = kernel(order, args[1], opools["zk"], opools["zv"], *args[4:], **kw)
             torch.cuda.synchronize()
@@ -351,7 +393,7 @@ def phase_paged(torch, gen, nq):
         f"{ring.__name__} on the view {view_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({by})")
     line = 456 if one else 567
-    source = "latent_decode_paged.cu" if one else "latent_decode.cu"
+    source = "latent_decode_tc.cu" if one else "latent_decode.cu"
     return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
             "replaces": f"src/repro/kernels/latent_decode.py:{line}",
             "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
@@ -453,18 +495,14 @@ def phase_paged_steps(torch, cfg, params):
     """Decode and 4-token verify steps on paged float and int8 pools
     (page_size 16, every slot page mapped at a shuffled physical page)
     holding the content of a prefilled ring (B=2, prompts of 512 and 300
-    tokens, max_len 1024), through the kernel backend.  On the int8 pool
-    (read through the gathered view with K3 / K6) a decode step and then a
-    verify step at the next position must equal the ring's logits bit for
-    bit, so the decode step's paged writes landed where the ring's did.  On
-    the float pool a verify step before any write must equal the ring's bit
-    for bit (K7 runs K5's tiles in order).  Its decode step runs K4's bf16
-    tensor-core kernel, whose arithmetic is not K1's: its logits must equal
-    those of a second, in-order placement of the same pages bit for bit and
-    stay within 5e-2 (relative, as in ``phase_backends``) of the ring's; the
-    verify step that follows it, which reads the latents that decode wrote,
-    must then be equal under both placements and within 5e-2 of the
-    ring's."""
+    tokens, max_len 1024), through the kernel backend.  A decode step and
+    then a verify step at the next position, which reads the latents that
+    decode wrote, must equal the ring's logits bit for bit, so the decode
+    step's paged writes landed where the ring's did; on the float pool a
+    verify step before any write must too.  The int8 pool is read through
+    the gathered view with K3 / K6; the float pool runs K4 (in bf16 K1's
+    tensor-core body through the page table) and K7 (K5's tiles in
+    order)."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import _merge_slot_paged
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -476,60 +514,36 @@ def phase_paged_steps(torch, cfg, params):
     mask = torch.ones((B, 4), dtype=torch.bool, device="cuda")
     n_sp = L // PAGE
     perm = torch.randperm(B * n_sp, generator=torch.Generator().manual_seed(SEED + 5)) + 1
-    tables = {"shuffled": perm.reshape(B, n_sp).to(device="cuda", dtype=torch.int32),
-              "in order": torch.arange(1, B * n_sp + 1, device="cuda",
-                                       dtype=torch.int32).reshape(B, n_sp)}
+    pages = (perm.reshape(B, n_sp).to(device="cuda", dtype=torch.int32), PAGE)
     rows = torch.arange(B, device="cuda").repeat_interleave(n_sp)
     cols = torch.arange(n_sp, device="cuda").repeat(B)
     out = {}
 
-    def check(name, g, w, exact, placed=None):
+    def check(name, g, w):
         if not torch.isfinite(g).all():
             raise AssertionError(f"{name}: logits are not finite")
         diff = (g - w).abs().max().item()
-        if exact:
-            log(f"{name}: logits max abs diff against the ring {diff:.3e}")
-            if diff != 0:
-                raise AssertionError(f"{name}: logits differ from the ring's by {diff:.3e}")
-            out[name] = diff
-            return
-        pdiff = (g - placed).abs().max().item()
-        rel = diff / w.abs().max().item()
-        agree = (g.argmax(-1) == w.argmax(-1)).float().mean().item()
-        log(f"{name}: logits max abs diff against an in-order placement {pdiff:.3e} "
-            f"(0 expected), against the ring {diff:.4e} (relative {rel:.3e}), greedy "
-            f"agreement {agree:.3f} over {g[..., 0].numel()} rows")
-        if not torch.equal(g, placed):
-            raise AssertionError(f"{name}: logits depend on the page placement ({pdiff:.3e})")
-        if rel > 5e-2:
-            raise AssertionError(f"{name}: logits differ from the ring's by {rel:.3e} "
-                                 f"relative (bf16 bound 5e-2)")
-        out[name] = {"placement_max_abs_diff": pdiff, "logits_max_abs_err": diff,
-                     "logits_rel_err": rel, "greedy_agreement": agree}
+        log(f"{name}: logits max abs diff against the ring {diff:.3e}")
+        if not torch.equal(g, w):
+            raise AssertionError(f"{name}: logits differ from the ring's by {diff:.3e}")
+        out[name] = diff
 
     for bits in (None, 8):
         c = dataclasses.replace(cfg, cache_quant_bits=bits)
         kind = "int8" if bits else "float"
         _, ring = T.prefill(c, params, toks, lens, L)
-        pools = {}
-        placed = tables if not bits else {"shuffled": tables["shuffled"]}
-        for key, tab in placed.items():
-            pool = T.init_decode_cache(c, B, L, "cuda", pages=(B * n_sp + 1, PAGE))
-            _merge_slot_paged(pool, ring, rows, cols, tab.reshape(-1).long(), PAGE)
-            pools[key] = pool
-        if not bits:   # verify writes nothing, so the pools still hold the ring
+        pool = T.init_decode_cache(c, B, L, "cuda", pages=(B * n_sp + 1, PAGE))
+        _merge_slot_paged(pool, ring, rows, cols, pages[0].reshape(-1).long(), PAGE)
+        if not bits:   # verify writes nothing, so the pool still holds the ring
             check(f"paged {kind} pool, verify before decode",
-                  T.verify_step(c, params, pools["shuffled"], fed, lens, mask,
-                                pages=(tables["shuffled"], PAGE))[0],
-                  T.verify_step(c, params, ring, fed, lens, mask)[0], exact=True)
-        for what, step in (("decode", lambda cache, pages: T.decode_step(
-                               c, params, cache, tok, lens, pages=pages)),
-                           ("verify after decode", lambda cache, pages: T.verify_step(
-                               c, params, cache, fed, lens + 1, mask, pages=pages))):
-            g = {key: step(pool, (tables[key], PAGE))[0] for key, pool in pools.items()}
-            check(f"paged {kind} pool, {what}", g["shuffled"], step(ring, None)[0],
-                  exact=bool(bits), placed=g.get("in order"))
-        del ring, pools
+                  T.verify_step(c, params, pool, fed, lens, mask, pages=pages)[0],
+                  T.verify_step(c, params, ring, fed, lens, mask)[0])
+        for what, step in (("decode", lambda cache, pg: T.decode_step(
+                               c, params, cache, tok, lens, pages=pg)),
+                           ("verify after decode", lambda cache, pg: T.verify_step(
+                               c, params, cache, fed, lens + 1, mask, pages=pg))):
+            check(f"paged {kind} pool, {what}", step(pool, pages)[0], step(ring, None)[0])
+        del ring, pool
     return out
 
 
@@ -651,12 +665,15 @@ def main() -> int:
         for e in build.ptxas_summary(v["ptxas"]):
             log(f"ptxas {name}: {e['kernel']}: {e['registers']} registers, spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
+            if name == "latent_decode_tc" and (e["spill_stores"] or e["spill_loads"]):
+                raise AssertionError(f"{e['kernel']} spills registers")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = [phase_latent(torch, gen, 1, False), phase_k2(torch, gen),
                phase_latent(torch, gen, 1, True), phase_paged(torch, gen, 1),
                phase_latent(torch, gen, 4, False), phase_latent(torch, gen, 4, True),
                phase_paged(torch, gen, 4)]
+    phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)

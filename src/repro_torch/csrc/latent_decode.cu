@@ -1,5 +1,5 @@
 // ReCalKV latent-ring flash decode for Hopper (sm_90a), CUDA C++: six
-// kernels from one template.
+// kernels from one template, on CUDA cores.
 //
 //   K1 recalkv_latent_decode           replaces src/repro/kernels/
 //                                      latent_decode.py::latent_decode_attention
@@ -8,6 +8,11 @@
 //   K6 recalkv_latent_decode_mq_quant  latent_decode_q.py::latent_decode_attention_mq_quant
 //   K4 recalkv_latent_decode_paged     latent_decode.py::latent_decode_attention_paged
 //   K7 recalkv_latent_decode_mq_paged  latent_decode.py::latent_decode_attention_mq_paged
+//
+// Which body serves which (kernel, dtype): K3, K5 and K7 run here in bf16
+// and float32; K1, K4 and K6 run here in float32 only, as the parity
+// instantiations the 1e-4 checks use (their entry points refuse bf16 q).
+// bf16 K1, K4 and K6 run the tensor-core body of latent_decode_tc.cu.
 //
 // For every (batch b, latent group g) and the R = nq * Hg query rows of
 // that group (nq queries, Hg = s * qpk heads each, rows ordered (query,
@@ -50,10 +55,10 @@
 // the paged kernels read the mapped pages and the page table instead of
 // the ring, the same bytes for a full table.
 // This version does the reconstruction on CUDA cores from shared memory
-// and is bound by that arithmetic (K1 takes ~1.4 ms at that shape on an
-// H100 80GB HBM3 at 700 W; chip_smoke.py measures all six and PERF.md
-// keeps the times); moving the (32 x r) @ (r x dh) product onto wgmma is
-// the next step.
+// and is bound by that arithmetic (K1 took ~1.4 ms at that shape on an
+// H100 80GB HBM3 at 700 W; chip_smoke.py measures the kernels and PERF.md
+// keeps the times); latent_decode_tc.cu moves the (columns x r) @ (r x dh)
+// product onto mma.sync tensor cores.
 //
 // Design against the card's limits:
 //  * The TPU grid walks S in order on one core; a (B, G) grid would be 16
@@ -485,9 +490,10 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
 // rings) the latents.  Null self latents mean no self column; null k_norm
 // means no key norm.  Each entry point checks that the operands match its
 // kernel: scales present only for the int8 kernels, one query for
-// K1/K3/K4, and a page table (with page_size dividing S and a pool of
-// n_pages pages) present only for the paged kernels K4/K7.
-#define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED)                                         \
+// K1/K3/K4, a page table (with page_size dividing S and a pool of n_pages
+// pages) present only for the paged kernels K4/K7, and float32 q for the
+// parity-only K1/K4/K6.
+#define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED, F32_ONLY)                               \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,          \
            const float* zk_scale, const float* zv_scale, const void* r_k,               \
            const float* cos, const float* sin, const float* bias, const float* k_norm,  \
@@ -498,6 +504,7 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
            int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,    \
            float scale, float eps, void* stream) {                                      \
     if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) ||                   \
+        ((F32_ONLY) && is_bf16) ||                                                      \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                  \
         (ptab != nullptr) != (PAGED) ||                                                 \
         ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))              \
@@ -509,12 +516,12 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
     return dispatch(is_bf16, dh, QUANT, a, static_cast<cudaStream_t>(stream));          \
   }
 
-RECALKV_ENTRY(recalkv_latent_decode, false, false, false)          // K1
-RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false)     // K3
-RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false)        // K5
-RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false)   // K6
-RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true)     // K4
-RECALKV_ENTRY(recalkv_latent_decode_mq_paged, false, true, true)   // K7
+RECALKV_ENTRY(recalkv_latent_decode, false, false, false, true)          // K1
+RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false, false)    // K3
+RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false, false)       // K5
+RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false, true)   // K6
+RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true, true)     // K4
+RECALKV_ENTRY(recalkv_latent_decode_mq_paged, false, true, true, false)  // K7
 
 #undef RECALKV_ENTRY
 

@@ -4,16 +4,25 @@ wrappers.
 
 K1 replaces ``src/repro/kernels/latent_decode.py::latent_decode_attention``,
 K5 ``latent_decode_attention_mq``, K4 ``latent_decode_attention_paged`` and
-K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  K1, K5,
-K7 and K4 in float32 come from one templated kernel in
-``csrc/latent_decode.cu`` (with K3 and K6 of ``latent_decode_q``); its
-header says what bounds it on an H100 and how the design answers it (S
-split into chunks with an LSE merge for parallelism, R_k streamed per head
-slot, keys never written to device memory, pool rows looked up per ring
-column through the page table).  K4 in bf16, the serving path, is its own
-tensor-core kernel in ``csrc/latent_decode_paged.cu``; the float32
-instantiation of the template is K4's parity version (equal to K1 on the
-gathered ring, bit for bit).
+K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  Which
+CUDA body serves which (kernel, dtype):
+
+  bf16  K1, K4 (and K6 of ``latent_decode_q``): the tensor-core body of
+        ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring columns per
+        block up to rank 256 and 128 past it, R_k streamed per head slot
+        through a cp.async ring, keys and P as bf16 hi + lo), one
+        instantiation per row map: K1 reads ring row b * S + t, K4 the
+        pool row through the page table, so K4 equals K1 on the
+        table-gathered ring bit for bit; K6 scores up to 4 query sets per
+        block and covers any nq with more blocks;
+  bf16  K5, K7 (and K3): the CUDA-core template of ``csrc/latent_decode.cu``;
+  f32   all of them: the same template, the parity instantiations the 1e-4
+        checks use (K4 and K7 in f32 equal K1 and K5 on the gathered ring
+        bit for bit: same tiles, same order).
+
+Each source's header says what bounds it on an H100 and how its design
+answers it; keys are never written to device memory.  A shape outside a
+body's limits raises; no CUDA tensor falls back to a plain version.
 
 Shapes (as in the JAX kernels):
   q      (B, G, Hg, dh)   post-RoPE grouped queries, Hg = s * q_per_kv;
@@ -143,24 +152,58 @@ def latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos, sin,
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
-# eps), stream — one argument list for all six entry points (see
-# csrc/latent_decode.cu).
+# eps), stream — one argument list for the six entry points of
+# csrc/latent_decode.cu and the three of csrc/latent_decode_tc.cu.
 _ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
-ENTRY_POINTS = ("recalkv_latent_decode", "recalkv_latent_decode_quant",
-                "recalkv_latent_decode_mq", "recalkv_latent_decode_mq_quant",
-                "recalkv_latent_decode_paged", "recalkv_latent_decode_mq_paged")
+ENTRY_POINTS = {  # entry point -> its library
+    "recalkv_latent_decode": "latent_decode",
+    "recalkv_latent_decode_quant": "latent_decode",
+    "recalkv_latent_decode_mq": "latent_decode",
+    "recalkv_latent_decode_mq_quant": "latent_decode",
+    "recalkv_latent_decode_paged": "latent_decode",
+    "recalkv_latent_decode_mq_paged": "latent_decode",
+    "recalkv_latent_decode_tc": "latent_decode_tc",
+    "recalkv_latent_decode_paged_tc": "latent_decode_tc",
+    "recalkv_latent_decode_mq_quant_tc": "latent_decode_tc",
+}
+# The limits of the bf16 tensor-core bodies (csrc/latent_decode_tc.cu::
+# shapes_ok): kind, q_per_kv at most, whether nq may exceed 1.  Besides,
+# Hg <= 16 and r_k, r_v multiples of 8 whose block fits in shared memory
+# (recalkv_tc_chunk > 0: ranks up to 544 for K6, 704 for K1 / K4 at dh 128).
+_TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 8, False),
+              "recalkv_latent_decode_paged_tc": ("paged", 8, False),
+              "recalkv_latent_decode_mq_quant_tc": ("int8 multi-query", 16, True)}
 
 
-def _lib():
-    lib = build.load("latent_decode")
-    if not lib.recalkv_latent_decode.argtypes:
-        for name in ENTRY_POINTS:
-            fn = getattr(lib, name)
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 7
-        lib.recalkv_latent_decode_smem.restype = ctypes.c_longlong
+def _check_ptab(ptab, q):
+    if (ptab.dtype != torch.int32 or ptab.dim() != 2 or ptab.shape[0] != q.shape[0]
+            or ptab.device != q.device):
+        raise TypeError(f"ptab must be ({q.shape[0]}, n_sp) int32 on {q.device}, "
+                        f"got {tuple(ptab.shape)} {ptab.dtype} on {ptab.device}")
+
+
+def _n_self(self_zk):
+    """Self columns: K1 / K3 / K4 take one as (B, G, r), K5 / K6 / K7
+    (B, n_self, G, r)."""
+    return 0 if self_zk is None else 1 if self_zk.dim() == 3 else self_zk.shape[1]
+
+
+def _lib(name: str):
+    lib = build.load(name)
+    first = next(e for e, n in ENTRY_POINTS.items() if n == name)
+    if not getattr(lib, first).argtypes:
+        for entry, n in ENTRY_POINTS.items():
+            if n == name:
+                fn = getattr(lib, entry)
+                fn.argtypes = _ARGTYPES
+                fn.restype = ctypes.c_int
+        if name == "latent_decode":
+            lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 7
+            lib.recalkv_latent_decode_smem.restype = ctypes.c_longlong
+        else:
+            lib.recalkv_tc_chunk.argtypes = [ctypes.c_int] * 5
+            lib.recalkv_tc_chunk.restype = ctypes.c_int
     return lib
 
 
@@ -171,162 +214,100 @@ def _ptr(t):
 def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
            norm_eps, self_zk, self_zv, self_cos, self_sin, *, nq: int = 1,
            scales=(None, None, None, None), ptab=None):
-    """Check the operands and launch one of the six kernels of
-    ``csrc/latent_decode.cu`` (the caller counts the launch).  ``zk``/``zv``
-    (and the self latents) are q's dtype, or int8 with ``scales`` =
-    (zk_scale, zv_scale, self_zk_scale, self_zv_scale) float32.  With
-    ``ptab`` (B, n_sp) int32 the latents are a page-major pool and the
-    ring has S = n_sp * page_size columns; the chunking is the ring's."""
+    """Check the operands and launch one entry point (the caller counts the
+    launch): a ``*_tc`` one runs the bf16 tensor-core body of
+    ``csrc/latent_decode_tc.cu``, the others the CUDA-core template of
+    ``csrc/latent_decode.cu``.  ``zk``/``zv`` (and the self latents) are
+    q's dtype, or int8 with ``scales`` = (zk_scale, zv_scale,
+    self_zk_scale, self_zv_scale) float32.  With ``ptab`` (B, n_sp) int32
+    the latents are a page-major pool and the ring has S = n_sp *
+    page_size columns; the chunking is the ring's.  A shape outside the
+    body's limits raises: nothing is routed to another body."""
     B, G, QH, dh = q.shape
     S, rk, rv = zk.shape[1], zk.shape[3], zv.shape[3]
     page_size = n_pages = 0
     if ptab is not None:
         n_pages, page_size = zk.shape[0], zk.shape[1]
         S = ptab.shape[1] * page_size
-        if (ptab.dtype != torch.int32 or ptab.dim() != 2 or ptab.shape[0] != B
-                or ptab.device != q.device):
-            raise TypeError(f"ptab must be ({B}, n_sp) int32 on {q.device}, got "
-                            f"{tuple(ptab.shape)} {ptab.dtype} on {ptab.device}")
-        if zv.shape[:2] != zk.shape[:2] or tuple(cos.shape[:2]) != (B, S):
-            raise ValueError(f"pool {tuple(zk.shape)} / {tuple(zv.shape)} and "
-                             f"slot-major tables {tuple(cos.shape)} do not match "
-                             f"the page table's {S} ring columns")
+        _check_ptab(ptab, q)
     s = r_k.shape[-1] // dh
     Hg = QH // nq
     dt = q.dtype
     quant = scales[0] is not None
-    if dt not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"latent decode kernel takes bf16 or f32, got {dt}")
+    tc = _TC_BODIES.get(entry)
+    name = f"bf16 {tc[0]} kernel" if tc else "latent decode kernel"
+    if dt not in ((torch.bfloat16,) if tc else (torch.bfloat16, torch.float32)):
+        raise TypeError(f"the {name} takes {'bf16' if tc else 'bf16 or f32'} q, "
+                        f"got {dt}")
     lat_dt = torch.int8 if quant else dt
     selfs = [self_zk, self_zv] if self_zk is not None else []
     if any(t.dtype != lat_dt for t in [zk, zv] + selfs) or r_k.dtype != dt:
         raise TypeError(f"zk, zv and the self latents must be {lat_dt}, "
                         f"r_k {dt}")
-    f32 = [cos, sin, bias] + [t for t in (k_norm, self_cos, self_sin, *scales)
-                              if t is not None]
-    if any(t.dtype != torch.float32 for t in f32):
+    if any(t.dtype != torch.float32
+           for t in (cos, sin, bias, k_norm, self_cos, self_sin, *scales)
+           if t is not None):
         raise TypeError("cos, sin, bias, k_norm, scales and the self tables "
                         "must be float32")
-    # K1/K3 take one self column as (B, G, r); K5/K6 take (B, n_self, G, r)
-    n_self = (0 if self_zk is None
-              else 1 if self_zk.dim() == 3 else self_zk.shape[1])
+    n_self = _n_self(self_zk)
     bias_cols = bias.shape[-1]
-    if dh not in (64, 128) or QH % nq or Hg % s or r_k.shape != (G, rk, s * dh):
-        raise ValueError(f"unsupported shapes: q {tuple(q.shape)}, "
+    if (dh not in (64, 128) or QH % nq or s < 1 or Hg % s
+            or r_k.shape != (G, rk, s * dh)):
+        raise ValueError(f"unsupported shapes for the {name}: q {tuple(q.shape)}, "
                          f"r_k {tuple(r_k.shape)} (dh must be 64 or 128)")
-    if bias_cols not in (S, S + n_self) or (nq > 1 and bias_cols != S + n_self):
-        raise ValueError(f"bias {tuple(bias.shape)} does not cover the ring "
-                         f"({S}) and {n_self} self columns")
-    lib = _lib()
-    is_bf16 = int(dt == torch.bfloat16)
-    smem = lib.recalkv_latent_decode_smem(is_bf16, int(quant), dh, QH, nq, rk, rv)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"latent decode tile needs {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT}) at {QH} rows, r_k={rk}, "
-                         f"r_v={rv}")
+    if (zv.shape[:3] != zk.shape[:3] or zk.shape[2] != G
+            or (ptab is None and zk.shape[0] != B)
+            or tuple(cos.shape[:2]) != (B, S) or bias.numel() != B * nq * bias_cols
+            or bias_cols not in (S, S + n_self)
+            or (nq > 1 and bias_cols != S + n_self)):
+        raise ValueError(f"latents {tuple(zk.shape)} / {tuple(zv.shape)}, tables "
+                         f"{tuple(cos.shape)} and bias {tuple(bias.shape)} do "
+                         f"not cover the ring ({S}) and {n_self} self columns")
+    lib = _lib(ENTRY_POINTS[entry])
     dev = q.device
+    s_ext = S + n_self
+    if tc:
+        _, max_qpk, multi = tc
+        chunk_len = lib.recalkv_tc_chunk(int(multi), int(quant), dh, rk, rv)
+        if (Hg > 16 or (nq > 1 and not multi) or Hg // s > max_qpk or rk % 8
+                or rv % 8 or chunk_len == 0):
+            raise ValueError(f"unsupported shapes for the {name}: q "
+                             f"{tuple(q.shape)}, nq {nq}, r_k {tuple(r_k.shape)}, "
+                             f"r_v {rv} (Hg <= 16, Hg / s <= {max_qpk}, r_k and "
+                             f"r_v multiples of 8 whose block fits in shared "
+                             f"memory)")
+    else:
+        smem = lib.recalkv_latent_decode_smem(int(dt == torch.bfloat16), int(quant),
+                                              dh, QH, nq, rk, rv)
+        if smem > _SMEM_LIMIT:
+            raise ValueError(f"latent decode tile needs {smem} B of shared memory "
+                             f"(limit {_SMEM_LIMIT}) at {QH} rows, r_k={rk}, "
+                             f"r_v={rv}")
+        # Chunk S (+ the self columns) into about 8 blocks per SM: a block's
+        # chunk is its serial critical path, and chunks over empty ring
+        # regions finish at once, so short chunks keep the SMs busy whatever
+        # part of the ring is filled.
+        n_tiles = -(-s_ext // _SB)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        want = max(1, min(n_tiles, -(-8 * sms // (B * G))))
+        chunk_len = -(-n_tiles // want) * _SB
+    n_chunks = -(-s_ext // chunk_len)
     c = lambda t: None if t is None else t.contiguous()
     ptrs = [c(t) for t in (q, zk, zv, scales[0], scales[1], r_k, cos, sin,
                            bias, k_norm, self_zk, self_zv, scales[2],
                            scales[3], self_cos, self_sin)]
     ptab = c(ptab)
-    # Chunk S (+ the self columns) into about 8 blocks per SM: a block's
-    # chunk is its serial critical path, and chunks over empty ring
-    # regions finish at once, so short chunks keep the SMs busy whatever
-    # part of the ring is filled.
-    s_ext = S + n_self
-    n_tiles = -(-s_ext // _SB)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    want = max(1, min(n_tiles, -(-8 * sms // (B * G))))
-    chunk_len = -(-n_tiles // want) * _SB
-    n_chunks = -(-s_ext // chunk_len)
     part_acc = torch.empty((B, G, n_chunks, QH, rv), device=dev, dtype=torch.float32)
     part_m = torch.empty((B, G, n_chunks, QH), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     out = torch.empty((B, G, QH, rv), device=dev, dtype=dt)
     err = getattr(lib, entry)(
-        is_bf16, dh, *[_ptr(t) for t in ptrs],
+        int(dt == torch.bfloat16), dh, *[_ptr(t) for t in ptrs],
         _ptr(part_acc), _ptr(part_m), _ptr(part_l), _ptr(out),
         B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len,
         _ptr(ptab), page_size, n_pages, float(scale), float(norm_eps),
         torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, entry)
-    return out
-
-
-_PAGED_TC_ARGTYPES = ([_INT] + [_PTR] * 17 + [_INT] * 10
-                      + [ctypes.c_float, ctypes.c_float, _PTR])
-
-
-def _lib_paged_tc():
-    lib = build.load("latent_decode_paged")
-    fn = lib.recalkv_latent_decode_paged_tc
-    if not fn.argtypes:
-        fn.argtypes = _PAGED_TC_ARGTYPES
-        fn.restype = ctypes.c_int
-        lib.recalkv_paged_tc_chunk.restype = ctypes.c_int
-        lib.recalkv_paged_tc_smem.argtypes = [ctypes.c_int] * 3
-        lib.recalkv_paged_tc_smem.restype = ctypes.c_longlong
-    return lib
-
-
-def launch_paged_tc(ptab, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
-                    norm_eps, self_zk, self_zv, self_cos, self_sin):
-    """Check the operands and launch K4's bf16 tensor-core kernel of
-    ``csrc/latent_decode_paged.cu`` (the caller counts the launch).  Pool
-    latents (n_pages, page_size, G, r) bf16, ``ptab`` (B, n_sp) int32,
-    slot-major f32 tables over S = n_sp * page_size columns, one optional
-    self column; 256 ring columns per block."""
-    B, G, Hg, dh = q.shape
-    n_pages, page_size, _, rk = zk.shape
-    rv = zv.shape[3]
-    S = ptab.shape[1] * page_size
-    s = r_k.shape[-1] // dh
-    bf = torch.bfloat16
-    selfs = [self_zk, self_zv] if self_zk is not None else []
-    if any(t.dtype != bf for t in [q, zk, zv, r_k] + selfs):
-        raise TypeError("the bf16 paged kernel takes bf16 q, pool latents, r_k "
-                        "and self latents")
-    f32 = [cos, sin, bias] + [t for t in (k_norm, self_cos, self_sin) if t is not None]
-    if any(t.dtype != torch.float32 for t in f32):
-        raise TypeError("cos, sin, bias, k_norm and the self tables must be "
-                        "float32")
-    if (ptab.dtype != torch.int32 or ptab.dim() != 2 or ptab.shape[0] != B
-            or ptab.device != q.device):
-        raise TypeError(f"ptab must be ({B}, n_sp) int32 on {q.device}, got "
-                        f"{tuple(ptab.shape)} {ptab.dtype} on {ptab.device}")
-    if (zv.shape[:3] != zk.shape[:3] or tuple(cos.shape[:2]) != (B, S)
-            or tuple(bias.shape) != (B, S)):
-        raise ValueError(f"pool {tuple(zk.shape)} / {tuple(zv.shape)}, tables "
-                         f"{tuple(cos.shape)} and bias {tuple(bias.shape)} do "
-                         f"not match the page table's {S} ring columns")
-    if (dh not in (64, 128) or Hg > 16 or Hg % s or Hg // s > 8
-            or r_k.shape != (G, rk, s * dh) or rk % 16 or not 16 <= rk <= 256
-            or rv % 8 or not 8 <= rv <= 256):
-        raise ValueError(f"unsupported shapes for the bf16 paged kernel: q "
-                         f"{tuple(q.shape)}, r_k {tuple(r_k.shape)}, r_v {rv} "
-                         f"(dh 64 or 128, Hg <= 16, Hg / s <= 8, r_k a multiple "
-                         f"of 16 and r_v of 8, both <= 256)")
-    lib = _lib_paged_tc()
-    smem = lib.recalkv_paged_tc_smem(dh, rk, rv)
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"bf16 paged kernel needs {smem} B of shared memory "
-                         f"(limit {_SMEM_LIMIT})")
-    dev = q.device
-    c = lambda t: None if t is None else t.contiguous()
-    n_self = int(self_zk is not None)
-    n_chunks = -(-(S + n_self) // lib.recalkv_paged_tc_chunk())
-    part_acc = torch.empty((B, G, n_chunks, Hg, rv), device=dev, dtype=torch.float32)
-    part_m = torch.empty((B, G, n_chunks, Hg), device=dev, dtype=torch.float32)
-    part_l = torch.empty_like(part_m)
-    out = torch.empty((B, G, Hg, rv), device=dev, dtype=bf)
-    ptrs = [c(t) for t in (q, zk, zv, r_k, cos, sin, bias, k_norm, self_zk,
-                           self_zv, self_cos, self_sin, ptab)]
-    err = lib.recalkv_latent_decode_paged_tc(
-        dh, *[_ptr(t) for t in ptrs], _ptr(part_acc), _ptr(part_m), _ptr(part_l),
-        _ptr(out), B, S, G, Hg, rk, rv, s, n_chunks, page_size, n_pages,
-        float(scale), float(norm_eps), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "recalkv_latent_decode_paged_tc")
     return out
 
 
@@ -350,8 +331,14 @@ def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("latent decode", q):
         return latent_decode_attention_plain(q, zk, zv, r_k, cos, sin, bias, **kw)
-    out = launch("recalkv_latent_decode", q, zk, zv, r_k, cos, sin, bias, scale,
-                 k_norm, norm_eps, self_zk, self_zv, self_cos, self_sin)
+    if q.dtype == torch.bfloat16:
+        out = launch("recalkv_latent_decode_tc", q, zk, zv, r_k, cos, sin,
+                     bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
+                     self_sin)
+    else:
+        out = launch("recalkv_latent_decode", q, zk, zv, r_k, cos, sin, bias,
+                     scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
+                     self_sin)
     latent_decode_attention.launches += 1
     return out
 
@@ -387,9 +374,9 @@ def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
         return latent_decode_attention_paged_plain(ptab, q, zk, zv, r_k, cos,
                                                    sin, bias, **kw)
     if q.dtype == torch.bfloat16:
-        out = launch_paged_tc(ptab, q, zk, zv, r_k, cos, sin, bias, scale,
-                              k_norm, norm_eps, self_zk, self_zv, self_cos,
-                              self_sin)
+        out = launch("recalkv_latent_decode_paged_tc", q, zk, zv, r_k, cos,
+                     sin, bias, scale, k_norm, norm_eps, self_zk, self_zv,
+                     self_cos, self_sin, ptab=ptab)
     else:
         out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin,
                      bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,

@@ -5,9 +5,17 @@ K3 replaces ``src/repro/kernels/latent_decode_q.py::
 latent_decode_attention_quant`` and K6 ``latent_decode_attention_mq_quant``
 (the Pallas TPU kernels).  The ring holds int8 latents ``zk_q``/``zv_q``
 (B, S, G, r) with float32 scales ``zk_s``/``zv_s`` (B, S, G), one per
-(token, group); dequantization (q * scale) happens on chip, in the same
-templated kernel as K1 and K5 (``csrc/latent_decode.cu``).  A ring token
-then costs r_k + r_v + 8 bytes per group instead of 2 (r_k + r_v) at bf16.
+(token, group); dequantization (q * scale) happens on chip: the key scale
+multiplies each rebuilt key row, the value scale the softmax weight of its
+column.  A ring token then costs r_k + r_v + 8 bytes per group instead of
+2 (r_k + r_v) at bf16.
+
+K6 with bf16 q and r_k runs the tensor-core body of
+``csrc/latent_decode_tc.cu`` (the int8 latents converted to bf16 on their
+way into shared memory, which is exact; up to 4 query sets per head slot,
+128 ring columns per block).  K3 in both types, and K6 with float32 q and
+r_k (its parity instantiation), run the CUDA-core template of
+``csrc/latent_decode.cu``.
 
 The deferred-write tokens are operands, as for K1 and K5, in the ring's
 own int8 layout: K3 takes ``self_zk_q`` (B, G, r_k) int8 with
@@ -18,6 +26,8 @@ appends the quantized entry to the ring.
 """
 
 from __future__ import annotations
+
+import torch
 
 from repro_torch.kernels.latent_decode import (
     _on_device, latent_decode_attention_mq_plain, latent_decode_attention_plain,
@@ -81,17 +91,19 @@ def latent_decode_attention_mq_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
                                      self_zk_s=None, self_zv_q=None,
                                      self_zv_s=None, self_cos=None,
                                      self_sin=None):
-    """K6: K5 over the int8 ring.  Device rule and counter as for K3."""
+    """K6: K5 over the int8 ring.  Device rule and counter as for K3; bf16
+    q runs the tensor-core body, float32 q the template."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps,
               self_zk_q=self_zk_q, self_zk_s=self_zk_s, self_zv_q=self_zv_q,
               self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("int8 multi-query latent decode", q):
         return latent_decode_attention_mq_quant_plain(
             q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, **kw)
-    out = launch("recalkv_latent_decode_mq_quant", q, zk_q, zv_q, r_k, cos, sin,
-                 bias, scale, k_norm, norm_eps, self_zk_q, self_zv_q, self_cos,
-                 self_sin, nq=bias.shape[1],
-                 scales=(zk_s, zv_s, self_zk_s, self_zv_s))
+    entry = ("recalkv_latent_decode_mq_quant_tc" if q.dtype == torch.bfloat16
+             else "recalkv_latent_decode_mq_quant")
+    out = launch(entry, q, zk_q, zv_q, r_k, cos, sin, bias, scale, k_norm,
+                 norm_eps, self_zk_q, self_zv_q, self_cos, self_sin,
+                 nq=bias.shape[1], scales=(zk_s, zv_s, self_zk_s, self_zv_s))
     latent_decode_attention_mq_quant.launches += 1
     return out
 

@@ -10,24 +10,28 @@ Tolerances: max |kernel - plain| <= 1e-4 in float32 (TF32 off; the
 summation order differs) and <= 2e-2 in bf16 (one bf16 rounding of
 outputs of order 1); the bf16 tensor-core bodies of K2 and K4 are also held
 to chip_smoke.py's per-element limit 2e-2 |plain| + 1e-2 rms(plain) at the
-main path's widths.  K3 / K6 compare with their plain versions on the same
-int8 latents and scales.  K7 (the paged pool), and K4 in float32, must also
-equal K5 / K1 on the table-gathered ring bit for bit: they run the same
-tiles in the same order on the same values.  K4 in bf16 is its own
-tensor-core kernel: it must equal itself on another placement of the same
-pages bit for bit.
+main path's widths, and so is K6's (int8 latents).  K3 / K6 compare with
+their plain versions on the same int8 latents and scales.  K7 (the paged
+pool) and K4 must also equal K5 / K1 on the table-gathered ring bit for
+bit, in both types: they run the same tiles in the same order on the same
+values (in bf16 K4 and K1 are one tensor-core body with two row maps).
 """
 
+import dataclasses
 import math
 
 import pytest
 import torch
 
+from repro_torch.configs import get_config
 from repro_torch.kernels import flash_prefill as K2
 from repro_torch.kernels import latent_decode as K1
 from repro_torch.kernels import latent_decode_q as KQ
 from repro_torch.kernels import ops
+from repro_torch.models.config import ReCalKVRuntime
+from repro_torch.models.weights import init_params
 from repro_torch.quant import quantize
+from repro_torch.serving import Engine, Request
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -318,11 +322,11 @@ def _in_order(ptab, *pools):
 def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     """The paged pool through a ragged table (shuffled pages, null pages,
     one page shared by two rows; page_size below the kernels' tiles), with
-    and without the self column: K4 against its plain version; in float32
-    bit for bit against K1 on the gathered ring (the template's parity
-    instantiation runs K1's tiles); in bf16 (the tensor-core kernel) bit
-    for bit against itself on an in-order placement of the same pages,
-    and within the bf16 limit of K1 on the gathered ring."""
+    and without the self column: K4 against its plain version, and bit for
+    bit against K1 on the gathered ring (float32: the template's parity
+    instantiations; bf16: the tensor-core body with two row maps); in bf16
+    also bit for bit against itself on an in-order placement of the same
+    pages."""
     a = _ring(cuda, 90 + dh, S=6 * ps, dh=dh)
     ptab, pzk, pzv = _paged(cuda, a, ps, dh)
     S = 6 * ps
@@ -342,10 +346,8 @@ def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
         view = K1.latent_decode_attention(
             q, K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab), r_k, *tables, **kw)
         torch.cuda.synchronize()
-        if dtype == torch.float32:
-            assert torch.equal(got, view)
-        else:
-            _within_bf16_limit(got, view)
+        assert torch.equal(got, view)
+        if dtype == torch.bfloat16:
             again = K1.latent_decode_attention_paged(order, q, ozk, ozv, r_k, *tables, **kw)
             torch.cuda.synchronize()
             assert torch.equal(got, again)
@@ -380,6 +382,137 @@ def test_k4_bf16_null_page_tiles_and_dead_row(cuda, dh, ps):
             assert torch.equal(got[2], self_zv[2][:, None].expand_as(got[2]))
         else:
             assert (got[2] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,ps,rk,rv", [(64, 8, 64, 64), (128, 16, 64, 64),
+                                         (128, 16, 152, 200), (128, 16, 384, 384),
+                                         (128, 16, 512, 512)])
+def test_k1_bf16_equals_k4_on_shuffled_pool(cuda, dh, ps, rk, rv):
+    """bf16 K1 on a ragged ring of three 256-column chunks (six 128-column
+    ones past rank 256) against bf16 K4 on a pool holding every page of
+    that ring at shuffled physical pages: the same tensor-core body with
+    two row maps and one block plan, so equal bit for bit, with and
+    without the self column; and within the bf16 limit of the plain
+    version.  r_k = 152 is padded to 160 inside the kernel; 384 and 512
+    (recalkv ratios 0.75 and 1) take 128-column chunks."""
+    S = 40 * ps
+    a = _ring(cuda, 150 + dh + rk, S=S, dh=dh, rk=rk, rv=rv)
+    bf = torch.bfloat16
+    B, n_sp = a["zk"].shape[0], S // ps
+    g = torch.Generator().manual_seed(dh)
+    ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
+    ptab = ptab.to(device=cuda, dtype=torch.int32)
+    q, r_k, zk, zv = (a[k].to(bf) for k in ("q", "r_k", "zk", "zv"))
+    pools = []
+    for z in (zk, zv):
+        pool = torch.zeros((B * n_sp + 1, ps) + tuple(z.shape[2:]), device=cuda, dtype=bf)
+        pool[ptab.reshape(-1).long()] = z.reshape((B * n_sp, ps) + tuple(z.shape[2:]))
+        pools.append(pool)
+    bias = a["bias"][:, 0, :S].contiguous()
+    selfs = dict(self_zk=a["self_zk"][:, 0].to(bf), self_zv=a["self_zv"][:, 0].to(bf),
+                 self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    for kw in ({}, selfs):
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw)
+        ring = _check_bf16(K1.latent_decode_attention, K1.latent_decode_attention_plain,
+                           (q, zk, zv, r_k, a["cos"], a["sin"], bias), kw)
+        paged = K1.latent_decode_attention_paged(ptab, q, *pools, r_k, a["cos"], a["sin"],
+                                                 bias, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(ring, paged)
+        if "self_zk" not in kw:
+            assert (ring[2] == 0).all()
+
+
+def _check_bf16(kernel, plain, args, kw):
+    """One launch of a bf16 tensor-core body, counted, within chip_smoke.py's
+    bf16 limit of its plain version."""
+    n = kernel.launches
+    got = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert kernel.launches == n + 1
+    _within_bf16_limit(got, plain(*args, **kw))
+    return got
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_k6_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
+    """bf16 K6 at the main path's group width (Hg 16, s 4, nq 4: 64 score
+    rows, r_k = r_v = 256) on a ragged int8 ring of three 128-column chunks
+    and 4 self columns: row 1 is live below position 40 only (null tiles
+    and chunks), row 2 is masked everywhere (an idle slot: exact 0), and
+    query 1 of row 0 is masked everywhere (its rows exact 0) while row 0
+    drops its last fed token; within the bf16 limit of the plain
+    version."""
+    a = _ring(cuda, 170 + dh, S=300, qpk=4, dh=dh, rk=256, rv=256, nq=4)
+    a["bias"][0, 1] = -1e30
+    q8 = {k: _quant(a[k]) for k in ("zk", "zv", "self_zk", "self_zv")}
+    bf = torch.bfloat16
+    args = (a["q"].to(bf), *q8["zk"], *q8["zv"], a["r_k"].to(bf), a["cos"], a["sin"],
+            a["bias"])
+    kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_zk_q=q8["self_zk"][0],
+              self_zk_s=q8["self_zk"][1], self_zv_q=q8["self_zv"][0],
+              self_zv_s=q8["self_zv"][1], self_cos=a["self_cos"], self_sin=a["self_sin"])
+    got = _check_bf16(KQ.latent_decode_attention_mq_quant,
+                      KQ.latent_decode_attention_mq_quant_plain, args, kw)
+    assert (got[2] == 0).all()
+    assert (got[0, :, 16:32] == 0).all()
+    assert (got[0, :, :16] != 0).any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,s,qpk,r", [(5, 4, 4, 256), (8, 4, 4, 256), (5, 2, 8, 256),
+                                        (4, 4, 4, 512), (5, 4, 4, 512)])
+def test_k6_bf16_verify_windows_past_one_query_block(cuda, nq, s, qpk, r):
+    """bf16 K6 on a ragged int8 ring for verify windows of spec_depth >= 4
+    (nq = 5 and 8: a block scores min(4, 16 / qpk) query sets, so 2 or 3
+    query blocks along grid z) and at rank 512 (a 64-row R_k stage):
+    within the bf16 limit of the plain version; query set 4 of row 0 is
+    masked everywhere (its rows exact 0, in the second query block) and
+    row 2 is dead (exact 0)."""
+    a = _ring(cuda, 190 + nq + r, S=300, s=s, qpk=qpk, dh=128, rk=r, rv=r, nq=nq)
+    Hg = s * qpk
+    if nq > 4:
+        a["bias"][0, 4] = -1e30
+    q8 = {k: _quant(a[k]) for k in ("zk", "zv", "self_zk", "self_zv")}
+    bf = torch.bfloat16
+    args = (a["q"].to(bf), *q8["zk"], *q8["zv"], a["r_k"].to(bf), a["cos"], a["sin"],
+            a["bias"])
+    kw = dict(scale=128 ** -0.5, k_norm=a["k_norm"], self_zk_q=q8["self_zk"][0],
+              self_zk_s=q8["self_zk"][1], self_zv_q=q8["self_zv"][0],
+              self_zv_s=q8["self_zv"][1], self_cos=a["self_cos"], self_sin=a["self_sin"])
+    got = _check_bf16(KQ.latent_decode_attention_mq_quant,
+                      KQ.latent_decode_attention_mq_quant_plain, args, kw)
+    assert (got[2] == 0).all()
+    if nq > 4:
+        assert (got[0, :, 4 * Hg:5 * Hg] == 0).all()
+        assert (got[0, :, :4 * Hg] != 0).any()
+
+
+@pytest.mark.gpu
+def test_engine_int8_ring_serves_spec_depth_4(cuda):
+    """An Engine on the int8 ring with spec_depth 4 (5 verify queries per
+    slot, past K6's one query block) serves every request on the card in
+    bf16 through the kernels, with K6 launched."""
+    cfg = dataclasses.replace(
+        get_config("qwen3-4b", smoke=True), d_head=64, dtype=torch.bfloat16,
+        attn_backend="kernel", cache_quant_bits=8,
+        recalkv=ReCalKVRuntime(rank_k=64, rank_v=64, group_size=2))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = Engine(cfg, params, max_slots=2, max_len=96, spec_depth=4, draft="ngram",
+                 device=cuda)
+    g = torch.Generator().manual_seed(1)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (9, 30, 17)]
+    for uid, p in enumerate(prompts):
+        eng.submit(Request(uid=uid, prompt=p, max_new_tokens=12))
+    n = KQ.latent_decode_attention_mq_quant.launches
+    done = eng.run()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.out_tokens) == 12 for r in done)
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert KQ.latent_decode_attention_mq_quant.launches > n
 
 
 @pytest.mark.gpu
@@ -438,10 +571,31 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         K1.latent_decode_attention_paged(
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
             tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
-    # the bf16 K4 holds at most 16 query rows of a group, 8 per head slot
+    # the bf16 tensor-core bodies hold at most 16 query rows of a group and
+    # 8 per head slot (16 for K6), r_k and r_v multiples of 8 whose block
+    # fits in shared memory
     bf = torch.bfloat16
+    rk_bf = torch.randn(2, 256, 512, device=cuda).to(bf)
     with pytest.raises(ValueError, match="bf16 paged kernel"):
         K1.latent_decode_attention_paged(
-            tab2, qm[:, :, :32].to(bf), pm.to(bf), pm.to(bf),
-            torch.randn(2, 256, 512, device=cuda).to(bf), tm, tm,
+            tab2, qm[:, :, :32].to(bf), pm.to(bf), pm.to(bf), rk_bf, tm, tm,
             torch.zeros(1, 8, device=cuda), scale=1.0)
+    with pytest.raises(ValueError, match="bf16 ring kernel"):
+        K1.latent_decode_attention(qm[:, :, :32].to(bf), zm.to(bf), zm.to(bf), rk_bf,
+                                   tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
+    with pytest.raises(ValueError, match="bf16 ring kernel"):
+        K1.latent_decode_attention(q.to(bf), z.to(bf), z.to(bf),
+                                   torch.randn(1, 8, 192, device=cuda).to(bf), tab, tab,
+                                   torch.zeros(1, 4, device=cuda), scale=1.0)
+    z8 = torch.zeros(1, 8, 2, 256, dtype=torch.int8, device=cuda)
+    s8 = torch.ones(1, 8, 2, device=cuda)
+    z576 = torch.zeros(1, 8, 2, 576, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 int8 multi-query kernel"):
+        KQ.latent_decode_attention_mq_quant(
+            qm.to(bf), z576, s8, z576, s8, torch.randn(2, 576, 512, device=cuda).to(bf),
+            tm, tm, torch.zeros(1, 5, 8, device=cuda), scale=1.0)
+    z12 = torch.zeros(1, 8, 2, 12, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="bf16 int8 multi-query kernel"):
+        KQ.latent_decode_attention_mq_quant(qm[:, :, :64].to(bf), z8, s8, z12, s8, rk_bf,
+                                            tm, tm, torch.zeros(1, 4, 8, device=cuda),
+                                            scale=1.0)

@@ -1,6 +1,6 @@
 """The precision budget of the bf16 tensor-core kernels, on the CPU.
 
-K2 (``csrc/flash_prefill.cu``) and K4 (``csrc/latent_decode_paged.cu``)
+K2 (``csrc/flash_prefill.cu``) and K1, K4 and K6 (``csrc/latent_decode_tc.cu``)
 multiply bf16 operands on tensor cores with f32 accumulation.  This file
 emulates, in plain torch, the points where their bf16 bodies round, and
 holds each emulation to ``chip_smoke.py``'s bf16 limit of the f32 plain
@@ -13,9 +13,14 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
 * K4: keys rebuilt from bf16 latents and R_k in f32, normed and rotated in
   f32, then split into bf16 hi + lo for the scores; one softmax per
   256-column chunk with P split into bf16 hi + lo for P zv; chunks merged
-  by log-sum-exp in f32.
+  by log-sum-exp in f32.  K1 is the same body with the ring's row map
+  (``test_k1_body_is_k4_emulated_on_the_ring``).
+* K6: K4's rounding points over int8 latents (exact in bf16), the key
+  scale on each rebuilt row before k-norm, P times the value scale split
+  into bf16 hi + lo, nq queries each with its own bias row over the ring
+  and the nq self columns, 128-column chunks.
 
-One bf16 rounding of P (K2), or of the keys and P (K4), is what a plain
+One bf16 rounding of P (K2), or of the keys and P (K4, K6), is what a plain
 bf16 tensor-core design would do; ``test_one_bf16_rounding_is_measured``
 records its error beside the split's.
 
@@ -25,12 +30,15 @@ made with numpy from fixed seeds, at a narrow shape and at the main path's
 widths (dh = 128, r = 256, latent values dv = 256).
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.latent_decode_q import latent_decode_attention_mq_quant as jax_k6
 from repro_torch.kernels import flash_prefill as K2
 from repro_torch.kernels import latent_decode as K1
+from repro_torch.kernels import latent_decode_q as KQ
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
@@ -91,35 +99,36 @@ def k2_emulated(q, k, v, *, window=None, rounding="split", bk=64):
     return o.permute(0, 2, 1, 3)
 
 
-def k4_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, self_zk, self_zv,
-                self_cos, self_sin, eps=1e-6, rounding="split", chunk=256):
-    """K4's bf16 body on the table-gathered ring (its result depends only
-    on the columns' content): keys and P split into bf16 hi + lo
-    (``rounding="one"``: one bf16 rounding each; None: f32).  f32 values of
-    bf16 q (B,G,Hg,dh), zk/zv (B,S,G,r), r_k (G,r,s*dh); an optional self
-    column at bias 0.  Returns (B,G,Hg,rv) f32 before the output rounding."""
+def tc_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, ks=None, vs=None,
+                eps=1e-6, rounding="split", chunk=256):
+    """The bf16 body of ``csrc/latent_decode_tc.cu`` over columns that
+    already include the self columns: f32 values of bf16 q (B,G,nq*Hg,dh),
+    of bf16 or int8 latents zk/zv (B,S,G,r) with optional key / value
+    scales ks/vs (B,S,G), r_k (G,r,s*dh); bias (B,nq,S), one row per query.
+    Keys (scaled before k-norm) and P (times the value scale) enter their
+    products as bf16 hi + lo (``rounding="one"``: one bf16 rounding each;
+    None: f32); one softmax per ``chunk`` columns, merged by log-sum-exp.
+    Returns (B,G,nq*Hg,rv) f32 before the output rounding."""
     rnd = {"split": _split, "one": _bf16}.get(rounding, lambda x: x)
-    B, G, Hg, dh = q.shape
+    B, G, QH, dh = q.shape
+    nq = bias.shape[1]
     s = r_k.shape[-1] // dh
-    qpk = Hg // s
-    if self_zk is not None:
-        zk = torch.cat([zk, self_zk[:, None]], dim=1)
-        zv = torch.cat([zv, self_zv[:, None]], dim=1)
-        cos = torch.cat([cos, self_cos[:, None]], dim=1)
-        sin = torch.cat([sin, self_sin[:, None]], dim=1)
-        bias = torch.cat([bias, torch.zeros(B, 1)], dim=1)
+    qpk = QH // nq // s
     S = zk.shape[1]
     keys = torch.einsum("btgr,grn->bgtn", zk, r_k).reshape(B, G, S, s, dh)
-    keys = keys * torch.rsqrt((keys * keys).mean(-1, keepdim=True) + eps)
-    keys = keys * (1.0 + k_norm)
+    if ks is not None:
+        keys = keys * ks.permute(0, 2, 1)[..., None, None]
+    if k_norm is not None:
+        keys = keys * torch.rsqrt((keys * keys).mean(-1, keepdim=True) + eps)
+        keys = keys * (1.0 + k_norm)
     half = dh // 2
     c, sn = cos[:, None, :, None], sin[:, None, :, None]
     k1_, k2_ = keys[..., :half], keys[..., half:]
-    keys = torch.cat([k1_ * c - k2_ * sn, k2_ * c + k1_ * sn], dim=-1)
-    keys = rnd(keys)
-    qg = q.reshape(B, G, s, qpk, dh)
-    sc = torch.einsum("bgsqd,bgtsd->bgsqt", qg, keys).reshape(B, G, Hg, S)
-    sc = sc * dh ** -0.5 + bias[:, None, None, :]
+    keys = rnd(torch.cat([k1_ * c - k2_ * sn, k2_ * c + k1_ * sn], dim=-1))
+    qg = q.reshape(B, G, nq, s, qpk, dh)
+    sc = torch.einsum("bgjsqd,bgtsd->bgjsqt", qg, keys) * dh ** -0.5
+    sc = (sc + bias[:, None, :, None, None, :]).reshape(B, G, QH, S)
+    vscale = torch.ones(B, G, 1, S) if vs is None else vs.permute(0, 2, 1)[:, :, None]
     parts = []
     for t0 in range(0, S, chunk):
         x = sc[..., t0:t0 + chunk]
@@ -127,7 +136,8 @@ def k4_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, self_zk, self_zv,
         alive = m > NEG_INF * 0.5
         p = torch.where(alive[..., None], torch.exp(x - m[..., None]),
                         torch.zeros_like(x))
-        acc = torch.einsum("bght,btgr->bghr", rnd(p), zv[:, t0:t0 + chunk])
+        acc = torch.einsum("bght,btgr->bghr", rnd(p * vscale[..., t0:t0 + chunk]),
+                           zv[:, t0:t0 + chunk])
         parts.append((torch.where(alive, m, torch.full_like(m, NEG_INF)),
                       p.sum(-1), acc))
     M = torch.stack([p[0] for p in parts]).max(dim=0).values
@@ -138,6 +148,39 @@ def k4_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, self_zk, self_zv,
         L = L + l_ * w
         O = O + acc * w[..., None]
     return O / torch.clamp(L, min=1e-30)[..., None]
+
+
+def k4_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, self_zk, self_zv,
+                self_cos, self_sin, eps=1e-6, rounding="split", chunk=256):
+    """K4's bf16 body on the table-gathered ring (its result depends only
+    on the columns' content): ``tc_emulated`` with one query, an optional
+    self column at bias 0 and 256-column chunks.  f32 values of bf16 q
+    (B,G,Hg,dh), zk/zv (B,S,G,r), r_k (G,r,s*dh).  Returns (B,G,Hg,rv) f32
+    before the output rounding."""
+    B = q.shape[0]
+    if self_zk is not None:
+        zk = torch.cat([zk, self_zk[:, None]], dim=1)
+        zv = torch.cat([zv, self_zv[:, None]], dim=1)
+        cos = torch.cat([cos, self_cos[:, None]], dim=1)
+        sin = torch.cat([sin, self_sin[:, None]], dim=1)
+        bias = torch.cat([bias, torch.zeros(B, 1)], dim=1)
+    return tc_emulated(q, zk, zv, r_k, cos, sin, bias[:, None], k_norm=k_norm,
+                       eps=eps, rounding=rounding, chunk=chunk)
+
+
+def k6_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
+                self_zk_q, self_zk_s, self_zv_q, self_zv_s, self_cos, self_sin,
+                eps=1e-6, rounding="split", chunk=128):
+    """K6's bf16 body: int8 ring latents (B,S,G,r) with f32 scales (B,S,G),
+    the nq self columns' latents (B,nq,G,r) and scales appended after the
+    ring, bias (B,nq,S+nq) per query; int8 -> bf16 is exact, so the int8
+    values enter as they are.  128-column chunks.  Returns (B,G,nq*Hg,rv)
+    f32 before the output rounding."""
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+    return tc_emulated(q, cat(zk_q, self_zk_q).float(), cat(zv_q, self_zv_q).float(),
+                       r_k, cat(cos, self_cos), cat(sin, self_sin), bias, k_norm=k_norm,
+                       ks=cat(zk_s, self_zk_s), vs=cat(zv_s, self_zv_s), eps=eps,
+                       rounding=rounding, chunk=chunk)
 
 
 K2_CASES = {
@@ -175,9 +218,11 @@ def test_k2_tensor_core_rounding_within_bf16_limit(case):
 
 
 K4_CASES = {
-    # name: (S, G, Hg, s, dh, r_k, r_v, tokens per row; None: masked row)
-    "narrow": (300, 2, 8, 4, 64, 32, 48, (300, 180, None)),
-    "main_widths": (1024, 2, 16, 4, 128, 256, 256, (1024, 614, None)),
+    # name: (S, G, Hg, s, dh, r_k, r_v, tokens per row (None: masked row),
+    #        the kernel's chunk at these widths)
+    "narrow": (300, 2, 8, 4, 64, 32, 48, (300, 180, None), 256),
+    "main_widths": (1024, 2, 16, 4, 128, 256, 256, (1024, 614, None), 256),
+    "rank_384": (1024, 2, 16, 4, 128, 384, 384, (1024, 614, None), 128),
 }
 
 
@@ -186,7 +231,7 @@ def _k4_inputs(case):
     lens[b] tokens (the tail has pos -1 and is masked), a None row is masked
     everywhere; bf16 latents, q, r_k (scaled by r^-1/2); f32 rotation
     tables and k-norm."""
-    S, G, Hg, s, dh, rk, rv, lens = K4_CASES[case]
+    S, G, Hg, s, dh, rk, rv, lens, _ = K4_CASES[case]
     B = len(lens)
     rng = np.random.default_rng(sum(map(ord, case)) + 1)
     mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
@@ -209,26 +254,143 @@ def _k4_inputs(case):
 def test_k4_emulation_without_rounding_equals_plain(case):
     a, kw = _k4_inputs(case)
     args = [a[k] for k in ("q", "zk", "zv", "r_k", "cos", "sin", "bias")]
-    got = k4_emulated(*args, **kw, rounding=None)
+    got = k4_emulated(*args, **kw, rounding=None, chunk=K4_CASES[case][-1])
     want = K1.latent_decode_attention_plain(*args, scale=a["q"].shape[-1] ** -0.5, **kw)
     torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
 
 
 @pytest.mark.parametrize("case", sorted(K4_CASES))
 def test_k4_tensor_core_rounding_within_bf16_limit(case):
-    """K4's rounding points (rebuilt keys and P per 256-column chunk as
-    bf16 hi + lo) keep the bf16 output within chip_smoke.py's limit of the
-    f32 plain version; the masked row stays exact 0 without its self
-    column."""
+    """K4's rounding points (rebuilt keys and P per 256-column chunk, 128
+    past rank 256, as bf16 hi + lo) keep the bf16 output within
+    chip_smoke.py's limit of the f32 plain version; the masked row stays
+    exact 0 without its self column."""
     a, kw = _k4_inputs(case)
+    chunk = K4_CASES[case][-1]
     args = [a[k] for k in ("q", "zk", "zv", "r_k", "cos", "sin", "bias")]
-    got = k4_emulated(*args, **kw).to(torch.bfloat16)
+    got = k4_emulated(*args, **kw, chunk=chunk).to(torch.bfloat16)
     want = K1.latent_decode_attention_plain(
         *args, scale=a["q"].shape[-1] ** -0.5, **kw).to(torch.bfloat16)
     assert _worst(got, want) <= 1
     no_self = {k: None for k in kw if k.startswith("self")}
-    dead = k4_emulated(*args, k_norm=kw["k_norm"], **no_self)
+    dead = k4_emulated(*args, k_norm=kw["k_norm"], **no_self, chunk=chunk)
     assert (dead[-1] == 0).all()
+
+
+def test_k1_body_is_k4_emulated_on_the_ring():
+    """K1's bf16 body is K4's with the ring's row map, so its rounding
+    budget is ``k4_emulated``'s: on the ring the emulation stays within
+    the bf16 limit of K1's plain version, and it equals itself on a
+    shuffled pool's gathered view of the same ring bit for bit, though
+    the view holds zeros where the ring's masked columns hold data (the
+    kernel zero-fills masked columns; their P is exactly 0)."""
+    a, kw = _k4_inputs("main_widths")
+    args = [a[k] for k in ("q", "zk", "zv", "r_k", "cos", "sin", "bias")]
+    ring = k4_emulated(*args, **kw)
+    want = K1.latent_decode_attention_plain(*args, scale=a["q"].shape[-1] ** -0.5, **kw)
+    assert _worst(ring.to(torch.bfloat16), want.to(torch.bfloat16)) <= 1
+    B, S = a["zk"].shape[:2]
+    ps, live = 16, a["bias"] > NEG_INF * 0.5
+    n_sp = S // ps
+    used = live.reshape(B, n_sp, ps).any(-1)
+    ptab = torch.zeros(B, n_sp, dtype=torch.int32)
+    ptab[used] = (torch.randperm(int(used.sum()), generator=torch.Generator()
+                                 .manual_seed(5)) + 1).to(torch.int32)
+    view = {}
+    for k in ("zk", "zv"):
+        pool = torch.zeros((int(used.sum()) + 1, ps) + tuple(a[k].shape[2:]))
+        pool[ptab[used].long()] = a[k].reshape((B, n_sp, ps) + tuple(a[k].shape[2:]))[used]
+        view[k] = K1.gather_pages(pool, ptab)
+    assert not torch.equal(view["zk"], a["zk"])
+    paged = k4_emulated(a["q"], view["zk"], view["zv"], *args[3:], **kw)
+    assert torch.equal(ring, paged)
+
+
+K6_CASES = {
+    # name: (B, S, G, Hg, s, nq, dh, r_k, r_v, tokens per row; None: masked row)
+    "narrow": (3, 300, 2, 4, 2, 3, 16, 8, 12, (300, 40, None)),
+    "main_widths": (3, 1024, 2, 16, 4, 4, 128, 256, 256, (1024, 614, None)),
+    # spec_depth 4 (two query blocks in the kernel) at rank 512
+    "nq5_rank_512": (3, 512, 2, 16, 4, 5, 128, 512, 512, (512, 300, None)),
+}
+
+
+def _k6_inputs(case):
+    """An int8 ring like chip_smoke.py's K6 operands, ragged: row b holds
+    its first lens[b] tokens, a None row is masked everywhere, row 0 drops
+    its last fed token; int8 latents and f32 scales straight from numpy;
+    bf16 q and r_k (scaled by r^-1/2); nq verify queries at positions
+    cur..cur+nq-1 with their self columns.  Returns (ring operands, self
+    keyword operands, the same columns appended to the ring)."""
+    B, S, G, Hg, s, nq, dh, rk, rv, lens = K6_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 6)
+    mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+    i8 = lambda *sh: torch.from_numpy(rng.integers(-127, 128, sh, dtype=np.int8))
+    sc = lambda *sh: torch.from_numpy(rng.uniform(0.005, 0.02, sh).astype(np.float32))
+    pos = torch.arange(S).repeat(B, 1)
+    for b, n in enumerate(lens):
+        pos[b, n or 0:] = -1
+    cur = torch.tensor([n or S for n in lens])
+    pos_q = cur[:, None] + torch.arange(nq)
+    feed = torch.ones(B, nq, dtype=torch.bool)
+    feed[0, -1] = False
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    self_cos, self_sin = ops.rope_tables_for(pos_q, dh, 1e6)
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    for b, n in enumerate(lens):
+        if n is None:
+            bias[b] = NEG_INF
+    ring = dict(q=_bf16(mk(B, G, nq * Hg, dh)), zk_q=i8(B, S, G, rk), zk_s=sc(B, S, G),
+                zv_q=i8(B, S, G, rv), zv_s=sc(B, S, G),
+                r_k=_bf16(mk(G, rk, s * dh) * rk ** -0.5), cos=cos, sin=sin, bias=bias)
+    selfs = dict(self_zk_q=i8(B, nq, G, rk), self_zk_s=sc(B, nq, G),
+                 self_zv_q=i8(B, nq, G, rv), self_zv_s=sc(B, nq, G),
+                 self_cos=self_cos, self_sin=self_sin)
+    kn = 0.1 * mk(dh)
+    appended = {k: torch.cat([ring[k], selfs["self_" + k]], 1)
+                for k in ("zk_q", "zk_s", "zv_q", "zv_s", "cos", "sin")}
+    return ring, selfs, kn, appended
+
+
+def _k6_call(fn, ring, selfs, kn, **kw):
+    order = ("q", "zk_q", "zk_s", "zv_q", "zv_s", "r_k", "cos", "sin", "bias")
+    return fn(*[ring[k] for k in order], k_norm=kn, **selfs, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_emulation_without_rounding_equals_plain(case):
+    ring, selfs, kn, _ = _k6_inputs(case)
+    got = _k6_call(k6_emulated, ring, selfs, kn, rounding=None)
+    want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
+                    scale=ring["q"].shape[-1] ** -0.5)
+    torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_k6_emulation_without_rounding_equals_pallas_interpret():
+    """The narrow case against the JAX Pallas kernel in interpret mode,
+    which takes the self columns appended to the ring (three 128-column
+    chunks here, 64-column blocks there)."""
+    ring, selfs, kn, app = _k6_inputs("narrow")
+    got = _k6_call(k6_emulated, ring, selfs, kn, rounding=None)
+    j = lambda t: jnp.asarray(t.numpy())
+    want = jax_k6(j(ring["q"]), j(app["zk_q"]), j(app["zk_s"]), j(app["zv_q"]),
+                  j(app["zv_s"]), j(ring["r_k"]), j(app["cos"]), j(app["sin"]),
+                  j(ring["bias"]), scale=ring["q"].shape[-1] ** -0.5, block_s=64,
+                  interpret=True, k_norm=j(kn))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(K6_CASES))
+def test_k6_tensor_core_rounding_within_bf16_limit(case):
+    """K6's rounding points keep the bf16 output within chip_smoke.py's
+    limit of the f32 plain version; the masked row stays exact 0, and so
+    does every query row of a row whose bias is masked everywhere."""
+    ring, selfs, kn, _ = _k6_inputs(case)
+    got = _k6_call(k6_emulated, ring, selfs, kn).to(torch.bfloat16)
+    want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
+                    scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+    assert _worst(got, want) <= 1
+    assert (got[-1] == 0).all()
 
 
 def _budgets():
@@ -244,15 +406,22 @@ def _budgets():
         args = [a[n] for n in ("q", "zk", "zv", "r_k", "cos", "sin", "bias")]
         want = K1.latent_decode_attention_plain(
             *args, scale=a["q"].shape[-1] ** -0.5, **kw).to(torch.bfloat16)
-        out["K4", case] = {r: _worst(k4_emulated(*args, **kw, rounding=r)
+        out["K4", case] = {r: _worst(k4_emulated(*args, **kw, rounding=r,
+                                                 chunk=K4_CASES[case][-1])
+                                     .to(torch.bfloat16), want) for r in ("split", "one")}
+    for case in sorted(K6_CASES):
+        ring, selfs, kn, _ = _k6_inputs(case)
+        want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
+                        scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+        out["K6", case] = {r: _worst(_k6_call(k6_emulated, ring, selfs, kn, rounding=r)
                                      .to(torch.bfloat16), want) for r in ("split", "one")}
     return out
 
 
 def test_one_bf16_rounding_is_measured():
     """The split's reason, measured: one bf16 rounding of P (K2), or of the
-    keys and P (K4), errs more than the split in every case, and at K2's
-    main widths by more than twice."""
+    keys and P (K4, K6), errs more than the split in every case, and at
+    K2's main widths by more than twice."""
     b = _budgets()
     assert all(v["split"] < v["one"] for v in b.values())
     assert b["K2", "main_widths"]["one"] > 2 * b["K2", "main_widths"]["split"]
@@ -260,11 +429,14 @@ def test_one_bf16_rounding_is_measured():
 
 if __name__ == "__main__":
     # python tests/test_torch_tc_rounding.py [--ring]: the budgets as a
-    # table; --ring adds K4 on a ragged ring of chip_smoke.py's K4 widths
+    # table; --ring adds K4 and K6 on ragged rings of chip_smoke.py's widths
     # (4 rows of 1500-4096 tokens in S = 4096).
     import sys
     if "--ring" in sys.argv:
-        K4_CASES["ring_4096"] = (4096, 2, 16, 4, 128, 256, 256, (1500, 4096, 2500, 3300))
+        K4_CASES["ring_4096"] = (4096, 2, 16, 4, 128, 256, 256, (1500, 4096, 2500, 3300),
+                                 256)
+        K6_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 4, 128, 256, 256,
+                                 (1500, 4096, 2500, 3300))
     for (kern, case), v in sorted(_budgets().items()):
         print(f"{kern} {case:20s} worst err / limit: split {v['split']:.3f}, "
               f"one bf16 rounding {v['one']:.3f}")
