@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Output and time of a bf16 tensor-core kernel (K1, K4 or K6), to hold two
+"""Output and time of a bf16 kernel (K1, K2, K3, K4 or K6), to hold two
 versions of it to the same bits and time them in one call.
 
     python3 benchmarks_torch/tc_output.py --kernel k4 --src DIR --out FILE [--no-self]
@@ -15,8 +15,12 @@ prints the kernel's time (CUDA events, mean of 50 launches after 5):
       Hg=16, dh=128, r=256, k-norm and the self column;
   k4  ``latent_decode_attention_paged``: the same widths over 16-token
       pages at shuffled physical pages, rows of 1024..4096 tokens;
+  k3  ``latent_decode_attention_quant``: k1's ring and self column as
+      int8 latents with f32 scales;
   k6  ``latent_decode_attention_mq_quant``: k1's ring as int8 latents with
-      f32 scales, nq=4 verify queries and their 4 self columns.
+      f32 scales, nq=4 verify queries and their 4 self columns;
+  k2  ``flash_prefill_attention``: B=8, T=2048, H=32, Hkv=8, latent values
+      Hv=2, dv=256, causal.
 
 ``--no-self`` leaves the self columns out (their operands, and k6's last
 nq bias columns): the time saved is what the chunk that holds only them
@@ -38,11 +42,19 @@ def _rope(pos, torch):
     return ang.cos(), ang.sin()
 
 
+def _quant(z, torch):
+    """int8 latents and f32 scales, one per row of the last axis."""
+    s = z.abs().amax(-1).clamp_min(1e-8) / 127
+    return torch.round(z / s[..., None]).clamp(-127, 127).to(torch.int8), s
+
+
 def operands(kernel: str, torch):
     """Seeded float32 operands on the CPU (the same on every tree):
     (positional args, keyword args) of the kernel's wrapper."""
     g = torch.Generator().manual_seed(0)
     rn = lambda *sh: torch.randn(sh, generator=g)
+    if kernel == "k2":
+        return (rn(B, 2048, 32, DH), rn(B, 2048, 8, DH), rn(B, 2048, G, R)), {}
     r_k = rn(G, R, SLOTS * DH) * R ** -0.5
     kw = dict(scale=DH ** -0.5, k_norm=0.1 * rn(DH))
     if kernel == "k4":
@@ -74,13 +86,14 @@ def operands(kernel: str, torch):
         kw.update(self_zk=szk[:, 0], self_zv=szv[:, 0], self_cos=self_cos[:, 0],
                   self_sin=self_sin[:, 0])
         return (q, zk, zv, r_k, cos, sin, torch.zeros(B, S)), kw
+    q8 = [t for z in (zk, zv, szk, szv) for t in _quant(z, torch)]
+    if kernel == "k3":
+        kw.update(self_zk_q=q8[4][:, 0], self_zk_s=q8[5][:, 0], self_zv_q=q8[6][:, 0],
+                  self_zv_s=q8[7][:, 0], self_cos=self_cos[:, 0], self_sin=self_sin[:, 0])
+        return (q, *q8[:4], r_k, cos, sin, torch.zeros(B, S)), kw
     # k6: the verify window is causal among its nq self columns
     causal = torch.triu(torch.full((nq, nq), -1e30), 1)
     bias = torch.cat([torch.zeros(B, nq, S), causal.expand(B, nq, nq)], dim=2)
-    q8 = []
-    for z in (zk, zv, szk, szv):
-        s = z.abs().amax(-1).clamp_min(1e-8) / 127
-        q8 += [torch.round(z / s[..., None]).clamp(-127, 127).to(torch.int8), s]
     kw.update(self_zk_q=q8[4], self_zk_s=q8[5], self_zv_q=q8[6], self_zv_s=q8[7],
               self_cos=self_cos, self_sin=self_sin)
     return (q, *q8[:4], r_k, cos, sin, bias), kw
@@ -89,17 +102,21 @@ def operands(kernel: str, torch):
 def run(kernel: str, src: str, out: str, no_self: bool) -> int:
     sys.path.insert(0, src)
     import torch
+    from repro_torch.kernels import flash_prefill as K2
     from repro_torch.kernels import latent_decode as K
     from repro_torch.kernels import latent_decode_q as KQ
-    fn = {"k1": K.latent_decode_attention, "k4": K.latent_decode_attention_paged,
+    fn = {"k1": K.latent_decode_attention, "k2": K2.flash_prefill_attention,
+          "k3": KQ.latent_decode_attention_quant, "k4": K.latent_decode_attention_paged,
           "k6": KQ.latent_decode_attention_mq_quant}[kernel]
     args, kw = operands(kernel, torch)
     if no_self:
         kw = {k: v for k, v in kw.items() if not k.startswith("self_")}
         args = (*args[:-1], args[-1][..., :S].contiguous())
     bf16 = lambda t: t.to(torch.bfloat16) if t.dtype == torch.float32 else t
-    # q, r_k and float latents in bf16; tables, bias, scales and k_norm f32
-    lat = {"k1": (0, 1, 2, 3), "k4": (1, 2, 3, 4), "k6": (0, 5)}[kernel]
+    # q, r_k and float latents (k2: q, k, v) in bf16; tables, bias, scales
+    # and k_norm f32
+    lat = {"k1": (0, 1, 2, 3), "k2": (0, 1, 2), "k3": (0, 5), "k4": (1, 2, 3, 4),
+           "k6": (0, 5)}[kernel]
     args = [bf16(a).cuda() if i in lat else a.cuda() for i, a in enumerate(args)]
     kw = {k: (bf16(v) if k in ("self_zk", "self_zv") else v).cuda()
           if hasattr(v, "cuda") else v for k, v in kw.items()}
@@ -115,7 +132,7 @@ def run(kernel: str, src: str, out: str, no_self: bool) -> int:
     torch.cuda.synchronize()
     torch.save(got.cpu(), out)
     print(f"{kernel} bf16{' without self columns' if no_self else ''} from "
-          f"{K.__file__}: {tuple(got.shape)}, finite "
+          f"{fn.__module__} in {src}: {tuple(got.shape)}, finite "
           f"{bool(torch.isfinite(got.float()).all())}, {t0.elapsed_time(t1) / 50:.4f} ms, "
           f"saved to {out}")
     return 0
@@ -133,7 +150,7 @@ def compare(path_a: str, path_b: str) -> int:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--kernel", choices=("k1", "k4", "k6"), default="k4")
+    p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k6"), default="k4")
     p.add_argument("--src")
     p.add_argument("--out")
     p.add_argument("--no-self", action="store_true")

@@ -9,7 +9,7 @@ Phases, in order (any failure exits non-zero; none is caught):
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
    all at once) and print the build time and each kernel's ptxas
    registers and spills; the tensor-core bodies of
-   ``latent_decode_tc.cu`` (K1, K4, K6 in bf16) must not spill;
+   ``latent_decode_tc.cu`` (K1, K3, K4, K6 in bf16) must not spill;
 3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
    (int8 multi-query verify), K4 and K7 (K1 and K5 over the paged pool,
    through a ragged page table) — at the main path's shapes against its
@@ -22,7 +22,10 @@ Phases, in order (any failure exits non-zero; none is caught):
    and K4 in bf16 must also equal itself on an in-order placement of the
    same pages; both are timed beside K1 / K5 on that ring.  Then the bf16
    K1 and K6 bodies at widths off the main path (ranks 152, 384 and 512;
-   5 and 8 verify queries) within the bf16 limit;
+   5 and 8 verify queries) within the bf16 limit; K1, K3, K4 and K6 at
+   group_size 8 (G = 1, s = 8, Hg = 32 query rows per group, r = 512)
+   within the bf16 limit, K4 equal to K1 bit for bit; and K2 at value
+   widths 128, 152, 384, 512 and 1024 in float32 and bf16;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
    and decode steps, and prefill and one 4-token verify step on float and
@@ -31,7 +34,7 @@ Phases, in order (any failure exits non-zero; none is caught):
    float and int8 pools holding the ring's content: every logit must equal
    the ring's bit for bit (on the float pool also before any write);
 5. the same model served through ``Engine`` (8 slots, max_len 4096) in
-   five runs, each with the kernel launch counts of that run:
+   six runs, each with the kernel launch counts of that run:
    A, float ring, no speculation, one chunked prompt (K1, K2);
    B, int8 ring, spec_depth 3, draft "layers:4", one chunked prompt (K2,
    K3 in the draft's decode steps, K6 in verify);
@@ -43,9 +46,13 @@ Phases, in order (any failure exits non-zero; none is caught):
    preempt (K2, K4); it must share pages and preempt at least once;
    E, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
    prompts (K2, K7); its streams must equal C's token for token;
+   F, the float ring of the model at group_size 8 (one latent group of 8
+   kv heads and 32 query heads, r = 512; its own random weights), one
+   512-token prompt (K2 at dv = 512, K1 at 32 query rows per group), after
+   its kernel backend's decode logits are held to the einsum reference's;
 6. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
-   error, ``launches`` its launches over runs A-E), the card line, and the
+   error, ``launches`` its launches over runs A-F), the card line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
@@ -209,7 +216,7 @@ def phase_latent(torch, gen, nq, quant):
     mod, base = (KQ, "latent_decode_attention") if quant else (K1, "latent_decode_attention")
     fn = base + ("" if one else "_mq") + ("_quant" if quant else "")
     where = {"latent_decode_attention": ("latent_decode.py", 177, "latent_decode_tc"),
-             "latent_decode_attention_quant": ("latent_decode_q.py", 69, "latent_decode"),
+             "latent_decode_attention_quant": ("latent_decode_q.py", 69, "latent_decode_tc"),
              "latent_decode_attention_mq": ("latent_decode.py", 338, "latent_decode"),
              "latent_decode_attention_mq_quant": ("latent_decode_q.py", 158,
                                                   "latent_decode_tc")}[fn]
@@ -230,7 +237,8 @@ def phase_tc_widths(torch, gen):
     kernel), 384 and 512 (recalkv ratios 0.3, 0.75 and 1: 128-column
     chunks), and K6 at nq = 5 and 8 (spec_depth 4 and 7: query blocks
     along grid z) and at r = 512 (a 64-row R_k stage).  B = 2 rows of a
-    1024-token ring; these launches are not the main path's."""
+    1024-token ring; these launches are not the main path's.  Then
+    ``group8_widths`` and ``k2_widths``."""
     from repro_torch.kernels import latent_decode as K1
     from repro_torch.kernels import latent_decode_q as KQ
     from repro_torch.kernels import ops
@@ -266,6 +274,114 @@ def phase_tc_widths(torch, gen):
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
         compare(f"{kernel.__name__} nq={nq} r={r}", got, plain(*args, **kw), bf)
+    group8_widths(torch, gen)
+    k2_widths(torch, gen)
+
+
+def group8_widths(torch, gen):
+    """group_size 8 at full width: G = 1 group of s = 8 kv heads, 32 query
+    rows per group (past a block's 16, so the head slots split over blocks
+    along grid z), r = 512, on B = 2 rows of a 1024-token ring (row 1
+    ragged).  bf16 K1, K3 (one query and its self column), K4 (the ring's
+    pages at shuffled physical pages) and K6 (nq = 4) against their plain
+    versions within the bf16 limit; K4 must equal K1 bit for bit."""
+    from repro_torch.kernels import latent_decode as K1
+    from repro_torch.kernels import latent_decode_q as KQ
+    from repro_torch.kernels import ops
+    from repro_torch.quant import quantize
+    B, S, G, Hg, dh, s, r = 2, 1024, 1, 32, 128, 8, 512
+    bf = torch.bfloat16
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(B, S).contiguous()
+    pos[1, S // 3:] = -1
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    r_k = (rn(G, r, s * dh) * r ** -0.5).to(bf)
+    zk, zv = rn(B, S, G, r), rn(B, S, G, r)
+
+    def q8(z):   # int8 latents and their (..., G) scales
+        lat, sc = quantize(z, 8)
+        return lat, sc[..., 0]
+
+    for nq in (1, 4):
+        pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
+        cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+        feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
+        bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+        q = rn(B, G, nq * Hg, dh).to(bf)
+        szk, szv = rn(B, nq, G, r), rn(B, nq, G, r)
+        kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh))
+        if nq == 4:
+            args = (q, *q8(zk), *q8(zv), r_k, cos, sin, bias)
+            (szk_q, szk_s), (szv_q, szv_s) = q8(szk), q8(szv)
+            kw6 = dict(kw, self_zk_q=szk_q, self_zk_s=szk_s, self_zv_q=szv_q,
+                       self_zv_s=szv_s, self_cos=cs, self_sin=ss)
+            got = KQ.latent_decode_attention_mq_quant(*args, **kw6)
+            torch.cuda.synchronize()
+            compare(f"latent_decode_attention_mq_quant Hg={Hg} nq={nq} r={r}", got,
+                    KQ.latent_decode_attention_mq_quant_plain(*args, **kw6), bf)
+            continue
+        tables = (cos, sin, bias[:, 0, :S].contiguous())
+        kw1 = dict(kw, self_zk=szk[:, 0].to(bf), self_zv=szv[:, 0].to(bf),
+                   self_cos=cs[:, 0], self_sin=ss[:, 0])
+        ring_args = (q, zk.to(bf), zv.to(bf), r_k, *tables)
+        ring = K1.latent_decode_attention(*ring_args, **kw1)
+        torch.cuda.synchronize()
+        compare(f"latent_decode_attention Hg={Hg} r={r}", ring,
+                K1.latent_decode_attention_plain(*ring_args, **kw1), bf)
+        n_sp = S // PAGE
+        g = torch.Generator().manual_seed(SEED + 6)
+        ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
+        ptab = ptab.to(device="cuda", dtype=torch.int32)
+        pools = []
+        for z in ring_args[1:3]:
+            pool = torch.zeros((B * n_sp + 1, PAGE, G, r), device="cuda", dtype=bf)
+            pool[ptab.reshape(-1).long()] = z.reshape(B * n_sp, PAGE, G, r)
+            pools.append(pool)
+        paged_args = (ptab, q, *pools, r_k, *tables)
+        paged = K1.latent_decode_attention_paged(*paged_args, **kw1)
+        torch.cuda.synchronize()
+        compare(f"latent_decode_attention_paged Hg={Hg} r={r}", paged,
+                K1.latent_decode_attention_paged_plain(*paged_args, **kw1), bf)
+        diff = (paged.float() - ring.float()).abs().max().item()
+        log(f"latent_decode_attention_paged Hg={Hg} r={r}: max abs diff against "
+            f"latent_decode_attention on the same ring {diff:.3e} (0 expected)")
+        if not torch.equal(paged, ring):
+            raise AssertionError(f"K4 differs from K1 at Hg={Hg} by {diff:.3e}")
+        args3 = (q, *q8(zk), *q8(zv), r_k, *tables)
+        (szk_q, szk_s), (szv_q, szv_s) = q8(szk[:, 0]), q8(szv[:, 0])
+        kw3 = dict(kw, self_zk_q=szk_q, self_zk_s=szk_s, self_zv_q=szv_q, self_zv_s=szv_s,
+                   self_cos=cs[:, 0], self_sin=ss[:, 0])
+        got = KQ.latent_decode_attention_quant(*args3, **kw3)
+        torch.cuda.synchronize()
+        compare(f"latent_decode_attention_quant Hg={Hg} r={r}", got,
+                KQ.latent_decode_attention_quant_plain(*args3, **kw3), bf)
+
+
+def k2_widths(torch, gen):
+    """K2 at value widths other than the main path's 256: 128 (the dense
+    cache), 152 (ratio 0.3: one 256-column slice, its last 104 columns
+    zero-filled), 384, 512 and 1024 (group_size 8 ranks: 2 to 4 slices
+    along the grid), B = 2, T = 1000 (ragged), H = 32, Hkv = 8, one value
+    group, causal; float32 within 1e-4 and bf16 within the bf16 limit.
+    The bf16 calls are timed beside dv = 256 at the same shape (what the
+    slices' recomputed scores cost)."""
+    from repro_torch.kernels.flash_prefill import (
+        flash_prefill_attention as k2, flash_prefill_attention_plain as p2)
+    B, T, H, Hkv, dh = 2, 1000, 32, 8, 128
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    times = {}
+    for dv in (128, 152, 256, 384, 512, 1024):
+        f = (rn(B, T, H, dh), rn(B, T, Hkv, dh), rn(B, T, 1, dv))
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (x.to(dt) for x in f)
+            got = k2(q, k, v)
+            torch.cuda.synchronize()
+            if dv != 256:
+                compare(f"K2 dv={dv}", got, p2(q, k, v), dt)
+        times[dv] = cuda_ms(lambda: k2(q, k, v), iters=20)
+    log(f"K2 bf16 B={B} T={T} H={H} Hkv={Hkv} Hv=1 ms by dv: "
+        + ", ".join(f"{dv} {ms:.4f} ({ms / times[256]:.2f}x dv=256)"
+                    for dv, ms in times.items()))
 
 
 def paged_inputs(torch, gen, nq):
@@ -443,10 +559,11 @@ def phase_k2(torch, gen):
             "shape": f"B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dh={dh} dv={dv} causal bf16"}
 
 
-def phase_backends(torch, cfg, params):
+def phase_backends(torch, cfg, params, verify=True):
     """Prefill + 4 decode steps through both backends (kernel-backend
     greedy tokens fed to both), B=2 with prompts of 512 and 300 tokens;
-    then, on float and int8 rings, prefill + one 4-token verify step."""
+    then (``verify``), on float and int8 rings, prefill + one 4-token
+    verify step."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
@@ -467,14 +584,14 @@ def phase_backends(torch, cfg, params):
         if feed is None:
             feed = [o.argmax(-1) for o in outs[:-1]]
         runs[("decode", backend)] = torch.stack(outs)
-        for bits in (None, 8):
+        for bits in (None, 8) if verify else ():
             cb = dataclasses.replace(c, cache_quant_bits=bits)
             _, caches = T.prefill(cb, params, toks, lens, 1024)
             runs[(f"verify {'int8' if bits else 'float'}", backend)], _ = T.verify_step(
                 cb, params, caches, fed, lens, mask)
         del caches
     out = {}
-    for what in ("decode", "verify float", "verify int8"):
+    for what in ("decode", "verify float", "verify int8") if verify else ("decode",):
         ker, ref = runs[(what, "kernel")], runs[(what, "einsum")]
         if not torch.isfinite(ker).all():
             raise AssertionError(f"kernel-backend {what} logits are not finite")
@@ -569,7 +686,13 @@ ENGINE_RUNS = {
               must=("flash_prefill_attention", "latent_decode_attention_mq_paged"),
               paged=dict(cache_layout="paged", page_size=PAGE,
                          policy="reach-packing")),
+    # the model at group_size 8 (GROUP8), with its own weights
+    "F": dict(bits=None, depth=0, draft=None, chunk=None, sync=16,
+              must=("latent_decode_attention", "flash_prefill_attention")),
 }
+# run F's latent cache: one group of all 8 kv heads (32 query rows per
+# group) at rank 512 = s * dh / 2, r_v = 512 the value width of its K2
+GROUP8 = dict(rank_k=512, rank_v=512, group_size=8)
 
 
 def engine_prompts(torch, run, vocab):
@@ -582,6 +705,8 @@ def engine_prompts(torch, run, vocab):
     if run == "D":          # a shared 1024-token system prompt + own suffixes
         system = rand(1024)
         return [(np.concatenate([system, rand(n)]), D_NEW) for n in D_SUFFIX]
+    if run == "F":
+        return [(rand(512), 32)]
     motif = rand(64)        # C and E: a motif repeated, for prompt lookup
     return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
 
@@ -647,6 +772,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
+    from repro_torch.models.config import ReCalKVRuntime
     from repro_torch.models.weights import init_params
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -690,12 +816,18 @@ def main() -> int:
     backends = phase_backends(torch, cfg, params)
     backends["paged"] = phase_paged_steps(torch, cfg, params)
     serving, by_run, streams = {}, {}, {}
-    for run in ENGINE_RUNS:
+    for run in "ABCDE":
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     if streams["E"] != streams["C"]:
         raise AssertionError(f"engine run E (paged pool) streams differ from run C's "
                              f"(ring): {streams['E']} vs {streams['C']}")
     log("engine run E streams equal run C's token for token")
+    del params
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, recalkv=ReCalKVRuntime(**GROUP8))
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    backends["group_size 8"] = phase_backends(torch, cfg, params, verify=False)
+    by_run["F"], streams["F"], serving["F"] = phase_engine(torch, cfg, params, "F")
     for e in entries:
         e["launches_by_run"] = {run: by_run[run][e["name"]] for run in by_run}
         e["launches"] = sum(e["launches_by_run"].values())

@@ -6,7 +6,9 @@
 // v (B,T,Hv,dv) -> out (B,T,H,dv), with query head h reading kv head
 // h / (H/Hkv) and value group h / (H/Hv) (kv-major head order).  On the
 // ReCalKV prefill path the values are the latent groups: Hv = G and
-// dv = r_v, which differ from Hkv and dh.
+// dv = r_v, which differ from Hkv and dh.  Served widths: dh 64 or 128 and
+// any dv that is a multiple of 8 from 8 to 1,024 (every r_v the JAX
+// package makes for qwen3-4b, and the dense cache's dv = dh).
 //
 // What bounds it on an H100: at B=8, T=2048, H=32, dh=128, dv=256 the
 // causal work is ~0.41 TFLOP (0.42 ms on bf16 tensor cores) against
@@ -16,7 +18,7 @@
 //  * bf16 (the serving path): flash_prefill_tc, on wgmma.  A block takes
 //    BQ = 128 query rows of one head as two warpgroups of 64 rows.  Per
 //    64-key tile a warpgroup starts S = Q K^T as wgmma.m64n64k16 from
-//    shared memory (Q and K K-major) and O += P V as wgmma.m64n{dv}k16
+//    shared memory (Q and K K-major) and O += P V as wgmma.m64n{DV}k16
 //    with P in registers as the A operand and V MN-major from shared
 //    memory (wgmma.cuh).  S, P and O (64 x dv f32 per warpgroup: 128
 //    registers a thread at dv = 256) never leave registers; the S
@@ -38,6 +40,17 @@
 //    Masks are applied in registers only on tiles that need them (the
 //    diagonal, the T tail, the window edge); tiles above the diagonal or
 //    wholly outside the window are never loaded.
+//  * Value widths.  The P V product is wgmma.m64n{DV}k16 with V read
+//    MN-major in 64-column swizzle blocks, and O already costs 128
+//    registers a thread at 256 columns, so a block computes one slice of
+//    DV = 64, 128 or 256 value columns (the narrowest that holds dv):
+//    V's 16-byte chunks past dv are zero-filled as they land (their P V
+//    columns are exact zeros) and O's are not stored.  Past 256 the head's
+//    dv splits into ceil(dv / 256) slices along grid x, each recomputing
+//    S = Q K^T, a fifth of a 256-column slice's products at dh = 128 (P V
+//    is two products, hi and lo): dv = 512 does ~11% more products than
+//    one 512-column pass would.  The main width (128, 256) is one full
+//    slice, its arithmetic unchanged.
 //  * Precision: P enters P V as two bf16 A operands on the same V, hi =
 //    bf16(P) and lo = bf16(P - hi) (~2^-17 relative per weight).  One bf16
 //    P (2^-9) is large against the output on rows that have averaged few
@@ -46,10 +59,11 @@
 //    emulates both roundings.
 //  * f32 (the CPU/GPU parity instantiation): flash_prefill_kernel, the
 //    first version, on CUDA cores (register-tiled from shared memory, 64 x
-//    64 tiles, 256 threads; a thread holds 4 query rows x (4 score / dv/16
+//    64 tiles, 256 threads; a thread holds 4 query rows x (4 score / DV/16
 //    output) columns and 16 threads of a row reduce its softmax state with
-//    warp shuffles).  Tensor cores in TF32 or bf16 cannot meet the f32
-//    parity limit of 1e-4.
+//    warp shuffles), over the same value slices as the bf16 body (along
+//    grid y).  Tensor cores in TF32 or bf16 cannot meet the f32 parity
+//    limit of 1e-4.
 //
 // Both mask keys at or beyond T (NEG_INF = -1e30, never -inf), as the TPU
 // kernel does.  In the bf16 body a row that sees no key of a tile keeps
@@ -90,6 +104,8 @@ struct Args {
   int B, T, H, Hkv, Hv, window;  // window <= 0: none
   int causal;
   float scale;
+  int dv;                        // value columns (a multiple of 8)
+  int n_sl;                      // value-column slices of a head: ceil(dv / DV)
 };
 
 template <typename T, int DH, int DV>
@@ -99,6 +115,9 @@ size_t smem_bytes() {
          size_t(BQ) * (BK + 1) * sizeof(float);
 }
 
+// DV is the block's value-column slice: slice blockIdx.y % n_sl covers
+// columns [c0, c0 + DV) of dv; columns past dv are zero-filled and not
+// stored.
 template <typename T, int DH, int DV>
 __global__ void __launch_bounds__(THREADS)
 flash_prefill_kernel(Args a) {
@@ -107,7 +126,8 @@ flash_prefill_kernel(Args a) {
   constexpr int NO = DV / 16;   // output columns per thread
   static_assert(DV % 16 == 0, "dv must be a multiple of 16");
 
-  const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int qt = blockIdx.x, h = blockIdx.y / a.n_sl, b = blockIdx.z;
+  const int c0 = (blockIdx.y - h * a.n_sl) * DV, dv = a.dv;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int T_ = a.T, H = a.H;
   const int hk = h / (H / a.Hkv), hv = h / (H / a.Hv);
@@ -149,7 +169,8 @@ flash_prefill_kernel(Args a) {
     }
     for (int e = tid; e < BK * DV; e += THREADS) {
       const int r = e / DV, c = e - r * DV, t = k_start + r;
-      v_s[e] = t < T_ ? v[((size_t(b) * T_ + t) * a.Hv + hv) * DV + c] : from_f<T>(0.f);
+      v_s[e] = t < T_ && c0 + c < dv ? v[((size_t(b) * T_ + t) * a.Hv + hv) * dv + c0 + c]
+                                     : from_f<T>(0.f);
     }
     __syncthreads();
 
@@ -232,7 +253,8 @@ flash_prefill_kernel(Args a) {
     const float inv = 1.f / fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int j = 0; j < NO; ++j)
-      out[((size_t(b) * T_ + qp) * H + h) * DV + tx + 16 * j] = from_f<T>(o[i][j] * inv);
+      if (c0 + tx + 16 * j < dv)
+        out[((size_t(b) * T_ + qp) * H + h) * dv + c0 + tx + 16 * j] = from_f<T>(o[i][j] * inv);
   }
 }
 
@@ -249,16 +271,21 @@ constexpr size_t smem_bytes() {   // Q and NS K/V stages; + 1 KB to align
   return (size_t(BQ) * DH + NS * size_t(BK) * (DH + DV)) * sizeof(bf16) + 1024;
 }
 
+// DV is the block's value-column slice (64, 128 or 256): slice
+// blockIdx.x % n_sl covers columns [c0, c0 + DV) of dv; V's columns past
+// dv are zero-filled as they land and O's are not stored.
 template <int DH, int DV>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_tc(Args a) {
   constexpr int SN = BK / 8;   // score 8-column tiles of a warp (16 rows x 64 keys)
-  constexpr int ON = DV / 8;   // output 8-column tiles of a warp (16 rows x dv)
+  constexpr int ON = DV / 8;   // output 8-column tiles of a warp (16 rows x DV)
   constexpr int QC = DH / 8, VC = DV / 8;   // 16-byte chunks per row
   constexpr uint32_t Q_BYTES = BQ * DH * 2, K_BYTES = BK * DH * 2, V_BYTES = BK * DV * 2;
-  static_assert(DH % 64 == 0 && (DV == 64 || DV == 256), "instantiated for dv 64 and 256");
+  static_assert(DH % 64 == 0 && (DV == 64 || DV == 128 || DV == 256),
+                "value slices of 64, 128 or 256 columns");
 
-  const int h = blockIdx.x, b = blockIdx.y;
+  const int h = blockIdx.x / a.n_sl, b = blockIdx.y;
+  const int c0 = (blockIdx.x - h * a.n_sl) * DV;   // the slice's first value column
   const int qt = gridDim.z - 1 - blockIdx.z;   // longest causal rows first
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int wgi = warp >> 2;                    // warpgroup: query rows 64 wgi..
@@ -302,8 +329,12 @@ flash_prefill_tc(Args a) {
   const int kr0 = tid / QC, vr0 = tid / VC;
   const uint32_t k_off = wg::sw128(BK, kr0, tid % QC), v_off = wg::sw128(BK, vr0, tid % VC);
   const bf16* k_src = k + (size_t(b) * T_ * a.Hkv + hk) * DH + (tid % QC) * 8;
-  const bf16* v_src = v + (size_t(b) * T_ * a.Hv + hv) * DV + (tid % VC) * 8;
-  const size_t k_rs = size_t(a.Hkv) * DH, v_rs = size_t(a.Hv) * DV;   // token strides
+  const size_t k_rs = size_t(a.Hkv) * DH;   // token stride
+  // a thread whose value chunk lies past dv zero-fills it in every tile
+  const int vc = c0 + (tid % VC) * 8;
+  const int v_T = vc < a.dv ? T_ : 0;       // rows of the chunk to load
+  const bf16* v_src = v + (vc < a.dv ? (size_t(b) * T_ * a.Hv + hv) * a.dv + vc : 0);
+  const size_t v_rs = size_t(a.Hv) * a.dv;
   auto load_kv = [&](int i) {   // tile kt_lo + i into stage i % NS
     const int k_start = (kt_lo + i) * BK, st = i % NS;
 #pragma unroll
@@ -315,8 +346,8 @@ flash_prefill_tc(Args a) {
 #pragma unroll
     for (int j = 0; j < BK / VR; ++j) {
       const int t = k_start + vr0 + j * VR;
-      tc::cp_async16(v_s + st * V_BYTES + v_off + j * VR * 128, v_src + (t < T_ ? t : 0) * v_rs,
-                     t < T_);
+      tc::cp_async16(v_s + st * V_BYTES + v_off + j * VR * 128,
+                     v_src + (t < v_T ? t : 0) * v_rs, t < v_T);
     }
   };
   load_kv(0);
@@ -441,6 +472,9 @@ flash_prefill_tc(Args a) {
       if constexpr (DV == 256) {
         wg::wgmma_rs_n256_tb(o, ph[kk], vd);
         wg::wgmma_rs_n256_tb(o, pl[kk], vd);
+      } else if constexpr (DV == 128) {
+        wg::wgmma_rs_n128_tb(o, ph[kk], vd);
+        wg::wgmma_rs_n128_tb(o, pl[kk], vd);
       } else {
         wg::wgmma_rs_n64_tb(o, ph[kk], vd);
         wg::wgmma_rs_n64_tb(o, pl[kk], vd);
@@ -465,7 +499,7 @@ flash_prefill_tc(Args a) {
   }
 
   // O / l to bf16 through shared memory (the K/V ring is free), then out in
-  // 16-byte row chunks: the output rows are dv * 2 bytes contiguous
+  // 16-byte row chunks of the slice's live columns
   constexpr int OS = DV * 2 + 16;   // staged row stride (bytes): rows 16 B apart in banks
   static_assert(size_t(BQ) * OS <= NS * size_t(K_BYTES + V_BYTES), "O fits the ring");
   __syncthreads();
@@ -482,8 +516,8 @@ flash_prefill_tc(Args a) {
   bf16* out = static_cast<bf16*>(a.out);
   for (int e = tid; e < BQ * VC; e += THREADS) {
     const int r = e / VC, c = e - r * VC, qp = q_start + r;
-    if (qp < T_)
-      *reinterpret_cast<uint4*>(out + ((size_t(b) * T_ + qp) * H + h) * DV + c * 8) =
+    if (qp < T_ && c0 + c * 8 < a.dv)
+      *reinterpret_cast<uint4*>(out + ((size_t(b) * T_ + qp) * H + h) * a.dv + c0 + c * 8) =
           *reinterpret_cast<const uint4*>(o_s + r * OS + c * 16);
   }
 }
@@ -495,7 +529,7 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid(a.H, a.B, (a.T + BQ - 1) / BQ);
+  dim3 grid(a.H * a.n_sl, a.B, (a.T + BQ - 1) / BQ);
   flash_prefill_tc<DH, DV><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
@@ -511,30 +545,42 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((a.T + BQ - 1) / BQ, a.H, a.B);
+  dim3 grid((a.T + BQ - 1) / BQ, a.H * a.n_sl, a.B);
   flash_prefill_kernel<float, DH, DV><<<grid, THREADS, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// (128, 256): qwen3-4b's dh with r_v = 256 latent values (the main path);
-// (64, 64): the small shape the GPU tests use.  bf16 runs the tensor-core
-// body, f32 the CUDA-core one.
-cudaError_t dispatch(int is_bf16, int dh, int dv, const Args& a, cudaStream_t st) {
-  if (dh == 64 && dv == 64)
-    return is_bf16 ? tcp::launch<64, 64>(a, st) : launch_f32<64, 64>(a, st);
-  if (dh == 128 && dv == 256)
-    return is_bf16 ? tcp::launch<128, 256>(a, st) : launch_f32<128, 256>(a, st);
-  return cudaErrorInvalidValue;
+// Served widths: dh 64 or 128, and any dv that is a multiple of 8 from 8
+// to 1,024 (r_v up to s * dh at group_size 8 and keep_ratio 1; the dense
+// cache's dv = dh).  A block computes one value-column slice of DV = 64,
+// 128 or 256 columns, the narrowest that holds dv, and past 256 the head's
+// dv splits into ceil(dv / 256) slices along grid x (y for f32), each of
+// which recomputes the scores.  qwen3-4b's main width (128, 256) is one
+// full slice.  bf16 runs the tensor-core body, f32 the CUDA-core one.
+template <int DH>
+cudaError_t dispatch_dh(int is_bf16, Args a, cudaStream_t st) {
+  const int w = a.dv <= 64 ? 64 : a.dv <= 128 ? 128 : 256;
+  a.n_sl = (a.dv + w - 1) / w;
+  if (w == 64) return is_bf16 ? tcp::launch<DH, 64>(a, st) : launch_f32<DH, 64>(a, st);
+  if (w == 128) return is_bf16 ? tcp::launch<DH, 128>(a, st) : launch_f32<DH, 128>(a, st);
+  return is_bf16 ? tcp::launch<DH, 256>(a, st) : launch_f32<DH, 256>(a, st);
+}
+
+bool supports(int dh, int dv) {
+  return (dh == 64 || dh == 128) && dv >= 8 && dv <= 1024 && dv % 8 == 0;
+}
+
+cudaError_t dispatch(int is_bf16, int dh, const Args& a, cudaStream_t st) {
+  if (!supports(dh, a.dv)) return cudaErrorInvalidValue;
+  return dh == 64 ? dispatch_dh<64>(is_bf16, a, st) : dispatch_dh<128>(is_bf16, a, st);
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when (dh, dv) has a compiled instantiation, else 0.
-int recalkv_flash_prefill_supports(int dh, int dv) {
-  return (dh == 64 && dv == 64) || (dh == 128 && dv == 256);
-}
+// 1 when (dh, dv) is a served width (see dispatch), else 0.
+int recalkv_flash_prefill_supports(int dh, int dv) { return supports(dh, dv) ? 1 : 0; }
 
 // Returns a cudaError_t (0 = success).  Tensors contiguous; ``is_bf16``
 // selects bf16 (1) or f32 (0) for q, k, v and out; ``window`` <= 0 means
@@ -542,9 +588,9 @@ int recalkv_flash_prefill_supports(int dh, int dv) {
 int recalkv_flash_prefill(int is_bf16, int dh, int dv, const void* q, const void* k,
                           const void* v, void* out, int B, int T, int H, int Hkv, int Hv,
                           int causal, int window, float scale, void* stream) {
-  Args a{q, k, v, out, B, T, H, Hkv, Hv, window, causal, scale};
+  Args a{q, k, v, out, B, T, H, Hkv, Hv, window, causal, scale, dv, 1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(dispatch(is_bf16, dh, dv, a, st));
+  return static_cast<int>(dispatch(is_bf16, dh, a, st));
 }
 
 }  // extern "C"

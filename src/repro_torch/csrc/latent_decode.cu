@@ -9,10 +9,10 @@
 //   K4 recalkv_latent_decode_paged     latent_decode.py::latent_decode_attention_paged
 //   K7 recalkv_latent_decode_mq_paged  latent_decode.py::latent_decode_attention_mq_paged
 //
-// Which body serves which (kernel, dtype): K3, K5 and K7 run here in bf16
-// and float32; K1, K4 and K6 run here in float32 only, as the parity
+// Which body serves which (kernel, dtype): K5 and K7 run here in bf16 and
+// float32; K1, K3, K4 and K6 run here in float32 only, as the parity
 // instantiations the 1e-4 checks use (their entry points refuse bf16 q).
-// bf16 K1, K4 and K6 run the tensor-core body of latent_decode_tc.cu.
+// bf16 K1, K3, K4 and K6 run the tensor-core body of latent_decode_tc.cu.
 //
 // For every (batch b, latent group g) and the R = nq * Hg query rows of
 // that group (nq queries, Hg = s * qpk heads each, rows ordered (query,
@@ -91,7 +91,8 @@
 // (no loads, no arithmetic); a row whose columns are all masked finishes
 // as exact 0 (a row masked across a whole processed tile leaves its
 // softmax state untouched, and the merge floors l at 1e-30).  Inputs are
-// bf16 or f32 (latents also int8); accumulation is f32 throughout.
+// bf16 or f32 (latents also int8, under f32 q); accumulation is f32
+// throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -453,15 +454,16 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Dispatch on (T, L, dh).  ``quant`` selects int8 latents.
+// Dispatch on (T, L, dh).  ``quant`` selects int8 latents (float32 q only:
+// bf16 K3 / K6 run latent_decode_tc.cu).
 int dispatch(int is_bf16, int dh, bool quant, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   if (dh == 64) {
-    if (is_bf16) err = quant ? launch<__nv_bfloat16, int8_t, 64>(a, st)
+    if (is_bf16) err = quant ? cudaErrorInvalidValue
                              : launch<__nv_bfloat16, __nv_bfloat16, 64>(a, st);
     else err = quant ? launch<float, int8_t, 64>(a, st) : launch<float, float, 64>(a, st);
   } else if (dh == 128) {
-    if (is_bf16) err = quant ? launch<__nv_bfloat16, int8_t, 128>(a, st)
+    if (is_bf16) err = quant ? cudaErrorInvalidValue
                              : launch<__nv_bfloat16, __nv_bfloat16, 128>(a, st);
     else err = quant ? launch<float, int8_t, 128>(a, st) : launch<float, float, 128>(a, st);
   }
@@ -492,7 +494,7 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
 // kernel: scales present only for the int8 kernels, one query for
 // K1/K3/K4, a page table (with page_size dividing S and a pool of n_pages
 // pages) present only for the paged kernels K4/K7, and float32 q for the
-// parity-only K1/K4/K6.
+// parity-only K1/K3/K4/K6.
 #define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED, F32_ONLY)                               \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,          \
            const float* zk_scale, const float* zv_scale, const void* r_k,               \
@@ -517,7 +519,7 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
   }
 
 RECALKV_ENTRY(recalkv_latent_decode, false, false, false, true)          // K1
-RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false, false)    // K3
+RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false, true)     // K3
 RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false, false)       // K5
 RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false, true)   // K6
 RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true, true)     // K4

@@ -1,15 +1,17 @@
-// K1, K4 and K6 in bf16: ReCalKV latent flash decode on tensor cores, for
-// Hopper (sm_90a), CUDA C++.  One templated body, three entry points:
+// K1, K3, K4 and K6 in bf16: ReCalKV latent flash decode on tensor cores,
+// for Hopper (sm_90a), CUDA C++.  One templated body, four entry points:
 //
 //   K1 recalkv_latent_decode_tc           replaces src/repro/kernels/latent_decode.py::
 //                                         latent_decode_attention (the ring, bf16 latents)
+//   K3 recalkv_latent_decode_quant_tc     latent_decode_q.py::latent_decode_attention_quant
+//                                         (the int8 ring, one query)
 //   K4 recalkv_latent_decode_paged_tc     latent_decode.py::latent_decode_attention_paged
 //                                         (a page-major pool through a page table)
 //   K6 recalkv_latent_decode_mq_quant_tc  latent_decode_q.py::latent_decode_attention_mq_quant
 //                                         (the int8 ring, nq verify queries)
 //
-// Float32 operands of these three, and K3, K5 and K7 in both types, go to
-// the CUDA-core template of latent_decode.cu (the parity instantiations the
+// Float32 operands of these four, and K5 and K7 in both types, go to the
+// CUDA-core template of latent_decode.cu (the parity instantiations the
 // 1e-4 checks use).  For batch row b, latent group g, the R = nq * Hg query
 // rows of the group (ordered (query j, head h), Hg = s * qpk) and the ring
 // columns t < S plus n_self self columns:
@@ -18,9 +20,9 @@
 //   out    = softmax_t(scale * q[j, h] . K_{h / qpk}[t] + bias[b, j, t]) @ (vs[t] * zv[t])
 //
 // ks = vs = 1 for bf16 latents; int8 latents carry one f32 scale each per
-// (token, group).  Ring column t of row b is latent row b * S + t (K1, K6)
-// or ptab[b, t / page_size] * page_size + t % page_size (K4).  K1 / K4
-// score one self column at bias 0; K6 reads its nq self columns' bias from
+// (token, group).  Ring column t of row b is latent row b * S + t (K1, K3, K6)
+// or ptab[b, t / page_size] * page_size + t % page_size (K4).  K1 / K3 /
+// K4 score one self column at bias 0; K6 reads its nq self columns' bias from
 // the last n_self columns of its (B, nq, S + n_self) bias.  The self
 // tokens' latents, scales and rotation tables are operands.
 //
@@ -35,8 +37,9 @@
 //  * A block takes CH ring columns of one (b, g): 256 (four 64-column
 //    tiles) with one query set, 128 with up to four (K6, see below); 256
 //    threads, one block per SM.  Grid (G * B, ceil((S + n_self) / CH),
-//    query blocks), chunk-major, so the chunks that hold only self columns
-//    launch last and fill the tail of the last wave.  Each R_k slice is
+//    query blocks x head-slot blocks), chunk-major, so the chunks that
+//    hold only self columns launch last and fill the tail of the last
+//    wave.  Each R_k slice is
 //    read once per CH columns: R_k streams through a two-stage cp.async
 //    ring in stages of rc = 128 rank rows x dh of one head slot, bf16 as
 //    stored.  Ranks past 256 (recalkv ratios above 0.5, Fisher-allocated
@@ -86,6 +89,17 @@
 //    more than 4 query sets (spec_depth >= 4) adds query blocks along grid
 //    z, each of qg = min(4, 16 / q_per_kv) sets: each re-reads the
 //    chunk's latents and R_k, and the merge sees every row as before.
+//  * More than 16 query rows per group (Hg > 16: group_size 8 puts s = 8
+//    kv heads and 32 query heads in one group).  A block holds at most 16
+//    score rows (64 for K6), so grid z also splits the s head slots into
+//    blocks of sps, the largest divisor of s with qg * sps * q_per_kv <=
+//    ROWS; a block rebuilds keys and streams R_k for its own slots only,
+//    re-reading the chunk's latents, and the merge sees every row.  At
+//    Hg <= 16 one block takes every slot and the launch is the unsplit
+//    one.
+//  * K3 is K1's instantiation with int8 latents: the 256-column chunk
+//    (230,416 B of shared memory at dh = 128, r = 256) with the rows
+//    converted as K6's are and the key / value scales applied as above.
 //  * K1 and K4 are the same instantiation but for the row map, with the
 //    same block plan and chunks in the same order: K4 on a pool equals K1 on the
 //    table-gathered ring bit for bit (masked columns are zero-filled in
@@ -110,13 +124,13 @@ constexpr int TILE = 64;         // skip granularity
 constexpr int THREADS = 256, WARPS = 8;
 constexpr size_t SMEM_LIMIT = 232448;   // bytes of shared memory a Hopper block may use
 
-// Tile shape of a body: CH ring columns of one query set (K1, K4) or of up
+// Tile shape of a body: CH ring columns of one query set (K1, K3, K4) or of up
 // to four (K6) per block.
 template <int CH_, bool MQ>
 struct Shape {
   static constexpr int CH = CH_;                  // ring columns of a block
   static constexpr int NQ = MQ ? 4 : 1;           // query sets of a block, at most
-  static constexpr int ROWS = 16 * NQ;            // score rows (nq * Hg, Hg <= 16)
+  static constexpr int ROWS = 16 * NQ;            // score rows of a block, at most
   static constexpr int NB = MQ ? 2 : 1;           // n8 tiles of a slot's query rows
   static constexpr int NT = CH / TILE;            // skip tiles of a block
   static constexpr int MTW = CH / (16 * WARPS);   // key m-tiles of a warp
@@ -149,7 +163,10 @@ struct Args {
   bf16* out;                   // (B, G, R, rv)
   int B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, page_size, n_pages;
   float scale, eps;
-  int qg;                      // query sets of a block (grid z covers nq)
+  int qg;                      // query sets of a block
+  int sps;                     // head slots of a block, a divisor of s
+  int nsb;                     // head-slot blocks: s / sps (grid z covers nq and s)
+  int hb;                      // query rows of a query set in a block: sps * qpk
   int rc;                      // rank rows of R_k per pipeline stage
 };
 
@@ -203,12 +220,18 @@ latent_decode_tc(Args a) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g4 = lane >> 2, t4 = lane & 3;
   const int S = a.S, G = a.G, Hg = a.Hg, rk = a.rk, rv = a.rv, s = a.s;
-  const int j0 = MQ ? blockIdx.z * a.qg : 0;          // the block's first query set
+  const int zq = MQ ? blockIdx.z / a.nsb : 0;         // grid z: (query block, slot block)
+  const int j0 = MQ ? zq * a.qg : 0;                  // the block's first query set
   const int nq = MQ ? min(a.qg, a.nq - j0) : 1;       // and its query sets
   const int qpk = Hg / s;
-  const int R = nq * Hg;                              // score rows of the block
+  const int sb = blockIdx.z - zq * a.nsb;             // slot block: head slots sb * sps..
+  const int Hb = a.hb;                                // heads of a query set in the block
+  const int R = nq * Hb;                              // score rows of the block
   const int RT = a.nq * Hg;                           // rows of the call
-  const int row0 = j0 * Hg;                           // the block's first row
+  const int row0 = j0 * Hg + sb * Hb;                 // the call's row of block row 0
+  // block row h = (query j, head i of the block) -> call row - row0 (h
+  // itself when the block holds every head slot)
+  auto grow = [&](int h) { return MQ && Hb != Hg ? (h / Hb) * Hg + h % Hb : h; };
   const int S_ext = S + a.n_self;
   const int t0 = chunk * CH;
   const int ZS = z_stride(rk, rv);
@@ -241,7 +264,7 @@ latent_decode_tc(Args a) {
         if (t < S || (t < S_ext && a.bias_cols > S))
           bv = a.bias[(size_t(b) * a.nq + j0 + j) * a.bias_cols + t];
         else if (t < S_ext)
-          bv = 0.f;   // K1 / K4's self column
+          bv = 0.f;   // K1 / K3 / K4's self column
       }
       bias_s[j * CH + tid] = bv;
       seen |= bv > NEG_INF * 0.5f;
@@ -275,14 +298,15 @@ latent_decode_tc(Args a) {
     if (seen) live_s[tid / TILE] = 1;
   }
   __syncthreads();
-  const size_t base = (size_t(b) * G + g) * a.n_chunks + chunk;
+  // partial-state row of block row 0 (+ grow(h) for block row h)
+  const size_t base = ((size_t(b) * G + g) * a.n_chunks + chunk) * RT + row0;
   bool chunk_live = false;
 #pragma unroll
   for (int i = 0; i < NT; ++i) chunk_live |= live_s[i] != 0;
   if (!chunk_live) {
     if (tid < R) {
-      a.part_m[base * RT + row0 + tid] = NEG_INF;
-      a.part_l[base * RT + row0 + tid] = 0.f;
+      a.part_m[base + grow(tid)] = NEG_INF;
+      a.part_l[base + grow(tid)] = 0.f;
     }
     return;
   }
@@ -292,7 +316,7 @@ latent_decode_tc(Args a) {
     const int r = e / (DH / 8), c = e - r * (DH / 8);
     const bool ok = r < R;
     tc::cp_async16(q_s + r * RS + c * 8,
-                   a.q + ((size_t(b) * G + g) * RT + row0 + (ok ? r : 0)) * DH + c * 8, ok);
+                   a.q + ((size_t(b) * G + g) * RT + row0 + grow(ok ? r : 0)) * DH + c * 8, ok);
   }
   const bool has_norm = a.k_norm != nullptr;
   if (tid < DH) kn_s[tid] = has_norm ? 1.f + a.k_norm[tid] : 1.f;
@@ -314,25 +338,42 @@ latent_decode_tc(Args a) {
       tc::cp_async16(z_s + i * ZS + c * 8, src, ok);
     }
   };
-  // int8 latents: 8 values through registers, stored as bf16 (exact)
+  // int8 latents: 8 values through registers, stored as bf16 (exact).
+  // cp.async cannot convert, so the loads are plain: each thread issues U
+  // = 8 of them before it stores any (U * THREADS * 8 = 16 KB in flight
+  // per block).  A load-then-store loop took K3 0.21-0.30 ms at
+  // chip_smoke.py's shape on an H100, U = 8 0.19 ms; U = 16 was no faster
+  // for K3 and ~13% slower for K6.
   auto load_i8 = [&](const void* ring, const void* self, int r, int rp) {
+    constexpr int U = 8;
     const int8_t* pool = static_cast<const int8_t*>(ring);
     const int8_t* selfp = static_cast<const int8_t*>(self);
-    const int nc = rp / 8, nr = r / 8;
-#pragma unroll 4
-    for (int e = tid; e < CH * nc; e += THREADS) {
-      const int i = e / nc, c = e - i * nc;
-      if (!live_s[i / TILE]) continue;
-      const int row = row_s[i];
-      uint2 raw = make_uint2(0u, 0u);
-      if (c < nr && row >= 0)
-        raw = __ldg(reinterpret_cast<const uint2*>(pool + (size_t(row) * G + g) * r + c * 8));
-      else if (c < nr && row == -2)
-        raw = __ldg(reinterpret_cast<const uint2*>(
-            selfp + ((size_t(b) * a.n_self + (t0 + i - S)) * G + g) * r + c * 8));
-      *reinterpret_cast<uint4*>(z_s + i * ZS + c * 8) =
-          make_uint4(i8x2_bf16(raw.x), i8x2_bf16(raw.x >> 16), i8x2_bf16(raw.y),
-                     i8x2_bf16(raw.y >> 16));
+    const int nc = rp / 8, nr = r / 8, n = CH * nc;
+    for (int e0 = tid; e0 < n; e0 += U * THREADS) {
+      uint2 raw[U];
+      int dst[U];   // the bf16 row chunk in z_s, or -1 (past the end, a dead tile)
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int e = e0 + u * THREADS, i = e / nc, c = e - i * nc;
+        raw[u] = make_uint2(0u, 0u);
+        dst[u] = -1;
+        if (e < n && live_s[i / TILE]) {
+          dst[u] = i * ZS + c * 8;
+          const int row = row_s[i];
+          if (c < nr && row >= 0)
+            raw[u] = __ldg(reinterpret_cast<const uint2*>(pool + (size_t(row) * G + g) * r +
+                                                          c * 8));
+          else if (c < nr && row == -2)
+            raw[u] = __ldg(reinterpret_cast<const uint2*>(
+                selfp + ((size_t(b) * a.n_self + (t0 + i - S)) * G + g) * r + c * 8));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (dst[u] >= 0)
+          *reinterpret_cast<uint4*>(z_s + dst[u]) =
+              make_uint4(i8x2_bf16(raw[u].x), i8x2_bf16(raw[u].x >> 16), i8x2_bf16(raw[u].y),
+                         i8x2_bf16(raw[u].y >> 16));
     }
   };
   const int rkp = rk_pad(rk);
@@ -340,8 +381,8 @@ latent_decode_tc(Args a) {
   tc::cp_async_commit();
 
   const int nkc = (rk + rc - 1) / rc;   // R_k stages per head slot
-  const int n_st = s * nkc;
-  const bf16* rkg = a.r_k + size_t(g) * rk * s * DH;
+  const int n_st = a.sps * nkc;         // the block's slots only
+  const bf16* rkg = a.r_k + size_t(g) * rk * s * DH + sb * a.sps * DH;
   auto load_r = [&](int st) {   // rows past r_k (to the next 16) zero-filled
     const int i = st / nkc, r0 = (st % nkc) * rc, rn = min(rc, rk - r0);
     bf16* dst = r_s + (st & 1) * rc * RS;
@@ -378,7 +419,7 @@ latent_decode_tc(Args a) {
   for (int st = 0; st < n_st; ++st) {
     tc::cp_async_wait<1>();
     __syncthreads();
-    const int slot = st / nkc, kc = st % nkc;
+    const int slot = st / nkc, kc = st % nkc;   // slot of the block
     const int r0 = kc * rc, rn = min(rc, rk - r0);
     const bf16* rs = r_s + (st & 1) * rc * RS;
     if (warp_live) {
@@ -405,14 +446,14 @@ latent_decode_tc(Args a) {
     }
     if (kc == nkc - 1) {
       // B fragments of Q^T for this slot: column n = nb * 8 + g4 = j * qpk
-      // + i of n8 tile nb is query row (j, slot * qpk + i); columns past
+      // + i of n8 tile nb is block row (j, slot * qpk + i); columns past
       // nq * qpk read any row and are dropped
       int qrow[NB];
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
         const int n = nb * 8 + g4;
         const int j = MQ ? n / qpk : 0;
-        qrow[nb] = n < nqk ? j * Hg + slot * qpk + (n - j * qpk) : min(slot * qpk + n, ROWS - 1);
+        qrow[nb] = n < nqk ? j * Hb + slot * qpk + (n - j * qpk) : min(slot * qpk + n, ROWS - 1);
       }
 #pragma unroll
       for (int u = 0; u < MTW; ++u) {
@@ -504,7 +545,7 @@ latent_decode_tc(Args a) {
             const int col = mt * 16 + g4 + 8 * (e >> 1);
             if (n < nqk) {
               const int j = MQ ? n / qpk : 0;
-              sc_s[(j * Hg + slot * qpk + (n - j * qpk)) * SCS + col] =
+              sc_s[(j * Hb + slot * qpk + (n - j * qpk)) * SCS + col] =
                   sacc[nb][e] * a.scale + bias_s[j * CH + col];
             }
           }
@@ -550,8 +591,8 @@ latent_decode_tc(Args a) {
     }
     lsum = warp_sum(lsum);
     if (lane == 0 && h < R) {
-      a.part_m[base * RT + row0 + h] = alive ? mx : NEG_INF;
-      a.part_l[base * RT + row0 + h] = lsum;
+      a.part_m[base + grow(h)] = alive ? mx : NEG_INF;
+      a.part_l[base + grow(h)] = lsum;
     }
   }
   tc::cp_async_wait<0>();
@@ -608,7 +649,7 @@ latent_decode_tc(Args a) {
         for (int hr = 0; hr < 2; ++hr) {
           const int h = mi * 16 + g4 + 8 * hr;
           if (h < R)
-            *reinterpret_cast<float2*>(a.part_acc + (base * RT + row0 + h) * rv + n * 8 +
+            *reinterpret_cast<float2*>(a.part_acc + (base + grow(h)) * rv + n * 8 +
                                        2 * t4) =
                 make_float2(o[mi][u][2 * hr], o[mi][u][2 * hr + 1]);
         }
@@ -643,9 +684,9 @@ latent_decode_tc_merge(Args a) {
 
 // A body's block plan: the widest chunk (CH), then the deepest R_k stage
 // (rc rank rows), whose block fits in shared memory; ch = 0 if none does.
-// K1 / K4 take (256, 128) up to r = 256 (the kernel relies on r_v <= 256
-// there), K6 (128, 128); larger ranks narrow the chunk, then the stage (r
-// up to 544 for K6 and 704 for K1 / K4 at dh = 128).
+// K1 / K3 / K4 take (256, 128) up to r = 256 (the kernel relies on r_v <=
+// 256 there), K6 (128, 128); larger ranks narrow the chunk, then the stage
+// (r up to 544 for K6, 696 for K3 and 704 for K1 / K4 at dh = 128).
 struct Plan {
   int ch, rc;
 };
@@ -665,10 +706,22 @@ Plan plan(int dh, int rk, int rv) {
          : dh == 128 ? plan_dh<128, QUANT, MQ>(rk, rv) : Plan{0, 0};
 }
 
-// Query sets per block: all of a slot's query rows (qg * qpk) must fit
-// the NB n8 tiles of the scoring product, and the rows (qg * Hg) the
-// ROWS of the block; grid z covers the nq query sets in blocks of qg.
-int query_sets_per_block(bool mq, int qpk) { return mq ? (16 / qpk < 4 ? 16 / qpk : 4) : 1; }
+// Query sets and head slots per block: all of a slot's query rows (qg *
+// qpk) must fit the NB n8 tiles of the scoring product, and the block's
+// rows (qg * sps * qpk) its ROWS (16, or 64 for the multi-query body).
+// sps is the largest divisor of s that fits, so every block has as many
+// rows.  Grid z covers the nq query sets in blocks of qg times the s head
+// slots in blocks of sps; at Hg <= 16 a block takes every slot (nsb = 1).
+template <bool MQ>
+void split_rows(Args& a) {
+  const int qpk = a.Hg / a.s;
+  a.qg = MQ ? (16 / qpk < 4 ? 16 / qpk : 4) : 1;
+  const int fit = Shape<128, MQ>::ROWS / (a.qg * qpk);
+  a.sps = a.s;
+  while (a.sps > fit || a.s % a.sps != 0) --a.sps;
+  a.nsb = a.s / a.sps;
+  a.hb = a.sps * qpk;
+}
 
 template <int DH, int CH, bool PAGED, bool QUANT, bool MQ>
 cudaError_t launch_ch(const Args& a, cudaStream_t stream) {
@@ -679,7 +732,7 @@ cudaError_t launch_ch(const Args& a, cudaStream_t stream) {
   if (err != cudaSuccess) return err;
   const int n_qg = (a.nq + a.qg - 1) / a.qg;
   latent_decode_tc<DH, CH, PAGED, QUANT, MQ>
-      <<<dim3(a.G * a.B, a.n_chunks, n_qg), THREADS, smem, stream>>>(a);
+      <<<dim3(a.G * a.B, a.n_chunks, n_qg * a.nsb), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_blocks = (a.nq * a.Hg * a.rv + THREADS - 1) / THREADS;
@@ -691,7 +744,7 @@ template <int DH, bool PAGED, bool QUANT, bool MQ>
 cudaError_t launch(Args a, cudaStream_t stream) {
   const Plan p = plan<QUANT, MQ>(DH, a.rk, a.rv);
   a.rc = p.rc;
-  a.qg = query_sets_per_block(MQ, a.Hg / a.s);
+  split_rows<MQ>(a);
   if constexpr (!MQ) {
     if (p.ch == 256) return launch_ch<DH, 256, PAGED, QUANT, MQ>(a, stream);
   }
@@ -700,11 +753,13 @@ cudaError_t launch(Args a, cudaStream_t stream) {
 
 // The shape limits of a body (the wrapper raises on the same ones first).
 template <bool QUANT, bool MQ>
-bool shapes_ok(const Args& a, int dh) {
-  if (a.Hg < 1 || a.Hg > 16 || a.s < 1 || a.Hg % a.s != 0) return false;
+bool shapes_ok(Args a, int dh) {
+  if (a.Hg < 1 || a.s < 1 || a.Hg % a.s != 0 || a.nq < 1) return false;
   const int qpk = a.Hg / a.s;
+  if (MQ ? qpk > 16 : (a.nq != 1 || qpk > 8)) return false;
+  split_rows<MQ>(a);
   const int ch = plan<QUANT, MQ>(dh, a.rk, a.rv).ch;
-  return ch > 0 && a.nq >= 1 && (MQ ? qpk <= 16 : a.nq == 1 && qpk <= 8) &&
+  return ch > 0 && (a.nq + a.qg - 1) / a.qg * a.nsb <= 65535 &&
          a.rk % 8 == 0 && a.rk >= 8 && a.rv % 8 == 0 && a.rv >= 8 && a.B >= 1 &&
          a.G >= 1 && a.S >= 0 && a.n_self >= 0 &&
          (a.bias_cols == a.S + a.n_self || (a.nq == 1 && a.bias_cols == a.S)) &&
@@ -722,16 +777,17 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
   return quant ? plan<true, false>(dh, rk, rv).ch : plan<false, false>(dh, rk, rv).ch;
 }
 
-// The three entry points take the argument list of latent_decode.cu's six
+// The four entry points take the argument list of latent_decode.cu's six
 // and return a cudaError_t (0 = success).  All tensors contiguous, on the
 // device of ``stream``; q, r_k and out bf16 (is_bf16 = 1); latents bf16
-// (K1, K4) or int8 (K6).  Null self latents mean no self column, null
+// (K1, K4) or int8 (K3, K6).  Null self latents mean no self column, null
 // k_norm no key norm.  Each checks that the operands match its body: a
 // page table (with page_size dividing S and a pool of n_pages pages) only
-// for K4, scales only for K6, one query for K1 / K4; and the shape limits
-// of shapes_ok (Hg <= 16; q_per_kv <= 8 for K1 / K4, <= 16 for K6 with any
-// nq; r_k and r_v multiples of 8 whose block fits; chunk_len =
-// recalkv_tc_chunk and n_chunks = ceil((S + n_self) / chunk_len)).
+// for K4, scales only for K3 / K6, one query for K1 / K3 / K4; and the
+// shape limits of shapes_ok (any Hg, q_per_kv <= 8 for K1 / K3 / K4, <= 16
+// for K6 with any nq; r_k and r_v multiples of 8 whose block fits;
+// chunk_len = recalkv_tc_chunk and n_chunks = ceil((S + n_self) /
+// chunk_len)).
 #define RECALKV_TC_ENTRY(NAME, PAGED, QUANT, MQ)                                         \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,           \
            const float* zk_scale, const float* zv_scale, const void* r_k,                \
@@ -746,7 +802,7 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
            static_cast<const bf16*>(r_k), cos, sin, bias, k_norm, zk_self, zv_self,       \
            zk_self_scale, zv_self_scale, cos_self, sin_self, ptab, part_acc, part_m,      \
            part_l, static_cast<bf16*>(out), B, S, G, Hg, rk, rv, s, nq, n_self,           \
-           bias_cols, n_chunks, page_size, n_pages, scale, eps, 1, 0};                    \
+           bias_cols, n_chunks, page_size, n_pages, scale, eps, 1, 1, 1, 1, 0};           \
     if (is_bf16 != 1 || chunk_len != plan<QUANT, MQ>(dh, rk, rv).ch ||                    \
         (ptab != nullptr) != (PAGED) || (zk_scale != nullptr) != (QUANT) ||               \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                    \
@@ -760,6 +816,7 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
   }
 
 RECALKV_TC_ENTRY(recalkv_latent_decode_tc, false, false, false)          // K1
+RECALKV_TC_ENTRY(recalkv_latent_decode_quant_tc, false, true, false)     // K3
 RECALKV_TC_ENTRY(recalkv_latent_decode_paged_tc, true, false, false)     // K4
 RECALKV_TC_ENTRY(recalkv_latent_decode_mq_quant_tc, false, true, true)   // K6
 

@@ -7,15 +7,17 @@ K5 ``latent_decode_attention_mq``, K4 ``latent_decode_attention_paged`` and
 K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  Which
 CUDA body serves which (kernel, dtype):
 
-  bf16  K1, K4 (and K6 of ``latent_decode_q``): the tensor-core body of
-        ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring columns per
+  bf16  K1, K4 (and K3, K6 of ``latent_decode_q``): the tensor-core body
+        of ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring columns per
         block up to rank 256 and 128 past it, R_k streamed per head slot
         through a cp.async ring, keys and P as bf16 hi + lo), one
         instantiation per row map: K1 reads ring row b * S + t, K4 the
         pool row through the page table, so K4 equals K1 on the
-        table-gathered ring bit for bit; K6 scores up to 4 query sets per
-        block and covers any nq with more blocks;
-  bf16  K5, K7 (and K3): the CUDA-core template of ``csrc/latent_decode.cu``;
+        table-gathered ring bit for bit; K3 is K1's over int8 latents; K6
+        scores up to 4 query sets per block and covers any nq with more
+        blocks; past 16 query rows per group (Hg > 16) each body splits
+        the group's head slots over more blocks;
+  bf16  K5, K7: the CUDA-core template of ``csrc/latent_decode.cu``;
   f32   all of them: the same template, the parity instantiations the 1e-4
         checks use (K4 and K7 in f32 equal K1 and K5 on the gathered ring
         bit for bit: same tiles, same order).
@@ -153,7 +155,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
 # eps), stream — one argument list for the six entry points of
-# csrc/latent_decode.cu and the three of csrc/latent_decode_tc.cu.
+# csrc/latent_decode.cu and the four of csrc/latent_decode_tc.cu.
 _ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
 ENTRY_POINTS = {  # entry point -> its library
@@ -164,14 +166,18 @@ ENTRY_POINTS = {  # entry point -> its library
     "recalkv_latent_decode_paged": "latent_decode",
     "recalkv_latent_decode_mq_paged": "latent_decode",
     "recalkv_latent_decode_tc": "latent_decode_tc",
+    "recalkv_latent_decode_quant_tc": "latent_decode_tc",
     "recalkv_latent_decode_paged_tc": "latent_decode_tc",
     "recalkv_latent_decode_mq_quant_tc": "latent_decode_tc",
 }
 # The limits of the bf16 tensor-core bodies (csrc/latent_decode_tc.cu::
 # shapes_ok): kind, q_per_kv at most, whether nq may exceed 1.  Besides,
-# Hg <= 16 and r_k, r_v multiples of 8 whose block fits in shared memory
-# (recalkv_tc_chunk > 0: ranks up to 544 for K6, 704 for K1 / K4 at dh 128).
+# r_k, r_v multiples of 8 whose block fits in shared memory
+# (recalkv_tc_chunk > 0: ranks up to 544 for K6, 696 for K3, 704 for K1 /
+# K4 at dh 128).  Any Hg: past 16 query rows a group's head slots split
+# over blocks.
 _TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 8, False),
+              "recalkv_latent_decode_quant_tc": ("int8 ring", 8, False),
               "recalkv_latent_decode_paged_tc": ("paged", 8, False),
               "recalkv_latent_decode_mq_quant_tc": ("int8 multi-query", 16, True)}
 
@@ -269,12 +275,12 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     if tc:
         _, max_qpk, multi = tc
         chunk_len = lib.recalkv_tc_chunk(int(multi), int(quant), dh, rk, rv)
-        if (Hg > 16 or (nq > 1 and not multi) or Hg // s > max_qpk or rk % 8
-                or rv % 8 or chunk_len == 0):
+        if ((nq > 1 and not multi) or Hg // s > max_qpk or rk % 8 or rv % 8
+                or chunk_len == 0):
             raise ValueError(f"unsupported shapes for the {name}: q "
                              f"{tuple(q.shape)}, nq {nq}, r_k {tuple(r_k.shape)}, "
-                             f"r_v {rv} (Hg <= 16, Hg / s <= {max_qpk}, r_k and "
-                             f"r_v multiples of 8 whose block fits in shared "
+                             f"r_v {rv} (Hg / s <= {max_qpk}, r_k and r_v "
+                             f"multiples of 8 whose block fits in shared "
                              f"memory)")
     else:
         smem = lib.recalkv_latent_decode_smem(int(dt == torch.bfloat16), int(quant),

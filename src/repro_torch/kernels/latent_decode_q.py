@@ -10,12 +10,13 @@ multiplies each rebuilt key row, the value scale the softmax weight of its
 column.  A ring token then costs r_k + r_v + 8 bytes per group instead of
 2 (r_k + r_v) at bf16.
 
-K6 with bf16 q and r_k runs the tensor-core body of
+K3 and K6 with bf16 q and r_k run the tensor-core body of
 ``csrc/latent_decode_tc.cu`` (the int8 latents converted to bf16 on their
-way into shared memory, which is exact; up to 4 query sets per head slot,
-128 ring columns per block).  K3 in both types, and K6 with float32 q and
-r_k (its parity instantiation), run the CUDA-core template of
-``csrc/latent_decode.cu``.
+way into shared memory, which is exact): K3 is K1's instantiation with
+int8 latents (one query, 256 ring columns per block up to rank 256), K6
+scores up to 4 query sets per head slot in 128-column blocks.  With
+float32 q and r_k both run their parity instantiations on the CUDA-core
+template of ``csrc/latent_decode.cu``.
 
 The deferred-write tokens are operands, as for K1 and K5, in the ring's
 own int8 layout: K3 takes ``self_zk_q`` (B, G, r_k) int8 with
@@ -71,16 +72,19 @@ def latent_decode_attention_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
                                   self_zv_q=None, self_zv_s=None,
                                   self_cos=None, self_sin=None):
     """K3.  A CPU tensor runs the plain version; a CUDA tensor runs the
-    CUDA kernel or raises.  ``.launches`` counts kernel launches."""
+    CUDA kernel or raises: bf16 q the tensor-core body, float32 q the
+    template.  ``.launches`` counts kernel launches."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps,
               self_zk_q=self_zk_q, self_zk_s=self_zk_s, self_zv_q=self_zv_q,
               self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("int8 latent decode", q):
         return latent_decode_attention_quant_plain(
             q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, **kw)
-    out = launch("recalkv_latent_decode_quant", q, zk_q, zv_q, r_k, cos, sin,
-                 bias, scale, k_norm, norm_eps, self_zk_q, self_zv_q, self_cos,
-                 self_sin, scales=(zk_s, zv_s, self_zk_s, self_zv_s))
+    entry = ("recalkv_latent_decode_quant_tc" if q.dtype == torch.bfloat16
+             else "recalkv_latent_decode_quant")
+    out = launch(entry, q, zk_q, zv_q, r_k, cos, sin, bias, scale, k_norm,
+                 norm_eps, self_zk_q, self_zv_q, self_cos, self_sin,
+                 scales=(zk_s, zv_s, self_zk_s, self_zv_s))
     latent_decode_attention_quant.launches += 1
     return out
 

@@ -59,6 +59,8 @@ K1_CASES = {
     "groups2_knorm": (dict(G=2, s=2, qpk=2), True),
     "groups2_plain": (dict(G=2, s=2, qpk=2), False),
     "groups1_s4": (dict(G=1, s=4, qpk=1, rk=16, rv=8), True),
+    # group_size 8: one group of 8 slots, 32 query rows (past one block)
+    "groups1_s8": (dict(G=1, s=8, qpk=4, rk=24, rv=16), True),
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
 }
 
@@ -147,6 +149,8 @@ K2_CASES = {
     "latent_values_tail": (13, 8, 4, 2, 16, 24, None),
     "latent_values_window": (21, 8, 4, 1, 16, 8, 5),
     "dense_gqa": (16, 4, 2, 2, 8, 8, None),
+    # r_v = 152 in one value group (group_size 8 at keep ratio 0.3)
+    "latent_values_152": (13, 8, 2, 1, 16, 152, None),
 }
 
 

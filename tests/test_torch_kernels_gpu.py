@@ -10,7 +10,9 @@ Tolerances: max |kernel - plain| <= 1e-4 in float32 (TF32 off; the
 summation order differs) and <= 2e-2 in bf16 (one bf16 rounding of
 outputs of order 1); the bf16 tensor-core bodies of K2 and K4 are also held
 to chip_smoke.py's per-element limit 2e-2 |plain| + 1e-2 rms(plain) at the
-main path's widths, and so is K6's (int8 latents).  K3 / K6 compare with
+main path's widths, and so are K3's and K6's (int8 latents), K2 at other
+value widths and every decode body at 32 query rows per group (group_size
+8).  K3 / K6 compare with
 their plain versions on the same int8 latents and scales.  K7 (the paged
 pool) and K4 must also equal K5 / K1 on the table-gathered ring bit for
 bit, in both types: they run the same tiles in the same order on the same
@@ -165,6 +167,31 @@ def test_k2_bf16_single_key_rows_are_exact(cuda, dh, dv):
     assert torch.equal(got, v.repeat_interleave(4, dim=2))
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dv", [128, 152, 384, 512])
+def test_k2_serves_any_value_width(cuda, dtype, dv):
+    """K2 at value widths of other ranks (r_v = 152 at keep ratio 0.3, 384,
+    512 at group_size 8; 128 for the dense cache): one 128-column slice,
+    one 256-column slice whose last 104 columns are zero-filled, and two
+    256-column slices along the grid; T ragged, causal with and without a
+    window, one value group (G = 1).  float32 within 1e-4, bf16 within
+    chip_smoke.py's limit; one launch per call."""
+    g = torch.Generator(device=cuda).manual_seed(dv)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)
+    q, k, v = rn(2, 300, 8, 128), rn(2, 300, 2, 128), rn(2, 300, 1, dv)
+    for win in (None, 100):
+        n = K2.flash_prefill_attention.launches
+        got = K2.flash_prefill_attention(q, k, v, window=win)
+        torch.cuda.synchronize()
+        assert K2.flash_prefill_attention.launches == n + 1
+        want = K2.flash_prefill_attention_plain(q, k, v, window=win)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=TOL[dtype], rtol=TOL[dtype])
+        else:
+            _within_bf16_limit(got, want)
+
+
 def _quant(x):
     """int8 latents and (..., G) scales of a (..., G, r) tensor."""
     q, sc = quantize(x, 8)
@@ -224,6 +251,38 @@ def test_k3_cuda_kernel_matches_plain(cuda, dtype, dh):
                      dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw), dtype,
                      KQ.latent_decode_attention_quant)
         if not kw:
+            assert (got[2] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [64, 128])
+def test_k3_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
+    """bf16 K3 (K1's tensor-core body over int8 latents) at the main path's
+    group width (Hg 16, s 4, r_k = r_v = 256) on a ragged int8 ring of two
+    256-column chunks: row 1 is live below position 40 only (null tiles
+    and a dead chunk), row 2 is masked everywhere and ends as exact 0
+    without its self column, or with it (its only live column) as that
+    column's dequantized value latent to one bf16 step (the value scale
+    enters as bf16 hi + lo); within the bf16 limit of the plain version,
+    one launch per call."""
+    a = _ring(cuda, 210 + dh, S=300, qpk=4, dh=dh, rk=256, rv=256)
+    zk_q, zk_s = _quant(a["zk"])
+    zv_q, zv_s = _quant(a["zv"])
+    sk_q, sk_s = _quant(a["self_zk"][:, 0])
+    sv_q, sv_s = _quant(a["self_zv"][:, 0])
+    bf = torch.bfloat16
+    args = (a["q"].to(bf), zk_q, zk_s, zv_q, zv_s, a["r_k"].to(bf), a["cos"], a["sin"],
+            a["bias"][:, 0, :-1].contiguous())
+    selfs = dict(self_zk_q=sk_q, self_zk_s=sk_s, self_zv_q=sv_q, self_zv_s=sv_s,
+                 self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    for kw in ({}, selfs):
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], **kw)
+        got = _check_bf16(KQ.latent_decode_attention_quant,
+                          KQ.latent_decode_attention_quant_plain, args, kw)
+        if "self_zk_q" in kw:
+            want = (sv_q[2].float() * sv_s[2][:, None])[:, None].expand(got[2].shape)
+            torch.testing.assert_close(got[2].float(), want, atol=0, rtol=2 ** -7)
+        else:
             assert (got[2] == 0).all()
 
 
@@ -399,16 +458,8 @@ def test_k1_bf16_equals_k4_on_shuffled_pool(cuda, dh, ps, rk, rv):
     S = 40 * ps
     a = _ring(cuda, 150 + dh + rk, S=S, dh=dh, rk=rk, rv=rv)
     bf = torch.bfloat16
-    B, n_sp = a["zk"].shape[0], S // ps
-    g = torch.Generator().manual_seed(dh)
-    ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
-    ptab = ptab.to(device=cuda, dtype=torch.int32)
     q, r_k, zk, zv = (a[k].to(bf) for k in ("q", "r_k", "zk", "zv"))
-    pools = []
-    for z in (zk, zv):
-        pool = torch.zeros((B * n_sp + 1, ps) + tuple(z.shape[2:]), device=cuda, dtype=bf)
-        pool[ptab.reshape(-1).long()] = z.reshape((B * n_sp, ps) + tuple(z.shape[2:]))
-        pools.append(pool)
+    ptab, *pools = _shuffled_pool(zk, zv, ps, dh)
     bias = a["bias"][:, 0, :S].contiguous()
     selfs = dict(self_zk=a["self_zk"][:, 0].to(bf), self_zv=a["self_zv"][:, 0].to(bf),
                  self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
@@ -422,6 +473,23 @@ def test_k1_bf16_equals_k4_on_shuffled_pool(cuda, dh, ps, rk, rv):
         assert torch.equal(ring, paged)
         if "self_zk" not in kw:
             assert (ring[2] == 0).all()
+
+
+def _shuffled_pool(zk, zv, ps, seed):
+    """Every page of the rings ``zk``, ``zv`` (B, S, G, r) at a shuffled
+    physical page of a pool (page 0 unused): (ptab, zk pool, zv pool)."""
+    B, S = zk.shape[:2]
+    n_sp = S // ps
+    g = torch.Generator().manual_seed(seed)
+    ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
+    ptab = ptab.to(device=zk.device, dtype=torch.int32)
+    pools = []
+    for z in (zk, zv):
+        pool = torch.zeros((B * n_sp + 1, ps) + tuple(z.shape[2:]), device=z.device,
+                           dtype=z.dtype)
+        pool[ptab.reshape(-1).long()] = z.reshape((B * n_sp, ps) + tuple(z.shape[2:]))
+        pools.append(pool)
+    return ptab, *pools
 
 
 def _check_bf16(kernel, plain, args, kw):
@@ -516,6 +584,81 @@ def test_engine_int8_ring_serves_spec_depth_4(cuda):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("r", [256, 512])
+def test_bf16_bodies_serve_32_query_rows_per_group(cuda, r):
+    """group_size 8: G = 1 group of s = 8 head slots with q_per_kv 4, so
+    Hg = 32 query rows per group, past a block's 16 (64 for K6): the head
+    slots split over blocks along grid z.  bf16 K1, K3 and K4 (one query,
+    self column) and K6 (nq 4 verify queries) on a ragged ring of 320
+    tokens (rank 512 takes 128-column chunks) within the bf16 limit of
+    their plain versions; K4 on a shuffled pool equals K1 bit for bit; the
+    dead row 2 is exact 0."""
+    S, ps, dh = 320, 16, 128
+    bf = torch.bfloat16
+    for nq in (1, 4):
+        a = _ring(cuda, 230 + r + nq, S=S, G=1, s=8, qpk=4, dh=dh, rk=r, rv=r, nq=nq)
+        q, r_k, zk, zv = (a[k].to(bf) for k in ("q", "r_k", "zk", "zv"))
+        q8 = {k: _quant(a[k]) for k in ("zk", "zv", "self_zk", "self_zv")}
+        base = dict(scale=dh ** -0.5, k_norm=a["k_norm"])
+        if nq == 4:
+            args = (q, *q8["zk"], *q8["zv"], r_k, a["cos"], a["sin"], a["bias"])
+            kw = dict(base, self_zk_q=q8["self_zk"][0], self_zk_s=q8["self_zk"][1],
+                      self_zv_q=q8["self_zv"][0], self_zv_s=q8["self_zv"][1],
+                      self_cos=a["self_cos"], self_sin=a["self_sin"])
+            got = _check_bf16(KQ.latent_decode_attention_mq_quant,
+                              KQ.latent_decode_attention_mq_quant_plain, args, kw)
+            assert (got[2] == 0).all()
+            continue
+        bias = a["bias"][:, 0, :S].contiguous()
+        tables = (a["cos"], a["sin"], bias)
+        sel = lambda k: a[k][:, 0]
+        kw = dict(base, self_zk=sel("self_zk").to(bf), self_zv=sel("self_zv").to(bf),
+                  self_cos=sel("self_cos"), self_sin=sel("self_sin"))
+        ring = _check_bf16(K1.latent_decode_attention, K1.latent_decode_attention_plain,
+                           (q, zk, zv, r_k, *tables), kw)
+        ptab, pzk, pzv = _shuffled_pool(zk, zv, ps, r)
+        paged = _check_bf16(K1.latent_decode_attention_paged,
+                            K1.latent_decode_attention_paged_plain,
+                            (ptab, q, pzk, pzv, r_k, *tables), kw)
+        assert torch.equal(ring, paged)
+        dead = K1.latent_decode_attention(q, zk, zv, r_k, *tables, **base)
+        torch.cuda.synchronize()
+        assert (dead[2] == 0).all()
+        kw3 = dict(base, self_zk_q=q8["self_zk"][0][:, 0], self_zk_s=q8["self_zk"][1][:, 0],
+                   self_zv_q=q8["self_zv"][0][:, 0], self_zv_s=q8["self_zv"][1][:, 0],
+                   self_cos=sel("self_cos"), self_sin=sel("self_sin"))
+        _check_bf16(KQ.latent_decode_attention_quant, KQ.latent_decode_attention_quant_plain,
+                    (q, *q8["zk"], *q8["zv"], r_k, *tables), kw3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits", [None, 8])
+def test_engine_bf16_serves_group_size_8(cuda, bits):
+    """A bf16 Engine at group_size 8 (8 kv heads in one latent group of 32
+    query heads, rank 152) on the float and the int8 ring serves every
+    request on the card through the kernels: K2 at dv = 152 in prefill,
+    K1 or K3 at Hg = 32 in decode."""
+    cfg = dataclasses.replace(
+        get_config("qwen3-4b", smoke=True), num_heads=32, num_kv_heads=8, d_head=64,
+        dtype=torch.bfloat16, attn_backend="kernel", cache_quant_bits=bits,
+        recalkv=ReCalKVRuntime(rank_k=152, rank_v=152, group_size=8))
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    eng = Engine(cfg, params, max_slots=2, max_len=96, device=cuda)
+    g = torch.Generator().manual_seed(2)
+    for uid, n in enumerate((9, 30, 17)):
+        eng.submit(Request(uid=uid, prompt=torch.randint(0, cfg.vocab_size, (n,),
+                                                         generator=g).numpy(),
+                           max_new_tokens=12))
+    decode = KQ.latent_decode_attention_quant if bits else K1.latent_decode_attention
+    n_dec, n_pre = decode.launches, K2.flash_prefill_attention.launches
+    done = eng.run()
+    assert sorted(r.uid for r in done) == [0, 1, 2]
+    assert all(len(r.out_tokens) == 12 for r in done)
+    assert all(0 <= t < cfg.vocab_size for r in done for t in r.out_tokens)
+    assert decode.launches > n_dec and K2.flash_prefill_attention.launches > n_pre
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
 def test_k7_cuda_kernel_matches_plain_and_k5_on_view(cuda, dtype, dh, ps):
@@ -571,18 +714,21 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         K1.latent_decode_attention_paged(
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
             tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
-    # the bf16 tensor-core bodies hold at most 16 query rows of a group and
-    # 8 per head slot (16 for K6), r_k and r_v multiples of 8 whose block
-    # fits in shared memory
+    # the bf16 tensor-core bodies hold at most 8 query rows per head slot
+    # (16 for K6), r_k and r_v multiples of 8 whose block fits in shared
+    # memory (any number of query rows per group: past 16 the head slots
+    # split over blocks)
     bf = torch.bfloat16
     rk_bf = torch.randn(2, 256, 512, device=cuda).to(bf)
     with pytest.raises(ValueError, match="bf16 paged kernel"):
         K1.latent_decode_attention_paged(
-            tab2, qm[:, :, :32].to(bf), pm.to(bf), pm.to(bf), rk_bf, tm, tm,
+            tab2, qm[:, :, :16].to(bf), pm.to(bf), pm.to(bf), rk_bf[..., :128], tm, tm,
             torch.zeros(1, 8, device=cuda), scale=1.0)
+    z712 = torch.zeros(1, 8, 2, 712, device=cuda, dtype=bf)
     with pytest.raises(ValueError, match="bf16 ring kernel"):
-        K1.latent_decode_attention(qm[:, :, :32].to(bf), zm.to(bf), zm.to(bf), rk_bf,
-                                   tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
+        K1.latent_decode_attention(qm[:, :, :16].to(bf), z712, z712,
+                                   torch.randn(2, 712, 512, device=cuda).to(bf), tm, tm,
+                                   torch.zeros(1, 8, device=cuda), scale=1.0)
     with pytest.raises(ValueError, match="bf16 ring kernel"):
         K1.latent_decode_attention(q.to(bf), z.to(bf), z.to(bf),
                                    torch.randn(1, 8, 192, device=cuda).to(bf), tab, tab,

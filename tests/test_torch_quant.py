@@ -108,6 +108,7 @@ ORDER = ("q", "zk_q", "zk_s", "zv_q", "zv_s", "r_k", "cos", "sin", "bias")
 K3_CASES = {
     "groups2_knorm": (dict(G=2, s=2, qpk=2), True),
     "groups1_s4": (dict(G=1, s=4, qpk=1, rk=16, rv=8), True),
+    "groups1_s8": (dict(G=1, s=8, qpk=4, rk=24, rv=16), True),
     "groups2_plain": (dict(G=2, s=2, qpk=2), False),
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
 }

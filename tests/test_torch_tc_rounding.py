@@ -1,6 +1,6 @@
 """The precision budget of the bf16 tensor-core kernels, on the CPU.
 
-K2 (``csrc/flash_prefill.cu``) and K1, K4 and K6 (``csrc/latent_decode_tc.cu``)
+K2 (``csrc/flash_prefill.cu``) and K1, K3, K4 and K6 (``csrc/latent_decode_tc.cu``)
 multiply bf16 operands on tensor cores with f32 accumulation.  This file
 emulates, in plain torch, the points where their bf16 bodies round, and
 holds each emulation to ``chip_smoke.py``'s bf16 limit of the f32 plain
@@ -9,7 +9,9 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
 * K2: S = Q K^T from bf16 operands in f32; an online softmax over 64-key
   tiles in f32; P enters P V as hi = bf16(P) plus lo = bf16(P - hi).  The
   kernel's exponent base may lag the running max by up to 2^8, which scales
-  P and l alike and moves no rounding point.
+  P and l alike and moves no rounding point.  A value width dv off the
+  instantiated 64 / 128 / 256 runs in column slices with V zero-padded
+  (``k2_sliced``).
 * K4: keys rebuilt from bf16 latents and R_k in f32, normed and rotated in
   f32, then split into bf16 hi + lo for the scores; one softmax per
   256-column chunk with P split into bf16 hi + lo for P zv; chunks merged
@@ -19,8 +21,10 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
   scale on each rebuilt row before k-norm, P times the value scale split
   into bf16 hi + lo, nq queries each with its own bias row over the ring
   and the nq self columns, 128-column chunks.
+* K3: K1's body over int8 latents (K6's conversion and scales), one query
+  with its self column at bias 0, 256-column chunks up to rank 256.
 
-One bf16 rounding of P (K2), or of the keys and P (K4, K6), is what a plain
+One bf16 rounding of P (K2), or of the keys and P (K3, K4, K6), is what a plain
 bf16 tensor-core design would do; ``test_one_bf16_rounding_is_measured``
 records its error beside the split's.
 
@@ -36,6 +40,7 @@ import pytest
 import torch
 
 from repro.kernels.latent_decode_q import latent_decode_attention_mq_quant as jax_k6
+from repro.kernels.latent_decode_q import latent_decode_attention_quant as jax_k3
 from repro_torch.kernels import flash_prefill as K2
 from repro_torch.kernels import latent_decode as K1
 from repro_torch.kernels import latent_decode_q as KQ
@@ -97,6 +102,20 @@ def k2_emulated(q, k, v, *, window=None, rounding="split", bk=64):
         m = torch.where(live, m_new, m)
     o = o / torch.clamp(l, min=1e-30)[..., None]
     return o.permute(0, 2, 1, 3)
+
+
+def k2_sliced(q, k, v, **kw):
+    """K2's bf16 body at any value width: the block's slice is the
+    narrowest of 64 / 128 / 256 columns that holds dv, and past 256 the
+    head's dv splits into slices of 256; V is zero-padded to whole slices,
+    each slice runs ``k2_emulated`` (recomputing the scores) and the
+    padding columns are dropped."""
+    dv = v.shape[-1]
+    w = 64 if dv <= 64 else 128 if dv <= 128 else 256
+    n_sl = -(-dv // w)
+    vp = torch.nn.functional.pad(v, (0, n_sl * w - dv))
+    return torch.cat([k2_emulated(q, k, vp[..., i * w:(i + 1) * w], **kw)
+                      for i in range(n_sl)], dim=-1)[..., :dv]
 
 
 def tc_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, ks=None, vs=None,
@@ -183,6 +202,25 @@ def k6_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
                        rounding=rounding, chunk=chunk)
 
 
+def k3_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
+                self_zk_q=None, self_zk_s=None, self_zv_q=None, self_zv_s=None,
+                self_cos=None, self_sin=None, eps=1e-6, rounding="split", chunk=256):
+    """K3's bf16 body: ``tc_emulated`` with int8 ring latents (B,S,G,r),
+    their f32 scales (B,S,G), one query with bias (B,S) and an optional
+    self column ((B,G,r) int8, (B,G) scales) at bias 0.  Returns
+    (B,G,Hg,rv) f32 before the output rounding."""
+    ks, vs = zk_s, zv_s
+    if self_zk_q is not None:
+        cat = lambda a, b: torch.cat([a, b[:, None]], dim=1)
+        zk_q, zv_q = cat(zk_q, self_zk_q), cat(zv_q, self_zv_q)
+        ks, vs = cat(ks, self_zk_s), cat(vs, self_zv_s)
+        cos, sin = cat(cos, self_cos), cat(sin, self_sin)
+        bias = torch.cat([bias, torch.zeros(bias.shape[0], 1)], dim=1)
+    return tc_emulated(q, zk_q.float(), zv_q.float(), r_k, cos, sin, bias[:, None],
+                       k_norm=k_norm, ks=ks, vs=vs, eps=eps, rounding=rounding,
+                       chunk=chunk)
+
+
 K2_CASES = {
     # name: (B, T, H, Hkv, Hv, dh, dv, window)
     "narrow_window": (2, 150, 4, 2, 2, 64, 64, 37),
@@ -191,8 +229,8 @@ K2_CASES = {
 }
 
 
-def _k2_inputs(case):
-    B, T, H, Hkv, Hv, dh, dv, win = K2_CASES[case]
+def _k2_inputs(case, cases=K2_CASES):
+    B, T, H, Hkv, Hv, dh, dv, win = cases[case]
     rng = np.random.default_rng(sum(map(ord, case)))
     mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
     q, k, v = (_bf16(mk(B, T, n, d)) for n, d in ((H, dh), (Hkv, dh), (Hv, dv)))
@@ -215,6 +253,27 @@ def test_k2_tensor_core_rounding_within_bf16_limit(case):
     got = k2_emulated(q, k, v, window=win).to(torch.bfloat16)
     want = K2.flash_prefill_attention_plain(q, k, v, window=win).to(torch.bfloat16)
     assert _worst(got, want) <= 1
+
+
+K2_SLICE_CASES = {
+    # name: (B, T, H, Hkv, Hv, dh, dv, window); r_v of keep ratio 0.3 (one
+    # 256-column slice, 104 columns zero) and of group_size 8 (two slices)
+    "dv_152": (1, 200, 4, 2, 1, 128, 152, None),
+    "dv_512": (1, 200, 4, 2, 1, 128, 512, 70),
+}
+
+
+@pytest.mark.parametrize("case", sorted(K2_SLICE_CASES))
+def test_k2_value_slices_equal_plain(case):
+    """K2 at a value width no instantiation has: its column slices with V
+    zero-padded equal the plain version to the f32 limit without rounding,
+    and stay within the bf16 limit with the kernel's rounding points."""
+    q, k, v, win = _k2_inputs(case, K2_SLICE_CASES)
+    want = K2.flash_prefill_attention_plain(q, k, v, window=win)
+    torch.testing.assert_close(k2_sliced(q, k, v, window=win, rounding=None), want,
+                               atol=F32_TOL, rtol=F32_TOL)
+    got = k2_sliced(q, k, v, window=win).to(torch.bfloat16)
+    assert _worst(got, want.to(torch.bfloat16)) <= 1
 
 
 K4_CASES = {
@@ -393,6 +452,89 @@ def test_k6_tensor_core_rounding_within_bf16_limit(case):
     assert (got[-1] == 0).all()
 
 
+K3_CASES = {
+    # name: (B, S, G, Hg, s, dh, r_k, r_v, tokens per row (None: masked
+    #        row), the kernel's chunk at these widths)
+    "narrow": (3, 300, 2, 8, 4, 64, 32, 48, (300, 40, None), 256),
+    "main_widths": (3, 1024, 2, 16, 4, 128, 256, 256, (1024, 614, None), 256),
+    # group_size 8: one group of 32 query rows, rank 512
+    "group8_rank_512": (2, 512, 1, 32, 8, 128, 512, 512, (512, None), 128),
+}
+
+
+def _k3_inputs(case):
+    """An int8 ring like chip_smoke.py's K3 operands, ragged as in
+    ``_k4_inputs``; int8 latents and f32 scales straight from numpy, bf16
+    q and r_k; the self column at position ``lens[b]`` (the row's length,
+    S for a masked row)."""
+    B, S, G, Hg, s, dh, rk, rv, lens, _ = K3_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 3)
+    mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+    i8 = lambda *sh: torch.from_numpy(rng.integers(-127, 128, sh, dtype=np.int8))
+    sc = lambda *sh: torch.from_numpy(rng.uniform(0.005, 0.02, sh).astype(np.float32))
+    pos = torch.arange(S).repeat(B, 1)
+    for b, n in enumerate(lens):
+        pos[b, n or 0:] = -1
+    cur = torch.tensor([n or S for n in lens])
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    bias = ops.decode_bias(pos, cur, None)
+    self_cos, self_sin = ops.rope_tables_for(cur, dh, 1e6)
+    ring = dict(q=_bf16(mk(B, G, Hg, dh)), zk_q=i8(B, S, G, rk), zk_s=sc(B, S, G),
+                zv_q=i8(B, S, G, rv), zv_s=sc(B, S, G),
+                r_k=_bf16(mk(G, rk, s * dh) * rk ** -0.5), cos=cos, sin=sin, bias=bias)
+    selfs = dict(self_zk_q=i8(B, G, rk), self_zk_s=sc(B, G), self_zv_q=i8(B, G, rv),
+                 self_zv_s=sc(B, G), self_cos=self_cos, self_sin=self_sin)
+    return ring, selfs, 0.1 * mk(dh)
+
+
+def _k3_call(fn, ring, selfs, kn, **kw):
+    order = ("q", "zk_q", "zk_s", "zv_q", "zv_s", "r_k", "cos", "sin", "bias")
+    return fn(*[ring[k] for k in order], k_norm=kn, **selfs, **kw)
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_emulation_without_rounding_equals_plain(case):
+    ring, selfs, kn = _k3_inputs(case)
+    got = _k3_call(k3_emulated, ring, selfs, kn, rounding=None, chunk=K3_CASES[case][-1])
+    want = _k3_call(KQ.latent_decode_attention_quant_plain, ring, selfs, kn,
+                    scale=ring["q"].shape[-1] ** -0.5)
+    torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_k3_emulation_without_rounding_equals_pallas_interpret():
+    """The narrow case against the JAX Pallas kernel in interpret mode,
+    which takes the self column appended to the ring at bias 0 (two
+    256-column chunks here, 64-column blocks there)."""
+    ring, selfs, kn = _k3_inputs("narrow")
+    got = _k3_call(k3_emulated, ring, selfs, kn, rounding=None)
+    cat = lambda a, b: np.concatenate([a.numpy(), b.numpy()[:, None]], axis=1)
+    app = {k: cat(ring[k], selfs["self_" + k]) for k in ("zk_q", "zk_s", "zv_q", "zv_s",
+                                                         "cos", "sin")}
+    app["bias"] = cat(ring["bias"], torch.zeros(ring["bias"].shape[0]))
+    j = jnp.asarray
+    want = jax_k3(j(ring["q"].numpy()), j(app["zk_q"]), j(app["zk_s"]), j(app["zv_q"]),
+                  j(app["zv_s"]), j(ring["r_k"].numpy()), j(app["cos"]), j(app["sin"]),
+                  j(app["bias"]), scale=ring["q"].shape[-1] ** -0.5, block_s=64,
+                  interpret=True, k_norm=j(kn.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(K3_CASES))
+def test_k3_tensor_core_rounding_within_bf16_limit(case):
+    """K3's rounding points (K1's, with the key scale on each rebuilt row
+    and the value scale on P before the hi / lo split) keep the bf16 output
+    within chip_smoke.py's limit of the f32 plain version; the masked row
+    stays exact 0 without its self column."""
+    ring, selfs, kn = _k3_inputs(case)
+    chunk = K3_CASES[case][-1]
+    got = _k3_call(k3_emulated, ring, selfs, kn, chunk=chunk).to(torch.bfloat16)
+    want = _k3_call(KQ.latent_decode_attention_quant_plain, ring, selfs, kn,
+                    scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+    assert _worst(got, want) <= 1
+    dead = _k3_call(k3_emulated, ring, {}, kn, chunk=chunk)
+    assert (dead[-1] == 0).all()
+
+
 def _budgets():
     """{(kernel, case): {rounding: worst err / limit}} for every case."""
     out = {}
@@ -409,6 +551,13 @@ def _budgets():
         out["K4", case] = {r: _worst(k4_emulated(*args, **kw, rounding=r,
                                                  chunk=K4_CASES[case][-1])
                                      .to(torch.bfloat16), want) for r in ("split", "one")}
+    for case in sorted(K3_CASES):
+        ring, selfs, kn = _k3_inputs(case)
+        want = _k3_call(KQ.latent_decode_attention_quant_plain, ring, selfs, kn,
+                        scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+        out["K3", case] = {r: _worst(_k3_call(k3_emulated, ring, selfs, kn, rounding=r,
+                                              chunk=K3_CASES[case][-1])
+                                     .to(torch.bfloat16), want) for r in ("split", "one")}
     for case in sorted(K6_CASES):
         ring, selfs, kn, _ = _k6_inputs(case)
         want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
@@ -420,7 +569,7 @@ def _budgets():
 
 def test_one_bf16_rounding_is_measured():
     """The split's reason, measured: one bf16 rounding of P (K2), or of the
-    keys and P (K4, K6), errs more than the split in every case, and at
+    keys and P (K3, K4, K6), errs more than the split in every case, and at
     K2's main widths by more than twice."""
     b = _budgets()
     assert all(v["split"] < v["one"] for v in b.values())
@@ -429,7 +578,7 @@ def test_one_bf16_rounding_is_measured():
 
 if __name__ == "__main__":
     # python tests/test_torch_tc_rounding.py [--ring]: the budgets as a
-    # table; --ring adds K4 and K6 on ragged rings of chip_smoke.py's widths
+    # table; --ring adds K3, K4 and K6 on ragged rings of chip_smoke.py's widths
     # (4 rows of 1500-4096 tokens in S = 4096).
     import sys
     if "--ring" in sys.argv:
@@ -437,6 +586,8 @@ if __name__ == "__main__":
                                  256)
         K6_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 4, 128, 256, 256,
                                  (1500, 4096, 2500, 3300))
+        K3_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 128, 256, 256,
+                                 (1500, 4096, 2500, 3300), 256)
     for (kern, case), v in sorted(_budgets().items()):
         print(f"{kern} {case:20s} worst err / limit: split {v['split']:.3f}, "
               f"one bf16 rounding {v['one']:.3f}")
