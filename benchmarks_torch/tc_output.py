@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Output and time of a bf16 kernel (K1, K2, K3, K4 or K6), to hold two
-versions of it to the same bits and time them in one call.
+"""Output and time of a bf16 kernel (K1-K7), to hold two versions of it to
+the same bits and time them in one call.
 
     python3 benchmarks_torch/tc_output.py --kernel k4 --src DIR --out FILE [--no-self]
     python3 benchmarks_torch/tc_output.py --compare FILE_A FILE_B
@@ -19,6 +19,10 @@ prints the kernel's time (CUDA events, mean of 50 launches after 5):
       int8 latents with f32 scales;
   k6  ``latent_decode_attention_mq_quant``: k1's ring as int8 latents with
       f32 scales, nq=4 verify queries and their 4 self columns;
+  k5  ``latent_decode_attention_mq``: k1's ring (bf16 latents), nq=4 verify
+      queries and their 4 self columns;
+  k7  ``latent_decode_attention_mq_paged``: k4's pool, nq=4 verify queries
+      and their 4 self columns;
   k2  ``flash_prefill_attention``: B=8, T=2048, H=32, Hkv=8, latent values
       Hv=2, dv=256, causal.
 
@@ -57,7 +61,8 @@ def operands(kernel: str, torch):
         return (rn(B, 2048, 32, DH), rn(B, 2048, 8, DH), rn(B, 2048, G, R)), {}
     r_k = rn(G, R, SLOTS * DH) * R ** -0.5
     kw = dict(scale=DH ** -0.5, k_norm=0.1 * rn(DH))
-    if kernel == "k4":
+    if kernel in ("k4", "k7"):
+        nq = NQ if kernel == "k7" else 1
         n_sp = S // PAGE
         lens = torch.randint(1024, S + 1, (B,), generator=g)
         used = (lens + PAGE - 1) // PAGE
@@ -70,13 +75,17 @@ def operands(kernel: str, torch):
         t = torch.arange(S)
         pos = torch.where(t[None] < lens[:, None], t[None], -1)
         cos, sin = _rope(pos, torch)
-        self_cos, self_sin = _rope(lens, torch)
         bias = torch.where(pos >= 0, 0.0, -1e30)
-        kw.update(self_zk=rn(B, G, R), self_zv=rn(B, G, R), self_cos=self_cos,
-                  self_sin=self_sin)
-        return (ptab, rn(B, G, HG, DH), rn(n_pages, PAGE, G, R),
+        self_cos, self_sin = _rope(lens[:, None] + torch.arange(nq), torch)
+        sel = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+        if kernel == "k7":   # the verify window is causal among its self columns
+            causal = torch.triu(torch.full((nq, nq), -1e30), 1)
+            bias = torch.cat([bias[:, None].expand(B, nq, S), causal.expand(B, nq, nq)], 2)
+        kw.update(self_zk=sel(rn(B, nq, G, R)), self_zv=sel(rn(B, nq, G, R)),
+                  self_cos=sel(self_cos), self_sin=sel(self_sin))
+        return (ptab, rn(B, G, nq * HG, DH), rn(n_pages, PAGE, G, R),
                 rn(n_pages, PAGE, G, R), r_k, cos, sin, bias), kw
-    nq = NQ if kernel == "k6" else 1
+    nq = NQ if kernel in ("k5", "k6") else 1
     cos, sin = _rope(torch.arange(S).expand(B, S), torch)
     self_cos, self_sin = _rope(S + torch.arange(nq).expand(B, nq), torch)
     zk, zv = rn(B, S, G, R), rn(B, S, G, R)
@@ -86,14 +95,16 @@ def operands(kernel: str, torch):
         kw.update(self_zk=szk[:, 0], self_zv=szv[:, 0], self_cos=self_cos[:, 0],
                   self_sin=self_sin[:, 0])
         return (q, zk, zv, r_k, cos, sin, torch.zeros(B, S)), kw
+    causal = torch.triu(torch.full((nq, nq), -1e30), 1)   # the verify window
+    bias = torch.cat([torch.zeros(B, nq, S), causal.expand(B, nq, nq)], dim=2)
+    if kernel == "k5":
+        kw.update(self_zk=szk, self_zv=szv, self_cos=self_cos, self_sin=self_sin)
+        return (q, zk, zv, r_k, cos, sin, bias), kw
     q8 = [t for z in (zk, zv, szk, szv) for t in _quant(z, torch)]
     if kernel == "k3":
         kw.update(self_zk_q=q8[4][:, 0], self_zk_s=q8[5][:, 0], self_zv_q=q8[6][:, 0],
                   self_zv_s=q8[7][:, 0], self_cos=self_cos[:, 0], self_sin=self_sin[:, 0])
         return (q, *q8[:4], r_k, cos, sin, torch.zeros(B, S)), kw
-    # k6: the verify window is causal among its nq self columns
-    causal = torch.triu(torch.full((nq, nq), -1e30), 1)
-    bias = torch.cat([torch.zeros(B, nq, S), causal.expand(B, nq, nq)], dim=2)
     kw.update(self_zk_q=q8[4], self_zk_s=q8[5], self_zv_q=q8[6], self_zv_s=q8[7],
               self_cos=self_cos, self_sin=self_sin)
     return (q, *q8[:4], r_k, cos, sin, bias), kw
@@ -107,7 +118,8 @@ def run(kernel: str, src: str, out: str, no_self: bool) -> int:
     from repro_torch.kernels import latent_decode_q as KQ
     fn = {"k1": K.latent_decode_attention, "k2": K2.flash_prefill_attention,
           "k3": KQ.latent_decode_attention_quant, "k4": K.latent_decode_attention_paged,
-          "k6": KQ.latent_decode_attention_mq_quant}[kernel]
+          "k5": K.latent_decode_attention_mq, "k6": KQ.latent_decode_attention_mq_quant,
+          "k7": K.latent_decode_attention_mq_paged}[kernel]
     args, kw = operands(kernel, torch)
     if no_self:
         kw = {k: v for k, v in kw.items() if not k.startswith("self_")}
@@ -116,7 +128,7 @@ def run(kernel: str, src: str, out: str, no_self: bool) -> int:
     # q, r_k and float latents (k2: q, k, v) in bf16; tables, bias, scales
     # and k_norm f32
     lat = {"k1": (0, 1, 2, 3), "k2": (0, 1, 2), "k3": (0, 5), "k4": (1, 2, 3, 4),
-           "k6": (0, 5)}[kernel]
+           "k5": (0, 1, 2, 3), "k6": (0, 5), "k7": (1, 2, 3, 4)}[kernel]
     args = [bf16(a).cuda() if i in lat else a.cuda() for i, a in enumerate(args)]
     kw = {k: (bf16(v) if k in ("self_zk", "self_zv") else v).cuda()
           if hasattr(v, "cuda") else v for k, v in kw.items()}
@@ -150,7 +162,8 @@ def compare(path_a: str, path_b: str) -> int:
 
 def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k6"), default="k4")
+    p.add_argument("--kernel", choices=("k1", "k2", "k3", "k4", "k5", "k6", "k7"),
+                   default="k4")
     p.add_argument("--src")
     p.add_argument("--out")
     p.add_argument("--no-self", action="store_true")

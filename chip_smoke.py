@@ -7,24 +7,28 @@ Phases, in order (any failure exits non-zero; none is caught):
 
 1. versions, and the card's name and power limit (nvidia-smi);
 2. build the CUDA kernels from ``src/repro_torch/csrc`` (one nvcc each,
-   all at once) and print the build time and each kernel's ptxas
-   registers and spills; the tensor-core bodies of
-   ``latent_decode_tc.cu`` (K1, K3, K4, K6 in bf16) must not spill;
+   all at once) and print each nvcc's build time and each kernel's ptxas
+   registers and spills; no kernel of ``latent_decode_tc.cu`` (the bf16
+   tensor-core bodies of K1 and K3-K7, every block plan down to 64-column
+   chunks) may spill;
 3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
    (int8 multi-query verify), K4 and K7 (K1 and K5 over the paged pool,
    through a ragged page table) — at the main path's shapes against its
    plain PyTorch version, in float32 (TF32 off) and bf16, and timed
    beside the plain version, a PyTorch library call where one computes
    the same function, and the least time the card could take (its bound);
-   K2 and K4 are timed over 50 launches.  K4 and K7 must equal K1 and K5
-   on the table-gathered ring bit for bit in both types (same tiles, same
-   order; in bf16 K4 and K1 are one tensor-core body with two row maps),
-   and K4 in bf16 must also equal itself on an in-order placement of the
-   same pages; both are timed beside K1 / K5 on that ring.  Then the bf16
-   K1 and K6 bodies at widths off the main path (ranks 152, 384 and 512;
-   5 and 8 verify queries) within the bf16 limit; K1, K3, K4 and K6 at
-   group_size 8 (G = 1, s = 8, Hg = 32 query rows per group, r = 512)
-   within the bf16 limit, K4 equal to K1 bit for bit; and K2 at value
+   K2, K4 and K7 are timed over 50 launches.  K4 and K7 must equal K1 and
+   K5 on the table-gathered ring bit for bit in both types (same tiles,
+   same order; in bf16 K4 / K7 and K1 / K5 are one tensor-core body with
+   two row maps), and in bf16 each must also equal itself on an in-order
+   placement of the same pages; both are timed beside K1 / K5 on that
+   ring.  Then the bf16 bodies at widths off the main path within the
+   bf16 limit: K1 at ranks 152, 384 and 512, K6 at 5 and 8 verify queries
+   and rank 512, K5 at 2 verify queries and rank 624; all six at
+   group_size 8 (G = 1, s = 8, Hg = 32 query rows per group) at ranks
+   512, 768 and 1024, K4 equal to K1 and K7 to K5 bit for bit; K1 and K5
+   at group_size 8 on full 4096-token rings at ranks 544-1024, timed
+   beside their bounds (what the 64-column plan costs); and K2 at value
    widths 128, 152, 384, 512 and 1024 in float32 and bf16;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
@@ -34,25 +38,30 @@ Phases, in order (any failure exits non-zero; none is caught):
    float and int8 pools holding the ring's content: every logit must equal
    the ring's bit for bit (on the float pool also before any write);
 5. the same model served through ``Engine`` (8 slots, max_len 4096) in
-   six runs, each with the kernel launch counts of that run:
+   seven runs, each with the kernel launch counts of that run:
    A, float ring, no speculation, one chunked prompt (K1, K2);
    B, int8 ring, spec_depth 3, draft "layers:4", one chunked prompt (K2,
    K3 in the draft's decode steps, K6 in verify);
    C, float ring, spec_depth 3, "ngram" draft on prompts that repeat a
    motif (K2, K5);
-   D, the slice's main path: the paged float pool (page_size 16) with
-   prefix-affinity admission, lazy pages and one pinned prefix, 12
-   requests sharing a 1024-token system prompt in a pool small enough to
-   preempt (K2, K4); it must share pages and preempt at least once;
+   D, the paged float pool (page_size 16) with prefix-affinity admission,
+   lazy pages and one pinned prefix, 12 requests sharing a 1024-token
+   system prompt in a pool small enough to preempt (K2, K4); it must share
+   pages and preempt at least once;
    E, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
    prompts (K2, K7); its streams must equal C's token for token;
    F, the float ring of the model at group_size 8 (one latent group of 8
    kv heads and 32 query heads, r = 512; its own random weights), one
    512-token prompt (K2 at dv = 512, K1 at 32 query rows per group), after
    its kernel backend's decode logits are held to the einsum reference's;
+   G, the model at group_size 8 and r = 768 (keep ratio 0.75; its own
+   random weights, F's freed first), float ring, spec_depth 3, "ngram" on
+   C's prompts (K2 at dv = 768, K5 at 32 query rows per group and rank
+   768: 64-column chunks), after its kernel backend's decode and verify
+   logits are held to the einsum reference's;
 6. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
-   error, ``launches`` its launches over runs A-F), the card line, and the
+   error, ``launches`` its launches over runs A-G), the card line, and the
    final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
@@ -217,7 +226,7 @@ def phase_latent(torch, gen, nq, quant):
     fn = base + ("" if one else "_mq") + ("_quant" if quant else "")
     where = {"latent_decode_attention": ("latent_decode.py", 177, "latent_decode_tc"),
              "latent_decode_attention_quant": ("latent_decode_q.py", 69, "latent_decode_tc"),
-             "latent_decode_attention_mq": ("latent_decode.py", 338, "latent_decode"),
+             "latent_decode_attention_mq": ("latent_decode.py", 338, "latent_decode_tc"),
              "latent_decode_attention_mq_quant": ("latent_decode_q.py", 158,
                                                   "latent_decode_tc")}[fn]
     meta = {"name": fn, "source": f"src/repro_torch/csrc/{where[2]}.cu",
@@ -231,14 +240,16 @@ def phase_latent(torch, gen, nq, quant):
 
 
 def phase_tc_widths(torch, gen):
-    """The bf16 tensor-core bodies of K1 and K6 at widths off the main
+    """The bf16 tensor-core bodies of K1, K5 and K6 at widths off the main
     path that the engine still serves, against their plain versions within
     the bf16 limit: K1 at r = 152 (a multiple of 8, padded to 16 in the
     kernel), 384 and 512 (recalkv ratios 0.3, 0.75 and 1: 128-column
-    chunks), and K6 at nq = 5 and 8 (spec_depth 4 and 7: query blocks
-    along grid z) and at r = 512 (a 64-row R_k stage).  B = 2 rows of a
-    1024-token ring; these launches are not the main path's.  Then
-    ``group8_widths`` and ``k2_widths``."""
+    chunks), K6 at nq = 5 and 8 (spec_depth 4 and 7: query blocks along
+    grid z) and at r = 512 (a 64-row R_k stage), and K5 at nq = 2, r = 624
+    (spec_depth 1: a 64-column chunk; the CUDA-core template served it).
+    B = 2 rows of a 1024-token ring; these launches are not the main
+    path's.  Then ``group8_widths``, ``wide_rank_times`` and
+    ``k2_widths``."""
     from repro_torch.kernels import latent_decode as K1
     from repro_torch.kernels import latent_decode_q as KQ
     from repro_torch.kernels import ops
@@ -250,7 +261,7 @@ def phase_tc_widths(torch, gen):
     pos[1, S // 3:] = -1                       # row 1 ragged: dead chunks
     cos, sin = ops.rope_tables_for(pos, dh, 1e6)
     for kind, nq, r in (("K1", 1, 152), ("K1", 1, 384), ("K1", 1, 512),
-                        ("K6", 5, 256), ("K6", 8, 256), ("K6", 4, 512)):
+                        ("K6", 5, 256), ("K6", 8, 256), ("K6", 4, 512), ("K5", 2, 624)):
         pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
         cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
         feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
@@ -263,6 +274,10 @@ def phase_tc_widths(torch, gen):
             args = (q, zk.to(bf), zv.to(bf), r_k, cos, sin, bias[:, 0, :S].contiguous())
             kw.update(self_zk=szk[:, 0].to(bf), self_zv=szv[:, 0].to(bf),
                       self_cos=cs[:, 0], self_sin=ss[:, 0])
+        elif kind == "K5":
+            kernel, plain = K1.latent_decode_attention_mq, K1.latent_decode_attention_mq_plain
+            args = (q, zk.to(bf), zv.to(bf), r_k, cos, sin, bias)
+            kw.update(self_zk=szk.to(bf), self_zv=szv.to(bf), self_cos=cs, self_sin=ss)
         else:
             kernel = KQ.latent_decode_attention_mq_quant
             plain = KQ.latent_decode_attention_mq_quant_plain
@@ -275,86 +290,134 @@ def phase_tc_widths(torch, gen):
         torch.cuda.synchronize()
         compare(f"{kernel.__name__} nq={nq} r={r}", got, plain(*args, **kw), bf)
     group8_widths(torch, gen)
+    wide = wide_rank_times(torch, gen)
     k2_widths(torch, gen)
+    return wide
 
 
 def group8_widths(torch, gen):
     """group_size 8 at full width: G = 1 group of s = 8 kv heads, 32 query
     rows per group (past a block's 16, so the head slots split over blocks
-    along grid z), r = 512, on B = 2 rows of a 1024-token ring (row 1
-    ragged).  bf16 K1, K3 (one query and its self column), K4 (the ring's
-    pages at shuffled physical pages) and K6 (nq = 4) against their plain
-    versions within the bf16 limit; K4 must equal K1 bit for bit."""
+    along grid z), on B = 2 rows of a 1024-token ring (row 1 ragged), at r
+    = 512 (128-column chunks), 768 and 1024 (64-column chunks: every rank
+    up to s * dh).  All six bf16 bodies against their plain versions
+    within the bf16 limit: K1, K3 and K4 with one query and its self
+    column, K5, K6 and K7 with nq = 4 and their self columns; K4 and K7 on
+    the ring's pages at shuffled physical pages must equal K1 and K5 bit
+    for bit."""
     from repro_torch.kernels import latent_decode as K1
     from repro_torch.kernels import latent_decode_q as KQ
     from repro_torch.kernels import ops
     from repro_torch.quant import quantize
-    B, S, G, Hg, dh, s, r = 2, 1024, 1, 32, 128, 8, 512
+    B, S, G, Hg, dh, s = 2, 1024, 1, 32, 128, 8
     bf = torch.bfloat16
     rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     pos = torch.arange(S, device="cuda").expand(B, S).contiguous()
     pos[1, S // 3:] = -1
     cos, sin = ops.rope_tables_for(pos, dh, 1e6)
-    r_k = (rn(G, r, s * dh) * r ** -0.5).to(bf)
-    zk, zv = rn(B, S, G, r), rn(B, S, G, r)
+    n_sp = S // PAGE
+    g = torch.Generator().manual_seed(SEED + 6)
+    ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
+    ptab = ptab.to(device="cuda", dtype=torch.int32)
 
     def q8(z):   # int8 latents and their (..., G) scales
         lat, sc = quantize(z, 8)
         return lat, sc[..., 0]
 
-    for nq in (1, 4):
+    def paged(z):   # the ring's pages at the table's physical pages
+        pool = torch.zeros((B * n_sp + 1, PAGE) + tuple(z.shape[2:]), device="cuda",
+                           dtype=z.dtype)
+        pool[ptab.reshape(-1).long()] = z.reshape((B * n_sp, PAGE) + tuple(z.shape[2:]))
+        return pool
+
+    for r in (512, 768, 1024):
+        r_k = (rn(G, r, s * dh) * r ** -0.5).to(bf)
+        zk, zv = rn(B, S, G, r), rn(B, S, G, r)
+        for nq in (1, 4):
+            pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
+            cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+            feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
+            bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+            sel = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+            tables = (cos, sin, bias[:, 0, :S].contiguous() if nq == 1 else bias)
+            q = rn(B, G, nq * Hg, dh).to(bf)
+            szk, szv = sel(rn(B, nq, G, r)), sel(rn(B, nq, G, r))
+            kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh), self_cos=sel(cs),
+                      self_sin=sel(ss))
+            kwf = dict(kw, self_zk=szk.to(bf), self_zv=szv.to(bf))
+            (szk_q, szk_s), (szv_q, szv_s) = q8(szk), q8(szv)
+            kw8 = dict(kw, self_zk_q=szk_q, self_zk_s=szk_s, self_zv_q=szv_q, self_zv_s=szv_s)
+            mq = "" if nq == 1 else "_mq"
+            runs = {}
+            for mod, name, args, kws in (
+                    (K1, f"latent_decode_attention{mq}", (q, zk.to(bf), zv.to(bf), r_k),
+                     kwf),
+                    (K1, f"latent_decode_attention{mq}_paged",
+                     (ptab, q, paged(zk.to(bf)), paged(zv.to(bf)), r_k), kwf),
+                    (KQ, f"latent_decode_attention{mq}_quant", (q, *q8(zk), *q8(zv), r_k),
+                     kw8)):
+                got = getattr(mod, name)(*args, *tables, **kws)
+                torch.cuda.synchronize()
+                compare(f"{name} Hg={Hg} nq={nq} r={r}", got,
+                        getattr(mod, name + "_plain")(*args, *tables, **kws), bf)
+                runs[name] = got
+            ring, pool = runs[f"latent_decode_attention{mq}"], runs[f"latent_decode_attention{mq}_paged"]
+            diff = (pool.float() - ring.float()).abs().max().item()
+            log(f"latent_decode_attention{mq}_paged Hg={Hg} nq={nq} r={r}: max abs diff "
+                f"against latent_decode_attention{mq} on the same ring {diff:.3e} (0 expected)")
+            if not torch.equal(pool, ring):
+                raise AssertionError(f"{'K4' if nq == 1 else 'K7'} differs from "
+                                     f"{'K1' if nq == 1 else 'K5'} at Hg={Hg} r={r} by "
+                                     f"{diff:.3e}")
+
+
+def wide_rank_times(torch, gen):
+    """What the 64-column plan costs, at run G's group width: bf16 K1 (one
+    query and its self column) and K5 (nq = 4 and their self columns) on B
+    = 8 full 4096-token rings of one group of s = 8 kv heads and 32 query
+    rows, at the last rank of the 128-column plan and the first of the
+    64-column plan (K1 704 / 712, K5 544 / 552) and at 768 and 1024; each
+    within the bf16 limit of its plain version and timed beside its bound.
+    Returns {"<kernel> r=<r>": {chunk, ms, bound_ms, bound_by,
+    max_abs_err}}."""
+    from repro_torch.kernels import latent_decode as K1
+    from repro_torch.kernels import ops
+    B, S, G, Hg, dh, s = 8, 4096, 1, 32, 128, 8
+    bf = torch.bfloat16
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    pos = torch.arange(S, device="cuda").expand(B, S).contiguous()
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    lib = K1._lib("latent_decode_tc")
+    out = {}
+    for nq, ranks in ((1, (704, 712, 768, 1024)), (4, (544, 552, 768, 1024))):
         pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
         cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
         feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
         bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
-        q = rn(B, G, nq * Hg, dh).to(bf)
-        szk, szv = rn(B, nq, G, r), rn(B, nq, G, r)
-        kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh))
-        if nq == 4:
-            args = (q, *q8(zk), *q8(zv), r_k, cos, sin, bias)
-            (szk_q, szk_s), (szv_q, szv_s) = q8(szk), q8(szv)
-            kw6 = dict(kw, self_zk_q=szk_q, self_zk_s=szk_s, self_zv_q=szv_q,
-                       self_zv_s=szv_s, self_cos=cs, self_sin=ss)
-            got = KQ.latent_decode_attention_mq_quant(*args, **kw6)
+        sel = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+        name = "latent_decode_attention" + ("" if nq == 1 else "_mq")
+        kernel, plain = getattr(K1, name), getattr(K1, name + "_plain")
+        for r in ranks:
+            args = (rn(B, G, nq * Hg, dh).to(bf), rn(B, S, G, r).to(bf), rn(B, S, G, r).to(bf),
+                    (rn(G, r, s * dh) * r ** -0.5).to(bf), cos, sin,
+                    bias[:, 0, :S].contiguous() if nq == 1 else bias)
+            kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh),
+                      self_zk=sel(rn(B, nq, G, r)).to(bf), self_zv=sel(rn(B, nq, G, r)).to(bf),
+                      self_cos=sel(cs), self_sin=sel(ss))
+            got = kernel(*args, **kw)
             torch.cuda.synchronize()
-            compare(f"latent_decode_attention_mq_quant Hg={Hg} nq={nq} r={r}", got,
-                    KQ.latent_decode_attention_mq_quant_plain(*args, **kw6), bf)
-            continue
-        tables = (cos, sin, bias[:, 0, :S].contiguous())
-        kw1 = dict(kw, self_zk=szk[:, 0].to(bf), self_zv=szv[:, 0].to(bf),
-                   self_cos=cs[:, 0], self_sin=ss[:, 0])
-        ring_args = (q, zk.to(bf), zv.to(bf), r_k, *tables)
-        ring = K1.latent_decode_attention(*ring_args, **kw1)
-        torch.cuda.synchronize()
-        compare(f"latent_decode_attention Hg={Hg} r={r}", ring,
-                K1.latent_decode_attention_plain(*ring_args, **kw1), bf)
-        n_sp = S // PAGE
-        g = torch.Generator().manual_seed(SEED + 6)
-        ptab = (torch.randperm(B * n_sp, generator=g) + 1).reshape(B, n_sp)
-        ptab = ptab.to(device="cuda", dtype=torch.int32)
-        pools = []
-        for z in ring_args[1:3]:
-            pool = torch.zeros((B * n_sp + 1, PAGE, G, r), device="cuda", dtype=bf)
-            pool[ptab.reshape(-1).long()] = z.reshape(B * n_sp, PAGE, G, r)
-            pools.append(pool)
-        paged_args = (ptab, q, *pools, r_k, *tables)
-        paged = K1.latent_decode_attention_paged(*paged_args, **kw1)
-        torch.cuda.synchronize()
-        compare(f"latent_decode_attention_paged Hg={Hg} r={r}", paged,
-                K1.latent_decode_attention_paged_plain(*paged_args, **kw1), bf)
-        diff = (paged.float() - ring.float()).abs().max().item()
-        log(f"latent_decode_attention_paged Hg={Hg} r={r}: max abs diff against "
-            f"latent_decode_attention on the same ring {diff:.3e} (0 expected)")
-        if not torch.equal(paged, ring):
-            raise AssertionError(f"K4 differs from K1 at Hg={Hg} by {diff:.3e}")
-        args3 = (q, *q8(zk), *q8(zv), r_k, *tables)
-        (szk_q, szk_s), (szv_q, szv_s) = q8(szk[:, 0]), q8(szv[:, 0])
-        kw3 = dict(kw, self_zk_q=szk_q, self_zk_s=szk_s, self_zv_q=szv_q, self_zv_s=szv_s,
-                   self_cos=cs[:, 0], self_sin=ss[:, 0])
-        got = KQ.latent_decode_attention_quant(*args3, **kw3)
-        torch.cuda.synchronize()
-        compare(f"latent_decode_attention_quant Hg={Hg} r={r}", got,
-                KQ.latent_decode_attention_quant_plain(*args3, **kw3), bf)
+            err = compare(f"{name} Hg={Hg} nq={nq} r={r}", got, plain(*args, **kw), bf)
+            ms = cuda_ms(lambda: kernel(*args, **kw), iters=20)
+            b_ms, by = bound(nbytes(*args, *kw.values(), got),
+                             decode_flops(B, S + nq, G, Hg, dh, r, s, nq))
+            chunk = lib.recalkv_tc_chunk(int(nq > 1), 0, dh, r, r)
+            log(f"{name} B={B} S={S}+{nq} G={G} Hg={Hg} nq={nq} r={r} ({chunk}-column "
+                f"chunks): kernel {ms:.4f} ms, bound {b_ms:.4f} ms ({by}), "
+                f"{ms / b_ms:.1f}x bound")
+            out[f"{name} r={r}"] = {"chunk": chunk, "ms": ms, "bound_ms": b_ms,
+                                    "bound_by": by, "max_abs_err": err}
+            del args, kw, got
+    return out
 
 
 def k2_widths(torch, gen):
@@ -453,9 +516,9 @@ def phase_paged(torch, gen, nq):
     """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
     pool, against the plain version in f32 and bf16.  Both must equal K1 /
     K5 on the gathered ring bit for bit in both types (same tiles, same
-    order; in bf16 K4 and K1 are the tensor-core body with two row maps),
-    and K4 in bf16 must equal itself on an in-order placement of the same
-    pages.  Each is timed; the bound counts the mapped pages, the table and
+    order; in bf16 K4 / K7 and K1 / K5 are the tensor-core body with two
+    row maps), and in bf16 each must equal itself on an in-order placement
+    of the same pages.  Each is timed; the bound counts the mapped pages, the table and
     the slot-major tables of the mapped columns."""
     from repro_torch.kernels import latent_decode as K
     a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
@@ -484,7 +547,7 @@ def phase_paged(torch, gen, nq):
         if not torch.equal(got, view):
             raise AssertionError(f"{name} differs from {ring.__name__} on the "
                                  f"gathered ring by {diff:.3e}")
-        if one and dt == torch.bfloat16:
+        if dt == torch.bfloat16:
             order, opools = in_order(torch, ptab, {"zk": zk, "zv": zv})
             again = kernel(order, args[1], opools["zk"], opools["zv"], *args[4:], **kw)
             torch.cuda.synchronize()
@@ -509,8 +572,7 @@ def phase_paged(torch, gen, nq):
         f"{ring.__name__} on the view {view_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{b_ms:.4f} ms ({by})")
     line = 456 if one else 567
-    source = "latent_decode_tc.cu" if one else "latent_decode.cu"
-    return {"name": name, "route": "cuda", "source": f"src/repro_torch/csrc/{source}",
+    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/latent_decode_tc.cu",
             "replaces": f"src/repro/kernels/latent_decode.py:{line}",
             "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
             "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
@@ -559,11 +621,11 @@ def phase_k2(torch, gen):
             "shape": f"B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dh={dh} dv={dv} causal bf16"}
 
 
-def phase_backends(torch, cfg, params, verify=True):
+def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
     """Prefill + 4 decode steps through both backends (kernel-backend
     greedy tokens fed to both), B=2 with prompts of 512 and 300 tokens;
-    then (``verify``), on float and int8 rings, prefill + one 4-token
-    verify step."""
+    then, on a float ring (None in ``verify_bits``) and an int8 ring (8),
+    prefill + one 4-token verify step."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
@@ -584,14 +646,14 @@ def phase_backends(torch, cfg, params, verify=True):
         if feed is None:
             feed = [o.argmax(-1) for o in outs[:-1]]
         runs[("decode", backend)] = torch.stack(outs)
-        for bits in (None, 8) if verify else ():
+        for bits in verify_bits:
             cb = dataclasses.replace(c, cache_quant_bits=bits)
             _, caches = T.prefill(cb, params, toks, lens, 1024)
             runs[(f"verify {'int8' if bits else 'float'}", backend)], _ = T.verify_step(
                 cb, params, caches, fed, lens, mask)
         del caches
     out = {}
-    for what in ("decode", "verify float", "verify int8") if verify else ("decode",):
+    for what in ["decode"] + [f"verify {'int8' if b else 'float'}" for b in verify_bits]:
         ker, ref = runs[(what, "kernel")], runs[(what, "einsum")]
         if not torch.isfinite(ker).all():
             raise AssertionError(f"kernel-backend {what} logits are not finite")
@@ -689,10 +751,16 @@ ENGINE_RUNS = {
     # the model at group_size 8 (GROUP8), with its own weights
     "F": dict(bits=None, depth=0, draft=None, chunk=None, sync=16,
               must=("latent_decode_attention", "flash_prefill_attention")),
+    # the same at rank 768 (a 64-column plan), with its own weights,
+    # verifying C's prompts
+    "G": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
+              must=("flash_prefill_attention", "latent_decode_attention_mq")),
 }
-# run F's latent cache: one group of all 8 kv heads (32 query rows per
-# group) at rank 512 = s * dh / 2, r_v = 512 the value width of its K2
-GROUP8 = dict(rank_k=512, rank_v=512, group_size=8)
+# runs F and G's latent caches: one group of all 8 kv heads (32 query rows
+# per group) at rank 512 = s * dh / 2 (F) and 768 (G, keep ratio 0.75);
+# r_v the value width of their K2
+GROUP8 = {"F": dict(rank_k=512, rank_v=512, group_size=8),
+          "G": dict(rank_k=768, rank_v=768, group_size=8)}
 
 
 def engine_prompts(torch, run, vocab):
@@ -707,7 +775,7 @@ def engine_prompts(torch, run, vocab):
         return [(np.concatenate([system, rand(n)]), D_NEW) for n in D_SUFFIX]
     if run == "F":
         return [(rand(512), 32)]
-    motif = rand(64)        # C and E: a motif repeated, for prompt lookup
+    motif = rand(64)        # C, E and G: a motif repeated, for prompt lookup
     return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
 
 
@@ -788,18 +856,22 @@ def main() -> int:
         for k, v in info.items())
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {built}")
     for name, v in info.items():
-        for e in build.ptxas_summary(v["ptxas"]):
+        kernels = build.ptxas_summary(v["ptxas"])
+        for e in kernels:
             log(f"ptxas {name}: {e['kernel']}: {e['registers']} registers, spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
             if name == "latent_decode_tc" and (e["spill_stores"] or e["spill_loads"]):
                 raise AssertionError(f"{e['kernel']} spills registers")
+        if name == "latent_decode_tc" and not v["cached"]:
+            log(f"no spill in the {len(kernels)} kernels of latent_decode_tc.cu (K1, K3-K7 "
+                f"at every block plan, and the merge)")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     entries = [phase_latent(torch, gen, 1, False), phase_k2(torch, gen),
                phase_latent(torch, gen, 1, True), phase_paged(torch, gen, 1),
                phase_latent(torch, gen, 4, False), phase_latent(torch, gen, 4, True),
                phase_paged(torch, gen, 4)]
-    phase_tc_widths(torch, gen)
+    wide_ranks = phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
@@ -822,19 +894,21 @@ def main() -> int:
         raise AssertionError(f"engine run E (paged pool) streams differ from run C's "
                              f"(ring): {streams['E']} vs {streams['C']}")
     log("engine run E streams equal run C's token for token")
-    del params
-    torch.cuda.empty_cache()
-    cfg = dataclasses.replace(cfg, recalkv=ReCalKVRuntime(**GROUP8))
-    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
-    backends["group_size 8"] = phase_backends(torch, cfg, params, verify=False)
-    by_run["F"], streams["F"], serving["F"] = phase_engine(torch, cfg, params, "F")
+    for run, verify_bits in (("F", ()), ("G", (None,))):
+        del params   # one model's weights at a time
+        torch.cuda.empty_cache()
+        cfg = dataclasses.replace(cfg, recalkv=ReCalKVRuntime(**GROUP8[run]))
+        params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+        backends[f"group_size 8, run {run}"] = phase_backends(torch, cfg, params,
+                                                              verify_bits)
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     for e in entries:
         e["launches_by_run"] = {run: by_run[run][e["name"]] for run in by_run}
         e["launches"] = sum(e["launches_by_run"].values())
     never = [e["name"] for e in entries if e["launches"] <= 0]
     if never:
         raise AssertionError(f"kernels never launched on the engine runs: {never}")
-    log(json.dumps({"serving": serving, "backends": backends}))
+    log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

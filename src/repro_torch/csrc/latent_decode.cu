@@ -1,5 +1,5 @@
 // ReCalKV latent-ring flash decode for Hopper (sm_90a), CUDA C++: six
-// kernels from one template, on CUDA cores.
+// float32 kernels from one template, on CUDA cores.
 //
 //   K1 recalkv_latent_decode           replaces src/repro/kernels/
 //                                      latent_decode.py::latent_decode_attention
@@ -9,10 +9,10 @@
 //   K4 recalkv_latent_decode_paged     latent_decode.py::latent_decode_attention_paged
 //   K7 recalkv_latent_decode_mq_paged  latent_decode.py::latent_decode_attention_mq_paged
 //
-// Which body serves which (kernel, dtype): K5 and K7 run here in bf16 and
-// float32; K1, K3, K4 and K6 run here in float32 only, as the parity
-// instantiations the 1e-4 checks use (their entry points refuse bf16 q).
-// bf16 K1, K3, K4 and K6 run the tensor-core body of latent_decode_tc.cu.
+// Which body serves which (kernel, dtype): all six run here in float32
+// only, as the parity instantiations the 1e-4 checks use (every entry
+// point refuses bf16 q); in bf16 all six run the tensor-core body of
+// latent_decode_tc.cu.
 //
 // For every (batch b, latent group g) and the R = nq * Hg query rows of
 // that group (nq queries, Hg = s * qpk heads each, rows ordered (query,
@@ -69,8 +69,8 @@
 //    and writes the raw (acc, m, l) state; a second small kernel merges
 //    the chunks with the log-sum-exp algebra (a chunk whose tiles were all
 //    masked has l = 0 and adds exactly 0).
-//  * One group's R_k (r x s*dh) in bf16 is 256 KB, above the 227 KB a
-//    block may use.  It is streamed per head slot in (32 x dh) slices, and
+//  * One group's R_k (r x s*dh) is 512 KB in f32 (256 KB in bf16), above
+//    the 227 KB a block may use.  It is streamed per head slot in (32 x dh) slices, and
 //    each slot's keys are normalised and rotated in registers: a warp owns
 //    whole key rows, so the per-head RMSNorm and the half-split RoPE need
 //    only warp shuffles.
@@ -78,12 +78,14 @@
 //    verify kernels' reason to exist; K1 is not launched nq times).
 //  * Shared memory grows with the row count (q, acc and the tile's scores
 //    are R rows).  At Hg = 16, dh = 128, r_k = r_v = 256 the tile needs
-//    ~189 KB with nq = 4 and bf16 latents, ~221 KB with f32 and ~173 KB
-//    with int8: spec_depth = 3 fits every type.  nq = 5 needs ~248 KB with
-//    f32 latents, over the 227 KB limit, and the wrapper raises on any
-//    shape over the limit (as for K1) instead of splitting rows across
-//    blocks, which would rebuild every key tile once per split.  Holding
-//    acc in registers would lift the limit; that is later work.
+//    ~221 KB with nq = 4 and f32 latents and ~173 KB with int8:
+//    spec_depth = 3 fits both.  nq = 5 needs ~248 KB with f32 latents,
+//    over the 227 KB limit, and so do ranks past 536 (one query, Hg = 16)
+//    or 272 (nq = 4) with f32 latents; the wrapper raises on any shape over
+//    the limit instead of splitting rows across blocks, which would
+//    rebuild every key tile once per split.  Holding acc in registers
+//    would lift the limit; that is later work (these are the parity
+//    instantiations; bf16 serves from latent_decode_tc.cu).
 //  * Keys are never written to device memory.
 //
 // Contracts kept from the TPU kernels: masked logits use NEG_INF = -1e30
@@ -91,10 +93,8 @@
 // (no loads, no arithmetic); a row whose columns are all masked finishes
 // as exact 0 (a row masked across a whole processed tile leaves its
 // softmax state untouched, and the merge floors l at 1e-30).  Inputs are
-// bf16 or f32 (latents also int8, under f32 q); accumulation is f32
-// throughout.
+// f32 (latents also int8); accumulation is f32 throughout.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -107,16 +107,7 @@ constexpr int WARPS = THREADS / 32;
 constexpr int RC = 32;        // rank rows of R_k staged per pass
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(int8_t x) { return static_cast<float>(x); }
-template <typename T> __device__ __forceinline__ T from_f(float x);
-template <> __device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-template <> __device__ __forceinline__ int8_t from_f<int8_t>(float x) {
-  return static_cast<int8_t>(x);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -130,12 +121,12 @@ __device__ __forceinline__ float warp_max(float v) {
 }
 
 struct Args {
-  const void* q;              // (B, G, R, dh), R = nq * Hg, rows (query, head)
-  const void* zk;             // (B, S, G, rk)   T, or int8
+  const float* q;             // (B, G, R, dh), R = nq * Hg, rows (query, head)
+  const void* zk;             // (B, S, G, rk)   f32, or int8
   const void* zv;             // (B, S, G, rv)
   const float* zk_scale;      // (B, S, G) int8 ring only, else null
   const float* zv_scale;      // (B, S, G)
-  const void* r_k;            // (G, rk, s*dh)
+  const float* r_k;           // (G, rk, s*dh)
   const float* cos;           // (B, S, dh/2)
   const float* sin;           // (B, S, dh/2)
   const float* bias;          // (B, nq, bias_cols)
@@ -149,7 +140,7 @@ struct Args {
   float* part_acc;            // (B, G, n_chunks, R, rv)
   float* part_m;              // (B, G, n_chunks, R)
   float* part_l;              // (B, G, n_chunks, R)
-  void* out;                  // (B, G, R, rv)
+  float* out;                 // (B, G, R, rv)
   int B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len;
   const int* ptab;            // (B, S / page_size) page table, or null (ring)
   int page_size, n_pages;     // pool latents (n_pages, page_size, G, r)
@@ -178,9 +169,9 @@ size_t smem_bytes(int R, int nq, int rk, int rv) {
   return floats * sizeof(float) + size_t(SB) * (rk + rv) * sizeof(L);
 }
 
-// T: type of q, r_k and out (bf16 or f32); L: latent storage (T, or
-// int8_t with per-(token, group) float scales).
-template <typename T, typename L, int DH>
+// L: latent storage (float, or int8_t with per-(token, group) float
+// scales); q, r_k and out are float.
+template <typename L, int DH>
 __global__ void __launch_bounds__(THREADS)
 latent_decode_partial(Args a) {
   constexpr int HALF = DH / 2;
@@ -217,10 +208,10 @@ latent_decode_partial(Args a) {
   L* zk_s = reinterpret_cast<L*>(row_s + SB);  // SB * rk
   L* zv_s = zk_s + SB * rk;                    // SB * rv
 
-  const T* q = static_cast<const T*>(a.q);
+  const float* q = a.q;
   const L* zk = static_cast<const L*>(a.zk);
   const L* zv = static_cast<const L*>(a.zv);
-  const T* rkp = static_cast<const T*>(a.r_k);
+  const float* rkp = a.r_k;
   const L* zk_self = static_cast<const L*>(a.zk_self);
   const L* zv_self = static_cast<const L*>(a.zv_self);
 
@@ -257,7 +248,7 @@ latent_decode_partial(Args a) {
     for (int e = tid; e < SB * rk; e += THREADS) {
       const int i = e / rk, r = e - i * rk, t = tt + i;
       const int row = row_s[i];
-      L v = from_f<L>(0.f);
+      L v = L(0);
       if (row >= 0) v = zk[(size_t(row) * G + g) * rk + r];
       else if (t < t1 && t >= S)
         v = zk_self[((size_t(b) * n_self + (t - S)) * G + g) * rk + r];
@@ -266,7 +257,7 @@ latent_decode_partial(Args a) {
     for (int e = tid; e < SB * rv; e += THREADS) {
       const int i = e / rv, c = e - i * rv, t = tt + i;
       const int row = row_s[i];
-      L v = from_f<L>(0.f);
+      L v = L(0);
       if (row >= 0) v = zv[(size_t(row) * G + g) * rv + c];
       else if (t < t1 && t >= S)
         v = zv_self[((size_t(b) * n_self + (t - S)) * G + g) * rv + c];
@@ -417,13 +408,11 @@ latent_decode_partial(Args a) {
 // max(sum_k l_k e^{m_k - M}, 1e-30).  A fully masked row (no chunk saw a
 // column: acc = 0, l = 0) finishes as exact 0.
 // Grid (ceil(R * rv / THREADS), G, B): one output element per thread.
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
 latent_decode_merge(Args a) {
   const int g = blockIdx.y, b = blockIdx.z;
   const int R = a.nq * a.Hg, rv = a.rv, n = a.n_chunks;
   const size_t base = (size_t(b) * a.G + g) * n;
-  T* out = static_cast<T*>(a.out);
   const int e = blockIdx.x * THREADS + threadIdx.x;
   if (e < R * rv) {
     const int h = e / rv;
@@ -435,38 +424,30 @@ latent_decode_merge(Args a) {
       L += a.part_l[(base + k) * R + h] * w;
       O += a.part_acc[(base + k) * R * rv + e] * w;
     }
-    out[((size_t(b) * a.G + g) * R) * rv + e] = from_f<T>(O / fmaxf(L, 1e-30f));
+    a.out[((size_t(b) * a.G + g) * R) * rv + e] = O / fmaxf(L, 1e-30f);
   }
 }
 
-template <typename T, typename L, int DH>
+template <typename L, int DH>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<L, DH>(a.nq * a.Hg, a.nq, a.rk, a.rv);
-  cudaError_t err = cudaFuncSetAttribute(latent_decode_partial<T, L, DH>,
+  cudaError_t err = cudaFuncSetAttribute(latent_decode_partial<L, DH>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  latent_decode_partial<T, L, DH><<<dim3(a.n_chunks, a.G, a.B), THREADS, smem, stream>>>(a);
+  latent_decode_partial<L, DH><<<dim3(a.n_chunks, a.G, a.B), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_blocks = (a.nq * a.Hg * a.rv + THREADS - 1) / THREADS;
-  latent_decode_merge<T><<<dim3(merge_blocks, a.G, a.B), THREADS, 0, stream>>>(a);
+  latent_decode_merge<<<dim3(merge_blocks, a.G, a.B), THREADS, 0, stream>>>(a);
   return cudaGetLastError();
 }
 
-// Dispatch on (T, L, dh).  ``quant`` selects int8 latents (float32 q only:
-// bf16 K3 / K6 run latent_decode_tc.cu).
-int dispatch(int is_bf16, int dh, bool quant, const Args& a, cudaStream_t st) {
+// Dispatch on (L, dh); ``quant`` selects int8 latents.
+int dispatch(int dh, bool quant, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
-  if (dh == 64) {
-    if (is_bf16) err = quant ? cudaErrorInvalidValue
-                             : launch<__nv_bfloat16, __nv_bfloat16, 64>(a, st);
-    else err = quant ? launch<float, int8_t, 64>(a, st) : launch<float, float, 64>(a, st);
-  } else if (dh == 128) {
-    if (is_bf16) err = quant ? cudaErrorInvalidValue
-                             : launch<__nv_bfloat16, __nv_bfloat16, 128>(a, st);
-    else err = quant ? launch<float, int8_t, 128>(a, st) : launch<float, float, 128>(a, st);
-  }
+  if (dh == 64) err = quant ? launch<int8_t, 64>(a, st) : launch<float, 64>(a, st);
+  else if (dh == 128) err = quant ? launch<int8_t, 128>(a, st) : launch<float, 128>(a, st);
   return static_cast<int>(err);
 }
 
@@ -476,26 +457,24 @@ extern "C" {
 
 // Shared memory the partial kernel needs (bytes), for the wrapper's check;
 // -1 for an unsupported dh.
-long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows, int nq,
-                                     int rk, int rv) {
+long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int rk, int rv) {
   if (dh != 64 && dh != 128) return -1;
-  const size_t f = dh == 64 ? smem_bytes<float, 64>(rows, nq, rk, rv)
-                            : smem_bytes<float, 128>(rows, nq, rk, rv);
-  const size_t lat_f32 = size_t(SB) * (rk + rv) * sizeof(float);
-  const size_t lat = size_t(SB) * (rk + rv) * (is_int8 ? 1 : is_bf16 ? 2 : 4);
-  return static_cast<long long>(f - lat_f32 + lat);
+  if (is_int8)
+    return static_cast<long long>(dh == 64 ? smem_bytes<int8_t, 64>(rows, nq, rk, rv)
+                                           : smem_bytes<int8_t, 128>(rows, nq, rk, rv));
+  return static_cast<long long>(dh == 64 ? smem_bytes<float, 64>(rows, nq, rk, rv)
+                                         : smem_bytes<float, 128>(rows, nq, rk, rv));
 }
 
-// The six entry points share one argument list and return a cudaError_t
-// (0 = success).  All tensors contiguous, on the device of ``stream``;
-// ``is_bf16`` selects bf16 (1) or f32 (0) for q, r_k, out and (float
-// rings) the latents.  Null self latents mean no self column; null k_norm
-// means no key norm.  Each entry point checks that the operands match its
-// kernel: scales present only for the int8 kernels, one query for
-// K1/K3/K4, a page table (with page_size dividing S and a pool of n_pages
-// pages) present only for the paged kernels K4/K7, and float32 q for the
-// parity-only K1/K3/K4/K6.
-#define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED, F32_ONLY)                               \
+// The six entry points share one argument list (that of latent_decode_tc.cu's
+// six) and return a cudaError_t (0 = success).  All tensors contiguous, on
+// the device of ``stream``; q, r_k, out and (float rings) the latents f32:
+// ``is_bf16`` must be 0.  Null self latents mean no self column; null
+// k_norm means no key norm.  Each entry point checks that the operands
+// match its kernel: scales present only for the int8 kernels, one query
+// for K1/K3/K4, a page table (with page_size dividing S and a pool of
+// n_pages pages) present only for the paged kernels K4/K7.
+#define RECALKV_ENTRY(NAME, QUANT, MULTI, PAGED)                                         \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,          \
            const float* zk_scale, const float* zv_scale, const void* r_k,               \
            const float* cos, const float* sin, const float* bias, const float* k_norm,  \
@@ -505,25 +484,25 @@ long long recalkv_latent_decode_smem(int is_bf16, int is_int8, int dh, int rows,
            int G, int Hg, int rk, int rv, int s, int nq, int n_self, int bias_cols,     \
            int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,    \
            float scale, float eps, void* stream) {                                      \
-    if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) ||                   \
-        ((F32_ONLY) && is_bf16) ||                                                      \
+    if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) || is_bf16 != 0 ||   \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                  \
         (ptab != nullptr) != (PAGED) ||                                                 \
         ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))              \
       return static_cast<int>(cudaErrorInvalidValue);                                   \
-    Args a{q, zk, zv, zk_scale, zv_scale, r_k, cos, sin, bias, k_norm,                  \
-           zk_self, zv_self, zk_self_scale, zv_self_scale, cos_self, sin_self,          \
-           part_acc, part_m, part_l, out, B, S, G, Hg, rk, rv, s, nq, n_self,           \
-           bias_cols, n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps};       \
-    return dispatch(is_bf16, dh, QUANT, a, static_cast<cudaStream_t>(stream));          \
+    Args a{static_cast<const float*>(q), zk, zv, zk_scale, zv_scale,                    \
+           static_cast<const float*>(r_k), cos, sin, bias, k_norm, zk_self, zv_self,     \
+           zk_self_scale, zv_self_scale, cos_self, sin_self, part_acc, part_m, part_l,   \
+           static_cast<float*>(out), B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols,      \
+           n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps};                   \
+    return dispatch(dh, QUANT, a, static_cast<cudaStream_t>(stream));                   \
   }
 
-RECALKV_ENTRY(recalkv_latent_decode, false, false, false, true)          // K1
-RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false, true)     // K3
-RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false, false)       // K5
-RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false, true)   // K6
-RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true, true)     // K4
-RECALKV_ENTRY(recalkv_latent_decode_mq_paged, false, true, true, false)  // K7
+RECALKV_ENTRY(recalkv_latent_decode, false, false, false)          // K1
+RECALKV_ENTRY(recalkv_latent_decode_quant, true, false, false)     // K3
+RECALKV_ENTRY(recalkv_latent_decode_mq, false, true, false)        // K5
+RECALKV_ENTRY(recalkv_latent_decode_mq_quant, true, true, false)   // K6
+RECALKV_ENTRY(recalkv_latent_decode_paged, false, false, true)     // K4
+RECALKV_ENTRY(recalkv_latent_decode_mq_paged, false, true, true)   // K7
 
 #undef RECALKV_ENTRY
 

@@ -1,5 +1,5 @@
-// K1, K3, K4 and K6 in bf16: ReCalKV latent flash decode on tensor cores,
-// for Hopper (sm_90a), CUDA C++.  One templated body, four entry points:
+// K1 and K3-K7 in bf16: ReCalKV latent flash decode on tensor cores, for
+// Hopper (sm_90a), CUDA C++.  One templated body, six entry points:
 //
 //   K1 recalkv_latent_decode_tc           replaces src/repro/kernels/latent_decode.py::
 //                                         latent_decode_attention (the ring, bf16 latents)
@@ -7,46 +7,69 @@
 //                                         (the int8 ring, one query)
 //   K4 recalkv_latent_decode_paged_tc     latent_decode.py::latent_decode_attention_paged
 //                                         (a page-major pool through a page table)
+//   K5 recalkv_latent_decode_mq_tc        latent_decode.py::latent_decode_attention_mq
+//                                         (the ring, nq verify queries)
 //   K6 recalkv_latent_decode_mq_quant_tc  latent_decode_q.py::latent_decode_attention_mq_quant
 //                                         (the int8 ring, nq verify queries)
+//   K7 recalkv_latent_decode_mq_paged_tc  latent_decode.py::latent_decode_attention_mq_paged
+//                                         (the pool, nq verify queries)
 //
-// Float32 operands of these four, and K5 and K7 in both types, go to the
-// CUDA-core template of latent_decode.cu (the parity instantiations the
-// 1e-4 checks use).  For batch row b, latent group g, the R = nq * Hg query
-// rows of the group (ordered (query j, head h), Hg = s * qpk) and the ring
-// columns t < S plus n_self self columns:
+// Float32 operands of all six go to the CUDA-core template of
+// latent_decode.cu (the parity instantiations the 1e-4 checks use).  For
+// batch row b, latent group g, the R = nq * Hg query rows of the group
+// (ordered (query j, head h), Hg = s * qpk) and the ring columns t < S plus
+// n_self self columns:
 //
 //   K_i[t] = RoPE_t( RMSNorm_(1+k_norm)( ks[t] * zk[t] @ R_k[g][:, i*dh:(i+1)*dh] ) )
 //   out    = softmax_t(scale * q[j, h] . K_{h / qpk}[t] + bias[b, j, t]) @ (vs[t] * zv[t])
 //
 // ks = vs = 1 for bf16 latents; int8 latents carry one f32 scale each per
-// (token, group).  Ring column t of row b is latent row b * S + t (K1, K3, K6)
-// or ptab[b, t / page_size] * page_size + t % page_size (K4).  K1 / K3 /
-// K4 score one self column at bias 0; K6 reads its nq self columns' bias from
-// the last n_self columns of its (B, nq, S + n_self) bias.  The self
-// tokens' latents, scales and rotation tables are operands.
+// (token, group).  Ring column t of row b is latent row b * S + t (K1, K3,
+// K5, K6) or ptab[b, t / page_size] * page_size + t % page_size (K4, K7).
+// K1 / K3 / K4 score one self column at bias 0; K5 / K6 / K7 read their nq
+// self columns' bias from the last n_self columns of their (B, nq, S +
+// n_self) bias.  The self tokens' latents, scales and rotation tables are
+// operands.
 //
 // What bounds it on an H100: at chip_smoke.py's K1 shape (B=8, a full
 // 4096-token ring, G=2, r=256, s=4, dh=128) a call reads ~84 MB (bytes
 // bound ~25 us) and does ~17 GFLOP of key reconstruction (~17 us on bf16
 // tensor cores); the int8 ring reads 520 instead of 1,024 latent bytes per
-// token and group.  The CUDA-core template rebuilt keys with scalar FMAs
-// and re-read all of R_k (256 KB) from L2 for every 32 columns.
+// token and group, and the verify bodies score nq * Hg rows per rebuilt
+// key.  The CUDA-core template rebuilt keys with scalar FMAs and re-read
+// all of R_k (256 KB) from L2 for every 32 columns.
 //
 // Design:
 //  * A block takes CH ring columns of one (b, g): 256 (four 64-column
-//    tiles) with one query set, 128 with up to four (K6, see below); 256
-//    threads, one block per SM.  Grid (G * B, ceil((S + n_self) / CH),
-//    query blocks x head-slot blocks), chunk-major, so the chunks that
-//    hold only self columns launch last and fill the tail of the last
-//    wave.  Each R_k slice is
-//    read once per CH columns: R_k streams through a two-stage cp.async
-//    ring in stages of rc = 128 rank rows x dh of one head slot, bf16 as
-//    stored.  Ranks past 256 (recalkv ratios above 0.5, Fisher-allocated
-//    layers) would overflow shared memory at these widths, so plan_dh
-//    narrows the chunk to 128 and then the stage to 64 rows; r_k that is
-//    a multiple of 8 but not of 16 is padded to 16 with zero latents and
-//    zero R_k rows, which add exact zeros to the products.
+//    tiles) with one query set, 128 with up to four (K5, K6, K7, see
+//    below); 256 threads, one block per SM.  Grid (G * B, ceil((S +
+//    n_self) / CH), query blocks x head-slot blocks), chunk-major, so the
+//    chunks that hold only self columns launch last and fill the tail of
+//    the last wave.  Each R_k slice is read once per CH columns: R_k streams
+//    through a two-stage cp.async ring in stages of rc = 128 rank rows x dh
+//    of one head slot, bf16 as stored.  r_k that is a multiple of 8 but not
+//    of 16 is padded to 16 with zero latents and zero R_k rows, which add
+//    exact zeros to the products.
+//  * Ranks past 256 (recalkv ratios above 0.5, Fisher-allocated layers,
+//    group_size 8 at s * dh = 1,024) would overflow shared memory at these
+//    widths, so plan_dh narrows the chunk to 128 columns, then the stage to
+//    64 rows, then the chunk to 64 columns (with a 128-row stage, then a
+//    64-row one): at dh = 128 every rank up to s * dh = 1,024 (group_size
+//    8) fits every body (~212 KB one-query, ~204 KB multi-query at r =
+//    1,024).  The 64-column plan is taken only where no wider one fits, so
+//    every width a wider plan serves keeps its bits.
+//  * 64 columns are 4 key m-tiles for 8 warps.  Two warps share an m-tile
+//    (KS = 2), each rebuilding the keys of one quarter of each half of dh,
+//    columns d and d + dh/2 in the same warp, so RoPE still needs no
+//    shuffle; the per-head RMSNorm adds the two warps' sums of squares
+//    through shared memory, and the first warp adds the second's partial
+//    scores to its own before the bias.  Two block barriers per head slot
+//    are the cost.  Streaming zk through the rank dimension instead would
+//    keep a warp per m-tile but re-read the chunk's latents from shared
+//    memory once per head slot and R_k stage pair, and would need a third
+//    pipeline; the split keeps the loads and stages of the wider plans.
+//    The chunk partials grow as the chunk narrows: (B, G, n_chunks, R,
+//    r_v) f32, ~270 MB for K5 at B = 8, S = 4,096, R = 128, r_v = 1,024.
 //  * The chunk's bias comes first: a 64-column tile whose bias is masked
 //    for every query (the ring's empty tail, unmapped slot pages, the null
 //    page 0) is never loaded or multiplied, and a chunk with no live tile
@@ -57,53 +80,57 @@
 //    time and stored as bf16 (exact: |x| <= 127), so both feed the same
 //    ldmatrix paths.  zv later reuses the space of zk.
 //  * Key rebuild: warp w owns the 16-column m-tiles w (and w + 8 at CH =
-//    256) and all dh columns, as mma.sync.m16n8k16 products (A = latent
-//    rows by ldmatrix, B = the R_k stage by transposed ldmatrix, f32
-//    accumulators in registers).  The key scale multiplies each rebuilt
-//    row before k-norm.  Since a thread's fragments hold columns d and d +
-//    dh/2 of the same key row, the per-head RMSNorm needs only a quad
-//    reduction and the half-split RoPE no shuffle.
+//    256) and all dh columns (half of them at CH = 64, above), as
+//    mma.sync.m16n8k16 products (A = latent rows by ldmatrix, B = the R_k
+//    stage by transposed ldmatrix, f32 accumulators in registers).  The key
+//    scale multiplies each rebuilt row before k-norm.  Since a thread's
+//    fragments hold columns d and d + dh/2 of the same key row, the
+//    per-head RMSNorm needs only a quad reduction and the half-split RoPE
+//    no shuffle.
 //  * Scoring: the rotated keys are the A fragments of one more product
 //    against the slot's nq * qpk query rows (B = Q^T, n = 8; n = 16 as two
-//    n8 tiles for K6), so keys never leave registers.  Scores (+ each
-//    query's bias) go to shared memory.
+//    n8 tiles for the verify bodies), so keys never leave registers.
+//    Scores (+ each query's bias) go to shared memory.
 //  * Softmax over the chunk in one pass (every score of the chunk is in
 //    shared memory), P (times the value scale) written in place of its
 //    scores; then acc (R x r_v) = P @ zv on tensor cores, r_v split across
 //    the 8 warps in passes of 32 n8 tiles (two passes past r_v = 256), R
-//    in m16 tiles, skipping dead tiles.  A second small kernel merges the
-//    chunks by log-sum-exp, skipping chunks that saw nothing.
+//    in m16 tiles, skipping dead tiles.  bf16 zv rows arrive by cp.async
+//    while the softmax runs.  A second small kernel merges the chunks by
+//    log-sum-exp, skipping chunks that saw nothing.
 //  * Precision: the keys (for scoring) and P (for P zv) enter their
 //    products as bf16 hi + lo pairs (tc::split_bf16), two mma.sync on the
 //    same B fragments, so both carry ~2^-17 relative error.  One bf16
 //    rounding of each (2^-9) misses chip_smoke.py's bf16 limit on a ragged
 //    ring of its widths in the CPU emulation (python
 //    tests/test_torch_tc_rounding.py --ring).
-//  * K6's shared memory.  Its 64 score rows (nq = 4 x Hg = 16) at CH = 256
-//    would take 66,560 B of scores and 17,408 B of q rows, ~290 KB in all
-//    with K4's 135 KB of latent rows and 70 KB R_k ring, over the 227 KB a
-//    block may use.  It runs CH = 128 instead (~193 KB): the R_k ring keeps
-//    its two stages (a one-stage ring would stall every stage on its
-//    load), scores stay f32 for the one-pass softmax, and the cost is R_k
-//    read from L2 once per 128 columns instead of 256.  A verify window of
-//    more than 4 query sets (spec_depth >= 4) adds query blocks along grid
-//    z, each of qg = min(4, 16 / q_per_kv) sets: each re-reads the
-//    chunk's latents and R_k, and the merge sees every row as before.
+//  * The verify bodies' shared memory.  Their 64 score rows (nq = 4 x Hg
+//    = 16) at CH = 256 would take 66,560 B of scores and 17,408 B of q
+//    rows, ~290 KB in all with K4's 135 KB of latent rows and 70 KB R_k
+//    ring, over the 227 KB a block may use.  They run CH = 128 instead
+//    (~193 KB): the R_k ring keeps its two stages (a one-stage ring would
+//    stall every stage on its load), scores stay f32 for the one-pass
+//    softmax, and the cost is R_k read from L2 once per 128 columns
+//    instead of 256.  A verify window of more than 4 query sets (spec_depth
+//    >= 4) adds query blocks along grid z, each of qg = min(4, 16 /
+//    q_per_kv) sets: each re-reads the chunk's latents and R_k, and the
+//    merge sees every row as before.
 //  * More than 16 query rows per group (Hg > 16: group_size 8 puts s = 8
 //    kv heads and 32 query heads in one group).  A block holds at most 16
-//    score rows (64 for K6), so grid z also splits the s head slots into
-//    blocks of sps, the largest divisor of s with qg * sps * q_per_kv <=
-//    ROWS; a block rebuilds keys and streams R_k for its own slots only,
-//    re-reading the chunk's latents, and the merge sees every row.  At
-//    Hg <= 16 one block takes every slot and the launch is the unsplit
-//    one.
+//    score rows (64 for the verify bodies), so grid z also splits the s
+//    head slots into blocks of sps, the largest divisor of s with qg * sps
+//    * q_per_kv <= ROWS; a block rebuilds keys and streams R_k for its own
+//    slots only, re-reading the chunk's latents, and the merge sees every
+//    row.  At Hg <= 16 one block takes every slot and the launch is the
+//    unsplit one.
 //  * K3 is K1's instantiation with int8 latents: the 256-column chunk
 //    (230,416 B of shared memory at dh = 128, r = 256) with the rows
 //    converted as K6's are and the key / value scales applied as above.
-//  * K1 and K4 are the same instantiation but for the row map, with the
-//    same block plan and chunks in the same order: K4 on a pool equals K1 on the
-//    table-gathered ring bit for bit (masked columns are zero-filled in
-//    both, and their P is exactly 0).
+//    K5 is K6's with bf16 latents (loaded as K1's are).
+//  * K1 and K4, and K5 and K7, are the same instantiation but for the row
+//    map, with the same block plan and chunks in the same order: K4 (K7) on
+//    a pool equals K1 (K5) on the table-gathered ring bit for bit (masked
+//    columns are zero-filled in both, and their P is exactly 0).
 //
 // Contracts: masked logits are NEG_INF = -1e30; tiles masked for every
 // query are skipped before any load; a row masked everywhere finishes as
@@ -125,7 +152,7 @@ constexpr int THREADS = 256, WARPS = 8;
 constexpr size_t SMEM_LIMIT = 232448;   // bytes of shared memory a Hopper block may use
 
 // Tile shape of a body: CH ring columns of one query set (K1, K3, K4) or of up
-// to four (K6) per block.
+// to four (K5, K6, K7) per block.
 template <int CH_, bool MQ>
 struct Shape {
   static constexpr int CH = CH_;                  // ring columns of a block
@@ -133,10 +160,13 @@ struct Shape {
   static constexpr int ROWS = 16 * NQ;            // score rows of a block, at most
   static constexpr int NB = MQ ? 2 : 1;           // n8 tiles of a slot's query rows
   static constexpr int NT = CH / TILE;            // skip tiles of a block
-  static constexpr int MTW = CH / (16 * WARPS);   // key m-tiles of a warp
+  static constexpr int MT = CH / 16;              // key m-tiles of a block
+  static constexpr int KS = MT < WARPS ? WARPS / MT : 1;   // warps per key m-tile
+  static constexpr int MTW = KS == 1 ? MT / WARPS : 1;     // key m-tiles of a warp
   static constexpr int SCS = CH + 4;              // score row stride (floats): P rows 16 B apart in banks
   static_assert(CH <= THREADS, "one column per thread for the bias pass");
-  static_assert(MTW >= 1 && CH % (16 * WARPS) == 0, "whole m-tiles per warp");
+  static_assert(KS == 1 ? MT % WARPS == 0 : KS == 2 && MT * KS == WARPS,
+                "whole m-tiles per warp, or two warps per m-tile");
 };
 
 struct Args {
@@ -185,7 +215,8 @@ __host__ __device__ constexpr size_t smem_bytes(int rk, int rv, int rc) {
          + size_t(L::ROWS) * L::SCS * 4                  // scores, then P hi and lo (bf16) in place
          + size_t(L::ROWS) * (DH + 8) * 2                // q rows
          + DH * 4 + L::NQ * CH * 4 + CH * 4              // 1 + k_norm, bias, latent rows
-         + (QUANT ? 2 * CH * 4 : 0) + 16;                // key and value scales, tile flags
+         + (QUANT ? 2 * CH * 4 : 0) + 16                 // key and value scales, tile flags
+         + (L::KS == 2 ? 2 * CH * 4 : 0);                // k-norm partial sums of the two warps
 }
 
 __device__ __forceinline__ float warp_max(float v) {
@@ -210,15 +241,23 @@ __global__ void __launch_bounds__(THREADS, 1)
 latent_decode_tc(Args a) {
   using L = Shape<CH, MQ>;
   constexpr int NT = L::NT, ROWS = L::ROWS, SCS = L::SCS, MTW = L::MTW,
-                NB = L::NB, MR = ROWS / 16;
+                NB = L::NB, MR = ROWS / 16, KS = L::KS;
   constexpr int HALF = DH / 2;
   constexpr int RS = DH + 8;   // R_k / q row stride (bf16)
-  constexpr int NN = DH / 8;   // key n-tiles of a warp's m-tile
+  constexpr int NN = DH / 8;   // key n-tiles of an m-tile
+  constexpr int NW = NN / KS;  // key n-tiles of a warp's m-tile
+  constexpr int QW = NW / 2;   // of them in each half of dh
   static_assert(DH % 64 == 0, "dh must be a multiple of 64");
 
   const int chunk = blockIdx.y, g = blockIdx.x % a.G, b = blockIdx.x / a.G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g4 = lane >> 2, t4 = lane & 3;
+  // KS = 2 (64-column chunks): warps w and w + 4 share m-tile w, warp w + 4
+  // * hf taking quarter hf of each half of dh, so that columns d and d +
+  // dh/2 stay in one warp.  n-tile jl of a warp is key n-tile jmap(jl).
+  const int hf = KS == 1 ? 0 : warp / L::MT;
+  const int mw = KS == 1 ? warp : warp % L::MT;   // the warp's first m-tile
+  auto jmap = [&](int jl) { return (jl / QW) * (NN / 2) + hf * QW + jl % QW; };
   const int S = a.S, G = a.G, Hg = a.Hg, rk = a.rk, rv = a.rv, s = a.s;
   const int zq = MQ ? blockIdx.z / a.nsb : 0;         // grid z: (query block, slot block)
   const int j0 = MQ ? zq * a.qg : 0;                  // the block's first query set
@@ -249,7 +288,8 @@ latent_decode_tc(Args a) {
   int* row_s = reinterpret_cast<int*>(bias_s + L::NQ * CH);   // CH
   float* ksc_s = reinterpret_cast<float*>(row_s + CH);        // CH key scales (int8)
   float* vsc_s = ksc_s + (QUANT ? CH : 0);                    // CH value scales (int8)
-  int* live_s = reinterpret_cast<int*>(vsc_s + (QUANT ? CH : 0));  // NT
+  int* live_s = reinterpret_cast<int*>(vsc_s + (QUANT ? CH : 0));  // NT (16 B)
+  float* red_s = reinterpret_cast<float*>(live_s + 4);       // KS = 2: 2 x CH
 
   // -- bias first: which tiles of the chunk are live, and their latent rows
   if (tid < NT) live_s[tid] = 0;
@@ -404,14 +444,14 @@ latent_decode_tc(Args a) {
   bool warp_live = false;
 #pragma unroll
   for (int u = 0; u < MTW; ++u) {
-    live[u] = live_s[(warp + WARPS * u) * 16 / TILE] != 0;
+    live[u] = live_s[(mw + WARPS * u) * 16 / TILE] != 0;
     warp_live |= live[u];
   }
-  float acc[MTW][NN][4];
+  float acc[MTW][NW][4];
 #pragma unroll
   for (int u = 0; u < MTW; ++u)
 #pragma unroll
-    for (int j = 0; j < NN; ++j)
+    for (int j = 0; j < NW; ++j)
 #pragma unroll
       for (int c = 0; c < 4; ++c) acc[u][j][c] = 0.f;
   const int nqk = nq * qpk;   // query rows that read one head slot
@@ -423,7 +463,7 @@ latent_decode_tc(Args a) {
     const int r0 = kc * rc, rn = min(rc, rk - r0);
     const bf16* rs = r_s + (st & 1) * rc * RS;
     if (warp_live) {
-      const bf16* za = z_s + (warp * 16 + (lane & 15)) * ZS + r0 + (lane >> 4) * 8;
+      const bf16* za = z_s + (mw * 16 + (lane & 15)) * ZS + r0 + (lane >> 4) * 8;
       for (int ks = 0; ks < rk_pad(rn) / 16; ++ks) {
         uint32_t fa[MTW][4];
 #pragma unroll
@@ -431,9 +471,9 @@ latent_decode_tc(Args a) {
           if (live[u]) tc::ldsm_x4(fa[u], za + u * WARPS * 16 * ZS + ks * 16);
         const bf16* rrow = rs + (ks * 16 + (lane & 15)) * RS + (lane >> 4) * 8;
 #pragma unroll
-        for (int np = 0; np < NN / 2; ++np) {
+        for (int np = 0; np < NW / 2; ++np) {
           uint32_t rb[4];
-          tc::ldsm_x4_t(rb, rrow + np * 16);
+          tc::ldsm_x4_t(rb, rrow + jmap(2 * np) * 8);
 #pragma unroll
           for (int u = 0; u < MTW; ++u) {
             if (live[u]) {
@@ -457,13 +497,13 @@ latent_decode_tc(Args a) {
       }
 #pragma unroll
       for (int u = 0; u < MTW; ++u) {
-        if (!live[u]) continue;
-        float(&k)[NN][4] = acc[u];
-        const int mt = warp + WARPS * u;
+        if (!live[u]) continue;   // KS = 2: one tile, live in every warp
+        float(&k)[NW][4] = acc[u];
+        const int mt = mw + WARPS * u;
         if constexpr (QUANT) {
           const float s0 = ksc_s[mt * 16 + g4], s1 = ksc_s[mt * 16 + g4 + 8];
 #pragma unroll
-          for (int j = 0; j < NN; ++j) {
+          for (int j = 0; j < NW; ++j) {
             k[j][0] *= s0;
             k[j][1] *= s0;
             k[j][2] *= s1;
@@ -473,15 +513,26 @@ latent_decode_tc(Args a) {
         if (has_norm) {
           float ss0 = 0.f, ss1 = 0.f;
 #pragma unroll
-          for (int j = 0; j < NN; ++j) {
+          for (int j = 0; j < NW; ++j) {
             ss0 += k[j][0] * k[j][0] + k[j][1] * k[j][1];
             ss1 += k[j][2] * k[j][2] + k[j][3] * k[j][3];
           }
-          const float i0 = rsqrtf(tc::quad_sum(ss0) / DH + a.eps);
-          const float i1 = rsqrtf(tc::quad_sum(ss1) / DH + a.eps);
+          ss0 = tc::quad_sum(ss0);
+          ss1 = tc::quad_sum(ss1);
+          if constexpr (KS == 2) {   // the two warps' halves of each row's sum
+            if (t4 == 0) {
+              red_s[hf * CH + mt * 16 + g4] = ss0;
+              red_s[hf * CH + mt * 16 + g4 + 8] = ss1;
+            }
+            __syncthreads();
+            ss0 = red_s[mt * 16 + g4] + red_s[CH + mt * 16 + g4];
+            ss1 = red_s[mt * 16 + g4 + 8] + red_s[CH + mt * 16 + g4 + 8];
+          }
+          const float i0 = rsqrtf(ss0 / DH + a.eps);
+          const float i1 = rsqrtf(ss1 / DH + a.eps);
 #pragma unroll
-          for (int j = 0; j < NN; ++j) {
-            const float w0 = kn_s[j * 8 + 2 * t4], w1 = kn_s[j * 8 + 2 * t4 + 1];
+          for (int j = 0; j < NW; ++j) {
+            const float w0 = kn_s[jmap(j) * 8 + 2 * t4], w1 = kn_s[jmap(j) * 8 + 2 * t4 + 1];
             k[j][0] *= i0 * w0;
             k[j][1] *= i0 * w1;
             k[j][2] *= i1 * w0;
@@ -501,28 +552,29 @@ latent_decode_tc(Args a) {
             sp = a.sin_self + (size_t(b) * a.n_self + (t - S)) * HALF;
           }
 #pragma unroll
-          for (int j = 0; j < NN / 2; ++j) {
+          for (int j = 0; j < QW; ++j) {
             float2 c = make_float2(1.f, 1.f), sn = make_float2(0.f, 0.f);
             if (cp != nullptr) {
-              c = *reinterpret_cast<const float2*>(cp + j * 8 + 2 * t4);
-              sn = *reinterpret_cast<const float2*>(sp + j * 8 + 2 * t4);
+              c = *reinterpret_cast<const float2*>(cp + jmap(j) * 8 + 2 * t4);
+              sn = *reinterpret_cast<const float2*>(sp + jmap(j) * 8 + 2 * t4);
             }
-            const float x1a = k[j][2 * hr], x2a = k[j + NN / 2][2 * hr];
-            const float x1b = k[j][2 * hr + 1], x2b = k[j + NN / 2][2 * hr + 1];
+            const float x1a = k[j][2 * hr], x2a = k[j + QW][2 * hr];
+            const float x1b = k[j][2 * hr + 1], x2b = k[j + QW][2 * hr + 1];
             k[j][2 * hr] = x1a * c.x - x2a * sn.x;
-            k[j + NN / 2][2 * hr] = x2a * c.x + x1a * sn.x;
+            k[j + QW][2 * hr] = x2a * c.x + x1a * sn.x;
             k[j][2 * hr + 1] = x1b * c.y - x2b * sn.y;
-            k[j + NN / 2][2 * hr + 1] = x2b * c.y + x1b * sn.y;
+            k[j + QW][2 * hr + 1] = x2b * c.y + x1b * sn.y;
           }
         }
         // scores^T (16 columns x 8 or 16 query rows) = (K_hi + K_lo) @ Q^T
+        // over the warp's columns of dh
         float sacc[NB][4];
 #pragma unroll
         for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
           for (int e = 0; e < 4; ++e) sacc[nb][e] = 0.f;
 #pragma unroll
-        for (int kk = 0; kk < DH / 16; ++kk) {
+        for (int kk = 0; kk < NW / 2; ++kk) {
           uint32_t fh[4], fl[4];
 #pragma unroll
           for (int f = 0; f < 4; ++f)
@@ -530,27 +582,48 @@ latent_decode_tc(Args a) {
                            fh[f], fl[f]);
 #pragma unroll
           for (int nb = 0; nb < NB; ++nb) {
-            const bf16* qr = q_s + qrow[nb] * RS + 2 * t4;
-            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qr + kk * 16);
-            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qr + kk * 16 + 8);
+            const bf16* qr = q_s + qrow[nb] * RS + 2 * t4 + jmap(2 * kk) * 8;
+            const uint32_t b0 = *reinterpret_cast<const uint32_t*>(qr);
+            const uint32_t b1 = *reinterpret_cast<const uint32_t*>(qr + 8);
             tc::mma16816(sacc[nb], fh, b0, b1);
             tc::mma16816(sacc[nb], fl, b0, b1);
           }
         }
+        // KS = 2: warp hf = 1 leaves its partial scores in place, and warp
+        // hf = 0 adds its own to them
+        if constexpr (KS == 2) {
+          if (hf == 1) {
 #pragma unroll
-        for (int nb = 0; nb < NB; ++nb)
+            for (int nb = 0; nb < NB; ++nb)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int n = nb * 8 + 2 * t4 + (e & 1);
-            const int col = mt * 16 + g4 + 8 * (e >> 1);
-            if (n < nqk) {
-              const int j = MQ ? n / qpk : 0;
-              sc_s[(j * Hb + slot * qpk + (n - j * qpk)) * SCS + col] =
-                  sacc[nb][e] * a.scale + bias_s[j * CH + col];
-            }
+              for (int e = 0; e < 4; ++e) {
+                const int n = nb * 8 + 2 * t4 + (e & 1);
+                const int col = mt * 16 + g4 + 8 * (e >> 1);
+                if (n < nqk) {
+                  const int j = MQ ? n / qpk : 0;
+                  sc_s[(j * Hb + slot * qpk + (n - j * qpk)) * SCS + col] = sacc[nb][e];
+                }
+              }
           }
+          __syncthreads();
+        }
+        if (hf == 0) {
 #pragma unroll
-        for (int j = 0; j < NN; ++j)
+          for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int n = nb * 8 + 2 * t4 + (e & 1);
+              const int col = mt * 16 + g4 + 8 * (e >> 1);
+              if (n < nqk) {
+                const int j = MQ ? n / qpk : 0;
+                float* dst = sc_s + (j * Hb + slot * qpk + (n - j * qpk)) * SCS + col;
+                const float x = KS == 2 ? sacc[nb][e] + *dst : sacc[nb][e];
+                *dst = x * a.scale + bias_s[j * CH + col];
+              }
+            }
+        }
+#pragma unroll
+        for (int j = 0; j < NW; ++j)
 #pragma unroll
           for (int c = 0; c < 4; ++c) k[j][c] = 0.f;
       }
@@ -685,8 +758,9 @@ latent_decode_tc_merge(Args a) {
 // A body's block plan: the widest chunk (CH), then the deepest R_k stage
 // (rc rank rows), whose block fits in shared memory; ch = 0 if none does.
 // K1 / K3 / K4 take (256, 128) up to r = 256 (the kernel relies on r_v <=
-// 256 there), K6 (128, 128); larger ranks narrow the chunk, then the stage
-// (r up to 544 for K6, 696 for K3 and 704 for K1 / K4 at dh = 128).
+// 256 there), K5 / K6 / K7 (128, 128); larger ranks narrow the chunk, then
+// the stage, down to 64 columns (at dh = 128 the one-query bodies fit r up
+// to ~1,450, the multi-query ones ~1,250).
 struct Plan {
   int ch, rc;
 };
@@ -698,6 +772,8 @@ Plan plan_dh(int rk, int rv) {
   }
   for (int rc = 128; rc >= 64; rc /= 2)
     if (smem_bytes<DH, 128, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {128, rc};
+  for (int rc = 128; rc >= 64; rc /= 2)
+    if (smem_bytes<DH, 64, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {64, rc};
   return {0, 0};
 }
 template <bool QUANT, bool MQ>
@@ -748,6 +824,7 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   if constexpr (!MQ) {
     if (p.ch == 256) return launch_ch<DH, 256, PAGED, QUANT, MQ>(a, stream);
   }
+  if (p.ch == 64) return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
   return launch_ch<DH, 128, PAGED, QUANT, MQ>(a, stream);
 }
 
@@ -777,15 +854,16 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
   return quant ? plan<true, false>(dh, rk, rv).ch : plan<false, false>(dh, rk, rv).ch;
 }
 
-// The four entry points take the argument list of latent_decode.cu's six
+// The six entry points take the argument list of latent_decode.cu's six
 // and return a cudaError_t (0 = success).  All tensors contiguous, on the
 // device of ``stream``; q, r_k and out bf16 (is_bf16 = 1); latents bf16
-// (K1, K4) or int8 (K3, K6).  Null self latents mean no self column, null
-// k_norm no key norm.  Each checks that the operands match its body: a
-// page table (with page_size dividing S and a pool of n_pages pages) only
-// for K4, scales only for K3 / K6, one query for K1 / K3 / K4; and the
-// shape limits of shapes_ok (any Hg, q_per_kv <= 8 for K1 / K3 / K4, <= 16
-// for K6 with any nq; r_k and r_v multiples of 8 whose block fits;
+// (K1, K4, K5, K7) or int8 (K3, K6).  Null self latents mean no self
+// column, null k_norm no key norm.  Each checks that the operands match
+// its body: a page table (with page_size dividing S and a pool of n_pages
+// pages) only for K4 / K7, scales only for K3 / K6, one query for K1 / K3
+// / K4; and the shape limits of shapes_ok (any Hg, q_per_kv <= 8 for K1 /
+// K3 / K4, <= 16 for K5 / K6 / K7 with any nq; r_k and r_v multiples of 8
+// whose block fits, every rank up to s * dh at group_size <= 8;
 // chunk_len = recalkv_tc_chunk and n_chunks = ceil((S + n_self) /
 // chunk_len)).
 #define RECALKV_TC_ENTRY(NAME, PAGED, QUANT, MQ)                                         \
@@ -815,10 +893,12 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
     return static_cast<int>(cudaErrorInvalidValue);                                       \
   }
 
-RECALKV_TC_ENTRY(recalkv_latent_decode_tc, false, false, false)          // K1
-RECALKV_TC_ENTRY(recalkv_latent_decode_quant_tc, false, true, false)     // K3
-RECALKV_TC_ENTRY(recalkv_latent_decode_paged_tc, true, false, false)     // K4
-RECALKV_TC_ENTRY(recalkv_latent_decode_mq_quant_tc, false, true, true)   // K6
+RECALKV_TC_ENTRY(recalkv_latent_decode_tc, false, false, false)            // K1
+RECALKV_TC_ENTRY(recalkv_latent_decode_quant_tc, false, true, false)       // K3
+RECALKV_TC_ENTRY(recalkv_latent_decode_paged_tc, true, false, false)       // K4
+RECALKV_TC_ENTRY(recalkv_latent_decode_mq_tc, false, false, true)          // K5
+RECALKV_TC_ENTRY(recalkv_latent_decode_mq_quant_tc, false, true, true)     // K6
+RECALKV_TC_ENTRY(recalkv_latent_decode_mq_paged_tc, true, false, true)     // K7
 
 #undef RECALKV_TC_ENTRY
 

@@ -8,10 +8,10 @@
   latent_decode_q  K3 / K6: K1 / K5 over the int8 latent ring
   flash_prefill    K2: causal / sliding-window flash prefill, latent values
 
-bf16 K1, K3, K4 and K6 run the tensor-core body of
-``csrc/latent_decode_tc.cu``; K5, K7 and every float32 call run the
-CUDA-core template of ``csrc/latent_decode.cu``; K2 is
-``csrc/flash_prefill.cu`` (bf16 on ``wgmma``, float32 on CUDA cores).  Each module holds the CUDA wrappers,
+bf16 K1 and K3-K7 run the tensor-core body of ``csrc/latent_decode_tc.cu``;
+every float32 call runs the CUDA-core template of
+``csrc/latent_decode.cu``; K2 is ``csrc/flash_prefill.cu`` (bf16 on
+``wgmma``, float32 on CUDA cores).  Each module holds the CUDA wrappers,
 their plain PyTorch versions and a launch counter per wrapper; ``ops``
 adapts model tensors to them and ``build`` compiles the sources in
 ``csrc/`` at first use.

@@ -19,6 +19,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -50,8 +51,9 @@ def library_path(name: str) -> Path:
 
 def build_all(names=SOURCES) -> dict[str, dict]:
     """Compile every library in ``names`` that is not built yet, all
-    ``nvcc`` processes at once.  Returns {name: {"seconds", "ptxas", "path",
-    "cached"}}; raises with nvcc's output if any build fails."""
+    ``nvcc`` processes at once.  Returns {name: {"seconds" (that nvcc's own
+    wall time), "ptxas", "path", "cached"}}; raises with nvcc's output if
+    any build fails."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path() if any(not library_path(n).exists() for n in names) else None
     procs, info = {}, {}
@@ -66,15 +68,27 @@ def build_all(names=SOURCES) -> dict[str, dict]:
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)
+    done = {}
+
+    def wait(name, proc):   # each nvcc's own wall time
+        log, _ = proc.communicate()
+        done[name] = (log, time.perf_counter() - t0)
+
+    threads = [threading.Thread(target=wait, args=(name, proc))
+               for name, (proc, _, _) in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     failed = []
     for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
+        log, seconds = done[name]
         if proc.returncode != 0:
             failed.append(f"--- {name} (exit {proc.returncode}) ---\n{log}")
             continue
         os.replace(tmp, out)
-        info[name] = {"seconds": time.perf_counter() - t0, "ptxas": log,
-                      "path": str(out), "cached": False}
+        info[name] = {"seconds": seconds, "ptxas": log, "path": str(out),
+                      "cached": False}
     if failed:
         raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
     return info

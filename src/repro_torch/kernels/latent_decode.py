@@ -7,20 +7,23 @@ K5 ``latent_decode_attention_mq``, K4 ``latent_decode_attention_paged`` and
 K7 ``latent_decode_attention_mq_paged`` (the Pallas TPU kernels).  Which
 CUDA body serves which (kernel, dtype):
 
-  bf16  K1, K4 (and K3, K6 of ``latent_decode_q``): the tensor-core body
-        of ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring columns per
-        block up to rank 256 and 128 past it, R_k streamed per head slot
+  bf16  all of them (and K3, K6 of ``latent_decode_q``): the tensor-core
+        body of ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring
+        columns per block for one query up to rank 256, 128 for the verify
+        bodies and past rank 256, 64 where nothing wider fits, so every
+        rank up to s * dh at group_size <= 8; R_k streamed per head slot
         through a cp.async ring, keys and P as bf16 hi + lo), one
-        instantiation per row map: K1 reads ring row b * S + t, K4 the
-        pool row through the page table, so K4 equals K1 on the
-        table-gathered ring bit for bit; K3 is K1's over int8 latents; K6
-        scores up to 4 query sets per block and covers any nq with more
-        blocks; past 16 query rows per group (Hg > 16) each body splits
-        the group's head slots over more blocks;
-  bf16  K5, K7: the CUDA-core template of ``csrc/latent_decode.cu``;
-  f32   all of them: the same template, the parity instantiations the 1e-4
-        checks use (K4 and K7 in f32 equal K1 and K5 on the gathered ring
-        bit for bit: same tiles, same order).
+        instantiation per row map: K1 / K5 read ring row b * S + t, K4 /
+        K7 the pool row through the page table, so K4 / K7 equal K1 / K5
+        on the table-gathered ring bit for bit; K3 / K6 are K1's / K5's
+        over int8 latents; K5, K6, K7 score up to 4 query sets per block
+        and cover any nq with more blocks; past 16 query rows per group
+        (Hg > 16) each body splits the group's head slots over more
+        blocks;
+  f32   all of them: the CUDA-core template of ``csrc/latent_decode.cu``,
+        the parity instantiations the 1e-4 checks use (K4 and K7 in f32
+        equal K1 and K5 on the gathered ring bit for bit: same tiles, same
+        order).
 
 Each source's header says what bounds it on an H100 and how its design
 answers it; keys are never written to device memory.  A shape outside a
@@ -155,7 +158,7 @@ _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
 # eps), stream — one argument list for the six entry points of
-# csrc/latent_decode.cu and the four of csrc/latent_decode_tc.cu.
+# csrc/latent_decode.cu and the six of csrc/latent_decode_tc.cu.
 _ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
 ENTRY_POINTS = {  # entry point -> its library
@@ -168,18 +171,22 @@ ENTRY_POINTS = {  # entry point -> its library
     "recalkv_latent_decode_tc": "latent_decode_tc",
     "recalkv_latent_decode_quant_tc": "latent_decode_tc",
     "recalkv_latent_decode_paged_tc": "latent_decode_tc",
+    "recalkv_latent_decode_mq_tc": "latent_decode_tc",
     "recalkv_latent_decode_mq_quant_tc": "latent_decode_tc",
+    "recalkv_latent_decode_mq_paged_tc": "latent_decode_tc",
 }
 # The limits of the bf16 tensor-core bodies (csrc/latent_decode_tc.cu::
 # shapes_ok): kind, q_per_kv at most, whether nq may exceed 1.  Besides,
 # r_k, r_v multiples of 8 whose block fits in shared memory
-# (recalkv_tc_chunk > 0: ranks up to 544 for K6, 696 for K3, 704 for K1 /
-# K4 at dh 128).  Any Hg: past 16 query rows a group's head slots split
-# over blocks.
+# (recalkv_tc_chunk > 0: at dh 128 every rank up to 1,232 for the verify
+# bodies and 1,440 for the others, past the s * dh = 1,024 of group_size
+# 8).  Any Hg: past 16 query rows a group's head slots split over blocks.
 _TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 8, False),
               "recalkv_latent_decode_quant_tc": ("int8 ring", 8, False),
               "recalkv_latent_decode_paged_tc": ("paged", 8, False),
-              "recalkv_latent_decode_mq_quant_tc": ("int8 multi-query", 16, True)}
+              "recalkv_latent_decode_mq_tc": ("multi-query", 16, True),
+              "recalkv_latent_decode_mq_quant_tc": ("int8 multi-query", 16, True),
+              "recalkv_latent_decode_mq_paged_tc": ("paged multi-query", 16, True)}
 
 
 def _check_ptab(ptab, q):
@@ -205,7 +212,7 @@ def _lib(name: str):
                 fn.argtypes = _ARGTYPES
                 fn.restype = ctypes.c_int
         if name == "latent_decode":
-            lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 7
+            lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 6
             lib.recalkv_latent_decode_smem.restype = ctypes.c_longlong
         else:
             lib.recalkv_tc_chunk.argtypes = [ctypes.c_int] * 5
@@ -222,9 +229,9 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
            scales=(None, None, None, None), ptab=None):
     """Check the operands and launch one entry point (the caller counts the
     launch): a ``*_tc`` one runs the bf16 tensor-core body of
-    ``csrc/latent_decode_tc.cu``, the others the CUDA-core template of
-    ``csrc/latent_decode.cu``.  ``zk``/``zv`` (and the self latents) are
-    q's dtype, or int8 with ``scales`` = (zk_scale, zv_scale,
+    ``csrc/latent_decode_tc.cu``, the others the float32 CUDA-core
+    template of ``csrc/latent_decode.cu``.  ``zk``/``zv`` (and the self
+    latents) are q's dtype, or int8 with ``scales`` = (zk_scale, zv_scale,
     self_zk_scale, self_zv_scale) float32.  With ``ptab`` (B, n_sp) int32
     the latents are a page-major pool and the ring has S = n_sp *
     page_size columns; the chunking is the ring's.  A shape outside the
@@ -242,9 +249,9 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     quant = scales[0] is not None
     tc = _TC_BODIES.get(entry)
     name = f"bf16 {tc[0]} kernel" if tc else "latent decode kernel"
-    if dt not in ((torch.bfloat16,) if tc else (torch.bfloat16, torch.float32)):
-        raise TypeError(f"the {name} takes {'bf16' if tc else 'bf16 or f32'} q, "
-                        f"got {dt}")
+    want = torch.bfloat16 if tc else torch.float32
+    if dt != want:
+        raise TypeError(f"the {name} takes {want} q, got {dt}")
     lat_dt = torch.int8 if quant else dt
     selfs = [self_zk, self_zv] if self_zk is not None else []
     if any(t.dtype != lat_dt for t in [zk, zv] + selfs) or r_k.dtype != dt:
@@ -283,8 +290,7 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
                              f"multiples of 8 whose block fits in shared "
                              f"memory)")
     else:
-        smem = lib.recalkv_latent_decode_smem(int(dt == torch.bfloat16), int(quant),
-                                              dh, QH, nq, rk, rv)
+        smem = lib.recalkv_latent_decode_smem(int(quant), dh, QH, nq, rk, rv)
         if smem > _SMEM_LIMIT:
             raise ValueError(f"latent decode tile needs {smem} B of shared memory "
                              f"(limit {_SMEM_LIMIT}) at {QH} rows, r_k={rk}, "
@@ -354,15 +360,17 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                self_zv=None, self_cos=None, self_sin=None):
     """K5: nq = bias.shape[1] verify queries per head in one pass (keys
     rebuilt once per tile, scored by every query).  Device rule and
-    launch counter as for K1."""
+    launch counter as for K1; bf16 runs the tensor-core kernel, float32
+    the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("multi-query latent decode", q):
         return latent_decode_attention_mq_plain(q, zk, zv, r_k, cos, sin, bias,
                                                 **kw)
-    out = launch("recalkv_latent_decode_mq", q, zk, zv, r_k, cos, sin, bias,
-                 scale, k_norm, norm_eps, self_zk, self_zv, self_cos, self_sin,
-                 nq=bias.shape[1])
+    entry = ("recalkv_latent_decode_mq_tc" if q.dtype == torch.bfloat16
+             else "recalkv_latent_decode_mq")
+    out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
+                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1])
     latent_decode_attention_mq.launches += 1
     return out
 
@@ -396,15 +404,17 @@ def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                      self_zk=None, self_zv=None, self_cos=None,
                                      self_sin=None):
     """K7: K5 over a page-major pool through ``ptab``.  Device rule and
-    counter as for K1."""
+    counter as for K1; bf16 runs K5's tensor-core kernel through the page
+    table, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("paged multi-query latent decode", q):
         return latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos,
                                                       sin, bias, **kw)
-    out = launch("recalkv_latent_decode_mq_paged", q, zk, zv, r_k, cos, sin,
-                 bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
-                 self_sin, nq=bias.shape[1], ptab=ptab)
+    entry = ("recalkv_latent_decode_mq_paged_tc" if q.dtype == torch.bfloat16
+             else "recalkv_latent_decode_mq_paged")
+    out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
+                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1], ptab=ptab)
     latent_decode_attention_mq_paged.launches += 1
     return out
 

@@ -14,7 +14,8 @@ K3 and K6 with bf16 q and r_k run the tensor-core body of
 ``csrc/latent_decode_tc.cu`` (the int8 latents converted to bf16 on their
 way into shared memory, which is exact): K3 is K1's instantiation with
 int8 latents (one query, 256 ring columns per block up to rank 256), K6
-scores up to 4 query sets per head slot in 128-column blocks.  With
+is K5's, scoring up to 4 query sets per head slot in 128-column blocks
+(64 at ranks where 128 columns do not fit).  With
 float32 q and r_k both run their parity instantiations on the CUDA-core
 template of ``csrc/latent_decode.cu``.
 

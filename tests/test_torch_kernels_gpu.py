@@ -10,13 +10,14 @@ Tolerances: max |kernel - plain| <= 1e-4 in float32 (TF32 off; the
 summation order differs) and <= 2e-2 in bf16 (one bf16 rounding of
 outputs of order 1); the bf16 tensor-core bodies of K2 and K4 are also held
 to chip_smoke.py's per-element limit 2e-2 |plain| + 1e-2 rms(plain) at the
-main path's widths, and so are K3's and K6's (int8 latents), K2 at other
+main path's widths, and so are K3's, K5's, K6's and K7's, K2 at other
 value widths and every decode body at 32 query rows per group (group_size
-8).  K3 / K6 compare with
-their plain versions on the same int8 latents and scales.  K7 (the paged
-pool) and K4 must also equal K5 / K1 on the table-gathered ring bit for
-bit, in both types: they run the same tiles in the same order on the same
-values (in bf16 K4 and K1 are one tensor-core body with two row maps).
+8) and at every rank up to s * dh (64-column chunks past the wider
+plans).  K3 / K6 compare with their plain versions on the same int8
+latents and scales.  K7 (the paged pool) and K4 must also equal K5 / K1
+on the table-gathered ring bit for bit, in both types: they run the same
+tiles in the same order on the same values (in bf16 K4 / K7 and K1 / K5
+are one tensor-core body with two row maps).
 """
 
 import dataclasses
@@ -584,15 +585,16 @@ def test_engine_int8_ring_serves_spec_depth_4(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("r", [256, 512])
+@pytest.mark.parametrize("r", [256, 512, 768, 1024])
 def test_bf16_bodies_serve_32_query_rows_per_group(cuda, r):
     """group_size 8: G = 1 group of s = 8 head slots with q_per_kv 4, so
-    Hg = 32 query rows per group, past a block's 16 (64 for K6): the head
-    slots split over blocks along grid z.  bf16 K1, K3 and K4 (one query,
-    self column) and K6 (nq 4 verify queries) on a ragged ring of 320
-    tokens (rank 512 takes 128-column chunks) within the bf16 limit of
-    their plain versions; K4 on a shuffled pool equals K1 bit for bit; the
-    dead row 2 is exact 0."""
+    Hg = 32 query rows per group, past a block's 16 (64 for the verify
+    bodies): the head slots split over blocks along grid z.  bf16 K1, K3
+    and K4 (one query, self column) and K5, K6 and K7 (nq 4 verify
+    queries) on a ragged ring of 320 tokens (rank 512 takes 128-column
+    chunks, 768 and 1024 64-column ones) within the bf16 limit of their
+    plain versions; K4 and K7 on a shuffled pool equal K1 and K5 bit for
+    bit; the dead row 2 is exact 0."""
     S, ps, dh = 320, 16, 128
     bf = torch.bfloat16
     for nq in (1, 4):
@@ -608,6 +610,18 @@ def test_bf16_bodies_serve_32_query_rows_per_group(cuda, r):
             got = _check_bf16(KQ.latent_decode_attention_mq_quant,
                               KQ.latent_decode_attention_mq_quant_plain, args, kw)
             assert (got[2] == 0).all()
+            kw = dict(base, self_zk=a["self_zk"].to(bf), self_zv=a["self_zv"].to(bf),
+                      self_cos=a["self_cos"], self_sin=a["self_sin"])
+            tables = (a["cos"], a["sin"], a["bias"])
+            ring = _check_bf16(K1.latent_decode_attention_mq,
+                               K1.latent_decode_attention_mq_plain,
+                               (q, zk, zv, r_k, *tables), kw)
+            assert (ring[2] == 0).all()
+            ptab, pzk, pzv = _shuffled_pool(zk, zv, ps, r + 1)
+            paged = _check_bf16(K1.latent_decode_attention_mq_paged,
+                                K1.latent_decode_attention_mq_paged_plain,
+                                (ptab, q, pzk, pzv, r_k, *tables), kw)
+            assert torch.equal(ring, paged)
             continue
         bias = a["bias"][:, 0, :S].contiguous()
         tables = (a["cos"], a["sin"], bias)
@@ -629,6 +643,64 @@ def test_bf16_bodies_serve_32_query_rows_per_group(cuda, r):
                    self_cos=sel("self_cos"), self_sin=sel("self_sin"))
         _check_bf16(KQ.latent_decode_attention_quant, KQ.latent_decode_attention_quant_plain,
                     (q, *q8["zk"], *q8["zv"], r_k, *tables), kw3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("Hg,s", [(16, 4), (32, 8)])
+def test_k5_k7_bf16_tensor_cores_ragged_ring(cuda, Hg, s):
+    """bf16 K5 and K7 on the tensor-core body (nq 4, r_k = r_v = 256:
+    128-column chunks) over a ragged ring of 320 tokens: row 1 is live
+    below position 40 only, row 2 is masked everywhere (exact 0), and
+    query 1 of row 0 is masked everywhere (its rows exact 0); within the
+    bf16 limit of their plain versions, one launch per call, and K7 on a
+    shuffled pool equal to K5 bit for bit.  At Hg = 32 (G = 1, s = 8) the
+    head slots split over blocks along grid z."""
+    S, ps, dh = 320, 16, 128
+    a = _ring(cuda, 250 + Hg, S=S, G=32 // Hg, s=s, qpk=4, dh=dh, rk=256, rv=256, nq=4)
+    a["bias"][0, 1] = -1e30
+    bf = torch.bfloat16
+    q, r_k, zk, zv = (a[k].to(bf) for k in ("q", "r_k", "zk", "zv"))
+    kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_zk=a["self_zk"].to(bf),
+              self_zv=a["self_zv"].to(bf), self_cos=a["self_cos"], self_sin=a["self_sin"])
+    tables = (a["cos"], a["sin"], a["bias"])
+    ring = _check_bf16(K1.latent_decode_attention_mq, K1.latent_decode_attention_mq_plain,
+                       (q, zk, zv, r_k, *tables), kw)
+    assert (ring[2] == 0).all()
+    assert (ring[0, :, Hg:2 * Hg] == 0).all()
+    assert (ring[0, :, :Hg] != 0).any()
+    ptab, pzk, pzv = _shuffled_pool(zk, zv, ps, Hg)
+    paged = _check_bf16(K1.latent_decode_attention_mq_paged,
+                        K1.latent_decode_attention_mq_paged_plain,
+                        (ptab, q, pzk, pzv, r_k, *tables), kw)
+    assert torch.equal(ring, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh,s,nq,r", [(128, 4, 2, 624), (64, 8, 1, 832), (64, 8, 4, 832)])
+def test_bf16_bodies_serve_ranks_past_the_128_column_plans(cuda, dh, s, nq, r):
+    """bf16 K5 at nq = 2, r = 624 (spec_depth 1 at a rank the CUDA-core
+    template served; the tensor-core body takes 64-column chunks there),
+    and the dh = 64 instantiations of the 64-column plan (r = 832: K1 and
+    K5), on a ragged ring of 320 tokens within the bf16 limit of their
+    plain versions; K4 / K7 on a shuffled pool equal K1 / K5 bit for bit."""
+    S, ps = 320, 16
+    a = _ring(cuda, 270 + dh + nq + r, S=S, G=1, s=s, qpk=4, dh=dh, rk=r, rv=r, nq=nq)
+    bf = torch.bfloat16
+    q, r_k, zk, zv = (a[k].to(bf) for k in ("q", "r_k", "zk", "zv"))
+    sel = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+    kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_zk=sel(a["self_zk"]).to(bf),
+              self_zv=sel(a["self_zv"]).to(bf), self_cos=sel(a["self_cos"]),
+              self_sin=sel(a["self_sin"]))
+    tables = (a["cos"], a["sin"], a["bias"][:, 0, :S].contiguous() if nq == 1 else a["bias"])
+    mq = "" if nq == 1 else "_mq"
+    ring_k = getattr(K1, f"latent_decode_attention{mq}")
+    paged_k = getattr(K1, f"latent_decode_attention{mq}_paged")
+    ring = _check_bf16(ring_k, getattr(K1, ring_k.__name__ + "_plain"),
+                       (q, zk, zv, r_k, *tables), kw)
+    ptab, pzk, pzv = _shuffled_pool(zk, zv, ps, r)
+    paged = _check_bf16(paged_k, getattr(K1, paged_k.__name__ + "_plain"),
+                        (ptab, q, pzk, pzv, r_k, *tables), kw)
+    assert torch.equal(ring, paged)
 
 
 @pytest.mark.gpu
@@ -715,31 +787,35 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
             tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
     # the bf16 tensor-core bodies hold at most 8 query rows per head slot
-    # (16 for K6), r_k and r_v multiples of 8 whose block fits in shared
-    # memory (any number of query rows per group: past 16 the head slots
-    # split over blocks)
+    # (16 for the verify bodies), r_k and r_v multiples of 8 whose block
+    # fits in shared memory (every rank up to s * dh; any number of query
+    # rows per group: past 16 the head slots split over blocks)
     bf = torch.bfloat16
     rk_bf = torch.randn(2, 256, 512, device=cuda).to(bf)
     with pytest.raises(ValueError, match="bf16 paged kernel"):
         K1.latent_decode_attention_paged(
             tab2, qm[:, :, :16].to(bf), pm.to(bf), pm.to(bf), rk_bf[..., :128], tm, tm,
             torch.zeros(1, 8, device=cuda), scale=1.0)
-    z712 = torch.zeros(1, 8, 2, 712, device=cuda, dtype=bf)
-    with pytest.raises(ValueError, match="bf16 ring kernel"):
-        K1.latent_decode_attention(qm[:, :, :16].to(bf), z712, z712,
-                                   torch.randn(2, 712, 512, device=cuda).to(bf), tm, tm,
-                                   torch.zeros(1, 8, device=cuda), scale=1.0)
+    # ranks past the 128-column plans take 64-column chunks: K1 at r = 712
+    # and K6 at r = 576 are served (both were refused before that plan)
+    cs, sn = ops.rope_tables_for(torch.arange(8, device=cuda)[None], 128, 1e6)
+    z712 = torch.randn(1, 8, 2, 712, device=cuda).to(bf)
+    args712 = (qm[:, :, :16].to(bf), z712, z712,
+               (torch.randn(2, 712, 512, device=cuda) / math.sqrt(712)).to(bf), cs, sn,
+               torch.zeros(1, 8, device=cuda))
+    _within_bf16_limit(K1.latent_decode_attention(*args712, scale=128 ** -0.5),
+                       K1.latent_decode_attention_plain(*args712, scale=128 ** -0.5))
     with pytest.raises(ValueError, match="bf16 ring kernel"):
         K1.latent_decode_attention(q.to(bf), z.to(bf), z.to(bf),
                                    torch.randn(1, 8, 192, device=cuda).to(bf), tab, tab,
                                    torch.zeros(1, 4, device=cuda), scale=1.0)
     z8 = torch.zeros(1, 8, 2, 256, dtype=torch.int8, device=cuda)
     s8 = torch.ones(1, 8, 2, device=cuda)
-    z576 = torch.zeros(1, 8, 2, 576, dtype=torch.int8, device=cuda)
-    with pytest.raises(ValueError, match="bf16 int8 multi-query kernel"):
-        KQ.latent_decode_attention_mq_quant(
-            qm.to(bf), z576, s8, z576, s8, torch.randn(2, 576, 512, device=cuda).to(bf),
-            tm, tm, torch.zeros(1, 5, 8, device=cuda), scale=1.0)
+    z576 = torch.randint(-127, 128, (1, 8, 2, 576), dtype=torch.int8, device=cuda)
+    r576 = (torch.randn(2, 576, 512, device=cuda) / math.sqrt(576)).to(bf)
+    args576 = (qm.to(bf), z576, s8, z576, s8, r576, cs, sn, torch.zeros(1, 5, 8, device=cuda))
+    _within_bf16_limit(KQ.latent_decode_attention_mq_quant(*args576, scale=0.01),
+                       KQ.latent_decode_attention_mq_quant_plain(*args576, scale=0.01))
     z12 = torch.zeros(1, 8, 2, 12, dtype=torch.int8, device=cuda)
     with pytest.raises(ValueError, match="bf16 int8 multi-query kernel"):
         KQ.latent_decode_attention_mq_quant(qm[:, :, :64].to(bf), z8, s8, z12, s8, rk_bf,

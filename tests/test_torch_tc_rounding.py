@@ -1,6 +1,6 @@
 """The precision budget of the bf16 tensor-core kernels, on the CPU.
 
-K2 (``csrc/flash_prefill.cu``) and K1, K3, K4 and K6 (``csrc/latent_decode_tc.cu``)
+K2 (``csrc/flash_prefill.cu``) and K1 and K3-K7 (``csrc/latent_decode_tc.cu``)
 multiply bf16 operands on tensor cores with f32 accumulation.  This file
 emulates, in plain torch, the points where their bf16 bodies round, and
 holds each emulation to ``chip_smoke.py``'s bf16 limit of the f32 plain
@@ -23,8 +23,17 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
   and the nq self columns, 128-column chunks.
 * K3: K1's body over int8 latents (K6's conversion and scales), one query
   with its self column at bias 0, 256-column chunks up to rank 256.
+* K5: K6's body over bf16 latents: nq queries, each with its own bias row
+  over the ring and the nq self columns, 128-column chunks.  K7 is K5's
+  body through a page table, as K4 is K1's.
+* The 64-column plan: past the ranks whose 128-column block fits in
+  shared memory (the one-query bodies past rank ~700, the verify bodies
+  past 544 at dh 128, up to s * dh = 1,024 at group_size 8) every body
+  takes 64-column chunks;
+  two warps then share a key m-tile, which reorders f32 sums and moves no
+  rounding point, so the emulations run with ``chunk=64``.
 
-One bf16 rounding of P (K2), or of the keys and P (K3, K4, K6), is what a plain
+One bf16 rounding of P (K2), or of the keys and P (K3-K6), is what a plain
 bf16 tensor-core design would do; ``test_one_bf16_rounding_is_measured``
 records its error beside the split's.
 
@@ -39,6 +48,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.latent_decode import latent_decode_attention_mq as jax_k5
 from repro.kernels.latent_decode_q import latent_decode_attention_mq_quant as jax_k6
 from repro.kernels.latent_decode_q import latent_decode_attention_quant as jax_k3
 from repro_torch.kernels import flash_prefill as K2
@@ -202,6 +212,18 @@ def k6_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
                        rounding=rounding, chunk=chunk)
 
 
+def k5_emulated(q, zk, zv, r_k, cos, sin, bias, *, k_norm, self_zk, self_zv, self_cos,
+                self_sin, eps=1e-6, rounding="split", chunk=128):
+    """K5's bf16 body: bf16 ring latents (B,S,G,r), the nq self columns'
+    latents (B,nq,G,r) and rotation tables appended after the ring, bias
+    (B,nq,S+nq) per query; 128-column chunks (64 past rank 544 at dh 128).
+    Returns (B,G,nq*Hg,rv) f32 before the output rounding."""
+    cat = lambda a, b: torch.cat([a, b], dim=1)
+    return tc_emulated(q, cat(zk, self_zk), cat(zv, self_zv), r_k, cat(cos, self_cos),
+                       cat(sin, self_sin), bias, k_norm=k_norm, eps=eps, rounding=rounding,
+                       chunk=chunk)
+
+
 def k3_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
                 self_zk_q=None, self_zk_s=None, self_zv_q=None, self_zv_s=None,
                 self_cos=None, self_sin=None, eps=1e-6, rounding="split", chunk=256):
@@ -282,6 +304,8 @@ K4_CASES = {
     "narrow": (300, 2, 8, 4, 64, 32, 48, (300, 180, None), 256),
     "main_widths": (1024, 2, 16, 4, 128, 256, 256, (1024, 614, None), 256),
     "rank_384": (1024, 2, 16, 4, 128, 384, 384, (1024, 614, None), 128),
+    # group_size 8 at rank s * dh: 64-column chunks, a short ring
+    "group8_rank_1024": (300, 1, 32, 8, 128, 1024, 1024, (300, 180, None), 64),
 }
 
 
@@ -366,11 +390,14 @@ def test_k1_body_is_k4_emulated_on_the_ring():
 
 
 K6_CASES = {
-    # name: (B, S, G, Hg, s, nq, dh, r_k, r_v, tokens per row; None: masked row)
-    "narrow": (3, 300, 2, 4, 2, 3, 16, 8, 12, (300, 40, None)),
-    "main_widths": (3, 1024, 2, 16, 4, 4, 128, 256, 256, (1024, 614, None)),
+    # name: (B, S, G, Hg, s, nq, dh, r_k, r_v, tokens per row (None: masked
+    #        row), the kernel's chunk at these widths)
+    "narrow": (3, 300, 2, 4, 2, 3, 16, 8, 12, (300, 40, None), 128),
+    "main_widths": (3, 1024, 2, 16, 4, 4, 128, 256, 256, (1024, 614, None), 128),
     # spec_depth 4 (two query blocks in the kernel) at rank 512
-    "nq5_rank_512": (3, 512, 2, 16, 4, 5, 128, 512, 512, (512, 300, None)),
+    "nq5_rank_512": (3, 512, 2, 16, 4, 5, 128, 512, 512, (512, 300, None), 128),
+    # group_size 8 at rank 768: 64-column chunks, a short ring
+    "group8_rank_768": (2, 300, 1, 32, 8, 4, 128, 768, 768, (300, None), 64),
 }
 
 
@@ -381,7 +408,7 @@ def _k6_inputs(case):
     bf16 q and r_k (scaled by r^-1/2); nq verify queries at positions
     cur..cur+nq-1 with their self columns.  Returns (ring operands, self
     keyword operands, the same columns appended to the ring)."""
-    B, S, G, Hg, s, nq, dh, rk, rv, lens = K6_CASES[case]
+    B, S, G, Hg, s, nq, dh, rk, rv, lens, _ = K6_CASES[case]
     rng = np.random.default_rng(sum(map(ord, case)) + 6)
     mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
     i8 = lambda *sh: torch.from_numpy(rng.integers(-127, 128, sh, dtype=np.int8))
@@ -419,7 +446,7 @@ def _k6_call(fn, ring, selfs, kn, **kw):
 @pytest.mark.parametrize("case", sorted(K6_CASES))
 def test_k6_emulation_without_rounding_equals_plain(case):
     ring, selfs, kn, _ = _k6_inputs(case)
-    got = _k6_call(k6_emulated, ring, selfs, kn, rounding=None)
+    got = _k6_call(k6_emulated, ring, selfs, kn, rounding=None, chunk=K6_CASES[case][-1])
     want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
                     scale=ring["q"].shape[-1] ** -0.5)
     torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
@@ -445,9 +472,88 @@ def test_k6_tensor_core_rounding_within_bf16_limit(case):
     limit of the f32 plain version; the masked row stays exact 0, and so
     does every query row of a row whose bias is masked everywhere."""
     ring, selfs, kn, _ = _k6_inputs(case)
-    got = _k6_call(k6_emulated, ring, selfs, kn).to(torch.bfloat16)
+    got = _k6_call(k6_emulated, ring, selfs, kn, chunk=K6_CASES[case][-1]).to(torch.bfloat16)
     want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
                     scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+    assert _worst(got, want) <= 1
+    assert (got[-1] == 0).all()
+
+
+K5_CASES = {
+    # name: (B, S, G, Hg, s, nq, dh, r_k, r_v, tokens per row (None: masked
+    #        row), the kernel's chunk at these widths)
+    "narrow": (3, 300, 2, 4, 2, 3, 16, 8, 12, (300, 40, None), 128),
+    "main_widths": (3, 1024, 2, 16, 4, 4, 128, 256, 256, (1024, 614, None), 128),
+    # group_size 8 at rank s * dh: 64-column chunks, a short ring
+    "group8_rank_1024": (2, 300, 1, 32, 8, 4, 128, 1024, 1024, (300, None), 64),
+}
+
+
+def _k5_inputs(case):
+    """A bf16 ring like chip_smoke.py's K5 operands, ragged as in
+    ``_k6_inputs`` (row 0 drops its last fed token, a None row is masked
+    everywhere); bf16 latents, q and r_k (scaled by r^-1/2); nq verify
+    queries at positions cur..cur+nq-1 with their self columns."""
+    B, S, G, Hg, s, nq, dh, rk, rv, lens, _ = K5_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 5)
+    mk = lambda *sh: torch.from_numpy(rng.standard_normal(sh, dtype=np.float32))
+    pos = torch.arange(S).repeat(B, 1)
+    for b, n in enumerate(lens):
+        pos[b, n or 0:] = -1
+    cur = torch.tensor([n or S for n in lens])
+    pos_q = cur[:, None] + torch.arange(nq)
+    feed = torch.ones(B, nq, dtype=torch.bool)
+    feed[0, -1] = False
+    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+    self_cos, self_sin = ops.rope_tables_for(pos_q, dh, 1e6)
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    for b, n in enumerate(lens):
+        if n is None:
+            bias[b] = NEG_INF
+    a = dict(q=_bf16(mk(B, G, nq * Hg, dh)), zk=_bf16(mk(B, S, G, rk)),
+             zv=_bf16(mk(B, S, G, rv)), r_k=_bf16(mk(G, rk, s * dh) * rk ** -0.5),
+             cos=cos, sin=sin, bias=bias)
+    kw = dict(k_norm=0.1 * mk(dh), self_zk=_bf16(mk(B, nq, G, rk)),
+              self_zv=_bf16(mk(B, nq, G, rv)), self_cos=self_cos, self_sin=self_sin)
+    return a, kw
+
+
+def _k5_call(fn, a, kw, **extra):
+    return fn(*[a[k] for k in ("q", "zk", "zv", "r_k", "cos", "sin", "bias")], **kw, **extra)
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_emulation_without_rounding_equals_plain(case):
+    a, kw = _k5_inputs(case)
+    got = _k5_call(k5_emulated, a, kw, rounding=None, chunk=K5_CASES[case][-1])
+    want = _k5_call(K1.latent_decode_attention_mq_plain, a, kw,
+                    scale=a["q"].shape[-1] ** -0.5)
+    torch.testing.assert_close(got, want, atol=F32_TOL, rtol=F32_TOL)
+
+
+def test_k5_emulation_without_rounding_equals_pallas_interpret():
+    """The narrow case against the JAX Pallas kernel in interpret mode,
+    which takes the self columns appended to the ring (three 128-column
+    chunks here, 64-column blocks there)."""
+    a, kw = _k5_inputs("narrow")
+    got = _k5_call(k5_emulated, a, kw, rounding=None)
+    j = lambda t: jnp.asarray(t.numpy())
+    cat = lambda k: j(torch.cat([a[k], kw["self_" + k]], 1))
+    want = jax_k5(j(a["q"]), cat("zk"), cat("zv"), j(a["r_k"]), cat("cos"), cat("sin"),
+                  j(a["bias"]), scale=a["q"].shape[-1] ** -0.5, block_s=64, interpret=True,
+                  k_norm=j(kw["k_norm"]))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(K5_CASES))
+def test_k5_tensor_core_rounding_within_bf16_limit(case):
+    """K5's rounding points (K6's, over bf16 latents) keep the bf16 output
+    within chip_smoke.py's limit of the f32 plain version; the masked row
+    stays exact 0, every query row of it."""
+    a, kw = _k5_inputs(case)
+    got = _k5_call(k5_emulated, a, kw, chunk=K5_CASES[case][-1]).to(torch.bfloat16)
+    want = _k5_call(K1.latent_decode_attention_mq_plain, a, kw,
+                    scale=a["q"].shape[-1] ** -0.5).to(torch.bfloat16)
     assert _worst(got, want) <= 1
     assert (got[-1] == 0).all()
 
@@ -562,14 +668,22 @@ def _budgets():
         ring, selfs, kn, _ = _k6_inputs(case)
         want = _k6_call(KQ.latent_decode_attention_mq_quant_plain, ring, selfs, kn,
                         scale=ring["q"].shape[-1] ** -0.5).to(torch.bfloat16)
-        out["K6", case] = {r: _worst(_k6_call(k6_emulated, ring, selfs, kn, rounding=r)
+        out["K6", case] = {r: _worst(_k6_call(k6_emulated, ring, selfs, kn, rounding=r,
+                                              chunk=K6_CASES[case][-1])
+                                     .to(torch.bfloat16), want) for r in ("split", "one")}
+    for case in sorted(K5_CASES):
+        a, kw = _k5_inputs(case)
+        want = _k5_call(K1.latent_decode_attention_mq_plain, a, kw,
+                        scale=a["q"].shape[-1] ** -0.5).to(torch.bfloat16)
+        out["K5", case] = {r: _worst(_k5_call(k5_emulated, a, kw, rounding=r,
+                                              chunk=K5_CASES[case][-1])
                                      .to(torch.bfloat16), want) for r in ("split", "one")}
     return out
 
 
 def test_one_bf16_rounding_is_measured():
     """The split's reason, measured: one bf16 rounding of P (K2), or of the
-    keys and P (K3, K4, K6), errs more than the split in every case, and at
+    keys and P (K3-K6), errs more than the split in every case, and at
     K2's main widths by more than twice."""
     b = _budgets()
     assert all(v["split"] < v["one"] for v in b.values())
@@ -578,14 +692,16 @@ def test_one_bf16_rounding_is_measured():
 
 if __name__ == "__main__":
     # python tests/test_torch_tc_rounding.py [--ring]: the budgets as a
-    # table; --ring adds K3, K4 and K6 on ragged rings of chip_smoke.py's widths
+    # table; --ring adds K3-K6 on ragged rings of chip_smoke.py's widths
     # (4 rows of 1500-4096 tokens in S = 4096).
     import sys
     if "--ring" in sys.argv:
         K4_CASES["ring_4096"] = (4096, 2, 16, 4, 128, 256, 256, (1500, 4096, 2500, 3300),
                                  256)
         K6_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 4, 128, 256, 256,
-                                 (1500, 4096, 2500, 3300))
+                                 (1500, 4096, 2500, 3300), 128)
+        K5_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 4, 128, 256, 256,
+                                 (1500, 4096, 2500, 3300), 128)
         K3_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 128, 256, 256,
                                  (1500, 4096, 2500, 3300), 256)
     for (kern, case), v in sorted(_budgets().items()):
