@@ -29,7 +29,15 @@ Phases, in order (any failure exits non-zero; none is caught):
    512, 768 and 1024, K4 equal to K1 and K7 to K5 bit for bit; K1 and K5
    at group_size 8 on full 4096-token rings at ranks 544-1024, timed
    beside their bounds (what the 64-column plan costs); and K2 at value
-   widths 128, 152, 384, 512 and 1024 in float32 and bf16;
+   widths 128, 152, 384, 512 and 1024 in float32 and bf16; then the dense
+   cores (the dense KV cache through K1, K4, K5 and K7 at qwen3-4b's
+   heads: G = Hkv = 8 groups of one kv head, Hg = 4, r = dh = 128, an
+   identity R_k and identity rotation tables) in f32 and bf16, K4 / K7
+   equal to K1 / K5 on the gathered ring bit for bit, each timed beside
+   its bound and one ``scaled_dot_product_attention`` call (GQA, additive
+   mask) on the same ring plus the self columns, with the SDPA backend
+   PyTorch picks; and the float32 template at the widths its row-block
+   plans open (K1 and K5 at group_size 8, ranks 768 / 1024, nq 1 / 4);
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
    and decode steps, and prefill and one 4-token verify step on float and
@@ -59,10 +67,32 @@ Phases, in order (any failure exits non-zero; none is caught):
    C's prompts (K2 at dv = 768, K5 at 32 query rows per group and rank
    768: 64-column chunks), after its kernel backend's decode and verify
    logits are held to the einsum reference's;
-6. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
+6. the dense qwen3-4b (``recalkv=None``; its own random weights, G's
+   freed first): prefill, decode and a 4-token verify step through both
+   backends (logits within 5e-2 relative), decode and verify on a paged
+   pool equal to the ring's bit for bit (these steps' launches count as
+   the run "steps": K4's and K5's dense cores); then
+   H, float ring, no speculation, 4 prompts of 512-1024 tokens (one
+   streams 256 tokens through the decode loop) (K2 at Hv = 8, dv = 128,
+   K1's dense core);
+   I, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
+   prompts (K7's dense core);
+   J, compress then serve: ``api.calibrate`` on 8 synthetic sequences of
+   512 tokens, ``api.compress`` ("recalkv", keep ratio 0.5, backend
+   "pallas": G = 2, r = 256), ``save_artifact`` under ``build/``, the
+   dense model freed, ``Engine.from_artifact`` serving C's prompts + 16
+   new on the float ring (K1, K2 at dv = 256).  It prints the seconds of
+   each step, each layer's value error before and after ALS (a rise past
+   1e-3 relative fails), the HSR groups and their within-group CKA
+   against the identity grouping's, and peak memory; each run's cache
+   must hold 4,096 B per token and layer dense and 2,048 B compressed,
+   read from the allocated tensors;
+7. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
-   error, ``launches`` its launches over runs A-G), the card line, and the
-   final ``{"ok": true, "device": {...}}`` line.
+   error, ``launches`` its launches over the runs, ``launches_by_run`` by
+   run; the four dense cores are entries of their own, counted on their
+   wrappers' "dense" route), the card line, and the final ``{"ok": true,
+   "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
 JAX or of the JAX package.
@@ -72,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -149,30 +180,40 @@ def compare(name, got, want, dtype) -> float:
     return diff.max().item()
 
 
-def ring_inputs(torch, gen, nq=1):
+def ring_inputs(torch, gen, nq=1, dense=False):
     """Main-path operands: B=8, a full 4096-token ring, G=2, Hg=16, dh=128,
-    r=256, s=4, with nq queries and their nq self columns (float32)."""
+    r=256, s=4, with nq queries and their nq self columns (float32).  With
+    ``dense``, the dense cores' operands at qwen3-4b's heads: G = Hkv = 8
+    groups of s = 1, Hg = 4, the keys and values as r = dh = 128 latents
+    behind an identity R_k, no k-norm, identity rotation tables (cos 1,
+    sin 0, the self columns' too: dense keys are stored after RoPE)."""
     from repro_torch.kernels import ops
-    B, S, G, Hg, dh, r, s = 8, 4096, 2, 16, 128, 256, 4
+    B, S, dh = 8, 4096, 128
+    G, Hg, r, s = (8, 4, 128, 1) if dense else (2, 16, 256, 4)
+    theta = None if dense else 1e6
     dev = "cuda"
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)
     pos = torch.arange(S, device=dev).expand(B, S).contiguous()
     cur = torch.full((B,), S, device=dev)
     pos_q = cur[:, None] + torch.arange(nq, device=dev)
     feed = torch.ones((B, nq), dtype=torch.bool, device=dev)
-    cos, sin = ops.rope_tables_for(pos, dh, 1e6)
-    cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+    cos, sin = ops.rotation_tables(pos, dh, theta)
+    cs, ss = ops.rotation_tables(pos_q, dh, theta)
     bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
     return dict(q=rn(B, G, nq * Hg, dh), zk=rn(B, S, G, r), zv=rn(B, S, G, r),
-                r_k=rn(G, r, s * dh) * r ** -0.5, self_zk=rn(B, nq, G, r),
+                r_k=(torch.eye(dh, device=dev).expand(G, dh, dh).contiguous() if dense
+                     else rn(G, r, s * dh) * r ** -0.5),
+                self_zk=rn(B, nq, G, r),
                 self_zv=rn(B, nq, G, r), cos=cos, sin=sin, self_cos=cs, self_sin=ss,
-                bias=bias, k_norm=0.1 * rn(dh), shape=(B, S, G, Hg, dh, r, s, nq))
+                bias=bias, k_norm=None if dense else 0.1 * rn(dh),
+                shape=(B, S, G, Hg, dh, r, s, nq))
 
 
-def kernel_phase(torch, name, kernel, plain, make, flops, meta):
+def kernel_phase(torch, name, kernel, plain, make, flops, meta, bytes_=None):
     """Check ``kernel`` against ``plain`` in f32 and bf16 on the operands
     ``make(dtype)`` returns as (args, kwargs); time both (bf16) and return
-    the kernels-line entry with the bound from this call's bytes."""
+    the kernels-line entry with the bound from this call's bytes (or
+    ``bytes_(args, kwargs, out)``)."""
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         args, kw = make(dt)
@@ -181,7 +222,8 @@ def kernel_phase(torch, name, kernel, plain, make, flops, meta):
         res[dt] = compare(name, got, plain(*args, **kw), dt)
     ms = cuda_ms(lambda: kernel(*args, **kw))
     plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
-    b_ms, by = bound(nbytes(*args, *kw.values(), got), flops)
+    b_ms, by = bound(nbytes(*args, *kw.values(), got) if bytes_ is None
+                     else bytes_(args, kw, got), flops)
     log(f"{name} {meta['shape']}: max err f32 {res[torch.float32]:.3e} bf16 "
         f"{res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({by})")
@@ -194,6 +236,131 @@ def decode_flops(B, S_ext, G, Hg, dh, r, s, nq):
     """Key reconstruction once per column, then nq*Hg rows of scores and
     latent values per column."""
     return 2.0 * B * G * S_ext * (r * s * dh + nq * Hg * (dh + r))
+
+
+def dense_flops(B, S_ext, G, Hg, dh, nq):
+    """The dense function's operations: q . k and p . v for nq * Hg rows
+    per column (the identity rebuild is the port's, not the function's)."""
+    return 2.0 * B * G * S_ext * nq * Hg * 2 * dh
+
+
+# The dense cores: each rides a latent kernel (its entry's ``kernel``),
+# as the JAX package's ops cores do; ``replaces`` is that kernel's
+# pallas_call and ``jax_core`` the JAX core that sets it up.
+DENSE_CORES = {
+    "latent_decode_attention": dict(
+        name="dense_decode", kernel="latent_decode_attention",
+        jax_core="src/repro/kernels/ops.py:238 (_dense_ring_core)"),
+    "latent_decode_attention_mq": dict(
+        name="dense_decode_mq", kernel="latent_decode_attention_mq",
+        jax_core="src/repro/kernels/ops.py:272 (_dense_ring_core_mq)"),
+    "latent_decode_attention_paged": dict(
+        name="dense_decode_paged", kernel="latent_decode_attention_paged",
+        jax_core="src/repro/kernels/ops.py:533 (_dense_paged_core)"),
+    "latent_decode_attention_mq_paged": dict(
+        name="dense_decode_mq_paged", kernel="latent_decode_attention_mq_paged",
+        jax_core="src/repro/kernels/ops.py:565 (_dense_paged_core_mq)"),
+}
+
+
+def sdpa_time(torch, qg, k, v, self_k, self_v, bias, nq):
+    """The library yardstick of a dense core: one
+    ``scaled_dot_product_attention`` call (GQA, additive mask) over the
+    same ring plus the self columns, laid out outside the timed region;
+    the port never calls it.  Returns (ms, the backend PyTorch picks)."""
+    from torch.nn.attention import SDPBackend
+    B, G, QH, dh = qg.shape
+    Hg = QH // nq
+    q = qg.reshape(B, G, nq, Hg, dh).permute(0, 1, 3, 2, 4).reshape(B, G * Hg, nq, dh)
+    if self_k.dim() == 3:
+        self_k, self_v = self_k[:, None], self_v[:, None]
+        bias = torch.cat([bias, bias.new_zeros(B, 1)], dim=1)[:, None]
+    kt = torch.cat([k, self_k.to(k.dtype)], 1).transpose(1, 2).contiguous()
+    vt = torch.cat([v, self_v.to(v.dtype)], 1).transpose(1, 2).contiguous()
+    mask = bias[:, None].to(q.dtype)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    choice = torch._fused_sdp_choice(q, kt, vt, mask, 0.0, False, scale=dh ** -0.5,
+                                     enable_gqa=True)
+    ms = cuda_ms(lambda: sdpa(q, kt, vt, attn_mask=mask, scale=dh ** -0.5,
+                              enable_gqa=True), iters=50)
+    return ms, SDPBackend(choice).name
+
+
+def phase_dense(torch, gen, nq):
+    """The dense ring cores, K1 (nq = 1) and K5 (nq = 4), at qwen3-4b's
+    dense shape (``ring_inputs(dense=True)``) against their plain
+    versions in f32 and bf16, timed beside their bound (the dense
+    function's bytes: q, K, V, self K / V, mask, output) and one SDPA
+    call on the same ring plus the self columns."""
+    from repro_torch.kernels import latent_decode as K
+    a = ring_inputs(torch, gen, nq, dense=True)
+    B, S, G, Hg, dh, r, s, _ = a["shape"]
+    one = nq == 1
+    sel = (lambda x: x[:, 0]) if one else (lambda x: x)
+    bias = a["bias"][:, 0, :S].contiguous() if one else a["bias"]
+
+    def make(dt):
+        t = {k: a[k].to(dt) for k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv")}
+        kw = dict(scale=dh ** -0.5, self_zk=sel(t["self_zk"]), self_zv=sel(t["self_zv"]),
+                  self_cos=sel(a["self_cos"]), self_sin=sel(a["self_sin"]))
+        return (t["q"], t["zk"], t["zv"], t["r_k"], a["cos"], a["sin"], bias), kw
+
+    fn = "latent_decode_attention" if one else "latent_decode_attention_mq"
+    line = 177 if one else 338
+    meta = {"source": "src/repro_torch/csrc/latent_decode_tc.cu",
+            "replaces": f"src/repro/kernels/latent_decode.py:{line}",
+            "tpu_kernel": f"src/repro/kernels/latent_decode.py::{fn}",
+            "shape": (f"B={B} S={S}+{nq} G=Hkv={G} Hg={Hg} s=1 nq={nq} dh=r={dh}, "
+                      f"identity R_k and tables, bf16")}
+    def dense_bytes(args, kw, out):     # not the identity R_k nor the tables
+        return nbytes(*args[:3], kw["self_zk"], kw["self_zv"], args[-1], out)
+
+    entry = kernel_phase(torch, DENSE_CORES[fn]["name"], getattr(K, fn),
+                         getattr(K, fn + "_plain"), make,
+                         dense_flops(B, S + nq, G, Hg, dh, nq), meta, dense_bytes)
+    args, kw = make(torch.bfloat16)
+    library_ms, backend = sdpa_time(torch, args[0], args[1], args[2], kw["self_zk"],
+                                    kw["self_zv"], bias, nq)
+    log(f"dense core {fn} nq={nq}: sdpa {library_ms:.4f} ms ({backend}); kernel "
+        f"{entry['ms'] / entry['bound_ms']:.1f}x its bound, "
+        f"{entry['ms'] / library_ms:.2f}x sdpa")
+    entry.update(DENSE_CORES[fn], library_ms=library_ms, sdpa_backend=backend,
+                 launch_key=fn + ":dense")
+    return entry
+
+
+def phase_f32_widths(torch, gen):
+    """The float32 template (the parity instantiations) at the widths its
+    row-block plans open: K1 and K5 (nq 4) at group_size 8 (G = 1, s = 8,
+    Hg = 32) and ranks 768 / 1,024, B = 2 rows of a 1024-token ring,
+    against their plain versions within 1e-4 (TF32 off).  Not the main
+    path's launches."""
+    from repro_torch.kernels import latent_decode as K
+    from repro_torch.kernels import ops
+    B, S, G, s, qpk, dh = 2, 1024, 1, 8, 4, 128
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    out = {}
+    for r in (768, 1024):
+        for nq in (1, 4):
+            pos = torch.arange(S, device="cuda").expand(B, S).contiguous()
+            pos_q = torch.full((B, 1), S, device="cuda") + torch.arange(nq, device="cuda")
+            cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+            cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+            feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
+            bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+            args = [rn(B, G, nq * s * qpk, dh), rn(B, S, G, r), rn(B, S, G, r),
+                    rn(G, r, s * dh) * r ** -0.5, cos, sin,
+                    bias[:, 0, :S].contiguous() if nq == 1 else bias]
+            sel = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+            kw = dict(scale=dh ** -0.5, k_norm=0.1 * rn(dh), self_zk=sel(rn(B, nq, G, r)),
+                      self_zv=sel(rn(B, nq, G, r)), self_cos=sel(cs), self_sin=sel(ss))
+            fn = "latent_decode_attention" if nq == 1 else "latent_decode_attention_mq"
+            got = getattr(K, fn)(*args, **kw)
+            torch.cuda.synchronize()
+            err = compare(f"{fn} f32 template r={r} Hg=32 nq={nq}", got,
+                          getattr(K, fn + "_plain")(*args, **kw), torch.float32)
+            out[f"{fn} r={r} nq={nq}"] = err
+    return out
 
 
 def phase_latent(torch, gen, nq, quant):
@@ -447,7 +614,7 @@ def k2_widths(torch, gen):
                     for dv, ms in times.items()))
 
 
-def paged_inputs(torch, gen, nq):
+def paged_inputs(torch, gen, nq, dense=False):
     """K4 / K7 operands: ``ring_inputs``' latents paged into a pool through
     a ragged table.  Row b holds ``lens[b]`` tokens (1024..4096); its pages
     sit at shuffled physical pages, pages past its length on the null page
@@ -456,8 +623,9 @@ def paged_inputs(torch, gen, nq):
     table gathers.  Returns (operands, the K1 / K5 ring view of the same
     content, the bound's byte and FLOP counts)."""
     from repro_torch.kernels import ops
-    a = ring_inputs(torch, gen, nq)
+    a = ring_inputs(torch, gen, nq, dense)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
+    theta = None if dense else 1e6
     n_sp = S // PAGE
     g = torch.Generator().manual_seed(SEED + 3)
     lens = torch.randint(1024, S + 1, (B,), generator=g)
@@ -485,13 +653,14 @@ def paged_inputs(torch, gen, nq):
     t = torch.arange(S, device="cuda")
     pos = torch.where(t[None] < cur[:, None], t[None], -1)
     pos_q = cur[:, None] + torch.arange(nq, device="cuda")
-    a["cos"], a["sin"] = ops.rope_tables_for(pos, dh, 1e6)
-    a["self_cos"], a["self_sin"] = ops.rope_tables_for(pos_q, dh, 1e6)
+    a["cos"], a["sin"] = ops.rotation_tables(pos, dh, theta)
+    a["self_cos"], a["self_sin"] = ops.rotation_tables(pos_q, dh, theta)
     feed = torch.ones((B, nq), dtype=torch.bool, device="cuda")
     bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
     a["bias"] = bias[:, 0, :S].contiguous() if nq == 1 else bias
     cols = int(used.sum()) * PAGE          # mapped ring columns (tiles not skipped)
-    flops = 2.0 * G * (cols + B * nq) * (r * s * dh + nq * Hg * (dh + r))
+    flops = (dense_flops(1, cols + B * nq, G, Hg, dh, nq) if dense else
+             2.0 * G * (cols + B * nq) * (r * s * dh + nq * Hg * (dh + r)))
     return a, ptab, pools, cols, flops
 
 
@@ -512,7 +681,7 @@ def in_order(torch, ptab, pools):
     return order, out
 
 
-def phase_paged(torch, gen, nq):
+def phase_paged(torch, gen, nq, dense=False):
     """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
     pool, against the plain version in f32 and bf16.  Both must equal K1 /
     K5 on the gathered ring bit for bit in both types (same tiles, same
@@ -521,7 +690,7 @@ def phase_paged(torch, gen, nq):
     of the same pages.  Each is timed; the bound counts the mapped pages, the table and
     the slot-major tables of the mapped columns."""
     from repro_torch.kernels import latent_decode as K
-    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
+    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, dense)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
     one = nq == 1
     name = "latent_decode_attention_paged" if one else "latent_decode_attention_mq_paged"
@@ -563,24 +732,38 @@ def phase_paged(torch, gen, nq):
     elt = args[2].element_size()
     used_pages = int(torch.unique(ptab[ptab != 0]).numel())
     lat = used_pages * PAGE * G * 2 * r * elt
-    tables = cols * (dh * 4 + 4 * nq)            # cos + sin (f32) + bias per column
-    b_ms, by = bound(lat + tables + nbytes(ptab, args[1], args[4], got,
-                                           *[v for v in kw.values()
-                                             if hasattr(v, "numel")]), flops)
-    log(f"{name} B={B} S={S} page_size={PAGE} {used_pages} pages nq={nq}: max err f32 "
+    selfs = [kw["self_zk"], kw["self_zv"]]
+    if dense:   # the dense function's own operands: pages, table, q, self K/V, mask
+        b_ms, by = bound(lat + cols * 4 * nq + nbytes(ptab, args[1], got, *selfs), flops)
+    else:
+        tables = cols * (dh * 4 + 4 * nq)            # cos + sin (f32) + bias per column
+        b_ms, by = bound(lat + tables + nbytes(ptab, args[1], args[4], got,
+                                               *[v for v in kw.values()
+                                                 if hasattr(v, "numel")]), flops)
+    library_ms = backend = None
+    if dense:
+        library_ms, backend = sdpa_time(torch, args[1], view_args[1], view_args[2],
+                                        *selfs, view_args[-1], nq)
+    log(f"{'dense core ' if dense else ''}{name} B={B} S={S} page_size={PAGE} "
+        f"{used_pages} pages nq={nq}: max err f32 "
         f"{res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, "
         f"{ring.__name__} on the view {view_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({by})")
+        f"{b_ms:.4f} ms ({by})"
+        + (f", sdpa {library_ms:.4f} ms ({backend})" if dense else ""))
     line = 456 if one else 567
-    return {"name": name, "route": "cuda", "source": "src/repro_torch/csrc/latent_decode_tc.cu",
-            "replaces": f"src/repro/kernels/latent_decode.py:{line}",
-            "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
-            "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
-            "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": None, "view_ms": view_ms,
-            "view_max_abs_diff": view_err[torch.bfloat16],
-            "shape": (f"B={B} S={S}+{nq} page_size={PAGE} pages={used_pages} G={G} "
-                      f"Hg={Hg} nq={nq} dh={dh} r={r} bf16, ragged table")}
+    entry = {"name": name, "route": "cuda",
+             "source": "src/repro_torch/csrc/latent_decode_tc.cu",
+             "replaces": f"src/repro/kernels/latent_decode.py:{line}",
+             "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
+             "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+             "library_ms": library_ms, "view_ms": view_ms,
+             "view_max_abs_diff": view_err[torch.bfloat16],
+             "shape": (f"B={B} S={S}+{nq} page_size={PAGE} pages={used_pages} G={G} "
+                       f"Hg={Hg} nq={nq} dh={dh} r={r} bf16, ragged table")}
+    if dense:
+        entry.update(DENSE_CORES[name], launch_key=name + ":dense", sdpa_backend=backend)
+    return entry
 
 
 def phase_k2(torch, gen):
@@ -660,7 +843,8 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
         err = (ker - ref).abs().max().item()
         rel = err / ref.abs().max().item()
         agree = (ker.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        log(f"full-width backends, {what}: logits max abs err {err:.4e} (relative "
+        log(f"full-width backends{' (dense)' if cfg.recalkv is None else ''}, {what}: "
+            f"logits max abs err {err:.4e} (relative "
             f"{rel:.3e}), greedy agreement {agree:.3f} over {ker[..., 0].numel()} rows")
         if rel > 5e-2:
             raise AssertionError(f"kernel backend {what} logits differ from einsum by "
@@ -670,7 +854,7 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
     return out
 
 
-def phase_paged_steps(torch, cfg, params):
+def phase_paged_steps(torch, cfg, params, bits_list=(None, 8)):
     """Decode and 4-token verify steps on paged float and int8 pools
     (page_size 16, every slot page mapped at a shuffled physical page)
     holding the content of a prefilled ring (B=2, prompts of 512 and 300
@@ -707,9 +891,9 @@ def phase_paged_steps(torch, cfg, params):
             raise AssertionError(f"{name}: logits differ from the ring's by {diff:.3e}")
         out[name] = diff
 
-    for bits in (None, 8):
+    for bits in bits_list:
         c = dataclasses.replace(cfg, cache_quant_bits=bits)
-        kind = "int8" if bits else "float"
+        kind = ("int8" if bits else "float") + (" dense" if cfg.recalkv is None else "")
         _, ring = T.prefill(c, params, toks, lens, L)
         pool = T.init_decode_cache(c, B, L, "cuda", pages=(B * n_sp + 1, PAGE))
         _merge_slot_paged(pool, ring, rows, cols, pages[0].reshape(-1).long(), PAGE)
@@ -755,7 +939,20 @@ ENGINE_RUNS = {
     # verifying C's prompts
     "G": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
               must=("flash_prefill_attention", "latent_decode_attention_mq")),
+    # the dense model (recalkv=None): K2 at Hv = 8, dv = 128, and the dense
+    # cores through K1 (H) and K7 (I)
+    "H": dict(bits=None, depth=0, draft=None, chunk=768, sync=16,
+              must=("flash_prefill_attention", "latent_decode_attention:dense")),
+    "I": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
+              must=("flash_prefill_attention", "latent_decode_attention_mq_paged:dense"),
+              paged=dict(cache_layout="paged", page_size=PAGE,
+                         policy="reach-packing")),
+    # the artifact the port compressed from H's model (r = 256, G = 2)
+    "J": dict(bits=None, depth=0, draft=None, chunk=None, sync=16, new=16,
+              must=("flash_prefill_attention", "latent_decode_attention")),
 }
+# bytes of K / V (or latents) per token and layer each run's cache must hold
+CACHE_BYTES = {"H": 4096, "I": 4096, "J": 2048}
 # runs F and G's latent caches: one group of all 8 kv heads (32 query rows
 # per group) at rank 512 = s * dh / 2 (F) and 768 (G, keep ratio 0.75);
 # r_v the value width of their K2
@@ -775,22 +972,52 @@ def engine_prompts(torch, run, vocab):
         return [(np.concatenate([system, rand(n)]), D_NEW) for n in D_SUFFIX]
     if run == "F":
         return [(rand(512), 32)]
-    motif = rand(64)        # C, E and G: a motif repeated, for prompt lookup
+    if run == "H":          # 512..1024; the 1024 one streams 256 tokens
+        return [(rand(n), 32) for n in (512, 640, 768, 1024)]
+    motif = rand(64)        # C, E, G, I and J: a motif repeated, for prompt lookup
     return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
 
 
-def phase_engine(torch, cfg, params, run):
+def launch_counts(kernels) -> dict:
+    """Launches since the last reset, by wrapper; K1, K4, K5 and K7 by
+    route ("name" counts the latent route, "name:dense" the dense one)."""
+    out = {k.__name__: k.launches for k in kernels.KERNELS}
+    for k in kernels.ROUTED:
+        out[k.__name__] = k.launches_by_route["latent"]
+        out[k.__name__ + ":dense"] = k.launches_by_route["dense"]
+    return out
+
+
+def cache_bytes(torch, cache) -> tuple[int, int]:
+    """(K / V or latent bytes, position bytes) per token of one layer,
+    read from the allocated tensors (ring (B, L, ...) or pool (n_pages,
+    page_size, ...) leaves)."""
+    leaves = cache[0]["self"]
+    per = {k: v[0, 0].numel() * v.element_size() for k, v in leaves.items()}
+    return sum(b for k, b in per.items() if k != "pos"), per["pos"]
+
+
+def phase_engine(torch, cfg, params, run, artifact=None):
+    """One engine run; with ``artifact`` (a saved path) the engine boots
+    through ``Engine.from_artifact`` instead of (cfg, params)."""
     from repro_torch import kernels
     from repro_torch.serving import Engine, Request
     spec = ENGINE_RUNS[run]
     bits, depth, draft, must = spec["bits"], spec["depth"], spec["draft"], spec["must"]
-    c = dataclasses.replace(cfg, cache_quant_bits=bits)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    eng = Engine(c, params, max_slots=8, max_len=4096, sync_every=spec["sync"],
-                 prefill_chunk=spec["chunk"], spec_depth=depth, draft=draft,
-                 **spec.get("paged", {}))
+    kw = dict(max_slots=8, max_len=4096, sync_every=spec["sync"],
+              prefill_chunk=spec["chunk"], spec_depth=depth, draft=draft,
+              **spec.get("paged", {}))
+    if artifact is None:
+        eng = Engine(dataclasses.replace(cfg, cache_quant_bits=bits), params, **kw)
+    else:
+        eng = Engine.from_artifact(artifact, **kw)
+        cfg = eng.cfg
+    kv_bytes, pos_bytes = cache_bytes(torch, eng.cache)
     reqs = engine_prompts(torch, run, cfg.vocab_size)
+    if "new" in spec:
+        reqs = [(p, spec["new"]) for p, _ in reqs]
     for uid, (prompt, n_new) in enumerate(reqs):
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
     kernels.reset_launch_counts()
@@ -798,7 +1025,7 @@ def phase_engine(torch, cfg, params, run):
     done = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels.KERNELS}
+    launches = launch_counts(kernels)
     m = eng.metrics()
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pool = {k: m[k] for k in ("cache_layout", "page_size", "pages_total", "pages_peak",
@@ -810,7 +1037,11 @@ def phase_engine(torch, cfg, params, run):
         f"{m['tokens_per_s']:.2f} tok/s, ttft {m['ttft_s']:.3f} s, windows "
         f"{m['windows']}, accept rate {m['accept_rate']:.3f} ({m['draft_accepted']}/"
         f"{m['draft_proposed']}), prefill calls {m['prefill_calls']}, peak memory "
-        f"{peak:.2f} GiB, launches {launches}, pool {pool}")
+        f"{peak:.2f} GiB, cache bytes per token and layer {kv_bytes} (+ {pos_bytes} "
+        f"position), launches {launches}, pool {pool}")
+    if run in CACHE_BYTES and kv_bytes != CACHE_BYTES[run]:
+        raise AssertionError(f"engine run {run}: the cache holds {kv_bytes} B per token "
+                             f"and layer, expected {CACHE_BYTES[run]}")
     if len(done) != len(reqs) or any(len(r.out_tokens) != n for r, (_, n) in
                                      zip(sorted(done, key=lambda r: r.uid), reqs)):
         raise AssertionError(f"engine run {run} did not finish every request")
@@ -827,7 +1058,74 @@ def phase_engine(torch, cfg, params, run):
         **{k: m[k] for k in ("tokens", "tokens_per_s", "ttft_s", "windows",
                              "prefill_calls", "run_seconds", "spec_depth", "draft",
                              "draft_proposed", "draft_accepted", "accept_rate")},
-        **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall}
+        **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall,
+        "cache_bytes_per_token_layer": kv_bytes, "pos_bytes_per_token_layer": pos_bytes}
+
+
+ARTIFACT = ROOT / "build" / "chip_smoke_artifact"   # gitignored
+ALS_RISE = 1e-3     # a value group's error may rise under ALS by rounding only
+
+
+def phase_compress(torch, cfg, params) -> dict:
+    """Run J's first half on the dense model: ``calibrate`` on 8 synthetic
+    "calib" sequences of 512 tokens (vocab 4096: valid ids of the full
+    vocabulary, and a 134 MB transition table instead of 185 GB),
+    ``compress`` with "recalkv" at keep ratio 0.5 on the kernel backend
+    (named "pallas", JAX's alias), and ``save_artifact``.  Prints the
+    seconds of each, each layer's value error before and after ALS (a
+    rise past ALS_RISE relative fails: each ALS step is an exact
+    minimiser), the HSR groups and their within-group CKA against the
+    identity grouping's (printed only: random heads leave near-ties)."""
+    from repro_torch import api
+    from repro_torch.data import DataConfig, batch
+    t0 = time.perf_counter()
+    batches = [batch(DataConfig(vocab_size=4096, seq_len=512), "calib", 0, 8)]
+    data_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    calib = api.calibrate(cfg, params, batches)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = api.compress(cfg, params, api.CompressionSpec(
+        "recalkv", rank_policy=api.RankPolicy(keep_ratio=0.5), backend="pallas"), calib)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    rt = art.cfg.recalkv
+    if (rt.num_groups(cfg.num_kv_heads), rt.rank_k, rt.rank_v) != (2, 256, 256) \
+            or art.cfg.attn_backend != "kernel":
+        raise AssertionError(f"compressed config {rt}, backend {art.cfg.attn_backend}")
+    worst, rows = 0.0, []
+    for i, rep in enumerate(art.provenance["layers"]):
+        for g, (e0, e1) in enumerate(rep["value_errors"]):
+            worst = max(worst, (e1 - e0) / e0)
+        rows.append(rep)
+        log(f"layer {i}: HSR groups {rep['groups']}, within-group CKA {rep['cka_hsr']:.4f} "
+            f"(identity grouping {rep['cka_identity']:.4f}), value error before / after "
+            f"ALS " + ", ".join(f"{e0:.5e} / {e1:.5e}" for e0, e1 in rep["value_errors"]))
+    if worst > ALS_RISE:
+        raise AssertionError(f"a value group's error rose by {worst:.3e} relative under "
+                             f"ALS (limit {ALS_RISE})")
+    t0 = time.perf_counter()
+    api.save_artifact(art, str(ARTIFACT))
+    save_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for layer in art.params["layers"] for d in layer.values()
+                   for t in (d.values() if isinstance(d, dict) else [d])) \
+        + art.params["embed"].numel()
+    gain = [r["cka_hsr"] - r["cka_identity"] for r in rows]
+    log(f"compression: data {data_s:.2f} s, calibrate {calib_s:.2f} s ({calib.token_count} "
+        f"tokens), compress {compress_s:.2f} s, save {save_s:.2f} s; {n_params / 1e9:.3f} B "
+        f"params; peak memory {peak:.2f} GiB; worst relative value-error change under ALS "
+        f"{worst:.3e}; HSR within-group CKA minus identity's: mean {np.mean(gain):.4f}, "
+        f"min {min(gain):.4f}")
+    return {"data_s": data_s, "calibrate_s": calib_s, "compress_s": compress_s,
+            "save_s": save_s, "peak_gib": peak, "params_b": n_params / 1e9,
+            "calib_tokens": calib.token_count, "worst_als_rise": worst,
+            "cka_hsr_minus_identity_mean": float(np.mean(gain)),
+            "layers": [{"groups": r["groups"], "cka_hsr": r["cka_hsr"],
+                        "cka_identity": r["cka_identity"],
+                        "value_errors": r["value_errors"]} for r in rows]}
 
 
 def main() -> int:
@@ -838,6 +1136,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
     from repro_torch.configs import get_config
     from repro_torch.kernels import build
     from repro_torch.models.config import ReCalKVRuntime
@@ -856,14 +1155,14 @@ def main() -> int:
         for k, v in info.items())
     log(f"kernels built in {time.perf_counter() - t0:.2f} s: {built}")
     for name, v in info.items():
-        kernels = build.ptxas_summary(v["ptxas"])
-        for e in kernels:
+        ptx = build.ptxas_summary(v["ptxas"])
+        for e in ptx:
             log(f"ptxas {name}: {e['kernel']}: {e['registers']} registers, spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
             if name == "latent_decode_tc" and (e["spill_stores"] or e["spill_loads"]):
                 raise AssertionError(f"{e['kernel']} spills registers")
         if name == "latent_decode_tc" and not v["cached"]:
-            log(f"no spill in the {len(kernels)} kernels of latent_decode_tc.cu (K1, K3-K7 "
+            log(f"no spill in the {len(ptx)} kernels of latent_decode_tc.cu (K1, K3-K7 "
                 f"at every block plan, and the merge)")
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -873,6 +1172,12 @@ def main() -> int:
                phase_paged(torch, gen, 4)]
     wide_ranks = phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
+    t_dense = time.perf_counter()
+    entries += [phase_dense(torch, gen, 1), phase_paged(torch, gen, 1, dense=True),
+                phase_dense(torch, gen, 4), phase_paged(torch, gen, 4, dense=True)]
+    f32_widths = phase_f32_widths(torch, gen)
+    torch.cuda.empty_cache()
+    log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
     cfg = dataclasses.replace(cfg, attn_backend="kernel", dtype=torch.bfloat16)
@@ -902,13 +1207,38 @@ def main() -> int:
         backends[f"group_size 8, run {run}"] = phase_backends(torch, cfg, params,
                                                               verify_bits)
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    # the dense model: its prefill / decode / verify steps and paged steps
+    # (K2, and the dense cores through K1, K5, K4 and K7), runs H and I,
+    # then run J: compress it, free it, serve the artifact
+    del params
+    torch.cuda.empty_cache()
+    t_model = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-4b"), attn_backend="kernel",
+                              dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    kernels.reset_launch_counts()
+    backends["dense"] = phase_backends(torch, cfg, params, (None,))
+    backends["dense paged"] = phase_paged_steps(torch, cfg, params, (None,))
+    by_run["steps"] = launch_counts(kernels)
+    for run in "HI":
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    compression = phase_compress(torch, cfg, params)
+    del params   # the dense model goes; J boots from the saved artifact
+    torch.cuda.empty_cache()
+    by_run["J"], streams["J"], serving["J"] = phase_engine(torch, None, None, "J",
+                                                           artifact=str(ARTIFACT))
+    shutil.rmtree(ARTIFACT)
+    log(f"dense model, runs H-J and the compression took "
+        f"{time.perf_counter() - t_model:.1f} s")
     for e in entries:
-        e["launches_by_run"] = {run: by_run[run][e["name"]] for run in by_run}
+        key = e.get("launch_key", e["name"])
+        e["launches_by_run"] = {run: by_run[run][key] for run in by_run}
         e["launches"] = sum(e["launches_by_run"].values())
     never = [e["name"] for e in entries if e["launches"] <= 0]
     if never:
-        raise AssertionError(f"kernels never launched on the engine runs: {never}")
-    log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks}))
+        raise AssertionError(f"kernels never launched on the main path: {never}")
+    log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
+                    "f32_widths": f32_widths, "compression": compression}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

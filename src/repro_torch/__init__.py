@@ -1,8 +1,10 @@
-"""PyTorch / CUDA port of the ReCalKV serving path.
+"""PyTorch / CUDA port of ReCalKV: the compression pipeline (``core``,
+``models.compress``, ``api``) and the serving path over a dense or a
+latent KV cache.
 
 The package mirrors ``repro``'s layout (``models``, ``kernels``,
-``serving``, ``configs``, ``api``, ``checkpoint``) so that every module
-has an obvious counterpart.  It imports ``torch`` and ``numpy`` only —
+``serving``, ``core``, ``data``, ``quant``, ``configs``, ``api``,
+``checkpoint``) so that every module has an obvious counterpart.  It imports ``torch`` and ``numpy`` only —
 never ``jax`` and nothing of ``repro``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -1,0 +1,102 @@
+"""The three public verbs: ``calibrate`` once, ``compress`` many times,
+``serve`` anywhere (port of ``repro.api.facade``).
+
+    from repro_torch.api import (CompressionSpec, RankPolicy, calibrate,
+                                 compress, serve)
+
+    calib = calibrate(cfg, params, batches)
+    art = compress(cfg, params,
+                   CompressionSpec("recalkv",
+                                   rank_policy=RankPolicy(keep_ratio=0.5)),
+                   calib)
+    art.save("build/qwen3_r50")             # later: serve(...)
+    eng = serve("build/qwen3_r50", max_slots=8, max_len=4096)
+
+``compress`` also accepts the raw calibration batches (it captures the
+statistics itself) and a bare method name.  The params live on the
+device of the model (``cuda`` unless the caller built them on the CPU);
+the compression runs there.  ``calibrate(..., fisher=True)`` raises
+NotImplementedError: Fisher scores need the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Sequence
+
+import repro_torch.models.compress as C
+from repro_torch.api.artifact import CompressionArtifact
+from repro_torch.api.registry import get_strategy
+from repro_torch.api.spec import CalibrationData, CompressionSpec
+from repro_torch.core.pipeline import FISHER_NOT_PORTED
+from repro_torch.models.config import ModelConfig
+from repro_torch.serving.engine import Engine
+
+
+def calibrate(cfg: ModelConfig, params: Any, batches: Sequence[dict], *,
+              fisher: bool = False) -> CalibrationData:
+    """Run the calibration forward passes once and summarize them.
+    ``batches`` are dicts with "tokens" (B, T).  The result is
+    strategy-agnostic — capture once, reuse across ``compress`` calls."""
+    if fisher:
+        raise NotImplementedError(f"calibrate(..., fisher=True): {FISHER_NOT_PORTED}")
+    batches = list(batches)
+    stats = C.capture_calibration(cfg, params, batches)
+    tokens = sum(math.prod(b["tokens"].shape) for b in batches)
+    return CalibrationData(stats=stats, token_count=tokens)
+
+
+def _as_spec(spec) -> CompressionSpec:
+    if isinstance(spec, CompressionSpec):
+        return spec
+    if isinstance(spec, str):
+        return CompressionSpec(method=spec)
+    raise TypeError(f"spec must be a CompressionSpec or method name, "
+                    f"got {type(spec).__name__}")
+
+
+def compress(cfg: ModelConfig, params: Any,
+             spec: CompressionSpec | str = "recalkv",
+             calib: CalibrationData | Sequence[dict] | None = None,
+             ) -> CompressionArtifact:
+    """Compress a dense model with a registered strategy.  Returns a
+    :class:`CompressionArtifact`; ``save_artifact`` persists it in the
+    layout both packages read."""
+    spec = _as_spec(spec)
+    strategy = get_strategy(spec.method)
+    if calib is None:
+        calib = CalibrationData()
+    elif not isinstance(calib, CalibrationData):
+        calib = calibrate(cfg, params, calib, fisher=spec.rank_policy.use_fisher)
+    ccfg, cparams, info = strategy.compress(cfg, params, spec, calib)
+    if spec.backend is not None:
+        ccfg = dataclasses.replace(ccfg, attn_backend=spec.backend)
+    provenance = {
+        "method": spec.method,
+        "spec": spec.to_dict(),
+        "calib_tokens": calib.token_count,
+        "fisher": False,
+        **info,
+    }
+    provenance["group_size"] = ccfg.recalkv.group_size
+    provenance["ranks_by_layer"] = (
+        None if ccfg.recalkv.ranks_by_layer is None
+        else [list(r) for r in ccfg.recalkv.ranks_by_layer])
+    return CompressionArtifact(cfg=ccfg, params=cparams, provenance=provenance)
+
+
+def serve(artifact: CompressionArtifact | str, *, max_slots: int,
+          max_len: int, device=None, **engine_kw):
+    """Boot a serving :class:`repro_torch.serving.Engine` from a
+    compression artifact — the in-memory result of :func:`compress` or a
+    path ``save_artifact`` wrote (by either package).  ``engine_kw`` pass
+    through to the Engine (``sampling``, ``sync_every``,
+    ``prefill_chunk``, ``backend``, ``spec_depth`` / ``draft``,
+    ``cache_layout`` / ``page_size`` / ``n_pages``, ``policy``,
+    ``lazy_pages``, ``pin_prefixes``)."""
+    if isinstance(artifact, str):
+        return Engine.from_artifact(artifact, max_slots=max_slots,
+                                    max_len=max_len, device=device, **engine_kw)
+    return Engine(artifact.cfg, artifact.params, max_slots=max_slots,
+                  max_len=max_len, device=device, **engine_kw)

@@ -1,4 +1,5 @@
-from repro_torch.checkpoint.ckpt import (latest_step, load_flat, read_meta,
+from repro_torch.checkpoint.ckpt import (latest_step, load_flat, read_meta, save,
                                         tuple_paths, unflatten)
 
-__all__ = ["latest_step", "load_flat", "read_meta", "tuple_paths", "unflatten"]
+__all__ = ["latest_step", "load_flat", "read_meta", "save", "tuple_paths",
+           "unflatten"]

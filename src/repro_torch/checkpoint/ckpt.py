@@ -1,15 +1,63 @@
-"""Reader for the JAX package's npz + meta.json checkpoint layout
-(port of the read half of ``repro.checkpoint.ckpt``; numpy only).
+"""The JAX package's npz + meta.json checkpoint layout, read and written
+(port of ``repro.checkpoint.ckpt``'s synchronous save and its readers;
+numpy only).
 
 Layout:   <dir>/step_<n>/arrays.npz  +  meta.json
+
+A save writes into a temporary directory and moves it into place with
+``os.replace``, so a crashed writer never corrupts the latest step.
 """
 
 from __future__ import annotations
 
 import json
 import os
+import shutil
+import time
 
 import numpy as np
+
+
+def _flatten(tree, prefix=()) -> dict[str, np.ndarray]:
+    """'/'-joined paths (dict keys, sequence indices) -> numpy leaves, as
+    the JAX package's ``tree_flatten_with_path`` names them."""
+    if isinstance(tree, dict):
+        out = {}
+        for k in sorted(tree):
+            out.update(_flatten(tree[k], prefix + (str(k),)))
+        return out
+    if isinstance(tree, (tuple, list)):
+        out = {}
+        for i, v in enumerate(tree):
+            out.update(_flatten(v, prefix + (str(i),)))
+        return out
+    return {"/".join(prefix): np.asarray(tree)}
+
+
+def save(directory: str, step: int, tree, *, keep_last: int = 3,
+         extra_meta: dict | None = None) -> None:
+    """Write ``tree`` (nested dicts / tuples of numpy leaves) under
+    <directory>/step_<step>, atomically; ``extra_meta`` is merged into
+    meta.json.  Keeps the ``keep_last`` newest steps (0 keeps all)."""
+    os.makedirs(directory, exist_ok=True)
+    host = _flatten(tree)
+    final = os.path.join(directory, f"step_{step:08d}")
+    tmp = final + f".tmp.{os.getpid()}.{time.time_ns()}"
+    os.makedirs(tmp, exist_ok=True)
+    np.savez(os.path.join(tmp, "arrays.npz"), **host)
+    with open(os.path.join(tmp, "meta.json"), "w") as f:
+        json.dump({**(extra_meta or {}), "step": step, "keys": sorted(host)}, f)
+    if os.path.exists(final):
+        shutil.rmtree(final)
+    os.replace(tmp, final)
+    _trim(directory, keep_last)
+
+
+def _trim(directory: str, keep_last: int) -> None:
+    steps = sorted(d for d in os.listdir(directory)
+                   if d.startswith("step_") and not d.endswith(".tmp"))
+    for d in steps[:-keep_last] if keep_last else []:
+        shutil.rmtree(os.path.join(directory, d), ignore_errors=True)
 
 
 def latest_step(directory: str) -> int | None:

@@ -16,7 +16,8 @@
 //
 // For every (batch b, latent group g) and the R = nq * Hg query rows of
 // that group (nq queries, Hg = s * qpk heads each, rows ordered (query,
-// head); nq = 1 for K1/K3, spec_depth + 1 for K5/K6):
+// head); nq = 1 for K1/K3, spec_depth + 1 for K5/K6; a block takes the
+// rows of qpb queries and sps head slots, see the plan below):
 //
 //   K_i[t]  = RoPE_t( RMSNorm_(1+k_norm)( zk[b,t,g,:] @ R_k[g][:, i*dh:(i+1)*dh] ) )
 //   score   = scale * q[b,g,row,:] . K_{head(row) / qpk}[t] + bias[b,query(row),t]
@@ -76,16 +77,24 @@
 //    only warp shuffles.
 //  * Keys are rebuilt once per tile and scored by all nq queries (the
 //    verify kernels' reason to exist; K1 is not launched nq times).
-//  * Shared memory grows with the row count (q, acc and the tile's scores
-//    are R rows).  At Hg = 16, dh = 128, r_k = r_v = 256 the tile needs
-//    ~221 KB with nq = 4 and f32 latents and ~173 KB with int8:
-//    spec_depth = 3 fits both.  nq = 5 needs ~248 KB with f32 latents,
-//    over the 227 KB limit, and so do ranks past 536 (one query, Hg = 16)
-//    or 272 (nq = 4) with f32 latents; the wrapper raises on any shape over
-//    the limit instead of splitting rows across blocks, which would
-//    rebuild every key tile once per split.  Holding acc in registers
-//    would lift the limit; that is later work (these are the parity
-//    instantiations; bf16 serves from latent_decode_tc.cu).
+//  * Shared memory grows with the block's row count (q, acc and the
+//    tile's scores) and with the column tile times the rank (the staged
+//    latents).  At Hg = 16, dh = 128, r_k = r_v = 256 one block of all
+//    rows and a 32-column tile needs ~221 KB with nq = 4 and f32 latents;
+//    at group_size 8 (Hg = 32) and r = 1,024 the f32 latents of a
+//    32-column tile alone take 256 KB.  So each (kernel, shape) takes a
+//    plan — column tile SB in {32, 16, 8}, head slots per block sps
+//    (dividing s), queries per block qpb (dividing nq) — the first that
+//    fits, in the order: all rows (narrowing SB first), then fewer head
+//    slots per block, then fewer queries per block.  The extra blocks
+//    run along grid z.  A head-slot split costs only latent reloads (each
+//    slot's keys are rebuilt once either way); a query split rebuilds
+//    every key tile once per query block.  Every rank up to s * dh at
+//    group_size <= 8, Hg <= 32 and nq <= 8 fits (the wrapper,
+//    kernels/latent_decode.py, picks the plan; these are the parity
+//    instantiations, and bf16 serves from latent_decode_tc.cu).  A shape
+//    the main path had before keeps SB = 32 and one block of all rows,
+//    so its arithmetic, and K4 == K1 bit for bit, are unchanged.
 //  * Keys are never written to device memory.
 //
 // Contracts kept from the TPU kernels: masked logits use NEG_INF = -1e30
@@ -101,8 +110,8 @@
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int SB = 32;        // key tile (tokens); one token per lane
-constexpr int THREADS = 256;  // 8 warps
+constexpr int THREADS = 256;  // 8 warps; key tile SB in {32, 16, 8} tokens,
+                              // one token per lane (lanes past SB idle)
 constexpr int WARPS = THREADS / 32;
 constexpr int RC = 32;        // rank rows of R_k staged per pass
 
@@ -145,7 +154,13 @@ struct Args {
   const int* ptab;            // (B, S / page_size) page table, or null (ring)
   int page_size, n_pages;     // pool latents (n_pages, page_size, G, r)
   float scale, eps;
+  int sps, qpb;               // head slots and queries per block (the plan)
 };
+
+// Row blocks per (b, g): head-slot blocks times query blocks.
+__host__ __device__ __forceinline__ int row_blocks(const Args& a) {
+  return (a.s / a.sps) * (a.nq / a.qpb);
+}
 
 // Latent row of ring column t < S of batch row b: the slot-major ring
 // row, or the pool row through the page table.  A page index outside the
@@ -161,7 +176,8 @@ __device__ __forceinline__ int latent_row(const Args& a, int b, int t) {
 template <int DH>
 __host__ __device__ constexpr int k_stride() { return DH + 1; }
 
-template <typename L, int DH>
+// R: the block's rows (qpb * sps * qpk); nq: its queries (qpb).
+template <typename L, int DH, int SB>
 size_t smem_bytes(int R, int nq, int rk, int rv) {
   size_t floats = size_t(R) * DH + size_t(R) * rv + 3 * R + size_t(R) * SB +
                   size_t(nq) * SB + 2 * SB * (DH / 2) + SB * k_stride<DH>() + RC * DH +
@@ -170,8 +186,10 @@ size_t smem_bytes(int R, int nq, int rk, int rv) {
 }
 
 // L: latent storage (float, or int8_t with per-(token, group) float
-// scales); q, r_k and out are float.
-template <typename L, int DH>
+// scales); q, r_k and out are float.  Grid (n_chunks, G, B * row_blocks):
+// block z covers batch row z / row_blocks and, of that row's (query,
+// head) rows, queries j0 .. j0 + qpb - 1 and head slots i0 .. i0 + sps - 1.
+template <typename L, int DH, int SB>
 __global__ void __launch_bounds__(THREADS)
 latent_decode_partial(Args a) {
   constexpr int HALF = DH / 2;
@@ -180,12 +198,22 @@ latent_decode_partial(Args a) {
   constexpr int NI = SB / WARPS;     // key rows per warp
   constexpr bool QUANT = sizeof(L) == 1;
   static_assert(DH % 64 == 0, "dh must be a multiple of 64");
+  static_assert(SB % WARPS == 0 && SB <= 32, "SB: 8, 16 or 32 tokens");
 
-  const int chunk = blockIdx.x, g = blockIdx.y, b = blockIdx.z;
+  const int chunk = blockIdx.x, g = blockIdx.y;
+  const int n_rb = row_blocks(a), slot_blocks = a.s / a.sps;
+  const int b = blockIdx.z / n_rb, rb = blockIdx.z % n_rb;
+  const int i0 = (rb % slot_blocks) * a.sps, j0 = (rb / slot_blocks) * a.qpb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int Hg = a.Hg, rk = a.rk, rv = a.rv, s = a.s, G = a.G, S = a.S;
-  const int nq = a.nq, n_self = a.n_self, R = nq * Hg;
+  const int sps = a.sps, nq = a.qpb, n_self = a.n_self;
   const int qpk = Hg / s;
+  const int R = nq * sps * qpk, R_all = a.nq * Hg;
+  // block row hl = (query jl, slot il, head hh) -> the group's row
+  auto grow = [&](int hl) {
+    const int hh = hl % qpk, il = (hl / qpk) % sps, jl = hl / (qpk * sps);
+    return (j0 + jl) * Hg + (i0 + il) * qpk + hh;
+  };
   const int S_ext = S + n_self;
   const int t0 = chunk * a.chunk_len;
   const int t1 = min(S_ext, t0 + a.chunk_len);
@@ -215,8 +243,10 @@ latent_decode_partial(Args a) {
   const L* zk_self = static_cast<const L*>(a.zk_self);
   const L* zv_self = static_cast<const L*>(a.zv_self);
 
-  for (int e = tid; e < R * DH; e += THREADS)
-    q_s[e] = to_f(q[(size_t(b) * G + g) * R * DH + e]);
+  for (int e = tid; e < R * DH; e += THREADS) {
+    const int hl = e / DH;
+    q_s[e] = to_f(q[((size_t(b) * G + g) * R_all + grow(hl)) * DH + e - hl * DH]);
+  }
   for (int e = tid; e < R * rv; e += THREADS) acc_s[e] = 0.f;
   for (int e = tid; e < R; e += THREADS) { m_s[e] = NEG_INF; l_s[e] = 0.f; }
 
@@ -229,7 +259,7 @@ latent_decode_partial(Args a) {
         float bv = NEG_INF;
         if (t < t1)
           bv = (t < S || a.bias_cols > S)
-                   ? a.bias[(size_t(b) * nq + j) * a.bias_cols + t]
+                   ? a.bias[(size_t(b) * a.nq + j0 + j) * a.bias_cols + t]
                    : 0.f;                                  // K1/K3 self column
         bias_s[j * SB + tid] = bv;
         valid |= bv > NEG_INF * 0.5f;
@@ -292,7 +322,8 @@ latent_decode_partial(Args a) {
     }
     __syncthreads();
 
-    for (int i = 0; i < s; ++i) {
+    for (int il = 0; il < sps; ++il) {
+      const int i = i0 + il;
       // -- reconstruct this head slot's keys: (SB x rk) @ (rk x DH) -------
       // warp w owns key rows w + WARPS*ii; lane owns columns lane + 32*jj.
       float kacc[NI][NJ];
@@ -353,7 +384,7 @@ latent_decode_partial(Args a) {
       // -- scores of every query's qpk heads that read this slot -----------
       for (int e = tid; e < nq * qpk * SB; e += THREADS) {
         const int j = e / (qpk * SB), rem = e - j * qpk * SB;
-        const int h = j * Hg + i * qpk + rem / SB, t = rem % SB;
+        const int h = (j * sps + il) * qpk + rem / SB, t = rem % SB;
         float dot = 0.f;
 #pragma unroll 8
         for (int d = 0; d < DH; ++d) dot = fmaf(q_s[h * DH + d], k_s[t * KS + d], dot);
@@ -364,20 +395,21 @@ latent_decode_partial(Args a) {
 
     // -- online softmax: one warp per row, one lane per token -------------
     for (int h = warp; h < R; h += WARPS) {
-      const float sc = p_s[h * SB + lane];
+      const bool on = lane < SB;
+      const float sc = on ? p_s[h * SB + lane] : NEG_INF;
       const float m_tile = warp_max(sc);
       if (m_tile <= NEG_INF * 0.5f) {
         // this row sees no column of the tile (another query does): its
         // state stays as it is, so a row masked everywhere ends as 0
-        p_s[h * SB + lane] = 0.f;
+        if (on) p_s[h * SB + lane] = 0.f;
         if (lane == 0) corr_s[h] = 1.f;
         continue;
       }
       const float m_old = m_s[h];
       const float m_new = fmaxf(m_old, m_tile);
-      const float p = __expf(sc - m_new);
+      const float p = on ? __expf(sc - m_new) : 0.f;
       const float psum = warp_sum(p);
-      p_s[h * SB + lane] = QUANT ? p * vsc_s[lane] : p;   // value scale folded in
+      if (on) p_s[h * SB + lane] = QUANT ? p * vsc_s[lane] : p;   // value scale folded in
       if (lane == 0) {
         const float corr = __expf(m_old - m_new);
         corr_s[h] = corr;
@@ -397,10 +429,13 @@ latent_decode_partial(Args a) {
   }
   __syncthreads();
   const size_t base = (size_t(b) * G + g) * a.n_chunks + chunk;
-  for (int e = tid; e < R * rv; e += THREADS) a.part_acc[base * R * rv + e] = acc_s[e];
+  for (int e = tid; e < R * rv; e += THREADS) {
+    const int hl = e / rv;
+    a.part_acc[(base * R_all + grow(hl)) * rv + e - hl * rv] = acc_s[e];
+  }
   for (int e = tid; e < R; e += THREADS) {
-    a.part_m[base * R + e] = m_s[e];
-    a.part_l[base * R + e] = l_s[e];
+    a.part_m[base * R_all + grow(e)] = m_s[e];
+    a.part_l[base * R_all + grow(e)] = l_s[e];
   }
 }
 
@@ -428,14 +463,16 @@ latent_decode_merge(Args a) {
   }
 }
 
-template <typename L, int DH>
+template <typename L, int DH, int SB>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
-  const size_t smem = smem_bytes<L, DH>(a.nq * a.Hg, a.nq, a.rk, a.rv);
-  cudaError_t err = cudaFuncSetAttribute(latent_decode_partial<L, DH>,
+  const int rows = a.qpb * a.sps * (a.Hg / a.s);
+  const size_t smem = smem_bytes<L, DH, SB>(rows, a.qpb, a.rk, a.rv);
+  cudaError_t err = cudaFuncSetAttribute(latent_decode_partial<L, DH, SB>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  latent_decode_partial<L, DH><<<dim3(a.n_chunks, a.G, a.B), THREADS, smem, stream>>>(a);
+  latent_decode_partial<L, DH, SB>
+      <<<dim3(a.n_chunks, a.G, a.B * row_blocks(a)), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int merge_blocks = (a.nq * a.Hg * a.rv + THREADS - 1) / THREADS;
@@ -443,31 +480,58 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Dispatch on (L, dh); ``quant`` selects int8 latents.
-int dispatch(int dh, bool quant, const Args& a, cudaStream_t st) {
+template <int DH, int SB>
+cudaError_t launch_sb(bool quant, const Args& a, cudaStream_t st) {
+  return quant ? launch<int8_t, DH, SB>(a, st) : launch<float, DH, SB>(a, st);
+}
+
+template <int DH>
+cudaError_t launch_dh(int sb, bool quant, const Args& a, cudaStream_t st) {
+  if (sb == 32) return launch_sb<DH, 32>(quant, a, st);
+  if (sb == 16) return launch_sb<DH, 16>(quant, a, st);
+  if (sb == 8) return launch_sb<DH, 8>(quant, a, st);
+  return cudaErrorInvalidValue;
+}
+
+// Dispatch on (dh, SB, L); ``quant`` selects int8 latents.
+int dispatch(int dh, int sb, bool quant, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
-  if (dh == 64) err = quant ? launch<int8_t, 64>(a, st) : launch<float, 64>(a, st);
-  else if (dh == 128) err = quant ? launch<int8_t, 128>(a, st) : launch<float, 128>(a, st);
+  if (dh == 64) err = launch_dh<64>(sb, quant, a, st);
+  else if (dh == 128) err = launch_dh<128>(sb, quant, a, st);
   return static_cast<int>(err);
+}
+
+template <int DH, int SB>
+long long smem_sb(int is_int8, int rows, int nq, int rk, int rv) {
+  return static_cast<long long>(is_int8 ? smem_bytes<int8_t, DH, SB>(rows, nq, rk, rv)
+                                        : smem_bytes<float, DH, SB>(rows, nq, rk, rv));
+}
+
+template <int DH>
+long long smem_dh(int is_int8, int rows, int nq, int rk, int rv, int sb) {
+  if (sb == 32) return smem_sb<DH, 32>(is_int8, rows, nq, rk, rv);
+  if (sb == 16) return smem_sb<DH, 16>(is_int8, rows, nq, rk, rv);
+  if (sb == 8) return smem_sb<DH, 8>(is_int8, rows, nq, rk, rv);
+  return -1;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Shared memory the partial kernel needs (bytes), for the wrapper's check;
-// -1 for an unsupported dh.
-long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int rk, int rv) {
-  if (dh != 64 && dh != 128) return -1;
-  if (is_int8)
-    return static_cast<long long>(dh == 64 ? smem_bytes<int8_t, 64>(rows, nq, rk, rv)
-                                           : smem_bytes<int8_t, 128>(rows, nq, rk, rv));
-  return static_cast<long long>(dh == 64 ? smem_bytes<float, 64>(rows, nq, rk, rv)
-                                         : smem_bytes<float, 128>(rows, nq, rk, rv));
+// Shared memory a block of the partial kernel needs (bytes) with ``rows``
+// query rows of ``nq`` queries and an ``sb``-column tile, for the
+// wrapper's plan; -1 for an unsupported dh or sb.
+long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int rk, int rv,
+                                     int sb) {
+  if (dh == 64) return smem_dh<64>(is_int8, rows, nq, rk, rv, sb);
+  if (dh == 128) return smem_dh<128>(is_int8, rows, nq, rk, rv, sb);
+  return -1;
 }
 
-// The six entry points share one argument list (that of latent_decode_tc.cu's
-// six) and return a cudaError_t (0 = success).  All tensors contiguous, on
+// The six entry points take the argument list of latent_decode_tc.cu's
+// six plus the plan (sb, sps, qpb: column tile, head slots per block,
+// queries per block) and return a cudaError_t (0 = success).  All tensors contiguous, on
 // the device of ``stream``; q, r_k, out and (float rings) the latents f32:
 // ``is_bf16`` must be 0.  Null self latents mean no self column; null
 // k_norm means no key norm.  Each entry point checks that the operands
@@ -483,18 +547,20 @@ long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int 
            float* part_acc, float* part_m, float* part_l, void* out, int B, int S,      \
            int G, int Hg, int rk, int rv, int s, int nq, int n_self, int bias_cols,     \
            int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,    \
-           float scale, float eps, void* stream) {                                      \
+           float scale, float eps, void* stream, int sb, int sps, int qpb) {            \
     if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) || is_bf16 != 0 ||   \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                  \
         (ptab != nullptr) != (PAGED) ||                                                 \
-        ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))              \
+        ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)) ||            \
+        s < 1 || Hg % s != 0 || sps < 1 || s % sps != 0 || qpb < 1 || nq % qpb != 0 ||  \
+        sb < 1 || chunk_len % sb != 0)                                                  \
       return static_cast<int>(cudaErrorInvalidValue);                                   \
     Args a{static_cast<const float*>(q), zk, zv, zk_scale, zv_scale,                    \
            static_cast<const float*>(r_k), cos, sin, bias, k_norm, zk_self, zv_self,     \
            zk_self_scale, zv_self_scale, cos_self, sin_self, part_acc, part_m, part_l,   \
            static_cast<float*>(out), B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols,      \
-           n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps};                   \
-    return dispatch(dh, QUANT, a, static_cast<cudaStream_t>(stream));                   \
+           n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps, sps, qpb};         \
+    return dispatch(dh, sb, QUANT, a, static_cast<cudaStream_t>(stream));               \
   }
 
 RECALKV_ENTRY(recalkv_latent_decode, false, false, false)          // K1

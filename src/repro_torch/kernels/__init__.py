@@ -14,12 +14,13 @@ every float32 call runs the CUDA-core template of
 ``wgmma``, float32 on CUDA cores).  Each module holds the CUDA wrappers,
 their plain PyTorch versions and a launch counter per wrapper; ``ops``
 adapts model tensors to them and ``build`` compiles the sources in
-``csrc/`` at first use.
+``csrc/`` at first use.  K1, K4, K5 and K7 (``ROUTED``) also count their
+launches by route: "latent", or "dense" for the dense cache's cores.
 """
 
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.latent_decode import (
-    latent_decode_attention, latent_decode_attention_mq,
+    ROUTED, latent_decode_attention, latent_decode_attention_mq,
     latent_decode_attention_mq_paged, latent_decode_attention_paged)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
@@ -33,6 +34,8 @@ KERNELS = (latent_decode_attention, flash_prefill_attention,
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in ROUTED:
+        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
 
 
 __all__ = ["KERNELS", "flash_prefill_attention", "latent_decode_attention",

@@ -23,7 +23,9 @@ CUDA body serves which (kernel, dtype):
   f32   all of them: the CUDA-core template of ``csrc/latent_decode.cu``,
         the parity instantiations the 1e-4 checks use (K4 and K7 in f32
         equal K1 and K5 on the gathered ring bit for bit: same tiles, same
-        order).
+        order), at every width the bf16 bodies serve: a plan (column tile
+        32 / 16 / 8, head slots and queries per block) fits each shape in
+        shared memory (``_f32_plan``).
 
 Each source's header says what bounds it on an H100 and how its design
 answers it; keys are never written to device memory.  A shape outside a
@@ -66,7 +68,7 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-_SB = 32                 # key tile of the CUDA kernel (tokens)
+_SB = (32, 16, 8)        # key tiles of the float32 template (tokens), widest first
 _SMEM_LIMIT = 232448     # bytes of shared memory a Hopper block may use
 
 
@@ -157,10 +159,12 @@ def latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos, sin,
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
-# eps), stream — one argument list for the six entry points of
-# csrc/latent_decode.cu and the six of csrc/latent_decode_tc.cu.
+# eps), stream — the argument list of the six entry points of
+# csrc/latent_decode_tc.cu; the six of csrc/latent_decode.cu add the plan
+# (sb, sps, qpb).
 _ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
+_ARGTYPES_F32 = _ARGTYPES + [_INT] * 3
 ENTRY_POINTS = {  # entry point -> its library
     "recalkv_latent_decode": "latent_decode",
     "recalkv_latent_decode_quant": "latent_decode",
@@ -209,10 +213,11 @@ def _lib(name: str):
         for entry, n in ENTRY_POINTS.items():
             if n == name:
                 fn = getattr(lib, entry)
-                fn.argtypes = _ARGTYPES
+                fn.argtypes = (_ARGTYPES_F32 if name == "latent_decode"
+                               else _ARGTYPES)
                 fn.restype = ctypes.c_int
         if name == "latent_decode":
-            lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 6
+            lib.recalkv_latent_decode_smem.argtypes = [ctypes.c_int] * 7
             lib.recalkv_latent_decode_smem.restype = ctypes.c_longlong
         else:
             lib.recalkv_tc_chunk.argtypes = [ctypes.c_int] * 5
@@ -222,6 +227,29 @@ def _lib(name: str):
 
 def _ptr(t):
     return None if t is None else t.data_ptr()
+
+
+def _divisors(n: int) -> list[int]:
+    return [d for d in range(n, 0, -1) if n % d == 0]
+
+
+def _f32_plan(lib, quant: bool, dh: int, Hg: int, s: int, nq: int, rk: int,
+              rv: int) -> tuple[int, int, int]:
+    """(column tile, head slots per block, queries per block) of the
+    float32 template: the first plan whose block fits in shared memory,
+    all rows first (narrowing the tile before splitting), then fewer head
+    slots per block (latent reloads only), then fewer queries per block
+    (each query block rebuilds the keys).  Raises if none fits."""
+    qpk = Hg // s
+    for qpb in _divisors(nq):
+        for sps in _divisors(s):
+            for sb in _SB:
+                smem = lib.recalkv_latent_decode_smem(int(quant), dh, qpb * sps * qpk,
+                                                      qpb, rk, rv, sb)
+                if 0 < smem <= _SMEM_LIMIT:
+                    return sb, sps, qpb
+    raise ValueError(f"no float32 latent decode plan fits {_SMEM_LIMIT} B of shared "
+                     f"memory at {nq * Hg} rows, r_k={rk}, r_v={rv}")
 
 
 def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
@@ -290,19 +318,17 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
                              f"multiples of 8 whose block fits in shared "
                              f"memory)")
     else:
-        smem = lib.recalkv_latent_decode_smem(int(quant), dh, QH, nq, rk, rv)
-        if smem > _SMEM_LIMIT:
-            raise ValueError(f"latent decode tile needs {smem} B of shared memory "
-                             f"(limit {_SMEM_LIMIT}) at {QH} rows, r_k={rk}, "
-                             f"r_v={rv}")
+        plan = _f32_plan(lib, quant, dh, Hg, s, nq, rk, rv)
+        sb, sps, qpb = plan
         # Chunk S (+ the self columns) into about 8 blocks per SM: a block's
         # chunk is its serial critical path, and chunks over empty ring
         # regions finish at once, so short chunks keep the SMs busy whatever
         # part of the ring is filled.
-        n_tiles = -(-s_ext // _SB)
+        n_tiles = -(-s_ext // sb)
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        want = max(1, min(n_tiles, -(-8 * sms // (B * G))))
-        chunk_len = -(-n_tiles // want) * _SB
+        row_blocks = (s // sps) * (nq // qpb)
+        want = max(1, min(n_tiles, -(-8 * sms // (B * G * row_blocks))))
+        chunk_len = -(-n_tiles // want) * sb
     n_chunks = -(-s_ext // chunk_len)
     c = lambda t: None if t is None else t.contiguous()
     ptrs = [c(t) for t in (q, zk, zv, scales[0], scales[1], r_k, cos, sin,
@@ -318,7 +344,7 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
         _ptr(part_acc), _ptr(part_m), _ptr(part_l), _ptr(out),
         B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len,
         _ptr(ptab), page_size, n_pages, float(scale), float(norm_eps),
-        torch.cuda.current_stream(dev).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream, *([] if tc else plan))
     build.check(err, entry)
     return out
 
@@ -333,12 +359,23 @@ def _on_device(name: str, q) -> bool:
     return True
 
 
+def _count(wrapper, route: str) -> None:
+    """One launch of ``wrapper``'s kernel, on ``route``: "latent" (a
+    ReCalKV cache) or "dense" (the dense cache through an identity R_k,
+    ``ops.dense_decode*``)."""
+    wrapper.launches += 1
+    wrapper.launches_by_route[route] += 1
+
+
 def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
                             k_norm=None, norm_eps=1e-6, self_zk=None,
-                            self_zv=None, self_cos=None, self_sin=None):
+                            self_zv=None, self_cos=None, self_sin=None,
+                            route="latent"):
     """K1.  A CPU tensor runs the plain version; a CUDA tensor runs the
     CUDA kernel (built at first use) or raises — there is no fallback.
-    ``latent_decode_attention.launches`` counts kernel launches."""
+    ``latent_decode_attention.launches`` counts kernel launches, and
+    ``.launches_by_route`` splits them by ``route`` ("latent" or
+    "dense", which the caller names)."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("latent decode", q):
@@ -351,13 +388,14 @@ def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
         out = launch("recalkv_latent_decode", q, zk, zv, r_k, cos, sin, bias,
                      scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
                      self_sin)
-    latent_decode_attention.launches += 1
+    _count(latent_decode_attention, route)
     return out
 
 
 def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                k_norm=None, norm_eps=1e-6, self_zk=None,
-                               self_zv=None, self_cos=None, self_sin=None):
+                               self_zv=None, self_cos=None, self_sin=None,
+                               route="latent"):
     """K5: nq = bias.shape[1] verify queries per head in one pass (keys
     rebuilt once per tile, scored by every query).  Device rule and
     launch counter as for K1; bf16 runs the tensor-core kernel, float32
@@ -371,14 +409,14 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
              else "recalkv_latent_decode_mq")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
                  self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1])
-    latent_decode_attention_mq.launches += 1
+    _count(latent_decode_attention_mq, route)
     return out
 
 
 def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                   scale, k_norm=None, norm_eps=1e-6,
                                   self_zk=None, self_zv=None, self_cos=None,
-                                  self_sin=None):
+                                  self_sin=None, route="latent"):
     """K4: K1 over a page-major pool through ``ptab``.  Device rule as for
     K1; ``.launches`` counts kernel launches.  bf16 runs the tensor-core
     kernel, float32 the template's parity instantiation."""
@@ -395,14 +433,14 @@ def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
         out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin,
                      bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
                      self_sin, ptab=ptab)
-    latent_decode_attention_paged.launches += 1
+    _count(latent_decode_attention_paged, route)
     return out
 
 
 def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                      scale, k_norm=None, norm_eps=1e-6,
                                      self_zk=None, self_zv=None, self_cos=None,
-                                     self_sin=None):
+                                     self_sin=None, route="latent"):
     """K7: K5 over a page-major pool through ``ptab``.  Device rule and
     counter as for K1; bf16 runs K5's tensor-core kernel through the page
     table, float32 the template's parity instantiation."""
@@ -415,11 +453,13 @@ def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
              else "recalkv_latent_decode_mq_paged")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
                  self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1], ptab=ptab)
-    latent_decode_attention_mq_paged.launches += 1
+    _count(latent_decode_attention_mq_paged, route)
     return out
 
 
-latent_decode_attention.launches = 0
-latent_decode_attention_mq.launches = 0
-latent_decode_attention_paged.launches = 0
-latent_decode_attention_mq_paged.launches = 0
+ROUTED = (latent_decode_attention, latent_decode_attention_mq,
+          latent_decode_attention_paged, latent_decode_attention_mq_paged)
+for _w in ROUTED:
+    _w.launches = 0
+    _w.launches_by_route = {"latent": 0, "dense": 0}
+del _w

@@ -21,9 +21,19 @@ rotation tables, while the latents stay page-major and are read by K4 / K7
 through the table.  The int8 pool does not come here: the model reads it
 through the gathered view (``kv_cache.paged_view``) with K3 / K6, as the
 JAX package does.
+
+The dense cache {"k", "v", "pos"} rides the same kernels as the
+degenerate latent cache (``dense_decode*``, as the JAX package's
+``_dense_ring_core`` and ``_dense_paged_core``): one kv head per group (G =
+Hkv, s = 1), the keys as their own latents behind an identity ``R_k``
+(r_k = r_v = dh), no k-norm, and identity rotation tables (cos 1, sin 0,
+the self columns' too), because dense keys are stored after RoPE.  Those
+calls count as the wrappers' ``"dense"`` route (``launches_by_route``).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -99,10 +109,33 @@ def verify_bias(pos_ext: torch.Tensor, pos_q: torch.Tensor,
     return torch.where(valid, 0.0, NEG_INF).to(torch.float32)
 
 
+def rotation_tables(pos: torch.Tensor, dh: int, theta: float | None):
+    """Rotation tables for stored positions: RoPE at ``theta``, or the
+    identity (cos 1, sin 0) for ``theta=None`` — dense keys are stored
+    after RoPE, so the kernel must not rotate them again."""
+    if theta is not None:
+        return rope_tables_for(pos, dh, theta)
+    cos = torch.ones(tuple(pos.shape) + (dh // 2,), dtype=torch.float32,
+                     device=pos.device)
+    return cos, torch.zeros_like(cos)
+
+
+@functools.lru_cache(maxsize=8)
+def _identity(n: int, dh: int, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """(n, dh, dh) identity reconstruction factors of the dense cores
+    (built once per shape; the kernels only read them)."""
+    return torch.eye(dh, dtype=dtype, device=device).expand(n, dh, dh).contiguous()
+
+
 def _ring_operands(cache: dict, entry: dict | None):
-    """(ring latents, self latents, kernel) keyword split for a float or
-    int8 ring; ``entry`` holds the self latents in the ring's layout."""
+    """(ring latents, self latents, kernel) keyword split for a float,
+    int8 or dense ring; ``entry`` holds the self latents (dense: keys and
+    values) in the ring's layout."""
     e = entry or {}
+    if "k" in cache:
+        return (cache["k"], cache["v"]), dict(self_zk=e.get("k"),
+                                              self_zv=e.get("v")), False
     if "zk_q" in cache:
         ring = (cache["zk_q"], cache["zk_s"], cache["zv_q"], cache["zv_s"])
         selfs = dict(self_zk_q=e.get("zk_q"), self_zk_s=e.get("zk_s"),
@@ -115,25 +148,27 @@ def _ring_operands(cache: dict, entry: dict | None):
 def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
             k_norm, norm_eps):
     ring, selfs, quant = _ring_operands(cache, self_entry)
+    route = "dense" if "k" in cache else "latent"
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
     G = ring[0].shape[2]
     dh = q.shape[-1]
     pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
-    cos, sin = rope_tables_for(pos, dh, theta)
+    cos, sin = rotation_tables(pos, dh, theta)
     bias = decode_bias(pos, cur, window)
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps)
     if self_entry is not None:
-        cos_s, sin_s = rope_tables_for(cur, dh, theta)
+        cos_s, sin_s = rotation_tables(cur, dh, theta)
         kw.update(selfs, self_cos=cos_s, self_sin=sin_s)
     qg = group_queries(q, G)
     if ptab is not None:
         o = latent_decode_attention_paged(ptab, qg, *ring, r_k, cos, sin, bias,
-                                          **kw)
+                                          route=route, **kw)
     elif quant:
         o = latent_decode_attention_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
-        o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias, **kw)
+        o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias,
+                                    route=route, **kw)
     return ungroup_outputs(o)
 
 
@@ -168,14 +203,15 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
                window, scale, k_norm, norm_eps):
     B, nq = feed_mask.shape
     ring, selfs, quant = _ring_operands(cache, self_entries)
+    route = "dense" if "k" in cache else "latent"
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
     G = ring[0].shape[2]
     dh = q.shape[-1]
     pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
     pos_q = cur[:, None] + torch.arange(nq, dtype=cur.dtype, device=cur.device)
-    cos, sin = rope_tables_for(pos, dh, theta)
-    cos_s, sin_s = rope_tables_for(pos_q, dh, theta)
+    cos, sin = rotation_tables(pos, dh, theta)
+    cos_s, sin_s = rotation_tables(pos_q, dh, theta)
     bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
                        feed_mask, window, pos.shape[1])
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_cos=cos_s,
@@ -183,11 +219,12 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
     qg = group_queries_mq(q, G)
     if ptab is not None:
         o = latent_decode_attention_mq_paged(ptab, qg, *ring, r_k, cos, sin,
-                                             bias, **kw)
+                                             bias, route=route, **kw)
     elif quant:
         o = latent_decode_attention_mq_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
-        o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias, **kw)
+        o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias,
+                                       route=route, **kw)
     return ungroup_outputs_mq(o, nq)
 
 
@@ -217,6 +254,50 @@ def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
     return _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab,
                       theta=theta, window=window, scale=scale, k_norm=k_norm,
                       norm_eps=norm_eps)
+
+
+def _dense_factors(cache: dict) -> torch.Tensor:
+    k = cache["k"]
+    return _identity(k.shape[2], k.shape[3], k.dtype, k.device)
+
+
+def dense_decode(q, cache, cur, *, window: int | None, scale: float,
+                 self_entry: dict | None = None):
+    """Dense ring decode through K1's dense core.  q: (B, H, dh) post-RoPE;
+    cache {"k", "v": (B, S, Hkv, dh), "pos"}; ``self_entry`` {"k", "v":
+    (B, Hkv, dh)}, the current token post-RoPE (and k-norm), scored as one
+    extra column at position ``cur``.  Returns (B, H, dh)."""
+    return _decode(q, cache, _dense_factors(cache), cur, None, theta=None,
+                   window=window, scale=scale, self_entry=self_entry,
+                   k_norm=None, norm_eps=1e-6)
+
+
+def dense_decode_paged(q, cache, ptab, cur, *, window: int | None,
+                       scale: float, self_entry: dict | None = None):
+    """Dense decode over page-major {"k", "v", "pos"} pools through
+    ``ptab``, with K4's dense core.  Returns (B, H, dh)."""
+    return _decode(q, cache, _dense_factors(cache), cur, ptab, theta=None,
+                   window=window, scale=scale, self_entry=self_entry,
+                   k_norm=None, norm_eps=1e-6)
+
+
+def dense_decode_mq(q, cache, cur, feed_mask, self_entries, *,
+                    window: int | None, scale: float):
+    """Multi-query dense verify over the ring with K5's dense core.  q and
+    ``self_entries["k"]`` (B, nq, Hkv, dh) arrive rotated at
+    cur..cur+nq-1.  Returns (B, nq, H, dh)."""
+    return _decode_mq(q, cache, _dense_factors(cache), cur, feed_mask,
+                      self_entries, None, theta=None, window=window,
+                      scale=scale, k_norm=None, norm_eps=1e-6)
+
+
+def dense_decode_mq_paged(q, cache, ptab, cur, feed_mask, self_entries, *,
+                          window: int | None, scale: float):
+    """Multi-query dense verify over page-major pools with K7's dense
+    core.  Returns (B, nq, H, dh)."""
+    return _decode_mq(q, cache, _dense_factors(cache), cur, feed_mask,
+                      self_entries, ptab, theta=None, window=window,
+                      scale=scale, k_norm=None, norm_eps=1e-6)
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -3,14 +3,17 @@
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
 (:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving path needs — dense FFN ``attn`` blocks with a ReCalKV
-latent ring, float or int8 (``cache_quant_bits``) — and
-:func:`check_supported` names anything else as not ported.
+subset the serving path needs — dense FFN ``attn`` blocks with a dense
+K/V cache (``recalkv=None``) or a ReCalKV latent cache, float or int8
+(``cache_quant_bits``) — and :func:`check_supported` names anything else
+as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
-JAX name ``"pallas"`` maps to ``"kernel"``.  ``dtype`` is a
-``torch.dtype``; :meth:`to_dict` writes it by name as the JAX package does.
+JAX name ``"pallas"`` maps to ``"kernel"`` on the way in, and
+:meth:`to_dict` writes ``"kernel"`` back as ``"pallas"``, so a dict either
+package writes loads in the other.  ``dtype`` is a ``torch.dtype``;
+:meth:`to_dict` writes it by name as the JAX package does.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 BLOCK_KINDS = ("attn", "attn_dense", "local", "cross", "attn_cross", "mamba", "rglru")
 ATTN_BACKENDS = ("einsum", "kernel")
 _BACKEND_ALIASES = {"pallas": "kernel"}
+_JAX_BACKEND_NAMES = {v: k for k, v in _BACKEND_ALIASES.items()}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,9 +189,11 @@ class ModelConfig:
 
     def to_dict(self) -> dict:
         """JSON-serializable form with the JAX package's field names and
-        values (dtype by name)."""
+        values (dtype by name, the kernel backend as ``"pallas"``)."""
         d = dataclasses.asdict(self)
         d["dtype"] = _NAMES_BY_DTYPE[self.dtype]
+        d["attn_backend"] = _JAX_BACKEND_NAMES.get(self.attn_backend,
+                                                   self.attn_backend)
         return d
 
     @classmethod
@@ -214,8 +220,6 @@ def check_supported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for configurations the port's model
     functions do not cover yet (see ROADMAP.md, Queue 1)."""
     missing = []
-    if cfg.recalkv is None:
-        missing.append("dense (uncompressed) KV cache")
     for name in ("moe", "mla", "mamba", "rglru"):
         if getattr(cfg, name) is not None:
             missing.append(name)

@@ -1,13 +1,15 @@
-"""Latent KV cache — ring or paged pool — with its decode and verify
-readers (port of the latent subset of ``repro.models.kv_cache``).
+"""Dense and latent KV caches — ring or paged pool — with their decode and
+verify readers (port of the dense and latent subset of
+``repro.models.kv_cache``).
 
-Per layer the cache is ``{"zk": (B, L, G, r_k), "zv": (B, L, G, r_v),
-"pos": (B, L) int64}`` with pre-RoPE latents, or, with
-``cfg.cache_quant_bits``, the int8 ring ``{"zk_q", "zv_q": int8 (B, L, G,
-r), "zk_s", "zv_s": float32 (B, L, G), "pos"}`` (one scale per token and
-group).  ``pos`` holds the absolute position in each slot (-1 = empty);
-masking and RoPE read it, so ring wraparound needs no other bookkeeping.
-Writes go to slot ``cur % L``.
+Per layer the cache is the dense ``{"k", "v": (B, L, Hkv, dh), "pos": (B,
+L) int64}`` with post-RoPE keys (``cfg.recalkv is None``), or the latent
+``{"zk": (B, L, G, r_k), "zv": (B, L, G, r_v), "pos"}`` with pre-RoPE
+latents, or, with ``cfg.cache_quant_bits``, the int8 ring ``{"zk_q",
+"zv_q": int8 (B, L, G, r), "zk_s", "zv_s": float32 (B, L, G), "pos"}``
+(one scale per token and group).  ``pos`` holds the absolute position in
+each slot (-1 = empty); masking and RoPE read it, so ring wraparound needs
+no other bookkeeping.  Writes go to slot ``cur % L``.
 
 Deferred writes: the decode reader scores the current token as an extra
 self column and returns its entry; :func:`apply_decode_writes` writes all
@@ -47,9 +49,14 @@ def init_self_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     called with (n_pages, page_size) in their place."""
     rt = cfg.recalkv
     Lr = cfg.cache_len(kind, max_len)
+    pos = torch.full((batch, Lr), -1, dtype=torch.int64, device=device)
+    if rt is None:
+        shape = (batch, Lr, cfg.num_kv_heads, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "v": torch.zeros(shape, dtype=cfg.dtype, device=device),
+                "pos": pos}
     G = rt.num_groups(cfg.num_kv_heads)
     rk, rv = rt.ranks_for(layer_idx)
-    pos = torch.full((batch, Lr), -1, dtype=torch.int64, device=device)
     if cfg.cache_quant_bits is not None:
         z = lambda *sh, dt: torch.zeros(sh, dtype=dt, device=device)
         return {"zk_q": z(batch, Lr, G, rk, dt=torch.int8),
@@ -188,6 +195,50 @@ def _pool_route(cfg: ModelConfig, cache: Params, pages):
     return paged_view(cache, pages[0]), None
 
 
+def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
+                      cfg: ModelConfig, cur: torch.Tensor,
+                      window: int | None, theta: float | None = None,
+                      pages: tuple | None = None):
+    """Dense decode: the new token's post-RoPE key and value enter the
+    softmax as a self column and come back as the deferred update.
+    ``pages`` = (ptab, page_size) reads a page-major pool.  Returns
+    (y (B, 1, d), deferred update {"k", "v", "pos"})."""
+    cache, ptab = _pool_route(cfg, cache, pages)
+    B = x.shape[0]
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    g = H // Hkv
+    q = (x @ p["wq"]).reshape(B, 1, H, dh)
+    k_new = (x @ p["wk"]).reshape(B, Hkv, dh)
+    v_new = (x @ p["wv"]).reshape(B, Hkv, dh)
+    q = L.maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
+    k_new = L.maybe_head_norm(k_new, p.get("k_norm"), cfg.norm_eps)
+    cos, sin = L.rope_tables(cur[:, None], dh, theta or cfg.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    k_new = L.apply_rope(k_new[:, None], cos, sin)[:, 0]
+
+    scale = dh ** -0.5
+    updates = {"k": k_new, "v": v_new, "pos": cur.to(torch.int64)}
+    if cfg.attn_backend == "kernel":
+        # K1 / K4's dense core: one call scores [ring | self].
+        kw = dict(window=window, scale=scale,
+                  self_entry={"k": k_new, "v": v_new})
+        o = (kops.dense_decode(q[:, 0], cache, cur, **kw) if ptab is None
+             else kops.dense_decode_paged(q[:, 0], cache, ptab, cur, **kw))
+        return o.to(x.dtype).reshape(B, 1, H * dh) @ p["wo"], updates
+
+    qr = q[:, 0].reshape(B, Hkv, g, dh)
+    k_c = cache["k"].to(x.dtype)
+    logits_c = torch.einsum("bkgd,bskd->bkgs", qr, k_c).float() * scale
+    mask = _decode_mask(cache["pos"], cur, window)[:, None, None, :]
+    logits_c = torch.where(mask, logits_c, torch.full_like(logits_c, NEG_INF))
+    logits_s = (torch.einsum("bkgd,bkd->bkg", qr, k_new).float() * scale)[..., None]
+    w_c, w_s = _two_part_softmax(logits_c, logits_s)
+    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
+    o = (torch.einsum("bkgs,bskd->bkgd", w_c, cache["v"].to(x.dtype))
+         + w_s * v_new[:, :, None, :])
+    return o.reshape(B, 1, H * dh) @ p["wo"], updates
+
+
 def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
                        cfg: ModelConfig, cur: torch.Tensor,
                        window: int | None, theta: float | None = None,
@@ -318,6 +369,56 @@ def _verify_masks(cache_pos: torch.Tensor, cur: torch.Tensor, S: int,
         ring &= cp > pos_q[:, :, None] - window
         self_m &= j[None, None, :] > j[None, :, None] - window
     return pos_q, ring, self_m
+
+
+def verify_attn_dense(p: Params, x: torch.Tensor, cache: Params,
+                      cfg: ModelConfig, cur: torch.Tensor,
+                      feed_mask: torch.Tensor, window: int | None,
+                      theta: float | None = None,
+                      pages: tuple | None = None):
+    """Dense S-token verify: the S fresh post-RoPE keys and values are a
+    causal self block.  Returns (y (B, S, d), deferred entries with (B,
+    S, ...) leaves and "pos" (B, S))."""
+    cache, ptab = _pool_route(cfg, cache, pages)
+    B, S = x.shape[:2]
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    g = H // Hkv
+    q = (x @ p["wq"]).reshape(B, S, H, dh)
+    k_new = (x @ p["wk"]).reshape(B, S, Hkv, dh)
+    v_new = (x @ p["wv"]).reshape(B, S, Hkv, dh)
+    q = L.maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
+    k_new = L.maybe_head_norm(k_new, p.get("k_norm"), cfg.norm_eps)
+    pos_q = cur[:, None] + torch.arange(S, dtype=cur.dtype, device=cur.device)
+    cos, sin = L.rope_tables(pos_q, dh, theta or cfg.rope_theta)
+    q = L.apply_rope(q, cos, sin)
+    k_new = L.apply_rope(k_new, cos, sin)
+
+    scale = dh ** -0.5
+    updates = {"k": k_new, "v": v_new, "pos": pos_q.to(torch.int64)}
+    if cfg.attn_backend == "kernel":
+        # K5 / K7's dense core: q and the fresh keys arrive post-RoPE.
+        entries = {"k": k_new, "v": v_new}
+        kw = dict(window=window, scale=scale)
+        o = (kops.dense_decode_mq(q, cache, cur, feed_mask, entries, **kw)
+             if ptab is None else
+             kops.dense_decode_mq_paged(q, cache, ptab, cur, feed_mask,
+                                        entries, **kw))
+        return o.to(x.dtype).reshape(B, S, H * dh) @ p["wo"], updates
+
+    qr = q.reshape(B, S, Hkv, g, dh)
+    _, ring_m, self_m = _verify_masks(cache["pos"], cur, S, feed_mask, window)
+    k_c = cache["k"].to(x.dtype)
+    logits_c = torch.einsum("bjkgd,bskd->bkgjs", qr, k_c).float() * scale
+    logits_c = torch.where(ring_m[:, None, None], logits_c,
+                           torch.full_like(logits_c, NEG_INF))
+    logits_s = torch.einsum("bjkgd,bnkd->bkgjn", qr, k_new).float() * scale
+    logits_s = torch.where(self_m[:, None, None], logits_s,
+                           torch.full_like(logits_s, NEG_INF))
+    w_c, w_s = _joint_softmax(logits_c, logits_s)
+    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
+    o = (torch.einsum("bkgjs,bskd->bjkgd", w_c, cache["v"].to(x.dtype))
+         + torch.einsum("bkgjn,bnkd->bjkgd", w_s, v_new))
+    return o.reshape(B, S, H * dh) @ p["wo"], updates
 
 
 def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,

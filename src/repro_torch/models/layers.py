@@ -2,9 +2,12 @@
 
 Plain functions over explicit parameter dicts (row-vector convention,
 ``y = x @ W``); float32 for softmax and norms, the model dtype for weights
-and matmul operands.  ReCalKV attention: key latents are reconstructed
-(grouped ``R_k``) before RoPE; value latents are consumed directly through
-the fused ``W~_o``.
+and matmul operands.  Two attention data paths: dense (the paper's
+uncompressed baseline: post-RoPE keys and values) and ReCalKV latent (key
+latents reconstructed with the grouped ``R_k`` before RoPE; value latents
+consumed directly through the fused ``W~_o``).  The dense path is the
+latent one's degenerate case (one kv head per value group, values as
+their own latents), so both share :func:`chunked_attention`.
 """
 
 from __future__ import annotations
@@ -108,8 +111,35 @@ def chunked_attention(q, k, zv, q_pos, k_pos, *, window, scale, chunk,
 
 
 # ---------------------------------------------------------------------------
-# Latent self-attention (full sequence: prefill)
+# Dense and latent self-attention (full sequence: prefill, calibration)
 # ---------------------------------------------------------------------------
+
+def self_attention_dense(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                         positions: torch.Tensor, window: int | None,
+                         theta: float | None = None, use_kernel: bool = True):
+    """Full-sequence dense attention.  Returns (y, (k_roped, v)) — the
+    pair prefill writes into the ring cache.  ``use_kernel=False`` keeps
+    the einsum path under ``attn_backend="kernel"`` (the calibration
+    forward, as in the JAX package)."""
+    B, T, _ = x.shape
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    q = (x @ p["wq"]).reshape(B, T, H, dh)
+    k = (x @ p["wk"]).reshape(B, T, Hkv, dh)
+    v = (x @ p["wv"]).reshape(B, T, Hkv, dh)
+    q = maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
+    k = maybe_head_norm(k, p.get("k_norm"), cfg.norm_eps)
+    cos, sin = rope_tables(positions, dh, theta or cfg.rope_theta)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if use_kernel and cfg.attn_backend == "kernel":
+        # K2 with one value head per kv head (Hv = Hkv, dv = dh).
+        o = kops.flash_prefill(q, k, v, causal=True, window=window,
+                               scale=dh ** -0.5)
+    else:
+        o = chunked_attention(q, k, v, positions, positions, window=window,
+                              scale=dh ** -0.5, chunk=cfg.attn_chunk,
+                              group_size=1)
+    return o.reshape(B, T, H * dh) @ p["wo"], (k, v)
+
 
 def reconstruct_keys(zk: torch.Tensor, r_k: torch.Tensor, num_kv_heads: int,
                      d_head: int) -> torch.Tensor:
@@ -121,9 +151,10 @@ def reconstruct_keys(zk: torch.Tensor, r_k: torch.Tensor, num_kv_heads: int,
 
 def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
                           positions: torch.Tensor, window: int | None,
-                          theta: float | None = None):
+                          theta: float | None = None, use_kernel: bool = True):
     """Full-sequence ReCalKV attention.  Returns (y, (zk, zv)) — the latents
-    are what prefill writes into the ring cache (pre-RoPE)."""
+    are what prefill writes into the ring cache (pre-RoPE).  ``use_kernel``
+    as for :func:`self_attention_dense`."""
     B, T, _ = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     s = cfg.recalkv.slots(Hkv)
@@ -135,7 +166,7 @@ def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
     k = maybe_head_norm(k, p.get("k_norm"), cfg.norm_eps)
     cos, sin = rope_tables(positions, dh, theta or cfg.rope_theta)
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-    if cfg.attn_backend == "kernel":
+    if use_kernel and cfg.attn_backend == "kernel":
         # Prefill positions are always 0..T-1, the flash kernel's own
         # block-position mask; values stay latent (one group per s kv heads).
         o_lat = kops.flash_prefill(q, k, zv, causal=True, window=window,

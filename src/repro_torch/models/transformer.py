@@ -1,5 +1,6 @@
 """Transformer stack: prefill / decode / speculative verify (port of the
-serving half of ``repro.models.transformer``).
+serving half of ``repro.models.transformer``), over a dense or a latent
+KV cache.
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
@@ -30,23 +31,32 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-               ctx: dict):
+               ctx: dict, want_cache: bool = True):
     """One ``attn`` block over a full (B, T, d) sequence.  Returns (x, cache)
-    with the block's freshly written ring cache."""
+    with the block's freshly written ring cache — dense or latent — or
+    (x, None) without ``want_cache``: the calibration forward, which
+    keeps the einsum path under the kernel backend, as the JAX package
+    does."""
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, (zk, zv) = L.self_attention_latent(p["attn"], h, cfg, ctx["positions"],
-                                          window, theta=_theta(cfg, kind))
+    attn = (L.self_attention_dense if cfg.recalkv is None
+            else L.self_attention_latent)
+    y, (a, b) = attn(p["attn"], h, cfg, ctx["positions"], window,
+                     theta=_theta(cfg, kind), use_kernel=want_cache)
     x = x + y
     x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
-    return x, {"self": _prefill_self_cache(
-        cfg, kind, ctx, KC.latent_cache_entry(cfg, zk, zv))}
+    if not want_cache:
+        return x, None
+    values = ({"k": a, "v": b} if cfg.recalkv is None
+              else KC.latent_cache_entry(cfg, a, b))
+    return x, {"self": _prefill_self_cache(cfg, kind, ctx, values)}
 
 
 def _prefill_self_cache(cfg: ModelConfig, kind: str, ctx: dict,
                         values: Params) -> Params:
-    """Scatter full-sequence latents into a fresh ring cache (shapes come
-    from the values, so per-layer ranks need no config plumbing)."""
+    """Scatter full-sequence K/V (or latents) into a fresh ring cache
+    (shapes come from the values, so per-layer ranks need no config
+    plumbing)."""
     B, T = ctx["positions"].shape
     Lr = cfg.cache_len(kind, ctx["max_len"])
     out = {}
@@ -65,9 +75,10 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     after the layer loop."""
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, sc = KC.decode_attn_latent(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                  window, theta=_theta(cfg, kind),
-                                  pages=ctx.get("pages"))
+    reader = (KC.decode_attn_dense if cfg.recalkv is None
+              else KC.decode_attn_latent)
+    y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"], window,
+                   theta=_theta(cfg, kind), pages=ctx.get("pages"))
     x = x + y
     x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, {"self": sc}
@@ -81,10 +92,11 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     (``kv_cache.apply_verify_writes``)."""
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    y, sc = KC.verify_attn_latent(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                  ctx["feed_mask"], window,
-                                  theta=_theta(cfg, kind),
-                                  pages=ctx.get("pages"))
+    reader = (KC.verify_attn_dense if cfg.recalkv is None
+              else KC.verify_attn_latent)
+    y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                   ctx["feed_mask"], window, theta=_theta(cfg, kind),
+                   pages=ctx.get("pages"))
     x = x + y
     x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
     return x, {"self": sc}

@@ -1,5 +1,6 @@
-"""Parameters of the port: the bridge from JAX param trees, and random init;
-and the bridge for decode-cache state (rings or paged pools) both ways.
+"""Parameters of the port: the bridge from and to JAX param trees, and
+random init; and the bridge for decode-cache state (rings or paged pools)
+both ways.
 
 The port keeps parameters as plain dictionaries with the JAX leaf names
 and layouts (row-vector convention, ``y = x @ W``), but one dict per layer
@@ -10,6 +11,9 @@ in stack order instead of JAX's prefix / scanned-blocks / suffix split::
                  "attn": {"wq", "l_k", "r_k", "l_v", "wo_fused",
                           ["q_norm", "k_norm"]},
                  "mlp": {"wi", "wg", "wo"}}, ...]}
+
+A dense model (``cfg.recalkv is None``) has ``"attn": {"wq", "wk", "wv",
+"wo", ["q_norm", "k_norm"]}`` instead.
 
 Norm scales stay float32 (as in JAX); matrices take the model dtype.
 """
@@ -40,6 +44,21 @@ def to_tensor(arr, device: torch.device, dtype: torch.dtype | None = None):
         t = torch.from_numpy(a)
     t = t.to(device)
     return t if dtype is None else t.to(dtype)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """The inverse of :func:`to_tensor`: a host numpy array; bfloat16 as
+    ml_dtypes' ``bfloat16`` where that package is installed (as a live
+    JAX array gives it), else as the raw 2-byte void an npz holds."""
+    t = t.detach().cpu()
+    if t.dtype != torch.bfloat16:
+        return t.numpy()
+    raw = t.view(torch.int16).numpy()
+    try:
+        import ml_dtypes
+    except ImportError:
+        return raw.view("V2")
+    return raw.view(ml_dtypes.bfloat16)
 
 
 def _leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
@@ -92,6 +111,26 @@ def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
     return out
 
 
+def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
+    """The inverse of :func:`params_from_jax`: the JAX package's unrolled
+    tree (``scan_layers=False``: ``{"embed", "final_norm", ["lm_head"],
+    "prefix": (one dict per layer), "blocks": (), "suffix": ()}``) with
+    numpy leaves (see :func:`to_numpy`) — what an artifact stores."""
+    if len(params["layers"]) != cfg.num_layers:
+        raise ValueError(f"params hold {len(params['layers'])} layers, "
+                         f"config {cfg.name!r} has {cfg.num_layers}")
+
+    def conv(tree):
+        return {k: conv(v) if isinstance(v, dict) else to_numpy(v)
+                for k, v in tree.items()}
+
+    out = {k: to_numpy(params[k]) for k in ("embed", "final_norm", "lm_head")
+           if k in params}
+    out.update(prefix=tuple(conv(layer) for layer in params["layers"]),
+               blocks=(), suffix=())
+    return out
+
+
 def init_params(cfg: ModelConfig, generator: torch.Generator,
                 device=None) -> Params:
     """Random parameters with the JAX initializer's scales (normal times
@@ -104,8 +143,6 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     d, V = cfg.d_model, cfg.vocab_size
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     rt = cfg.recalkv
-    s = rt.slots(Hkv)
-    G = Hkv // s
 
     def normal(shape, scale):
         x = torch.randn(shape, generator=generator, device=dev,
@@ -120,14 +157,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = normal((d, V), d ** -0.5)
     layers = []
     for i in range(cfg.num_layers):
-        rk, rv = rt.ranks_for(i)
-        attn = {
-            "wq": normal((d, H * dh), d ** -0.5),
-            "l_k": normal((G, d, rk), d ** -0.5),
-            "r_k": normal((G, rk, s * dh), rk ** -0.5),
-            "l_v": normal((G, d, rv), d ** -0.5),
-            "wo_fused": normal((H, rv, d), (H * rv) ** -0.5),
-        }
+        attn = {"wq": normal((d, H * dh), d ** -0.5)}
+        if rt is None:
+            attn.update(wk=normal((d, Hkv * dh), d ** -0.5),
+                        wv=normal((d, Hkv * dh), d ** -0.5),
+                        wo=normal((H * dh, d), (H * dh) ** -0.5))
+        else:
+            s = rt.slots(Hkv)
+            G = Hkv // s
+            rk, rv = rt.ranks_for(i)
+            attn.update(l_k=normal((G, d, rk), d ** -0.5),
+                        r_k=normal((G, rk, s * dh), rk ** -0.5),
+                        l_v=normal((G, d, rv), d ** -0.5),
+                        wo_fused=normal((H, rv, d), (H * rv) ** -0.5))
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
@@ -174,15 +216,9 @@ def caches_to_jax(cfg: ModelConfig, caches: list) -> Params:
     """The inverse of :func:`caches_from_jax`: the JAX package's cache tree
     for ``cfg``'s layer layout, with numpy leaves (``pos`` int32; bf16 as
     ml_dtypes' bfloat16)."""
-    def arr(t):
-        t = t.detach().cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-            return t.view(torch.int16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy()
-
     def conv(c):
-        return {"self": {k: (arr(v).astype(np.int32) if k == "pos" else arr(v))
+        return {"self": {k: (to_numpy(v).astype(np.int32) if k == "pos"
+                             else to_numpy(v))
                          for k, v in c["self"].items()}}
 
     if not cfg.scan_layers:

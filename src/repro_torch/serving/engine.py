@@ -1,5 +1,5 @@
-"""Executor: slot-based batching over the latent cache — a ring per slot
-or a paged pool shared by all slots — with a multi-token decode window
+"""Executor: slot-based batching over the KV cache (dense or latent) — a
+ring per slot or a paged pool shared by all slots — with a multi-token decode window
 (port of the synchronous path of ``repro.serving.engine``).
 
 One window runs ``sync_every`` decode steps with the loop state
@@ -44,8 +44,12 @@ preempted (its state parked, its pages freed) and re-admitted later:
 surviving pages are resurrected, recycled ones rebuilt by prefilling the
 tokens the victim had fed, so streams are those of an unpreempted run.
 
+The dense cache (``cfg.recalkv is None``) runs every path above: its
+leaves {"k", "v", "pos"} move through the same leaf-generic ring and page
+code (admission scatters, copy-on-write forks, wipes, preemption).
+
 Not ported yet (see ROADMAP.md): overlapped / continuous / AOT serving,
-adaptive speculation depth, meshes, the dense paged path.
+adaptive speculation depth, meshes.
 """
 
 from __future__ import annotations
@@ -125,8 +129,8 @@ def _bucket(n: int, cap: int) -> int:
 
 
 class Engine:
-    """Slot-based batching executor over the latent cache (float or int8;
-    ring or paged pool).
+    """Slot-based batching executor over the dense or latent cache (float
+    or int8 latents; ring or paged pool).
 
     ``sync_every`` sets the decode window (iterations per host round
     trip); ``prefill_chunk`` bounds how much prompt one admission wave
@@ -306,7 +310,7 @@ class Engine:
     @classmethod
     def from_artifact(cls, path: str, *, max_slots: int, max_len: int,
                       device=None, **kw) -> "Engine":
-        """Boot an engine from a compression artifact the JAX package
+        """Boot an engine from a compression artifact either package
         saved (other keywords, the paged pool's included, as on the
         constructor)."""
         from repro_torch.api import load_artifact

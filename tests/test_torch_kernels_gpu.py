@@ -17,7 +17,13 @@ plans).  K3 / K6 compare with their plain versions on the same int8
 latents and scales.  K7 (the paged pool) and K4 must also equal K5 / K1
 on the table-gathered ring bit for bit, in both types: they run the same
 tiles in the same order on the same values (in bf16 K4 / K7 and K1 / K5
-are one tensor-core body with two row maps).
+are one tensor-core body with two row maps).  The dense cores (K1 / K4 /
+K5 / K7 at an identity R_k, ``ops.dense_decode*``) are held to the same
+rules; the float32 template to 1e-4 at every width the bf16 bodies serve
+(group_size 8, ranks 768 / 1,024, up to 8 verify queries); and one
+full-width ``compress_attention_layer`` on the card to the CPU's by
+product (1e-3 of the product's largest entry: cuSOLVER's and LAPACK's
+f32 SVDs differ in their last bits).
 """
 
 import dataclasses
@@ -767,21 +773,25 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     with pytest.raises(ValueError, match="dh must be 64 or 128"):
         K1.latent_decode_attention(q, z, z, torch.randn(1, 8, 192, device=cuda),
                                    tab, tab, torch.zeros(1, 4, device=cuda), scale=1.0)
-    # nq = 5 verify rows at the main path's width need more shared memory
-    # than a block has in f32; the wrapper raises instead of falling back
+    # nq = 5 verify rows at the main path's width do not fit one float32
+    # block of all rows: the template splits them (a head-slot plan) and
+    # serves them, K5 on the ring and K7 over a pool
     qm = torch.randn(1, 2, 5 * 16, 128, device=cuda)
     zm = torch.randn(1, 8, 2, 256, device=cuda)
     tm = torch.zeros(1, 8, 64, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        K1.latent_decode_attention_mq(qm, zm, zm, torch.randn(2, 256, 512, device=cuda),
-                                      tm, tm, torch.zeros(1, 5, 8, device=cuda), scale=1.0)
-    # the same for K7 over a pool; and a page table must be int32
+    rk = torch.randn(2, 256, 512, device=cuda) / 16
+    bm = torch.zeros(1, 5, 8, device=cuda)
+    torch.testing.assert_close(
+        K1.latent_decode_attention_mq(qm, zm, zm, rk, tm, tm, bm, scale=1.0),
+        K1.latent_decode_attention_mq_plain(qm, zm, zm, rk, tm, tm, bm, scale=1.0),
+        atol=1e-4, rtol=1e-4)
+    # a page table must be int32
     pm = torch.randn(3, 4, 2, 256, device=cuda)
     tab2 = torch.tensor([[1, 2]], dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="shared memory"):
-        K1.latent_decode_attention_mq_paged(
-            tab2, qm, pm, pm, torch.randn(2, 256, 512, device=cuda), tm, tm,
-            torch.zeros(1, 5, 8, device=cuda), scale=1.0)
+    torch.testing.assert_close(
+        K1.latent_decode_attention_mq_paged(tab2, qm, pm, pm, rk, tm, tm, bm, scale=1.0),
+        K1.latent_decode_attention_mq_paged_plain(tab2, qm, pm, pm, rk, tm, tm, bm,
+                                                  scale=1.0), atol=1e-4, rtol=1e-4)
     with pytest.raises(TypeError, match="int32"):
         K1.latent_decode_attention_paged(
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
@@ -821,3 +831,154 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         KQ.latent_decode_attention_mq_quant(qm[:, :, :64].to(bf), z8, s8, z12, s8, rk_bf,
                                             tm, tm, torch.zeros(1, 4, 8, device=cuda),
                                             scale=1.0)
+
+
+def _dense_ring(cuda, seed, B=3, S=64, Hkv=8, qpk=4, dh=128, nq=3):
+    """A dense ring (row 1 valid below 40, row 2 empty), nq verify
+    queries with their post-RoPE self entries, float32 on the card."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    pos = torch.arange(S, device=cuda).repeat(B, 1)
+    pos[1, 40:] = -1
+    pos[2] = -1
+    cache = {"k": rn(B, S, Hkv, dh), "v": rn(B, S, Hkv, dh), "pos": pos}
+    cur = torch.tensor([S, 40, 0], device=cuda)
+    feed = torch.ones(B, nq, dtype=torch.bool, device=cuda)
+    feed[0, -1] = False
+    return dict(cache=cache, cur=cur, feed=feed, q=rn(B, Hkv * qpk, dh),
+                qm=rn(B, nq, Hkv * qpk, dh),
+                one={k: rn(B, Hkv, dh) for k in ("k", "v")},
+                many={k: rn(B, nq, Hkv, dh) for k in ("k", "v")})
+
+
+def _pool_of(cache, ps, seed):
+    """The ring's pages at shuffled physical pages, empty pages on the
+    null page 0.  Returns (pool, ptab)."""
+    B, S = cache["pos"].shape
+    n_sp = S // ps
+    perm = (torch.randperm(B * n_sp, generator=torch.Generator().manual_seed(seed)) + 1)
+    ptab = torch.zeros(B, n_sp, dtype=torch.int32)
+    pool = {k: torch.zeros((B * n_sp + 1, ps) + tuple(v.shape[2:]), dtype=v.dtype,
+                           device=v.device) for k, v in cache.items()}
+    pool["pos"][:] = -1
+    for b in range(B):
+        for j in range(n_sp):
+            if (cache["pos"][b, j * ps:(j + 1) * ps] >= 0).any():
+                ptab[b, j] = perm[b * n_sp + j]
+                for k in pool:
+                    pool[k][ptab[b, j]] = cache[k][b, j * ps:(j + 1) * ps]
+    return pool, ptab.to(cache["pos"].device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dense_cores_match_plain_and_each_other(cuda, dtype):
+    """The dense cores at qwen3-4b's head shape (G = Hkv = 8 groups of s =
+    1, Hg = 4, r = dh = 128, identity R_k and tables): K1, K4, K5 (nq 3)
+    and K7 against their plain versions (the same calls on CPU copies),
+    K4 == K1 and K7 == K5 on the gathered ring bit for bit, launches
+    counted on the "dense" route; the empty row 2 sees only its self
+    columns."""
+    a = _dense_ring(cuda, 300)
+    cast = lambda d: {k: (v if k == "pos" else v.to(dtype)) for k, v in d.items()}
+    cache, one, many = cast(a["cache"]), cast(a["one"]), cast(a["many"])
+    q, qm = a["q"].to(dtype), a["qm"].to(dtype)
+    cpu = lambda d: {k: v.cpu() for k, v in d.items()}
+    kw = dict(window=None, scale=128 ** -0.5)
+    pool, ptab = _pool_of(cache, 16, 301)
+    view = {k: K1.gather_pages(v, ptab) for k, v in pool.items()}
+
+    def check(got, want):
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        else:
+            _within_bf16_limit(got.cpu(), want)
+
+    before = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
+    r1 = ops.dense_decode(q, cache, a["cur"], self_entry=one, **kw)
+    check(r1, ops.dense_decode(q.cpu(), cpu(cache), a["cur"].cpu(), self_entry=cpu(one),
+                               **kw))
+    p1 = ops.dense_decode_paged(q, pool, ptab, a["cur"], self_entry=one, **kw)
+    check(p1, ops.dense_decode_paged(q.cpu(), cpu(pool), ptab.cpu(), a["cur"].cpu(),
+                                     self_entry=cpu(one), **kw))
+    assert torch.equal(p1, ops.dense_decode(q, view, a["cur"], self_entry=one, **kw))
+    rm = ops.dense_decode_mq(qm, cache, a["cur"], a["feed"], many, **kw)
+    check(rm, ops.dense_decode_mq(qm.cpu(), cpu(cache), a["cur"].cpu(), a["feed"].cpu(),
+                                  cpu(many), **kw))
+    pm = ops.dense_decode_mq_paged(qm, pool, ptab, a["cur"], a["feed"], many, **kw)
+    check(pm, ops.dense_decode_mq_paged(qm.cpu(), cpu(pool), ptab.cpu(), a["cur"].cpu(),
+                                        a["feed"].cpu(), cpu(many), **kw))
+    assert torch.equal(pm, ops.dense_decode_mq(qm, view, a["cur"], a["feed"], many, **kw))
+    torch.cuda.synchronize()
+    after = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
+    assert after["latent_decode_attention"] - before["latent_decode_attention"] == 2
+    assert after["latent_decode_attention_mq"] - before["latent_decode_attention_mq"] == 2
+    for name in ("latent_decode_attention_paged", "latent_decode_attention_mq_paged"):
+        assert after[name] - before[name] == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nq,r", [(1, 768), (1, 1024), (4, 768), (4, 1024), (8, 1024)])
+def test_f32_template_serves_group_size_8_wide_ranks(cuda, nq, r):
+    """The float32 template at widths one block of all rows cannot hold
+    (G = 1, s = 8, Hg = 32, r = 768 / 1,024, nq up to 8): within 1e-4 of
+    the plain version (K1 at nq 1, K5 otherwise), and K4 / K7 equal to K1
+    / K5 on the gathered ring bit for bit."""
+    S, ps = 96, 16
+    a = _ring(cuda, 400 + r + nq, S=S, G=1, s=8, qpk=4, dh=128, rk=r, rv=r, nq=nq)
+    if nq == 1:
+        kernel, plain, paged = (K1.latent_decode_attention,
+                                K1.latent_decode_attention_plain,
+                                K1.latent_decode_attention_paged)
+        bias = a["bias"][:, 0, :S].contiguous()
+        sel = lambda k: a[k][:, 0]
+    else:
+        kernel, plain, paged = (K1.latent_decode_attention_mq,
+                                K1.latent_decode_attention_mq_plain,
+                                K1.latent_decode_attention_mq_paged)
+        bias = a["bias"]
+        sel = lambda k: a[k]
+    kw = dict(scale=128 ** -0.5, k_norm=a["k_norm"], self_zk=sel("self_zk"),
+              self_zv=sel("self_zv"), self_cos=sel("self_cos"), self_sin=sel("self_sin"))
+    tables = (a["cos"], a["sin"], bias)
+    got = _check(kernel, plain, (a["q"], a["zk"], a["zv"], a["r_k"], *tables), kw,
+                 torch.float32, kernel)
+    ptab, pzk, pzv = _paged(cuda, a, ps, r + nq)
+    view = kernel(a["q"], K1.gather_pages(pzk, ptab), K1.gather_pages(pzv, ptab),
+                  a["r_k"], *tables, **kw)
+    assert torch.equal(paged(ptab, a["q"], pzk, pzv, a["r_k"], *tables, **kw), view)
+    assert got.shape == (3, 1, nq * 32, r)
+
+
+@pytest.mark.gpu
+def test_compress_attention_layer_on_card_matches_cpu(cuda):
+    """One qwen3-4b-width layer (d 2560, 32 q heads, 8 kv heads, dh 128)
+    through HSR, whitened grouped SVD and ALS on the card and on the CPU:
+    the same groups, and the products L_k R_k and L_v[g] W~_o[h] within
+    1e-3 of the product's largest entry."""
+    from repro_torch.core import pipeline as P
+    g = torch.Generator().manual_seed(500)
+    d, H, Hkv, dh = 2560, 32, 8, 128
+    rn = lambda *sh: torch.randn(sh, generator=g)
+    X = rn(4096, d) @ (torch.eye(d) + 0.05 * rn(d, d))
+    w = dict(W_q=rn(d, H * dh) / d ** 0.5, W_k=rn(d, Hkv * dh) / d ** 0.5,
+             W_v=rn(d, Hkv * dh) / d ** 0.5, W_o=rn(H * dh, d) / (H * dh) ** 0.5)
+    rc = P.ReCalKVConfig(keep_ratio=0.5, group_size=4)
+    out = {}
+    for dev in ("cpu", cuda):
+        aw = P.AttnWeights(**{k: v.to(dev) for k, v in w.items()}, num_q_heads=H,
+                           num_kv_heads=Hkv)
+        out[str(dev)] = P.compress_attention_layer(aw, P.collect_stats(X.to(dev)), rc,
+                                                   256, 256)
+    c, k = out["cpu"], out[str(cuda)]
+    assert c.perm == k.perm and c.report["groups"] == k.report["groups"]
+
+    def near(a, b):
+        a, b = a.cpu(), b.cpu()
+        assert (a - b).abs().max() <= 1e-3 * b.abs().max()
+
+    for grp in range(2):
+        near(k.L_k[grp] @ k.R_k[grp], c.L_k[grp] @ c.R_k[grp])
+    for h in range(H):
+        grp = (h // 4) // 4
+        near(k.L_v[grp] @ k.W_o_fused[h], c.L_v[grp] @ c.W_o_fused[h])

@@ -160,8 +160,9 @@ def test_jax_saved_artifact_loads_and_prefills_equal(tmp_path):
 
 
 def test_port_imports_no_jax_and_no_repro():
-    """Every module of repro_torch, and chip_smoke, imports with ``jax``
-    and ``repro`` blocked on sys.meta_path."""
+    """Every module of repro_torch — the compression subpackages (core,
+    data, api, models.compress, quant.hadamard) among them — and
+    chip_smoke import with ``jax`` and ``repro`` blocked on sys.meta_path."""
     code = textwrap.dedent("""
         import importlib, importlib.abc, pkgutil, sys
         class Block(importlib.abc.MetaPathFinder):
@@ -178,6 +179,30 @@ def test_port_imports_no_jax_and_no_repro():
         bad = [m for m in sys.modules if m in ("jax", "repro")
                or m.startswith(("jax.", "repro."))]
         assert not bad, bad
+        new = {"repro_torch.core.pipeline", "repro_torch.core.svd",
+               "repro_torch.core.reorder", "repro_torch.data.synthetic",
+               "repro_torch.api.strategies", "repro_torch.api.facade",
+               "repro_torch.models.compress", "repro_torch.quant.hadamard"}
+        assert new <= set(mods), new - set(mods)
+        import tempfile, torch
+        if not torch.cuda.is_available():      # the new entry points default to cuda
+            from repro_torch import api
+            from repro_torch.configs import get_config
+            from repro_torch.models.weights import init_params
+            def raises_cuda(call):
+                try:
+                    call()
+                except RuntimeError as e:
+                    assert "cuda" in str(e)
+                    return
+                raise AssertionError("no error without a GPU")
+            cfg = get_config("qwen3-4b", smoke=True)          # dense
+            raises_cuda(lambda: init_params(cfg, torch.Generator()))
+            pp = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+            with tempfile.TemporaryDirectory() as d:
+                api.compress(cfg, pp, "grouped-svd").save(d)
+                raises_cuda(lambda: api.load_artifact(d))
+                raises_cuda(lambda: api.serve(d, max_slots=1, max_len=8))
         print(len(mods))
     """)
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
@@ -185,7 +210,7 @@ def test_port_imports_no_jax_and_no_repro():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    assert int(out.stdout.strip()) >= 44
 
 
 def test_default_device_without_gpu_raises():
