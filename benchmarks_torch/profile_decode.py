@@ -3,7 +3,7 @@
 their time.
 
     python3 benchmarks_torch/profile_decode.py [--cache-quant-bits 8] [--spec-depth 3]
-                                               [--page-size 16]
+                                               [--page-size 16] [--dense] [--src DIR]
 
 Builds full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio
 0.5), bf16, random weights from seed 0, on one CUDA card, at the main
@@ -22,7 +22,13 @@ over N + 1 fed tokens with all of them committed (``verify_step`` plus
 moves the prefilled rings into a paged pool of N-token pages (every slot
 page mapped, in a shuffled order) and steps through the page table: K4 /
 K7 on the float pool, the gathered view with K3 / K6 on the int8 pool.
-Without flags it measures what it always did.
+``--dense`` serves the dense (uncompressed) model instead
+(``recalkv=None``: K / V stored after RoPE, 4,096 bytes per token and
+layer; decode runs the dense decode kernel, the int8 ring does not apply).
+``--src DIR`` imports the port from another tree's ``src`` (an older
+commit unpacked with ``git archive``), so that two trees are profiled by
+the same script in turns on one card.  Without flags it measures what it
+always did.
 """
 
 from __future__ import annotations
@@ -82,12 +88,18 @@ def main() -> int:
     ap.add_argument("--page-size", type=int, default=None,
                     help="step over a paged pool of this page size; default: "
                          "the ring")
+    ap.add_argument("--dense", action="store_true",
+                    help="the dense model (recalkv=None) instead of the latent one")
+    ap.add_argument("--src", default=str(ROOT / "src"),
+                    help="the tree whose src is profiled (default: this one's)")
     args = ap.parse_args()
+    if args.dense and args.cache_quant_bits:
+        ap.error("--dense takes no --cache-quant-bits: the int8 cache is latent")
     import torch
     if not torch.cuda.is_available():
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.configs import get_config
     from repro_torch.models import transformer as T
     from repro_torch.models.weights import init_params
@@ -96,8 +108,9 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    cfg = dataclasses.replace(get_config("qwen3-4b", recalkv_ratio=0.5),
-                              attn_backend="kernel", dtype=torch.bfloat16,
+    base = (get_config("qwen3-4b") if args.dense
+            else get_config("qwen3-4b", recalkv_ratio=0.5))
+    cfg = dataclasses.replace(base, attn_backend="kernel", dtype=torch.bfloat16,
                               cache_quant_bits=args.cache_quant_bits)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -117,11 +130,12 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     print(f"card: {card}")
-    print(f"qwen3-4b r={cfg.recalkv.rank_k} bf16, cache_quant_bits "
+    kind = "dense" if args.dense else f"r={cfg.recalkv.rank_k}"
+    print(f"qwen3-4b {kind} bf16, cache_quant_bits "
           f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, page_size "
-          f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}: first "
-          f"(cold) prefill {cold_s:.4f} s")
-    out = {"card": card, "batch": B, "prompt": PROMPT,
+          f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}, src "
+          f"{args.src}: first (cold) prefill {cold_s:.4f} s")
+    out = {"card": card, "src": args.src, "dense": args.dense, "batch": B, "prompt": PROMPT,
            "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
            "spec_depth": args.spec_depth, "page_size": args.page_size,
            "cold_prefill_s": cold_s,

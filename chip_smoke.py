@@ -30,14 +30,20 @@ Phases, in order (any failure exits non-zero; none is caught):
    at group_size 8 on full 4096-token rings at ranks 544-1024, timed
    beside their bounds (what the 64-column plan costs); and K2 at value
    widths 128, 152, 384, 512 and 1024 in float32 and bf16; then the dense
-   cores (the dense KV cache through K1, K4, K5 and K7 at qwen3-4b's
-   heads: G = Hkv = 8 groups of one kv head, Hg = 4, r = dh = 128, an
-   identity R_k and identity rotation tables) in f32 and bf16, K4 / K7
-   equal to K1 / K5 on the gathered ring bit for bit, each timed beside
-   its bound and one ``scaled_dot_product_attention`` call (GQA, additive
-   mask) on the same ring plus the self columns, with the SDPA backend
-   PyTorch picks; and the float32 template at the widths its row-block
-   plans open (K1 and K5 at group_size 8, ranks 768 / 1024, nq 1 / 4);
+   cores at qwen3-4b's heads (Hkv = 8, q_per_kv 4, dh 128): K1's and K4's
+   dense cores, the dense decode kernel (``csrc/dense_decode.cu``) on the
+   ring and on the ragged pool, the pool equal to the ring kernel on the
+   gathered view bit for bit (and in bf16 to itself on an in-order page
+   placement), each timed beside the route it replaces (K1 / K4 at an
+   identity R_k and identity rotation tables) in the same call; K5's and
+   K7's dense cores (those kernels at an identity R_k, G = Hkv = 8 groups
+   of one kv head, r = dh = 128), K7 equal to K5 on the gathered ring bit
+   for bit; all in f32 and bf16, each timed beside its bound and one
+   ``scaled_dot_product_attention`` call (GQA, additive mask) on the same
+   ring plus the self columns, with the SDPA backend PyTorch picks; and
+   the float32 template at the widths its row-block plans open (K1 and K5
+   at group_size 8, ranks 768 / 1024, nq 1 / 4).  Every kernel time is
+   device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator: prefill
    and decode steps, and prefill and one 4-token verify step on float and
@@ -71,10 +77,12 @@ Phases, in order (any failure exits non-zero; none is caught):
    freed first): prefill, decode and a 4-token verify step through both
    backends (logits within 5e-2 relative), decode and verify on a paged
    pool equal to the ring's bit for bit (these steps' launches count as
-   the run "steps": K4's and K5's dense cores); then
+   the run "steps": the dense decode kernel on the ring and the pool, K5's
+   and K7's dense cores); then
    H, float ring, no speculation, 4 prompts of 512-1024 tokens (one
    streams 256 tokens through the decode loop) (K2 at Hv = 8, dv = 128,
-   K1's dense core);
+   the dense decode kernel); K1 and K4, the dense cache's old route, must
+   count 0 launches over the steps, H and I;
    I, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
    prompts (K7's dense core);
    J, compress then serve: ``api.calibrate`` on 8 synthetic sequences of
@@ -90,9 +98,10 @@ Phases, in order (any failure exits non-zero; none is caught):
 7. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
-   run; the four dense cores are entries of their own, counted on their
-   wrappers' "dense" route), the card line, and the final ``{"ok": true,
-   "device": {...}}`` line.
+   run; the four dense cores are entries of their own: the dense decode
+   kernels counted on their own wrappers, K5's and K7's on those wrappers'
+   "dense" route), the card line, and the final ``{"ok": true, "device":
+   {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
 JAX or of the JAX package.
@@ -136,11 +145,15 @@ def card_line() -> str:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call of ``fn``: the launches are queued behind a ~25 ms
+    device sleep, so the events time the card's work and not the host's
+    enqueue (a wrapper's host time can exceed a short kernel's)."""
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)
     a.record()
     for _ in range(iters):
         fn()
@@ -244,18 +257,22 @@ def dense_flops(B, S_ext, G, Hg, dh, nq):
     return 2.0 * B * G * S_ext * nq * Hg * 2 * dh
 
 
-# The dense cores: each rides a latent kernel (its entry's ``kernel``),
-# as the JAX package's ops cores do; ``replaces`` is that kernel's
-# pallas_call and ``jax_core`` the JAX core that sets it up.
+# The dense cores.  K1's and K4's have a kernel of their own
+# (``csrc/dense_decode.cu``); K5's and K7's ride those latent kernels (the
+# entry's ``kernel``) at an identity R_k, as the JAX package's ops cores do.
+# ``replaces`` is the Pallas kernel's pallas_call and ``jax_core`` the JAX
+# core that sets it up.
 DENSE_CORES = {
     "latent_decode_attention": dict(
-        name="dense_decode", kernel="latent_decode_attention",
+        name="dense_decode_attention", kernel="dense_decode_attention",
+        source="src/repro_torch/csrc/dense_decode.cu",
         jax_core="src/repro/kernels/ops.py:238 (_dense_ring_core)"),
     "latent_decode_attention_mq": dict(
         name="dense_decode_mq", kernel="latent_decode_attention_mq",
         jax_core="src/repro/kernels/ops.py:272 (_dense_ring_core_mq)"),
     "latent_decode_attention_paged": dict(
-        name="dense_decode_paged", kernel="latent_decode_attention_paged",
+        name="dense_decode_attention_paged", kernel="dense_decode_attention_paged",
+        source="src/repro_torch/csrc/dense_decode.cu",
         jax_core="src/repro/kernels/ops.py:533 (_dense_paged_core)"),
     "latent_decode_attention_mq_paged": dict(
         name="dense_decode_mq_paged", kernel="latent_decode_attention_mq_paged",
@@ -286,29 +303,27 @@ def sdpa_time(torch, qg, k, v, self_k, self_v, bias, nq):
     return ms, SDPBackend(choice).name
 
 
-def phase_dense(torch, gen, nq):
-    """The dense ring cores, K1 (nq = 1) and K5 (nq = 4), at qwen3-4b's
-    dense shape (``ring_inputs(dense=True)``) against their plain
-    versions in f32 and bf16, timed beside their bound (the dense
-    function's bytes: q, K, V, self K / V, mask, output) and one SDPA
-    call on the same ring plus the self columns."""
+def phase_dense_mq(torch, gen):
+    """K5's dense core (nq = 4 verify queries, K5 at an identity R_k) at
+    qwen3-4b's dense shape (``ring_inputs(dense=True)``) against its plain
+    version in f32 and bf16, timed beside its bound (the dense function's
+    bytes: q, K, V, self K / V, mask, output) and one SDPA call on the
+    same ring plus the self columns."""
     from repro_torch.kernels import latent_decode as K
+    nq = 4
     a = ring_inputs(torch, gen, nq, dense=True)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
-    one = nq == 1
-    sel = (lambda x: x[:, 0]) if one else (lambda x: x)
-    bias = a["bias"][:, 0, :S].contiguous() if one else a["bias"]
+    bias = a["bias"]
 
     def make(dt):
         t = {k: a[k].to(dt) for k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv")}
-        kw = dict(scale=dh ** -0.5, self_zk=sel(t["self_zk"]), self_zv=sel(t["self_zv"]),
-                  self_cos=sel(a["self_cos"]), self_sin=sel(a["self_sin"]))
+        kw = dict(scale=dh ** -0.5, self_zk=t["self_zk"], self_zv=t["self_zv"],
+                  self_cos=a["self_cos"], self_sin=a["self_sin"])
         return (t["q"], t["zk"], t["zv"], t["r_k"], a["cos"], a["sin"], bias), kw
 
-    fn = "latent_decode_attention" if one else "latent_decode_attention_mq"
-    line = 177 if one else 338
+    fn = "latent_decode_attention_mq"
     meta = {"source": "src/repro_torch/csrc/latent_decode_tc.cu",
-            "replaces": f"src/repro/kernels/latent_decode.py:{line}",
+            "replaces": "src/repro/kernels/latent_decode.py:338",
             "tpu_kernel": f"src/repro/kernels/latent_decode.py::{fn}",
             "shape": (f"B={B} S={S}+{nq} G=Hkv={G} Hg={Hg} s=1 nq={nq} dh=r={dh}, "
                       f"identity R_k and tables, bf16")}
@@ -326,6 +341,95 @@ def phase_dense(torch, gen, nq):
         f"{entry['ms'] / library_ms:.2f}x sdpa")
     entry.update(DENSE_CORES[fn], library_ms=library_ms, sdpa_backend=backend,
                  launch_key=fn + ":dense")
+    return entry
+
+
+def phase_dense_decode(torch, gen, paged):
+    """K1's (the ring) or K4's (``paged``: the ragged pool of
+    ``paged_inputs``) dense core, the dense decode kernel of
+    ``csrc/dense_decode.cu``, at qwen3-4b's dense shape against its plain
+    version in f32 and bf16; the pool must equal the ring kernel on the
+    gathered view bit for bit in both types, and in bf16 itself on an
+    in-order placement of the same pages.  Timed beside its bound (the
+    dense function's bytes), the plain version, one SDPA call on the same
+    ring (or view) plus the self column, and the route it replaces, K1 /
+    K4 at an identity R_k with identity rotation tables, in this call."""
+    from repro_torch.kernels import dense_decode as KD
+    from repro_torch.kernels import latent_decode as K
+    if paged:
+        a, ptab, pools, cols, flops = paged_inputs(torch, gen, 1, dense=True)
+    else:
+        a = ring_inputs(torch, gen, 1, dense=True)
+        pools, ptab = {"zk": a["zk"], "zv": a["zv"]}, None
+    B, S, G, Hg, dh, _, _, _ = a["shape"]
+    bias = a["bias"] if paged else a["bias"][:, 0, :S].contiguous()
+    name = "dense_decode_attention" + ("_paged" if paged else "")
+    kernel, plain = getattr(KD, name), getattr(KD, name + "_plain")
+    lead = (ptab,) if paged else ()
+    res, view_diff = {}, None
+    for dt in (torch.float32, torch.bfloat16):
+        args = (*lead, a["q"].to(dt), pools["zk"].to(dt), pools["zv"].to(dt), bias)
+        kw = dict(scale=dh ** -0.5, self_k=a["self_zk"][:, 0].to(dt),
+                  self_v=a["self_zv"][:, 0].to(dt))
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        res[dt] = compare(name, got, plain(*args, **kw), dt)
+        if not paged:
+            continue
+        view = (args[1], K.gather_pages(args[2], ptab), K.gather_pages(args[3], ptab), bias)
+        ring = KD.dense_decode_attention(*view, **kw)
+        torch.cuda.synchronize()
+        view_diff = (got.float() - ring.float()).abs().max().item()
+        log(f"{name} {dt}: max abs diff against dense_decode_attention on the gathered "
+            f"ring {view_diff:.3e} (0 expected: same chunks, same order)")
+        if not torch.equal(got, ring):
+            raise AssertionError(f"{name} differs from the ring kernel on the gathered "
+                                 f"ring by {view_diff:.3e}")
+        if dt == torch.bfloat16:
+            order, opools = in_order(torch, ptab, {"zk": args[2], "zv": args[3]})
+            again = kernel(order, args[1], opools["zk"], opools["zv"], bias, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(got, again):
+                raise AssertionError(f"{name} depends on the page placement")
+    ms = cuda_ms(lambda: kernel(*args, **kw), iters=50)
+    plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
+    # the route this kernel replaces: K1 / K4 at an identity R_k, identity tables
+    old = K.latent_decode_attention_paged if paged else K.latent_decode_attention
+    old_args = args[:-1] + (a["r_k"].to(torch.bfloat16), a["cos"], a["sin"], bias)
+    old_kw = dict(scale=dh ** -0.5, self_zk=kw["self_k"], self_zv=kw["self_v"],
+                  self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+    old_ms = cuda_ms(lambda: old(*old_args, **old_kw), iters=50)
+    selfs = [kw["self_k"], kw["self_v"]]
+    if paged:   # the dense function's own operands: mapped pages, table, q, self K/V, mask
+        used_pages = int(torch.unique(ptab[ptab != 0]).numel())
+        lat = used_pages * PAGE * G * 2 * dh * args[2].element_size()
+        b_ms, by = bound(lat + cols * 4 + nbytes(ptab, args[1], got, *selfs), flops)
+        sd_k, sd_v = view[1], view[2]
+    else:
+        b_ms, by = bound(nbytes(*args, *selfs, got), dense_flops(B, S + 1, G, Hg, dh, 1))
+        sd_k, sd_v = args[1], args[2]
+    library_ms, backend = sdpa_time(torch, args[-4], sd_k, sd_v, *selfs, bias, 1)
+    log(f"{name} B={B} S={S}+1 Hkv={G} q_per_kv={Hg} dh={dh}"
+        + (f" page_size={PAGE} {used_pages} pages" if paged else "")
+        + f": max err f32 {res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), sdpa "
+        f"{library_ms:.4f} ms ({backend}), old route ({old.__name__} at an identity R_k) "
+        f"{old_ms:.4f} ms; kernel {ms / b_ms:.2f}x its bound, {ms / library_ms:.2f}x sdpa, "
+        f"{ms / old_ms:.2f}x the old route")
+    line = 456 if paged else 177
+    fn = "latent_decode_attention" + ("_paged" if paged else "")
+    entry = {"route": "cuda", "replaces": f"src/repro/kernels/latent_decode.py:{line}",
+             "tpu_kernel": f"src/repro/kernels/latent_decode.py::{fn}",
+             "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
+             "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+             "library_ms": library_ms, "sdpa_backend": backend, "old_route_ms": old_ms,
+             "launch_key": name,
+             "shape": (f"B={B} S={S}+1 Hkv={G} q_per_kv={Hg} dh={dh} bf16"
+                       + (f", page_size={PAGE} {used_pages} pages, ragged table"
+                          if paged else ""))}
+    if paged:
+        entry["view_max_abs_diff"] = view_diff
+    entry.update(DENSE_CORES[fn])
     return entry
 
 
@@ -940,9 +1044,9 @@ ENGINE_RUNS = {
     "G": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
               must=("flash_prefill_attention", "latent_decode_attention_mq")),
     # the dense model (recalkv=None): K2 at Hv = 8, dv = 128, and the dense
-    # cores through K1 (H) and K7 (I)
+    # cores: the dense decode kernel (H), K7 at an identity R_k (I)
     "H": dict(bits=None, depth=0, draft=None, chunk=768, sync=16,
-              must=("flash_prefill_attention", "latent_decode_attention:dense")),
+              must=("flash_prefill_attention", "dense_decode_attention")),
     "I": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
               must=("flash_prefill_attention", "latent_decode_attention_mq_paged:dense"),
               paged=dict(cache_layout="paged", page_size=PAGE,
@@ -979,8 +1083,9 @@ def engine_prompts(torch, run, vocab):
 
 
 def launch_counts(kernels) -> dict:
-    """Launches since the last reset, by wrapper; K1, K4, K5 and K7 by
-    route ("name" counts the latent route, "name:dense" the dense one)."""
+    """Launches since the last reset, by wrapper (the dense decode kernels
+    among them); K5 and K7 by route ("name" counts the latent route,
+    "name:dense" the dense verify steps)."""
     out = {k.__name__: k.launches for k in kernels.KERNELS}
     for k in kernels.ROUTED:
         out[k.__name__] = k.launches_by_route["latent"]
@@ -1173,8 +1278,8 @@ def main() -> int:
     wide_ranks = phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
     t_dense = time.perf_counter()
-    entries += [phase_dense(torch, gen, 1), phase_paged(torch, gen, 1, dense=True),
-                phase_dense(torch, gen, 4), phase_paged(torch, gen, 4, dense=True)]
+    entries += [phase_dense_decode(torch, gen, False), phase_dense_decode(torch, gen, True),
+                phase_dense_mq(torch, gen), phase_paged(torch, gen, 4, dense=True)]
     f32_widths = phase_f32_widths(torch, gen)
     torch.cuda.empty_cache()
     log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
@@ -1222,6 +1327,12 @@ def main() -> int:
     by_run["steps"] = launch_counts(kernels)
     for run in "HI":
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    old = {run: {k: by_run[run][k] for k in ("latent_decode_attention",
+                                             "latent_decode_attention_paged")}
+           for run in ("steps", "H", "I")}
+    if any(n for counts in old.values() for n in counts.values()):
+        raise AssertionError(f"the dense model launched K1 or K4: {old}")
+    log("K1 and K4 (the old dense route) launched 0 times over the dense steps and runs H, I")
     compression = phase_compress(torch, cfg, params)
     del params   # the dense model goes; J boots from the saved artifact
     torch.cuda.empty_cache()

@@ -360,22 +360,19 @@ def _on_device(name: str, q) -> bool:
 
 
 def _count(wrapper, route: str) -> None:
-    """One launch of ``wrapper``'s kernel, on ``route``: "latent" (a
-    ReCalKV cache) or "dense" (the dense cache through an identity R_k,
-    ``ops.dense_decode*``)."""
+    """One launch of ``wrapper``'s kernel (K5 or K7), on ``route``:
+    "latent" (a ReCalKV cache) or "dense" (the dense cache's verify steps
+    through an identity R_k, ``ops.dense_decode_mq*``)."""
     wrapper.launches += 1
     wrapper.launches_by_route[route] += 1
 
 
 def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
                             k_norm=None, norm_eps=1e-6, self_zk=None,
-                            self_zv=None, self_cos=None, self_sin=None,
-                            route="latent"):
+                            self_zv=None, self_cos=None, self_sin=None):
     """K1.  A CPU tensor runs the plain version; a CUDA tensor runs the
     CUDA kernel (built at first use) or raises — there is no fallback.
-    ``latent_decode_attention.launches`` counts kernel launches, and
-    ``.launches_by_route`` splits them by ``route`` ("latent" or
-    "dense", which the caller names)."""
+    ``latent_decode_attention.launches`` counts kernel launches."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("latent decode", q):
@@ -388,7 +385,7 @@ def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
         out = launch("recalkv_latent_decode", q, zk, zv, r_k, cos, sin, bias,
                      scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
                      self_sin)
-    _count(latent_decode_attention, route)
+    latent_decode_attention.launches += 1
     return out
 
 
@@ -398,8 +395,10 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                route="latent"):
     """K5: nq = bias.shape[1] verify queries per head in one pass (keys
     rebuilt once per tile, scored by every query).  Device rule and
-    launch counter as for K1; bf16 runs the tensor-core kernel, float32
-    the template's parity instantiation."""
+    launch counter as for K1, and ``.launches_by_route`` splits the
+    launches by ``route`` ("latent" or "dense", which the caller names);
+    bf16 runs the tensor-core kernel, float32 the template's parity
+    instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("multi-query latent decode", q):
@@ -416,7 +415,7 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
 def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                   scale, k_norm=None, norm_eps=1e-6,
                                   self_zk=None, self_zv=None, self_cos=None,
-                                  self_sin=None, route="latent"):
+                                  self_sin=None):
     """K4: K1 over a page-major pool through ``ptab``.  Device rule as for
     K1; ``.launches`` counts kernel launches.  bf16 runs the tensor-core
     kernel, float32 the template's parity instantiation."""
@@ -433,7 +432,7 @@ def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
         out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin,
                      bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
                      self_sin, ptab=ptab)
-    _count(latent_decode_attention_paged, route)
+    latent_decode_attention_paged.launches += 1
     return out
 
 
@@ -442,7 +441,7 @@ def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                      self_zk=None, self_zv=None, self_cos=None,
                                      self_sin=None, route="latent"):
     """K7: K5 over a page-major pool through ``ptab``.  Device rule and
-    counter as for K1; bf16 runs K5's tensor-core kernel through the page
+    counters as for K5; bf16 runs K5's tensor-core kernel through the page
     table, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
@@ -457,8 +456,9 @@ def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
     return out
 
 
-ROUTED = (latent_decode_attention, latent_decode_attention_mq,
-          latent_decode_attention_paged, latent_decode_attention_mq_paged)
+latent_decode_attention.launches = 0
+latent_decode_attention_paged.launches = 0
+ROUTED = (latent_decode_attention_mq, latent_decode_attention_mq_paged)
 for _w in ROUTED:
     _w.launches = 0
     _w.launches_by_route = {"latent": 0, "dense": 0}

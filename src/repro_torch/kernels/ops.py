@@ -22,13 +22,16 @@ through the table.  The int8 pool does not come here: the model reads it
 through the gathered view (``kv_cache.paged_view``) with K3 / K6, as the
 JAX package does.
 
-The dense cache {"k", "v", "pos"} rides the same kernels as the
-degenerate latent cache (``dense_decode*``, as the JAX package's
-``_dense_ring_core`` and ``_dense_paged_core``): one kv head per group (G =
-Hkv, s = 1), the keys as their own latents behind an identity ``R_k``
-(r_k = r_v = dh), no k-norm, and identity rotation tables (cos 1, sin 0,
-the self columns' too), because dense keys are stored after RoPE.  Those
-calls count as the wrappers' ``"dense"`` route (``launches_by_route``).
+The dense cache {"k", "v", "pos"} has its own decode kernel for one
+query (``dense_decode`` / ``dense_decode_paged`` -> ``csrc/dense_decode.cu``,
+the dense cores of K1 and K4: no key rebuild, no rotation, keys stored
+after RoPE).  Its verify calls (``dense_decode_mq*``) still ride K5 / K7
+as the degenerate latent cache, as the JAX package's ``_dense_ring_core_mq``
+and ``_dense_paged_core_mq`` do: one kv head per group (G = Hkv, s = 1), the
+keys as their own latents behind an identity ``R_k`` (r_k = r_v = dh), no
+k-norm, and identity rotation tables (cos 1, sin 0, the self columns'
+too).  Those calls count as K5's and K7's ``"dense"`` route
+(``launches_by_route``).
 """
 
 from __future__ import annotations
@@ -37,6 +40,8 @@ import functools
 
 import torch
 
+from repro_torch.kernels.dense_decode import (dense_decode_attention,
+                                              dense_decode_attention_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.latent_decode import (
     NEG_INF, gather_pages, latent_decode_attention, latent_decode_attention_mq,
@@ -148,7 +153,6 @@ def _ring_operands(cache: dict, entry: dict | None):
 def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
             k_norm, norm_eps):
     ring, selfs, quant = _ring_operands(cache, self_entry)
-    route = "dense" if "k" in cache else "latent"
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
     G = ring[0].shape[2]
@@ -163,12 +167,11 @@ def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
     qg = group_queries(q, G)
     if ptab is not None:
         o = latent_decode_attention_paged(ptab, qg, *ring, r_k, cos, sin, bias,
-                                          route=route, **kw)
+                                          **kw)
     elif quant:
         o = latent_decode_attention_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
-        o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias,
-                                    route=route, **kw)
+        o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias, **kw)
     return ungroup_outputs(o)
 
 
@@ -263,22 +266,31 @@ def _dense_factors(cache: dict) -> torch.Tensor:
 
 def dense_decode(q, cache, cur, *, window: int | None, scale: float,
                  self_entry: dict | None = None):
-    """Dense ring decode through K1's dense core.  q: (B, H, dh) post-RoPE;
-    cache {"k", "v": (B, S, Hkv, dh), "pos"}; ``self_entry`` {"k", "v":
-    (B, Hkv, dh)}, the current token post-RoPE (and k-norm), scored as one
-    extra column at position ``cur``.  Returns (B, H, dh)."""
-    return _decode(q, cache, _dense_factors(cache), cur, None, theta=None,
-                   window=window, scale=scale, self_entry=self_entry,
-                   k_norm=None, norm_eps=1e-6)
+    """Dense ring decode through K1's dense core (``csrc/dense_decode.cu``).
+    q: (B, H, dh) post-RoPE; cache {"k", "v": (B, S, Hkv, dh), "pos"};
+    ``self_entry`` {"k", "v": (B, Hkv, dh)}, the current token post-RoPE
+    (and k-norm), scored as one extra column at position ``cur``.  Returns
+    (B, H, dh)."""
+    e = self_entry or {}
+    o = dense_decode_attention(
+        group_queries(q, cache["k"].shape[2]), cache["k"], cache["v"],
+        decode_bias(cache["pos"], cur, window), scale=scale, self_k=e.get("k"),
+        self_v=e.get("v"))
+    return ungroup_outputs(o)
 
 
 def dense_decode_paged(q, cache, ptab, cur, *, window: int | None,
                        scale: float, self_entry: dict | None = None):
     """Dense decode over page-major {"k", "v", "pos"} pools through
-    ``ptab``, with K4's dense core.  Returns (B, H, dh)."""
-    return _decode(q, cache, _dense_factors(cache), cur, ptab, theta=None,
-                   window=window, scale=scale, self_entry=self_entry,
-                   k_norm=None, norm_eps=1e-6)
+    ``ptab``, with K4's dense core (the ring's kernel through the page
+    table; the bias is slot-major, from the gathered positions).  Returns
+    (B, H, dh)."""
+    e = self_entry or {}
+    o = dense_decode_attention_paged(
+        ptab, group_queries(q, cache["k"].shape[2]), cache["k"], cache["v"],
+        decode_bias(gather_pages(cache["pos"], ptab), cur, window), scale=scale,
+        self_k=e.get("k"), self_v=e.get("v"))
+    return ungroup_outputs(o)
 
 
 def dense_decode_mq(q, cache, cur, feed_mask, self_entries, *,

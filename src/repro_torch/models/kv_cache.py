@@ -219,7 +219,8 @@ def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
     scale = dh ** -0.5
     updates = {"k": k_new, "v": v_new, "pos": cur.to(torch.int64)}
     if cfg.attn_backend == "kernel":
-        # K1 / K4's dense core: one call scores [ring | self].
+        # K1 / K4's dense core (csrc/dense_decode.cu): one call scores
+        # [ring | self].
         kw = dict(window=window, scale=scale,
                   self_entry={"k": k_new, "v": v_new})
         o = (kops.dense_decode(q[:, 0], cache, cur, **kw) if ptab is None

@@ -255,16 +255,26 @@ def test_dense_cores_match_jax_kernels(model, layout):
 
 
 def test_dense_core_launches_count_by_route():
-    """On the CPU the wrappers run their plain versions and count nothing;
-    the route counters exist on the four routed kernels."""
+    """On the CPU the wrappers run their plain versions and count nothing:
+    the dense decode kernels (``ops.dense_decode*``), K1 and K4, and the
+    route counters of K5 and K7, whose "dense" route serves the verify
+    cores."""
     kernels.reset_launch_counts()
     for k in kernels.ROUTED:
         assert k.launches_by_route == {"latent": 0, "dense": 0}
     cache, cur = _ring(_jcfg(), 7)
     cache = {k: _t(v).long() if k == "pos" else _t(v) for k, v in cache.items()}
+    pool, ptab = _pool({k: v.numpy() for k, v in cache.items()})
+    pool = {k: _t(v).long() if k == "pos" else _t(v) for k, v in pool.items()}
     ops.dense_decode(torch.zeros(3, 4, 16), cache, _t(cur), window=None, scale=0.25)
-    assert all(sum(k.launches_by_route.values()) == k.launches == 0
-               for k in kernels.ROUTED)
+    ops.dense_decode_paged(torch.zeros(3, 4, 16), pool, _t(ptab), _t(cur), window=None,
+                           scale=0.25)
+    ops.dense_decode_mq(torch.zeros(3, 2, 4, 16), cache, _t(cur),
+                        torch.ones(3, 2, dtype=torch.bool),
+                        {"k": torch.zeros(3, 2, 2, 16), "v": torch.zeros(3, 2, 2, 16)},
+                        window=None, scale=0.25)
+    assert all(k.launches == 0 for k in kernels.KERNELS)
+    assert all(sum(k.launches_by_route.values()) == 0 for k in kernels.ROUTED)
 
 
 # -- model steps and Engine streams ----------------------------------------------

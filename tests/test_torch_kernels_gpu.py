@@ -17,9 +17,12 @@ plans).  K3 / K6 compare with their plain versions on the same int8
 latents and scales.  K7 (the paged pool) and K4 must also equal K5 / K1
 on the table-gathered ring bit for bit, in both types: they run the same
 tiles in the same order on the same values (in bf16 K4 / K7 and K1 / K5
-are one tensor-core body with two row maps).  The dense cores (K1 / K4 /
-K5 / K7 at an identity R_k, ``ops.dense_decode*``) are held to the same
-rules; the float32 template to 1e-4 at every width the bf16 bodies serve
+are one tensor-core body with two row maps).  The dense cores
+(``ops.dense_decode*``: the dense decode kernel on the ring and the pool,
+K5 / K7 at an identity R_k for verify) are held to the same rules, the
+pool equal to the ring on the gathered view bit for bit, and a row that
+sees only its self column returns the self value exactly; the float32
+template to 1e-4 at every width the bf16 bodies serve
 (group_size 8, ranks 768 / 1,024, up to 8 verify queries); and one
 full-width ``compress_attention_layer`` on the card to the CPU's by
 product (1e-3 of the product's largest entry: cuSOLVER's and LAPACK's
@@ -33,6 +36,7 @@ import pytest
 import torch
 
 from repro_torch.configs import get_config
+from repro_torch.kernels import dense_decode as KD
 from repro_torch.kernels import flash_prefill as K2
 from repro_torch.kernels import latent_decode as K1
 from repro_torch.kernels import latent_decode_q as KQ
@@ -873,11 +877,12 @@ def _pool_of(cache, ps, seed):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_cores_match_plain_and_each_other(cuda, dtype):
-    """The dense cores at qwen3-4b's head shape (G = Hkv = 8 groups of s =
-    1, Hg = 4, r = dh = 128, identity R_k and tables): K1, K4, K5 (nq 3)
-    and K7 against their plain versions (the same calls on CPU copies),
-    K4 == K1 and K7 == K5 on the gathered ring bit for bit, launches
-    counted on the "dense" route; the empty row 2 sees only its self
+    """The dense cores at qwen3-4b's head shape (Hkv = 8, q_per_kv 4, dh
+    128): the dense decode kernel on the ring and the pool, K5 (nq 3) and
+    K7 at an identity R_k, against their plain versions (the same calls on
+    CPU copies); the pool == the ring and K7 == K5 on the gathered ring bit
+    for bit; launches counted on the dense decode wrappers and on K5's and
+    K7's dense route, none on K1 or K4; the empty row 2 sees only its self
     columns."""
     a = _dense_ring(cuda, 300)
     cast = lambda d: {k: (v if k == "pos" else v.to(dtype)) for k, v in d.items()}
@@ -895,6 +900,9 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
             _within_bf16_limit(got.cpu(), want)
 
     before = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
+    counted = (KD.dense_decode_attention, KD.dense_decode_attention_paged,
+               K1.latent_decode_attention, K1.latent_decode_attention_paged)
+    launches_before = [k.launches for k in counted]
     r1 = ops.dense_decode(q, cache, a["cur"], self_entry=one, **kw)
     check(r1, ops.dense_decode(q.cpu(), cpu(cache), a["cur"].cpu(), self_entry=cpu(one),
                                **kw))
@@ -902,6 +910,7 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
     check(p1, ops.dense_decode_paged(q.cpu(), cpu(pool), ptab.cpu(), a["cur"].cpu(),
                                      self_entry=cpu(one), **kw))
     assert torch.equal(p1, ops.dense_decode(q, view, a["cur"], self_entry=one, **kw))
+    assert torch.equal(r1[2], one["v"][2].repeat_interleave(4, dim=0))
     rm = ops.dense_decode_mq(qm, cache, a["cur"], a["feed"], many, **kw)
     check(rm, ops.dense_decode_mq(qm.cpu(), cpu(cache), a["cur"].cpu(), a["feed"].cpu(),
                                   cpu(many), **kw))
@@ -911,10 +920,72 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
     assert torch.equal(pm, ops.dense_decode_mq(qm, view, a["cur"], a["feed"], many, **kw))
     torch.cuda.synchronize()
     after = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
-    assert after["latent_decode_attention"] - before["latent_decode_attention"] == 2
+    assert [k.launches - n for k, n in zip(counted, launches_before)] == [2, 1, 0, 0]
     assert after["latent_decode_attention_mq"] - before["latent_decode_attention_mq"] == 2
-    for name in ("latent_decode_attention_paged", "latent_decode_attention_mq_paged"):
-        assert after[name] - before[name] == 1
+    assert (after["latent_decode_attention_mq_paged"]
+            - before["latent_decode_attention_mq_paged"]) == 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,qpk,window", [(64, 1, None), (64, 8, 16), (128, 1, 16),
+                                           (128, 8, None)])
+def test_dense_decode_kernel_edge_shapes(cuda, dtype, dh, qpk, window):
+    """The dense decode kernel at dh 64 / 128, q_per_kv 1 / 8, with and
+    without a window, on a ring whose row 2 is masked everywhere: within
+    1e-4 (f32) or the bf16 limit of the plain version, row 2 exactly its
+    self value (and exact 0 without a self column), and the pool equal to
+    the ring on the gathered view bit for bit (page size 8)."""
+    a = _dense_ring(cuda, 500 + dh + qpk, S=200, qpk=qpk, dh=dh)
+    cache = {k: (v if k == "pos" else v.to(dtype)) for k, v in a["cache"].items()}
+    qg = ops.group_queries(a["q"].to(dtype), 8)
+    sk, sv = a["one"]["k"].to(dtype), a["one"]["v"].to(dtype)
+    bias = ops.decode_bias(cache["pos"], a["cur"], window)
+    kw = dict(scale=dh ** -0.5, self_k=sk, self_v=sv)
+    got = KD.dense_decode_attention(qg, cache["k"], cache["v"], bias, **kw)
+    want = KD.dense_decode_attention_plain(qg, cache["k"], cache["v"], bias, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _within_bf16_limit(got, want)
+    assert torch.equal(got[2], sv[2][:, None].expand(8, qpk, dh))
+    bare = KD.dense_decode_attention(qg, cache["k"], cache["v"], bias, scale=dh ** -0.5)
+    assert (bare[2] == 0).all()
+    pool, ptab = _pool_of(cache, 8, 501)
+    pbias = ops.decode_bias(K1.gather_pages(pool["pos"], ptab), a["cur"], window)
+    paged = KD.dense_decode_attention_paged(ptab, qg, pool["k"], pool["v"], pbias, **kw)
+    view = KD.dense_decode_attention(qg, K1.gather_pages(pool["k"], ptab),
+                                     K1.gather_pages(pool["v"], ptab), pbias, **kw)
+    assert torch.equal(paged, view)
+
+
+@pytest.mark.gpu
+def test_dense_decode_kernel_rejects_shapes_outside_limits(cuda):
+    """No fallback: shapes and types the dense decode kernel does not take
+    raise, and count no launch."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    k, bias = rn(2, 32, 2, 128), torch.zeros(2, 32, device=cuda)
+    before = KD.dense_decode_attention.launches
+    with pytest.raises(ValueError, match="dh must be 64 or 128"):
+        KD.dense_decode_attention(rn(2, 2, 4, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
+                                  bias, scale=1.0)
+    with pytest.raises(ValueError, match="q_per_kv 1-8"):
+        KD.dense_decode_attention(rn(2, 2, 9, 128), k, k, bias, scale=1.0)
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        KD.dense_decode_attention(rn(2, 2, 4, 128), k, k, bias[:, :16], scale=1.0)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        KD.dense_decode_attention(rn(2, 2, 4, 128).half(), k.half(), k.half(), bias,
+                                  scale=1.0)
+    with pytest.raises(TypeError, match="must be"):
+        KD.dense_decode_attention(rn(2, 2, 4, 128).to(torch.bfloat16), k, k, bias,
+                                  scale=1.0)
+    with pytest.raises(TypeError, match="int32"):
+        KD.dense_decode_attention_paged(torch.zeros(2, 4, dtype=torch.int64, device=cuda),
+                                        rn(2, 2, 4, 128), rn(9, 8, 2, 128),
+                                        rn(9, 8, 2, 128), bias, scale=1.0)
+    assert KD.dense_decode_attention.launches == before
 
 
 @pytest.mark.gpu
