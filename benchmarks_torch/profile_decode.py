@@ -24,7 +24,8 @@ page mapped, in a shuffled order) and steps through the page table: K4 /
 K7 on the float pool, the gathered view with K3 / K6 on the int8 pool.
 ``--dense`` serves the dense (uncompressed) model instead
 (``recalkv=None``: K / V stored after RoPE, 4,096 bytes per token and
-layer; decode runs the dense decode kernel, the int8 ring does not apply).
+layer; decode runs the dense decode kernel, verify the dense verify kernel;
+the int8 ring does not apply).
 ``--src DIR`` imports the port from another tree's ``src`` (an older
 commit unpacked with ``git archive``), so that two trees are profiled by
 the same script in turns on one card.  Without flags it measures what it

@@ -10,7 +10,7 @@ Phases, in order (any failure exits non-zero; none is caught):
    all at once) and print each nvcc's build time and each kernel's ptxas
    registers and spills; no kernel of ``latent_decode_tc.cu`` (the bf16
    tensor-core bodies of K1 and K3-K7, every block plan down to 64-column
-   chunks) may spill;
+   chunks) or of ``dense_verify.cu`` may spill;
 3. each kernel — K1, K2, K3 (int8 decode), K5 (multi-query verify), K6
    (int8 multi-query verify), K4 and K7 (K1 and K5 over the paged pool,
    through a ragged page table) — at the main path's shapes against its
@@ -31,14 +31,14 @@ Phases, in order (any failure exits non-zero; none is caught):
    beside their bounds (what the 64-column plan costs); and K2 at value
    widths 128, 152, 384, 512 and 1024 in float32 and bf16; then the dense
    cores at qwen3-4b's heads (Hkv = 8, q_per_kv 4, dh 128): K1's and K4's
-   dense cores, the dense decode kernel (``csrc/dense_decode.cu``) on the
-   ring and on the ragged pool, the pool equal to the ring kernel on the
-   gathered view bit for bit (and in bf16 to itself on an in-order page
-   placement), each timed beside the route it replaces (K1 / K4 at an
-   identity R_k and identity rotation tables) in the same call; K5's and
-   K7's dense cores (those kernels at an identity R_k, G = Hkv = 8 groups
-   of one kv head, r = dh = 128), K7 equal to K5 on the gathered ring bit
-   for bit; all in f32 and bf16, each timed beside its bound and one
+   dense cores, the dense decode kernel (``csrc/dense_decode.cu``), and
+   K5's and K7's (nq = 4), the dense verify kernel
+   (``csrc/dense_verify.cu``), each on the ring and on the ragged pool,
+   the pool equal to the ring kernel on the gathered view bit for bit (and
+   in bf16 to itself on an in-order page placement), each timed beside the
+   route it replaces (K1 / K4 / K5 / K7 at an identity R_k and identity
+   rotation tables, G = Hkv = 8 groups of one kv head, r = dh = 128) in
+   the same call; all in f32 and bf16, each timed beside its bound and one
    ``scaled_dot_product_attention`` call (GQA, additive mask) on the same
    ring plus the self columns, with the SDPA backend PyTorch picks; and
    the float32 template at the widths its row-block plans open (K1 and K5
@@ -77,14 +77,14 @@ Phases, in order (any failure exits non-zero; none is caught):
    freed first): prefill, decode and a 4-token verify step through both
    backends (logits within 5e-2 relative), decode and verify on a paged
    pool equal to the ring's bit for bit (these steps' launches count as
-   the run "steps": the dense decode kernel on the ring and the pool, K5's
-   and K7's dense cores); then
+   the run "steps": the dense decode and verify kernels on the ring and
+   the pool); then
    H, float ring, no speculation, 4 prompts of 512-1024 tokens (one
    streams 256 tokens through the decode loop) (K2 at Hv = 8, dv = 128,
-   the dense decode kernel); K1 and K4, the dense cache's old route, must
-   count 0 launches over the steps, H and I;
+   the dense decode kernel); K1, K4, K5 and K7, the dense cache's old
+   route, must count 0 launches over the steps, H and I;
    I, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
-   prompts (K7's dense core);
+   prompts (the dense verify kernel's pool);
    J, compress then serve: ``api.calibrate`` on 8 synthetic sequences of
    512 tokens, ``api.compress`` ("recalkv", keep ratio 0.5, backend
    "pallas": G = 2, r = 256), ``save_artifact`` under ``build/``, the
@@ -98,9 +98,8 @@ Phases, in order (any failure exits non-zero; none is caught):
 7. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
-   run; the four dense cores are entries of their own: the dense decode
-   kernels counted on their own wrappers, K5's and K7's on those wrappers'
-   "dense" route), the card line, and the final ``{"ok": true, "device":
+   run; the four dense cores are entries of their own, counted on their
+   own wrappers), the card line, and the final ``{"ok": true, "device":
    {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
@@ -131,6 +130,7 @@ F32_TOL = 1e-4      # max |kernel - plain| in float32, TF32 off
 # bf16 step (at most 2^-7 of the value); the rms floor covers elements near 0.
 BF16_REL, BF16_RMS = 2e-2, 1e-2
 PAGE = 16           # the paged pool's page size (the engine's default at 4096)
+NO_SPILL = ("latent_decode_tc", "dense_verify")   # sources whose kernels may not spill
 
 
 def log(*a):
@@ -222,11 +222,10 @@ def ring_inputs(torch, gen, nq=1, dense=False):
                 shape=(B, S, G, Hg, dh, r, s, nq))
 
 
-def kernel_phase(torch, name, kernel, plain, make, flops, meta, bytes_=None):
+def kernel_phase(torch, name, kernel, plain, make, flops, meta):
     """Check ``kernel`` against ``plain`` in f32 and bf16 on the operands
     ``make(dtype)`` returns as (args, kwargs); time both (bf16) and return
-    the kernels-line entry with the bound from this call's bytes (or
-    ``bytes_(args, kwargs, out)``)."""
+    the kernels-line entry with the bound from this call's bytes."""
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         args, kw = make(dt)
@@ -235,8 +234,7 @@ def kernel_phase(torch, name, kernel, plain, make, flops, meta, bytes_=None):
         res[dt] = compare(name, got, plain(*args, **kw), dt)
     ms = cuda_ms(lambda: kernel(*args, **kw))
     plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
-    b_ms, by = bound(nbytes(*args, *kw.values(), got) if bytes_ is None
-                     else bytes_(args, kw, got), flops)
+    b_ms, by = bound(nbytes(*args, *kw.values(), got), flops)
     log(f"{name} {meta['shape']}: max err f32 {res[torch.float32]:.3e} bf16 "
         f"{res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {b_ms:.4f} ms ({by})")
@@ -257,25 +255,23 @@ def dense_flops(B, S_ext, G, Hg, dh, nq):
     return 2.0 * B * G * S_ext * nq * Hg * 2 * dh
 
 
-# The dense cores.  K1's and K4's have a kernel of their own
-# (``csrc/dense_decode.cu``); K5's and K7's ride those latent kernels (the
-# entry's ``kernel``) at an identity R_k, as the JAX package's ops cores do.
-# ``replaces`` is the Pallas kernel's pallas_call and ``jax_core`` the JAX
-# core that sets it up.
+# The dense cores, kernels of their own: K1's and K4's the dense decode
+# kernel (``csrc/dense_decode.cu``), K5's and K7's the dense verify kernel
+# (``csrc/dense_verify.cu``); the JAX package's ops cores run those latent
+# kernels at an identity R_k.  ``replaces`` is the Pallas kernel's
+# pallas_call and ``jax_core`` the JAX core that sets it up.
 DENSE_CORES = {
     "latent_decode_attention": dict(
-        name="dense_decode_attention", kernel="dense_decode_attention",
-        source="src/repro_torch/csrc/dense_decode.cu",
+        name="dense_decode_attention", source="src/repro_torch/csrc/dense_decode.cu",
         jax_core="src/repro/kernels/ops.py:238 (_dense_ring_core)"),
     "latent_decode_attention_mq": dict(
-        name="dense_decode_mq", kernel="latent_decode_attention_mq",
+        name="dense_decode_attention_mq", source="src/repro_torch/csrc/dense_verify.cu",
         jax_core="src/repro/kernels/ops.py:272 (_dense_ring_core_mq)"),
     "latent_decode_attention_paged": dict(
-        name="dense_decode_attention_paged", kernel="dense_decode_attention_paged",
-        source="src/repro_torch/csrc/dense_decode.cu",
+        name="dense_decode_attention_paged", source="src/repro_torch/csrc/dense_decode.cu",
         jax_core="src/repro/kernels/ops.py:533 (_dense_paged_core)"),
     "latent_decode_attention_mq_paged": dict(
-        name="dense_decode_mq_paged", kernel="latent_decode_attention_mq_paged",
+        name="dense_decode_attention_mq_paged", source="src/repro_torch/csrc/dense_verify.cu",
         jax_core="src/repro/kernels/ops.py:565 (_dense_paged_core_mq)"),
 }
 
@@ -303,85 +299,49 @@ def sdpa_time(torch, qg, k, v, self_k, self_v, bias, nq):
     return ms, SDPBackend(choice).name
 
 
-def phase_dense_mq(torch, gen):
-    """K5's dense core (nq = 4 verify queries, K5 at an identity R_k) at
-    qwen3-4b's dense shape (``ring_inputs(dense=True)``) against its plain
-    version in f32 and bf16, timed beside its bound (the dense function's
-    bytes: q, K, V, self K / V, mask, output) and one SDPA call on the
-    same ring plus the self columns."""
-    from repro_torch.kernels import latent_decode as K
-    nq = 4
-    a = ring_inputs(torch, gen, nq, dense=True)
-    B, S, G, Hg, dh, r, s, _ = a["shape"]
-    bias = a["bias"]
-
-    def make(dt):
-        t = {k: a[k].to(dt) for k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv")}
-        kw = dict(scale=dh ** -0.5, self_zk=t["self_zk"], self_zv=t["self_zv"],
-                  self_cos=a["self_cos"], self_sin=a["self_sin"])
-        return (t["q"], t["zk"], t["zv"], t["r_k"], a["cos"], a["sin"], bias), kw
-
-    fn = "latent_decode_attention_mq"
-    meta = {"source": "src/repro_torch/csrc/latent_decode_tc.cu",
-            "replaces": "src/repro/kernels/latent_decode.py:338",
-            "tpu_kernel": f"src/repro/kernels/latent_decode.py::{fn}",
-            "shape": (f"B={B} S={S}+{nq} G=Hkv={G} Hg={Hg} s=1 nq={nq} dh=r={dh}, "
-                      f"identity R_k and tables, bf16")}
-    def dense_bytes(args, kw, out):     # not the identity R_k nor the tables
-        return nbytes(*args[:3], kw["self_zk"], kw["self_zv"], args[-1], out)
-
-    entry = kernel_phase(torch, DENSE_CORES[fn]["name"], getattr(K, fn),
-                         getattr(K, fn + "_plain"), make,
-                         dense_flops(B, S + nq, G, Hg, dh, nq), meta, dense_bytes)
-    args, kw = make(torch.bfloat16)
-    library_ms, backend = sdpa_time(torch, args[0], args[1], args[2], kw["self_zk"],
-                                    kw["self_zv"], bias, nq)
-    log(f"dense core {fn} nq={nq}: sdpa {library_ms:.4f} ms ({backend}); kernel "
-        f"{entry['ms'] / entry['bound_ms']:.1f}x its bound, "
-        f"{entry['ms'] / library_ms:.2f}x sdpa")
-    entry.update(DENSE_CORES[fn], library_ms=library_ms, sdpa_backend=backend,
-                 launch_key=fn + ":dense")
-    return entry
-
-
-def phase_dense_decode(torch, gen, paged):
-    """K1's (the ring) or K4's (``paged``: the ragged pool of
-    ``paged_inputs``) dense core, the dense decode kernel of
-    ``csrc/dense_decode.cu``, at qwen3-4b's dense shape against its plain
-    version in f32 and bf16; the pool must equal the ring kernel on the
-    gathered view bit for bit in both types, and in bf16 itself on an
-    in-order placement of the same pages.  Timed beside its bound (the
-    dense function's bytes), the plain version, one SDPA call on the same
-    ring (or view) plus the self column, and the route it replaces, K1 /
-    K4 at an identity R_k with identity rotation tables, in this call."""
+def phase_dense(torch, gen, paged, nq):
+    """The dense cores at qwen3-4b's dense shape against their plain
+    versions in f32 and bf16: nq = 1, K1's (the ring) or K4's (``paged``:
+    the ragged pool of ``paged_inputs``) dense core, the dense decode
+    kernel of ``csrc/dense_decode.cu``; nq = 4, K5's or K7's dense core,
+    the dense verify kernel of ``csrc/dense_verify.cu``.  The pool must
+    equal the ring kernel on the gathered view bit for bit in both types,
+    and in bf16 itself on an in-order placement of the same pages.  Timed
+    beside its bound (the dense function's bytes), the plain version, one
+    SDPA call on the same ring (or view) plus the self columns, and the
+    route it replaces, K1 / K4 / K5 / K7 at an identity R_k with identity
+    rotation tables, in this call."""
     from repro_torch.kernels import dense_decode as KD
     from repro_torch.kernels import latent_decode as K
+    one = nq == 1
     if paged:
-        a, ptab, pools, cols, flops = paged_inputs(torch, gen, 1, dense=True)
+        a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, dense=True)
     else:
-        a = ring_inputs(torch, gen, 1, dense=True)
+        a = ring_inputs(torch, gen, nq, dense=True)
         pools, ptab = {"zk": a["zk"], "zv": a["zv"]}, None
     B, S, G, Hg, dh, _, _, _ = a["shape"]
-    bias = a["bias"] if paged else a["bias"][:, 0, :S].contiguous()
-    name = "dense_decode_attention" + ("_paged" if paged else "")
+    bias = a["bias"] if paged or not one else a["bias"][:, 0, :S].contiguous()
+    sel = (lambda x: x[:, 0]) if one else (lambda x: x)
+    ring_name = "dense_decode_attention" + ("" if one else "_mq")
+    name = ring_name + ("_paged" if paged else "")
     kernel, plain = getattr(KD, name), getattr(KD, name + "_plain")
     lead = (ptab,) if paged else ()
     res, view_diff = {}, None
     for dt in (torch.float32, torch.bfloat16):
         args = (*lead, a["q"].to(dt), pools["zk"].to(dt), pools["zv"].to(dt), bias)
-        kw = dict(scale=dh ** -0.5, self_k=a["self_zk"][:, 0].to(dt),
-                  self_v=a["self_zv"][:, 0].to(dt))
+        kw = dict(scale=dh ** -0.5, self_k=sel(a["self_zk"]).to(dt),
+                  self_v=sel(a["self_zv"]).to(dt))
         got = kernel(*args, **kw)
         torch.cuda.synchronize()
         res[dt] = compare(name, got, plain(*args, **kw), dt)
         if not paged:
             continue
         view = (args[1], K.gather_pages(args[2], ptab), K.gather_pages(args[3], ptab), bias)
-        ring = KD.dense_decode_attention(*view, **kw)
+        ring = getattr(KD, ring_name)(*view, **kw)
         torch.cuda.synchronize()
         view_diff = (got.float() - ring.float()).abs().max().item()
-        log(f"{name} {dt}: max abs diff against dense_decode_attention on the gathered "
-            f"ring {view_diff:.3e} (0 expected: same chunks, same order)")
+        log(f"{name} {dt}: max abs diff against {ring_name} on the gathered ring "
+            f"{view_diff:.3e} (0 expected: same chunks, same order)")
         if not torch.equal(got, ring):
             raise AssertionError(f"{name} differs from the ring kernel on the gathered "
                                  f"ring by {view_diff:.3e}")
@@ -393,38 +353,40 @@ def phase_dense_decode(torch, gen, paged):
                 raise AssertionError(f"{name} depends on the page placement")
     ms = cuda_ms(lambda: kernel(*args, **kw), iters=50)
     plain_ms = cuda_ms(lambda: plain(*args, **kw), iters=3)
-    # the route this kernel replaces: K1 / K4 at an identity R_k, identity tables
-    old = K.latent_decode_attention_paged if paged else K.latent_decode_attention
+    # the route this kernel replaces: K1 / K4 / K5 / K7 at an identity R_k,
+    # identity tables
+    old = getattr(K, "latent_decode_attention" + ("" if one else "_mq")
+                  + ("_paged" if paged else ""))
     old_args = args[:-1] + (a["r_k"].to(torch.bfloat16), a["cos"], a["sin"], bias)
     old_kw = dict(scale=dh ** -0.5, self_zk=kw["self_k"], self_zv=kw["self_v"],
-                  self_cos=a["self_cos"][:, 0], self_sin=a["self_sin"][:, 0])
+                  self_cos=sel(a["self_cos"]), self_sin=sel(a["self_sin"]))
     old_ms = cuda_ms(lambda: old(*old_args, **old_kw), iters=50)
     selfs = [kw["self_k"], kw["self_v"]]
     if paged:   # the dense function's own operands: mapped pages, table, q, self K/V, mask
         used_pages = int(torch.unique(ptab[ptab != 0]).numel())
         lat = used_pages * PAGE * G * 2 * dh * args[2].element_size()
-        b_ms, by = bound(lat + cols * 4 + nbytes(ptab, args[1], got, *selfs), flops)
+        b_ms, by = bound(lat + cols * 4 * nq + nbytes(ptab, args[1], got, *selfs), flops)
         sd_k, sd_v = view[1], view[2]
     else:
-        b_ms, by = bound(nbytes(*args, *selfs, got), dense_flops(B, S + 1, G, Hg, dh, 1))
+        b_ms, by = bound(nbytes(*args, *selfs, got), dense_flops(B, S + nq, G, Hg, dh, nq))
         sd_k, sd_v = args[1], args[2]
-    library_ms, backend = sdpa_time(torch, args[-4], sd_k, sd_v, *selfs, bias, 1)
-    log(f"{name} B={B} S={S}+1 Hkv={G} q_per_kv={Hg} dh={dh}"
+    library_ms, backend = sdpa_time(torch, args[-4], sd_k, sd_v, *selfs, bias, nq)
+    log(f"{name} B={B} S={S}+{nq} Hkv={G} q_per_kv={Hg} nq={nq} dh={dh}"
         + (f" page_size={PAGE} {used_pages} pages" if paged else "")
         + f": max err f32 {res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel "
         f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {b_ms:.4f} ms ({by}), sdpa "
         f"{library_ms:.4f} ms ({backend}), old route ({old.__name__} at an identity R_k) "
         f"{old_ms:.4f} ms; kernel {ms / b_ms:.2f}x its bound, {ms / library_ms:.2f}x sdpa, "
         f"{ms / old_ms:.2f}x the old route")
-    line = 456 if paged else 177
-    fn = "latent_decode_attention" + ("_paged" if paged else "")
+    fn = old.__name__
+    line = {"latent_decode_attention": 177, "latent_decode_attention_paged": 456,
+            "latent_decode_attention_mq": 338, "latent_decode_attention_mq_paged": 567}[fn]
     entry = {"route": "cuda", "replaces": f"src/repro/kernels/latent_decode.py:{line}",
              "tpu_kernel": f"src/repro/kernels/latent_decode.py::{fn}",
              "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
              "library_ms": library_ms, "sdpa_backend": backend, "old_route_ms": old_ms,
-             "launch_key": name,
-             "shape": (f"B={B} S={S}+1 Hkv={G} q_per_kv={Hg} dh={dh} bf16"
+             "shape": (f"B={B} S={S}+{nq} Hkv={G} q_per_kv={Hg} nq={nq} dh={dh} bf16"
                        + (f", page_size={PAGE} {used_pages} pages, ragged table"
                           if paged else ""))}
     if paged:
@@ -785,7 +747,7 @@ def in_order(torch, ptab, pools):
     return order, out
 
 
-def phase_paged(torch, gen, nq, dense=False):
+def phase_paged(torch, gen, nq):
     """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
     pool, against the plain version in f32 and bf16.  Both must equal K1 /
     K5 on the gathered ring bit for bit in both types (same tiles, same
@@ -794,7 +756,7 @@ def phase_paged(torch, gen, nq, dense=False):
     of the same pages.  Each is timed; the bound counts the mapped pages, the table and
     the slot-major tables of the mapped columns."""
     from repro_torch.kernels import latent_decode as K
-    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, dense)
+    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
     one = nq == 1
     name = "latent_decode_attention_paged" if one else "latent_decode_attention_mq_paged"
@@ -836,24 +798,15 @@ def phase_paged(torch, gen, nq, dense=False):
     elt = args[2].element_size()
     used_pages = int(torch.unique(ptab[ptab != 0]).numel())
     lat = used_pages * PAGE * G * 2 * r * elt
-    selfs = [kw["self_zk"], kw["self_zv"]]
-    if dense:   # the dense function's own operands: pages, table, q, self K/V, mask
-        b_ms, by = bound(lat + cols * 4 * nq + nbytes(ptab, args[1], got, *selfs), flops)
-    else:
-        tables = cols * (dh * 4 + 4 * nq)            # cos + sin (f32) + bias per column
-        b_ms, by = bound(lat + tables + nbytes(ptab, args[1], args[4], got,
-                                               *[v for v in kw.values()
-                                                 if hasattr(v, "numel")]), flops)
-    library_ms = backend = None
-    if dense:
-        library_ms, backend = sdpa_time(torch, args[1], view_args[1], view_args[2],
-                                        *selfs, view_args[-1], nq)
-    log(f"{'dense core ' if dense else ''}{name} B={B} S={S} page_size={PAGE} "
+    tables = cols * (dh * 4 + 4 * nq)            # cos + sin (f32) + bias per column
+    b_ms, by = bound(lat + tables + nbytes(ptab, args[1], args[4], got,
+                                           *[v for v in kw.values() if hasattr(v, "numel")]),
+                     flops)
+    log(f"{name} B={B} S={S} page_size={PAGE} "
         f"{used_pages} pages nq={nq}: max err f32 "
         f"{res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, "
         f"{ring.__name__} on the view {view_ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{b_ms:.4f} ms ({by})"
-        + (f", sdpa {library_ms:.4f} ms ({backend})" if dense else ""))
+        f"{b_ms:.4f} ms ({by})")
     line = 456 if one else 567
     entry = {"name": name, "route": "cuda",
              "source": "src/repro_torch/csrc/latent_decode_tc.cu",
@@ -861,12 +814,10 @@ def phase_paged(torch, gen, nq, dense=False):
              "tpu_kernel": f"src/repro/kernels/latent_decode.py::{name}",
              "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
              "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-             "library_ms": library_ms, "view_ms": view_ms,
+             "library_ms": None, "view_ms": view_ms,
              "view_max_abs_diff": view_err[torch.bfloat16],
              "shape": (f"B={B} S={S}+{nq} page_size={PAGE} pages={used_pages} G={G} "
                        f"Hg={Hg} nq={nq} dh={dh} r={r} bf16, ragged table")}
-    if dense:
-        entry.update(DENSE_CORES[name], launch_key=name + ":dense", sdpa_backend=backend)
     return entry
 
 
@@ -969,7 +920,8 @@ def phase_paged_steps(torch, cfg, params, bits_list=(None, 8)):
     verify step before any write must too.  The int8 pool is read through
     the gathered view with K3 / K6; the float pool runs K4 (in bf16 K1's
     tensor-core body through the page table) and K7 (K5's tiles in
-    order)."""
+    order), the dense model's pool the dense decode and verify kernels
+    through the page table."""
     from repro_torch.models import transformer as T
     from repro_torch.serving.engine import _merge_slot_paged
     gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
@@ -1044,11 +996,11 @@ ENGINE_RUNS = {
     "G": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
               must=("flash_prefill_attention", "latent_decode_attention_mq")),
     # the dense model (recalkv=None): K2 at Hv = 8, dv = 128, and the dense
-    # cores: the dense decode kernel (H), K7 at an identity R_k (I)
+    # cores: the dense decode kernel (H), the dense verify kernel's pool (I)
     "H": dict(bits=None, depth=0, draft=None, chunk=768, sync=16,
               must=("flash_prefill_attention", "dense_decode_attention")),
     "I": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
-              must=("flash_prefill_attention", "latent_decode_attention_mq_paged:dense"),
+              must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
               paged=dict(cache_layout="paged", page_size=PAGE,
                          policy="reach-packing")),
     # the artifact the port compressed from H's model (r = 256, G = 2)
@@ -1083,14 +1035,9 @@ def engine_prompts(torch, run, vocab):
 
 
 def launch_counts(kernels) -> dict:
-    """Launches since the last reset, by wrapper (the dense decode kernels
-    among them); K5 and K7 by route ("name" counts the latent route,
-    "name:dense" the dense verify steps)."""
-    out = {k.__name__: k.launches for k in kernels.KERNELS}
-    for k in kernels.ROUTED:
-        out[k.__name__] = k.launches_by_route["latent"]
-        out[k.__name__ + ":dense"] = k.launches_by_route["dense"]
-    return out
+    """Launches since the last reset, by wrapper (the dense decode and
+    verify kernels among them)."""
+    return {k.__name__: k.launches for k in kernels.KERNELS}
 
 
 def cache_bytes(torch, cache) -> tuple[int, int]:
@@ -1264,7 +1211,7 @@ def main() -> int:
         for e in ptx:
             log(f"ptxas {name}: {e['kernel']}: {e['registers']} registers, spill stores "
                 f"{e['spill_stores']} B, spill loads {e['spill_loads']} B")
-            if name == "latent_decode_tc" and (e["spill_stores"] or e["spill_loads"]):
+            if name in NO_SPILL and (e["spill_stores"] or e["spill_loads"]):
                 raise AssertionError(f"{e['kernel']} spills registers")
         if name == "latent_decode_tc" and not v["cached"]:
             log(f"no spill in the {len(ptx)} kernels of latent_decode_tc.cu (K1, K3-K7 "
@@ -1278,8 +1225,7 @@ def main() -> int:
     wide_ranks = phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
     t_dense = time.perf_counter()
-    entries += [phase_dense_decode(torch, gen, False), phase_dense_decode(torch, gen, True),
-                phase_dense_mq(torch, gen), phase_paged(torch, gen, 4, dense=True)]
+    entries += [phase_dense(torch, gen, paged, nq) for nq in (1, 4) for paged in (False, True)]
     f32_widths = phase_f32_widths(torch, gen)
     torch.cuda.empty_cache()
     log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
@@ -1313,7 +1259,7 @@ def main() -> int:
                                                               verify_bits)
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     # the dense model: its prefill / decode / verify steps and paged steps
-    # (K2, and the dense cores through K1, K5, K4 and K7), runs H and I,
+    # (K2, and the dense decode and verify kernels), runs H and I,
     # then run J: compress it, free it, serve the artifact
     del params
     torch.cuda.empty_cache()
@@ -1327,12 +1273,14 @@ def main() -> int:
     by_run["steps"] = launch_counts(kernels)
     for run in "HI":
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
-    old = {run: {k: by_run[run][k] for k in ("latent_decode_attention",
-                                             "latent_decode_attention_paged")}
-           for run in ("steps", "H", "I")}
+    old = {run: {k: by_run[run][k] for k in (
+        "latent_decode_attention", "latent_decode_attention_paged",
+        "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
+        for run in ("steps", "H", "I")}
     if any(n for counts in old.values() for n in counts.values()):
-        raise AssertionError(f"the dense model launched K1 or K4: {old}")
-    log("K1 and K4 (the old dense route) launched 0 times over the dense steps and runs H, I")
+        raise AssertionError(f"the dense model launched K1, K4, K5 or K7: {old}")
+    log("K1, K4, K5 and K7 (the old dense route) launched 0 times over the dense steps "
+        "and runs H, I")
     compression = phase_compress(torch, cfg, params)
     del params   # the dense model goes; J boots from the saved artifact
     torch.cuda.empty_cache()

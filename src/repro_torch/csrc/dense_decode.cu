@@ -42,9 +42,10 @@
 //    about 8 blocks per SM.  The block's per-tile work is its critical path
 //    (it waits for tile i before it asks for tile i + 3), so 256 threads
 //    and a third block per SM each cut the time by ~10-25% where deeper
-//    cp.async rings or 128 threads did not.  A second small kernel merges
-//    the chunk partials by log-sum-exp, as latent_decode_tc_merge does,
-//    with each thread's loads of every chunk in flight together.
+//    cp.async rings or 128 threads did not.  A second small kernel
+//    (dense_merge.cuh, shared with the verify kernel) merges the chunk
+//    partials by log-sum-exp, as latent_decode_tc_merge does, with each
+//    thread's loads of every chunk in flight together.
 //  * The chunk's bias and row map come first, into shared memory.  A 32-
 //    column tile whose bias is masked everywhere (the ring's empty tail,
 //    unmapped slot pages, the null page 0, a window's past) is never loaded;
@@ -81,12 +82,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "dense_merge.cuh"
 #include "tc_helpers.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-constexpr float NEG_INF = -1e30f;
+using dense::NEG_INF;
 constexpr int THREADS = 256, WARPS = THREADS / 32;
 constexpr int TC = 32;           // ring columns of a tile: the skip and pipeline unit
 constexpr int STAGES = 4;        // tiles in the cp.async ring
@@ -126,8 +128,6 @@ __device__ __forceinline__ void load8(const float* p, float (&x)[EL]) {
   x[0] = a.x, x[1] = a.y, x[2] = a.z, x[3] = a.w;
   x[4] = b.x, x[5] = b.y, x[6] = b.z, x[7] = b.w;
 }
-__device__ __forceinline__ void store_out(bf16* p, float x) { *p = __float2bfloat16(x); }
-__device__ __forceinline__ void store_out(float* p, float x) { *p = x; }
 
 __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
@@ -446,64 +446,6 @@ dense_decode(Args a) {
   }
 }
 
-// Log-sum-exp merge of the chunk partials: out = sum_k acc_k w_k /
-// max(sum_k l_k w_k, 1e-30), w_k = e^{m_k - M} over the chunks that saw a
-// live column (a chunk with m_k = NEG_INF wrote no acc: its values are
-// loaded but weigh nothing); a row no chunk saw is exact 0.  A thread per
-// output element; it issues its first MERGE_KB chunks' acc loads before the
-// block's (n_chunks, qpk) maxima and sums arrive in shared memory, so one
-// latency covers them all.  Launched as a programmatic dependent of the
-// main grid, so its launch overlaps the main grid's tail; griddepcontrol.wait
-// holds it until the main grid's writes are visible.  Grid (ceil(qpk * dh /
-// MERGE_THREADS), Hkv, B), dynamic shared memory n_chunks * qpk * 8 bytes.
-constexpr int MERGE_THREADS = 128, MERGE_KB = 32;
-template <typename T>
-__global__ void __launch_bounds__(MERGE_THREADS)
-dense_decode_merge(Args a, int dh) {
-  extern __shared__ float ml[];
-  asm volatile("griddepcontrol.wait;" ::: "memory");   // the main grid's partials
-  const int h = blockIdx.y, b = blockIdx.z, tid = threadIdx.x;
-  const int R = a.qpk, n = a.n_chunks;
-  const size_t base = (size_t(b) * a.Hkv + h) * n;
-  const int e = blockIdx.x * MERGE_THREADS + tid;
-  const bool mine = e < R * dh;
-  const size_t stride = size_t(R) * dh;
-  const float* pa = a.part_acc + base * stride + e;
-  float acc[MERGE_KB];
-#pragma unroll
-  for (int u = 0; u < MERGE_KB; ++u) acc[u] = mine && u < n ? pa[u * stride] : 0.f;
-  float* m = ml;            // (n, R)
-  float* l = ml + n * R;    // (n, R)
-  for (int i = tid; i < n * R; i += MERGE_THREADS) {
-    m[i] = a.part_m[base * R + i];
-    l[i] = a.part_l[base * R + i];
-  }
-  __syncthreads();
-  if (!mine) return;
-  const int j = e / dh;
-  float M = NEG_INF;
-  for (int k = 0; k < n; ++k) M = fmaxf(M, m[k * R + j]);
-  float L = 0.f, O = 0.f;
-  for (int k0 = 0; k0 < n; k0 += MERGE_KB) {
-    if (k0 > 0) {
-#pragma unroll
-      for (int u = 0; u < MERGE_KB; ++u) acc[u] = k0 + u < n ? pa[(k0 + u) * stride] : 0.f;
-    }
-#pragma unroll
-    for (int u = 0; u < MERGE_KB; ++u) {
-      const int k = k0 + u;
-      const float mk = k < n ? m[k * R + j] : NEG_INF;
-      if (mk > NEG_INF * 0.5f) {
-        const float w = mk == M ? 1.f : __expf(mk - M);
-        L += l[k * R + j] * w;
-        O += acc[u] * w;
-      }
-    }
-  }
-  store_out(static_cast<T*>(a.out) + (size_t(b) * a.Hkv + h) * stride + e,
-            O / fmaxf(L, 1e-30f));
-}
-
 template <typename T, int DH, int NQ, bool PAGED>
 cudaError_t launch_nq(const Args& a, cudaStream_t stream) {
   const size_t smem = smem_bytes<T, DH, NQ>(a.chunk_len);
@@ -515,25 +457,8 @@ cudaError_t launch_nq(const Args& a, cudaStream_t stream) {
       <<<dim3(a.n_chunks, a.Hkv, a.B), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const size_t merge_smem = size_t(a.n_chunks) * a.qpk * 8;
-  err = cudaFuncSetAttribute(dense_decode_merge<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(merge_smem));
-  if (err != cudaSuccess) return err;
-  // programmatic dependent launch: the merge is set up while the main
-  // grid runs and waits for it in griddepcontrol.wait
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((a.qpk * DH + MERGE_THREADS - 1) / MERGE_THREADS, a.Hkv, a.B);
-  cfg.blockDim = dim3(MERGE_THREADS);
-  cfg.dynamicSmemBytes = merge_smem;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr[0].val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, dense_decode_merge<T>, a, static_cast<int>(DH));
-  if (err != cudaSuccess) return err;
-  return cudaGetLastError();
+  const dense::Partials p{a.part_acc, a.part_m, a.part_l, a.out, a.B, a.Hkv, a.qpk, a.n_chunks};
+  return dense::launch_merge<T>(p, DH, stream);
 }
 
 // The query rows pad to 1, 2, 4 or 8 (padded rows are zero and not written).

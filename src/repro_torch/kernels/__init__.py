@@ -7,26 +7,27 @@
                    table
   latent_decode_q  K3 / K6: K1 / K5 over the int8 latent ring
   flash_prefill    K2: causal / sliding-window flash prefill, latent values
-  dense_decode     the dense cores of K1 and K4: flash decode over the
-                   dense KV cache, on the ring and through a page table
+  dense_decode     the dense cores of K1 / K4 (decode) and K5 / K7
+                   (multi-query verify) over the dense KV cache, on the
+                   ring and through a page table
 
 bf16 K1 and K3-K7 run the tensor-core body of ``csrc/latent_decode_tc.cu``;
 their float32 calls run the CUDA-core template of ``csrc/latent_decode.cu``;
 K2 is ``csrc/flash_prefill.cu`` (bf16 on ``wgmma``, float32 on CUDA
 cores); the dense decode cores are ``csrc/dense_decode.cu`` (one CUDA-core
-body for bf16 and float32).  Each module holds the CUDA wrappers, their
-plain PyTorch versions and a launch counter per wrapper; ``ops`` adapts
-model tensors to them and ``build`` compiles the sources in ``csrc/`` at
-first use.  K5 and K7 (``ROUTED``) also count their launches by route:
-"latent", or "dense" for the dense cache's verify cores, which ride them
-at an identity R_k.
+body for bf16 and float32), the dense verify cores ``csrc/dense_verify.cu``
+(bf16 on ``mma.sync``, float32 on CUDA cores).  Each module holds the CUDA
+wrappers, their plain PyTorch versions and a launch counter per wrapper;
+``ops`` adapts model tensors to them and ``build`` compiles the sources in
+``csrc/`` at first use.
 """
 
-from repro_torch.kernels.dense_decode import (dense_decode_attention,
-                                              dense_decode_attention_paged)
+from repro_torch.kernels.dense_decode import (
+    dense_decode_attention, dense_decode_attention_mq,
+    dense_decode_attention_mq_paged, dense_decode_attention_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.latent_decode import (
-    ROUTED, latent_decode_attention, latent_decode_attention_mq,
+    latent_decode_attention, latent_decode_attention_mq,
     latent_decode_attention_mq_paged, latent_decode_attention_paged)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
@@ -35,17 +36,17 @@ KERNELS = (latent_decode_attention, flash_prefill_attention,
            latent_decode_attention_quant, latent_decode_attention_paged,
            latent_decode_attention_mq, latent_decode_attention_mq_quant,
            latent_decode_attention_mq_paged, dense_decode_attention,
-           dense_decode_attention_paged)
+           dense_decode_attention_paged, dense_decode_attention_mq,
+           dense_decode_attention_mq_paged)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
-    for k in ROUTED:
-        k.launches_by_route = dict.fromkeys(k.launches_by_route, 0)
 
 
-__all__ = ["KERNELS", "dense_decode_attention", "dense_decode_attention_paged",
+__all__ = ["KERNELS", "dense_decode_attention", "dense_decode_attention_mq",
+           "dense_decode_attention_mq_paged", "dense_decode_attention_paged",
            "flash_prefill_attention", "latent_decode_attention",
            "latent_decode_attention_mq", "latent_decode_attention_mq_paged",
            "latent_decode_attention_mq_quant", "latent_decode_attention_paged",

@@ -359,14 +359,6 @@ def _on_device(name: str, q) -> bool:
     return True
 
 
-def _count(wrapper, route: str) -> None:
-    """One launch of ``wrapper``'s kernel (K5 or K7), on ``route``:
-    "latent" (a ReCalKV cache) or "dense" (the dense cache's verify steps
-    through an identity R_k, ``ops.dense_decode_mq*``)."""
-    wrapper.launches += 1
-    wrapper.launches_by_route[route] += 1
-
-
 def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
                             k_norm=None, norm_eps=1e-6, self_zk=None,
                             self_zv=None, self_cos=None, self_sin=None):
@@ -391,14 +383,11 @@ def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
 
 def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                k_norm=None, norm_eps=1e-6, self_zk=None,
-                               self_zv=None, self_cos=None, self_sin=None,
-                               route="latent"):
+                               self_zv=None, self_cos=None, self_sin=None):
     """K5: nq = bias.shape[1] verify queries per head in one pass (keys
     rebuilt once per tile, scored by every query).  Device rule and
-    launch counter as for K1, and ``.launches_by_route`` splits the
-    launches by ``route`` ("latent" or "dense", which the caller names);
-    bf16 runs the tensor-core kernel, float32 the template's parity
-    instantiation."""
+    launch counter as for K1; bf16 runs the tensor-core kernel, float32
+    the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
     if not _on_device("multi-query latent decode", q):
@@ -408,7 +397,7 @@ def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
              else "recalkv_latent_decode_mq")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
                  self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1])
-    _count(latent_decode_attention_mq, route)
+    latent_decode_attention_mq.launches += 1
     return out
 
 
@@ -439,9 +428,9 @@ def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
 def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                      scale, k_norm=None, norm_eps=1e-6,
                                      self_zk=None, self_zv=None, self_cos=None,
-                                     self_sin=None, route="latent"):
+                                     self_sin=None):
     """K7: K5 over a page-major pool through ``ptab``.  Device rule and
-    counters as for K5; bf16 runs K5's tensor-core kernel through the page
+    counter as for K5; bf16 runs K5's tensor-core kernel through the page
     table, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
               self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
@@ -452,14 +441,11 @@ def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
              else "recalkv_latent_decode_mq_paged")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
                  self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1], ptab=ptab)
-    _count(latent_decode_attention_mq_paged, route)
+    latent_decode_attention_mq_paged.launches += 1
     return out
 
 
 latent_decode_attention.launches = 0
 latent_decode_attention_paged.launches = 0
-ROUTED = (latent_decode_attention_mq, latent_decode_attention_mq_paged)
-for _w in ROUTED:
-    _w.launches = 0
-    _w.launches_by_route = {"latent": 0, "dense": 0}
-del _w
+latent_decode_attention_mq.launches = 0
+latent_decode_attention_mq_paged.launches = 0

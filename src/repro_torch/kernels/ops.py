@@ -22,26 +22,22 @@ through the table.  The int8 pool does not come here: the model reads it
 through the gathered view (``kv_cache.paged_view``) with K3 / K6, as the
 JAX package does.
 
-The dense cache {"k", "v", "pos"} has its own decode kernel for one
-query (``dense_decode`` / ``dense_decode_paged`` -> ``csrc/dense_decode.cu``,
-the dense cores of K1 and K4: no key rebuild, no rotation, keys stored
-after RoPE).  Its verify calls (``dense_decode_mq*``) still ride K5 / K7
-as the degenerate latent cache, as the JAX package's ``_dense_ring_core_mq``
-and ``_dense_paged_core_mq`` do: one kv head per group (G = Hkv, s = 1), the
-keys as their own latents behind an identity ``R_k`` (r_k = r_v = dh), no
-k-norm, and identity rotation tables (cos 1, sin 0, the self columns'
-too).  Those calls count as K5's and K7's ``"dense"`` route
-(``launches_by_route``).
+The dense cache {"k", "v", "pos"} has kernels of its own, the dense cores
+of K1 / K4 (decode, ``dense_decode`` / ``dense_decode_paged`` ->
+``csrc/dense_decode.cu``) and of K5 / K7 (verify, ``dense_decode_mq`` /
+``dense_decode_mq_paged`` -> ``csrc/dense_verify.cu``): keys stored after
+RoPE, so no key rebuild, no rotation tables and no k-norm.  The JAX
+package's ``_dense_*_core*`` run K1 / K4 / K5 / K7 at an identity ``R_k``
+instead; the function computed is the same.
 """
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
-from repro_torch.kernels.dense_decode import (dense_decode_attention,
-                                              dense_decode_attention_paged)
+from repro_torch.kernels.dense_decode import (
+    dense_decode_attention, dense_decode_attention_mq,
+    dense_decode_attention_mq_paged, dense_decode_attention_paged)
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.latent_decode import (
     NEG_INF, gather_pages, latent_decode_attention, latent_decode_attention_mq,
@@ -125,22 +121,11 @@ def rotation_tables(pos: torch.Tensor, dh: int, theta: float | None):
     return cos, torch.zeros_like(cos)
 
 
-@functools.lru_cache(maxsize=8)
-def _identity(n: int, dh: int, dtype: torch.dtype,
-              device: torch.device) -> torch.Tensor:
-    """(n, dh, dh) identity reconstruction factors of the dense cores
-    (built once per shape; the kernels only read them)."""
-    return torch.eye(dh, dtype=dtype, device=device).expand(n, dh, dh).contiguous()
-
-
 def _ring_operands(cache: dict, entry: dict | None):
-    """(ring latents, self latents, kernel) keyword split for a float,
-    int8 or dense ring; ``entry`` holds the self latents (dense: keys and
-    values) in the ring's layout."""
+    """(ring latents, self latents, quantized) keyword split for a float
+    or int8 latent ring; ``entry`` holds the self latents in the ring's
+    layout."""
     e = entry or {}
-    if "k" in cache:
-        return (cache["k"], cache["v"]), dict(self_zk=e.get("k"),
-                                              self_zv=e.get("v")), False
     if "zk_q" in cache:
         ring = (cache["zk_q"], cache["zk_s"], cache["zv_q"], cache["zv_s"])
         selfs = dict(self_zk_q=e.get("zk_q"), self_zk_s=e.get("zk_s"),
@@ -206,7 +191,6 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
                window, scale, k_norm, norm_eps):
     B, nq = feed_mask.shape
     ring, selfs, quant = _ring_operands(cache, self_entries)
-    route = "dense" if "k" in cache else "latent"
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
     G = ring[0].shape[2]
@@ -222,12 +206,11 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
     qg = group_queries_mq(q, G)
     if ptab is not None:
         o = latent_decode_attention_mq_paged(ptab, qg, *ring, r_k, cos, sin,
-                                             bias, route=route, **kw)
+                                             bias, **kw)
     elif quant:
         o = latent_decode_attention_mq_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
-        o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias,
-                                       route=route, **kw)
+        o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias, **kw)
     return ungroup_outputs_mq(o, nq)
 
 
@@ -259,11 +242,6 @@ def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
                       norm_eps=norm_eps)
 
 
-def _dense_factors(cache: dict) -> torch.Tensor:
-    k = cache["k"]
-    return _identity(k.shape[2], k.shape[3], k.dtype, k.device)
-
-
 def dense_decode(q, cache, cur, *, window: int | None, scale: float,
                  self_entry: dict | None = None):
     """Dense ring decode through K1's dense core (``csrc/dense_decode.cu``).
@@ -293,23 +271,41 @@ def dense_decode_paged(q, cache, ptab, cur, *, window: int | None,
     return ungroup_outputs(o)
 
 
+def _dense_mq(q, cache, ptab, cur, feed_mask, self_entries, *, window, scale):
+    nq = feed_mask.shape[1]
+    pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
+    pos_q = cur[:, None] + torch.arange(nq, dtype=cur.dtype, device=cur.device)
+    bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
+                       feed_mask, window, pos.shape[1])
+    qg = group_queries_mq(q, cache["k"].shape[2])
+    kw = dict(scale=scale, self_k=self_entries["k"], self_v=self_entries["v"])
+    if ptab is None:
+        o = dense_decode_attention_mq(qg, cache["k"], cache["v"], bias, **kw)
+    else:
+        o = dense_decode_attention_mq_paged(ptab, qg, cache["k"], cache["v"], bias,
+                                            **kw)
+    return ungroup_outputs_mq(o, nq)
+
+
 def dense_decode_mq(q, cache, cur, feed_mask, self_entries, *,
                     window: int | None, scale: float):
-    """Multi-query dense verify over the ring with K5's dense core.  q and
+    """Multi-query dense verify over the ring with K5's dense core
+    (``csrc/dense_verify.cu``).  q (B, nq, H, dh) and
     ``self_entries["k"]`` (B, nq, Hkv, dh) arrive rotated at
-    cur..cur+nq-1.  Returns (B, nq, H, dh)."""
-    return _decode_mq(q, cache, _dense_factors(cache), cur, feed_mask,
-                      self_entries, None, theta=None, window=window,
-                      scale=scale, k_norm=None, norm_eps=1e-6)
+    cur..cur+nq-1; ``feed_mask`` (B, nq) says which candidates were fed.
+    Returns (B, nq, H, dh)."""
+    return _dense_mq(q, cache, None, cur, feed_mask, self_entries,
+                     window=window, scale=scale)
 
 
 def dense_decode_mq_paged(q, cache, ptab, cur, feed_mask, self_entries, *,
                           window: int | None, scale: float):
-    """Multi-query dense verify over page-major pools with K7's dense
-    core.  Returns (B, nq, H, dh)."""
-    return _decode_mq(q, cache, _dense_factors(cache), cur, feed_mask,
-                      self_entries, ptab, theta=None, window=window,
-                      scale=scale, k_norm=None, norm_eps=1e-6)
+    """Multi-query dense verify over page-major pools through ``ptab``,
+    with K7's dense core (the ring's kernel through the page table; the
+    bias is slot-major, from the gathered positions).  Returns (B, nq, H,
+    dh)."""
+    return _dense_mq(q, cache, ptab, cur, feed_mask, self_entries,
+                     window=window, scale=scale)
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -397,7 +397,8 @@ def verify_attn_dense(p: Params, x: torch.Tensor, cache: Params,
     scale = dh ** -0.5
     updates = {"k": k_new, "v": v_new, "pos": pos_q.to(torch.int64)}
     if cfg.attn_backend == "kernel":
-        # K5 / K7's dense core: q and the fresh keys arrive post-RoPE.
+        # K5 / K7's dense core (csrc/dense_verify.cu): q and the fresh keys
+        # arrive post-RoPE.
         entries = {"k": k_new, "v": v_new}
         kw = dict(window=window, scale=scale)
         o = (kops.dense_decode_mq(q, cache, cur, feed_mask, entries, **kw)

@@ -256,12 +256,11 @@ def test_dense_cores_match_jax_kernels(model, layout):
 
 def test_dense_core_launches_count_by_route():
     """On the CPU the wrappers run their plain versions and count nothing:
-    the dense decode kernels (``ops.dense_decode*``), K1 and K4, and the
-    route counters of K5 and K7, whose "dense" route serves the verify
-    cores."""
+    the dense decode kernels (``ops.dense_decode*``), the dense verify
+    kernels (``ops.dense_decode_mq*``), and K1, K4, K5 and K7, which no
+    dense core rides any more."""
     kernels.reset_launch_counts()
-    for k in kernels.ROUTED:
-        assert k.launches_by_route == {"latent": 0, "dense": 0}
+    assert all(k.launches == 0 for k in kernels.KERNELS)
     cache, cur = _ring(_jcfg(), 7)
     cache = {k: _t(v).long() if k == "pos" else _t(v) for k, v in cache.items()}
     pool, ptab = _pool({k: v.numpy() for k, v in cache.items()})
@@ -269,12 +268,14 @@ def test_dense_core_launches_count_by_route():
     ops.dense_decode(torch.zeros(3, 4, 16), cache, _t(cur), window=None, scale=0.25)
     ops.dense_decode_paged(torch.zeros(3, 4, 16), pool, _t(ptab), _t(cur), window=None,
                            scale=0.25)
-    ops.dense_decode_mq(torch.zeros(3, 2, 4, 16), cache, _t(cur),
-                        torch.ones(3, 2, dtype=torch.bool),
-                        {"k": torch.zeros(3, 2, 2, 16), "v": torch.zeros(3, 2, 2, 16)},
+    entries = {"k": torch.zeros(3, 2, 2, 16), "v": torch.zeros(3, 2, 2, 16)}
+    feed = torch.ones(3, 2, dtype=torch.bool)
+    ops.dense_decode_mq(torch.zeros(3, 2, 4, 16), cache, _t(cur), feed, entries,
                         window=None, scale=0.25)
+    ops.dense_decode_mq_paged(torch.zeros(3, 2, 4, 16), pool, _t(ptab), _t(cur), feed,
+                              entries, window=None, scale=0.25)
     assert all(k.launches == 0 for k in kernels.KERNELS)
-    assert all(sum(k.launches_by_route.values()) == 0 for k in kernels.ROUTED)
+    assert not any(hasattr(k, "launches_by_route") for k in kernels.KERNELS)
 
 
 # -- model steps and Engine streams ----------------------------------------------

@@ -18,10 +18,11 @@ latents and scales.  K7 (the paged pool) and K4 must also equal K5 / K1
 on the table-gathered ring bit for bit, in both types: they run the same
 tiles in the same order on the same values (in bf16 K4 / K7 and K1 / K5
 are one tensor-core body with two row maps).  The dense cores
-(``ops.dense_decode*``: the dense decode kernel on the ring and the pool,
-K5 / K7 at an identity R_k for verify) are held to the same rules, the
-pool equal to the ring on the gathered view bit for bit, and a row that
-sees only its self column returns the self value exactly; the float32
+(``ops.dense_decode*``: the dense decode kernel and the dense verify kernel,
+each on the ring and the pool) are held to the same rules, the pool equal
+to the ring on the gathered view bit for bit, a row that sees only one
+self column returns that self value exactly, and a row masked everywhere
+exact 0; the float32
 template to 1e-4 at every width the bf16 bodies serve
 (group_size 8, ranks 768 / 1,024, up to 8 verify queries); and one
 full-width ``compress_attention_layer`` on the card to the CPU's by
@@ -878,12 +879,12 @@ def _pool_of(cache, ps, seed):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dense_cores_match_plain_and_each_other(cuda, dtype):
     """The dense cores at qwen3-4b's head shape (Hkv = 8, q_per_kv 4, dh
-    128): the dense decode kernel on the ring and the pool, K5 (nq 3) and
-    K7 at an identity R_k, against their plain versions (the same calls on
-    CPU copies); the pool == the ring and K7 == K5 on the gathered ring bit
-    for bit; launches counted on the dense decode wrappers and on K5's and
-    K7's dense route, none on K1 or K4; the empty row 2 sees only its self
-    columns."""
+    128): the dense decode kernel and the dense verify kernel (nq 3) on the
+    ring and the pool, against their plain versions (the same calls on CPU
+    copies); the pool == the ring on the gathered ring bit for bit; launches
+    counted on the four dense wrappers, none on K1, K4, K5 or K7; the empty
+    row 2 (query 0 of it in verify) sees only its self column and returns
+    its value exactly."""
     a = _dense_ring(cuda, 300)
     cast = lambda d: {k: (v if k == "pos" else v.to(dtype)) for k, v in d.items()}
     cache, one, many = cast(a["cache"]), cast(a["one"]), cast(a["many"])
@@ -899,9 +900,10 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
         else:
             _within_bf16_limit(got.cpu(), want)
 
-    before = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
     counted = (KD.dense_decode_attention, KD.dense_decode_attention_paged,
-               K1.latent_decode_attention, K1.latent_decode_attention_paged)
+               KD.dense_decode_attention_mq, KD.dense_decode_attention_mq_paged,
+               K1.latent_decode_attention, K1.latent_decode_attention_paged,
+               K1.latent_decode_attention_mq, K1.latent_decode_attention_mq_paged)
     launches_before = [k.launches for k in counted]
     r1 = ops.dense_decode(q, cache, a["cur"], self_entry=one, **kw)
     check(r1, ops.dense_decode(q.cpu(), cpu(cache), a["cur"].cpu(), self_entry=cpu(one),
@@ -918,12 +920,88 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
     check(pm, ops.dense_decode_mq_paged(qm.cpu(), cpu(pool), ptab.cpu(), a["cur"].cpu(),
                                         a["feed"].cpu(), cpu(many), **kw))
     assert torch.equal(pm, ops.dense_decode_mq(qm, view, a["cur"], a["feed"], many, **kw))
+    assert torch.equal(rm[2, 0], many["v"][2, 0].repeat_interleave(4, dim=0))
     torch.cuda.synchronize()
-    after = {k.__name__: k.launches_by_route["dense"] for k in K1.ROUTED}
-    assert [k.launches - n for k, n in zip(counted, launches_before)] == [2, 1, 0, 0]
-    assert after["latent_decode_attention_mq"] - before["latent_decode_attention_mq"] == 2
-    assert (after["latent_decode_attention_mq_paged"]
-            - before["latent_decode_attention_mq_paged"]) == 1
+    assert [k.launches - n for k, n in zip(counted, launches_before)] == [2, 1, 2, 1, 0, 0,
+                                                                          0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,qpk,nq,window,unfed", [(64, 1, 1, None, False),
+                                                    (64, 8, 5, 16, False),
+                                                    (64, 1, 8, None, True),
+                                                    (128, 8, 8, 16, True),
+                                                    (128, 1, 5, 16, False)])
+def test_dense_verify_kernel_edge_shapes(cuda, dtype, dh, qpk, nq, window, unfed):
+    """The dense verify kernel at dh 64 / 128, q_per_kv 1 / 8, nq 1 / 5 / 8
+    (up to 64 query rows: four 16-row blocks), with and without a window
+    and with every candidate unfed, on a ring whose row 2 is empty: within
+    1e-4 (f32) or the bf16 limit of the plain version; row 2's query 0
+    exactly its self value (exact 0 with the candidates unfed, when it sees
+    no column); the pool (page size 8) equal to the ring on the gathered
+    view bit for bit."""
+    a = _dense_ring(cuda, 700 + dh + 10 * qpk + nq, S=200, qpk=qpk, dh=dh, nq=nq)
+    cache = {k: (v if k == "pos" else v.to(dtype)) for k, v in a["cache"].items()}
+    feed = torch.zeros_like(a["feed"]) if unfed else a["feed"]
+    sk, sv = a["many"]["k"].to(dtype), a["many"]["v"].to(dtype)
+    pos_q = a["cur"][:, None] + torch.arange(nq, device=cuda)
+    bias = ops.verify_bias(torch.cat([cache["pos"], pos_q], 1), pos_q, feed, window, 200)
+    qg = ops.group_queries_mq(a["qm"].to(dtype), 8)
+    kw = dict(scale=dh ** -0.5, self_k=sk, self_v=sv)
+    got = KD.dense_decode_attention_mq(qg, cache["k"], cache["v"], bias, **kw)
+    want = KD.dense_decode_attention_mq_plain(qg, cache["k"], cache["v"], bias, **kw)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _within_bf16_limit(got, want)
+    self0 = torch.zeros_like(sv[2, 0]) if unfed else sv[2, 0]
+    assert torch.equal(got[2, :, :qpk], self0[:, None].expand(8, qpk, dh))
+    pool, ptab = _pool_of(cache, 8, 701)
+    pos = K1.gather_pages(pool["pos"], ptab)
+    pbias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, window, 200)
+    paged = KD.dense_decode_attention_mq_paged(ptab, qg, pool["k"], pool["v"], pbias, **kw)
+    view = KD.dense_decode_attention_mq(qg, K1.gather_pages(pool["k"], ptab),
+                                        K1.gather_pages(pool["v"], ptab), pbias, **kw)
+    assert torch.equal(paged, view)
+
+
+@pytest.mark.gpu
+def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
+    """No fallback: shapes and types the dense verify kernel does not take
+    raise, and count no launch."""
+    g = torch.Generator(device=cuda).manual_seed(8)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    k, bias = rn(2, 32, 2, 128), torch.zeros(2, 4, 36, device=cuda)
+    sk = rn(2, 4, 2, 128)
+    kw = dict(scale=1.0, self_k=sk, self_v=sk)
+    before = (KD.dense_decode_attention_mq.launches, KD.dense_decode_attention_mq_paged.launches)
+    with pytest.raises(ValueError, match="dh must be 64 or 128"):
+        KD.dense_decode_attention_mq(rn(2, 2, 16, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
+                                     bias, scale=1.0, self_k=rn(2, 4, 2, 96),
+                                     self_v=rn(2, 4, 2, 96))
+    with pytest.raises(ValueError, match="q_per_kv 1-8, nq 1-8"):
+        KD.dense_decode_attention_mq(rn(2, 2, 36, 128), k, k, bias, **kw)
+    with pytest.raises(ValueError, match="nq 1-8"):
+        KD.dense_decode_attention_mq(rn(2, 2, 9, 128), k, k, torch.zeros(2, 9, 41, device=cuda),
+                                     scale=1.0, self_k=rn(2, 9, 2, 128), self_v=rn(2, 9, 2, 128))
+    with pytest.raises(ValueError, match="unsupported shapes"):
+        KD.dense_decode_attention_mq(rn(2, 2, 16, 128), k, k, bias[..., :32], **kw)
+    with pytest.raises(ValueError, match="self columns"):
+        KD.dense_decode_attention_mq(rn(2, 2, 16, 128), k, k, bias, scale=1.0, self_k=None,
+                                     self_v=None)
+    with pytest.raises(TypeError, match="bf16 or float32"):
+        KD.dense_decode_attention_mq(rn(2, 2, 16, 128).half(), k.half(), k.half(), bias,
+                                     scale=1.0, self_k=sk.half(), self_v=sk.half())
+    with pytest.raises(TypeError, match="must be"):
+        KD.dense_decode_attention_mq(rn(2, 2, 16, 128).to(torch.bfloat16), k, k, bias, **kw)
+    with pytest.raises(TypeError, match="int32"):
+        KD.dense_decode_attention_mq_paged(torch.zeros(2, 4, dtype=torch.int64, device=cuda),
+                                           rn(2, 2, 16, 128), rn(9, 8, 2, 128),
+                                           rn(9, 8, 2, 128), bias, **kw)
+    assert (KD.dense_decode_attention_mq.launches,
+            KD.dense_decode_attention_mq_paged.launches) == before
 
 
 @pytest.mark.gpu

@@ -26,6 +26,11 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
 * K5: K6's body over bf16 latents: nq queries, each with its own bias row
   over the ring and the nq self columns, 128-column chunks.  K7 is K5's
   body through a page table, as K4 is K1's.
+* The dense verify kernel (``csrc/dense_verify.cu``, K5's and K7's dense
+  cores): S = q K^T from bf16 operands in f32 (exact products, no key
+  rebuild); each of four warps runs an online softmax over its 32-column
+  tiles of a chunk, P entering P V as bf16 hi + lo; warps and then chunks
+  merged by log-sum-exp in f32 (``dense_verify_emulated``).
 * The 64-column plan: past the ranks whose 128-column block fits in
   shared memory (the one-query bodies past rank ~700, the verify bodies
   past 544 at dh 128, up to s * dh = 1,024 at group_size 8) every body
@@ -33,7 +38,8 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
   two warps then share a key m-tile, which reorders f32 sums and moves no
   rounding point, so the emulations run with ``chunk=64``.
 
-One bf16 rounding of P (K2), or of the keys and P (K3-K6), is what a plain
+One bf16 rounding of P (K2, the dense verify kernel), or of the keys and P
+(K3-K6), is what a plain
 bf16 tensor-core design would do; ``test_one_bf16_rounding_is_measured``
 records its error beside the split's.
 
@@ -51,6 +57,7 @@ import torch
 from repro.kernels.latent_decode import latent_decode_attention_mq as jax_k5
 from repro.kernels.latent_decode_q import latent_decode_attention_mq_quant as jax_k6
 from repro.kernels.latent_decode_q import latent_decode_attention_quant as jax_k3
+from repro_torch.kernels import dense_decode as KD
 from repro_torch.kernels import flash_prefill as K2
 from repro_torch.kernels import latent_decode as K1
 from repro_torch.kernels import latent_decode_q as KQ
@@ -241,6 +248,115 @@ def k3_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
     return tc_emulated(q, zk_q.float(), zv_q.float(), r_k, cos, sin, bias[:, None],
                        k_norm=k_norm, ks=ks, vs=vs, eps=eps, rounding=rounding,
                        chunk=chunk)
+
+
+def dense_verify_emulated(q, k, v, bias, *, scale, self_k, self_v, rounding="split",
+                          chunk=512, warps=4, tile=32, rows=16):
+    """The dense verify kernel's bf16 body: q (B,Hkv,nq*qpk,dh), the ring
+    k / v (B,S,Hkv,dh) with the nq self columns (B,nq,Hkv,dh) appended,
+    bias (B,nq,S+nq) per query.  Per block (``rows`` query rows, ``chunk``
+    columns) the 32-column tiles some of its rows see go to the warps in
+    turn; each warp's online softmax rounds P = e^(s - m) (m its running
+    maximum) at the split, and its partials merge with the other warps',
+    then the chunks', by log-sum-exp.  Returns (B,Hkv,nq*qpk,dh) f32 before
+    the output rounding."""
+    rnd = {"split": _split, "one": _bf16, None: lambda x: x}[rounding]
+    B, Hkv, M, dh = q.shape
+    k = torch.cat([k, self_k], 1).float()
+    v = torch.cat([v, self_v], 1).float()
+    rb = bias.float().repeat_interleave(M // bias.shape[1], dim=1)     # (B, M, S_ext)
+    live = rb > NEG_INF * 0.5
+    s = torch.einsum("bhrd,bthd->bhrt", q.float(), k) * scale + rb[:, None]
+    s = torch.where(live[:, None], s, torch.full_like(s, NEG_INF))
+    S_ext = k.shape[1]
+
+    def merge(parts):
+        m = torch.stack([p[0] for p in parts]).amax(0)
+        l, acc = torch.zeros_like(m), torch.zeros(m.shape + (dh,))
+        for mw, lw, ow in parts:
+            w = torch.where(mw <= NEG_INF * 0.5, 0.0,
+                            torch.where(mw == m, 1.0, torch.exp(mw - m)))
+            l, acc = l + lw * w, acc + ow * w[..., None]
+        return m, l, acc
+
+    out = torch.zeros(B, Hkv, M, dh)
+    for b in range(B):
+        for r0 in range(0, M, rows):
+            rs = slice(r0, min(M, r0 + rows))
+            chunks = []
+            for c0 in range(0, S_ext, chunk):
+                tiles = [t for t in range(c0, min(c0 + chunk, S_ext), tile)
+                         if live[b, rs, t:t + tile].any()]
+                parts = []
+                for w in range(warps):
+                    m = torch.full((Hkv, rs.stop - r0), NEG_INF)
+                    l, o = torch.zeros_like(m), torch.zeros(m.shape + (dh,))
+                    for t in tiles[w::warps]:
+                        st = s[b, :, rs, t:t + tile]
+                        mx = torch.maximum(m, st.amax(-1))
+                        f = torch.where(m == mx, 1.0, torch.exp(m - mx))
+                        p = torch.where(st <= NEG_INF * 0.5, 0.0,
+                                        torch.where(st == mx[..., None], 1.0,
+                                                    torch.exp(st - mx[..., None])))
+                        m, l = mx, l * f + p.sum(-1)
+                        o = o * f[..., None] + torch.einsum("hrt,thd->hrd", rnd(p),
+                                                            v[b, t:t + tile])
+                    parts.append((m, l, o))
+                chunks.append(merge(parts))
+            _, l, acc = merge(chunks)
+            out[b, :, rs] = acc / l.clamp(min=1e-30)[..., None]
+    return out
+
+
+DV_CASES = {
+    # name: (B, S, Hkv, q_per_kv, nq, dh, tokens per row (None: masked
+    #        row), the kernel's chunk at these widths)
+    "narrow": (3, 300, 2, 8, 5, 64, (300, 40, None), 96),
+    "main_widths": (3, 1024, 8, 4, 4, 128, (1024, 614, None), 512),
+}
+
+
+def _dv_inputs(case):
+    """A bf16 dense ring like chip_smoke.py's verify operands, ragged as
+    ``_k5_inputs``' (row 0 drops its last fed token, a None row is masked
+    everywhere); nq verify queries at positions cur..cur+nq-1 with their
+    post-RoPE self columns."""
+    B, S, Hkv, qpk, nq, dh, lens, _ = DV_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 9)
+    mk = lambda *sh: _bf16(torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)))
+    pos = torch.arange(S).repeat(B, 1)
+    for b, n in enumerate(lens):
+        pos[b, n or 0:] = -1
+    cur = torch.tensor([n or S for n in lens])
+    pos_q = cur[:, None] + torch.arange(nq)
+    feed = torch.ones(B, nq, dtype=torch.bool)
+    feed[0, -1] = False
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    for b, n in enumerate(lens):
+        if n is None:
+            bias[b] = NEG_INF
+    args = (mk(B, Hkv, nq * qpk, dh), mk(B, S, Hkv, dh), mk(B, S, Hkv, dh), bias)
+    return args, dict(scale=dh ** -0.5, self_k=mk(B, nq, Hkv, dh), self_v=mk(B, nq, Hkv, dh))
+
+
+@pytest.mark.parametrize("case", sorted(DV_CASES))
+def test_dense_verify_emulation_without_rounding_equals_plain(case):
+    args, kw = _dv_inputs(case)
+    got = dense_verify_emulated(*args, **kw, rounding=None, chunk=DV_CASES[case][-1])
+    torch.testing.assert_close(got, KD.dense_decode_attention_mq_plain(*args, **kw),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(DV_CASES))
+def test_dense_verify_tensor_core_rounding_within_bf16_limit(case):
+    """The dense verify kernel's rounding point (P as bf16 hi + lo; bf16 q
+    and K multiply exactly) keeps the bf16 output within chip_smoke.py's
+    limit of the f32 plain version; the masked row stays exact 0."""
+    args, kw = _dv_inputs(case)
+    got = dense_verify_emulated(*args, **kw, chunk=DV_CASES[case][-1]).to(torch.bfloat16)
+    want = KD.dense_decode_attention_mq_plain(*args, **kw).to(torch.bfloat16)
+    assert _worst(got, want) <= 1
+    assert (got[-1] == 0).all()
 
 
 K2_CASES = {
@@ -678,13 +794,19 @@ def _budgets():
         out["K5", case] = {r: _worst(_k5_call(k5_emulated, a, kw, rounding=r,
                                               chunk=K5_CASES[case][-1])
                                      .to(torch.bfloat16), want) for r in ("split", "one")}
+    for case in sorted(DV_CASES):
+        args, kw = _dv_inputs(case)
+        want = KD.dense_decode_attention_mq_plain(*args, **kw).to(torch.bfloat16)
+        out["DV", case] = {r: _worst(dense_verify_emulated(*args, **kw, rounding=r,
+                                                           chunk=DV_CASES[case][-1])
+                                     .to(torch.bfloat16), want) for r in ("split", "one")}
     return out
 
 
 def test_one_bf16_rounding_is_measured():
-    """The split's reason, measured: one bf16 rounding of P (K2), or of the
-    keys and P (K3-K6), errs more than the split in every case, and at
-    K2's main widths by more than twice."""
+    """The split's reason, measured: one bf16 rounding of P (K2, the dense
+    verify kernel "DV"), or of the keys and P (K3-K6), errs more than the
+    split in every case, and at K2's main widths by more than twice."""
     b = _budgets()
     assert all(v["split"] < v["one"] for v in b.values())
     assert b["K2", "main_widths"]["one"] > 2 * b["K2", "main_widths"]["split"]
@@ -704,6 +826,7 @@ if __name__ == "__main__":
                                  (1500, 4096, 2500, 3300), 128)
         K3_CASES["ring_4096"] = (4, 4096, 2, 16, 4, 128, 256, 256,
                                  (1500, 4096, 2500, 3300), 256)
+        DV_CASES["ring_4096"] = (4, 4096, 8, 4, 4, 128, (1500, 4096, 2500, 3300), 512)
     for (kern, case), v in sorted(_budgets().items()):
         print(f"{kern} {case:20s} worst err / limit: split {v['split']:.3f}, "
               f"one bf16 rounding {v['one']:.3f}")
