@@ -3,7 +3,8 @@
 their time.
 
     python3 benchmarks_torch/profile_decode.py [--cache-quant-bits 8] [--spec-depth 3]
-                                               [--page-size 16] [--dense] [--src DIR]
+                                               [--page-size 16] [--dense] [--aot]
+                                               [--src DIR]
 
 Builds full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio
 0.5), bf16, random weights from seed 0, on one CUDA card, at the main
@@ -26,6 +27,11 @@ K7 on the float pool, the gathered view with K3 / K6 on the int8 pool.
 (``recalkv=None``: K / V stored after RoPE, 4,096 bytes per token and
 layer; decode runs the dense decode kernel, verify the dense verify kernel;
 the int8 ring does not apply).
+``--aot`` times the step twice in the same call: eagerly, and captured as
+one CUDA graph (what ``Engine(aot=True)`` replays per window iteration:
+state in static tensors, one graph launch a step); both feed the same
+static draft columns, so they do the same work.  It reports wall, device
+time, kernels and host launches a step for each.
 ``--src DIR`` imports the port from another tree's ``src`` (an older
 commit unpacked with ``git archive``), so that two trees are profiled by
 the same script in turns on one card.  Without flags it measures what it
@@ -91,6 +97,9 @@ def main() -> int:
                          "the ring")
     ap.add_argument("--dense", action="store_true",
                     help="the dense model (recalkv=None) instead of the latent one")
+    ap.add_argument("--aot", action="store_true",
+                    help="also time the step captured as a CUDA graph, beside "
+                         "the eager step")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose src is profiled (default: this one's)")
     args = ap.parse_args()
@@ -173,6 +182,13 @@ def main() -> int:
         T.commit_verify_writes(caches, upd, cur, mask, pages=pages)
         tok, cur = lg[:, -1].argmax(-1), cur + n_fed
 
+    what = f"verify step ({n_fed} tokens)" if args.spec_depth else "decode step"
+    if pages is not None:
+        what += f", paged pool (page_size {args.page_size})"
+    if args.aot:
+        out.update(aot_steps(torch, T, cfg, params, caches, pages, tok, cur, n_fed, what))
+        print(json.dumps(out))
+        return 0
     for _ in range(2):
         step()
     torch.cuda.synchronize()
@@ -181,14 +197,69 @@ def main() -> int:
         step()
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEPS * 1e3
-    what = f"verify step ({n_fed} tokens)" if args.spec_depth else "decode step"
-    if pages is not None:
-        what += f", paged pool (page_size {args.page_size})"
     print(f"{what} {step_ms:.3f} ms (host clock, synchronised, untraced)")
     out["decode_step_ms"] = step_ms
     out["decode"] = report(what, STEPS, *traced(step, STEPS))
     print(json.dumps(out))
     return 0
+
+
+def timed(torch, fn) -> float:
+    """Host-clock ms per call of ``fn`` over STEPS synchronised calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(STEPS):
+        fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / STEPS * 1e3
+
+
+def aot_steps(torch, T, cfg, params, caches, pages, tok, cur, n_fed, what) -> dict:
+    """The step eagerly and as a captured CUDA graph, in turns on one card:
+    the token and position live in static tensors that the step updates in
+    place, and a verify step feeds fixed random draft columns, so both
+    versions do the same work."""
+    B = tok.shape[0]
+    s_tok, s_cur = tok.clone(), cur.clone()
+    tail = torch.randint(0, cfg.vocab_size, (B, n_fed - 1),
+                         generator=torch.Generator(device="cuda").manual_seed(2),
+                         device="cuda")
+    mask = torch.ones((B, n_fed), dtype=torch.bool, device="cuda")
+
+    def body():
+        if n_fed == 1:
+            lg, _ = T.decode_step(cfg, params, caches, s_tok, s_cur, pages=pages)
+            s_tok.copy_(lg.argmax(-1))
+        else:
+            fed = torch.cat([s_tok[:, None], tail], dim=1)
+            lg, upd = T.verify_step(cfg, params, caches, fed, s_cur, mask, pages=pages)
+            T.commit_verify_writes(caches, upd, s_cur, mask, pages=pages)
+            s_tok.copy_(lg[:, -1].argmax(-1))
+        s_cur.add_(n_fed)
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            body()
+    torch.cuda.current_stream().wait_stream(side)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t0
+    res = {"capture_s": capture_s}
+    for name, fn in (("eager", body), ("graph", graph.replay),
+                     ("graph again", graph.replay), ("eager again", body)):
+        ms = timed(torch, fn)
+        print(f"{what}, {name}: {ms:.3f} ms (host clock, synchronised, untraced)")
+        rep_ = report(f"{what}, {name}", STEPS, *traced(fn, STEPS))
+        rep_["step_ms"] = ms
+        rep_["host_launches_per_call"] = 1 if name.startswith("graph") else rep_["kernels_per_call"]
+        res[name] = rep_
+    print(f"captured in {capture_s:.3f} s")
+    return {"aot": res}
 
 
 if __name__ == "__main__":

@@ -32,7 +32,8 @@ Phases, in order (any failure exits non-zero; none is caught):
    widths 128, 152, 384, 512 and 1024 in float32 and bf16; then the dense
    cores at qwen3-4b's heads (Hkv = 8, q_per_kv 4, dh 128): K1's and K4's
    dense cores, the dense decode kernel (``csrc/dense_decode.cu``), and
-   K5's and K7's (nq = 4), the dense verify kernel
+   K5's and K7's (nq = 4, and nq = 16: 64 query rows a kv head in four
+   row blocks), the dense verify kernel
    (``csrc/dense_verify.cu``), each on the ring and on the ragged pool,
    the pool equal to the ring kernel on the gathered view bit for bit (and
    in bf16 to itself on an in-order page placement), each timed beside the
@@ -52,7 +53,7 @@ Phases, in order (any failure exits non-zero; none is caught):
    float and int8 pools holding the ring's content: every logit must equal
    the ring's bit for bit (on the float pool also before any write);
 5. the same model served through ``Engine`` (8 slots, max_len 4096) in
-   seven runs, each with the kernel launch counts of that run:
+   ten runs, each with the kernel launch counts of that run:
    A, float ring, no speculation, one chunked prompt (K1, K2);
    B, int8 ring, spec_depth 3, draft "layers:4", one chunked prompt (K2,
    K3 in the draft's decode steps, K6 in verify);
@@ -73,6 +74,12 @@ Phases, in order (any failure exits non-zero; none is caught):
    C's prompts (K2 at dv = 768, K5 at 32 query rows per group and rank
    768: 64-column chunks), after its kernel backend's decode and verify
    logits are held to the einsum reference's;
+   A+, B+ and D+: runs A, B (with ``adaptive_spec``) and D served again by
+   the overlapped engine with its window captured as CUDA graphs
+   (``overlap=True, aot=True``); each run's streams must equal its sync
+   run's token for token, two graphs must be captured at construction and
+   ``captures`` may not move while serving, and a run's launches are the
+   eager prefill's plus each graph's captured launches times its replays;
 6. the dense qwen3-4b (``recalkv=None``; its own random weights, G's
    freed first): prefill, decode and a 4-token verify step through both
    backends (logits within 5e-2 relative), decode and verify on a paged
@@ -85,6 +92,9 @@ Phases, in order (any failure exits non-zero; none is caught):
    route, must count 0 launches over the steps, H and I;
    I, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
    prompts (the dense verify kernel's pool);
+   I9, I at spec_depth 8 (9 verify queries: 36 query rows a kv head, three
+   row blocks of the dense verify kernel);
+   H+ and I+: H and I overlapped with CUDA graphs, as A+;
    J, compress then serve: ``api.calibrate`` on 8 synthetic sequences of
    512 tokens, ``api.compress`` ("recalkv", keep ratio 0.5, backend
    "pallas": G = 2, r = 256), ``save_artifact`` under ``build/``, the
@@ -99,8 +109,8 @@ Phases, in order (any failure exits non-zero; none is caught):
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
-   own wrappers), the card line, and the final ``{"ok": true, "device":
-   {...}}`` line.
+   own wrappers, the dense verify kernel's twice, at nq 4 and nq 16), the
+   card line, and the final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
 JAX or of the JAX package.
@@ -392,6 +402,9 @@ def phase_dense(torch, gen, paged, nq):
     if paged:
         entry["view_max_abs_diff"] = view_diff
     entry.update(DENSE_CORES[fn])
+    if nq > 4:   # a second row of the same wrapper: past 8 queries, more row blocks
+        entry["launch_key"] = entry["name"]
+        entry["name"] = f"{entry['name']} (nq {nq})"
     return entry
 
 
@@ -1003,12 +1016,22 @@ ENGINE_RUNS = {
               must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
               paged=dict(cache_layout="paged", page_size=PAGE,
                          policy="reach-packing")),
+    # I at spec_depth 8: 9 verify queries, past one 16-row block of the
+    # dense verify kernel at q_per_kv 4 (36 rows, 3 blocks)
+    "I9": dict(bits=None, depth=8, draft="ngram", chunk=None, sync=8,
+               must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
+               paged=dict(cache_layout="paged", page_size=PAGE,
+                          policy="reach-packing")),
     # the artifact the port compressed from H's model (r = 256, G = 2)
     "J": dict(bits=None, depth=0, draft=None, chunk=None, sync=16, new=16,
               must=("flash_prefill_attention", "latent_decode_attention")),
 }
 # bytes of K / V (or latents) per token and layer each run's cache must hold
-CACHE_BYTES = {"H": 4096, "I": 4096, "J": 2048}
+CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048}
+# runs served again by the overlapped engine with the window captured as
+# CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
+# Their streams must equal the sync runs' in the same call.
+OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}}
 # runs F and G's latent caches: one group of all 8 kv heads (32 query rows
 # per group) at rank 512 = s * dh / 2 (F) and 768 (G, keep ratio 0.75);
 # r_v the value width of their K2
@@ -1049,9 +1072,14 @@ def cache_bytes(torch, cache) -> tuple[int, int]:
     return sum(b for k, b in per.items() if k != "pos"), per["pos"]
 
 
-def phase_engine(torch, cfg, params, run, artifact=None):
+def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False):
     """One engine run; with ``artifact`` (a saved path) the engine boots
-    through ``Engine.from_artifact`` instead of (cfg, params)."""
+    through ``Engine.from_artifact`` instead of (cfg, params).  With
+    ``overlapped`` the overlapped engine serves it with its window captured
+    as CUDA graphs (``OVERLAPPED``): a graph replay does not pass through
+    the wrappers' counters, so the run's launches add each graph's captured
+    launches times its replays to what the eager prefill counted, and
+    ``captures`` may not move after construction."""
     from repro_torch import kernels
     from repro_torch.serving import Engine, Request
     spec = ENGINE_RUNS[run]
@@ -1061,11 +1089,19 @@ def phase_engine(torch, cfg, params, run, artifact=None):
     kw = dict(max_slots=8, max_len=4096, sync_every=spec["sync"],
               prefill_chunk=spec["chunk"], spec_depth=depth, draft=draft,
               **spec.get("paged", {}))
+    if overlapped:
+        kw.update(overlap=True, aot=True, **OVERLAPPED[run])
+    t0 = time.perf_counter()
     if artifact is None:
         eng = Engine(dataclasses.replace(cfg, cache_quant_bits=bits), params, **kw)
     else:
         eng = Engine.from_artifact(artifact, **kw)
         cfg = eng.cfg
+    boot_s = time.perf_counter() - t0
+    captures = eng.metrics()["captures"]
+    if overlapped and captures != 2:
+        raise AssertionError(f"engine run {run}: {captures} graphs captured, expected 2 "
+                             f"(greedy and sampled)")
     kv_bytes, pos_bytes = cache_bytes(torch, eng.cache)
     reqs = engine_prompts(torch, run, cfg.vocab_size)
     if "new" in spec:
@@ -1075,16 +1111,31 @@ def phase_engine(torch, cfg, params, run, artifact=None):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     done = eng.run()
+    eng.close()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = launch_counts(kernels)
     m = eng.metrics()
+    for g in m["graphs"].values():
+        for k, n in g["launches"].items():
+            launches[k] += n * g["replays"]
+    if m["captures"] != captures:
+        raise AssertionError(f"engine run {run}: captures moved while serving "
+                             f"({captures} -> {m['captures']})")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     pool = {k: m[k] for k in ("cache_layout", "page_size", "pages_total", "pages_peak",
                               "pages_shared", "cow_forks", "preemptions",
                               "prefill_calls_saved", "prefix_resurrections",
                               "pages_pinned", "policy", "lazy_pages")}
-    log(f"engine run {run} (int8 cache: {bits is not None}, spec_depth {depth}, draft "
+    name = f"{run}, overlapped + graphs" if overlapped else run
+    if overlapped:
+        log(f"engine run {name}: boot {boot_s:.3f} s, capture {m['capture_s']:.3f} s, "
+            f"captures {m['captures']}, window_overlap {m['window_overlap']:.3f}, "
+            f"windows_idle {m['windows_idle']}, spec_degraded {m['spec_degraded']}, "
+            f"admission_syncs {m['admission_syncs']}, graphs " + "; ".join(
+                f"{k}: {g['replays']} replays, captured in {g['capture_s']:.3f} s, "
+                f"launches per replay {g['launches']}" for k, g in m["graphs"].items()))
+    log(f"engine run {name} (int8 cache: {bits is not None}, spec_depth {depth}, draft "
         f"{draft}): {len(done)} requests, {m['tokens']} tokens in {wall:.3f} s, "
         f"{m['tokens_per_s']:.2f} tok/s, ttft {m['ttft_s']:.3f} s, windows "
         f"{m['windows']}, accept rate {m['accept_rate']:.3f} ({m['draft_accepted']}/"
@@ -1103,15 +1154,42 @@ def phase_engine(torch, cfg, params, run, artifact=None):
     if missing:
         raise AssertionError(f"engine run {run}: kernels of its path never launched: "
                              f"{missing} ({launches})")
-    if run == "D" and (m["preemptions"] < 1 or m["pages_shared"] < 1):
-        raise AssertionError(f"engine run D must share pages and preempt: {pool}")
+    # the overlapped D admits on its own schedule (its lazy headroom spans
+    # the windows in flight), so only the sync run must reach preemption
+    if run == "D" and (m["pages_shared"] < 1 or (m["preemptions"] < 1 and not overlapped)):
+        raise AssertionError(f"engine run {name} must share pages"
+                             + ("" if overlapped else " and preempt") + f": {pool}")
     streams = {r.uid: list(r.out_tokens) for r in done}
     return launches, streams, {
         **{k: m[k] for k in ("tokens", "tokens_per_s", "ttft_s", "windows",
                              "prefill_calls", "run_seconds", "spec_depth", "draft",
-                             "draft_proposed", "draft_accepted", "accept_rate")},
+                             "draft_proposed", "draft_accepted", "accept_rate",
+                             "overlap", "aot", "captures", "capture_s", "window_overlap",
+                             "windows_idle", "spec_degraded", "graphs")},
+        "boot_s": boot_s, "profile_s": m["profile"]["seconds"],
         **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall,
         "cache_bytes_per_token_layer": kv_bytes, "pos_bytes_per_token_layer": pos_bytes}
+
+
+def phase_overlapped(torch, cfg, params, runs, by_run, streams, serving):
+    """Serve ``runs`` again with the overlapped engine and the window as
+    CUDA graphs (``OVERLAPPED``; keys "A+" ...): each run's streams must
+    equal its sync run's in this call, token for token."""
+    t0 = time.perf_counter()
+    for run in runs:
+        key = run + "+"
+        by_run[key], streams[key], serving[key] = phase_engine(torch, cfg, params, run,
+                                                               overlapped=True)
+        if streams[key] != streams[run]:
+            raise AssertionError(f"engine run {run}: the overlapped engine's streams "
+                                 f"differ from the sync run's: {streams[key]} vs "
+                                 f"{streams[run]}")
+        a, b = serving[run], serving[key]
+        log(f"engine run {run}: overlapped + graphs streams equal the sync run's; tok/s "
+            f"{b['tokens_per_s']:.2f} (sync {a['tokens_per_s']:.2f}, "
+            f"{b['tokens_per_s'] / a['tokens_per_s']:.2f}x), ttft {b['ttft_s']:.3f} s "
+            f"(sync {a['ttft_s']:.3f} s)")
+    log(f"overlapped runs {', '.join(runs)} took {time.perf_counter() - t0:.1f} s")
 
 
 ARTIFACT = ROOT / "build" / "chip_smoke_artifact"   # gitignored
@@ -1225,7 +1303,8 @@ def main() -> int:
     wide_ranks = phase_tc_widths(torch, gen)
     torch.cuda.empty_cache()
     t_dense = time.perf_counter()
-    entries += [phase_dense(torch, gen, paged, nq) for nq in (1, 4) for paged in (False, True)]
+    entries += [phase_dense(torch, gen, paged, nq) for nq in (1, 4, 16)
+                for paged in (False, True)]
     f32_widths = phase_f32_widths(torch, gen)
     torch.cuda.empty_cache()
     log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
@@ -1250,6 +1329,7 @@ def main() -> int:
         raise AssertionError(f"engine run E (paged pool) streams differ from run C's "
                              f"(ring): {streams['E']} vs {streams['C']}")
     log("engine run E streams equal run C's token for token")
+    phase_overlapped(torch, cfg, params, "ABD", by_run, streams, serving)
     for run, verify_bits in (("F", ()), ("G", (None,))):
         del params   # one model's weights at a time
         torch.cuda.empty_cache()
@@ -1271,16 +1351,17 @@ def main() -> int:
     backends["dense"] = phase_backends(torch, cfg, params, (None,))
     backends["dense paged"] = phase_paged_steps(torch, cfg, params, (None,))
     by_run["steps"] = launch_counts(kernels)
-    for run in "HI":
+    for run in ("H", "I", "I9"):
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    phase_overlapped(torch, cfg, params, "HI", by_run, streams, serving)
     old = {run: {k: by_run[run][k] for k in (
         "latent_decode_attention", "latent_decode_attention_paged",
         "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
-        for run in ("steps", "H", "I")}
+        for run in ("steps", "H", "I", "I9", "H+", "I+")}
     if any(n for counts in old.values() for n in counts.values()):
         raise AssertionError(f"the dense model launched K1, K4, K5 or K7: {old}")
     log("K1, K4, K5 and K7 (the old dense route) launched 0 times over the dense steps "
-        "and runs H, I")
+        "and runs H, I, I9 and H, I overlapped")
     compression = phase_compress(torch, cfg, params)
     del params   # the dense model goes; J boots from the saved artifact
     torch.cuda.empty_cache()

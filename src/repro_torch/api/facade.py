@@ -30,7 +30,8 @@ from repro_torch.api.artifact import CompressionArtifact
 from repro_torch.api.registry import get_strategy
 from repro_torch.api.spec import CalibrationData, CompressionSpec
 from repro_torch.core.pipeline import FISHER_NOT_PORTED
-from repro_torch.models.config import ModelConfig
+from repro_torch.device import resolve_device
+from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.serving.engine import Engine
 
 
@@ -94,9 +95,16 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
     through to the Engine (``sampling``, ``sync_every``,
     ``prefill_chunk``, ``backend``, ``spec_depth`` / ``draft``,
     ``cache_layout`` / ``page_size`` / ``n_pages``, ``policy``,
-    ``lazy_pages``, ``pin_prefixes``)."""
+    ``lazy_pages``, ``pin_prefixes``, ``overlap`` / ``pipeline_depth`` /
+    ``admission_thread``, ``aot``, ``adaptive_spec``, ``profile``).
+    Widths no CUDA kernel serves are refused before the engine is built
+    (``check_supported``)."""
     if isinstance(artifact, str):
         return Engine.from_artifact(artifact, max_slots=max_slots,
                                     max_len=max_len, device=device, **engine_kw)
+    cfg = artifact.cfg
+    if engine_kw.get("backend") is not None:
+        cfg = dataclasses.replace(cfg, attn_backend=engine_kw["backend"])
+    check_supported(cfg, resolve_device(device))
     return Engine(artifact.cfg, artifact.params, max_slots=max_slots,
                   max_len=max_len, device=device, **engine_kw)

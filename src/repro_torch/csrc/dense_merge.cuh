@@ -84,7 +84,10 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge(Partials a, int dh) {
 
 // Launch the merge on ``stream`` as a programmatic dependent of the grid
 // launched just before it there (the merge is set up while that grid runs
-// and waits for it in griddepcontrol.wait).
+// and waits for it in griddepcontrol.wait).  While the stream is being
+// captured into a CUDA graph it is launched as a plain dependent (the wait
+// is then a no-op), so the capture does not hinge on the toolkit's support
+// for programmatic edges in graphs.
 template <typename T>
 cudaError_t launch_merge(const Partials& p, int dh, cudaStream_t stream) {
   const size_t smem = size_t(p.n_chunks) * p.R * 8;
@@ -99,8 +102,11 @@ cudaError_t launch_merge(const Partials& p, int dh, cudaStream_t stream) {
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaStreamCaptureStatus capturing = cudaStreamCaptureStatusNone;
+  err = cudaStreamIsCapturing(stream, &capturing);
+  if (err != cudaSuccess) return err;
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = capturing == cudaStreamCaptureStatusNone ? 1 : 0;
   err = cudaLaunchKernelEx(&cfg, merge<T>, p, dh);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();

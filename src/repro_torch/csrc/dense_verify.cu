@@ -43,8 +43,10 @@
 //    Hkv, B).  A block takes chunk_len columns (a multiple of 32, at most
 //    512) of one (b, h) and 16 of its query rows: the rows pad to one m16
 //    tile of mma.sync.m16n8k16 (16 rows at the main shape fill it
-//    exactly); 32 / 48 / 64 rows take n_mt = 2-4 blocks on the same
-//    columns, adjacent in the grid so the second reads hit L2.  A second
+//    exactly); more rows take n_mt = ceil(rows / 16) blocks on the same
+//    columns, adjacent in the grid so the later reads hit L2, so any nq is
+//    served (nq 16 at qpk 4: 64 rows, 4 blocks).  A block keeps only the
+//    bias rows of its own queries (at most 15 / qpk + 2).  A second
 //    kernel (dense_merge.cuh, the decode kernel's) merges the chunk
 //    partials by log-sum-exp, launched as a programmatic dependent.
 //  * The chunk's bias rows and row map come first, into shared memory.  A
@@ -133,12 +135,18 @@ __host__ __device__ constexpr size_t ring_bytes() {
   return size_t(WARPS) * stages<T>() * TC * DH * sizeof(T);
 }
 
+// Queries a block's MT rows can touch: rows r0 .. r0 + MT - 1 of (query,
+// head) order span at most (MT - 1) / qpk + 2 queries.
+__host__ __device__ constexpr int block_queries(int nq, int qpk) {
+  return (MT - 1) / qpk + 2 < nq ? (MT - 1) / qpk + 2 : nq;
+}
+
 template <typename T, int DH>
-size_t smem_bytes(int nq, int chunk_len) {
-  return ring_bytes<T, DH>()                  // the warps' cp.async rings, then the merge
-         + size_t(nq) * chunk_len * 4         // bias rows
-         + size_t(chunk_len) * 4              // row map
-         + (2 * NT_MAX + 1) * 4;              // tile flags, live tiles and their count
+size_t smem_bytes(int nq, int qpk, int chunk_len) {
+  return ring_bytes<T, DH>()                                 // the warps' cp.async rings, then the merge
+         + size_t(block_queries(nq, qpk)) * chunk_len * 4    // the block's bias rows
+         + size_t(chunk_len) * 4                             // row map
+         + (2 * NT_MAX + 1) * 4;                             // tile flags, live tiles and their count
 }
 
 // Element offset of 16-byte piece ``piece`` of tile row ``r``: the pieces of
@@ -171,13 +179,6 @@ dense_verify(Args a) {
 
   extern __shared__ __align__(16) unsigned char smem[];
   const int cl = a.chunk_len, nq = a.nq, qpk = a.qpk;
-  T* ring = reinterpret_cast<T*>(smem);
-  float* bias_s = reinterpret_cast<float*>(smem + ring_bytes<T, DH>());   // (nq, cl)
-  int* src = reinterpret_cast<int*>(bias_s + size_t(nq) * cl);           // (cl)
-  int* tiles = src + cl;                                                 // (NT_MAX)
-  int* flags = tiles + NT_MAX;                                           // (NT_MAX)
-  int* n_live_s = flags + NT_MAX;
-
   const int M = nq * qpk, n_mt = (M + MT - 1) / MT;
   const int c = blockIdx.x / n_mt, r0 = (blockIdx.x % n_mt) * MT;
   const int h = blockIdx.y, b = blockIdx.z;
@@ -189,16 +190,23 @@ dense_verify(Args a) {
   const int j_lo = r0 / qpk, j_hi = (r0 + rows - 1) / qpk;   // the block's queries
   const size_t prow = ((size_t(b) * a.Hkv + h) * a.n_chunks + c) * M + r0;
 
-  // the chunk's bias rows and row map; columns past S_ext are masked.  A
-  // column a lane, a tile a warp pass, so a ballot flags the tiles some
-  // query of the block sees.
+  T* ring = reinterpret_cast<T*>(smem);
+  float* bias_s = reinterpret_cast<float*>(smem + ring_bytes<T, DH>());   // (j_hi - j_lo + 1, cl)
+  int* src = reinterpret_cast<int*>(bias_s + size_t(block_queries(nq, qpk)) * cl);   // (cl)
+  int* tiles = src + cl;                                                 // (NT_MAX)
+  int* flags = tiles + NT_MAX;                                           // (NT_MAX)
+  int* n_live_s = flags + NT_MAX;
+
+  // the chunk's bias rows of the block's queries and its row map; columns
+  // past S_ext are masked.  A column a lane, a tile a warp pass, so a
+  // ballot flags the tiles some query of the block sees.
   for (int i = tid; i < nt * TC; i += THREADS) {
     const int col = c0 + i;
     bool live = false;
-    for (int j = 0; j < nq; ++j) {
+    for (int j = j_lo; j <= j_hi; ++j) {
       const float bv = col < S_ext ? a.bias[(size_t(b) * nq + j) * S_ext + col] : NEG_INF;
-      bias_s[j * cl + i] = bv;
-      live |= j >= j_lo && j <= j_hi && bv > NEG_INF * 0.5f;
+      bias_s[(j - j_lo) * cl + i] = bv;
+      live |= bv > NEG_INF * 0.5f;
     }
     int row = -1;
     if (live) {
@@ -260,8 +268,8 @@ dense_verify(Args a) {
 
   // rows g and g + 8 of the block's m16 tile: their queries (-1: padding)
   const int rg = r0 + g, rg8 = rg + 8;
-  const int bias_g = rg < M ? (rg / qpk) * cl : -1;     // offsets of the rows' bias
-  const int bias_g8 = rg8 < M ? (rg8 / qpk) * cl : -1;
+  const int bias_g = rg < M ? (rg / qpk - j_lo) * cl : -1;     // offsets of the rows' bias
+  const int bias_g8 = rg8 < M ? (rg8 / qpk - j_lo) * cl : -1;
   const T* qb = static_cast<const T*>(a.q) + (size_t(b) * a.Hkv + h) * M * DH;
   uint32_t qa[BF16 ? KS : 1][4];   // q's A fragments (bf16)
   if constexpr (BF16) {
@@ -467,7 +475,7 @@ dense_verify(Args a) {
 
 template <typename T, int DH, bool PAGED>
 cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
-  const size_t smem = smem_bytes<T, DH>(a.nq, a.chunk_len);
+  const size_t smem = smem_bytes<T, DH>(a.nq, a.qpk, a.chunk_len);
   cudaError_t err = cudaFuncSetAttribute(dense_verify<T, DH, PAGED>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
@@ -491,20 +499,20 @@ cudaError_t launch_dh(const Args& a, int dh, void* out, cudaStream_t stream) {
 extern "C" {
 
 // Shared memory (bytes) a block of the bf16 (is_bf16 = 1) or f32 body takes
-// at this dh, nq and chunk length: the wrapper's chunk plan keeps the bf16
-// body at two blocks per SM.
-int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int chunk_len) {
+// at this dh, nq, qpk and chunk length: the wrapper's chunk plan keeps the
+// bf16 body at two blocks per SM up to 5 queries a block (q_per_kv >= 4).
+int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk_len) {
   if (dh == 64)
-    return static_cast<int>(is_bf16 ? smem_bytes<bf16, 64>(nq, chunk_len)
-                                    : smem_bytes<float, 64>(nq, chunk_len));
-  return static_cast<int>(is_bf16 ? smem_bytes<bf16, 128>(nq, chunk_len)
-                                  : smem_bytes<float, 128>(nq, chunk_len));
+    return static_cast<int>(is_bf16 ? smem_bytes<bf16, 64>(nq, qpk, chunk_len)
+                                    : smem_bytes<float, 64>(nq, qpk, chunk_len));
+  return static_cast<int>(is_bf16 ? smem_bytes<bf16, 128>(nq, qpk, chunk_len)
+                                  : smem_bytes<float, 128>(nq, qpk, chunk_len));
 }
 
 // Both entry points take this argument list and return a cudaError_t (0 =
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
-// (0); bias f32.  Limits: dh 64 or 128, 1 <= nq <= 8, 1 <= qpk <= 8,
+// (0); bias f32.  Limits: dh 64 or 128, nq >= 1, 1 <= qpk <= 8,
 // chunk_len a multiple of 32 up to 512 and n_chunks = ceil((S + nq) /
 // chunk_len); ring and pool row indices below 2^31; the pool takes a page
 // table (B, S / page_size) int32 with page_size dividing S, the ring none.
@@ -517,13 +525,14 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int chunk_len) {
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, B, S, Hkv, nq,   \
            qpk, n_chunks, chunk_len, page_size, n_pages, scale};                           \
     const long long rows = (PAGED) ? (long long)n_pages * page_size : (long long)B * S;   \
-    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128) || nq < 1 || nq > 8 ||  \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128) || nq < 1 ||             \
+        (long long)nq * qpk > (1 << 20) || (long long)S + nq >= (1LL << 31) ||             \
         qpk < 1 || qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||    \
         k_self == nullptr || v_self == nullptr || chunk_len < TC || chunk_len > CH_MAX ||  \
         chunk_len % TC != 0 || n_chunks != (S + nq + chunk_len - 1) / chunk_len ||         \
         rows >= (1LL << 31) || (ptab != nullptr) != (PAGED) ||                             \
         ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)) ||               \
-        recalkv_dense_decode_mq_smem(is_bf16, dh, nq, chunk_len) > 232448)                 \
+        recalkv_dense_decode_mq_smem(is_bf16, dh, nq, qpk, chunk_len) > 232448)            \
       return static_cast<int>(cudaErrorInvalidValue);                                      \
     cudaStream_t st = static_cast<cudaStream_t>(stream);                                   \
     return static_cast<int>(is_bf16 ? launch_dh<bf16, PAGED>(a, dh, out, st)               \

@@ -31,6 +31,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: dict[str, ctypes.CDLL] = {}
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -124,14 +125,17 @@ def ptxas_summary(log: str) -> list[dict]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``name``, building it first if needed."""
-    lib = _LOADED.get(name)
-    if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all((name,))
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
+    """The loaded library for ``name``, building it first if needed (one
+    thread at a time: the overlapped engine prefills on a worker thread
+    while its main thread decodes)."""
+    with _LOAD_LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path = library_path(name)
+            if not path.exists():
+                build_all((name,))
+            lib = ctypes.CDLL(str(path))
+            _LOADED[name] = lib
     return lib
 
 

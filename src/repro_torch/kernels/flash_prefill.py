@@ -16,6 +16,7 @@ values are the latent groups, Hv = G and dv = r_v.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
@@ -82,7 +83,8 @@ def _launch(q, k, v, causal, window, scale):
         0 if window is None else int(window), float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, "flash_prefill")
-    flash_prefill_attention.launches += 1
+    with _COUNT_LOCK:   # the overlapped engine prefills on two threads
+        flash_prefill_attention.launches += 1
     return out
 
 
@@ -100,3 +102,4 @@ def flash_prefill_attention(q, k, v, *, causal=True, window=None, scale=None):
 
 
 flash_prefill_attention.launches = 0
+_COUNT_LOCK = threading.Lock()

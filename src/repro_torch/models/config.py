@@ -216,9 +216,19 @@ class ModelConfig:
         return cls(**d)
 
 
-def check_supported(cfg: ModelConfig) -> None:
+# Widths every hand-written Hopper body takes (csrc/flash_prefill.cu
+# ``supports``, kernels/latent_decode.py's tensor-core limits,
+# kernels/dense_decode.py ``launch``): head dim, and query heads per kv head.
+KERNEL_D_HEADS = (64, 128)
+KERNEL_MAX_Q_PER_KV = 8
+
+
+def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port's model
-    functions do not cover yet (see ROADMAP.md, Queue 1)."""
+    functions do not cover yet (see ROADMAP.md, Queue 1).  On a CUDA
+    ``device`` with the kernel backend it also refuses widths no Hopper
+    body serves (ROADMAP.md, Queue 3 item 2); the CPU's plain versions
+    serve every width."""
     missing = []
     for name in ("moe", "mla", "mamba", "rglru"):
         if getattr(cfg, name) is not None:
@@ -231,3 +241,12 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)}")
+    if (device is not None and torch.device(device).type == "cuda"
+            and cfg.attn_backend == "kernel"):
+        qpk = cfg.num_heads // max(cfg.num_kv_heads, 1)
+        if cfg.d_head not in KERNEL_D_HEADS or qpk > KERNEL_MAX_Q_PER_KV:
+            raise NotImplementedError(
+                f"{cfg.name}: d_head {cfg.d_head}, q_per_kv {qpk}: the CUDA "
+                f"kernels take d_head in {KERNEL_D_HEADS} and q_per_kv <= "
+                f"{KERNEL_MAX_Q_PER_KV} (ROADMAP.md Queue 3 item 2); serve it "
+                f"with backend='einsum' or on the CPU")

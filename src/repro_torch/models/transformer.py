@@ -213,7 +213,9 @@ def wipe_pages(caches: list, pages: torch.Tensor) -> list:
     under pos = -1 are never read.  The null page 0 may appear (its pos
     is -1 already)."""
     for cache in caches:
-        cache["self"]["pos"][pages.long()] = -1
+        # a fill, not ``pos[pages] = -1``: assigning a Python scalar through
+        # an index copies it from the host and waits for the device
+        cache["self"]["pos"].index_fill_(0, pages.long(), -1)
     return caches
 
 

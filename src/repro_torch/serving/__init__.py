@@ -1,5 +1,6 @@
-"""Serving: scheduler (admission) / sampler (token choice) / engine
-(executor with the multi-token decode window), synchronous ring path."""
+"""Serving: scheduler (admission) / sampler (token choice) / pipeline (the
+overlapped engine's workers and records) / engine (executor with the
+multi-token decode window, synchronous or overlapped)."""
 
 from repro_torch.serving.engine import Engine
 from repro_torch.serving.policy import AdmissionPolicy, FifoPolicy, get_policy

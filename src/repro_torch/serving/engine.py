@@ -1,6 +1,6 @@
 """Executor: slot-based batching over the KV cache (dense or latent) — a
 ring per slot or a paged pool shared by all slots — with a multi-token decode window
-(port of the synchronous path of ``repro.serving.engine``).
+(port of ``repro.serving.engine``).
 
 One window runs ``sync_every`` decode steps with the loop state
 (last token, cur, active mask, ingest buffer, budgets) held as device
@@ -48,13 +48,42 @@ The dense cache (``cfg.recalkv is None``) runs every path above: its
 leaves {"k", "v", "pos"} move through the same leaf-generic ring and page
 code (admission scatters, copy-on-write forks, wipes, preemption).
 
-Not ported yet (see ROADMAP.md): overlapped / continuous / AOT serving,
-adaptive speculation depth, meshes.
+Overlapped serving (``overlap=True``): up to ``pipeline_depth`` windows
+are in flight on the device; the loop state (the "carry") stays on the
+device from window to window, and admissions, refills, page top-ups and
+degradations reach it as row scatters queued behind the in-flight
+windows.  The host waits only for the trailing window's packed status
+(one small host copy), token crediting runs on a backlog thread
+(``pipeline.TokenBacklog``), and with ``admission_thread`` the wave prefill
+and first-token sample run on a worker thread and, on a card, on its own
+CUDA stream (``pipeline.AdmissionWorker``); the merge on the main stream
+waits on that stream's event.  Streams equal the sync engine's token for
+token.
+
+``aot=True`` is the port's counterpart of compiling the window ahead of
+time: on a card, construction builds every kernel the window runs, warms
+one window iteration on a side stream and captures it as a CUDA graph
+over static state buffers, once for greedy and once for sampled windows
+(a verify iteration holds the draft's steps).  A window is then
+``sync_every`` replays of the captured iteration instead of thousands of
+kernel launches from Python; prefill stays eager (its shapes are
+bucketed).  A capture or replay that fails raises: no path falls back to
+the eager window.  On the CPU ``aot`` captures nothing.
+
+``adaptive_spec=True`` degrades a slot to plain decode at a window
+boundary once its draft has proposed ``ADAPTIVE_MIN_PROPOSED`` tokens with
+an accept rate under ``ADAPTIVE_ACCEPT_FLOOR``; streams do not change.
+
+Not ported yet (see ROADMAP.md): continuous batching (the device staging
+queue and in-window slot swap, ``continuous`` / ``staging_depth``),
+meshes.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 import time
 import warnings
 from collections import deque
@@ -63,6 +92,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.models import kv_cache as KC
 from repro_torch.models import transformer as T
@@ -71,6 +101,9 @@ from repro_torch.serving import draft as D
 from repro_torch.serving import sampler as S
 from repro_torch.serving.draft import DraftSpec
 from repro_torch.serving.pages import PagePool, PrefixRegistry, prefix_key
+from repro_torch.serving.pipeline import (AdmissionWorker, InflightWindow,
+                                          PreemptedRecord, StagedWave,
+                                          TokenBacklog)
 from repro_torch.serving.policy import AdmissionPolicy, get_policy
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
@@ -109,17 +142,16 @@ def _merge_slot_paged(pool_cache: list, new_cache: list, rows, cols, phys,
 
 
 @dataclasses.dataclass
-class PreemptedRecord:
-    """What re-admits a preempted slot: its window-state row at eviction,
-    the un-ingested prompt tail, and the pages it held with their alloc
-    stamps (an unchanged stamp proves the page still holds its content)."""
+class CapturedWindow:
+    """One captured window iteration (``aot`` on a card): the graph, the
+    kernel launches recorded into it (by wrapper name; the wrappers count
+    at capture, a replay runs them all again), its replays and its capture
+    seconds."""
 
-    req: Request
-    host_row: dict            # state leaf name -> the slot's row (numpy)
-    pending: np.ndarray       # un-ingested prompt tail
-    pages: list[int]          # physical pages held at eviction
-    stamps: list[int]         # pool alloc stamp per page at eviction
-    cur: int                  # tokens fed (cache positions written)
+    graph: Any                 # torch.cuda.CUDAGraph
+    launches: dict             # wrapper name -> launches per replay
+    replays: int = 0
+    seconds: float = 0.0
 
 
 def _bucket(n: int, cap: int) -> int:
@@ -143,8 +175,19 @@ class Engine:
     admission order ("fifo", "prefix-affinity", "reach-packing");
     ``pin_prefixes`` keeps the K most-hit prefix pages out of recycling;
     ``lazy_pages`` reserves pages as decoding reaches them and preempts
-    when the pool runs dry.  ``device`` defaults to ``cuda``; ``params``
-    must already live there (see ``models.weights``)."""
+    when the pool runs dry.  ``overlap`` keeps ``pipeline_depth`` windows
+    in flight (token handling on a backlog thread, admission prefill on a
+    worker thread with ``admission_thread``, on by default under overlap);
+    ``aot`` captures the window iteration as CUDA graphs at construction
+    (a card only); ``adaptive_spec`` degrades cold-draft slots to plain
+    decode; ``profile`` records a timeline of the host boundary's stages.
+    ``device`` defaults to ``cuda``; ``params`` must already live there
+    (see ``models.weights``)."""
+
+    # adaptive speculation: degrade a slot once it has proposed at least
+    # MIN_PROPOSED draft tokens with an accept rate below ACCEPT_FLOOR
+    ADAPTIVE_MIN_PROPOSED = 8
+    ADAPTIVE_ACCEPT_FLOOR = 0.25
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
                  max_len: int, backend: str | None = None,
@@ -154,7 +197,11 @@ class Engine:
                  spec_depth: int = 0, draft: str | DraftSpec | None = None,
                  cache_layout: str = "ring", page_size: int | None = None,
                  n_pages: int | None = None, pin_prefixes: int = 0,
-                 lazy_pages: bool = False, device=None):
+                 lazy_pages: bool = False, overlap: bool = False,
+                 aot: bool = False, pipeline_depth: int = 2,
+                 admission_thread: bool | None = None,
+                 adaptive_spec: bool = False, profile: bool = False,
+                 device=None):
         if backend is not None:
             cfg = dataclasses.replace(cfg, attn_backend=backend)
         if sync_every < 1:
@@ -166,7 +213,19 @@ class Engine:
             raise ValueError(
                 f"draft={draft!r} requires spec_depth > 0 — a draft with "
                 f"no speculation depth would be silently ignored")
-        check_supported(cfg)
+        if pipeline_depth < 1:
+            raise ValueError("pipeline_depth must be >= 1")
+        if pipeline_depth != 2 and not overlap:
+            raise ValueError("pipeline_depth is the overlapped engine's "
+                             "in-flight window budget; set overlap=True")
+        if admission_thread and not overlap:
+            raise ValueError("admission_thread requires overlap=True (the "
+                             "sync engine admits inline by definition)")
+        if adaptive_spec and spec_depth == 0:
+            raise ValueError("adaptive_spec degrades speculative depth "
+                             "per slot; it needs spec_depth > 0")
+        self.device = resolve_device(device)
+        check_supported(cfg, self.device)
         page_size, n_pages = self._check_layout(
             cfg, max_slots, max_len, cache_layout, page_size, n_pages)
         resolved_policy = get_policy(policy)
@@ -189,7 +248,6 @@ class Engine:
                     "lazy_pages is incompatible with the layer-fraction "
                     "draft: the draft's slot-major ring is not paged, so "
                     "a preempted slot's draft state cannot be rebuilt")
-        self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
@@ -249,6 +307,10 @@ class Engine:
             # fed-token history: the n-gram draft's corpus, seeded with the
             # whole prompt at admission and extended as tokens are fed
             self._st["hist"] = np.zeros((max_slots, max_len), np.int64)
+        if adaptive_spec:
+            # per-slot speculation gate: a degraded slot proposes nothing
+            # and rides the window as plain decode
+            self._st["spec_on"] = np.ones(max_slots, bool)
         if self._pages is not None:
             # slot page -> physical page; unmapped entries point at the
             # null page 0, whose pos -1 masks them.  int32 on the device,
@@ -273,6 +335,57 @@ class Engine:
         self.preemptions = 0         # slots evicted by lazy reservation
         self._preempted: deque[PreemptedRecord] = deque()
         self._prefix_hits: dict[int, int] = {}   # page -> registry hits
+        self.windows_idle = 0        # harvested windows that emitted nothing
+        self.spec_degraded = 0       # slots degraded to plain decode
+        self._spec_acc = np.zeros(max_slots, np.int64)
+        self._spec_prop = np.zeros(max_slots, np.int64)
+        # the backlog worker shares the token and ttft counters
+        self._mlock = threading.Lock()
+
+        # -- overlapped pipeline (inert when overlap=False) ---------------
+        self.overlap = bool(overlap)
+        self.aot = bool(aot)
+        self.pipeline_depth = pipeline_depth
+        self.adaptive_spec = bool(adaptive_spec)
+        self.admission_thread = (self.overlap if admission_thread is None
+                                 else bool(admission_thread))
+        self.profile = bool(profile)
+        # prefilled-but-unmerged look-ahead, the JAX engine's default
+        # staging_depth
+        self._staging_depth = 2 * max_slots
+        self._inflight: deque[InflightWindow] = deque()
+        self._st_dev: dict[str, torch.Tensor] | None = None   # device carry
+        self._dispatch_index = 0             # windows dispatched so far
+        self._overlapped_windows = 0         # dispatched before prior done
+        # per-slot dispatch-index watermarks: a harvested status is stale
+        # for a slot (re)admitted or refilled at a later boundary
+        self._slot_epoch = np.zeros(max_slots, np.int64)
+        self._buf_epoch = np.zeros(max_slots, np.int64)
+        self._backlog = TokenBacklog() if self.overlap else None
+        self._sched_lock = threading.Lock()
+        self._staged_waves: deque[StagedWave] = deque()
+        self._prof = {k: 0.0 for k in ("dispatch", "harvest", "bookkeep",
+                                       "admission_stage", "backlog_drain")}
+        self._prof_events: list[dict] = []
+        self._prof_t0 = time.perf_counter()
+        self._admission: AdmissionWorker | None = None
+        self._adm_stream = None
+        if self.overlap and self.admission_thread:
+            if self.device.type == "cuda":
+                self._adm_stream = torch.cuda.Stream(self.device)
+                # the worker's first prefill reads weights made on this stream
+                self._adm_stream.wait_stream(torch.cuda.current_stream(self.device))
+            self._admission = AdmissionWorker(
+                self._take_staged_locked,
+                lambda reqs: self._prepare_wave(reqs, self._adm_stream))
+        # aot: the window iteration captured as CUDA graphs over static
+        # state buffers (``_gst``) and window outputs (``_gout``)
+        self.captures = 0
+        self.capture_seconds = 0.0
+        self._graphs: dict[str, CapturedWindow] = {}
+        self._gst = self._gout = self._gk = None
+        if self.aot and self.device.type == "cuda":
+            self._capture()
 
     @staticmethod
     def _check_layout(cfg, max_slots, max_len, cache_layout, page_size,
@@ -311,8 +424,8 @@ class Engine:
     def from_artifact(cls, path: str, *, max_slots: int, max_len: int,
                       device=None, **kw) -> "Engine":
         """Boot an engine from a compression artifact either package
-        saved (other keywords, the paged pool's included, as on the
-        constructor)."""
+        saved (other keywords, the paged pool's and the overlapped
+        engine's included, as on the constructor)."""
         from repro_torch.api import load_artifact
 
         art = load_artifact(path, device=device)
@@ -322,17 +435,55 @@ class Engine:
     # -- admission ----------------------------------------------------------
 
     def submit(self, req: Request) -> Request:
-        return self.scheduler.submit(req)
+        with self._sched_lock:
+            self.scheduler.submit(req)
+        if self._admission is not None:
+            self._admission.kick(self._staging_capacity())
+        return req
 
     def _record_token(self, req: Request, tok: int):
+        """Credit one token: append, stamp the first token's time, fire the
+        stream callback.  Runs on the main thread (sync engine) or the
+        backlog worker (overlapped engine), never both."""
         req.out_tokens.append(tok)
         if req.first_token_at is None:
             req.first_token_at = time.perf_counter()
             if req.submitted_at is not None:
-                self._ttft_sum += req.first_token_at - req.submitted_at
-                self._ttft_n += 1
+                with self._mlock:
+                    self._ttft_sum += req.first_token_at - req.submitted_at
+                    self._ttft_n += 1
         if req.on_token is not None:
             req.on_token(req, tok)
+
+    # -- host <-> device ------------------------------------------------------
+
+    def _dev(self, x) -> torch.Tensor:
+        """A host array (or list) as a tensor on the engine's device: a
+        copy on the CPU; on a card an asynchronous copy from pinned memory
+        on the current stream, so the host never waits for the windows in
+        flight."""
+        t = torch.from_numpy(np.array(x))
+        if self.device.type != "cuda":
+            return t
+        return t.pin_memory().to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _host(t: torch.Tensor) -> torch.Tensor:
+        """A device tensor's host copy: on a card an asynchronous copy into
+        pinned memory, valid once an event recorded after it has passed;
+        on the CPU a copy."""
+        if t.device.type == "cuda":
+            return t.to("cpu", non_blocking=True)
+        return t.clone()
+
+    def _event(self, stream=None):
+        """An event recorded on ``stream`` (default: the current one), or
+        None on the CPU, where work is done when it returns."""
+        if self.device.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(stream or torch.cuda.current_stream(self.device))
+        return ev
 
     def _finish(self, slot: int):
         self.finished.append(self.scheduler.slot_req[slot])
@@ -352,11 +503,15 @@ class Engine:
             st["ptab"][slot] = 0
 
     def _prefill(self, cfg, params, toks: np.ndarray, lens: np.ndarray):
-        return T.prefill(cfg, params, torch.as_tensor(toks, device=self.device),
-                         torch.as_tensor(lens, device=self.device), self.max_len)
+        return T.prefill(cfg, params, self._dev(toks), self._dev(lens), self.max_len)
+
+    def _count_prefill(self):
+        """One admission or rebuild prefill (any thread)."""
+        with self._mlock:
+            self.prefill_calls += 1
 
     def _wipe(self, pages: list[int]):
-        T.wipe_pages(self.cache, torch.as_tensor(pages, device=self.device))
+        T.wipe_pages(self.cache, self._dev(np.asarray(pages, np.int64)))
 
     # -- paged admission -----------------------------------------------------
 
@@ -370,10 +525,13 @@ class Engine:
 
     @property
     def _headroom(self) -> int:
-        """Tokens a slot can advance in one window (one fed or sampled
-        token plus up to ``spec_depth`` accepted drafts per iteration): how
-        far past ``cur`` lazy reservation maps before the next top-up."""
-        return self.sync_every * (self.spec_depth + 1)
+        """How far past its last boundary-visible ``cur`` a slot can advance
+        before the next top-up: one fed or sampled token plus up to
+        ``spec_depth`` accepted drafts per iteration, over every window that
+        can be in flight when one is dispatched (the trailing harvest lags
+        by up to ``pipeline_depth`` windows, plus the new one)."""
+        per_window = self.sync_every * (self.spec_depth + 1)
+        return per_window * ((self.pipeline_depth + 1) if self.overlap else 1)
 
     def _admit_need(self, req: Request, first_len: int) -> int:
         """Pages admission maps up front: the whole reach (eager), or the
@@ -532,36 +690,50 @@ class Engine:
         ``first_lens`` entry set to the shared coverage.  Returns the (W, V)
         logits, or None for a wave with no prefill row."""
         reqs = [r for _, r in wave]
-        t = lambda x: torch.as_tensor(x, device=self.device)
-        logits = new_cache = None
+        logits = new_cache = dnew = None
         if w:
             toks, lens = self._bucket_prompts(reqs, first_lens, rows, w)
-            self.prefill_calls += 1
+            self._count_prefill()
             logits, new_cache = self._prefill(self.cfg, self.params, toks, lens)
+            if self.draft_cache is not None:
+                _, dnew = self._prefill(self.draft_cfg, self.draft_params, toks, lens)
+        first_lens[:] = self._merge_prefill(
+            [(s, r, ri, fl) for (s, r), ri, fl in zip(wave, rows, first_lens)],
+            new_cache, dnew)
+        return logits
+
+    def _merge_prefill(self, entries, new_cache, draft_new_cache) -> list[int]:
+        """Merge prefill rows into the cache, in place.  ``entries`` are
+        (slot, request, prefill row or -1, first_len): ring slots take their
+        rows; the pool maps each request's pages and takes the non-shared
+        ones, and a skip member (row -1) binds resident pages instead.  The
+        layer draft's ring takes the same rows (a skip member's draft ring
+        keeps stale content, which costs acceptance, never correctness).
+        Returns the first_lens, a skip member's set to its shared coverage."""
+        t = self._dev
+        lens = [fl for *_, fl in entries]
         if self._pages is None:
-            _merge_slot(self.cache, new_cache, t([s for s, _ in wave]))
+            # the ring never skips
+            _merge_slot(self.cache, new_cache, t([s for s, *_ in entries]),
+                        rows=t([ri for _, _, ri, _ in entries]))
         else:
             rws, cols, phys = [], [], []
-            for i, (slot, r) in enumerate(wave):
-                if rows[i] < 0:
-                    first_lens[i] = self._assign_shared_pages(slot, r)
+            for i, (slot, r, ri, fl) in enumerate(entries):
+                if ri < 0:
+                    lens[i] = self._assign_shared_pages(slot, r)
                     continue
-                mapping, scat = self._assign_pages(slot, r, first_lens[i])
-                rws += [rows[i]] * len(scat)
+                mapping, scat = self._assign_pages(slot, r, fl)
+                rws += [ri] * len(scat)
                 cols += scat
                 phys += [mapping[j] for j in scat]
             if phys:
-                _merge_slot_paged(self.cache, new_cache, t(rws), t(cols),
-                                  t(phys), self.page_size)
-        if self.draft_cache is not None and w:
-            # the layer draft consumes the same wave so its ring tracks the
-            # target's; a skip member's draft ring keeps stale content,
-            # which costs acceptance, never correctness
-            _, dnew = self._prefill(self.draft_cfg, self.draft_params, toks, lens)
-            _merge_slot(self.draft_cache, dnew,
-                        t([s for (s, _), ri in zip(wave, rows) if ri >= 0]),
-                        rows=t([ri for ri in rows if ri >= 0]))
-        return logits
+                _merge_slot_paged(self.cache, new_cache, t(rws), t(cols), t(phys),
+                                  self.page_size)
+        pre = [(s, ri) for s, _, ri, _ in entries if ri >= 0]
+        if draft_new_cache is not None and pre:
+            _merge_slot(self.draft_cache, draft_new_cache, t([s for s, _ in pre]),
+                        rows=t([ri for _, ri in pre]))
+        return lens
 
     def _admit(self):
         """Synchronous admission: take a wave (page-budget gated on the
@@ -576,27 +748,13 @@ class Engine:
             return
         reqs = [r for _, r in wave]
         first_lens = [self.scheduler.first_chunk_len(r) for r in reqs]
-        rows, w = [], 0
-        for r in reqs:
-            skip = self._skip_prefill(r)
-            rows.append(-1 if skip else w)
-            w += not skip
+        rows, w = self._skip_rows(reqs)
         logits = self._admit_prefill(wave, first_lens, rows, w)
         specs = [r.sampling or self.sampling for r in reqs]
         keys0 = np.stack([sp.slot_key(r.uid) for sp, r in zip(specs, reqs)])
         keys0 = keys0.astype(np.int64)
         if logits is not None:
-            dev = self.device
-            pre = [i for i, ri in enumerate(rows) if ri >= 0]
-            ks = S.split_keys(torch.as_tensor(keys0[pre], device=dev))
-            first = S.sample_tokens(
-                logits[:len(pre)],
-                torch.tensor([specs[i].temperature for i in pre],
-                             dtype=torch.float32, device=dev),
-                torch.tensor([specs[i].top_k for i in pre], device=dev),
-                torch.tensor([specs[i].top_p for i in pre], dtype=torch.float32,
-                             device=dev),
-                ks[:, 1], any_sampled=not all(specs[i].greedy for i in pre))
+            ks, first = self._sample_first(logits, keys0, specs, rows)
             first, ks = first.cpu().numpy(), ks.cpu().numpy()
             self.host_syncs += 1
             self.admission_syncs += 1
@@ -615,9 +773,29 @@ class Engine:
                 if r.done:
                     self._finish(slot)
 
+    def _sample_first(self, logits, keys0, specs, rows):
+        """The first token of every prefill row, drawn with the slot's first
+        key split as the decode window would draw it.  Returns the (W, 2, 2)
+        split keys and the (W,) tokens, on the device."""
+        pre = [i for i, ri in enumerate(rows) if ri >= 0]
+        ks = S.split_keys(self._dev(keys0[pre]))
+        first = S.sample_tokens(
+            logits[:len(pre)],
+            self._dev(np.array([specs[i].temperature for i in pre], np.float32)),
+            self._dev(np.array([specs[i].top_k for i in pre], np.int64)),
+            self._dev(np.array([specs[i].top_p for i in pre], np.float32)),
+            ks[:, 1], any_sampled=not all(specs[i].greedy for i in pre))
+        return ks, first
+
     def _admit_bookkeep(self, slot: int, r: Request, sp: SamplingParams,
                         first_len: int):
         st = self._st
+        if "spec_on" in st:
+            # degradation is per request: a fresh admission gets the draft
+            # back, with clean accept / propose counts
+            st["spec_on"][slot] = True
+        self._spec_acc[slot] = 0
+        self._spec_prop[slot] = 0
         st["cur"][slot] = first_len
         st["eos"][slot] = -1 if r.eos_id is None else r.eos_id
         st["temp"][slot] = sp.temperature
@@ -693,6 +871,9 @@ class Engine:
             self._slot_pages[slot].extend(own)
             st["ptab"][slot, have: have + len(own)] = own
             self._wipe(own)
+            if self.overlap:
+                self._ensure_dev_state()
+                self._scatter_rows([slot], {"ptab": st["ptab"][slot][None]})
         self._update_pins()
 
     def _make_room(self, slot: int, need: int) -> bool:
@@ -720,17 +901,35 @@ class Engine:
                        and self._st["act"][slot])
         return [(slot, self.scheduler.slot_req[slot]) for _, slot in cands]
 
-    def _preempt_slot(self, slot: int):
+    def _preempt_slot(self, slot: int) -> bool:
         """Evict a running slot: record its state row and pages, register
-        its fully written prompt pages, free its pages, park the request."""
+        its fully written prompt pages, free its pages, park the request.
+        Under overlap the row comes from the device carry, which waits for
+        every dispatched window (the pipeline's one deliberate full sync),
+        so it holds all their effects; their tokens still reach the stream
+        in dispatch order through the backlog.  False when the slot had
+        already finished on the device (it retires at its harvest)."""
+        if self.overlap:
+            self._ensure_dev_state()
+            row = {k: v[slot].cpu().numpy().copy() for k, v in self._st_dev.items()}
+        else:
+            row = {k: np.array(v[slot]) for k, v in self._st.items()}
+        if not bool(row["act"]):
+            return False
+        if self.overlap:
+            # windows dispatched from here on skip the slot; in-flight
+            # statuses are stale for it
+            self._st_dev["act"][slot].fill_(False)
+            self._slot_epoch[slot] = self._dispatch_index
+            self._buf_epoch[slot] = self._dispatch_index
         st = self._st
-        row = {k: np.array(v[slot]) for k, v in st.items()}
         st["act"][slot] = False
         st["avail"][slot] = 0
         st["bpos"][slot] = 0
         st["more"][slot] = False
         st["left"][slot] = 0
-        req, pending = self.scheduler.preempt(slot)
+        with self._sched_lock:
+            req, pending = self.scheduler.preempt(slot)
         ps = self.page_size
         cur = int(row["cur"])
         pages = list(self._slot_pages[slot])
@@ -744,8 +943,9 @@ class Engine:
         st["ptab"][slot] = 0
         self._preempted.append(PreemptedRecord(
             req=req, host_row=row, pending=pending, pages=pages, stamps=stamps,
-            cur=cur))
+            cur=cur, at=self._dispatch_index))
         self.preemptions += 1
+        return True
 
     def _readmit_preempted(self):
         """Re-seat parked requests, oldest first, while a slot and the pages
@@ -770,7 +970,8 @@ class Engine:
             if pool.free_count - surv_free < len(lost):
                 return
             slot = free[0]
-            self.scheduler.place(slot, rec.req)
+            with self._sched_lock:
+                self.scheduler.place(slot, rec.req)
             # claim every survivor first: allocating a replacement earlier
             # could recycle a survivor out from under its flag
             mapping = list(rec.pages)
@@ -797,6 +998,11 @@ class Engine:
                 st[k][slot] = v
             self._bind_pages(slot, mapping)
             self.scheduler.set_pending(slot, np.asarray(rec.pending, np.int64))
+            if self.overlap:
+                self._ensure_dev_state()
+                self._scatter_rows([slot], {k: v[slot][None] for k, v in st.items()})
+                self._slot_epoch[slot] = self._dispatch_index
+                self._buf_epoch[slot] = self._dispatch_index
             self._update_pins()
             self._preempted.popleft()
 
@@ -805,21 +1011,27 @@ class Engine:
         (cache content at position t is a function of the tokens fed up to
         t) and scatter just the lost pages.  The fed tokens are the
         speculative window's ``hist``, or the prompt plus the emitted
-        tokens."""
+        tokens: under overlap the windows dispatched before the eviction
+        are harvested and the backlog drained first, since they emitted
+        some of those tokens."""
         cur = rec.cur
         if "hist" in rec.host_row:
             fed = np.asarray(rec.host_row["hist"][:cur], np.int64)
         else:
+            while self._inflight and self._inflight[0].index < rec.at:
+                self._harvest_trailing()
+            if self._backlog is not None and self._backlog.started:
+                self._backlog.flush()
             prompt = np.asarray(rec.req.prompt, np.int64)
             P = len(prompt)
             gen = np.asarray(rec.req.out_tokens[: max(cur - P, 0)], np.int64)
             fed = np.concatenate([prompt[: min(cur, P)], gen])
         toks = np.zeros((1, _bucket(cur, self.max_len)), np.int64)
         toks[0, :cur] = fed
-        self.prefill_calls += 1
+        self._count_prefill()
         _, new_cache = self._prefill(self.cfg, self.params, toks,
                                      np.array([cur], np.int64))
-        t = lambda x: torch.as_tensor(x, device=self.device)
+        t = self._dev
         _merge_slot_paged(self.cache, new_cache, t([0] * len(rebuild)),
                           t(rebuild), t([mapping[j] for j in rebuild]),
                           self.page_size)
@@ -856,39 +1068,33 @@ class Engine:
         last_prompt = feeding & ~st["more"] & (st["bpos"] + 1 >= st["avail"])
         return feeding, tok_in, stepping, last_prompt
 
-    def _window(self, st: dict[str, torch.Tensor], any_sampled: bool):
-        """``sync_every`` decode steps on device state.  Per step and slot:
-        pick the fed token, one batched decode_step (inactive and stalled
-        rows write nothing), sample, update emit / termination flags; the
-        key advances only where the slot emitted."""
-        cfg = self.cfg
-        toks, emits, n_act = [], [], []
-        for _ in range(self.sync_every):
-            feeding, tok_in, stepping, last_prompt = self._feed(st)
-            logits, self.cache = T.decode_step(cfg, self.params, self.cache,
-                                               tok_in, st["cur"], stepping,
-                                               pages=self._pages_of(st))
-            sampled, keys2 = self._sample(st, st["keys"], logits, any_sampled)
-            emit = stepping & (~feeding | last_prompt)
-            cur2 = st["cur"] + stepping.to(st["cur"].dtype)
-            left2 = st["left"] - emit.to(st["left"].dtype)
-            # ring-cap stop: cur2 == max_len means this step wrote the last
-            # ring position — the NEXT write would wrap and evict position
-            # 0.  (Not max_len - 1: that fired one step early on the ingest
-            # path, costing cap-length chunked prompts their final token.)
-            done = ((emit & ((sampled == st["eos"]) | (left2 <= 0)))
-                    | (stepping & (cur2 >= self.max_len)))
-            st = {**st,
-                  "tok": torch.where(emit, sampled, st["tok"]),
-                  "cur": cur2,
-                  "act": st["act"] & ~done,
-                  "keys": torch.where(emit[:, None], keys2, st["keys"]),
-                  "bpos": st["bpos"] + feeding.to(st["bpos"].dtype),
-                  "left": left2}
-            toks.append(sampled[:, None])
-            emits.append(emit[:, None])
-            n_act.append(stepping.sum())
-        return st, torch.stack(toks), torch.stack(emits), torch.stack(n_act), None
+    def _decode_iter(self, st: dict[str, torch.Tensor], any_sampled: bool):
+        """One decode iteration on device state.  Per slot: pick the fed
+        token, one batched decode_step (inactive and stalled rows write
+        nothing), sample, update emit / termination flags; the key advances
+        only where the slot emitted.  Returns (state, outputs)."""
+        feeding, tok_in, stepping, last_prompt = self._feed(st)
+        logits, self.cache = T.decode_step(self.cfg, self.params, self.cache,
+                                           tok_in, st["cur"], stepping,
+                                           pages=self._pages_of(st))
+        sampled, keys2 = self._sample(st, st["keys"], logits, any_sampled)
+        emit = stepping & (~feeding | last_prompt)
+        cur2 = st["cur"] + stepping.to(st["cur"].dtype)
+        left2 = st["left"] - emit.to(st["left"].dtype)
+        # ring-cap stop: cur2 == max_len means this step wrote the last
+        # ring position — the NEXT write would wrap and evict position
+        # 0.  (Not max_len - 1: that fired one step early on the ingest
+        # path, costing cap-length chunked prompts their final token.)
+        done = ((emit & ((sampled == st["eos"]) | (left2 <= 0)))
+                | (stepping & (cur2 >= self.max_len)))
+        st = {**st,
+              "tok": torch.where(emit, sampled, st["tok"]),
+              "cur": cur2,
+              "act": st["act"] & ~done,
+              "keys": torch.where(emit[:, None], keys2, st["keys"]),
+              "bpos": st["bpos"] + feeding.to(st["bpos"].dtype),
+              "left": left2}
+        return st, {"toks": sampled, "emits": emit, "n_act": stepping.sum()}
 
     def _propose(self, st, cur, tok_in, stepping, speculating, cap_ok):
         """(B, spec_depth) draft proposals.  The layer draft takes depth + 1
@@ -909,90 +1115,186 @@ class Engine:
                 props.append(d_tok)
         return torch.stack(props, dim=1)
 
-    def _spec_window(self, st: dict[str, torch.Tensor], any_sampled: bool):
-        """``sync_every`` speculative rounds.  Per round and slot: propose,
-        one S = spec_depth + 1 token verify_step, then walk the S positions
-        in order — position j's draw (the slot's policy with its next key
-        split) is the token sequential decoding would emit there, so a
-        proposal is accepted iff it matches, and the first mismatch emits
-        the draw and ends the round.  Only the accepted prefix is written
-        to the ring and keys advance once per emitted token.  Ingesting
-        slots keep one token per round: their columns >= 1 are never
-        candidates."""
+    def _spec_iter(self, st: dict[str, torch.Tensor], any_sampled: bool):
+        """One speculative round.  Per slot: propose, one S = spec_depth +
+        1 token verify_step, then walk the S positions in order — position
+        j's draw (the slot's policy with its next key split) is the token
+        sequential decoding would emit there, so a proposal is accepted iff
+        it matches, and the first mismatch emits the draw and ends the
+        round.  Only the accepted prefix is written to the ring and keys
+        advance once per emitted token.  Ingesting slots keep one token per
+        round (their columns >= 1 are never candidates), and so do slots
+        ``adaptive_spec`` degraded.  Returns (state, outputs); the outputs
+        hold the per-slot accepted and proposed draft counts."""
         cfg, S_pos = self.cfg, self.spec_depth + 1
-        out = {"toks": [], "emits": [], "acc": [], "prop": [], "n_act": []}
+        feeding, tok_in, stepping, last_prompt = self._feed(st)
+        speculating = stepping & ~feeding
+        if "spec_on" in st:
+            speculating = speculating & st["spec_on"]
+        cur = st["cur"]
+        js = torch.arange(S_pos, dtype=cur.dtype, device=cur.device)
+        cap_ok = (cur[:, None] + js[None, :]) < self.max_len      # (B, S)
+        props = self._propose(st, cur, tok_in, stepping, speculating, cap_ok)
+        fed = torch.cat([tok_in[:, None], props], dim=1)
+        cand = torch.cat([stepping[:, None],
+                          speculating[:, None] & cap_ok[:, 1:]], dim=1)
+        pages = self._pages_of(st)
+        logits, updates = T.verify_step(cfg, self.params, self.cache, fed,
+                                        cur, cand, pages=pages)
+        keys, tok2 = st["keys"], st["tok"]
+        done_any = torch.zeros_like(st["act"])
+        nemit = torch.zeros_like(cur)
+        valid, emits, toks = [], [], []
+        for j in range(S_pos):
+            if j == 0:
+                valid_j = stepping
+                emit_j = stepping & (~feeding | last_prompt)
+            else:
+                valid_j = (emits[-1] & ~done_any & cand[:, j]
+                           & (fed[:, j] == toks[-1]))
+                emit_j = valid_j
+            s_j, keys2 = self._sample(st, keys, logits[:, j], any_sampled)
+            nemit = nemit + emit_j.to(cur.dtype)
+            done_j = ((emit_j & ((s_j == st["eos"]) | (st["left"] - nemit <= 0)))
+                      | (valid_j & (cur + j + 1 >= self.max_len)))
+            done_any = done_any | done_j
+            keys = torch.where(emit_j[:, None], keys2, keys)
+            tok2 = torch.where(emit_j, s_j, tok2)
+            valid.append(valid_j)
+            emits.append(emit_j)
+            toks.append(s_j)
+        valid = torch.stack(valid, dim=1)                              # (B, S)
+        # commit the accepted prefix (rejected tokens never wrote)
+        T.commit_verify_writes(self.cache, updates, cur, valid, pages=pages)
+        if self.draft_cache is not None:
+            # the draft wrote as it proposed: strike rejected columns from
+            # its position index so they cannot shadow the slot
+            for j in range(1, S_pos):
+                KC.invalidate_positions(self.draft_cache, cur + j,
+                                        cand[:, j] & ~valid[:, j])
+        hist = st["hist"]
+        rows = torch.arange(hist.shape[0], device=hist.device)
+        for j in range(S_pos):
+            pos = (cur + j).clamp(max=hist.shape[1] - 1)
+            hist[rows, pos] = torch.where(valid[:, j], fed[:, j], hist[rows, pos])
+        st = {**st,
+              "tok": tok2,
+              "cur": cur + valid.to(cur.dtype).sum(dim=1),
+              "act": st["act"] & ~done_any,
+              "keys": keys,
+              "bpos": st["bpos"] + feeding.to(st["bpos"].dtype),
+              "left": st["left"] - nemit}
+        # count only real proposals: the n-gram draft pads unknown
+        # positions with -1 (certain rejects)
+        return st, {"toks": torch.stack(toks, dim=1),
+                    "emits": torch.stack(emits, dim=1),
+                    "acc": valid[:, 1:].sum(dim=1),
+                    "prop": (cand[:, 1:] & (fed[:, 1:] >= 0)).sum(dim=1),
+                    "n_act": stepping.sum()}
+
+    def _window(self, st: dict[str, torch.Tensor], any_sampled: bool):
+        """``sync_every`` iterations on device state: replays of the
+        captured iteration (``aot`` on a card: ``st`` must be the static
+        state), else the eager loop.  Returns (state, outputs stacked over
+        the iterations: toks / emits (K, B[, S]), n_act (K,), and for
+        speculation acc / prop (K, B))."""
+        if self._graphs:
+            if st is not self._gst:
+                raise RuntimeError("a captured window runs on the static state")
+            cw = self._graphs["sampled" if any_sampled else "greedy"]
+            self._gk.zero_()
+            for _ in range(self.sync_every):
+                cw.graph.replay()
+            cw.replays += self.sync_every
+            return self._gst, self._gout
+        it = self._spec_iter if self.spec_depth else self._decode_iter
+        ys = []
         for _ in range(self.sync_every):
-            feeding, tok_in, stepping, last_prompt = self._feed(st)
-            speculating = stepping & ~feeding
-            cur = st["cur"]
-            js = torch.arange(S_pos, dtype=cur.dtype, device=cur.device)
-            cap_ok = (cur[:, None] + js[None, :]) < self.max_len      # (B, S)
-            props = self._propose(st, cur, tok_in, stepping, speculating, cap_ok)
-            fed = torch.cat([tok_in[:, None], props], dim=1)
-            cand = torch.cat([stepping[:, None],
-                              speculating[:, None] & cap_ok[:, 1:]], dim=1)
-            pages = self._pages_of(st)
-            logits, updates = T.verify_step(cfg, self.params, self.cache, fed,
-                                            cur, cand, pages=pages)
-            keys, tok2 = st["keys"], st["tok"]
-            done_any = torch.zeros_like(st["act"])
-            nemit = torch.zeros_like(cur)
-            valid, emits, toks = [], [], []
-            for j in range(S_pos):
-                if j == 0:
-                    valid_j = stepping
-                    emit_j = stepping & (~feeding | last_prompt)
-                else:
-                    valid_j = (emits[-1] & ~done_any & cand[:, j]
-                               & (fed[:, j] == toks[-1]))
-                    emit_j = valid_j
-                s_j, keys2 = self._sample(st, keys, logits[:, j], any_sampled)
-                nemit = nemit + emit_j.to(cur.dtype)
-                done_j = ((emit_j & ((s_j == st["eos"]) | (st["left"] - nemit <= 0)))
-                          | (valid_j & (cur + j + 1 >= self.max_len)))
-                done_any = done_any | done_j
-                keys = torch.where(emit_j[:, None], keys2, keys)
-                tok2 = torch.where(emit_j, s_j, tok2)
-                valid.append(valid_j)
-                emits.append(emit_j)
-                toks.append(s_j)
-            valid = torch.stack(valid, dim=1)                          # (B, S)
-            # commit the accepted prefix (rejected tokens never wrote)
-            T.commit_verify_writes(self.cache, updates, cur, valid, pages=pages)
-            if self.draft_cache is not None:
-                # the draft wrote as it proposed: strike rejected columns
-                # from its position index so they cannot shadow the slot
-                for j in range(1, S_pos):
-                    KC.invalidate_positions(self.draft_cache, cur + j,
-                                            cand[:, j] & ~valid[:, j])
-            hist = st["hist"]
-            rows = torch.arange(hist.shape[0], device=hist.device)
-            for j in range(S_pos):
-                pos = (cur + j).clamp(max=hist.shape[1] - 1)
-                hist[rows, pos] = torch.where(valid[:, j], fed[:, j],
-                                              hist[rows, pos])
-            st = {**st,
-                  "tok": tok2,
-                  "cur": cur + valid.to(cur.dtype).sum(dim=1),
-                  "act": st["act"] & ~done_any,
-                  "keys": keys,
-                  "bpos": st["bpos"] + feeding.to(st["bpos"].dtype),
-                  "left": st["left"] - nemit}
-            out["toks"].append(torch.stack(toks, dim=1))
-            out["emits"].append(torch.stack(emits, dim=1))
-            out["acc"].append(valid[:, 1:].sum())
-            # count only real proposals: the n-gram draft pads unknown
-            # positions with -1 (certain rejects)
-            out["prop"].append((cand[:, 1:] & (fed[:, 1:] >= 0)).sum())
-            out["n_act"].append(stepping.sum())
-        return (st, torch.stack(out["toks"]), torch.stack(out["emits"]),
-                torch.stack(out["n_act"]),
-                torch.stack([torch.stack(out["acc"]), torch.stack(out["prop"])]))
+            st, y = it(st, any_sampled)
+            ys.append(y)
+        return st, {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
+
+    def _any_sampled(self) -> bool:
+        """Whether a slot the host believes active samples (a stale active
+        flag only picks the sampled window, which is exact for greedy rows
+        too)."""
+        return bool((self._st["act"] & (self._st["temp"] >= S._TEMP_EPS)).any())
+
+    def _load_state(self) -> dict[str, torch.Tensor]:
+        """The host mirror on the device for one sync window: copied into
+        the static state of the captured window, or fresh tensors."""
+        if not self._graphs:
+            return {k: self._dev(v) for k, v in self._st.items()}
+        for k, v in self._st.items():
+            self._gst[k].copy_(torch.from_numpy(np.array(v)).pin_memory(),
+                               non_blocking=True)
+        return self._gst
+
+    # -- aot: the window iteration as CUDA graphs ---------------------------
+
+    def _cache_ptrs(self) -> list[int]:
+        caches = self.cache + (self.draft_cache or [])
+        return [leaf.data_ptr() for c in caches for leaf in c["self"].values()]
+
+    def _capture(self):
+        """Capture one window iteration as a CUDA graph per variant the
+        engine dispatches (greedy and sampled; a speculative engine's
+        iteration holds the draft's steps and the verify pass) over static
+        state buffers: the iteration reads them, writes its new state back
+        into them and its outputs into row ``_gk`` of the window buffers.
+        The iteration runs eagerly first on a side stream with no slot
+        active (it writes nothing then), which builds every kernel and
+        library handle it needs.  Counts each graph's kernel launches at
+        capture.  Any failure raises."""
+        dev = self.device
+        t_start = time.perf_counter()
+        ptrs = self._cache_ptrs()
+        it = self._spec_iter if self.spec_depth else self._decode_iter
+        self._gst = {k: self._dev(v) for k, v in self._st.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for any_sampled in (False, True):
+                _, y = it(dict(self._gst), any_sampled)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        self._gout = {k: torch.zeros((self.sync_every,) + tuple(v.shape), dtype=v.dtype,
+                                     device=dev) for k, v in y.items()}
+        self._gk = torch.zeros(1, dtype=torch.int64, device=dev)
+        pool = torch.cuda.graph_pool_handle()
+        for variant, any_sampled in (("greedy", False), ("sampled", True)):
+            before = {k.__name__: k.launches for k in kernels.KERNELS}
+            t0 = time.perf_counter()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=pool):
+                st2, y = it(dict(self._gst), any_sampled)
+                for k, v in st2.items():
+                    if v is not self._gst[k]:
+                        self._gst[k].copy_(v)
+                for k, v in y.items():
+                    self._gout[k].index_copy_(0, self._gk, v.unsqueeze(0))
+                self._gk.add_(1)
+            launches = {k.__name__: k.launches - before[k.__name__]
+                        for k in kernels.KERNELS if k.launches != before[k.__name__]}
+            self._graphs[variant] = CapturedWindow(graph, launches,
+                                                   seconds=time.perf_counter() - t0)
+            self.captures += 1
+        torch.cuda.synchronize(dev)
+        if self._cache_ptrs() != ptrs:
+            raise RuntimeError("a cache leaf moved during capture: the graphs "
+                               "would write a stale buffer")
+        self.capture_seconds = time.perf_counter() - t_start
+
+    # -- the synchronous engine ------------------------------------------------
 
     def step(self):
-        """Admit + refill, then run one ``sync_every``-token decode window
-        and harvest it (the step's single host sync).  Idle calls (nothing
-        active, nothing admitted) accrue no wall-clock."""
+        """Admit + refill, then run one ``sync_every``-token decode window.
+        The sync engine harvests it at once (the step's single host sync);
+        the overlapped engine harvests the trailing window and leaves this
+        one in flight.  Idle calls (nothing active, nothing admitted)
+        accrue no wall-clock."""
+        if self.overlap:
+            return self._step_async()
         t0 = time.perf_counter()
         if self._pages is not None:
             self._readmit_preempted()
@@ -1003,31 +1305,31 @@ class Engine:
         if not self._st["act"].any():
             return
         occ, qd = self.scheduler.occupancy, self.scheduler.queue_depth
-        any_sampled = bool((self._st["act"]
-                            & (self._st["temp"] >= S._TEMP_EPS)).any())
-        state = {k: torch.as_tensor(v, device=self.device)
-                 for k, v in self._st.items()}
-        window = self._spec_window if self.spec_depth else self._window
-        self._harvest(*window(state, any_sampled), occ, qd)
+        any_sampled = self._any_sampled()
+        self._harvest(*self._window(self._load_state(), any_sampled), occ, qd)
         self._run_seconds += time.perf_counter() - t0
 
-    def _harvest(self, state, toks, emits, n_act, spec, occ: int, qd: int):
-        """The window's one host sync: mirror state, counters, emitted
-        tokens (toks / emits are (K, B, S) with S = spec_depth + 1; spec
-        holds the window's accepted / proposed draft counts, or None)."""
-        toks = toks.cpu().numpy()
-        emits = emits.cpu().numpy()
+    def _harvest(self, state, ys, occ: int, qd: int):
+        """The sync window's one host sync: mirror state, counters, emitted
+        tokens (toks / emits are (K, B[, S]) with S = spec_depth + 1)."""
+        toks = ys["toks"].cpu().numpy()
+        emits = ys["emits"].cpu().numpy()
+        if toks.ndim == 2:
+            toks, emits = toks[:, :, None], emits[:, :, None]
         self._st = {k: v.cpu().numpy() for k, v in state.items()}
         self.host_syncs += 1
         self.windows += 1
         self.tokens_emitted += int(emits.sum())
         self._occupancy_sum += occ
         self._queue_depth_sum += qd
-        self._act_iters += int(n_act.sum())
-        if spec is not None:
-            acc, prop = spec.sum(dim=1).tolist()
-            self.draft_accepted += acc
-            self.draft_proposed += prop
+        self._act_iters += int(ys["n_act"].sum())
+        if "acc" in ys:
+            acc = ys["acc"].sum(dim=0).cpu().numpy()
+            prop = ys["prop"].sum(dim=0).cpu().numpy()
+            self.draft_accepted += int(acc.sum())
+            self.draft_proposed += int(prop.sum())
+            if self.adaptive_spec:
+                self._adaptive_update(np.ones(self.B, bool), self._st["act"], acc, prop)
         slot_req = self.scheduler.slot_req
         for k in range(toks.shape[0]):
             for j in range(toks.shape[2]):
@@ -1037,18 +1339,47 @@ class Engine:
             if r is not None and not self._st["act"][slot]:
                 self._finish(slot)
 
+    def _adaptive_update(self, ok, act, accs, props):
+        """Fold a window's per-slot accepted / proposed counts into the
+        running ones and degrade cold-draft slots to plain decode.  Sticky
+        per request: ``spec_on`` resets at the next admission."""
+        st = self._st
+        degrade = []
+        for s in range(self.B):
+            if not ok[s]:
+                continue
+            self._spec_acc[s] += int(accs[s])
+            self._spec_prop[s] += int(props[s])
+            if (st["spec_on"][s] and act[s]
+                    and self._spec_prop[s] >= self.ADAPTIVE_MIN_PROPOSED
+                    and self._spec_acc[s]
+                        < self.ADAPTIVE_ACCEPT_FLOOR * self._spec_prop[s]):
+                st["spec_on"][s] = False
+                degrade.append(s)
+        self.spec_degraded += len(degrade)
+        if degrade and self._st_dev is not None:
+            # overlapped engine: the carry lives on the device
+            self._scatter_rows(degrade, {"spec_on": np.zeros(len(degrade), bool)})
+
     def run(self, max_steps: int = 10_000) -> list[Request]:
-        """Drive until drained or ``max_steps`` completed windows.  A stuck
-        load (a request that can never admit) exits via the idle guard."""
+        """Drive until drained or ``max_steps`` completed (harvested)
+        windows, then flush the pipeline and the backlog, so ``finished``
+        streams are whole and ``metrics()`` settled.  A stuck load (a
+        request that can never admit) exits via the idle guard."""
         idle = 0
-        while self.scheduler.has_work:
+        while self.scheduler.has_work or self._inflight:
             if self.windows >= max_steps:
                 break
-            before = (self.windows, self.host_syncs)
+            before = (self.windows, self.host_syncs, self._dispatch_index)
             self.step()
-            idle = 0 if (self.windows, self.host_syncs) != before else idle + 1
+            moved = (self.windows, self.host_syncs, self._dispatch_index) != before
+            # a wave still being prepared (a first prefill may build its
+            # kernels) is progress too: the step waited for it
+            moved |= self._admission is not None and self._admission.busy
+            idle = 0 if moved else idle + 1
             if idle > self.B + 2:
                 break
+        self.flush()
         if self.scheduler.has_work:
             warnings.warn(
                 f"Engine.run stopped after {self.windows} completed windows "
@@ -1057,6 +1388,389 @@ class Engine:
                 f"unfinished (not a drain)", RuntimeWarning, stacklevel=2)
         return self.finished
 
+    # -- the overlapped pipeline ------------------------------------------------
+    #
+    # The carry stays on the device (``_st_dev``: the static state under
+    # aot) with up to ``pipeline_depth`` windows in flight.  At a boundary
+    # the host (1) waits for the trailing window's packed status, retires
+    # finished slots and hands its tokens to the backlog; (2) queues its
+    # admission / refill / top-up decisions onto the carry as row scatters
+    # behind the in-flight windows; (3) dispatches the next window.  The
+    # numpy mirror ``_st`` stays authoritative for host-owned leaves and is
+    # refreshed for act / cur / bpos at harvests, gated by per-slot epochs
+    # (a harvested status is stale for slots touched at later boundaries).
+
+    def _ensure_dev_state(self):
+        if self._st_dev is None:
+            self._st_dev = self._load_state()
+
+    def _scatter_rows(self, slots, host_rows: dict, dev_rows: dict | None = None):
+        """Write per-slot rows into the device carry, in place, behind the
+        windows in flight (host rows through pinned asynchronous copies)."""
+        idx = self._dev(np.asarray(slots, np.int64))
+        st = self._st_dev
+        for k, rows in host_rows.items():
+            st[k][idx] = self._dev(rows).to(st[k].dtype)
+        for k, rows in (dev_rows or {}).items():
+            st[k][idx] = rows.to(st[k].dtype)
+
+    def _staging_capacity(self) -> int:
+        """How many more requests admission may pull off the queue: the
+        prefilled-but-unmerged look-ahead is bounded by ``_staging_depth``."""
+        with self._sched_lock:
+            return max(0, self._staging_depth - len(self.scheduler.staged))
+
+    def _take_staged_locked(self, max_n: int) -> list[Request]:
+        with self._sched_lock:
+            return self.scheduler.take_staged(max_n)
+
+    def _skip_rows(self, reqs) -> tuple[list[int], int]:
+        """Prefill row per request (-1: prefill skipped on resident prefix
+        pages) and the number of prefill rows."""
+        rows, w = [], 0
+        for r in reqs:
+            skip = self._skip_prefill(r)
+            rows.append(-1 if skip else w)
+            w += not skip
+        return rows, w
+
+    def _prepare_wave(self, reqs, stream=None) -> StagedWave:
+        """Stage a wave off the dispatch path: bucket the prompts, prefill
+        them into a fresh cache and sample each row's first token; mutates
+        no scheduler, pool or mirror state, so the admission worker runs it
+        beside the boundary work (on ``stream``, its own, on a card).  The
+        skip decision is a read-only registry probe; the merge re-resolves
+        pages, and drift either way is correct (the rest of the prompt
+        streams through the ingest buffer from wherever coverage ends)."""
+        first_lens = [self.scheduler.first_chunk_len(r) for r in reqs]
+        rows, w = self._skip_rows(reqs)
+        specs = [r.sampling or self.sampling for r in reqs]
+        keys0 = np.stack([sp.slot_key(r.uid) for sp, r in zip(specs, reqs)])
+        keys0 = keys0.astype(np.int64)
+        eos = np.array([-1 if r.eos_id is None else r.eos_id for r in reqs], np.int64)
+        full = np.array([ri >= 0 and fl == len(r.prompt)
+                         for r, fl, ri in zip(reqs, first_lens, rows)], bool)
+        wave = StagedWave(reqs=list(reqs), first_lens=first_lens, specs=specs,
+                          keys0=keys0, eos=eos, full=full, rows=rows)
+        if not w:
+            return wave
+        ctx = (torch.cuda.stream(stream) if stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            toks, lens = self._bucket_prompts(reqs, first_lens, rows, w)
+            self._count_prefill()
+            logits, wave.new_cache = self._prefill(self.cfg, self.params, toks, lens)
+            if self.draft_cache is not None:
+                _, wave.draft_new_cache = self._prefill(self.draft_cfg,
+                                                        self.draft_params, toks, lens)
+            wave.ks, wave.first = self._sample_first(logits, keys0, specs, rows)
+            wave.first_host = self._host(wave.first)
+            wave.ready = self._event(stream)
+        return wave
+
+    def _admit_overlap(self):
+        """Boundary admission: collect prepared waves (from the worker, or
+        prepared inline) and merge them into free slots.  ``host_syncs`` /
+        ``admission_syncs`` tick once per wave at its first merge, keeping
+        host_syncs == windows + admission_syncs."""
+        if self._admission is not None:
+            self._staged_waves.extend(self._admission.poll())
+        else:
+            cap = self._staging_capacity()
+            if cap > 0:
+                reqs = self._take_staged_locked(cap)
+                if reqs:
+                    self._staged_waves.append(self._prepare_wave(reqs))
+        self._place_from_waves()
+        if self._admission is not None:
+            self._admission.kick(self._staging_capacity())
+
+    def _place_from_waves(self):
+        """Merge prepared waves into free slots, head of line first: a wave
+        that does not fully fit (slots or pages) blocks the ones behind it
+        and resumes at the next boundary."""
+        while self._staged_waves:
+            wv = self._staged_waves[0]
+            todo = wv.reqs[wv.merged:]
+            if not todo:
+                self._staged_waves.popleft()
+                continue
+            with self._sched_lock:
+                n = min(len(todo), len(self.scheduler.free_slots()))
+            if self._pages is not None:
+                fits = self._page_fits()
+                fit = 0
+                for r in todo[:n]:
+                    if not fits(r):
+                        break
+                    fit += 1
+                n = fit
+            if n == 0:
+                return
+            if wv.merged == 0:
+                self.host_syncs += 1
+                self.admission_syncs += 1
+                if wv.ready is not None:
+                    self._adopt_wave(wv)
+            with self._sched_lock:
+                placed = self.scheduler.place_wave(todo[:n])
+            self._merge_wave_rows(wv, placed, list(range(wv.merged, wv.merged + n)))
+            wv.merged += n
+            if wv.merged < len(wv.reqs):
+                return
+            self._staged_waves.popleft()
+
+    def _adopt_wave(self, wv: StagedWave):
+        """Hand a wave made on the admission stream to the main stream: the
+        main stream waits for the wave's event, and its tensors are marked
+        as used there, so their memory is not reused before the main
+        stream's merges have read them."""
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(wv.ready)
+        leaves = [wv.ks, wv.first]
+        for cache in (wv.new_cache, wv.draft_new_cache):
+            for layer in cache or []:
+                leaves += list(layer["self"].values())
+        for t in leaves:
+            t.record_stream(main)
+
+    def _merge_wave_rows(self, wv: StagedWave, placed, idx):
+        """Merge wave requests ``idx`` into their placed slots: cache
+        scatter, mirror bookkeeping, carry-row scatter and the deferred
+        first-token emission — the device half of what ``_admit`` does
+        synchronously, queued behind the windows in flight."""
+        st = self._st
+        t = self._dev
+        # the merge's page walk is authoritative: a skip member's coverage
+        # resident now replaces the worker's probe
+        lens = self._merge_prefill(
+            [(s, r, wv.rows[i], wv.first_lens[i]) for i, (s, r) in zip(idx, placed)],
+            wv.new_cache, wv.draft_new_cache)
+        for i, fl in zip(idx, lens):
+            wv.first_lens[i] = fl
+        for i, (slot, r) in zip(idx, placed):
+            self._admit_bookkeep(slot, r, wv.specs[i], wv.first_lens[i])
+            st["keys"][slot] = wv.keys0[i]    # placeholder: the device holds the truth
+            if wv.full[i]:
+                self._admit_tokens += 1
+            self._slot_epoch[slot] = self._dispatch_index
+            self._buf_epoch[slot] = self._dispatch_index
+        # host-known rows from the mirror the bookkeeping just wrote; tok,
+        # keys and act depend on the sampled first token and stay on device
+        slots = [s for s, _ in placed]
+        host_rows = {k: v[slots] for k, v in st.items() if k not in ("tok", "keys", "act")}
+        keys0 = t(wv.keys0[idx])
+        if wv.first is None:
+            # all-skip wave: no first tokens; every row starts active with
+            # its base key, feeding from the ingest buffer
+            dev_rows = {"tok": torch.zeros_like(keys0[:, 0]),
+                        "act": torch.ones_like(keys0[:, 0], dtype=torch.bool),
+                        "keys": keys0}
+        else:
+            prow = t([max(wv.rows[i], 0) for i in idx])
+            full = t(wv.full[idx])
+            first = wv.first[prow]
+            left = t(np.array([wv.reqs[i].max_new_tokens - 1 for i in idx], np.int64))
+            dev_rows = {
+                "tok": torch.where(full, first, 0),
+                # a whole-prompt row can end at its first token (eos, or a
+                # spent budget), as the window would check
+                "act": torch.where(full, (first != t(wv.eos[idx])) & (left > 0), True),
+                "keys": torch.where(full[:, None], wv.ks[prow][:, 0], keys0)}
+        self._scatter_rows(slots, host_rows, dev_rows)
+        entries = [(r, wv.rows[i]) for i, (_, r) in zip(idx, placed) if wv.full[i]]
+        if entries:
+            self._backlog.put(self._timed(self._admit_item(wv, entries), "backlog_drain"))
+
+    def _admit_item(self, wv: StagedWave, entries):
+        def item():
+            if wv.ready is not None:
+                wv.ready.synchronize()
+            first = wv.first_host.numpy()
+            for r, i in entries:
+                self._record_token(r, int(first[i]))
+        return item
+
+    def _refill_async(self):
+        """Refill drained ingest buffers and scatter them into the carry.
+        The mirror's (bpos, avail) pair is epoch-gated at harvest, so a
+        chunk loaded at boundary d is not loaded again off a pre-d status."""
+        st = self._st
+        slots = [slot for slot, r in enumerate(self.scheduler.slot_req)
+                 if (r is not None and st["act"][slot]
+                     and st["bpos"][slot] >= st["avail"][slot]
+                     and self.scheduler.pending_len(slot) > 0)]
+        if not slots:
+            return
+        for slot in slots:
+            self._load_chunk(slot)
+            self._buf_epoch[slot] = self._dispatch_index
+        self._scatter_rows(slots, {k: st[k][slots] for k in ("buf", "avail", "bpos", "more")})
+
+    def _dispatch_window(self) -> bool:
+        """Launch the next window on the carry and queue the host copies
+        of its packed status and outputs behind it.  False when nothing is
+        active by the host's view."""
+        if not self._st["act"].any():
+            return False
+        occ, qd = self.scheduler.occupancy, self.scheduler.queue_depth
+        prior = self._inflight[-1] if self._inflight else None
+        overlapped = (prior is not None and prior.ready is not None
+                      and not prior.ready.query())
+        st2, ys = self._window(self._st_dev, self._any_sampled())
+        self._st_dev = st2
+        parts = [st2["act"], st2["bpos"], st2["cur"]]
+        if self.adaptive_spec:
+            parts += [ys["acc"].sum(dim=0), ys["prop"].sum(dim=0)]
+        parts.append(ys["n_act"].sum().reshape(1))
+        status = torch.cat([p.to(torch.int32) for p in parts])
+        spec = "acc" in ys
+        w = InflightWindow(
+            index=self._dispatch_index, status=self._host(status),
+            toks=self._host(ys["toks"]), emits=self._host(ys["emits"]),
+            slot_reqs=list(self.scheduler.slot_req), occ=occ, qd=qd,
+            overlapped=overlapped,
+            acc=self._host(ys["acc"].sum()) if spec else None,
+            prop=self._host(ys["prop"].sum()) if spec else None)
+        w.ready = self._event()
+        self._inflight.append(w)
+        self._dispatch_index += 1
+        if overlapped:
+            self._overlapped_windows += 1
+        return True
+
+    def _harvest_trailing(self):
+        """Wait for the trailing window's status (the pipeline's one device
+        sync), refresh the epoch-eligible mirror slots, retire finished
+        requests and hand the window's tokens to the backlog."""
+        w = self._inflight.popleft()
+        t0 = time.perf_counter()
+        if w.ready is not None:
+            w.ready.synchronize()
+        status = w.status.numpy()
+        t1 = time.perf_counter()
+        self._prof_add("harvest", t0, t1 - t0)
+        self.host_syncs += 1
+        self.windows += 1
+        self._occupancy_sum += w.occ
+        self._queue_depth_sum += w.qd
+        B = self.B
+        act = status[:B].astype(bool)
+        bpos, cur = status[B: 2 * B], status[2 * B: 3 * B]
+        off = 3 * B
+        ok = self._slot_epoch <= w.index
+        if self.adaptive_spec:
+            self._adaptive_update(ok, act, status[off: off + B],
+                                  status[off + B: off + 2 * B])
+            off += 2 * B
+        self._act_iters += int(status[off])
+        self._st["act"][ok] = act[ok]
+        self._st["cur"][ok] = cur[ok]
+        bok = ok & (self._buf_epoch <= w.index)
+        self._st["bpos"][bok] = bpos[bok]
+        self._backlog.put(self._timed(self._window_item(w), "backlog_drain"))
+        for slot, r in enumerate(w.slot_reqs):
+            if (r is not None and ok[slot] and not act[slot]
+                    and self.scheduler.slot_req[slot] is r):
+                self._finish(slot)
+        self._prof_add("bookkeep", t1, time.perf_counter() - t1)
+
+    def _window_item(self, w: InflightWindow):
+        def item():
+            toks, emits = w.toks.numpy(), w.emits.numpy()
+            if toks.ndim == 2:
+                toks, emits = toks[:, :, None], emits[:, :, None]
+            nemit = int(emits.sum())
+            with self._mlock:
+                self.tokens_emitted += nemit
+                if nemit == 0:
+                    # a pipeline bubble: every slot the host believed active
+                    # died in the window in flight when this one launched
+                    self.windows_idle += 1
+                if w.acc is not None:
+                    self.draft_accepted += int(w.acc)
+                    self.draft_proposed += int(w.prop)
+            for k in range(toks.shape[0]):
+                for j in range(toks.shape[2]):
+                    for i in np.nonzero(emits[k, :, j])[0]:
+                        self._record_token(w.slot_reqs[i], int(toks[k, i, j]))
+        return item
+
+    def _step_async(self):
+        """One overlapped boundary: harvest the trailing window once
+        ``pipeline_depth`` windows are in flight, merge staged admissions
+        and refills into the carry, dispatch the next window."""
+        t0 = time.perf_counter()
+        if len(self._inflight) >= self.pipeline_depth:
+            self._harvest_trailing()
+        self._ensure_dev_state()
+        t1 = time.perf_counter()
+        if self._pages is not None:
+            self._readmit_preempted()
+        self._admit_overlap()
+        self._refill_async()
+        if self._pages is not None:
+            self._lazy_topup()
+        t2 = time.perf_counter()
+        self._prof_add("admission_stage", t1, t2 - t1)
+        dispatched = self._dispatch_window()
+        self._prof_add("dispatch", t2, time.perf_counter() - t2)
+        if not dispatched:
+            if self._inflight:
+                # nothing to decode by the host's (possibly stale) view:
+                # drain a window, whose harvest may retire slots and
+                # unblock the queue
+                self._harvest_trailing()
+            elif (self._admission is not None
+                  and (self._admission.busy or self.scheduler.queue_depth > 0)):
+                # nothing on the device, but a wave is being prepared: wait
+                # (bounded) for it instead of spinning the idle guard down
+                self._admission.wait(timeout=1.0)
+        self._run_seconds += time.perf_counter() - t0
+
+    def _prof_add(self, stage: str, t0: float, dur: float):
+        with self._mlock:
+            self._prof[stage] += dur
+            if self.profile and len(self._prof_events) < 100_000:
+                self._prof_events.append({"stage": stage, "t": t0 - self._prof_t0,
+                                          "dur": dur})
+
+    def _timed(self, fn, stage: str):
+        """Wrap a backlog item so its wall-clock accrues to ``stage`` on
+        whichever thread runs it."""
+        def run():
+            t0 = time.perf_counter()
+            try:
+                fn()
+            finally:
+                self._prof_add(stage, t0, time.perf_counter() - t0)
+        return run
+
+    def flush(self):
+        """Drain the pipeline: harvest every window in flight and wait for
+        the backlog.  A no-op on the sync engine."""
+        t0 = time.perf_counter()
+        while self._inflight:
+            self._harvest_trailing()
+        if self._backlog is not None and self._backlog.started:
+            self._backlog.flush()
+        self._run_seconds += time.perf_counter() - t0
+
+    def close(self):
+        """Flush and join the worker threads.  Idempotent; ``metrics`` and
+        ``finished`` stay readable after."""
+        if self._admission is not None:
+            self._admission.close()
+        self.flush()
+        if self._backlog is not None:
+            self._backlog.close()
+
+    def __enter__(self) -> "Engine":
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
     # -- metrics -------------------------------------------------------------
 
     def metrics(self) -> dict[str, Any]:
@@ -1064,8 +1778,24 @@ class Engine:
         window harvest plus one per admission wave).  ``pages_free`` counts
         the allocatable free list only; pinned pages at refcount 0 are
         parked (resident, not allocatable) and counted apart, and
-        ``pages_shared`` counts share events (retains) since construction."""
-        tokens = self.tokens_emitted + self._admit_tokens
+        ``pages_shared`` counts share events (retains) since construction.
+        Under overlap the token counts settle on the backlog worker (flush
+        or close first for exact totals); ``window_overlap`` is the share of
+        windows dispatched before the one ahead of them had finished on the
+        device, ``windows_idle`` counts harvested windows that emitted
+        nothing.  ``captures`` counts the CUDA graphs ``aot`` captured at
+        construction (it never moves after); ``graphs`` gives each one's
+        kernel launches per replay, replays and capture seconds."""
+        with self._mlock:
+            tokens = self.tokens_emitted + self._admit_tokens
+            windows_idle = self.windows_idle
+            ttft = self._ttft_sum / self._ttft_n if self._ttft_n else 0.0
+            draft_proposed, draft_accepted = self.draft_proposed, self.draft_accepted
+            prefill_calls = self.prefill_calls
+            prof = dict(self._prof)
+        if self._admission is not None:
+            prof["admission_worker"] = self._admission.prepare_seconds
+        ptotal = sum(prof.values())
         w = max(self.windows, 1)
         pool = self._pages
         paged = {"page_size": 0, "pages_total": 0, "pages_free": 0,
@@ -1091,10 +1821,11 @@ class Engine:
             "backend": self.cfg.attn_backend,
             "spec_depth": self.spec_depth,
             "draft": None if self.draft is None else str(self.draft),
-            "draft_proposed": self.draft_proposed,
-            "draft_accepted": self.draft_accepted,
-            "accept_rate": (self.draft_accepted / self.draft_proposed
-                            if self.draft_proposed else 0.0),
+            "draft_proposed": draft_proposed,
+            "draft_accepted": draft_accepted,
+            "accept_rate": draft_accepted / draft_proposed if draft_proposed else 0.0,
+            "adaptive_spec": self.adaptive_spec,
+            "spec_degraded": self.spec_degraded,
             "device": str(self.device),
             "host_syncs": self.host_syncs,
             "admission_syncs": self.admission_syncs,
@@ -1106,10 +1837,23 @@ class Engine:
             "occupancy_mean": self._occupancy_sum / w,
             "queue_depth_mean": self._queue_depth_sum / w,
             "occupancy_device_mean": self._act_iters / (w * self.sync_every),
+            "overlap": self.overlap,
+            "aot": self.aot,
+            "pipeline_depth": self.pipeline_depth if self.overlap else 0,
+            "admission_thread": self.admission_thread,
+            "window_overlap": (self._overlapped_windows / max(self._dispatch_index, 1)
+                               if self.overlap else 0.0),
+            "windows_idle": windows_idle,
+            "captures": self.captures,
+            "capture_s": self.capture_seconds,
+            "graphs": {k: {"launches": dict(g.launches), "replays": g.replays,
+                           "capture_s": g.seconds} for k, g in self._graphs.items()},
             "policy": self.policy.name,
-            "prefill_calls": self.prefill_calls,
-            "ttft_s": self._ttft_sum / self._ttft_n if self._ttft_n else 0.0,
+            "prefill_calls": prefill_calls,
+            "profile": {"seconds": prof,
+                        "shares": {k: (v / ptotal if ptotal else 0.0)
+                                   for k, v in prof.items()}},
+            "ttft_s": ttft,
             "run_seconds": self._run_seconds,
-            "tokens_per_s": (tokens / self._run_seconds
-                             if self._run_seconds else 0.0),
+            "tokens_per_s": tokens / self._run_seconds if self._run_seconds else 0.0,
         }

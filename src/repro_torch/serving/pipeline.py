@@ -1,0 +1,303 @@
+"""Host-side plumbing of the overlapped serving pipeline (port of
+``repro.serving.pipeline``).
+
+The overlapped engine keeps up to ``pipeline_depth`` decode windows in
+flight and blocks the host only on the trailing window's packed status;
+everything else a window boundary used to do synchronously is either
+device work queued behind the in-flight windows (row scatters into the
+device carry) or deferred onto a worker thread:
+
+  * ``InflightWindow`` is the per-dispatch record: the window's host
+    copies (status, tokens, emit flags, draft counts) and the event that
+    says they have landed, plus the host snapshot (slot -> request map,
+    occupancy, queue depth, dispatch index) that makes the harvest
+    interpretable after the scheduler has moved on.
+  * ``TokenBacklog`` is one worker thread draining a FIFO of closures:
+    each window's token crediting and stream callbacks run there, so the
+    dispatch loop never waits on Python-side token handling.  An exception
+    is kept and re-raised on the submitting thread at the next ``put`` /
+    ``flush`` / ``close``, so a crashed worker fails the run instead of
+    hanging it.
+  * ``AdmissionWorker`` is the admission-prefill thread: it pops
+    queue-head requests and runs their wave prefill and first-token sample
+    (on its own CUDA stream on a card), producing ``StagedWave`` records.
+    It never mutates scheduler, pool or mirror state: everything
+    host-visible merges on the main thread at a window boundary, which is
+    what keeps streams token for token equal to the sync engine's
+    (prefill is row-independent and the first-token sample is per row).
+
+Ordering contract: items run strictly in ``put`` order on one worker, so a
+request's tokens reach it in dispatch order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Any, Callable
+
+__all__ = ["AdmissionWorker", "InflightWindow", "PreemptedRecord",
+           "StagedWave", "TokenBacklog"]
+
+_STOP = object()
+
+
+@dataclasses.dataclass
+class InflightWindow:
+    """One dispatched, not yet harvested decode window.
+
+    ``status`` is the only array the boundary waits for: a packed 1-D
+    int32 host copy of (active, buffer position, cur[, per-slot accepted
+    and proposed draft counts], stepping-slot count), parsed positionally
+    at the harvest.  ``toks`` / ``emits`` (and the draft totals) are host
+    copies the backlog worker reads.  ``ready`` is the event recorded after
+    every copy (None on the CPU, where they are done at dispatch).
+    ``slot_reqs`` snapshots the slot -> request map at dispatch: a later
+    boundary may re-assign a slot before this window is harvested."""
+
+    index: int                      # dispatch sequence number
+    status: Any                     # (R,) int32 host tensor
+    toks: Any                       # (K, B[, S]) host tensor
+    emits: Any                      # (K, B[, S]) host tensor
+    slot_reqs: list                 # slot -> Request at dispatch time
+    occ: int                        # scheduler occupancy at dispatch
+    qd: int                         # scheduler queue depth at dispatch
+    overlapped: bool                # dispatched before the prior one finished
+    ready: Any = None               # torch.cuda.Event after the host copies
+    acc: Any = None                 # spec: accepted draft tokens (host)
+    prop: Any = None                # spec: proposed draft tokens (host)
+
+
+@dataclasses.dataclass
+class StagedWave:
+    """One admission wave prepared off the dispatch path: prompts
+    prefilled and first tokens sampled, awaiting its main-thread merge into
+    free slots.  ``merged`` counts the leading requests already merged: a
+    wave larger than the free slots (or page budget) merges across several
+    boundaries, head of line first.  Request i rides prefill row
+    ``rows[i]``, or -1 when resident prefix pages cover its first chunk and
+    it admits with no prefill; ``keys0`` / ``eos`` / ``full`` / ``specs``
+    are per request, ``ks`` / ``first`` / ``new_cache`` per prefill row."""
+
+    reqs: list                      # staged Requests, in staged order
+    first_lens: list                # wave-prefill coverage per request
+    specs: list                     # resolved SamplingParams per request
+    keys0: Any                      # (n, 2) base PRNG keys (numpy)
+    eos: Any                        # (n,) eos ids (numpy)
+    full: Any                       # (n,) whole prompt prefilled (numpy)
+    rows: list                      # prefill row per request, -1 = skip
+    ks: Any = None                  # (W, 2, 2) split keys (device)
+    first: Any = None               # (W,) first sampled tokens (device)
+    first_host: Any = None          # host copy of ``first``
+    new_cache: Any = None           # slot-major prefill cache (device)
+    draft_new_cache: Any = None     # the layer draft's twin (device)
+    ready: Any = None               # torch.cuda.Event after the wave's work
+    merged: int = 0                 # leading requests already merged
+
+
+@dataclasses.dataclass
+class PreemptedRecord:
+    """What re-admits a preempted slot: its window-state row at eviction,
+    the un-ingested prompt tail, and the pages it held with their alloc
+    stamps (an unchanged stamp proves the page still holds its content)."""
+
+    req: Any
+    host_row: dict                  # state leaf name -> the slot's row (numpy)
+    pending: Any                    # un-ingested prompt tail (numpy)
+    pages: list                     # physical pages held at eviction
+    stamps: list                    # pool alloc stamp per page at eviction
+    cur: int                        # tokens fed (cache positions written)
+    at: int = 0                     # windows dispatched before the eviction
+
+
+class TokenBacklog:
+    """A FIFO of host-side work items drained by one daemon thread.
+
+    Items are zero-argument callables.  The thread starts on the first
+    ``put``, so a sync engine never spawns it.  ``flush`` blocks until
+    every queued item has run; ``close`` flushes, stops the thread and
+    joins it; both re-raise the first exception an item threw."""
+
+    def __init__(self, name: str = "token-backlog"):
+        self._name = name
+        self._q: queue.Queue = queue.Queue()
+        self._thread: threading.Thread | None = None
+        self._err: BaseException | None = None
+        self._closed = False
+
+    @property
+    def started(self) -> bool:
+        return self._thread is not None
+
+    @property
+    def alive(self) -> bool:
+        return self._thread is not None and self._thread.is_alive()
+
+    def _ensure_thread(self):
+        if self._thread is None:
+            self._thread = threading.Thread(target=self._drain, name=self._name,
+                                            daemon=True)
+            self._thread.start()
+
+    def _drain(self):
+        while True:
+            item = self._q.get()
+            try:
+                if item is _STOP:
+                    return
+                if self._err is None:
+                    item()
+            except BaseException as e:  # noqa: BLE001 — re-raised on the caller
+                self._err = e
+            finally:
+                self._q.task_done()
+
+    def _reraise(self):
+        if self._err is not None:
+            err, self._err = self._err, None
+            raise RuntimeError(f"{self._name} worker failed while draining") from err
+
+    def put(self, item: Callable[[], None]):
+        if self._closed:
+            raise RuntimeError(f"{self._name} is closed")
+        self._reraise()
+        self._ensure_thread()
+        self._q.put(item)
+
+    def flush(self):
+        """Block until every item queued so far has been processed."""
+        if self._thread is not None:
+            self._q.join()
+        self._reraise()
+
+    def close(self):
+        """Flush, stop and join the worker.  Idempotent."""
+        if self._closed:
+            return
+        self._closed = True
+        if self._thread is not None:
+            self._q.join()
+            self._q.put(_STOP)
+            self._thread.join()
+            self._thread = None
+        self._reraise()
+
+
+class AdmissionWorker:
+    """One daemon thread turning queue-head requests into staged waves.
+
+    * ``take(max_n)`` (engine-provided) pops requests off the scheduler's
+      queue under the engine's admission lock, the only scheduler surface
+      the worker touches;
+    * ``prepare(reqs) -> StagedWave`` (engine-provided) runs the wave
+      prefill and first-token sample and mutates nothing host-visible;
+    * the main thread drains prepared waves with ``poll()`` at window
+      boundaries and owns every scheduler, pool and mirror mutation.
+
+    ``kick(capacity)`` bounds look-ahead: the worker stages at most that
+    many requests beyond what the main thread has merged.  A worker
+    exception is re-raised on the main thread at the next ``poll``."""
+
+    def __init__(self, take: Callable[[int], list], prepare: Callable[[list], Any],
+                 name: str = "admission-prefill"):
+        self._take = take
+        self._prepare = prepare
+        self._name = name
+        self._cv = threading.Condition()
+        self._out: list = []
+        self._err: BaseException | None = None
+        self._capacity = 0
+        self._busy = False
+        self._stop = False
+        self._thread: threading.Thread | None = None
+        self.waves_prepared = 0
+        self.prepare_seconds = 0.0     # worker-thread time (profile)
+
+    @property
+    def started(self) -> bool:
+        return self._thread is not None
+
+    @property
+    def busy(self) -> bool:
+        """True while the worker holds unpolled output or is preparing."""
+        with self._cv:
+            return self._busy or bool(self._out)
+
+    def _ensure_thread(self):
+        if self._thread is None and not self._stop:
+            self._thread = threading.Thread(target=self._run, name=self._name,
+                                            daemon=True)
+            self._thread.start()
+
+    def kick(self, capacity: int):
+        """Main thread: set the staging budget and wake the worker."""
+        with self._cv:
+            self._capacity = max(0, capacity)
+            if self._capacity > 0:
+                self._ensure_thread()
+            self._cv.notify_all()
+
+    def _run(self):
+        while True:
+            with self._cv:
+                while not self._stop and self._capacity <= 0:
+                    self._cv.wait()
+                if self._stop:
+                    return
+                cap = self._capacity
+            try:
+                reqs = self._take(cap)
+                if not reqs:
+                    with self._cv:
+                        # nothing queued: sleep until the next kick
+                        self._capacity = 0
+                        self._busy = False
+                        self._cv.notify_all()
+                    continue
+                with self._cv:
+                    self._busy = True
+                    self._capacity -= len(reqs)
+                t0 = time.perf_counter()
+                wave = self._prepare(reqs)
+                dt = time.perf_counter() - t0
+                with self._cv:
+                    self._out.append(wave)
+                    self.waves_prepared += 1
+                    self.prepare_seconds += dt
+                    self._busy = False
+                    self._cv.notify_all()
+            except BaseException as e:  # noqa: BLE001 — re-raised on the main thread
+                with self._cv:
+                    self._err = e
+                    self._busy = False
+                    self._stop = True
+                    self._cv.notify_all()
+                return
+
+    def poll(self) -> list:
+        """Main thread: every prepared wave so far; re-raises a worker
+        crash (once), so a failed prefill fails the run."""
+        with self._cv:
+            out, self._out = self._out, []
+            err, self._err = self._err, None
+        if err is not None:
+            raise RuntimeError(f"{self._name} worker failed while staging") from err
+        return out
+
+    def wait(self, timeout: float | None = None) -> bool:
+        """Main thread: block until a prepared wave (or a crash) is there,
+        or the timeout lapses.  True when ``poll()`` would yield something."""
+        with self._cv:
+            self._cv.wait_for(lambda: bool(self._out) or self._err is not None,
+                              timeout=timeout)
+            return bool(self._out) or self._err is not None
+
+    def close(self):
+        with self._cv:
+            self._stop = True
+            self._cv.notify_all()
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None

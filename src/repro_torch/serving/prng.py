@@ -91,8 +91,9 @@ def uniform(key: torch.Tensor, n: int, minval: float = 0.0) -> torch.Tensor:
     """``jax.random.uniform(key, (n,), float32, minval, 1.0)``."""
     bits = (random_bits(key, n) >> 9) | 0x3F800000
     floats = bits.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=key.device) - lo
+    # filled on the device (no host copy, so a captured window holds it)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    span = torch.full((), 1.0, dtype=torch.float32, device=key.device) - lo
     return torch.maximum(lo, floats * span + lo)
 
 

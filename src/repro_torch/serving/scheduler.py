@@ -1,5 +1,5 @@
-"""Admission and slot lifecycle for the serving engine (port of the
-synchronous path of ``repro.serving.scheduler``).
+"""Admission and slot lifecycle for the serving engine (port of
+``repro.serving.scheduler``).
 
 The scheduler owns everything about requests that is not model math: the
 queue, the slot -> request map, per-slot un-ingested prompt remainders
@@ -8,7 +8,9 @@ queue, the slot -> request map, per-slot un-ingested prompt remainders
 wave prefill, the rest streams through the decode loop's ingest buffer.
 Preempted requests (lazy page reservation ran the pool dry) wait in
 ``parked`` until the engine re-seats them with ``place``.  The overlapped
-engine's staging (``take_staged`` / ``place_wave``) is not ported yet.
+engine stages admissions: ``take_staged`` pops queued requests for an
+off-path prefill, ``place_wave`` binds them to free slots later, in the
+order they were staged.
 """
 
 from __future__ import annotations
@@ -64,6 +66,9 @@ class Scheduler:
         # preempted requests awaiting re-admission: waiting work that the
         # engine re-seats through ``place``, not through the queue
         self.parked: list[Request] = []
+        # popped off the queue for a staged prefill, not yet in a slot;
+        # ``place`` consumes them strictly in this order
+        self.staged: deque[Request] = deque()
 
     def submit(self, req: Request) -> Request:
         """Validate and enqueue.  Prompts are capped at ``max_len - 1`` (the
@@ -107,8 +112,16 @@ class Scheduler:
             wave.append((slot, req))
         return wave
 
+    def take_staged(self, max_n: int, fits=None) -> list[Request]:
+        """Pop up to ``max_n`` queued requests (policy order) into
+        ``staged``, the overlapped engine's prefill-ahead set."""
+        out = self.policy.select(self.queue, max_n, fits)
+        self.staged.extend(out)
+        return out
+
     def place(self, slot: int, req: Request):
-        """Re-bind a parked (preempted) request to a free slot."""
+        """Bind a staged request (the head of ``staged``) or a parked
+        (preempted) one to a free slot."""
         if self.slot_req[slot] is not None:
             raise RuntimeError(f"slot {slot} is occupied by uid="
                                f"{self.slot_req[slot].uid}; release it first")
@@ -117,9 +130,24 @@ class Scheduler:
                 self.parked.pop(i)
                 break
         else:
-            raise RuntimeError(f"place(uid={req.uid}): the request is not parked")
+            if not self.staged or self.staged[0] is not req:
+                raise RuntimeError(
+                    f"place(uid={req.uid}): neither parked nor the head of the "
+                    f"staged queue (head uid="
+                    f"{self.staged[0].uid if self.staged else None})")
+            self.staged.popleft()
         self.slot_req[slot] = req
         self.admitted_uids.append(req.uid)
+
+    def place_wave(self, reqs: list[Request]) -> list[tuple[int, Request]]:
+        """Bind a run of staged requests to the lowest free slots."""
+        free = self.free_slots()
+        placed = []
+        for req in reqs:
+            slot = free.pop(0)
+            self.place(slot, req)
+            placed.append((slot, req))
+        return placed
 
     def first_chunk_len(self, req: Request) -> int:
         """Prompt tokens the admission wave prefill covers for ``req``."""
@@ -163,8 +191,8 @@ class Scheduler:
 
     @property
     def queue_depth(self) -> int:
-        """Requests waiting for a slot: queued or parked."""
-        return len(self.queue) + len(self.parked)
+        """Requests waiting for a slot: queued, staged or parked."""
+        return len(self.queue) + len(self.staged) + len(self.parked)
 
     @property
     def occupancy(self) -> int:
@@ -172,5 +200,5 @@ class Scheduler:
 
     @property
     def has_work(self) -> bool:
-        return (bool(self.queue) or bool(self.parked)
+        return (bool(self.queue) or bool(self.staged) or bool(self.parked)
                 or any(r is not None for r in self.slot_req))

@@ -45,7 +45,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.config import ReCalKVRuntime
 from repro_torch.models.weights import init_params
 from repro_torch.quant import quantize
-from repro_torch.serving import Engine, Request
+from repro_torch.serving import Engine, Request, SamplingParams
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
@@ -932,10 +932,14 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
                                                     (64, 8, 5, 16, False),
                                                     (64, 1, 8, None, True),
                                                     (128, 8, 8, 16, True),
-                                                    (128, 1, 5, 16, False)])
+                                                    (128, 1, 5, 16, False),
+                                                    (128, 4, 9, None, False),
+                                                    (128, 4, 16, 16, False),
+                                                    (64, 1, 16, None, True)])
 def test_dense_verify_kernel_edge_shapes(cuda, dtype, dh, qpk, nq, window, unfed):
-    """The dense verify kernel at dh 64 / 128, q_per_kv 1 / 8, nq 1 / 5 / 8
-    (up to 64 query rows: four 16-row blocks), with and without a window
+    """The dense verify kernel at dh 64 / 128, q_per_kv 1 / 4 / 8, nq 1 / 5
+    / 8 / 9 / 16 (up to 64 query rows: four 16-row blocks; 16 queries at
+    q_per_kv 1 in one block), with and without a window
     and with every candidate unfed, on a ring whose row 2 is empty: within
     1e-4 (f32) or the bf16 limit of the plain version; row 2's query 0
     exactly its self value (exact 0 with the candidates unfed, when it sees
@@ -981,11 +985,10 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
         KD.dense_decode_attention_mq(rn(2, 2, 16, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
                                      bias, scale=1.0, self_k=rn(2, 4, 2, 96),
                                      self_v=rn(2, 4, 2, 96))
-    with pytest.raises(ValueError, match="q_per_kv 1-8, nq 1-8"):
+    with pytest.raises(ValueError, match="q_per_kv 1-8, nq >= 1"):
         KD.dense_decode_attention_mq(rn(2, 2, 36, 128), k, k, bias, **kw)
-    with pytest.raises(ValueError, match="nq 1-8"):
-        KD.dense_decode_attention_mq(rn(2, 2, 9, 128), k, k, torch.zeros(2, 9, 41, device=cuda),
-                                     scale=1.0, self_k=rn(2, 9, 2, 128), self_v=rn(2, 9, 2, 128))
+    with pytest.raises(ValueError, match="nq >= 1"):
+        KD.dense_decode_attention_mq(rn(2, 2, 10, 128), k, k, bias, **kw)
     with pytest.raises(ValueError, match="unsupported shapes"):
         KD.dense_decode_attention_mq(rn(2, 2, 16, 128), k, k, bias[..., :32], **kw)
     with pytest.raises(ValueError, match="self columns"):
@@ -1131,3 +1134,67 @@ def test_compress_attention_layer_on_card_matches_cpu(cuda):
     for h in range(H):
         grp = (h // 4) // 4
         near(k.L_v[grp] @ k.W_o_fused[h], c.L_v[grp] @ c.W_o_fused[h])
+
+
+def _graph_engine_cfg(dense: bool, bits=None):
+    """Smoke qwen3-4b at d_head 64 in bf16 on the kernel backend: the dense
+    cache, or a latent one (group_size 2, rank 64)."""
+    return dataclasses.replace(
+        get_config("qwen3-4b", smoke=True), d_head=64, dtype=torch.bfloat16,
+        attn_backend="kernel", cache_quant_bits=bits,
+        recalkv=None if dense else ReCalKVRuntime(rank_k=64, rank_v=64, group_size=2))
+
+
+def _cache_ptrs(eng):
+    caches = eng.cache + (eng.draft_cache or [])
+    return [leaf.data_ptr() for c in caches for leaf in c["self"].values()]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dense,bits,flags,must", [
+    ("ring", False, None, {}, "latent_decode_attention"),
+    ("pool", False, None, dict(cache_layout="paged", page_size=16),
+     "latent_decode_attention_paged"),
+    ("dense ring", True, None, {}, "dense_decode_attention"),
+    ("dense pool, ngram", True, None,
+     dict(cache_layout="paged", page_size=16, spec_depth=3, draft="ngram"),
+     "dense_decode_attention_mq_paged"),
+    ("int8 ring, layers:1, adaptive", False, 8,
+     dict(spec_depth=2, draft="layers:1", adaptive_spec=True),
+     "latent_decode_attention_mq_quant")])
+def test_aot_graph_streams_equal_eager(cuda, name, dense, bits, flags, must):
+    """aot=True on the card: the window iteration captured as CUDA graphs
+    (greedy and sampled) serves the same streams as the eager window, in
+    the sync and the overlapped engine, on the ring, the pool and the dense
+    cache, greedy and sampled; ``captures`` is 2 after construction and
+    does not move while serving; no cache leaf moved; the graphs hold the
+    path's kernel and were replayed."""
+    cfg = _graph_engine_cfg(dense, bits)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (9, 30, 17, 40, 5)]
+    sampled = SamplingParams(temperature=0.9, top_k=32, top_p=0.9, seed=3)
+
+    def serve(**kw):
+        eng = Engine(cfg, params, max_slots=3, max_len=128, sync_every=4, device=cuda,
+                     **flags, **kw)
+        captured = (eng.metrics()["captures"], _cache_ptrs(eng))
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=12,
+                               sampling=sampled if uid % 2 else None))
+        done = eng.run()
+        eng.close()
+        assert sorted(r.uid for r in done) == list(range(len(prompts)))
+        return {r.uid: list(r.out_tokens) for r in done}, eng, captured
+
+    want, _, _ = serve()
+    for kw in (dict(aot=True), dict(aot=True, overlap=True, pipeline_depth=3)):
+        got, eng, (captures, ptrs) = serve(**kw)
+        assert got == want, (name, kw)
+        m = eng.metrics()
+        assert captures == m["captures"] == 2, m
+        assert _cache_ptrs(eng) == ptrs
+        assert set(m["graphs"]) == {"greedy", "sampled"}
+        assert all(gr[must] > 0 for gr in (v["launches"] for v in m["graphs"].values()))
+        assert sum(v["replays"] for v in m["graphs"].values()) >= m["windows"]
