@@ -7,7 +7,9 @@ Serves a small bf16 model (smoke qwen3-4b at d_head 64, a ReCalKV latent
 cache of rank 64, random weights from seed 0) with ``overlap=True`` on one
 CUDA card, eagerly and with ``aot=True``, on the ring, on a lazy paged pool
 small enough to preempt (prefix-affinity, one pinned page, 12 requests
-sharing a 64-token system prompt) and with n-gram speculation.  Each run
+sharing a 64-token system prompt), with n-gram speculation, and with
+continuous batching (``continuous=True``) on the ring and on a paged pool
+with speculation.  Each run
 is served under ``torch.cuda.set_sync_debug_mode("warn")``, which warns at
 every operation that waits for the device; the script counts the
 warnings by their call sites in ``repro_torch`` and prints them with the
@@ -35,6 +37,10 @@ RUNS = {
                                          policy="prefix-affinity", lazy_pages=True,
                                          pin_prefixes=1),
     "ring, ngram spec_depth 3": dict(spec_depth=3, draft="ngram"),
+    "ring, continuous": dict(continuous=True, pipeline_depth=3),
+    "paged, continuous, ngram spec_depth 3": dict(cache_layout="paged", page_size=16,
+                                                  continuous=True, pipeline_depth=3,
+                                                  spec_depth=3, draft="ngram"),
 }
 
 
@@ -91,7 +97,8 @@ def main() -> int:
             eng.close()
             m = eng.metrics()
             print(f"{name}, aot={aot}: {m['windows']} windows, window_overlap "
-                  f"{m['window_overlap']:.3f}, preemptions {m['preemptions']}, tokens "
+                  f"{m['window_overlap']:.3f}, preemptions {m['preemptions']}, "
+                  f"slot_swaps {m['slot_swaps']}, tokens "
                   f"{m['tokens']}, {sum(sites.values())} synchronising calls")
             for where, n in sites.most_common(8):
                 print(f"  {n:5d}  {where or '(outside repro_torch)'}")

@@ -46,7 +46,10 @@ Phases, in order (any failure exits non-zero; none is caught):
    at group_size 8, ranks 768 / 1024, nq 1 / 4).  Every kernel time is
    device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
-   r = 256), bf16, random weights from a seeded torch.Generator: prefill
+   r = 256), bf16, random weights from a seeded torch.Generator; first
+   continuous batching's row copy (``csrc/stage_install.cu``) on a ring and
+   a stage cache of that model (8 rows x 4,096 positions), bit for bit
+   against its plain version installing and idle, each timed; then prefill
    and decode steps, and prefill and one 4-token verify step on float and
    int8 rings, through the einsum reference and the kernel backend; then
    a decode step and a 4-token verify step at the next position on paged
@@ -80,6 +83,11 @@ Phases, in order (any failure exits non-zero; none is caught):
    run's token for token, two graphs must be captured at construction and
    ``captures`` may not move while serving, and a run's launches are the
    eager prefill's plus each graph's captured launches times its replays;
+   D+s8: D+ at ``staging_depth=8`` (peak memory beside D+'s at 16);
+   S, continuous batching on the float ring: 24 prompts of 512-2048
+   tokens with budgets of 16-96 cycled, served sync, overlapped + graphs
+   at pipeline depth 3 and the same with ``continuous=True`` (streams
+   equal, installs inside the windows through the row copy);
 6. the dense qwen3-4b (``recalkv=None``; its own random weights, G's
    freed first): prefill, decode and a 4-token verify step through both
    backends (logits within 5e-2 relative), decode and verify on a paged
@@ -95,6 +103,8 @@ Phases, in order (any failure exits non-zero; none is caught):
    I9, I at spec_depth 8 (9 verify queries: 36 query rows a kv head, three
    row blocks of the dense verify kernel);
    H+ and I+: H and I overlapped with CUDA graphs, as A+;
+   T, continuous batching on the dense pool with ``spec_depth=3``,
+   "ngram": 16 motif prompts of 320-512 tokens, served three ways as S;
    J, compress then serve: ``api.calibrate`` on 8 synthetic sequences of
    512 tokens, ``api.compress`` ("recalkv", keep ratio 0.5, backend
    "pallas": G = 2, r = 256), ``save_artifact`` under ``build/``, the
@@ -104,13 +114,16 @@ Phases, in order (any failure exits non-zero; none is caught):
    1e-3 relative fails), the HSR groups and their within-group CKA
    against the identity grouping's, and peak memory; each run's cache
    must hold 4,096 B per token and layer dense and 2,048 B compressed,
-   read from the allocated tensors;
+   read from the allocated tensors; then the serving CLI
+   (``repro_torch.launch.serve.main``) at full width with ``--continuous
+   --aot``: 16 requests must finish;
 7. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
-   own wrappers, the dense verify kernel's twice, at nq 4 and nq 16), the
-   card line, and the final ``{"ok": true, "device": {...}}`` line.
+   own wrappers, the dense verify kernel's twice, at nq 4 and nq 16; the
+   row copy ``stage_install_rows`` with its idle time too), the card line, and
+   the final ``{"ok": true, "device": {...}}`` line.
 
 It needs a CUDA card and the repository's ``src``; it imports nothing of
 JAX or of the JAX package.
@@ -170,6 +183,24 @@ def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def graph_ms(fn, iters: int) -> float:
+    """Device ms per replay of ``fn`` captured as a CUDA graph (after one
+    warm-up call on a side stream): what a captured window iteration pays
+    for it.  For calls whose host work outlasts ``cuda_ms``'s device sleep
+    (a wrapper that checks a hundred leaves), ``cuda_ms`` on the eager
+    call would time the host's enqueue."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(graph.replay, iters=iters)
 
 
 def nbytes(*ts) -> int:
@@ -1025,6 +1056,14 @@ ENGINE_RUNS = {
     # the artifact the port compressed from H's model (r = 256, G = 2)
     "J": dict(bits=None, depth=0, draft=None, chunk=None, sync=16, new=16,
               must=("flash_prefill_attention", "latent_decode_attention")),
+    # continuous batching (CONTINUOUS): 24 requests ending at different
+    # lengths on the float ring ...
+    "S": dict(bits=None, depth=0, draft=None, chunk=None, sync=16,
+              must=("latent_decode_attention", "flash_prefill_attention")),
+    # ... and 16 motif prompts on the dense pool with n-gram speculation
+    "T": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8,
+              must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
+              paged=dict(cache_layout="paged", page_size=PAGE, policy="fifo")),
 }
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048}
@@ -1032,6 +1071,10 @@ CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048}
 # CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
 # Their streams must equal the sync runs' in the same call.
 OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}}
+# runs served three ways in one call (sync; overlapped + graphs at pipeline
+# depth 3; the same with continuous batching): streams equal, installs
+# inside the windows
+CONTINUOUS = {"S": dict(pipeline_depth=3), "T": dict(pipeline_depth=3)}
 # runs F and G's latent caches: one group of all 8 kv heads (32 query rows
 # per group) at rank 512 = s * dh / 2 (F) and 768 (G, keep ratio 0.75);
 # r_v the value width of their K2
@@ -1053,7 +1096,14 @@ def engine_prompts(torch, run, vocab):
         return [(rand(512), 32)]
     if run == "H":          # 512..1024; the 1024 one streams 256 tokens
         return [(rand(n), 32) for n in (512, 640, 768, 1024)]
-    motif = rand(64)        # C, E, G, I and J: a motif repeated, for prompt lookup
+    if run == "S":          # 512..2048, budgets 16..96 cycled: slots free apart
+        lens = torch.randint(512, 2049, (24,), generator=gen).tolist()
+        return [(rand(n), 16 + 8 * (i % 11)) for i, n in enumerate(lens)]
+    motif = rand(64)
+    if run == "T":          # motif prompts of 320..512, budgets 16..48 cycled
+        lens = torch.randint(320, 513, (16,), generator=gen).tolist()
+        return [(np.tile(motif, 8)[:n], 16 + 8 * (i % 5)) for i, n in enumerate(lens)]
+    # C, E, G, I and J: a motif repeated, for prompt lookup
     return [(np.tile(motif, 8), 16), (np.tile(motif, 6)[:320], 16)]
 
 
@@ -1072,14 +1122,17 @@ def cache_bytes(torch, cache) -> tuple[int, int]:
     return sum(b for k, b in per.items() if k != "pos"), per["pos"]
 
 
-def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False):
+def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra=None,
+                 label=None):
     """One engine run; with ``artifact`` (a saved path) the engine boots
     through ``Engine.from_artifact`` instead of (cfg, params).  With
     ``overlapped`` the overlapped engine serves it with its window captured
     as CUDA graphs (``OVERLAPPED``): a graph replay does not pass through
     the wrappers' counters, so the run's launches add each graph's captured
     launches times its replays to what the eager prefill counted, and
-    ``captures`` may not move after construction."""
+    ``captures`` may not move after construction.  ``extra`` adds engine
+    keywords (``continuous``, ``staging_depth``, ...); ``label`` names the
+    run in the log."""
     from repro_torch import kernels
     from repro_torch.serving import Engine, Request
     spec = ENGINE_RUNS[run]
@@ -1090,7 +1143,8 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False):
               prefill_chunk=spec["chunk"], spec_depth=depth, draft=draft,
               **spec.get("paged", {}))
     if overlapped:
-        kw.update(overlap=True, aot=True, **OVERLAPPED[run])
+        kw.update(overlap=True, aot=True, **OVERLAPPED.get(run, {}))
+    kw.update(extra or {})
     t0 = time.perf_counter()
     if artifact is None:
         eng = Engine(dataclasses.replace(cfg, cache_quant_bits=bits), params, **kw)
@@ -1127,12 +1181,17 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False):
                               "pages_shared", "cow_forks", "preemptions",
                               "prefill_calls_saved", "prefix_resurrections",
                               "pages_pinned", "policy", "lazy_pages")}
-    name = f"{run}, overlapped + graphs" if overlapped else run
+    name = label or (f"{run}, overlapped + graphs" if overlapped else run)
+    stage_bytes = (sum(nbytes(*c["self"].values()) for c in eng._stage["cache"])
+                   if eng.continuous and "cache" in eng._stage else 0)
     if overlapped:
         log(f"engine run {name}: boot {boot_s:.3f} s, capture {m['capture_s']:.3f} s, "
             f"captures {m['captures']}, window_overlap {m['window_overlap']:.3f}, "
             f"windows_idle {m['windows_idle']}, spec_degraded {m['spec_degraded']}, "
-            f"admission_syncs {m['admission_syncs']}, graphs " + "; ".join(
+            f"admission_syncs {m['admission_syncs']}, continuous {m['continuous']}, "
+            f"slot_swaps {m['slot_swaps']}, staging_depth {m['staging_depth']}, stage "
+            f"cache {stage_bytes / 2 ** 30:.3f} GiB, occupancy_device_mean "
+            f"{m['occupancy_device_mean']:.3f}, graphs " + "; ".join(
                 f"{k}: {g['replays']} replays, captured in {g['capture_s']:.3f} s, "
                 f"launches per replay {g['launches']}" for k, g in m["graphs"].items()))
     log(f"engine run {name} (int8 cache: {bits is not None}, spec_depth {depth}, draft "
@@ -1165,7 +1224,10 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False):
                              "prefill_calls", "run_seconds", "spec_depth", "draft",
                              "draft_proposed", "draft_accepted", "accept_rate",
                              "overlap", "aot", "captures", "capture_s", "window_overlap",
-                             "windows_idle", "spec_degraded", "graphs")},
+                             "windows_idle", "spec_degraded", "graphs", "continuous",
+                             "slot_swaps", "staging_depth", "occupancy_device_mean",
+                             "pipeline_depth")},
+        "stage_cache_bytes": stage_bytes,
         "boot_s": boot_s, "profile_s": m["profile"]["seconds"],
         **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall,
         "cache_bytes_per_token_layer": kv_bytes, "pos_bytes_per_token_layer": pos_bytes}
@@ -1190,6 +1252,153 @@ def phase_overlapped(torch, cfg, params, runs, by_run, streams, serving):
             f"{b['tokens_per_s'] / a['tokens_per_s']:.2f}x), ttft {b['ttft_s']:.3f} s "
             f"(sync {a['ttft_s']:.3f} s)")
     log(f"overlapped runs {', '.join(runs)} took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_continuous(torch, cfg, params, run, by_run, streams, serving):
+    """Serve ``run`` three ways in one call (``CONTINUOUS``; keys run, run
+    "+", run "+c"): sync, overlapped + graphs, and overlapped + graphs
+    with continuous batching.  The three streams must be equal, the
+    continuous run must install inside its windows (``slot_swaps`` > 0;
+    on the ring through the install's row copy) and no run may capture
+    after construction (``phase_engine`` checks)."""
+    t0 = time.perf_counter()
+    keys = (run, run + "+", run + "+c")
+    for key, extra in zip(keys, (None, CONTINUOUS[run],
+                                 dict(CONTINUOUS[run], continuous=True))):
+        label = {run: run, run + "+": f"{run}, overlapped + graphs",
+                 run + "+c": f"{run}, overlapped + graphs + continuous"}[key]
+        by_run[key], streams[key], serving[key] = phase_engine(
+            torch, cfg, params, run, overlapped=extra is not None, extra=extra,
+            label=label)
+    if not streams[keys[0]] == streams[keys[1]] == streams[keys[2]]:
+        raise AssertionError(f"engine run {run}: sync, overlapped and continuous streams "
+                             f"differ: {[streams[k] for k in keys]}")
+    c = serving[keys[2]]
+    if c["slot_swaps"] <= 0:
+        raise AssertionError(f"engine run {run}: the continuous engine installed nothing")
+    ring = "paged" not in ENGINE_RUNS[run]
+    if ring and by_run[keys[2]]["stage_install_rows"] <= 0:
+        raise AssertionError(f"engine run {run}: the install's row copy never launched")
+    for k in keys:
+        v = serving[k]
+        log(f"engine run {k}: {v['tokens_per_s']:.2f} tok/s, ttft {v['ttft_s']:.3f} s, "
+            f"occupancy_device_mean {v['occupancy_device_mean']:.3f}, windows "
+            f"{v['windows']}, windows_idle {v['windows_idle']}, slot_swaps "
+            f"{v['slot_swaps']}, peak memory {v['peak_gib']:.2f} GiB, stage cache "
+            f"{v['stage_cache_bytes'] / 2 ** 30:.3f} GiB, launches per replay "
+            + "; ".join(f"{g}: {d['launches']}" for g, d in v["graphs"].items()))
+    log(f"engine run {run}: sync, overlapped and continuous streams equal; "
+        f"{c['slot_swaps']} installs; took {time.perf_counter() - t0:.1f} s")
+
+
+def phase_stage_install(torch, cfg, params, gen):
+    """The install's predicated row copy (``csrc/stage_install.cu``) at run
+    S's shapes: a float ring and a stage cache of 8 rows x 4,096 positions
+    (36 layers of bf16 latents and positions), held against its plain
+    version (``torch.where`` on the row) bit for bit installing (slot 3
+    from stage row 5) and idle (slot 8, past the batch: nothing moves),
+    each timed as graph replays (``graph_ms``); the bound is the
+    installing call's row read once and written once.  Then the whole
+    install as a window iteration runs it (``Engine._stage_install`` over
+    run S's carry, ring and stage cache: the carry rows, the row copy,
+    the key), timed the same way idle (nothing staged) and installing
+    (one staged row, re-staged by one copy before each call): what a
+    replayed iteration pays for it."""
+    from repro_torch.kernels import stage_install as KS
+    from repro_torch.models import transformer as T
+    caches = [T.init_decode_cache(cfg, 8, 4096) for _ in range(2)]
+    for c in caches:
+        for layer in c:
+            for name, leaf in layer["self"].items():
+                if name == "pos":
+                    leaf.copy_(torch.randint(-1, 4096, leaf.shape, generator=gen,
+                                             device="cuda"))
+                else:
+                    leaf.copy_(torch.randn(leaf.shape, generator=gen, device="cuda"))
+    dst, src = ([leaf for layer in c for leaf in layer["self"].values()] for c in caches)
+    table = KS.InstallTable(dst, src)
+    q = torch.tensor(5, device="cuda")
+    worst = 0.0
+    for slot in (3, 8):
+        s_ = torch.tensor(slot, device="cuda")
+        want = [d.clone() for d in dst]
+        KS.stage_install_rows_plain(want, src, s_, q)
+        KS.stage_install_rows(dst, src, s_, q, table)
+        torch.cuda.synchronize()
+        for d, w in zip(dst, want):
+            if not torch.equal(d, w):
+                raise AssertionError(f"stage_install_rows (slot {slot}) differs from its plain "
+                                     f"version")
+            worst = max(worst, (d.float() - w.float()).abs().max().item())
+        del want
+    install, idle = torch.tensor(3, device="cuda"), torch.tensor(8, device="cuda")
+    ms = graph_ms(lambda: KS.stage_install_rows(dst, src, install, q, table), 20)
+    idle_ms = graph_ms(lambda: KS.stage_install_rows(dst, src, idle, q, table), 50)
+    plain_ms = graph_ms(lambda: KS.stage_install_rows_plain(dst, src, install, q), 5)
+    plain_idle_ms = graph_ms(lambda: KS.stage_install_rows_plain(dst, src, idle, q), 5)
+    row = sum(d[0].numel() * d.element_size() for d in dst)
+    b_ms, by = bound(2 * row, 0.0)
+    log(f"stage_install_rows: a slot row of {row / 2 ** 20:.1f} MiB over {len(dst)} leaves; "
+        f"graph replays: installing {ms:.4f} ms (plain {plain_ms:.4f} ms), idle {idle_ms:.4f} ms (plain "
+        f"{plain_idle_ms:.4f} ms), bound {b_ms:.4f} ms ({by}); equal to the plain version "
+        f"bit for bit")
+    del caches, dst, src, table
+    torch.cuda.empty_cache()
+    from repro_torch.serving.engine import STAGE_FREE, Engine
+    eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=16, overlap=True,
+                 continuous=True)
+    st, seq = eng._load_state(), eng._stage["seq"]
+    staged = torch.full_like(seq, STAGE_FREE)
+    staged[5] = 0
+    iter_idle_ms = graph_ms(lambda: Engine._stage_install(st, eng.cache, eng._stage), 50)
+
+    def install():
+        seq.copy_(staged)
+        return Engine._stage_install(st, eng.cache, eng._stage)
+
+    _, sw = install()
+    if int(sw["sw_slot"]) != 0 or int(sw["sw_seq"]) != 0:
+        raise AssertionError(f"the install took {sw}, expected stage row 5 into slot 0")
+    iter_ms = graph_ms(install, 20)
+    eng.close()
+    del eng, st, seq
+    torch.cuda.empty_cache()
+    log(f"Engine._stage_install at run S's carry and ring, graph replays: idle "
+        f"{iter_idle_ms:.4f} ms, installing {iter_ms:.4f} ms (the key re-staged by one "
+        f"copy each call)")
+    return {"name": "stage_install_rows", "route": "cuda",
+            "source": "src/repro_torch/csrc/stage_install.cu",
+            "replaces": "src/repro/models/transformer.py:720",
+            "tpu_kernel": ("src/repro/models/transformer.py::swap_cache_slot (an XLA "
+                           "scatter, mode=\"drop\"; no pallas_call)"),
+            "shape": (f"ring and stage cache 8 x 4096, 36 layers of bf16 latents "
+                      f"(G=2, r=256) + pos; a row {row} B"),
+            "max_abs_err": worst, "max_err_f32": None, "ms": ms, "idle_ms": idle_ms,
+            "plain_ms": plain_ms, "plain_idle_ms": plain_idle_ms, "bound_ms": b_ms,
+            "bound_by": by, "library_ms": None, "install_iteration_ms": iter_ms,
+            "install_iteration_idle_ms": iter_idle_ms}
+
+
+def phase_cli(torch) -> dict:
+    """The serving CLI at full width: ``repro_torch.launch.serve.main`` with
+    qwen3-4b at ``--recalkv 0.5`` on the kernel backend (named "pallas"),
+    ``--continuous --aot``, 8 slots, 16 requests; every request must
+    finish with its budget."""
+    from repro_torch.launch import serve as cli
+    t0 = time.perf_counter()
+    new = 32
+    done = cli.main(["--arch", "qwen3-4b", "--recalkv", "0.5", "--backend", "pallas",
+                     "--continuous", "--aot", "--requests", "16", "--slots", "8",
+                     "--max-len", "512", "--new-tokens", str(new)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if sorted(r.uid for r in done) != list(range(16)) or any(
+            len(r.out_tokens) != new for r in done):
+        raise AssertionError("the serving CLI did not finish every request")
+    log(f"serving CLI: 16 requests x {new} tokens, continuous + aot, {wall:.1f} s with "
+        f"the model's init")
+    torch.cuda.empty_cache()
+    return {"requests": len(done), "new_tokens": new, "wall_s": wall}
 
 
 ARTIFACT = ROOT / "build" / "chip_smoke_artifact"   # gitignored
@@ -1320,6 +1529,7 @@ def main() -> int:
     log(f"model {cfg.name} recalkv r={cfg.recalkv.rank_k} G="
         f"{cfg.recalkv.num_groups(cfg.num_kv_heads)}: {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.2f} s")
+    entries.append(phase_stage_install(torch, cfg, params, gen))
     backends = phase_backends(torch, cfg, params)
     backends["paged"] = phase_paged_steps(torch, cfg, params)
     serving, by_run, streams = {}, {}, {}
@@ -1330,6 +1540,17 @@ def main() -> int:
                              f"(ring): {streams['E']} vs {streams['C']}")
     log("engine run E streams equal run C's token for token")
     phase_overlapped(torch, cfg, params, "ABD", by_run, streams, serving)
+    # D+ at staging_depth 8 (the default is 2 x max_slots = 16)
+    by_run["D+s8"], streams["D+s8"], serving["D+s8"] = phase_engine(
+        torch, cfg, params, "D", overlapped=True, extra=dict(staging_depth=8),
+        label="D, overlapped + graphs, staging_depth 8")
+    if streams["D+s8"] != streams["D"]:
+        raise AssertionError("engine run D+s8: streams differ from run D's")
+    log(f"engine run D+s8: peak memory {serving['D+s8']['peak_gib']:.2f} GiB at "
+        f"staging_depth 8 (D+ at 16: {serving['D+']['peak_gib']:.2f} GiB, sync D "
+        f"{serving['D']['peak_gib']:.2f} GiB); tok/s {serving['D+s8']['tokens_per_s']:.2f} "
+        f"(D+ {serving['D+']['tokens_per_s']:.2f})")
+    phase_continuous(torch, cfg, params, "S", by_run, streams, serving)
     for run, verify_bits in (("F", ()), ("G", (None,))):
         del params   # one model's weights at a time
         torch.cuda.empty_cache()
@@ -1354,14 +1575,15 @@ def main() -> int:
     for run in ("H", "I", "I9"):
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     phase_overlapped(torch, cfg, params, "HI", by_run, streams, serving)
+    phase_continuous(torch, cfg, params, "T", by_run, streams, serving)
     old = {run: {k: by_run[run][k] for k in (
         "latent_decode_attention", "latent_decode_attention_paged",
         "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
-        for run in ("steps", "H", "I", "I9", "H+", "I+")}
+        for run in ("steps", "H", "I", "I9", "H+", "I+", "T", "T+", "T+c")}
     if any(n for counts in old.values() for n in counts.values()):
         raise AssertionError(f"the dense model launched K1, K4, K5 or K7: {old}")
     log("K1, K4, K5 and K7 (the old dense route) launched 0 times over the dense steps "
-        "and runs H, I, I9 and H, I overlapped")
+        "and runs H, I, I9, T and H, I, T overlapped")
     compression = phase_compress(torch, cfg, params)
     del params   # the dense model goes; J boots from the saved artifact
     torch.cuda.empty_cache()
@@ -1370,6 +1592,7 @@ def main() -> int:
     shutil.rmtree(ARTIFACT)
     log(f"dense model, runs H-J and the compression took "
         f"{time.perf_counter() - t_model:.1f} s")
+    cli = phase_cli(torch)
     for e in entries:
         key = e.get("launch_key", e["name"])
         e["launches_by_run"] = {run: by_run[run][key] for run in by_run}
@@ -1378,7 +1601,7 @@ def main() -> int:
     if never:
         raise AssertionError(f"kernels never launched on the main path: {never}")
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
-                    "f32_widths": f32_widths, "compression": compression}))
+                    "f32_widths": f32_widths, "compression": compression, "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

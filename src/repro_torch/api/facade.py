@@ -96,7 +96,8 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
     ``prefill_chunk``, ``backend``, ``spec_depth`` / ``draft``,
     ``cache_layout`` / ``page_size`` / ``n_pages``, ``policy``,
     ``lazy_pages``, ``pin_prefixes``, ``overlap`` / ``pipeline_depth`` /
-    ``admission_thread``, ``aot``, ``adaptive_spec``, ``profile``).
+    ``admission_thread``, ``continuous`` / ``staging_depth``, ``aot``,
+    ``adaptive_spec``, ``profile``).
     Widths no CUDA kernel serves are refused before the engine is built
     (``check_supported``)."""
     if isinstance(artifact, str):

@@ -31,8 +31,8 @@ def get_config(arch: str, *, smoke: bool = False,
                recalkv_ratio: float | None = None,
                cache_quant_bits: int | None = None) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; "
-                       f"ported: {ARCHS}")
+        raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: {ARCHS} "
+                       f"(the others: ROADMAP.md, Queue 1 item 4)")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.FULL
     if recalkv_ratio is not None:

@@ -10,13 +10,17 @@
   dense_decode     the dense cores of K1 / K4 (decode) and K5 / K7
                    (multi-query verify) over the dense KV cache, on the
                    ring and through a page table
+  stage_install    continuous batching's in-window install: a staged
+                   cache row copied into a freed slot, predicated on the
+                   device (glue, not a TPU kernel)
 
 bf16 K1 and K3-K7 run the tensor-core body of ``csrc/latent_decode_tc.cu``;
 their float32 calls run the CUDA-core template of ``csrc/latent_decode.cu``;
 K2 is ``csrc/flash_prefill.cu`` (bf16 on ``wgmma``, float32 on CUDA
 cores); the dense decode cores are ``csrc/dense_decode.cu`` (one CUDA-core
 body for bf16 and float32), the dense verify cores ``csrc/dense_verify.cu``
-(bf16 on ``mma.sync``, float32 on CUDA cores).  Each module holds the CUDA
+(bf16 on ``mma.sync``, float32 on CUDA cores); the install's row copy
+``csrc/stage_install.cu``.  Each module holds the CUDA
 wrappers, their plain PyTorch versions and a launch counter per wrapper;
 ``ops`` adapts model tensors to them and ``build`` compiles the sources in
 ``csrc/`` at first use.
@@ -31,13 +35,14 @@ from repro_torch.kernels.latent_decode import (
     latent_decode_attention_mq_paged, latent_decode_attention_paged)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
+from repro_torch.kernels.stage_install import stage_install_rows
 
 KERNELS = (latent_decode_attention, flash_prefill_attention,
            latent_decode_attention_quant, latent_decode_attention_paged,
            latent_decode_attention_mq, latent_decode_attention_mq_quant,
            latent_decode_attention_mq_paged, dense_decode_attention,
            dense_decode_attention_paged, dense_decode_attention_mq,
-           dense_decode_attention_mq_paged)
+           dense_decode_attention_mq_paged, stage_install_rows)
 
 
 def reset_launch_counts() -> None:
@@ -50,4 +55,4 @@ __all__ = ["KERNELS", "dense_decode_attention", "dense_decode_attention_mq",
            "flash_prefill_attention", "latent_decode_attention",
            "latent_decode_attention_mq", "latent_decode_attention_mq_paged",
            "latent_decode_attention_mq_quant", "latent_decode_attention_paged",
-           "latent_decode_attention_quant", "reset_launch_counts"]
+           "latent_decode_attention_quant", "reset_launch_counts", "stage_install_rows"]

@@ -17,6 +17,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.device import resolve_device
+from repro_torch.kernels.stage_install import InstallTable, stage_install_rows
 from repro_torch.models import kv_cache as KC
 from repro_torch.models import layers as L
 from repro_torch.models.config import ModelConfig, check_supported
@@ -202,6 +203,35 @@ def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     """Write a verify step's deferred entries for the accepted prefix
     (``mask`` (B, S) bool), in place."""
     return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages)
+
+
+def _self_leaves(caches: list) -> list:
+    return [leaf for c in caches for leaf in c["self"].values()]
+
+
+def install_table(caches: list, stage: list):
+    """The table :func:`swap_cache_slot`'s kernel reads on a card, built
+    once over a ring and its stage cache (``None`` on the CPU, where the
+    plain version runs).  The caller holds it as long as both caches and
+    any graph captured over them live."""
+    if not caches[0]["self"]["pos"].is_cuda:
+        return None
+    return InstallTable(_self_leaves(caches), _self_leaves(stage))
+
+
+def swap_cache_slot(caches: list, stage: list, slot: torch.Tensor,
+                    q: torch.Tensor, table=None) -> list:
+    """Install row ``q`` of a stage cache (the same layers and leaves as the
+    ring, see :func:`init_decode_cache`) into serving slot ``slot`` of the
+    ring, in place: continuous batching's mid-window install.  ``slot`` /
+    ``q`` are 0-d int64 device tensors; a ``slot`` outside the batch
+    copies nothing (JAX's ``mode="drop"``), which is how the window says
+    "no install this iteration" without a branch.  On a card ``table`` is
+    :func:`install_table` of these two caches.  Ring layout only: a
+    paged install copies the page-table row alone (the staged pages were
+    scattered into the pool at stage time)."""
+    stage_install_rows(_self_leaves(caches), _self_leaves(stage), slot, q, table)
+    return caches
 
 
 def wipe_pages(caches: list, pages: torch.Tensor) -> list:

@@ -74,9 +74,23 @@ the eager window.  On the CPU ``aot`` captures nothing.
 boundary once its draft has proposed ``ADAPTIVE_MIN_PROPOSED`` tokens with
 an accept rate under ``ADAPTIVE_ACCEPT_FLOOR``; streams do not change.
 
-Not ported yet (see ROADMAP.md): continuous batching (the device staging
-queue and in-window slot swap, ``continuous`` / ``staging_depth``),
-meshes.
+Continuous batching (``continuous=True``, overlapped only): admission
+stages prefilled requests into a device staging queue of ``max_slots``
+rows (a ``seq`` key per row, ``STAGE_FREE`` when empty, one carry row per
+request and, on the ring, a stage cache of ``max_slots`` rows; on the pool
+a staged request's pages are scattered into the pool at stage time).  Each
+window iteration first installs the queue's FIFO head into the lowest free
+slot, on the device and without a branch: the carry row by ``torch.where``
+on the selected row, the ring's cache row by a copy predicated on the
+device (``csrc/stage_install.cu``), a ``gen`` bump that drops host
+scatters aimed at the slot's old occupant.  The iteration emits the
+installed ``seq`` and slot, and the harvest confirms the install into the
+mirror and the scheduler after the fact.  ``seq`` lives in a static
+buffer that every later window reads, so each install happens once at any
+``pipeline_depth``, inside the captured graphs too.  ``staging_depth``
+bounds the prefilled look-ahead (default ``2 * max_slots``).
+
+Not ported yet (see ROADMAP.md): meshes.
 """
 
 from __future__ import annotations
@@ -102,13 +116,18 @@ from repro_torch.serving import sampler as S
 from repro_torch.serving.draft import DraftSpec
 from repro_torch.serving.pages import PagePool, PrefixRegistry, prefix_key
 from repro_torch.serving.pipeline import (AdmissionWorker, InflightWindow,
-                                          PreemptedRecord, StagedWave,
-                                          TokenBacklog)
+                                          PreemptedRecord, StagedEntry,
+                                          StagedWave, TokenBacklog)
 from repro_torch.serving.policy import AdmissionPolicy, get_policy
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
 
 __all__ = ["DraftSpec", "Engine", "Request", "SamplingParams"]
+
+# The key of an empty device staging row: the install's argmin over the
+# keys finds the lowest (first staged) sequence number ahead of every free
+# row.
+STAGE_FREE = np.iinfo(np.int32).max
 
 
 def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor,
@@ -178,9 +197,12 @@ class Engine:
     when the pool runs dry.  ``overlap`` keeps ``pipeline_depth`` windows
     in flight (token handling on a backlog thread, admission prefill on a
     worker thread with ``admission_thread``, on by default under overlap);
-    ``aot`` captures the window iteration as CUDA graphs at construction
-    (a card only); ``adaptive_spec`` degrades cold-draft slots to plain
-    decode; ``profile`` records a timeline of the host boundary's stages.
+    ``continuous`` installs staged requests into freed slots inside the
+    window, and ``staging_depth`` bounds how many requests may sit
+    prefilled ahead of a slot (default ``2 * max_slots``); ``aot``
+    captures the window iteration as CUDA graphs at construction (a card
+    only); ``adaptive_spec`` degrades cold-draft slots to plain decode;
+    ``profile`` records a timeline of the host boundary's stages.
     ``device`` defaults to ``cuda``; ``params`` must already live there
     (see ``models.weights``)."""
 
@@ -199,6 +221,7 @@ class Engine:
                  n_pages: int | None = None, pin_prefixes: int = 0,
                  lazy_pages: bool = False, overlap: bool = False,
                  aot: bool = False, pipeline_depth: int = 2,
+                 continuous: bool = False, staging_depth: int | None = None,
                  admission_thread: bool | None = None,
                  adaptive_spec: bool = False, profile: bool = False,
                  device=None):
@@ -218,6 +241,16 @@ class Engine:
         if pipeline_depth != 2 and not overlap:
             raise ValueError("pipeline_depth is the overlapped engine's "
                              "in-flight window budget; set overlap=True")
+        if continuous and not overlap:
+            raise ValueError("continuous batching (in-window slot swap) "
+                             "requires overlap=True")
+        if continuous and parsed_draft is not None and parsed_draft.kind == "layers":
+            raise ValueError(
+                "continuous batching is incompatible with the layer-"
+                "fraction draft: its slot-major ring has no staged "
+                "twin for the in-scan install")
+        if staging_depth is not None and staging_depth < 1:
+            raise ValueError("staging_depth must be >= 1")
         if admission_thread and not overlap:
             raise ValueError("admission_thread requires overlap=True (the "
                              "sync engine admits inline by definition)")
@@ -243,6 +276,12 @@ class Engine:
             if cache_layout != "paged":
                 raise ValueError("lazy_pages defers page reservation; it "
                                  "needs cache_layout='paged'")
+            if continuous:
+                raise ValueError(
+                    "lazy_pages is incompatible with continuous batching: "
+                    "the in-scan installer hands slots over mid-window, so "
+                    "boundary-granular page top-up/preemption cannot tell "
+                    "whose reach it is covering")
             if parsed_draft is not None and parsed_draft.kind == "layers":
                 raise ValueError(
                     "lazy_pages is incompatible with the layer-fraction "
@@ -317,6 +356,13 @@ class Engine:
             # as the paged kernels take it.
             self._st["ptab"] = np.zeros((max_slots, max_len // page_size),
                                         np.int32)
+        if continuous:
+            # per-slot generation count, bumped by every in-window install:
+            # host scatters onto the live carry (refills, degradations)
+            # carry the host's count and drop where the device's moved on,
+            # so a write aimed at a slot's old occupant never lands on the
+            # request installed since
+            self._st["gen"] = np.zeros(max_slots, np.int32)
         self.draft_proposed = 0      # draft tokens fed to verification
         self.draft_accepted = 0      # ... accepted (free extra tokens)
         self.host_syncs = 0          # device->host sync points
@@ -350,9 +396,10 @@ class Engine:
         self.admission_thread = (self.overlap if admission_thread is None
                                  else bool(admission_thread))
         self.profile = bool(profile)
-        # prefilled-but-unmerged look-ahead, the JAX engine's default
-        # staging_depth
-        self._staging_depth = 2 * max_slots
+        self.continuous = bool(continuous)
+        # prefilled-but-unmerged look-ahead
+        self.staging_depth = (int(staging_depth) if staging_depth is not None
+                              else 2 * max_slots)
         self._inflight: deque[InflightWindow] = deque()
         self._st_dev: dict[str, torch.Tensor] | None = None   # device carry
         self._dispatch_index = 0             # windows dispatched so far
@@ -364,6 +411,15 @@ class Engine:
         self._backlog = TokenBacklog() if self.overlap else None
         self._sched_lock = threading.Lock()
         self._staged_waves: deque[StagedWave] = deque()
+        # continuous batching: the host's view of the device staging rows
+        # (an entry stays until a harvest reports its install)
+        self._stage_tab: list[StagedEntry | None] = [None] * max_slots
+        self._stage_by_seq: dict[int, tuple[int, StagedEntry]] = {}
+        self._stage_seq_next = 0
+        self.slot_swaps = 0          # in-window installs confirmed
+        self._stage: dict | None = None
+        if self.continuous:
+            self._stage = self._init_stage()
         self._prof = {k: 0.0 for k in ("dispatch", "harvest", "bookkeep",
                                        "admission_stage", "backlog_drain")}
         self._prof_events: list[dict] = []
@@ -424,13 +480,20 @@ class Engine:
     def from_artifact(cls, path: str, *, max_slots: int, max_len: int,
                       device=None, **kw) -> "Engine":
         """Boot an engine from a compression artifact either package
-        saved (other keywords, the paged pool's and the overlapped
-        engine's included, as on the constructor)."""
+        saved (other keywords, the paged pool's, the overlapped engine's
+        and continuous batching's included, as on the constructor)."""
         from repro_torch.api import load_artifact
 
         art = load_artifact(path, device=device)
         return cls(art.cfg, art.params, max_slots=max_slots, max_len=max_len,
                    device=device, **kw)
+
+    @property
+    def unfinished(self) -> dict[str, int]:
+        """Requests not finished yet: queued (staged and parked included)
+        and in a slot."""
+        return {"queued": self.scheduler.queue_depth,
+                "in_flight": self.scheduler.occupancy}
 
     # -- admission ----------------------------------------------------------
 
@@ -590,11 +653,11 @@ class Engine:
         row[:] = 0
         row[: len(mapping)] = mapping
 
-    def _assign_shared_pages(self, slot: int, req: Request) -> int:
+    def _map_shared_pages(self, req: Request) -> tuple[list[int], int]:
         """Skip-path mapping (no prefill row): the resident prefix is held,
         the rest freshly allocated and position-wiped (no prefill covers
         it, and a recycled page's old positions would read as valid).
-        Returns the shared coverage, the slot's admitted ``cur``."""
+        Returns (the mapping, the shared coverage: the admitted ``cur``)."""
         ps = self.page_size
         shared = self._registered_prefix(req, (len(req.prompt) - 1) // ps)
         self._hold_shared(shared)
@@ -604,11 +667,22 @@ class Engine:
         if own:
             self._wipe(own)
         self._update_pins()
-        self._bind_pages(slot, shared + own)
         self.prefill_calls_saved += 1
+        return shared + own, hit_len
+
+    def _assign_shared_pages(self, slot: int, req: Request) -> int:
+        """``_map_shared_pages`` bound to ``slot``; returns the coverage."""
+        mapping, hit_len = self._map_shared_pages(req)
+        self._bind_pages(slot, mapping)
         return hit_len
 
     def _assign_pages(self, slot: int, req: Request, first_len: int):
+        """``_map_pages`` bound to ``slot``."""
+        mapping, scat = self._map_pages(req, first_len)
+        self._bind_pages(slot, mapping)
+        return mapping, scat
+
+    def _map_pages(self, req: Request, first_len: int):
         """Map ``req``'s slot pages: the longest registered prefix fully
         covered by this wave's prefill is shared, the rest allocated.
         Copy-on-write resolves here: the first page past the shared run
@@ -628,7 +702,6 @@ class Engine:
                 self._prefixes.register(prefix_key(req.prompt, j, ps),
                                         mapping[j])
         self._update_pins()
-        self._bind_pages(slot, mapping)
         return mapping, list(range(len(shared), n_need))
 
     def _note_prefix_hit(self, page: int):
@@ -671,8 +744,9 @@ class Engine:
 
     def _bucket_prompts(self, reqs, first_lens, rows, w):
         """Pack the wave's prefill rows (``rows[i]`` >= 0) into one
-        power-of-two (rows, prompt-len) bucket (row cap twice the slots)."""
-        W = _bucket(w, 2 * self.B)
+        power-of-two (rows, prompt-len) bucket (row cap: the slots or the
+        staging depth, whichever is larger)."""
+        W = _bucket(w, max(self.B, self.staging_depth))
         P = _bucket(max(fl for fl, ri in zip(first_lens, rows) if ri >= 0),
                     self.max_len)
         toks = np.zeros((W, P), np.int64)
@@ -787,38 +861,44 @@ class Engine:
             ks[:, 1], any_sampled=not all(specs[i].greedy for i in pre))
         return ks, first
 
-    def _admit_bookkeep(self, slot: int, r: Request, sp: SamplingParams,
-                        first_len: int):
+    def _carry_fields(self, r: Request, sp: SamplingParams, first_len: int):
+        """The host-known carry fields of a request admitted with
+        ``first_len`` prompt tokens prefilled, one row value per field,
+        whichever slot takes it: a direct admission writes them into the
+        mirror, continuous batching into a staging row.  Returns (fields,
+        the prompt tail left pending after the first ingest chunk)."""
         st = self._st
+        row = {"cur": first_len, "eos": -1 if r.eos_id is None else r.eos_id,
+               "temp": sp.temperature, "top_k": sp.top_k, "top_p": sp.top_p,
+               "bpos": 0, "act": True, "tok": 0}
         if "spec_on" in st:
             # degradation is per request: a fresh admission gets the draft
             # back, with clean accept / propose counts
-            st["spec_on"][slot] = True
-        self._spec_acc[slot] = 0
-        self._spec_prop[slot] = 0
-        st["cur"][slot] = first_len
-        st["eos"][slot] = -1 if r.eos_id is None else r.eos_id
-        st["temp"][slot] = sp.temperature
-        st["top_k"][slot] = sp.top_k
-        st["top_p"][slot] = sp.top_p
-        st["bpos"][slot] = 0
-        st["act"][slot] = True
-        st["tok"][slot] = 0
+            row["spec_on"] = True
         if "hist" in st:
             # the whole prompt is known at admission, even the part not
             # ingested yet: seed the n-gram corpus with it up front
-            st["hist"][slot] = 0
-            st["hist"][slot, : len(r.prompt)] = r.prompt
+            row["hist"] = np.zeros(st["hist"].shape[1:], st["hist"].dtype)
+            row["hist"][: len(r.prompt)] = r.prompt
         rest = r.prompt[first_len:]
         if rest.size == 0:
-            st["left"][slot] = r.max_new_tokens - 1
-            st["avail"][slot] = 0
-            st["more"][slot] = False
-        else:
-            # chunked prefill: stream the remainder through the ingest buffer
-            self.scheduler.set_pending(slot, rest)
-            self._load_chunk(slot)
-            st["left"][slot] = r.max_new_tokens
+            row.update(left=r.max_new_tokens - 1, avail=0, more=False)
+            return row, rest
+        # chunked prefill: stream the remainder through the ingest buffer
+        chunk, pending = self.scheduler.split_chunk(rest)
+        row["buf"] = np.zeros(st["buf"].shape[1:], st["buf"].dtype)
+        row["buf"][: chunk.shape[0]] = chunk
+        row.update(left=r.max_new_tokens, avail=chunk.shape[0], more=pending.size > 0)
+        return row, pending
+
+    def _admit_bookkeep(self, slot: int, r: Request, sp: SamplingParams,
+                        first_len: int):
+        row, pending = self._carry_fields(r, sp, first_len)
+        for k, v in row.items():
+            self._st[k][slot] = v
+        self.scheduler.set_pending(slot, pending)
+        self._spec_acc[slot] = 0
+        self._spec_prop[slot] = 0
 
     def _load_chunk(self, slot: int):
         chunk = self.scheduler.next_chunk(slot)
@@ -1068,11 +1148,63 @@ class Engine:
         last_prompt = feeding & ~st["more"] & (st["bpos"] + 1 >= st["avail"])
         return feeding, tok_in, stepping, last_prompt
 
+    def _init_stage(self) -> dict:
+        """The device staging area (static buffers: the captured graphs
+        read them by pointer): ``seq`` keys (``STAGE_FREE`` = empty row),
+        one carry row per staged request and, on the ring, a stage cache
+        of ``max_slots`` rows with the ring's layout."""
+        stage = {"seq": self._dev(np.full(self.B, STAGE_FREE, np.int32)),
+                 "rows": {k: torch.zeros_like(self._dev(v)) for k, v in self._st.items()}}
+        if self._pages is None:
+            stage["cache"] = T.init_decode_cache(self.cfg, self.B, self.max_len,
+                                                 self.device)
+            stage["table"] = T.install_table(self.cache, stage["cache"])
+        return stage
+
+    @staticmethod
+    def _stage_install(st: dict[str, torch.Tensor], cache: list, stage: dict):
+        """Continuous batching's device half, before an iteration's step:
+        install the staging queue's FIFO head (``argmin`` of the keys)
+        into the lowest free slot (``argmax`` of the free flags), when both
+        exist.  Branchless: the carry rows by ``torch.where`` on the
+        selected row, the ring's cache row by a copy the device predicates
+        (``T.swap_cache_slot`` over ``stage["table"]``, which the stage
+        holds beside its cache; ``stage["cache"]`` absent on the pool),
+        ``gen`` bumped rather than copied.  The head's key is cleared in
+        ``stage["seq"]``, in place, so every later window sees the install
+        and it happens once.  Returns (state, outputs: the installed
+        ``sw_seq`` and ``sw_slot``, -1 where nothing installed)."""
+        act, seq = st["act"], stage["seq"]
+        q = torch.argmin(seq).reshape(1)
+        head = seq.index_select(0, q)
+        # argmax over an int tensor: the first free slot on ties
+        slot = torch.argmax((~act).to(torch.int32)).reshape(1)
+        do = (head != STAGE_FREE) & ~act.index_select(0, slot)
+        st2 = {}
+        for k, v in st.items():
+            old = v.index_select(0, slot)
+            if k == "gen":
+                row = old + do.to(v.dtype)
+            else:
+                sel = do.reshape((1,) + (1,) * (v.dim() - 1))
+                row = torch.where(sel, stage["rows"][k].index_select(0, q), old)
+            st2[k] = v.index_copy(0, slot, row)
+        if "cache" in stage:
+            T.swap_cache_slot(cache, stage["cache"], slot.masked_fill(~do, act.shape[0]), q,
+                              stage.get("table"))
+        seq.index_copy_(0, q, head.masked_fill(do, STAGE_FREE))
+        return st2, {"sw_seq": head.masked_fill(~do, -1)[0],
+                     "sw_slot": slot.to(torch.int32).masked_fill(~do, -1)[0]}
+
     def _decode_iter(self, st: dict[str, torch.Tensor], any_sampled: bool):
         """One decode iteration on device state.  Per slot: pick the fed
         token, one batched decode_step (inactive and stalled rows write
         nothing), sample, update emit / termination flags; the key advances
-        only where the slot emitted.  Returns (state, outputs)."""
+        only where the slot emitted.  A continuous engine installs a staged
+        request first.  Returns (state, outputs)."""
+        sw = {}
+        if self.continuous:
+            st, sw = self._stage_install(st, self.cache, self._stage)
         feeding, tok_in, stepping, last_prompt = self._feed(st)
         logits, self.cache = T.decode_step(self.cfg, self.params, self.cache,
                                            tok_in, st["cur"], stepping,
@@ -1094,7 +1226,7 @@ class Engine:
               "keys": torch.where(emit[:, None], keys2, st["keys"]),
               "bpos": st["bpos"] + feeding.to(st["bpos"].dtype),
               "left": left2}
-        return st, {"toks": sampled, "emits": emit, "n_act": stepping.sum()}
+        return st, {"toks": sampled, "emits": emit, "n_act": stepping.sum(), **sw}
 
     def _propose(self, st, cur, tok_in, stepping, speculating, cap_ok):
         """(B, spec_depth) draft proposals.  The layer draft takes depth + 1
@@ -1124,9 +1256,13 @@ class Engine:
         round.  Only the accepted prefix is written to the ring and keys
         advance once per emitted token.  Ingesting slots keep one token per
         round (their columns >= 1 are never candidates), and so do slots
-        ``adaptive_spec`` degraded.  Returns (state, outputs); the outputs
-        hold the per-slot accepted and proposed draft counts."""
+        ``adaptive_spec`` degraded.  A continuous engine installs a staged
+        request first.  Returns (state, outputs); the outputs hold the
+        per-slot accepted and proposed draft counts."""
         cfg, S_pos = self.cfg, self.spec_depth + 1
+        sw = {}
+        if self.continuous:
+            st, sw = self._stage_install(st, self.cache, self._stage)
         feeding, tok_in, stepping, last_prompt = self._feed(st)
         speculating = stepping & ~feeding
         if "spec_on" in st:
@@ -1190,7 +1326,7 @@ class Engine:
                     "emits": torch.stack(emits, dim=1),
                     "acc": valid[:, 1:].sum(dim=1),
                     "prop": (cand[:, 1:] & (fed[:, 1:] >= 0)).sum(dim=1),
-                    "n_act": stepping.sum()}
+                    "n_act": stepping.sum(), **sw}
 
     def _window(self, st: dict[str, torch.Tensor], any_sampled: bool):
         """``sync_every`` iterations on device state: replays of the
@@ -1215,10 +1351,13 @@ class Engine:
         return st, {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
 
     def _any_sampled(self) -> bool:
-        """Whether a slot the host believes active samples (a stale active
-        flag only picks the sampled window, which is exact for greedy rows
-        too)."""
-        return bool((self._st["act"] & (self._st["temp"] >= S._TEMP_EPS)).any())
+        """Whether a slot the host believes active samples, or a staged
+        request the window may install does (a stale active flag only
+        picks the sampled window, which is exact for greedy rows too)."""
+        if bool((self._st["act"] & (self._st["temp"] >= S._TEMP_EPS)).any()):
+            return True
+        return any(e is not None and e.host_row["temp"] >= S._TEMP_EPS
+                   for e in self._stage_tab)
 
     def _load_state(self) -> dict[str, torch.Tensor]:
         """The host mirror on the device for one sync window: copied into
@@ -1339,14 +1478,16 @@ class Engine:
             if r is not None and not self._st["act"][slot]:
                 self._finish(slot)
 
-    def _adaptive_update(self, ok, act, accs, props):
+    def _adaptive_update(self, ok, act, accs, props, installed=()):
         """Fold a window's per-slot accepted / proposed counts into the
         running ones and degrade cold-draft slots to plain decode.  Sticky
-        per request: ``spec_on`` resets at the next admission."""
+        per request: ``spec_on`` resets at the next admission.  A slot a
+        continuous window installed into is skipped (its counts mix two
+        requests)."""
         st = self._st
         degrade = []
         for s in range(self.B):
-            if not ok[s]:
+            if not ok[s] or s in installed:
                 continue
             self._spec_acc[s] += int(accs[s])
             self._spec_prop[s] += int(props[s])
@@ -1406,19 +1547,38 @@ class Engine:
 
     def _scatter_rows(self, slots, host_rows: dict, dev_rows: dict | None = None):
         """Write per-slot rows into the device carry, in place, behind the
-        windows in flight (host rows through pinned asynchronous copies)."""
+        windows in flight (host rows through pinned asynchronous copies).
+        Under continuous batching each row carries the host's ``gen`` of
+        its slot and lands only where the device's still equals it: an
+        install in a window in flight may have handed the slot to another
+        request since the host decided."""
+        guard = self._st["gen"][list(slots)] if self.continuous else None
+        self._put_rows(self._st_dev, slots, host_rows, dev_rows, guard)
+
+    def _put_rows(self, st, slots, host_rows: dict, dev_rows: dict | None = None,
+                  guard=None):
+        """Write rows ``slots`` of the device leaves ``st``, in place, from
+        host rows and device rows; with ``guard`` (host ``gen`` values)
+        only where ``st["gen"]`` equals it."""
         idx = self._dev(np.asarray(slots, np.int64))
-        st = self._st_dev
-        for k, rows in host_rows.items():
-            st[k][idx] = self._dev(rows).to(st[k].dtype)
-        for k, rows in (dev_rows or {}).items():
-            st[k][idx] = rows.to(st[k].dtype)
+        ok = None
+        if guard is not None:
+            ok = st["gen"].index_select(0, idx) == self._dev(np.asarray(guard, np.int32))
+        rows = {k: self._dev(v) for k, v in host_rows.items()}
+        rows.update(dev_rows or {})
+        for k, v in rows.items():
+            v = v.to(st[k].dtype)
+            if ok is not None:
+                v = torch.where(ok.reshape((-1,) + (1,) * (v.dim() - 1)), v,
+                                st[k].index_select(0, idx))
+            st[k][idx] = v
 
     def _staging_capacity(self) -> int:
         """How many more requests admission may pull off the queue: the
-        prefilled-but-unmerged look-ahead is bounded by ``_staging_depth``."""
+        prefilled-but-unmerged look-ahead (staged on the device included)
+        is bounded by ``staging_depth``."""
         with self._sched_lock:
-            return max(0, self._staging_depth - len(self.scheduler.staged))
+            return max(0, self.staging_depth - len(self.scheduler.staged))
 
     def _take_staged_locked(self, max_n: int) -> list[Request]:
         with self._sched_lock:
@@ -1470,9 +1630,10 @@ class Engine:
 
     def _admit_overlap(self):
         """Boundary admission: collect prepared waves (from the worker, or
-        prepared inline) and merge them into free slots.  ``host_syncs`` /
-        ``admission_syncs`` tick once per wave at its first merge, keeping
-        host_syncs == windows + admission_syncs."""
+        prepared inline) and merge them into free slots, or under
+        continuous batching into the device staging queue.
+        ``host_syncs`` / ``admission_syncs`` tick once per wave at its
+        first merge, keeping host_syncs == windows + admission_syncs."""
         if self._admission is not None:
             self._staged_waves.extend(self._admission.poll())
         else:
@@ -1481,7 +1642,10 @@ class Engine:
                 reqs = self._take_staged_locked(cap)
                 if reqs:
                     self._staged_waves.append(self._prepare_wave(reqs))
-        self._place_from_waves()
+        if self.continuous:
+            self._stage_from_waves()
+        else:
+            self._place_from_waves()
         if self._admission is not None:
             self._admission.kick(self._staging_capacity())
 
@@ -1540,7 +1704,6 @@ class Engine:
         first-token emission — the device half of what ``_admit`` does
         synchronously, queued behind the windows in flight."""
         st = self._st
-        t = self._dev
         # the merge's page walk is authoritative: a skip member's coverage
         # resident now replaces the worker's probe
         lens = self._merge_prefill(
@@ -1559,28 +1722,33 @@ class Engine:
         # keys and act depend on the sampled first token and stay on device
         slots = [s for s, _ in placed]
         host_rows = {k: v[slots] for k, v in st.items() if k not in ("tok", "keys", "act")}
+        self._scatter_rows(slots, host_rows, self._first_rows(wv, idx))
+        entries = [(r, wv.rows[i]) for i, (_, r) in zip(idx, placed) if wv.full[i]]
+        if entries:
+            self._backlog.put(self._timed(self._admit_item(wv, entries), "backlog_drain"))
+
+    def _first_rows(self, wv: StagedWave, idx) -> dict:
+        """The (tok, act, keys) rows of wave requests ``idx``, on the
+        device: they depend on the sampled first token."""
+        t = self._dev
         keys0 = t(wv.keys0[idx])
         if wv.first is None:
             # all-skip wave: no first tokens; every row starts active with
             # its base key, feeding from the ingest buffer
-            dev_rows = {"tok": torch.zeros_like(keys0[:, 0]),
-                        "act": torch.ones_like(keys0[:, 0], dtype=torch.bool),
-                        "keys": keys0}
-        else:
-            prow = t([max(wv.rows[i], 0) for i in idx])
-            full = t(wv.full[idx])
-            first = wv.first[prow]
-            left = t(np.array([wv.reqs[i].max_new_tokens - 1 for i in idx], np.int64))
-            dev_rows = {
-                "tok": torch.where(full, first, 0),
-                # a whole-prompt row can end at its first token (eos, or a
-                # spent budget), as the window would check
-                "act": torch.where(full, (first != t(wv.eos[idx])) & (left > 0), True),
-                "keys": torch.where(full[:, None], wv.ks[prow][:, 0], keys0)}
-        self._scatter_rows(slots, host_rows, dev_rows)
-        entries = [(r, wv.rows[i]) for i, (_, r) in zip(idx, placed) if wv.full[i]]
-        if entries:
-            self._backlog.put(self._timed(self._admit_item(wv, entries), "backlog_drain"))
+            return {"tok": torch.zeros_like(keys0[:, 0]),
+                    "act": torch.ones_like(keys0[:, 0], dtype=torch.bool),
+                    "keys": keys0}
+        prow = t([max(wv.rows[i], 0) for i in idx])
+        # a skip member (row -1) of a mixed wave is not "full": it feeds
+        full = t(wv.full[idx])
+        first = wv.first[prow]
+        left = t(np.array([wv.reqs[i].max_new_tokens - 1 for i in idx], np.int64))
+        return {
+            "tok": torch.where(full, first, 0),
+            # a whole-prompt row can end at its first token (eos, or a
+            # spent budget), as the window would check
+            "act": torch.where(full, (first != t(wv.eos[idx])) & (left > 0), True),
+            "keys": torch.where(full[:, None], wv.ks[prow][:, 0], keys0)}
 
     def _admit_item(self, wv: StagedWave, entries):
         def item():
@@ -1590,6 +1758,136 @@ class Engine:
             for r, i in entries:
                 self._record_token(r, int(first[i]))
         return item
+
+    # -- continuous batching: the host half ---------------------------------
+
+    def _stage_bookkeep(self, r: Request, sp: SamplingParams, first_len: int):
+        """The host-known carry row of a staged request: ``_carry_fields``
+        over a zero row, whole, so the install can land it on whichever
+        slot the device picks.  Returns (row per state leaf, pending
+        prompt tail)."""
+        row = {k: np.zeros(v.shape[1:], v.dtype) for k, v in self._st.items()}
+        fields, pending = self._carry_fields(r, sp, first_len)
+        for k, v in fields.items():
+            row[k][...] = v
+        return row, pending
+
+    def _stage_from_waves(self):
+        """Continuous batching: move prepared wave requests into free
+        device staging rows, head of line first; on the pool a request
+        stages only once its whole reach fits the free pages.  Requests
+        stay in ``scheduler.staged`` until a harvest reports their
+        install; the window picks the slot."""
+        free_rows = [q for q, e in enumerate(self._stage_tab) if e is None]
+        while self._staged_waves and free_rows:
+            wv = self._staged_waves[0]
+            if wv.merged >= len(wv.reqs):
+                self._staged_waves.popleft()
+                continue
+            n = self._stage_run(wv, free_rows)
+            if n == 0:
+                return
+            free_rows = free_rows[n:]
+        while self._staged_waves and self._staged_waves[0].merged >= len(
+                self._staged_waves[0].reqs):
+            self._staged_waves.popleft()
+
+    def _stage_run(self, wv: StagedWave, free_rows: list[int]) -> int:
+        """Stage wave requests from ``wv.merged`` on into ``free_rows``, in
+        order, while rows (and pages) last.  Per request, on the host: its
+        pages (mapped now; the pool's content is scattered now, onto pages
+        no window reads until the install copies their table row), its
+        carry row, its ``seq`` key.  Then one batched device write per
+        leaf on the main stream, the keys last, so a window that sees a
+        key sees its row.  Returns the number staged."""
+        idx, qs, ents = [], [], []
+        rws, cols, phys = [], [], []
+        while wv.merged + len(idx) < len(wv.reqs) and len(idx) < len(free_rows):
+            i = wv.merged + len(idx)
+            r, ri = wv.reqs[i], wv.rows[i]
+            if (self._pages is not None
+                    and self._pages_needed(r) > self._pages.free_count):
+                break
+            if not idx and wv.merged == 0:
+                self.host_syncs += 1
+                self.admission_syncs += 1
+                if wv.ready is not None:
+                    self._adopt_wave(wv)
+            mapping = None
+            if self._pages is not None:
+                if ri < 0:
+                    mapping, wv.first_lens[i] = self._map_shared_pages(r)
+                else:
+                    mapping, scat = self._map_pages(r, wv.first_lens[i])
+                    rws += [ri] * len(scat)
+                    cols += scat
+                    phys += [mapping[j] for j in scat]
+            row, pending = self._stage_bookkeep(r, wv.specs[i], wv.first_lens[i])
+            if mapping is not None:
+                row["ptab"][: len(mapping)] = mapping
+            q = free_rows[len(idx)]
+            ent = StagedEntry(req=r, host_row=row, pending=pending, pages=mapping,
+                              seq=self._stage_seq_next, keys0=wv.keys0[i],
+                              full=bool(wv.full[i]))
+            self._stage_seq_next += 1
+            self._stage_tab[q] = ent
+            self._stage_by_seq[ent.seq] = (q, ent)
+            idx.append(i)
+            qs.append(q)
+            ents.append(ent)
+        if not idx:
+            return 0
+        t = self._dev
+        stage = self._stage
+        if phys:
+            _merge_slot_paged(self.cache, wv.new_cache, t(rws), t(cols), t(phys),
+                              self.page_size)
+        pre = [(q, wv.rows[i]) for q, i in zip(qs, idx) if wv.rows[i] >= 0]
+        if "cache" in stage and pre:
+            _merge_slot(stage["cache"], wv.new_cache, t([q for q, _ in pre]),
+                        rows=t([ri for _, ri in pre]))
+        host_rows = {k: np.stack([e.host_row[k] for e in ents])
+                     for k in self._st if k not in ("tok", "keys", "act")}
+        self._put_rows(stage["rows"], qs, host_rows, self._first_rows(wv, idx))
+        self._put_rows(stage, qs, {"seq": np.array([e.seq for e in ents], np.int32)})
+        entries = [(e.req, wv.rows[i]) for i, e in zip(idx, ents) if e.full]
+        if entries:
+            # the first token is emitted at stage time, as a direct admission
+            # emits it; the backlog's order puts it before the request's
+            # window tokens
+            self._admit_tokens += len(entries)
+            self._backlog.put(self._timed(self._admit_item(wv, entries), "backlog_drain"))
+        wv.merged += len(idx)
+        return len(idx)
+
+    def _install_entry(self, w: InflightWindow, s: int, q: int, ent: StagedEntry):
+        """Confirm an install a harvested window reports: the device already
+        holds slot ``s``'s carry row; the scheduler, the mirror, the pages
+        and the epochs catch up here."""
+        if self.scheduler.slot_req[s] is not None:
+            # the previous occupant ended in this window before the install;
+            # its last tokens ride this window's backlog item
+            self._finish(s)
+        with self._sched_lock:
+            self.scheduler.place(s, ent.req)
+        st = self._st
+        for k, v in ent.host_row.items():
+            if k != "gen":
+                st[k][s] = v
+        st["gen"][s] += 1                 # the install's bump, mirrored
+        self.scheduler.set_pending(s, np.asarray(ent.pending, np.int64))
+        if self._pages is not None:
+            self._slot_pages[s] = list(ent.pages)
+        self._slot_epoch[s] = w.index
+        self._buf_epoch[s] = w.index
+        self._spec_acc[s] = 0
+        self._spec_prop[s] = 0
+        # windows dispatched before the harvest snapshot the old occupant:
+        # they credit the new one from their first iteration on
+        w.slot_reqs[s] = ent.req
+        for wf in self._inflight:
+            wf.slot_reqs[s] = ent.req
+        self._stage_tab[q] = None
 
     def _refill_async(self):
         """Refill drained ingest buffers and scatter them into the carry.
@@ -1610,8 +1908,10 @@ class Engine:
     def _dispatch_window(self) -> bool:
         """Launch the next window on the carry and queue the host copies
         of its packed status and outputs behind it.  False when nothing is
-        active by the host's view."""
-        if not self._st["act"].any():
+        active by the host's view and (under continuous batching) nothing
+        is staged for an install."""
+        staged = self.continuous and any(e is not None for e in self._stage_tab)
+        if not (self._st["act"].any() or staged):
             return False
         occ, qd = self.scheduler.occupancy, self.scheduler.queue_depth
         prior = self._inflight[-1] if self._inflight else None
@@ -1620,8 +1920,12 @@ class Engine:
         st2, ys = self._window(self._st_dev, self._any_sampled())
         self._st_dev = st2
         parts = [st2["act"], st2["bpos"], st2["cur"]]
+        if self.continuous:
+            parts.append(st2["gen"])
         if self.adaptive_spec:
             parts += [ys["acc"].sum(dim=0), ys["prop"].sum(dim=0)]
+        if self.continuous:
+            parts += [ys["sw_seq"], ys["sw_slot"]]
         parts.append(ys["n_act"].sum().reshape(1))
         status = torch.cat([p.to(torch.int32) for p in parts])
         spec = "acc" in ys
@@ -1641,8 +1945,9 @@ class Engine:
 
     def _harvest_trailing(self):
         """Wait for the trailing window's status (the pipeline's one device
-        sync), refresh the epoch-eligible mirror slots, retire finished
-        requests and hand the window's tokens to the backlog."""
+        sync), confirm the window's installs, refresh the epoch-eligible
+        mirror slots, retire finished requests and hand the window's tokens
+        to the backlog."""
         w = self._inflight.popleft()
         t0 = time.perf_counter()
         if w.ready is not None:
@@ -1657,25 +1962,50 @@ class Engine:
         B = self.B
         act = status[:B].astype(bool)
         bpos, cur = status[B: 2 * B], status[2 * B: 3 * B]
-        off = 3 * B
-        ok = self._slot_epoch <= w.index
+        off = 3 * B + (B if self.continuous else 0)    # gen: mirrored per install
+        accs = props = None
         if self.adaptive_spec:
-            self._adaptive_update(ok, act, status[off: off + B],
-                                  status[off + B: off + 2 * B])
+            accs, props = status[off: off + B], status[off + B: off + 2 * B]
             off += 2 * B
+        installs = []
+        if self.continuous:
+            K = self.sync_every
+            sw_seq, sw_slot = status[off: off + K], status[off + K: off + 2 * K]
+            off += 2 * K
+            for k in range(K):
+                if sw_seq[k] >= 0:
+                    q, ent = self._stage_by_seq.pop(int(sw_seq[k]))
+                    installs.append((k, int(sw_slot[k]), q, ent))
         self._act_iters += int(status[off])
+        # the item credits each iteration's tokens to whoever held the slot
+        # then: the map at dispatch, changed at each install's iteration
+        item = self._window_item(w, list(w.slot_reqs),
+                                 [(k, s, ent.req) for k, s, _, ent in installs])
+        for _, s, q, ent in installs:
+            self._install_entry(w, s, q, ent)
+        ok = self._slot_epoch <= w.index
+        if accs is not None:
+            self._adaptive_update(ok, act, accs, props, {s for _, s, _, _ in installs})
         self._st["act"][ok] = act[ok]
         self._st["cur"][ok] = cur[ok]
         bok = ok & (self._buf_epoch <= w.index)
         self._st["bpos"][bok] = bpos[bok]
-        self._backlog.put(self._timed(self._window_item(w), "backlog_drain"))
+        self._backlog.put(self._timed(item, "backlog_drain"))
         for slot, r in enumerate(w.slot_reqs):
             if (r is not None and ok[slot] and not act[slot]
                     and self.scheduler.slot_req[slot] is r):
                 self._finish(slot)
+        self.slot_swaps += len(installs)
         self._prof_add("bookkeep", t1, time.perf_counter() - t1)
 
-    def _window_item(self, w: InflightWindow):
+    def _window_item(self, w: InflightWindow, slot_reqs: list, swaps=()):
+        """The backlog item crediting ``w``'s tokens: ``slot_reqs`` is the
+        slot map at the window's start, ``swaps`` the (iteration, slot,
+        request) of its installs."""
+        at: dict[int, list] = {}
+        for k, s, r in swaps:
+            at.setdefault(k, []).append((s, r))
+
         def item():
             toks, emits = w.toks.numpy(), w.emits.numpy()
             if toks.ndim == 2:
@@ -1690,10 +2020,13 @@ class Engine:
                 if w.acc is not None:
                     self.draft_accepted += int(w.acc)
                     self.draft_proposed += int(w.prop)
+            reqs = slot_reqs
             for k in range(toks.shape[0]):
+                for s, r in at.get(k, ()):
+                    reqs[s] = r
                 for j in range(toks.shape[2]):
                     for i in np.nonzero(emits[k, :, j])[0]:
-                        self._record_token(w.slot_reqs[i], int(toks[k, i, j]))
+                        self._record_token(reqs[i], int(toks[k, i, j]))
         return item
 
     def _step_async(self):
@@ -1783,7 +2116,8 @@ class Engine:
         or close first for exact totals); ``window_overlap`` is the share of
         windows dispatched before the one ahead of them had finished on the
         device, ``windows_idle`` counts harvested windows that emitted
-        nothing.  ``captures`` counts the CUDA graphs ``aot`` captured at
+        nothing, ``slot_swaps`` the installs continuous batching made inside
+        windows.  ``captures`` counts the CUDA graphs ``aot`` captured at
         construction (it never moves after); ``graphs`` gives each one's
         kernel launches per replay, replays and capture seconds."""
         with self._mlock:
@@ -1840,6 +2174,9 @@ class Engine:
             "overlap": self.overlap,
             "aot": self.aot,
             "pipeline_depth": self.pipeline_depth if self.overlap else 0,
+            "continuous": self.continuous,
+            "slot_swaps": self.slot_swaps,
+            "staging_depth": self.staging_depth,
             "admission_thread": self.admission_thread,
             "window_overlap": (self._overlapped_windows / max(self._dispatch_index, 1)
                                if self.overlap else 0.0),

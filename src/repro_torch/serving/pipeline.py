@@ -25,6 +25,10 @@ device carry) or deferred onto a worker thread:
     host-visible merges on the main thread at a window boundary, which is
     what keeps streams token for token equal to the sync engine's
     (prefill is row-independent and the first-token sample is per row).
+  * ``StagedEntry`` (continuous batching) is one request scattered into
+    the device staging queue: the host-known carry row it was staged with,
+    kept until a harvested window confirms the in-window install, so the
+    mirror and the scheduler catch up after the fact.
 
 Ordering contract: items run strictly in ``put`` order on one worker, so a
 request's tokens reach it in dispatch order.
@@ -39,7 +43,7 @@ import time
 from typing import Any, Callable
 
 __all__ = ["AdmissionWorker", "InflightWindow", "PreemptedRecord",
-           "StagedWave", "TokenBacklog"]
+           "StagedEntry", "StagedWave", "TokenBacklog"]
 
 _STOP = object()
 
@@ -95,6 +99,22 @@ class StagedWave:
     draft_new_cache: Any = None     # the layer draft's twin (device)
     ready: Any = None               # torch.cuda.Event after the wave's work
     merged: int = 0                 # leading requests already merged
+
+
+@dataclasses.dataclass
+class StagedEntry:
+    """One request in the device staging queue (continuous batching): the
+    host-known carry row it was staged with, its un-ingested prompt tail
+    and, on the pool, the pages it already owns; kept until a harvested
+    window reports its install (by ``seq``, the FIFO key on the device)."""
+
+    req: Any
+    host_row: dict                  # state leaf name -> the row (numpy)
+    pending: Any                    # un-ingested prompt tail (numpy)
+    pages: list | None              # paged: physical pages already owned
+    seq: int                        # staging sequence number (device key)
+    keys0: Any                      # (2,) base PRNG key (mirror placeholder)
+    full: bool                      # whole prompt covered by the prefill
 
 
 @dataclasses.dataclass

@@ -167,10 +167,14 @@ class Scheduler:
         p = self._pending[slot]
         if p is None:
             return np.zeros((0,), np.int64)
-        width = self.prefill_chunk or 1
-        chunk, rest = p[:width], p[width:]
+        chunk, rest = self.split_chunk(p)
         self._pending[slot] = rest if rest.size else None
         return chunk
+
+    def split_chunk(self, p: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+        """(the next <= prefill_chunk tokens of ``p``, the rest)."""
+        width = self.prefill_chunk or 1
+        return p[:width], p[width:]
 
     def release(self, slot: int):
         self.slot_req[slot] = None

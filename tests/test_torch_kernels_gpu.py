@@ -27,7 +27,10 @@ template to 1e-4 at every width the bf16 bodies serve
 (group_size 8, ranks 768 / 1,024, up to 8 verify queries); and one
 full-width ``compress_attention_layer`` on the card to the CPU's by
 product (1e-3 of the product's largest entry: cuSOLVER's and LAPACK's
-f32 SVDs differ in their last bits).
+f32 SVDs differ in their last bits).  Continuous batching's install: its
+row copy (``csrc/stage_install.cu``) equals its plain version bit for
+bit, idle and installing, and a replayed continuous window serves the
+eager continuous window's streams.
 """
 
 import dataclasses
@@ -1198,3 +1201,124 @@ def test_aot_graph_streams_equal_eager(cuda, name, dense, bits, flags, must):
         assert set(m["graphs"]) == {"greedy", "sampled"}
         assert all(gr[must] > 0 for gr in (v["launches"] for v in m["graphs"].values()))
         assert sum(v["replays"] for v in m["graphs"].values()) >= m["windows"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("slot", [-1, 0, 3, 4])
+def test_stage_install_kernel_matches_plain(cuda, slot):
+    """The install's predicated row copy against its plain version
+    (``torch.where`` on the selected row), bit for bit, on the leaf kinds a
+    cache holds (bf16 latents, int8 latents, f32 scales, int64 positions)
+    and one leaf whose rows are not 16-byte multiples (the byte loop).
+    Slots -1 and 4 (= the batch) install nothing: every leaf stays as it
+    was; 0 and 3 take stage row 2."""
+    from repro_torch.kernels import stage_install as KS
+    g = torch.Generator(device=cuda).manual_seed(11)
+    B = 4
+    shapes = [((70, 2, 32), torch.bfloat16), ((70, 2, 32), torch.int8),
+              ((70, 2), torch.float32), ((70,), torch.int64), ((5, 3), torch.int8)]
+
+    def leaves():
+        out = []
+        for sh, dt in shapes:
+            x = torch.randn((B,) + sh, generator=g, device=cuda) * 50
+            out.append(x.to(dt))
+        return out
+
+    dst, src = leaves(), leaves()
+    want = [d.clone() for d in dst]
+    s = torch.tensor(slot, device=cuda)
+    q = torch.tensor(2, device=cuda)
+    KS.stage_install_rows_plain(want, src, s, q)
+    before = KS.stage_install_rows.launches
+    KS.stage_install_rows(dst, src, s, q, KS.InstallTable(dst, src))
+    torch.cuda.synchronize()
+    assert KS.stage_install_rows.launches == before + 1
+    for d, w, s_ in zip(dst, want, src):
+        assert torch.equal(d, w)
+        if 0 <= slot < B:
+            assert torch.equal(d[slot], s_[2])
+
+
+@pytest.mark.gpu
+def test_stage_install_table_is_its_engines(cuda):
+    """Each continuous ring engine holds the install table of its own ring
+    and stage cache.  An engine at (8 slots, 256 positions) is dropped,
+    then one at (16, 128) is built in the same process, where the caching
+    allocator may hand back the same blocks with rows half as long: its
+    last slot takes its last stage row and no other row changes.  A table
+    built over other leaves is refused."""
+    from repro_torch.kernels import stage_install as KS
+    from repro_torch.models import transformer as T
+    cfg = _graph_engine_cfg(False)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator(device=cuda).manual_seed(12)
+    old = None
+    for B, L in ((8, 256), (16, 128)):
+        eng = Engine(cfg, params, max_slots=B, max_len=L, sync_every=4, device=cuda,
+                     overlap=True, continuous=True)
+        cache, stage, table = eng.cache, eng._stage["cache"], eng._stage["table"]
+        for c in cache + stage:
+            for leaf in c["self"].values():
+                leaf.copy_(torch.randint(-1, 100, leaf.shape, generator=g, device=cuda))
+        want = [{k: v.clone() for k, v in c["self"].items()} for c in cache]
+        for w, s_ in zip(want, stage):
+            for k in w:
+                w[k][B - 1] = s_["self"][k][B - 1]
+        last = torch.tensor(B - 1, device=cuda)
+        T.swap_cache_slot(cache, stage, last, last, table)
+        torch.cuda.synchronize()
+        for c, w in zip(cache, want):
+            for k, v in c["self"].items():
+                assert torch.equal(v, w[k]), (B, L, k)
+        if old is not None:
+            with pytest.raises(ValueError, match="other leaves"):
+                T.swap_cache_slot(cache, stage, last, last, old)
+        old = table
+        eng.close()
+        del eng, cache, stage, want
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,dense,flags,must", [
+    ("ring", False, {}, "latent_decode_attention"),
+    ("pool", False, dict(cache_layout="paged", page_size=16),
+     "latent_decode_attention_paged"),
+    ("dense pool, ngram", True,
+     dict(cache_layout="paged", page_size=16, spec_depth=3, draft="ngram"),
+     "dense_decode_attention_mq_paged")])
+def test_continuous_graph_streams_equal_eager(cuda, name, dense, flags, must):
+    """Continuous batching on the card: the replayed continuous window
+    (aot) serves the streams of the eager continuous window and of the
+    sync engine, greedy and sampled, with installs inside the windows;
+    two graphs captured at construction, none after; on the ring each
+    replay launches the install's row copy."""
+    cfg = _graph_engine_cfg(dense)
+    params = init_params(cfg, torch.Generator(device=cuda).manual_seed(0))
+    g = torch.Generator().manual_seed(6)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), generator=g).numpy()
+               for n in (9, 30, 17, 40, 5, 22, 12)]
+    sampled = SamplingParams(temperature=0.9, top_k=32, top_p=0.9, seed=3)
+
+    def serve(**kw):
+        eng = Engine(cfg, params, max_slots=3, max_len=128, sync_every=4, device=cuda,
+                     **flags, **kw)
+        captures = eng.metrics()["captures"]
+        for uid, p in enumerate(prompts):
+            eng.submit(Request(uid=uid, prompt=p, max_new_tokens=4 + 3 * (uid % 4),
+                               sampling=sampled if uid % 2 else None))
+        done = eng.run()
+        eng.close()
+        return {r.uid: list(r.out_tokens) for r in done}, eng.metrics(), captures
+
+    want, _, _ = serve()
+    cont = dict(overlap=True, continuous=True, pipeline_depth=3)
+    eager, me, _ = serve(**cont)
+    got, m, captures = serve(aot=True, **cont)
+    assert eager == want and got == want, name
+    assert me["slot_swaps"] > 0 and m["slot_swaps"] > 0
+    assert captures == m["captures"] == 2
+    for gr in m["graphs"].values():
+        assert gr["launches"][must] > 0
+        assert gr["launches"].get("stage_install_rows", 0) == (0 if flags else 1)

@@ -1,0 +1,75 @@
+"""The port's serving CLI, ``repro_torch.launch.serve``, on the CPU.
+
+``main`` builds the smoke model from ``init_params`` on a seeded
+``torch.Generator`` and serves the JAX CLI's synthetic prompts
+(``np.random.default_rng(1)``); its streams must equal those of the port's
+``Engine`` built directly with the same flags and fed the same prompts,
+``--continuous`` must return the streams of ``--no-overlap``, and the
+flags the port does not serve yet raise, naming their ROADMAP item.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch import serve
+from repro_torch.models.weights import init_params
+from repro_torch.serving import Engine, Request
+
+BASE = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--requests", "6",
+        "--slots", "2", "--max-len", "48", "--new-tokens", "5", "--recalkv", "0.5"]
+
+
+def _streams(finished):
+    return {r.uid: [int(t) for t in r.out_tokens] for r in finished}
+
+
+def _direct(**engine_kw):
+    """The CLI's model, prompts and defaults through ``Engine`` itself."""
+    cfg = dataclasses.replace(get_config("qwen3-4b", smoke=True, recalkv_ratio=0.5),
+                              attn_backend="kernel")
+    params = init_params(cfg, torch.Generator(device="cpu").manual_seed(0), device="cpu")
+    eng = Engine(cfg, params, max_slots=2, max_len=48, device="cpu", **engine_kw)
+    g = np.random.default_rng(1)
+    for i in range(6):
+        plen = int(g.integers(4, 48 // 3))
+        eng.submit(Request(uid=i, prompt=g.integers(0, cfg.vocab_size, plen).astype(np.int32),
+                           max_new_tokens=5))
+    done = eng.run()
+    eng.close()
+    return _streams(done)
+
+
+def test_cli_equals_engine_built_directly(capsys):
+    """``--backend pallas --continuous --aot`` (the kernel backend's plain
+    versions on the CPU; aot captures nothing here) equals the Engine with
+    those flags, and the report names the mode and the swaps."""
+    got = _streams(serve.main(BASE + ["--backend", "pallas", "--continuous", "--aot"]))
+    want = _direct(overlap=True, pipeline_depth=3, continuous=True, aot=True)
+    assert got == want
+    assert len(got) == 6 and all(len(v) == 5 for v in got.values())
+    out = capsys.readouterr().out
+    assert "overlapped x3, continuous, aot" in out and "in-scan swaps" in out
+    assert "device cpu" in out
+
+
+def test_cli_continuous_equals_sync():
+    """``--continuous`` (overlapped, staged installs) returns the streams of
+    ``--no-overlap`` (the sync engine), with the paged pool too."""
+    sync = _streams(serve.main(BASE + ["--no-overlap"]))
+    assert _streams(serve.main(BASE + ["--continuous"])) == sync
+    assert _streams(serve.main(BASE + ["--continuous", "--cache-layout", "paged",
+                                       "--staging-depth", "1"])) == sync
+
+
+def test_cli_refusals():
+    """What the port does not serve yet raises with its ROADMAP item; a
+    one-device mesh is the port's own layout."""
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        serve.main(BASE + ["--mesh", "2,4"])
+    with pytest.raises(KeyError, match="Queue 1 item 4"):
+        serve.main(["--arch", "gemma3-12b", "--smoke", "--device", "cpu"])
+    assert len(serve.main(BASE + ["--mesh", "1,1", "--requests", "1"])) == 1
