@@ -43,7 +43,14 @@ Phases, in order (any failure exits non-zero; none is caught):
    ``scaled_dot_product_attention`` call (GQA, additive mask) on the same
    ring plus the self columns, with the SDPA backend PyTorch picks; and
    the float32 template at the widths its row-block plans open (K1 and K5
-   at group_size 8, ranks 768 / 1024, nq 1 / 4).  Every kernel time is
+   at group_size 8, ranks 768 / 1024, nq 1 / 4); then the families'
+   widths: every body on gemma3-12b's path at dh 256 (K1, K3, K5, K6 at
+   B 8, a 4,096-token ring, G 2, Hg 8, r 512, nq 1 / 4; K2 at B 8, T 2,048,
+   H 16, Hkv 8 with Hv 2, dv 512 causal and within a 1,024 window, and
+   dense, dv 256; the dense decode and verify kernels at Hkv 8, q_per_kv
+   2) and minicpm-2b's pools at q_per_kv 1 (K4 at G 9, Hg 4, r 128, dh 64;
+   the dense verify kernel's pool at Hkv 36, nq 4), rows tagged "(dh 256)"
+   / "(q_per_kv 1)".  Every kernel time is
    device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator; first
@@ -117,7 +124,20 @@ Phases, in order (any failure exits non-zero; none is caught):
    read from the allocated tensors; then the serving CLI
    (``repro_torch.launch.serve.main``) at full width with ``--continuous
    --aot``: 16 requests must finish;
-7. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
+7. the families at full width and depth (``phase_families``, bf16, random
+   weights from seed 0, 8 slots, max_len 4096, each model freed before
+   the next): gemma3-12b dense, its logits through both backends (prompts
+   of 1,536 and 700 tokens in 2,048-token rings: the 1,024-token local
+   rings wrap), then V (A's prompts, float ring, sync), V+ (V overlapped
+   with graphs: V's streams) and V3 (C's prompts, spec_depth 3, "ngram");
+   ``calibrate`` + ``compress`` of that model (G 2, r 512, not saved), the
+   compressed model's logits through both backends, then U (A's prompts),
+   U+ (overlapped + graphs + continuous: U's streams), U3 (C's, "ngram")
+   and UB (B's prompts, int8 ring, spec_depth 3, "layers:4"); then
+   minicpm-2b at ratio 0.5, M (D's pool and traffic), and dense, M3 (the
+   dense pool, C's prompts, "ngram"); cache bytes per token and layer
+   8,192 (V), 4,096 (U), 4,608 (M), 9,216 (M3);
+8. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
@@ -132,6 +152,7 @@ JAX or of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import shutil
 import subprocess
@@ -208,6 +229,12 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts if hasattr(t, "numel"))
 
 
+def count_params(params) -> int:
+    """Parameters of a model: its layers' leaves and the embedding."""
+    return sum(t.numel() for layer in params["layers"] for d in layer.values()
+               for t in (d.values() if isinstance(d, dict) else [d])) + params["embed"].numel()
+
+
 def bound(bytes_: int, flops: float) -> tuple[float, str]:
     tb, tf = bytes_ / HBM_BYTES_PER_S, flops / BF16_FLOP_PER_S
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
@@ -234,16 +261,45 @@ def compare(name, got, want, dtype) -> float:
     return diff.max().item()
 
 
-def ring_inputs(torch, gen, nq=1, dense=False):
-    """Main-path operands: B=8, a full 4096-token ring, G=2, Hg=16, dh=128,
-    r=256, s=4, with nq queries and their nq self columns (float32).  With
-    ``dense``, the dense cores' operands at qwen3-4b's heads: G = Hkv = 8
-    groups of s = 1, Hg = 4, the keys and values as r = dh = 128 latents
-    behind an identity R_k, no k-norm, identity rotation tables (cos 1,
-    sin 0, the self columns' too: dense keys are stored after RoPE)."""
+# Each served family's widths at the kernel phases' shapes: head dim dh,
+# Hkv kv heads of q_per_kv query heads each, and its latent cache at
+# recalkv_ratio 0.5 (G groups of s kv heads, rank r).
+WIDTHS = {"qwen3-4b": dict(dh=128, Hkv=8, qpk=4, G=2, s=4, r=256),
+          "gemma3-12b": dict(dh=256, Hkv=8, qpk=2, G=2, s=4, r=512),
+          "minicpm-2b": dict(dh=64, Hkv=36, qpk=1, G=9, s=4, r=128)}
+# the kernels-line tag of another family's rows, and the runs whose
+# launches they count (the qwen3-4b rows count every other run)
+FAMILY_TAG = {"gemma3-12b": "dh 256", "minicpm-2b": "q_per_kv 1"}
+FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent steps", "U",
+                              "U+", "U3", "UB"),
+               "minicpm-2b": ("M", "M3")}
+
+
+def family_row(entry, arch, what=""):
+    """``entry`` as a row of ``arch``'s widths: named apart from the
+    qwen3-4b row of the same wrapper, its launches that wrapper's on the
+    family's runs."""
+    if arch == "qwen3-4b":
+        return entry
+    entry["launch_key"] = entry.get("launch_key", entry["name"])
+    entry["name"] = f"{entry['name']} ({FAMILY_TAG[arch]}{what})"
+    entry["runs"] = FAMILY_RUNS[arch]
+    return entry
+
+
+def ring_inputs(torch, gen, nq=1, dense=False, arch="qwen3-4b"):
+    """Main-path operands: B=8, a full 4096-token ring, and ``arch``'s
+    latent widths (qwen3-4b: G=2, Hg=16, dh=128, r=256, s=4), with nq
+    queries and their nq self columns (float32).  With ``dense``, the dense
+    cores' operands at ``arch``'s heads (qwen3-4b: G = Hkv = 8 groups of s =
+    1, Hg = q_per_kv 4), the keys and values as r = dh latents behind an
+    identity R_k, no k-norm, identity rotation tables (cos 1, sin 0, the
+    self columns' too: dense keys are stored after RoPE)."""
     from repro_torch.kernels import ops
-    B, S, dh = 8, 4096, 128
-    G, Hg, r, s = (8, 4, 128, 1) if dense else (2, 16, 256, 4)
+    w = WIDTHS[arch]
+    B, S, dh = 8, 4096, w["dh"]
+    G, s, r = (w["Hkv"], 1, dh) if dense else (w["G"], w["s"], w["r"])
+    Hg = s * w["qpk"]
     theta = None if dense else 1e6
     dev = "cuda"
     rn = lambda *sh: torch.randn(sh, generator=gen, device=dev)
@@ -340,8 +396,8 @@ def sdpa_time(torch, qg, k, v, self_k, self_v, bias, nq):
     return ms, SDPBackend(choice).name
 
 
-def phase_dense(torch, gen, paged, nq):
-    """The dense cores at qwen3-4b's dense shape against their plain
+def phase_dense(torch, gen, paged, nq, arch="qwen3-4b"):
+    """The dense cores at ``arch``'s dense shape against their plain
     versions in f32 and bf16: nq = 1, K1's (the ring) or K4's (``paged``:
     the ragged pool of ``paged_inputs``) dense core, the dense decode
     kernel of ``csrc/dense_decode.cu``; nq = 4, K5's or K7's dense core,
@@ -356,9 +412,9 @@ def phase_dense(torch, gen, paged, nq):
     from repro_torch.kernels import latent_decode as K
     one = nq == 1
     if paged:
-        a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, dense=True)
+        a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, dense=True, arch=arch)
     else:
-        a = ring_inputs(torch, gen, nq, dense=True)
+        a = ring_inputs(torch, gen, nq, dense=True, arch=arch)
         pools, ptab = {"zk": a["zk"], "zv": a["zv"]}, None
     B, S, G, Hg, dh, _, _, _ = a["shape"]
     bias = a["bias"] if paged or not one else a["bias"][:, 0, :S].contiguous()
@@ -436,7 +492,7 @@ def phase_dense(torch, gen, paged, nq):
     if nq > 4:   # a second row of the same wrapper: past 8 queries, more row blocks
         entry["launch_key"] = entry["name"]
         entry["name"] = f"{entry['name']} (nq {nq})"
-    return entry
+    return family_row(entry, arch)
 
 
 def phase_f32_widths(torch, gen):
@@ -473,13 +529,14 @@ def phase_f32_widths(torch, gen):
     return out
 
 
-def phase_latent(torch, gen, nq, quant):
+def phase_latent(torch, gen, nq, quant, arch="qwen3-4b"):
     """K1 (nq=1, float), K3 (nq=1, int8), K5 (nq=4, float), K6 (nq=4,
-    int8) at the main path's shapes; the self columns ride as operands."""
+    int8) at the main path's shapes (``arch``'s latent widths); the self
+    columns ride as operands."""
     from repro_torch.kernels import latent_decode as K1
     from repro_torch.kernels import latent_decode_q as KQ
     from repro_torch.quant import quantize
-    a = ring_inputs(torch, gen, nq)
+    a = ring_inputs(torch, gen, nq, arch=arch)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
     one = nq == 1
     q8 = {k: quantize(a[k], 8) for k in ("zk", "zv", "self_zk", "self_zv")} if quant else {}
@@ -513,7 +570,7 @@ def phase_latent(torch, gen, nq, quant):
                       f"{'int8 latents, ' if quant else ''}bf16")}
     entry = kernel_phase(torch, fn, getattr(mod, fn), getattr(mod, fn + "_plain"), make,
                          decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
-    return entry
+    return family_row(entry, arch)
 
 
 def phase_tc_widths(torch, gen):
@@ -724,7 +781,7 @@ def k2_widths(torch, gen):
                     for dv, ms in times.items()))
 
 
-def paged_inputs(torch, gen, nq, dense=False):
+def paged_inputs(torch, gen, nq, dense=False, arch="qwen3-4b"):
     """K4 / K7 operands: ``ring_inputs``' latents paged into a pool through
     a ragged table.  Row b holds ``lens[b]`` tokens (1024..4096); its pages
     sit at shuffled physical pages, pages past its length on the null page
@@ -733,7 +790,7 @@ def paged_inputs(torch, gen, nq, dense=False):
     table gathers.  Returns (operands, the K1 / K5 ring view of the same
     content, the bound's byte and FLOP counts)."""
     from repro_torch.kernels import ops
-    a = ring_inputs(torch, gen, nq, dense)
+    a = ring_inputs(torch, gen, nq, dense, arch)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
     theta = None if dense else 1e6
     n_sp = S // PAGE
@@ -791,7 +848,7 @@ def in_order(torch, ptab, pools):
     return order, out
 
 
-def phase_paged(torch, gen, nq):
+def phase_paged(torch, gen, nq, arch="qwen3-4b"):
     """K4 (nq = 1) or K7 (nq = 4) at the main path's width over a ragged
     pool, against the plain version in f32 and bf16.  Both must equal K1 /
     K5 on the gathered ring bit for bit in both types (same tiles, same
@@ -800,7 +857,7 @@ def phase_paged(torch, gen, nq):
     of the same pages.  Each is timed; the bound counts the mapped pages, the table and
     the slot-major tables of the mapped columns."""
     from repro_torch.kernels import latent_decode as K
-    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
+    a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq, arch=arch)
     B, S, G, Hg, dh, r, s, _ = a["shape"]
     one = nq == 1
     name = "latent_decode_attention_paged" if one else "latent_decode_attention_mq_paged"
@@ -862,63 +919,83 @@ def phase_paged(torch, gen, nq):
              "view_max_abs_diff": view_err[torch.bfloat16],
              "shape": (f"B={B} S={S}+{nq} page_size={PAGE} pages={used_pages} G={G} "
                        f"Hg={Hg} nq={nq} dh={dh} r={r} bf16, ragged table")}
-    return entry
+    return family_row(entry, arch)
 
 
-def phase_k2(torch, gen):
-    """K2 at B=8, T=2048, H=32, Hkv=8, latent values Hv=2, dv=256, causal."""
+def phase_k2(torch, gen, arch="qwen3-4b", window=None, dense=False):
+    """K2 at B=8, T=2048 and ``arch``'s heads, its latent value groups as
+    values (qwen3-4b: H=32, Hkv=8, Hv=G=2, dv=r=256), causal, or within
+    ``window``; with ``dense`` the dense cache's values (Hv = Hkv, dv =
+    dh).  The yardstick is one SDPA call on the same function (the window
+    as a boolean mask)."""
     from repro_torch.kernels.flash_prefill import (
         flash_prefill_attention as k2, flash_prefill_attention_plain as p2)
-    B, T, H, Hkv, Hv, dh, dv = 8, 2048, 32, 8, 2, 128, 256
+    w = WIDTHS[arch]
+    B, T, Hkv, dh = 8, 2048, w["Hkv"], w["dh"]
+    H = Hkv * w["qpk"]
+    Hv, dv = (Hkv, dh) if dense else (w["G"], w["r"])
     rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     f = (rn(B, T, H, dh), rn(B, T, Hkv, dh), rn(B, T, Hv, dv))
     res = {}
     for dt in (torch.float32, torch.bfloat16):
         q, k, v = (x.to(dt) for x in f)
-        got = k2(q, k, v)
+        got = k2(q, k, v, window=window)
         torch.cuda.synchronize()
-        res[dt] = compare("K2", got, p2(q, k, v), dt)
-    ms = cuda_ms(lambda: k2(q, k, v), iters=50)
-    plain_ms = cuda_ms(lambda: p2(q, k, v), iters=2, warmup=1)
+        res[dt] = compare("K2", got, p2(q, k, v, window=window), dt)
+    ms = cuda_ms(lambda: k2(q, k, v, window=window), iters=50)
+    plain_ms = cuda_ms(lambda: p2(q, k, v, window=window), iters=2, warmup=1)
     # yardstick: one SDPA call on the same function (values repeated to
     # the kv heads outside the timed region); the port never calls it
     vr = v.repeat_interleave(Hkv // Hv, dim=2).transpose(1, 2)
     qt, kt = q.transpose(1, 2), k.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    library_ms = cuda_ms(lambda: sdpa(qt, kt, vr, is_causal=True, enable_gqa=True),
-                         iters=50)
-    flops = 2.0 * B * H * (T * (T + 1) / 2) * (dh + dv)
+    if window is None:
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vr, is_causal=True, enable_gqa=True),
+                             iters=50)
+        pairs = T * (T + 1) / 2
+    else:
+        t = torch.arange(T, device="cuda")
+        mask = (t[None, :] <= t[:, None]) & (t[None, :] > t[:, None] - window)
+        library_ms = cuda_ms(lambda: sdpa(qt, kt, vr, attn_mask=mask, enable_gqa=True),
+                             iters=50)
+        pairs = float(mask.sum())
+    flops = 2.0 * B * H * pairs * (dh + dv)
     b_ms, by = bound(nbytes(q, k, v, got), flops)
-    log(f"K2 flash_prefill B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dv={dv}: max err f32 "
-        f"{res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
-    return {"name": "flash_prefill_attention", "route": "cuda",
-            "source": "src/repro_torch/csrc/flash_prefill.cu",
-            "replaces": "src/repro/kernels/flash_prefill.py:80",
-            "tpu_kernel": "src/repro/kernels/flash_prefill.py::flash_prefill_attention",
-            "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
-            "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
-            "library_ms": library_ms,
-            "shape": f"B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dh={dh} dv={dv} causal bf16"}
+    how = "causal" if window is None else f"window {window}"
+    log(f"K2 flash_prefill B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dh={dh} dv={dv} {how}: max "
+        f"err f32 {res[torch.float32]:.3e} bf16 {res[torch.bfloat16]:.3e}; kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound {b_ms:.4f} ms ({by})")
+    entry = {"name": "flash_prefill_attention", "route": "cuda",
+             "source": "src/repro_torch/csrc/flash_prefill.cu",
+             "replaces": "src/repro/kernels/flash_prefill.py:80",
+             "tpu_kernel": "src/repro/kernels/flash_prefill.py::flash_prefill_attention",
+             "max_abs_err": res[torch.bfloat16], "max_err_f32": res[torch.float32],
+             "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": by,
+             "library_ms": library_ms,
+             "shape": f"B={B} T={T} H={H} Hkv={Hkv} Hv={Hv} dh={dh} dv={dv} {how} bf16"}
+    return family_row(entry, arch, (", dense" if dense else f", dv {dv}")
+                      + ("" if window is None else f", window {window}"))
 
 
-def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
+def phase_backends(torch, cfg, params, verify_bits=(None, 8), lens=(512, 300),
+                   max_len=1024):
     """Prefill + 4 decode steps through both backends (kernel-backend
-    greedy tokens fed to both), B=2 with prompts of 512 and 300 tokens;
-    then, on a float ring (None in ``verify_bits``) and an int8 ring (8),
-    prefill + one 4-token verify step."""
+    greedy tokens fed to both), B=2 with prompts of ``lens`` tokens (512 and
+    300) in rings of ``max_len``; then, on a float ring (None in
+    ``verify_bits``) and an int8 ring (8), prefill + one 4-token verify
+    step."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
-    toks = torch.randint(0, cfg.vocab_size, (2, 512), generator=gen, device="cuda")
-    lens = torch.tensor([512, 300], device="cuda")
+    toks = torch.randint(0, cfg.vocab_size, (2, max(lens)), generator=gen, device="cuda")
+    lens = torch.tensor(lens, device="cuda")
     fed = torch.randint(0, cfg.vocab_size, (2, 4), generator=gen, device="cuda")
     mask = torch.ones((2, 4), dtype=torch.bool, device="cuda")
     runs = {}
     feed = None
     for backend in ("kernel", "einsum"):
         c = dataclasses.replace(cfg, attn_backend=backend)
-        logits, caches = T.prefill(c, params, toks, lens, 1024)
+        logits, caches = T.prefill(c, params, toks, lens, max_len)
         outs, cur = [logits], lens.clone()
         for i in range(4):
             tok = logits.argmax(-1) if feed is None else feed[i]
@@ -930,7 +1007,7 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
         runs[("decode", backend)] = torch.stack(outs)
         for bits in verify_bits:
             cb = dataclasses.replace(c, cache_quant_bits=bits)
-            _, caches = T.prefill(cb, params, toks, lens, 1024)
+            _, caches = T.prefill(cb, params, toks, lens, max_len)
             runs[(f"verify {'int8' if bits else 'float'}", backend)], _ = T.verify_step(
                 cb, params, caches, fed, lens, mask)
         del caches
@@ -942,7 +1019,8 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8)):
         err = (ker - ref).abs().max().item()
         rel = err / ref.abs().max().item()
         agree = (ker.argmax(-1) == ref.argmax(-1)).float().mean().item()
-        log(f"full-width backends{' (dense)' if cfg.recalkv is None else ''}, {what}: "
+        log(f"full-width backends, {cfg.name}{' (dense)' if cfg.recalkv is None else ''}, "
+            f"{what}: "
             f"logits max abs err {err:.4e} (relative "
             f"{rel:.3e}), greedy agreement {agree:.3f} over {ker[..., 0].numel()} rows")
         if rel > 5e-2:
@@ -1065,12 +1143,34 @@ ENGINE_RUNS = {
               must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
               paged=dict(cache_layout="paged", page_size=PAGE, policy="fifo")),
 }
+# The families' runs (bf16, random weights from seed 0, full width and
+# depth): "prompts" names the run whose prompts and budgets they take.
+# gemma3-12b dense (V, V3) and compressed in the run (U, U3, UB: r 512,
+# G 2); minicpm-2b at recalkv_ratio 0.5 (M: G 9, r 128) and dense (M3).
+ENGINE_RUNS.update({
+    "V": dict(bits=None, depth=0, draft=None, chunk=None, sync=16, prompts="A",
+              must=("flash_prefill_attention", "dense_decode_attention")),
+    "V3": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8, prompts="C",
+               must=("flash_prefill_attention", "dense_decode_attention_mq")),
+    "U": dict(bits=None, depth=0, draft=None, chunk=None, sync=16, prompts="A",
+              must=("flash_prefill_attention", "latent_decode_attention")),
+    "U3": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8, prompts="C",
+               must=("flash_prefill_attention", "latent_decode_attention_mq")),
+    "UB": dict(bits=8, depth=3, draft="layers:4", chunk=960, sync=8, prompts="B",
+               must=("flash_prefill_attention", "latent_decode_attention_quant",
+                     "latent_decode_attention_mq_quant")),
+    "M": dict(ENGINE_RUNS["D"], prompts="D"),
+    "M3": dict(bits=None, depth=3, draft="ngram", chunk=None, sync=8, prompts="C",
+               must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
+               paged=dict(cache_layout="paged", page_size=PAGE, policy="reach-packing")),
+})
 # bytes of K / V (or latents) per token and layer each run's cache must hold
-CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048}
+CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
+               "U": 4096, "U3": 4096, "M": 4608, "M3": 9216}
 # runs served again by the overlapped engine with the window captured as
 # CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
 # Their streams must equal the sync runs' in the same call.
-OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}}
+OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}, "V": {}}
 # runs served three ways in one call (sync; overlapped + graphs at pipeline
 # depth 3; the same with continuous batching): streams equal, installs
 # inside the windows
@@ -1137,6 +1237,7 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
     from repro_torch.serving import Engine, Request
     spec = ENGINE_RUNS[run]
     bits, depth, draft, must = spec["bits"], spec["depth"], spec["draft"], spec["must"]
+    gc.collect()   # earlier runs' engines (threads and graphs in reference cycles)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     kw = dict(max_slots=8, max_len=4096, sync_every=spec["sync"],
@@ -1157,7 +1258,7 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
         raise AssertionError(f"engine run {run}: {captures} graphs captured, expected 2 "
                              f"(greedy and sampled)")
     kv_bytes, pos_bytes = cache_bytes(torch, eng.cache)
-    reqs = engine_prompts(torch, run, cfg.vocab_size)
+    reqs = engine_prompts(torch, spec.get("prompts", run), cfg.vocab_size)
     if "new" in spec:
         reqs = [(p, spec["new"]) for p, _ in reqs]
     for uid, (prompt, n_new) in enumerate(reqs):
@@ -1405,12 +1506,14 @@ ARTIFACT = ROOT / "build" / "chip_smoke_artifact"   # gitignored
 ALS_RISE = 1e-3     # a value group's error may rise under ALS by rounding only
 
 
-def phase_compress(torch, cfg, params) -> dict:
+def phase_compress(torch, cfg, params, groups=2, rank=256, save=True):
     """Run J's first half on the dense model: ``calibrate`` on 8 synthetic
     "calib" sequences of 512 tokens (vocab 4096: valid ids of the full
     vocabulary, and a 134 MB transition table instead of 185 GB),
     ``compress`` with "recalkv" at keep ratio 0.5 on the kernel backend
-    (named "pallas", JAX's alias), and ``save_artifact``.  Prints the
+    (named "pallas", JAX's alias; it must give ``groups`` latent groups at
+    rank ``rank``), and, with ``save``, ``save_artifact``.  Returns the
+    record and the artifact.  Prints the
     seconds of each, each layer's value error before and after ALS (a
     rise past ALS_RISE relative fails: each ALS step is an exact
     minimiser), the HSR groups and their within-group CKA against the
@@ -1432,7 +1535,7 @@ def phase_compress(torch, cfg, params) -> dict:
     compress_s = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     rt = art.cfg.recalkv
-    if (rt.num_groups(cfg.num_kv_heads), rt.rank_k, rt.rank_v) != (2, 256, 256) \
+    if (rt.num_groups(cfg.num_kv_heads), rt.rank_k, rt.rank_v) != (groups, rank, rank) \
             or art.cfg.attn_backend != "kernel":
         raise AssertionError(f"compressed config {rt}, backend {art.cfg.attn_backend}")
     worst, rows = 0.0, []
@@ -1446,25 +1549,107 @@ def phase_compress(torch, cfg, params) -> dict:
     if worst > ALS_RISE:
         raise AssertionError(f"a value group's error rose by {worst:.3e} relative under "
                              f"ALS (limit {ALS_RISE})")
-    t0 = time.perf_counter()
-    api.save_artifact(art, str(ARTIFACT))
-    save_s = time.perf_counter() - t0
-    n_params = sum(t.numel() for layer in art.params["layers"] for d in layer.values()
-                   for t in (d.values() if isinstance(d, dict) else [d])) \
-        + art.params["embed"].numel()
+    save_s = None
+    if save:
+        t0 = time.perf_counter()
+        api.save_artifact(art, str(ARTIFACT))
+        save_s = time.perf_counter() - t0
+    n_params = count_params(art.params)
     gain = [r["cka_hsr"] - r["cka_identity"] for r in rows]
-    log(f"compression: data {data_s:.2f} s, calibrate {calib_s:.2f} s ({calib.token_count} "
-        f"tokens), compress {compress_s:.2f} s, save {save_s:.2f} s; {n_params / 1e9:.3f} B "
+    log(f"compression of {cfg.name}: data {data_s:.2f} s, calibrate {calib_s:.2f} s "
+        f"({calib.token_count} tokens), compress {compress_s:.2f} s, save "
+        f"{'%.2f s' % save_s if save else 'skipped'}; {n_params / 1e9:.3f} B "
         f"params; peak memory {peak:.2f} GiB; worst relative value-error change under ALS "
         f"{worst:.3e}; HSR within-group CKA minus identity's: mean {np.mean(gain):.4f}, "
         f"min {min(gain):.4f}")
-    return {"data_s": data_s, "calibrate_s": calib_s, "compress_s": compress_s,
+    return {"model": cfg.name, "data_s": data_s, "calibrate_s": calib_s,
+            "compress_s": compress_s,
             "save_s": save_s, "peak_gib": peak, "params_b": n_params / 1e9,
             "calib_tokens": calib.token_count, "worst_als_rise": worst,
             "cka_hsr_minus_identity_mean": float(np.mean(gain)),
             "layers": [{"groups": r["groups"], "cka_hsr": r["cka_hsr"],
                         "cka_identity": r["cka_identity"],
-                        "value_errors": r["value_errors"]} for r in rows]}
+                        "value_errors": r["value_errors"]} for r in rows]}, art
+
+
+def family_model(torch, arch, ratio=None):
+    """``arch`` at full width and depth, bf16, on the kernel backend, with
+    random weights from seed 0 (a ReCalKV latent cache at ``ratio``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config(arch, recalkv_ratio=ratio), attn_backend="kernel",
+                              dtype=torch.bfloat16)
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    log(f"model {cfg.name}{'' if ratio is None else f' recalkv ratio {ratio}'}: "
+        f"{count_params(params) / 1e9:.3f} B params initialised in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params
+
+
+def phase_families(torch, by_run, streams, serving, backends) -> dict:
+    """gemma3-12b and minicpm-2b at full width and depth through ``Engine``
+    (``ENGINE_RUNS``).  gemma3 dense: both backends' logits on prompts of
+    1,536 and 700 tokens in 2,048-token rings (the 1,024-token local rings
+    wrap), then V, V+ (overlapped + graphs, V's streams), V3; then
+    ``calibrate`` + ``compress`` of that model (G 2, r 512; not saved), the
+    dense weights freed, the compressed model's logits through both
+    backends on the float and int8 rings, then U, U+ (overlapped + graphs +
+    continuous, U's streams), U3, UB.  minicpm-2b at ratio 0.5: M (D's pool
+    and traffic); dense: M3 (the dense pool, n-gram depth 3).  K1, K4, K5
+    and K7 may not launch on the dense runs.  Returns the compression
+    record."""
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    cfg, params = family_model(torch, "gemma3-12b")
+    kernels.reset_launch_counts()
+    backends["gemma3-12b dense"] = phase_backends(torch, cfg, params, (None,), (1536, 700),
+                                                  2048)
+    by_run["gemma3 steps"] = launch_counts(kernels)
+    for run in ("V", "V3"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    phase_overlapped(torch, cfg, params, "V", by_run, streams, serving)
+    old = {run: {k: by_run[run][k] for k in (
+        "latent_decode_attention", "latent_decode_attention_paged",
+        "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
+        for run in ("gemma3 steps", "V", "V+", "V3")}
+    if any(n for counts in old.values() for n in counts.values()):
+        raise AssertionError(f"the dense gemma3-12b launched K1, K4, K5 or K7: {old}")
+    t1 = time.perf_counter()
+    compression, art = phase_compress(torch, cfg, params, groups=2, rank=512, save=False)
+    del params   # the dense weights go; the compressed model serves
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    kernels.reset_launch_counts()
+    backends["gemma3-12b latent"] = phase_backends(torch, cfg, params, (None, 8), (1536, 700),
+                                                   2048)
+    by_run["gemma3 latent steps"] = launch_counts(kernels)
+    for run in ("U", "U3", "UB"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    by_run["U+"], streams["U+"], serving["U+"] = phase_engine(
+        torch, cfg, params, "U", overlapped=True, extra=dict(continuous=True),
+        label="U, overlapped + graphs + continuous")
+    if streams["U+"] != streams["U"]:
+        raise AssertionError(f"engine run U+ streams differ from run U's: {streams['U+']} vs "
+                             f"{streams['U']}")
+    log(f"engine run U+ streams equal run U's; tok/s {serving['U+']['tokens_per_s']:.2f} "
+        f"(sync {serving['U']['tokens_per_s']:.2f}), {serving['U+']['slot_swaps']} installs")
+    del params
+    torch.cuda.empty_cache()
+    log(f"gemma3-12b: dense runs {t1 - t0:.1f} s, compression and latent runs "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    for run, ratio in (("M", 0.5), ("M3", None)):
+        cfg, params = family_model(torch, "minicpm-2b", ratio)
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+        del params
+        torch.cuda.empty_cache()
+    log(f"minicpm-2b runs took {time.perf_counter() - t1:.1f} s")
+    return compression
 
 
 def main() -> int:
@@ -1517,15 +1702,26 @@ def main() -> int:
     f32_widths = phase_f32_widths(torch, gen)
     torch.cuda.empty_cache()
     log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
+    # the families' widths: every body on gemma3-12b's path at dh 256, and
+    # minicpm-2b's pools at q_per_kv 1
+    t_fam = time.perf_counter()
+    g3 = "gemma3-12b"
+    entries += [phase_latent(torch, gen, nq, quant, g3) for nq in (1, 4)
+                for quant in (False, True)]
+    entries += [phase_k2(torch, gen, g3), phase_k2(torch, gen, g3, window=1024),
+                phase_k2(torch, gen, g3, dense=True)]
+    entries += [phase_dense(torch, gen, False, nq, g3) for nq in (1, 4)]
+    entries += [phase_paged(torch, gen, 1, "minicpm-2b"),
+                phase_dense(torch, gen, True, 4, "minicpm-2b")]
+    torch.cuda.empty_cache()
+    log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
     cfg = dataclasses.replace(cfg, attn_backend="kernel", dtype=torch.bfloat16)
     t0 = time.perf_counter()
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
-    n_params = sum(t.numel() for layer in params["layers"] for d in layer.values()
-                   for t in (d.values() if isinstance(d, dict) else [d])) \
-        + params["embed"].numel()
+    n_params = count_params(params)
     log(f"model {cfg.name} recalkv r={cfg.recalkv.rank_k} G="
         f"{cfg.recalkv.num_groups(cfg.num_kv_heads)}: {n_params / 1e9:.3f} B params "
         f"initialised in {time.perf_counter() - t0:.2f} s")
@@ -1584,7 +1780,7 @@ def main() -> int:
         raise AssertionError(f"the dense model launched K1, K4, K5 or K7: {old}")
     log("K1, K4, K5 and K7 (the old dense route) launched 0 times over the dense steps "
         "and runs H, I, I9, T and H, I, T overlapped")
-    compression = phase_compress(torch, cfg, params)
+    compression = phase_compress(torch, cfg, params)[0]
     del params   # the dense model goes; J boots from the saved artifact
     torch.cuda.empty_cache()
     by_run["J"], streams["J"], serving["J"] = phase_engine(torch, None, None, "J",
@@ -1593,15 +1789,19 @@ def main() -> int:
     log(f"dense model, runs H-J and the compression took "
         f"{time.perf_counter() - t_model:.1f} s")
     cli = phase_cli(torch)
+    family_compression = phase_families(torch, by_run, streams, serving, backends)
+    family = {run for runs in FAMILY_RUNS.values() for run in runs}
+    qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
         key = e.get("launch_key", e["name"])
-        e["launches_by_run"] = {run: by_run[run][key] for run in by_run}
+        e["launches_by_run"] = {run: by_run[run][key] for run in e.pop("runs", qwen_runs)}
         e["launches"] = sum(e["launches_by_run"].values())
     never = [e["name"] for e in entries if e["launches"] <= 0]
     if never:
         raise AssertionError(f"kernels never launched on the main path: {never}")
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
-                    "f32_widths": f32_widths, "compression": compression, "cli": cli}))
+                    "f32_widths": f32_widths, "compression": compression,
+                    "family_compression": family_compression, "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -15,7 +15,12 @@ import importlib
 
 from repro_torch.models.config import ModelConfig, ReCalKVRuntime
 
-_MODULES = {"qwen3-4b": "qwen3_4b"}
+_MODULES = {
+    "qwen3-4b": "qwen3_4b",
+    "minicpm-2b": "minicpm_2b",
+    "gemma3-12b": "gemma3_12b",
+    "h2o-danube-1.8b": "h2o_danube_1p8b",
+}
 ARCHS: tuple[str, ...] = tuple(_MODULES)
 
 

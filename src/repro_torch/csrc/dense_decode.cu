@@ -62,7 +62,9 @@
 //    (dh 128) or 1 (dh 64) columns of each tile; its partial dot products are
 //    summed over the lane group by a reduce-scatter (each shuffle level
 //    halves the values a lane keeps), so a lane ends with whole scores
-//    instead of shuffling each one through every level.  The chunk's scores
+//    instead of shuffling each one through every level.  At dh 256 the
+//    lane group is a whole warp and takes 4 columns of each tile, and the
+//    ring holds 64 KB in bf16.  The chunk's scores
 //    (+ bias) sit in shared memory; one pass takes each row's maximum and
 //    writes P = exp(s - m) in f32 in their place.  P V: lane group g adds
 //    the columns it owns, 8 dh values per lane and every row, into
@@ -202,12 +204,19 @@ __host__ __device__ constexpr size_t smem_bytes(int chunk_len) {
          + (2 * CH_MAX / TC + 1) * 4;       // tile flags, live tiles and their count
 }
 
+// Blocks an SM the register budget is sized for: 3 (<= 85 registers) up to
+// 4 query rows, 2 past; at dh 256 (a lane group of 32: 4 columns a tile)
+// one fewer.
+__host__ __device__ constexpr int min_blocks(int dh, int nq) {
+  return (nq <= 4 ? 3 : 2) - (dh == 256 ? 1 : 0);
+}
+
 template <typename T, int DH, int NQ, bool PAGED>
-__global__ void __launch_bounds__(THREADS, NQ <= 4 ? 3 : 2)
+__global__ void __launch_bounds__(THREADS, min_blocks(DH, NQ))
 dense_decode(Args a) {
-  constexpr int LG = DH / EL;              // lanes of a lane group (16 or 8)
-  constexpr int NLG = THREADS / LG;        // lane groups of a block (16 or 32)
-  constexpr int CPG = TC / NLG;            // columns of a tile per lane group (2 or 1)
+  constexpr int LG = DH / EL;              // lanes of a lane group (32, 16 or 8)
+  constexpr int NLG = THREADS / LG;        // lane groups of a block (8, 16 or 32)
+  constexpr int CPG = TC / NLG;            // columns of a tile per lane group (4, 2 or 1)
   constexpr int NV = CPG * NQ;             // partial scores of a lane per tile
   constexpr int KEEP = NV >= LG ? NV / LG : 1;
   constexpr int PIECES = DH * int(sizeof(T)) / 16;   // 16-byte pieces of a row
@@ -472,7 +481,8 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
 
 template <typename T, bool PAGED>
 cudaError_t launch_dh(const Args& a, int dh, cudaStream_t stream) {
-  return dh == 64 ? launch<T, 64, PAGED>(a, stream) : launch<T, 128, PAGED>(a, stream);
+  if (dh == 64) return launch<T, 64, PAGED>(a, stream);
+  return dh == 128 ? launch<T, 128, PAGED>(a, stream) : launch<T, 256, PAGED>(a, stream);
 }
 
 }  // namespace
@@ -482,8 +492,8 @@ extern "C" {
 // Both entry points take this argument list and return a cudaError_t (0 =
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
-// (0); bias f32.  Null k_self / v_self mean no self column.  Limits: dh 64
-// or 128, 1 <= qpk <= 8, chunk_len a multiple of 32 up to 512 and n_chunks =
+// (0); bias f32.  Null k_self / v_self mean no self column.  Limits: dh 64,
+// 128 or 256, 1 <= qpk <= 8, chunk_len a multiple of 32 up to 512 and n_chunks =
 // ceil((S + n_self) / chunk_len) >= 1; the pool takes a page table (B, S /
 // page_size) int32 with page_size dividing S, the ring none.
 #define RECALKV_DENSE_ENTRY(NAME, PAGED)                                                 \
@@ -495,7 +505,8 @@ extern "C" {
     const int n_self = k_self != nullptr ? 1 : 0;                                        \
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, out, B, S,     \
            Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages, scale};             \
-    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128) || qpk < 1 ||         \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128 && dh != 256) ||       \
+        qpk < 1 ||                                                                       \
         qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||              \
         (k_self == nullptr) != (v_self == nullptr) || chunk_len < TC ||                  \
         chunk_len > CH_MAX || chunk_len % TC != 0 || n_chunks < 1 ||                     \

@@ -67,6 +67,12 @@
 //    lo pair: one bf16 rounding of P fails chip_smoke's limit, and hi + lo
 //    carries P to ~2^-17).  The four warps' (m, l, acc) merge in a fixed
 //    order through shared memory at the end.
+//  * dh 256 (gemma3-12b): a warp's accumulator is 16 x 256 f32, 128
+//    registers, so bf16 q leaves the registers for shared memory (8 KB,
+//    swizzled) and each k-step reads its A fragments by ldmatrix, in the
+//    order the register path multiplies them.  The four three-stage bf16
+//    rings take 192 KB: one block an SM.  The f32 body's would take 256
+//    KB, so two of its warps stream (two stages each) and two idle.
 //  * bf16 x bf16 products are exact in f32, so q . K has no rounding point
 //    beyond its inputs; P's split is the body's only one
 //    (tests/test_torch_tc_rounding.py emulates it).  The f32 instantiation
@@ -130,9 +136,21 @@ struct Args {
 template <typename T>
 __host__ __device__ constexpr int stages() { return sizeof(T) == 2 ? 3 : 2; }
 
+// Warps that stream tiles: all four, but two in the f32 body at dh 256,
+// whose four two-stage rings of 32 KB tiles would take 256 KB (the other
+// two warps idle and join the merge with nothing seen).
+template <typename T, int DH>
+__host__ __device__ constexpr int streams() { return sizeof(T) == 4 && DH == 256 ? 2 : WARPS; }
+
+// bf16 q in shared memory, read by ldmatrix in each k-step, instead of its
+// A fragments in registers: at dh 256 those would be 64 registers beside
+// the 128 of the 16 x 256 f32 accumulator.
+template <typename T, int DH>
+__host__ __device__ constexpr bool q_shared() { return sizeof(T) == 2 && DH == 256; }
+
 template <typename T, int DH>
 __host__ __device__ constexpr size_t ring_bytes() {
-  return size_t(WARPS) * stages<T>() * TC * DH * sizeof(T);
+  return size_t(streams<T, DH>()) * stages<T>() * TC * DH * sizeof(T);
 }
 
 // Queries a block's MT rows can touch: rows r0 .. r0 + MT - 1 of (query,
@@ -144,6 +162,7 @@ __host__ __device__ constexpr int block_queries(int nq, int qpk) {
 template <typename T, int DH>
 size_t smem_bytes(int nq, int qpk, int chunk_len) {
   return ring_bytes<T, DH>()                                 // the warps' cp.async rings, then the merge
+         + (q_shared<T, DH>() ? size_t(MT) * DH * sizeof(T) : 0)   // q (bf16, dh 256)
          + size_t(block_queries(nq, qpk)) * chunk_len * 4    // the block's bias rows
          + size_t(chunk_len) * 4                             // row map
          + (2 * NT_MAX + 1) * 4;                             // tile flags, live tiles and their count
@@ -173,6 +192,8 @@ dense_verify(Args a) {
   constexpr int TILE = TC * DH;               // elements of a tile
   constexpr int KS = DH / 16, ND = DH / 8;    // k-steps of q K^T, n-tiles of P V
   constexpr bool BF16 = sizeof(T) == 2;
+  constexpr int NSW = streams<T, DH>();       // warps that stream tiles
+  constexpr bool QSM = q_shared<T, DH>();
   static_assert(PIECES >= 8, "the swizzle permutes 8 pieces a row");
   static_assert(ring_bytes<T, DH>() >= size_t(WARPS) * MT * (DH + 2) * 4,
                 "the merge reuses the rings");
@@ -191,11 +212,22 @@ dense_verify(Args a) {
   const size_t prow = ((size_t(b) * a.Hkv + h) * a.n_chunks + c) * M + r0;
 
   T* ring = reinterpret_cast<T*>(smem);
-  float* bias_s = reinterpret_cast<float*>(smem + ring_bytes<T, DH>());   // (j_hi - j_lo + 1, cl)
+  T* q_s = reinterpret_cast<T*>(smem + ring_bytes<T, DH>());   // QSM: (MT, DH), swizzled
+  float* bias_s = reinterpret_cast<float*>(q_s + (QSM ? MT * DH : 0));   // (j_hi - j_lo + 1, cl)
   int* src = reinterpret_cast<int*>(bias_s + size_t(block_queries(nq, qpk)) * cl);   // (cl)
   int* tiles = src + cl;                                                 // (NT_MAX)
   int* flags = tiles + NT_MAX;                                           // (NT_MAX)
   int* n_live_s = flags + NT_MAX;
+
+  const T* qb = static_cast<const T*>(a.q) + (size_t(b) * a.Hkv + h) * M * DH;
+  if constexpr (QSM) {   // the block's MT q rows (zero past M), published by the barrier below
+    for (int p = tid; p < MT * PIECES; p += THREADS) {
+      const int r = p / PIECES, piece = p % PIECES;
+      *reinterpret_cast<uint4*>(q_s + swz<T, DH>(r, piece)) =
+          r0 + r < M ? *reinterpret_cast<const uint4*>(qb + size_t(r0 + r) * DH + piece * PE)
+                     : make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
 
   // the chunk's bias rows of the block's queries and its row map; columns
   // past S_ext are masked.  A column a lane, a tile a warp pass, so a
@@ -241,23 +273,29 @@ dense_verify(Args a) {
   }
 
   // this warp's stream: K of its first tile, V of it, K of its second, ...
-  const int n_mine = warp < n_live ? (n_live - warp + WARPS - 1) / WARPS : 0;
+  const int n_mine = warp < NSW && warp < n_live ? (n_live - warp + NSW - 1) / NSW : 0;
   const int total = 2 * n_mine;
-  T* my_ring = ring + size_t(warp) * STAGES * TILE;
+  T* my_ring = ring + size_t(warp < NSW ? warp : 0) * STAGES * TILE;
   auto issue = [&](int idx) {
-    const int tile = tiles[warp + WARPS * (idx >> 1)];
+    const int tile = tiles[warp + NSW * (idx >> 1)];
     const bool is_v = idx & 1;
     const T* base = static_cast<const T*>(is_v ? a.v : a.k);
     const T* self = static_cast<const T*>(is_v ? a.v_self : a.k_self);
     T* dst = my_ring + (idx % STAGES) * TILE;
-#pragma unroll
-    for (int p = lane; p < TC * PIECES; p += 32) {
+    auto piece_copy = [&](int p) {
       const int r = p / PIECES, piece = p % PIECES;
       const int row = src[tile * TC + r];
       const T* s = row >= 0 ? base + (size_t(row) * a.Hkv + h) * DH
                    : row == -1 ? base
                                : self + ((size_t(b) * nq + (SELF0 - row)) * a.Hkv + h) * DH;
       tc::cp_async16(dst + swz<T, DH>(r, piece), s + piece * PE, row != -1);
+    };
+    if constexpr (DH == 256) {   // 32 / 64 copies a lane: addresses four at a time
+#pragma unroll 4
+      for (int p = lane; p < TC * PIECES; p += 32) piece_copy(p);
+    } else {
+#pragma unroll
+      for (int p = lane; p < TC * PIECES; p += 32) piece_copy(p);
     }
   };
 #pragma unroll
@@ -270,9 +308,8 @@ dense_verify(Args a) {
   const int rg = r0 + g, rg8 = rg + 8;
   const int bias_g = rg < M ? (rg / qpk - j_lo) * cl : -1;     // offsets of the rows' bias
   const int bias_g8 = rg8 < M ? (rg8 / qpk - j_lo) * cl : -1;
-  const T* qb = static_cast<const T*>(a.q) + (size_t(b) * a.Hkv + h) * M * DH;
-  uint32_t qa[BF16 ? KS : 1][4];   // q's A fragments (bf16)
-  if constexpr (BF16) {
+  uint32_t qa[BF16 && !QSM ? KS : 1][4];   // q's A fragments (bf16, in registers)
+  if constexpr (BF16 && !QSM) {
 #pragma unroll
     for (int ks = 0; ks < KS; ++ks) {
       const int col = 16 * ks + 2 * t4;
@@ -294,7 +331,7 @@ dense_verify(Args a) {
   float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f;
 
   for (int i = 0; i < n_mine; ++i) {
-    const int tile = tiles[warp + WARPS * i];
+    const int tile = tiles[warp + NSW * i];
     tc::cp_async_wait<STAGES - 2>();
     __syncwarp();
     if (2 * i + STAGES - 1 < total) issue(2 * i + STAGES - 1);
@@ -308,7 +345,21 @@ dense_verify(Args a) {
     for (int n = 0; n < 4; ++n)
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-    if constexpr (BF16) {
+    if constexpr (QSM) {   // the same products in the same order, q by ldmatrix
+#pragma unroll
+      for (int k2 = 0; k2 < KS / 2; ++k2) {
+        uint32_t q0[4], q1[4];   // A fragments of k-steps 2 k2 and 2 k2 + 1
+        tc::ldsm_x4(q0, q_s + swz<T, DH>(lane & 15, 4 * k2 + (lane >> 4)));
+        tc::ldsm_x4(q1, q_s + swz<T, DH>(lane & 15, 4 * k2 + 2 + (lane >> 4)));
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          uint32_t r[4];
+          tc::ldsm_x4(r, kt + swz<T, DH>(8 * n + (lane & 7), 4 * k2 + (lane >> 3)));
+          tc::mma16816(s[n], q0, r[0], r[1]);
+          tc::mma16816(s[n], q1, r[2], r[3]);
+        }
+      }
+    } else if constexpr (BF16) {
 #pragma unroll
       for (int n = 0; n < 4; ++n)
 #pragma unroll
@@ -407,11 +458,12 @@ dense_verify(Args a) {
         }
     } else {
       const float* vf = reinterpret_cast<const float*>(vt);
-#pragma unroll
-      for (int cc = 0; cc < TC; ++cc) {
+      // column cc of the tile: P of rows g and g + 8 gathered from the quad
+      // that holds it, times V's row cc
+      auto pv_column = [&](int cc, const float (&sn)[4]) {
         const int from = (lane & ~3) | ((cc & 7) >> 1);
-        const float pg = __shfl_sync(0xffffffffu, s[cc / 8][cc & 1], from);
-        const float pg8 = __shfl_sync(0xffffffffu, s[cc / 8][2 + (cc & 1)], from);
+        const float pg = __shfl_sync(0xffffffffu, sn[cc & 1], from);
+        const float pg8 = __shfl_sync(0xffffffffu, sn[2 + (cc & 1)], from);
 #pragma unroll
         for (int n = 0; n < ND; ++n) {
           const float2 vv = *reinterpret_cast<const float2*>(
@@ -421,6 +473,22 @@ dense_verify(Args a) {
           o[n][2] = fmaf(pg8, vv.x, o[n][2]);
           o[n][3] = fmaf(pg8, vv.y, o[n][3]);
         }
+      };
+      if constexpr (DH == 256) {
+        // the accumulator holds 128 registers: one score n-tile (8
+        // columns) at a time, the n-tile picked by selects, not unrolled
+#pragma unroll 1
+        for (int n8 = 0; n8 < 4; ++n8) {
+          float sn[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            sn[e] = n8 == 0 ? s[0][e] : n8 == 1 ? s[1][e] : n8 == 2 ? s[2][e] : s[3][e];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) pv_column(8 * n8 + c, sn);
+        }
+      } else {
+#pragma unroll
+        for (int cc = 0; cc < TC; ++cc) pv_column(cc, s[cc / 8]);
       }
     }
   }
@@ -491,7 +559,8 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
 
 template <typename T, bool PAGED>
 cudaError_t launch_dh(const Args& a, int dh, void* out, cudaStream_t stream) {
-  return dh == 64 ? launch<T, 64, PAGED>(a, out, stream) : launch<T, 128, PAGED>(a, out, stream);
+  if (dh == 64) return launch<T, 64, PAGED>(a, out, stream);
+  return dh == 128 ? launch<T, 128, PAGED>(a, out, stream) : launch<T, 256, PAGED>(a, out, stream);
 }
 
 }  // namespace
@@ -505,14 +574,17 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk
   if (dh == 64)
     return static_cast<int>(is_bf16 ? smem_bytes<bf16, 64>(nq, qpk, chunk_len)
                                     : smem_bytes<float, 64>(nq, qpk, chunk_len));
-  return static_cast<int>(is_bf16 ? smem_bytes<bf16, 128>(nq, qpk, chunk_len)
-                                  : smem_bytes<float, 128>(nq, qpk, chunk_len));
+  if (dh == 128)
+    return static_cast<int>(is_bf16 ? smem_bytes<bf16, 128>(nq, qpk, chunk_len)
+                                    : smem_bytes<float, 128>(nq, qpk, chunk_len));
+  return static_cast<int>(is_bf16 ? smem_bytes<bf16, 256>(nq, qpk, chunk_len)
+                                  : smem_bytes<float, 256>(nq, qpk, chunk_len));
 }
 
 // Both entry points take this argument list and return a cudaError_t (0 =
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
-// (0); bias f32.  Limits: dh 64 or 128, nq >= 1, 1 <= qpk <= 8,
+// (0); bias f32.  Limits: dh 64, 128 or 256, nq >= 1, 1 <= qpk <= 8,
 // chunk_len a multiple of 32 up to 512 and n_chunks = ceil((S + nq) /
 // chunk_len); ring and pool row indices below 2^31; the pool takes a page
 // table (B, S / page_size) int32 with page_size dividing S, the ring none.
@@ -525,7 +597,8 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, B, S, Hkv, nq,   \
            qpk, n_chunks, chunk_len, page_size, n_pages, scale};                           \
     const long long rows = (PAGED) ? (long long)n_pages * page_size : (long long)B * S;   \
-    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128) || nq < 1 ||             \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128 && dh != 256) ||         \
+        nq < 1 ||                                                                          \
         (long long)nq * qpk > (1 << 20) || (long long)S + nq >= (1LL << 31) ||             \
         qpk < 1 || qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||    \
         k_self == nullptr || v_self == nullptr || chunk_len < TC || chunk_len > CH_MAX ||  \

@@ -6,9 +6,10 @@
 // v (B,T,Hv,dv) -> out (B,T,H,dv), with query head h reading kv head
 // h / (H/Hkv) and value group h / (H/Hv) (kv-major head order).  On the
 // ReCalKV prefill path the values are the latent groups: Hv = G and
-// dv = r_v, which differ from Hkv and dh.  Served widths: dh 64 or 128 and
-// any dv that is a multiple of 8 from 8 to 1,024 (every r_v the JAX
-// package makes for qwen3-4b, and the dense cache's dv = dh).
+// dv = r_v, which differ from Hkv and dh.  Served widths: dh 64, 128 or
+// 256 and any dv that is a multiple of 8 from 8 to 1,024 (every r_v the
+// JAX package makes for qwen3-4b, minicpm-2b and gemma3-12b, and the dense
+// cache's dv = dh).
 //
 // What bounds it on an H100: at B=8, T=2048, H=32, dh=128, dv=256 the
 // causal work is ~0.41 TFLOP (0.42 ms on bf16 tensor cores) against
@@ -28,7 +29,11 @@
 //    each tile once per 64 rows.
 //  * Pipeline: Q, K and V arrive by 16-byte cp.async, in the 128-byte
 //    swizzle wgmma reads, into a three-stage K/V ring (a thread copies the
-//    same cells of every tile, so its addresses advance by adds).  In tile
+//    same cells of every tile, so its addresses advance by adds).  At dh
+//    256 and a 256-column value slice three V stages overrun shared memory
+//    (Q 64 KB + 3 x 32 KB of K + 3 x 32 KB of V), so V keeps two stages and
+//    loads one tile ahead instead of two (K stays two ahead); there S =
+//    Q K^T is 16 wgmma k-steps over four 64-column swizzle blocks.  In tile
 //    i a warpgroup starts S of tile i + 1 and then P V of tile i, runs the
 //    softmax of tile i + 1 on the CUDA cores while P V is on the tensor
 //    cores, and rescales O once P V is done; one block barrier per tile
@@ -264,11 +269,24 @@ namespace tcp {
 
 using bf16 = __nv_bfloat16;
 constexpr int BQ = 128, BK = 64, THREADS = 256;   // 2 warpgroups of 64 query rows
-constexpr int NS = 3;                              // K/V stages in the ring
+constexpr int NSK = 3;                             // K stages in the ring
+constexpr size_t SMEM_LIMIT = 232448;              // bytes of shared memory a block may use
 
+// Q, NSK K stages and nsv V stages; + 1 KB to align
 template <int DH, int DV>
-constexpr size_t smem_bytes() {   // Q and NS K/V stages; + 1 KB to align
-  return (size_t(BQ) * DH + NS * size_t(BK) * (DH + DV)) * sizeof(bf16) + 1024;
+__host__ __device__ constexpr size_t ring_smem(int nsv) {
+  return (size_t(BQ) * DH + NSK * size_t(BK) * DH + nsv * size_t(BK) * DV) * sizeof(bf16) +
+         1024;
+}
+// V stages: three, or two where three overrun shared memory (dh 256 at a
+// 256-column slice: Q 64 KB, three K stages 96 KB, two V stages 64 KB)
+template <int DH, int DV>
+__host__ __device__ constexpr int v_stages() {
+  return ring_smem<DH, DV>(3) <= SMEM_LIMIT ? 3 : 2;
+}
+template <int DH, int DV>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return ring_smem<DH, DV>(v_stages<DH, DV>());
 }
 
 // DV is the block's value-column slice (64, 128 or 256): slice
@@ -281,8 +299,10 @@ flash_prefill_tc(Args a) {
   constexpr int ON = DV / 8;   // output 8-column tiles of a warp (16 rows x DV)
   constexpr int QC = DH / 8, VC = DV / 8;   // 16-byte chunks per row
   constexpr uint32_t Q_BYTES = BQ * DH * 2, K_BYTES = BK * DH * 2, V_BYTES = BK * DV * 2;
+  constexpr int NSV = v_stages<DH, DV>();   // V stages: V of tile i + NSV - 1 loads in tile i
   static_assert(DH % 64 == 0 && (DV == 64 || DV == 128 || DV == 256),
                 "value slices of 64, 128 or 256 columns");
+  static_assert(smem_bytes<DH, DV>() <= SMEM_LIMIT, "the ring fits in shared memory");
 
   const int h = blockIdx.x / a.n_sl, b = blockIdx.y;
   const int c0 = (blockIdx.x - h * a.n_sl) * DV;   // the slice's first value column
@@ -297,8 +317,8 @@ flash_prefill_tc(Args a) {
   extern __shared__ unsigned char smem_raw[];
   unsigned char* base = smem_raw + ((1024 - (tc::smem_u32(smem_raw) & 1023)) & 1023);
   unsigned char* q_s = base;                   // Q_BYTES, swizzled
-  unsigned char* k_s = q_s + Q_BYTES;          // NS stages of K_BYTES
-  unsigned char* v_s = k_s + NS * K_BYTES;     // NS stages of V_BYTES
+  unsigned char* k_s = q_s + Q_BYTES;          // NSK stages of K_BYTES
+  unsigned char* v_s = k_s + NSK * K_BYTES;    // NSV stages of V_BYTES
   const uint32_t q_a = tc::smem_u32(q_s), k_a = tc::smem_u32(k_s), v_a = tc::smem_u32(v_s);
 
   const bf16* q = static_cast<const bf16*>(a.q);
@@ -335,14 +355,17 @@ flash_prefill_tc(Args a) {
   const int v_T = vc < a.dv ? T_ : 0;       // rows of the chunk to load
   const bf16* v_src = v + (vc < a.dv ? (size_t(b) * T_ * a.Hv + hv) * a.dv + vc : 0);
   const size_t v_rs = size_t(a.Hv) * a.dv;
-  auto load_kv = [&](int i) {   // tile kt_lo + i into stage i % NS
-    const int k_start = (kt_lo + i) * BK, st = i % NS;
+  auto load_k = [&](int i) {   // K of tile kt_lo + i into stage i % NSK
+    const int k_start = (kt_lo + i) * BK, st = i % NSK;
 #pragma unroll
     for (int j = 0; j < BK / KR; ++j) {
       const int t = k_start + kr0 + j * KR;
       tc::cp_async16(k_s + st * K_BYTES + k_off + j * KR * 128, k_src + (t < T_ ? t : 0) * k_rs,
                      t < T_);
     }
+  };
+  auto load_v = [&](int i) {   // V of tile kt_lo + i into stage i % NSV
+    const int k_start = (kt_lo + i) * BK, st = i % NSV;
 #pragma unroll
     for (int j = 0; j < BK / VR; ++j) {
       const int t = k_start + vr0 + j * VR;
@@ -350,9 +373,16 @@ flash_prefill_tc(Args a) {
                      v_src + (t < v_T ? t : 0) * v_rs, t < v_T);
     }
   };
-  load_kv(0);
+  // K runs two tiles ahead of P V, V NSV - 1 tiles: with two V stages, V
+  // of tile i + 1 loads at the top of tile i, once every warp is done with
+  // P V of tile i - 1
+  load_k(0);
+  load_v(0);
   tc::cp_async_commit();
-  if (n_tiles > 1) load_kv(1);
+  if (n_tiles > 1) {
+    load_k(1);
+    if (NSV == 3) load_v(1);
+  }
   tc::cp_async_commit();
 
   float o[ON][4];
@@ -375,7 +405,7 @@ flash_prefill_tc(Args a) {
 #pragma unroll
     for (int kk = 0; kk < DH / 16; ++kk) {
       const uint32_t qd = q_a + (kk >> 2) * (BQ * 128) + wgi * (64 * 128) + (kk & 3) * 32;
-      const uint32_t kd = k_a + (i % NS) * K_BYTES + (kk >> 2) * (BK * 128) + (kk & 3) * 32;
+      const uint32_t kd = k_a + (i % NSK) * K_BYTES + (kk >> 2) * (BK * 128) + (kk & 3) * 32;
       wg::wgmma_ss_n64(x, wg::desc_sw128(qd, 16, 1024), wg::desc_sw128(kd, 16, 1024), 1);
     }
     wg::commit();
@@ -458,17 +488,19 @@ flash_prefill_tc(Args a) {
   // tile i + 1 runs on the CUDA cores while P V of tile i is on the tensor
   // cores; O takes tile i + 1's correction once P V of tile i is done.
   for (int i = 0; i < n_tiles; ++i) {
-    tc::cp_async_wait<0>();   // tile i + 1 has landed
+    tc::cp_async_wait<0>();   // K of tile i + 1 and V of tile i have landed
     wg::fence_proxy_async();
-    __syncthreads();          // ... for every thread; stage (i + 2) % NS is free
-    if (i + 2 < n_tiles) load_kv(i + 2);
+    __syncthreads();          // ... for every thread; K stage (i + 2) % NSK and V
+                              // stage (i + NSV - 1) % NSV are free
+    if (i + 2 < n_tiles) load_k(i + 2);
+    if (i + NSV - 1 < n_tiles) load_v(i + NSV - 1);
     tc::cp_async_commit();
     start_s(sc, i + 1);       // past the last tile: a stale stage, never read
     wg::fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk) {
       const uint64_t vd =
-          wg::desc_sw128(v_a + (i % NS) * V_BYTES + kk * (16 * 128), BK * 128, 1024);
+          wg::desc_sw128(v_a + (i % NSV) * V_BYTES + kk * (16 * 128), BK * 128, 1024);
       if constexpr (DV == 256) {
         wg::wgmma_rs_n256_tb(o, ph[kk], vd);
         wg::wgmma_rs_n256_tb(o, pl[kk], vd);
@@ -501,7 +533,8 @@ flash_prefill_tc(Args a) {
   // O / l to bf16 through shared memory (the K/V ring is free), then out in
   // 16-byte row chunks of the slice's live columns
   constexpr int OS = DV * 2 + 16;   // staged row stride (bytes): rows 16 B apart in banks
-  static_assert(size_t(BQ) * OS <= NS * size_t(K_BYTES + V_BYTES), "O fits the ring");
+  static_assert(size_t(BQ) * OS <= NSK * size_t(K_BYTES) + NSV * size_t(V_BYTES),
+                "O fits the ring");
   __syncthreads();
   unsigned char* o_s = k_s;
 #pragma unroll
@@ -550,7 +583,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Served widths: dh 64 or 128, and any dv that is a multiple of 8 from 8
+// Served widths: dh 64, 128 or 256, and any dv that is a multiple of 8 from 8
 // to 1,024 (r_v up to s * dh at group_size 8 and keep_ratio 1; the dense
 // cache's dv = dh).  A block computes one value-column slice of DV = 64,
 // 128 or 256 columns, the narrowest that holds dv, and past 256 the head's
@@ -567,12 +600,13 @@ cudaError_t dispatch_dh(int is_bf16, Args a, cudaStream_t st) {
 }
 
 bool supports(int dh, int dv) {
-  return (dh == 64 || dh == 128) && dv >= 8 && dv <= 1024 && dv % 8 == 0;
+  return (dh == 64 || dh == 128 || dh == 256) && dv >= 8 && dv <= 1024 && dv % 8 == 0;
 }
 
 cudaError_t dispatch(int is_bf16, int dh, const Args& a, cudaStream_t st) {
   if (!supports(dh, a.dv)) return cudaErrorInvalidValue;
-  return dh == 64 ? dispatch_dh<64>(is_bf16, a, st) : dispatch_dh<128>(is_bf16, a, st);
+  if (dh == 64) return dispatch_dh<64>(is_bf16, a, st);
+  return dh == 128 ? dispatch_dh<128>(is_bf16, a, st) : dispatch_dh<256>(is_bf16, a, st);
 }
 
 }  // namespace

@@ -90,7 +90,8 @@
 //    run along grid z.  A head-slot split costs only latent reloads (each
 //    slot's keys are rebuilt once either way); a query split rebuilds
 //    every key tile once per query block.  Every rank up to s * dh at
-//    group_size <= 8, Hg <= 32 and nq <= 8 fits (the wrapper,
+//    dh 128, group_size <= 8, Hg <= 32 and nq <= 8 fits, and gemma3-12b's
+//    dh 256 at r = 512 on 16-column tiles (the wrapper,
 //    kernels/latent_decode.py, picks the plan; these are the parity
 //    instantiations, and bf16 serves from latent_decode_tc.cu).  A shape
 //    the main path had before keeps SB = 32 and one block of all rows,
@@ -498,6 +499,7 @@ int dispatch(int dh, int sb, bool quant, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   if (dh == 64) err = launch_dh<64>(sb, quant, a, st);
   else if (dh == 128) err = launch_dh<128>(sb, quant, a, st);
+  else if (dh == 256) err = launch_dh<256>(sb, quant, a, st);
   return static_cast<int>(err);
 }
 
@@ -526,6 +528,7 @@ long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int 
                                      int sb) {
   if (dh == 64) return smem_dh<64>(is_int8, rows, nq, rk, rv, sb);
   if (dh == 128) return smem_dh<128>(is_int8, rows, nq, rk, rv, sb);
+  if (dh == 256) return smem_dh<256>(is_int8, rows, nq, rk, rv, sb);
   return -1;
 }
 

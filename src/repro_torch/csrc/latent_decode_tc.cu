@@ -127,6 +127,15 @@
 //    (230,416 B of shared memory at dh = 128, r = 256) with the rows
 //    converted as K6's are and the key / value scales applied as above.
 //    K5 is K6's with bf16 latents (loaded as K1's are).
+//  * dh 256 (gemma3-12b: s = 4 kv heads of 256, r = 512 at recalkv_ratio
+//    0.5) takes the 64-column plan only.  A warp's rebuilt keys are 16 rows
+//    x dh f32 at KS = 1, 128 registers for one m-tile at dh 256 (as two
+//    m-tiles are at dh 128 on the 256-column plan, which sits at 255 with
+//    its stage depth known at compile time); two warps per m-tile halve
+//    that to the 64 the 128-column plan holds at dh 128.  Shared memory
+//    takes rc 128 for one query set (~217 KB at r = 512) and rc 64 for the
+//    verify bodies (~188 KB).  The cost is R_k read from L2 once per 64
+//    columns and chunk partials for 64 chunks of a 4,096-column ring.
 //  * K1 and K4, and K5 and K7, are the same instantiation but for the row
 //    map, with the same block plan and chunks in the same order: K4 (K7) on
 //    a pool equals K1 (K5) on the table-gathered ring bit for bit (masked
@@ -766,20 +775,24 @@ struct Plan {
 };
 template <int DH, bool QUANT, bool MQ>
 Plan plan_dh(int rk, int rv) {
-  if constexpr (!MQ) {
-    if (rv <= 256 && smem_bytes<DH, 256, QUANT, MQ>(rk, rv, 128) <= SMEM_LIMIT)
-      return {256, 128};
+  if constexpr (DH < 256) {   // dh 256: 64-column chunks only (see the header)
+    if constexpr (!MQ) {
+      if (rv <= 256 && smem_bytes<DH, 256, QUANT, MQ>(rk, rv, 128) <= SMEM_LIMIT)
+        return {256, 128};
+    }
+    for (int rc = 128; rc >= 64; rc /= 2)
+      if (smem_bytes<DH, 128, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {128, rc};
   }
-  for (int rc = 128; rc >= 64; rc /= 2)
-    if (smem_bytes<DH, 128, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {128, rc};
   for (int rc = 128; rc >= 64; rc /= 2)
     if (smem_bytes<DH, 64, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {64, rc};
   return {0, 0};
 }
 template <bool QUANT, bool MQ>
 Plan plan(int dh, int rk, int rv) {
-  return dh == 64 ? plan_dh<64, QUANT, MQ>(rk, rv)
-         : dh == 128 ? plan_dh<128, QUANT, MQ>(rk, rv) : Plan{0, 0};
+  return dh == 64    ? plan_dh<64, QUANT, MQ>(rk, rv)
+         : dh == 128 ? plan_dh<128, QUANT, MQ>(rk, rv)
+         : dh == 256 ? plan_dh<256, QUANT, MQ>(rk, rv)
+                     : Plan{0, 0};
 }
 
 // Query sets and head slots per block: all of a slot's query rows (qg *
@@ -821,11 +834,15 @@ cudaError_t launch(Args a, cudaStream_t stream) {
   const Plan p = plan<QUANT, MQ>(DH, a.rk, a.rv);
   a.rc = p.rc;
   split_rows<MQ>(a);
-  if constexpr (!MQ) {
-    if (p.ch == 256) return launch_ch<DH, 256, PAGED, QUANT, MQ>(a, stream);
+  if constexpr (DH == 256) {
+    return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
+  } else {
+    if constexpr (!MQ) {
+      if (p.ch == 256) return launch_ch<DH, 256, PAGED, QUANT, MQ>(a, stream);
+    }
+    if (p.ch == 64) return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
+    return launch_ch<DH, 128, PAGED, QUANT, MQ>(a, stream);
   }
-  if (p.ch == 64) return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
-  return launch_ch<DH, 128, PAGED, QUANT, MQ>(a, stream);
 }
 
 // The shape limits of a body (the wrapper raises on the same ones first).
@@ -890,6 +907,7 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);                                  \
     if (dh == 64) return static_cast<int>(launch<64, PAGED, QUANT, MQ>(a, st));           \
     if (dh == 128) return static_cast<int>(launch<128, PAGED, QUANT, MQ>(a, st));         \
+    if (dh == 256) return static_cast<int>(launch<256, PAGED, QUANT, MQ>(a, st));         \
     return static_cast<int>(cudaErrorInvalidValue);                                       \
   }
 

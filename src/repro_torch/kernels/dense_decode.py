@@ -30,7 +30,7 @@ plain version or to K1 / K4 / K5 / K7.
 Shapes:
   q       (B, Hkv, qpk, dh)  post-RoPE queries grouped kv-major (K1's
                              grouping at one kv head per group), qpk <= 8,
-                             dh 64 or 128; verify: (B, Hkv, nq * qpk, dh),
+                             dh 64, 128 or 256; verify: (B, Hkv, nq * qpk, dh),
                              rows ordered (query, head), any nq
   k, v    (B, S, Hkv, dh)    the ring, keys stored after RoPE; the pool:
                              (n_pages, page_size, Hkv, dh) read through
@@ -119,6 +119,7 @@ _MQ_ENTRIES = ("recalkv_dense_decode_mq", "recalkv_dense_decode_mq_paged")
 _MQ_ROWS = 16          # query rows of a verify block (one m16 tile)
 _MQ_PER_SM = 2         # verify blocks per SM the chunk plan aims at
 _MQ_CHUNK_MAX8 = 448   # columns of a verify block past 4 queries (two bf16 blocks an SM)
+_SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
 
 
 def _lib(name):
@@ -129,6 +130,9 @@ def _lib(name):
             fn = getattr(lib, entry)
             fn.argtypes = _ARGTYPES[name]
             fn.restype = ctypes.c_int
+        if name == "dense_verify":
+            lib.recalkv_dense_decode_mq_smem.argtypes = [_INT] * 5
+            lib.recalkv_dense_decode_mq_smem.restype = ctypes.c_int
     return lib
 
 
@@ -145,15 +149,20 @@ def chunk_plan(B: int, heads: int, s_ext: int, sms: int, per_sm: int = 8,
     return chunk_len, -(-s_ext // chunk_len)
 
 
-def verify_plan(B: int, Hkv: int, rows: int, nq: int, S: int,
-                sms: int) -> tuple[int, int]:
+def verify_plan(B: int, Hkv: int, rows: int, nq: int, S: int, sms: int,
+                fits=None) -> tuple[int, int]:
     """(chunk_len, n_chunks) of the verify kernel: ``chunk_plan`` over the
     S + nq columns for B * Hkv heads times the 16-row blocks of their
     ``rows`` query rows, at most 512 columns a block (448 past 4 queries,
-    so two bf16 blocks share an SM).  The ring and the pool take the same
-    plan."""
+    so two bf16 blocks share an SM), and fewer while ``fits(chunk_len)``
+    says a block's shared memory does not fit (dh 256: the bias rows of
+    many queries beside 192 KB of rings).  The ring and the pool take the
+    same plan."""
+    cap = _CHUNK_MAX if nq <= 4 else _MQ_CHUNK_MAX8
+    while fits is not None and cap > _TILE and not fits(cap):
+        cap -= _TILE
     return chunk_plan(B, Hkv * -(-rows // _MQ_ROWS), S + nq, sms, per_sm=_MQ_PER_SM,
-                      cap=_CHUNK_MAX if nq <= 4 else _MQ_CHUNK_MAX8)
+                      cap=cap)
 
 
 def _aligned(t):
@@ -200,7 +209,7 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
         S = k.shape[1]
     n_self = nq if verify else int(has_self)
     qpk = rows // nq if verify else rows
-    if (dh not in (64, 128) or not 1 <= qpk <= 8
+    if (dh not in (64, 128, 256) or not 1 <= qpk <= 8
             or (verify and (nq < 1 or rows != nq * qpk))
             or k.dim() != 4 or k.shape != v.shape or tuple(k.shape[2:]) != (Hkv, dh)
             or (ptab is None and k.shape[0] != B)
@@ -211,13 +220,16 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
         raise ValueError(
             f"unsupported shapes for the {what} kernel: q {tuple(q.shape)}, "
             f"k / v {tuple(k.shape)} / {tuple(v.shape)}, bias {tuple(bias.shape)}, "
-            f"self {[tuple(t.shape) for t in selfs]} (dh must be 64 or 128, "
+            f"self {[tuple(t.shape) for t in selfs]} (dh must be 64, 128 or 256, "
             f"q_per_kv 1-8{', nq >= 1' if verify else ''}, at least one column)")
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if verify:
-        chunk_len, n_chunks = verify_plan(B, Hkv, rows, nq, S, sms)
         lib, entry = _lib("dense_verify"), _MQ_ENTRIES[ptab is not None]
+        is_bf16 = int(dt == torch.bfloat16)
+        chunk_len, n_chunks = verify_plan(
+            B, Hkv, rows, nq, S, sms, fits=lambda cl: lib.recalkv_dense_decode_mq_smem(
+                is_bf16, dh, nq, qpk, cl) <= _SMEM_LIMIT)
         sizes = (B, S, Hkv, nq, qpk, n_chunks, chunk_len, page_size, n_pages)
     else:
         chunk_len, n_chunks = chunk_plan(B, Hkv, S + has_self, sms)

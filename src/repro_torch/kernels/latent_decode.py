@@ -10,8 +10,9 @@ CUDA body serves which (kernel, dtype):
   bf16  all of them (and K3, K6 of ``latent_decode_q``): the tensor-core
         body of ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring
         columns per block for one query up to rank 256, 128 for the verify
-        bodies and past rank 256, 64 where nothing wider fits, so every
-        rank up to s * dh at group_size <= 8; R_k streamed per head slot
+        bodies and past rank 256, 64 where nothing wider fits and at dh
+        256, so every rank up to s * dh at group_size <= 8 (dh 64, 128)
+        and group_size 4 (dh 256); R_k streamed per head slot
         through a cp.async ring, keys and P as bf16 hi + lo), one
         instantiation per row map: K1 / K5 read ring row b * S + t, K4 /
         K7 the pool row through the page table, so K4 / K7 equal K1 / K5
@@ -184,7 +185,9 @@ ENTRY_POINTS = {  # entry point -> its library
 # r_k, r_v multiples of 8 whose block fits in shared memory
 # (recalkv_tc_chunk > 0: at dh 128 every rank up to 1,232 for the verify
 # bodies and 1,440 for the others, past the s * dh = 1,024 of group_size
-# 8).  Any Hg: past 16 query rows a group's head slots split over blocks.
+# 8; at dh 256 the 64-column plan, every rank up to s * dh = 1,024 of
+# group_size 4).  Any Hg: past 16 query rows a group's head slots split
+# over blocks.
 _TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 8, False),
               "recalkv_latent_decode_quant_tc": ("int8 ring", 8, False),
               "recalkv_latent_decode_paged_tc": ("paged", 8, False),
@@ -292,10 +295,10 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
                         "must be float32")
     n_self = _n_self(self_zk)
     bias_cols = bias.shape[-1]
-    if (dh not in (64, 128) or QH % nq or s < 1 or Hg % s
+    if (dh not in (64, 128, 256) or QH % nq or s < 1 or Hg % s
             or r_k.shape != (G, rk, s * dh)):
         raise ValueError(f"unsupported shapes for the {name}: q {tuple(q.shape)}, "
-                         f"r_k {tuple(r_k.shape)} (dh must be 64 or 128)")
+                         f"r_k {tuple(r_k.shape)} (dh must be 64, 128 or 256)")
     if (zv.shape[:3] != zk.shape[:3] or zk.shape[2] != G
             or (ptab is None and zk.shape[0] != B)
             or tuple(cos.shape[:2]) != (B, S) or bias.numel() != B * nq * bias_cols

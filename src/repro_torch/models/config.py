@@ -3,10 +3,10 @@
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
 (:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving path needs — dense FFN ``attn`` blocks with a dense
-K/V cache (``recalkv=None``) or a ReCalKV latent cache, float or int8
-(``cache_quant_bits``) — and :func:`check_supported` names anything else
-as not ported.
+subset the serving path needs — dense FFN ``attn`` and sliding-window
+``local`` blocks with a dense K/V cache (``recalkv=None``) or a ReCalKV
+latent cache, float or int8 (``cache_quant_bits``) — and
+:func:`check_supported` names anything else as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -219,7 +219,7 @@ class ModelConfig:
 # Widths every hand-written Hopper body takes (csrc/flash_prefill.cu
 # ``supports``, kernels/latent_decode.py's tensor-core limits,
 # kernels/dense_decode.py ``launch``): head dim, and query heads per kv head.
-KERNEL_D_HEADS = (64, 128)
+KERNEL_D_HEADS = (64, 128, 256)
 KERNEL_MAX_Q_PER_KV = 8
 
 
@@ -235,12 +235,13 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
             missing.append(name)
     if cfg.encoder_decoder:
         missing.append("encoder-decoder")
-    kinds = sorted(set(cfg.expanded_layers()) - {"attn"})
+    kinds = sorted(set(cfg.expanded_layers()) - {"attn", "local"})
     if kinds:
         missing.append(f"block kinds {kinds}")
     if missing:
         raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)}")
+            f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)} "
+            f"(ROADMAP.md Queue 1 item 4)")
     if (device is not None and torch.device(device).type == "cuda"
             and cfg.attn_backend == "kernel"):
         qpk = cfg.num_heads // max(cfg.num_kv_heads, 1)

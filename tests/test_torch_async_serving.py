@@ -332,11 +332,13 @@ def test_bad_configs_rejected():
 def test_check_supported_refuses_kernel_widths_on_cuda():
     """On a CUDA device with the kernel backend, a d_head or q_per_kv no
     Hopper body serves is refused at construction (no card needed: the
-    check reads the config); einsum, and every width on the CPU, pass."""
+    check reads the config); einsum, and every width on the CPU, pass.
+    d_head 256 has Hopper bodies of its own."""
     base = ModelConfig.from_dict(get_config("qwen3-4b").to_dict())   # d_head 128, q_per_kv 4
     cuda = torch.device("cuda")
     check_supported(dataclasses.replace(base, attn_backend="kernel"), cuda)
-    for bad in (dict(d_head=80), dict(d_head=256),
+    check_supported(dataclasses.replace(base, attn_backend="kernel", d_head=256), cuda)
+    for bad in (dict(d_head=80), dict(d_head=96),
                 dict(num_heads=16 * base.num_kv_heads)):
         cfg = dataclasses.replace(base, attn_backend="kernel", **bad)
         with pytest.raises(NotImplementedError, match="Queue 3 item 2"):

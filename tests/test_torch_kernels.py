@@ -62,6 +62,8 @@ K1_CASES = {
     # group_size 8: one group of 8 slots, 32 query rows (past one block)
     "groups1_s8": (dict(G=1, s=8, qpk=4, rk=24, rv=16), True),
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
+    # gemma3-12b's head width
+    "dh256": (dict(G=2, s=2, qpk=2, dh=256, rk=16, rv=24), True),
 }
 
 
@@ -151,6 +153,11 @@ K2_CASES = {
     "dense_gqa": (16, 4, 2, 2, 8, 8, None),
     # r_v = 152 in one value group (group_size 8 at keep ratio 0.3)
     "latent_values_152": (13, 8, 2, 1, 16, 152, None),
+    # dh 256 (gemma3-12b): dense values, windowed latent values, and latent
+    # values past one 256-column slice
+    "dh256_dense": (21, 4, 2, 2, 256, 256, None),
+    "dh256_window": (21, 4, 2, 1, 256, 40, 5),
+    "dh256_latent_520": (13, 4, 2, 1, 256, 520, None),
 }
 
 

@@ -73,7 +73,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_k1_cuda_kernel_matches_plain(cuda, dtype, dh):
     """Ragged ring (S = 70), empty slots, a fully masked row (exact 0),
     k-norm, G = 2, and the self column; one launch counted per call."""
@@ -128,7 +128,8 @@ def test_k1_cuda_kernel_window_single_group_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,dv,Hkv,Hv", [(128, 256, 4, 2), (64, 64, 2, 2)])
+@pytest.mark.parametrize("dh,dv,Hkv,Hv", [(128, 256, 4, 2), (64, 64, 2, 2), (256, 256, 4, 4),
+                                          (256, 512, 4, 2)])
 def test_k2_cuda_kernel_matches_plain(cuda, dtype, dh, dv, Hkv, Hv):
     """Latent values (Hv < Hkv, dv != dh) and plain GQA; a T that is not a
     tile multiple; causal with and without a window."""
@@ -166,7 +167,7 @@ def test_k2_bf16_tensor_cores_ragged_windowed(cuda, T):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh,dv", [(128, 256), (64, 64)])
+@pytest.mark.parametrize("dh,dv", [(128, 256), (64, 64), (256, 256)])
 def test_k2_bf16_single_key_rows_are_exact(cuda, dh, dv):
     """The dead-row check of K2.  Its masks always leave a row its own key,
     so no output row is dead, but with window 1 every loaded tile except
@@ -247,7 +248,7 @@ def _check(kernel, plain, args, kw, dtype, counter):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_k3_cuda_kernel_matches_plain(cuda, dtype, dh):
     """int8 ring with per-(token, group) scales; the self column is the
     quantized fresh latent; a dead row stays exact 0 without it."""
@@ -270,7 +271,7 @@ def test_k3_cuda_kernel_matches_plain(cuda, dtype, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_k3_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
     """bf16 K3 (K1's tensor-core body over int8 latents) at the main path's
     group width (Hg 16, s 4, r_k = r_v = 256) on a ragged int8 ring of two
@@ -329,9 +330,40 @@ def test_k5_cuda_kernel_matches_plain_and_k1(cuda, dtype, nq):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nq", [1, 4])
+def test_dh256_k5_k7_at_gemma3_widths(cuda, dtype, nq):
+    """K5 (and K7 through a shuffled pool of the same ring) at gemma3-12b's
+    latent widths: dh 256, s 4 kv heads of q_per_kv 2 (Hg 8), r 512, on a
+    ragged ring of five 64-column chunks (the only plan at dh 256): within
+    1e-4 (f32) or the bf16 limit of the plain version, row 2 exact 0, and
+    K7 equal to K5 bit for bit."""
+    a = _ring(cuda, 260 + nq, S=320, qpk=2, dh=256, rk=512, rv=512, nq=nq)
+    t = {k: (v.to(dtype) if k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv") else v)
+         for k, v in a.items()}
+    args = (t["q"], t["zk"], t["zv"], t["r_k"], t["cos"], t["sin"], t["bias"])
+    kw = dict(scale=256 ** -0.5, k_norm=t["k_norm"], self_zk=t["self_zk"],
+              self_zv=t["self_zv"], self_cos=t["self_cos"], self_sin=t["self_sin"])
+    n = K1.latent_decode_attention_mq.launches
+    got = K1.latent_decode_attention_mq(*args, **kw)
+    torch.cuda.synchronize()
+    assert K1.latent_decode_attention_mq.launches == n + 1
+    want = K1.latent_decode_attention_mq_plain(*args, **kw)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _within_bf16_limit(got, want)
+    assert (got[2] == 0).all()
+    ptab, *pools = _shuffled_pool(t["zk"], t["zv"], 16, 261)
+    paged = K1.latent_decode_attention_mq_paged(ptab, t["q"], *pools, *args[3:], **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, paged)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k6_cuda_kernel_matches_plain(cuda, dtype):
-    """K5 over the int8 ring, dh = 64 and 128, nq = 4."""
-    for dh in (64, 128):
+    """K5 over the int8 ring, dh = 64, 128 and 256, nq = 4."""
+    for dh in (64, 128, 256):
         a = _ring(cuda, 70 + dh, dh=dh, nq=4)
         q8 = {k: _quant(a[k]) for k in ("zk", "zv", "self_zk", "self_zv")}
         args = (a["q"].to(dtype), *q8["zk"], *q8["zv"], a["r_k"].to(dtype), a["cos"],
@@ -392,7 +424,7 @@ def _in_order(ptab, *pools):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16), (256, 16)])
 def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     """The paged pool through a ragged table (shuffled pages, null pages,
     one page shared by two rows; page_size below the kernels' tiles), with
@@ -461,7 +493,7 @@ def test_k4_bf16_null_page_tiles_and_dead_row(cuda, dh, ps):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dh,ps,rk,rv", [(64, 8, 64, 64), (128, 16, 64, 64),
                                          (128, 16, 152, 200), (128, 16, 384, 384),
-                                         (128, 16, 512, 512)])
+                                         (128, 16, 512, 512), (256, 16, 512, 512)])
 def test_k1_bf16_equals_k4_on_shuffled_pool(cuda, dh, ps, rk, rv):
     """bf16 K1 on a ragged ring of three 256-column chunks (six 128-column
     ones past rank 256) against bf16 K4 on a pool holding every page of
@@ -519,7 +551,7 @@ def _check_bf16(kernel, plain, args, kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 def test_k6_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
     """bf16 K6 at the main path's group width (Hg 16, s 4, nq 4: 64 score
     rows, r_k = r_v = 256) on a ragged int8 ring of three 128-column chunks
@@ -746,7 +778,7 @@ def test_engine_bf16_serves_group_size_8(cuda, bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16)])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16), (256, 16)])
 def test_k7_cuda_kernel_matches_plain_and_k5_on_view(cuda, dtype, dh, ps):
     """nq = 4 verify queries over the paged pool of the K4 test: against
     the plain version, and bit for bit against K5 on the gathered ring."""
@@ -778,7 +810,7 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     q = torch.randn(1, 1, 2, 96, device=cuda)
     z = torch.randn(1, 4, 1, 8, device=cuda)
     tab = torch.zeros(1, 4, 48, device=cuda)
-    with pytest.raises(ValueError, match="dh must be 64 or 128"):
+    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
         K1.latent_decode_attention(q, z, z, torch.randn(1, 8, 192, device=cuda),
                                    tab, tab, torch.zeros(1, 4, device=cuda), scale=1.0)
     # nq = 5 verify rows at the main path's width do not fit one float32
@@ -938,11 +970,15 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
                                                     (128, 1, 5, 16, False),
                                                     (128, 4, 9, None, False),
                                                     (128, 4, 16, 16, False),
-                                                    (64, 1, 16, None, True)])
+                                                    (64, 1, 16, None, True),
+                                                    (256, 2, 4, 16, False),
+                                                    (256, 8, 5, None, True),
+                                                    (256, 1, 17, None, False)])
 def test_dense_verify_kernel_edge_shapes(cuda, dtype, dh, qpk, nq, window, unfed):
-    """The dense verify kernel at dh 64 / 128, q_per_kv 1 / 4 / 8, nq 1 / 5
-    / 8 / 9 / 16 (up to 64 query rows: four 16-row blocks; 16 queries at
-    q_per_kv 1 in one block), with and without a window
+    """The dense verify kernel at dh 64 / 128 / 256, q_per_kv 1 / 2 / 4 / 8,
+    nq 1 / 4 / 5 / 8 / 9 / 16 / 17 (up to 64 query rows: four 16-row blocks;
+    16 queries at q_per_kv 1 in one block; 17 at dh 256 narrow the chunk so
+    that their bias rows fit beside the rings), with and without a window
     and with every candidate unfed, on a ring whose row 2 is empty: within
     1e-4 (f32) or the bf16 limit of the plain version; row 2's query 0
     exactly its self value (exact 0 with the candidates unfed, when it sees
@@ -984,7 +1020,7 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
     sk = rn(2, 4, 2, 128)
     kw = dict(scale=1.0, self_k=sk, self_v=sk)
     before = (KD.dense_decode_attention_mq.launches, KD.dense_decode_attention_mq_paged.launches)
-    with pytest.raises(ValueError, match="dh must be 64 or 128"):
+    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
         KD.dense_decode_attention_mq(rn(2, 2, 16, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
                                      bias, scale=1.0, self_k=rn(2, 4, 2, 96),
                                      self_v=rn(2, 4, 2, 96))
@@ -1013,9 +1049,9 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,qpk,window", [(64, 1, None), (64, 8, 16), (128, 1, 16),
-                                           (128, 8, None)])
+                                           (128, 8, None), (256, 2, None), (256, 8, 16)])
 def test_dense_decode_kernel_edge_shapes(cuda, dtype, dh, qpk, window):
-    """The dense decode kernel at dh 64 / 128, q_per_kv 1 / 8, with and
+    """The dense decode kernel at dh 64 / 128 / 256, q_per_kv 1 / 2 / 8, with and
     without a window, on a ring whose row 2 is masked everywhere: within
     1e-4 (f32) or the bf16 limit of the plain version, row 2 exactly its
     self value (and exact 0 without a self column), and the pool equal to
@@ -1052,7 +1088,7 @@ def test_dense_decode_kernel_rejects_shapes_outside_limits(cuda):
     rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     k, bias = rn(2, 32, 2, 128), torch.zeros(2, 32, device=cuda)
     before = KD.dense_decode_attention.launches
-    with pytest.raises(ValueError, match="dh must be 64 or 128"):
+    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
         KD.dense_decode_attention(rn(2, 2, 4, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
                                   bias, scale=1.0)
     with pytest.raises(ValueError, match="q_per_kv 1-8"):

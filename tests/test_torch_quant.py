@@ -111,6 +111,7 @@ K3_CASES = {
     "groups1_s8": (dict(G=1, s=8, qpk=4, rk=24, rv=16), True),
     "groups2_plain": (dict(G=2, s=2, qpk=2), False),
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
+    "dh256": (dict(G=2, s=2, qpk=2, dh=256, rk=16, rv=24), True),
 }
 
 

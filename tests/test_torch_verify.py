@@ -101,10 +101,11 @@ def _split_self(a, keys):
 
 
 MQ_CASES = {
-    # name: (nq, window, drop a feed column)
-    "nq1": (1, None, False),
-    "nq3_drop": (3, None, True),
-    "nq3_window": (3, 5, False),
+    # name: (nq, window, drop a feed column, dh)
+    "nq1": (1, None, False, 16),
+    "nq3_drop": (3, None, True, 16),
+    "nq3_window": (3, 5, False, 16),
+    "nq3_window_dh256": (3, 5, False, 256),   # gemma3-12b's head width
 }
 
 
@@ -112,8 +113,8 @@ MQ_CASES = {
 def test_k5_plain_matches_pallas_interpret(case):
     """S + nq = 14 or 16 columns at block 8 (a tail tile), a causal self
     block, a dropped feed column and a window."""
-    nq, window, drop = MQ_CASES[case]
-    a = _mq_inputs(zlib.crc32(case.encode()), nq, window=window, drop=drop)
+    nq, window, drop, dh = MQ_CASES[case]
+    a = _mq_inputs(zlib.crc32(case.encode()), nq, window=window, drop=drop, dh=dh)
     scale = a["q"].shape[-1] ** -0.5
     want = np.asarray(jax_k5(*[jnp.asarray(a[k]) for k in ("q", "zk", "zv", "r_k", "cos",
                                                            "sin", "bias")],
@@ -142,8 +143,8 @@ def test_k5_plain_matches_pallas_interpret(case):
 @pytest.mark.parametrize("case", sorted(MQ_CASES))
 def test_k6_plain_matches_pallas_interpret(case):
     """K5's cases over int8 latents; at nq = 1 it equals K3."""
-    nq, window, drop = MQ_CASES[case]
-    a = _mq_inputs(zlib.crc32(case.encode()) + 1, nq, window=window, drop=drop)
+    nq, window, drop, dh = MQ_CASES[case]
+    a = _mq_inputs(zlib.crc32(case.encode()) + 1, nq, window=window, drop=drop, dh=dh)
     for k in ("zk", "zv"):
         qv, sc = jquant(jnp.asarray(a[k]), 8)
         a[k + "_q"], a[k + "_s"] = np.asarray(qv), np.asarray(sc)[..., 0]
