@@ -4,9 +4,11 @@ their time.
 
     python3 benchmarks_torch/profile_decode.py [--cache-quant-bits 8] [--spec-depth 3]
                                                [--page-size 16] [--dense] [--aot]
-                                               [--src DIR]
+                                               [--src DIR] [--arch NAME]
+                                               [--num-layers N]
 
-Builds full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio
+Builds full-width qwen3-4b (or ``--arch``, at ``--num-layers`` of its
+layers) with a ReCalKV latent cache (recalkv_ratio
 0.5), bf16, random weights from seed 0, on one CUDA card, at the main
 path's shape that chip_smoke.py also uses: 8 rows of 2048-token prompts in
 a 4096-token ring.  It prefills them with the kernel backend twice (the
@@ -34,8 +36,14 @@ static draft columns, so they do the same work.  It reports wall, device
 time, kernels and host launches a step for each.
 ``--src DIR`` imports the port from another tree's ``src`` (an older
 commit unpacked with ``git archive``), so that two trees are profiled by
-the same script in turns on one card.  Without flags it measures what it
-always did.
+the same script in turns on one card.  ``--arch qwen3-moe-235b-a22b
+--num-layers 8 --dense --aot`` profiles run Q's model of chip_smoke.py:
+every trace then also splits the device time into the expert GEMMs (the
+MoE FFN's ``torch.bmm`` calls), the MoE dispatch and combine (the rest of
+``layers.moe_ffn``), attention (the port's kernels) and the rest; the
+split by code range needs eager steps, so a replayed graph's trace splits
+by kernel name only (attention, kernels named as GEMMs, the rest).
+Without flags it measures what it always did.
 """
 
 from __future__ import annotations
@@ -52,9 +60,18 @@ ROOT = Path(__file__).resolve().parents[1]
 BATCH, PROMPT, MAX_LEN, STEPS = 8, 2048, 4096, 8
 
 
+# Kernel names of the port's attention kernels and their merges, and of
+# library GEMMs (cuBLAS / CUTLASS), for the split of a trace's device time.
+ATTENTION = ("latent_decode", "dense_decode", "dense_verify", "flash_prefill", "merge")
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+# record_function ranges the MoE model's eager steps open (see moe_ranges)
+EXPERT_RANGE, MOE_RANGE = "expert_gemms", "moe_ffn"
+
+
 def traced(fn, n: int):
     """Run ``fn`` n times under the profiler.  Returns (wall ms, device
-    busy ms, [(device ms per call, launches per call, name)] sorted)."""
+    busy ms, [(device ms per call, launches per call, name)] sorted, the
+    split of device ms per call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -63,26 +80,69 @@ def traced(fn, n: int):
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+    rows, ranges = [], {}
+    # a range's device time: the kernels launched inside its CPU-side event
+    # (the range's span on the device timeline would count the gaps)
+    for e in prof.events():
+        if e.name in (EXPERT_RANGE, MOE_RANGE) and e.device_type.name == "CPU":
+            ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total / 1e3 / n
     for e in prof.key_averages():
-        if e.device_type.name != "CUDA":     # device kernels only, no aten:: ops
-            continue
+        if e.device_type.name != "CUDA" or e.key in (EXPERT_RANGE, MOE_RANGE):
+            continue                         # device kernels only, no ranges or aten:: ops
         us = getattr(e, "self_device_time_total", 0)
         if us > 0:
             rows.append((us / 1e3 / n, e.count / n, e.key))
     rows.sort(reverse=True)
-    return wall, sum(r[0] for r in rows) * n, rows
+    busy = sum(r[0] for r in rows)
+    attention = sum(ms for ms, _, k in rows if any(a in k for a in ATTENTION))
+    split = {"attention_ms": attention}
+    if MOE_RANGE in ranges:
+        experts = ranges.get(EXPERT_RANGE, 0.0)
+        split.update(expert_gemms_ms=experts, moe_dispatch_combine_ms=ranges[MOE_RANGE] - experts,
+                     rest_ms=busy - attention - ranges[MOE_RANGE])
+    else:
+        gemm = sum(ms for ms, _, k in rows
+                   if any(g in k.lower() for g in GEMM_NAMES)
+                   and not any(a in k for a in ATTENTION))
+        split.update(gemm_named_ms=gemm, rest_ms=busy - attention - gemm)
+    return wall, busy * n, rows, split
 
 
-def report(title, n, wall, busy, rows):
+def report(title, n, wall, busy, rows, split):
     print(f"{title}: {n} traced, wall {wall:.3f} ms, device busy {busy:.3f} ms "
           f"({busy / wall:.3f} of wall), {sum(r[1] for r in rows):.0f} kernels per call")
     for ms, calls, key in rows[:12]:
         print(f"  {ms:12.4f} ms {calls:8.1f} x  {key[:96]}")
-    return {"wall_ms": wall / n, "device_busy_ms": busy / n,
+    per = busy / n
+    print("  device ms per call by part: " + ", ".join(
+        f"{k[:-3]} {v:.4f} ({v / per:.3f})" for k, v in split.items()))
+    return {"wall_ms": wall / n, "device_busy_ms": per,
             "device_busy_share": busy / wall,
-            "kernels_per_call": sum(r[1] for r in rows),
+            "kernels_per_call": sum(r[1] for r in rows), "split_ms": split,
             "top": [{"kernel": k[:120], "ms": ms, "calls": c} for ms, c, k in rows[:8]]}
+
+
+def moe_ranges(L):
+    """Open the MoE ranges around ``layers.moe_ffn`` and its expert
+    products (the ``torch.bmm`` calls it makes), so an eager trace can
+    split the FFN's device time; a captured graph replays without them."""
+    import torch
+    from torch.profiler import record_function
+    moe, bmm = L.moe_ffn, torch.bmm
+
+    def ranged_bmm(*a, **kw):
+        with record_function(EXPERT_RANGE):
+            return bmm(*a, **kw)
+
+    def ranged_moe(*a, **kw):
+        with record_function(MOE_RANGE):
+            torch.bmm = ranged_bmm
+            try:
+                return moe(*a, **kw)
+            finally:
+                torch.bmm = bmm
+
+    L.moe_ffn = ranged_moe
 
 
 def main() -> int:
@@ -102,6 +162,10 @@ def main() -> int:
                          "the eager step")
     ap.add_argument("--src", default=str(ROOT / "src"),
                     help="the tree whose src is profiled (default: this one's)")
+    ap.add_argument("--arch", default="qwen3-4b",
+                    help="the registered arch to profile at full width")
+    ap.add_argument("--num-layers", type=int, default=None,
+                    help="serve this many of the arch's layers (default: all)")
     args = ap.parse_args()
     if args.dense and args.cache_quant_bits:
         ap.error("--dense takes no --cache-quant-bits: the int8 cache is latent")
@@ -111,6 +175,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.weights import init_params
     from repro_torch.serving.engine import _merge_slot_paged
@@ -118,10 +183,13 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    base = (get_config("qwen3-4b") if args.dense
-            else get_config("qwen3-4b", recalkv_ratio=0.5))
+    base = (get_config(args.arch) if args.dense
+            else get_config(args.arch, recalkv_ratio=0.5))
     cfg = dataclasses.replace(base, attn_backend="kernel", dtype=torch.bfloat16,
-                              cache_quant_bits=args.cache_quant_bits)
+                              cache_quant_bits=args.cache_quant_bits,
+                              num_layers=args.num_layers or base.num_layers)
+    if cfg.moe is not None:
+        moe_ranges(L)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = BATCH
@@ -141,11 +209,12 @@ def main() -> int:
     cold_s = time.perf_counter() - t0
     print(f"card: {card}")
     kind = "dense" if args.dense else f"r={cfg.recalkv.rank_k}"
-    print(f"qwen3-4b {kind} bf16, cache_quant_bits "
+    print(f"{cfg.name} ({cfg.num_layers} layers) {kind} bf16, cache_quant_bits "
           f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, page_size "
           f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}, src "
           f"{args.src}: first (cold) prefill {cold_s:.4f} s")
-    out = {"card": card, "src": args.src, "dense": args.dense, "batch": B, "prompt": PROMPT,
+    out = {"card": card, "src": args.src, "arch": cfg.name, "num_layers": cfg.num_layers,
+           "dense": args.dense, "batch": B, "prompt": PROMPT,
            "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
            "spec_depth": args.spec_depth, "page_size": args.page_size,
            "cold_prefill_s": cold_s,

@@ -50,7 +50,14 @@ Phases, in order (any failure exits non-zero; none is caught):
    dense, dv 256; the dense decode and verify kernels at Hkv 8, q_per_kv
    2) and minicpm-2b's pools at q_per_kv 1 (K4 at G 9, Hg 4, r 128, dh 64;
    the dense verify kernel's pool at Hkv 36, nq 4), rows tagged "(dh 256)"
-   / "(q_per_kv 1)".  Every kernel time is
+   / "(q_per_kv 1)"; then h2o-danube-1.8b's d_head 80 in every body on
+   its path (K1, K3, K5, K6 at G 2, Hg 16, r 160; K2 at H 32, Hkv 8, Hv 2,
+   dv 160, causal and within a 1,024 window, and dense, dv 80; the dense
+   decode and verify kernels at Hkv 8, q_per_kv 4) and qwen3-moe-235b-a22b's
+   q_per_kv 16 in every body (K1, K3, K5, K6, K4, K7 at G 1, Hg 64, r 256;
+   K2 at H 64 over Hkv 4, Hv 1, dv 256, and dense, dv 128; the dense decode
+   and verify kernels, ring and pool, at Hkv 4, nq 4: 64 rows a kv head),
+   rows tagged "(dh 80)" / "(q_per_kv 16)".  Every kernel time is
    device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator; first
@@ -136,7 +143,23 @@ Phases, in order (any failure exits non-zero; none is caught):
    and UB (B's prompts, int8 ring, spec_depth 3, "layers:4"); then
    minicpm-2b at ratio 0.5, M (D's pool and traffic), and dense, M3 (the
    dense pool, C's prompts, "ngram"); cache bytes per token and layer
-   8,192 (V), 4,096 (U), 4,608 (M), 9,216 (M3);
+   8,192 (V), 4,096 (U), 4,608 (M), 9,216 (M3); then h2o-danube-1.8b
+   (24 local layers of window 4,096, d_head 80) dense, its logits through
+   both backends, N (A's prompts) and N3 (C's, "ngram"), compressed in
+   the run (G 2, r 160, not saved), both backends' logits again, NU, NU3
+   and NUB (B's: int8 ring, "layers:4"); then qwen3-moe-235b-a22b at full
+   width and 8 of its 94 layers (MOE_LAYERS: 42.3 GB of weights; the
+   card's 80 GB hold about 14 layers), first both backends' logits in
+   float32 on 2 layers, dense and compressed (bf16 rounding flips top-8
+   expert choices between the backends), then the bf16 model: decode and
+   verify on a dense pool equal to the ring's, Q (A's prompts), Q+ (Q
+   overlapped with graphs and inline admission: Q's streams, the MoE
+   dispatch captured), Q3 (C's, "ngram": verify MoE at N 32, 64-row
+   dense verify), compressed in the run (G 1, r 256, the expert tensors
+   shared), paged steps equal to the ring's (float and int8 pools), QU
+   (D's pool and traffic: K4 at q_per_kv 16) and QU3 (C's prompts, K5);
+   the peak memory of every step; cache bytes per token and layer 2,560
+   (N), 1,280 (NU), 2,048 (Q), 1,024 (QU);
 8. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
@@ -266,13 +289,25 @@ def compare(name, got, want, dtype) -> float:
 # recalkv_ratio 0.5 (G groups of s kv heads, rank r).
 WIDTHS = {"qwen3-4b": dict(dh=128, Hkv=8, qpk=4, G=2, s=4, r=256),
           "gemma3-12b": dict(dh=256, Hkv=8, qpk=2, G=2, s=4, r=512),
-          "minicpm-2b": dict(dh=64, Hkv=36, qpk=1, G=9, s=4, r=128)}
+          "minicpm-2b": dict(dh=64, Hkv=36, qpk=1, G=9, s=4, r=128),
+          "h2o-danube-1.8b": dict(dh=80, Hkv=8, qpk=4, G=2, s=4, r=160),
+          "qwen3-moe-235b-a22b": dict(dh=128, Hkv=4, qpk=16, G=1, s=4, r=256)}
 # the kernels-line tag of another family's rows, and the runs whose
 # launches they count (the qwen3-4b rows count every other run)
-FAMILY_TAG = {"gemma3-12b": "dh 256", "minicpm-2b": "q_per_kv 1"}
+FAMILY_TAG = {"gemma3-12b": "dh 256", "minicpm-2b": "q_per_kv 1", "h2o-danube-1.8b": "dh 80",
+              "qwen3-moe-235b-a22b": "q_per_kv 16"}
 FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent steps", "U",
                               "U+", "U3", "UB"),
-               "minicpm-2b": ("M", "M3")}
+               "minicpm-2b": ("M", "M3"),
+               "h2o-danube-1.8b": ("danube steps", "N", "N3", "danube latent steps", "NU",
+                                   "NU3", "NUB"),
+               "qwen3-moe-235b-a22b": ("qwen3-moe steps", "Q", "Q+", "Q3",
+                                       "qwen3-moe latent steps", "QU", "QU3")}
+# qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
+# (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
+# 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
+# for the rings, the prefill's MoE buffers and the compression.
+MOE_LAYERS = 8
 
 
 def family_row(entry, arch, what=""):
@@ -1164,13 +1199,28 @@ ENGINE_RUNS.update({
                must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
                paged=dict(cache_layout="paged", page_size=PAGE, policy="reach-packing")),
 })
+# h2o-danube-1.8b (dh 80, every layer local at window 4,096) as gemma3's:
+# dense (N, N3) and compressed in the run (NU, NU3, NUB: G 2, r 160);
+# qwen3-moe-235b-a22b at MOE_LAYERS layers (q_per_kv 16, MoE FFN): dense
+# (Q, Q3), compressed in the run (QU on D's pool and traffic: K4; QU3:
+# G 1, r 256).
+ENGINE_RUNS.update({"N": ENGINE_RUNS["V"], "N3": ENGINE_RUNS["V3"], "NU": ENGINE_RUNS["U"],
+                    "NU3": ENGINE_RUNS["U3"], "NUB": ENGINE_RUNS["UB"],
+                    "Q": ENGINE_RUNS["V"], "Q3": ENGINE_RUNS["V3"], "QU": ENGINE_RUNS["M"],
+                    "QU3": ENGINE_RUNS["U3"]})
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
-               "U": 4096, "U3": 4096, "M": 4608, "M3": 9216}
+               "U": 4096, "U3": 4096, "M": 4608, "M3": 9216, "N": 2560, "N3": 2560,
+               "NU": 1280, "NU3": 1280, "Q": 2048, "Q3": 2048, "QU": 1024, "QU3": 1024}
 # runs served again by the overlapped engine with the window captured as
 # CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
 # Their streams must equal the sync runs' in the same call.
-OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}, "V": {}}
+OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {}, "V": {},
+              # inline admission: the sync run's one 8-row prefill wave.  A
+              # worker thread forms waves as requests arrive, and under MoE
+              # the rows of a call share the experts' capacity, so another
+              # grouping gives other tokens (so does the JAX engine)
+              "Q": dict(admission_thread=False)}
 # runs served three ways in one call (sync; overlapped + graphs at pipeline
 # depth 3; the same with continuous batching): streams equal, installs
 # inside the windows
@@ -1572,21 +1622,27 @@ def phase_compress(torch, cfg, params, groups=2, rank=256, save=True):
                         "value_errors": r["value_errors"]} for r in rows]}, art
 
 
-def family_model(torch, arch, ratio=None):
-    """``arch`` at full width and depth, bf16, on the kernel backend, with
-    random weights from seed 0 (a ReCalKV latent cache at ``ratio``)."""
+def family_model(torch, arch, ratio=None, layers=None, dtype=None):
+    """``arch`` at full width and depth (or ``layers`` of its layers), bf16
+    (or ``dtype``), on the kernel backend, with random weights from seed 0
+    (a ReCalKV latent cache at ``ratio``)."""
     from repro_torch.configs import get_config
     from repro_torch.models.weights import init_params
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cfg = dataclasses.replace(get_config(arch, recalkv_ratio=ratio), attn_backend="kernel",
-                              dtype=torch.bfloat16)
+                              dtype=dtype or torch.bfloat16)
+    full = cfg.num_layers
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
-    log(f"model {cfg.name}{'' if ratio is None else f' recalkv ratio {ratio}'}: "
+    log(f"model {cfg.name}{'' if ratio is None else f' recalkv ratio {ratio}'}"
+        f"{'' if layers is None else f', {layers} of its {full} layers'}, {cfg.dtype}: "
         f"{count_params(params) / 1e9:.3f} B params initialised in "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"{time.perf_counter() - t0:.2f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} "
+        f"GiB allocated")
     return cfg, params
 
 
@@ -1612,12 +1668,7 @@ def phase_families(torch, by_run, streams, serving, backends) -> dict:
     for run in ("V", "V3"):
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     phase_overlapped(torch, cfg, params, "V", by_run, streams, serving)
-    old = {run: {k: by_run[run][k] for k in (
-        "latent_decode_attention", "latent_decode_attention_paged",
-        "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
-        for run in ("gemma3 steps", "V", "V+", "V3")}
-    if any(n for counts in old.values() for n in counts.values()):
-        raise AssertionError(f"the dense gemma3-12b launched K1, K4, K5 or K7: {old}")
+    _no_old_route(by_run, ("gemma3 steps", "V", "V+", "V3"), "gemma3-12b")
     t1 = time.perf_counter()
     compression, art = phase_compress(torch, cfg, params, groups=2, rank=512, save=False)
     del params   # the dense weights go; the compressed model serves
@@ -1649,6 +1700,116 @@ def phase_families(torch, by_run, streams, serving, backends) -> dict:
         del params
         torch.cuda.empty_cache()
     log(f"minicpm-2b runs took {time.perf_counter() - t1:.1f} s")
+    return compression
+
+
+OLD_DENSE_ROUTE = ("latent_decode_attention", "latent_decode_attention_paged",
+                   "latent_decode_attention_mq", "latent_decode_attention_mq_paged")
+
+
+def _no_old_route(by_run, runs, what):
+    old = {run: {k: by_run[run][k] for k in OLD_DENSE_ROUTE} for run in runs}
+    if any(n for counts in old.values() for n in counts.values()):
+        raise AssertionError(f"the dense {what} launched K1, K4, K5 or K7: {old}")
+
+
+def phase_danube(torch, by_run, streams, serving, backends) -> dict:
+    """h2o-danube-1.8b at full width and depth (24 ``local`` layers of
+    window 4,096, 32 q over 8 kv heads, d_head 80) on the kernel backend:
+    the dense model's logits through both backends, N (A's prompts) and N3
+    (C's, depth-3 "ngram"); ``calibrate`` + ``compress`` (G 2, r 160; not
+    saved), the compressed model's logits through both backends on the
+    float and int8 rings, then NU (A's), NU3 (C's, "ngram") and NUB (B's,
+    int8 ring, "layers:4").  Returns the compression record."""
+    from repro_torch import kernels
+    t0 = time.perf_counter()
+    cfg, params = family_model(torch, "h2o-danube-1.8b")
+    kernels.reset_launch_counts()
+    backends["h2o-danube-1.8b dense"] = phase_backends(torch, cfg, params, (None,))
+    by_run["danube steps"] = launch_counts(kernels)
+    for run in ("N", "N3"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    _no_old_route(by_run, ("danube steps", "N", "N3"), "h2o-danube-1.8b")
+    compression, art = phase_compress(torch, cfg, params, groups=2, rank=160, save=False)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    kernels.reset_launch_counts()
+    backends["h2o-danube-1.8b latent"] = phase_backends(torch, cfg, params, (None, 8))
+    by_run["danube latent steps"] = launch_counts(kernels)
+    for run in ("NU", "NU3", "NUB"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    del params
+    torch.cuda.empty_cache()
+    log(f"h2o-danube-1.8b runs and compression took {time.perf_counter() - t0:.1f} s")
+    return compression
+
+
+def phase_qwen3_moe(torch, by_run, streams, serving, backends) -> dict:
+    """qwen3-moe-235b-a22b at full width (d 4,096, 64 q over 4 kv heads,
+    128 experts top-8 of d_expert 1,536, vocab 151,936) and MOE_LAYERS of
+    its 94 layers, on the kernel backend: the dense model's logits through
+    both backends, decode and verify on a dense pool equal to the ring's,
+    then Q (A's prompts), Q+ (Q overlapped with the window as CUDA graphs,
+    the MoE dispatch inside them, admission inline so that its prefill
+    wave is Q's: Q's streams) and Q3 (C's, depth-3
+    "ngram": the verify MoE at N 32 and the 64-row dense verify);
+    ``calibrate`` + ``compress`` (G 1, r 256, the expert tensors shared
+    with the dense model; not saved: its 42 GB would not fit the run's
+    time), the compressed model's paged steps against its ring (K1 / K4,
+    K5 / K7; K3 / K6 on the int8 ring and the int8 pool's view), then QU
+    (D's pool and traffic: K4 at q_per_kv 16, sharing and preemption) and
+    QU3 (C's prompts on the ring: K5).  First, both backends' logits in
+    float32 on 2 of its layers, dense and compressed: in bf16 the two
+    backends round attention differently, and a top-8 choice that flips
+    changes a token's whole FFN output (on an H100, 7.6e-2 relative and
+    greedy agreement 0.8 over 10 rows at 8 layers), so the glue is held
+    where routing is stable.  Prints the peak memory of every step.
+    Returns the compression record."""
+    from repro_torch import kernels
+    arch = "qwen3-moe-235b-a22b"
+    t0 = time.perf_counter()
+    cfg, params = family_model(torch, arch, layers=2, dtype=torch.float32)
+    backends[f"{arch} f32 dense"] = phase_backends(torch, cfg, params, (None,))
+    art = phase_compress(torch, cfg, params, groups=1, rank=256, save=False)[1]
+    del params
+    backends[f"{arch} f32 latent"] = phase_backends(torch, art.cfg, art.params, (None, 8))
+    del art
+    cfg, params = family_model(torch, arch, layers=MOE_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    backends[f"{arch} dense paged"] = phase_paged_steps(torch, cfg, params, (None,))
+    by_run["qwen3-moe steps"] = launch_counts(kernels)
+    peaks = {"steps": torch.cuda.max_memory_allocated() / 2 ** 30}
+    for run in ("Q", "Q3"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    phase_overlapped(torch, cfg, params, "Q", by_run, streams, serving)
+    _no_old_route(by_run, ("qwen3-moe steps", "Q", "Q+", "Q3"), arch)
+    expert = params["layers"][0]["mlp"]["wi"]
+    compression, art = phase_compress(torch, cfg, params, groups=1, rank=256, save=False)
+    if art.params["layers"][0]["mlp"]["wi"] is not expert:
+        raise AssertionError("the compressed qwen3-moe copied the expert tensors")
+    peaks["compress"] = compression["peak_gib"]
+    del params, expert
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_launch_counts()
+    backends[f"{arch} latent paged"] = phase_paged_steps(torch, cfg, params, (None, 8))
+    by_run["qwen3-moe latent steps"] = launch_counts(kernels)
+    peaks["latent steps"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for run in ("QU", "QU3"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    del params
+    torch.cuda.empty_cache()
+    peaks.update({run: serving[run]["peak_gib"] for run in ("Q", "Q+", "Q3", "QU", "QU3")})
+    log(f"qwen3-moe-235b-a22b ({MOE_LAYERS} layers) peak memory GiB by step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f"; highest {max(peaks.values()):.2f}; runs and compression took "
+        f"{time.perf_counter() - t0:.1f} s")
+    compression["peaks_gib"] = peaks
     return compression
 
 
@@ -1713,6 +1874,19 @@ def main() -> int:
     entries += [phase_dense(torch, gen, False, nq, g3) for nq in (1, 4)]
     entries += [phase_paged(torch, gen, 1, "minicpm-2b"),
                 phase_dense(torch, gen, True, 4, "minicpm-2b")]
+    # h2o-danube-1.8b's d_head 80 in every body on its path (no pool: its
+    # local rings refuse one), and qwen3-moe-235b-a22b's q_per_kv 16 in
+    # every body (G 1, Hg 64; the dense verify at nq 4 is 64 rows)
+    dn, qm = "h2o-danube-1.8b", "qwen3-moe-235b-a22b"
+    entries += [phase_latent(torch, gen, nq, quant, arch) for arch in (dn, qm)
+                for nq in (1, 4) for quant in (False, True)]
+    entries += [phase_k2(torch, gen, dn), phase_k2(torch, gen, dn, window=1024),
+                phase_k2(torch, gen, dn, dense=True)]
+    entries += [phase_dense(torch, gen, False, nq, dn) for nq in (1, 4)]
+    entries += [phase_paged(torch, gen, nq, qm) for nq in (1, 4)]
+    entries += [phase_k2(torch, gen, qm), phase_k2(torch, gen, qm, dense=True)]
+    entries += [phase_dense(torch, gen, paged, nq, qm) for nq in (1, 4)
+                for paged in (False, True)]
     torch.cuda.empty_cache()
     log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
 
@@ -1772,12 +1946,7 @@ def main() -> int:
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     phase_overlapped(torch, cfg, params, "HI", by_run, streams, serving)
     phase_continuous(torch, cfg, params, "T", by_run, streams, serving)
-    old = {run: {k: by_run[run][k] for k in (
-        "latent_decode_attention", "latent_decode_attention_paged",
-        "latent_decode_attention_mq", "latent_decode_attention_mq_paged")}
-        for run in ("steps", "H", "I", "I9", "H+", "I+", "T", "T+", "T+c")}
-    if any(n for counts in old.values() for n in counts.values()):
-        raise AssertionError(f"the dense model launched K1, K4, K5 or K7: {old}")
+    _no_old_route(by_run, ("steps", "H", "I", "I9", "H+", "I+", "T", "T+", "T+c"), "model")
     log("K1, K4, K5 and K7 (the old dense route) launched 0 times over the dense steps "
         "and runs H, I, I9, T and H, I, T overlapped")
     compression = phase_compress(torch, cfg, params)[0]
@@ -1790,6 +1959,11 @@ def main() -> int:
         f"{time.perf_counter() - t_model:.1f} s")
     cli = phase_cli(torch)
     family_compression = phase_families(torch, by_run, streams, serving, backends)
+    family_compression = {"gemma3-12b": family_compression,
+                          "h2o-danube-1.8b": phase_danube(torch, by_run, streams, serving,
+                                                          backends),
+                          "qwen3-moe-235b-a22b": phase_qwen3_moe(torch, by_run, streams,
+                                                                 serving, backends)}
     family = {run for runs in FAMILY_RUNS.values() for run in runs}
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:

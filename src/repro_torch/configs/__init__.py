@@ -20,6 +20,7 @@ _MODULES = {
     "minicpm-2b": "minicpm_2b",
     "gemma3-12b": "gemma3_12b",
     "h2o-danube-1.8b": "h2o_danube_1p8b",
+    "qwen3-moe-235b-a22b": "qwen3_moe_235b",
 }
 ARCHS: tuple[str, ...] = tuple(_MODULES)
 

@@ -70,6 +70,12 @@
 //    the columns it owns, 8 dh values per lane and every row, into
 //    registers; the lane groups are summed in a fixed order through shared
 //    memory.
+//  * dh 80 (h2o-danube-1.8b): 10 lanes of 8 values; the lane group takes
+//    16 lanes (two columns a tile, as at dh 128), the last 6 holding zeros,
+//    so the reduce-scatter keeps its power-of-two levels.  16 query rows
+//    (qwen3-moe-235b-a22b's q_per_kv): the rows' q values are 128 registers
+//    a lane, so those instantiations run one block an SM, and the lane-group
+//    sums take 128 KB of shared memory.
 //  * The ring and the pool are one instantiation but for the row map, with
 //    the same chunks, tiles and order: the pool equals the ring on the
 //    table-gathered view bit for bit.
@@ -97,6 +103,12 @@ constexpr int STAGES = 4;        // tiles in the cp.async ring
 constexpr int CH_MAX = 512;      // ring columns of a block, at most
 constexpr int EL = 8;            // dh values of a lane
 constexpr long long SELF = -2;   // row map entry of the self column (-1: zero-fill)
+
+// Lanes of a lane group: dh / 8 rounded up to a power of two (dh 80: 16
+// lanes, of which the first 10 hold values and the rest hold zeros).
+__host__ __device__ constexpr int lane_group(int dh) {
+  return dh / EL <= 8 ? 8 : dh / EL <= 16 ? 16 : 32;
+}
 
 struct Args {
   const void* q;        // (B, Hkv, qpk, dh)
@@ -190,7 +202,7 @@ __device__ __forceinline__ int scatter_base(int lane, bool& writer) {
 template <typename T, int DH, int NQ>
 __host__ __device__ constexpr size_t stage_bytes() {
   constexpr size_t ring = size_t(STAGES) * TC * DH * sizeof(T);
-  constexpr size_t red = size_t(THREADS / (DH / EL)) * NQ * DH * 4;   // P V lane-group sums
+  constexpr size_t red = size_t(THREADS / lane_group(DH)) * NQ * DH * 4;   // P V lane-group sums
   return ring > red ? ring : red;
 }
 
@@ -205,16 +217,18 @@ __host__ __device__ constexpr size_t smem_bytes(int chunk_len) {
 }
 
 // Blocks an SM the register budget is sized for: 3 (<= 85 registers) up to
-// 4 query rows, 2 past; at dh 256 (a lane group of 32: 4 columns a tile)
-// one fewer.
+// 4 query rows, 2 up to 8, 1 at 16 (the rows' q values alone are 128
+// registers); at dh 256 (a lane group of 32: 4 columns a tile) one fewer,
+// but at least one.
 __host__ __device__ constexpr int min_blocks(int dh, int nq) {
-  return (nq <= 4 ? 3 : 2) - (dh == 256 ? 1 : 0);
+  return nq > 8 ? 1 : (nq <= 4 ? 3 : 2) - (dh == 256 ? 1 : 0);
 }
 
 template <typename T, int DH, int NQ, bool PAGED>
 __global__ void __launch_bounds__(THREADS, min_blocks(DH, NQ))
 dense_decode(Args a) {
-  constexpr int LG = DH / EL;              // lanes of a lane group (32, 16 or 8)
+  constexpr int LG = lane_group(DH);       // lanes of a lane group (32, 16 or 8)
+  constexpr int ACT = DH / EL;             // of them holding dh values (LG, or 10 at dh 80)
   constexpr int NLG = THREADS / LG;        // lane groups of a block (8, 16 or 32)
   constexpr int CPG = TC / NLG;            // columns of a tile per lane group (4, 2 or 1)
   constexpr int NV = CPG * NQ;             // partial scores of a lane per tile
@@ -241,6 +255,7 @@ dense_decode(Args a) {
   const int c = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int lg = tid / LG, e = tid % LG;
+  const bool act = ACT == LG || e < ACT;   // the lane holds dh values
   const int S = a.S, S_ext = S + a.n_self;
   const int c0 = c * cl;
   const int nt = (min(cl, S_ext - c0) + TC - 1) / TC;
@@ -323,7 +338,7 @@ dense_decode(Args a) {
     const T* q = static_cast<const T*>(a.q) + (size_t(b) * a.Hkv + h) * a.qpk * DH + e * EL;
 #pragma unroll
     for (int j = 0; j < NQ; ++j) {
-      if (j < a.qpk) {
+      if (j < a.qpk && act) {
         load8(q + j * DH, qr[j]);
       } else {
 #pragma unroll
@@ -339,8 +354,8 @@ dense_decode(Args a) {
       float v[NV];
 #pragma unroll
       for (int u = 0; u < CPG; ++u) {
-        float kv[EL];
-        load8(kt + (lg + NLG * u) * DH + e * EL, kv);
+        float kv[EL] = {};
+        if (act) load8(kt + (lg + NLG * u) * DH + e * EL, kv);
 #pragma unroll
         for (int j = 0; j < NQ; ++j) {
           float s = 0.f;
@@ -423,8 +438,8 @@ dense_decode(Args a) {
 #pragma unroll
     for (int u = 0; u < CPG; ++u) {
       const int col = lg + NLG * u;
-      float vv[EL], p[NQ];
-      load8(vt + col * DH + e * EL, vv);
+      float vv[EL] = {}, p[NQ];
+      if (act) load8(vt + col * DH + e * EL, vv);
 #pragma unroll
       for (int j = 0; j < NQ; ++j) p[j] = pk[col * NQ + j];
 #pragma unroll
@@ -438,6 +453,7 @@ dense_decode(Args a) {
   float* red = reinterpret_cast<float*>(smem);   // (NLG, NQ, DH): the ring is spent
 #pragma unroll
   for (int j = 0; j < NQ; ++j) {
+    if (!act) break;
     float4* d = reinterpret_cast<float4*>(red + (lg * NQ + j) * DH + e * EL);
     d[0] = make_float4(o[j][0], o[j][1], o[j][2], o[j][3]);
     d[1] = make_float4(o[j][4], o[j][5], o[j][6], o[j][7]);
@@ -470,18 +486,20 @@ cudaError_t launch_nq(const Args& a, cudaStream_t stream) {
   return dense::launch_merge<T>(p, DH, stream);
 }
 
-// The query rows pad to 1, 2, 4 or 8 (padded rows are zero and not written).
+// The query rows pad to 1, 2, 4, 8 or 16 (padded rows are zero and not written).
 template <typename T, int DH, bool PAGED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.qpk == 1) return launch_nq<T, DH, 1, PAGED>(a, stream);
   if (a.qpk == 2) return launch_nq<T, DH, 2, PAGED>(a, stream);
   if (a.qpk <= 4) return launch_nq<T, DH, 4, PAGED>(a, stream);
-  return launch_nq<T, DH, 8, PAGED>(a, stream);
+  if (a.qpk <= 8) return launch_nq<T, DH, 8, PAGED>(a, stream);
+  return launch_nq<T, DH, 16, PAGED>(a, stream);
 }
 
 template <typename T, bool PAGED>
 cudaError_t launch_dh(const Args& a, int dh, cudaStream_t stream) {
   if (dh == 64) return launch<T, 64, PAGED>(a, stream);
+  if (dh == 80) return launch<T, 80, PAGED>(a, stream);
   return dh == 128 ? launch<T, 128, PAGED>(a, stream) : launch<T, 256, PAGED>(a, stream);
 }
 
@@ -493,7 +511,7 @@ extern "C" {
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
 // (0); bias f32.  Null k_self / v_self mean no self column.  Limits: dh 64,
-// 128 or 256, 1 <= qpk <= 8, chunk_len a multiple of 32 up to 512 and n_chunks =
+// 80, 128 or 256, 1 <= qpk <= 16, chunk_len a multiple of 32 up to 512 and n_chunks =
 // ceil((S + n_self) / chunk_len) >= 1; the pool takes a page table (B, S /
 // page_size) int32 with page_size dividing S, the ring none.
 #define RECALKV_DENSE_ENTRY(NAME, PAGED)                                                 \
@@ -505,9 +523,9 @@ extern "C" {
     const int n_self = k_self != nullptr ? 1 : 0;                                        \
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, out, B, S,     \
            Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages, scale};             \
-    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128 && dh != 256) ||       \
-        qpk < 1 ||                                                                       \
-        qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||              \
+    if ((is_bf16 != 0 && is_bf16 != 1) ||                                               \
+        (dh != 64 && dh != 80 && dh != 128 && dh != 256) || qpk < 1 ||                   \
+        qpk > 16 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||              \
         (k_self == nullptr) != (v_self == nullptr) || chunk_len < TC ||                  \
         chunk_len > CH_MAX || chunk_len % TC != 0 || n_chunks < 1 ||                     \
         n_chunks != (S + n_self + chunk_len - 1) / chunk_len ||                          \

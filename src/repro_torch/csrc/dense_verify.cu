@@ -73,6 +73,11 @@
 //    order the register path multiplies them.  The four three-stage bf16
 //    rings take 192 KB: one block an SM.  The f32 body's would take 256
 //    KB, so two of its warps stream (two stages each) and two idle.
+//  * dh 80 (h2o-danube-1.8b) is 5 k-steps of q K^T: pairs by ldmatrix.x4
+//    as at the other widths, the fifth by ldmatrix.x2; its rows of 10
+//    (bf16) or 20 (f32) pieces swizzle the first 8 pieces as the others do
+//    and the rest among themselves (swz).  q_per_kv 16 (qwen3-moe-235b-a22b)
+//    makes a block's 16 rows one query's heads; nq 4 is 64 rows, 4 blocks.
 //  * bf16 x bf16 products are exact in f32, so q . K has no rounding point
 //    beyond its inputs; P's split is the body's only one
 //    (tests/test_torch_tc_rounding.py emulates it).  The f32 instantiation
@@ -170,10 +175,16 @@ size_t smem_bytes(int nq, int qpk, int chunk_len) {
 
 // Element offset of 16-byte piece ``piece`` of tile row ``r``: the pieces of
 // a row are XOR-swizzled by r % 8, so the 8 rows of an ldmatrix matrix (or
-// 8 lanes reading one piece of 8 rows) fall in 8 different bank groups.
+// 8 lanes reading one piece of 8 rows) fall in 8 different bank groups.  At
+// dh 80 a row has 8 + REM pieces (REM 2 in bf16, 4 in f32): the last REM
+// swizzle among themselves by r / 4, which with the 160-byte row stride
+// also spreads 8 rows over the 8 bank groups.
 template <typename T, int DH>
 __device__ __forceinline__ int swz(int r, int piece) {
-  return r * DH + (piece ^ (r & 7)) * (16 / int(sizeof(T)));
+  constexpr int PE = 16 / int(sizeof(T)), PIECES = DH / PE, REM = PIECES % 8;
+  const int sw = REM == 0 || piece < PIECES - REM ? piece ^ (r & 7)
+                                                  : piece ^ ((r >> 2) & (REM - 1));
+  return r * DH + sw * PE;
 }
 
 __device__ __forceinline__ float dot4(const float4& a, const float4& b, float s) {
@@ -194,7 +205,8 @@ dense_verify(Args a) {
   constexpr bool BF16 = sizeof(T) == 2;
   constexpr int NSW = streams<T, DH>();       // warps that stream tiles
   constexpr bool QSM = q_shared<T, DH>();
-  static_assert(PIECES >= 8, "the swizzle permutes 8 pieces a row");
+  static_assert(PIECES >= 8 && (PIECES % 8 == 0 || PIECES % 8 == 2 || PIECES % 8 == 4),
+                "the swizzle permutes 8 pieces a row, and 2 or 4 past them");
   static_assert(ring_bytes<T, DH>() >= size_t(WARPS) * MT * (DH + 2) * 4,
                 "the merge reuses the rings");
 
@@ -361,7 +373,7 @@ dense_verify(Args a) {
       }
     } else if constexpr (BF16) {
 #pragma unroll
-      for (int n = 0; n < 4; ++n)
+      for (int n = 0; n < 4; ++n) {
 #pragma unroll
         for (int k2 = 0; k2 < KS / 2; ++k2) {
           uint32_t r[4];
@@ -369,6 +381,12 @@ dense_verify(Args a) {
           tc::mma16816(s[n], qa[2 * k2], r[0], r[1]);
           tc::mma16816(s[n], qa[2 * k2 + 1], r[2], r[3]);
         }
+        if constexpr (KS % 2 == 1) {   // dh 80: the fifth k-step, pieces 8 and 9
+          uint32_t r0, r1;
+          tc::ldsm_x2(r0, r1, kt + swz<T, DH>(8 * n + (lane & 7), 2 * (KS - 1) + ((lane >> 3) & 1)));
+          tc::mma16816(s[n], qa[KS - 1], r0, r1);
+        }
+      }
     } else {
       const float* qf = reinterpret_cast<const float*>(qb);
       const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -560,6 +578,7 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
 template <typename T, bool PAGED>
 cudaError_t launch_dh(const Args& a, int dh, void* out, cudaStream_t stream) {
   if (dh == 64) return launch<T, 64, PAGED>(a, out, stream);
+  if (dh == 80) return launch<T, 80, PAGED>(a, out, stream);
   return dh == 128 ? launch<T, 128, PAGED>(a, out, stream) : launch<T, 256, PAGED>(a, out, stream);
 }
 
@@ -574,6 +593,9 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk
   if (dh == 64)
     return static_cast<int>(is_bf16 ? smem_bytes<bf16, 64>(nq, qpk, chunk_len)
                                     : smem_bytes<float, 64>(nq, qpk, chunk_len));
+  if (dh == 80)
+    return static_cast<int>(is_bf16 ? smem_bytes<bf16, 80>(nq, qpk, chunk_len)
+                                    : smem_bytes<float, 80>(nq, qpk, chunk_len));
   if (dh == 128)
     return static_cast<int>(is_bf16 ? smem_bytes<bf16, 128>(nq, qpk, chunk_len)
                                     : smem_bytes<float, 128>(nq, qpk, chunk_len));
@@ -584,7 +606,7 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk
 // Both entry points take this argument list and return a cudaError_t (0 =
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
-// (0); bias f32.  Limits: dh 64, 128 or 256, nq >= 1, 1 <= qpk <= 8,
+// (0); bias f32.  Limits: dh 64, 80, 128 or 256, nq >= 1, 1 <= qpk <= 16,
 // chunk_len a multiple of 32 up to 512 and n_chunks = ceil((S + nq) /
 // chunk_len); ring and pool row indices below 2^31; the pool takes a page
 // table (B, S / page_size) int32 with page_size dividing S, the ring none.
@@ -597,10 +619,10 @@ int recalkv_dense_decode_mq_smem(int is_bf16, int dh, int nq, int qpk, int chunk
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, B, S, Hkv, nq,   \
            qpk, n_chunks, chunk_len, page_size, n_pages, scale};                           \
     const long long rows = (PAGED) ? (long long)n_pages * page_size : (long long)B * S;   \
-    if ((is_bf16 != 0 && is_bf16 != 1) || (dh != 64 && dh != 128 && dh != 256) ||         \
-        nq < 1 ||                                                                          \
+    if ((is_bf16 != 0 && is_bf16 != 1) ||                                                 \
+        (dh != 64 && dh != 80 && dh != 128 && dh != 256) || nq < 1 ||                      \
         (long long)nq * qpk > (1 << 20) || (long long)S + nq >= (1LL << 31) ||             \
-        qpk < 1 || qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||    \
+        qpk < 1 || qpk > 16 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||    \
         k_self == nullptr || v_self == nullptr || chunk_len < TC || chunk_len > CH_MAX ||  \
         chunk_len % TC != 0 || n_chunks != (S + nq + chunk_len - 1) / chunk_len ||         \
         rows >= (1LL << 31) || (ptab != nullptr) != (PAGED) ||                             \

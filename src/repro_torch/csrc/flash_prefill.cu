@@ -6,10 +6,10 @@
 // v (B,T,Hv,dv) -> out (B,T,H,dv), with query head h reading kv head
 // h / (H/Hkv) and value group h / (H/Hv) (kv-major head order).  On the
 // ReCalKV prefill path the values are the latent groups: Hv = G and
-// dv = r_v, which differ from Hkv and dh.  Served widths: dh 64, 128 or
-// 256 and any dv that is a multiple of 8 from 8 to 1,024 (every r_v the
-// JAX package makes for qwen3-4b, minicpm-2b and gemma3-12b, and the dense
-// cache's dv = dh).
+// dv = r_v, which differ from Hkv and dh.  Served widths: dh 64, 80, 128
+// or 256 and any dv that is a multiple of 8 from 8 to 1,024 (every r_v the
+// JAX package makes for qwen3-4b, minicpm-2b, gemma3-12b, h2o-danube-1.8b
+// and qwen3-moe-235b-a22b, and the dense cache's dv = dh).
 //
 // What bounds it on an H100: at B=8, T=2048, H=32, dh=128, dv=256 the
 // causal work is ~0.41 TFLOP (0.42 ms on bf16 tensor cores) against
@@ -45,6 +45,10 @@
 //    Masks are applied in registers only on tiles that need them (the
 //    diagonal, the T tail, the window edge); tiles above the diagonal or
 //    wholly outside the window are never loaded.
+//  * dh 80 (h2o-danube-1.8b): Q and K rows are stored at 128 columns, two
+//    64-column swizzle blocks, and S = Q K^T takes 5 k-steps, the fifth on
+//    columns 64-79 of the second block; the 48 columns past dh are neither
+//    loaded nor read.  Shared memory is dh 128's; the k-steps are 5 of 8.
 //  * Value widths.  The P V product is wgmma.m64n{DV}k16 with V read
 //    MN-major in 64-column swizzle blocks, and O already costs 128
 //    registers a thread at 256 columns, so a block computes one slice of
@@ -272,10 +276,16 @@ constexpr int BQ = 128, BK = 64, THREADS = 256;   // 2 warpgroups of 64 query ro
 constexpr int NSK = 3;                             // K stages in the ring
 constexpr size_t SMEM_LIMIT = 232448;              // bytes of shared memory a block may use
 
+// Columns of a Q / K row in shared memory: dh rounded up to whole 64-column
+// swizzle blocks (dh 80: 128, of which the k-steps read the first 80).
+template <int DH>
+__host__ __device__ constexpr int dh_stored() { return (DH + 63) / 64 * 64; }
+
 // Q, NSK K stages and nsv V stages; + 1 KB to align
 template <int DH, int DV>
 __host__ __device__ constexpr size_t ring_smem(int nsv) {
-  return (size_t(BQ) * DH + NSK * size_t(BK) * DH + nsv * size_t(BK) * DV) * sizeof(bf16) +
+  return (size_t(BQ) * dh_stored<DH>() + NSK * size_t(BK) * dh_stored<DH>() +
+          nsv * size_t(BK) * DV) * sizeof(bf16) +
          1024;
 }
 // V stages: three, or two where three overrun shared memory (dh 256 at a
@@ -297,11 +307,13 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_prefill_tc(Args a) {
   constexpr int SN = BK / 8;   // score 8-column tiles of a warp (16 rows x 64 keys)
   constexpr int ON = DV / 8;   // output 8-column tiles of a warp (16 rows x DV)
-  constexpr int QC = DH / 8, VC = DV / 8;   // 16-byte chunks per row
-  constexpr uint32_t Q_BYTES = BQ * DH * 2, K_BYTES = BK * DH * 2, V_BYTES = BK * DV * 2;
+  constexpr int DHS = dh_stored<DH>();      // stored Q / K row
+  constexpr int QC = DHS / 8, VC = DV / 8;  // 16-byte chunks per stored row
+  constexpr int QL = DH / 8;                // of them holding dh columns
+  constexpr uint32_t Q_BYTES = BQ * DHS * 2, K_BYTES = BK * DHS * 2, V_BYTES = BK * DV * 2;
   constexpr int NSV = v_stages<DH, DV>();   // V stages: V of tile i + NSV - 1 loads in tile i
-  static_assert(DH % 64 == 0 && (DV == 64 || DV == 128 || DV == 256),
-                "value slices of 64, 128 or 256 columns");
+  static_assert(DH % 16 == 0 && (DV == 64 || DV == 128 || DV == 256),
+                "whole k-steps of dh; value slices of 64, 128 or 256 columns");
   static_assert(smem_bytes<DH, DV>() <= SMEM_LIMIT, "the ring fits in shared memory");
 
   const int h = blockIdx.x / a.n_sl, b = blockIdx.y;
@@ -334,8 +346,8 @@ flash_prefill_tc(Args a) {
   const int n_tiles = kt_hi - kt_lo + 1;
 
   // -- async loads into the swizzled tiles: rows past T are zero-filled -------
-  for (int e = tid; e < BQ * QC; e += THREADS) {
-    const int r = e / QC, c = e - r * QC, t = q_start + r;
+  for (int e = tid; e < BQ * QL; e += THREADS) {
+    const int r = e / QL, c = e - r * QL, t = q_start + r;
     const bool ok = t < T_;
     tc::cp_async16(q_s + wg::sw128(BQ, r, c),
                    q + ((size_t(b) * T_ + (ok ? t : 0)) * H + h) * DH + c * 8, ok);
@@ -343,12 +355,15 @@ flash_prefill_tc(Args a) {
   // A thread copies the same (row, 16-byte chunk) cells of every K and V
   // tile: rows r0 + j * (THREADS / chunks per row), one chunk column, whose
   // swizzled offsets differ by whole row steps (a multiple of 8 rows).
+  // Chunks past dh (dh 80: chunks 10-15 of the 128-column row) are never
+  // loaded, as no k-step reads them.
   static_assert(THREADS % QC == 0 && THREADS % VC == 0 && (THREADS / QC) % 8 == 0 &&
                 (THREADS / VC) % 8 == 0, "the copy pattern needs 8-row steps");
   constexpr int KR = THREADS / QC, VR = THREADS / VC;   // row steps
   const int kr0 = tid / QC, vr0 = tid / VC;
   const uint32_t k_off = wg::sw128(BK, kr0, tid % QC), v_off = wg::sw128(BK, vr0, tid % VC);
-  const bf16* k_src = k + (size_t(b) * T_ * a.Hkv + hk) * DH + (tid % QC) * 8;
+  const bool k_live = tid % QC < QL;
+  const bf16* k_src = k + (size_t(b) * T_ * a.Hkv + hk) * DH + (k_live ? tid % QC : 0) * 8;
   const size_t k_rs = size_t(a.Hkv) * DH;   // token stride
   // a thread whose value chunk lies past dv zero-fills it in every tile
   const int vc = c0 + (tid % VC) * 8;
@@ -357,6 +372,7 @@ flash_prefill_tc(Args a) {
   const size_t v_rs = size_t(a.Hv) * a.dv;
   auto load_k = [&](int i) {   // K of tile kt_lo + i into stage i % NSK
     const int k_start = (kt_lo + i) * BK, st = i % NSK;
+    if (!k_live) return;
 #pragma unroll
     for (int j = 0; j < BK / KR; ++j) {
       const int t = k_start + kr0 + j * KR;
@@ -583,7 +599,7 @@ cudaError_t launch_f32(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// Served widths: dh 64, 128 or 256, and any dv that is a multiple of 8 from 8
+// Served widths: dh 64, 80, 128 or 256, and any dv that is a multiple of 8 from 8
 // to 1,024 (r_v up to s * dh at group_size 8 and keep_ratio 1; the dense
 // cache's dv = dh).  A block computes one value-column slice of DV = 64,
 // 128 or 256 columns, the narrowest that holds dv, and past 256 the head's
@@ -600,12 +616,14 @@ cudaError_t dispatch_dh(int is_bf16, Args a, cudaStream_t st) {
 }
 
 bool supports(int dh, int dv) {
-  return (dh == 64 || dh == 128 || dh == 256) && dv >= 8 && dv <= 1024 && dv % 8 == 0;
+  return (dh == 64 || dh == 80 || dh == 128 || dh == 256) && dv >= 8 && dv <= 1024 &&
+         dv % 8 == 0;
 }
 
 cudaError_t dispatch(int is_bf16, int dh, const Args& a, cudaStream_t st) {
   if (!supports(dh, a.dv)) return cudaErrorInvalidValue;
   if (dh == 64) return dispatch_dh<64>(is_bf16, a, st);
+  if (dh == 80) return dispatch_dh<80>(is_bf16, a, st);
   return dh == 128 ? dispatch_dh<128>(is_bf16, a, st) : dispatch_dh<256>(is_bf16, a, st);
 }
 

@@ -91,7 +91,8 @@
 //    slot's keys are rebuilt once either way); a query split rebuilds
 //    every key tile once per query block.  Every rank up to s * dh at
 //    dh 128, group_size <= 8, Hg <= 32 and nq <= 8 fits, and gemma3-12b's
-//    dh 256 at r = 512 on 16-column tiles (the wrapper,
+//    dh 256 at r = 512 on 16-column tiles; dh 80 (h2o-danube-1.8b) and
+//    qwen3-moe-235b-a22b's 64 query rows a group take the same planner (the wrapper,
 //    kernels/latent_decode.py, picks the plan; these are the parity
 //    instantiations, and bf16 serves from latent_decode_tc.cu).  A shape
 //    the main path had before keeps SB = 32 and one block of all rows,
@@ -195,10 +196,14 @@ __global__ void __launch_bounds__(THREADS)
 latent_decode_partial(Args a) {
   constexpr int HALF = DH / 2;
   constexpr int KS = k_stride<DH>();
-  constexpr int NJ = DH / 32;        // key columns per lane
-  constexpr int NI = SB / WARPS;     // key rows per warp
+  // A lane owns columns lane + 32 jj of each half of dh (jj < NH), so that
+  // column d and its RoPE partner d + dh/2 sit in one lane; at dh 80 (half
+  // 40) lanes 8-31 own one column of each half, lanes 0-7 two.
+  constexpr int NH = (HALF + 31) / 32;   // key columns of each half per lane, at most
+  constexpr int NJ = 2 * NH;             // key columns per lane, at most
+  constexpr int NI = SB / WARPS;         // key rows per warp
   constexpr bool QUANT = sizeof(L) == 1;
-  static_assert(DH % 64 == 0, "dh must be a multiple of 64");
+  static_assert(DH % 16 == 0, "dh must be a multiple of 16");
   static_assert(SB % WARPS == 0 && SB <= 32, "SB: 8, 16 or 32 tokens");
 
   const int chunk = blockIdx.x, g = blockIdx.y;
@@ -206,6 +211,9 @@ latent_decode_partial(Args a) {
   const int b = blockIdx.z / n_rb, rb = blockIdx.z % n_rb;
   const int i0 = (rb % slot_blocks) * a.sps, j0 = (rb / slot_blocks) * a.qpb;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  // column jj of the lane, and whether it exists (always where 32 | dh/2)
+  auto kcol = [&](int jj) { return (jj < NH ? 0 : HALF) + lane + 32 * (jj % NH); };
+  auto kown = [&](int jj) { return HALF % 32 == 0 || lane + 32 * (jj % NH) < HALF; };
   const int Hg = a.Hg, rk = a.rk, rv = a.rv, s = a.s, G = a.G, S = a.S;
   const int sps = a.sps, nq = a.qpb, n_self = a.n_self;
   const int qpk = Hg / s;
@@ -344,7 +352,7 @@ latent_decode_partial(Args a) {
 #pragma unroll
           for (int ii = 0; ii < NI; ++ii) zr[ii] = to_f(zk_s[(warp + WARPS * ii) * rk + r0 + rr]);
 #pragma unroll
-          for (int jj = 0; jj < NJ; ++jj) rc[jj] = r_s[rr * DH + lane + 32 * jj];
+          for (int jj = 0; jj < NJ; ++jj) rc[jj] = kown(jj) ? r_s[rr * DH + kcol(jj)] : 0.f;
 #pragma unroll
           for (int ii = 0; ii < NI; ++ii)
 #pragma unroll
@@ -368,18 +376,20 @@ latent_decode_partial(Args a) {
           const float inv = rsqrtf(warp_sum(ss) / DH + a.eps);
 #pragma unroll
           for (int jj = 0; jj < NJ; ++jj)
-            kacc[ii][jj] *= inv * (1.f + a.k_norm[lane + 32 * jj]);
+            if (kown(jj)) kacc[ii][jj] *= inv * (1.f + a.k_norm[kcol(jj)]);
         }
 #pragma unroll
-        for (int jj = 0; jj < NJ / 2; ++jj) {
-          const float c = cos_s[row * HALF + lane + 32 * jj];
-          const float sn = sin_s[row * HALF + lane + 32 * jj];
-          const float x1 = kacc[ii][jj], x2 = kacc[ii][jj + NJ / 2];
+        for (int jj = 0; jj < NH; ++jj) {
+          if (!kown(jj)) continue;
+          const float c = cos_s[row * HALF + kcol(jj)];
+          const float sn = sin_s[row * HALF + kcol(jj)];
+          const float x1 = kacc[ii][jj], x2 = kacc[ii][jj + NH];
           kacc[ii][jj] = x1 * c - x2 * sn;
-          kacc[ii][jj + NJ / 2] = x2 * c + x1 * sn;
+          kacc[ii][jj + NH] = x2 * c + x1 * sn;
         }
 #pragma unroll
-        for (int jj = 0; jj < NJ; ++jj) k_s[row * KS + lane + 32 * jj] = kacc[ii][jj];
+        for (int jj = 0; jj < NJ; ++jj)
+          if (kown(jj)) k_s[row * KS + kcol(jj)] = kacc[ii][jj];
       }
       __syncthreads();
       // -- scores of every query's qpk heads that read this slot -----------
@@ -498,6 +508,7 @@ cudaError_t launch_dh(int sb, bool quant, const Args& a, cudaStream_t st) {
 int dispatch(int dh, int sb, bool quant, const Args& a, cudaStream_t st) {
   cudaError_t err = cudaErrorInvalidValue;
   if (dh == 64) err = launch_dh<64>(sb, quant, a, st);
+  else if (dh == 80) err = launch_dh<80>(sb, quant, a, st);
   else if (dh == 128) err = launch_dh<128>(sb, quant, a, st);
   else if (dh == 256) err = launch_dh<256>(sb, quant, a, st);
   return static_cast<int>(err);
@@ -527,6 +538,7 @@ extern "C" {
 long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int rk, int rv,
                                      int sb) {
   if (dh == 64) return smem_dh<64>(is_int8, rows, nq, rk, rv, sb);
+  if (dh == 80) return smem_dh<80>(is_int8, rows, nq, rk, rv, sb);
   if (dh == 128) return smem_dh<128>(is_int8, rows, nq, rk, rv, sb);
   if (dh == 256) return smem_dh<256>(is_int8, rows, nq, rk, rv, sb);
   return -1;

@@ -136,6 +136,20 @@
 //    takes rc 128 for one query set (~217 KB at r = 512) and rc 64 for the
 //    verify bodies (~188 KB).  The cost is R_k read from L2 once per 64
 //    columns and chunk partials for 64 chunks of a 4,096-column ring.
+//  * dh 80 (h2o-danube-1.8b: s = 4 kv heads of 80, r = 160 at recalkv_ratio
+//    0.5) is 5 k16 steps and 10 n8 tiles: a warp at KS = 1 holds n-tiles j
+//    and j + 5, columns d and d + 40, so RoPE still needs no shuffle, and
+//    its 176-byte R_k / q rows keep ldmatrix free of bank conflicts.  Its
+//    10 n-tiles do not split into the quarters two warps share at KS = 2, so
+//    it has no 64-column plan; the 128-column plan takes R_k stages down to
+//    32 rows instead, and every rank up to s * dh = 640 at group_size 8
+//    fits.
+//  * q_per_kv 16 (qwen3-moe-235b-a22b: 64 q heads over 4 kv heads).  The
+//    verify bodies already score 16 rows a slot as two n8 tiles; a one-query
+//    call past 8 rows a slot runs the multi-query instantiation of its row
+//    map and latent type at nq = 1 (entry below), whose 64 score rows hold
+//    all four slots of the group: one read of the chunk's latents, R_k read
+//    once per 128 columns.
 //  * K1 and K4, and K5 and K7, are the same instantiation but for the row
 //    map, with the same block plan and chunks in the same order: K4 (K7) on
 //    a pool equals K1 (K5) on the table-gathered ring bit for bit (masked
@@ -256,7 +270,8 @@ latent_decode_tc(Args a) {
   constexpr int NN = DH / 8;   // key n-tiles of an m-tile
   constexpr int NW = NN / KS;  // key n-tiles of a warp's m-tile
   constexpr int QW = NW / 2;   // of them in each half of dh
-  static_assert(DH % 64 == 0, "dh must be a multiple of 64");
+  static_assert(DH % 16 == 0 && NW % 2 == 0 && (KS == 1 || DH % 64 == 0),
+                "whole k16 steps of dh; two warps per m-tile split each half of dh evenly");
 
   const int chunk = blockIdx.y, g = blockIdx.x % a.G, b = blockIdx.x / a.G;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -780,16 +795,21 @@ Plan plan_dh(int rk, int rv) {
       if (rv <= 256 && smem_bytes<DH, 256, QUANT, MQ>(rk, rv, 128) <= SMEM_LIMIT)
         return {256, 128};
     }
-    for (int rc = 128; rc >= 64; rc /= 2)
+    // dh 80 has no 64-column plan (its 10 n8 tiles do not split into two
+    // warps' quarters), so its 128-column chunk also takes 32-row stages
+    for (int rc = 128; rc >= (DH % 64 ? 32 : 64); rc /= 2)
       if (smem_bytes<DH, 128, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {128, rc};
   }
-  for (int rc = 128; rc >= 64; rc /= 2)
-    if (smem_bytes<DH, 64, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {64, rc};
+  if constexpr (DH % 64 == 0) {
+    for (int rc = 128; rc >= 64; rc /= 2)
+      if (smem_bytes<DH, 64, QUANT, MQ>(rk, rv, rc) <= SMEM_LIMIT) return {64, rc};
+  }
   return {0, 0};
 }
 template <bool QUANT, bool MQ>
 Plan plan(int dh, int rk, int rv) {
   return dh == 64    ? plan_dh<64, QUANT, MQ>(rk, rv)
+         : dh == 80  ? plan_dh<80, QUANT, MQ>(rk, rv)
          : dh == 128 ? plan_dh<128, QUANT, MQ>(rk, rv)
          : dh == 256 ? plan_dh<256, QUANT, MQ>(rk, rv)
                      : Plan{0, 0};
@@ -840,7 +860,9 @@ cudaError_t launch(Args a, cudaStream_t stream) {
     if constexpr (!MQ) {
       if (p.ch == 256) return launch_ch<DH, 256, PAGED, QUANT, MQ>(a, stream);
     }
-    if (p.ch == 64) return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
+    if constexpr (DH % 64 == 0) {
+      if (p.ch == 64) return launch_ch<DH, 64, PAGED, QUANT, MQ>(a, stream);
+    }
     return launch_ch<DH, 128, PAGED, QUANT, MQ>(a, stream);
   }
 }
@@ -860,12 +882,36 @@ bool shapes_ok(Args a, int dh) {
          a.n_chunks == (a.S + a.n_self + ch - 1) / ch && a.n_chunks >= 1;
 }
 
+// One entry point's checks and launch.  A one-query call with more than 8
+// query rows per head slot (q_per_kv 16: qwen3-moe-235b-a22b's 64 q heads
+// over 4 kv heads) runs the multi-query instantiation of its row map and
+// latent type at nq = 1: its scoring product takes a slot's 16 rows as two
+// n8 tiles and its block up to 64 score rows, so all four head slots of a
+// group share one block and one read of the chunk's latents.
+template <bool PAGED, bool QUANT, bool MQ>
+int entry(Args a, int dh, int chunk_len, cudaStream_t st) {
+  if constexpr (!MQ) {
+    if (a.s >= 1 && a.Hg % a.s == 0 && a.Hg / a.s > 8)
+      return a.nq == 1 ? entry<PAGED, QUANT, true>(a, dh, chunk_len, st)
+                       : static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (chunk_len != plan<QUANT, MQ>(dh, a.rk, a.rv).ch || !shapes_ok<QUANT, MQ>(a, dh))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (dh == 64) return static_cast<int>(launch<64, PAGED, QUANT, MQ>(a, st));
+  if (dh == 80) return static_cast<int>(launch<80, PAGED, QUANT, MQ>(a, st));
+  if (dh == 128) return static_cast<int>(launch<128, PAGED, QUANT, MQ>(a, st));
+  if (dh == 256) return static_cast<int>(launch<256, PAGED, QUANT, MQ>(a, st));
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Ring columns per block of the one-query (mq = 0) or the multi-query
-// body at these widths, from the block plan; 0 if no block fits.
+// body at these widths, from the block plan; 0 if no block fits.  A
+// one-query call past q_per_kv 8 runs the multi-query body (see entry):
+// ask with mq = 1 for it.
 int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
   if (mq) return quant ? plan<true, true>(dh, rk, rv).ch : plan<false, true>(dh, rk, rv).ch;
   return quant ? plan<true, false>(dh, rk, rv).ch : plan<false, false>(dh, rk, rv).ch;
@@ -878,9 +924,10 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
 // column, null k_norm no key norm.  Each checks that the operands match
 // its body: a page table (with page_size dividing S and a pool of n_pages
 // pages) only for K4 / K7, scales only for K3 / K6, one query for K1 / K3
-// / K4; and the shape limits of shapes_ok (any Hg, q_per_kv <= 8 for K1 /
-// K3 / K4, <= 16 for K5 / K6 / K7 with any nq; r_k and r_v multiples of 8
-// whose block fits, every rank up to s * dh at group_size <= 8;
+// / K4; and the shape limits of shapes_ok (dh 64, 80, 128 or 256; any Hg,
+// q_per_kv <= 16, K1 / K3 / K4 past 8 on the multi-query body, K5 / K6 /
+// K7 with any nq; r_k and r_v multiples of 8 whose block fits, every rank
+// up to s * dh at group_size <= 8;
 // chunk_len = recalkv_tc_chunk and n_chunks = ceil((S + n_self) /
 // chunk_len)).
 #define RECALKV_TC_ENTRY(NAME, PAGED, QUANT, MQ)                                         \
@@ -898,17 +945,11 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
            zk_self_scale, zv_self_scale, cos_self, sin_self, ptab, part_acc, part_m,      \
            part_l, static_cast<bf16*>(out), B, S, G, Hg, rk, rv, s, nq, n_self,           \
            bias_cols, n_chunks, page_size, n_pages, scale, eps, 1, 1, 1, 1, 0};           \
-    if (is_bf16 != 1 || chunk_len != plan<QUANT, MQ>(dh, rk, rv).ch ||                    \
-        (ptab != nullptr) != (PAGED) || (zk_scale != nullptr) != (QUANT) ||               \
+    if (is_bf16 != 1 || (ptab != nullptr) != (PAGED) || (zk_scale != nullptr) != (QUANT) || \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                    \
-        ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)) ||              \
-        !shapes_ok<QUANT, MQ>(a, dh))                                                     \
+        ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))                \
       return static_cast<int>(cudaErrorInvalidValue);                                     \
-    cudaStream_t st = static_cast<cudaStream_t>(stream);                                  \
-    if (dh == 64) return static_cast<int>(launch<64, PAGED, QUANT, MQ>(a, st));           \
-    if (dh == 128) return static_cast<int>(launch<128, PAGED, QUANT, MQ>(a, st));         \
-    if (dh == 256) return static_cast<int>(launch<256, PAGED, QUANT, MQ>(a, st));         \
-    return static_cast<int>(cudaErrorInvalidValue);                                       \
+    return entry<PAGED, QUANT, MQ>(a, dh, chunk_len, static_cast<cudaStream_t>(stream));  \
   }
 
 RECALKV_TC_ENTRY(recalkv_latent_decode_tc, false, false, false)            // K1

@@ -29,8 +29,8 @@ plain version or to K1 / K4 / K5 / K7.
 
 Shapes:
   q       (B, Hkv, qpk, dh)  post-RoPE queries grouped kv-major (K1's
-                             grouping at one kv head per group), qpk <= 8,
-                             dh 64, 128 or 256; verify: (B, Hkv, nq * qpk, dh),
+                             grouping at one kv head per group), qpk <= 16,
+                             dh 64, 80, 128 or 256; verify: (B, Hkv, nq * qpk, dh),
                              rows ordered (query, head), any nq
   k, v    (B, S, Hkv, dh)    the ring, keys stored after RoPE; the pool:
                              (n_pages, page_size, Hkv, dh) read through
@@ -209,7 +209,7 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
         S = k.shape[1]
     n_self = nq if verify else int(has_self)
     qpk = rows // nq if verify else rows
-    if (dh not in (64, 128, 256) or not 1 <= qpk <= 8
+    if (dh not in (64, 80, 128, 256) or not 1 <= qpk <= 16
             or (verify and (nq < 1 or rows != nq * qpk))
             or k.dim() != 4 or k.shape != v.shape or tuple(k.shape[2:]) != (Hkv, dh)
             or (ptab is None and k.shape[0] != B)
@@ -220,8 +220,8 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
         raise ValueError(
             f"unsupported shapes for the {what} kernel: q {tuple(q.shape)}, "
             f"k / v {tuple(k.shape)} / {tuple(v.shape)}, bias {tuple(bias.shape)}, "
-            f"self {[tuple(t.shape) for t in selfs]} (dh must be 64, 128 or 256, "
-            f"q_per_kv 1-8{', nq >= 1' if verify else ''}, at least one column)")
+            f"self {[tuple(t.shape) for t in selfs]} (dh must be 64, 80, 128 or 256, "
+            f"q_per_kv 1-16{', nq >= 1' if verify else ''}, at least one column)")
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     if verify:

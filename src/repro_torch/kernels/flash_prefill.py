@@ -4,7 +4,7 @@ wrapper.
 Replaces ``src/repro/kernels/flash_prefill.py::flash_prefill_attention``
 (the Pallas TPU kernel).  The CUDA source is ``csrc/flash_prefill.cu``;
 its header says what bounds it on an H100 and how the design answers it.
-On a CUDA tensor it serves dh 64, 128 or 256 and any dv that is a multiple of
+On a CUDA tensor it serves dh 64, 80, 128 or 256 and any dv that is a multiple of
 8 up to 1024 (value columns in slices of at most 256 per block).
 
 q (B, T, H, dh); k (B, T, Hkv, dh); v (B, T, Hv, dv) -> (B, T, H, dv).
@@ -73,7 +73,7 @@ def _launch(q, k, v, causal, window, scale):
     lib = _lib()
     if not lib.recalkv_flash_prefill_supports(dh, dv):
         raise ValueError(f"flash prefill kernel has no (dh={dh}, dv={dv}) "
-                         f"instantiation (dh 64, 128 or 256, dv a multiple of 8 up "
+                         f"instantiation (dh 64, 80, 128 or 256, dv a multiple of 8 up "
                          f"to 1024)")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     out = torch.empty((B, T, H, dv), device=q.device, dtype=dt)

@@ -11,8 +11,8 @@ CUDA body serves which (kernel, dtype):
         body of ``csrc/latent_decode_tc.cu`` (``mma.sync``, 256 ring
         columns per block for one query up to rank 256, 128 for the verify
         bodies and past rank 256, 64 where nothing wider fits and at dh
-        256, so every rank up to s * dh at group_size <= 8 (dh 64, 128)
-        and group_size 4 (dh 256); R_k streamed per head slot
+        256, so every rank up to s * dh at group_size <= 8 (dh 64, 80,
+        128) and group_size 4 (dh 256); R_k streamed per head slot
         through a cp.async ring, keys and P as bf16 hi + lo), one
         instantiation per row map: K1 / K5 read ring row b * S + t, K4 /
         K7 the pool row through the page table, so K4 / K7 equal K1 / K5
@@ -20,7 +20,8 @@ CUDA body serves which (kernel, dtype):
         over int8 latents; K5, K6, K7 score up to 4 query sets per block
         and cover any nq with more blocks; past 16 query rows per group
         (Hg > 16) each body splits the group's head slots over more
-        blocks;
+        blocks; K1 / K3 / K4 past q_per_kv 8 (up to 16) run the
+        multi-query instantiation of their row map at nq = 1;
   f32   all of them: the CUDA-core template of ``csrc/latent_decode.cu``,
         the parity instantiations the 1e-4 checks use (K4 and K7 in f32
         equal K1 and K5 on the gathered ring bit for bit: same tiles, same
@@ -181,16 +182,18 @@ ENTRY_POINTS = {  # entry point -> its library
     "recalkv_latent_decode_mq_paged_tc": "latent_decode_tc",
 }
 # The limits of the bf16 tensor-core bodies (csrc/latent_decode_tc.cu::
-# shapes_ok): kind, q_per_kv at most, whether nq may exceed 1.  Besides,
+# shapes_ok): kind, q_per_kv at most, whether nq may exceed 1 (K1 / K3 / K4
+# past q_per_kv 8 run the multi-query instantiation at nq = 1, whose block
+# plan recalkv_tc_chunk gives with mq = 1).  dh 64, 80, 128 or 256.  Besides,
 # r_k, r_v multiples of 8 whose block fits in shared memory
 # (recalkv_tc_chunk > 0: at dh 128 every rank up to 1,232 for the verify
 # bodies and 1,440 for the others, past the s * dh = 1,024 of group_size
 # 8; at dh 256 the 64-column plan, every rank up to s * dh = 1,024 of
 # group_size 4).  Any Hg: past 16 query rows a group's head slots split
 # over blocks.
-_TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 8, False),
-              "recalkv_latent_decode_quant_tc": ("int8 ring", 8, False),
-              "recalkv_latent_decode_paged_tc": ("paged", 8, False),
+_TC_BODIES = {"recalkv_latent_decode_tc": ("ring", 16, False),
+              "recalkv_latent_decode_quant_tc": ("int8 ring", 16, False),
+              "recalkv_latent_decode_paged_tc": ("paged", 16, False),
               "recalkv_latent_decode_mq_tc": ("multi-query", 16, True),
               "recalkv_latent_decode_mq_quant_tc": ("int8 multi-query", 16, True),
               "recalkv_latent_decode_mq_paged_tc": ("paged multi-query", 16, True)}
@@ -295,10 +298,10 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
                         "must be float32")
     n_self = _n_self(self_zk)
     bias_cols = bias.shape[-1]
-    if (dh not in (64, 128, 256) or QH % nq or s < 1 or Hg % s
+    if (dh not in (64, 80, 128, 256) or QH % nq or s < 1 or Hg % s
             or r_k.shape != (G, rk, s * dh)):
         raise ValueError(f"unsupported shapes for the {name}: q {tuple(q.shape)}, "
-                         f"r_k {tuple(r_k.shape)} (dh must be 64, 128 or 256)")
+                         f"r_k {tuple(r_k.shape)} (dh must be 64, 80, 128 or 256)")
     if (zv.shape[:3] != zk.shape[:3] or zk.shape[2] != G
             or (ptab is None and zk.shape[0] != B)
             or tuple(cos.shape[:2]) != (B, S) or bias.numel() != B * nq * bias_cols
@@ -312,7 +315,8 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     s_ext = S + n_self
     if tc:
         _, max_qpk, multi = tc
-        chunk_len = lib.recalkv_tc_chunk(int(multi), int(quant), dh, rk, rv)
+        body_mq = multi or Hg // s > 8
+        chunk_len = lib.recalkv_tc_chunk(int(body_mq), int(quant), dh, rk, rv)
         if ((nq > 1 and not multi) or Hg // s > max_qpk or rk % 8 or rv % 8
                 or chunk_len == 0):
             raise ValueError(f"unsupported shapes for the {name}: q "

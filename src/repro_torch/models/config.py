@@ -3,10 +3,11 @@
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
 (:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving path needs — dense FFN ``attn`` and sliding-window
-``local`` blocks with a dense K/V cache (``recalkv=None``) or a ReCalKV
-latent cache, float or int8 (``cache_quant_bits``) — and
-:func:`check_supported` names anything else as not ported.
+subset the serving path needs — ``attn`` and sliding-window ``local``
+blocks, each with a dense SwiGLU FFN or a capacity-routed MoE FFN
+(``moe``), over a dense K/V cache (``recalkv=None``) or a ReCalKV latent
+cache, float or int8 (``cache_quant_bits``) — and :func:`check_supported`
+names anything else as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -219,18 +220,22 @@ class ModelConfig:
 # Widths every hand-written Hopper body takes (csrc/flash_prefill.cu
 # ``supports``, kernels/latent_decode.py's tensor-core limits,
 # kernels/dense_decode.py ``launch``): head dim, and query heads per kv head.
-KERNEL_D_HEADS = (64, 128, 256)
-KERNEL_MAX_Q_PER_KV = 8
+KERNEL_D_HEADS = (64, 80, 128, 256)
+KERNEL_MAX_Q_PER_KV = 16
+# What check_supported still refuses by kind (ROADMAP.md Queue 1 item 4).
+STILL_TO_PORT = ("MLA, Mamba and RG-LRU blocks, cross-attention, encoder-decoder "
+                 "models and the attn_dense prefix are still to port")
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port's model
-    functions do not cover yet (see ROADMAP.md, Queue 1).  On a CUDA
-    ``device`` with the kernel backend it also refuses widths no Hopper
-    body serves (ROADMAP.md, Queue 3 item 2); the CPU's plain versions
-    serve every width."""
+    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: MLA,
+    Mamba, RG-LRU, encoder-decoder, cross-attention and the
+    ``attn_dense`` prefix).  On a CUDA ``device`` with the kernel backend
+    it also refuses widths no Hopper body serves (ROADMAP.md, Queue 3
+    item 2); the CPU's plain versions serve every width."""
     missing = []
-    for name in ("moe", "mla", "mamba", "rglru"):
+    for name in ("mla", "mamba", "rglru"):
         if getattr(cfg, name) is not None:
             missing.append(name)
     if cfg.encoder_decoder:
@@ -241,7 +246,7 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)} "
-            f"(ROADMAP.md Queue 1 item 4)")
+            f"(ROADMAP.md Queue 1 item 4: {STILL_TO_PORT})")
     if (device is not None and torch.device(device).type == "cuda"
             and cfg.attn_backend == "kernel"):
         qpk = cfg.num_heads // max(cfg.num_kv_heads, 1)

@@ -12,6 +12,7 @@ their own latents), so both share :func:`chunked_attention`.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import torch
@@ -179,8 +180,92 @@ def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
-# FFN: dense SwiGLU
+# FFN: dense SwiGLU & capacity-routed MoE
 # ---------------------------------------------------------------------------
 
 def swiglu(p: Params, x: torch.Tensor) -> torch.Tensor:
     return (F.silu(x @ p["wg"]) * (x @ p["wi"])) @ p["wo"]
+
+
+def _expert_positions(sel: torch.Tensor, num_experts: int) -> torch.Tensor:
+    """GShard-style position-in-expert: every first choice before every
+    second choice, each in token order.  sel: (N, k) -> pos (N, k) int64.
+
+    The JAX package counts with a cumulative sum over (N, E) one-hots per
+    choice; here a stable sort of the choices in that order (choice-major,
+    then token) by expert gives the same integers: a choice's position is
+    its rank among its expert's choices.  Static shapes, no (N, E)
+    tensors."""
+    N, k = sel.shape
+    flat = sel.t().reshape(-1)                        # choice-major, then token
+    by_expert, order = torch.sort(flat, stable=True)
+    start = torch.searchsorted(by_expert, torch.arange(num_experts, device=sel.device))
+    rank = torch.arange(N * k, device=sel.device) - start[by_expert]
+    return torch.empty_like(rank).scatter_(0, order, rank).reshape(k, N).t()
+
+
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Capacity-dispatched top-k MoE (port of the JAX ``moe_ffn``).
+
+    Tokens gather into an (E, cap, d) buffer, ``cap`` from this call's own
+    N = B * T, and choices past an expert's capacity go to a sink (dropped).
+    The expert products are batched matmuls over that buffer, as the JAX
+    package leaves its einsums to XLA.  The combine gathers each token's k
+    slots and adds them in ascending expert order, the order of XLA's CPU
+    scatter-add, in the working dtype: no atomics, so a sync call and a
+    replayed CUDA graph give the same bits, and every shape is static (no
+    ``nonzero``, masks or ``.item()``), so ``aot=True`` captures it.  The
+    load-balance and router z-loss terms are for training (ROADMAP.md
+    Queue 1 item 6) and are not computed here."""
+    m = cfg.moe
+    B, T, d = x.shape
+    N = B * T
+    E, k = m.num_experts, m.top_k
+    cap = max(8, int(math.ceil(N * k / E * m.capacity_factor / 8.0)) * 8)
+
+    xt = x.reshape(N, d)
+    logits = xt.float() @ p["router"]                       # (N, E) f32
+    probs = torch.softmax(logits, dim=-1)
+    w, sel = torch.topk(probs, k, dim=-1)                   # (N, k)
+    w = w / (w.sum(dim=-1, keepdim=True) + 1e-9)
+
+    pos = _expert_positions(sel, E)                         # (N, k)
+    slot = torch.where(pos < cap, sel * cap + pos, E * cap)  # overflow -> sink
+    flat = slot.reshape(-1)
+    tok = torch.arange(N, device=x.device).repeat_interleave(k)
+    # token, fill and weight of each expert slot (row E * cap: the sink)
+    token_for_slot = torch.zeros(E * cap + 1, dtype=torch.long, device=x.device)
+    token_for_slot.index_put_((flat,), tok)
+    filled = torch.zeros(E * cap + 1, dtype=torch.bool, device=x.device)
+    filled.index_put_((flat,), torch.ones_like(flat, dtype=torch.bool))
+    w_for_slot = torch.zeros(E * cap + 1, dtype=torch.float32, device=x.device)
+    w_for_slot.index_put_((flat,), w.reshape(-1))
+
+    buf = xt[token_for_slot[:E * cap]]                       # (E * cap, d)
+    buf.masked_fill_(~filled[:E * cap, None], 0)
+    buf = buf.reshape(E, cap, d)
+    h = torch.bmm(buf, p["wg"])
+    hi = torch.bmm(buf, p["wi"])
+    del buf
+    # expert outputs times their weights, and a zero sink row: what each
+    # token's k slots read (a dropped choice reads the sink)
+    contrib = torch.empty((E * cap + 1, d), dtype=x.dtype, device=x.device)
+    torch.bmm(F.silu(h) * hi, p["wo"], out=contrib[:E * cap].view(E, cap, d))
+    contrib[:E * cap] *= (w_for_slot[:E * cap] * filled[:E * cap]).to(x.dtype)[:, None]
+    contrib[E * cap] = 0
+
+    order = torch.sort(sel, dim=-1).indices                 # each token's experts, ascending
+    slots = torch.gather(slot, 1, order)
+    out = torch.zeros((N, d), dtype=x.dtype, device=x.device)
+    for j in range(k):
+        out = out + contrib[slots[:, j]]
+    if m.num_shared:
+        out = out + swiglu(p["shared"], xt)
+    return out.reshape(B, T, d)
+
+
+def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """The block's FFN: the routed MoE where the config has one (the
+    port's ``attn`` / ``local`` blocks; the JAX ``attn_dense`` prefix kind
+    is not ported), else the dense SwiGLU."""
+    return moe_ffn(p, x, cfg) if cfg.moe is not None else swiglu(p, x)

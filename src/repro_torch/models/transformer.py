@@ -45,7 +45,7 @@ def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     y, (a, b) = attn(p["attn"], h, cfg, ctx["positions"], window,
                      theta=_theta(cfg, kind), use_kernel=want_cache)
     x = x + y
-    x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     if not want_cache:
         return x, None
     values = ({"k": a, "v": b} if cfg.recalkv is None
@@ -81,7 +81,7 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"], window,
                    theta=_theta(cfg, kind), pages=ctx.get("pages"))
     x = x + y
-    x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x, {"self": sc}
 
 
@@ -99,7 +99,7 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                    ctx["feed_mask"], window, theta=_theta(cfg, kind),
                    pages=ctx.get("pages"))
     x = x + y
-    x = x + L.swiglu(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps))
+    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
     return x, {"self": sc}
 
 

@@ -13,9 +13,12 @@ in stack order instead of JAX's prefix / scanned-blocks / suffix split::
                  "mlp": {"wi", "wg", "wo"}}, ...]}
 
 A dense model (``cfg.recalkv is None``) has ``"attn": {"wq", "wk", "wv",
-"wo", ["q_norm", "k_norm"]}`` instead.
+"wo", ["q_norm", "k_norm"]}`` instead.  An MoE model (``cfg.moe``) has
+``"mlp": {"router": (d, E), "wi", "wg": (E, d, f), "wo": (E, f, d),
+["shared": {"wi", "wg", "wo"}]}``, the JAX package's layout.
 
-Norm scales stay float32 (as in JAX); matrices take the model dtype.
+Norm scales and the MoE router stay float32 (as in JAX); matrices take
+the model dtype.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
 NORM_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm"})
+F32_LEAVES = NORM_LEAVES | {"router"}   # kept float32 whatever the model dtype
 
 
 def to_tensor(arr, device: torch.device, dtype: torch.dtype | None = None):
@@ -62,7 +66,7 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 
 def _leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
-    return torch.float32 if name in NORM_LEAVES else dtype
+    return torch.float32 if name in F32_LEAVES else dtype
 
 
 def _convert(tree, device, dtype, index=None):
@@ -144,10 +148,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     rt = cfg.recalkv
 
-    def normal(shape, scale):
+    def normal(shape, scale, dtype=dt):
         x = torch.randn(shape, generator=generator, device=dev,
                         dtype=torch.float32)
-        return (x * scale).to(dt)
+        return x.mul_(scale).to(dtype)
 
     def zeros(n):
         return torch.zeros(n, device=dev, dtype=torch.float32)
@@ -173,9 +177,20 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         if cfg.qk_norm:
             attn["q_norm"] = zeros(dh)
             attn["k_norm"] = zeros(dh)
-        f = cfg.d_ff
-        mlp = {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
-               "wo": normal((f, d), f ** -0.5)}
+        if cfg.moe is None:
+            f = cfg.d_ff
+            mlp = {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
+                   "wo": normal((f, d), f ** -0.5)}
+        else:   # one leaf at a time: an expert leaf of qwen3-moe is 1.6 GB
+            E, f = cfg.moe.num_experts, cfg.moe.d_expert
+            mlp = {"router": normal((d, E), d ** -0.5, torch.float32),
+                   "wi": normal((E, d, f), d ** -0.5), "wg": normal((E, d, f), d ** -0.5),
+                   "wo": normal((E, f, d), f ** -0.5)}
+            if cfg.moe.num_shared:
+                fs = f * cfg.moe.num_shared
+                mlp["shared"] = {"wi": normal((d, fs), d ** -0.5),
+                                 "wg": normal((d, fs), d ** -0.5),
+                                 "wo": normal((fs, d), fs ** -0.5)}
         layers.append({"ln1": zeros(d), "attn": attn, "ln2": zeros(d),
                        "mlp": mlp})
     params["layers"] = layers

@@ -90,7 +90,10 @@ buffer that every later window reads, so each install happens once at any
 ``pipeline_depth``, inside the captured graphs too.  ``staging_depth``
 bounds the prefilled look-ahead (default ``2 * max_slots``).
 
-Not ported yet (see ROADMAP.md): meshes.
+Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5); models with
+MLA, Mamba or RG-LRU blocks, cross-attention, an encoder-decoder or the
+``attn_dense`` prefix (Queue 1 item 4), which ``check_supported`` refuses
+at construction.
 """
 
 from __future__ import annotations

@@ -333,13 +333,14 @@ def test_check_supported_refuses_kernel_widths_on_cuda():
     """On a CUDA device with the kernel backend, a d_head or q_per_kv no
     Hopper body serves is refused at construction (no card needed: the
     check reads the config); einsum, and every width on the CPU, pass.
-    d_head 256 has Hopper bodies of its own."""
+    d_head 256 and 80 and q_per_kv 16 have Hopper bodies of their own."""
     base = ModelConfig.from_dict(get_config("qwen3-4b").to_dict())   # d_head 128, q_per_kv 4
     cuda = torch.device("cuda")
-    check_supported(dataclasses.replace(base, attn_backend="kernel"), cuda)
-    check_supported(dataclasses.replace(base, attn_backend="kernel", d_head=256), cuda)
-    for bad in (dict(d_head=80), dict(d_head=96),
-                dict(num_heads=16 * base.num_kv_heads)):
+    for good in (dict(), dict(d_head=256), dict(d_head=80),
+                 dict(num_heads=16 * base.num_kv_heads)):
+        check_supported(dataclasses.replace(base, attn_backend="kernel", **good), cuda)
+    for bad in (dict(d_head=96), dict(d_head=112),
+                dict(num_heads=32 * base.num_kv_heads)):
         cfg = dataclasses.replace(base, attn_backend="kernel", **bad)
         with pytest.raises(NotImplementedError, match="Queue 3 item 2"):
             check_supported(cfg, cuda)

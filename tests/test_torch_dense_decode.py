@@ -9,7 +9,7 @@ their plain versions:
   through the plain versions called directly, on a wrapped ring, a
   partly filled row, an empty row that sees only its self column, and a
   window; and on a ragged pool with unmapped slot pages on the null page
-  0; at dh 64 / 128 / 256 and q_per_kv 1 / 2 / 4 / 8.  Tolerance atol =
+  0; at dh 64 / 80 / 128 / 256 and q_per_kv 1 / 2 / 4 / 8 / 16.  Tolerance atol =
   rtol = 1e-5 (float32, TF32 off; the summation orders differ);
 * against the port's old route, K1's / K4's plain versions at an identity
   R_k and identity tables (cos 1, sin 0), within 1e-6 (the same float32
@@ -37,7 +37,7 @@ B, S, HKV, PS = 4, 24, 2, 4
 
 # (dh, q_per_kv, window)
 CASES = [(64, 1, None), (128, 4, None), (128, 8, 6), (64, 4, 6), (128, 1, 6),
-         (64, 8, None), (256, 2, 6)]
+         (64, 8, None), (256, 2, 6), (80, 4, None), (80, 16, 6), (128, 16, None)]
 
 
 def _case(dh, qpk, seed):

@@ -10,8 +10,8 @@ identity R_k) on the CPU, where the wrappers run their plain versions:
   partly filled row, an empty row whose query 0 sees only self column 0,
   and a full row, with a feed mask that leaves candidates unfed, with and
   without a window; and on a ragged pool with unmapped slot pages on the
-  null page 0; at dh 64 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 and nq 1 / 4 /
-  5 / 9 / 16.  Tolerance atol = rtol = 1e-5 (float32, TF32 off; the
+  null page 0; at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 / 16 and
+  nq 1 / 2 / 4 / 5 / 9 / 16.  Tolerance atol = rtol = 1e-5 (float32, TF32 off; the
   summation orders differ);
 * against the port's old route, K5's / K7's plain versions at an identity
   R_k and identity tables (cos 1, sin 0), within 1e-6 (the same float32
@@ -41,7 +41,7 @@ B, S, HKV, PS = 4, 24, 2, 4
 # (dh, q_per_kv, nq, window)
 CASES = [(64, 1, 1, None), (128, 4, 4, None), (128, 8, 5, 6), (64, 4, 5, 6),
          (128, 1, 4, 6), (64, 8, 1, None), (128, 4, 9, 6), (64, 1, 16, None),
-         (256, 2, 4, 6)]
+         (256, 2, 4, 6), (80, 4, 4, 6), (80, 16, 2, None), (128, 16, 4, 6)]
 
 
 def _case(dh, qpk, nq, seed):

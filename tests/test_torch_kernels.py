@@ -64,6 +64,9 @@ K1_CASES = {
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
     # gemma3-12b's head width
     "dh256": (dict(G=2, s=2, qpk=2, dh=256, rk=16, rv=24), True),
+    # h2o-danube-1.8b's head width, and qwen3-moe's 16 q heads a kv head
+    "dh80": (dict(G=2, s=4, qpk=4, dh=80, rk=24, rv=16), True),
+    "qpk16": (dict(G=1, s=2, qpk=16, rk=16, rv=8), True),
 }
 
 
@@ -158,6 +161,11 @@ K2_CASES = {
     "dh256_dense": (21, 4, 2, 2, 256, 256, None),
     "dh256_window": (21, 4, 2, 1, 256, 40, 5),
     "dh256_latent_520": (13, 4, 2, 1, 256, 520, None),
+    # dh 80 (h2o-danube-1.8b): dense values in a window, latent values;
+    # 16 query heads a kv head (qwen3-moe-235b-a22b), one value group
+    "dh80_dense_window": (21, 8, 2, 2, 80, 80, 5),
+    "dh80_latent": (13, 8, 4, 2, 80, 40, None),
+    "qpk16_latent": (13, 32, 2, 1, 16, 24, None),
 }
 
 

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on a card.
+"""The port's CUDA kernels against their plain PyTorch versions, on a card,
+at every head width the bodies take (d_head 64, 80, 128, 256; q_per_kv up
+to 16: h2o-danube-1.8b's and qwen3-moe-235b-a22b's widths are cases of
+their own).
 
 Marked ``gpu``: without a CUDA device each test skips (the kernels have
 no CPU mode).  The file imports no JAX, so it runs on a machine that has
@@ -73,7 +76,7 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_k1_cuda_kernel_matches_plain(cuda, dtype, dh):
     """Ragged ring (S = 70), empty slots, a fully masked row (exact 0),
     k-norm, G = 2, and the self column; one launch counted per call."""
@@ -128,13 +131,17 @@ def test_k1_cuda_kernel_window_single_group_matches_plain(cuda, dtype):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,dv,Hkv,Hv", [(128, 256, 4, 2), (64, 64, 2, 2), (256, 256, 4, 4),
-                                          (256, 512, 4, 2)])
-def test_k2_cuda_kernel_matches_plain(cuda, dtype, dh, dv, Hkv, Hv):
-    """Latent values (Hv < Hkv, dv != dh) and plain GQA; a T that is not a
-    tile multiple; causal with and without a window."""
-    g = torch.Generator(device=cuda).manual_seed(dh + dv)
-    q = torch.randn(2, 100, 8, dh, generator=g, device=cuda).to(dtype)
+@pytest.mark.parametrize("dh,dv,H,Hkv,Hv", [(128, 256, 8, 4, 2), (64, 64, 8, 2, 2),
+                                            (256, 256, 8, 4, 4), (256, 512, 8, 4, 2),
+                                            (80, 80, 8, 2, 2), (80, 160, 8, 4, 2),
+                                            (128, 128, 64, 4, 4), (128, 256, 64, 4, 1)])
+def test_k2_cuda_kernel_matches_plain(cuda, dtype, dh, dv, H, Hkv, Hv):
+    """Latent values (Hv < Hkv, dv != dh) and plain GQA, at dh 80
+    (h2o-danube-1.8b: 5 k-steps over 128-column tiles) and 16 query heads
+    a kv head (qwen3-moe-235b-a22b); a T that is not a tile multiple;
+    causal with and without a window."""
+    g = torch.Generator(device=cuda).manual_seed(dh + dv + H)
+    q = torch.randn(2, 100, H, dh, generator=g, device=cuda).to(dtype)
     k = torch.randn(2, 100, Hkv, dh, generator=g, device=cuda).to(dtype)
     v = torch.randn(2, 100, Hv, dv, generator=g, device=cuda).to(dtype)
     for win in (None, 30):
@@ -248,7 +255,7 @@ def _check(kernel, plain, args, kw, dtype, counter):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_k3_cuda_kernel_matches_plain(cuda, dtype, dh):
     """int8 ring with per-(token, group) scales; the self column is the
     quantized fresh latent; a dead row stays exact 0 without it."""
@@ -271,7 +278,7 @@ def test_k3_cuda_kernel_matches_plain(cuda, dtype, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_k3_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
     """bf16 K3 (K1's tensor-core body over int8 latents) at the main path's
     group width (Hg 16, s 4, r_k = r_v = 256) on a ragged int8 ring of two
@@ -378,6 +385,78 @@ def test_k6_cuda_kernel_matches_plain(cuda, dtype):
         assert (got[2] == 0).all()
 
 
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh,G,s,qpk,r", [(80, 2, 4, 4, 160), (128, 1, 4, 16, 256),
+                                         (80, 1, 2, 16, 160), (80, 1, 8, 4, 640)])
+def test_latent_bodies_at_dh80_and_q_per_kv16(cuda, dtype, dh, G, s, qpk, r):
+    """K1, K3, K4 (one query) and K5, K6, K7 (nq 4) at h2o-danube-1.8b's
+    latent widths (dh 80: Hg 16, r 160), qwen3-moe-235b-a22b's (q_per_kv
+    16: G 1, Hg 64, r 256), both at once, and dh 80 at group_size 8 and
+    rank s * dh = 640 (the 32-row R_k stages), on a ragged 320-column ring
+    with self columns: within 1e-4 (f32) or the bf16 limit of the plain
+    version, one launch a call, the masked row 2 exact 0 without its self
+    column, and K4 / K7 on a shuffled page-16 pool equal to K1 / K5 bit
+    for bit."""
+    def check(kernel, plain, args, kw):
+        n = kernel.launches
+        got = kernel(*args, **kw)
+        torch.cuda.synchronize()
+        assert kernel.launches == n + 1
+        want = plain(*args, **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _within_bf16_limit(got, want)
+        return got
+
+    for nq in (1, 4):
+        a = _ring(cuda, 800 + dh + qpk + nq + r, S=320, G=G, s=s, qpk=qpk, dh=dh, rk=r,
+                  rv=r, nq=nq)
+        t = {k: (v.to(dtype) if k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv")
+                 else v) for k, v in a.items()}
+        ptab, *pools = _shuffled_pool(t["zk"], t["zv"], 16, 801)
+        q8 = {k: _quant(a[k]) for k in ("zk", "zv", "self_zk", "self_zv")}
+        base = dict(scale=dh ** -0.5, k_norm=t["k_norm"])
+        if nq == 1:
+            bias = t["bias"][:, 0, :-1].contiguous()
+            args = (t["q"], t["zk"], t["zv"], t["r_k"], t["cos"], t["sin"], bias)
+            kw = dict(base, self_zk=t["self_zk"][:, 0], self_zv=t["self_zv"][:, 0],
+                      self_cos=t["self_cos"][:, 0], self_sin=t["self_sin"][:, 0])
+            assert (check(K1.latent_decode_attention, K1.latent_decode_attention_plain,
+                          args, base)[2] == 0).all()
+            ring = check(K1.latent_decode_attention, K1.latent_decode_attention_plain,
+                         args, kw)
+            paged = check(K1.latent_decode_attention_paged,
+                          K1.latent_decode_attention_paged_plain,
+                          (ptab, t["q"], *pools, *args[3:]), kw)
+            assert torch.equal(ring, paged)
+            qargs = (t["q"], *q8["zk"], *q8["zv"], t["r_k"], t["cos"], t["sin"], bias)
+            qkw = dict(base, self_zk_q=q8["self_zk"][0][:, 0],
+                       self_zk_s=q8["self_zk"][1][:, 0], self_zv_q=q8["self_zv"][0][:, 0],
+                       self_zv_s=q8["self_zv"][1][:, 0], self_cos=t["self_cos"][:, 0],
+                       self_sin=t["self_sin"][:, 0])
+            check(KQ.latent_decode_attention_quant, KQ.latent_decode_attention_quant_plain,
+                  qargs, qkw)
+        else:
+            args = (t["q"], t["zk"], t["zv"], t["r_k"], t["cos"], t["sin"], t["bias"])
+            kw = dict(base, self_zk=t["self_zk"], self_zv=t["self_zv"],
+                      self_cos=t["self_cos"], self_sin=t["self_sin"])
+            ring = check(K1.latent_decode_attention_mq, K1.latent_decode_attention_mq_plain,
+                         args, kw)
+            assert (ring[2] == 0).all()
+            paged = check(K1.latent_decode_attention_mq_paged,
+                          K1.latent_decode_attention_mq_paged_plain,
+                          (ptab, t["q"], *pools, *args[3:]), kw)
+            assert torch.equal(ring, paged)
+            qargs = (t["q"], *q8["zk"], *q8["zv"], t["r_k"], t["cos"], t["sin"], t["bias"])
+            qkw = dict(base, self_zk_q=q8["self_zk"][0], self_zk_s=q8["self_zk"][1],
+                       self_zv_q=q8["self_zv"][0], self_zv_s=q8["self_zv"][1],
+                       self_cos=t["self_cos"], self_sin=t["self_sin"])
+            check(KQ.latent_decode_attention_mq_quant,
+                  KQ.latent_decode_attention_mq_quant_plain, qargs, qkw)
+
+
 def _paged(cuda, a, ps, seed):
     """Page ``_ring``'s rows into a shuffled pool: row 1 shares row 0's
     first page, row 1's pages past its length and all of row 2 (whose
@@ -424,7 +503,7 @@ def _in_order(ptab, *pools):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16), (256, 16)])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (80, 16), (128, 16), (256, 16)])
 def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     """The paged pool through a ragged table (shuffled pages, null pages,
     one page shared by two rows; page_size below the kernels' tiles), with
@@ -551,7 +630,7 @@ def _check_bf16(kernel, plain, args, kw):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 80, 128, 256])
 def test_k6_bf16_tensor_cores_ragged_int8_ring(cuda, dh):
     """bf16 K6 at the main path's group width (Hg 16, s 4, nq 4: 64 score
     rows, r_k = r_v = 256) on a ragged int8 ring of three 128-column chunks
@@ -778,7 +857,7 @@ def test_engine_bf16_serves_group_size_8(cuda, bits):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh,ps", [(64, 8), (128, 16), (256, 16)])
+@pytest.mark.parametrize("dh,ps", [(64, 8), (80, 16), (128, 16), (256, 16)])
 def test_k7_cuda_kernel_matches_plain_and_k5_on_view(cuda, dtype, dh, ps):
     """nq = 4 verify queries over the paged pool of the K4 test: against
     the plain version, and bit for bit against K5 on the gathered ring."""
@@ -810,7 +889,7 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
     q = torch.randn(1, 1, 2, 96, device=cuda)
     z = torch.randn(1, 4, 1, 8, device=cuda)
     tab = torch.zeros(1, 4, 48, device=cuda)
-    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
+    with pytest.raises(ValueError, match="dh must be 64, 80, 128 or 256"):
         K1.latent_decode_attention(q, z, z, torch.randn(1, 8, 192, device=cuda),
                                    tab, tab, torch.zeros(1, 4, device=cuda), scale=1.0)
     # nq = 5 verify rows at the main path's width do not fit one float32
@@ -836,15 +915,16 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         K1.latent_decode_attention_paged(
             tab2.long(), qm[:, :, :16], pm, pm, torch.randn(2, 256, 512, device=cuda),
             tm, tm, torch.zeros(1, 8, device=cuda), scale=1.0)
-    # the bf16 tensor-core bodies hold at most 8 query rows per head slot
-    # (16 for the verify bodies), r_k and r_v multiples of 8 whose block
-    # fits in shared memory (every rank up to s * dh; any number of query
-    # rows per group: past 16 the head slots split over blocks)
+    # the bf16 tensor-core bodies hold at most 16 query rows per head slot
+    # (past 8 the one-query bodies run the multi-query one), r_k and r_v
+    # multiples of 8 whose block fits in shared memory (every rank up to s
+    # * dh; any number of query rows per group: past the block's rows the
+    # head slots split over blocks)
     bf = torch.bfloat16
     rk_bf = torch.randn(2, 256, 512, device=cuda).to(bf)
     with pytest.raises(ValueError, match="bf16 paged kernel"):
         K1.latent_decode_attention_paged(
-            tab2, qm[:, :, :16].to(bf), pm.to(bf), pm.to(bf), rk_bf[..., :128], tm, tm,
+            tab2, qm[:, :, :32].to(bf), pm.to(bf), pm.to(bf), rk_bf[..., :128], tm, tm,
             torch.zeros(1, 8, device=cuda), scale=1.0)
     # ranks past the 128-column plans take 64-column chunks: K1 at r = 712
     # and K6 at r = 576 are served (both were refused before that plan)
@@ -973,9 +1053,16 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
                                                     (64, 1, 16, None, True),
                                                     (256, 2, 4, 16, False),
                                                     (256, 8, 5, None, True),
-                                                    (256, 1, 17, None, False)])
+                                                    (256, 1, 17, None, False),
+                                                    (80, 4, 4, 16, False),
+                                                    (80, 1, 5, None, True),
+                                                    (80, 16, 3, None, False),
+                                                    (128, 16, 4, None, False),
+                                                    (128, 16, 1, 16, True),
+                                                    (64, 16, 2, 16, False),
+                                                    (256, 16, 2, None, False)])
 def test_dense_verify_kernel_edge_shapes(cuda, dtype, dh, qpk, nq, window, unfed):
-    """The dense verify kernel at dh 64 / 128 / 256, q_per_kv 1 / 2 / 4 / 8,
+    """The dense verify kernel at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 / 16,
     nq 1 / 4 / 5 / 8 / 9 / 16 / 17 (up to 64 query rows: four 16-row blocks;
     16 queries at q_per_kv 1 in one block; 17 at dh 256 narrow the chunk so
     that their bias rows fit beside the rings), with and without a window
@@ -1020,12 +1107,12 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
     sk = rn(2, 4, 2, 128)
     kw = dict(scale=1.0, self_k=sk, self_v=sk)
     before = (KD.dense_decode_attention_mq.launches, KD.dense_decode_attention_mq_paged.launches)
-    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
+    with pytest.raises(ValueError, match="dh must be 64, 80, 128 or 256"):
         KD.dense_decode_attention_mq(rn(2, 2, 16, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
                                      bias, scale=1.0, self_k=rn(2, 4, 2, 96),
                                      self_v=rn(2, 4, 2, 96))
-    with pytest.raises(ValueError, match="q_per_kv 1-8, nq >= 1"):
-        KD.dense_decode_attention_mq(rn(2, 2, 36, 128), k, k, bias, **kw)
+    with pytest.raises(ValueError, match="q_per_kv 1-16, nq >= 1"):
+        KD.dense_decode_attention_mq(rn(2, 2, 68, 128), k, k, bias, **kw)
     with pytest.raises(ValueError, match="nq >= 1"):
         KD.dense_decode_attention_mq(rn(2, 2, 10, 128), k, k, bias, **kw)
     with pytest.raises(ValueError, match="unsupported shapes"):
@@ -1049,9 +1136,11 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,qpk,window", [(64, 1, None), (64, 8, 16), (128, 1, 16),
-                                           (128, 8, None), (256, 2, None), (256, 8, 16)])
+                                           (128, 8, None), (256, 2, None), (256, 8, 16),
+                                           (80, 4, None), (80, 16, 16), (80, 1, 16),
+                                           (128, 16, None), (64, 16, 16), (256, 16, None)])
 def test_dense_decode_kernel_edge_shapes(cuda, dtype, dh, qpk, window):
-    """The dense decode kernel at dh 64 / 128 / 256, q_per_kv 1 / 2 / 8, with and
+    """The dense decode kernel at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 / 16, with and
     without a window, on a ring whose row 2 is masked everywhere: within
     1e-4 (f32) or the bf16 limit of the plain version, row 2 exactly its
     self value (and exact 0 without a self column), and the pool equal to
@@ -1088,11 +1177,11 @@ def test_dense_decode_kernel_rejects_shapes_outside_limits(cuda):
     rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
     k, bias = rn(2, 32, 2, 128), torch.zeros(2, 32, device=cuda)
     before = KD.dense_decode_attention.launches
-    with pytest.raises(ValueError, match="dh must be 64, 128 or 256"):
+    with pytest.raises(ValueError, match="dh must be 64, 80, 128 or 256"):
         KD.dense_decode_attention(rn(2, 2, 4, 96), rn(2, 32, 2, 96), rn(2, 32, 2, 96),
                                   bias, scale=1.0)
-    with pytest.raises(ValueError, match="q_per_kv 1-8"):
-        KD.dense_decode_attention(rn(2, 2, 9, 128), k, k, bias, scale=1.0)
+    with pytest.raises(ValueError, match="q_per_kv 1-16"):
+        KD.dense_decode_attention(rn(2, 2, 17, 128), k, k, bias, scale=1.0)
     with pytest.raises(ValueError, match="unsupported shapes"):
         KD.dense_decode_attention(rn(2, 2, 4, 128), k, k, bias[:, :16], scale=1.0)
     with pytest.raises(TypeError, match="bf16 or float32"):

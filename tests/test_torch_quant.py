@@ -112,6 +112,8 @@ K3_CASES = {
     "groups2_plain": (dict(G=2, s=2, qpk=2), False),
     "dead_row": (dict(G=2, s=2, qpk=2, dead_row=1), True),
     "dh256": (dict(G=2, s=2, qpk=2, dh=256, rk=16, rv=24), True),
+    "dh80": (dict(G=2, s=4, qpk=4, dh=80, rk=24, rv=16), True),
+    "qpk16": (dict(G=1, s=2, qpk=16, rk=16, rv=8), True),
 }
 
 

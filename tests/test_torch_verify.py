@@ -106,6 +106,8 @@ MQ_CASES = {
     "nq3_drop": (3, None, True, 16),
     "nq3_window": (3, 5, False, 16),
     "nq3_window_dh256": (3, 5, False, 256),   # gemma3-12b's head width
+    "nq3_window_dh80": (3, 5, False, 80),     # h2o-danube-1.8b's
+    "nq3_drop_qpk16": (3, None, True, 16, 16),   # qwen3-moe's 16 q heads a kv head
 }
 
 
@@ -113,8 +115,9 @@ MQ_CASES = {
 def test_k5_plain_matches_pallas_interpret(case):
     """S + nq = 14 or 16 columns at block 8 (a tail tile), a causal self
     block, a dropped feed column and a window."""
-    nq, window, drop, dh = MQ_CASES[case]
-    a = _mq_inputs(zlib.crc32(case.encode()), nq, window=window, drop=drop, dh=dh)
+    nq, window, drop, dh, *qpk = MQ_CASES[case]
+    a = _mq_inputs(zlib.crc32(case.encode()), nq, window=window, drop=drop, dh=dh,
+                   qpk=qpk[0] if qpk else 2)
     scale = a["q"].shape[-1] ** -0.5
     want = np.asarray(jax_k5(*[jnp.asarray(a[k]) for k in ("q", "zk", "zv", "r_k", "cos",
                                                            "sin", "bias")],
@@ -143,8 +146,9 @@ def test_k5_plain_matches_pallas_interpret(case):
 @pytest.mark.parametrize("case", sorted(MQ_CASES))
 def test_k6_plain_matches_pallas_interpret(case):
     """K5's cases over int8 latents; at nq = 1 it equals K3."""
-    nq, window, drop, dh = MQ_CASES[case]
-    a = _mq_inputs(zlib.crc32(case.encode()) + 1, nq, window=window, drop=drop, dh=dh)
+    nq, window, drop, dh, *qpk = MQ_CASES[case]
+    a = _mq_inputs(zlib.crc32(case.encode()) + 1, nq, window=window, drop=drop, dh=dh,
+                   qpk=qpk[0] if qpk else 2)
     for k in ("zk", "zv"):
         qv, sc = jquant(jnp.asarray(a[k]), 8)
         a[k + "_q"], a[k + "_s"] = np.asarray(qv), np.asarray(sc)[..., 0]
