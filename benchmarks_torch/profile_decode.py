@@ -43,6 +43,11 @@ MoE FFN's ``torch.bmm`` calls), the MoE dispatch and combine (the rest of
 ``layers.moe_ffn``), attention (the port's kernels) and the rest; the
 split by code range needs eager steps, so a replayed graph's trace splits
 by kernel name only (attention, kernels named as GEMMs, the rest).
+``--arch deepseek-v3-671b --num-layers 4 [--aot]`` profiles run DS's model
+(its MLA cache: ReCalKV does not apply, so ``--dense`` is implied); its
+attention is MLA's einsum readers, which launch no kernel of the port, so
+the eager split counts the device time under ``mla_attention`` /
+``kv_cache.decode_attn_mla`` / ``verify_attn_mla`` as attention.
 Without flags it measures what it always did.
 """
 
@@ -64,8 +69,10 @@ BATCH, PROMPT, MAX_LEN, STEPS = 8, 2048, 4096, 8
 # library GEMMs (cuBLAS / CUTLASS), for the split of a trace's device time.
 ATTENTION = ("latent_decode", "dense_decode", "dense_verify", "flash_prefill", "merge")
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
-# record_function ranges the MoE model's eager steps open (see moe_ranges)
-EXPERT_RANGE, MOE_RANGE = "expert_gemms", "moe_ffn"
+# record_function ranges the MoE model's eager steps open (see moe_ranges),
+# and the MLA model's around its attention (see mla_ranges)
+EXPERT_RANGE, MOE_RANGE, MLA_RANGE = "expert_gemms", "moe_ffn", "mla_attention"
+RANGES = (EXPERT_RANGE, MOE_RANGE, MLA_RANGE)
 
 
 def traced(fn, n: int):
@@ -84,17 +91,18 @@ def traced(fn, n: int):
     # a range's device time: the kernels launched inside its CPU-side event
     # (the range's span on the device timeline would count the gaps)
     for e in prof.events():
-        if e.name in (EXPERT_RANGE, MOE_RANGE) and e.device_type.name == "CPU":
+        if e.name in RANGES and e.device_type.name == "CPU":
             ranges[e.name] = ranges.get(e.name, 0.0) + e.device_time_total / 1e3 / n
     for e in prof.key_averages():
-        if e.device_type.name != "CUDA" or e.key in (EXPERT_RANGE, MOE_RANGE):
+        if e.device_type.name != "CUDA" or e.key in RANGES:
             continue                         # device kernels only, no ranges or aten:: ops
         us = getattr(e, "self_device_time_total", 0)
         if us > 0:
             rows.append((us / 1e3 / n, e.count / n, e.key))
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    attention = sum(ms for ms, _, k in rows if any(a in k for a in ATTENTION))
+    attention = (sum(ms for ms, _, k in rows if any(a in k for a in ATTENTION))
+                 + ranges.get(MLA_RANGE, 0.0))
     split = {"attention_ms": attention}
     if MOE_RANGE in ranges:
         experts = ranges.get(EXPERT_RANGE, 0.0)
@@ -145,6 +153,23 @@ def moe_ranges(L):
     L.moe_ffn = ranged_moe
 
 
+def mla_ranges(L, KC):
+    """Open the MLA range around its full-sequence attention and its
+    absorbed decode and verify readers (no kernel of the port: their
+    device time is einsums and elementwise glue)."""
+    from torch.profiler import record_function
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function(MLA_RANGE):
+                return fn(*a, **kw)
+        return call
+
+    L.mla_attention = ranged(L.mla_attention)
+    KC.decode_attn_mla = ranged(KC.decode_attn_mla)
+    KC.verify_attn_mla = ranged(KC.verify_attn_mla)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-quant-bits", type=int, default=None,
@@ -174,7 +199,8 @@ def main() -> int:
         print("profile_decode: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(args.src).resolve()))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import RECALKV_APPLICABLE, get_config
+    from repro_torch.models import kv_cache as KC
     from repro_torch.models import layers as L
     from repro_torch.models import transformer as T
     from repro_torch.models.weights import init_params
@@ -183,13 +209,16 @@ def main() -> int:
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    base = (get_config(args.arch) if args.dense
-            else get_config(args.arch, recalkv_ratio=0.5))
+    latent = not args.dense and RECALKV_APPLICABLE[args.arch]
+    base = (get_config(args.arch, recalkv_ratio=0.5) if latent
+            else get_config(args.arch))
     cfg = dataclasses.replace(base, attn_backend="kernel", dtype=torch.bfloat16,
                               cache_quant_bits=args.cache_quant_bits,
                               num_layers=args.num_layers or base.num_layers)
     if cfg.moe is not None:
         moe_ranges(L)
+    if cfg.mla is not None:
+        mla_ranges(L, KC)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = BATCH
@@ -208,13 +237,14 @@ def main() -> int:
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
     print(f"card: {card}")
-    kind = "dense" if args.dense else f"r={cfg.recalkv.rank_k}"
+    kind = (f"r={cfg.recalkv.rank_k}" if latent
+            else "mla" if cfg.mla is not None else "dense")
     print(f"{cfg.name} ({cfg.num_layers} layers) {kind} bf16, cache_quant_bits "
           f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, page_size "
           f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}, src "
           f"{args.src}: first (cold) prefill {cold_s:.4f} s")
     out = {"card": card, "src": args.src, "arch": cfg.name, "num_layers": cfg.num_layers,
-           "dense": args.dense, "batch": B, "prompt": PROMPT,
+           "dense": not latent, "mla": cfg.mla is not None, "batch": B, "prompt": PROMPT,
            "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
            "spec_depth": args.spec_depth, "page_size": args.page_size,
            "cold_prefill_s": cold_s,

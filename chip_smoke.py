@@ -159,7 +159,19 @@ Phases, in order (any failure exits non-zero; none is caught):
    shared), paged steps equal to the ring's (float and int8 pools), QU
    (D's pool and traffic: K4 at q_per_kv 16) and QU3 (C's prompts, K5);
    the peak memory of every step; cache bytes per token and layer 2,560
-   (N), 1,280 (NU), 2,048 (Q), 1,024 (QU);
+   (N), 1,280 (NU), 2,048 (Q), 1,024 (QU); then deepseek-v3-671b
+   (``phase_deepseek``: MLA, r_kv 512 + dr 64; 256 experts top-8 + 1
+   shared; the kernel backend's MLA readers are einsum, so no kernel may
+   launch on its path), first in float32 on 2 layers (both
+   ``attn_dense``): the prefill of T + 1 tokens against the prefill of T
+   and one absorbed decode step, a 4-token verify step against 4 decode
+   steps (each within 1e-4 relative), and decode and verify on a page-16
+   pool equal to the ring bit for bit; then bf16 at DS_LAYERS = 4 layers
+   (the 3 ``attn_dense`` and 1 MoE layer, 30.2 GB): paged steps equal to
+   the ring's, DS (A's prompts), DS+ (DS overlapped with graphs and
+   inline admission: DS's streams), DS3 (C's, "ngram") and DSP (D's pool
+   and traffic: it must share and preempt); cache bytes per token and
+   layer 1,152; the peak memory of every step, the init's included;
 8. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
@@ -253,9 +265,11 @@ def nbytes(*ts) -> int:
 
 
 def count_params(params) -> int:
-    """Parameters of a model: its layers' leaves and the embedding."""
-    return sum(t.numel() for layer in params["layers"] for d in layer.values()
-               for t in (d.values() if isinstance(d, dict) else [d])) + params["embed"].numel()
+    """Parameters of a model: its layers' leaves (nested dicts too: an MoE
+    layer's shared expert) and the embedding."""
+    def leaves(tree):
+        return sum(leaves(v) if isinstance(v, dict) else v.numel() for v in tree.values())
+    return sum(leaves(layer) for layer in params["layers"]) + params["embed"].numel()
 
 
 def bound(bytes_: int, flops: float) -> tuple[float, str]:
@@ -302,12 +316,19 @@ FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent st
                "h2o-danube-1.8b": ("danube steps", "N", "N3", "danube latent steps", "NU",
                                    "NU3", "NUB"),
                "qwen3-moe-235b-a22b": ("qwen3-moe steps", "Q", "Q+", "Q3",
-                                       "qwen3-moe latent steps", "QU", "QU3")}
+                                       "qwen3-moe latent steps", "QU", "QU3"),
+               "deepseek-v3-671b": ("deepseek steps", "DS", "DS+", "DS3", "DSP")}
 # qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
 # (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
 # 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
 # for the rings, the prefill's MoE buffers and the compression.
 MOE_LAYERS = 8
+# deepseek-v3-671b serves 4 of its 61 layers: its 3 attn_dense layers (0.58 B
+# parameters each) and 1 MoE layer (256 experts of 3 x 7,168 x 2,048, one
+# shared: 11.5 B), beside the 1.85 B embedding and head: 15.1 B, 30.2 GB of
+# bf16.  A second MoE layer would add 23 GB.
+DS_LAYERS = 4
+MLA_REL = 1e-4      # float32: absorbed decode / verify vs the non-absorbed forms
 
 
 def family_row(entry, arch, what=""):
@@ -1106,7 +1127,8 @@ def phase_paged_steps(torch, cfg, params, bits_list=(None, 8)):
 
     for bits in bits_list:
         c = dataclasses.replace(cfg, cache_quant_bits=bits)
-        kind = ("int8" if bits else "float") + (" dense" if cfg.recalkv is None else "")
+        kind = ("int8" if bits else "float") + (" mla" if cfg.mla is not None else
+                                                 " dense" if cfg.recalkv is None else "")
         _, ring = T.prefill(c, params, toks, lens, L)
         pool = T.init_decode_cache(c, B, L, "cuda", pages=(B * n_sp + 1, PAGE))
         _merge_slot_paged(pool, ring, rows, cols, pages[0].reshape(-1).long(), PAGE)
@@ -1208,10 +1230,19 @@ ENGINE_RUNS.update({"N": ENGINE_RUNS["V"], "N3": ENGINE_RUNS["V3"], "NU": ENGINE
                     "NU3": ENGINE_RUNS["U3"], "NUB": ENGINE_RUNS["UB"],
                     "Q": ENGINE_RUNS["V"], "Q3": ENGINE_RUNS["V3"], "QU": ENGINE_RUNS["M"],
                     "QU3": ENGINE_RUNS["U3"]})
+# deepseek-v3-671b at DS_LAYERS layers (MLA; its 3 attn_dense layers and 1
+# MoE layer of 256 experts + 1 shared): DS (A's prompts), DS3 (C's,
+# "ngram"), DSP (D's pool and traffic: it must share and preempt).  MLA's
+# readers and prefill launch no kernel (JAX's einsum path), so none must.
+ENGINE_RUNS.update({"DS": dict(ENGINE_RUNS["V"], must=()),
+                    "DS3": dict(ENGINE_RUNS["V3"], must=()),
+                    "DSP": dict(ENGINE_RUNS["M"], must=())})
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
                "U": 4096, "U3": 4096, "M": 4608, "M3": 9216, "N": 2560, "N3": 2560,
-               "NU": 1280, "NU3": 1280, "Q": 2048, "Q3": 2048, "QU": 1024, "QU3": 1024}
+               "NU": 1280, "NU3": 1280, "Q": 2048, "Q3": 2048, "QU": 1024, "QU3": 1024,
+               # MLA: c_kv (512) and the shared RoPE key columns (64), bf16
+               "DS": 1152, "DS3": 1152, "DSP": 1152}
 # runs served again by the overlapped engine with the window captured as
 # CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
 # Their streams must equal the sync runs' in the same call.
@@ -1220,7 +1251,7 @@ OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {},
               # worker thread forms waves as requests arrive, and under MoE
               # the rows of a call share the experts' capacity, so another
               # grouping gives other tokens (so does the JAX engine)
-              "Q": dict(admission_thread=False)}
+              "Q": dict(admission_thread=False), "DS": dict(admission_thread=False)}
 # runs served three ways in one call (sync; overlapped + graphs at pipeline
 # depth 3; the same with continuous batching): streams equal, installs
 # inside the windows
@@ -1366,7 +1397,8 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
                              f"{missing} ({launches})")
     # the overlapped D admits on its own schedule (its lazy headroom spans
     # the windows in flight), so only the sync run must reach preemption
-    if run == "D" and (m["pages_shared"] < 1 or (m["preemptions"] < 1 and not overlapped)):
+    if run in ("D", "DSP") and (m["pages_shared"] < 1
+                                or (m["preemptions"] < 1 and not overlapped)):
         raise AssertionError(f"engine run {name} must share pages"
                              + ("" if overlapped else " and preempt") + f": {pool}")
     streams = {r.uid: list(r.out_tokens) for r in done}
@@ -1634,8 +1666,9 @@ def family_model(torch, arch, ratio=None, layers=None, dtype=None):
     cfg = dataclasses.replace(get_config(arch, recalkv_ratio=ratio), attn_backend="kernel",
                               dtype=dtype or torch.bfloat16)
     full = cfg.num_layers
-    if layers is not None:
-        cfg = dataclasses.replace(cfg, num_layers=layers)
+    if layers is not None:   # a leading prefix (deepseek's attn_dense layers) is cut too
+        cfg = dataclasses.replace(cfg, num_layers=layers,
+                                  prefix_pattern=cfg.prefix_pattern[:layers])
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
     torch.cuda.synchronize()
     log(f"model {cfg.name}{'' if ratio is None else f' recalkv ratio {ratio}'}"
@@ -1813,6 +1846,98 @@ def phase_qwen3_moe(torch, by_run, streams, serving, backends) -> dict:
     return compression
 
 
+def phase_mla_identities(torch, cfg, params) -> dict:
+    """deepseek's float32 identities on the card (B 2, prompts of 512 and
+    300 tokens in 1,024-token rings, TF32 off): the prefill of one more
+    token against the prefill followed by one absorbed ``decode_step`` (the
+    non-absorbed attention of ``mla_attention`` against scores in c_kv
+    space), and a 4-token ``verify_step`` against 4 sequential decode
+    steps, each within MLA_REL of the larger's max |logit|."""
+    from repro_torch.models import transformer as T
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 6)
+    L_ring, B = 1024, 2
+    toks = torch.randint(0, cfg.vocab_size, (B, 513), generator=gen, device="cuda")
+    lens = torch.tensor([512, 300], device="cuda")
+    fed = torch.randint(0, cfg.vocab_size, (B, 4), generator=gen, device="cuda")
+    rows = torch.arange(B, device="cuda")
+    out = {}
+
+    def check(name, got, want):
+        if not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: logits are not finite")
+        err = (got - want).abs().max().item()
+        rel = err / want.abs().max().item()
+        agree = (got.argmax(-1) == want.argmax(-1)).float().mean().item()
+        log(f"{cfg.name} float32, {name}: logits max abs err {err:.4e} (relative "
+            f"{rel:.3e}, limit {MLA_REL:.0e}), greedy agreement {agree:.3f}")
+        if rel > MLA_REL:
+            raise AssertionError(f"{cfg.name} {name}: logits differ by {rel:.3e} relative")
+        out[name] = {"logits_max_abs_err": err, "logits_rel_err": rel,
+                     "greedy_agreement": agree}
+
+    full, _ = T.prefill(cfg, params, toks, lens + 1, L_ring)
+    _, caches = T.prefill(cfg, params, toks[:, :512], lens, L_ring)
+    step, _ = T.decode_step(cfg, params, caches, toks[rows, lens], lens)
+    check("prefill T + 1 vs prefill T + decode", step, full)
+    _, caches = T.prefill(cfg, params, toks[:, :512], lens, L_ring)
+    mask = torch.ones((B, 4), dtype=torch.bool, device="cuda")
+    verify, _ = T.verify_step(cfg, params, caches, fed, lens, mask)
+    seq = [T.decode_step(cfg, params, caches, fed[:, j], lens + j)[0] for j in range(4)]
+    check("verify 4 vs 4 decode steps", verify, torch.stack(seq, dim=1))
+    return out
+
+
+def phase_deepseek(torch, by_run, streams, serving, backends) -> dict:
+    """deepseek-v3-671b at full width (d 7,168, 128 heads, MLA r_kv 512 and
+    dr 64, 256 experts top-8 of d_expert 2,048 + 1 shared, vocab 129,280)
+    on the kernel backend, whose MLA readers fall back to einsum (the
+    engine warns, as JAX's does).  First in float32 on 2 of its layers
+    (both ``attn_dense``: no routing to flip): the MLA identities
+    (``phase_mla_identities``) and decode and verify on a page-16 pool
+    equal to the ring bit for bit; then the bf16 model at DS_LAYERS layers
+    (the 3 ``attn_dense`` and 1 MoE layer): paged steps equal to the
+    ring's, DS (A's prompts), DS+ (DS overlapped with the window as CUDA
+    graphs and inline admission: DS's streams), DS3 (C's, depth-3
+    "ngram") and DSP (D's pool and traffic: sharing and preemption).  No
+    kernel may launch on its path.  Prints the peak memory of every step,
+    the init's included.  Returns the phase's record."""
+    from repro_torch import kernels
+    arch = "deepseek-v3-671b"
+    t0 = time.perf_counter()
+    cfg, params = family_model(torch, arch, layers=2, dtype=torch.float32)
+    kernels.reset_launch_counts()
+    backends[f"{arch} f32"] = phase_mla_identities(torch, cfg, params)
+    backends[f"{arch} f32 paged"] = phase_paged_steps(torch, cfg, params, (None,))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, params = family_model(torch, arch, layers=DS_LAYERS)
+    peaks = {"init": torch.cuda.max_memory_allocated() / 2 ** 30,
+             "weights": torch.cuda.memory_allocated() / 2 ** 30}
+    torch.cuda.reset_peak_memory_stats()
+    backends[f"{arch} paged"] = phase_paged_steps(torch, cfg, params, (None,))
+    by_run["deepseek steps"] = launch_counts(kernels)
+    peaks["steps"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    for run in ("DS", "DS3", "DSP"):
+        by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    phase_overlapped(torch, cfg, params, ["DS"], by_run, streams, serving)
+    launched = {run: {k: n for k, n in by_run[run].items() if n}
+                for run in FAMILY_RUNS[arch]}
+    if any(launched.values()):
+        raise AssertionError(f"{arch}: kernels launched on the MLA path: {launched}")
+    log(f"{arch}: no kernel launched over its steps and runs (MLA's readers and "
+        f"prefill are einsum, as in the JAX package)")
+    del params
+    torch.cuda.empty_cache()
+    peaks.update({run: serving[run]["peak_gib"] for run in ("DS", "DS+", "DS3", "DSP")})
+    seconds = time.perf_counter() - t0
+    log(f"{arch} ({DS_LAYERS} layers) peak memory GiB by step: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in peaks.items())
+        + f"; highest {max(peaks.values()):.2f}; the phase took {seconds:.1f} s")
+    return {"peaks_gib": peaks, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -1964,6 +2089,7 @@ def main() -> int:
                                                           backends),
                           "qwen3-moe-235b-a22b": phase_qwen3_moe(torch, by_run, streams,
                                                                  serving, backends)}
+    deepseek = phase_deepseek(torch, by_run, streams, serving, backends)
     family = {run for runs in FAMILY_RUNS.values() for run in runs}
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
@@ -1975,7 +2101,8 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: {never}")
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
                     "f32_widths": f32_widths, "compression": compression,
-                    "family_compression": family_compression, "cli": cli}))
+                    "family_compression": family_compression, "deepseek": deepseek,
+                    "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -3,7 +3,9 @@
 ``get_config(arch)`` returns the published configuration,
 ``smoke=True`` a reduced same-family config for CPU tests, and
 ``recalkv_ratio=0.5`` attaches a uniform-rank ReCalKV latent cache at the
-given kept fraction — the same rank rule as the JAX package.
+given kept fraction — the same rank rule as the JAX package; an arch
+where the technique does not apply (``RECALKV_APPLICABLE``: DeepSeek's MLA
+already caches trained latents) raises ValueError, as in the JAX package.
 ``cache_quant_bits=8`` stores that ring as int8 latents with per-token
 scales (the JAX package sets the field with ``dataclasses.replace``).
 """
@@ -21,8 +23,20 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "h2o-danube-1.8b": "h2o_danube_1p8b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
+    "deepseek-v3-671b": "deepseek_v3_671b",
 }
 ARCHS: tuple[str, ...] = tuple(_MODULES)
+# ReCalKV applies to archs with cached RoPE'd attention; DeepSeek's MLA is
+# already a (trained) latent cache.  The JAX package's table, for the archs
+# the port registers.
+RECALKV_APPLICABLE = {
+    "qwen3-4b": True,
+    "minicpm-2b": True,
+    "gemma3-12b": True,
+    "h2o-danube-1.8b": True,
+    "qwen3-moe-235b-a22b": True,
+    "deepseek-v3-671b": False,
+}
 
 
 def effective_rank_for_ratio(width: int, keep_ratio: float,
@@ -42,6 +56,9 @@ def get_config(arch: str, *, smoke: bool = False,
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.FULL
     if recalkv_ratio is not None:
+        if not RECALKV_APPLICABLE[arch]:
+            raise ValueError(
+                f"ReCalKV inapplicable to {arch} (see DESIGN.md §Arch-applicability)")
         s = max(1, min(4, cfg.num_kv_heads))
         rank = effective_rank_for_ratio(s * cfg.d_head, recalkv_ratio)
         cfg = dataclasses.replace(

@@ -10,8 +10,9 @@ PyTorch path (smoke configs).  The weights are random, from
 
 Not ported (refused with their ROADMAP items): ``--mesh`` other than one
 device (Queue 1 item 5), an ``--arch`` the port has not registered (item
-4).  ``--backend pallas`` names the port's CUDA kernels, as
-``ModelConfig.from_dict`` reads it.
+4).  ``--recalkv`` on an arch ReCalKV does not apply to (deepseek's MLA)
+raises ValueError, as the JAX CLI does.  ``--backend pallas`` names the
+port's CUDA kernels, as ``ModelConfig.from_dict`` reads it.
 """
 
 from __future__ import annotations

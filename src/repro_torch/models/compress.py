@@ -83,6 +83,8 @@ def compress_model(cfg: ModelConfig, params, stats: Sequence[P.CalibStats],
     are shared with ``params``, not copied.  ``reports``, when given,
     receives each layer's ``CompressedAttention.report``."""
     check_supported(cfg)
+    if cfg.mla is not None:
+        raise ValueError("MLA models already cache latents; nothing to do")
     if cfg.recalkv is not None:
         raise ValueError("the model already caches latents; compress a dense "
                          "(recalkv=None) model")

@@ -3,11 +3,12 @@
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
 (:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving path needs — ``attn`` and sliding-window ``local``
-blocks, each with a dense SwiGLU FFN or a capacity-routed MoE FFN
-(``moe``), over a dense K/V cache (``recalkv=None``) or a ReCalKV latent
-cache, float or int8 (``cache_quant_bits``) — and :func:`check_supported`
-names anything else as not ported.
+subset the serving path needs — ``attn``, ``attn_dense`` (always a dense
+FFN: DeepSeek's first-k-dense prefix) and sliding-window ``local`` blocks,
+each with a dense SwiGLU FFN or a capacity-routed MoE FFN (``moe``), over
+a dense K/V cache (``recalkv=None``), a ReCalKV latent cache, float or
+int8 (``cache_quant_bits``), or DeepSeek's MLA latent cache (``mla``) —
+and :func:`check_supported` names anything else as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -223,24 +224,23 @@ class ModelConfig:
 KERNEL_D_HEADS = (64, 80, 128, 256)
 KERNEL_MAX_Q_PER_KV = 16
 # What check_supported still refuses by kind (ROADMAP.md Queue 1 item 4).
-STILL_TO_PORT = ("MLA, Mamba and RG-LRU blocks, cross-attention, encoder-decoder "
-                 "models and the attn_dense prefix are still to port")
+STILL_TO_PORT = ("Mamba and RG-LRU blocks, cross-attention and encoder-decoder "
+                 "models are still to port")
+PORTED_KINDS = ("attn", "attn_dense", "local")
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port's model
-    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: MLA,
-    Mamba, RG-LRU, encoder-decoder, cross-attention and the
-    ``attn_dense`` prefix).  On a CUDA ``device`` with the kernel backend
-    it also refuses widths no Hopper body serves (ROADMAP.md, Queue 3
-    item 2); the CPU's plain versions serve every width."""
-    missing = []
-    for name in ("mla", "mamba", "rglru"):
-        if getattr(cfg, name) is not None:
-            missing.append(name)
+    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: Mamba,
+    RG-LRU, encoder-decoder and cross-attention).  On a CUDA ``device``
+    with the kernel backend it also refuses widths no Hopper body serves
+    (ROADMAP.md, Queue 3 item 2); the CPU's plain versions serve every
+    width, and MLA's readers launch no kernel, so an MLA model is not
+    checked for them."""
+    missing = [name for name in ("mamba", "rglru") if getattr(cfg, name) is not None]
     if cfg.encoder_decoder:
         missing.append("encoder-decoder")
-    kinds = sorted(set(cfg.expanded_layers()) - {"attn", "local"})
+    kinds = sorted(set(cfg.expanded_layers()) - set(PORTED_KINDS))
     if kinds:
         missing.append(f"block kinds {kinds}")
     if missing:
@@ -248,7 +248,7 @@ def check_supported(cfg: ModelConfig, device=None) -> None:
             f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)} "
             f"(ROADMAP.md Queue 1 item 4: {STILL_TO_PORT})")
     if (device is not None and torch.device(device).type == "cuda"
-            and cfg.attn_backend == "kernel"):
+            and cfg.attn_backend == "kernel" and cfg.mla is None):
         qpk = cfg.num_heads // max(cfg.num_kv_heads, 1)
         if cfg.d_head not in KERNEL_D_HEADS or qpk > KERNEL_MAX_Q_PER_KV:
             raise NotImplementedError(

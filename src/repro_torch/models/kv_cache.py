@@ -1,5 +1,5 @@
-"""Dense and latent KV caches — ring or paged pool — with their decode and
-verify readers (port of the dense and latent subset of
+"""Dense, latent and MLA KV caches — ring or paged pool — with their
+decode and verify readers (port of the dense, latent and MLA subset of
 ``repro.models.kv_cache``).
 
 Per layer the cache is the dense ``{"k", "v": (B, L, Hkv, dh), "pos": (B,
@@ -7,9 +7,12 @@ L) int64}`` with post-RoPE keys (``cfg.recalkv is None``), or the latent
 ``{"zk": (B, L, G, r_k), "zv": (B, L, G, r_v), "pos"}`` with pre-RoPE
 latents, or, with ``cfg.cache_quant_bits``, the int8 ring ``{"zk_q",
 "zv_q": int8 (B, L, G, r), "zk_s", "zv_s": float32 (B, L, G), "pos"}``
-(one scale per token and group).  ``pos`` holds the absolute position in
-each slot (-1 = empty); masking and RoPE read it, so ring wraparound needs
-no other bookkeeping.  Writes go to slot ``cur % L``.
+(one scale per token and group).  An MLA model (``cfg.mla``) caches
+``{"ckv": (B, L, r_kv), "krope": (B, L, dr), "pos"}``: the normalised
+latent and the post-RoPE key columns all heads share, in the model dtype
+(as in the JAX package).  ``pos`` holds the absolute position in each
+slot (-1 = empty); masking and RoPE read it, so ring wraparound needs no
+other bookkeeping.  Writes go to slot ``cur % L``.
 
 Deferred writes: the decode reader scores the current token as an extra
 self column and returns its entry; :func:`apply_decode_writes` writes all
@@ -50,6 +53,13 @@ def init_self_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     rt = cfg.recalkv
     Lr = cfg.cache_len(kind, max_len)
     pos = torch.full((batch, Lr), -1, dtype=torch.int64, device=device)
+    if cfg.mla is not None:
+        a = cfg.mla
+        return {"ckv": torch.zeros((batch, Lr, a.kv_lora_rank), dtype=cfg.dtype,
+                                   device=device),
+                "krope": torch.zeros((batch, Lr, a.qk_rope_dim), dtype=cfg.dtype,
+                                     device=device),
+                "pos": pos}
     if rt is None:
         shape = (batch, Lr, cfg.num_kv_heads, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=cfg.dtype, device=device),
@@ -184,10 +194,22 @@ def _two_part_softmax(logits_c: torch.Tensor, logits_s: torch.Tensor):
     return e_c / denom, e_s / denom
 
 
+def kernel_fallback_kinds(cfg: ModelConfig) -> list[str]:
+    """Layer kinds that take the einsum path even under
+    ``attn_backend="kernel"`` (JAX's ``pallas_fallback_kinds``, for the
+    kinds the port serves): the absorbed-MLA readers score in the c_kv
+    latent space, with no kernel, so an MLA model lists every kind it has.
+    The engine warns once when this list is non-empty, so a requested
+    kernel backend never degrades silently."""
+    return sorted(set(cfg.expanded_layers())) if cfg.mla is not None else []
+
+
 def _pool_route(cfg: ModelConfig, cache: Params, pages):
-    """(cache, ptab) for a reader: the float pool under the kernel backend
-    stays page-major for K4 / K7; every other reader (einsum, and the int8
-    kernels) reads the gathered slot-major view, as in the JAX package."""
+    """(cache, ptab) for a dense or latent reader: the float pool under the
+    kernel backend stays page-major for K4 / K7; every other reader
+    (einsum, and the int8 kernels) reads the gathered slot-major view, as
+    in the JAX package.  The MLA readers take no kernel and always read
+    the view (:func:`decode_attn_mla`)."""
     if pages is None:
         return cache, None
     if cfg.attn_backend == "kernel" and cfg.cache_quant_bits is None:
@@ -301,6 +323,64 @@ def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
              + w_s * zv_self[:, :, None, :])
     o_lat = o_lat.reshape(B, 1, H, -1)
     return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"]), updates
+
+
+def _mla_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                pos_q: torch.Tensor):
+    """The absorbed-MLA reader's operands for tokens x (B, S, d) at
+    positions pos_q (B, S): the query's latent-space half q_abs (B, S, H,
+    r_kv) = q_nope through ``wkv_b``'s key columns, its post-RoPE half q_pe
+    (B, S, H, dr), the fresh cache entries ckv (B, S, r_kv) and krope (B,
+    S, dr), and ``wkv_b``'s value columns w_v (r_kv, H, dv)."""
+    a = cfg.mla
+    B, S = x.shape[:2]
+    H = cfg.num_heads
+    dn, dr, dv = a.qk_nope_dim, a.qk_rope_dim, a.v_head_dim
+    q_lat = L.rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(B, S, H, dn + dr)
+    cos, sin = L.rope_tables(pos_q, dr, cfg.rope_theta)
+    q_pe = L.apply_rope(q[..., dn:], cos, sin)
+    kv_a = x @ p["wkv_a"]
+    ckv = L.rmsnorm(kv_a[..., :a.kv_lora_rank], p["kv_a_norm"],
+                    cfg.norm_eps).to(x.dtype)
+    krope = L.apply_rope(kv_a[..., a.kv_lora_rank:][:, :, None, :], cos,
+                         sin)[:, :, 0].to(x.dtype)
+    wkv_b = p["wkv_b"].reshape(a.kv_lora_rank, H, dn + dv)
+    q_abs = torch.einsum("bjhd,rhd->bjhr", q[..., :dn], wkv_b[..., :dn])
+    return q_abs, q_pe, ckv, krope, wkv_b[..., dn:]
+
+
+def decode_attn_mla(p: Params, x: torch.Tensor, cache: Params,
+                    cfg: ModelConfig, cur: torch.Tensor,
+                    pages: tuple | None = None):
+    """Absorbed MLA decode: scores and outputs are computed in the c_kv
+    latent space (q_nope through ``wkv_b``'s key columns, the output through
+    its value columns), so no per-head key or value is ever built.  The
+    new token's entry is a self column and comes back as the deferred
+    update.  No kernel: a pool is read through its gathered view, as in
+    the JAX package (never page-major, whatever the backend).  Returns
+    (y (B, 1, d), deferred update {"ckv", "krope", "pos"})."""
+    if pages is not None:
+        cache = paged_view(cache, pages[0])
+    a = cfg.mla
+    B = x.shape[0]
+    H, dv = cfg.num_heads, a.v_head_dim
+    q_abs, q_pe, ckv_new, kr_new, w_v = _mla_inputs(p, x, cfg, cur[:, None])
+    q_abs, q_pe, ckv_new, kr_new = q_abs[:, 0], q_pe[:, 0], ckv_new[:, 0], kr_new[:, 0]
+    ckv, krope = cache["ckv"].to(x.dtype), cache["krope"].to(x.dtype)
+    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+    logits_c = (torch.einsum("bhr,bsr->bhs", q_abs, ckv)
+                + torch.einsum("bhd,bsd->bhs", q_pe, krope)).float() * scale
+    mask = _decode_mask(cache["pos"], cur, None)[:, None, :]
+    logits_c = torch.where(mask, logits_c, torch.full_like(logits_c, NEG_INF))
+    logits_s = ((torch.einsum("bhr,br->bh", q_abs, ckv_new)
+                 + torch.einsum("bhd,bd->bh", q_pe, kr_new)).float() * scale)[..., None]
+    w_c, w_s = _two_part_softmax(logits_c, logits_s)
+    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
+    o_lat = torch.einsum("bhs,bsr->bhr", w_c, ckv) + w_s * ckv_new[:, None, :]
+    o = torch.einsum("bhr,rhd->bhd", o_lat, w_v)
+    y = o.reshape(B, 1, H * dv) @ p["wo"]
+    return y, {"ckv": ckv_new, "krope": kr_new, "pos": cur.to(torch.int64)}
 
 
 def _merge_leaf(cache_leaf: torch.Tensor, upd: torch.Tensor,
@@ -490,6 +570,37 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
              + torch.einsum("bGhjn,bnGr->bjGhr", w_sg, zv_self))
     o_lat = o_lat.reshape(B, S, H, -1)
     return torch.einsum("bjhr,hrd->bjd", o_lat, p["wo_fused"]), updates
+
+
+def verify_attn_mla(p: Params, x: torch.Tensor, cache: Params,
+                    cfg: ModelConfig, cur: torch.Tensor,
+                    feed_mask: torch.Tensor, pages: tuple | None = None):
+    """Absorbed-MLA S-token verify: :func:`decode_attn_mla`'s latent-space
+    scores over the ring plus a causal block over the S fresh entries.
+    Returns (y (B, S, d), deferred entries with (B, S, ...) leaves and
+    "pos" (B, S))."""
+    if pages is not None:
+        cache = paged_view(cache, pages[0])
+    a = cfg.mla
+    B, S = x.shape[:2]
+    H, dv = cfg.num_heads, a.v_head_dim
+    pos_q, ring_m, self_m = _verify_masks(cache["pos"], cur, S, feed_mask, None)
+    q_abs, q_pe, ckv_new, kr_new, w_v = _mla_inputs(p, x, cfg, pos_q)
+    ckv, krope = cache["ckv"].to(x.dtype), cache["krope"].to(x.dtype)
+    scale = (a.qk_nope_dim + a.qk_rope_dim) ** -0.5
+    logits_c = (torch.einsum("bjhr,bsr->bhjs", q_abs, ckv)
+                + torch.einsum("bjhd,bsd->bhjs", q_pe, krope)).float() * scale
+    logits_c = torch.where(ring_m[:, None], logits_c, torch.full_like(logits_c, NEG_INF))
+    logits_s = (torch.einsum("bjhr,bnr->bhjn", q_abs, ckv_new)
+                + torch.einsum("bjhd,bnd->bhjn", q_pe, kr_new)).float() * scale
+    logits_s = torch.where(self_m[:, None], logits_s, torch.full_like(logits_s, NEG_INF))
+    w_c, w_s = _joint_softmax(logits_c, logits_s)
+    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
+    o_lat = (torch.einsum("bhjs,bsr->bjhr", w_c, ckv)
+             + torch.einsum("bhjn,bnr->bjhr", w_s, ckv_new))
+    o = torch.einsum("bjhr,rhd->bjhd", o_lat, w_v)
+    y = o.reshape(B, S, H * dv) @ p["wo"]
+    return y, {"ckv": ckv_new, "krope": kr_new, "pos": pos_q.to(torch.int64)}
 
 
 def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,

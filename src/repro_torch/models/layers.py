@@ -7,7 +7,9 @@ uncompressed baseline: post-RoPE keys and values) and ReCalKV latent (key
 latents reconstructed with the grouped ``R_k`` before RoPE; value latents
 consumed directly through the fused ``W~_o``).  The dense path is the
 latent one's degenerate case (one kv head per value group, values as
-their own latents), so both share :func:`chunked_attention`.
+their own latents), so both share :func:`chunked_attention`, and so does
+DeepSeek's MLA at full sequence (:func:`mla_attention`: one value head per
+query head, its value width other than its key width).
 """
 
 from __future__ import annotations
@@ -180,6 +182,40 @@ def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3): a trained-from-scratch latent KV cache, served as it is
+# ---------------------------------------------------------------------------
+
+def mla_attention(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                  positions: torch.Tensor):
+    """Full-sequence MLA (prefill), the non-absorbed form: per-head keys
+    (dn no-RoPE + dr RoPE columns, the RoPE half shared by all heads) and
+    values (dv) rebuilt from the latent ``c_kv``, attended at scale
+    (dn + dr)^-0.5.  Returns (y, (c_kv, k_pe)) — the latent and the
+    post-RoPE shared key columns the cache holds."""
+    a = cfg.mla
+    B, T, _ = x.shape
+    H = cfg.num_heads
+    dn, dr, dv = a.qk_nope_dim, a.qk_rope_dim, a.v_head_dim
+    q_lat = rmsnorm(x @ p["wq_a"], p["q_a_norm"], cfg.norm_eps)
+    q = (q_lat @ p["wq_b"]).reshape(B, T, H, dn + dr)
+    kv_a = x @ p["wkv_a"]                                  # (B, T, r_kv + dr)
+    c_kv = rmsnorm(kv_a[..., :a.kv_lora_rank], p["kv_a_norm"], cfg.norm_eps)
+    k_rope = kv_a[..., a.kv_lora_rank:].reshape(B, T, 1, dr)
+    kv = (c_kv @ p["wkv_b"]).reshape(B, T, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+    q_pe = apply_rope(q[..., dn:], cos, sin)
+    k_pe = apply_rope(k_rope, cos, sin)                    # (B, T, 1, dr)
+    q_full = torch.cat([q[..., :dn], q_pe], dim=-1)
+    k_full = torch.cat([k_nope, k_pe.expand(B, T, H, dr)], dim=-1)
+    # one value "group" per head: the latent-value core with group_size 1
+    o = chunked_attention(q_full, k_full, v, positions, positions, window=None,
+                          scale=(dn + dr) ** -0.5, chunk=cfg.attn_chunk,
+                          group_size=1)
+    return o.reshape(B, T, H * dv) @ p["wo"], (c_kv, k_pe[:, :, 0])
+
+
+# ---------------------------------------------------------------------------
 # FFN: dense SwiGLU & capacity-routed MoE
 # ---------------------------------------------------------------------------
 
@@ -264,8 +300,11 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return out.reshape(B, T, d)
 
 
-def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """The block's FFN: the routed MoE where the config has one (the
-    port's ``attn`` / ``local`` blocks; the JAX ``attn_dense`` prefix kind
-    is not ported), else the dense SwiGLU."""
-    return moe_ffn(p, x, cfg) if cfg.moe is not None else swiglu(p, x)
+def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
+        dense: bool = False) -> torch.Tensor:
+    """The block's FFN: the routed MoE where the config has one, unless
+    ``dense`` (the ``attn_dense`` blocks: DeepSeek's first-k-dense
+    layers), else the dense SwiGLU."""
+    if cfg.moe is not None and not dense:
+        return moe_ffn(p, x, cfg)
+    return swiglu(p, x)

@@ -1,6 +1,6 @@
 """Transformer stack: prefill / decode / speculative verify (port of the
-serving half of ``repro.models.transformer``), over a dense or a latent
-KV cache.
+serving half of ``repro.models.transformer``), over a dense, a latent or
+an MLA KV cache.
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
@@ -31,25 +31,34 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
+def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+    """The block's FFN on its residual: dense on ``attn_dense`` blocks."""
+    return x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
+                     dense=kind == "attn_dense")
+
+
 def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                ctx: dict, want_cache: bool = True):
-    """One ``attn`` block over a full (B, T, d) sequence.  Returns (x, cache)
-    with the block's freshly written ring cache — dense or latent — or
-    (x, None) without ``want_cache``: the calibration forward, which
-    keeps the einsum path under the kernel backend, as the JAX package
-    does."""
+    """One self-attention block over a full (B, T, d) sequence.  Returns
+    (x, cache) with the block's freshly written ring cache — dense, latent
+    or MLA — or (x, None) without ``want_cache``: the calibration forward,
+    which keeps the einsum path under the kernel backend, as the JAX
+    package does."""
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    attn = (L.self_attention_dense if cfg.recalkv is None
-            else L.self_attention_latent)
-    y, (a, b) = attn(p["attn"], h, cfg, ctx["positions"], window,
-                     theta=_theta(cfg, kind), use_kernel=want_cache)
-    x = x + y
-    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
+    if cfg.mla is not None:
+        y, (ckv, krope) = L.mla_attention(p["attn"], h, cfg, ctx["positions"])
+        values = {"ckv": ckv, "krope": krope}
+    else:
+        attn = (L.self_attention_dense if cfg.recalkv is None
+                else L.self_attention_latent)
+        y, (a, b) = attn(p["attn"], h, cfg, ctx["positions"], window,
+                         theta=_theta(cfg, kind), use_kernel=want_cache)
+        values = ({"k": a, "v": b} if cfg.recalkv is None
+                  else KC.latent_cache_entry(cfg, a, b))
+    x = _ffn(cfg, kind, p, x + y)
     if not want_cache:
         return x, None
-    values = ({"k": a, "v": b} if cfg.recalkv is None
-              else KC.latent_cache_entry(cfg, a, b))
     return x, {"self": _prefill_self_cache(cfg, kind, ctx, values)}
 
 
@@ -71,36 +80,39 @@ def _prefill_self_cache(cfg: ModelConfig, kind: str, ctx: dict,
 
 def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  cache: Params, ctx: dict):
-    """One ``attn`` block for a (B, 1, d) decode step.  Returns
+    """One self-attention block for a (B, 1, d) decode step.  Returns
     (x, deferred updates) — written by ``kv_cache.apply_decode_writes``
     after the layer loop."""
-    window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    reader = (KC.decode_attn_dense if cfg.recalkv is None
-              else KC.decode_attn_latent)
-    y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"], window,
-                   theta=_theta(cfg, kind), pages=ctx.get("pages"))
-    x = x + y
-    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x, {"self": sc}
+    if cfg.mla is not None:
+        y, sc = KC.decode_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                                   pages=ctx.get("pages"))
+    else:
+        reader = (KC.decode_attn_dense if cfg.recalkv is None
+                  else KC.decode_attn_latent)
+        y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                       cfg.window_for(kind), theta=_theta(cfg, kind),
+                       pages=ctx.get("pages"))
+    return _ffn(cfg, kind, p, x + y), {"self": sc}
 
 
 def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  cache: Params, ctx: dict):
-    """One ``attn`` block for a (B, S, d) verify step over S fed tokens at
-    positions cur..cur+S-1.  Returns (x, deferred (B, S, ...) entries) —
-    the caller commits only the accepted prefix
+    """One self-attention block for a (B, S, d) verify step over S fed
+    tokens at positions cur..cur+S-1.  Returns (x, deferred (B, S, ...)
+    entries) — the caller commits only the accepted prefix
     (``kv_cache.apply_verify_writes``)."""
-    window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
-    reader = (KC.verify_attn_dense if cfg.recalkv is None
-              else KC.verify_attn_latent)
-    y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                   ctx["feed_mask"], window, theta=_theta(cfg, kind),
-                   pages=ctx.get("pages"))
-    x = x + y
-    x = x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg)
-    return x, {"self": sc}
+    if cfg.mla is not None:
+        y, sc = KC.verify_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                                   ctx["feed_mask"], pages=ctx.get("pages"))
+    else:
+        reader = (KC.verify_attn_dense if cfg.recalkv is None
+                  else KC.verify_attn_latent)
+        y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
+                       ctx["feed_mask"], cfg.window_for(kind),
+                       theta=_theta(cfg, kind), pages=ctx.get("pages"))
+    return _ffn(cfg, kind, p, x + y), {"self": sc}
 
 
 def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,

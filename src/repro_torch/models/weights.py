@@ -13,9 +13,12 @@ in stack order instead of JAX's prefix / scanned-blocks / suffix split::
                  "mlp": {"wi", "wg", "wo"}}, ...]}
 
 A dense model (``cfg.recalkv is None``) has ``"attn": {"wq", "wk", "wv",
-"wo", ["q_norm", "k_norm"]}`` instead.  An MoE model (``cfg.moe``) has
-``"mlp": {"router": (d, E), "wi", "wg": (E, d, f), "wo": (E, f, d),
-["shared": {"wi", "wg", "wo"}]}``, the JAX package's layout.
+"wo", ["q_norm", "k_norm"]}`` instead, and an MLA model (``cfg.mla``)
+``"attn": {"wq_a", "q_a_norm", "wq_b", "wkv_a", "kv_a_norm", "wkv_b",
+"wo"}``.  An MoE model (``cfg.moe``) has ``"mlp": {"router": (d, E),
+"wi", "wg": (E, d, f), "wo": (E, f, d), ["shared": {"wi", "wg", "wo"}]}``,
+the JAX package's layout, except on ``attn_dense`` layers, whose FFN is
+the dense SwiGLU of width ``d_ff``.
 
 Norm scales and the MoE router stay float32 (as in JAX); matrices take
 the model dtype.
@@ -23,6 +26,7 @@ the model dtype.
 
 from __future__ import annotations
 
+import math
 from typing import Any
 
 import numpy as np
@@ -32,7 +36,8 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
-NORM_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm"})
+NORM_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm",
+                         "q_a_norm", "kv_a_norm"})
 F32_LEAVES = NORM_LEAVES | {"router"}   # kept float32 whatever the model dtype
 
 
@@ -116,10 +121,12 @@ def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
 
 
 def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
-    """The inverse of :func:`params_from_jax`: the JAX package's unrolled
-    tree (``scan_layers=False``: ``{"embed", "final_norm", ["lm_head"],
-    "prefix": (one dict per layer), "blocks": (), "suffix": ()}``) with
-    numpy leaves (see :func:`to_numpy`) — what an artifact stores."""
+    """The inverse of :func:`params_from_jax`: the JAX package's tree for
+    ``cfg``'s layer layout, with numpy leaves (see :func:`to_numpy`).
+    With ``scan_layers=False`` every layer sits in ``"prefix"`` (what an
+    artifact stores); else the prefix layers are unrolled, the scanned
+    periods' leaves stacked in ``"blocks"``, and the remainder in
+    ``"suffix"``."""
     if len(params["layers"]) != cfg.num_layers:
         raise ValueError(f"params hold {len(params['layers'])} layers, "
                          f"config {cfg.name!r} has {cfg.num_layers}")
@@ -128,11 +135,29 @@ def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
         return {k: conv(v) if isinstance(v, dict) else to_numpy(v)
                 for k, v in tree.items()}
 
+    def stack(trees):
+        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+                else np.stack([to_numpy(t[k]) for t in trees]) for k in trees[0]}
+
     out = {k: to_numpy(params[k]) for k in ("embed", "final_norm", "lm_head")
            if k in params}
-    out.update(prefix=tuple(conv(layer) for layer in params["layers"]),
-               blocks=(), suffix=())
+    layers = params["layers"]
+    if not cfg.scan_layers:
+        out.update(prefix=tuple(conv(layer) for layer in layers), blocks=(), suffix=())
+        return out
+    n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
+    body = layers[n_pre:n_pre + period * n_per]
+    out.update(prefix=tuple(conv(layer) for layer in layers[:n_pre]),
+               blocks=tuple(stack(body[i::period]) for i in range(period)) if n_per else (),
+               suffix=tuple(conv(layer) for layer in layers[n_pre + period * n_per:]))
     return out
+
+
+# The largest float32 draw ``init_params`` makes at once: a bigger leaf
+# (deepseek's (256, 7168, 2048) expert leaves would be 15 GB) is drawn in
+# slices along its first axis.  Every leaf of the other registered archs
+# is below it, so their draws are unchanged.
+DRAW_BYTES = 4 << 30
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -149,48 +174,66 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
     rt = cfg.recalkv
 
     def normal(shape, scale, dtype=dt):
-        x = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return x.mul_(scale).to(dtype)
+        def draw(sh):
+            x = torch.randn(sh, generator=generator, device=dev, dtype=torch.float32)
+            return x.mul_(scale).to(dtype)
+
+        if 4 * math.prod(shape) <= DRAW_BYTES:
+            return draw(shape)
+        out = torch.empty(shape, device=dev, dtype=dtype)
+        step = max(1, DRAW_BYTES // (4 * math.prod(shape[1:])))
+        for i in range(0, shape[0], step):
+            out[i:i + step] = draw(out[i:i + step].shape)
+        return out
 
     def zeros(n):
         return torch.zeros(n, device=dev, dtype=torch.float32)
+
+    def swiglu(f):
+        return {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
+                "wo": normal((f, d), f ** -0.5)}
 
     params: Params = {"embed": normal((V, d), 0.02), "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, V), d ** -0.5)
     layers = []
-    for i in range(cfg.num_layers):
-        attn = {"wq": normal((d, H * dh), d ** -0.5)}
-        if rt is None:
-            attn.update(wk=normal((d, Hkv * dh), d ** -0.5),
-                        wv=normal((d, Hkv * dh), d ** -0.5),
-                        wo=normal((H * dh, d), (H * dh) ** -0.5))
+    for i, kind in enumerate(cfg.expanded_layers()):
+        if cfg.mla is not None:
+            a = cfg.mla
+            qk, kv = a.qk_nope_dim + a.qk_rope_dim, a.qk_nope_dim + a.v_head_dim
+            attn = {"wq_a": normal((d, a.q_lora_rank), d ** -0.5),
+                    "q_a_norm": zeros(a.q_lora_rank),
+                    "wq_b": normal((a.q_lora_rank, H * qk), a.q_lora_rank ** -0.5),
+                    "wkv_a": normal((d, a.kv_lora_rank + a.qk_rope_dim), d ** -0.5),
+                    "kv_a_norm": zeros(a.kv_lora_rank),
+                    "wkv_b": normal((a.kv_lora_rank, H * kv), a.kv_lora_rank ** -0.5),
+                    "wo": normal((H * a.v_head_dim, d), (H * a.v_head_dim) ** -0.5)}
         else:
-            s = rt.slots(Hkv)
-            G = Hkv // s
-            rk, rv = rt.ranks_for(i)
-            attn.update(l_k=normal((G, d, rk), d ** -0.5),
-                        r_k=normal((G, rk, s * dh), rk ** -0.5),
-                        l_v=normal((G, d, rv), d ** -0.5),
-                        wo_fused=normal((H, rv, d), (H * rv) ** -0.5))
-        if cfg.qk_norm:
-            attn["q_norm"] = zeros(dh)
-            attn["k_norm"] = zeros(dh)
-        if cfg.moe is None:
-            f = cfg.d_ff
-            mlp = {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
-                   "wo": normal((f, d), f ** -0.5)}
+            attn = {"wq": normal((d, H * dh), d ** -0.5)}
+            if rt is None:
+                attn.update(wk=normal((d, Hkv * dh), d ** -0.5),
+                            wv=normal((d, Hkv * dh), d ** -0.5),
+                            wo=normal((H * dh, d), (H * dh) ** -0.5))
+            else:
+                s = rt.slots(Hkv)
+                G = Hkv // s
+                rk, rv = rt.ranks_for(i)
+                attn.update(l_k=normal((G, d, rk), d ** -0.5),
+                            r_k=normal((G, rk, s * dh), rk ** -0.5),
+                            l_v=normal((G, d, rv), d ** -0.5),
+                            wo_fused=normal((H, rv, d), (H * rv) ** -0.5))
+            if cfg.qk_norm:
+                attn["q_norm"] = zeros(dh)
+                attn["k_norm"] = zeros(dh)
+        if cfg.moe is None or kind == "attn_dense":
+            mlp = swiglu(cfg.d_ff)
         else:   # one leaf at a time: an expert leaf of qwen3-moe is 1.6 GB
             E, f = cfg.moe.num_experts, cfg.moe.d_expert
             mlp = {"router": normal((d, E), d ** -0.5, torch.float32),
                    "wi": normal((E, d, f), d ** -0.5), "wg": normal((E, d, f), d ** -0.5),
                    "wo": normal((E, f, d), f ** -0.5)}
             if cfg.moe.num_shared:
-                fs = f * cfg.moe.num_shared
-                mlp["shared"] = {"wi": normal((d, fs), d ** -0.5),
-                                 "wg": normal((d, fs), d ** -0.5),
-                                 "wo": normal((fs, d), fs ** -0.5)}
+                mlp["shared"] = swiglu(f * cfg.moe.num_shared)
         layers.append({"ln1": zeros(d), "attn": attn, "ln2": zeros(d),
                        "mlp": mlp})
     params["layers"] = layers

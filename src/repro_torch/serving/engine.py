@@ -90,10 +90,14 @@ buffer that every later window reads, so each install happens once at any
 ``pipeline_depth``, inside the captured graphs too.  ``staging_depth``
 bounds the prefilled look-ahead (default ``2 * max_slots``).
 
+An MLA model (DeepSeek) caches ``{"ckv", "krope", "pos"}`` and runs
+every path above; its absorbed readers take no kernel, so under
+``backend="kernel"`` construction warns once (``RuntimeWarning``) and
+``metrics()["verify_backend"]`` reads "einsum", as in the JAX package.
+
 Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5); models with
-MLA, Mamba or RG-LRU blocks, cross-attention, an encoder-decoder or the
-``attn_dense`` prefix (Queue 1 item 4), which ``check_supported`` refuses
-at construction.
+Mamba or RG-LRU blocks, cross-attention or an encoder-decoder (Queue 1
+item 4), which ``check_supported`` refuses at construction.
 """
 
 from __future__ import annotations
@@ -318,6 +322,21 @@ class Engine:
             pages=None if self._pages is None else (n_pages, page_size))
         self.spec_depth = spec_depth
         self.draft = (parsed_draft or DraftSpec("ngram")) if spec_depth else None
+        # A requested kernel backend that still routes layer kinds through
+        # einsum (absorbed-MLA attention has no kernel) warns once, so that
+        # backend="kernel" is never silently a no-op; metrics() reports
+        # what the verify steps run.
+        if cfg.attn_backend == "kernel":
+            fallback = KC.kernel_fallback_kinds(cfg)
+            if fallback:
+                warnings.warn(
+                    f"backend='kernel': layer kinds {fallback} have no "
+                    f"CUDA decode kernel and fall back to einsum",
+                    RuntimeWarning, stacklevel=2)
+        self._verify_backend = (
+            None if spec_depth == 0
+            else "kernel" if cfg.attn_backend == "kernel" and cfg.mla is None
+            else "einsum")
         # Layer draft: a view over the target's first K layers (no new
         # weights) with its own, much smaller, ring cache.
         self.draft_cfg = self.draft_params = self.draft_cache = None
@@ -2156,6 +2175,7 @@ class Engine:
             "preemptions": self.preemptions,
             "prefill_calls_saved": self.prefill_calls_saved,
             "backend": self.cfg.attn_backend,
+            "verify_backend": self._verify_backend,
             "spec_depth": self.spec_depth,
             "draft": None if self.draft is None else str(self.draft),
             "draft_proposed": draft_proposed,

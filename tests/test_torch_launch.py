@@ -5,7 +5,8 @@
 (``np.random.default_rng(1)``); its streams must equal those of the port's
 ``Engine`` built directly with the same flags and fed the same prompts,
 ``--continuous`` must return the streams of ``--no-overlap``, and the
-flags the port does not serve yet raise, naming their ROADMAP item.
+flags the port does not serve yet raise, naming their ROADMAP item
+(``--recalkv`` on deepseek raises the JAX CLI's ValueError).
 """
 
 import dataclasses
@@ -71,26 +72,31 @@ def test_cli_refusals():
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         serve.main(BASE + ["--mesh", "2,4"])
     with pytest.raises(KeyError, match="Queue 1 item 4"):
-        serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu"])
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="ReCalKV inapplicable to deepseek-v3-671b"):
+        serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
+                    "--recalkv", "0.5"])
     assert len(serve.main(BASE + ["--mesh", "1,1", "--requests", "1"])) == 1
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minicpm-2b", "h2o-danube-1.8b",
-                                  "qwen3-moe-235b-a22b"])
+                                  "qwen3-moe-235b-a22b", "deepseek-v3-671b"])
 def test_cli_serves_the_families_on_cpu(arch):
     """The families registered beside qwen3-4b serve through the CLI on the
     CPU (smoke sizes, window 16 for the local families; qwen3-moe's MoE
-    FFN), dense and at
-    ``--recalkv 0.5``, overlapped with continuous batching; every request
+    FFN; deepseek's MLA, its ``attn_dense`` prefix and shared expert),
+    dense and at ``--recalkv 0.5`` (deepseek dense only: ReCalKV does not
+    apply to MLA), overlapped with continuous batching; every request
     finishes with its budget and the streams equal ``--no-overlap``'s.
     Under MoE a call's rows share the experts' capacity, so both engines
     must prefill the same rows together: four slots and inline admission
     make one wave of all four requests in each."""
-    moe = arch == "qwen3-moe-235b-a22b"
+    moe = arch in ("qwen3-moe-235b-a22b", "deepseek-v3-671b")
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
             "--slots", "4" if moe else "2", "--max-len", "48", "--new-tokens", "4"]
     continuous = ["--continuous"] + (["--no-admission-thread"] if moe else [])
-    for extra in ([], ["--recalkv", "0.5"]):
+    ratios = [[]] if arch == "deepseek-v3-671b" else [[], ["--recalkv", "0.5"]]
+    for extra in ratios:
         got = _streams(serve.main(args + extra + continuous))
         assert len(got) == 4 and all(len(v) == 4 for v in got.values())
         assert got == _streams(serve.main(args + extra + ["--no-overlap"]))

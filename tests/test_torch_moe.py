@@ -47,7 +47,8 @@ import repro_torch.api as A
 from repro_torch import configs as PC
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
-from repro_torch.models.config import MLAConfig, ModelConfig, MoEConfig, check_supported
+from repro_torch.models.config import (MambaConfig, MLAConfig, ModelConfig, MoEConfig,
+                                      check_supported)
 from repro_torch.models.weights import params_from_jax, params_to_jax
 from repro_torch.serving import Engine, Request
 
@@ -90,9 +91,9 @@ def _model(kind, backend="einsum", heads=None):
 def test_registry_and_check_supported():
     """FULL and SMOKE, dense and at ratio 0.5 (G 1 group of s 4, r 256 at
     full width), equal JAX's config dicts, MoEConfig included; the CPU and
-    a CUDA device with the kernel backend take them (q_per_kv 16); MLA
-    stays refused (Queue 1 item 4).  No card is needed: the check reads
-    the config."""
+    a CUDA device with the kernel backend take them (q_per_kv 16); an MLA
+    config passes too (ported), while Mamba stays refused by name (Queue
+    1 item 4).  No card is needed: the check reads the config."""
     assert ARCH in PC.ARCHS
     for smoke in (False, True):
         for ratio in RATIOS.values():
@@ -108,8 +109,9 @@ def test_registry_and_check_supported():
                                  capacity_factor=1.25, router_zloss=1e-3)
     assert (full.recalkv.num_groups(4), full.recalkv.rank_k) == (1, 256)
     assert full.num_heads // full.num_kv_heads == 16
-    with pytest.raises(NotImplementedError, match=r"mla.*Queue 1 item 4"):
-        check_supported(dataclasses.replace(full, mla=MLAConfig()))
+    check_supported(dataclasses.replace(full, mla=MLAConfig()))
+    with pytest.raises(NotImplementedError, match=r"mamba.*Queue 1 item 4"):
+        check_supported(dataclasses.replace(full, mamba=MambaConfig()))
 
 
 MOE_CASES = {
