@@ -32,8 +32,9 @@ Phases, in order (any failure exits non-zero; none is caught):
    widths 128, 152, 384, 512 and 1024 in float32 and bf16; then the dense
    cores at qwen3-4b's heads (Hkv = 8, q_per_kv 4, dh 128): K1's and K4's
    dense cores, the dense decode kernel (``csrc/dense_decode.cu``), and
-   K5's and K7's (nq = 4, and nq = 16: 64 query rows a kv head in four
-   row blocks), the dense verify kernel
+   K5's and K7's (nq = 4: 16 query rows a kv head, one m16 tile; nq = 16:
+   64 rows, one row group on ``wgmma``; and on the ring nq = 9: 36 rows,
+   one partial group), the dense verify kernel
    (``csrc/dense_verify.cu``), each on the ring and on the ragged pool,
    the pool equal to the ring kernel on the gathered view bit for bit (and
    in bf16 to itself on an in-order page placement), each timed beside the
@@ -41,7 +42,11 @@ Phases, in order (any failure exits non-zero; none is caught):
    rotation tables, G = Hkv = 8 groups of one kv head, r = dh = 128) in
    the same call; all in f32 and bf16, each timed beside its bound and one
    ``scaled_dot_product_attention`` call (GQA, additive mask) on the same
-   ring plus the self columns, with the SDPA backend PyTorch picks; and
+   ring plus the self columns, with the SDPA backend PyTorch picks; the
+   dense decode at 8 rows a kv head on both of its bodies (the CUDA-core
+   body of ``dense_decode.cu`` and the m16 tensor-core body of
+   ``dense_verify.cu``, which the wrapper runs from 8 rows), each against
+   its plain version and timed (``decode_bodies`` in the JSON line); and
    the float32 template at the widths its row-block plans open (K1 and K5
    at group_size 8, ranks 768 / 1024, nq 1 / 4); then the families'
    widths: every body on gemma3-12b's path at dh 256 (K1, K3, K5, K6 at
@@ -56,7 +61,9 @@ Phases, in order (any failure exits non-zero; none is caught):
    decode and verify kernels at Hkv 8, q_per_kv 4) and qwen3-moe-235b-a22b's
    q_per_kv 16 in every body (K1, K3, K5, K6, K4, K7 at G 1, Hg 64, r 256;
    K2 at H 64 over Hkv 4, Hv 1, dv 256, and dense, dv 128; the dense decode
-   and verify kernels, ring and pool, at Hkv 4, nq 4: 64 rows a kv head),
+   at 16 rows on the verify kernel's m16 body and the verify, ring and pool,
+   at Hkv 4, nq 4: 64 rows a kv head, and on the ring nq 16: 256 rows,
+   four row groups),
    rows tagged "(dh 80)" / "(q_per_kv 16)".  Every kernel time is
    device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
@@ -114,8 +121,8 @@ Phases, in order (any failure exits non-zero; none is caught):
    route, must count 0 launches over the steps, H and I;
    I, the paged pool with spec_depth 3, "ngram" and reach-packing on C's
    prompts (the dense verify kernel's pool);
-   I9, I at spec_depth 8 (9 verify queries: 36 query rows a kv head, three
-   row blocks of the dense verify kernel);
+   I9, I at spec_depth 8 (9 verify queries: 36 query rows a kv head, one
+   row group of the dense verify kernel);
    H+ and I+: H and I overlapped with CUDA graphs, as A+;
    T, continuous batching on the dense pool with ``spec_depth=3``,
    "ngram": 16 motif prompts of 320-512 tokens, served three ways as S;
@@ -176,7 +183,8 @@ Phases, in order (any failure exits non-zero; none is caught):
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
-   own wrappers, the dense verify kernel's twice, at nq 4 and nq 16; the
+   own wrappers, the dense verify kernel's at nq 4, 9 and 16 (and qwen3-moe's
+   at nq 4 and 16); the
    row copy ``stage_install_rows`` with its idle time too), the card line, and
    the final ``{"ok": true, "device": {...}}`` line.
 
@@ -545,10 +553,50 @@ def phase_dense(torch, gen, paged, nq, arch="qwen3-4b"):
     if paged:
         entry["view_max_abs_diff"] = view_diff
     entry.update(DENSE_CORES[fn])
-    if nq > 4:   # a second row of the same wrapper: past 8 queries, more row blocks
+    if one and Hg >= KD._TC_DECODE_ROWS:   # the decode's rows on the verify's m16 body
+        entry["source"] = "src/repro_torch/csrc/dense_verify.cu"
+    if nq > 4:   # another row of the same wrapper, at more rows a kv head
         entry["launch_key"] = entry["name"]
         entry["name"] = f"{entry['name']} (nq {nq})"
     return family_row(entry, arch)
+
+
+def phase_decode_bodies(torch, gen):
+    """The dense decode at 8 query rows a kv head (qwen3-4b's heads at
+    q_per_kv 8: B 8, a 4,096-token ring plus the self column, Hkv 8, dh
+    128) on both bodies: ``csrc/dense_decode.cu``'s CUDA-core body, which
+    the wrapper runs up to 7 rows, and ``csrc/dense_verify.cu``'s m16
+    tensor-core body, which it runs from 8; each held to the plain version
+    in f32 and bf16 and timed in this call beside the bound.  No served
+    model has 8 rows a kv head, so these are not the main path's launches:
+    the times say where the threshold belongs."""
+    from repro_torch.kernels import dense_decode as KD
+    B, S, Hkv, qpk, dh = 8, 4096, 8, 8, 128
+    rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
+    ops_ = dict(q=rn(B, Hkv, qpk, dh), k=rn(B, S, Hkv, dh), v=rn(B, S, Hkv, dh),
+                sk=rn(B, Hkv, dh), sv=rn(B, Hkv, dh))
+    bias = torch.zeros(B, S, device="cuda")
+    out = {}
+    for body in ("cuda_core", "tensor_core"):
+        err = {}
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v, sk, sv = (ops_[n].to(dt) for n in ("q", "k", "v", "sk", "sv"))
+            got = KD.launch(q, k, v, bias, dh ** -0.5, sk, sv, body=body)
+            torch.cuda.synchronize()
+            want = KD.dense_decode_attention_plain(q, k, v, bias, scale=dh ** -0.5,
+                                                   self_k=sk, self_v=sv)
+            err[dt] = compare(f"dense decode, {body} body, q_per_kv 8", got, want, dt)
+        ms = cuda_ms(lambda: KD.launch(q, k, v, bias, dh ** -0.5, sk, sv, body=body),
+                     iters=50)
+        out[body] = {"ms": ms, "max_abs_err": err[torch.bfloat16],
+                     "max_err_f32": err[torch.float32]}
+    b_ms, by = bound(nbytes(q, k, v, bias, sk, sv, got), dense_flops(B, S + 1, Hkv, qpk, dh, 1))
+    out.update(bound_ms=b_ms, bound_by=by,
+               shape=f"B={B} S={S}+1 Hkv={Hkv} q_per_kv={qpk} dh={dh} bf16")
+    log(f"dense decode at 8 rows a kv head ({out['shape']}): CUDA-core body "
+        f"{out['cuda_core']['ms']:.4f} ms, tensor-core body {out['tensor_core']['ms']:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({by})")
+    return out
 
 
 def phase_f32_widths(torch, gen):
@@ -1182,8 +1230,8 @@ ENGINE_RUNS = {
               must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
               paged=dict(cache_layout="paged", page_size=PAGE,
                          policy="reach-packing")),
-    # I at spec_depth 8: 9 verify queries, past one 16-row block of the
-    # dense verify kernel at q_per_kv 4 (36 rows, 3 blocks)
+    # I at spec_depth 8: 9 verify queries, past the dense verify kernel's
+    # one m16 tile at q_per_kv 4 (36 rows: one partial 64-row group)
     "I9": dict(bits=None, depth=8, draft="ngram", chunk=None, sync=8,
                must=("flash_prefill_attention", "dense_decode_attention_mq_paged"),
                paged=dict(cache_layout="paged", page_size=PAGE,
@@ -1985,6 +2033,8 @@ def main() -> int:
     t_dense = time.perf_counter()
     entries += [phase_dense(torch, gen, paged, nq) for nq in (1, 4, 16)
                 for paged in (False, True)]
+    entries.append(phase_dense(torch, gen, False, 9))   # 36 rows: one partial row group
+    decode_bodies = phase_decode_bodies(torch, gen)
     f32_widths = phase_f32_widths(torch, gen)
     torch.cuda.empty_cache()
     log(f"dense cores and f32 widths took {time.perf_counter() - t_dense:.1f} s")
@@ -2012,6 +2062,7 @@ def main() -> int:
     entries += [phase_k2(torch, gen, qm), phase_k2(torch, gen, qm, dense=True)]
     entries += [phase_dense(torch, gen, paged, nq, qm) for nq in (1, 4)
                 for paged in (False, True)]
+    entries.append(phase_dense(torch, gen, False, 16, qm))   # 256 rows: four row groups
     torch.cuda.empty_cache()
     log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
 
@@ -2100,9 +2151,9 @@ def main() -> int:
     if never:
         raise AssertionError(f"kernels never launched on the main path: {never}")
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
-                    "f32_widths": f32_widths, "compression": compression,
-                    "family_compression": family_compression, "deepseek": deepseek,
-                    "cli": cli}))
+                    "decode_bodies": decode_bodies, "f32_widths": f32_widths,
+                    "compression": compression, "family_compression": family_compression,
+                    "deepseek": deepseek, "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

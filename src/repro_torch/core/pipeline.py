@@ -11,7 +11,7 @@ path serves.  Per layer (paper Algorithm 1):
            calibration -> block fusion of R_v into W_o -> (L_v, W~_o)
   Ranks  : uniform per layer.  Fisher-guided allocation needs the training
            slice (gradients of the LM loss) and raises NotImplementedError
-           (ROADMAP.md, Queue 1 item 8).
+           (ROADMAP.md, Queue 1 item 6).
 
 Calibration statistics are second moments (cov = X^T X and the token
 mean), O(d_model^2) per layer; no activations are kept.  Every product
@@ -39,7 +39,7 @@ from repro_torch.device import full_float32
 
 FISHER_NOT_PORTED = ("Fisher-guided rank allocation needs gradients of the LM "
                      "loss, which the port gains with the training slice "
-                     "(ROADMAP.md, Queue 1 item 8); use uniform ranks "
+                     "(ROADMAP.md, Queue 1 item 6); use uniform ranks "
                      "(use_fisher=False)")
 
 

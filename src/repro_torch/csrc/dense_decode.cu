@@ -1,6 +1,9 @@
-// The dense cores of K1 and K4 in bf16 and f32: flash decode over the dense
-// KV cache (keys stored after RoPE), for Hopper (sm_90a), CUDA C++.  One
-// templated body, two entry points:
+// The dense cores of K1 and K4 at 1-7 query rows a kv head, in bf16 and
+// f32: flash decode over the dense KV cache (keys stored after RoPE), for
+// Hopper (sm_90a), CUDA C++ (8-16 rows run dense_verify.cu's m16 tensor-core
+// body through its decode entry points; this body still takes 8, to be
+// timed against it).  One templated body, two entry
+// points:
 //
 //   recalkv_dense_decode        the ring: replaces the Pallas K1
 //                               (src/repro/kernels/latent_decode.py::
@@ -31,7 +34,11 @@
 // ~8.6 GFLOP on an identity key rebuild (bf16 hi + lo mma.sync), streamed
 // R_k through a two-stage ring, read ring-sized rotation tables, filled 4 of
 // 16 rows of each m16 tile and ran one 200 KB block per SM, with too few
-// bytes in flight for a streaming shape.
+// bytes in flight for a streaming shape.  The products grow with the rows
+// while the bytes do not: at 16 rows a kv head (qwen3-moe's heads, 67 MB)
+// they are 1.1 GFLOP, ~0.016 ms at the CUDA cores' f32 peak beside a
+// 0.020 ms bytes bound, and the lane-group sums take 128 KB of shared
+// memory, so past 7 rows the tensor cores take them (dense_verify.cu).
 //
 // Design:
 //  * Split-K over the ring ("flash-decoding"): grid (n_chunks, Hkv, B), a
@@ -72,10 +79,17 @@
 //    memory.
 //  * dh 80 (h2o-danube-1.8b): 10 lanes of 8 values; the lane group takes
 //    16 lanes (two columns a tile, as at dh 128), the last 6 holding zeros,
-//    so the reduce-scatter keeps its power-of-two levels.  16 query rows
-//    (qwen3-moe-235b-a22b's q_per_kv): the rows' q values are 128 registers
-//    a lane, so those instantiations run one block an SM, and the lane-group
-//    sums take 128 KB of shared memory.
+//    so the reduce-scatter keeps its power-of-two levels.
+//  * At most 8 rows.  16 rows (qwen3-moe-235b-a22b's q_per_kv) held 128
+//    registers of q a lane here, one block an SM and 128 KB of lane-group
+//    sums: 8.9x the bytes bound, slower than the identity route it had
+//    replaced.  Those rows fill one m16 tile of dense_verify.cu's body,
+//    which now serves 8-16 rows.
+//
+// Measured on an H100 80GB HBM3 at 700 W (chip_smoke.py, PERF.md §6): 1.5x
+// the bytes bound at 4 rows (0.060 ms, 1.06x SDPA); at 8 rows this body
+// took 0.127 ms where dense_verify.cu's tensor-core body took 0.067, so
+// the wrapper runs 8 rows there.
 //  * The ring and the pool are one instantiation but for the row map, with
 //    the same chunks, tiles and order: the pool equals the ring on the
 //    table-gathered view bit for bit.
@@ -217,11 +231,10 @@ __host__ __device__ constexpr size_t smem_bytes(int chunk_len) {
 }
 
 // Blocks an SM the register budget is sized for: 3 (<= 85 registers) up to
-// 4 query rows, 2 up to 8, 1 at 16 (the rows' q values alone are 128
-// registers); at dh 256 (a lane group of 32: 4 columns a tile) one fewer,
-// but at least one.
+// 4 query rows, 2 up to 8; at dh 256 (a lane group of 32: 4 columns a tile)
+// one fewer.
 __host__ __device__ constexpr int min_blocks(int dh, int nq) {
-  return nq > 8 ? 1 : (nq <= 4 ? 3 : 2) - (dh == 256 ? 1 : 0);
+  return (nq <= 4 ? 3 : 2) - (dh == 256 ? 1 : 0);
 }
 
 template <typename T, int DH, int NQ, bool PAGED>
@@ -486,14 +499,13 @@ cudaError_t launch_nq(const Args& a, cudaStream_t stream) {
   return dense::launch_merge<T>(p, DH, stream);
 }
 
-// The query rows pad to 1, 2, 4, 8 or 16 (padded rows are zero and not written).
+// The query rows pad to 1, 2, 4 or 8 (padded rows are zero and not written).
 template <typename T, int DH, bool PAGED>
 cudaError_t launch(const Args& a, cudaStream_t stream) {
   if (a.qpk == 1) return launch_nq<T, DH, 1, PAGED>(a, stream);
   if (a.qpk == 2) return launch_nq<T, DH, 2, PAGED>(a, stream);
   if (a.qpk <= 4) return launch_nq<T, DH, 4, PAGED>(a, stream);
-  if (a.qpk <= 8) return launch_nq<T, DH, 8, PAGED>(a, stream);
-  return launch_nq<T, DH, 16, PAGED>(a, stream);
+  return launch_nq<T, DH, 8, PAGED>(a, stream);
 }
 
 template <typename T, bool PAGED>
@@ -511,7 +523,7 @@ extern "C" {
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
 // (0); bias f32.  Null k_self / v_self mean no self column.  Limits: dh 64,
-// 80, 128 or 256, 1 <= qpk <= 16, chunk_len a multiple of 32 up to 512 and n_chunks =
+// 80, 128 or 256, 1 <= qpk <= 8, chunk_len a multiple of 32 up to 512 and n_chunks =
 // ceil((S + n_self) / chunk_len) >= 1; the pool takes a page table (B, S /
 // page_size) int32 with page_size dividing S, the ring none.
 #define RECALKV_DENSE_ENTRY(NAME, PAGED)                                                 \
@@ -525,7 +537,7 @@ extern "C" {
            Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages, scale};             \
     if ((is_bf16 != 0 && is_bf16 != 1) ||                                               \
         (dh != 64 && dh != 80 && dh != 128 && dh != 256) || qpk < 1 ||                   \
-        qpk > 16 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||              \
+        qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||               \
         (k_self == nullptr) != (v_self == nullptr) || chunk_len < TC ||                  \
         chunk_len > CH_MAX || chunk_len % TC != 0 || n_chunks < 1 ||                     \
         n_chunks != (S + n_self + chunk_len - 1) / chunk_len ||                          \

@@ -17,9 +17,12 @@
 bf16 K1 and K3-K7 run the tensor-core body of ``csrc/latent_decode_tc.cu``;
 their float32 calls run the CUDA-core template of ``csrc/latent_decode.cu``;
 K2 is ``csrc/flash_prefill.cu`` (bf16 on ``wgmma``, float32 on CUDA
-cores); the dense decode cores are ``csrc/dense_decode.cu`` (one CUDA-core
-body for bf16 and float32), the dense verify cores ``csrc/dense_verify.cu``
-(bf16 on ``mma.sync``, float32 on CUDA cores); the install's row copy
+cores); the dense decode cores are ``csrc/dense_decode.cu`` up to 8 query
+rows a kv head (one CUDA-core body for bf16 and float32; 1-7 served) and
+``csrc/dense_verify.cu``'s one-tile body at 8-16, the dense verify cores
+``csrc/dense_verify.cu`` (bf16 on ``mma.sync`` up to 16 rows and on
+``wgmma`` in 64-row groups past them, float32 on CUDA cores); the
+install's row copy
 ``csrc/stage_install.cu``.  Each module holds the CUDA
 wrappers, their plain PyTorch versions and a launch counter per wrapper;
 ``ops`` adapts model tensors to them and ``build`` compiles the sources in

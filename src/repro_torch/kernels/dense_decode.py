@@ -8,18 +8,23 @@ JAX package's dense ring core calls it (``repro.kernels.ops.
 _dense_ring_core``: an identity R_k and identity rotation tables), and
 ``dense_decode_attention_paged`` the Pallas K4
 (``latent_decode_attention_paged``) as ``_dense_paged_core`` calls it.
-Both run ``csrc/dense_decode.cu`` for bf16 and float32 tensors alike: one
-CUDA-core body with f32 accumulators whose float32 instantiation is the
-parity one and whose bf16 one serves.
+Up to 7 query rows a kv head both run ``csrc/dense_decode.cu`` for bf16
+and float32 tensors alike: one CUDA-core body with f32 accumulators whose
+float32 instantiation is the parity one and whose bf16 one serves.  8-16
+rows (``_TC_DECODE_ROWS``) fill one m16 tile of ``csrc/dense_verify.cu``'s
+tensor-core body, which they run through its decode entry points (one bias
+row for every query row, an optional self column at bias 0; its float32
+instantiation runs the same plan on CUDA cores).
 
 ``dense_decode_attention_mq`` replaces the Pallas K5
 (``latent_decode_attention_mq``) as ``_dense_ring_core_mq`` calls it, and
 ``dense_decode_attention_mq_paged`` the Pallas K7
 (``latent_decode_attention_mq_paged``) as ``_dense_paged_core_mq`` does:
-``csrc/dense_verify.cu``, whose bf16 body puts the nq * qpk query rows of
-a kv head on ``mma.sync`` tensor cores (P as a bf16 hi + lo pair) and
-whose float32 instantiation, the parity one, runs the same plan on CUDA
-cores.
+``csrc/dense_verify.cu``, whose bf16 bodies put the nq * qpk query rows
+of a kv head on tensor cores (P as a bf16 hi + lo pair): up to 16 rows in
+one ``mma.sync`` m16 tile a block, more in row groups of 64 on ``wgmma``
+whose K / V tiles each block loads once.  The float32 instantiations, the
+parity ones, run the same plans on CUDA cores.
 
 Each source's header says what bounds it on an H100 and how the design
 answers it.  The ring and the pool run the same chunks in the same order,
@@ -49,14 +54,15 @@ Shapes:
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.latent_decode import NEG_INF, _on_device, gather_pages
 
-_TILE = 32           # ring columns of the kernel's tile (its chunks are multiples)
-_CHUNK_MAX = 512     # ring columns of a block, at most
+_TILE = 32           # ring columns of the kernels' tile (their chunks are multiples)
+_CHUNK_MAX = 512     # ring columns of a dense_decode.cu block, at most
 
 
 def dense_decode_attention_plain(q, k, v, bias, *, scale, self_k=None,
@@ -116,53 +122,132 @@ _ARGTYPES = {"dense_decode": [_INT, _INT] + [_PTR] * 11 + [_INT] * 8 + [ctypes.c
              "dense_verify": [_INT, _INT] + [_PTR] * 11 + [_INT] * 9 + [ctypes.c_float, _PTR]}
 _ENTRIES = ("recalkv_dense_decode", "recalkv_dense_decode_paged")
 _MQ_ENTRIES = ("recalkv_dense_decode_mq", "recalkv_dense_decode_mq_paged")
-_MQ_ROWS = 16          # query rows of a verify block (one m16 tile)
-_MQ_PER_SM = 2         # verify blocks per SM the chunk plan aims at
-_MQ_CHUNK_MAX8 = 448   # columns of a verify block past 4 queries (two bf16 blocks an SM)
+_TC_ENTRIES = ("recalkv_dense_decode_tc", "recalkv_dense_decode_tc_paged")
+_MQ_ROWS = 16          # query rows of a one-tile verify block (one m16 tile)
+_MQ_GROUP = 64         # query rows of a row-group block (one warpgroup), past 16
+_MQ_CHUNK_MAX = 1024   # columns of a verify block, at most
+_MQ_CHUNK_MAX8 = 448   # columns of a one-tile verify block past 4 queries
+_MQ_PER_SM = 2         # verify blocks an SM holds, where the card is not asked
+_MQ_FIXED = 2          # a block's fixed cost (prologue, first loads), in tile steps
+_TC_DECODE_ROWS = 8    # q_per_kv from which the decode runs the tensor-core body
 _SMEM_LIMIT = 232448   # bytes of shared memory a Hopper block may use
 
 
 def _lib(name):
     lib = build.load(name)
-    entries = _ENTRIES if name == "dense_decode" else _MQ_ENTRIES
-    if not getattr(lib, entries[0]).argtypes:
-        for entry in entries:
+    entries = {e: name for e in (_ENTRIES if name == "dense_decode" else _MQ_ENTRIES)}
+    if name == "dense_verify":   # its decode entries take dense_decode.cu's arguments
+        entries.update({e: "dense_decode" for e in _TC_ENTRIES})
+    if not getattr(lib, next(iter(entries))).argtypes:
+        for entry, args in entries.items():
             fn = getattr(lib, entry)
-            fn.argtypes = _ARGTYPES[name]
+            fn.argtypes = _ARGTYPES[args]
             fn.restype = ctypes.c_int
         if name == "dense_verify":
-            lib.recalkv_dense_decode_mq_smem.argtypes = [_INT] * 5
-            lib.recalkv_dense_decode_mq_smem.restype = ctypes.c_int
+            for fn in (lib.recalkv_dense_decode_mq_smem,
+                       lib.recalkv_dense_decode_mq_blocks_per_sm):
+                fn.argtypes = [_INT] * 5
+                fn.restype = ctypes.c_int
     return lib
 
 
-def chunk_plan(B: int, heads: int, s_ext: int, sms: int, per_sm: int = 8,
-               cap: int = _CHUNK_MAX) -> tuple[int, int]:
-    """(chunk_len, n_chunks): about ``per_sm`` blocks per SM over ``heads``
-    blocks per chunk (B * Hkv, times the row blocks of the verify kernel),
-    in whole 32-column tiles, at most ``cap`` columns a block.  The ring
-    and the pool take the same plan for the same S, so they sum in the same
-    order."""
+def chunk_plan(B: int, Hkv: int, s_ext: int, sms: int) -> tuple[int, int]:
+    """(chunk_len, n_chunks) of ``csrc/dense_decode.cu``: about 8 blocks
+    per SM over B * Hkv blocks per chunk, in whole 32-column tiles, at most
+    512 columns a block.  The ring and the pool take the same plan for the
+    same S, so they sum in the same order."""
     n_tiles = -(-s_ext // _TILE)
-    want = max(1, min(n_tiles, -(-per_sm * sms // (B * heads))))
-    chunk_len = min(cap, -(-n_tiles // want) * _TILE)
+    want = max(1, min(n_tiles, -(-8 * sms // (B * Hkv))))
+    chunk_len = min(_CHUNK_MAX, -(-n_tiles // want) * _TILE)
     return chunk_len, -(-s_ext // chunk_len)
 
 
+def row_blocks(rows: int) -> tuple[int, int]:
+    """(query rows a block, blocks a kv head) of ``csrc/dense_verify.cu``:
+    one m16 tile up to 16 rows (the one-tile body), else row groups of 64
+    (the row-group body: one warpgroup on ``wgmma`` over one K / V ring)."""
+    per = _MQ_ROWS if rows <= _MQ_ROWS else _MQ_GROUP
+    return per, -(-rows // per)
+
+
 def verify_plan(B: int, Hkv: int, rows: int, nq: int, S: int, sms: int,
-                fits=None) -> tuple[int, int]:
-    """(chunk_len, n_chunks) of the verify kernel: ``chunk_plan`` over the
-    S + nq columns for B * Hkv heads times the 16-row blocks of their
-    ``rows`` query rows, at most 512 columns a block (448 past 4 queries,
-    so two bf16 blocks share an SM), and fewer while ``fits(chunk_len)``
-    says a block's shared memory does not fit (dh 256: the bias rows of
-    many queries beside 192 KB of rings).  The ring and the pool take the
-    same plan."""
-    cap = _CHUNK_MAX if nq <= 4 else _MQ_CHUNK_MAX8
-    while fits is not None and cap > _TILE and not fits(cap):
-        cap -= _TILE
-    return chunk_plan(B, Hkv * -(-rows // _MQ_ROWS), S + nq, sms, per_sm=_MQ_PER_SM,
-                      cap=cap)
+                fits=None, n_self: int | None = None, per_sm=None) -> tuple[int, int]:
+    """(chunk_len, n_chunks) of ``csrc/dense_verify.cu`` over the S +
+    n_self columns for B * Hkv heads times the ``row_blocks`` of their
+    ``rows`` query rows, in whole 32-column tiles whose block
+    ``fits(chunk_len)`` in shared memory.  ``n_self`` None is the verify
+    (nq self columns), else the decode (0 or 1).
+
+    The verify's one-tile body (up to 16 rows) keeps its plan: about two
+    blocks an SM, at most 512 columns a block (448 past 4 queries, so two
+    bf16 blocks share an SM).  The decode and the row groups take, of the
+    chunk lengths up to 1024, the one with the fewest waves times a
+    block's steps, a wave being ``sms`` times ``per_sm(chunk_len)`` blocks
+    (the card's occupancy; 2 where it is not asked) and a block's steps its
+    tiles over the warps that take them at once (four in the one-tile
+    body, one in a row group) plus a fixed cost; ties go to fewer chunks.
+    On a ragged pool fewer, longer blocks balance worse, and the one-tile
+    verify's pool ran slower on that plan than on its own (PERF.md §6).
+    The ring and the pool take the same plan, so they sum in the same
+    order."""
+    s_ext = S + (nq if n_self is None else n_self)
+    heads = B * Hkv * row_blocks(rows)[1]
+    n_tiles = -(-s_ext // _TILE)
+    if n_self is None and rows <= _MQ_ROWS:
+        cap = _CHUNK_MAX if nq <= 4 else _MQ_CHUNK_MAX8
+        while fits is not None and cap > _TILE and not fits(cap):
+            cap -= _TILE
+        want = max(1, min(n_tiles, -(-_MQ_PER_SM * sms // heads)))
+        chunk_len = min(cap, -(-n_tiles // want) * _TILE)
+        return chunk_len, -(-s_ext // chunk_len)
+    at_once = 4 if rows <= _MQ_ROWS else 1
+    best, seen = None, set()
+    for n in range(1, n_tiles + 1):
+        cl = -(-n_tiles // n) * _TILE
+        n_chunks = -(-s_ext // cl)
+        if cl > _MQ_CHUNK_MAX or n_chunks in seen or (fits is not None and not fits(cl)):
+            continue
+        seen.add(n_chunks)
+        slots = max(1, per_sm(cl) if per_sm is not None else _MQ_PER_SM) * sms
+        cost = -(-heads * n_chunks // slots) * (-(-cl // (_TILE * at_once)) + _MQ_FIXED)
+        if best is None or cost < best[0]:
+            best = (cost, cl, n_chunks)
+    if best is None:
+        raise ValueError(f"no chunk of the dense verify kernel fits {rows} rows of "
+                         f"{nq} queries in shared memory")
+    return best[1], best[2]
+
+
+def _decode_body(qpk: int) -> str:
+    return "cuda_core" if qpk < _TC_DECODE_ROWS else "tensor_core"
+
+
+def decode_plan(B: int, Hkv: int, qpk: int, S: int, n_self: int, sms: int,
+                fits=None, per_sm=None) -> tuple[str, int, int]:
+    """(body, chunk_len, n_chunks) of the dense decode: up to 7 rows a kv
+    head the CUDA-core body of ``csrc/dense_decode.cu`` (``"cuda_core"``,
+    ``chunk_plan``), 8-16 one m16 tile of ``csrc/dense_verify.cu``
+    (``"tensor_core"``, ``verify_plan`` at nq 1); at 8 rows the tensor-core
+    body is the faster (chip_smoke's ``phase_decode_bodies``)."""
+    if _decode_body(qpk) == "cuda_core":
+        return ("cuda_core",) + chunk_plan(B, Hkv, S + n_self, sms)
+    return ("tensor_core",) + verify_plan(B, Hkv, qpk, 1, S, sms, fits, n_self=n_self,
+                                          per_sm=per_sm)
+
+
+@functools.lru_cache(maxsize=4096)
+def _mq_plan(lib, is_bf16, dh, B, Hkv, nq, qpk, S, n_self, sms):
+    """``verify_plan`` on the card (``n_self`` None: the verify): shared
+    memory and blocks an SM from the kernel's own entry points (the ring's
+    body, so the pool takes the same plan), once per shape."""
+    def per_sm(cl):
+        n = lib.recalkv_dense_decode_mq_blocks_per_sm(is_bf16, dh, nq, qpk, cl)
+        if n < 0:
+            build.check(-n, "recalkv_dense_decode_mq_blocks_per_sm")
+        return n
+    return verify_plan(B, Hkv, nq * qpk, nq, S, sms, n_self=n_self, per_sm=per_sm,
+                       fits=lambda cl: lib.recalkv_dense_decode_mq_smem(
+                           is_bf16, dh, nq, qpk, cl) <= _SMEM_LIMIT)
 
 
 def _aligned(t):
@@ -172,12 +257,13 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
+def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None, body=None):
     """Check the operands and launch the ring (``ptab`` None) or the pool
-    entry point of ``csrc/dense_decode.cu`` (``nq`` None: one query per
-    head) or of ``csrc/dense_verify.cu`` (``nq`` verify queries; the caller
-    counts the launch).  Raises on a dtype, device or shape the body does
-    not take; nothing is routed elsewhere."""
+    entry point of the decode (``nq`` None: one query per head; the body
+    ``decode_plan`` names, or ``body`` "cuda_core" / "tensor_core" to time
+    one against the other) or of ``csrc/dense_verify.cu``'s verify (``nq``
+    verify queries).  The caller counts the launch.  Raises on a dtype,
+    device or shape the body does not take; nothing is routed elsewhere."""
     verify = nq is not None
     what = "dense verify" if verify else "dense decode"
     if q.dim() != 4:
@@ -224,17 +310,23 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None):
             f"q_per_kv 1-16{', nq >= 1' if verify else ''}, at least one column)")
     dev = q.device
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    if verify:
-        lib, entry = _lib("dense_verify"), _MQ_ENTRIES[ptab is not None]
-        is_bf16 = int(dt == torch.bfloat16)
-        chunk_len, n_chunks = verify_plan(
-            B, Hkv, rows, nq, S, sms, fits=lambda cl: lib.recalkv_dense_decode_mq_smem(
-                is_bf16, dh, nq, qpk, cl) <= _SMEM_LIMIT)
-        sizes = (B, S, Hkv, nq, qpk, n_chunks, chunk_len, page_size, n_pages)
-    else:
+    is_bf16, paged = int(dt == torch.bfloat16), ptab is not None
+    if not verify and (body or _decode_body(qpk)) == "cuda_core":
+        if qpk > 8:
+            raise ValueError(f"the dense decode's CUDA-core body takes q_per_kv 1-8, got {qpk}")
+        lib, entry = _lib("dense_decode"), _ENTRIES[paged]
         chunk_len, n_chunks = chunk_plan(B, Hkv, S + has_self, sms)
-        lib, entry = _lib("dense_decode"), _ENTRIES[ptab is not None]
         sizes = (B, S, Hkv, qpk, n_chunks, chunk_len, page_size, n_pages)
+    else:
+        lib = _lib("dense_verify")
+        chunk_len, n_chunks = _mq_plan(lib, is_bf16, dh, B, Hkv, nq or 1, qpk, S,
+                                       None if verify else int(has_self), sms)
+        if verify:
+            entry = _MQ_ENTRIES[paged]
+            sizes = (B, S, Hkv, nq, qpk, n_chunks, chunk_len, page_size, n_pages)
+        else:
+            entry = _TC_ENTRIES[paged]
+            sizes = (B, S, Hkv, qpk, n_chunks, chunk_len, page_size, n_pages)
     arrs = [_aligned(t) for t in (q, k, v, bias)]
     selfs = [_aligned(t) for t in selfs] or [None, None]
     ptab = None if ptab is None else _aligned(ptab)

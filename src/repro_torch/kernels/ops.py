@@ -24,7 +24,8 @@ JAX package does.
 
 The dense cache {"k", "v", "pos"} has kernels of its own, the dense cores
 of K1 / K4 (decode, ``dense_decode`` / ``dense_decode_paged`` ->
-``csrc/dense_decode.cu``) and of K5 / K7 (verify, ``dense_decode_mq`` /
+``csrc/dense_decode.cu``, or ``csrc/dense_verify.cu``'s m16 tensor-core
+body at 8-16 query rows a kv head) and of K5 / K7 (verify, ``dense_decode_mq`` /
 ``dense_decode_mq_paged`` -> ``csrc/dense_verify.cu``): keys stored after
 RoPE, so no key rebuild, no rotation tables and no k-norm.  The JAX
 package's ``_dense_*_core*`` run K1 / K4 / K5 / K7 at an identity ``R_k``
@@ -244,7 +245,8 @@ def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
 
 def dense_decode(q, cache, cur, *, window: int | None, scale: float,
                  self_entry: dict | None = None):
-    """Dense ring decode through K1's dense core (``csrc/dense_decode.cu``).
+    """Dense ring decode through K1's dense core (``kernels.dense_decode``:
+    ``csrc/dense_decode.cu``, or ``csrc/dense_verify.cu`` from 8 rows).
     q: (B, H, dh) post-RoPE; cache {"k", "v": (B, S, Hkv, dh), "pos"};
     ``self_entry`` {"k", "v": (B, Hkv, dh)}, the current token post-RoPE
     (and k-norm), scored as one extra column at position ``cur``.  Returns

@@ -10,7 +10,7 @@ Flow (paper Algorithm 1, at model scope):
     cfg2, params2 = compress_model(cfg, params, stats, recal_cfg)
 
 Fisher scores (``fisher_scores`` in JAX) need the training slice and are
-not ported (ROADMAP.md, Queue 1 item 8).
+not ported (ROADMAP.md, Queue 1 item 6).
 """
 
 from __future__ import annotations

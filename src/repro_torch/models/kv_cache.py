@@ -152,24 +152,44 @@ def paged_view(cache: Params, ptab: torch.Tensor) -> Params:
     return {k: kops.gather_pages(v, ptab) for k, v in cache.items()}
 
 
-def _paged_merge_leaf(pool: torch.Tensor, new: torch.Tensor,
-                      ptab: torch.Tensor, pos: torch.Tensor,
-                      mask: torch.Tensor | None) -> None:
-    """Write entries (B, n, ...) at positions ``pos`` (B, n) through the
-    page table, in place: (page, offset) = (ptab[b, pos // ps], pos % ps).
-    Masked entries, positions past the table and unmapped slot pages
-    write nothing: they target the null page with its own value, so the
-    one index put stays free of duplicate targets with different values
-    (a live page has one writer, and a row's positions are distinct)."""
-    ps = pool.shape[1]
+def _paged_targets(ptab: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor | None,
+                   ps: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(page, offset, writes) of entries (B, n) at positions ``pos`` (B, n)
+    written through the page table as the JAX package writes them
+    (``_paged_merge_leaf`` and ``apply_verify_writes`` there): column j
+    after column j - 1, so a later column wins, and each column a decode
+    write, page ptab[b, pos // ps] with the index clipped to the table's
+    last page, offset pos % ps, the null page 0 never written, and of the
+    rows whose entries of one column hit one page only the first writes
+    (JAX's argmax over its hit matrix).  Entries that write nothing target
+    the null page at their offset, so a write of the pool's own values
+    there leaves one index put free of duplicate targets with different
+    values."""
+    B, n = pos.shape
     n_sp = ptab.shape[1]
-    pidx = torch.div(pos, ps, rounding_mode="floor").clamp(0, n_sp - 1)
-    page = torch.where(pos < n_sp * ps, ptab.long().gather(1, pidx), 0)
+    page = ptab.long().gather(1, torch.div(pos, ps, rounding_mode="floor").clamp(0, n_sp - 1))
     off = pos % ps
     ok = page != 0
     if mask is not None:
-        ok &= mask
-    page = torch.where(ok, page, 0)
+        ok = ok & mask
+    rows = torch.arange(B, device=pos.device)
+    earlier = rows[None, :] < rows[:, None]                        # (b, b'): b' < b
+    first = ~((page[:, None] == page[None, :]) & ok[None, :]
+              & earlier[..., None]).any(1)                         # (B, n)
+    ok = ok & first
+    if n > 1:   # a later column's entry at the same (page, offset) wins
+        key, col = (page * ps + off).reshape(-1), torch.arange(n, device=pos.device)
+        col = col.expand(B, n).reshape(-1)
+        later = ((key[:, None] == key[None, :]) & ok.reshape(-1)[None, :]
+                 & (col[None, :] > col[:, None])).any(1)
+        ok = ok & ~later.reshape(B, n)
+    return torch.where(ok, page, 0), off, ok
+
+
+def _paged_merge_leaf(pool: torch.Tensor, new: torch.Tensor, targets) -> None:
+    """Write entries (B, n, ...) through ``_paged_targets``' (page,
+    offset, writes), in place."""
+    page, off, ok = targets
     shape = ok.shape + (1,) * (new.ndim - 2)
     pool[page, off] = torch.where(ok.reshape(shape), new.to(pool.dtype),
                                   pool[page, off])
@@ -403,14 +423,15 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
     """Merge the deferred per-layer decode entries into the rings (or,
     with ``pages``, the pools), in place (one pass after the layer loop).
     ``active`` (B,) bool freezes the rows of inactive sequences entirely."""
+    targets = None if pages is None else _paged_targets(
+        pages[0], cur.to(torch.int64)[:, None], None if active is None else active[:, None],
+        pages[1])
     for cache, upd in zip(caches, updates):
         for name, leaf in cache["self"].items():
             if pages is None:
                 _merge_leaf(leaf, upd["self"][name], cur, active)
             else:
-                _paged_merge_leaf(leaf, upd["self"][name][:, None], pages[0],
-                                  cur.to(torch.int64)[:, None],
-                                  None if active is None else active[:, None])
+                _paged_merge_leaf(leaf, upd["self"][name][:, None], targets)
     return caches
 
 
@@ -611,16 +632,18 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     sequential decode of the accepted tokens.  With S <= L a row's S
     columns land on distinct slots and go in one write per leaf; a longer
     window writes column by column in ascending j (last write wins, as S
-    sequential decode writes would).  With ``pages`` the S positions of a
-    row are distinct pool rows, so one write per leaf always does."""
+    sequential decode writes would).  With ``pages`` one write per leaf
+    always does: ``_paged_targets`` keeps, of the entries that JAX's
+    column-by-column writes would overwrite, only the last."""
     S = mask.shape[1]
     cols = torch.arange(S, device=cur.device)
+    targets = None if pages is None else _paged_targets(
+        pages[0], cur.to(torch.int64)[:, None] + cols, mask, pages[1])
     for cache, upd in zip(caches, updates):
         for name, leaf in cache["self"].items():
             new = upd["self"][name]
             if pages is not None:
-                _paged_merge_leaf(leaf, new, pages[0],
-                                  cur.to(torch.int64)[:, None] + cols, mask)
+                _paged_merge_leaf(leaf, new, targets)
                 continue
             B, Lr = leaf.shape[:2]
             if S > Lr:

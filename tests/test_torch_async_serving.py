@@ -84,16 +84,50 @@ def _mixed(vocab):
             for i in range(6)]
 
 
+def _owed(eng) -> bool:
+    """Whether the JAX engine's admission worker has taken requests off the
+    queue that it has not handed over yet as a wave."""
+    held = sum(len(w.reqs) - w.merged for w in eng._staged_waves)
+    return len(eng.scheduler.staged) > held
+
+
+def _drive_jax(eng):
+    """Serve a JAX engine to drain as ``JEngine.run`` does, waiting for its
+    admission worker instead of timing out on it.  ``run`` stops after B +
+    3 steps without progress, and such a step waits at most 1 s for the
+    worker's wave, so a wave prefill slower than a few seconds (its first
+    compile on a loaded machine) ended the run before the wave was
+    admitted.  Here a step without progress blocks until the worker
+    delivers the wave it prepares or owes (it always does, or fails, which
+    the next step raises); only steps with nothing owed count toward the
+    same idle bound."""
+    adm, idle = eng._admission, 0
+    while eng.scheduler.has_work or eng._inflight:
+        before = (eng.windows, eng.host_syncs, eng._dispatch_index)
+        eng.step()
+        if (eng.windows, eng.host_syncs, eng._dispatch_index) != before:
+            idle = 0
+        elif adm is not None and (adm.busy or _owed(eng)):
+            adm.wait()
+        else:
+            idle += 1
+            if idle > eng.B + 2:
+                break
+    eng.flush()
+    return eng.finished
+
+
 def _serve(eng, prompts, max_new=6, sampled=(), on_token=None):
     """Submit, run, close; the streams by uid.  ``sampled`` holds the uids
-    that sample (the others are greedy)."""
+    that sample (the others are greedy).  A JAX engine is driven by
+    ``_drive_jax``, so its admission thread's timing cannot end the run."""
     port = isinstance(eng, Engine)
     R = Request if port else JRequest
     sp = SamplingParams(**SAMPLED) if port else JSamplingParams(**SAMPLED)
     for i, pr in enumerate(prompts):
         eng.submit(R(uid=i, prompt=pr.copy(), max_new_tokens=max_new,
                      sampling=sp if i in sampled else None, on_token=on_token))
-    done = eng.run()
+    done = eng.run() if port else _drive_jax(eng)
     eng.close()
     assert not eng.scheduler.has_work
     return {r.uid: [int(t) for t in r.out_tokens] for r in done}

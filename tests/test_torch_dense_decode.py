@@ -196,15 +196,24 @@ def test_dense_decode_counts_no_launch_on_cpu():
     assert all(k.launches == 0 for k in kernels.KERNELS)
 
 
-@pytest.mark.parametrize("B,Hkv,s_ext", [(8, 8, 4097), (1, 8, 4097), (1, 1, 131072),
-                                         (8, 8, 1), (3, 2, 201)])
-def test_dense_decode_chunk_plan_fits_the_kernel(B, Hkv, s_ext):
-    """The kernel's chunk plan (the same for the ring and the pool): whole
-    32-column tiles, at most 512 columns a block, chunks that cover the
-    ring plus the self column, and about 8 blocks per SM of a 132-SM card
-    where the ring is long enough."""
-    chunk_len, n_chunks = D.chunk_plan(B, Hkv, s_ext, 132)
-    assert chunk_len % 32 == 0 and 32 <= chunk_len <= 512
+@pytest.mark.parametrize("B,Hkv,qpk,s_ext", [(8, 8, 4, 4097), (8, 4, 16, 4097),
+                                              (1, 1, 1, 131072), (8, 8, 16, 1),
+                                              (3, 2, 8, 201)])
+def test_dense_decode_chunk_plan_fits_the_kernel(B, Hkv, qpk, s_ext):
+    """The decode's plan (the same for the ring and the pool): up to 7 rows
+    a kv head the CUDA-core body of ``csrc/dense_decode.cu``, at most 512
+    columns a block and about 8 blocks per SM of a 132-SM card where the
+    ring is long enough; 8-16 rows one m16 tile of ``csrc/dense_verify.cu``'s
+    tensor-core body, at most 1024 columns a block and whole waves of two
+    blocks per SM (the card's occupancy, where it is not asked).  Whole
+    32-column tiles, chunks that cover the ring plus the self column."""
+    body, chunk_len, n_chunks = D.decode_plan(B, Hkv, qpk, s_ext - 1, 1, 132)
+    assert body == ("cuda_core" if qpk < 8 else "tensor_core")
+    assert chunk_len % 32 == 0 and 32 <= chunk_len <= (512 if qpk < 8 else 1024)
     assert n_chunks == -(-s_ext // chunk_len) and (n_chunks - 1) * chunk_len < s_ext
-    if s_ext >= 32 * 8 * 132 // (B * Hkv):
-        assert 8 * 132 * 0.75 <= B * Hkv * n_chunks <= 8 * 132 * 1.5
+    blocks = B * Hkv * n_chunks
+    if body == "cuda_core":
+        if s_ext >= 32 * 8 * 132 // (B * Hkv):
+            assert 8 * 132 * 0.75 <= blocks <= 8 * 132 * 1.5
+    elif s_ext >= 32 * 2 * 132 // (B * Hkv):
+        assert 2 * 132 * 0.75 <= blocks <= 2 * 132

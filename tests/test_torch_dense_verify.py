@@ -224,18 +224,26 @@ def test_dense_verify_counts_no_launch_on_cpu():
 
 
 @pytest.mark.parametrize("B_,Hkv,rows,nq,S_", [(8, 8, 16, 4, 4096), (1, 8, 64, 8, 4096),
-                                               (8, 8, 40, 5, 300), (2, 2, 1, 1, 0),
-                                               (1, 1, 8, 8, 131072), (8, 8, 64, 16, 4096)])
+                                               (8, 8, 36, 9, 300), (2, 2, 1, 1, 0),
+                                               (1, 1, 8, 8, 131072), (8, 4, 256, 16, 4096)])
 def test_dense_verify_plan_fits_the_kernel(B_, Hkv, rows, nq, S_):
-    """The verify kernel's chunk plan (the same for the ring and the pool):
-    whole 32-column tiles, at most 512 columns a block (448 past 4 queries,
-    so two bf16 blocks share an SM), chunks that cover the ring and the nq
-    self columns, and about two blocks per SM of a 132-SM card where the
-    ring is long enough."""
+    """The verify kernel's plan (the same for the ring and the pool): up to
+    16 rows a kv head one m16 tile a block (the one-tile body: at most 512
+    columns a block, 448 past 4 queries, so two bf16 blocks share an SM),
+    more in row groups of 64 (the row-group body, one K / V ring for a
+    warpgroup: 36 rows one group, 64 one, 256 four; at most 1024 columns);
+    whole 32-column tiles, chunks that cover the ring and the nq self
+    columns, and where the ring is long enough at least three quarters of
+    a wave of two blocks per SM of a 132-SM card (the card's occupancy,
+    where it is not asked)."""
+    per, groups = D.row_blocks(rows)
+    assert (per, groups) == {1: (16, 1), 8: (16, 1), 16: (16, 1), 36: (64, 1),
+                             64: (64, 1), 256: (64, 4)}[rows]
     chunk_len, n_chunks = D.verify_plan(B_, Hkv, rows, nq, S_, 132)
-    assert chunk_len % 32 == 0 and 32 <= chunk_len <= (512 if nq <= 4 else 448)
+    cap = (512 if nq <= 4 else 448) if rows <= 16 else 1024
+    assert chunk_len % 32 == 0 and 32 <= chunk_len <= cap
     s_ext = S_ + nq
     assert n_chunks == -(-s_ext // chunk_len) and (n_chunks - 1) * chunk_len < s_ext
-    blocks = B_ * Hkv * -(-rows // 16) * n_chunks
+    blocks = B_ * Hkv * groups * n_chunks
     if s_ext >= 4 * 512:
         assert blocks >= 2 * 132 * 0.75

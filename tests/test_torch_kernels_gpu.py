@@ -1060,13 +1060,33 @@ def test_dense_cores_match_plain_and_each_other(cuda, dtype):
                                                     (128, 16, 4, None, False),
                                                     (128, 16, 1, 16, True),
                                                     (64, 16, 2, 16, False),
-                                                    (256, 16, 2, None, False)])
+                                                    (256, 16, 2, None, False),
+                                                    # 17, 36, 64, 65 and 256 rows
+                                                    (64, 1, 17, 16, False),
+                                                    (80, 1, 17, None, True),
+                                                    (128, 1, 17, None, False),
+                                                    (64, 9, 4, 16, False),
+                                                    (80, 4, 9, None, True),
+                                                    (256, 12, 3, 16, False),
+                                                    (64, 16, 4, None, True),
+                                                    (80, 8, 8, 16, False),
+                                                    (256, 4, 16, None, False),
+                                                    (64, 13, 5, None, False),
+                                                    (80, 5, 13, 16, True),
+                                                    (128, 1, 65, 16, False),
+                                                    (256, 13, 5, None, True),
+                                                    (64, 16, 16, 16, False),
+                                                    (80, 16, 16, None, False),
+                                                    (128, 16, 16, 16, True),
+                                                    (256, 16, 16, None, False)])
 def test_dense_verify_kernel_edge_shapes(cuda, dtype, dh, qpk, nq, window, unfed):
-    """The dense verify kernel at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 / 16,
-    nq 1 / 4 / 5 / 8 / 9 / 16 / 17 (up to 64 query rows: four 16-row blocks;
-    16 queries at q_per_kv 1 in one block; 17 at dh 256 narrow the chunk so
-    that their bias rows fit beside the rings), with and without a window
-    and with every candidate unfed, on a ring whose row 2 is empty: within
+    """The dense verify kernel at dh 64 / 80 / 128 / 256, q_per_kv 1-16,
+    nq 1-65: up to 16 query rows one m16 tile a block, more in row groups
+    of 64 (17, 32, 36, 40, 48, 64, 65 and 256 rows at every dh: a partial
+    group, one, two with a one-row second, four; 17 queries at dh 256
+    narrow the chunk so that their bias rows fit beside the rings), with
+    and without a window and with every candidate unfed, on a ring whose
+    row 2 is empty: within
     1e-4 (f32) or the bf16 limit of the plain version; row 2's query 0
     exactly its self value (exact 0 with the candidates unfed, when it sees
     no column); the pool (page size 8) equal to the ring on the gathered
@@ -1138,10 +1158,15 @@ def test_dense_verify_kernel_rejects_shapes_outside_limits(cuda):
 @pytest.mark.parametrize("dh,qpk,window", [(64, 1, None), (64, 8, 16), (128, 1, 16),
                                            (128, 8, None), (256, 2, None), (256, 8, 16),
                                            (80, 4, None), (80, 16, 16), (80, 1, 16),
-                                           (128, 16, None), (64, 16, 16), (256, 16, None)])
+                                           (128, 16, None), (64, 16, 16), (256, 16, None),
+                                           (64, 9, None), (64, 12, 16), (80, 9, 16),
+                                           (80, 12, None), (128, 9, 16), (128, 12, None),
+                                           (256, 9, 16), (256, 12, None)])
 def test_dense_decode_kernel_edge_shapes(cuda, dtype, dh, qpk, window):
-    """The dense decode kernel at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4 / 8 / 16, with and
-    without a window, on a ring whose row 2 is masked everywhere: within
+    """The dense decode at dh 64 / 80 / 128 / 256, q_per_kv 1 / 2 / 4
+    (``csrc/dense_decode.cu``) and 8 / 9 / 12 / 16 (one m16 tile of
+    ``csrc/dense_verify.cu``'s tensor-core body), with and without a
+    window, on a ring whose row 2 is masked everywhere: within
     1e-4 (f32) or the bf16 limit of the plain version, row 2 exactly its
     self value (and exact 0 without a self column), and the pool equal to
     the ring on the gathered view bit for bit (page size 8)."""
@@ -1160,13 +1185,58 @@ def test_dense_decode_kernel_edge_shapes(cuda, dtype, dh, qpk, window):
         _within_bf16_limit(got, want)
     assert torch.equal(got[2], sv[2][:, None].expand(8, qpk, dh))
     bare = KD.dense_decode_attention(qg, cache["k"], cache["v"], bias, scale=dh ** -0.5)
+    bare_want = KD.dense_decode_attention_plain(qg, cache["k"], cache["v"], bias,
+                                                scale=dh ** -0.5)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(bare, bare_want, atol=1e-4, rtol=1e-4)
+    else:
+        _within_bf16_limit(bare, bare_want)
     assert (bare[2] == 0).all()
     pool, ptab = _pool_of(cache, 8, 501)
     pbias = ops.decode_bias(K1.gather_pages(pool["pos"], ptab), a["cur"], window)
-    paged = KD.dense_decode_attention_paged(ptab, qg, pool["k"], pool["v"], pbias, **kw)
-    view = KD.dense_decode_attention(qg, K1.gather_pages(pool["k"], ptab),
-                                     K1.gather_pages(pool["v"], ptab), pbias, **kw)
-    assert torch.equal(paged, view)
+    for sk_, sv_ in ((sk, sv), (None, None)):
+        paged = KD.dense_decode_attention_paged(ptab, qg, pool["k"], pool["v"], pbias,
+                                                scale=dh ** -0.5, self_k=sk_, self_v=sv_)
+        view = KD.dense_decode_attention(qg, K1.gather_pages(pool["k"], ptab),
+                                         K1.gather_pages(pool["v"], ptab), pbias,
+                                         scale=dh ** -0.5, self_k=sk_, self_v=sv_)
+        assert torch.equal(paged, view)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_dense_decode_bodies_agree_at_8_rows(cuda, dtype, dh):
+    """At q_per_kv 8, where the wrapper moves from the CUDA-core body to the
+    tensor-core body (``dense_verify.cu``'s decode entry), both are held
+    to the same plain version on the ring and the pool, so the two can be
+    timed against each other; the CUDA-core body refuses 9 rows."""
+    a = _dense_ring(cuda, 900 + dh, S=200, qpk=8, dh=dh)
+    cache = {k: (v if k == "pos" else v.to(dtype)) for k, v in a["cache"].items()}
+    qg = ops.group_queries(a["q"].to(dtype), 8)
+    sk, sv = a["one"]["k"].to(dtype), a["one"]["v"].to(dtype)
+    bias = ops.decode_bias(cache["pos"], a["cur"], None)
+    want = KD.dense_decode_attention_plain(qg, cache["k"], cache["v"], bias,
+                                           scale=dh ** -0.5, self_k=sk, self_v=sv)
+    pool, ptab = _pool_of(cache, 8, 901)
+    pbias = ops.decode_bias(K1.gather_pages(pool["pos"], ptab), a["cur"], None)
+    for body in ("cuda_core", "tensor_core"):
+        got = KD.launch(qg, cache["k"], cache["v"], bias, dh ** -0.5, sk, sv, body=body)
+        torch.cuda.synchronize()
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _within_bf16_limit(got, want)
+        paged = KD.launch(qg, pool["k"], pool["v"], pbias, dh ** -0.5, sk, sv, ptab=ptab,
+                          body=body)
+        view = KD.launch(qg, K1.gather_pages(pool["k"], ptab),
+                         K1.gather_pages(pool["v"], ptab), pbias, dh ** -0.5, sk, sv,
+                         body=body)
+        assert torch.equal(paged, view)
+    q9 = torch.cat([qg, qg[:, :, :1]], dim=2)
+    with pytest.raises(ValueError, match="CUDA-core body takes q_per_kv 1-8"):
+        KD.launch(q9, cache["k"], cache["v"], bias, dh ** -0.5, sk, sv, body="cuda_core")
 
 
 @pytest.mark.gpu

@@ -122,6 +122,55 @@ def test_paged_view_writes_and_wipes_match_jax(ps):
     assert (caches[0]["self"]["pos"][0] == -1).all()
 
 
+@pytest.mark.parametrize("seed,ps", [(0, 4), (1, 4), (2, 8), (3, 8)])
+def test_paged_writes_past_the_table_match_jax(seed, ps):
+    """Decode and verify writes through the page table at positions past
+    it, as JAX makes them: the page index clipped to the table's last page,
+    the offset pos % page_size, the null page never written, of the rows
+    hitting one page in a column only the first, and a verify's columns in
+    ascending order (the later wins).  Seeded pools, ragged tables (unmapped
+    slot pages, rows 2 and 3 sharing their last page), positions inside,
+    at the end of and past the table; the pools must come out equal."""
+    rng = np.random.default_rng(seed)
+    B, n_sp, n_pages, S = 4, 3, 14, 2 * ps + 3
+    ptab = np.zeros((B, n_sp), np.int32)
+    pages = rng.permutation(np.arange(1, n_pages))
+    ptab[0] = pages[:3]
+    ptab[1, :2] = pages[3:5]                     # its last slot page unmapped
+    ptab[2] = pages[5:8]
+    ptab[3, :2], ptab[3, 2] = pages[8:10], ptab[2, 2]
+    f = lambda *sh: rng.standard_normal(sh).astype(np.float32)
+    pool = {"k": f(n_pages, ps, 2, 8), "v": f(n_pages, ps, 2, 8),
+            "pos": rng.integers(-1, 40, (n_pages, ps)).astype(np.int32)}
+    end = n_sp * ps
+    # row 2 reaches the shared page two columns into a verify, row 3 is
+    # past the table from its first: a later column of row 2 must beat an
+    # earlier one of row 3 at one offset
+    cur = np.array([rng.integers(0, end), end - 1, end - ps - 2, end + ps + 1])
+    act = np.array([True, True, bool(rng.integers(0, 2)), True])
+    upd = {k: f(B, *v.shape[2:]) for k, v in pool.items() if k != "pos"}
+    upd["pos"] = cur.astype(np.int32)
+    vupd = {k: f(B, S, *v.shape[2:]) for k, v in pool.items() if k != "pos"}
+    vupd["pos"] = (cur[:, None] + np.arange(S)).astype(np.int32)
+    vmask = np.arange(S)[None] < np.array([[rng.integers(1, S + 1)], [rng.integers(1, S + 1)],
+                                           [S], [S]])
+    tree = lambda d: {"prefix": ({"self": {k: jnp.asarray(v) for k, v in d.items()}},),
+                      "blocks": None, "suffix": ()}
+    jp = (jnp.asarray(ptab), ps)
+    want = JKC.apply_decode_writes(tree(pool), tree(upd), jnp.asarray(cur, jnp.int32),
+                                   jnp.asarray(act), pages=jp)
+    caches = caches_from_jax_tree(tree(pool))
+    tp = (_t(ptab), ps)
+    KC.apply_decode_writes(caches, [{"self": {k: _t(v) for k, v in upd.items()}}], _t(cur),
+                           _t(act), pages=tp)
+    _assert_pool_equal(caches[0]["self"], want["prefix"][0]["self"])
+    want = JKC.apply_verify_writes(want, tree(vupd), jnp.asarray(cur, jnp.int32),
+                                   jnp.asarray(vmask), pages=jp)
+    KC.apply_verify_writes(caches, [{"self": {k: _t(v) for k, v in vupd.items()}}], _t(cur),
+                           _t(vmask), pages=tp)
+    _assert_pool_equal(caches[0]["self"], want["prefix"][0]["self"])
+
+
 def caches_from_jax_tree(tree):
     return [{"self": {k: _t(np.array(v)).to(torch.int64 if k == "pos" else None)
                       for k, v in tree["prefix"][0]["self"].items()}}]

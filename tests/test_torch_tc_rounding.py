@@ -28,9 +28,14 @@ version, per element: |emulated - plain| <= 2e-2 |plain| + 1e-2 rms(plain).
   body through a page table, as K4 is K1's.
 * The dense verify kernel (``csrc/dense_verify.cu``, K5's and K7's dense
   cores): S = q K^T from bf16 operands in f32 (exact products, no key
-  rebuild); each of four warps runs an online softmax over its 32-column
-  tiles of a chunk, P entering P V as bf16 hi + lo; warps and then chunks
-  merged by log-sum-exp in f32 (``dense_verify_emulated``).
+  rebuild), P entering P V as bf16 hi + lo (``dense_verify_emulated``).
+  Up to 16 query rows a kv head (the one-tile body) each of four warps
+  runs an online softmax over its 32-column tiles of a chunk, and the
+  warps and then the chunks merge by log-sum-exp in f32; past 16 rows (the
+  row-group body, ``wgmma``) each m16 row tile of a 64-row group runs one
+  online softmax over every live tile of the chunk, so only the chunks
+  merge.  The decode at 8-16 rows runs the one-tile body with one bias
+  row and an optional self column at bias 0 (``dense_decode_tc_emulated``).
 * The 64-column plan: past the ranks whose 128-column block fits in
   shared memory (the one-query bodies past rank ~700, the verify bodies
   past 544 at dh 128, up to s * dh = 1,024 at group_size 8) every body
@@ -251,17 +256,20 @@ def k3_emulated(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, *, k_norm,
 
 
 def dense_verify_emulated(q, k, v, bias, *, scale, self_k, self_v, rounding="split",
-                          chunk=512, warps=4, tile=32, rows=16):
-    """The dense verify kernel's bf16 body: q (B,Hkv,nq*qpk,dh), the ring
+                          chunk=512, tile=32):
+    """The dense verify kernel's bf16 bodies: q (B,Hkv,nq*qpk,dh), the ring
     k / v (B,S,Hkv,dh) with the nq self columns (B,nq,Hkv,dh) appended,
-    bias (B,nq,S+nq) per query.  Per block (``rows`` query rows, ``chunk``
-    columns) the 32-column tiles some of its rows see go to the warps in
-    turn; each warp's online softmax rounds P = e^(s - m) (m its running
-    maximum) at the split, and its partials merge with the other warps',
-    then the chunks', by log-sum-exp.  Returns (B,Hkv,nq*qpk,dh) f32 before
-    the output rounding."""
+    bias (B,nq,S+nq) per query.  Per block (``chunk`` columns and 16 query
+    rows up to 16, else a 64-row group) the 32-column tiles some of its rows
+    see go to its warps: in turn to four warps on the one-tile body, each to
+    every m16 row tile on the row-group body (one warp's softmax a row).
+    Each warp's online softmax rounds P = e^(s - m) (m its running maximum)
+    at the split, and its partials merge with the other warps', then the
+    chunks', by log-sum-exp.  Returns (B,Hkv,nq*qpk,dh) f32 before the
+    output rounding."""
     rnd = {"split": _split, "one": _bf16, None: lambda x: x}[rounding]
     B, Hkv, M, dh = q.shape
+    rows, warps = (16, 4) if M <= 16 else (64, 1)
     k = torch.cat([k, self_k], 1).float()
     v = torch.cat([v, self_v], 1).float()
     rb = bias.float().repeat_interleave(M // bias.shape[1], dim=1)     # (B, M, S_ext)
@@ -308,11 +316,26 @@ def dense_verify_emulated(q, k, v, bias, *, scale, self_k, self_v, rounding="spl
     return out
 
 
+def dense_decode_tc_emulated(q, k, v, bias, *, scale, self_k=None, self_v=None, **kw):
+    """The dense decode at 8-16 rows a kv head: the one-tile body of the
+    verify kernel at nq 1, one bias row (B, S) for every row and the self
+    column, if any, at bias 0."""
+    B, S, Hkv, dh = k.shape
+    if self_k is None:
+        self_k = self_v = k.new_zeros(B, 0, Hkv, dh)
+    else:
+        self_k, self_v = self_k[:, None], self_v[:, None]
+    rb = torch.cat([bias, bias.new_zeros(B, self_k.shape[1])], 1)[:, None]
+    return dense_verify_emulated(q, k, v, rb, scale=scale, self_k=self_k, self_v=self_v, **kw)
+
+
 DV_CASES = {
     # name: (B, S, Hkv, q_per_kv, nq, dh, tokens per row (None: masked
     #        row), the kernel's chunk at these widths)
     "narrow": (3, 300, 2, 8, 5, 64, (300, 40, None), 96),
     "main_widths": (3, 1024, 8, 4, 4, 128, (1024, 614, None), 512),
+    "group_partial": (3, 300, 2, 4, 9, 80, (300, 40, None), 96),
+    "groups_four": (2, 512, 2, 16, 16, 128, (512, None), 448),
 }
 
 
@@ -357,6 +380,52 @@ def test_dense_verify_tensor_core_rounding_within_bf16_limit(case):
     want = KD.dense_decode_attention_mq_plain(*args, **kw).to(torch.bfloat16)
     assert _worst(got, want) <= 1
     assert (got[-1] == 0).all()
+
+
+DD_CASES = {
+    # name: (B, S, Hkv, q_per_kv, dh, tokens per row (None: masked row),
+    #        self column, the kernel's chunk at these widths)
+    "q_per_kv16": (3, 1024, 4, 16, 128, (1024, 614, None), True, 480),
+    "narrow_no_self": (3, 300, 2, 12, 64, (300, 40, None), False, 96),
+}
+
+
+def _dd_inputs(case):
+    """A bf16 dense ring for the decode (as ``_dv_inputs``' ring, a None
+    row masked everywhere), one query per kv head group of q_per_kv rows."""
+    B, S, Hkv, qpk, dh, lens, has_self, _ = DD_CASES[case]
+    rng = np.random.default_rng(sum(map(ord, case)) + 11)
+    mk = lambda *sh: _bf16(torch.from_numpy(rng.standard_normal(sh, dtype=np.float32)))
+    bias = torch.zeros(B, S)
+    for b, n in enumerate(lens):
+        bias[b, n or 0:] = NEG_INF
+    args = (mk(B, Hkv, qpk, dh), mk(B, S, Hkv, dh), mk(B, S, Hkv, dh), bias)
+    kw = dict(scale=dh ** -0.5)
+    if has_self:
+        kw.update(self_k=mk(B, Hkv, dh), self_v=mk(B, Hkv, dh))
+    return args, kw
+
+
+@pytest.mark.parametrize("case", sorted(DD_CASES))
+def test_dense_decode_tc_emulation_without_rounding_equals_plain(case):
+    args, kw = _dd_inputs(case)
+    got = dense_decode_tc_emulated(*args, **kw, rounding=None, chunk=DD_CASES[case][-1])
+    torch.testing.assert_close(got, KD.dense_decode_attention_plain(*args, **kw).float(),
+                               atol=F32_TOL, rtol=F32_TOL)
+
+
+@pytest.mark.parametrize("case", sorted(DD_CASES))
+def test_dense_decode_tc_rounding_within_bf16_limit(case):
+    """The 16-row decode on the tensor-core body rounds where the verify's
+    one-tile body does (P as bf16 hi + lo) and stays within chip_smoke.py's
+    limit of the f32 plain version; the masked row is exact 0 without a
+    self column and its self value with one."""
+    args, kw = _dd_inputs(case)
+    got = dense_decode_tc_emulated(*args, **kw, chunk=DD_CASES[case][-1]).to(torch.bfloat16)
+    want = KD.dense_decode_attention_plain(*args, **kw).to(torch.bfloat16)
+    assert _worst(got, want) <= 1
+    dead = kw["self_v"][-1][:, None].expand_as(got[-1]) if "self_v" in kw else 0
+    assert (got[-1] == dead).all()
 
 
 K2_CASES = {
@@ -799,6 +868,12 @@ def _budgets():
         want = KD.dense_decode_attention_mq_plain(*args, **kw).to(torch.bfloat16)
         out["DV", case] = {r: _worst(dense_verify_emulated(*args, **kw, rounding=r,
                                                            chunk=DV_CASES[case][-1])
+                                     .to(torch.bfloat16), want) for r in ("split", "one")}
+    for case in sorted(DD_CASES):
+        args, kw = _dd_inputs(case)
+        want = KD.dense_decode_attention_plain(*args, **kw).to(torch.bfloat16)
+        out["DD", case] = {r: _worst(dense_decode_tc_emulated(*args, **kw, rounding=r,
+                                                              chunk=DD_CASES[case][-1])
                                      .to(torch.bfloat16), want) for r in ("split", "one")}
     return out
 
