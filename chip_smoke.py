@@ -64,7 +64,11 @@ Phases, in order (any failure exits non-zero; none is caught):
    at 16 rows on the verify kernel's m16 body and the verify, ring and pool,
    at Hkv 4, nq 4: 64 rows a kv head, and on the ring nq 16: 256 rows,
    four row groups),
-   rows tagged "(dh 80)" / "(q_per_kv 16)".  Every kernel time is
+   rows tagged "(dh 80)" / "(q_per_kv 16)"; then whisper-small's widths
+   (K1 at G 3, Hg 4, dh 64, r 128; K2 at H 12 over Hkv 12, Hv 3, dv 128;
+   the dense decode at Hkv 12, q_per_kv 1, dh 64), rows tagged
+   "(whisper, dh 64)" (llama-3.2-vision-11b's self layers have qwen3-4b's
+   widths).  Every kernel time is
    device time: ``cuda_ms`` queues the launches behind a device sleep;
 4. full-width qwen3-4b with a ReCalKV latent cache (recalkv_ratio 0.5,
    r = 256), bf16, random weights from a seeded torch.Generator; first
@@ -179,7 +183,20 @@ Phases, in order (any failure exits non-zero; none is caught):
    inline admission: DS's streams), DS3 (C's, "ngram") and DSP (D's pool
    and traffic: it must share and preempt); cache bytes per token and
    layer 1,152; the peak memory of every step, the init's included;
-8. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
+8. the cross-attention models (``phase_cross``; full width and depth,
+   bf16, random weights from seed 0, seeded sources of 8 rows):
+   llama-3.2-vision-11b (40 layers, 8 ``cross`` over 1,600 patches), X
+   (dense, A's prompts), ``calibrate`` with the source + ``compress`` (G
+   2, r 256; cross layers on identity statistics), both backends'
+   logits, XU (A's; 32 K1 a decode step, none from the cross layers),
+   XU+ (graphs, inline admission: XU's streams), XU3 (C's, "ngram"),
+   XUs and XU+c (S's traffic on one source row repeated, sync and
+   continuous: equal streams); whisper-small (12 encoder + 12
+   ``attn_cross`` layers over 1,500 frames) W (dense), compressed in the
+   run (G 3, r 128), both backends' logits, WU and WU+; each run prints
+   its source and its self and cross cache bytes per slot (cross: 52.4 /
+   26.2 MB for llama-vision, 55.3 / 27.6 MB for whisper);
+9. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
@@ -313,11 +330,12 @@ WIDTHS = {"qwen3-4b": dict(dh=128, Hkv=8, qpk=4, G=2, s=4, r=256),
           "gemma3-12b": dict(dh=256, Hkv=8, qpk=2, G=2, s=4, r=512),
           "minicpm-2b": dict(dh=64, Hkv=36, qpk=1, G=9, s=4, r=128),
           "h2o-danube-1.8b": dict(dh=80, Hkv=8, qpk=4, G=2, s=4, r=160),
-          "qwen3-moe-235b-a22b": dict(dh=128, Hkv=4, qpk=16, G=1, s=4, r=256)}
+          "qwen3-moe-235b-a22b": dict(dh=128, Hkv=4, qpk=16, G=1, s=4, r=256),
+          "whisper-small": dict(dh=64, Hkv=12, qpk=1, G=3, s=4, r=128)}
 # the kernels-line tag of another family's rows, and the runs whose
 # launches they count (the qwen3-4b rows count every other run)
 FAMILY_TAG = {"gemma3-12b": "dh 256", "minicpm-2b": "q_per_kv 1", "h2o-danube-1.8b": "dh 80",
-              "qwen3-moe-235b-a22b": "q_per_kv 16"}
+              "qwen3-moe-235b-a22b": "q_per_kv 16", "whisper-small": "whisper, dh 64"}
 FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent steps", "U",
                               "U+", "U3", "UB"),
                "minicpm-2b": ("M", "M3"),
@@ -325,7 +343,10 @@ FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent st
                                    "NU3", "NUB"),
                "qwen3-moe-235b-a22b": ("qwen3-moe steps", "Q", "Q+", "Q3",
                                        "qwen3-moe latent steps", "QU", "QU3"),
-               "deepseek-v3-671b": ("deepseek steps", "DS", "DS+", "DS3", "DSP")}
+               "deepseek-v3-671b": ("deepseek steps", "DS", "DS+", "DS3", "DSP"),
+               # llama-3.2-vision-11b's self layers have qwen3-4b's heads and
+               # latent widths, so its runs count in qwen3-4b's rows
+               "whisper-small": ("W", "whisper latent steps", "WU", "WU+")}
 # qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
 # (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
 # 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
@@ -1083,12 +1104,12 @@ def phase_k2(torch, gen, arch="qwen3-4b", window=None, dense=False):
 
 
 def phase_backends(torch, cfg, params, verify_bits=(None, 8), lens=(512, 300),
-                   max_len=1024):
+                   max_len=1024, source=None):
     """Prefill + 4 decode steps through both backends (kernel-backend
     greedy tokens fed to both), B=2 with prompts of ``lens`` tokens (512 and
     300) in rings of ``max_len``; then, on a float ring (None in
     ``verify_bits``) and an int8 ring (8), prefill + one 4-token verify
-    step."""
+    step.  A cross model's prefills read ``source``'s first two rows."""
     from repro_torch.models import transformer as T
     gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
     toks = torch.randint(0, cfg.vocab_size, (2, max(lens)), generator=gen, device="cuda")
@@ -1099,7 +1120,8 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8), lens=(512, 300),
     feed = None
     for backend in ("kernel", "einsum"):
         c = dataclasses.replace(cfg, attn_backend=backend)
-        logits, caches = T.prefill(c, params, toks, lens, max_len)
+        src = None if source is None else source[:2]
+        logits, caches = T.prefill(c, params, toks, lens, max_len, source=src)
         outs, cur = [logits], lens.clone()
         for i in range(4):
             tok = logits.argmax(-1) if feed is None else feed[i]
@@ -1111,7 +1133,7 @@ def phase_backends(torch, cfg, params, verify_bits=(None, 8), lens=(512, 300),
         runs[("decode", backend)] = torch.stack(outs)
         for bits in verify_bits:
             cb = dataclasses.replace(c, cache_quant_bits=bits)
-            _, caches = T.prefill(cb, params, toks, lens, max_len)
+            _, caches = T.prefill(cb, params, toks, lens, max_len, source=src)
             runs[(f"verify {'int8' if bits else 'float'}", backend)], _ = T.verify_step(
                 cb, params, caches, fed, lens, mask)
         del caches
@@ -1285,12 +1307,27 @@ ENGINE_RUNS.update({"N": ENGINE_RUNS["V"], "N3": ENGINE_RUNS["V3"], "NU": ENGINE
 ENGINE_RUNS.update({"DS": dict(ENGINE_RUNS["V"], must=()),
                     "DS3": dict(ENGINE_RUNS["V3"], must=()),
                     "DSP": dict(ENGINE_RUNS["M"], must=())})
+# The cross-attention models (``phase_cross``; full width and depth, a
+# seeded source): llama-3.2-vision-11b dense (X, A's prompts) and compressed
+# in the run (XU, A's; XU3, C's with "ngram"; XUs, S's traffic, sync, the
+# twin of the continuous XU+c), and whisper-small dense (W) and compressed
+# in the run (WU), both on A's prompts.
+ENGINE_RUNS.update({"X": ENGINE_RUNS["V"], "XU": ENGINE_RUNS["U"], "XU3": ENGINE_RUNS["U3"],
+                    "XUs": dict(ENGINE_RUNS["S"], prompts="S"),
+                    "W": ENGINE_RUNS["V"], "WU": ENGINE_RUNS["U"]})
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
                "U": 4096, "U3": 4096, "M": 4608, "M3": 9216, "N": 2560, "N3": 2560,
                "NU": 1280, "NU3": 1280, "Q": 2048, "Q3": 2048, "QU": 1024, "QU3": 1024,
                # MLA: c_kv (512) and the shared RoPE key columns (64), bf16
-               "DS": 1152, "DS3": 1152, "DSP": 1152}
+               "DS": 1152, "DS3": 1152, "DSP": 1152,
+               # llama-vision: qwen3-4b's heads; whisper: 12 kv heads of dh 64,
+               # G 3 x r 128 compressed
+               "X": 4096, "XU": 2048, "XU3": 2048, "XUs": 2048, "W": 3072, "WU": 1536}
+# a cross model's cache per slot: its cross layers' source keys and values
+# (or latents), cross_source_len positions each, bf16
+CROSS_BYTES = {"X": 8 * 1600 * 4096, "XU": 8 * 1600 * 2048, "XU3": 8 * 1600 * 2048,
+               "XUs": 8 * 1600 * 2048, "W": 12 * 1500 * 3072, "WU": 12 * 1500 * 1536}
 # runs served again by the overlapped engine with the window captured as
 # CUDA graphs (overlap=True, aot=True); B also with adaptive speculation.
 # Their streams must equal the sync runs' in the same call.
@@ -1299,7 +1336,10 @@ OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {},
               # worker thread forms waves as requests arrive, and under MoE
               # the rows of a call share the experts' capacity, so another
               # grouping gives other tokens (so does the JAX engine)
-              "Q": dict(admission_thread=False), "DS": dict(admission_thread=False)}
+              "Q": dict(admission_thread=False), "DS": dict(admission_thread=False),
+              # a cross model's wave row i reads source row i: the sync run's
+              # one 8-row wave again
+              "XU": dict(admission_thread=False), "WU": dict(admission_thread=False)}
 # runs served three ways in one call (sync; overlapped + graphs at pipeline
 # depth 3; the same with continuous batching): streams equal, installs
 # inside the windows
@@ -1387,6 +1427,14 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
         raise AssertionError(f"engine run {run}: {captures} graphs captured, expected 2 "
                              f"(greedy and sampled)")
     kv_bytes, pos_bytes = cache_bytes(torch, eng.cache)
+    cross_slot = sum(nbytes(*c["cross"].values()) for c in eng.cache if "cross" in c) // 8
+    if eng.source is not None:
+        self_slot = sum(nbytes(*c["self"].values()) for c in eng.cache if "self" in c) // 8
+        log(f"engine run {label or run}: source {tuple(eng.source.shape)}, cache bytes per "
+            f"slot: self {self_slot:,}, cross {cross_slot:,}")
+        if cross_slot != CROSS_BYTES[run]:
+            raise AssertionError(f"engine run {run}: the cross cache holds {cross_slot} B "
+                                 f"per slot, expected {CROSS_BYTES[run]}")
     reqs = engine_prompts(torch, spec.get("prompts", run), cfg.vocab_size)
     if "new" in spec:
         reqs = [(p, spec["new"]) for p, _ in reqs]
@@ -1412,7 +1460,7 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
                               "prefill_calls_saved", "prefix_resurrections",
                               "pages_pinned", "policy", "lazy_pages")}
     name = label or (f"{run}, overlapped + graphs" if overlapped else run)
-    stage_bytes = (sum(nbytes(*c["self"].values()) for c in eng._stage["cache"])
+    stage_bytes = (sum(nbytes(*c[part].values()) for c in eng._stage["cache"] for part in c)
                    if eng.continuous and "cache" in eng._stage else 0)
     if overlapped:
         log(f"engine run {name}: boot {boot_s:.3f} s, capture {m['capture_s']:.3f} s, "
@@ -1458,21 +1506,22 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
                              "windows_idle", "spec_degraded", "graphs", "continuous",
                              "slot_swaps", "staging_depth", "occupancy_device_mean",
                              "pipeline_depth")},
-        "stage_cache_bytes": stage_bytes,
+        "stage_cache_bytes": stage_bytes, "cross_bytes_per_slot": cross_slot,
         "boot_s": boot_s, "profile_s": m["profile"]["seconds"],
         **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall,
         "cache_bytes_per_token_layer": kv_bytes, "pos_bytes_per_token_layer": pos_bytes}
 
 
-def phase_overlapped(torch, cfg, params, runs, by_run, streams, serving):
+def phase_overlapped(torch, cfg, params, runs, by_run, streams, serving, extra=None):
     """Serve ``runs`` again with the overlapped engine and the window as
     CUDA graphs (``OVERLAPPED``; keys "A+" ...): each run's streams must
-    equal its sync run's in this call, token for token."""
+    equal its sync run's in this call, token for token.  ``extra`` adds
+    engine keywords (a cross model's ``source``)."""
     t0 = time.perf_counter()
     for run in runs:
         key = run + "+"
         by_run[key], streams[key], serving[key] = phase_engine(torch, cfg, params, run,
-                                                               overlapped=True)
+                                                               overlapped=True, extra=extra)
         if streams[key] != streams[run]:
             raise AssertionError(f"engine run {run}: the overlapped engine's streams "
                                  f"differ from the sync run's: {streams[key]} vs "
@@ -1636,7 +1685,7 @@ ARTIFACT = ROOT / "build" / "chip_smoke_artifact"   # gitignored
 ALS_RISE = 1e-3     # a value group's error may rise under ALS by rounding only
 
 
-def phase_compress(torch, cfg, params, groups=2, rank=256, save=True):
+def phase_compress(torch, cfg, params, groups=2, rank=256, save=True, source=None):
     """Run J's first half on the dense model: ``calibrate`` on 8 synthetic
     "calib" sequences of 512 tokens (vocab 4096: valid ids of the full
     vocabulary, and a 134 MB transition table instead of 185 GB),
@@ -1647,11 +1696,16 @@ def phase_compress(torch, cfg, params, groups=2, rank=256, save=True):
     seconds of each, each layer's value error before and after ALS (a
     rise past ALS_RISE relative fails: each ALS step is an exact
     minimiser), the HSR groups and their within-group CKA against the
-    identity grouping's (printed only: random heads leave near-ties)."""
+    identity grouping's (printed only: random heads leave near-ties).  A
+    cross model's batch carries ``source`` (its 8 rows, one a sequence):
+    its cross layers compress on identity statistics, their reports after
+    the self layers'."""
     from repro_torch import api
     from repro_torch.data import DataConfig, batch
     t0 = time.perf_counter()
     batches = [batch(DataConfig(vocab_size=4096, seq_len=512), "calib", 0, 8)]
+    if source is not None:
+        batches[0]["source"] = source
     data_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1986,6 +2040,136 @@ def phase_deepseek(torch, by_run, streams, serving, backends) -> dict:
     return {"peaks_gib": peaks, "seconds": seconds}
 
 
+def make_source(torch, cfg, seed, rows=8, repeat=False):
+    """A seeded stub-frontend source (rows, cross_source_len, d_model) in the
+    model dtype on the card; with ``repeat`` one seeded row repeated
+    ``rows`` times (a row-independent source)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    n = 1 if repeat else rows
+    src = torch.randn((n, cfg.cross_source_len, cfg.d_model), generator=gen,
+                      device="cuda").to(cfg.dtype)
+    return src.expand(rows, -1, -1) if repeat else src
+
+
+def count_decode_steps(fn):
+    """(fn(), the ``transformer.decode_step`` calls it made): the engine
+    calls the module's function, so a wrapper there sees every step."""
+    from repro_torch.models import transformer as T
+    orig, n = T.decode_step, [0]
+
+    def counted(*a, **k):
+        n[0] += 1
+        return orig(*a, **k)
+
+    T.decode_step = counted
+    try:
+        return fn(), n[0]
+    finally:
+        T.decode_step = orig
+
+
+def phase_cross(torch, by_run, streams, serving, backends) -> dict:
+    """The cross-attention models at full width and depth on the kernel
+    backend, bf16, random weights from seed 0, a seeded source (8 rows;
+    cross-attention is einsum, as in the JAX package, so under the kernel
+    backend the engine warns once).  llama-3.2-vision-11b (40 layers: 32
+    ``attn`` with qwen3-4b's heads, 8 ``cross`` over a 1,600-patch
+    source): X (dense, A's prompts); ``calibrate`` with the source and
+    ``compress`` (G 2, r 256; the cross layers on identity statistics; not
+    saved), the dense weights freed, both backends' logits; XU (A's), its
+    decode steps counted: each must launch 32 K1 (the self layers) and
+    none for the cross layers; XU+ (overlapped + graphs, inline admission:
+    XU's streams, 32 K1 a replay); XU3 (C's, "ngram"); then S's traffic
+    with one source row repeated (a wave's row i reads source row i, and
+    the continuous engine forms other waves than the sync one): XUs
+    (sync) and XU+c (overlapped + graphs + continuous at pipeline depth 3
+    and staging depth 8, the source's rows: XUs's streams, installs).
+    whisper-small (12 encoder + 12 ``attn_cross`` decoder layers over a
+    1,500-frame source): W (dense, A's prompts); compressed in the run (G
+    3, r 128), both backends' logits, WU (A's) and WU+ (overlapped +
+    graphs: WU's streams, 12 K1 a replay).  Each run prints its source
+    and its self and cross bytes per slot.  Returns the phase's record."""
+    from repro_torch import kernels
+    rec, t0 = {}, time.perf_counter()
+    arch = "llama-3.2-vision-11b"
+    cfg, params = family_model(torch, arch)
+    src = make_source(torch, cfg, SEED + 6)
+    kw = dict(source=src)
+    by_run["X"], streams["X"], serving["X"] = phase_engine(torch, cfg, params, "X", extra=kw)
+    _no_old_route(by_run, ("X",), arch)
+    t1 = time.perf_counter()
+    rec[arch], art = phase_compress(torch, cfg, params, groups=2, rank=256, save=False,
+                                    source=src)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    kernels.reset_launch_counts()
+    backends[f"{arch} latent"] = phase_backends(torch, cfg, params, (None, 8), source=src)
+    by_run["vision latent steps"] = launch_counts(kernels)
+    (by_run["XU"], streams["XU"], serving["XU"]), steps = count_decode_steps(
+        lambda: phase_engine(torch, cfg, params, "XU", extra=kw))
+    k1 = by_run["XU"]["latent_decode_attention"]
+    if k1 != 32 * steps:
+        raise AssertionError(f"engine run XU: {k1} K1 launches over {steps} decode steps, "
+                             f"expected 32 a step (the self layers; none for the cross)")
+    log(f"engine run XU: {steps} decode steps, {k1} K1 launches: 32 a step, none from the "
+        f"8 cross layers")
+    phase_overlapped(torch, cfg, params, ["XU"], by_run, streams, serving, extra=kw)
+    per_replay = serving["XU+"]["graphs"]["greedy"]["launches"]
+    if per_replay != {"latent_decode_attention": 32}:
+        raise AssertionError(f"engine run XU+: launches per replay {per_replay}, expected "
+                             f"32 K1 (the self layers) and nothing else")
+    by_run["XU3"], streams["XU3"], serving["XU3"] = phase_engine(torch, cfg, params, "XU3",
+                                                                 extra=kw)
+    rep = make_source(torch, cfg, SEED + 7, repeat=True)
+    by_run["XUs"], streams["XUs"], serving["XUs"] = phase_engine(
+        torch, cfg, params, "XUs", extra=dict(source=rep))
+    by_run["XU+c"], streams["XU+c"], serving["XU+c"] = phase_engine(
+        torch, cfg, params, "XUs", overlapped=True, label="XU+c",
+        extra=dict(source=rep, continuous=True, pipeline_depth=3, staging_depth=8))
+    if streams["XU+c"] != streams["XUs"]:
+        raise AssertionError(f"engine run XU+c: streams differ from XUs's: "
+                             f"{streams['XU+c']} vs {streams['XUs']}")
+    if serving["XU+c"]["slot_swaps"] <= 0 or by_run["XU+c"]["stage_install_rows"] <= 0:
+        raise AssertionError("engine run XU+c: the continuous engine installed nothing")
+    log(f"engine run XU+c: streams equal XUs's; {serving['XU+c']['slot_swaps']} installs; "
+        f"tok/s {serving['XU+c']['tokens_per_s']:.2f} (sync "
+        f"{serving['XUs']['tokens_per_s']:.2f})")
+    del params, src, rep
+    torch.cuda.empty_cache()
+    log(f"{arch}: dense run {t1 - t0:.1f} s, compression and latent runs "
+        f"{time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    arch = "whisper-small"
+    cfg, params = family_model(torch, arch)
+    src = make_source(torch, cfg, SEED + 8)
+    kw = dict(source=src)
+    by_run["W"], streams["W"], serving["W"] = phase_engine(torch, cfg, params, "W", extra=kw)
+    rec[arch], art = phase_compress(torch, cfg, params, groups=3, rank=128, save=False,
+                                    source=src)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    kernels.reset_launch_counts()
+    backends[f"{arch} latent"] = phase_backends(torch, cfg, params, (None, 8), source=src)
+    by_run["whisper latent steps"] = launch_counts(kernels)
+    by_run["WU"], streams["WU"], serving["WU"] = phase_engine(torch, cfg, params, "WU",
+                                                              extra=kw)
+    phase_overlapped(torch, cfg, params, ["WU"], by_run, streams, serving, extra=kw)
+    per_replay = serving["WU+"]["graphs"]["greedy"]["launches"]
+    if per_replay != {"latent_decode_attention": 12}:
+        raise AssertionError(f"engine run WU+: launches per replay {per_replay}, expected "
+                             f"12 K1 (the decoder's self halves) and nothing else")
+    del params, src
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"{arch}: runs and compression {time.perf_counter() - t1:.1f} s; the cross phase "
+        f"took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2063,6 +2247,12 @@ def main() -> int:
     entries += [phase_dense(torch, gen, paged, nq, qm) for nq in (1, 4)
                 for paged in (False, True)]
     entries.append(phase_dense(torch, gen, False, 16, qm))   # 256 rows: four row groups
+    # whisper-small's widths: its latent cache at ratio 0.5 (K1 at G 3, Hg 4,
+    # dh 64, r 128; K2 at dh 64, dv 128) and its dense decode (Hkv 12,
+    # q_per_kv 1); llama-3.2-vision-11b's are qwen3-4b's
+    ws = "whisper-small"
+    entries += [phase_latent(torch, gen, 1, False, ws), phase_k2(torch, gen, ws),
+                phase_dense(torch, gen, False, 1, ws)]
     torch.cuda.empty_cache()
     log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
 
@@ -2141,6 +2331,7 @@ def main() -> int:
                           "qwen3-moe-235b-a22b": phase_qwen3_moe(torch, by_run, streams,
                                                                  serving, backends)}
     deepseek = phase_deepseek(torch, by_run, streams, serving, backends)
+    cross = phase_cross(torch, by_run, streams, serving, backends)
     family = {run for runs in FAMILY_RUNS.values() for run in runs}
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
@@ -2153,7 +2344,7 @@ def main() -> int:
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
                     "decode_bodies": decode_bodies, "f32_widths": f32_widths,
                     "compression": compression, "family_compression": family_compression,
-                    "deepseek": deepseek, "cli": cli}))
+                    "deepseek": deepseek, "cross": cross, "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -38,7 +38,8 @@ from repro_torch.serving.engine import Engine
 def calibrate(cfg: ModelConfig, params: Any, batches: Sequence[dict], *,
               fisher: bool = False) -> CalibrationData:
     """Run the calibration forward passes once and summarize them.
-    ``batches`` are dicts with "tokens" (B, T).  The result is
+    ``batches`` are dicts with "tokens" (B, T) and, for a model with
+    cross-attention layers, "source" (B, S_src, d).  The result is
     strategy-agnostic — capture once, reuse across ``compress`` calls."""
     if fisher:
         raise NotImplementedError(f"calibrate(..., fisher=True): {FISHER_NOT_PORTED}")
@@ -95,7 +96,8 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
     through to the Engine (``sampling``, ``sync_every``,
     ``prefill_chunk``, ``backend``, ``spec_depth`` / ``draft``,
     ``cache_layout`` / ``page_size`` / ``n_pages``, ``policy``,
-    ``lazy_pages``, ``pin_prefixes``, ``overlap`` / ``pipeline_depth`` /
+    ``lazy_pages``, ``pin_prefixes``, ``source`` (a cross-attention
+    model's frontend embeddings), ``overlap`` / ``pipeline_depth`` /
     ``admission_thread``, ``continuous`` / ``staging_depth``, ``aot``,
     ``adaptive_spec``, ``profile``).
     Widths no CUDA kernel serves are refused before the engine is built

@@ -126,7 +126,7 @@ def _rotate_left_inverse(w):
 
 def _quantize_latent_factors(params, *, bits: int, hadamard: bool):
     """Fake-quantize the low-rank factors (L_k, R_k, L_v) of every latent
-    layer — weight-space PTQ of the factorization, not runtime
+    layer, self- and cross-attention — weight-space PTQ of the factorization, not runtime
     quantization of the cached latents.  ``wo_fused`` stays full
     precision but is rotated to undo the L_v rotation."""
     def one_block(p: dict) -> dict:
@@ -142,8 +142,8 @@ def _quantize_latent_factors(params, *, bits: int, hadamard: bool):
         p["l_v"] = fake_quant(l_v, bits)
         return p
 
-    layers = [{**layer, "attn": one_block(layer["attn"])}
-              if "l_k" in layer["attn"] else layer
+    layers = [{**layer, **{sub: one_block(layer[sub]) for sub in ("attn", "cross")
+                           if sub in layer and "l_k" in layer[sub]}}
               for layer in params["layers"]]
     return {**params, "layers": layers}
 

@@ -24,6 +24,8 @@ _MODULES = {
     "h2o-danube-1.8b": "h2o_danube_1p8b",
     "qwen3-moe-235b-a22b": "qwen3_moe_235b",
     "deepseek-v3-671b": "deepseek_v3_671b",
+    "llama-3.2-vision-11b": "llama32_vision_11b",
+    "whisper-small": "whisper_small",
 }
 ARCHS: tuple[str, ...] = tuple(_MODULES)
 # ReCalKV applies to archs with cached RoPE'd attention; DeepSeek's MLA is
@@ -36,6 +38,8 @@ RECALKV_APPLICABLE = {
     "h2o-danube-1.8b": True,
     "qwen3-moe-235b-a22b": True,
     "deepseek-v3-671b": False,
+    "llama-3.2-vision-11b": True,
+    "whisper-small": True,
 }
 
 

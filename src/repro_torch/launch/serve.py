@@ -6,7 +6,13 @@ on one card (port of ``repro.launch.serve``).
 prompts and reports throughput, host syncs, slot occupancy and queue
 depth, with the cache's footprint.  ``--device cpu`` runs the plain
 PyTorch path (smoke configs).  The weights are random, from
-``init_params`` on a seeded ``torch.Generator``.
+``init_params`` on a seeded ``torch.Generator``.  A model with
+cross-attention layers (llama-3.2-vision, whisper) reads a source as the
+JAX CLI builds it, ``np.random.default_rng(0).normal(size=(rows,
+cross_source_len, d_model))`` in the model dtype, with rows = ``--slots``
+(and, overlapped, at least the staging depth: an admission wave of W rows
+reads source rows 0..W-1, and the first ``--slots`` rows are the JAX
+CLI's).
 
 Not ported (refused with their ROADMAP items): ``--mesh`` other than one
 device (Queue 1 item 5), an ``--arch`` the port has not registered (item
@@ -32,10 +38,11 @@ MESH_NOT_PORTED = ("multi-GPU serving is not ported yet (ROADMAP.md, Queue 1 ite
                    "the port serves on one card")
 
 
-def cache_bytes(caches) -> int:
-    """Bytes of the engine's cache tensors (one dict of leaves per layer)."""
+def cache_bytes(caches, part: str = "self") -> int:
+    """Bytes of the engine's cache tensors of one part of each layer's
+    cache: its self-attention ring ("self") or its cross cache ("cross")."""
     return sum(leaf.numel() * leaf.element_size()
-               for c in caches for leaf in c["self"].values())
+               for c in caches for leaf in c.get(part, {}).values())
 
 
 def _device_name(dev: torch.device) -> str:
@@ -131,10 +138,17 @@ def main(argv=None):
         cfg = dataclasses.replace(
             cfg, attn_backend="kernel" if args.backend == "pallas" else args.backend)
     params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), device=dev)
+    source = None
+    if any(k in ("cross", "attn_cross") for k in cfg.expanded_layers()):
+        rows = args.slots
+        if args.overlap:
+            rows = max(rows, args.staging_depth or 2 * args.slots)
+        source = torch.from_numpy(np.random.default_rng(0).normal(
+            size=(rows, cfg.cross_source_len, cfg.d_model))).to(dev, cfg.dtype)
     sampling = SamplingParams(temperature=args.temperature, top_k=args.top_k,
                               top_p=args.top_p, seed=args.seed)
     eng = Engine(cfg, params, max_slots=args.slots, max_len=args.max_len,
-                 sampling=sampling, sync_every=args.sync_every,
+                 source=source, sampling=sampling, sync_every=args.sync_every,
                  prefill_chunk=args.prefill_chunk, spec_depth=args.spec_depth,
                  draft=args.draft, cache_layout=args.cache_layout,
                  page_size=args.page_size, n_pages=args.n_pages,
@@ -151,8 +165,11 @@ def main(argv=None):
     mode = ((f"overlapped x{args.pipeline_depth}" if args.overlap else "sync")
             + (", continuous" if args.continuous else "")
             + (", aot" if args.aot else ""))
+    cross = ("" if source is None else
+             f", cross cache {cache_bytes(eng.cache, 'cross') / 2**20:.1f} MiB "
+             f"(source {tuple(source.shape)})")
     print(f"[serve] {cfg.name}: cache {cache_bytes(eng.cache) / 2**20:.1f} MiB "
-          f"({args.slots} slots x {args.max_len} positions), "
+          f"({args.slots} slots x {args.max_len} positions){cross}, "
           f"sync_every={args.sync_every}, device {_device_name(dev)}, "
           f"{mode}{spec}{layout}")
 

@@ -40,7 +40,9 @@ def capture_calibration(cfg: ModelConfig, params,
     einsum forward of the model (``want_cache=False``, as the JAX package
     runs it).  Each layer's statistics are summed as the forward reaches
     it, so no layer's activations outlive it.  ``batches`` are dicts with
-    "tokens" (B, T) (numpy or torch)."""
+    "tokens" (B, T) (numpy or torch) and, for a model with
+    cross-attention layers, "source" (B, S_src, d) (encoded first for an
+    encoder-decoder)."""
     check_supported(cfg)
     dev = params["embed"].device
     kinds = cfg.expanded_layers()
@@ -48,9 +50,13 @@ def capture_calibration(cfg: ModelConfig, params,
     for batch in batches:
         tokens = torch.as_tensor(batch["tokens"], device=dev).long()
         B, Tn = tokens.shape
+        source = batch.get("source")
+        if source is not None:
+            source = T.cross_source(cfg, params, torch.as_tensor(source, device=dev)
+                               .to(cfg.dtype))
         ctx = {"positions": torch.arange(Tn, device=dev).expand(B, Tn),
                "lengths": torch.full((B,), Tn, dtype=torch.int64, device=dev),
-               "max_len": Tn}
+               "max_len": Tn, "source": source}
         x = T.embed_tokens(cfg, params, tokens)
         j = 0
         for i, kind in enumerate(kinds):
@@ -80,8 +86,14 @@ def compress_model(cfg: ModelConfig, params, stats: Sequence[P.CalibStats],
     """Returns (compressed_cfg, compressed_params).  Self-attention layers
     get HSR keys + OCMF values, one layer at a time (its float32 factors
     are cast to ``cfg.dtype`` before the next starts); the other leaves
-    are shared with ``params``, not copied.  ``reports``, when given,
-    receives each layer's ``CompressedAttention.report``."""
+    (an encoder's among them) are shared with ``params``, not copied.
+    Cross-attention layers go through the same pipeline on identity
+    statistics (their source is the stub frontend's) at the first self
+    layer's rank, or, in a model without self-attention layers, at the
+    policy's rank for the group width (JAX ``compress_model``); there the
+    runtime config carries that rank (the JAX package writes 0).
+    ``reports``, when given, receives each layer's
+    ``CompressedAttention.report`` (self layers, then cross layers)."""
     check_supported(cfg)
     if cfg.mla is not None:
         raise ValueError("MLA models already cache latents; nothing to do")
@@ -91,27 +103,40 @@ def compress_model(cfg: ModelConfig, params, stats: Sequence[P.CalibStats],
     idxs = attn_layer_indices(cfg)
     if len(stats) != len(idxs):
         raise ValueError(f"need {len(idxs)} stats, got {len(stats)}")
-    if not idxs:
-        raise ValueError(f"{cfg.name} has no self-attention layer to compress")
+    cross = [i for i, k in enumerate(cfg.expanded_layers())
+             if k in ("cross", "attn_cross")]
+    if not idxs and not cross:
+        raise ValueError(f"{cfg.name} has no attention layer to compress")
     s = recal_cfg.effective_group_size(cfg.num_kv_heads)
     ranks_k, ranks_v = P.allocate_layer_ranks(
         recal_cfg, len(idxs), s * cfg.d_head, fisher_k, fisher_v)
     layers = list(params["layers"])
     by_layer = [(0, 0)] * cfg.num_layers
-    for j, i in enumerate(idxs):
-        a = layers[i]["attn"]
+
+    def compress(a, st, rk, rv):
         w = P.AttnWeights(W_q=a["wq"], W_k=a["wk"], W_v=a["wv"], W_o=a["wo"],
                           num_q_heads=cfg.num_heads,
                           num_kv_heads=cfg.num_kv_heads)
-        ca = P.compress_attention_layer(w, stats[j], recal_cfg, ranks_k[j],
-                                        ranks_v[j])
-        layers[i] = {**layers[i], "attn": _to_latent_params(a, ca, cfg.dtype)}
-        by_layer[i] = (ca.rank_k, ca.rank_v)
+        ca = P.compress_attention_layer(w, st, recal_cfg, rk, rv)
         if reports is not None:
             reports.append(ca.report)
+        return ca
+
+    for j, i in enumerate(idxs):
+        a = layers[i]["attn"]
+        ca = compress(a, stats[j], ranks_k[j], ranks_v[j])
+        layers[i] = {**layers[i], "attn": _to_latent_params(a, ca, cfg.dtype)}
+        by_layer[i] = (ca.rank_k, ca.rank_v)
+    rk = by_layer[idxs[0]][0] if idxs else recal_cfg.rank_for_width(s * cfg.d_head)
+    for i in cross:
+        a = layers[i]["cross"]
+        ca = compress(a, P.CalibStats.identity(cfg.d_model, device=a["wq"].device),
+                      rk, rk)
+        layers[i] = {**layers[i], "cross": _to_latent_params(a, ca, cfg.dtype)}
     new_params = {**params, "layers": layers}
+    r_k, r_v = (ranks_k[0], ranks_v[0]) if idxs else (rk, rk)
     new_cfg = dataclasses.replace(
         cfg, scan_layers=False,
-        recalkv=ReCalKVRuntime(rank_k=ranks_k[0], rank_v=ranks_v[0],
+        recalkv=ReCalKVRuntime(rank_k=r_k, rank_v=r_v,
                                group_size=s, ranks_by_layer=tuple(by_layer)))
     return new_cfg, new_params

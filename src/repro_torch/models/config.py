@@ -7,8 +7,11 @@ subset the serving path needs — ``attn``, ``attn_dense`` (always a dense
 FFN: DeepSeek's first-k-dense prefix) and sliding-window ``local`` blocks,
 each with a dense SwiGLU FFN or a capacity-routed MoE FFN (``moe``), over
 a dense K/V cache (``recalkv=None``), a ReCalKV latent cache, float or
-int8 (``cache_quant_bits``), or DeepSeek's MLA latent cache (``mla``) —
-and :func:`check_supported` names anything else as not ported.
+int8 (``cache_quant_bits``), or DeepSeek's MLA latent cache (``mla``);
+cross-attention blocks (``cross``, and ``attn_cross``: self- then
+cross-attention, the decoder of an ``encoder_decoder`` model) over a
+static source cache — and :func:`check_supported` names anything else
+(Mamba and RG-LRU) as not ported.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -224,22 +227,19 @@ class ModelConfig:
 KERNEL_D_HEADS = (64, 80, 128, 256)
 KERNEL_MAX_Q_PER_KV = 16
 # What check_supported still refuses by kind (ROADMAP.md Queue 1 item 4).
-STILL_TO_PORT = ("Mamba and RG-LRU blocks, cross-attention and encoder-decoder "
-                 "models are still to port")
-PORTED_KINDS = ("attn", "attn_dense", "local")
+STILL_TO_PORT = "Mamba and RG-LRU blocks are still to port"
+PORTED_KINDS = ("attn", "attn_dense", "local", "cross", "attn_cross")
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port's model
-    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: Mamba,
-    RG-LRU, encoder-decoder and cross-attention).  On a CUDA ``device``
+    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: Mamba
+    and RG-LRU).  On a CUDA ``device``
     with the kernel backend it also refuses widths no Hopper body serves
     (ROADMAP.md, Queue 3 item 2); the CPU's plain versions serve every
     width, and MLA's readers launch no kernel, so an MLA model is not
     checked for them."""
     missing = [name for name in ("mamba", "rglru") if getattr(cfg, name) is not None]
-    if cfg.encoder_decoder:
-        missing.append("encoder-decoder")
     kinds = sorted(set(cfg.expanded_layers()) - set(PORTED_KINDS))
     if kinds:
         missing.append(f"block kinds {kinds}")

@@ -14,6 +14,13 @@ latent and the post-RoPE key columns all heads share, in the model dtype
 slot (-1 = empty); masking and RoPE read it, so ring wraparound needs no
 other bookkeeping.  Writes go to slot ``cur % L``.
 
+A cross-attention layer also holds ``{"cross": ...}``: the source's keys
+and values ``{"k", "v": (B, S_src, Hkv, dh)}`` (dense) or latents ``{"zk",
+"zv": (B, S_src, G, r)}``, written once by prefill and static after it
+(every writer below leaves it as it is; always ``cfg.dtype``, never
+int8).  A ``cross`` layer has no ``"self"``; an ``attn_cross`` layer has
+both.
+
 Deferred writes: the decode reader scores the current token as an extra
 self column and returns its entry; :func:`apply_decode_writes` writes all
 layers' entries once, after the layer loop.  The verify reader (S tokens,
@@ -81,10 +88,28 @@ def init_self_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
     }
 
 
+def init_cross_cache(cfg: ModelConfig, batch: int, device) -> Params:
+    """Empty cross leaves (batch, cross_source_len, ...) in ``cfg.dtype``:
+    the source's keys and values, or their latents at the uniform ranks."""
+    S = cfg.cross_source_len
+    rt = cfg.recalkv
+    z = lambda *sh: torch.zeros(sh, dtype=cfg.dtype, device=device)
+    if rt is None:
+        return {"k": z(batch, S, cfg.num_kv_heads, cfg.d_head),
+                "v": z(batch, S, cfg.num_kv_heads, cfg.d_head)}
+    G = rt.num_groups(cfg.num_kv_heads)
+    return {"zk": z(batch, S, G, rt.rank_k), "zv": z(batch, S, G, rt.rank_v)}
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device, layer_idx: int | None = None) -> Params:
-    return {"self": init_self_cache(cfg, kind, batch, max_len, device,
-                                    layer_idx=layer_idx)}
+    if kind == "cross":
+        return {"cross": init_cross_cache(cfg, batch, device)}
+    out = {"self": init_self_cache(cfg, kind, batch, max_len, device,
+                                   layer_idx=layer_idx)}
+    if kind == "attn_cross":
+        out["cross"] = init_cross_cache(cfg, batch, device)
+    return out
 
 
 def write_prefill(cache_arr: torch.Tensor, values: torch.Tensor,
@@ -218,10 +243,15 @@ def kernel_fallback_kinds(cfg: ModelConfig) -> list[str]:
     """Layer kinds that take the einsum path even under
     ``attn_backend="kernel"`` (JAX's ``pallas_fallback_kinds``, for the
     kinds the port serves): the absorbed-MLA readers score in the c_kv
-    latent space, with no kernel, so an MLA model lists every kind it has.
-    The engine warns once when this list is non-empty, so a requested
-    kernel backend never degrades silently."""
-    return sorted(set(cfg.expanded_layers())) if cfg.mla is not None else []
+    latent space, with no kernel, so an MLA model lists every kind it has;
+    cross-attention reads a static source cache through einsum (an
+    ``attn_cross`` layer for its cross half).  The engine warns once when
+    this list is non-empty, so a requested kernel backend never degrades
+    silently."""
+    kinds = sorted(set(cfg.expanded_layers()))
+    if cfg.mla is not None:
+        return kinds
+    return [k for k in kinds if k in ("cross", "attn_cross")]
 
 
 def _pool_route(cfg: ModelConfig, cache: Params, pages):
@@ -427,7 +457,7 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
         pages[0], cur.to(torch.int64)[:, None], None if active is None else active[:, None],
         pages[1])
     for cache, upd in zip(caches, updates):
-        for name, leaf in cache["self"].items():
+        for name, leaf in cache.get("self", {}).items():
             if pages is None:
                 _merge_leaf(leaf, upd["self"][name], cur, active)
             else:
@@ -640,7 +670,7 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     targets = None if pages is None else _paged_targets(
         pages[0], cur.to(torch.int64)[:, None] + cols, mask, pages[1])
     for cache, upd in zip(caches, updates):
-        for name, leaf in cache["self"].items():
+        for name, leaf in cache.get("self", {}).items():
             new = upd["self"][name]
             if pages is not None:
                 _paged_merge_leaf(leaf, new, targets)
@@ -663,8 +693,31 @@ def invalidate_positions(caches: list, cur: torch.Tensor,
     layer, in place, for rows where ``mask``: retires a draft model's
     entries for rejected proposals, which it wrote as it proposed."""
     for cache in caches:
+        if "self" not in cache:
+            continue
         pos = cache["self"]["pos"]
         rows = torch.arange(pos.shape[0], device=pos.device)
         slot = cur.to(torch.int64) % pos.shape[1]
         pos[rows, slot] = torch.where(mask, -1, pos[rows, slot])
     return caches
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention readers (the static source cache; einsum, as in JAX)
+# ---------------------------------------------------------------------------
+
+def decode_cross_dense(p: Params, x: torch.Tensor, cache: Params,
+                       cfg: ModelConfig) -> torch.Tensor:
+    """Cross-attention of a decode (x (B, 1, d)) or verify (x (B, S, d))
+    step over the dense cross cache: the source is static, so the token
+    axis is just a query axis and nothing is written."""
+    return L.cross_attention_dense(
+        p, x, (cache["k"].to(x.dtype), cache["v"].to(x.dtype)), cfg)
+
+
+def decode_cross_latent(p: Params, x: torch.Tensor, cache: Params,
+                        cfg: ModelConfig) -> torch.Tensor:
+    """As :func:`decode_cross_dense` over the latent cross cache (key
+    absorption, values through ``wo_fused``)."""
+    return L.cross_attention_latent(
+        p, x, (cache["zk"].to(x.dtype), cache["zv"].to(x.dtype)), cfg)

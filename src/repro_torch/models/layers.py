@@ -97,14 +97,18 @@ def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def chunked_attention(q, k, zv, q_pos, k_pos, *, window, scale, chunk,
-                      group_size):
+                      group_size, causal: bool = True):
     """Query-chunked latent-value attention: live memory is bounded to
     (B, chunk, S) logits.  A T that ``chunk`` does not divide runs in one
-    pass, as in the JAX package."""
+    pass, as in the JAX package.  ``causal=False`` (the encoder) masks
+    only empty key slots (``k_pos`` -1)."""
     T = q.shape[1]
 
     def one(qc, qpc):
-        m = causal_mask(qpc, k_pos, window)[:, None, :, :]
+        if causal:
+            m = causal_mask(qpc, k_pos, window)[:, None, :, :]
+        else:
+            m = (k_pos >= 0)[:, None, None, :]
         return _attend_latent_v(qc, k, zv, m, scale, group_size)
 
     if T <= chunk or T % chunk:
@@ -119,11 +123,13 @@ def chunked_attention(q, k, zv, q_pos, k_pos, *, window, scale, chunk,
 
 def self_attention_dense(p: Params, x: torch.Tensor, cfg: ModelConfig,
                          positions: torch.Tensor, window: int | None,
-                         theta: float | None = None, use_kernel: bool = True):
+                         theta: float | None = None, causal: bool = True,
+                         use_kernel: bool = True):
     """Full-sequence dense attention.  Returns (y, (k_roped, v)) — the
-    pair prefill writes into the ring cache.  ``use_kernel=False`` keeps
+    pair prefill writes into the ring cache.  ``causal=False`` lets every
+    position attend every other (the encoder).  ``use_kernel=False`` keeps
     the einsum path under ``attn_backend="kernel"`` (the calibration
-    forward, as in the JAX package)."""
+    forward and the encoder, as in the JAX package)."""
     B, T, _ = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     q = (x @ p["wq"]).reshape(B, T, H, dh)
@@ -135,12 +141,12 @@ def self_attention_dense(p: Params, x: torch.Tensor, cfg: ModelConfig,
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
     if use_kernel and cfg.attn_backend == "kernel":
         # K2 with one value head per kv head (Hv = Hkv, dv = dh).
-        o = kops.flash_prefill(q, k, v, causal=True, window=window,
+        o = kops.flash_prefill(q, k, v, causal=causal, window=window,
                                scale=dh ** -0.5)
     else:
         o = chunked_attention(q, k, v, positions, positions, window=window,
                               scale=dh ** -0.5, chunk=cfg.attn_chunk,
-                              group_size=1)
+                              group_size=1, causal=causal)
     return o.reshape(B, T, H * dh) @ p["wo"], (k, v)
 
 
@@ -179,6 +185,67 @@ def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
                                   window=window, scale=dh ** -0.5,
                                   chunk=cfg.attn_chunk, group_size=s)
     return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"]), (zk, zv)
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (VLM / encoder-decoder): static source keys, no RoPE
+# ---------------------------------------------------------------------------
+
+def cross_attention_dense(p: Params, x: torch.Tensor,
+                          source_kv: tuple[torch.Tensor, torch.Tensor],
+                          cfg: ModelConfig) -> torch.Tensor:
+    """x (B, T, d) attends every source position; source_kv = (k, v),
+    each (B, S, Hkv, dh).  Serves prefill, decode and verify alike: the
+    token axis is just a query axis."""
+    B, T, _ = x.shape
+    H, dh = cfg.num_heads, cfg.d_head
+    k, v = source_kv
+    q = (x @ p["wq"]).reshape(B, T, H, dh)
+    q = maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
+    o = _attend_latent_v(q, k, v, None, dh ** -0.5, 1)
+    return o.reshape(B, T, H * dh) @ p["wo"]
+
+
+def cross_attention_latent(p: Params, x: torch.Tensor,
+                           source_latents: tuple[torch.Tensor, torch.Tensor],
+                           cfg: ModelConfig) -> torch.Tensor:
+    """Latent cross-attention with key absorption: cross keys carry no
+    RoPE, so the reconstruction commutes with the score product and
+    ``q' = q R_k^T`` scores against ``zk`` directly (keys are never
+    rebuilt); values stay latent through ``wo_fused``.  source_latents =
+    (zk (B, S, G, r_k), zv (B, S, G, r_v))."""
+    B, T, _ = x.shape
+    H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
+    zk, zv = source_latents
+    G = zk.shape[2]
+    s, g = Hkv // G, H // Hkv
+    rank_k, rank_v = zk.shape[-1], zv.shape[-1]
+    q = (x @ p["wq"]).reshape(B, T, H, dh)
+    q = maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
+    r_k = p["r_k"].reshape(G, rank_k, s, dh)
+    qg = q.reshape(B, T, G, s, g, dh)
+    q_abs = torch.einsum("btGsgd,Grsd->btGsgr", qg, r_k)
+    logits = torch.einsum("btGsgr,bSGr->bGsgtS", q_abs, zk).float()
+    w = torch.softmax(logits * dh ** -0.5, dim=-1).to(zv.dtype)
+    o_lat = torch.einsum("bGsgtS,bSGr->btGsgr", w, zv).reshape(B, T, H, rank_v)
+    return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"])
+
+
+def make_cross_source_dense(p: Params, source: torch.Tensor, cfg: ModelConfig):
+    """The source's cross keys (k-normed, no RoPE) and values, each
+    (B, S, Hkv, dh): what a dense cross cache holds."""
+    B, S, _ = source.shape
+    k = (source @ p["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.d_head)
+    v = (source @ p["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.d_head)
+    return maybe_head_norm(k, p.get("k_norm"), cfg.norm_eps), v
+
+
+def make_cross_source_latent(p: Params, source: torch.Tensor, cfg: ModelConfig):
+    """The source's key and value latents (B, S, G, r): what a latent
+    cross cache holds."""
+    zk = torch.einsum("bsd,gdr->bsgr", source, p["l_k"])
+    zv = torch.einsum("bsd,gdr->bsgr", source, p["l_v"])
+    return zk, zv
 
 
 # ---------------------------------------------------------------------------

@@ -4,13 +4,22 @@ an MLA KV cache.
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
-and caches are a list with one ``{"self": {...}}`` dict per layer.  With
-``pages = (ptab, page_size)`` the caches are page-major pools read and
-written through the page table (see :mod:`.kv_cache`).
+and caches are a list with one ``{"self": {...}}`` dict per layer (a
+``cross`` layer holds ``{"cross": {...}}`` instead, an ``attn_cross``
+layer both).  With ``pages = (ptab, page_size)`` the caches are
+page-major pools read and written through the page table (see
+:mod:`.kv_cache`).
+
+Cross-attention layers read a ``source`` (B, S_src, d): the stub
+frontend's embeddings, run through :func:`encode` first when the model is
+an encoder-decoder.  Prefill writes the source's keys and values (or
+latents) into the layer's cross cache, which decode and verify read and
+never write.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Callable
 
@@ -32,34 +41,86 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's FFN on its residual: dense on ``attn_dense`` blocks."""
+    """The block's FFN on its residual: dense on ``attn_dense`` and the
+    cross-attention kinds."""
     return x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                     dense=kind == "attn_dense")
+                     dense=kind in ("attn_dense", "cross", "attn_cross"))
+
+
+def _cross_full(cfg: ModelConfig, p: Params, h: torch.Tensor, ctx: dict):
+    """A cross half over a full sequence: (y, the layer's cross cache
+    leaves) from the source's keys and values (dense) or latents."""
+    source = ctx.get("source")
+    if source is None:
+        raise ValueError(f"{cfg.name}: cross-attention layers need a source "
+                         f"(B, {cfg.cross_source_len}, {cfg.d_model})")
+    if cfg.recalkv is None:
+        k, v = L.make_cross_source_dense(p, source, cfg)
+        return L.cross_attention_dense(p, h, (k, v), cfg), {"k": k, "v": v}
+    zk, zv = L.make_cross_source_latent(p, source, cfg)
+    return L.cross_attention_latent(p, h, (zk, zv), cfg), {"zk": zk, "zv": zv}
+
+
+def _cross_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
+                cache: Params) -> torch.Tensor:
+    """A cross half of a decode or verify step, over the static cache."""
+    reader = (KC.decode_cross_dense if cfg.recalkv is None
+              else KC.decode_cross_latent)
+    return reader(p, h, cache, cfg)
+
+
+def _cross_residual(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                    cache: Params) -> torch.Tensor:
+    """An ``attn_cross`` block's cross half on the residual of a decode or
+    verify step (the other kinds pass ``x`` through)."""
+    if kind != "attn_cross":
+        return x
+    return x + _cross_step(cfg, p["cross"], L.rmsnorm(x, p["lnx"], cfg.norm_eps),
+                           cache["cross"])
 
 
 def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                ctx: dict, want_cache: bool = True):
-    """One self-attention block over a full (B, T, d) sequence.  Returns
-    (x, cache) with the block's freshly written ring cache — dense, latent
-    or MLA — or (x, None) without ``want_cache``: the calibration forward,
-    which keeps the einsum path under the kernel backend, as the JAX
-    package does."""
+    """One block over a full (B, T, d) sequence.  Returns (x, cache) with
+    the block's freshly written caches — its ring (dense, latent or MLA)
+    and, for a cross-attention kind, its cross cache — or (x, None)
+    without ``want_cache``: the calibration and training forwards and the
+    encoder, which keep the einsum path under the kernel backend, as the
+    JAX package does.  ``ctx["causal"]`` False (the encoder) lets a dense
+    block attend every position."""
+    if kind == "cross":
+        y, cross = _cross_full(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                               ctx)
+        x = _ffn(cfg, kind, p, x + y)
+        return x, ({"cross": cross} if want_cache else None)
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, (ckv, krope) = L.mla_attention(p["attn"], h, cfg, ctx["positions"])
         values = {"ckv": ckv, "krope": krope}
+    elif cfg.recalkv is None:
+        y, (a, b) = L.self_attention_dense(
+            p["attn"], h, cfg, ctx["positions"], window, theta=_theta(cfg, kind),
+            causal=ctx.get("causal", True), use_kernel=want_cache)
+        values = {"k": a, "v": b}
     else:
-        attn = (L.self_attention_dense if cfg.recalkv is None
-                else L.self_attention_latent)
-        y, (a, b) = attn(p["attn"], h, cfg, ctx["positions"], window,
-                         theta=_theta(cfg, kind), use_kernel=want_cache)
-        values = ({"k": a, "v": b} if cfg.recalkv is None
-                  else KC.latent_cache_entry(cfg, a, b))
-    x = _ffn(cfg, kind, p, x + y)
+        y, (a, b) = L.self_attention_latent(p["attn"], h, cfg, ctx["positions"],
+                                            window, theta=_theta(cfg, kind),
+                                            use_kernel=want_cache)
+        values = KC.latent_cache_entry(cfg, a, b)
+    x = x + y
+    cross = None
+    if kind == "attn_cross":
+        y, cross = _cross_full(cfg, p["cross"],
+                               L.rmsnorm(x, p["lnx"], cfg.norm_eps), ctx)
+        x = x + y
+    x = _ffn(cfg, kind, p, x)
     if not want_cache:
         return x, None
-    return x, {"self": _prefill_self_cache(cfg, kind, ctx, values)}
+    cache = {"self": _prefill_self_cache(cfg, kind, ctx, values)}
+    if cross is not None:
+        cache["cross"] = cross
+    return x, cache
 
 
 def _prefill_self_cache(cfg: ModelConfig, kind: str, ctx: dict,
@@ -80,9 +141,13 @@ def _prefill_self_cache(cfg: ModelConfig, kind: str, ctx: dict,
 
 def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  cache: Params, ctx: dict):
-    """One self-attention block for a (B, 1, d) decode step.  Returns
-    (x, deferred updates) — written by ``kv_cache.apply_decode_writes``
-    after the layer loop."""
+    """One block for a (B, 1, d) decode step.  Returns (x, deferred
+    updates) — written by ``kv_cache.apply_decode_writes`` after the layer
+    loop; a cross half reads its static cache and defers nothing."""
+    if kind == "cross":
+        y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                        cache["cross"])
+        return _ffn(cfg, kind, p, x + y), {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.decode_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
@@ -93,15 +158,20 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        cfg.window_for(kind), theta=_theta(cfg, kind),
                        pages=ctx.get("pages"))
-    return _ffn(cfg, kind, p, x + y), {"self": sc}
+    return _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache)), {"self": sc}
 
 
 def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  cache: Params, ctx: dict):
-    """One self-attention block for a (B, S, d) verify step over S fed
-    tokens at positions cur..cur+S-1.  Returns (x, deferred (B, S, ...)
-    entries) — the caller commits only the accepted prefix
-    (``kv_cache.apply_verify_writes``)."""
+    """One block for a (B, S, d) verify step over S fed tokens at
+    positions cur..cur+S-1.  Returns (x, deferred (B, S, ...) entries) —
+    the caller commits only the accepted prefix
+    (``kv_cache.apply_verify_writes``); a cross half reads its static
+    cache with the S tokens as queries."""
+    if kind == "cross":
+        y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
+                        cache["cross"])
+        return _ffn(cfg, kind, p, x + y), {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.verify_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
@@ -112,14 +182,15 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        ctx["feed_mask"], cfg.window_for(kind),
                        theta=_theta(cfg, kind), pages=ctx.get("pages"))
-    return _ffn(cfg, kind, p, x + y), {"self": sc}
+    return _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache)), {"self": sc}
 
 
 def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
               caches: list | None = None, *, decode: bool = False,
-              verify: bool = False):
-    """Apply every layer in order.  Prefill returns (x, new caches); decode
-    and verify return (x, deferred updates)."""
+              verify: bool = False, want_cache: bool = True):
+    """Apply every layer in order.  Prefill returns (x, new caches) (a
+    list of None without ``want_cache``); decode and verify return (x,
+    deferred updates)."""
     outs = []
     for i, kind in enumerate(cfg.expanded_layers()):
         p = params["layers"][i]
@@ -128,7 +199,7 @@ def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
         elif decode:
             x, o = block_decode(cfg, kind, p, x, caches[i], ctx)
         else:
-            x, o = block_full(cfg, kind, p, x, ctx)
+            x, o = block_full(cfg, kind, p, x, ctx, want_cache)
         outs.append(o)
     return x, outs
 
@@ -139,6 +210,71 @@ def embed_tokens(cfg: ModelConfig, params: Params,
     if cfg.embed_scale:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=cfg.dtype)
     return x
+
+
+def _encoder_cfg(cfg: ModelConfig, block: Params) -> ModelConfig:
+    """The config an encoder block runs under: dense attention where the
+    block holds dense weights, whatever the decoder caches.  Compression
+    leaves the encoder dense (it caches nothing), so a compressed
+    encoder-decoder keeps ``cfg.recalkv`` for its decoder only; the JAX
+    package's ``encode`` runs such a block under the decoder's latent
+    config and fails on its missing ``l_k``.  A block that holds latents
+    (a latent config's random init, as the JAX package draws it) runs
+    latent attention, which, as in the JAX package, is causal."""
+    if cfg.recalkv is None or "l_k" in block["attn"]:
+        return cfg
+    return dataclasses.replace(cfg, recalkv=None, cache_quant_bits=None)
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tensor:
+    """The encoder of an encoder-decoder model: frames (B, S, d), the stub
+    frontend's embeddings, through non-causal ``attn_dense`` blocks (the
+    einsum path under either backend, as in the JAX package) and the
+    encoder's final norm."""
+    enc = params["encoder"]
+    B, S, _ = frames.shape
+    ctx = {"positions": torch.arange(S, device=frames.device).expand(B, S),
+           "causal": False,
+           "lengths": torch.full((B,), S, dtype=torch.int64, device=frames.device),
+           "max_len": S}
+    x = frames.to(cfg.dtype)
+    for blk in enc["layers"]:
+        x, _ = block_full(_encoder_cfg(cfg, blk), "attn_dense", blk, x, ctx,
+                          want_cache=False)
+    return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
+
+
+def cross_source(cfg: ModelConfig, params: Params, source: torch.Tensor | None):
+    """The source the cross layers read: ``source`` encoded when the model
+    is an encoder-decoder, else as given (None where there is none)."""
+    if cfg.encoder_decoder and source is not None:
+        return encode(cfg, params, source)
+    return source
+
+
+def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
+                   source: torch.Tensor | None = None):
+    """The full forward (the JAX package's training forward, without its
+    gradients): tokens (B, T) -> (hidden (B, T, d) after the final norm,
+    aux).  ``aux`` is the float32 0 the JAX package returns for a model
+    without MoE blocks; a model with them raises, since the port computes
+    no load-balance or router z-loss term (ROADMAP.md Queue 1 item 6).
+    Every layer takes the einsum path, as in the JAX package."""
+    check_supported(cfg)
+    if cfg.moe is not None and any(k != "attn_dense" for k in cfg.expanded_layers()):
+        raise NotImplementedError(
+            f"{cfg.name}: forward_hidden's aux term of MoE blocks (load-balance "
+            f"and router z-loss) waits for the training slice (ROADMAP.md Queue 1 "
+            f"item 6)")
+    B, T_ = tokens.shape
+    dev = tokens.device
+    ctx = {"positions": torch.arange(T_, device=dev).expand(B, T_),
+           "lengths": torch.full((B,), T_, dtype=torch.int64, device=dev),
+           "source": cross_source(cfg, params, source), "max_len": T_}
+    x = embed_tokens(cfg, params, tokens)
+    x, _ = run_stack(cfg, params, x, ctx, want_cache=False)
+    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
 
 
 def logits_for(cfg: ModelConfig, params: Params,
@@ -161,13 +297,16 @@ def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 
 def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            lengths: torch.Tensor, max_len: int):
-    """Aligned right-padded prefill.  tokens (B, T); lengths (B,).
-    Returns (last-token logits (B, V) float32, caches)."""
+            lengths: torch.Tensor, max_len: int,
+            source: torch.Tensor | None = None):
+    """Aligned right-padded prefill.  tokens (B, T); lengths (B,);
+    ``source`` (B, S_src, d) for a model with cross-attention layers
+    (encoded first for an encoder-decoder).  Returns (last-token logits
+    (B, V) float32, caches)."""
     B, T = tokens.shape
     positions = torch.arange(T, device=tokens.device).expand(B, T)
     ctx = {"positions": positions, "lengths": lengths.to(torch.int64),
-           "max_len": max_len}
+           "max_len": max_len, "source": cross_source(cfg, params, source)}
     x = embed_tokens(cfg, params, tokens)
     x, caches = run_stack(cfg, params, x, ctx)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
@@ -217,8 +356,11 @@ def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages)
 
 
-def _self_leaves(caches: list) -> list:
-    return [leaf for c in caches for leaf in c["self"].values()]
+def cache_leaves(caches: list) -> list:
+    """Every leaf of every layer's caches, the self ring's and the cross
+    cache's, in a fixed order: what a slot's state is made of."""
+    return [leaf for c in caches for part in ("self", "cross") if part in c
+            for leaf in c[part].values()]
 
 
 def install_table(caches: list, stage: list):
@@ -226,23 +368,25 @@ def install_table(caches: list, stage: list):
     once over a ring and its stage cache (``None`` on the CPU, where the
     plain version runs).  The caller holds it as long as both caches and
     any graph captured over them live."""
-    if not caches[0]["self"]["pos"].is_cuda:
+    leaves = cache_leaves(caches)
+    if not leaves[0].is_cuda:
         return None
-    return InstallTable(_self_leaves(caches), _self_leaves(stage))
+    return InstallTable(leaves, cache_leaves(stage))
 
 
 def swap_cache_slot(caches: list, stage: list, slot: torch.Tensor,
                     q: torch.Tensor, table=None) -> list:
     """Install row ``q`` of a stage cache (the same layers and leaves as the
     ring, see :func:`init_decode_cache`) into serving slot ``slot`` of the
-    ring, in place: continuous batching's mid-window install.  ``slot`` /
+    ring, in place, its cross cache too: continuous batching's mid-window
+    install.  ``slot`` /
     ``q`` are 0-d int64 device tensors; a ``slot`` outside the batch
     copies nothing (JAX's ``mode="drop"``), which is how the window says
     "no install this iteration" without a branch.  On a card ``table`` is
     :func:`install_table` of these two caches.  Ring layout only: a
     paged install copies the page-table row alone (the staged pages were
     scattered into the pool at stage time)."""
-    stage_install_rows(_self_leaves(caches), _self_leaves(stage), slot, q, table)
+    stage_install_rows(cache_leaves(caches), cache_leaves(stage), slot, q, table)
     return caches
 
 
@@ -257,7 +401,8 @@ def wipe_pages(caches: list, pages: torch.Tensor) -> list:
     for cache in caches:
         # a fill, not ``pos[pages] = -1``: assigning a Python scalar through
         # an index copies it from the host and waits for the device
-        cache["self"]["pos"].index_fill_(0, pages.long(), -1)
+        if "self" in cache:
+            cache["self"]["pos"].index_fill_(0, pages.long(), -1)
     return caches
 
 

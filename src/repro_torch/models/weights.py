@@ -20,6 +20,14 @@ A dense model (``cfg.recalkv is None``) has ``"attn": {"wq", "wk", "wv",
 the JAX package's layout, except on ``attn_dense`` layers, whose FFN is
 the dense SwiGLU of width ``d_ff``.
 
+A cross-attention layer holds ``"cross"`` (dense ``{"wq", "wk", "wv",
+"wo"}`` or latent ``{"wq", "l_k", "r_k", "l_v", "wo_fused"}`` at the
+uniform ranks, ``["q_norm", "k_norm"]``): a ``cross`` layer ``{"ln1",
+"cross", "ln2", "mlp"}``, an ``attn_cross`` layer ``{"ln1", "attn",
+"lnx", "cross", "ln2", "mlp"}``; both FFNs dense.  An encoder-decoder
+model also holds ``"encoder": {"layers": [attn_dense blocks],
+"final_norm"}`` (JAX's ``{"blocks": (...), "final_norm"}``).
+
 Norm scales and the MoE router stay float32 (as in JAX); matrices take
 the model dtype.
 """
@@ -36,7 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
-NORM_LEAVES = frozenset({"ln1", "ln2", "final_norm", "q_norm", "k_norm",
+NORM_LEAVES = frozenset({"ln1", "ln2", "lnx", "final_norm", "q_norm", "k_norm",
                          "q_a_norm", "kv_a_norm"})
 F32_LEAVES = NORM_LEAVES | {"router"}   # kept float32 whatever the model dtype
 
@@ -117,6 +125,11 @@ def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
         raise ValueError(f"param tree holds {len(layers)} layers, "
                          f"config {cfg.name!r} has {cfg.num_layers}")
     out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {
+            "layers": [_convert(b, dev, dtype) for b in enc["blocks"]],
+            "final_norm": to_tensor(enc["final_norm"], dev, torch.float32)}
     return out
 
 
@@ -141,6 +154,10 @@ def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
 
     out = {k: to_numpy(params[k]) for k in ("embed", "final_norm", "lm_head")
            if k in params}
+    if "encoder" in params:
+        enc = params["encoder"]
+        out["encoder"] = {"blocks": tuple(conv(b) for b in enc["layers"]),
+                          "final_norm": to_numpy(enc["final_norm"])}
     layers = params["layers"]
     if not cfg.scan_layers:
         out.update(prefix=tuple(conv(layer) for layer in layers), blocks=(), suffix=())
@@ -193,11 +210,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         return {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
                 "wo": normal((f, d), f ** -0.5)}
 
+    def gqa(rk, rv):
+        """Dense or latent (at ranks rk / rv) attention weights."""
+        attn = {"wq": normal((d, H * dh), d ** -0.5)}
+        if rt is None:
+            attn.update(wk=normal((d, Hkv * dh), d ** -0.5),
+                        wv=normal((d, Hkv * dh), d ** -0.5),
+                        wo=normal((H * dh, d), (H * dh) ** -0.5))
+        else:
+            s = rt.slots(Hkv)
+            G = Hkv // s
+            attn.update(l_k=normal((G, d, rk), d ** -0.5),
+                        r_k=normal((G, rk, s * dh), rk ** -0.5),
+                        l_v=normal((G, d, rv), d ** -0.5),
+                        wo_fused=normal((H, rv, d), (H * rv) ** -0.5))
+        if cfg.qk_norm:
+            attn["q_norm"] = zeros(dh)
+            attn["k_norm"] = zeros(dh)
+        return attn
+
+    uniform = (rt.rank_k, rt.rank_v) if rt is not None else (0, 0)
     params: Params = {"embed": normal((V, d), 0.02), "final_norm": zeros(d)}
     if not cfg.tie_embeddings:
         params["lm_head"] = normal((d, V), d ** -0.5)
     layers = []
     for i, kind in enumerate(cfg.expanded_layers()):
+        if kind == "cross":
+            layers.append({"ln1": zeros(d), "cross": gqa(*uniform), "ln2": zeros(d),
+                           "mlp": swiglu(cfg.d_ff)})
+            continue
         if cfg.mla is not None:
             a = cfg.mla
             qk, kv = a.qk_nope_dim + a.qk_rope_dim, a.qk_nope_dim + a.v_head_dim
@@ -209,22 +250,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                     "wkv_b": normal((a.kv_lora_rank, H * kv), a.kv_lora_rank ** -0.5),
                     "wo": normal((H * a.v_head_dim, d), (H * a.v_head_dim) ** -0.5)}
         else:
-            attn = {"wq": normal((d, H * dh), d ** -0.5)}
-            if rt is None:
-                attn.update(wk=normal((d, Hkv * dh), d ** -0.5),
-                            wv=normal((d, Hkv * dh), d ** -0.5),
-                            wo=normal((H * dh, d), (H * dh) ** -0.5))
-            else:
-                s = rt.slots(Hkv)
-                G = Hkv // s
-                rk, rv = rt.ranks_for(i)
-                attn.update(l_k=normal((G, d, rk), d ** -0.5),
-                            r_k=normal((G, rk, s * dh), rk ** -0.5),
-                            l_v=normal((G, d, rv), d ** -0.5),
-                            wo_fused=normal((H, rv, d), (H * rv) ** -0.5))
-            if cfg.qk_norm:
-                attn["q_norm"] = zeros(dh)
-                attn["k_norm"] = zeros(dh)
+            attn = gqa(*(rt.ranks_for(i) if rt is not None else uniform))
+        if kind == "attn_cross":
+            layers.append({"ln1": zeros(d), "attn": attn, "lnx": zeros(d),
+                           "cross": gqa(*uniform), "ln2": zeros(d),
+                           "mlp": swiglu(cfg.d_ff)})
+            continue
         if cfg.moe is None or kind == "attn_dense":
             mlp = swiglu(cfg.d_ff)
         else:   # one leaf at a time: an expert leaf of qwen3-moe is 1.6 GB
@@ -237,6 +268,12 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         layers.append({"ln1": zeros(d), "attn": attn, "ln2": zeros(d),
                        "mlp": mlp})
     params["layers"] = layers
+    if cfg.encoder_decoder:
+        params["encoder"] = {
+            "layers": [{"ln1": zeros(d), "attn": gqa(*uniform), "ln2": zeros(d),
+                        "mlp": swiglu(cfg.d_ff)}
+                       for _ in range(cfg.num_encoder_layers)],
+            "final_norm": zeros(d)}
     return params
 
 
@@ -244,23 +281,26 @@ def caches_from_jax(cfg: ModelConfig, tree: Params, device=None) -> list:
     """Turn a JAX decode-cache tree (``{"prefix", "blocks", "suffix"}``,
     stacked ``blocks`` leaves carrying a leading period axis; leaves as
     numpy arrays) into the port's per-layer list of ``{"self": {...}}``
-    dicts.  Works for rings and page-major pools alike; ``pos`` becomes
+    dicts (``"cross"`` beside or instead of ``"self"`` on cross-attention
+    layers).  Works for rings and page-major pools alike; ``pos`` becomes
     int64, other leaves keep their dtype."""
     dev = resolve_device(device)
 
     def conv(block, index=None):
         out = {}
-        for name, leaf in block["self"].items():
-            a = np.asarray(leaf)
-            if index is not None:
-                a = a[index]
-            out[name] = to_tensor(a, dev, torch.int64 if name == "pos" else None)
-        return {"self": out}
+        for part, leaves in block.items():
+            out[part] = {}
+            for name, leaf in leaves.items():
+                a = np.asarray(leaf)
+                if index is not None:
+                    a = a[index]
+                out[part][name] = to_tensor(a, dev, torch.int64 if name == "pos" else None)
+        return out
 
     layers = [conv(b) for b in tree.get("prefix") or ()]
     blocks = tree.get("blocks") or ()
     if blocks:
-        n_per = np.asarray(blocks[0]["self"]["pos"]).shape[0]
+        n_per = np.asarray(next(iter(next(iter(blocks[0].values())).values()))).shape[0]
         for p in range(n_per):
             layers += [conv(b, p) for b in blocks]
     layers += [conv(b) for b in tree.get("suffix") or ()]
@@ -275,9 +315,10 @@ def caches_to_jax(cfg: ModelConfig, caches: list) -> Params:
     for ``cfg``'s layer layout, with numpy leaves (``pos`` int32; bf16 as
     ml_dtypes' bfloat16)."""
     def conv(c):
-        return {"self": {k: (to_numpy(v).astype(np.int32) if k == "pos"
-                             else to_numpy(v))
-                         for k, v in c["self"].items()}}
+        return {part: {k: (to_numpy(v).astype(np.int32) if k == "pos"
+                           else to_numpy(v))
+                       for k, v in leaves.items()}
+                for part, leaves in c.items()}
 
     if not cfg.scan_layers:
         return {"prefix": tuple(conv(c) for c in caches), "blocks": None,
@@ -285,9 +326,10 @@ def caches_to_jax(cfg: ModelConfig, caches: list) -> Params:
     n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
     body = caches[n_pre:n_pre + period * n_per]
     blocks = tuple(
-        {"self": {k: np.stack([conv(body[p * period + i])["self"][k]
-                               for p in range(n_per)])
-                  for k in caches[n_pre + i]["self"]}}
+        {part: {k: np.stack([conv(body[p * period + i])[part][k]
+                             for p in range(n_per)])
+                for k in leaves}
+         for part, leaves in caches[n_pre + i].items()}
         for i in range(period)) if n_per else None
     return {"prefix": tuple(conv(c) for c in caches[:n_pre]), "blocks": blocks,
             "suffix": tuple(conv(c) for c in caches[n_pre + period * n_per:])}

@@ -97,8 +97,8 @@ def make_layer_draft(cfg: ModelConfig, params: dict,
                      k: int) -> tuple[ModelConfig, dict]:
     """Self-draft from the target's first ``k`` layers.  Returns
     (draft_cfg, draft_params): the params are a view that shares the
-    target's tensors (embed, final norm, lm_head, the first k layer
-    dicts) — no copies.  The config keeps ``cache_quant_bits``, so the
+    target's tensors (embed, final norm, lm_head, an encoder, the first
+    k layer dicts) — no copies.  The config keeps ``cache_quant_bits``, so the
     draft's ring is int8 when the target's is."""
     if not 1 <= k <= cfg.num_layers:
         raise ValueError(
@@ -107,7 +107,7 @@ def make_layer_draft(cfg: ModelConfig, params: dict,
     if any(kd in ("mamba", "rglru") for kd in kinds):
         raise ValueError("layers draft cannot include recurrent blocks")
     dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft{k}", num_layers=k)
-    dparams = {kk: params[kk] for kk in ("embed", "final_norm", "lm_head")
+    dparams = {kk: params[kk] for kk in ("embed", "final_norm", "lm_head", "encoder")
                if kk in params}
     dparams["layers"] = params["layers"][:k]
     return dcfg, dparams

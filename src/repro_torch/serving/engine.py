@@ -95,9 +95,22 @@ every path above; its absorbed readers take no kernel, so under
 ``backend="kernel"`` construction warns once (``RuntimeWarning``) and
 ``metrics()["verify_backend"]`` reads "einsum", as in the JAX package.
 
+A model with cross-attention layers (``cross``, ``attn_cross``; an
+encoder-decoder's decoder) takes ``source`` (rows, S_src, d), the stub
+frontend's embeddings: every prefill (an admission wave, a staged wave,
+the layer draft's, a rebuild) reads ``source[:W]`` for its W rows, so
+row i of a wave reads source row i, whichever request it holds — the JAX
+engine's behaviour, kept so that streams match it.  Each slot's cross
+cache is written by its prefill and static after it; the ring merge,
+continuous batching's install and the captured graphs carry it beside
+the self ring.  Its readers are einsum, so under ``backend="kernel"``
+construction warns once, as for MLA (the self layers still launch their
+kernels).  The paged pool refuses such a model (``ValueError``), as in
+the JAX package.
+
 Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5); models with
-Mamba or RG-LRU blocks, cross-attention or an encoder-decoder (Queue 1
-item 4), which ``check_supported`` refuses at construction.
+Mamba or RG-LRU blocks (Queue 1 item 4), which ``check_supported``
+refuses at construction.
 """
 
 from __future__ import annotations
@@ -145,9 +158,10 @@ def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor,
     wave rows ``rows`` when given."""
     n = slots.shape[0]
     for pool, new in zip(pool_cache, new_cache):
-        for name, leaf in pool["self"].items():
-            src = new["self"][name]
-            leaf[slots] = (src[:n] if rows is None else src[rows]).to(leaf.dtype)
+        for part, leaves in pool.items():
+            for name, leaf in leaves.items():
+                src = new[part][name]
+                leaf[slots] = (src[:n] if rows is None else src[rows]).to(leaf.dtype)
     return pool_cache
 
 
@@ -210,8 +224,9 @@ class Engine:
     captures the window iteration as CUDA graphs at construction (a card
     only); ``adaptive_spec`` degrades cold-draft slots to plain decode;
     ``profile`` records a timeline of the host boundary's stages.
-    ``device`` defaults to ``cuda``; ``params`` must already live there
-    (see ``models.weights``)."""
+    ``source`` (rows, S_src, d) feeds a model's cross-attention layers
+    (see the module docstring).  ``device`` defaults to ``cuda``;
+    ``params`` must already live there (see ``models.weights``)."""
 
     # adaptive speculation: degrade a slot once it has proposed at least
     # MIN_PROPOSED draft tokens with an accept rate below ACCEPT_FLOOR
@@ -219,7 +234,7 @@ class Engine:
     ADAPTIVE_ACCEPT_FLOOR = 0.25
 
     def __init__(self, cfg: ModelConfig, params, *, max_slots: int,
-                 max_len: int, backend: str | None = None,
+                 max_len: int, source=None, backend: str | None = None,
                  sampling: SamplingParams | None = None,
                  sync_every: int = 8, prefill_chunk: int | None = None,
                  policy: str | AdmissionPolicy | None = None,
@@ -297,6 +312,7 @@ class Engine:
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, "
                              f"engine device is {self.device}")
+        self.source = self._check_source(cfg, source)
         self.cfg = cfg
         self.params = params
         self.B, self.max_len = max_slots, max_len
@@ -465,6 +481,20 @@ class Engine:
         if self.aot and self.device.type == "cuda":
             self._capture()
 
+    def _check_source(self, cfg, source):
+        """``source`` on the engine's device in ``cfg.dtype`` (None for a
+        model without cross-attention layers); a model with them needs one
+        of shape (rows, cross_source_len, d_model)."""
+        if not any(k in ("cross", "attn_cross") for k in cfg.expanded_layers()):
+            return None
+        want = (cfg.cross_source_len, cfg.d_model)
+        if source is None or tuple(source.shape[1:]) != want:
+            raise ValueError(
+                f"{cfg.name} has cross-attention layers: pass source=(rows, "
+                f"{want[0]}, {want[1]}) (got "
+                f"{None if source is None else tuple(source.shape)})")
+        return torch.as_tensor(source).to(self.device, cfg.dtype)
+
     @staticmethod
     def _check_layout(cfg, max_slots, max_len, cache_layout, page_size,
                       n_pages):
@@ -478,6 +508,12 @@ class Engine:
                 raise ValueError(
                     "page_size/n_pages only apply to cache_layout='paged'")
             return None, None
+        bad = sorted(k for k in set(cfg.expanded_layers())
+                     if k in ("mamba", "rglru", "cross", "attn_cross"))
+        if bad:
+            raise ValueError(
+                f"cache_layout='paged' needs position-addressed "
+                f"self-attention rings; {cfg.name} has {bad} blocks")
         short = sorted(k for k in set(cfg.expanded_layers())
                        if cfg.cache_len(k, max_len) != max_len)
         if short:
@@ -588,7 +624,19 @@ class Engine:
             st["ptab"][slot] = 0
 
     def _prefill(self, cfg, params, toks: np.ndarray, lens: np.ndarray):
-        return T.prefill(cfg, params, self._dev(toks), self._dev(lens), self.max_len)
+        """A prefill of W rows; a cross-attention model's reads
+        ``source[:W]`` (row i of the wave reads source row i, as in the JAX
+        engine)."""
+        src = None
+        if self.source is not None:
+            if self.source.shape[0] < toks.shape[0]:
+                raise ValueError(
+                    f"a prefill of {toks.shape[0]} rows reads source rows "
+                    f"0..{toks.shape[0] - 1}; source has {self.source.shape[0]} "
+                    f"(give it max(max_slots, staging_depth) rows under overlap)")
+            src = self.source[: toks.shape[0]]
+        return T.prefill(cfg, params, self._dev(toks), self._dev(lens), self.max_len,
+                         source=src)
 
     def _count_prefill(self):
         """One admission or rebuild prefill (any thread)."""
@@ -1394,8 +1442,8 @@ class Engine:
     # -- aot: the window iteration as CUDA graphs ---------------------------
 
     def _cache_ptrs(self) -> list[int]:
-        caches = self.cache + (self.draft_cache or [])
-        return [leaf.data_ptr() for c in caches for leaf in c["self"].values()]
+        return [leaf.data_ptr()
+                for leaf in T.cache_leaves(self.cache + (self.draft_cache or []))]
 
     def _capture(self):
         """Capture one window iteration as a CUDA graph per variant the
@@ -1715,8 +1763,7 @@ class Engine:
         main.wait_event(wv.ready)
         leaves = [wv.ks, wv.first]
         for cache in (wv.new_cache, wv.draft_new_cache):
-            for layer in cache or []:
-                leaves += list(layer["self"].values())
+            leaves += T.cache_leaves(cache or [])
         for t in leaves:
             t.record_stream(main)
 

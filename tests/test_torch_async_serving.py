@@ -221,7 +221,11 @@ def test_lazy_pages_preempt_under_overlap(policy):
     preemption count of the JAX overlapped engine and the streams of the
     port's sync engine; at pipeline depth 3 too.  Under
     prefix-affinity the prompts share a 16-token system prompt and one
-    prefix page is pinned."""
+    prefix page is pinned.  Both overlapped engines admit inline
+    (``admission_thread=False``): the preemption count depends on the
+    boundary at which each admission wave merges, and a worker thread
+    forms and hands over its waves on its own schedule, so only inline
+    admission fixes those boundaries in both packages."""
     vocab = _model("latent")[2].vocab_size
     g = np.random.default_rng(5)
     if policy == "fifo":
@@ -232,9 +236,11 @@ def test_lazy_pages_preempt_under_overlap(policy):
         prompts = [np.concatenate([sysp, g.integers(0, vocab, 3 + i)]).astype(np.int32)
                    for i in range(6)]
         kw = dict(LAZY, n_pages=20, policy=policy, pin_prefixes=1)
-    want, jm = _jax(f"lazy-{policy}", "latent", prompts, max_new=16, kw=kw, overlap=True)
+    want, jm = _jax(f"lazy-{policy}", "latent", prompts, max_new=16, kw=kw, overlap=True,
+                    admission_thread=False)
     sync, _ = _port("latent", prompts, max_new=16, kw=kw)
-    got, eng = _port("latent", prompts, max_new=16, kw=kw, overlap=True)
+    got, eng = _port("latent", prompts, max_new=16, kw=kw, overlap=True,
+                     admission_thread=False)
     m = eng.metrics()
     assert sync == want
     assert got == want
@@ -242,7 +248,8 @@ def test_lazy_pages_preempt_under_overlap(policy):
     assert m["pages_free"] + m["pages_parked"] == m["pages_total"] - 1
     # three windows in flight: a rebuild needs the tokens of windows still
     # in flight at the preemption, so it drains the pipeline first
-    deep, deng = _port("latent", prompts, max_new=16, kw=kw, overlap=True, pipeline_depth=3)
+    deep, deng = _port("latent", prompts, max_new=16, kw=kw, overlap=True, pipeline_depth=3,
+                       admission_thread=False)
     assert deep == want and deng.metrics()["preemptions"] > 0
 
 

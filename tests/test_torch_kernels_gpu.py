@@ -503,6 +503,49 @@ def _in_order(ptab, *pools):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k2"])
+def test_k1_k2_at_whisper_latent_widths(cuda, dtype, kernel):
+    """whisper-small's latent cache at recalkv_ratio 0.5 (12 kv heads of
+    one query head, d_head 64: G 3 groups of s 4, Hg 4, r 128): K1 on a
+    ragged 320-column ring with and without its self column, and K2 at H
+    12 over Hkv 12 with Hv 3 value groups of dv 128, causal and within a
+    window; within 1e-4 (f32) or the bf16 limit of the plain version, one
+    launch a call, the masked row 2 exact 0 without its self column."""
+    def check(fn, plain, args, kw):
+        n = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        want = plain(*args, **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+        else:
+            _within_bf16_limit(got, want)
+        return got
+
+    if kernel == "k2":
+        g = torch.Generator(device=cuda).manual_seed(1264)
+        rn = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)
+        q, k, v = rn(2, 300, 12, 64), rn(2, 300, 12, 64), rn(2, 300, 3, 128)
+        for win in (None, 100):
+            check(K2.flash_prefill_attention, K2.flash_prefill_attention_plain,
+                  (q, k, v), dict(window=win))
+        return
+    a = _ring(cuda, 1264, S=320, G=3, s=4, qpk=1, dh=64, rk=128, rv=128)
+    t = {k: (v.to(dtype) if k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv") else v)
+         for k, v in a.items()}
+    bias = t["bias"][:, 0, :-1].contiguous()
+    args = (t["q"], t["zk"], t["zv"], t["r_k"], t["cos"], t["sin"], bias)
+    base = dict(scale=64 ** -0.5, k_norm=t["k_norm"])
+    assert (check(K1.latent_decode_attention, K1.latent_decode_attention_plain,
+                  args, base)[2] == 0).all()
+    check(K1.latent_decode_attention, K1.latent_decode_attention_plain, args,
+          dict(base, self_zk=t["self_zk"][:, 0], self_zv=t["self_zv"][:, 0],
+               self_cos=t["self_cos"][:, 0], self_sin=t["self_sin"][:, 0]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dh,ps", [(64, 8), (80, 16), (128, 16), (256, 16)])
 def test_k4_cuda_kernel_matches_plain_and_k1_on_view(cuda, dtype, dh, ps):
     """The paged pool through a ragged table (shuffled pages, null pages,

@@ -80,23 +80,44 @@ def test_cli_refusals():
 
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minicpm-2b", "h2o-danube-1.8b",
-                                  "qwen3-moe-235b-a22b", "deepseek-v3-671b"])
+                                  "qwen3-moe-235b-a22b", "deepseek-v3-671b",
+                                  "llama-3.2-vision-11b", "whisper-small"])
 def test_cli_serves_the_families_on_cpu(arch):
     """The families registered beside qwen3-4b serve through the CLI on the
     CPU (smoke sizes, window 16 for the local families; qwen3-moe's MoE
-    FFN; deepseek's MLA, its ``attn_dense`` prefix and shared expert),
-    dense and at ``--recalkv 0.5`` (deepseek dense only: ReCalKV does not
-    apply to MLA), overlapped with continuous batching; every request
-    finishes with its budget and the streams equal ``--no-overlap``'s.
-    Under MoE a call's rows share the experts' capacity, so both engines
-    must prefill the same rows together: four slots and inline admission
-    make one wave of all four requests in each."""
-    moe = arch in ("qwen3-moe-235b-a22b", "deepseek-v3-671b")
+    FFN; deepseek's MLA, its ``attn_dense`` prefix and shared expert;
+    llama-vision's cross layers and whisper's encoder on the CLI's seeded
+    source), dense and at ``--recalkv 0.5`` (deepseek dense only: ReCalKV
+    does not apply to MLA), overlapped with continuous batching; every
+    request finishes with its budget and the streams equal
+    ``--no-overlap``'s.  Under MoE a call's rows share the experts'
+    capacity, and a cross model's wave row i reads source row i, so both
+    engines must prefill the same rows together: four slots and inline
+    admission make one wave of all four requests in each."""
+    same_waves = arch in ("qwen3-moe-235b-a22b", "deepseek-v3-671b",
+                          "llama-3.2-vision-11b", "whisper-small")
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
-            "--slots", "4" if moe else "2", "--max-len", "48", "--new-tokens", "4"]
-    continuous = ["--continuous"] + (["--no-admission-thread"] if moe else [])
+            "--slots", "4" if same_waves else "2", "--max-len", "48",
+            "--new-tokens", "4"]
+    continuous = ["--continuous"] + (["--no-admission-thread"] if same_waves else [])
     ratios = [[]] if arch == "deepseek-v3-671b" else [[], ["--recalkv", "0.5"]]
     for extra in ratios:
         got = _streams(serve.main(args + extra + continuous))
         assert len(got) == 4 and all(len(v) == 4 for v in got.values())
         assert got == _streams(serve.main(args + extra + ["--no-overlap"]))
+
+
+def test_quickstart_runs_on_cpu():
+    """``examples/quickstart_torch.py --device cpu``: compresses the smoke
+    qwen3-4b to about half its cache bytes, compares the forwards, round-
+    trips the artifact and decodes 4 tokens for both rows."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parents[1] / "examples" / "quickstart_torch.py"
+    spec = importlib.util.spec_from_file_location("quickstart_torch", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    out = mod.main(["--device", "cpu"])
+    assert 0.4 < out["recalkv_bytes"] / out["dense_bytes"] < 0.6
+    assert 0.0 <= out["agree"] <= 1.0 and out["tokens"].shape == (2,)
