@@ -48,6 +48,10 @@ by kernel name only (attention, kernels named as GEMMs, the rest).
 attention is MLA's einsum readers, which launch no kernel of the port, so
 the eager split counts the device time under ``mla_attention`` /
 ``kv_cache.decode_attn_mla`` / ``verify_attn_mla`` as attention.
+``--arch falcon-mamba-7b`` (dense: ReCalKV does not apply) or
+``--arch recurrentgemma-9b`` profiles the recurrent models; the eager
+split then also counts the device time under ``layers.mamba_mixer`` /
+``rglru_mixer`` (plain PyTorch, as in JAX) as the mixers'.
 Without flags it measures what it always did.
 """
 
@@ -70,9 +74,11 @@ BATCH, PROMPT, MAX_LEN, STEPS = 8, 2048, 4096, 8
 ATTENTION = ("latent_decode", "dense_decode", "dense_verify", "flash_prefill", "merge")
 GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
 # record_function ranges the MoE model's eager steps open (see moe_ranges),
-# and the MLA model's around its attention (see mla_ranges)
+# the MLA model's around its attention (see mla_ranges) and a recurrent
+# model's around its mixers (see mixer_ranges)
 EXPERT_RANGE, MOE_RANGE, MLA_RANGE = "expert_gemms", "moe_ffn", "mla_attention"
-RANGES = (EXPERT_RANGE, MOE_RANGE, MLA_RANGE)
+MIXER_RANGE = "recurrent_mixer"
+RANGES = (EXPERT_RANGE, MOE_RANGE, MLA_RANGE, MIXER_RANGE)
 
 
 def traced(fn, n: int):
@@ -104,7 +110,10 @@ def traced(fn, n: int):
     attention = (sum(ms for ms, _, k in rows if any(a in k for a in ATTENTION))
                  + ranges.get(MLA_RANGE, 0.0))
     split = {"attention_ms": attention}
-    if MOE_RANGE in ranges:
+    if MIXER_RANGE in ranges:   # the mixers' own GEMMs and glue, then the rest
+        split.update(mixer_ms=ranges[MIXER_RANGE],
+                     rest_ms=busy - attention - ranges[MIXER_RANGE])
+    elif MOE_RANGE in ranges:
         experts = ranges.get(EXPERT_RANGE, 0.0)
         split.update(expert_gemms_ms=experts, moe_dispatch_combine_ms=ranges[MOE_RANGE] - experts,
                      rest_ms=busy - attention - ranges[MOE_RANGE])
@@ -170,6 +179,22 @@ def mla_ranges(L, KC):
     KC.verify_attn_mla = ranged(KC.verify_attn_mla)
 
 
+def mixer_ranges(L):
+    """Open the mixer range around ``layers.mamba_mixer`` and
+    ``rglru_mixer`` (no kernel of the port: their projections, conv, scan
+    and gates)."""
+    from torch.profiler import record_function
+
+    def ranged(fn):
+        def call(*a, **kw):
+            with record_function(MIXER_RANGE):
+                return fn(*a, **kw)
+        return call
+
+    L.mamba_mixer = ranged(L.mamba_mixer)
+    L.rglru_mixer = ranged(L.rglru_mixer)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--cache-quant-bits", type=int, default=None,
@@ -219,6 +244,8 @@ def main() -> int:
         moe_ranges(L)
     if cfg.mla is not None:
         mla_ranges(L, KC)
+    if cfg.mamba is not None or cfg.rglru is not None:
+        mixer_ranges(L)
     params = init_params(cfg, torch.Generator(device="cuda").manual_seed(0))
     gen = torch.Generator(device="cuda").manual_seed(1)
     B = BATCH

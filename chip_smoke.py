@@ -331,11 +331,15 @@ WIDTHS = {"qwen3-4b": dict(dh=128, Hkv=8, qpk=4, G=2, s=4, r=256),
           "minicpm-2b": dict(dh=64, Hkv=36, qpk=1, G=9, s=4, r=128),
           "h2o-danube-1.8b": dict(dh=80, Hkv=8, qpk=4, G=2, s=4, r=160),
           "qwen3-moe-235b-a22b": dict(dh=128, Hkv=4, qpk=16, G=1, s=4, r=256),
-          "whisper-small": dict(dh=64, Hkv=12, qpk=1, G=3, s=4, r=128)}
+          "whisper-small": dict(dh=64, Hkv=12, qpk=1, G=3, s=4, r=128),
+          # MQA: one kv head, so ReCalKV's group is s 1; its local layers'
+          # rings hold the 2,048-token window
+          "recurrentgemma-9b": dict(dh=256, Hkv=1, qpk=16, G=1, s=1, r=128, ring=2048)}
 # the kernels-line tag of another family's rows, and the runs whose
 # launches they count (the qwen3-4b rows count every other run)
 FAMILY_TAG = {"gemma3-12b": "dh 256", "minicpm-2b": "q_per_kv 1", "h2o-danube-1.8b": "dh 80",
-              "qwen3-moe-235b-a22b": "q_per_kv 16", "whisper-small": "whisper, dh 64"}
+              "qwen3-moe-235b-a22b": "q_per_kv 16", "whisper-small": "whisper, dh 64",
+              "recurrentgemma-9b": "recurrentgemma, Hkv 1, q_per_kv 16, dh 256"}
 FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent steps", "U",
                               "U+", "U3", "UB"),
                "minicpm-2b": ("M", "M3"),
@@ -346,7 +350,14 @@ FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent st
                "deepseek-v3-671b": ("deepseek steps", "DS", "DS+", "DS3", "DSP"),
                # llama-3.2-vision-11b's self layers have qwen3-4b's heads and
                # latent widths, so its runs count in qwen3-4b's rows
-               "whisper-small": ("W", "whisper latent steps", "WU", "WU+")}
+               "whisper-small": ("W", "whisper latent steps", "WU", "WU+"),
+               # the recurrent models (``phase_recurrent``): falcon-mamba's
+               # mixers launch no kernel (its continuous run the install's
+               # row copy), recurrentgemma's local layers K1 / K3 / K2 and
+               # the dense decode at their widths
+               "falcon-mamba-7b": ("FM", "FM+", "FMs", "FM+c"),
+               "recurrentgemma-9b": ("recurrentgemma steps", "RG", "recurrentgemma latent "
+                                     "steps", "RGU", "RGU+", "RGU8", "RGUs", "RGU+c")}
 # qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
 # (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
 # 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
@@ -373,8 +384,8 @@ def family_row(entry, arch, what=""):
 
 
 def ring_inputs(torch, gen, nq=1, dense=False, arch="qwen3-4b"):
-    """Main-path operands: B=8, a full 4096-token ring, and ``arch``'s
-    latent widths (qwen3-4b: G=2, Hg=16, dh=128, r=256, s=4), with nq
+    """Main-path operands: B=8, a full 4096-token ring (or ``arch``'s
+    window ring), and ``arch``'s latent widths (qwen3-4b: G=2, Hg=16, dh=128, r=256, s=4), with nq
     queries and their nq self columns (float32).  With ``dense``, the dense
     cores' operands at ``arch``'s heads (qwen3-4b: G = Hkv = 8 groups of s =
     1, Hg = q_per_kv 4), the keys and values as r = dh latents behind an
@@ -382,7 +393,7 @@ def ring_inputs(torch, gen, nq=1, dense=False, arch="qwen3-4b"):
     self columns' too: dense keys are stored after RoPE)."""
     from repro_torch.kernels import ops
     w = WIDTHS[arch]
-    B, S, dh = 8, 4096, w["dh"]
+    B, S, dh = 8, w.get("ring", 4096), w["dh"]
     G, s, r = (w["Hkv"], 1, dh) if dense else (w["G"], w["s"], w["r"])
     Hg = s * w["qpk"]
     theta = None if dense else 1e6
@@ -1315,6 +1326,22 @@ ENGINE_RUNS.update({"DS": dict(ENGINE_RUNS["V"], must=()),
 ENGINE_RUNS.update({"X": ENGINE_RUNS["V"], "XU": ENGINE_RUNS["U"], "XU3": ENGINE_RUNS["U3"],
                     "XUs": dict(ENGINE_RUNS["S"], prompts="S"),
                     "W": ENGINE_RUNS["V"], "WU": ENGINE_RUNS["U"]})
+# The recurrent models (``phase_recurrent``; full width and depth):
+# falcon-mamba-7b, dense only (FM, A's prompts), and recurrentgemma-9b dense
+# (RG, A's) and compressed in the run (RGU, A's; RGU8 on the int8 ring).
+# FMs / RGUs (sync) and their continuous twins FM+c / RGU+c serve R's
+# traffic: S's, at prompt lengths of 1,025-2,048, so that every wave pads
+# to one 2,048-token bucket.  A prefill runs the mixers over its bucket's
+# pads, as the JAX engine does, so a request's state (and stream) depends
+# on its wave's bucket; with one bucket it does not depend on how the
+# waves form.
+ENGINE_RUNS.update({"FM": dict(ENGINE_RUNS["V"], must=()),
+                    "FMs": dict(ENGINE_RUNS["S"], prompts="R", must=()),
+                    "RG": ENGINE_RUNS["V"], "RGU": ENGINE_RUNS["U"],
+                    "RGU8": dict(ENGINE_RUNS["U"], bits=8,
+                                 must=("flash_prefill_attention",
+                                       "latent_decode_attention_quant")),
+                    "RGUs": dict(ENGINE_RUNS["S"], prompts="R")})
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
                "U": 4096, "U3": 4096, "M": 4608, "M3": 9216, "N": 2560, "N3": 2560,
@@ -1323,7 +1350,16 @@ CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 819
                "DS": 1152, "DS3": 1152, "DSP": 1152,
                # llama-vision: qwen3-4b's heads; whisper: 12 kv heads of dh 64,
                # G 3 x r 128 compressed
-               "X": 4096, "XU": 2048, "XU3": 2048, "XUs": 2048, "W": 3072, "WU": 1536}
+               "X": 4096, "XU": 2048, "XU3": 2048, "XUs": 2048, "W": 3072, "WU": 1536,
+               # recurrentgemma: one kv head of dh 256; G 1 x r 128 compressed
+               # (int8: 128 B a latent and a float32 scale, keys and values)
+               "RG": 1024, "RGU": 512, "RGUs": 512, "RGU8": 264}
+# a recurrent model's state per slot, (h, conv) bytes, whatever the prompt:
+# falcon-mamba 64 layers x (8,192 x 16 float32, 3 x 8,192 bf16);
+# recurrentgemma 26 rglru layers x (4,096 float32, 3 x 4,096 bf16)
+STATE_BYTES = {**dict.fromkeys(("FM", "FMs"), (64 * 8192 * 16 * 4, 64 * 3 * 8192 * 2)),
+               **dict.fromkeys(("RG", "RGU", "RGU8", "RGUs"),
+                               (26 * 4096 * 4, 26 * 3 * 4096 * 2))}
 # a cross model's cache per slot: its cross layers' source keys and values
 # (or latents), cross_source_len positions each, bf16
 CROSS_BYTES = {"X": 8 * 1600 * 4096, "XU": 8 * 1600 * 2048, "XU3": 8 * 1600 * 2048,
@@ -1339,7 +1375,10 @@ OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {},
               "Q": dict(admission_thread=False), "DS": dict(admission_thread=False),
               # a cross model's wave row i reads source row i: the sync run's
               # one 8-row wave again
-              "XU": dict(admission_thread=False), "WU": dict(admission_thread=False)}
+              "XU": dict(admission_thread=False), "WU": dict(admission_thread=False),
+              # a recurrent state runs over its wave's pads: the sync run's
+              # one 8-row wave again
+              "FM": dict(admission_thread=False), "RGU": dict(admission_thread=False)}
 # runs served three ways in one call (sync; overlapped + graphs at pipeline
 # depth 3; the same with continuous batching): streams equal, installs
 # inside the windows
@@ -1368,6 +1407,9 @@ def engine_prompts(torch, run, vocab):
     if run == "S":          # 512..2048, budgets 16..96 cycled: slots free apart
         lens = torch.randint(512, 2049, (24,), generator=gen).tolist()
         return [(rand(n), 16 + 8 * (i % 11)) for i, n in enumerate(lens)]
+    if run == "R":          # S's, at 1,025..2,048 tokens: one prefill bucket
+        lens = torch.randint(1025, 2049, (12,), generator=gen).tolist()
+        return [(rand(n), 16 + 8 * (i % 11)) for i, n in enumerate(lens)]
     motif = rand(64)
     if run == "T":          # motif prompts of 320..512, budgets 16..48 cycled
         lens = torch.randint(320, 513, (16,), generator=gen).tolist()
@@ -1383,10 +1425,12 @@ def launch_counts(kernels) -> dict:
 
 
 def cache_bytes(torch, cache) -> tuple[int, int]:
-    """(K / V or latent bytes, position bytes) per token of one layer,
-    read from the allocated tensors (ring (B, L, ...) or pool (n_pages,
-    page_size, ...) leaves)."""
-    leaves = cache[0]["self"]
+    """(K / V or latent bytes, position bytes) per token of the first
+    self-attention layer, read from the allocated tensors (ring (B, L, ...)
+    or pool (n_pages, page_size, ...) leaves); (0, 0) without one."""
+    leaves = next((c["self"] for c in cache if "self" in c), None)
+    if leaves is None:
+        return 0, 0
     per = {k: v[0, 0].numel() * v.element_size() for k, v in leaves.items()}
     return sum(b for k, b in per.items() if k != "pos"), per["pos"]
 
@@ -1428,8 +1472,16 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
                              f"(greedy and sampled)")
     kv_bytes, pos_bytes = cache_bytes(torch, eng.cache)
     cross_slot = sum(nbytes(*c["cross"].values()) for c in eng.cache if "cross" in c) // 8
+    self_slot = sum(nbytes(*c["self"].values()) for c in eng.cache if "self" in c) // 8
+    state_slot = tuple(sum(nbytes(c["state"][k]) for c in eng.cache if "state" in c) // 8
+                       for k in ("h", "conv"))
+    if any(state_slot):
+        log(f"engine run {label or run}: cache bytes per slot: recurrent state h "
+            f"{state_slot[0]:,} + conv {state_slot[1]:,}, self {self_slot:,}")
+        if state_slot != STATE_BYTES[run]:
+            raise AssertionError(f"engine run {run}: the state holds {state_slot} B per "
+                                 f"slot, expected {STATE_BYTES[run]}")
     if eng.source is not None:
-        self_slot = sum(nbytes(*c["self"].values()) for c in eng.cache if "self" in c) // 8
         log(f"engine run {label or run}: source {tuple(eng.source.shape)}, cache bytes per "
             f"slot: self {self_slot:,}, cross {cross_slot:,}")
         if cross_slot != CROSS_BYTES[run]:
@@ -1507,6 +1559,7 @@ def phase_engine(torch, cfg, params, run, artifact=None, overlapped=False, extra
                              "slot_swaps", "staging_depth", "occupancy_device_mean",
                              "pipeline_depth")},
         "stage_cache_bytes": stage_bytes, "cross_bytes_per_slot": cross_slot,
+        "state_bytes_per_slot": sum(state_slot),
         "boot_s": boot_s, "profile_s": m["profile"]["seconds"],
         **pool, "cache_quant_bits": bits, "peak_gib": peak, "wall_s": wall,
         "cache_bytes_per_token_layer": kv_bytes, "pos_bytes_per_token_layer": pos_bytes}
@@ -1727,8 +1780,10 @@ def phase_compress(torch, cfg, params, groups=2, rank=256, save=True, source=Non
         for g, (e0, e1) in enumerate(rep["value_errors"]):
             worst = max(worst, (e1 - e0) / e0)
         rows.append(rep)
-        log(f"layer {i}: HSR groups {rep['groups']}, within-group CKA {rep['cka_hsr']:.4f} "
-            f"(identity grouping {rep['cka_identity']:.4f}), value error before / after "
+        cka = (f"within-group CKA {rep['cka_hsr']:.4f} (identity grouping "
+               f"{rep['cka_identity']:.4f})" if "cka_hsr" in rep
+               else "one kv head a group: no HSR")
+        log(f"layer {i}: HSR groups {rep['groups']}, {cka}, value error before / after "
             f"ALS " + ", ".join(f"{e0:.5e} / {e1:.5e}" for e0, e1 in rep["value_errors"]))
     if worst > ALS_RISE:
         raise AssertionError(f"a value group's error rose by {worst:.3e} relative under "
@@ -1739,7 +1794,7 @@ def phase_compress(torch, cfg, params, groups=2, rank=256, save=True, source=Non
         api.save_artifact(art, str(ARTIFACT))
         save_s = time.perf_counter() - t0
     n_params = count_params(art.params)
-    gain = [r["cka_hsr"] - r["cka_identity"] for r in rows]
+    gain = [r["cka_hsr"] - r["cka_identity"] for r in rows if "cka_hsr" in r] or [0.0]
     log(f"compression of {cfg.name}: data {data_s:.2f} s, calibrate {calib_s:.2f} s "
         f"({calib.token_count} tokens), compress {compress_s:.2f} s, save "
         f"{'%.2f s' % save_s if save else 'skipped'}; {n_params / 1e9:.3f} B "
@@ -1751,8 +1806,8 @@ def phase_compress(torch, cfg, params, groups=2, rank=256, save=True, source=Non
             "save_s": save_s, "peak_gib": peak, "params_b": n_params / 1e9,
             "calib_tokens": calib.token_count, "worst_als_rise": worst,
             "cka_hsr_minus_identity_mean": float(np.mean(gain)),
-            "layers": [{"groups": r["groups"], "cka_hsr": r["cka_hsr"],
-                        "cka_identity": r["cka_identity"],
+            "layers": [{"groups": r["groups"], "cka_hsr": r.get("cka_hsr"),
+                        "cka_identity": r.get("cka_identity"),
                         "value_errors": r["value_errors"]} for r in rows]}, art
 
 
@@ -2170,6 +2225,116 @@ def phase_cross(torch, by_run, streams, serving, backends) -> dict:
     return rec
 
 
+def phase_twins(torch, cfg, params, run, key, by_run, streams, serving):
+    """``run`` (sync) and ``key`` (its overlapped + graphs + continuous
+    twin at pipeline depth 3, inline admission, staging depth 8): equal
+    streams, and the continuous engine must install."""
+    by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
+    by_run[key], streams[key], serving[key] = phase_engine(
+        torch, cfg, params, run, overlapped=True, label=key,
+        extra=dict(continuous=True, pipeline_depth=3, staging_depth=8,
+                   admission_thread=False))
+    if streams[key] != streams[run]:
+        raise AssertionError(f"engine run {key}: streams differ from {run}'s: "
+                             f"{streams[key]} vs {streams[run]}")
+    if serving[key]["slot_swaps"] <= 0 or by_run[key]["stage_install_rows"] <= 0:
+        raise AssertionError(f"engine run {key}: the continuous engine installed nothing")
+    log(f"engine run {key}: streams equal {run}'s; {serving[key]['slot_swaps']} installs; "
+        f"tok/s {serving[key]['tokens_per_s']:.2f} (sync {serving[run]['tokens_per_s']:.2f})")
+
+
+def phase_recurrent(torch, by_run, streams, serving, backends) -> dict:
+    """The recurrent models at full width and depth, bf16, random weights
+    from seed 0, on the kernel backend; their mixers are plain PyTorch, as
+    in the JAX package.  falcon-mamba-7b (64 Mamba layers, d_inner 8,192,
+    d_state 16): FM (A's prompts), its decode steps counted: no kernel may
+    launch; FM+ (overlapped + graphs, inline admission: FM's streams, no
+    launch a replay); FMs and FM+c (R's traffic, sync and continuous: equal
+    streams, installs).  recurrentgemma-9b (12 periods of (rglru, rglru,
+    local) + 2 rglru; local: MQA, q_per_kv 16, dh 256, window 2,048): both
+    backends' logits on prompts of 2,560 and 700 tokens in 4,096-token
+    rings (the window rings wrap), RG (A's): 12 dense decodes a step;
+    ``calibrate`` + ``compress`` (G 1, s 1, r 128; not saved), the dense
+    weights freed, both backends' logits; RGU
+    (A's): 12 K1 a step, none from the 26 rglru layers; RGU+ (overlapped +
+    graphs, inline admission: RGU's streams, 12 K1 a replay); RGU8 (the
+    int8 ring: K3); RGUs and RGU+c (R's traffic).  Each run prints its
+    state and self bytes per slot.  Returns the phase's record."""
+    from repro_torch import kernels
+    rec, t0 = {}, time.perf_counter()
+    arch = "falcon-mamba-7b"
+    cfg, params = family_model(torch, arch)
+    rec[arch] = {"params_b": count_params(params) / 1e9}
+    (by_run["FM"], streams["FM"], serving["FM"]), steps = count_decode_steps(
+        lambda: phase_engine(torch, cfg, params, "FM"))
+    phase_overlapped(torch, cfg, params, ["FM"], by_run, streams, serving)
+    phase_twins(torch, cfg, params, "FMs", "FM+c", by_run, streams, serving)
+    # no kernel but the continuous install's row copy, eager or per replay
+    per_replay = {k: g["launches"] for k, g in serving["FM+"]["graphs"].items()}
+    launched = {run: {k: n for k, n in by_run[run].items()
+                      if n and (run, k) != ("FM+c", "stage_install_rows")}
+                for run in FAMILY_RUNS[arch]}
+    if any(launched.values()) or any(per_replay.values()):
+        raise AssertionError(f"{arch}: kernels launched on the Mamba path: {launched}, "
+                             f"FM+ per replay {per_replay}")
+    log(f"engine run FM: {steps} decode steps; no kernel launched over FM, FM+ (none a "
+        f"replay), FMs and FM+c (its install's row copy only): the Mamba mixers are plain "
+        f"PyTorch, as in the JAX package")
+    del params
+    torch.cuda.empty_cache()
+    rec[arch]["seconds"] = time.perf_counter() - t0
+    log(f"{arch}: runs took {rec[arch]['seconds']:.1f} s")
+    t1 = time.perf_counter()
+    arch = "recurrentgemma-9b"
+    cfg, params = family_model(torch, arch)
+    rec[arch] = {"params_b": count_params(params) / 1e9}
+    kernels.reset_launch_counts()
+    lens = dict(lens=(2560, 700), max_len=4096)
+    # no verify: a recurrent state cannot roll back a rejected token, so
+    # speculation is refused, as in the JAX package
+    backends[f"{arch} dense"] = phase_backends(torch, cfg, params, (), **lens)
+    by_run["recurrentgemma steps"] = launch_counts(kernels)
+    (by_run["RG"], streams["RG"], serving["RG"]), steps = count_decode_steps(
+        lambda: phase_engine(torch, cfg, params, "RG"))
+    n = by_run["RG"]["dense_decode_attention"]
+    if n != 12 * steps:
+        raise AssertionError(f"engine run RG: {n} dense decodes over {steps} decode steps, "
+                             f"expected 12 a step (the local layers)")
+    _no_old_route(by_run, ("recurrentgemma steps", "RG"), arch)
+    rec["compression"], art = phase_compress(torch, cfg, params, groups=1, rank=128,
+                                             save=False)
+    del params
+    torch.cuda.empty_cache()
+    cfg, params = art.cfg, art.params
+    del art
+    kernels.reset_launch_counts()
+    backends[f"{arch} latent"] = phase_backends(torch, cfg, params, (), **lens)
+    by_run["recurrentgemma latent steps"] = launch_counts(kernels)
+    (by_run["RGU"], streams["RGU"], serving["RGU"]), steps = count_decode_steps(
+        lambda: phase_engine(torch, cfg, params, "RGU"))
+    k1 = by_run["RGU"]["latent_decode_attention"]
+    if k1 != 12 * steps:
+        raise AssertionError(f"engine run RGU: {k1} K1 launches over {steps} decode steps, "
+                             f"expected 12 a step (the local layers; none for the rglru)")
+    log(f"engine run RGU: {steps} decode steps, {k1} K1 launches: 12 a step, none from the "
+        f"26 rglru layers")
+    phase_overlapped(torch, cfg, params, ["RGU"], by_run, streams, serving)
+    per_replay = serving["RGU+"]["graphs"]["greedy"]["launches"]
+    if per_replay != {"latent_decode_attention": 12}:
+        raise AssertionError(f"engine run RGU+: launches per replay {per_replay}, expected "
+                             f"12 K1 (the local layers) and nothing else")
+    by_run["RGU8"], streams["RGU8"], serving["RGU8"] = phase_engine(torch, cfg, params,
+                                                                    "RGU8")
+    phase_twins(torch, cfg, params, "RGUs", "RGU+c", by_run, streams, serving)
+    del params
+    torch.cuda.empty_cache()
+    rec[arch]["seconds"] = time.perf_counter() - t1
+    rec["seconds"] = time.perf_counter() - t0
+    log(f"{arch}: runs and compression took {rec[arch]['seconds']:.1f} s; the recurrent "
+        f"phase took {rec['seconds']:.1f} s")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2253,6 +2418,13 @@ def main() -> int:
     ws = "whisper-small"
     entries += [phase_latent(torch, gen, 1, False, ws), phase_k2(torch, gen, ws),
                 phase_dense(torch, gen, False, 1, ws)]
+    # recurrentgemma-9b's local layers: MQA (Hkv 1, q_per_kv 16) at dh 256
+    # over the 2,048-token window ring; its latents G 1, s 1, r 128
+    rg = "recurrentgemma-9b"
+    entries += [phase_latent(torch, gen, 1, quant, rg) for quant in (False, True)]
+    entries += [phase_k2(torch, gen, rg, window=2048),
+                phase_k2(torch, gen, rg, window=2048, dense=True),
+                phase_dense(torch, gen, False, 1, rg)]
     torch.cuda.empty_cache()
     log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
 
@@ -2332,6 +2504,7 @@ def main() -> int:
                                                                  serving, backends)}
     deepseek = phase_deepseek(torch, by_run, streams, serving, backends)
     cross = phase_cross(torch, by_run, streams, serving, backends)
+    recurrent = phase_recurrent(torch, by_run, streams, serving, backends)
     family = {run for runs in FAMILY_RUNS.values() for run in runs}
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
@@ -2344,7 +2517,8 @@ def main() -> int:
     log(json.dumps({"serving": serving, "backends": backends, "wide_ranks": wide_ranks,
                     "decode_bodies": decode_bodies, "f32_widths": f32_widths,
                     "compression": compression, "family_compression": family_compression,
-                    "deepseek": deepseek, "cross": cross, "cli": cli}))
+                    "deepseek": deepseek, "cross": cross, "recurrent": recurrent,
+                    "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)
     print(card, flush=True)

@@ -26,7 +26,7 @@ import math
 from typing import Any, Sequence
 
 import repro_torch.models.compress as C
-from repro_torch.api.artifact import CompressionArtifact
+from repro_torch.api.artifact import CompressionArtifact, load_artifact
 from repro_torch.api.registry import get_strategy
 from repro_torch.api.spec import CalibrationData, CompressionSpec
 from repro_torch.core.pipeline import FISHER_NOT_PORTED
@@ -101,11 +101,14 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
     ``admission_thread``, ``continuous`` / ``staging_depth``, ``aot``,
     ``adaptive_spec``, ``profile``).
     Widths no CUDA kernel serves are refused before the engine is built
-    (``check_supported``)."""
+    (``check_supported``), and so is a latent config of a model without
+    attention layers (the JAX package's ``compress`` writes a rank-0 one
+    for falcon-mamba): ReCalKV does not apply to it."""
     if isinstance(artifact, str):
-        return Engine.from_artifact(artifact, max_slots=max_slots,
-                                    max_len=max_len, device=device, **engine_kw)
+        artifact = load_artifact(artifact, device=device)
     cfg = artifact.cfg
+    if cfg.recalkv is not None:
+        C.check_compressible(cfg)
     if engine_kw.get("backend") is not None:
         cfg = dataclasses.replace(cfg, attn_backend=engine_kw["backend"])
     check_supported(cfg, resolve_device(device))

@@ -1,11 +1,13 @@
-"""Architecture registry (port of ``repro.configs``), ported archs only.
+"""Architecture registry (port of ``repro.configs``): every arch the JAX
+package registers.
 
 ``get_config(arch)`` returns the published configuration,
 ``smoke=True`` a reduced same-family config for CPU tests, and
 ``recalkv_ratio=0.5`` attaches a uniform-rank ReCalKV latent cache at the
 given kept fraction — the same rank rule as the JAX package; an arch
 where the technique does not apply (``RECALKV_APPLICABLE``: DeepSeek's MLA
-already caches trained latents) raises ValueError, as in the JAX package.
+already caches trained latents, falcon-mamba caches no keys or values)
+raises ValueError, as in the JAX package.
 ``cache_quant_bits=8`` stores that ring as int8 latents with per-token
 scales (the JAX package sets the field with ``dataclasses.replace``).
 """
@@ -26,11 +28,13 @@ _MODULES = {
     "deepseek-v3-671b": "deepseek_v3_671b",
     "llama-3.2-vision-11b": "llama32_vision_11b",
     "whisper-small": "whisper_small",
+    "falcon-mamba-7b": "falcon_mamba_7b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 ARCHS: tuple[str, ...] = tuple(_MODULES)
-# ReCalKV applies to archs with cached RoPE'd attention; DeepSeek's MLA is
-# already a (trained) latent cache.  The JAX package's table, for the archs
-# the port registers.
+# ReCalKV applies to archs with cached RoPE'd attention; Mamba has no
+# attention, DeepSeek's MLA is already a (trained) latent cache.  The JAX
+# package's table.
 RECALKV_APPLICABLE = {
     "qwen3-4b": True,
     "minicpm-2b": True,
@@ -40,6 +44,8 @@ RECALKV_APPLICABLE = {
     "deepseek-v3-671b": False,
     "llama-3.2-vision-11b": True,
     "whisper-small": True,
+    "falcon-mamba-7b": False,
+    "recurrentgemma-9b": True,
 }
 
 
@@ -55,8 +61,7 @@ def get_config(arch: str, *, smoke: bool = False,
                recalkv_ratio: float | None = None,
                cache_quant_bits: int | None = None) -> ModelConfig:
     if arch not in _MODULES:
-        raise KeyError(f"unknown or not yet ported arch {arch!r}; ported: {ARCHS} "
-                       f"(the others: ROADMAP.md, Queue 1 item 4)")
+        raise KeyError(f"unknown arch {arch!r}; known: {ARCHS}")
     mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
     cfg: ModelConfig = mod.SMOKE if smoke else mod.FULL
     if recalkv_ratio is not None:

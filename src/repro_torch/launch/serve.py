@@ -14,10 +14,12 @@ cross_source_len, d_model))`` in the model dtype, with rows = ``--slots``
 reads source rows 0..W-1, and the first ``--slots`` rows are the JAX
 CLI's).
 
-Not ported (refused with their ROADMAP items): ``--mesh`` other than one
-device (Queue 1 item 5), an ``--arch`` the port has not registered (item
-4).  ``--recalkv`` on an arch ReCalKV does not apply to (deepseek's MLA)
-raises ValueError, as the JAX CLI does.  ``--backend pallas`` names the
+Every registered ``--arch`` serves, the recurrent falcon-mamba and
+recurrentgemma too (their state's bytes are reported apart from the self
+ring's).  Not ported: ``--mesh`` other than one device (refused with
+ROADMAP.md Queue 1 item 5).  ``--recalkv`` on an arch ReCalKV does not
+apply to (deepseek's MLA, falcon-mamba's attention-free stack) raises
+ValueError with the JAX CLI's words, "ReCalKV inapplicable to <arch>".  ``--backend pallas`` names the
 port's CUDA kernels, as ``ModelConfig.from_dict`` reads it.
 """
 
@@ -40,7 +42,8 @@ MESH_NOT_PORTED = ("multi-GPU serving is not ported yet (ROADMAP.md, Queue 1 ite
 
 def cache_bytes(caches, part: str = "self") -> int:
     """Bytes of the engine's cache tensors of one part of each layer's
-    cache: its self-attention ring ("self") or its cross cache ("cross")."""
+    cache: its self-attention ring ("self"), its cross cache ("cross") or
+    its recurrent state ("state")."""
     return sum(leaf.numel() * leaf.element_size()
                for c in caches for leaf in c.get(part, {}).values())
 
@@ -168,8 +171,10 @@ def main(argv=None):
     cross = ("" if source is None else
              f", cross cache {cache_bytes(eng.cache, 'cross') / 2**20:.1f} MiB "
              f"(source {tuple(source.shape)})")
+    state = cache_bytes(eng.cache, "state")
+    state = "" if not state else f", recurrent state {state / 2**20:.1f} MiB"
     print(f"[serve] {cfg.name}: cache {cache_bytes(eng.cache) / 2**20:.1f} MiB "
-          f"({args.slots} slots x {args.max_len} positions){cross}, "
+          f"({args.slots} slots x {args.max_len} positions){cross}{state}, "
           f"sync_every={args.sync_every}, device {_device_name(dev)}, "
           f"{mode}{spec}{layout}")
 

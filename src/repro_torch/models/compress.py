@@ -33,6 +33,14 @@ def attn_layer_indices(cfg: ModelConfig) -> list[int]:
     return [i for i, k in enumerate(cfg.expanded_layers()) if k in SELF_ATTN]
 
 
+def check_compressible(cfg: ModelConfig) -> None:
+    """Refuse a model without attention layers (falcon-mamba's mixers
+    cache no keys or values), with the registry's words; the JAX package
+    refuses it at ``get_config(..., recalkv_ratio=...)``."""
+    if not any(k in SELF_ATTN + ("cross",) for k in cfg.expanded_layers()):
+        raise ValueError(f"ReCalKV inapplicable to {cfg.name}: it has no attention layer")
+
+
 @torch.no_grad()
 def capture_calibration(cfg: ModelConfig, params,
                         batches) -> list[P.CalibStats]:
@@ -42,8 +50,10 @@ def capture_calibration(cfg: ModelConfig, params,
     it, so no layer's activations outlive it.  ``batches`` are dicts with
     "tokens" (B, T) (numpy or torch) and, for a model with
     cross-attention layers, "source" (B, S_src, d) (encoded first for an
-    encoder-decoder)."""
+    encoder-decoder).  Recurrent layers pass through ``block_full``; a
+    model with no attention layer raises ValueError."""
     check_supported(cfg)
+    check_compressible(cfg)
     dev = params["embed"].device
     kinds = cfg.expanded_layers()
     stats: list[P.CalibStats | None] = [None] * len(attn_layer_indices(cfg))
@@ -86,7 +96,8 @@ def compress_model(cfg: ModelConfig, params, stats: Sequence[P.CalibStats],
     """Returns (compressed_cfg, compressed_params).  Self-attention layers
     get HSR keys + OCMF values, one layer at a time (its float32 factors
     are cast to ``cfg.dtype`` before the next starts); the other leaves
-    (an encoder's among them) are shared with ``params``, not copied.
+    (an encoder's and the recurrent mixers' among them) are shared with
+    ``params``, not copied.
     Cross-attention layers go through the same pipeline on identity
     statistics (their source is the stub frontend's) at the first self
     layer's rank, or, in a model without self-attention layers, at the
@@ -105,8 +116,7 @@ def compress_model(cfg: ModelConfig, params, stats: Sequence[P.CalibStats],
         raise ValueError(f"need {len(idxs)} stats, got {len(stats)}")
     cross = [i for i, k in enumerate(cfg.expanded_layers())
              if k in ("cross", "attn_cross")]
-    if not idxs and not cross:
-        raise ValueError(f"{cfg.name} has no attention layer to compress")
+    check_compressible(cfg)
     s = recal_cfg.effective_group_size(cfg.num_kv_heads)
     ranks_k, ranks_v = P.allocate_layer_ranks(
         recal_cfg, len(idxs), s * cfg.d_head, fisher_k, fisher_v)

@@ -2,16 +2,18 @@
 
 The dataclasses carry every field of the JAX configuration so that a
 ``model_config`` dict written by the JAX package loads unchanged
-(:meth:`ModelConfig.from_dict`).  The port's model functions implement the
-subset the serving path needs — ``attn``, ``attn_dense`` (always a dense
-FFN: DeepSeek's first-k-dense prefix) and sliding-window ``local`` blocks,
-each with a dense SwiGLU FFN or a capacity-routed MoE FFN (``moe``), over
-a dense K/V cache (``recalkv=None``), a ReCalKV latent cache, float or
-int8 (``cache_quant_bits``), or DeepSeek's MLA latent cache (``mla``);
-cross-attention blocks (``cross``, and ``attn_cross``: self- then
-cross-attention, the decoder of an ``encoder_decoder`` model) over a
-static source cache — and :func:`check_supported` names anything else
-(Mamba and RG-LRU) as not ported.
+(:meth:`ModelConfig.from_dict`).  The port's model functions implement
+every block kind of ``BLOCK_KINDS`` — ``attn``, ``attn_dense`` (always a
+dense FFN: DeepSeek's first-k-dense prefix) and sliding-window ``local``
+blocks, each with a dense SwiGLU FFN or a capacity-routed MoE FFN
+(``moe``), over a dense K/V cache (``recalkv=None``), a ReCalKV latent
+cache, float or int8 (``cache_quant_bits``), or DeepSeek's MLA latent
+cache (``mla``); cross-attention blocks (``cross``, and ``attn_cross``:
+self- then cross-attention, the decoder of an ``encoder_decoder`` model)
+over a static source cache; and the recurrent mixers, Mamba-1
+(``mamba``, no FFN) and RG-LRU (``rglru``, with a dense FFN), over a
+recurrent state.  :func:`check_supported` names what a card's kernels
+do not serve.
 
 ``attn_backend`` takes ``"einsum"`` (plain PyTorch reference) or
 ``"kernel"`` (the hand-written CUDA kernels through ``kernels.ops``); the
@@ -29,6 +31,8 @@ from typing import Any
 import torch
 
 BLOCK_KINDS = ("attn", "attn_dense", "local", "cross", "attn_cross", "mamba", "rglru")
+# kinds whose cache is a recurrent state, not position-addressed entries
+RECURRENT_KINDS = ("mamba", "rglru")
 ATTN_BACKENDS = ("einsum", "kernel")
 _BACKEND_ALIASES = {"pallas": "kernel"}
 _JAX_BACKEND_NAMES = {v: k for k, v in _BACKEND_ALIASES.items()}
@@ -179,6 +183,21 @@ class ModelConfig:
         return (self.prefix_pattern + self.layer_pattern * self.num_periods
                 + self.suffix_pattern)
 
+    @property
+    def mamba_d_inner(self) -> int:
+        assert self.mamba is not None
+        return self.mamba.expand * self.d_model
+
+    @property
+    def mamba_dt_rank(self) -> int:
+        assert self.mamba is not None
+        return self.mamba.dt_rank or -(-self.d_model // 16)
+
+    @property
+    def lru_width(self) -> int:
+        assert self.rglru is not None
+        return self.rglru.lru_width or self.d_model
+
     def window_for(self, kind: str) -> int | None:
         if kind == "local":
             if self.sliding_window is None:
@@ -226,27 +245,19 @@ class ModelConfig:
 # kernels/dense_decode.py ``launch``): head dim, and query heads per kv head.
 KERNEL_D_HEADS = (64, 80, 128, 256)
 KERNEL_MAX_Q_PER_KV = 16
-# What check_supported still refuses by kind (ROADMAP.md Queue 1 item 4).
-STILL_TO_PORT = "Mamba and RG-LRU blocks are still to port"
-PORTED_KINDS = ("attn", "attn_dense", "local", "cross", "attn_cross")
+# The block kinds the port's model functions serve: all of them.
+PORTED_KINDS = BLOCK_KINDS
 
 
 def check_supported(cfg: ModelConfig, device=None) -> None:
-    """Raise NotImplementedError for configurations the port's model
-    functions do not cover yet (see ROADMAP.md, Queue 1 item 4: Mamba
-    and RG-LRU).  On a CUDA ``device``
-    with the kernel backend it also refuses widths no Hopper body serves
+    """Raise NotImplementedError for configurations the port does not
+    serve.  Every block kind runs on the CPU and on a card (``PORTED_KINDS``);
+    what the port still lacks are meshes (ROADMAP.md Queue 1 item 5, which
+    the serving CLI refuses) and training (item 6).  On a CUDA ``device``
+    with the kernel backend this refuses widths no Hopper body serves
     (ROADMAP.md, Queue 3 item 2); the CPU's plain versions serve every
     width, and MLA's readers launch no kernel, so an MLA model is not
     checked for them."""
-    missing = [name for name in ("mamba", "rglru") if getattr(cfg, name) is not None]
-    kinds = sorted(set(cfg.expanded_layers()) - set(PORTED_KINDS))
-    if kinds:
-        missing.append(f"block kinds {kinds}")
-    if missing:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported to repro_torch yet: {', '.join(missing)} "
-            f"(ROADMAP.md Queue 1 item 4: {STILL_TO_PORT})")
     if (device is not None and torch.device(device).type == "cuda"
             and cfg.attn_backend == "kernel" and cfg.mla is None):
         qpk = cfg.num_heads // max(cfg.num_kv_heads, 1)

@@ -1,5 +1,5 @@
 """Dense, latent and MLA KV caches — ring or paged pool — with their
-decode and verify readers (port of the dense, latent and MLA subset of
+decode and verify readers, and the recurrent state of the mixers (port of
 ``repro.models.kv_cache``).
 
 Per layer the cache is the dense ``{"k", "v": (B, L, Hkv, dh), "pos": (B,
@@ -20,6 +20,13 @@ and values ``{"k", "v": (B, S_src, Hkv, dh)}`` (dense) or latents ``{"zk",
 (every writer below leaves it as it is; always ``cfg.dtype``, never
 int8).  A ``cross`` layer has no ``"self"``; an ``attn_cross`` layer has
 both.
+
+A recurrent layer holds ``{"state": {"h", "conv"}}``: Mamba's ``h`` (B,
+d_inner, d_state) and RG-LRU's ``h`` (B, W) in float32, and the last K-1
+conv inputs ``conv`` (B, K-1, width) in ``cfg.dtype`` (float under
+``cache_quant_bits`` too), as in the JAX package.  A decode step replaces
+the state whole (:func:`apply_decode_writes`); it has no positions, so
+it takes neither the pool nor speculation.
 
 Deferred writes: the decode reader scores the current token as an extra
 self column and returns its entry; :func:`apply_decode_writes` writes all
@@ -46,7 +53,7 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import RECURRENT_KINDS, ModelConfig
 from repro_torch.quant import dequantize, quantize
 
 Params = dict[str, Any]
@@ -101,8 +108,23 @@ def init_cross_cache(cfg: ModelConfig, batch: int, device) -> Params:
     return {"zk": z(batch, S, G, rt.rank_k), "zv": z(batch, S, G, rt.rank_v)}
 
 
+def init_state_cache(cfg: ModelConfig, kind: str, batch: int, device) -> Params:
+    """A recurrent layer's empty state (zeros), ``batch`` rows."""
+    if kind == "mamba":
+        di, ds, K = cfg.mamba_d_inner, cfg.mamba.d_state, cfg.mamba.d_conv
+    elif kind == "rglru":
+        di, ds, K = cfg.lru_width, None, cfg.rglru.conv_width
+    else:
+        raise ValueError(kind)
+    h_shape = (batch, di) if ds is None else (batch, di, ds)
+    return {"h": torch.zeros(h_shape, dtype=torch.float32, device=device),
+            "conv": torch.zeros((batch, K - 1, di), dtype=cfg.dtype, device=device)}
+
+
 def init_block_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                      device, layer_idx: int | None = None) -> Params:
+    if kind in RECURRENT_KINDS:
+        return {"state": init_state_cache(cfg, kind, batch, device)}
     if kind == "cross":
         return {"cross": init_cross_cache(cfg, batch, device)}
     out = {"self": init_self_cache(cfg, kind, batch, max_len, device,
@@ -247,8 +269,9 @@ def kernel_fallback_kinds(cfg: ModelConfig) -> list[str]:
     cross-attention reads a static source cache through einsum (an
     ``attn_cross`` layer for its cross half).  The engine warns once when
     this list is non-empty, so a requested kernel backend never degrades
-    silently."""
-    kinds = sorted(set(cfg.expanded_layers()))
+    silently.  Mixer kinds (mamba / rglru) have no attention and do not
+    count."""
+    kinds = sorted(set(cfg.expanded_layers()) - set(RECURRENT_KINDS))
     if cfg.mla is not None:
         return kinds
     return [k for k in kinds if k in ("cross", "attn_cross")]
@@ -451,12 +474,18 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
                         active: torch.Tensor | None = None,
                         pages: tuple | None = None) -> list:
     """Merge the deferred per-layer decode entries into the rings (or,
-    with ``pages``, the pools), in place (one pass after the layer loop).
-    ``active`` (B,) bool freezes the rows of inactive sequences entirely."""
+    with ``pages``, the pools), in place (one pass after the layer loop);
+    a recurrent layer's new state replaces its state whole.  ``active``
+    (B,) bool freezes the rows of inactive sequences entirely."""
     targets = None if pages is None else _paged_targets(
         pages[0], cur.to(torch.int64)[:, None], None if active is None else active[:, None],
         pages[1])
     for cache, upd in zip(caches, updates):
+        for name, leaf in cache.get("state", {}).items():
+            new = upd["state"][name].to(leaf.dtype)
+            if active is not None:
+                new = torch.where(active.reshape((-1,) + (1,) * (leaf.dim() - 1)), new, leaf)
+            leaf.copy_(new)
         for name, leaf in cache.get("self", {}).items():
             if pages is None:
                 _merge_leaf(leaf, upd["self"][name], cur, active)

@@ -1,4 +1,5 @@
-"""Layer primitives of the attention path (port of ``repro.models.layers``).
+"""Layer primitives of the attention path and the recurrent mixers (port
+of ``repro.models.layers``).
 
 Plain functions over explicit parameter dicts (row-vector convention,
 ``y = x @ W``); float32 for softmax and norms, the model dtype for weights
@@ -375,3 +376,134 @@ def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
     if cfg.moe is not None and not dense:
         return moe_ffn(p, x, cfg)
     return swiglu(p, x)
+
+
+# ---------------------------------------------------------------------------
+# Recurrent mixers: Mamba-1 (falcon-mamba) and RG-LRU (RecurrentGemma)
+# ---------------------------------------------------------------------------
+#
+# Plain PyTorch on every device: the JAX package computes both outside any
+# Pallas kernel (``jax.lax.associative_scan``).  The f32 casts sit where
+# JAX has them (dt, B, C, A, h and the RG-LRU gates); the rest runs in the
+# model dtype.
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0), with no threshold."""
+    return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _causal_conv1d(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   state: torch.Tensor | None = None):
+    """Depthwise causal conv.  x (B, T, C), w (K, C), b (C,).  Returns (y,
+    new_state): the state carries the last K-1 inputs for streaming
+    decode (a copy: a view would hold the whole padded input alive in the
+    prefill's cache).  Taps are summed in order, as the JAX package's
+    ``sum``."""
+    K, T = w.shape[0], x.shape[1]
+    if state is None:
+        state = torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                            device=x.device)
+    xp = torch.cat([state.to(x.dtype), x], dim=1)          # (B, T+K-1, C)
+    y = xp[:, :T] * w[0]
+    for i in range(1, K):
+        y = y + xp[:, i:i + T] * w[i]
+    return y + b, xp[:, T:].clone()
+
+
+def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t along dim 1, from h_{-1} = 0, as a
+    log-depth doubling over time (k = 1, 2, 4, ...: b[t] += a[t] b[t-k],
+    then a[t] *= a[t-k]); every step is a few whole-tensor ops, so a long
+    prefill launches O(log T) of them, not O(T).  Returns every h_t, in
+    ``b`` (updated in place: the callers pass a fresh tensor)."""
+    T = a.shape[1]
+    k = 1
+    while k < T:
+        b[:, k:] += a[:, k:] * b[:, :-k]
+        if 2 * k < T:
+            a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
+        k *= 2
+    return b
+
+
+def _ssm_chunk_scan(decay: torch.Tensor, drive: torch.Tensor, h0: torch.Tensor):
+    """The scan of h_t = decay_t * h_{t-1} + drive_t within a chunk.
+    decay / drive (B, Tc, d, n) f32, h0 (B, d, n).  The initial state is a
+    prepended pseudo-step of decay 1, as in the JAX package.  Returns
+    (h_all (B, Tc, d, n), h_last (B, d, n), a copy: it outlives the
+    chunk's steps)."""
+    a = torch.cat([torch.ones_like(decay[:, :1]), decay], dim=1)
+    hh = _linear_scan(a, torch.cat([h0[:, None], drive], dim=1))
+    return hh[:, 1:], hh[:, -1].clone()
+
+
+def mamba_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                state: Params | None = None, chunk: int = 128):
+    """Mamba-1 block (port of the JAX ``mamba_mixer``).  x (B, T, d).
+    Returns (y, new state {"h": (B, d_inner, d_state) f32, "conv": (B,
+    d_conv - 1, d_inner)}).  The selective scan runs over chunks of
+    ``chunk`` steps in order when T is a multiple of it past one chunk,
+    else over T at once (T 1: one step), the JAX package's rule."""
+    B, T, _ = x.shape
+    di, ds, dtr = cfg.mamba_d_inner, cfg.mamba.d_state, cfg.mamba_dt_rank
+    xz = x @ p["in_proj"]
+    xin, z = xz[..., :di], xz[..., di:]
+    xc, new_conv = _causal_conv1d(xin, p["conv_w"], p["conv_b"],
+                                  None if state is None else state["conv"])
+    xc = F.silu(xc)
+    dbc = xc @ p["x_proj"]
+    dt = _softplus(dbc[..., :dtr] @ p["dt_proj"] + p["dt_bias"]).float()
+    Bm = dbc[..., dtr:dtr + ds].float()                     # (B, T, ds)
+    Cm = dbc[..., dtr + ds:].float()                        # (B, T, ds)
+    A = -torch.exp(p["A_log"].float())                      # (di, ds)
+    h = (torch.zeros((B, di, ds), dtype=torch.float32, device=x.device)
+         if state is None else state["h"].float())
+
+    def step_chunk(h, xc_c, dt_c, B_c, C_c):
+        decay = torch.exp(dt_c[..., None] * A)              # (B, Tc, di, ds)
+        drive = (dt_c * xc_c.float())[..., None] * B_c[:, :, None, :]
+        h_all, h_new = _ssm_chunk_scan(decay, drive, h)
+        return h_new, torch.einsum("btdn,btn->btd", h_all, C_c)
+
+    if T % chunk == 0 and T > chunk:
+        ys = []
+        for s in range(0, T, chunk):
+            c = slice(s, s + chunk)
+            h, y_c = step_chunk(h, xc[:, c], dt[:, c], Bm[:, c], Cm[:, c])
+            ys.append(y_c)
+        y = torch.cat(ys, dim=1)
+    else:
+        h, y = step_chunk(h, xc, dt, Bm, Cm)
+    y = y.to(x.dtype) + xc * p["D"].to(x.dtype)
+    out = (y * F.silu(z)) @ p["out_proj"]
+    return out.to(x.dtype), {"h": h, "conv": new_conv}
+
+
+_RGLRU_C = 8.0
+
+
+def rglru_mixer(p: Params, x: torch.Tensor, cfg: ModelConfig,
+                state: Params | None = None):
+    """Gated linear recurrent unit block (port of the JAX ``rglru_mixer``).
+    x (B, T, d).  Returns (y, new state {"h": (B, W) f32, "conv": (B,
+    conv_width - 1, W)}).  The gate's GELU is the tanh form, JAX's
+    default."""
+    B, T, _ = x.shape
+    W = cfg.lru_width
+    main = x @ p["in_main"]                                 # (B, T, W)
+    gate = F.gelu(x @ p["in_gate"], approximate="tanh")
+    main, new_conv = _causal_conv1d(main, p["conv_w"], p["conv_b"],
+                                    None if state is None else state["conv"])
+    rg = torch.sigmoid(main @ p["w_a"]).float()             # recurrence gate
+    ig = torch.sigmoid(main @ p["w_x"]).float()             # input gate
+    a = torch.exp(-_RGLRU_C * _softplus(p["a_param"].float()) * rg)
+    drive = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-9)) * (ig * main.float())
+    h0 = (torch.zeros((B, W), dtype=torch.float32, device=x.device)
+          if state is None else state["h"].float())
+    if T == 1:
+        hs = (a[:, 0] * h0 + drive[:, 0])[:, None]
+    else:
+        a = torch.cat([torch.ones_like(a[:, :1]), a], dim=1)
+        hs = _linear_scan(a, torch.cat([h0[:, None], drive], dim=1))[:, 1:]
+    y = (hs.to(x.dtype) * gate) @ p["out_proj"]
+    return y, {"h": hs[:, -1].clone(), "conv": new_conv}

@@ -1,14 +1,14 @@
 """Transformer stack: prefill / decode / speculative verify (port of the
 serving half of ``repro.models.transformer``), over a dense, a latent or
-an MLA KV cache.
+an MLA KV cache, and the recurrent state of the Mamba and RG-LRU mixers.
 
 The JAX package scans over stacked layer params; here ``run_stack`` is a
 Python loop over ``params["layers"]`` (see :mod:`.weights` for the layout)
 and caches are a list with one ``{"self": {...}}`` dict per layer (a
 ``cross`` layer holds ``{"cross": {...}}`` instead, an ``attn_cross``
-layer both).  With ``pages = (ptab, page_size)`` the caches are
-page-major pools read and written through the page table (see
-:mod:`.kv_cache`).
+layer both, a ``mamba`` or ``rglru`` layer ``{"state": {"h", "conv"}}``).
+With ``pages = (ptab, page_size)`` the caches are page-major pools read
+and written through the page table (see :mod:`.kv_cache`).
 
 Cross-attention layers read a ``source`` (B, S_src, d): the stub
 frontend's embeddings, run through :func:`encode` first when the model is
@@ -29,7 +29,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels.stage_install import InstallTable, stage_install_rows
 from repro_torch.models import kv_cache as KC
 from repro_torch.models import layers as L
-from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.config import RECURRENT_KINDS, ModelConfig, check_supported
 
 Params = dict[str, Any]
 
@@ -41,10 +41,24 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """The block's FFN on its residual: dense on ``attn_dense`` and the
-    cross-attention kinds."""
+    """The block's FFN on its residual: dense on ``attn_dense``, the
+    cross-attention kinds and ``rglru``."""
     return x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                     dense=kind in ("attn_dense", "cross", "attn_cross"))
+                     dense=kind in ("attn_dense", "cross", "attn_cross", "rglru"))
+
+
+def _mixer_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+                 state: Params | None):
+    """A recurrent block over (B, T, d) from ``state`` (None: zeros):
+    Mamba alone, or RG-LRU then the dense FFN.  Returns (x, new state).
+    Prefill runs it over the whole right-padded bucket, as the JAX
+    package does, so the state a prefill leaves is the state after the
+    pad tokens."""
+    if kind == "mamba":
+        y, new = L.mamba_mixer(p["mixer"], L.rmsnorm(x, p["ln"], cfg.norm_eps), cfg, state)
+        return x + y, new
+    y, new = L.rglru_mixer(p["mixer"], L.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state)
+    return _ffn(cfg, kind, p, x + y), new
 
 
 def _cross_full(cfg: ModelConfig, p: Params, h: torch.Tensor, ctx: dict):
@@ -87,7 +101,11 @@ def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     without ``want_cache``: the calibration and training forwards and the
     encoder, which keep the einsum path under the kernel backend, as the
     JAX package does.  ``ctx["causal"]`` False (the encoder) lets a dense
-    block attend every position."""
+    block attend every position.  A recurrent block's cache is its state
+    after the last (padded) position."""
+    if kind in RECURRENT_KINDS:
+        x, state = _mixer_block(cfg, kind, p, x, None)
+        return x, ({"state": state} if want_cache else None)
     if kind == "cross":
         y, cross = _cross_full(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                                ctx)
@@ -143,7 +161,11 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                  cache: Params, ctx: dict):
     """One block for a (B, 1, d) decode step.  Returns (x, deferred
     updates) — written by ``kv_cache.apply_decode_writes`` after the layer
-    loop; a cross half reads its static cache and defers nothing."""
+    loop; a cross half reads its static cache and defers nothing; a
+    recurrent block defers its whole new state."""
+    if kind in RECURRENT_KINDS:
+        x, state = _mixer_block(cfg, kind, p, x, cache["state"])
+        return x, {"state": state}
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                         cache["cross"])
@@ -167,7 +189,12 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     positions cur..cur+S-1.  Returns (x, deferred (B, S, ...) entries) —
     the caller commits only the accepted prefix
     (``kv_cache.apply_verify_writes``); a cross half reads its static
-    cache with the S tokens as queries."""
+    cache with the S tokens as queries.  Recurrent blocks raise: their
+    state is not position-addressed, so a rejected token could not be
+    rolled back by masking its write."""
+    if kind in RECURRENT_KINDS:
+        raise NotImplementedError(
+            f"speculative verify is unsupported for recurrent {kind!r} blocks")
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                         cache["cross"])
@@ -356,10 +383,14 @@ def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages)
 
 
+CACHE_PARTS = ("self", "cross", "state")
+
+
 def cache_leaves(caches: list) -> list:
-    """Every leaf of every layer's caches, the self ring's and the cross
-    cache's, in a fixed order: what a slot's state is made of."""
-    return [leaf for c in caches for part in ("self", "cross") if part in c
+    """Every leaf of every layer's caches, the self ring's, the cross
+    cache's and the recurrent state's, in a fixed order: what a slot's
+    state is made of."""
+    return [leaf for c in caches for part in CACHE_PARTS if part in c
             for leaf in c[part].values()]
 
 
@@ -378,8 +409,8 @@ def swap_cache_slot(caches: list, stage: list, slot: torch.Tensor,
                     q: torch.Tensor, table=None) -> list:
     """Install row ``q`` of a stage cache (the same layers and leaves as the
     ring, see :func:`init_decode_cache`) into serving slot ``slot`` of the
-    ring, in place, its cross cache too: continuous batching's mid-window
-    install.  ``slot`` /
+    ring, in place, its cross cache and recurrent state too: continuous
+    batching's mid-window install.  ``slot`` /
     ``q`` are 0-d int64 device tensors; a ``slot`` outside the batch
     copies nothing (JAX's ``mode="drop"``), which is how the window says
     "no install this iteration" without a branch.  On a card ``table`` is

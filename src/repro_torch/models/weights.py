@@ -28,8 +28,15 @@ uniform ranks, ``["q_norm", "k_norm"]``): a ``cross`` layer ``{"ln1",
 model also holds ``"encoder": {"layers": [attn_dense blocks],
 "final_norm"}`` (JAX's ``{"blocks": (...), "final_norm"}``).
 
-Norm scales and the MoE router stay float32 (as in JAX); matrices take
-the model dtype.
+A recurrent layer holds its mixer: a ``mamba`` layer ``{"ln", "mixer":
+{"in_proj", "conv_w", "conv_b", "x_proj", "dt_proj", "dt_bias", "A_log",
+"D", "out_proj"}}``, an ``rglru`` layer ``{"ln1", "mixer": {"in_main",
+"in_gate", "conv_w", "conv_b", "w_a", "w_x", "a_param", "out_proj"},
+"ln2", "mlp"}`` (a dense FFN).
+
+Norm scales, the MoE router and the mixers' ``A_log``, ``dt_bias``,
+``D`` and ``a_param`` stay float32 (as in JAX); the other leaves take the
+model dtype.
 """
 
 from __future__ import annotations
@@ -44,9 +51,10 @@ from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, check_supported
 
 Params = dict[str, Any]
-NORM_LEAVES = frozenset({"ln1", "ln2", "lnx", "final_norm", "q_norm", "k_norm",
+NORM_LEAVES = frozenset({"ln", "ln1", "ln2", "lnx", "final_norm", "q_norm", "k_norm",
                          "q_a_norm", "kv_a_norm"})
-F32_LEAVES = NORM_LEAVES | {"router"}   # kept float32 whatever the model dtype
+# kept float32 whatever the model dtype
+F32_LEAVES = NORM_LEAVES | {"router", "A_log", "dt_bias", "D", "a_param"}
 
 
 def to_tensor(arr, device: torch.device, dtype: torch.dtype | None = None):
@@ -80,6 +88,18 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
 
 def _leaf_dtype(name: str, dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if name in F32_LEAVES else dtype
+
+
+def _lead(tree) -> int:
+    """The leading axis of a stacked block's first leaf: its periods."""
+    leaf = next(iter(tree.values()))
+    return _lead(leaf) if isinstance(leaf, dict) else np.asarray(leaf).shape[0]
+
+
+def _stack(trees: list) -> Params:
+    """Stack equal trees of numpy leaves along a new leading (period) axis."""
+    return {k: _stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
+            else np.stack([t[k] for t in trees]) for k in trees[0]}
 
 
 def _convert(tree, device, dtype, index=None):
@@ -117,8 +137,7 @@ def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
     layers = [_convert(b, dev, dtype) for b in tree.get("prefix", ())]
     blocks = tree.get("blocks") or ()
     if blocks:
-        n_per = np.asarray(blocks[0]["ln1"]).shape[0]
-        for p in range(n_per):
+        for p in range(_lead(blocks[0])):
             layers += [_convert(b, dev, dtype, index=p) for b in blocks]
     layers += [_convert(b, dev, dtype) for b in tree.get("suffix", ())]
     if len(layers) != cfg.num_layers:
@@ -148,10 +167,6 @@ def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
         return {k: conv(v) if isinstance(v, dict) else to_numpy(v)
                 for k, v in tree.items()}
 
-    def stack(trees):
-        return {k: stack([t[k] for t in trees]) if isinstance(trees[0][k], dict)
-                else np.stack([to_numpy(t[k]) for t in trees]) for k in trees[0]}
-
     out = {k: to_numpy(params[k]) for k in ("embed", "final_norm", "lm_head")
            if k in params}
     if "encoder" in params:
@@ -163,9 +178,9 @@ def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
         out.update(prefix=tuple(conv(layer) for layer in layers), blocks=(), suffix=())
         return out
     n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
-    body = layers[n_pre:n_pre + period * n_per]
+    body = [conv(layer) for layer in layers[n_pre:n_pre + period * n_per]]
     out.update(prefix=tuple(conv(layer) for layer in layers[:n_pre]),
-               blocks=tuple(stack(body[i::period]) for i in range(period)) if n_per else (),
+               blocks=tuple(_stack(body[i::period]) for i in range(period)) if n_per else (),
                suffix=tuple(conv(layer) for layer in layers[n_pre + period * n_per:]))
     return out
 
@@ -203,8 +218,8 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
             out[i:i + step] = draw(out[i:i + step].shape)
         return out
 
-    def zeros(n):
-        return torch.zeros(n, device=dev, dtype=torch.float32)
+    def zeros(n, dtype=torch.float32):
+        return torch.zeros(n, device=dev, dtype=dtype)
 
     def swiglu(f):
         return {"wi": normal((d, f), d ** -0.5), "wg": normal((d, f), d ** -0.5),
@@ -235,6 +250,27 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
         params["lm_head"] = normal((d, V), d ** -0.5)
     layers = []
     for i, kind in enumerate(cfg.expanded_layers()):
+        if kind == "mamba":
+            di, ds, dtr, K = (cfg.mamba_d_inner, cfg.mamba.d_state, cfg.mamba_dt_rank,
+                              cfg.mamba.d_conv)
+            A = torch.arange(1, ds + 1, device=dev, dtype=torch.float32).expand(di, ds)
+            layers.append({"ln": zeros(d), "mixer": {
+                "in_proj": normal((d, 2 * di), d ** -0.5),
+                "conv_w": normal((K, di), K ** -0.5), "conv_b": zeros(di, dt),
+                "x_proj": normal((di, dtr + 2 * ds), di ** -0.5),
+                "dt_proj": normal((dtr, di), dtr ** -0.5),
+                "dt_bias": zeros(di) - 4.0, "A_log": torch.log(A),
+                "D": zeros(di) + 1.0, "out_proj": normal((di, d), di ** -0.5)}})
+            continue
+        if kind == "rglru":
+            W, K = cfg.lru_width, cfg.rglru.conv_width
+            layers.append({"ln1": zeros(d), "mixer": {
+                "in_main": normal((d, W), d ** -0.5), "in_gate": normal((d, W), d ** -0.5),
+                "conv_w": normal((K, W), K ** -0.5), "conv_b": zeros(W, dt),
+                "w_a": normal((W, W), W ** -0.5), "w_x": normal((W, W), W ** -0.5),
+                "a_param": zeros(W) + 0.65, "out_proj": normal((W, d), W ** -0.5)},
+                "ln2": zeros(d), "mlp": swiglu(cfg.d_ff)})
+            continue
         if kind == "cross":
             layers.append({"ln1": zeros(d), "cross": gqa(*uniform), "ln2": zeros(d),
                            "mlp": swiglu(cfg.d_ff)})
@@ -282,11 +318,14 @@ def caches_from_jax(cfg: ModelConfig, tree: Params, device=None) -> list:
     stacked ``blocks`` leaves carrying a leading period axis; leaves as
     numpy arrays) into the port's per-layer list of ``{"self": {...}}``
     dicts (``"cross"`` beside or instead of ``"self"`` on cross-attention
-    layers).  Works for rings and page-major pools alike; ``pos`` becomes
-    int64, other leaves keep their dtype."""
+    layers; a recurrent layer's one-level ``{"h", "conv"}`` becomes
+    ``{"state": {"h", "conv"}}``).  Works for rings and page-major pools
+    alike; ``pos`` becomes int64, other leaves keep their dtype."""
     dev = resolve_device(device)
 
     def conv(block, index=None):
+        if not isinstance(next(iter(block.values())), dict):
+            block = {"state": block}
         out = {}
         for part, leaves in block.items():
             out[part] = {}
@@ -300,8 +339,7 @@ def caches_from_jax(cfg: ModelConfig, tree: Params, device=None) -> list:
     layers = [conv(b) for b in tree.get("prefix") or ()]
     blocks = tree.get("blocks") or ()
     if blocks:
-        n_per = np.asarray(next(iter(next(iter(blocks[0].values())).values()))).shape[0]
-        for p in range(n_per):
+        for p in range(_lead(blocks[0])):
             layers += [conv(b, p) for b in blocks]
     layers += [conv(b) for b in tree.get("suffix") or ()]
     if len(layers) != cfg.num_layers:
@@ -313,23 +351,19 @@ def caches_from_jax(cfg: ModelConfig, tree: Params, device=None) -> list:
 def caches_to_jax(cfg: ModelConfig, caches: list) -> Params:
     """The inverse of :func:`caches_from_jax`: the JAX package's cache tree
     for ``cfg``'s layer layout, with numpy leaves (``pos`` int32; bf16 as
-    ml_dtypes' bfloat16)."""
+    ml_dtypes' bfloat16; a recurrent layer's state one level deep)."""
     def conv(c):
-        return {part: {k: (to_numpy(v).astype(np.int32) if k == "pos"
-                           else to_numpy(v))
-                       for k, v in leaves.items()}
-                for part, leaves in c.items()}
+        out = {part: {k: (to_numpy(v).astype(np.int32) if k == "pos"
+                          else to_numpy(v))
+                      for k, v in leaves.items()}
+               for part, leaves in c.items()}
+        return out["state"] if "state" in out else out
 
     if not cfg.scan_layers:
         return {"prefix": tuple(conv(c) for c in caches), "blocks": None,
                 "suffix": ()}
     n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
-    body = caches[n_pre:n_pre + period * n_per]
-    blocks = tuple(
-        {part: {k: np.stack([conv(body[p * period + i])[part][k]
-                             for p in range(n_per)])
-                for k in leaves}
-         for part, leaves in caches[n_pre + i].items()}
-        for i in range(period)) if n_per else None
+    body = [conv(c) for c in caches[n_pre:n_pre + period * n_per]]
+    blocks = tuple(_stack(body[i::period]) for i in range(period)) if n_per else None
     return {"prefix": tuple(conv(c) for c in caches[:n_pre]), "blocks": blocks,
             "suffix": tuple(conv(c) for c in caches[n_pre + period * n_per:])}

@@ -21,7 +21,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import RECURRENT_KINDS, ModelConfig
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,7 +104,7 @@ def make_layer_draft(cfg: ModelConfig, params: dict,
         raise ValueError(
             f"layers draft wants {k} layers; target has {cfg.num_layers}")
     kinds = cfg.expanded_layers()[:k]
-    if any(kd in ("mamba", "rglru") for kd in kinds):
+    if any(kd in RECURRENT_KINDS for kd in kinds):
         raise ValueError("layers draft cannot include recurrent blocks")
     dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft{k}", num_layers=k)
     dparams = {kk: params[kk] for kk in ("embed", "final_norm", "lm_head", "encoder")

@@ -108,9 +108,19 @@ construction warns once, as for MLA (the self layers still launch their
 kernels).  The paged pool refuses such a model (``ValueError``), as in
 the JAX package.
 
-Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5); models with
-Mamba or RG-LRU blocks (Queue 1 item 4), which ``check_supported``
-refuses at construction.
+A model with recurrent layers (``mamba``, ``rglru``: falcon-mamba,
+recurrentgemma) keeps each slot's state ``{"h", "conv"}`` beside its
+rings; the merge, continuous batching's install and the captured graphs
+carry it, and a decode step replaces it where the slot steps.  Its
+mixers are plain PyTorch, as in the JAX package.  Prefill runs them over
+the whole right-padded bucket (the JAX engine's behaviour, kept so that
+streams match it), so a request's state, and its stream, depend on the
+power-of-two prompt length of its wave.  Speculation (``spec_depth >
+0``) and the paged pool raise ``ValueError`` for such a model, as in the
+JAX package.
+
+Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5) and training
+(item 6).
 """
 
 from __future__ import annotations
@@ -130,7 +140,7 @@ from repro_torch import kernels
 from repro_torch.device import resolve_device
 from repro_torch.models import kv_cache as KC
 from repro_torch.models import transformer as T
-from repro_torch.models.config import ModelConfig, check_supported
+from repro_torch.models.config import RECURRENT_KINDS, ModelConfig, check_supported
 from repro_torch.serving import draft as D
 from repro_torch.serving import sampler as S
 from repro_torch.serving.draft import DraftSpec
@@ -253,6 +263,13 @@ class Engine:
             raise ValueError("sync_every must be >= 1")
         if spec_depth < 0:
             raise ValueError("spec_depth must be >= 0")
+        if spec_depth > 0:
+            bad = [k for k in cfg.expanded_layers() if k in RECURRENT_KINDS]
+            if bad:
+                raise ValueError(
+                    f"spec_depth > 0 needs position-addressed caches; "
+                    f"{cfg.name} has recurrent {sorted(set(bad))} blocks "
+                    f"whose state cannot roll back a rejected token")
         parsed_draft = DraftSpec.parse(draft)
         if parsed_draft is not None and spec_depth == 0:
             raise ValueError(
@@ -509,7 +526,7 @@ class Engine:
                     "page_size/n_pages only apply to cache_layout='paged'")
             return None, None
         bad = sorted(k for k in set(cfg.expanded_layers())
-                     if k in ("mamba", "rglru", "cross", "attn_cross"))
+                     if k in RECURRENT_KINDS + ("cross", "attn_cross"))
         if bad:
             raise ValueError(
                 f"cache_layout='paged' needs position-addressed "

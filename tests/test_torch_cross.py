@@ -6,8 +6,8 @@ sizes, float32 with TF32 off, on numpy-seeded inputs and weights carried
 by ``params_from_jax``:
 
 * the registry: FULL and SMOKE equal JAX's config dicts; ``check_supported``
-  takes both (also on a CUDA device with the kernel backend); Mamba and
-  RG-LRU stay refused by name;
+  takes both (also on a CUDA device with the kernel backend), and the
+  recurrent falcon-mamba and recurrentgemma too;
 * the four cross functions, the non-causal dense attention and ``encode``
   (rtol / atol 1e-5);
 * ``forward_hidden`` for whisper, llama-vision and qwen3-4b (1e-4; aux 0;
@@ -125,8 +125,9 @@ def _jax_compressed(arch):
 def test_registry_and_refusals():
     """FULL and SMOKE equal JAX's config dicts (and their ReCalKV ratio's);
     ``check_supported`` takes both, FULL on a CUDA device with the kernel
-    backend too (dh 128 / 64, q_per_kv 4 / 1); Mamba and RG-LRU are still
-    refused by name."""
+    backend too (dh 128 / 64, q_per_kv 4 / 1); so it does the recurrent
+    falcon-mamba (no ratio: ReCalKV does not apply) and recurrentgemma
+    (dh 256, q_per_kv 16), whose configs equal JAX's too."""
     for arch in (VISION, WHISPER):
         assert arch in PC.ARCHS and PC.RECALKV_APPLICABLE[arch]
         for smoke in (False, True):
@@ -138,13 +139,16 @@ def test_registry_and_refusals():
                 if not smoke:   # the smoke widths are the CPU's alone
                     check_supported(dataclasses.replace(got, attn_backend="kernel"),
                                     "cuda")
-    for arch, what in (("falcon-mamba-7b", "mamba"), ("recurrentgemma-9b", "rglru")):
-        cfg = ModelConfig.from_dict(get_config(arch).to_dict())
-        with pytest.raises(NotImplementedError, match=f"{what}.*Queue 1 item 4: Mamba "
-                                                      f"and RG-LRU"):
-            check_supported(cfg)
-        with pytest.raises(KeyError, match="Queue 1 item 4"):
-            PC.get_config(arch)
+    for arch, ratios in (("falcon-mamba-7b", (None,)), ("recurrentgemma-9b", (None, 0.5))):
+        for smoke in (False, True):
+            for ratio in ratios:
+                got = PC.get_config(arch, smoke=smoke, recalkv_ratio=ratio)
+                assert got.to_dict() == get_config(arch, smoke=smoke,
+                                                   recalkv_ratio=ratio).to_dict()
+                check_supported(ModelConfig.from_dict(got.to_dict()))
+                if not smoke:
+                    check_supported(dataclasses.replace(got, attn_backend="kernel"),
+                                    "cuda")
 
 
 @pytest.mark.parametrize("latent", [False, True])

@@ -7,8 +7,8 @@ their smoke sizes (window 16), dense and at ``recalkv_ratio=0.5``:
 * the registry: each config equals JAX's, field for field;
 * ``check_supported``: the CPU and a CUDA device with the kernel backend
   take all three (gemma3's d_head 256, minicpm's 64, danube's 80); a
-  d_head no Hopper body takes stays refused (ROADMAP.md Queue 3 item 2),
-  and so do Mamba blocks and RG-LRU (Queue 1 item 4);
+  d_head no Hopper body takes stays refused (ROADMAP.md Queue 3 item 2);
+  a Mamba block or an RG-LRU config, ported since, is taken;
 * prefill and decode logits on prompts longer than the window, through
   the port's einsum and kernel backends (the plain versions on the CPU),
   against JAX's einsum (dense) and its Pallas kernels in interpret mode
@@ -95,9 +95,9 @@ def test_check_supported_takes_the_families():
     """The CPU takes all three (dense and latent), and so does a CUDA device
     with the kernel backend: gemma3 (d_head 256), minicpm (64, q_per_kv 1)
     and danube (80).  A d_head no Hopper body takes (96) is refused by
-    name on the card, naming Queue 3 item 2; Mamba blocks and RG-LRU,
-    which the port has no module for, stay refused (Queue 1 item 4).  No
-    card is needed: the check reads the config."""
+    name on the card, naming Queue 3 item 2; a Mamba block or an RG-LRU
+    config, which the port serves since Queue 1 item 4 closed, is taken.
+    No card is needed: the check reads the config."""
     cuda = torch.device("cuda")
     for arch in ARCHS:
         for ratio in RATIOS.values():
@@ -113,9 +113,8 @@ def test_check_supported_takes_the_families():
         check_supported(wide, cuda)
     check_supported(wide, torch.device("cpu"))
     base = PC.get_config("gemma3-12b", smoke=True)
-    for bad in (dict(layer_pattern=("local", "mamba")), dict(rglru=RGLRUConfig())):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            check_supported(dataclasses.replace(base, **bad))
+    for ported in (dict(layer_pattern=("local", "mamba")), dict(rglru=RGLRUConfig())):
+        check_supported(dataclasses.replace(base, **ported))
 
 
 def _prefill_decode(mod, cfg, params, conv, steps=3):

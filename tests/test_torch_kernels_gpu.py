@@ -1,7 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a card,
 at every head width the bodies take (d_head 64, 80, 128, 256; q_per_kv up
-to 16: h2o-danube-1.8b's and qwen3-moe-235b-a22b's widths are cases of
-their own).
+to 16: h2o-danube-1.8b's, qwen3-moe-235b-a22b's and recurrentgemma-9b's
+widths are cases of their own).
 
 Marked ``gpu``: without a CUDA device each test skips (the kernels have
 no CPU mode).  The file imports no JAX, so it runs on a machine that has
@@ -994,6 +994,75 @@ def test_cuda_wrappers_reject_unsupported_inputs(cuda):
         KQ.latent_decode_attention_mq_quant(qm[:, :, :64].to(bf), z8, s8, z12, s8, rk_bf,
                                             tm, tm, torch.zeros(1, 4, 8, device=cuda),
                                             scale=1.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kernel", ["k1", "k3", "k2", "dense"])
+def test_bodies_at_recurrentgemma_widths(cuda, dtype, kernel):
+    """recurrentgemma-9b's local layers: one kv head (MQA) of 16 query
+    heads at d_head 256.  Its latent cache at recalkv_ratio 0.5 is G 1
+    group of s 1 (Hg 16) at r 128: K1 and K3 on a ragged 300-column ring
+    with and without the self column; K2 at H 16 over Hkv 1, causal and
+    within a window, with Hv 1 value group of dv 128 (latent) and dv 256
+    (dense); the dense decode at Hkv 1, q_per_kv 16 with and without its
+    self column.  Within 1e-4 (f32) or the bf16 limit of the plain
+    version, one launch a call, the masked row 2 exact 0 without its self
+    column."""
+    def check(fn, plain, args, kw):
+        n = fn.launches
+        got = fn(*args, **kw)
+        torch.cuda.synchronize()
+        assert fn.launches == n + 1
+        want = plain(*args, **kw)
+        if dtype == torch.float32:
+            torch.testing.assert_close(got.float(), want.float(), atol=1e-4, rtol=1e-4)
+        else:
+            _within_bf16_limit(got, want)
+        return got
+
+    if kernel == "k2":
+        g = torch.Generator(device=cuda).manual_seed(2816)
+        rn = lambda *sh: torch.randn(sh, generator=g, device=cuda).to(dtype)
+        q, k = rn(2, 300, 16, 256), rn(2, 300, 1, 256)
+        for dv in (128, 256):
+            v = rn(2, 300, 1, dv)
+            for win in (None, 100):
+                check(K2.flash_prefill_attention, K2.flash_prefill_attention_plain,
+                      (q, k, v), dict(window=win))
+        return
+    if kernel == "dense":
+        a = _dense_ring(cuda, 2817, S=300, Hkv=1, qpk=16, dh=256)
+        cache = {k: (v if k == "pos" else v.to(dtype)) for k, v in a["cache"].items()}
+        qg = ops.group_queries(a["q"].to(dtype), 1)
+        bias = ops.decode_bias(cache["pos"], a["cur"], None)
+        for kw in ({}, dict(self_k=a["one"]["k"].to(dtype), self_v=a["one"]["v"].to(dtype))):
+            got = check(KD.dense_decode_attention, KD.dense_decode_attention_plain,
+                        (qg, cache["k"], cache["v"], bias), dict(scale=256 ** -0.5, **kw))
+            if not kw:
+                assert (got[2] == 0).all()
+        return
+    a = _ring(cuda, 2818, S=300, G=1, s=1, qpk=16, dh=256, rk=128, rv=128)
+    bias = a["bias"][:, 0, :-1].contiguous()
+    if kernel == "k1":
+        t = {k: (v.to(dtype) if k in ("q", "zk", "zv", "r_k", "self_zk", "self_zv") else v)
+             for k, v in a.items()}
+        fn, plain = K1.latent_decode_attention, K1.latent_decode_attention_plain
+        args = (t["q"], t["zk"], t["zv"], t["r_k"], t["cos"], t["sin"], bias)
+        selfs = dict(self_zk=t["self_zk"][:, 0], self_zv=t["self_zv"][:, 0])
+    else:
+        zk_q, zk_s = _quant(a["zk"])
+        zv_q, zv_s = _quant(a["zv"])
+        sk_q, sk_s = _quant(a["self_zk"][:, 0])
+        sv_q, sv_s = _quant(a["self_zv"][:, 0])
+        fn, plain = KQ.latent_decode_attention_quant, KQ.latent_decode_attention_quant_plain
+        args = (a["q"].to(dtype), zk_q, zk_s, zv_q, zv_s, a["r_k"].to(dtype), a["cos"],
+                a["sin"], bias)
+        selfs = dict(self_zk_q=sk_q, self_zk_s=sk_s, self_zv_q=sv_q, self_zv_s=sv_s)
+    base = dict(scale=256 ** -0.5, k_norm=a["k_norm"])
+    assert (check(fn, plain, args, base)[2] == 0).all()
+    check(fn, plain, args, dict(base, self_cos=a["self_cos"][:, 0],
+                                self_sin=a["self_sin"][:, 0], **selfs))
 
 
 def _dense_ring(cuda, seed, B=3, S=64, Hkv=8, qpk=4, dh=128, nq=3):

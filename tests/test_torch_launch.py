@@ -68,11 +68,16 @@ def test_cli_continuous_equals_sync():
 
 def test_cli_refusals():
     """What the port does not serve yet raises with its ROADMAP item; a
-    one-device mesh is the port's own layout."""
+    one-device mesh is the port's own layout; ``--recalkv`` where ReCalKV
+    does not apply (falcon-mamba, deepseek) raises with the JAX CLI's
+    words; an unregistered arch raises KeyError."""
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         serve.main(BASE + ["--mesh", "2,4"])
-    with pytest.raises(KeyError, match="Queue 1 item 4"):
-        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu"])
+    with pytest.raises(ValueError, match="ReCalKV inapplicable to falcon-mamba-7b"):
+        serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu",
+                    "--recalkv", "0.5"])
+    with pytest.raises(KeyError, match="unknown arch 'mamba-2'"):
+        serve.main(["--arch", "mamba-2", "--smoke", "--device", "cpu"])
     with pytest.raises(ValueError, match="ReCalKV inapplicable to deepseek-v3-671b"):
         serve.main(["--arch", "deepseek-v3-671b", "--smoke", "--device", "cpu",
                     "--recalkv", "0.5"])
@@ -81,26 +86,31 @@ def test_cli_refusals():
 
 @pytest.mark.parametrize("arch", ["gemma3-12b", "minicpm-2b", "h2o-danube-1.8b",
                                   "qwen3-moe-235b-a22b", "deepseek-v3-671b",
-                                  "llama-3.2-vision-11b", "whisper-small"])
+                                  "llama-3.2-vision-11b", "whisper-small",
+                                  "falcon-mamba-7b", "recurrentgemma-9b"])
 def test_cli_serves_the_families_on_cpu(arch):
     """The families registered beside qwen3-4b serve through the CLI on the
     CPU (smoke sizes, window 16 for the local families; qwen3-moe's MoE
     FFN; deepseek's MLA, its ``attn_dense`` prefix and shared expert;
     llama-vision's cross layers and whisper's encoder on the CLI's seeded
-    source), dense and at ``--recalkv 0.5`` (deepseek dense only: ReCalKV
-    does not apply to MLA), overlapped with continuous batching; every
-    request finishes with its budget and the streams equal
-    ``--no-overlap``'s.  Under MoE a call's rows share the experts'
-    capacity, and a cross model's wave row i reads source row i, so both
-    engines must prefill the same rows together: four slots and inline
-    admission make one wave of all four requests in each."""
+    source; falcon-mamba's and recurrentgemma's recurrent state), dense and
+    at ``--recalkv 0.5`` (deepseek and falcon-mamba dense only: ReCalKV does
+    not apply to MLA or to an attention-free stack), overlapped with
+    continuous batching; every request finishes with its budget and the
+    streams equal ``--no-overlap``'s.  Under MoE a call's rows share the
+    experts' capacity, a cross model's wave row i reads source row i, and a
+    recurrent layer's state runs over its wave's pads, so both engines must
+    prefill the same rows together: four slots and inline admission make
+    one wave of all four requests in each."""
     same_waves = arch in ("qwen3-moe-235b-a22b", "deepseek-v3-671b",
-                          "llama-3.2-vision-11b", "whisper-small")
+                          "llama-3.2-vision-11b", "whisper-small",
+                          "falcon-mamba-7b", "recurrentgemma-9b")
     args = ["--arch", arch, "--smoke", "--device", "cpu", "--requests", "4",
             "--slots", "4" if same_waves else "2", "--max-len", "48",
             "--new-tokens", "4"]
     continuous = ["--continuous"] + (["--no-admission-thread"] if same_waves else [])
-    ratios = [[]] if arch == "deepseek-v3-671b" else [[], ["--recalkv", "0.5"]]
+    ratios = ([[]] if arch in ("deepseek-v3-671b", "falcon-mamba-7b")
+              else [[], ["--recalkv", "0.5"]])
     for extra in ratios:
         got = _streams(serve.main(args + extra + continuous))
         assert len(got) == 4 and all(len(v) == 4 for v in got.values())

@@ -8,7 +8,7 @@ atol 1e-5 (as JAX's own ``test_mla_and_sliding_window_verify_match``):
 * the registry: FULL and SMOKE equal JAX's config dicts (``MLAConfig``
   included) and round-trip through ``to_dict`` / ``from_dict``;
   ``check_supported`` takes them, on a CUDA device with the kernel backend
-  too, and still refuses Mamba by name; ``recalkv_ratio`` raises JAX's
+  too, and a Mamba config as well (ported); ``recalkv_ratio`` raises JAX's
   ValueError;
 * params and caches cross both ways in JAX's split layout (an unrolled
   ``attn_dense`` prefix, stacked ``blocks``), and ``init_params`` gives
@@ -91,8 +91,8 @@ def _t(a):
 def test_registry_and_check_supported():
     """FULL and SMOKE equal JAX's config dicts and survive the dict round
     trip; ``check_supported`` takes them (the CPU, and a CUDA device with
-    the kernel backend: MLA's readers launch no kernel); Mamba stays
-    refused by name (Queue 1 item 4); a ReCalKV ratio raises JAX's error.
+    the kernel backend: MLA's readers launch no kernel), and with a Mamba
+    config as well (ported); a ReCalKV ratio raises JAX's error.
     No card is needed: the check reads the config."""
     assert ARCH in PC.ARCHS and not PC.RECALKV_APPLICABLE[ARCH]
     for smoke in (False, True):
@@ -104,8 +104,7 @@ def test_registry_and_check_supported():
     full = PC.get_config(ARCH)
     assert full.expanded_layers()[:4] == ("attn_dense",) * 3 + ("attn",)
     assert (full.mla.kv_lora_rank, full.mla.qk_rope_dim, full.moe.num_shared) == (512, 64, 1)
-    with pytest.raises(NotImplementedError, match=r"mamba.*Queue 1 item 4"):
-        check_supported(dataclasses.replace(full, mamba=MambaConfig()))
+    check_supported(dataclasses.replace(full, mamba=MambaConfig()))   # ported since
     with pytest.raises(ValueError) as want:
         get_config(ARCH, recalkv_ratio=0.5)
     with pytest.raises(ValueError, match="ReCalKV inapplicable") as got:

@@ -92,8 +92,8 @@ def test_registry_and_check_supported():
     """FULL and SMOKE, dense and at ratio 0.5 (G 1 group of s 4, r 256 at
     full width), equal JAX's config dicts, MoEConfig included; the CPU and
     a CUDA device with the kernel backend take them (q_per_kv 16); an MLA
-    config passes too (ported), while Mamba stays refused by name (Queue
-    1 item 4).  No card is needed: the check reads the config."""
+    config passes too (ported), and so does a Mamba config (ported
+    since).  No card is needed: the check reads the config."""
     assert ARCH in PC.ARCHS
     for smoke in (False, True):
         for ratio in RATIOS.values():
@@ -110,8 +110,7 @@ def test_registry_and_check_supported():
     assert (full.recalkv.num_groups(4), full.recalkv.rank_k) == (1, 256)
     assert full.num_heads // full.num_kv_heads == 16
     check_supported(dataclasses.replace(full, mla=MLAConfig()))
-    with pytest.raises(NotImplementedError, match=r"mamba.*Queue 1 item 4"):
-        check_supported(dataclasses.replace(full, mamba=MambaConfig()))
+    check_supported(dataclasses.replace(full, mamba=MambaConfig()))   # ported since
 
 
 MOE_CASES = {
