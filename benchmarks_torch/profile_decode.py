@@ -52,6 +52,8 @@ the eager split counts the device time under ``mla_attention`` /
 ``--arch recurrentgemma-9b`` profiles the recurrent models; the eager
 split then also counts the device time under ``layers.mamba_mixer`` /
 ``rglru_mixer`` (plain PyTorch, as in JAX) as the mixers'.
+Every run also reports the weights' memory and the peak memory of the
+first prefill above them (``torch.cuda.max_memory_allocated``).
 Without flags it measures what it always did.
 """
 
@@ -259,22 +261,28 @@ def main() -> int:
                                                      MAX_LEN)
 
     torch.cuda.synchronize()
+    weights_gib = torch.cuda.memory_allocated() / 2 ** 30
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     prefill()
     torch.cuda.synchronize()
     cold_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated() / 2 ** 30
     print(f"card: {card}")
     kind = (f"r={cfg.recalkv.rank_k}" if latent
             else "mla" if cfg.mla is not None else "dense")
     print(f"{cfg.name} ({cfg.num_layers} layers) {kind} bf16, cache_quant_bits "
           f"{args.cache_quant_bits}, spec_depth {args.spec_depth}, page_size "
           f"{args.page_size}, B={B}, prompt {PROMPT}, ring {MAX_LEN}, src "
-          f"{args.src}: first (cold) prefill {cold_s:.4f} s")
+          f"{args.src}: first (cold) prefill {cold_s:.4f} s, weights "
+          f"{weights_gib:.3f} GiB, its peak {peak_gib:.3f} GiB "
+          f"(+{peak_gib - weights_gib:.3f})")
     out = {"card": card, "src": args.src, "arch": cfg.name, "num_layers": cfg.num_layers,
            "dense": not latent, "mla": cfg.mla is not None, "batch": B, "prompt": PROMPT,
            "max_len": MAX_LEN, "cache_quant_bits": args.cache_quant_bits,
            "spec_depth": args.spec_depth, "page_size": args.page_size,
-           "cold_prefill_s": cold_s,
+           "cold_prefill_s": cold_s, "weights_gib": weights_gib,
+           "prefill_peak_gib": peak_gib,
            "prefill": report("warm prefill", 1, *traced(prefill, 1))}
     tok, cur = state["logits"].argmax(-1), lens.clone()
     caches, pages = state.pop("caches"), None

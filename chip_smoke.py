@@ -357,7 +357,10 @@ FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent st
                # the dense decode at their widths
                "falcon-mamba-7b": ("FM", "FM+", "FMs", "FM+c"),
                "recurrentgemma-9b": ("recurrentgemma steps", "RG", "recurrentgemma latent "
-                                     "steps", "RGU", "RGU+", "RGU8", "RGUs", "RGU+c")}
+                                     "steps", "RGU", "RGU+", "RGU8", "RGUs", "RGU+c"),
+               # the trained qwen3-4b's Fisher artifact (``phase_train``): its
+               # K1 / K2 rows at the artifact's smallest and largest ranks
+               "fisher": ("FI", "FI+")}
 # qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
 # (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
 # 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
@@ -395,6 +398,7 @@ def ring_inputs(torch, gen, nq=1, dense=False, arch="qwen3-4b"):
     w = WIDTHS[arch]
     B, S, dh = 8, w.get("ring", 4096), w["dh"]
     G, s, r = (w["Hkv"], 1, dh) if dense else (w["G"], w["s"], w["r"])
+    rv = r if dense else w.get("rv", r)     # a Fisher layer's value rank
     Hg = s * w["qpk"]
     theta = None if dense else 1e6
     dev = "cuda"
@@ -406,13 +410,13 @@ def ring_inputs(torch, gen, nq=1, dense=False, arch="qwen3-4b"):
     cos, sin = ops.rotation_tables(pos, dh, theta)
     cs, ss = ops.rotation_tables(pos_q, dh, theta)
     bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
-    return dict(q=rn(B, G, nq * Hg, dh), zk=rn(B, S, G, r), zv=rn(B, S, G, r),
+    return dict(q=rn(B, G, nq * Hg, dh), zk=rn(B, S, G, r), zv=rn(B, S, G, rv),
                 r_k=(torch.eye(dh, device=dev).expand(G, dh, dh).contiguous() if dense
                      else rn(G, r, s * dh) * r ** -0.5),
                 self_zk=rn(B, nq, G, r),
-                self_zv=rn(B, nq, G, r), cos=cos, sin=sin, self_cos=cs, self_sin=ss,
+                self_zv=rn(B, nq, G, rv), cos=cos, sin=sin, self_cos=cs, self_sin=ss,
                 bias=bias, k_norm=None if dense else 0.1 * rn(dh),
-                shape=(B, S, G, Hg, dh, r, s, nq))
+                shape=(B, S, G, Hg, dh, r, s, nq), rv=rv)
 
 
 def kernel_phase(torch, name, kernel, plain, make, flops, meta):
@@ -436,10 +440,10 @@ def kernel_phase(torch, name, kernel, plain, make, flops, meta):
             "bound_ms": b_ms, "bound_by": by, "library_ms": None}
 
 
-def decode_flops(B, S_ext, G, Hg, dh, r, s, nq):
-    """Key reconstruction once per column, then nq*Hg rows of scores and
-    latent values per column."""
-    return 2.0 * B * G * S_ext * (r * s * dh + nq * Hg * (dh + r))
+def decode_flops(B, S_ext, G, Hg, dh, r, s, nq, rv=None):
+    """Key reconstruction once per column (rank ``r``), then nq*Hg rows of
+    scores and latent values (rank ``rv``, default ``r``) per column."""
+    return 2.0 * B * G * S_ext * (r * s * dh + nq * Hg * (dh + (rv or r)))
 
 
 def dense_flops(B, S_ext, G, Hg, dh, nq):
@@ -702,10 +706,11 @@ def phase_latent(torch, gen, nq, quant, arch="qwen3-4b"):
     meta = {"name": fn, "source": f"src/repro_torch/csrc/{where[2]}.cu",
             "replaces": f"src/repro/kernels/{where[0]}:{where[1]}",
             "tpu_kernel": f"src/repro/kernels/{where[0]}::{fn}",
-            "shape": (f"B={B} S={S}+{nq} G={G} Hg={Hg} nq={nq} dh={dh} r={r} "
+            "shape": (f"B={B} S={S}+{nq} G={G} Hg={Hg} nq={nq} dh={dh} r="
+                      f"{r if a['rv'] == r else '%d/%d' % (r, a['rv'])} "
                       f"{'int8 latents, ' if quant else ''}bf16")}
     entry = kernel_phase(torch, fn, getattr(mod, fn), getattr(mod, fn + "_plain"), make,
-                         decode_flops(B, S + nq, G, Hg, dh, r, s, nq), meta)
+                         decode_flops(B, S + nq, G, Hg, dh, r, s, nq, a["rv"]), meta)
     return family_row(entry, arch)
 
 
@@ -1069,7 +1074,7 @@ def phase_k2(torch, gen, arch="qwen3-4b", window=None, dense=False):
     w = WIDTHS[arch]
     B, T, Hkv, dh = 8, 2048, w["Hkv"], w["dh"]
     H = Hkv * w["qpk"]
-    Hv, dv = (Hkv, dh) if dense else (w["G"], w["r"])
+    Hv, dv = (Hkv, dh) if dense else (w["G"], w.get("rv", w["r"]))
     rn = lambda *sh: torch.randn(sh, generator=gen, device="cuda")
     f = (rn(B, T, H, dh), rn(B, T, Hkv, dh), rn(B, T, Hv, dv))
     res = {}
@@ -1342,6 +1347,8 @@ ENGINE_RUNS.update({"FM": dict(ENGINE_RUNS["V"], must=()),
                                  must=("flash_prefill_attention",
                                        "latent_decode_attention_quant")),
                     "RGUs": dict(ENGINE_RUNS["S"], prompts="R")})
+# the Fisher-allocated qwen3-4b artifact (``phase_train``) serves A's traffic
+ENGINE_RUNS["FI"] = dict(ENGINE_RUNS["A"], prompts="A")
 # bytes of K / V (or latents) per token and layer each run's cache must hold
 CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 8192,
                "U": 4096, "U3": 4096, "M": 4608, "M3": 9216, "N": 2560, "N3": 2560,
@@ -1372,6 +1379,7 @@ OVERLAPPED = {"A": {}, "B": dict(adaptive_spec=True), "D": {}, "H": {}, "I": {},
               # worker thread forms waves as requests arrive, and under MoE
               # the rows of a call share the experts' capacity, so another
               # grouping gives other tokens (so does the JAX engine)
+              "FI": {},
               "Q": dict(admission_thread=False), "DS": dict(admission_thread=False),
               # a cross model's wave row i reads source row i: the sync run's
               # one 8-row wave again
@@ -2335,6 +2343,255 @@ def phase_recurrent(torch, by_run, streams, serving, backends) -> dict:
     return rec
 
 
+TRAIN_STEPS, TRAIN_B, TRAIN_T = 8, 8, 512
+TRAIN_REL = 1e-4    # float32, TF32 off: one step on the card vs the CPU
+TRAIN_G_FLOOR = 1e3  # updated elements compared where |clipped g| >= this many eps
+FISHER_ARTIFACT = ROOT / "build" / "chip_smoke_fisher"   # gitignored
+
+
+def compare_train_steps(ref, got, opt_cfg) -> dict:
+    """Two runs of one first train step, each (params after, optimizer
+    state after) in the port's layout: per leaf, the first moment (which
+    after step 1 is (1 - b1) times the clipped gradient) relative to the
+    reference's norm, and the updated params relative to the reference's
+    norm over the elements whose clipped gradient is at least
+    TRAIN_G_FLOOR eps.  AdamW's first step moves an element by lr * g /
+    (|g| + eps): where |g| nears eps that ratio turns summation noise in g
+    into a difference in the update as large as the update, so those
+    elements are held through the gradient, not the param.  Also the
+    whole-leaf param measure, for the log.  Returns the worst of each,
+    with its leaf."""
+    from repro_torch.models.weights import leaves_in_jax_order
+    floor = TRAIN_G_FLOOR * opt_cfg.eps * (1 - opt_cfg.b1)
+    out = {"grad": (0.0, None), "update": (0.0, None), "whole": (0.0, None)}
+    n_in = n_all = 0
+
+    def keep(name, rel, path):
+        if rel > out[name][0]:
+            out[name] = (rel, path)
+
+    pairs = zip(leaves_in_jax_order(None, ref[0]), leaves_in_jax_order(None, got[0]),
+                leaves_in_jax_order(None, ref[1]["mu"]),
+                leaves_in_jax_order(None, got[1]["mu"]), strict=True)
+    for (path, (a,), _), (_, (g,), _), (_, (ma,), _), (_, (mg,), _) in pairs:
+        a, g, ma, mg = a.cpu(), g.cpu(), ma.cpu(), mg.cpu()
+        keep("grad", float((mg - ma).norm() / ma.norm().clamp(min=1e-30)), path)
+        keep("whole", float((g - a).norm() / a.norm().clamp(min=1e-30)), path)
+        m = ma.abs() >= floor
+        n_in, n_all = n_in + int(m.sum()), n_all + m.numel()
+        if m.any():
+            keep("update", float((g - a)[m].norm() / a[m].norm().clamp(min=1e-30)), path)
+    return {**{f"{k}_rel": v[0] for k, v in out.items()},
+            **{f"{k}_leaf": v[1] for k, v in out.items()},
+            "update_share": n_in / n_all}
+
+
+def _train_f32_step(torch) -> dict:
+    """qwen3-4b's widths at 2 layers in float32: one train step on the card
+    against the same step on the CPU plain path (same params from a CPU
+    seed, same batch of 2 x 64): loss, grad_norm and, per leaf, the
+    gradient and the updated params (``compare_train_steps``) within
+    TRAIN_REL."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch
+    from repro_torch.models.weights import init_params, map_tree
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime import TrainConfig, make_train_step
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=2, dtype=torch.float32)
+    cpu = init_params(cfg, torch.Generator().manual_seed(SEED), device="cpu")
+    gpu = map_tree(cpu, lambda t: t.to("cuda"))
+    opt_cfg, tc = AdamWConfig(lr=1e-3), TrainConfig(warmup_steps=0, total_steps=8)
+    b = batch(DataConfig(vocab_size=4096, seq_len=64), "train", 0, 2)
+    step = make_train_step(cfg, opt_cfg, tc)
+    out, after = {}, {}
+    for dev, params in (("cpu", cpu), ("cuda", gpu)):
+        t1 = time.perf_counter()
+        after[dev] = step(params, init_state(params, opt_cfg), b)
+        out[dev] = {k: float(v) for k, v in after[dev][2].items()}
+        out[dev]["seconds"] = time.perf_counter() - t1
+    cmp = compare_train_steps(after["cpu"], after["cuda"], opt_cfg)
+    for k in ("loss", "grad_norm"):
+        rel = abs(out["cuda"][k] - out["cpu"][k]) / abs(out["cpu"][k])
+        if rel > TRAIN_REL:
+            raise AssertionError(f"f32 train step: {k} on the card {out['cuda'][k]} vs "
+                                 f"the CPU {out['cpu'][k]} ({rel:.3e} relative)")
+    for k in ("grad", "update"):
+        if cmp[f"{k}_rel"] > TRAIN_REL:
+            raise AssertionError(f"f32 train step: the {k} of leaf {cmp[f'{k}_leaf']} is "
+                                 f"{cmp[f'{k}_rel']:.3e} (relative norm) from the CPU's")
+    log(f"train f32 (qwen3-4b widths, 2 layers, B 2 x T 64): loss card "
+        f"{out['cuda']['loss']:.7f} / CPU {out['cpu']['loss']:.7f}, grad_norm "
+        f"{out['cuda']['grad_norm']:.7f} / {out['cpu']['grad_norm']:.7f}; worst leaf "
+        f"gradient {cmp['grad_rel']:.3e} relative ({cmp['grad_leaf']}), update "
+        f"{cmp['update_rel']:.3e} ({cmp['update_leaf']}) over the "
+        f"{100 * cmp['update_share']:.2f}% of elements with |g| >= {TRAIN_G_FLOOR:g} eps "
+        f"(limit {TRAIN_REL:g} each); whole leaf {cmp['whole_rel']:.3e} "
+        f"({cmp['whole_leaf']}); step {out['cuda']['seconds']:.2f} s card, "
+        f"{out['cpu']['seconds']:.2f} s CPU; {time.perf_counter() - t0:.1f} s in all")
+    return {**out, **cmp}
+
+
+def phase_train(torch, by_run, streams, serving) -> tuple[dict, list]:
+    """Train, compress with Fisher-allocated ranks, serve.  First the
+    2-layer float32 step against the CPU (``_train_f32_step``); then
+    qwen3-4b at full width and depth (36 layers, bf16, float32 moments,
+    remat, one microbatch) takes TRAIN_STEPS steps of B 8 x T 512 from
+    ``data.synthetic`` (ids below 4,096): each step's loss, grad_norm,
+    lr, wall time and training tokens/s, the peak memory; every loss
+    finite, the last below the first, no kernel of ``kernels.KERNELS``
+    launched.  On the trained params: ``fisher_scores`` on 2 calibration
+    batches of 4 x 512, ``calibrate(fisher=True)``, ``compress`` with
+    ``RankPolicy(keep_ratio=0.5, use_fisher=True)`` (G 2, the kernel
+    backend), ``save_artifact`` / ``load_artifact``; per-layer ranks not
+    uniform; the loaded artifact serves runs FI (A's traffic, its decode
+    steps counted: 36 K1 a step) and FI+ (overlapped + graphs: FI's
+    streams, 36 K1 a replay).  Then K1 and K2 at the artifact's smallest and
+    largest (rank_k, rank_v) against their plain versions (rows tagged
+    "new shape").  Returns (the phase's record, kernel rows)."""
+    from repro_torch import api, kernels
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch
+    from repro_torch.models import compress as C
+    from repro_torch.models import transformer as T
+    from repro_torch.models.weights import init_params
+    from repro_torch.optim import AdamWConfig, init_state
+    from repro_torch.runtime import TrainConfig, make_train_step
+    gc.collect()
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    rec = {"f32_step": _train_f32_step(torch)}
+
+    cfg = dataclasses.replace(get_config("qwen3-4b"), attn_backend="kernel",
+                              dtype=torch.bfloat16)
+    assert cfg.remat and cfg.scan_layers
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+    opt_cfg = AdamWConfig(lr=1e-3)
+    tc = TrainConfig(warmup_steps=2, total_steps=TRAIN_STEPS)
+    opt_state = init_state(params, opt_cfg)
+    step_fn = make_train_step(cfg, opt_cfg, tc)
+    dc = DataConfig(vocab_size=4096, seq_len=TRAIN_T)
+    batches = [{k: torch.as_tensor(v, device="cuda")
+                for k, v in batch(dc, "train", i, TRAIN_B).items()}
+               for i in range(TRAIN_STEPS)]
+    kernels.reset_launch_counts()
+    steps = []
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step_fn(params, opt_state, batches[i])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        row = {k: float(v) for k, v in m.items()}
+        row.update(wall_s=wall, tokens_per_s=TRAIN_B * TRAIN_T / wall)
+        steps.append(row)
+        log(f"train qwen3-4b step {i}: loss {row['loss']:.4f}, grad_norm "
+            f"{row['grad_norm']:.4f}, lr {row['lr']:.3e}, {wall:.3f} s, "
+            f"{row['tokens_per_s']:.1f} training tokens/s")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    launched = {k: n for k, n in launch_counts(kernels).items() if n}
+    losses = [r["loss"] for r in steps]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"training losses {losses}: not finite, or not falling")
+    if launched:
+        raise AssertionError(f"kernels launched while training: {launched}")
+    warm = [r["wall_s"] for r in steps[1:]]
+    rec["train"] = {"steps": steps, "peak_gib": peak, "layers": cfg.num_layers,
+                    "tokens_per_s_warm": TRAIN_B * TRAIN_T * len(warm) / sum(warm)}
+    log(f"train qwen3-4b (36 layers, bf16, f32 moments, remat, B {TRAIN_B} x T {TRAIN_T}): "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, warm steps "
+        f"{', '.join(f'{w:.3f}' for w in warm)} s, "
+        f"{rec['train']['tokens_per_s_warm']:.1f} tokens/s (their tokens over their "
+        f"time), peak memory {peak:.2f} GiB, no kernel launched")
+    del opt_state, batches, step_fn
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calib = [batch(dc, "calib", i, 4) for i in range(2)]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fk, fv = C.fisher_scores(cfg, params, calib)
+    torch.cuda.synchronize()
+    fisher_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    cal = api.calibrate(cfg, params, calib, fisher=True)
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    art = api.compress(cfg, params, api.CompressionSpec(
+        "recalkv", rank_policy=api.RankPolicy(keep_ratio=0.5, use_fisher=True),
+        backend="pallas"), cal)
+    torch.cuda.synchronize()
+    compress_s = time.perf_counter() - t0
+    fisher_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ranks = [tuple(r) for r in art.cfg.recalkv.ranks_by_layer]
+    if len(set(ranks)) < 2 or art.cfg.recalkv.num_groups(cfg.num_kv_heads) != 2:
+        raise AssertionError(f"Fisher ranks {ranks}: uniform, or not 2 groups")
+    t0 = time.perf_counter()
+    api.save_artifact(art, str(FISHER_ARTIFACT))
+    save_s = time.perf_counter() - t0
+    del params, art
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    loaded = api.load_artifact(str(FISHER_ARTIFACT))
+    load_s = time.perf_counter() - t0
+    if [tuple(r) for r in loaded.cfg.recalkv.ranks_by_layer] != ranks:
+        raise AssertionError("the loaded artifact's ranks differ from the saved ones")
+    caches = T.init_decode_cache(loaded.cfg, 1, 16)
+    per_token = sum(v[0, 0].numel() * v.element_size() for c in caches
+                    for k, v in c["self"].items() if k != "pos")
+    uniform = cfg.num_layers * 2 * 2 * 256 * 2     # G 2 x (r_k + r_v) 256 bf16
+    del caches
+    rec["fisher"] = {"fisher_k": fk, "fisher_v": fv, "ranks_by_layer": ranks,
+                     "fisher_s": fisher_s, "calibrate_s": calib_s,
+                     "compress_s": compress_s, "save_s": save_s, "load_s": load_s,
+                     "peak_gib": fisher_peak, "cache_bytes_per_token": per_token,
+                     "uniform_cache_bytes_per_token": uniform}
+    log(f"Fisher compression of the trained qwen3-4b: fisher_scores {fisher_s:.2f} s, "
+        f"calibrate(fisher=True) {calib_s:.2f} s, compress {compress_s:.2f} s, save "
+        f"{save_s:.2f} s, load {load_s:.2f} s, peak {fisher_peak:.2f} GiB; ranks "
+        f"(r_k, r_v) by layer {ranks}; cache bytes per token over the 36 layers "
+        f"{per_token:,} (uniform r 256: {uniform:,})")
+
+    (by_run["FI"], streams["FI"], serving["FI"]), n_steps = count_decode_steps(
+        lambda: phase_engine(torch, loaded.cfg, loaded.params, "FI"))
+    k1 = by_run["FI"]["latent_decode_attention"]
+    if k1 != cfg.num_layers * n_steps:
+        raise AssertionError(f"engine run FI: {k1} K1 launches over {n_steps} decode "
+                             f"steps, expected {cfg.num_layers} a step")
+    k2 = by_run["FI"]["flash_prefill_attention"]
+    if k2 % cfg.num_layers:
+        raise AssertionError(f"engine run FI: {k2} K2 launches, not {cfg.num_layers} a "
+                             f"prefill call")
+    by_run["FI+"], streams["FI+"], serving["FI+"] = phase_engine(
+        torch, loaded.cfg, loaded.params, "FI", overlapped=True)
+    del loaded
+    if streams["FI+"] != streams["FI"]:
+        raise AssertionError("engine run FI+: streams differ from run FI's")
+    per_replay = serving["FI+"]["graphs"]["greedy"]["launches"]
+    if per_replay != {"latent_decode_attention": cfg.num_layers}:
+        raise AssertionError(f"engine run FI+: {per_replay} launches a replay, expected "
+                             f"{cfg.num_layers} K1")
+    log(f"engine runs FI / FI+: {n_steps} decode steps, {k1} K1 ({cfg.num_layers} a step), "
+        f"{k2} K2 ({k2 // cfg.num_layers} prefill calls); FI+ streams equal FI's, "
+        f"{cfg.num_layers} K1 a replay; tok/s {serving['FI']['tokens_per_s']:.2f} / "
+        f"{serving['FI+']['tokens_per_s']:.2f}")
+    shutil.rmtree(FISHER_ARTIFACT)
+
+    rows, gen = [], torch.Generator(device="cuda").manual_seed(SEED + 29)
+    for tag, (rk, rv) in (("min", min(ranks, key=sum)), ("max", max(ranks, key=sum))):
+        key = f"qwen3-4b fisher {tag}"
+        WIDTHS[key] = dict(WIDTHS["qwen3-4b"], r=rk, rv=rv)
+        FAMILY_TAG[key] = f"new shape: Fisher ranks r_k {rk} r_v {rv}"
+        FAMILY_RUNS[key] = FAMILY_RUNS["fisher"]
+        rows += [phase_latent(torch, gen, 1, False, key), phase_k2(torch, gen, key)]
+    rec["seconds"] = time.perf_counter() - t_phase
+    log(f"the training phase took {rec['seconds']:.1f} s")
+    return rec, rows
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2505,6 +2762,8 @@ def main() -> int:
     deepseek = phase_deepseek(torch, by_run, streams, serving, backends)
     cross = phase_cross(torch, by_run, streams, serving, backends)
     recurrent = phase_recurrent(torch, by_run, streams, serving, backends)
+    train, rows = phase_train(torch, by_run, streams, serving)
+    entries += rows
     family = {run for runs in FAMILY_RUNS.values() for run in runs}
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
@@ -2518,6 +2777,7 @@ def main() -> int:
                     "decode_bodies": decode_bodies, "f32_widths": f32_widths,
                     "compression": compression, "family_compression": family_compression,
                     "deepseek": deepseek, "cross": cross, "recurrent": recurrent,
+                    "train": train,
                     "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

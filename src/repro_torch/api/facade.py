@@ -15,8 +15,9 @@
 ``compress`` also accepts the raw calibration batches (it captures the
 statistics itself) and a bare method name.  The params live on the
 device of the model (``cuda`` unless the caller built them on the CPU);
-the compression runs there.  ``calibrate(..., fisher=True)`` raises
-NotImplementedError: Fisher scores need the training slice.
+the compression runs there.  ``calibrate(..., fisher=True)`` also takes
+each layer's Fisher score (the batches then carry "labels"), which
+``RankPolicy(use_fisher=True)`` turns into per-layer ranks.
 """
 
 from __future__ import annotations
@@ -29,7 +30,6 @@ import repro_torch.models.compress as C
 from repro_torch.api.artifact import CompressionArtifact, load_artifact
 from repro_torch.api.registry import get_strategy
 from repro_torch.api.spec import CalibrationData, CompressionSpec
-from repro_torch.core.pipeline import FISHER_NOT_PORTED
 from repro_torch.device import resolve_device
 from repro_torch.models.config import ModelConfig, check_supported
 from repro_torch.serving.engine import Engine
@@ -38,15 +38,17 @@ from repro_torch.serving.engine import Engine
 def calibrate(cfg: ModelConfig, params: Any, batches: Sequence[dict], *,
               fisher: bool = False) -> CalibrationData:
     """Run the calibration forward passes once and summarize them.
-    ``batches`` are dicts with "tokens" (B, T) and, for a model with
-    cross-attention layers, "source" (B, S_src, d).  The result is
-    strategy-agnostic — capture once, reuse across ``compress`` calls."""
-    if fisher:
-        raise NotImplementedError(f"calibrate(..., fisher=True): {FISHER_NOT_PORTED}")
+    ``batches`` are dicts with "tokens" (B, T), "labels" (B, T) with
+    ``fisher`` (which also takes each self-attention layer's Fisher
+    score for the rank allocator, from gradients of the LM loss) and, for
+    a model with cross-attention layers, "source" (B, S_src, d).  The
+    result is strategy-agnostic — capture once, reuse across ``compress``
+    calls."""
     batches = list(batches)
     stats = C.capture_calibration(cfg, params, batches)
+    fk, fv = C.fisher_scores(cfg, params, batches) if fisher else (None, None)
     tokens = sum(math.prod(b["tokens"].shape) for b in batches)
-    return CalibrationData(stats=stats, token_count=tokens)
+    return CalibrationData(stats=stats, fisher_k=fk, fisher_v=fv, token_count=tokens)
 
 
 def _as_spec(spec) -> CompressionSpec:
@@ -78,7 +80,7 @@ def compress(cfg: ModelConfig, params: Any,
         "method": spec.method,
         "spec": spec.to_dict(),
         "calib_tokens": calib.token_count,
-        "fisher": False,
+        "fisher": calib.fisher_k is not None and spec.rank_policy.use_fisher,
         **info,
     }
     provenance["group_size"] = ccfg.recalkv.group_size

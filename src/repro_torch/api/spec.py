@@ -22,9 +22,10 @@ from repro_torch.models.config import _BACKEND_ALIASES, _JAX_BACKEND_NAMES
 @dataclasses.dataclass(frozen=True)
 class RankPolicy:
     """How per-layer latent ranks are allocated.  ``keep_ratio`` is the
-    kept fraction of KV-cache bytes.  ``use_fisher`` (Fisher-guided
-    allocation) is not ported: compressing with it raises
-    NotImplementedError."""
+    kept fraction of KV-cache bytes.  ``use_fisher`` enables the
+    Fisher-guided allocation across layers (needs Fisher scores in the
+    calibration data), shaped by ``alpha`` / ``rho_min`` / ``rho_max``;
+    otherwise every layer gets the uniform rank."""
 
     keep_ratio: float = 0.5
     group_size: int = 4
@@ -76,8 +77,9 @@ class CompressionSpec:
 @dataclasses.dataclass(frozen=True)
 class CalibrationData:
     """Captured calibration state, reusable across strategies: one
-    second-moment summary per self-attention layer (``stats``); Fisher
-    scores stay None in the port."""
+    second-moment summary per self-attention layer (``stats``) and,
+    from ``calibrate(..., fisher=True)``, per-layer Fisher scores of W_k
+    and W_v (``fisher_k`` / ``fisher_v``) for the rank allocator."""
 
     stats: Sequence[P.CalibStats] | None = None
     fisher_k: Sequence[float] | None = None

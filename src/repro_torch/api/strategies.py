@@ -70,9 +70,11 @@ class SVDCompressor:
                  calib: CalibrationData) -> tuple[ModelConfig, Any, dict]:
         opts = _merged_options(self._option_defaults(), spec, self.name)
         rc = self._recal_config(spec, opts)
-        if spec.rank_policy.use_fisher:
-            raise NotImplementedError(f"{self.name}: rank_policy.use_fisher=True: "
-                                      f"{P.FISHER_NOT_PORTED}")
+        if spec.rank_policy.use_fisher and calib.fisher_k is None:
+            raise ValueError(
+                f"{self.name}: rank_policy.use_fisher=True but the "
+                "calibration data carries no Fisher scores — capture with "
+                "calibrate(..., fisher=True)")
         stats = calib.stats
         if stats is None:
             if opts["use_whitening"] or opts["use_calibration"]:

@@ -1,11 +1,15 @@
-"""The JAX package's npz + meta.json checkpoint layout, read and written
-(port of ``repro.checkpoint.ckpt``'s synchronous save and its readers;
-numpy only).
+"""Atomic, async checkpointing in the JAX package's npz + meta.json
+layout (port of ``repro.checkpoint.ckpt``; numpy only).
 
 Layout:   <dir>/step_<n>/arrays.npz  +  meta.json
 
 A save writes into a temporary directory and moves it into place with
-``os.replace``, so a crashed writer never corrupts the latest step.
+``os.replace``, so a crashed writer never corrupts the latest step.  An
+async save snapshots every leaf to host memory first (copies), so
+training updates its tensors in place while the writer thread runs.
+``restore`` rebuilds a target tree's structure from disk, checking every
+leaf's presence and shape, as the JAX package's does (it places nothing
+on a device: the caller converts, e.g. with ``params_from_jax``).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import threading
 import time
 
 import numpy as np
@@ -35,22 +40,36 @@ def _flatten(tree, prefix=()) -> dict[str, np.ndarray]:
 
 
 def save(directory: str, step: int, tree, *, keep_last: int = 3,
-         extra_meta: dict | None = None) -> None:
+         async_: bool = False,
+         extra_meta: dict | None = None) -> threading.Thread | None:
     """Write ``tree`` (nested dicts / tuples of numpy leaves) under
     <directory>/step_<step>, atomically; ``extra_meta`` is merged into
-    meta.json.  Keeps the ``keep_last`` newest steps (0 keeps all)."""
+    meta.json.  Keeps the ``keep_last`` newest steps (0 keeps all).
+    With ``async_`` the leaves are copied to host first and a writer
+    thread is returned (join it to guarantee durability)."""
     os.makedirs(directory, exist_ok=True)
     host = _flatten(tree)
-    final = os.path.join(directory, f"step_{step:08d}")
-    tmp = final + f".tmp.{os.getpid()}.{time.time_ns()}"
-    os.makedirs(tmp, exist_ok=True)
-    np.savez(os.path.join(tmp, "arrays.npz"), **host)
-    with open(os.path.join(tmp, "meta.json"), "w") as f:
-        json.dump({**(extra_meta or {}), "step": step, "keys": sorted(host)}, f)
-    if os.path.exists(final):
-        shutil.rmtree(final)
-    os.replace(tmp, final)
-    _trim(directory, keep_last)
+    if async_:    # a snapshot: the caller goes on updating its tensors
+        host = {k: np.array(v) for k, v in host.items()}
+
+    def _write():
+        final = os.path.join(directory, f"step_{step:08d}")
+        tmp = final + f".tmp.{os.getpid()}.{time.time_ns()}"
+        os.makedirs(tmp, exist_ok=True)
+        np.savez(os.path.join(tmp, "arrays.npz"), **host)
+        with open(os.path.join(tmp, "meta.json"), "w") as f:
+            json.dump({**(extra_meta or {}), "step": step, "keys": sorted(host)}, f)
+        if os.path.exists(final):
+            shutil.rmtree(final)
+        os.replace(tmp, final)
+        _trim(directory, keep_last)
+
+    if async_:
+        t = threading.Thread(target=_write, daemon=True)
+        t.start()
+        return t
+    _write()
+    return None
 
 
 def _trim(directory: str, keep_last: int) -> None:
@@ -127,3 +146,38 @@ def unflatten(flat: dict[str, np.ndarray], seq_paths: list[str] | None = None):
         return out
 
     return _finalize(root, ())
+
+
+def _cast(arr: np.ndarray, like: np.ndarray) -> np.ndarray:
+    """``arr`` in ``like``'s dtype; bfloat16 travels as its raw 2-byte
+    pattern (an npz stores ml_dtypes' bfloat16 as void), reinterpreted,
+    not converted."""
+    two_byte = lambda a: a.dtype.kind == "V" or a.dtype.name == "bfloat16"
+    if two_byte(arr) or two_byte(like):
+        if not (two_byte(arr) and two_byte(like)):
+            raise ValueError(f"cannot restore a {arr.dtype} leaf as {like.dtype}")
+        return arr.view(like.dtype)
+    return arr.astype(like.dtype, copy=False)
+
+
+def restore(directory: str, step: int, target_tree):
+    """Rebuild ``target_tree``'s structure (nested dicts / tuples of numpy
+    leaves) from step ``step`` on disk, each leaf in the target leaf's
+    dtype.  A missing leaf raises KeyError, a shape mismatch ValueError."""
+    path = os.path.join(directory, f"step_{step:08d}", "arrays.npz")
+    with np.load(path) as data:
+        def build(node, prefix):
+            if isinstance(node, dict):
+                return {k: build(v, prefix + (str(k),)) for k, v in node.items()}
+            if isinstance(node, (tuple, list)):
+                return type(node)(build(v, prefix + (str(i),))
+                                  for i, v in enumerate(node))
+            key = "/".join(prefix)
+            if key not in data:
+                raise KeyError(f"checkpoint missing leaf {key!r}")
+            arr, ref = data[key], np.asarray(node)
+            if tuple(arr.shape) != tuple(ref.shape):
+                raise ValueError(f"{key}: shape {arr.shape} != {ref.shape}")
+            return _cast(arr, ref)
+
+        return build(target_tree, ())

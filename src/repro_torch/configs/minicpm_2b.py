@@ -2,8 +2,8 @@
 vocab=122753, WSD schedule (arch = llama-like MHA).  [arXiv:2404.06395; hf]
 
 MHA is the paper's own main setting (LLaMA-2): 36 kv heads -> 9 HSR groups
-of 4.  The WSD learning-rate schedule belongs to training, which the port
-does not have yet (ROADMAP.md Queue 1 item 6).
+of 4.  Its WSD learning-rate schedule is the training CLI's default for
+this arch (``optim.schedule.wsd``).
 """
 
 from repro_torch.models.config import ModelConfig

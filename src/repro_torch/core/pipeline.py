@@ -9,9 +9,8 @@ path serves.  Per layer (paper Algorithm 1):
            into (W_q, W_k, W_v, W_o) -> grouped (whitened) SVD -> (L_k, R_k)
   Values : grouped SVD on the key-aligned groups -> offline ALS
            calibration -> block fusion of R_v into W_o -> (L_v, W~_o)
-  Ranks  : uniform per layer.  Fisher-guided allocation needs the training
-           slice (gradients of the LM loss) and raises NotImplementedError
-           (ROADMAP.md, Queue 1 item 6).
+  Ranks  : Fisher-guided water-filling across layers (fisher.py), or
+           uniform without Fisher scores.
 
 Calibration statistics are second moments (cov = X^T X and the token
 mean), O(d_model^2) per layer; no activations are kept.  Every product
@@ -32,16 +31,11 @@ import torch
 
 from repro_torch.core import calibrate as _calibrate
 from repro_torch.core import cka as _cka
+from repro_torch.core import fisher as _fisher
 from repro_torch.core import fusion as _fusion
 from repro_torch.core import reorder as _reorder
 from repro_torch.core import svd as _svd
 from repro_torch.device import full_float32
-
-FISHER_NOT_PORTED = ("Fisher-guided rank allocation needs gradients of the LM "
-                     "loss, which the port gains with the training slice "
-                     "(ROADMAP.md, Queue 1 item 6); use uniform ranks "
-                     "(use_fisher=False)")
-
 
 @dataclasses.dataclass(frozen=True)
 class ReCalKVConfig:
@@ -218,12 +212,16 @@ def allocate_layer_ranks(cfg: ReCalKVConfig, num_layers: int, group_width: int,
                          fisher_k: Sequence[float] | None = None,
                          fisher_v: Sequence[float] | None = None,
                          ) -> tuple[list[int], list[int]]:
-    """Per-layer ranks for K and V (Algorithm 1 l.4-5): uniform; Fisher
-    scores with ``use_fisher`` raise (not ported)."""
-    if cfg.use_fisher and fisher_k is not None and fisher_v is not None:
-        raise NotImplementedError(FISHER_NOT_PORTED)
-    r = cfg.rank_for_width(group_width)
-    return [r] * num_layers, [r] * num_layers
+    """Fisher-guided per-layer ranks for K and V (Algorithm 1 l.4-5);
+    uniform without ``use_fisher`` or without both score lists."""
+    if not cfg.use_fisher or fisher_k is None or fisher_v is None:
+        r = cfg.rank_for_width(group_width)
+        return [r] * num_layers, [r] * num_layers
+    kw = dict(alpha=cfg.alpha, rho_min=cfg.rho_min, rho_max=cfg.rho_max,
+              multiple=cfg.rank_multiple, min_rank=cfg.min_rank)
+    alloc_k = _fisher.allocate(fisher_k, cfg.keep_ratio, group_width, **kw)
+    alloc_v = _fisher.allocate(fisher_v, cfg.keep_ratio, group_width, **kw)
+    return list(alloc_k.ranks), list(alloc_v.ranks)
 
 
 def compress_model_layers(layers: Sequence[AttnWeights],

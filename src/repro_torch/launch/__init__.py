@@ -1,3 +1,4 @@
 """Launchers (port of ``repro.launch``): the serving CLI,
-``python -m repro_torch.launch.serve``.  Meshes, the multi-pod dry run and
-training are not ported yet (ROADMAP.md, Queue 1 items 5 and 6)."""
+``python -m repro_torch.launch.serve``, and the training CLI,
+``python -m repro_torch.launch.train``.  Meshes and the multi-pod dry run
+are not ported yet (ROADMAP.md, Queue 1 item 5)."""

@@ -6,11 +6,9 @@ compresses; the compressed config says ``scan_layers=False``, the unrolled
 layout the artifact stores, as the JAX package requires of its input.
 
 Flow (paper Algorithm 1, at model scope):
-    stats = capture_calibration(cfg, params, batches)      # X^T X per layer
-    cfg2, params2 = compress_model(cfg, params, stats, recal_cfg)
-
-Fisher scores (``fisher_scores`` in JAX) need the training slice and are
-not ported (ROADMAP.md, Queue 1 item 6).
+    stats  = capture_calibration(cfg, params, batches)     # X^T X per layer
+    fk, fv = fisher_scores(cfg, params, batches)           # dL/dW_k|v squared
+    cfg2, params2 = compress_model(cfg, params, stats, recal_cfg, fk, fv)
 """
 
 from __future__ import annotations
@@ -21,6 +19,7 @@ from typing import Sequence
 import torch
 
 from repro_torch.core import pipeline as P
+from repro_torch.core.fisher import empirical_fisher
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig, ReCalKVRuntime, check_supported
@@ -75,8 +74,35 @@ def capture_calibration(cfg: ModelConfig, params,
                 new = P.collect_stats(L.rmsnorm(x, p["ln1"], cfg.norm_eps))
                 stats[j] = new if stats[j] is None else P.merge_stats(stats[j], new)
                 j += 1
-            x, _ = T.block_full(cfg, kind, p, x, ctx, want_cache=False)
+            x, _, _ = T.block_full(cfg, kind, p, x, ctx, want_cache=False)
     return stats
+
+
+def fisher_scores(cfg: ModelConfig, params, batches) -> tuple[list[float], list[float]]:
+    """Summed squared gradients of the LM loss (``transformer.loss_fn``,
+    the einsum forward) with respect to each self-attention layer's W_k
+    and W_v, over ``batches`` (dicts with "tokens", "labels" and, for a
+    model with cross-attention layers, "source"): ``core.fisher``'s
+    ``empirical_fisher`` over those leaves only.  Their gradients are the
+    same as in the full gradient the JAX package takes, and the other
+    leaves' are never stored.  Each layer's float32 sum is added in
+    float64 across batches, as in JAX."""
+    check_supported(cfg)
+    check_compressible(cfg)
+    if cfg.mla is not None or cfg.recalkv is not None:
+        raise ValueError("Fisher scores are taken on a dense model's W_k / W_v "
+                         "(an MLA or latent model has none)")
+    idxs = attn_layer_indices(cfg)
+    kv = [(params["layers"][i]["attn"]["wk"], params["layers"][i]["attn"]["wv"])
+          for i in idxs]
+    fk, fv = [0.0] * len(idxs), [0.0] * len(idxs)
+    for batch in batches:
+        fisher = empirical_fisher(lambda _, b: T.loss_fn(cfg, params, b)[0], kv, [batch])
+        for j, (f_k, f_v) in enumerate(fisher):
+            fk[j] += float(torch.sum(f_k))
+            fv[j] += float(torch.sum(f_v))
+        del fisher
+    return fk, fv
 
 
 def _to_latent_params(attn_p: dict, ca: P.CompressedAttention, dtype) -> dict:

@@ -308,7 +308,7 @@ def _expert_positions(sel: torch.Tensor, num_experts: int) -> torch.Tensor:
     return torch.empty_like(rank).scatter_(0, order, rank).reshape(k, N).t()
 
 
-def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, *, with_aux: bool = False):
     """Capacity-dispatched top-k MoE (port of the JAX ``moe_ffn``).
 
     Tokens gather into an (E, cap, d) buffer, ``cap`` from this call's own
@@ -318,9 +318,15 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     slots and adds them in ascending expert order, the order of XLA's CPU
     scatter-add, in the working dtype: no atomics, so a sync call and a
     replayed CUDA graph give the same bits, and every shape is static (no
-    ``nonzero``, masks or ``.item()``), so ``aot=True`` captures it.  The
-    load-balance and router z-loss terms are for training (ROADMAP.md
-    Queue 1 item 6) and are not computed here."""
+    ``nonzero``, masks or ``.item()``), so ``aot=True`` captures it.
+
+    Returns (out, aux): ``aux`` is the training loss term, E * sum(me *
+    ce) (load balance: the mean router probability and the share of
+    choices per expert) plus ``router_zloss`` * mean(logsumexp(logits)^2),
+    float32; None unless ``with_aux`` (serving skips it).  Under autograd
+    the router's gradient flows through the choice weights (``w`` into
+    ``w_for_slot``, whose sink row takes the drops' writes and is sliced
+    away) and ``probs``; the expert outputs are then built out of place."""
     m = cfg.moe
     B, T, d = x.shape
     N = B * T
@@ -332,6 +338,14 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     probs = torch.softmax(logits, dim=-1)
     w, sel = torch.topk(probs, k, dim=-1)                   # (N, k)
     w = w / (w.sum(dim=-1, keepdim=True) + 1e-9)
+    aux = None
+    if with_aux:    # load balance + router z-loss
+        me = probs.mean(dim=0)
+        ce = torch.zeros(E, dtype=torch.float32, device=x.device).index_add_(
+            0, sel.reshape(-1), torch.ones(N * k, dtype=torch.float32,
+                                           device=x.device)) / (N * k)
+        aux = E * torch.sum(me * ce) + m.router_zloss * torch.mean(
+            torch.logsumexp(logits, dim=-1) ** 2)
 
     pos = _expert_positions(sel, E)                         # (N, k)
     slot = torch.where(pos < cap, sel * cap + pos, E * cap)  # overflow -> sink
@@ -353,10 +367,16 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     del buf
     # expert outputs times their weights, and a zero sink row: what each
     # token's k slots read (a dropped choice reads the sink)
-    contrib = torch.empty((E * cap + 1, d), dtype=x.dtype, device=x.device)
-    torch.bmm(F.silu(h) * hi, p["wo"], out=contrib[:E * cap].view(E, cap, d))
-    contrib[:E * cap] *= (w_for_slot[:E * cap] * filled[:E * cap]).to(x.dtype)[:, None]
-    contrib[E * cap] = 0
+    scale = (w_for_slot[:E * cap] * filled[:E * cap]).to(x.dtype)[:, None]
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, p["router"], p["wi"], p["wg"], p["wo"])):
+        y = torch.bmm(F.silu(h) * hi, p["wo"]).reshape(E * cap, d) * scale
+        contrib = torch.cat([y, y.new_zeros((1, d))])
+    else:   # in place: 2.5% less device time on qwen3-moe's prefill (PERF.md)
+        contrib = torch.empty((E * cap + 1, d), dtype=x.dtype, device=x.device)
+        torch.bmm(F.silu(h) * hi, p["wo"], out=contrib[:E * cap].view(E, cap, d))
+        contrib[:E * cap] *= scale
+        contrib[E * cap] = 0
 
     order = torch.sort(sel, dim=-1).indices                 # each token's experts, ascending
     slots = torch.gather(slot, 1, order)
@@ -365,17 +385,18 @@ def moe_ffn(p: Params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
         out = out + contrib[slots[:, j]]
     if m.num_shared:
         out = out + swiglu(p["shared"], xt)
-    return out.reshape(B, T, d)
+    return out.reshape(B, T, d), aux
 
 
-def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig,
-        dense: bool = False) -> torch.Tensor:
+def ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, dense: bool = False, *,
+        with_aux: bool = False):
     """The block's FFN: the routed MoE where the config has one, unless
     ``dense`` (the ``attn_dense`` blocks: DeepSeek's first-k-dense
-    layers), else the dense SwiGLU."""
+    layers), else the dense SwiGLU.  Returns (y, aux): the MoE's loss
+    term with ``with_aux``, else None (a dense FFN has none)."""
     if cfg.moe is not None and not dense:
-        return moe_ffn(p, x, cfg)
-    return swiglu(p, x)
+        return moe_ffn(p, x, cfg, with_aux=with_aux)
+    return swiglu(p, x), None
 
 
 # ---------------------------------------------------------------------------
@@ -415,11 +436,17 @@ def _linear_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     log-depth doubling over time (k = 1, 2, 4, ...: b[t] += a[t] b[t-k],
     then a[t] *= a[t-k]); every step is a few whole-tensor ops, so a long
     prefill launches O(log T) of them, not O(T).  Returns every h_t, in
-    ``b`` (updated in place: the callers pass a fresh tensor)."""
+    ``b`` (updated in place: the callers pass a fresh tensor), or, when
+    autograd records the scan, in a new tensor each step (in place, a
+    falcon-mamba prefill takes 0.76x the device time: PERF.md)."""
     T = a.shape[1]
+    grad = torch.is_grad_enabled() and (a.requires_grad or b.requires_grad)
     k = 1
     while k < T:
-        b[:, k:] += a[:, k:] * b[:, :-k]
+        if grad:    # autograd keeps every step's b: O(T log T) memory
+            b = torch.cat([b[:, :k], b[:, k:] + a[:, k:] * b[:, :-k]], dim=1)
+        else:
+            b[:, k:] += a[:, k:] * b[:, :-k]
         if 2 * k < T:
             a = torch.cat([a[:, :k], a[:, k:] * a[:, :-k]], dim=1)
         k *= 2

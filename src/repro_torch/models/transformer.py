@@ -24,6 +24,7 @@ import math
 from typing import Any, Callable
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.kernels.stage_install import InstallTable, stage_install_rows
@@ -40,11 +41,15 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
     return cfg.rope_theta
 
 
-def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor) -> torch.Tensor:
+def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
+         with_aux: bool = False):
     """The block's FFN on its residual: dense on ``attn_dense``, the
-    cross-attention kinds and ``rglru``."""
-    return x + L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                     dense=kind in ("attn_dense", "cross", "attn_cross", "rglru"))
+    cross-attention kinds and ``rglru``.  Returns (x, the MoE's aux loss
+    term with ``with_aux``, else None)."""
+    y, aux = L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
+                   dense=kind in ("attn_dense", "cross", "attn_cross", "rglru"),
+                   with_aux=with_aux)
+    return x + y, aux
 
 
 def _mixer_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -58,7 +63,7 @@ def _mixer_block(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, new = L.mamba_mixer(p["mixer"], L.rmsnorm(x, p["ln"], cfg.norm_eps), cfg, state)
         return x + y, new
     y, new = L.rglru_mixer(p["mixer"], L.rmsnorm(x, p["ln1"], cfg.norm_eps), cfg, state)
-    return _ffn(cfg, kind, p, x + y), new
+    return _ffn(cfg, kind, p, x + y)[0], new
 
 
 def _cross_full(cfg: ModelConfig, p: Params, h: torch.Tensor, ctx: dict):
@@ -94,23 +99,25 @@ def _cross_residual(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
 
 
 def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-               ctx: dict, want_cache: bool = True):
-    """One block over a full (B, T, d) sequence.  Returns (x, cache) with
-    the block's freshly written caches — its ring (dense, latent or MLA)
-    and, for a cross-attention kind, its cross cache — or (x, None)
-    without ``want_cache``: the calibration and training forwards and the
-    encoder, which keep the einsum path under the kernel backend, as the
-    JAX package does.  ``ctx["causal"]`` False (the encoder) lets a dense
-    block attend every position.  A recurrent block's cache is its state
-    after the last (padded) position."""
+               ctx: dict, want_cache: bool = True, with_aux: bool = False):
+    """One block over a full (B, T, d) sequence.  Returns (x, cache, aux)
+    with the block's freshly written caches — its ring (dense, latent or
+    MLA) and, for a cross-attention kind, its cross cache — or (x, None,
+    aux) without ``want_cache``: the calibration and training forwards and
+    the encoder, which keep the einsum path under the kernel backend, as
+    the JAX package does.  ``aux`` is an MoE block's load-balance and
+    z-loss term with ``with_aux`` (the training forward), else None.
+    ``ctx["causal"]`` False (the encoder) lets a dense block attend every
+    position.  A recurrent block's cache is its state after the last
+    (padded) position."""
     if kind in RECURRENT_KINDS:
         x, state = _mixer_block(cfg, kind, p, x, None)
-        return x, ({"state": state} if want_cache else None)
+        return x, ({"state": state} if want_cache else None), None
     if kind == "cross":
         y, cross = _cross_full(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                                ctx)
-        x = _ffn(cfg, kind, p, x + y)
-        return x, ({"cross": cross} if want_cache else None)
+        x, _ = _ffn(cfg, kind, p, x + y)
+        return x, ({"cross": cross} if want_cache else None), None
     window = cfg.window_for(kind)
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
@@ -132,13 +139,13 @@ def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, cross = _cross_full(cfg, p["cross"],
                                L.rmsnorm(x, p["lnx"], cfg.norm_eps), ctx)
         x = x + y
-    x = _ffn(cfg, kind, p, x)
+    x, aux = _ffn(cfg, kind, p, x, with_aux)
     if not want_cache:
-        return x, None
+        return x, None, aux
     cache = {"self": _prefill_self_cache(cfg, kind, ctx, values)}
     if cross is not None:
         cache["cross"] = cross
-    return x, cache
+    return x, cache, aux
 
 
 def _prefill_self_cache(cfg: ModelConfig, kind: str, ctx: dict,
@@ -169,7 +176,7 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                         cache["cross"])
-        return _ffn(cfg, kind, p, x + y), {}
+        return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.decode_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
@@ -180,7 +187,8 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        cfg.window_for(kind), theta=_theta(cfg, kind),
                        pages=ctx.get("pages"))
-    return _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache)), {"self": sc}
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache))
+    return x, {"self": sc}
 
 
 def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -198,7 +206,7 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
                         cache["cross"])
-        return _ffn(cfg, kind, p, x + y), {}
+        return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.verify_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
@@ -209,15 +217,34 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        ctx["feed_mask"], cfg.window_for(kind),
                        theta=_theta(cfg, kind), pages=ctx.get("pages"))
-    return _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache)), {"self": sc}
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache))
+    return x, {"self": sc}
 
 
 def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
               caches: list | None = None, *, decode: bool = False,
               verify: bool = False, want_cache: bool = True):
-    """Apply every layer in order.  Prefill returns (x, new caches) (a
-    list of None without ``want_cache``); decode and verify return (x,
-    deferred updates)."""
+    """Apply every layer in order.  Prefill returns (x, new caches);
+    decode and verify return (x, deferred updates); the full pass without
+    ``want_cache`` (the training forward) returns (x, aux), the float32
+    sum of the MoE blocks' loss terms in layer order.  There, with
+    ``cfg.remat`` while autograd records, each block runs under
+    ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, not kept (JAX's ``jax.checkpoint``
+    of the scanned body); the numbers are the same."""
+    if not (want_cache or decode or verify):
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        remat = cfg.remat and torch.is_grad_enabled()
+        for kind, p in zip(cfg.expanded_layers(), params["layers"], strict=True):
+            def one(x, kind=kind, p=p):
+                y, _, a = block_full(cfg, kind, p, x, ctx, want_cache=False,
+                                     with_aux=True)
+                return y, a
+            x, a = (torch.utils.checkpoint.checkpoint(one, x, use_reentrant=False)
+                    if remat else one(x))
+            if a is not None:
+                aux = aux + a
+        return x, aux
     outs = []
     for i, kind in enumerate(cfg.expanded_layers()):
         p = params["layers"][i]
@@ -226,7 +253,7 @@ def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
         elif decode:
             x, o = block_decode(cfg, kind, p, x, caches[i], ctx)
         else:
-            x, o = block_full(cfg, kind, p, x, ctx, want_cache)
+            x, o, _ = block_full(cfg, kind, p, x, ctx, want_cache)
         outs.append(o)
     return x, outs
 
@@ -266,8 +293,8 @@ def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor) -> torch.Tens
            "max_len": S}
     x = frames.to(cfg.dtype)
     for blk in enc["layers"]:
-        x, _ = block_full(_encoder_cfg(cfg, blk), "attn_dense", blk, x, ctx,
-                          want_cache=False)
+        x, _, _ = block_full(_encoder_cfg(cfg, blk), "attn_dense", blk, x, ctx,
+                             want_cache=False)
     return L.rmsnorm(x, enc["final_norm"], cfg.norm_eps)
 
 
@@ -281,33 +308,72 @@ def cross_source(cfg: ModelConfig, params: Params, source: torch.Tensor | None):
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                    source: torch.Tensor | None = None):
-    """The full forward (the JAX package's training forward, without its
-    gradients): tokens (B, T) -> (hidden (B, T, d) after the final norm,
-    aux).  ``aux`` is the float32 0 the JAX package returns for a model
-    without MoE blocks; a model with them raises, since the port computes
-    no load-balance or router z-loss term (ROADMAP.md Queue 1 item 6).
-    Every layer takes the einsum path, as in the JAX package."""
+    """The training forward: tokens (B, T) -> (hidden (B, T, d) after the
+    final norm, aux), ``aux`` the float32 sum of the MoE blocks'
+    load-balance and router z-loss terms (0 without MoE blocks).  Every
+    layer takes the einsum path, as in the JAX package; under autograd
+    with ``cfg.remat`` each block is recomputed in the backward pass."""
     check_supported(cfg)
-    if cfg.moe is not None and any(k != "attn_dense" for k in cfg.expanded_layers()):
-        raise NotImplementedError(
-            f"{cfg.name}: forward_hidden's aux term of MoE blocks (load-balance "
-            f"and router z-loss) waits for the training slice (ROADMAP.md Queue 1 "
-            f"item 6)")
     B, T_ = tokens.shape
     dev = tokens.device
     ctx = {"positions": torch.arange(T_, device=dev).expand(B, T_),
            "lengths": torch.full((B,), T_, dtype=torch.int64, device=dev),
            "source": cross_source(cfg, params, source), "max_len": T_}
     x = embed_tokens(cfg, params, tokens)
-    x, _ = run_stack(cfg, params, x, ctx, want_cache=False)
-    aux = torch.zeros((), dtype=torch.float32, device=dev)
+    x, aux = run_stack(cfg, params, x, ctx, want_cache=False)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _lm_head_weight(cfg: ModelConfig, params: Params) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
+def chunked_xent(cfg: ModelConfig, params: Params, hidden: torch.Tensor,
+                 labels: torch.Tensor, chunk: int = 512):
+    """Summed cross-entropy and the count of counted labels (labels -1
+    are masked), both float32, without (B, T, V) logits at once: per
+    ``chunk`` positions, summed in order; a T at most ``chunk`` or not a
+    multiple of it runs in one pass (the JAX package's rule)."""
+    B, T_, _ = hidden.shape
+    W = _lm_head_weight(cfg, params)
+    labels = labels.long()
+
+    def one(h, lab):
+        logits = (h @ W).float()
+        mask = (lab >= 0).float()
+        gold = torch.gather(logits, -1, lab.clamp(min=0)[..., None])[..., 0]
+        return (torch.sum((torch.logsumexp(logits, dim=-1) - gold) * mask),
+                torch.sum(mask))
+
+    if T_ <= chunk or T_ % chunk:
+        return one(hidden, labels)
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(0, T_, chunk):
+        s, c = one(hidden[:, i:i + chunk], labels[:, i:i + chunk])
+        tot, cnt = tot + s, cnt + c
+    return tot, cnt
+
+
+def loss_fn(cfg: ModelConfig, params: Params, batch: dict):
+    """Causal LM loss.  batch: "tokens" (B, T), "labels" (B, T) (-1 =
+    pad), optionally "source" (B, S, d) frontend embeddings; numpy or
+    tensors (moved to the params' device).  Returns (loss + aux, {"xent",
+    "aux", "tokens"})."""
+    dev = params["embed"].device
+    tokens = torch.as_tensor(batch["tokens"], device=dev).long()
+    source = batch.get("source")
+    if source is not None:
+        source = torch.as_tensor(source, device=dev)
+    hidden, aux = forward_hidden(cfg, params, tokens, source)
+    tot, cnt = chunked_xent(cfg, params, hidden,
+                            torch.as_tensor(batch["labels"], device=dev))
+    loss = tot / torch.clamp(cnt, min=1.0)
+    return loss + aux, {"xent": loss, "aux": aux, "tokens": cnt}
 
 
 def logits_for(cfg: ModelConfig, params: Params,
                hidden: torch.Tensor) -> torch.Tensor:
-    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (hidden @ w).float()
+    return (hidden @ _lm_head_weight(cfg, params)).float()
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, max_len: int,

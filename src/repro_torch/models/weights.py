@@ -102,21 +102,6 @@ def _stack(trees: list) -> Params:
             else np.stack([t[k] for t in trees]) for k in trees[0]}
 
 
-def _convert(tree, device, dtype, index=None):
-    """Recursively convert a JAX block dict; ``index`` picks one layer out
-    of stacked (scan_layers=True) leaves."""
-    out = {}
-    for name, leaf in tree.items():
-        if isinstance(leaf, dict):
-            out[name] = _convert(leaf, device, dtype, index)
-            continue
-        a = np.asarray(leaf)
-        if index is not None:
-            a = a[index]
-        out[name] = to_tensor(a, device, _leaf_dtype(name, dtype))
-    return out
-
-
 def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
                     dtype: torch.dtype | None = None) -> Params:
     """Turn a JAX param tree (leaves as numpy arrays or anything
@@ -126,30 +111,9 @@ def params_from_jax(cfg: ModelConfig, tree: Params, device=None,
     leading period axis) and unrolled ``prefix`` (``scan_layers=False``,
     where per-layer ranks may differ).  ``dtype`` defaults to ``cfg.dtype``."""
     check_supported(cfg)
-    dev = resolve_device(device)
     dtype = dtype or cfg.dtype
-    out: Params = {
-        "embed": to_tensor(tree["embed"], dev, dtype),
-        "final_norm": to_tensor(tree["final_norm"], dev, torch.float32),
-    }
-    if "lm_head" in tree:
-        out["lm_head"] = to_tensor(tree["lm_head"], dev, dtype)
-    layers = [_convert(b, dev, dtype) for b in tree.get("prefix", ())]
-    blocks = tree.get("blocks") or ()
-    if blocks:
-        for p in range(_lead(blocks[0])):
-            layers += [_convert(b, dev, dtype, index=p) for b in blocks]
-    layers += [_convert(b, dev, dtype) for b in tree.get("suffix", ())]
-    if len(layers) != cfg.num_layers:
-        raise ValueError(f"param tree holds {len(layers)} layers, "
-                         f"config {cfg.name!r} has {cfg.num_layers}")
-    out["layers"] = layers
-    if "encoder" in tree:
-        enc = tree["encoder"]
-        out["encoder"] = {
-            "layers": [_convert(b, dev, dtype) for b in enc["blocks"]],
-            "final_norm": to_tensor(enc["final_norm"], dev, torch.float32)}
-    return out
+    return _tree_to_port(cfg, tree, resolve_device(device),
+                         lambda name: _leaf_dtype(name, dtype))
 
 
 def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
@@ -182,6 +146,135 @@ def params_to_jax(cfg: ModelConfig, params: Params) -> Params:
     out.update(prefix=tuple(conv(layer) for layer in layers[:n_pre]),
                blocks=tuple(_stack(body[i::period]) for i in range(period)) if n_per else (),
                suffix=tuple(conv(layer) for layer in layers[n_pre + period * n_per:]))
+    return out
+
+
+def map_tree(tree, fn):
+    """``fn`` over every leaf of a nest of dicts and sequences."""
+    if isinstance(tree, dict):
+        return {k: map_tree(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_tree(v, fn) for v in tree)
+    return fn(tree)
+
+
+class _Stacked(list):
+    """The per-period layer trees of one scanned block position, which the
+    JAX package stacks leaf by leaf along a leading period axis."""
+
+
+def as_jax_tree(cfg: ModelConfig, tree: Params) -> Params:
+    """A tree in the port's params layout (params, gradients or a moment)
+    arranged as the JAX package's param tree for ``cfg``'s layer layout,
+    the port's tensors as leaves (not copied): ``"prefix"`` / ``"suffix"``
+    tuples of layer trees and, with ``scan_layers``, ``"blocks"``, one
+    :class:`_Stacked` list of layer trees per period position."""
+    layers = tree["layers"]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, config {cfg.name!r} "
+                         f"has {cfg.num_layers}")
+    out = {k: v for k, v in tree.items() if k not in ("layers", "encoder")}
+    if "encoder" in tree:
+        out["encoder"] = {"blocks": tuple(tree["encoder"]["layers"]),
+                          "final_norm": tree["encoder"]["final_norm"]}
+    if not cfg.scan_layers:
+        out.update(prefix=tuple(layers), blocks=(), suffix=())
+        return out
+    n_pre, period, n_per = len(cfg.prefix_pattern), cfg.period, cfg.num_periods
+    out.update(prefix=tuple(layers[:n_pre]),
+               blocks=tuple(_Stacked(layers[n_pre + j::period][:n_per])
+                            for j in range(period)) if n_per else (),
+               suffix=tuple(layers[n_pre + period * n_per:]))
+    return out
+
+
+def leaves_in_jax_order(cfg: ModelConfig | None, tree: Params) -> list[tuple[str, list, bool]]:
+    """The leaves of ``tree`` in the JAX package's flat order for ``cfg``'s
+    layout (:func:`as_jax_tree`; dict keys sorted, sequences in order), each
+    as ('/'-joined JAX path, the port tensors that make up the JAX leaf,
+    stacked): one tensor, or with ``stacked`` one per period in period
+    order (the JAX leaf has a leading period axis).  ``cfg`` None flattens
+    ``tree`` as it is (any nest of dicts and sequences)."""
+    out: list[tuple[str, list, bool]] = []
+
+    def walk(node, prefix, periods):
+        if isinstance(node, _Stacked):
+            walk(node[0], prefix, node)
+        elif isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], prefix + (str(k),),
+                     None if periods is None else [t[k] for t in periods])
+        elif isinstance(node, (tuple, list)):
+            for i, v in enumerate(node):
+                walk(v, prefix + (str(i),),
+                     None if periods is None else [t[i] for t in periods])
+        elif periods is None:
+            out.append(("/".join(prefix), [node], False))
+        else:
+            out.append(("/".join(prefix), list(periods), True))
+
+    walk(tree if cfg is None else as_jax_tree(cfg, tree), (), None)
+    return out
+
+
+def _tree_to_port(cfg: ModelConfig, tree: Params, dev, leaf_dtype) -> Params:
+    """A JAX-layout tree of numpy leaves -> the port's per-layer layout on
+    ``dev``; ``leaf_dtype(name)`` gives a leaf's dtype (None keeps the
+    stored one)."""
+    def conv(node, index=None):
+        out = {}
+        for name, leaf in node.items():
+            if isinstance(leaf, dict):
+                out[name] = conv(leaf, index)
+                continue
+            a = np.asarray(leaf)
+            out[name] = to_tensor(a if index is None else a[index], dev,
+                                  leaf_dtype(name))
+        return out
+
+    out = {k: to_tensor(tree[k], dev, leaf_dtype(k))
+           for k in ("embed", "final_norm", "lm_head") if k in tree}
+    layers = [conv(b) for b in tree.get("prefix") or ()]
+    blocks = tree.get("blocks") or ()
+    if blocks:
+        for p in range(_lead(blocks[0])):
+            layers += [conv(b, p) for b in blocks]
+    layers += [conv(b) for b in tree.get("suffix") or ()]
+    if len(layers) != cfg.num_layers:
+        raise ValueError(f"tree holds {len(layers)} layers, "
+                         f"config {cfg.name!r} has {cfg.num_layers}")
+    out["layers"] = layers
+    if "encoder" in tree:
+        enc = tree["encoder"]
+        out["encoder"] = {"layers": [conv(b) for b in enc["blocks"]],
+                          "final_norm": to_tensor(enc["final_norm"], dev,
+                                                  leaf_dtype("final_norm"))}
+    return out
+
+
+OPT_TREES = ("mu", "nu", "residual")
+
+
+def opt_state_from_jax(cfg: ModelConfig, state: Params, device=None) -> Params:
+    """The JAX package's AdamW state (``{"mu", "nu", "step"[,
+    "residual"]}``, the moments and the error-feedback residual in the
+    params' JAX layout, numpy leaves) -> the port's: the trees in the
+    params' per-layer layout, each leaf keeping its stored dtype (moments
+    f32 or bf16 on every leaf, norms too; the residual f32), ``step`` a
+    0-d int32 tensor, all on ``device``."""
+    dev = resolve_device(device)
+    out = {k: _tree_to_port(cfg, state[k], dev, lambda _: None)
+           for k in OPT_TREES if k in state}
+    out["step"] = torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32,
+                               device=dev)
+    return out
+
+
+def opt_state_to_jax(cfg: ModelConfig, state: Params) -> Params:
+    """The inverse of :func:`opt_state_from_jax`: the JAX package's tree
+    for ``cfg``'s layer layout, numpy leaves, ``step`` an int32 scalar."""
+    out = {k: params_to_jax(cfg, state[k]) for k in OPT_TREES if k in state}
+    out["step"] = np.asarray(int(state["step"]), dtype=np.int32)
     return out
 
 

@@ -1,0 +1,10 @@
+"""Training runtime of the port (port of ``repro.runtime``): the train
+step with microbatch accumulation, and the loop with checkpoint restart,
+a per-step watchdog and a NaN guard."""
+
+from repro_torch.runtime.train_loop import (TrainConfig, init_train_state,
+                                            make_train_step, train_loop)
+from repro_torch.runtime.watchdog import Watchdog, WatchdogTimeout
+
+__all__ = ["TrainConfig", "Watchdog", "WatchdogTimeout", "init_train_state",
+           "make_train_step", "train_loop"]

@@ -119,8 +119,7 @@ power-of-two prompt length of its wave.  Speculation (``spec_depth >
 0``) and the paged pool raise ``ValueError`` for such a model, as in the
 JAX package.
 
-Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5) and training
-(item 6).
+Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5).
 """
 
 from __future__ import annotations

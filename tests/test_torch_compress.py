@@ -379,11 +379,11 @@ def test_error_surfaces_match_jax(dense, tmp_path):
         A.compress(pcfg, pp, A.CompressionSpec("grouped-svd", options={"nope": 1}))
     with pytest.raises(ValueError, match="need calibration"):
         A.compress(pcfg, pp, "recalkv")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="carries no Fisher scores"):
         A.compress(pcfg, pp, A.CompressionSpec(
             "grouped-svd", rank_policy=A.RankPolicy(use_fisher=True)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        A.calibrate(pcfg, pp, batches, fisher=True)
+    with pytest.raises(KeyError, match="labels"):
+        A.calibrate(pcfg, pp, [{"tokens": b["tokens"]} for b in batches], fisher=True)
     with pytest.raises(ValueError, match="cannot wrap itself"):
         A.compress(pcfg, pp, A.CompressionSpec("quantized-latent",
                                                options={"base": "quantized-latent"}))

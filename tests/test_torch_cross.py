@@ -11,7 +11,7 @@ by ``params_from_jax``:
 * the four cross functions, the non-causal dense attention and ``encode``
   (rtol / atol 1e-5);
 * ``forward_hidden`` for whisper, llama-vision and qwen3-4b (1e-4; aux 0;
-  a MoE model raises), and prefill-then-decode reproducing the forward for
+  a MoE model's aux JAX's, 1e-5), and prefill-then-decode reproducing the forward for
   both new models, dense and latent (2e-3, as JAX's ``test_models.py``);
 * ``params_*`` / ``caches_*`` round trips with ``encoder`` and ``cross``
   leaves, unrolled and scanned (bit for bit);
@@ -198,8 +198,9 @@ def test_cross_functions_and_encode_match_jax(latent):
 @pytest.mark.parametrize("arch", [WHISPER, VISION, "qwen3-4b"])
 def test_forward_hidden_matches_jax(arch):
     """``forward_hidden`` (the einsum path, the source encoded for whisper)
-    equals JAX's within 1e-4, its aux JAX's 0; a MoE model raises naming
-    the training slice instead of returning an aux it does not compute."""
+    equals JAX's within 1e-4, its aux JAX's 0; a MoE model returns its
+    hidden states and its load-balance and router z-loss aux, JAX's
+    within 1e-5."""
     cfg, params, pcfg, pp = _model(arch)
     toks = np.random.default_rng(8).integers(0, cfg.vocab_size, (2, 12))
     src = _source(cfg, 2) if cfg.cross_source_len else None
@@ -209,9 +210,12 @@ def test_forward_hidden_matches_jax(arch):
     np.testing.assert_allclose(_np(got), np.asarray(want), **FWD)
     assert float(aux) == float(waux) == 0.0 and aux.dtype == torch.float32
     if arch == "qwen3-4b":
-        moe = ModelConfig.from_dict(get_config("qwen3-moe-235b-a22b", smoke=True).to_dict())
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            T.forward_hidden(moe, None, _t(toks))
+        cfg, params, pcfg, pp = _model("qwen3-moe-235b-a22b")
+        want, waux = J_FORWARD(cfg, params, jnp.asarray(toks, jnp.int32))
+        got, aux = T.forward_hidden(pcfg, pp, _t(toks))
+        np.testing.assert_allclose(_np(got), np.asarray(want), **FWD)
+        assert float(waux) > 0 and aux.dtype == torch.float32
+        assert float(aux) == pytest.approx(float(waux), rel=1e-5)
 
 
 @pytest.mark.parametrize("arch", [WHISPER, VISION])

@@ -125,7 +125,9 @@ MOE_CASES = {
 @pytest.mark.parametrize("case", sorted(MOE_CASES))
 def test_moe_ffn_matches_jax(case):
     """``moe_ffn`` of the smoke widths (d 64, 8 experts, top 2, d_expert 64)
-    on numpy-seeded weights and tokens equals JAX's within 1e-5; in the
+    on numpy-seeded weights and tokens equals JAX's within 1e-5, and so
+    does its aux loss term (``with_aux``; serving's call, without it,
+    gives the same output and no aux); in the
     tight cases tokens are dropped (asserted), and tokens 8-15 repeat
     tokens 0-7, so which of two equal tokens keeps its slot is the drop
     order's choice."""
@@ -149,10 +151,13 @@ def test_moe_ffn_matches_jax(case):
     if repeat:
         x[8:16] = x[0:8]
     x = x.reshape(B, Tn, d)
-    want, _ = JL.moe_ffn(jax.tree.map(jnp.asarray, p), jnp.asarray(x), cfg)
+    want, waux = JL.moe_ffn(jax.tree.map(jnp.asarray, p), jnp.asarray(x), cfg)
     tp = jax.tree.map(torch.as_tensor, p)
-    got = L.moe_ffn(tp, torch.as_tensor(x), pcfg)
+    got, aux = L.moe_ffn(tp, torch.as_tensor(x), pcfg, with_aux=True)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=0)
+    assert float(aux) == pytest.approx(float(waux), rel=1e-5)
+    served, none = L.moe_ffn(tp, torch.as_tensor(x), pcfg)
+    assert none is None and torch.equal(served, got)
     N = B * Tn
     cap = max(8, int(np.ceil(N * 2 / E * cf / 8)) * 8)
     sel = torch.topk(torch.softmax(torch.as_tensor(x).reshape(N, d) @ tp["router"], -1),
