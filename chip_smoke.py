@@ -196,7 +196,30 @@ Phases, in order (any failure exits non-zero; none is caught):
    run (G 3, r 128), both backends' logits, WU and WU+; each run prints
    its source and its self and cross cache bytes per slot (cross: 52.4 /
    26.2 MB for llama-vision, 55.3 / 27.6 MB for whisper);
-9. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
+9. the mesh (``phase_lse``, ``phase_mesh_runs``; run after the kernel
+   phases, while this process holds no model): (a) every decode kernel
+   (K1, K3, K4, K5, K6, K7 and the dense decode / verify kernels) with
+   ``return_lse`` at the main path's shapes against its plain version's
+   (o, m, l) in f32 and bf16, its output bit for bit that of the launch
+   without the state, timed with and without; (b) the same kernels on
+   the same operands split into 2 and 4 sequence shards (ring columns, or
+   each page's offsets), each shard's state merged by the port's merge
+   with the collectives replaced by reductions over the stacked parts,
+   against the unsharded kernel; (c) qwen3-4b at full width on a (1, 2)
+   mesh of two spawned ranks that share the card over gloo, each run
+   first on the single-device engine in this process: MA32 (f32) and MA
+   (bf16), A's prompts prefilled whole, MA32's streams equal to the
+   single device's and MA's first decode step's merged attention within
+   the bf16 limit of the unsharded kernel on the gathered ring (the
+   streams' agreement, and where they part the top-2 logit margin, are
+   reported), MD (D's pool and prompts; must share pages), and short
+   runs that launch the other kernels' ``return_lse`` variants (MB, MB2,
+   MC2, MD2, MH, MH2); depth, tokens and windows cut as ``MESH_RUNS``
+   says (every weight is gathered across the host at every step).  The
+   tok/s of (c) are two ranks time-slicing one card over a host
+   transport, not a mesh's speed; rows ``<kernel>+lse`` of the kernels
+   line count the return_lse launches of (c);
+10. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
    run; the four dense cores are entries of their own, counted on their
@@ -302,8 +325,13 @@ def bound(bytes_: int, flops: float) -> tuple[float, str]:
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
-def compare(name, got, want, dtype) -> float:
-    """Max |got - want|, after checking it against the tolerance above."""
+def compare(name, got, want, dtype, scale=1.0, mag=None) -> float:
+    """Max |got - want|, after checking it against the tolerance above
+    (times ``scale``: 2 where both sides carry their own bf16 rounding of
+    one function, each within the limit of it).  ``mag`` (a merge of bf16
+    parts: their weighted magnitude sum w |o_i| / sum w) takes the place of
+    |want| in the bf16 limit where it is larger: each part's rounding
+    carries into the merge at its own size, whatever the parts cancel to."""
     import torch
     got, want = got.float(), want.float()
     if not torch.isfinite(got).all():
@@ -313,7 +341,8 @@ def compare(name, got, want, dtype) -> float:
     if dtype == torch.float32:
         limit = torch.full_like(want, F32_TOL)
     else:
-        limit = BF16_REL * want.abs() + BF16_RMS * rms
+        size = want.abs() if mag is None else torch.maximum(want.abs(), mag.float())
+        limit = scale * (BF16_REL * size + BF16_RMS * rms)
     worst = (diff / limit).max().item()
     log(f"{name} {dtype}: max abs err {diff.max().item():.3e}, output rms {rms:.3e} "
         f"max {want.abs().max().item():.3e}, worst err / limit {worst:.3f}")
@@ -1362,9 +1391,13 @@ CACHE_BYTES = {"H": 4096, "I": 4096, "I9": 4096, "J": 2048, "V": 8192, "V3": 819
                # (int8: 128 B a latent and a float32 scale, keys and values)
                "RG": 1024, "RGU": 512, "RGUs": 512, "RGU8": 264}
 # a recurrent model's state per slot, (h, conv) bytes, whatever the prompt:
-# falcon-mamba 64 layers x (8,192 x 16 float32, 3 x 8,192 bf16);
+# falcon-mamba FM_LAYERS layers x (8,192 x 16 float32, 3 x 8,192 bf16) (its
+# depth cut from 64 to keep the whole run inside its time limit beside the
+# mesh phase: each layer is the same Mamba block);
 # recurrentgemma 26 rglru layers x (4,096 float32, 3 x 4,096 bf16)
-STATE_BYTES = {**dict.fromkeys(("FM", "FMs"), (64 * 8192 * 16 * 4, 64 * 3 * 8192 * 2)),
+FM_LAYERS = 16
+STATE_BYTES = {**dict.fromkeys(("FM", "FMs"), (FM_LAYERS * 8192 * 16 * 4,
+                                               FM_LAYERS * 3 * 8192 * 2)),
                **dict.fromkeys(("RG", "RGU", "RGU8", "RGUs"),
                                (26 * 4096 * 4, 26 * 3 * 4096 * 2))}
 # a cross model's cache per slot: its cross layers' source keys and values
@@ -2254,7 +2287,8 @@ def phase_twins(torch, cfg, params, run, key, by_run, streams, serving):
 def phase_recurrent(torch, by_run, streams, serving, backends) -> dict:
     """The recurrent models at full width and depth, bf16, random weights
     from seed 0, on the kernel backend; their mixers are plain PyTorch, as
-    in the JAX package.  falcon-mamba-7b (64 Mamba layers, d_inner 8,192,
+    in the JAX package.  falcon-mamba-7b (FM_LAYERS of its 64 Mamba layers,
+    d_inner 8,192,
     d_state 16): FM (A's prompts), its decode steps counted: no kernel may
     launch; FM+ (overlapped + graphs, inline admission: FM's streams, no
     launch a replay); FMs and FM+c (R's traffic, sync and continuous: equal
@@ -2271,7 +2305,7 @@ def phase_recurrent(torch, by_run, streams, serving, backends) -> dict:
     from repro_torch import kernels
     rec, t0 = {}, time.perf_counter()
     arch = "falcon-mamba-7b"
-    cfg, params = family_model(torch, arch)
+    cfg, params = family_model(torch, arch, layers=FM_LAYERS)
     rec[arch] = {"params_b": count_params(params) / 1e9}
     (by_run["FM"], streams["FM"], serving["FM"]), steps = count_decode_steps(
         lambda: phase_engine(torch, cfg, params, "FM"))
@@ -2592,6 +2626,470 @@ def phase_train(torch, by_run, streams, serving) -> tuple[dict, list]:
     return rec, rows
 
 
+# -- the mesh: kernels' softmax state, sequence-sharded merge, two ranks -------
+#
+# (a) every decode kernel with ``return_lse`` against its plain version's
+# (o, m, l) at the main path's shapes, its output bit for bit that of the
+# launch without the state, and its time with and without; (b) the same
+# kernels on the same operands split into 2 and 4 sequence shards in one
+# process, each shard's (o, m, l) merged by the port's merge
+# (``ops.merge_stacked``: the mesh's two all-reduces as reductions over
+# the stacked parts), against the unsharded kernel; (c) qwen3-4b at full
+# width served by two ranks that share the card (mesh (1, 2), gloo) against
+# the single-device engine (``phase_mesh_runs``).
+
+LSE_ROWS = (  # (row, kernel module attribute, nq, int8, paged, dense)
+    ("latent_decode_attention", 1, False, False, False),
+    ("latent_decode_attention_quant", 1, True, False, False),
+    ("latent_decode_attention_paged", 1, False, True, False),
+    ("latent_decode_attention_mq", 4, False, False, False),
+    ("latent_decode_attention_mq_quant", 4, True, False, False),
+    ("latent_decode_attention_mq_paged", 4, False, True, False),
+    ("dense_decode_attention", 1, False, False, True),
+    ("dense_decode_attention_mq", 4, False, False, True),
+)
+LSE_REPLACES = {"latent_decode_attention": ("latent_decode.py", 177),
+                "latent_decode_attention_quant": ("latent_decode_q.py", 69),
+                "latent_decode_attention_paged": ("latent_decode.py", 456),
+                "latent_decode_attention_mq": ("latent_decode.py", 338),
+                "latent_decode_attention_mq_quant": ("latent_decode_q.py", 158),
+                "latent_decode_attention_mq_paged": ("latent_decode.py", 567),
+                "dense_decode_attention": ("latent_decode.py", 177),
+                "dense_decode_attention_mq": ("latent_decode.py", 338)}
+
+
+def compare_state(name, got, want, dtype) -> float:
+    """A kernel's (m, l) against its plain version's: relative limits (m is
+    a logit, l a sum over up to 4,096 columns), 1e-4 (|want| + 1) in f32,
+    ``compare``'s per-element bf16 limit in bf16; rows that see no column
+    must be NEG_INF / 0 on both sides.  Returns the max abs error."""
+    import torch
+    got, want = got.float(), want.float()
+    if not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: state is not finite")
+    diff = (got - want).abs()
+    if dtype == torch.float32:
+        limit = 1e-4 * (want.abs() + 1)
+    else:
+        live = want.abs() < 1e29
+        rms = want[live].square().mean().sqrt().item() if live.any() else 0.0
+        limit = BF16_REL * want.abs() + BF16_RMS * rms + (~live) * 1.0
+    worst = (diff / limit).max().item()
+    log(f"{name} {dtype}: max abs err {diff.max().item():.3e}, worst err / limit "
+        f"{worst:.3f}")
+    if worst > 1:
+        raise AssertionError(f"{name}: softmax state disagrees with the plain version "
+                             f"in {dtype} (worst err / limit {worst:.3f})")
+    return diff.max().item()
+
+
+def lse_operands(torch, gen, name, nq, quant, paged, dense):
+    """(kernel, plain, make(dt) -> (args, kw), shard(args, kw, i, n) ->
+    (args, kw) of sequence shard i of n, flops, shape) at the main path's
+    shapes (``ring_inputs`` / ``paged_inputs``).  A shard holds columns
+    [i S / n, (i + 1) S / n) of the ring (of each page's offsets on the
+    pool, the page table whole) and the self columns on the last shard
+    only: a decode's are dropped elsewhere, a verify's masked."""
+    from repro_torch.kernels import dense_decode as KD
+    from repro_torch.kernels import latent_decode as K
+    from repro_torch.kernels import latent_decode_q as KQ
+    from repro_torch.kernels.latent_decode import NEG_INF
+    from repro_torch.quant import quantize
+    mod = KD if dense else KQ if quant else K
+    kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    one = nq == 1
+    if paged:
+        a, ptab, pools, cols, flops = paged_inputs(torch, gen, nq)
+    else:
+        a = ring_inputs(torch, gen, nq, dense=dense)
+        ptab, pools = None, {"zk": a["zk"], "zv": a["zv"]}
+    B, S, G, Hg, dh, r, s, _ = a["shape"]
+    if not paged:
+        flops = (dense_flops(B, S + nq, G, Hg, dh, nq) if dense
+                 else decode_flops(B, S + nq, G, Hg, dh, r, s, nq))
+    sel = (lambda x: x[:, 0]) if one else (lambda x: x)
+    bias = a["bias"] if paged or not one else a["bias"][:, 0, :S].contiguous()
+    q8 = {k: quantize(a[k], 8) for k in ("zk", "zv", "self_zk", "self_zv")} if quant else {}
+
+    def make(dt):
+        if dense:
+            args = (a["q"].to(dt), a["zk"].to(dt), a["zv"].to(dt), bias)
+            return args, dict(scale=dh ** -0.5, self_k=sel(a["self_zk"]).to(dt),
+                              self_v=sel(a["self_zv"]).to(dt))
+        kw = dict(scale=dh ** -0.5, k_norm=a["k_norm"], self_cos=sel(a["self_cos"]),
+                  self_sin=sel(a["self_sin"]))
+        if quant:
+            lat = (q8["zk"][0], q8["zk"][1][..., 0], q8["zv"][0], q8["zv"][1][..., 0])
+            kw.update(self_zk_q=sel(q8["self_zk"][0]), self_zk_s=sel(q8["self_zk"][1][..., 0]),
+                      self_zv_q=sel(q8["self_zv"][0]), self_zv_s=sel(q8["self_zv"][1][..., 0]))
+        else:
+            lat = (pools["zk"].to(dt), pools["zv"].to(dt))
+            kw.update(self_zk=sel(a["self_zk"]).to(dt), self_zv=sel(a["self_zv"]).to(dt))
+        lead = (ptab,) if paged else ()
+        return (*lead, a["q"].to(dt), *lat, a["r_k"].to(dt), a["cos"], a["sin"], bias), kw
+
+    n_lat = 2 if dense else 4 if quant else 2
+
+    def shard(args, kw, i, n):
+        last = i == n - 1
+        if paged:   # each page's offsets [i w, (i + 1) w); view columns with those offsets
+            w = PAGE // n
+            view = torch.arange(S, device="cuda")
+            keep = view[(view % PAGE) // w == i]
+            lat = tuple(x[:, i * w:(i + 1) * w].contiguous() for x in args[2:4])
+            cos, sin = (x[:, keep].contiguous() for x in args[5:7])
+            ring_cols = keep
+            out = (args[0], args[1], *lat, args[4], cos, sin)
+        else:
+            c = slice(i * S // n, (i + 1) * S // n)
+            ring_cols = torch.arange(S, device="cuda")[c]
+            lead = args[:1]
+            lat = tuple(x[:, c].contiguous() for x in args[1:1 + n_lat])
+            rest = args[1 + n_lat:-1]
+            if not dense:   # r_k, then the ring's rotation tables
+                rest = (rest[0],) + tuple(x[:, c].contiguous() for x in rest[1:])
+            out = (*lead, *lat, *rest)
+        b = args[-1]
+        kw = dict(kw)
+        if one:
+            b = b[:, ring_cols].contiguous()
+            if not last:   # a decode's self column scores on the last shard only
+                for k in [k for k in kw if k.startswith("self_")]:
+                    kw[k] = None
+        else:
+            tail = b[..., S:] if last else torch.full_like(b[..., S:], NEG_INF)
+            b = torch.cat([b[..., ring_cols], tail], dim=-1).contiguous()
+        return (*out, b), kw
+
+    src = ("latent_decode_tc" if not dense
+           else "dense_verify" if nq > 1 or Hg >= 8 else "dense_decode")
+    shape = (f"B={B} S={S}+{nq}{f' page_size={PAGE}' if paged else ''} "
+             f"{'Hkv' if dense else 'G'}={G} {'q_per_kv' if dense else 'Hg'}={Hg} nq={nq} "
+             f"dh={dh}{'' if dense else f' r={r}'}{' int8 latents' if quant else ''}")
+    return kernel, plain, make, shard, flops, shape, src
+
+
+def phase_lse(torch, gen) -> list:
+    """Parts (a) and (b) for every decode kernel; returns the kernels line's
+    rows of the ``return_lse`` variants (launches: the mesh runs')."""
+    from repro_torch.kernels import ops
+    rows = []
+    for name, nq, quant, paged, dense in LSE_ROWS:
+        kernel, plain, make, shard, flops, shape, src = lse_operands(
+            torch, gen, name, nq, quant, paged, dense)
+        err, split = {}, {}
+        for dt in (torch.float32, torch.bfloat16):
+            args, kw = make(dt)
+            o, m, l = kernel(*args, **kw, return_lse=True)
+            bare = kernel(*args, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(o, bare):
+                raise AssertionError(f"{name}: the output with return_lse differs from the "
+                                     f"launch without it")
+            po, pm, pl = plain(*args, **kw, return_lse=True)
+            err[dt] = (compare(f"{name}+lse o", o, po, dt),
+                       compare_state(f"{name}+lse m", m, pm, dt),
+                       compare_state(f"{name}+lse l", l, pl, dt))
+            for n in (2, 4):   # (b): sequence shards merged by the port's merge
+                parts = [kernel(*sa, **skw, return_lse=True)
+                         for sa, skw in (shard(args, kw, i, n) for i in range(n))]
+                o_s, m_s, l_s = (torch.stack(x) for x in zip(*parts))
+                merged = ops.merge_stacked(o_s, m_s, l_s)
+                w = l_s * torch.exp(m_s - m_s.amax(dim=0))
+                mag = ((o_s.float().abs() * w[..., None]).sum(0)
+                       / w.sum(0).clamp(min=1e-30)[..., None])
+                torch.cuda.synchronize()
+                # in bf16 the merge reads each shard's bf16 output: the merged
+                # output and the unsharded kernel's each round the function,
+                # so each is held to the plain version at the limit and to
+                # each other at twice it, the merge's limit at the size of
+                # its parts (``compare``'s ``mag``)
+                compare(f"{name} merged over {n} shards vs plain", merged, po, dt, mag=mag)
+                split[(dt, n)] = compare(f"{name} merged over {n} shards vs the unsharded "
+                                         f"kernel", merged, bare, dt,
+                                         scale=1.0 if dt == torch.float32 else 2.0, mag=mag)
+        ms = cuda_ms(lambda: kernel(*args, **kw, return_lse=True), iters=50)
+        ms_bare = cuda_ms(lambda: kernel(*args, **kw), iters=50)
+        plain_ms = cuda_ms(lambda: plain(*args, **kw, return_lse=True), iters=3)
+        tensors = [t for t in (*args, *kw.values()) if hasattr(t, "numel")]
+        if paged:   # the bound's bytes as phase_paged counts them, m / l added
+            used = int(torch.unique(args[0][args[0] != 0]).numel())
+            B, S = args[1].shape[0], args[0].shape[1] * PAGE
+            lat = used * PAGE * sum(x[0, 0].numel() * x.element_size() for x in args[2:4])
+            moved = lat + nbytes(args[0], args[1], args[4], bare, *tensors[5:])
+        else:
+            moved = nbytes(*tensors, bare)
+        b_ms, by = bound(moved + nbytes(m, l), flops)
+        log(f"{name}+lse {shape}: max err f32 {err[torch.float32]} bf16 "
+            f"{err[torch.bfloat16]} (o, m, l); merged over 2 / 4 shards vs unsharded, bf16 "
+            f"{split[(torch.bfloat16, 2)]:.3e} / {split[(torch.bfloat16, 4)]:.3e}; kernel "
+            f"{ms:.4f} ms with the state, {ms_bare:.4f} ms without; plain {plain_ms:.4f} ms; "
+            f"bound {b_ms:.4f} ms ({by})")
+        f, line = LSE_REPLACES[name]
+        rows.append({"name": f"{name}+lse", "launch_key": f"{name}+lse", "route": "cuda",
+                     "source": f"src/repro_torch/csrc/{src}.cu",
+                     "replaces": f"src/repro/kernels/{f}:{line}",
+                     "tpu_kernel": f"src/repro/kernels/{f}::{name} (return_lse=True)",
+                     "max_abs_err": err[torch.bfloat16][0], "max_err_f32": err[torch.float32][0],
+                     "state_err_bf16": err[torch.bfloat16][1:],
+                     "state_err_f32": err[torch.float32][1:],
+                     "merge_err": {f"{str(dt)[6:]} x{n}": v for (dt, n), v in split.items()},
+                     "ms": ms, "ms_without_lse": ms_bare, "plain_ms": plain_ms,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "shape": shape + " bf16", "runs": tuple(MESH_RUNS)})
+    return rows
+
+
+# (c): two ranks on one card.  qwen3-4b at full width, cut to a few of its
+# 36 layers (each rank gathers every weight it reads across the host at
+# every step: see PERF.md), on a (1, 2) mesh over gloo.  MA32 / MA: A's
+# prompts (8 of 512-2,048, prefilled whole), f32 / bf16; MD: D's pool
+# (page 16, 385 pages, prefix-affinity) and its first 8 prompts (one
+# wave).  Then one short run for each other decode kernel's return_lse
+# variant: MB (int8 ring, K3), MB2 (int8 ring at spec_depth 2, K6), MC2
+# (float ring at spec_depth 2, K5), MD2 (the pool at spec_depth 2, K7),
+# MH / MH2 (the dense cache: its decode and verify kernels).  "layers",
+# "new" (tokens a request), "sync" (sync_every) and "first" (prompts)
+# cut each run to size: a step costs what its gathers cost (PERF.md),
+# the tied embedding's twice whatever the depth.
+MESH_LAYERS = 4
+MESH_RUNS = {
+    "MA32": dict(dtype="float32", prompts="A", ratio=0.5, new=4, sync=3),
+    "MA": dict(dtype="bfloat16", prompts="A", ratio=0.5, new=4, sync=3),
+    "MD": dict(dtype="bfloat16", prompts="D", ratio=0.5, new=2, sync=1, first=8,
+               kw=dict(cache_layout="paged", page_size=PAGE, n_pages=D_PAGES,
+                       policy="prefix-affinity")),
+    "MB": dict(dtype="bfloat16", prompts="B", ratio=0.5, bits=8, layers=1, new=2, sync=1),
+    "MB2": dict(dtype="bfloat16", prompts="B", ratio=0.5, bits=8, layers=1, new=2, sync=1,
+                kw=dict(spec_depth=2, draft="ngram")),
+    "MC2": dict(dtype="bfloat16", prompts="C", ratio=0.5, layers=1, new=2, sync=1,
+                kw=dict(spec_depth=2, draft="ngram")),
+    "MD2": dict(dtype="bfloat16", prompts="C", ratio=0.5, layers=1, new=2, sync=1,
+                kw=dict(spec_depth=2, draft="ngram", cache_layout="paged",
+                        page_size=PAGE)),
+    "MH": dict(dtype="bfloat16", prompts="C", ratio=None, layers=1, new=2, sync=1),
+    "MH2": dict(dtype="bfloat16", prompts="C", ratio=None, layers=1, new=2, sync=1,
+                kw=dict(spec_depth=2, draft="ngram")),
+}
+MESH_MUST = {"MA32": "latent_decode_attention+lse", "MA": "latent_decode_attention+lse",
+             "MD": "latent_decode_attention_paged+lse",
+             "MB": "latent_decode_attention_quant+lse",
+             "MB2": "latent_decode_attention_mq_quant+lse",
+             "MC2": "latent_decode_attention_mq+lse",
+             "MD2": "latent_decode_attention_mq_paged+lse",
+             "MH": "dense_decode_attention+lse", "MH2": "dense_decode_attention_mq+lse"}
+
+
+def mesh_model(torch, run, layers):
+    from repro_torch.configs import get_config
+    from repro_torch.models.weights import init_params
+    spec = MESH_RUNS[run]
+    cfg = get_config("qwen3-4b", recalkv_ratio=spec["ratio"])
+    cfg = dataclasses.replace(cfg, attn_backend="kernel",
+                              num_layers=spec.get("layers", layers),
+                              dtype=getattr(torch, spec["dtype"]),
+                              cache_quant_bits=spec.get("bits"))
+    return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
+
+
+def mesh_requests(torch, run, vocab):
+    spec = MESH_RUNS[run]
+    reqs = engine_prompts(torch, spec["prompts"], vocab)[:spec.get("first")]
+    return [(p, spec["new"]) for p, _ in reqs]
+
+
+def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
+    """One MESH_RUNS run on this process's card: the single-device engine
+    (``mesh`` None) or this rank's engine on ``mesh``.  With
+    ``check_first`` the first decode step's first layer also runs
+    unsharded on the gathered ring: its merged output against the
+    unsharded kernel's, in the run's dtype's limit.  Returns the record."""
+    from repro_torch import kernels
+    from repro_torch.kernels import ops
+    from repro_torch.serving import Engine, Request
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg, params = mesh_model(torch, run, layers)
+    spec = MESH_RUNS[run]
+    eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=spec["sync"], mesh=mesh,
+                 **spec.get("kw", {}))
+    del params   # on a mesh the engine keeps this rank's shards only
+    gc.collect()
+    torch.cuda.empty_cache()
+    for uid, (prompt, n_new) in enumerate(mesh_requests(torch, run, cfg.vocab_size)):
+        eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
+    first = {}
+    orig = ops.latent_decode
+
+    def checked(q, cache, r_k, cur, **kw):
+        out = orig(q, cache, r_k, cur, **kw)
+        m = kw.get("mesh")
+        if m is not None and not first:
+            full = {k: m.all_gather(v, "model", dim=1) for k, v in cache.items()}
+            want = orig(q, full, r_k, cur, **{**kw, "mesh": None})
+            torch.cuda.synchronize()
+            first["max_abs_err"] = compare(f"engine run {run}: the first decode step's merged "
+                                           f"attention (layer 0)", out, want, out.dtype)
+        return out
+    if check_first:
+        ops.latent_decode = checked
+    kernels.reset_launch_counts()
+    if mesh is not None:   # this run's collectives only
+        mesh.stats = dict.fromkeys(mesh.stats, 0)
+        eng.params.gathered_bytes = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        done = eng.run()
+    finally:
+        ops.latent_decode = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    m = eng.metrics()
+    launches = launch_counts(kernels)
+    launches.update({f"{k.__name__}+lse": k.lse_launches for k in kernels.LSE_KERNELS})
+    streams = {str(r.uid): [int(t) for t in r.out_tokens] for r in done}
+    if len(done) != len(spec_reqs := mesh_requests(torch, run, cfg.vocab_size)):
+        raise AssertionError(f"engine run {run}: {len(done)} of {len(spec_reqs)} finished")
+    # steps that read every weight: the prefills and the window iterations
+    steps = m["prefill_calls"] + m["windows"] * spec["sync"]
+    stats = m["mesh_stats"]
+    per_step = {"steps": steps,
+                "merge_ms_per_step": 1e3 * stats["all_reduce_s"] / steps,
+                "gather_ms_per_step": 1e3 * stats["all_gather_s"] / steps,
+                "gathered_weight_bytes_per_step": stats["gathered_weight_bytes"] / steps,
+                "collectives_per_window": (stats["all_reduce"] + stats["all_gather"])
+                / max(m["windows"], 1)}
+    rec = {"streams": streams, "tokens": m["tokens"], "wall_s": wall, "per_step": per_step,
+           "tokens_per_s": m["tokens"] / wall, "windows": m["windows"],
+           "host_syncs": m["host_syncs"], "admission_syncs": m["admission_syncs"],
+           "launches": launches, "mesh": m["mesh"], "mesh_stats": m["mesh_stats"],
+           "pages_shared": m["pages_shared"], "peak_gib": torch.cuda.max_memory_allocated()
+           / 2 ** 30, "first_step": first, "layers": cfg.num_layers}
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _mesh_rank(rank, folder, runs, layers):
+    """One of the two ranks of phase (c): every run of ``runs`` on a (1, 2)
+    gloo mesh over a FileStore in ``folder``; rank 0 writes the records."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.launch.mesh import make_mesh
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh(1, 2, backend="gloo", store=dist.FileStore(str(Path(folder) / "store"), 2),
+                     rank=rank, world_size=2)
+    out = {run: serve_mesh_run(torch, run, layers, mesh, check_first=run in ("MA32", "MA"))
+           for run in runs}
+    dist.destroy_process_group()
+    if rank == 0:
+        (Path(folder) / "mesh.json").write_text(json.dumps(out))
+
+
+def top2_margin(torch, run, layers, uid, tokens) -> float:
+    """The single-device model's top-2 logit margin after ``tokens`` (a
+    prompt and the stream up to where two streams part)."""
+    from repro_torch.models import transformer as T
+    cfg, params = mesh_model(torch, run, layers)
+    toks = torch.tensor(tokens, device="cuda")[None]
+    logits, _ = T.prefill(cfg, params, toks, torch.tensor([len(tokens)], device="cuda"),
+                          4096)
+    top = logits[0].float().topk(2).values
+    del params
+    torch.cuda.empty_cache()
+    return (top[0] - top[1]).item()
+
+
+def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
+    """Part (c): each run on the single-device engine in this process, then
+    on two spawned ranks sharing the card; MA32's streams must equal, MA's
+    first step must be within the bf16 limit (its streams' agreement and,
+    where they part, the position and the top-2 margin are reported), MD /
+    MB / MH must serve every request with their kernels' return_lse
+    variants.  The tok/s are two ranks time-slicing one card over a host
+    transport, not a mesh's speed."""
+    import tempfile
+    import torch.multiprocessing as mp
+    t0 = time.perf_counter()
+    single = {run: serve_mesh_run(torch, run, layers) for run in runs}
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)   # gitignored: absent from a fresh checkout
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as folder:
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_rank, args=(r, folder, runs, layers))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(900)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"mesh ranks failed: exit codes {[p.exitcode for p in procs]}")
+        mesh = json.loads((Path(folder) / "mesh.json").read_text())
+    rec = {"layers": layers, "single_s": t1 - t0, "mesh_s": time.perf_counter() - t1,
+           "by_run": {run: mesh[run]["launches"] for run in runs}}
+    for run in runs:
+        one, two = single[run], mesh[run]
+        agree = sum(a == b for uid in one["streams"]
+                    for a, b in zip(one["streams"][uid], two["streams"][uid]))
+        total = sum(len(v) for v in one["streams"].values())
+        parted = []
+        for uid in sorted(one["streams"], key=int):
+            a, b = one["streams"][uid], two["streams"][uid]
+            if a != b:
+                k = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+                parted.append((int(uid), k))
+        r = {"equal": one["streams"] == two["streams"], "tokens_agree": agree,
+             "tokens": total, "parted": parted,
+             "single_tokens_per_s": one["tokens_per_s"],
+             "mesh_tokens_per_s_two_ranks_one_card_gloo": two["tokens_per_s"],
+             "mesh_wall_s": two["wall_s"], "single_wall_s": one["wall_s"],
+             "windows": two["windows"], "host_syncs": two["host_syncs"],
+             "admission_syncs": two["admission_syncs"], "mesh_stats": two["mesh_stats"],
+             "per_step": two["per_step"],
+             "launches": two["launches"], "first_step": two["first_step"],
+             "peak_gib_rank0": two["peak_gib"], "pages_shared": two["pages_shared"]}
+        if r["host_syncs"] != r["windows"] + r["admission_syncs"]:
+            raise AssertionError(f"engine run {run} on the mesh: host syncs {r}")
+        if two["launches"][MESH_MUST[run]] <= 0:
+            raise AssertionError(f"engine run {run} on the mesh never launched "
+                                 f"{MESH_MUST[run]}: {two['launches']}")
+        if run == "MA32" and not r["equal"]:
+            raise AssertionError(f"engine run MA32: mesh streams differ from the "
+                                 f"single-device engine's at {parted}")
+        if run in ("MA32", "MA") and "max_abs_err" not in two["first_step"]:
+            raise AssertionError(f"engine run {run}: the first decode step was not checked")
+        if run == "MA" and parted:
+            uid, k = parted[0]
+            prompt = mesh_requests(torch, run, 151936)[uid][0]
+            r["top2_margin_at_first_part"] = top2_margin(
+                torch, run, layers, uid, list(prompt) + one["streams"][str(uid)][:k])
+        if run == "MD" and r["pages_shared"] < 1:
+            raise AssertionError(f"engine run MD on the mesh shared no page: {r}")
+        log(f"engine run {run} on the mesh (1, 2), two ranks sharing the card over gloo, "
+            f"{two['layers']} layers: streams equal {r['equal']} ({agree}/{total} tokens agree"
+            f"{', parted at ' + str(parted) if parted else ''}); single device "
+            f"{one['tokens_per_s']:.2f} tok/s, two ranks on one card over a host "
+            f"transport {two['tokens_per_s']:.2f} tok/s (not a mesh's speed); windows "
+            f"{r['windows']}, host syncs {r['host_syncs']}; collectives {two['mesh_stats']}, "
+            f"per step {two['per_step']}; "
+            f"first step {two['first_step']}; lse launches "
+            f"{ {k: v for k, v in two['launches'].items() if k.endswith('+lse') and v} }")
+        rec[run] = r
+    log(f"the mesh runs took {rec['single_s']:.1f} s single-device and {rec['mesh_s']:.1f} s "
+        f"on the two ranks")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -2684,6 +3182,13 @@ def main() -> int:
                 phase_dense(torch, gen, False, 1, rg)]
     torch.cuda.empty_cache()
     log(f"the families' kernel widths took {time.perf_counter() - t_fam:.1f} s")
+    # the mesh: (a) and (b) for every decode kernel, then (c) on two ranks
+    # sharing the card, while this process holds no model
+    t_mesh = time.perf_counter()
+    entries += phase_lse(torch, gen)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh_runs(torch)
+    log(f"the mesh phase took {time.perf_counter() - t_mesh:.1f} s")
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)
     cfg = dataclasses.replace(cfg, attn_backend="kernel", dtype=torch.bfloat16)
@@ -2698,6 +3203,7 @@ def main() -> int:
     backends = phase_backends(torch, cfg, params)
     backends["paged"] = phase_paged_steps(torch, cfg, params)
     serving, by_run, streams = {}, {}, {}
+    by_run.update(mesh.pop("by_run"))
     for run in "ABCDE":
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
     if streams["E"] != streams["C"]:
@@ -2764,7 +3270,7 @@ def main() -> int:
     recurrent = phase_recurrent(torch, by_run, streams, serving, backends)
     train, rows = phase_train(torch, by_run, streams, serving)
     entries += rows
-    family = {run for runs in FAMILY_RUNS.values() for run in runs}
+    family = {run for runs in FAMILY_RUNS.values() for run in runs} | set(MESH_RUNS)
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
         key = e.get("launch_key", e["name"])
@@ -2777,7 +3283,7 @@ def main() -> int:
                     "decode_bodies": decode_bodies, "f32_widths": f32_widths,
                     "compression": compression, "family_compression": family_compression,
                     "deepseek": deepseek, "cross": cross, "recurrent": recurrent,
-                    "train": train,
+                    "train": train, "mesh": mesh,
                     "cli": cli}))
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": entries}), flush=True)

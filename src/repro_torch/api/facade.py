@@ -91,7 +91,7 @@ def compress(cfg: ModelConfig, params: Any,
 
 
 def serve(artifact: CompressionArtifact | str, *, max_slots: int,
-          max_len: int, device=None, **engine_kw):
+          max_len: int, device=None, mesh=None, **engine_kw):
     """Boot a serving :class:`repro_torch.serving.Engine` from a
     compression artifact — the in-memory result of :func:`compress` or a
     path ``save_artifact`` wrote (by either package).  ``engine_kw`` pass
@@ -101,7 +101,9 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
     ``lazy_pages``, ``pin_prefixes``, ``source`` (a cross-attention
     model's frontend embeddings), ``overlap`` / ``pipeline_depth`` /
     ``admission_thread``, ``continuous`` / ``staging_depth``, ``aot``,
-    ``adaptive_spec``, ``profile``).
+    ``adaptive_spec``, ``profile``).  ``mesh`` (``launch.mesh.Mesh``, every
+    rank calling ``serve`` with the same arguments) serves on a ("data",
+    "model") mesh, as ``Engine(mesh=...)`` does.
     Widths no CUDA kernel serves are refused before the engine is built
     (``check_supported``), and so is a latent config of a model without
     attention layers (the JAX package's ``compress`` writes a rank-0 one
@@ -115,4 +117,4 @@ def serve(artifact: CompressionArtifact | str, *, max_slots: int,
         cfg = dataclasses.replace(cfg, attn_backend=engine_kw["backend"])
     check_supported(cfg, resolve_device(device))
     return Engine(artifact.cfg, artifact.params, max_slots=max_slots,
-                  max_len=max_len, device=device, **engine_kw)
+                  max_len=max_len, device=device, mesh=mesh, **engine_kw)

@@ -138,6 +138,8 @@ struct Args {
   void* out;            // (B, Hkv, qpk, dh), q's type
   int B, S, Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages;
   float scale;
+  float* m_out;         // (B, Hkv, qpk) merged softmax max, or null
+  float* l_out;         // (B, Hkv, qpk) merged softmax sum, or null
 };
 
 // 8 consecutive values as f32 (bf16 widens exactly).
@@ -495,7 +497,8 @@ cudaError_t launch_nq(const Args& a, cudaStream_t stream) {
       <<<dim3(a.n_chunks, a.Hkv, a.B), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dense::Partials p{a.part_acc, a.part_m, a.part_l, a.out, a.B, a.Hkv, a.qpk, a.n_chunks};
+  const dense::Partials p{a.part_acc, a.part_m, a.part_l, a.out, a.B, a.Hkv, a.qpk, a.n_chunks,
+                          a.m_out, a.l_out};
   return dense::launch_merge<T>(p, DH, stream);
 }
 
@@ -522,20 +525,23 @@ extern "C" {
 // Both entry points take this argument list and return a cudaError_t (0 =
 // success).  All tensors contiguous and 16-byte aligned, on the device of
 // ``stream``; q, k, v, the self entries and out bf16 (is_bf16 = 1) or f32
-// (0); bias f32.  Null k_self / v_self mean no self column.  Limits: dh 64,
+// (0); bias f32.  Null k_self / v_self mean no self column.  m_out / l_out
+// (B, Hkv, qpk) f32, both or neither, take the rows' merged softmax state
+// (dense_merge.cuh); null leaves the launch as it was.  Limits: dh 64,
 // 80, 128 or 256, 1 <= qpk <= 8, chunk_len a multiple of 32 up to 512 and n_chunks =
 // ceil((S + n_self) / chunk_len) >= 1; the pool takes a page table (B, S /
 // page_size) int32 with page_size dividing S, the ring none.
 #define RECALKV_DENSE_ENTRY(NAME, PAGED)                                                 \
   int NAME(int is_bf16, int dh, const void* q, const void* k, const void* v,             \
            const float* bias, const void* k_self, const void* v_self, const int* ptab,   \
-           float* part_acc, float* part_m, float* part_l, void* out, int B, int S,       \
-           int Hkv, int qpk, int n_chunks, int chunk_len, int page_size, int n_pages,    \
-           float scale, void* stream) {                                                  \
+           float* part_acc, float* part_m, float* part_l, void* out, float* m_out,       \
+           float* l_out, int B, int S, int Hkv, int qpk, int n_chunks, int chunk_len,    \
+           int page_size, int n_pages, float scale, void* stream) {                      \
     const int n_self = k_self != nullptr ? 1 : 0;                                        \
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, out, B, S,     \
-           Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages, scale};             \
-    if ((is_bf16 != 0 && is_bf16 != 1) ||                                               \
+           Hkv, qpk, n_self, n_chunks, chunk_len, page_size, n_pages, scale, m_out,      \
+           l_out};                                                                       \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (m_out == nullptr) != (l_out == nullptr) ||   \
         (dh != 64 && dh != 80 && dh != 128 && dh != 256) || qpk < 1 ||                   \
         qpk > 8 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||               \
         (k_self == nullptr) != (v_self == nullptr) || chunk_len < TC ||                  \

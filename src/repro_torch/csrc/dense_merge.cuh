@@ -13,7 +13,10 @@
 // dependent of the main grid, so its launch overlaps the main grid's tail;
 // griddepcontrol.wait holds it until the main grid's writes are visible.
 // Grid (ceil(R * dh / MERGE_THREADS), Hkv, B), dynamic shared memory
-// n_chunks * R * 8 bytes.
+// n_chunks * R * 8 bytes.  With m_out / l_out it also writes each row's
+// merged softmax state (M, L): o = acc / L at running max M, the state a
+// caller merging partial softmaxes across devices needs (M = NEG_INF and
+// L = 0 for a row no chunk saw).
 
 #pragma once
 
@@ -31,6 +34,8 @@ struct Partials {
   const float* l;     // (B, Hkv, n_chunks, R)
   void* out;          // (B, Hkv, R, dh), bf16 or f32
   int B, Hkv, R, n_chunks;
+  float* m_out = nullptr;   // (B, Hkv, R) merged max, or null
+  float* l_out = nullptr;   // (B, Hkv, R) merged sum at that max, or null
 };
 
 __device__ __forceinline__ void store_out(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
@@ -80,6 +85,11 @@ __global__ void __launch_bounds__(MERGE_THREADS) merge(Partials a, int dh) {
   }
   store_out(static_cast<T*>(a.out) + (size_t(b) * a.Hkv + h) * stride + e,
             O / fmaxf(L, 1e-30f));
+  if (a.m_out != nullptr && e % dh == 0) {
+    const size_t row = (size_t(b) * a.Hkv + h) * R + j;
+    a.m_out[row] = M;
+    a.l_out[row] = L;
+  }
 }
 
 // Launch the merge on ``stream`` as a programmatic dependent of the grid

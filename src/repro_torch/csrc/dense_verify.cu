@@ -180,6 +180,8 @@ struct Args {
   int B, S, Hkv, nq, qpk, n_self, n_chunks, chunk_len, page_size, n_pages;
   int one_bias;         // decode: one bias row (B, S) for every row, self columns at 0
   float scale;
+  float* m_out;         // (B, Hkv, M) merged softmax max, or null
+  float* l_out;         // (B, Hkv, M) merged softmax sum, or null
 };
 
 // Query rows of a block: one m16 tile up to 16 rows, else a row group.
@@ -1034,7 +1036,8 @@ cudaError_t launch(const Args& a, void* out, cudaStream_t stream) {
   kernel<<<dim3(a.n_chunks * n_blk, a.Hkv, a.B), THREADS, smem, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  const dense::Partials p{a.part_acc, a.part_m, a.part_l, out, a.B, a.Hkv, M, a.n_chunks};
+  const dense::Partials p{a.part_acc, a.part_m, a.part_l, out, a.B, a.Hkv, M, a.n_chunks,
+                          a.m_out, a.l_out};
   return dense::launch_merge<T>(p, DH, stream);
 }
 
@@ -1103,16 +1106,18 @@ int recalkv_dense_decode_mq_blocks_per_sm(int is_bf16, int dh, int nq, int qpk,
 // chunk_len a multiple of 32 up to 1024 and n_chunks = ceil((S + nq) /
 // chunk_len); ring and pool row indices below 2^31; the pool takes a page
 // table (B, S / page_size) int32 with page_size dividing S, the ring none.
+// m_out / l_out (B, Hkv, nq * qpk) f32, both or neither, take the rows'
+// merged softmax state (dense_merge.cuh); null leaves the launch as it was.
 #define RECALKV_DENSE_MQ_ENTRY(NAME, PAGED)                                                \
   int NAME(int is_bf16, int dh, const void* q, const void* k, const void* v,               \
            const float* bias, const void* k_self, const void* v_self, const int* ptab,     \
-           float* part_acc, float* part_m, float* part_l, void* out, int B, int S,         \
-           int Hkv, int nq, int qpk, int n_chunks, int chunk_len, int page_size,           \
-           int n_pages, float scale, void* stream) {                                       \
+           float* part_acc, float* part_m, float* part_l, void* out, float* m_out,         \
+           float* l_out, int B, int S, int Hkv, int nq, int qpk, int n_chunks,             \
+           int chunk_len, int page_size, int n_pages, float scale, void* stream) {         \
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, B, S, Hkv, nq,   \
-           qpk, nq, n_chunks, chunk_len, page_size, n_pages, 0, scale};                    \
+           qpk, nq, n_chunks, chunk_len, page_size, n_pages, 0, scale, m_out, l_out};      \
     const long long rows = (PAGED) ? (long long)n_pages * page_size : (long long)B * S;   \
-    if ((is_bf16 != 0 && is_bf16 != 1) ||                                                 \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (m_out == nullptr) != (l_out == nullptr) ||     \
         (dh != 64 && dh != 80 && dh != 128 && dh != 256) || nq < 1 ||                      \
         (long long)nq * qpk > (1 << 20) || (long long)S + nq >= (1LL << 31) ||             \
         qpk < 1 || qpk > 16 || B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 ||    \
@@ -1139,14 +1144,14 @@ RECALKV_DENSE_MQ_ENTRY(recalkv_dense_decode_mq_paged, true)    // K7's dense cor
 #define RECALKV_DENSE_TC_ENTRY(NAME, PAGED)                                                \
   int NAME(int is_bf16, int dh, const void* q, const void* k, const void* v,               \
            const float* bias, const void* k_self, const void* v_self, const int* ptab,     \
-           float* part_acc, float* part_m, float* part_l, void* out, int B, int S,         \
-           int Hkv, int qpk, int n_chunks, int chunk_len, int page_size, int n_pages,      \
-           float scale, void* stream) {                                                    \
+           float* part_acc, float* part_m, float* part_l, void* out, float* m_out,         \
+           float* l_out, int B, int S, int Hkv, int qpk, int n_chunks, int chunk_len,      \
+           int page_size, int n_pages, float scale, void* stream) {                        \
     const int n_self = k_self != nullptr ? 1 : 0;                                          \
     Args a{q, k, v, bias, k_self, v_self, ptab, part_acc, part_m, part_l, B, S, Hkv, 1,    \
-           qpk, n_self, n_chunks, chunk_len, page_size, n_pages, 1, scale};                \
+           qpk, n_self, n_chunks, chunk_len, page_size, n_pages, 1, scale, m_out, l_out};  \
     const long long rows = (PAGED) ? (long long)n_pages * page_size : (long long)B * S;   \
-    if ((is_bf16 != 0 && is_bf16 != 1) ||                                                 \
+    if ((is_bf16 != 0 && is_bf16 != 1) || (m_out == nullptr) != (l_out == nullptr) ||     \
         (dh != 64 && dh != 80 && dh != 128 && dh != 256) || qpk < 1 || qpk > 16 ||         \
         B < 1 || B > 65535 || Hkv < 1 || Hkv > 65535 || S < 0 || S + n_self < 1 ||          \
         (long long)S + 1 >= (1LL << 31) || (k_self == nullptr) != (v_self == nullptr) ||   \

@@ -157,6 +157,8 @@ struct Args {
   int page_size, n_pages;     // pool latents (n_pages, page_size, G, r)
   float scale, eps;
   int sps, qpb;               // head slots and queries per block (the plan)
+  float* m_out;               // (B, G, R) merged softmax max, or null
+  float* l_out;               // (B, G, R) merged softmax sum, or null
 };
 
 // Row blocks per (b, g): head-slot blocks times query blocks.
@@ -452,7 +454,9 @@ latent_decode_partial(Args a) {
 
 // Log-sum-exp merge of the chunk partials: out = sum_k acc_k e^{m_k - M} /
 // max(sum_k l_k e^{m_k - M}, 1e-30).  A fully masked row (no chunk saw a
-// column: acc = 0, l = 0) finishes as exact 0.
+// column: acc = 0, l = 0) finishes as exact 0.  With m_out / l_out each
+// row's merged (M, L) is written too (NEG_INF and 0 for a row no chunk
+// saw).
 // Grid (ceil(R * rv / THREADS), G, B): one output element per thread.
 __global__ void __launch_bounds__(THREADS)
 latent_decode_merge(Args a) {
@@ -471,6 +475,10 @@ latent_decode_merge(Args a) {
       O += a.part_acc[(base + k) * R * rv + e] * w;
     }
     a.out[((size_t(b) * a.G + g) * R) * rv + e] = O / fmaxf(L, 1e-30f);
+    if (a.m_out != nullptr && e % rv == 0) {
+      a.m_out[(size_t(b) * a.G + g) * R + h] = M;
+      a.l_out[(size_t(b) * a.G + g) * R + h] = L;
+    }
   }
 }
 
@@ -559,11 +567,13 @@ long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int 
            const float* cos, const float* sin, const float* bias, const float* k_norm,  \
            const void* zk_self, const void* zv_self, const float* zk_self_scale,        \
            const float* zv_self_scale, const float* cos_self, const float* sin_self,    \
-           float* part_acc, float* part_m, float* part_l, void* out, int B, int S,      \
-           int G, int Hg, int rk, int rv, int s, int nq, int n_self, int bias_cols,     \
-           int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,    \
-           float scale, float eps, void* stream, int sb, int sps, int qpb) {            \
+           float* part_acc, float* part_m, float* part_l, void* out, float* m_out,      \
+           float* l_out, int B, int S, int G, int Hg, int rk, int rv, int s, int nq,    \
+           int n_self, int bias_cols, int n_chunks, int chunk_len, const int* ptab,     \
+           int page_size, int n_pages, float scale, float eps, void* stream, int sb,    \
+           int sps, int qpb) {                                                          \
     if ((zk_scale != nullptr) != (QUANT) || (!(MULTI) && nq != 1) || is_bf16 != 0 ||   \
+        (m_out == nullptr) != (l_out == nullptr) ||                                     \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                  \
         (ptab != nullptr) != (PAGED) ||                                                 \
         ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)) ||            \
@@ -574,7 +584,8 @@ long long recalkv_latent_decode_smem(int is_int8, int dh, int rows, int nq, int 
            static_cast<const float*>(r_k), cos, sin, bias, k_norm, zk_self, zv_self,     \
            zk_self_scale, zv_self_scale, cos_self, sin_self, part_acc, part_m, part_l,   \
            static_cast<float*>(out), B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols,      \
-           n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps, sps, qpb};         \
+           n_chunks, chunk_len, ptab, page_size, n_pages, scale, eps, sps, qpb, m_out,   \
+           l_out};                                                                      \
     return dispatch(dh, sb, QUANT, a, static_cast<cudaStream_t>(stream));               \
   }
 

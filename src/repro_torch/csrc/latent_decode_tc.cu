@@ -221,6 +221,8 @@ struct Args {
   int nsb;                     // head-slot blocks: s / sps (grid z covers nq and s)
   int hb;                      // query rows of a query set in a block: sps * qpk
   int rc;                      // rank rows of R_k per pipeline stage
+  float* m_out;                // (B, G, R) merged softmax max, or null
+  float* l_out;                // (B, G, R) merged softmax sum, or null
 };
 
 // r_k is padded to a multiple of 16 (zero latents, zero R_k rows) for the
@@ -757,7 +759,10 @@ latent_decode_tc(Args a) {
 // Log-sum-exp merge of the chunk partials: out = sum_k acc_k e^{m_k - M} /
 // max(sum_k l_k e^{m_k - M}, 1e-30) over the chunks that saw a column (a
 // chunk with m_k = NEG_INF wrote no acc).  A row no chunk saw finishes as
-// exact 0.  Grid (ceil(R * rv / THREADS), G, B).
+// exact 0.  With m_out / l_out each row's merged (M, Lsum) is written too:
+// o = acc / Lsum at running max M, the state a cross-device merge of
+// partial softmaxes needs (NEG_INF and 0 for a row no chunk saw).
+// Grid (ceil(R * rv / THREADS), G, B).
 __global__ void __launch_bounds__(THREADS)
 latent_decode_tc_merge(Args a) {
   const int g = blockIdx.y, b = blockIdx.z;
@@ -777,6 +782,10 @@ latent_decode_tc_merge(Args a) {
     O += a.part_acc[(base + k) * R * rv + e] * w;
   }
   a.out[((size_t(b) * a.G + g) * R) * rv + e] = __float2bfloat16(O / fmaxf(Lsum, 1e-30f));
+  if (a.m_out != nullptr && e % rv == 0) {
+    a.m_out[(size_t(b) * a.G + g) * R + h] = M;
+    a.l_out[(size_t(b) * a.G + g) * R + h] = Lsum;
+  }
 }
 
 // A body's block plan: the widest chunk (CH), then the deepest R_k stage
@@ -929,23 +938,25 @@ int recalkv_tc_chunk(int mq, int quant, int dh, int rk, int rv) {
 // K7 with any nq; r_k and r_v multiples of 8 whose block fits, every rank
 // up to s * dh at group_size <= 8;
 // chunk_len = recalkv_tc_chunk and n_chunks = ceil((S + n_self) /
-// chunk_len)).
+// chunk_len)).  m_out / l_out (B, G, nq * Hg) f32, both or neither, take
+// the rows' merged softmax state; null leaves the launch as it was.
 #define RECALKV_TC_ENTRY(NAME, PAGED, QUANT, MQ)                                         \
   int NAME(int is_bf16, int dh, const void* q, const void* zk, const void* zv,           \
            const float* zk_scale, const float* zv_scale, const void* r_k,                \
            const float* cos, const float* sin, const float* bias, const float* k_norm,   \
            const void* zk_self, const void* zv_self, const float* zk_self_scale,         \
            const float* zv_self_scale, const float* cos_self, const float* sin_self,     \
-           float* part_acc, float* part_m, float* part_l, void* out, int B, int S,       \
-           int G, int Hg, int rk, int rv, int s, int nq, int n_self, int bias_cols,      \
-           int n_chunks, int chunk_len, const int* ptab, int page_size, int n_pages,     \
-           float scale, float eps, void* stream) {                                       \
+           float* part_acc, float* part_m, float* part_l, void* out, float* m_out,       \
+           float* l_out, int B, int S, int G, int Hg, int rk, int rv, int s, int nq,     \
+           int n_self, int bias_cols, int n_chunks, int chunk_len, const int* ptab,      \
+           int page_size, int n_pages, float scale, float eps, void* stream) {           \
     Args a{static_cast<const bf16*>(q), zk, zv, zk_scale, zv_scale,                       \
            static_cast<const bf16*>(r_k), cos, sin, bias, k_norm, zk_self, zv_self,       \
            zk_self_scale, zv_self_scale, cos_self, sin_self, ptab, part_acc, part_m,      \
            part_l, static_cast<bf16*>(out), B, S, G, Hg, rk, rv, s, nq, n_self,           \
-           bias_cols, n_chunks, page_size, n_pages, scale, eps, 1, 1, 1, 1, 0};           \
+           bias_cols, n_chunks, page_size, n_pages, scale, eps, 1, 1, 1, 1, 0, m_out, l_out}; \
     if (is_bf16 != 1 || (ptab != nullptr) != (PAGED) || (zk_scale != nullptr) != (QUANT) || \
+        (m_out == nullptr) != (l_out == nullptr) ||                                       \
         ((QUANT) && zk_self != nullptr && zk_self_scale == nullptr) ||                    \
         ((PAGED) && (page_size < 1 || S % page_size != 0 || n_pages < 1)))                \
       return static_cast<int>(cudaErrorInvalidValue);                                     \

@@ -24,7 +24,8 @@ rows a kv head (one CUDA-core body for bf16 and float32; 1-7 served) and
 ``wgmma`` in 64-row groups past them, float32 on CUDA cores); the
 install's row copy
 ``csrc/stage_install.cu``.  Each module holds the CUDA
-wrappers, their plain PyTorch versions and a launch counter per wrapper;
+wrappers, their plain PyTorch versions and a launch counter per wrapper
+(the decode wrappers' launches with ``return_lse`` counted apart too);
 ``ops`` adapts model tensors to them and ``build`` compiles the sources in
 ``csrc/`` at first use.
 """
@@ -46,14 +47,23 @@ KERNELS = (latent_decode_attention, flash_prefill_attention,
            latent_decode_attention_mq_paged, dense_decode_attention,
            dense_decode_attention_paged, dense_decode_attention_mq,
            dense_decode_attention_mq_paged, stage_install_rows)
+# the decode wrappers that can return their softmax state (``return_lse``,
+# the mesh path's): each also counts those launches in ``.lse_launches``
+LSE_KERNELS = (latent_decode_attention, latent_decode_attention_quant,
+               latent_decode_attention_paged, latent_decode_attention_mq,
+               latent_decode_attention_mq_quant, latent_decode_attention_mq_paged,
+               dense_decode_attention, dense_decode_attention_paged,
+               dense_decode_attention_mq, dense_decode_attention_mq_paged)
 
 
 def reset_launch_counts() -> None:
     for k in KERNELS:
         k.launches = 0
+    for k in LSE_KERNELS:
+        k.lse_launches = 0
 
 
-__all__ = ["KERNELS", "dense_decode_attention", "dense_decode_attention_mq",
+__all__ = ["KERNELS", "LSE_KERNELS", "dense_decode_attention", "dense_decode_attention_mq",
            "dense_decode_attention_mq_paged", "dense_decode_attention_paged",
            "flash_prefill_attention", "latent_decode_attention",
            "latent_decode_attention_mq", "latent_decode_attention_mq_paged",

@@ -59,26 +59,30 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.latent_decode import NEG_INF, _on_device, gather_pages
+from repro_torch.kernels.latent_decode import (NEG_INF, _on_device, gather_pages,
+                                               softmax_state)
 
 _TILE = 32           # ring columns of the kernels' tile (their chunks are multiples)
 _CHUNK_MAX = 512     # ring columns of a dense_decode.cu block, at most
 
 
 def dense_decode_attention_plain(q, k, v, bias, *, scale, self_k=None,
-                                 self_v=None):
+                                 self_v=None, return_lse=False):
     """Plain PyTorch version, a masked softmax in float32.  Like the
     kernel, a row whose bias is masked everywhere (and no self column)
-    returns exact 0."""
+    returns exact 0.  ``return_lse`` also returns the rows' softmax state
+    (m, l), (B, Hkv, qpk) float32, as ``kernels.latent_decode`` defines
+    it."""
     if self_k is not None:
         k = torch.cat([k, self_k[:, None].to(k.dtype)], dim=1)
         v = torch.cat([v, self_v[:, None].to(v.dtype)], dim=1)
         bias = torch.cat([bias, bias.new_zeros(bias.shape[0], 1)], dim=1)
     logits = torch.einsum("bhjd,bthd->bhjt", q.float(), k.float()) * scale
-    w = torch.softmax(logits + bias.float()[:, None, None, :], dim=-1)
+    logits = logits + bias.float()[:, None, None, :]
     dead = bias.max(dim=-1).values <= NEG_INF * 0.5
-    w = torch.where(dead[:, None, None, None], torch.zeros_like(w), w)
-    return torch.einsum("bhjt,bthd->bhjd", w, v.float()).to(q.dtype)
+    w, m, l = softmax_state(logits, dead[:, None, None].expand(logits.shape[:-1]))
+    o = torch.einsum("bhjt,bthd->bhjd", w, v.float()).to(q.dtype)
+    return (o, m, l) if return_lse else o
 
 
 def dense_decode_attention_paged_plain(ptab, q, k_pool, v_pool, bias, **kw):
@@ -88,21 +92,24 @@ def dense_decode_attention_paged_plain(ptab, q, k_pool, v_pool, bias, **kw):
                                         gather_pages(v_pool, ptab), bias, **kw)
 
 
-def dense_decode_attention_mq_plain(q, k, v, bias, *, scale, self_k, self_v):
+def dense_decode_attention_mq_plain(q, k, v, bias, *, scale, self_k, self_v,
+                                    return_lse=False):
     """Plain version of the dense verify, a masked softmax in float32:
     nq = bias.shape[1] queries, rows (query, head), each query under its
     own bias row over [ring | nq self columns].  A row whose bias is
-    masked everywhere returns exact 0."""
+    masked everywhere returns exact 0.  ``return_lse`` as for the
+    decode, (B, Hkv, nq * qpk)."""
     nq = bias.shape[1]
     qpk = q.shape[2] // nq
     k = torch.cat([k, self_k.to(k.dtype)], dim=1)
     v = torch.cat([v, self_v.to(v.dtype)], dim=1)
     rb = bias.float().repeat_interleave(qpk, dim=1)             # (B, nq * qpk, S_ext)
     logits = torch.einsum("bhrd,bthd->bhrt", q.float(), k.float()) * scale
-    w = torch.softmax(logits + rb[:, None], dim=-1)
+    logits = logits + rb[:, None]
     dead = rb.max(dim=-1).values <= NEG_INF * 0.5               # (B, nq * qpk)
-    w = torch.where(dead[:, None, :, None], torch.zeros_like(w), w)
-    return torch.einsum("bhrt,bthd->bhrd", w, v.float()).to(q.dtype)
+    w, m, l = softmax_state(logits, dead[:, None].expand(logits.shape[:-1]))
+    o = torch.einsum("bhrt,bthd->bhrd", w, v.float()).to(q.dtype)
+    return (o, m, l) if return_lse else o
 
 
 def dense_decode_attention_mq_paged_plain(ptab, q, k_pool, v_pool, bias, **kw):
@@ -115,11 +122,11 @@ def dense_decode_attention_mq_paged_plain(ptab, q, k_pool, v_pool, bias, **kw):
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
 # (is_bf16, dh), q, k, v, bias, k_self, v_self, ptab, part_acc, part_m,
-# part_l, out, (B, S, Hkv, qpk, n_chunks, chunk_len, page_size, n_pages),
-# scale, stream — both entry points of csrc/dense_decode.cu; those of
-# csrc/dense_verify.cu take nq before qpk.
-_ARGTYPES = {"dense_decode": [_INT, _INT] + [_PTR] * 11 + [_INT] * 8 + [ctypes.c_float, _PTR],
-             "dense_verify": [_INT, _INT] + [_PTR] * 11 + [_INT] * 9 + [ctypes.c_float, _PTR]}
+# part_l, out, m_out, l_out, (B, S, Hkv, qpk, n_chunks, chunk_len,
+# page_size, n_pages), scale, stream — both entry points of
+# csrc/dense_decode.cu; those of csrc/dense_verify.cu take nq before qpk.
+_ARGTYPES = {"dense_decode": [_INT, _INT] + [_PTR] * 13 + [_INT] * 8 + [ctypes.c_float, _PTR],
+             "dense_verify": [_INT, _INT] + [_PTR] * 13 + [_INT] * 9 + [ctypes.c_float, _PTR]}
 _ENTRIES = ("recalkv_dense_decode", "recalkv_dense_decode_paged")
 _MQ_ENTRIES = ("recalkv_dense_decode_mq", "recalkv_dense_decode_mq_paged")
 _TC_ENTRIES = ("recalkv_dense_decode_tc", "recalkv_dense_decode_tc_paged")
@@ -257,13 +264,16 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None, body=None):
+def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None, body=None,
+           return_lse=False):
     """Check the operands and launch the ring (``ptab`` None) or the pool
     entry point of the decode (``nq`` None: one query per head; the body
     ``decode_plan`` names, or ``body`` "cuda_core" / "tensor_core" to time
     one against the other) or of ``csrc/dense_verify.cu``'s verify (``nq``
     verify queries).  The caller counts the launch.  Raises on a dtype,
-    device or shape the body does not take; nothing is routed elsewhere."""
+    device or shape the body does not take; nothing is routed elsewhere.
+    ``return_lse`` also returns the rows' merged (m, l), (B, Hkv, rows)
+    float32, from the merge kernel."""
     verify = nq is not None
     what = "dense verify" if verify else "dense decode"
     if q.dim() != 4:
@@ -334,69 +344,87 @@ def launch(q, k, v, bias, scale, self_k, self_v, ptab=None, nq=None, body=None):
     part_m = torch.empty((B, Hkv, n_chunks, rows), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     out = torch.empty((B, Hkv, rows, dh), device=dev, dtype=dt)
+    m_out = l_out = None
+    if return_lse:
+        m_out = torch.empty((B, Hkv, rows), device=dev, dtype=torch.float32)
+        l_out = torch.empty_like(m_out)
     ptr = lambda t: None if t is None else t.data_ptr()
     err = getattr(lib, entry)(
         int(dt == torch.bfloat16), dh, *[ptr(t) for t in arrs + selfs], ptr(ptab),
-        ptr(part_acc), ptr(part_m), ptr(part_l), ptr(out), *sizes, float(scale),
-        torch.cuda.current_stream(dev).cuda_stream)
+        ptr(part_acc), ptr(part_m), ptr(part_l), ptr(out), ptr(m_out), ptr(l_out),
+        *sizes, float(scale), torch.cuda.current_stream(dev).cuda_stream)
     build.check(err, entry)
-    return out
+    return (out, m_out, l_out) if return_lse else out
 
 
-def dense_decode_attention(q, k, v, bias, *, scale, self_k=None, self_v=None):
+def dense_decode_attention(q, k, v, bias, *, scale, self_k=None, self_v=None,
+                           return_lse=False):
     """K1's dense core over the ring.  A CPU tensor runs the plain
     version; a CUDA tensor runs the kernel (built at first use) or raises.
     ``dense_decode_attention.launches`` counts kernel launches."""
     if not _on_device("dense decode", q):
         return dense_decode_attention_plain(q, k, v, bias, scale=scale,
-                                            self_k=self_k, self_v=self_v)
-    out = launch(q, k, v, bias, scale, self_k, self_v)
+                                            self_k=self_k, self_v=self_v,
+                                            return_lse=return_lse)
+    out = launch(q, k, v, bias, scale, self_k, self_v, return_lse=return_lse)
     dense_decode_attention.launches += 1
+    dense_decode_attention.lse_launches += int(return_lse)
     return out
 
 
 def dense_decode_attention_paged(ptab, q, k_pool, v_pool, bias, *, scale,
-                                 self_k=None, self_v=None):
+                                 self_k=None, self_v=None, return_lse=False):
     """K4's dense core: the ring's body over a page-major pool through
     ``ptab``.  Device rule and counter as for the ring."""
     if not _on_device("paged dense decode", q):
         return dense_decode_attention_paged_plain(ptab, q, k_pool, v_pool, bias,
                                                   scale=scale, self_k=self_k,
-                                                  self_v=self_v)
-    out = launch(q, k_pool, v_pool, bias, scale, self_k, self_v, ptab=ptab)
+                                                  self_v=self_v, return_lse=return_lse)
+    out = launch(q, k_pool, v_pool, bias, scale, self_k, self_v, ptab=ptab,
+                 return_lse=return_lse)
     dense_decode_attention_paged.launches += 1
+    dense_decode_attention_paged.lse_launches += int(return_lse)
     return out
 
 
 dense_decode_attention.launches = 0
+dense_decode_attention.lse_launches = 0
 dense_decode_attention_paged.launches = 0
+dense_decode_attention_paged.lse_launches = 0
 
 
-def dense_decode_attention_mq(q, k, v, bias, *, scale, self_k, self_v):
+def dense_decode_attention_mq(q, k, v, bias, *, scale, self_k, self_v,
+                              return_lse=False):
     """K5's dense core over the ring: ``bias.shape[1]`` verify queries per
     kv head in one pass.  Device rule as for the decode wrappers;
     ``dense_decode_attention_mq.launches`` counts kernel launches."""
     if not _on_device("dense verify", q):
         return dense_decode_attention_mq_plain(q, k, v, bias, scale=scale,
-                                               self_k=self_k, self_v=self_v)
-    out = launch(q, k, v, bias, scale, self_k, self_v, nq=bias.shape[1])
+                                               self_k=self_k, self_v=self_v,
+                                               return_lse=return_lse)
+    out = launch(q, k, v, bias, scale, self_k, self_v, nq=bias.shape[1],
+                 return_lse=return_lse)
     dense_decode_attention_mq.launches += 1
+    dense_decode_attention_mq.lse_launches += int(return_lse)
     return out
 
 
 def dense_decode_attention_mq_paged(ptab, q, k_pool, v_pool, bias, *, scale,
-                                    self_k, self_v):
+                                    self_k, self_v, return_lse=False):
     """K7's dense core: the verify kernel over a page-major pool through
     ``ptab``.  Device rule and counter as for the ring."""
     if not _on_device("paged dense verify", q):
         return dense_decode_attention_mq_paged_plain(ptab, q, k_pool, v_pool, bias,
                                                      scale=scale, self_k=self_k,
-                                                     self_v=self_v)
+                                                     self_v=self_v, return_lse=return_lse)
     out = launch(q, k_pool, v_pool, bias, scale, self_k, self_v, ptab=ptab,
-                 nq=bias.shape[1])
+                 nq=bias.shape[1], return_lse=return_lse)
     dense_decode_attention_mq_paged.launches += 1
+    dense_decode_attention_mq_paged.lse_launches += int(return_lse)
     return out
 
 
 dense_decode_attention_mq.launches = 0
+dense_decode_attention_mq.lse_launches = 0
 dense_decode_attention_mq_paged.launches = 0
+dense_decode_attention_mq_paged.lse_launches = 0

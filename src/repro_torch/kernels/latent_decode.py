@@ -59,6 +59,16 @@ K1's ``self_zk`` (B, G, r_k), ``self_zv`` (B, G, r_v), ``self_cos`` /
 latents and (B, nq, dh/2) tables are nq extra columns whose bias is the
 last nq columns of ``bias`` (S_ext = S + nq).  Either way the function is
 that of the appended ring.
+
+``return_lse=True`` (every wrapper and plain version) also returns the
+rows' raw online-softmax state as two (B, G, rows) float32 tensors, as
+the JAX kernels' ``return_lse`` does: ``m``, the running max of the
+scaled, biased logits, and ``l``, the sum of exp(logit - m), so that o =
+acc / l.  A row masked everywhere has m = NEG_INF (-1e30), l = 0 and o =
+0.  The CUDA kernels write them from their merge epilogue; without them
+the launch is the one it always was.  A caller merging partial softmaxes
+across devices (``kernels.ops`` on a mesh) reweights each part by l *
+exp(m - max m).
 """
 
 from __future__ import annotations
@@ -84,11 +94,13 @@ def _rotate(k, cos, sin):
 
 def latent_decode_attention_plain(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                   k_norm=None, norm_eps=1e-6, self_zk=None,
-                                  self_zv=None, self_cos=None, self_sin=None):
+                                  self_zv=None, self_cos=None, self_sin=None,
+                                  return_lse=False):
     """Plain PyTorch version of K1 (port of ``repro.kernels.ref`` plus
     k_norm and the self column), in float32: K5's plain version with one
     query, the self column at bias 0.  Like the kernel, a row whose bias
-    is masked everywhere returns exact 0."""
+    is masked everywhere returns exact 0.  ``return_lse`` as in the
+    module docstring."""
     if self_zk is not None:
         bias = torch.cat([bias, bias.new_zeros(bias.shape[0], 1)], dim=1)
         self_zk, self_zv, self_cos, self_sin = (
@@ -96,16 +108,30 @@ def latent_decode_attention_plain(q, zk, zv, r_k, cos, sin, bias, *, scale,
     return latent_decode_attention_mq_plain(
         q, zk, zv, r_k, cos, sin, bias[:, None], scale=scale, k_norm=k_norm,
         norm_eps=norm_eps, self_zk=self_zk, self_zv=self_zv, self_cos=self_cos,
-        self_sin=self_sin)
+        self_sin=self_sin, return_lse=return_lse)
+
+
+def softmax_state(logits: torch.Tensor, dead: torch.Tensor):
+    """(weights, m, l) of a masked softmax over the last axis in float32:
+    m the max logit, l the sum of exp(logit - m); rows ``dead`` (masked
+    everywhere) get weights 0, m = NEG_INF and l = 0."""
+    m = logits.amax(dim=-1)
+    e = torch.exp(logits - m[..., None])
+    l = e.sum(dim=-1)
+    w = torch.where(dead[..., None], torch.zeros_like(e), e / l[..., None])
+    return (w, torch.where(dead, torch.full_like(m, NEG_INF), m),
+            torch.where(dead, torch.zeros_like(l), l))
 
 
 def latent_decode_attention_mq_plain(q, zk, zv, r_k, cos, sin, bias, *,
                                      scale, k_norm=None, norm_eps=1e-6,
                                      self_zk=None, self_zv=None,
-                                     self_cos=None, self_sin=None):
+                                     self_cos=None, self_sin=None,
+                                     return_lse=False):
     """Plain PyTorch version of K5, in float32: every one of the nq
     queries scores the same reconstructed keys under its own bias row.  A
-    (query, head) row whose bias is masked everywhere returns exact 0."""
+    (query, head) row whose bias is masked everywhere returns exact 0.
+    ``return_lse`` as in the module docstring."""
     if self_zk is not None:
         zk = torch.cat([zk, self_zk.to(zk.dtype)], dim=1)
         zv = torch.cat([zv, self_zv.to(zv.dtype)], dim=1)
@@ -126,11 +152,13 @@ def latent_decode_attention_mq_plain(q, zk, zv, r_k, cos, sin, bias, *,
     qg = q.float().reshape(B, G, nq, s, qpk, dh)
     logits = torch.einsum("bgjsqd,bgtsd->bgjsqt", qg, k) * scale
     logits = logits + bias.float()[:, None, :, None, None, :]
-    w = torch.softmax(logits, dim=-1)
     dead = bias.max(dim=-1).values <= NEG_INF * 0.5           # (B, nq)
-    w = torch.where(dead[:, None, :, None, None, None], torch.zeros_like(w), w)
+    w, m, l = softmax_state(logits, dead[:, None, :, None, None].expand(logits.shape[:-1]))
     o = torch.einsum("bgjsqt,btgr->bgjsqr", w, zv.float())
-    return o.reshape(B, G, QH, zv.shape[-1]).to(q.dtype)
+    o = o.reshape(B, G, QH, zv.shape[-1]).to(q.dtype)
+    if not return_lse:
+        return o
+    return o, m.reshape(B, G, QH), l.reshape(B, G, QH)
 
 
 def gather_pages(pool: torch.Tensor, ptab: torch.Tensor) -> torch.Tensor:
@@ -160,11 +188,11 @@ def latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos, sin,
 
 _PTR = ctypes.c_void_p
 _INT = ctypes.c_int
-# (is_bf16, dh), 20 pointers, 12 ints, ptab, (page_size, n_pages), (scale,
-# eps), stream — the argument list of the six entry points of
-# csrc/latent_decode_tc.cu; the six of csrc/latent_decode.cu add the plan
-# (sb, sps, qpb).
-_ARGTYPES = ([_INT, _INT] + [_PTR] * 20 + [_INT] * 12 + [_PTR, _INT, _INT]
+# (is_bf16, dh), 22 pointers (the last two m_out / l_out), 12 ints, ptab,
+# (page_size, n_pages), (scale, eps), stream — the argument list of the six
+# entry points of csrc/latent_decode_tc.cu; the six of csrc/latent_decode.cu
+# add the plan (sb, sps, qpb).
+_ARGTYPES = ([_INT, _INT] + [_PTR] * 22 + [_INT] * 12 + [_PTR, _INT, _INT]
              + [ctypes.c_float, ctypes.c_float, _PTR])
 _ARGTYPES_F32 = _ARGTYPES + [_INT] * 3
 ENTRY_POINTS = {  # entry point -> its library
@@ -260,7 +288,7 @@ def _f32_plan(lib, quant: bool, dh: int, Hg: int, s: int, nq: int, rk: int,
 
 def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
            norm_eps, self_zk, self_zv, self_cos, self_sin, *, nq: int = 1,
-           scales=(None, None, None, None), ptab=None):
+           scales=(None, None, None, None), ptab=None, return_lse=False):
     """Check the operands and launch one entry point (the caller counts the
     launch): a ``*_tc`` one runs the bf16 tensor-core body of
     ``csrc/latent_decode_tc.cu``, the others the float32 CUDA-core
@@ -269,7 +297,9 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     self_zk_scale, self_zv_scale) float32.  With ``ptab`` (B, n_sp) int32
     the latents are a page-major pool and the ring has S = n_sp *
     page_size columns; the chunking is the ring's.  A shape outside the
-    body's limits raises: nothing is routed to another body."""
+    body's limits raises: nothing is routed to another body.
+    ``return_lse`` also returns the rows' merged (m, l), (B, G, nq * Hg)
+    float32, from the merge kernel."""
     B, G, QH, dh = q.shape
     S, rk, rv = zk.shape[1], zk.shape[3], zv.shape[3]
     page_size = n_pages = 0
@@ -346,14 +376,18 @@ def launch(entry: str, q, zk, zv, r_k, cos, sin, bias, scale, k_norm,
     part_m = torch.empty((B, G, n_chunks, QH), device=dev, dtype=torch.float32)
     part_l = torch.empty_like(part_m)
     out = torch.empty((B, G, QH, rv), device=dev, dtype=dt)
+    m_out = l_out = None
+    if return_lse:
+        m_out = torch.empty((B, G, QH), device=dev, dtype=torch.float32)
+        l_out = torch.empty_like(m_out)
     err = getattr(lib, entry)(
         int(dt == torch.bfloat16), dh, *[_ptr(t) for t in ptrs],
-        _ptr(part_acc), _ptr(part_m), _ptr(part_l), _ptr(out),
-        B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks, chunk_len,
-        _ptr(ptab), page_size, n_pages, float(scale), float(norm_eps),
+        _ptr(part_acc), _ptr(part_m), _ptr(part_l), _ptr(out), _ptr(m_out),
+        _ptr(l_out), B, S, G, Hg, rk, rv, s, nq, n_self, bias_cols, n_chunks,
+        chunk_len, _ptr(ptab), page_size, n_pages, float(scale), float(norm_eps),
         torch.cuda.current_stream(dev).cuda_stream, *([] if tc else plan))
     build.check(err, entry)
-    return out
+    return (out, m_out, l_out) if return_lse else out
 
 
 def _on_device(name: str, q) -> bool:
@@ -368,91 +402,107 @@ def _on_device(name: str, q) -> bool:
 
 def latent_decode_attention(q, zk, zv, r_k, cos, sin, bias, *, scale,
                             k_norm=None, norm_eps=1e-6, self_zk=None,
-                            self_zv=None, self_cos=None, self_sin=None):
+                            self_zv=None, self_cos=None, self_sin=None,
+                            return_lse=False):
     """K1.  A CPU tensor runs the plain version; a CUDA tensor runs the
     CUDA kernel (built at first use) or raises — there is no fallback.
     ``latent_decode_attention.launches`` counts kernel launches."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
-              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("latent decode", q):
         return latent_decode_attention_plain(q, zk, zv, r_k, cos, sin, bias, **kw)
     if q.dtype == torch.bfloat16:
         out = launch("recalkv_latent_decode_tc", q, zk, zv, r_k, cos, sin,
                      bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
-                     self_sin)
+                     self_sin, return_lse=return_lse)
     else:
         out = launch("recalkv_latent_decode", q, zk, zv, r_k, cos, sin, bias,
                      scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
-                     self_sin)
+                     self_sin, return_lse=return_lse)
     latent_decode_attention.launches += 1
+    latent_decode_attention.lse_launches += int(return_lse)
     return out
 
 
 def latent_decode_attention_mq(q, zk, zv, r_k, cos, sin, bias, *, scale,
                                k_norm=None, norm_eps=1e-6, self_zk=None,
-                               self_zv=None, self_cos=None, self_sin=None):
+                               self_zv=None, self_cos=None, self_sin=None,
+                               return_lse=False):
     """K5: nq = bias.shape[1] verify queries per head in one pass (keys
     rebuilt once per tile, scored by every query).  Device rule and
     launch counter as for K1; bf16 runs the tensor-core kernel, float32
     the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
-              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("multi-query latent decode", q):
         return latent_decode_attention_mq_plain(q, zk, zv, r_k, cos, sin, bias,
                                                 **kw)
     entry = ("recalkv_latent_decode_mq_tc" if q.dtype == torch.bfloat16
              else "recalkv_latent_decode_mq")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
-                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1])
+                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1],
+                 return_lse=return_lse)
     latent_decode_attention_mq.launches += 1
+    latent_decode_attention_mq.lse_launches += int(return_lse)
     return out
 
 
 def latent_decode_attention_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                   scale, k_norm=None, norm_eps=1e-6,
                                   self_zk=None, self_zv=None, self_cos=None,
-                                  self_sin=None):
+                                  self_sin=None, return_lse=False):
     """K4: K1 over a page-major pool through ``ptab``.  Device rule as for
     K1; ``.launches`` counts kernel launches.  bf16 runs the tensor-core
     kernel, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
-              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("paged latent decode", q):
         return latent_decode_attention_paged_plain(ptab, q, zk, zv, r_k, cos,
                                                    sin, bias, **kw)
     if q.dtype == torch.bfloat16:
         out = launch("recalkv_latent_decode_paged_tc", q, zk, zv, r_k, cos,
                      sin, bias, scale, k_norm, norm_eps, self_zk, self_zv,
-                     self_cos, self_sin, ptab=ptab)
+                     self_cos, self_sin, ptab=ptab, return_lse=return_lse)
     else:
         out = launch("recalkv_latent_decode_paged", q, zk, zv, r_k, cos, sin,
                      bias, scale, k_norm, norm_eps, self_zk, self_zv, self_cos,
-                     self_sin, ptab=ptab)
+                     self_sin, ptab=ptab, return_lse=return_lse)
     latent_decode_attention_paged.launches += 1
+    latent_decode_attention_paged.lse_launches += int(return_lse)
     return out
 
 
 def latent_decode_attention_mq_paged(ptab, q, zk, zv, r_k, cos, sin, bias, *,
                                      scale, k_norm=None, norm_eps=1e-6,
                                      self_zk=None, self_zv=None, self_cos=None,
-                                     self_sin=None):
+                                     self_sin=None, return_lse=False):
     """K7: K5 over a page-major pool through ``ptab``.  Device rule and
     counter as for K5; bf16 runs K5's tensor-core kernel through the page
     table, float32 the template's parity instantiation."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_zk=self_zk,
-              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin)
+              self_zv=self_zv, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("paged multi-query latent decode", q):
         return latent_decode_attention_mq_paged_plain(ptab, q, zk, zv, r_k, cos,
                                                       sin, bias, **kw)
     entry = ("recalkv_latent_decode_mq_paged_tc" if q.dtype == torch.bfloat16
              else "recalkv_latent_decode_mq_paged")
     out = launch(entry, q, zk, zv, r_k, cos, sin, bias, scale, k_norm, norm_eps,
-                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1], ptab=ptab)
+                 self_zk, self_zv, self_cos, self_sin, nq=bias.shape[1], ptab=ptab,
+                 return_lse=return_lse)
     latent_decode_attention_mq_paged.launches += 1
+    latent_decode_attention_mq_paged.lse_launches += int(return_lse)
     return out
 
 
 latent_decode_attention.launches = 0
+latent_decode_attention.lse_launches = 0
 latent_decode_attention_paged.launches = 0
+latent_decode_attention_paged.lse_launches = 0
 latent_decode_attention_mq.launches = 0
+latent_decode_attention_mq.lse_launches = 0
 latent_decode_attention_mq_paged.launches = 0
+latent_decode_attention_mq_paged.lse_launches = 0

@@ -46,12 +46,13 @@ def latent_decode_attention_quant_plain(q, zk_q, zk_s, zv_q, zv_s, r_k, cos,
                                         norm_eps=1e-6, self_zk_q=None,
                                         self_zk_s=None, self_zv_q=None,
                                         self_zv_s=None, self_cos=None,
-                                        self_sin=None):
+                                        self_sin=None, return_lse=False):
     """Plain version of K3: dequantize, then K1's plain version (float32)."""
     return latent_decode_attention_plain(
         q, _deq(zk_q, zk_s), _deq(zv_q, zv_s), r_k, cos, sin, bias, scale=scale,
         k_norm=k_norm, norm_eps=norm_eps, self_zk=_deq(self_zk_q, self_zk_s),
-        self_zv=_deq(self_zv_q, self_zv_s), self_cos=self_cos, self_sin=self_sin)
+        self_zv=_deq(self_zv_q, self_zv_s), self_cos=self_cos, self_sin=self_sin,
+        return_lse=return_lse)
 
 
 def latent_decode_attention_mq_quant_plain(q, zk_q, zk_s, zv_q, zv_s, r_k,
@@ -59,25 +60,28 @@ def latent_decode_attention_mq_quant_plain(q, zk_q, zk_s, zv_q, zv_s, r_k,
                                            k_norm=None, norm_eps=1e-6,
                                            self_zk_q=None, self_zk_s=None,
                                            self_zv_q=None, self_zv_s=None,
-                                           self_cos=None, self_sin=None):
+                                           self_cos=None, self_sin=None,
+                                           return_lse=False):
     """Plain version of K6: dequantize, then K5's plain version."""
     return latent_decode_attention_mq_plain(
         q, _deq(zk_q, zk_s), _deq(zv_q, zv_s), r_k, cos, sin, bias, scale=scale,
         k_norm=k_norm, norm_eps=norm_eps, self_zk=_deq(self_zk_q, self_zk_s),
-        self_zv=_deq(self_zv_q, self_zv_s), self_cos=self_cos, self_sin=self_sin)
+        self_zv=_deq(self_zv_q, self_zv_s), self_cos=self_cos, self_sin=self_sin,
+        return_lse=return_lse)
 
 
 def latent_decode_attention_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
                                   bias, *, scale, k_norm=None, norm_eps=1e-6,
                                   self_zk_q=None, self_zk_s=None,
                                   self_zv_q=None, self_zv_s=None,
-                                  self_cos=None, self_sin=None):
+                                  self_cos=None, self_sin=None, return_lse=False):
     """K3.  A CPU tensor runs the plain version; a CUDA tensor runs the
     CUDA kernel or raises: bf16 q the tensor-core body, float32 q the
     template.  ``.launches`` counts kernel launches."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps,
               self_zk_q=self_zk_q, self_zk_s=self_zk_s, self_zv_q=self_zv_q,
-              self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin)
+              self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("int8 latent decode", q):
         return latent_decode_attention_quant_plain(
             q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, **kw)
@@ -85,8 +89,9 @@ def latent_decode_attention_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
              else "recalkv_latent_decode_quant")
     out = launch(entry, q, zk_q, zv_q, r_k, cos, sin, bias, scale, k_norm,
                  norm_eps, self_zk_q, self_zv_q, self_cos, self_sin,
-                 scales=(zk_s, zv_s, self_zk_s, self_zv_s))
+                 scales=(zk_s, zv_s, self_zk_s, self_zv_s), return_lse=return_lse)
     latent_decode_attention_quant.launches += 1
+    latent_decode_attention_quant.lse_launches += int(return_lse)
     return out
 
 
@@ -95,12 +100,13 @@ def latent_decode_attention_mq_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
                                      norm_eps=1e-6, self_zk_q=None,
                                      self_zk_s=None, self_zv_q=None,
                                      self_zv_s=None, self_cos=None,
-                                     self_sin=None):
+                                     self_sin=None, return_lse=False):
     """K6: K5 over the int8 ring.  Device rule and counter as for K3; bf16
     q runs the tensor-core body, float32 q the template."""
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps,
               self_zk_q=self_zk_q, self_zk_s=self_zk_s, self_zv_q=self_zv_q,
-              self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin)
+              self_zv_s=self_zv_s, self_cos=self_cos, self_sin=self_sin,
+              return_lse=return_lse)
     if not _on_device("int8 multi-query latent decode", q):
         return latent_decode_attention_mq_quant_plain(
             q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin, bias, **kw)
@@ -108,10 +114,14 @@ def latent_decode_attention_mq_quant(q, zk_q, zk_s, zv_q, zv_s, r_k, cos, sin,
              else "recalkv_latent_decode_mq_quant")
     out = launch(entry, q, zk_q, zv_q, r_k, cos, sin, bias, scale, k_norm,
                  norm_eps, self_zk_q, self_zv_q, self_cos, self_sin,
-                 nq=bias.shape[1], scales=(zk_s, zv_s, self_zk_s, self_zv_s))
+                 nq=bias.shape[1], scales=(zk_s, zv_s, self_zk_s, self_zv_s),
+                 return_lse=return_lse)
     latent_decode_attention_mq_quant.launches += 1
+    latent_decode_attention_mq_quant.lse_launches += int(return_lse)
     return out
 
 
 latent_decode_attention_quant.launches = 0
+latent_decode_attention_quant.lse_launches = 0
 latent_decode_attention_mq_quant.launches = 0
+latent_decode_attention_mq_quant.lse_launches = 0

@@ -30,6 +30,17 @@ body at 8-16 query rows a kv head) and of K5 / K7 (verify, ``dense_decode_mq`` /
 RoPE, so no key rebuild, no rotation tables and no k-norm.  The JAX
 package's ``_dense_*_core*`` run K1 / K4 / K5 / K7 at an identity ``R_k``
 instead; the function computed is the same.
+
+On a mesh (``mesh`` with more than one "model" rank; see
+``launch.mesh``) the cache a wrapper gets is this rank's sequence slice:
+ring columns, or each pool page's in-page offsets (the page table stays
+global), as ``sharding.rules.CACHE_RULES`` lays it out.  Each rank calls
+its kernel on its slice with ``return_lse`` and the full (replicated)
+queries; the self columns score on the last "model" rank only (JAX's
+``_mask_self_cols``); and the partial softmaxes merge by log-sum-exp over
+"model" in two all-reduces, a max and a sum (JAX's
+``_merge_partial_softmax``).  A rank whose rows see no column has l = 0
+and drops out.
 """
 
 from __future__ import annotations
@@ -45,6 +56,56 @@ from repro_torch.kernels.latent_decode import (
     latent_decode_attention_mq_paged, latent_decode_attention_paged)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
+
+
+def merge_partial_softmax(o, m, l, combine):
+    """Log-sum-exp merge of partial flash outputs: each part's o = acc / l
+    at running max m (o (..., rows, r), m and l (..., rows) float32);
+    reweight by l * exp(m - max m) and renormalise, flooring the sum at
+    1e-30 as JAX does.  ``combine(t, op)`` reduces ``t`` over the parts
+    with op "max" or "sum": two all-reduces over a mesh axis, or a
+    reduction over a stacked dim."""
+    mg = combine(m, "max")
+    w = l * torch.exp(m - mg)
+    both = combine(torch.cat([o.float() * w[..., None], w[..., None]], dim=-1), "sum")
+    num, den = both[..., :-1], both[..., -1:]
+    return (num / den.clamp(min=1e-30)).to(o.dtype)
+
+
+def merge_over_mesh(parts, mesh):
+    """Merge this rank's (o, m, l) with the other "model" ranks'."""
+    return merge_partial_softmax(*parts, lambda t, op: mesh.all_reduce(t, "model", op))
+
+
+def merge_stacked(o, m, l):
+    """Merge partials stacked along dim 0 (the shards of one process):
+    the mesh's merge with its collectives as reductions over dim 0."""
+    def combine(t, op):
+        return t.amax(dim=0) if op == "max" else t.sum(dim=0)
+    return merge_partial_softmax(o, m, l, combine)
+
+
+def _seq_sharded(mesh) -> bool:
+    """Whether the cache is sequence-sharded over more than one "model"
+    rank."""
+    return mesh is not None and mesh.shape.get("model", 1) > 1
+
+
+def seq_local(cache: dict, mesh) -> dict:
+    """This rank's sequence slice of every leaf of a ring (or pool) dict.
+    ``CACHE_RULES`` shard ``pos`` and the float latents over "model" but
+    leave the int8 ring's latents and scales whole on every rank (JAX's
+    kernel call reshards them to its ring slice); each leaf wider than
+    ``pos`` is cut here to the same columns (or page offsets)."""
+    if not _seq_sharded(mesh):
+        return cache
+    w, m = cache["pos"].shape[1], mesh.axis_index("model")
+    return {k: v if v.shape[1] == w else v.narrow(1, m * w, w) for k, v in cache.items()}
+
+
+def _self_on(mesh) -> bool:
+    """The self columns score on the last "model" rank only."""
+    return mesh.axis_index("model") == mesh.shape["model"] - 1
 
 
 def decode_bias(pos: torch.Tensor, cur: torch.Tensor,
@@ -137,7 +198,11 @@ def _ring_operands(cache: dict, entry: dict | None):
 
 
 def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
-            k_norm, norm_eps):
+            k_norm, norm_eps, mesh=None):
+    sharded = _seq_sharded(mesh)
+    if sharded and not _self_on(mesh):
+        self_entry = None
+    cache = seq_local(cache, mesh)
     ring, selfs, quant = _ring_operands(cache, self_entry)
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
@@ -146,7 +211,7 @@ def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
     pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
     cos, sin = rotation_tables(pos, dh, theta)
     bias = decode_bias(pos, cur, window)
-    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps)
+    kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, return_lse=sharded)
     if self_entry is not None:
         cos_s, sin_s = rotation_tables(cur, dh, theta)
         kw.update(selfs, self_cos=cos_s, self_sin=sin_s)
@@ -158,39 +223,51 @@ def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
         o = latent_decode_attention_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
         o = latent_decode_attention(qg, *ring, r_k, cos, sin, bias, **kw)
-    return ungroup_outputs(o)
+    return ungroup_outputs(merge_over_mesh(o, mesh) if sharded else o)
 
 
 def latent_decode(q, cache, r_k, cur, *, theta: float, window: int | None,
                   scale: float, self_entry: dict | None = None,
-                  k_norm: torch.Tensor | None = None, norm_eps: float = 1e-6):
+                  k_norm: torch.Tensor | None = None, norm_eps: float = 1e-6,
+                  mesh=None):
     """Latent decode over a ring cache dict — float {"zk", "zv", "pos"} or
     int8 {"zk_q", "zk_s", "zv_q", "zv_s", "pos"}.
 
     q: (B, H, dh) post-RoPE queries; ``self_entry`` the current token's
     latents in the ring's layout, scored as one extra column at position
-    ``cur``.  Returns (B, H, r_v)."""
+    ``cur``.  ``mesh``: the ring is this rank's sequence slice (module
+    docstring).  Returns (B, H, r_v)."""
     return _decode(q, cache, r_k, cur, None, theta=theta, window=window,
                    scale=scale, self_entry=self_entry, k_norm=k_norm,
-                   norm_eps=norm_eps)
+                   norm_eps=norm_eps, mesh=mesh)
 
 
 def latent_decode_paged(q, cache, ptab, r_k, cur, *, theta: float,
                         window: int | None, scale: float,
                         self_entry: dict | None = None,
                         k_norm: torch.Tensor | None = None,
-                        norm_eps: float = 1e-6):
+                        norm_eps: float = 1e-6, mesh=None):
     """Latent decode over a page-major float pool {"zk", "zv", "pos"}
     (n_pages, page_size, ...) through ``ptab`` (B, n_sp) int32, with K4.
     Arguments otherwise as :func:`latent_decode`.  Returns (B, H, r_v)."""
     return _decode(q, cache, r_k, cur, ptab, theta=theta, window=window,
                    scale=scale, self_entry=self_entry, k_norm=k_norm,
-                   norm_eps=norm_eps)
+                   norm_eps=norm_eps, mesh=mesh)
+
+
+def _mask_self_cols(bias: torch.Tensor, mesh, start: int) -> torch.Tensor:
+    """Mask the self columns (from ``start``) off on every "model" rank but
+    the last, so each scores once across the mesh."""
+    if _seq_sharded(mesh) and not _self_on(mesh):
+        bias = bias.clone()
+        bias[..., start:] = NEG_INF
+    return bias
 
 
 def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
-               window, scale, k_norm, norm_eps):
+               window, scale, k_norm, norm_eps, mesh=None):
     B, nq = feed_mask.shape
+    cache = seq_local(cache, mesh)
     ring, selfs, quant = _ring_operands(cache, self_entries)
     if quant and ptab is not None:
         raise ValueError("an int8 pool is read through kv_cache.paged_view")
@@ -202,8 +279,10 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
     cos_s, sin_s = rotation_tables(pos_q, dh, theta)
     bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
                        feed_mask, window, pos.shape[1])
+    bias = _mask_self_cols(bias, mesh, pos.shape[1])
+    sharded = _seq_sharded(mesh)
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_cos=cos_s,
-              self_sin=sin_s, **selfs)
+              self_sin=sin_s, return_lse=sharded, **selfs)
     qg = group_queries_mq(q, G)
     if ptab is not None:
         o = latent_decode_attention_mq_paged(ptab, qg, *ring, r_k, cos, sin,
@@ -212,13 +291,13 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
         o = latent_decode_attention_mq_quant(qg, *ring, r_k, cos, sin, bias, **kw)
     else:
         o = latent_decode_attention_mq(qg, *ring, r_k, cos, sin, bias, **kw)
-    return ungroup_outputs_mq(o, nq)
+    return ungroup_outputs_mq(merge_over_mesh(o, mesh) if sharded else o, nq)
 
 
 def latent_decode_mq(q, cache, r_k, cur, feed_mask, self_entries, *,
                      theta: float, window: int | None, scale: float,
                      k_norm: torch.Tensor | None = None,
-                     norm_eps: float = 1e-6):
+                     norm_eps: float = 1e-6, mesh=None):
     """Multi-query (verify-step) latent decode over a float or int8 ring.
 
     q: (B, nq, H, dh) queries rotated at positions cur..cur+nq-1;
@@ -228,86 +307,94 @@ def latent_decode_mq(q, cache, r_k, cur, feed_mask, self_entries, *,
     call scores all nq queries.  Returns (B, nq, H, r_v)."""
     return _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, None,
                       theta=theta, window=window, scale=scale, k_norm=k_norm,
-                      norm_eps=norm_eps)
+                      norm_eps=norm_eps, mesh=mesh)
 
 
 def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
                            *, theta: float, window: int | None, scale: float,
                            k_norm: torch.Tensor | None = None,
-                           norm_eps: float = 1e-6):
+                           norm_eps: float = 1e-6, mesh=None):
     """Multi-query latent decode over a page-major float pool through
     ``ptab``, with K7.  Arguments otherwise as :func:`latent_decode_mq`.
     Returns (B, nq, H, r_v)."""
     return _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab,
                       theta=theta, window=window, scale=scale, k_norm=k_norm,
-                      norm_eps=norm_eps)
+                      norm_eps=norm_eps, mesh=mesh)
+
+
+def _dense(q, cache, ptab, cur, *, window, scale, self_entry, mesh):
+    sharded = _seq_sharded(mesh)
+    e = {} if self_entry is None or (sharded and not _self_on(mesh)) else self_entry
+    pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
+    kw = dict(scale=scale, self_k=e.get("k"), self_v=e.get("v"), return_lse=sharded)
+    qg = group_queries(q, cache["k"].shape[2])
+    bias = decode_bias(pos, cur, window)
+    o = (dense_decode_attention(qg, cache["k"], cache["v"], bias, **kw) if ptab is None
+         else dense_decode_attention_paged(ptab, qg, cache["k"], cache["v"], bias, **kw))
+    return ungroup_outputs(merge_over_mesh(o, mesh) if sharded else o)
 
 
 def dense_decode(q, cache, cur, *, window: int | None, scale: float,
-                 self_entry: dict | None = None):
+                 self_entry: dict | None = None, mesh=None):
     """Dense ring decode through K1's dense core (``kernels.dense_decode``:
     ``csrc/dense_decode.cu``, or ``csrc/dense_verify.cu`` from 8 rows).
     q: (B, H, dh) post-RoPE; cache {"k", "v": (B, S, Hkv, dh), "pos"};
     ``self_entry`` {"k", "v": (B, Hkv, dh)}, the current token post-RoPE
-    (and k-norm), scored as one extra column at position ``cur``.  Returns
-    (B, H, dh)."""
-    e = self_entry or {}
-    o = dense_decode_attention(
-        group_queries(q, cache["k"].shape[2]), cache["k"], cache["v"],
-        decode_bias(cache["pos"], cur, window), scale=scale, self_k=e.get("k"),
-        self_v=e.get("v"))
-    return ungroup_outputs(o)
+    (and k-norm), scored as one extra column at position ``cur``.
+    ``mesh`` as for :func:`latent_decode`.  Returns (B, H, dh)."""
+    return _dense(q, cache, None, cur, window=window, scale=scale,
+                  self_entry=self_entry, mesh=mesh)
 
 
 def dense_decode_paged(q, cache, ptab, cur, *, window: int | None,
-                       scale: float, self_entry: dict | None = None):
+                       scale: float, self_entry: dict | None = None, mesh=None):
     """Dense decode over page-major {"k", "v", "pos"} pools through
     ``ptab``, with K4's dense core (the ring's kernel through the page
     table; the bias is slot-major, from the gathered positions).  Returns
     (B, H, dh)."""
-    e = self_entry or {}
-    o = dense_decode_attention_paged(
-        ptab, group_queries(q, cache["k"].shape[2]), cache["k"], cache["v"],
-        decode_bias(gather_pages(cache["pos"], ptab), cur, window), scale=scale,
-        self_k=e.get("k"), self_v=e.get("v"))
-    return ungroup_outputs(o)
+    return _dense(q, cache, ptab, cur, window=window, scale=scale,
+                  self_entry=self_entry, mesh=mesh)
 
 
-def _dense_mq(q, cache, ptab, cur, feed_mask, self_entries, *, window, scale):
+def _dense_mq(q, cache, ptab, cur, feed_mask, self_entries, *, window, scale,
+              mesh=None):
     nq = feed_mask.shape[1]
     pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
     pos_q = cur[:, None] + torch.arange(nq, dtype=cur.dtype, device=cur.device)
     bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
                        feed_mask, window, pos.shape[1])
+    bias = _mask_self_cols(bias, mesh, pos.shape[1])
+    sharded = _seq_sharded(mesh)
     qg = group_queries_mq(q, cache["k"].shape[2])
-    kw = dict(scale=scale, self_k=self_entries["k"], self_v=self_entries["v"])
+    kw = dict(scale=scale, self_k=self_entries["k"], self_v=self_entries["v"],
+              return_lse=sharded)
     if ptab is None:
         o = dense_decode_attention_mq(qg, cache["k"], cache["v"], bias, **kw)
     else:
         o = dense_decode_attention_mq_paged(ptab, qg, cache["k"], cache["v"], bias,
                                             **kw)
-    return ungroup_outputs_mq(o, nq)
+    return ungroup_outputs_mq(merge_over_mesh(o, mesh) if sharded else o, nq)
 
 
 def dense_decode_mq(q, cache, cur, feed_mask, self_entries, *,
-                    window: int | None, scale: float):
+                    window: int | None, scale: float, mesh=None):
     """Multi-query dense verify over the ring with K5's dense core
     (``csrc/dense_verify.cu``).  q (B, nq, H, dh) and
     ``self_entries["k"]`` (B, nq, Hkv, dh) arrive rotated at
     cur..cur+nq-1; ``feed_mask`` (B, nq) says which candidates were fed.
     Returns (B, nq, H, dh)."""
     return _dense_mq(q, cache, None, cur, feed_mask, self_entries,
-                     window=window, scale=scale)
+                     window=window, scale=scale, mesh=mesh)
 
 
 def dense_decode_mq_paged(q, cache, ptab, cur, feed_mask, self_entries, *,
-                          window: int | None, scale: float):
+                          window: int | None, scale: float, mesh=None):
     """Multi-query dense verify over page-major pools through ``ptab``,
     with K7's dense core (the ring's kernel through the page table; the
     bias is slot-major, from the gathered positions).  Returns (B, nq, H,
     dh)."""
     return _dense_mq(q, cache, ptab, cur, feed_mask, self_entries,
-                     window=window, scale=scale)
+                     window=window, scale=scale, mesh=mesh)
 
 
 def flash_prefill(q, k, v, *, causal: bool = True, window: int | None = None,

@@ -16,8 +16,15 @@ CLI's).
 
 Every registered ``--arch`` serves, the recurrent falcon-mamba and
 recurrentgemma too (their state's bytes are reported apart from the self
-ring's).  Not ported: ``--mesh`` other than one device (refused with
-ROADMAP.md Queue 1 item 5).  ``--recalkv`` on an arch ReCalKV does not
+ring's).  ``--mesh DATA,MODEL`` serves on a mesh of that many ranks, one
+process a rank under ``torchrun`` (rank and world size from its
+environment): ``torchrun --nproc-per-node N -m repro_torch.launch.serve
+--mesh D,M`` with N = D * M, each rank on ``cuda:LOCAL_RANK`` over
+``nccl``; ``--dist-backend gloo`` runs the collectives through the host
+(two ranks may then share one card, ``--device cuda:0``).  The mesh
+engine is the synchronous one: ``--overlap`` is off by default there,
+and ``--overlap``, ``--continuous`` and ``--aot`` are refused with
+ROADMAP.md Queue 1 item 5c.  Rank 0 prints.  ``--recalkv`` on an arch ReCalKV does not
 apply to (deepseek's MLA, falcon-mamba's attention-free stack) raises
 ValueError with the JAX CLI's words, "ReCalKV inapplicable to <arch>".  ``--backend pallas`` names the
 port's CUDA kernels, as ``ModelConfig.from_dict`` reads it.
@@ -27,17 +34,19 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 
 import numpy as np
 import torch
 
 from repro_torch.configs import get_config
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import mesh_from_spec, parse_mesh_spec
 from repro_torch.models.weights import init_params
 from repro_torch.serving import Engine, Request, SamplingParams
 
-MESH_NOT_PORTED = ("multi-GPU serving is not ported yet (ROADMAP.md, Queue 1 item 5); "
-                   "the port serves on one card")
+MESH_SYNC_ONLY = ("--overlap, --continuous and --aot are not ported to a mesh yet "
+                  "(ROADMAP.md, Queue 1 item 5c): the mesh engine is the synchronous one")
 
 
 def cache_bytes(caches, part: str = "self") -> int:
@@ -74,7 +83,11 @@ def main(argv=None):
     ap.add_argument("--top-p", type=float, default=1.0, help="1 = disabled")
     ap.add_argument("--seed", type=int, default=0, help="sampling PRNG seed")
     ap.add_argument("--mesh", default=None, metavar="DATA,MODEL",
-                    help="mesh shape; only one device (1,1) is ported")
+                    help="serve on a (data, model) mesh, one rank a process "
+                         "under torchrun (default: one device)")
+    ap.add_argument("--dist-backend", choices=("nccl", "gloo"), default=None,
+                    help="the mesh's collectives (default nccl on a card, "
+                         "gloo on the CPU)")
     ap.add_argument("--spec-depth", type=int, default=0,
                     help="speculative decoding: draft tokens verified per "
                          "window iteration (0 disables; streams are "
@@ -93,10 +106,11 @@ def main(argv=None):
     ap.add_argument("--n-pages", type=int, default=None,
                     help="physical pool pages incl. the null page (paged "
                          "only; default: ring-equivalent capacity)")
-    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=True,
+    ap.add_argument("--overlap", action=argparse.BooleanOptionalAction, default=None,
                     help="overlapped pipeline: decode windows in flight, token "
                          "handling on a backlog thread (--no-overlap for the "
-                         "blocking step loop; streams are identical either way)")
+                         "blocking step loop; streams are identical either way; "
+                         "default on, off on a mesh)")
     ap.add_argument("--aot", action="store_true",
                     help="capture the window iteration as CUDA graphs at boot "
                          "(a card only), so a window is graph replays")
@@ -133,9 +147,21 @@ def main(argv=None):
                     help="cuda (default; raises without a card) or cpu")
     args = ap.parse_args(argv)
 
-    if args.mesh is not None and tuple(args.mesh.split(",")) != ("1", "1"):
-        raise NotImplementedError(f"--mesh {args.mesh}: {MESH_NOT_PORTED}")
-    dev = resolve_device(args.device)
+    on_mesh = parse_mesh_spec(args.mesh) != (1, 1)
+    if on_mesh and (args.overlap or args.continuous or args.aot):
+        raise ValueError(f"--mesh {args.mesh}: {MESH_SYNC_ONLY}")
+    if args.overlap is None:
+        args.overlap = not on_mesh
+    device = args.device
+    if on_mesh and device == "cuda" and (args.dist_backend or "nccl") == "nccl":
+        device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"
+    mesh = None
+    if on_mesh:
+        mesh = mesh_from_spec(args.mesh, backend=args.dist_backend or (
+            "nccl" if resolve_device(device).type == "cuda" else "gloo"))
+    dev = resolve_device(device)
+    rank0 = mesh is None or mesh.rank == 0
+    say = print if rank0 else (lambda *a, **k: None)
     cfg = get_config(args.arch, smoke=args.smoke, recalkv_ratio=args.recalkv)
     if args.backend is not None:
         cfg = dataclasses.replace(
@@ -160,12 +186,14 @@ def main(argv=None):
                  continuous=args.continuous, admission_thread=args.admission_thread,
                  pin_prefixes=args.pin_prefixes, policy=args.policy,
                  lazy_pages=args.lazy_pages, staging_depth=args.staging_depth,
-                 adaptive_spec=args.adaptive_spec, profile=args.profile, device=dev)
+                 adaptive_spec=args.adaptive_spec, profile=args.profile, device=dev,
+                 mesh=mesh)
     spec = (f", spec_depth={args.spec_depth} ({eng.metrics()['draft']})"
             if args.spec_depth else "")
     layout = ("" if args.cache_layout == "ring" else
               f", paged (page_size={eng.page_size}, {eng.n_pages} pages)")
     mode = ((f"overlapped x{args.pipeline_depth}" if args.overlap else "sync")
+            + (f", mesh {eng.mesh_str} ({mesh.backend})" if mesh is not None else "")
             + (", continuous" if args.continuous else "")
             + (", aot" if args.aot else ""))
     cross = ("" if source is None else
@@ -173,7 +201,7 @@ def main(argv=None):
              f"(source {tuple(source.shape)})")
     state = cache_bytes(eng.cache, "state")
     state = "" if not state else f", recurrent state {state / 2**20:.1f} MiB"
-    print(f"[serve] {cfg.name}: cache {cache_bytes(eng.cache) / 2**20:.1f} MiB "
+    say(f"[serve] {cfg.name}: cache {cache_bytes(eng.cache) / 2**20:.1f} MiB "
           f"({args.slots} slots x {args.max_len} positions){cross}{state}, "
           f"sync_every={args.sync_every}, device {_device_name(dev)}, "
           f"{mode}{spec}{layout}")
@@ -187,33 +215,33 @@ def main(argv=None):
     finished = eng.run()
     eng.close()
     m = eng.metrics()
-    print(f"[serve] {len(finished)} requests, {m['tokens']} tokens in "
+    say(f"[serve] {len(finished)} requests, {m['tokens']} tokens in "
           f"{m['run_seconds']:.1f}s ({m['tokens_per_s']:.1f} tok/s), "
           f"ttft {m['ttft_s'] * 1e3:.1f}ms")
-    print(f"[serve] host syncs/token {m['host_syncs_per_token']:.3f} "
+    say(f"[serve] host syncs/token {m['host_syncs_per_token']:.3f} "
           f"(decode windows: {m['decode_syncs_per_token']:.3f}), "
           f"occupancy {m['occupancy_mean']:.2f}/{args.slots}, "
           f"queue depth {m['queue_depth_mean']:.2f}")
     if args.overlap:
-        print(f"[serve] overlap: {m['window_overlap']:.2f} of windows "
+        say(f"[serve] overlap: {m['window_overlap']:.2f} of windows "
               f"dispatched before the prior completed, "
               f"{m['windows_idle']} idle windows, "
               f"device occupancy {m['occupancy_device_mean']:.2f}/{args.slots}"
               + (f", {m['slot_swaps']} in-scan swaps" if args.continuous else ""))
     if args.spec_depth:
-        print(f"[serve] speculation: accept rate {m['accept_rate']:.2f} "
+        say(f"[serve] speculation: accept rate {m['accept_rate']:.2f} "
               f"({m['draft_accepted']}/{m['draft_proposed']} draft tokens accepted)")
     if args.cache_layout == "paged":
-        print(f"[serve] pages: peak {m['pages_peak']}/{m['pages_total']}, "
+        say(f"[serve] pages: peak {m['pages_peak']}/{m['pages_total']}, "
               f"{m['pages_shared']} shares, {m['cow_forks']} COW forks, "
               f"{m['prefix_resurrections']} prefix resurrections")
-        print(f"[serve] admission: policy={m['policy']}, "
+        say(f"[serve] admission: policy={m['policy']}, "
               f"{m['prefill_calls']} prefill calls "
               f"({m['prefill_calls_saved']} saved), "
               f"{m['preemptions']} preemptions"
               + (f", {m['pages_parked']} pages parked" if m['pages_parked'] else ""))
     if eng.unfinished["queued"] or eng.unfinished["in_flight"]:
-        print(f"[serve] WARNING unfinished: {eng.unfinished}")
+        say(f"[serve] WARNING unfinished: {eng.unfinished}")
     return finished
 
 

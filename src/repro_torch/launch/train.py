@@ -10,7 +10,8 @@ vocabulary, below it, is used whole, as the JAX CLI does); the model's
 output vocabulary is its own.  A model with cross-attention layers reads the
 JAX CLI's source, ``np.random.default_rng(0).normal(size=(batch,
 cross_source_len, d_model))`` in the model dtype.  ``--mesh`` (data
-parallelism over several cards) is not ported.
+parallelism over several cards) is not ported yet (ROADMAP.md Queue 1
+item 5a; the serving CLI takes a mesh).
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import TrainConfig, make_train_step, train_loop
 
 DATA_VOCAB = 4096
-MESH_NOT_PORTED = ("multi-GPU training is not ported yet (ROADMAP.md, Queue 1 item 5); "
+MESH_NOT_PORTED = ("multi-GPU training is not ported yet (ROADMAP.md, Queue 1 item 5a); "
                    "the port trains on one card")
 
 

@@ -252,8 +252,9 @@ PORTED_KINDS = BLOCK_KINDS
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port does not
     serve.  Every block kind runs on the CPU and on a card (``PORTED_KINDS``);
-    what the port still lacks are meshes (ROADMAP.md Queue 1 item 5, which
-    the serving CLI refuses) and training (item 6).  On a CUDA ``device``
+    what the port still lacks is training on a mesh and some of serving on
+    one (ROADMAP.md Queue 1 items 5a-5e, which ``Engine(mesh=...)`` and the
+    CLIs refuse by name).  On a CUDA ``device``
     with the kernel backend this refuses widths no Hopper body serves
     (ROADMAP.md, Queue 3 item 2); the CPU's plain versions serve every
     width, and MLA's readers launch no kernel, so an MLA model is not

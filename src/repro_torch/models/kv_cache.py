@@ -233,6 +233,51 @@ def _paged_targets(ptab: torch.Tensor, pos: torch.Tensor, mask: torch.Tensor | N
     return torch.where(ok, page, 0), off, ok
 
 
+def _seq_shard(mesh) -> tuple[int, int]:
+    """(this rank's "model" index, "model" ranks): a mesh's rings hold
+    columns [m * L, (m + 1) * L) of the full ring, its pools the same
+    slice of each page's offsets (``sharding.rules.CACHE_RULES``)."""
+    if mesh is None:
+        return 0, 1
+    return mesh.axis_index("model"), mesh.axis_size("model")
+
+
+def _own_targets(targets, ps_local: int, mesh):
+    """``_paged_targets``' (page, offset, writes) of the full page size,
+    cut to this rank's offsets: entries at another rank's offsets write
+    nothing (they target the null page at their local offset)."""
+    page, off, ok = targets
+    m, n = _seq_shard(mesh)
+    if n == 1:
+        return targets
+    ok = ok & (torch.div(off, ps_local, rounding_mode="floor") == m)
+    return torch.where(ok, page, 0), off % ps_local, ok
+
+
+def _leaf_mesh(leaf: torch.Tensor, self_cache: Params, mesh):
+    """The mesh a leaf's writes are sharded by: ``mesh`` for a leaf held as
+    this rank's sequence slice (as wide as ``pos``), None for one held
+    whole on every "model" rank (the int8 ring's, see
+    ``kernels.ops.seq_local``), which every rank writes in full."""
+    if mesh is None or leaf.shape[1] != self_cache["pos"].shape[1]:
+        return None
+    return mesh
+
+
+def _pool_writes_of_all_slots(mesh, pages, cur, mask, updates):
+    """A pool is whole on every "data" rank, so each takes every data
+    rank's writes: (pages, cur, mask, updates) with the slot rows of every
+    data rank, gathered over "data" in slot order; unchanged off a mesh
+    of more than one data rank or on the ring."""
+    if pages is None or mesh is None or mesh.axis_size("data") == 1:
+        return pages, cur, mask, updates
+    cur, mask, ptab = (None if t is None else mesh.all_gather(t, "data")
+                       for t in (cur, mask, pages[0]))
+    updates = [{part: {k: mesh.all_gather(v, "data") for k, v in leaves.items()}
+                for part, leaves in u.items()} for u in updates]
+    return (ptab, pages[1]), cur, mask, updates
+
+
 def _paged_merge_leaf(pool: torch.Tensor, new: torch.Tensor, targets) -> None:
     """Write entries (B, n, ...) through ``_paged_targets``' (page,
     offset, writes), in place."""
@@ -277,7 +322,7 @@ def kernel_fallback_kinds(cfg: ModelConfig) -> list[str]:
     return [k for k in kinds if k in ("cross", "attn_cross")]
 
 
-def _pool_route(cfg: ModelConfig, cache: Params, pages):
+def _pool_route(cfg: ModelConfig, cache: Params, pages, mesh=None):
     """(cache, ptab) for a dense or latent reader: the float pool under the
     kernel backend stays page-major for K4 / K7; every other reader
     (einsum, and the int8 kernels) reads the gathered slot-major view, as
@@ -287,18 +332,18 @@ def _pool_route(cfg: ModelConfig, cache: Params, pages):
         return cache, None
     if cfg.attn_backend == "kernel" and cfg.cache_quant_bits is None:
         return cache, pages[0]
-    return paged_view(cache, pages[0]), None
+    return paged_view(kops.seq_local(cache, mesh), pages[0]), None
 
 
 def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
                       cfg: ModelConfig, cur: torch.Tensor,
                       window: int | None, theta: float | None = None,
-                      pages: tuple | None = None):
+                      pages: tuple | None = None, mesh=None):
     """Dense decode: the new token's post-RoPE key and value enter the
     softmax as a self column and come back as the deferred update.
     ``pages`` = (ptab, page_size) reads a page-major pool.  Returns
     (y (B, 1, d), deferred update {"k", "v", "pos"})."""
-    cache, ptab = _pool_route(cfg, cache, pages)
+    cache, ptab = _pool_route(cfg, cache, pages, mesh)
     B = x.shape[0]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     g = H // Hkv
@@ -317,7 +362,7 @@ def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
         # K1 / K4's dense core (csrc/dense_decode.cu): one call scores
         # [ring | self].
         kw = dict(window=window, scale=scale,
-                  self_entry={"k": k_new, "v": v_new})
+                  self_entry={"k": k_new, "v": v_new}, mesh=mesh)
         o = (kops.dense_decode(q[:, 0], cache, cur, **kw) if ptab is None
              else kops.dense_decode_paged(q[:, 0], cache, ptab, cur, **kw))
         return o.to(x.dtype).reshape(B, 1, H * dh) @ p["wo"], updates
@@ -338,12 +383,12 @@ def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
 def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
                        cfg: ModelConfig, cur: torch.Tensor,
                        window: int | None, theta: float | None = None,
-                       pages: tuple | None = None):
+                       pages: tuple | None = None, mesh=None):
     """ReCalKV decode: reconstruct keys from the latent ring, RoPE by stored
     positions, keep values latent, project through the fused W~_o.
     ``pages`` = (ptab, page_size) reads a page-major pool.  Returns
     (y (B, 1, d), deferred update {"zk", "zv", "pos"})."""
-    cache, ptab = _pool_route(cfg, cache, pages)
+    cache, ptab = _pool_route(cfg, cache, pages, mesh)
     theta = theta or cfg.rope_theta
     B = x.shape[0]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
@@ -364,7 +409,7 @@ def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
         # One kernel call scores [ring | self]; qk-norm is applied to the
         # reconstructed keys in-kernel.
         kw = dict(theta=theta, window=window, scale=scale, self_entry=entry,
-                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps)
+                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps, mesh=mesh)
         o_lat = (kops.latent_decode(q[:, 0], cache, p["r_k"], cur, **kw)
                  if ptab is None else
                  kops.latent_decode_paged(q[:, 0], cache, ptab, p["r_k"], cur,
@@ -457,12 +502,20 @@ def decode_attn_mla(p: Params, x: torch.Tensor, cache: Params,
 
 
 def _merge_leaf(cache_leaf: torch.Tensor, upd: torch.Tensor,
-                cur: torch.Tensor, active: torch.Tensor | None) -> None:
+                cur: torch.Tensor, active: torch.Tensor | None, mesh=None) -> None:
     """Write one slot entry per row at ``cur % L``, in place; rows with
-    ``active`` False are left untouched."""
+    ``active`` False are left untouched.  On a mesh the leaf holds this
+    rank's ring columns (``_seq_shard``): a row writes only where it owns
+    the column."""
     B, Lr = cache_leaf.shape[:2]
     rows = torch.arange(B, device=cache_leaf.device)
     slot = cur.to(torch.int64) % Lr
+    m, n = _seq_shard(mesh)
+    if n > 1:
+        slot = cur.to(torch.int64) % (Lr * n)
+        own = torch.div(slot, Lr, rounding_mode="floor") == m
+        active = own if active is None else active & own
+        slot = slot % Lr
     new = upd.to(cache_leaf.dtype)
     if active is not None:
         new = torch.where(active.reshape((B,) + (1,) * (new.ndim - 1)),
@@ -472,11 +525,16 @@ def _merge_leaf(cache_leaf: torch.Tensor, upd: torch.Tensor,
 
 def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
                         active: torch.Tensor | None = None,
-                        pages: tuple | None = None) -> list:
+                        pages: tuple | None = None, mesh=None) -> list:
     """Merge the deferred per-layer decode entries into the rings (or,
     with ``pages``, the pools), in place (one pass after the layer loop);
     a recurrent layer's new state replaces its state whole.  ``active``
-    (B,) bool freezes the rows of inactive sequences entirely."""
+    (B,) bool freezes the rows of inactive sequences entirely.  On a
+    ``mesh`` each rank writes the entries whose column (or page offset)
+    it holds; a pool, whole on every "data" rank, takes every data
+    rank's slots' entries (gathered over "data")."""
+    pages, cur, active, updates = _pool_writes_of_all_slots(mesh, pages, cur, active,
+                                                            updates)
     targets = None if pages is None else _paged_targets(
         pages[0], cur.to(torch.int64)[:, None], None if active is None else active[:, None],
         pages[1])
@@ -487,10 +545,12 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
                 new = torch.where(active.reshape((-1,) + (1,) * (leaf.dim() - 1)), new, leaf)
             leaf.copy_(new)
         for name, leaf in cache.get("self", {}).items():
+            lmesh = _leaf_mesh(leaf, cache["self"], mesh)
             if pages is None:
-                _merge_leaf(leaf, upd["self"][name], cur, active)
+                _merge_leaf(leaf, upd["self"][name], cur, active, lmesh)
             else:
-                _paged_merge_leaf(leaf, upd["self"][name][:, None], targets)
+                _paged_merge_leaf(leaf, upd["self"][name][:, None],
+                                  _own_targets(targets, leaf.shape[1], lmesh))
     return caches
 
 
@@ -536,11 +596,11 @@ def verify_attn_dense(p: Params, x: torch.Tensor, cache: Params,
                       cfg: ModelConfig, cur: torch.Tensor,
                       feed_mask: torch.Tensor, window: int | None,
                       theta: float | None = None,
-                      pages: tuple | None = None):
+                      pages: tuple | None = None, mesh=None):
     """Dense S-token verify: the S fresh post-RoPE keys and values are a
     causal self block.  Returns (y (B, S, d), deferred entries with (B,
     S, ...) leaves and "pos" (B, S))."""
-    cache, ptab = _pool_route(cfg, cache, pages)
+    cache, ptab = _pool_route(cfg, cache, pages, mesh)
     B, S = x.shape[:2]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     g = H // Hkv
@@ -560,7 +620,7 @@ def verify_attn_dense(p: Params, x: torch.Tensor, cache: Params,
         # K5 / K7's dense core (csrc/dense_verify.cu): q and the fresh keys
         # arrive post-RoPE.
         entries = {"k": k_new, "v": v_new}
-        kw = dict(window=window, scale=scale)
+        kw = dict(window=window, scale=scale, mesh=mesh)
         o = (kops.dense_decode_mq(q, cache, cur, feed_mask, entries, **kw)
              if ptab is None else
              kops.dense_decode_mq_paged(q, cache, ptab, cur, feed_mask,
@@ -587,13 +647,13 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
                        cfg: ModelConfig, cur: torch.Tensor,
                        feed_mask: torch.Tensor, window: int | None,
                        theta: float | None = None,
-                       pages: tuple | None = None):
+                       pages: tuple | None = None, mesh=None):
     """ReCalKV S-token verify: cached keys reconstructed and rotated by
     stored position, fresh latents as a causal self block, values latent
     through the fused W~_o.  ``pages`` as for :func:`decode_attn_latent`.
     Returns (y (B, S, d), deferred entries with (B, S, ...) leaves and
     "pos" (B, S))."""
-    cache, ptab = _pool_route(cfg, cache, pages)
+    cache, ptab = _pool_route(cfg, cache, pages, mesh)
     theta = theta or cfg.rope_theta
     B, S = x.shape[:2]
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
@@ -615,7 +675,7 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
         # One multi-query kernel call: the S fresh latents are its own
         # self-column operands (int8 round trip included), rotated at pos_q.
         kw = dict(theta=theta, window=window, scale=scale,
-                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps)
+                  k_norm=p.get("k_norm"), norm_eps=cfg.norm_eps, mesh=mesh)
         o_lat = (kops.latent_decode_mq(q, cache, p["r_k"], cur, feed_mask,
                                        entry, **kw)
                  if ptab is None else
@@ -684,7 +744,8 @@ def verify_attn_mla(p: Params, x: torch.Tensor, cache: Params,
 
 
 def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
-                        mask: torch.Tensor, pages: tuple | None = None) -> list:
+                        mask: torch.Tensor, pages: tuple | None = None,
+                        mesh=None) -> list:
     """Commit an S-position verify step's deferred entries for the
     accepted prefix only, in place: column j writes at position cur + j
     where ``mask[:, j]``, so the ring after a speculative round equals
@@ -693,7 +754,11 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     window writes column by column in ascending j (last write wins, as S
     sequential decode writes would).  With ``pages`` one write per leaf
     always does: ``_paged_targets`` keeps, of the entries that JAX's
-    column-by-column writes would overwrite, only the last."""
+    column-by-column writes would overwrite, only the last.  On a
+    ``mesh`` as :func:`apply_decode_writes`; a ring writes column by
+    column there (a row's columns on different ranks may share a local
+    index)."""
+    pages, cur, mask, updates = _pool_writes_of_all_slots(mesh, pages, cur, mask, updates)
     S = mask.shape[1]
     cols = torch.arange(S, device=cur.device)
     targets = None if pages is None else _paged_targets(
@@ -701,13 +766,14 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     for cache, upd in zip(caches, updates):
         for name, leaf in cache.get("self", {}).items():
             new = upd["self"][name]
+            lmesh = _leaf_mesh(leaf, cache["self"], mesh)
             if pages is not None:
-                _paged_merge_leaf(leaf, new, targets)
+                _paged_merge_leaf(leaf, new, _own_targets(targets, leaf.shape[1], lmesh))
                 continue
             B, Lr = leaf.shape[:2]
-            if S > Lr:
+            if S > Lr or _seq_shard(lmesh)[1] > 1:
                 for j in range(S):
-                    _merge_leaf(leaf, new[:, j], cur + j, mask[:, j])
+                    _merge_leaf(leaf, new[:, j], cur + j, mask[:, j], lmesh)
                 continue
             rows = torch.arange(B, device=leaf.device)[:, None]
             slots = (cur.to(torch.int64)[:, None] + cols) % Lr          # (B, S)

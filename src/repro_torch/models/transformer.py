@@ -15,6 +15,14 @@ frontend's embeddings, run through :func:`encode` first when the model is
 an encoder-decoder.  Prefill writes the source's keys and values (or
 latents) into the layer's cross cache, which decode and verify read and
 never write.
+
+On a mesh (``ctx["mesh"]``, see ``launch.mesh``) the decode and verify
+steps take this rank's cache shards and its slot rows: the attention
+readers score their sequence slice and merge (``kernels.ops``), the
+writes land where the column lives (``kv_cache``), and, with more than
+one "data" rank, an MoE FFN runs on every data rank's tokens, gathered,
+so its expert capacity and drops are the single-device ones.  Params
+read through ``sharding.place.MeshParams`` arrive gathered.
 """
 
 from __future__ import annotations
@@ -42,13 +50,22 @@ def _theta(cfg: ModelConfig, kind: str) -> float:
 
 
 def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-         with_aux: bool = False):
+         with_aux: bool = False, mesh=None):
     """The block's FFN on its residual: dense on ``attn_dense``, the
     cross-attention kinds and ``rglru``.  Returns (x, the MoE's aux loss
-    term with ``with_aux``, else None)."""
-    y, aux = L.ffn(p["mlp"], L.rmsnorm(x, p["ln2"], cfg.norm_eps), cfg,
-                   dense=kind in ("attn_dense", "cross", "attn_cross", "rglru"),
-                   with_aux=with_aux)
+    term with ``with_aux``, else None).  With a ``mesh`` of more than one
+    "data" rank an MoE FFN runs on the gathered slot rows of every data
+    rank and keeps its own."""
+    dense = kind in ("attn_dense", "cross", "attn_cross", "rglru")
+    h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
+    split = (mesh is not None and mesh.axis_size("data") > 1
+             and cfg.moe is not None and not dense)
+    if split:
+        b = h.shape[0]
+        h = mesh.all_gather(h, "data")
+    y, aux = L.ffn(p["mlp"], h, cfg, dense=dense, with_aux=with_aux)
+    if split:
+        y = y[mesh.axis_index("data") * b:(mesh.axis_index("data") + 1) * b]
     return x + y, aux
 
 
@@ -186,8 +203,9 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                   else KC.decode_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        cfg.window_for(kind), theta=_theta(cfg, kind),
-                       pages=ctx.get("pages"))
-    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache))
+                       pages=ctx.get("pages"), mesh=ctx.get("mesh"))
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache),
+                mesh=ctx.get("mesh"))
     return x, {"self": sc}
 
 
@@ -216,8 +234,10 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                   else KC.verify_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        ctx["feed_mask"], cfg.window_for(kind),
-                       theta=_theta(cfg, kind), pages=ctx.get("pages"))
-    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache))
+                       theta=_theta(cfg, kind), pages=ctx.get("pages"),
+                       mesh=ctx.get("mesh"))
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache),
+                mesh=ctx.get("mesh"))
     return x, {"self": sc}
 
 
@@ -410,43 +430,44 @@ def prefill(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
 
 def decode_step(cfg: ModelConfig, params: Params, caches: list,
                 tokens: torch.Tensor, cur: torch.Tensor,
-                active: torch.Tensor | None = None, pages=None):
+                active: torch.Tensor | None = None, pages=None, mesh=None):
     """One decode step.  tokens (B,), cur (B,) absolute positions;
     ``active`` (B,) bool masks cache writes for idle rows; ``pages`` =
-    (ptab (B, n_sp) int32, page_size) reads and writes page-major pools.
-    The caches are updated in place after the layer loop.  Returns
-    (logits (B, V), caches)."""
+    (ptab (B, n_sp) int32, page_size) reads and writes page-major pools
+    (page_size the full page's); ``mesh``: the caches and rows are this
+    rank's shards (module docstring).  The caches are updated in place
+    after the layer loop.  Returns (logits (B, V), caches)."""
     x = embed_tokens(cfg, params, tokens[:, None])
-    ctx = {"cur": cur, "pages": pages}
+    ctx = {"cur": cur, "pages": pages, "mesh": mesh}
     x, updates = run_stack(cfg, params, x, ctx, caches, decode=True)
-    KC.apply_decode_writes(caches, updates, cur, active, pages=pages)
+    KC.apply_decode_writes(caches, updates, cur, active, pages=pages, mesh=mesh)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_for(cfg, params, x)[:, 0], caches
 
 
 def verify_step(cfg: ModelConfig, params: Params, caches: list,
                 tokens: torch.Tensor, cur: torch.Tensor,
-                feed_mask: torch.Tensor, pages=None):
+                feed_mask: torch.Tensor, pages=None, mesh=None):
     """Speculative-decoding target pass: logits for S fed tokens in one
     pass.  tokens (B, S) — column 0 is the slot's next sequential feed,
     columns 1.. are draft proposals (-1 pads embed as token 0); cur (B,)
     the position of column 0; feed_mask (B, S) marks candidate columns;
-    ``pages`` as for :func:`decode_step`.  Cache writes are NOT applied:
+    ``pages`` and ``mesh`` as for :func:`decode_step`.  Cache writes are NOT applied:
     the deferred (B, S, ...) updates are returned for
     :func:`commit_verify_writes`.  Returns (logits (B, S, V) float32,
     updates)."""
     x = embed_tokens(cfg, params, tokens.clamp(min=0))
-    ctx = {"cur": cur, "feed_mask": feed_mask, "pages": pages}
+    ctx = {"cur": cur, "feed_mask": feed_mask, "pages": pages, "mesh": mesh}
     x, updates = run_stack(cfg, params, x, ctx, caches, verify=True)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     return logits_for(cfg, params, x), updates
 
 
 def commit_verify_writes(caches: list, updates: list, cur: torch.Tensor,
-                         mask: torch.Tensor, pages=None) -> list:
+                         mask: torch.Tensor, pages=None, mesh=None) -> list:
     """Write a verify step's deferred entries for the accepted prefix
     (``mask`` (B, S) bool), in place."""
-    return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages)
+    return KC.apply_verify_writes(caches, updates, cur, mask, pages=pages, mesh=mesh)
 
 
 CACHE_PARTS = ("self", "cross", "state")

@@ -6,7 +6,8 @@ all-reduce's traffic 4x against float32; the residual carried in the
 train state keeps the compression unbiased over steps.  On one card
 ``with_error_feedback`` simulates what arrives on the other side of such
 a reduction.  ``compressed_psum``, the reduction itself across devices,
-needs a mesh, which the port does not have yet.
+comes with training on a mesh (ROADMAP.md Queue 1 item 5a); the port's
+meshes serve only so far (``launch.mesh``).
 
 Leaves are the JAX package's (``weights.leaves_in_jax_order`` of the model
 config): a scanned block's leaf is one leaf over all its periods, so
@@ -20,8 +21,8 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import leaves_in_jax_order, map_tree
 
-PSUM_NOT_PORTED = ("compressed_psum needs a device mesh, which the port does not "
-                   "have yet (ROADMAP.md, Queue 1 item 5); with_error_feedback "
+PSUM_NOT_PORTED = ("compressed_psum is not ported yet: training on a mesh is "
+                   "ROADMAP.md, Queue 1 item 5a; with_error_feedback "
                    "simulates the compressed reduction on one card")
 
 
@@ -43,7 +44,8 @@ def dequantize_leaf(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
 
 
 def compressed_psum(grads, axis_name: str):
-    """Quantized all-reduce over a mesh axis: not ported (no mesh yet)."""
+    """Quantized all-reduce over a mesh axis: not ported yet (training on a
+    mesh, ROADMAP.md Queue 1 item 5a)."""
     raise NotImplementedError(PSUM_NOT_PORTED)
 
 

@@ -119,7 +119,28 @@ power-of-two prompt length of its wave.  Speculation (``spec_depth >
 0``) and the paged pool raise ``ValueError`` for such a model, as in the
 JAX package.
 
-Not ported yet (see ROADMAP.md): meshes (Queue 1 item 5).
+Mesh serving (``mesh``, a ``launch.mesh.Mesh`` of ("data", "model")
+ranks; one process a rank, every rank running this engine on the same
+submitted requests).  The params rest as each rank's shards by
+``sharding.rules.param_specs`` (head-grained) and each layer's leaves are
+gathered where the model reads them (``sharding.place.MeshParams``); the
+cache is each rank's shard by ``cache_specs``: ring slots over "data" and
+ring positions over "model", a pool's page offsets over "model".  Data
+rank k steps slots [k * B / D, (k + 1) * B / D) (the scheduler packs a
+wave into one such group, ``slot_shards``); the model ranks of a data
+rank run the same rows, each scoring its sequence slice, merged by
+log-sum-exp (``kernels.ops``).  The wave prefill runs on every rank over
+replicated operands and each rank keeps its slots' rows and columns (on
+the pool, every page's offsets).  One all-gather over "data" a window
+brings the window's tokens and final state to every rank's host mirror,
+so every rank's scheduler takes the same decisions and
+``host_syncs == windows + admission_syncs`` still holds.  Refused by name
+on a mesh of more than one rank (ROADMAP.md Queue 1 items 5b-5c):
+``overlap``, ``continuous`` and ``aot``; MLA, cross-attention and
+recurrent blocks; the layer draft; the einsum backend (its readers would
+need the merge in einsum form); and shapes the rules do not split evenly
+(slots over "data", every ring length and the page size over "model", a
+pool whose page count "data" would split).
 """
 
 from __future__ import annotations
@@ -137,6 +158,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.device import resolve_device
+from repro_torch.launch.mesh import single_device_mesh
 from repro_torch.models import kv_cache as KC
 from repro_torch.models import transformer as T
 from repro_torch.models.config import RECURRENT_KINDS, ModelConfig, check_supported
@@ -150,6 +172,8 @@ from repro_torch.serving.pipeline import (AdmissionWorker, InflightWindow,
 from repro_torch.serving.policy import AdmissionPolicy, get_policy
 from repro_torch.serving.sampler import SamplingParams
 from repro_torch.serving.scheduler import Request, Scheduler
+from repro_torch.sharding import place as SP
+from repro_torch.sharding import rules as SR
 
 __all__ = ["DraftSpec", "Engine", "Request", "SamplingParams"]
 
@@ -159,34 +183,46 @@ __all__ = ["DraftSpec", "Engine", "Request", "SamplingParams"]
 STAGE_FREE = np.iinfo(np.int32).max
 
 
+def _model_slice(src: torch.Tensor, local: int, mesh) -> torch.Tensor:
+    """This rank's slice of dim 1 (ring columns, or a page's offsets) of a
+    full prefill leaf, ``local`` wide (the whole leaf off a mesh)."""
+    if mesh is None or src.shape[1] == local:
+        return src
+    m = mesh.axis_index("model")
+    return src[:, m * local:(m + 1) * local]
+
+
 def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor,
-                rows: torch.Tensor | None = None) -> list:
+                rows: torch.Tensor | None = None, mesh=None) -> list:
     """Copy batch rows of ``new_cache`` into ``pool_cache`` at ``slots``, in
     place: the leading ``len(slots)`` rows (the prefill wave may be padded
     past that for shape bucketing; the pad rows are dropped here), or the
-    wave rows ``rows`` when given."""
+    wave rows ``rows`` when given.  On a ``mesh`` ``slots`` are this
+    rank's local slot rows and each leaf takes its column slice."""
     n = slots.shape[0]
     for pool, new in zip(pool_cache, new_cache):
         for part, leaves in pool.items():
             for name, leaf in leaves.items():
                 src = new[part][name]
-                leaf[slots] = (src[:n] if rows is None else src[rows]).to(leaf.dtype)
+                src = src[:n] if rows is None else src[rows]
+                leaf[slots] = _model_slice(src, leaf.shape[1], mesh).to(leaf.dtype)
     return pool_cache
 
 
 def _merge_slot_paged(pool_cache: list, new_cache: list, rows, cols, phys,
-                      page_size: int) -> list:
+                      page_size: int, mesh=None) -> list:
     """Scatter prefill rows into the paged pool, in place: ``new_cache`` is
     slot-major (W, L, ...); its page (rows[t], cols[t]) — wave row, slot
     page index — lands in physical page ``phys[t]``.  Shared prefix pages
     are absent from the lists: their content is already resident, so
-    admission never rewrites them."""
+    admission never rewrites them.  On a ``mesh`` each page takes this
+    rank's slice of its offsets."""
     for pool, new in zip(pool_cache, new_cache):
         for name, leaf in pool["self"].items():
             src = new["self"][name]
             tiles = src.reshape((src.shape[0], src.shape[1] // page_size,
                                  page_size) + tuple(src.shape[2:]))
-            leaf[phys] = tiles[rows, cols].to(leaf.dtype)
+            leaf[phys] = _model_slice(tiles[rows, cols], leaf.shape[1], mesh).to(leaf.dtype)
     return pool_cache
 
 
@@ -255,7 +291,7 @@ class Engine:
                  continuous: bool = False, staging_depth: int | None = None,
                  admission_thread: bool | None = None,
                  adaptive_spec: bool = False, profile: bool = False,
-                 device=None):
+                 device=None, mesh=None):
         if backend is not None:
             cfg = dataclasses.replace(cfg, attn_backend=backend)
         if sync_every < 1:
@@ -299,6 +335,14 @@ class Engine:
         check_supported(cfg, self.device)
         page_size, n_pages = self._check_layout(
             cfg, max_slots, max_len, cache_layout, page_size, n_pages)
+        self.mesh = mesh if mesh is not None else single_device_mesh()
+        self.mesh_str = str(self.mesh)
+        # the mesh the steps see: None on one rank (no collective at all)
+        self._mesh = self.mesh if self.mesh.size > 1 else None
+        if self._mesh is not None:
+            self._check_mesh(cfg, max_slots, max_len, cache_layout, page_size,
+                             n_pages, overlap=overlap, continuous=continuous,
+                             aot=aot, draft=parsed_draft)
         resolved_policy = get_policy(policy)
         if pin_prefixes < 0:
             raise ValueError("pin_prefixes must be >= 0")
@@ -336,7 +380,8 @@ class Engine:
         self.sync_every = sync_every
         self.scheduler = Scheduler(max_slots, max_len,
                                    prefill_chunk=prefill_chunk,
-                                   policy=resolved_policy)
+                                   policy=resolved_policy,
+                                   slot_shards=self.mesh.shape["data"])
         self.policy = self.scheduler.policy
         self.cache_layout = cache_layout
         self.page_size, self.n_pages = page_size, n_pages
@@ -349,9 +394,19 @@ class Engine:
             self._prefixes = PrefixRegistry()
             self._slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
         self.policy.configure(page_size=page_size, registry=self._prefixes)
-        self.cache = T.init_decode_cache(
-            cfg, max_slots, max_len, self.device,
-            pages=None if self._pages is None else (n_pages, page_size))
+        pages_shape = None if self._pages is None else (n_pages, page_size)
+        if self._mesh is None:
+            self.cache = T.init_decode_cache(cfg, max_slots, max_len, self.device,
+                                             pages=pages_shape)
+        else:
+            self.params = SP.MeshParams(cfg, params, self._mesh,
+                                        grains=SR.head_grains(cfg))
+            self.cache = SP.local_cache(
+                T.init_decode_cache(cfg, max_slots, max_len, "meta", pages=pages_shape),
+                self._mesh, self.device)
+        # this rank's slot rows: [lo, lo + B / D)
+        self._slot_n = max_slots // self.mesh.shape["data"]
+        self._slot_lo = self.mesh.axis_index("data") * self._slot_n
         self.spec_depth = spec_depth
         self.draft = (parsed_draft or DraftSpec("ngram")) if spec_depth else None
         # A requested kernel backend that still routes layer kinds through
@@ -496,6 +551,49 @@ class Engine:
         self._gst = self._gout = self._gk = None
         if self.aot and self.device.type == "cuda":
             self._capture()
+
+    def _check_mesh(self, cfg, max_slots, max_len, cache_layout, page_size, n_pages,
+                    *, overlap, continuous, aot, draft):
+        """What a mesh of more than one rank refuses, by name."""
+        item = "ROADMAP.md Queue 1 item"
+        for flag, on in (("continuous", continuous), ("aot", aot), ("overlap", overlap)):
+            if on:
+                raise ValueError(
+                    f"{flag}=True is not ported to a mesh yet ({item} 5c): the mesh "
+                    f"engine is the synchronous one (gloo collectives cannot be "
+                    f"captured in a CUDA graph; NCCL capture is still to come)")
+        kinds = sorted({k for k in cfg.expanded_layers()
+                        if k in RECURRENT_KINDS or k in ("cross", "attn_cross")})
+        if cfg.mla is not None or kinds:
+            what = "MLA" if cfg.mla is not None else f"{kinds} blocks"
+            raise ValueError(
+                f"{cfg.name}: {what} are not served on a mesh yet ({item} 5b): "
+                f"their einsum readers need the log-sum-exp merge in einsum form")
+        if draft is not None and draft.kind == "layers":
+            raise ValueError(f"the layer draft is not ported to a mesh yet ({item} 5b)")
+        if cfg.attn_backend != "kernel":
+            raise ValueError(
+                f"a mesh serves through the decode kernels (backend='kernel'); the "
+                f"einsum readers would need the merge in einsum form ({item} 5b)")
+        D, M = self.mesh.shape["data"], self.mesh.shape["model"]
+        if max_slots % D:
+            raise ValueError(f"max_slots={max_slots} does not split over {D} data "
+                             f"ranks ({item} 5b)")
+        if cache_layout == "paged":
+            if page_size % M:
+                raise ValueError(f"page_size={page_size} does not split over {M} "
+                                 f"model ranks ({item} 5b)")
+            if D > 1 and n_pages % D == 0:
+                raise ValueError(
+                    f"n_pages={n_pages} would split the pool's pages over {D} data "
+                    f"ranks; the mesh engine keeps every page on every data rank "
+                    f"({item} 5b): take a page count {D} does not divide")
+        else:
+            bad = sorted({n for n in (cfg.cache_len(k, max_len)
+                                      for k in cfg.expanded_layers()) if n % M})
+            if bad:
+                raise ValueError(f"ring lengths {bad} do not split over {M} model "
+                                 f"ranks ({item} 5b)")
 
     def _check_source(self, cfg, source):
         """``source`` on the engine's device in ``cfg.dtype`` (None for a
@@ -873,9 +971,12 @@ class Engine:
         t = self._dev
         lens = [fl for *_, fl in entries]
         if self._pages is None:
-            # the ring never skips
-            _merge_slot(self.cache, new_cache, t([s for s, *_ in entries]),
-                        rows=t([ri for _, _, ri, _ in entries]))
+            # the ring never skips; on a mesh this rank keeps its own slots
+            lo, n = self._slot_lo, self._slot_n
+            mine = [(s - lo, ri) for s, _, ri, _ in entries if lo <= s < lo + n]
+            if mine:
+                _merge_slot(self.cache, new_cache, t([s for s, _ in mine]),
+                            rows=t([ri for _, ri in mine]), mesh=self._mesh)
         else:
             rws, cols, phys = [], [], []
             for i, (slot, r, ri, fl) in enumerate(entries):
@@ -888,7 +989,7 @@ class Engine:
                 phys += [mapping[j] for j in scat]
             if phys:
                 _merge_slot_paged(self.cache, new_cache, t(rws), t(cols), t(phys),
-                                  self.page_size)
+                                  self.page_size, mesh=self._mesh)
         pre = [(s, ri) for s, _, ri, _ in entries if ri >= 0]
         if draft_new_cache is not None and pre:
             _merge_slot(self.draft_cache, draft_new_cache, t([s for s, _ in pre]),
@@ -1200,7 +1301,7 @@ class Engine:
         t = self._dev
         _merge_slot_paged(self.cache, new_cache, t([0] * len(rebuild)),
                           t(rebuild), t([mapping[j] for j in rebuild]),
-                          self.page_size)
+                          self.page_size, mesh=self._mesh)
 
     # -- decode window -------------------------------------------------------
 
@@ -1294,7 +1395,7 @@ class Engine:
         feeding, tok_in, stepping, last_prompt = self._feed(st)
         logits, self.cache = T.decode_step(self.cfg, self.params, self.cache,
                                            tok_in, st["cur"], stepping,
-                                           pages=self._pages_of(st))
+                                           pages=self._pages_of(st), mesh=self._mesh)
         sampled, keys2 = self._sample(st, st["keys"], logits, any_sampled)
         emit = stepping & (~feeding | last_prompt)
         cur2 = st["cur"] + stepping.to(st["cur"].dtype)
@@ -1362,7 +1463,7 @@ class Engine:
                           speculating[:, None] & cap_ok[:, 1:]], dim=1)
         pages = self._pages_of(st)
         logits, updates = T.verify_step(cfg, self.params, self.cache, fed,
-                                        cur, cand, pages=pages)
+                                        cur, cand, pages=pages, mesh=self._mesh)
         keys, tok2 = st["keys"], st["tok"]
         done_any = torch.zeros_like(st["act"])
         nemit = torch.zeros_like(cur)
@@ -1387,7 +1488,8 @@ class Engine:
             toks.append(s_j)
         valid = torch.stack(valid, dim=1)                              # (B, S)
         # commit the accepted prefix (rejected tokens never wrote)
-        T.commit_verify_writes(self.cache, updates, cur, valid, pages=pages)
+        T.commit_verify_writes(self.cache, updates, cur, valid, pages=pages,
+                               mesh=self._mesh)
         if self.draft_cache is not None:
             # the draft wrote as it proposed: strike rejected columns from
             # its position index so they cannot shadow the slot
@@ -1449,7 +1551,8 @@ class Engine:
         """The host mirror on the device for one sync window: copied into
         the static state of the captured window, or fresh tensors."""
         if not self._graphs:
-            return {k: self._dev(v) for k, v in self._st.items()}
+            rows = slice(self._slot_lo, self._slot_lo + self._slot_n)
+            return {k: self._dev(v[rows]) for k, v in self._st.items()}
         for k, v in self._st.items():
             self._gst[k].copy_(torch.from_numpy(np.array(v)).pin_memory(),
                                non_blocking=True)
@@ -1536,7 +1639,11 @@ class Engine:
 
     def _harvest(self, state, ys, occ: int, qd: int):
         """The sync window's one host sync: mirror state, counters, emitted
-        tokens (toks / emits are (K, B[, S]) with S = spec_depth + 1)."""
+        tokens (toks / emits are (K, B[, S]) with S = spec_depth + 1).  On
+        a mesh the window ran this rank's slot rows: one all-gather over
+        "data" brings every rank's (``_gather_window``)."""
+        if self._mesh is not None:
+            state, ys = self._gather_window(state, ys)
         toks = ys["toks"].cpu().numpy()
         emits = ys["emits"].cpu().numpy()
         if toks.ndim == 2:
@@ -1563,6 +1670,43 @@ class Engine:
         for slot, r in enumerate(slot_req):
             if r is not None and not self._st["act"][slot]:
                 self._finish(slot)
+
+    def _gather_window(self, state: dict, ys: dict):
+        """Every data rank's slot rows of a window's final state and
+        outputs, in one all-gather over "data": each leaf is carried as
+        int64 words (floats by their bits), packed per slot row; the
+        (K,) active counts ride every row and sum over the data ranks.
+        Returns (state, ys) over all B slots, on the host."""
+        n = self._slot_n
+        K = ys["n_act"].shape[0]
+        parts, layout = [], []
+
+        def put(key, t):
+            flat = t.reshape(n, -1)
+            if flat.dtype == torch.float32:
+                flat = flat.view(torch.int32)
+            parts.append(flat.to(torch.int64))
+            layout.append((key, t.dtype, tuple(t.shape[1:]), flat.shape[1]))
+        for k, v in state.items():
+            put(("st", k), v)
+        for k, v in ys.items():
+            if k == "n_act":
+                put(("ys", k), v.reshape(1, K).expand(n, K))
+            else:   # (K, n[, S]) -> (n, K[, S])
+                put(("ys", k), v.movedim(1, 0))
+        full = self._mesh.all_gather(torch.cat(parts, dim=1), "data").cpu()
+        out = {"st": {}, "ys": {}}
+        col = 0
+        for (kind, k), dt, shape, w in layout:
+            x = full[:, col:col + w]
+            col += w
+            x = (x.to(torch.int32).view(torch.float32) if dt == torch.float32
+                 else x.to(dt))
+            x = x.reshape((self.B,) + shape)
+            if kind == "ys":
+                x = x[::n].sum(dim=0) if k == "n_act" else x.movedim(0, 1)
+            out[kind][k] = x
+        return out["st"], out["ys"]
 
     def _adaptive_update(self, ok, act, accs, props, installed=()):
         """Fold a window's per-slot accepted / proposed counts into the
@@ -2229,6 +2373,9 @@ class Engine:
                      "prefix_resurrections": pool.prefix_resurrections}
         return {
             "tokens": tokens,
+            "mesh": self.mesh_str,
+            "mesh_stats": dict(self.mesh.stats, gathered_weight_bytes=getattr(
+                self.params, "gathered_bytes", 0)),
             "windows": self.windows,
             "sync_every": self.sync_every,
             "cache_layout": self.cache_layout,

@@ -52,12 +52,20 @@ class Scheduler:
 
     def __init__(self, max_slots: int, max_len: int,
                  prefill_chunk: int | None = None,
-                 policy: str | AdmissionPolicy | None = None):
+                 policy: str | AdmissionPolicy | None = None, slot_shards: int = 1):
         if prefill_chunk is not None and prefill_chunk < 1:
             raise ValueError("prefill_chunk must be >= 1")
+        if slot_shards < 1 or max_slots % slot_shards:
+            raise ValueError(
+                f"slot_shards={slot_shards} must divide max_slots="
+                f"{max_slots} (each addressable shard owns whole slots)")
         self.max_slots = max_slots
         self.max_len = max_len
         self.prefill_chunk = prefill_chunk
+        # On a mesh the slots [k * max_slots / slot_shards, (k + 1) * ...)
+        # live on "data" rank k: a wave is packed into as few of these
+        # groups as it can be (``_wave_slot_order``).
+        self.slot_shards = slot_shards
         self.policy = get_policy(policy)
         self.queue: deque[Request] = deque()
         self.slot_req: list[Request | None] = [None] * max_slots
@@ -101,10 +109,31 @@ class Scheduler:
     def free_slots(self) -> list[int]:
         return [i for i, r in enumerate(self.slot_req) if r is None]
 
-    def take_wave(self, fits=None) -> list[tuple[int, Request]]:
-        """Admit queued requests into free slots in policy order."""
-        wave = []
+    def _wave_slot_order(self, want: int) -> list[int]:
+        """Free slots ordered for a wave of ``want`` requests, slot-group
+        aware: the tightest single group that fits the whole wave (best
+        fit, so emptier groups stay whole for bigger waves), else fullest
+        first so the wave spans the fewest groups."""
         free = self.free_slots()
+        if self.slot_shards == 1 or not free:
+            return free
+        per = self.max_slots // self.slot_shards
+        groups: dict[int, list[int]] = {}
+        for s in free:
+            groups.setdefault(s // per, []).append(s)
+        by_size = sorted(groups.values(), key=lambda g: (len(g), g[0]))
+        fit = next((g for g in by_size if len(g) >= want), None)
+        if fit is not None:
+            rest = [g for g in by_size if g is not fit]
+            return fit + [s for g in rest for s in g]
+        by_size.sort(key=lambda g: (-len(g), g[0]))
+        return [s for g in by_size for s in g]
+
+    def take_wave(self, fits=None) -> list[tuple[int, Request]]:
+        """Admit queued requests into free slots in policy order (slot
+        choice by ``_wave_slot_order``)."""
+        wave = []
+        free = self._wave_slot_order(min(len(self.free_slots()), len(self.queue)))
         for req in self.policy.select(self.queue, len(free), fits):
             slot = free.pop(0)
             self.slot_req[slot] = req

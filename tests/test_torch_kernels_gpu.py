@@ -33,7 +33,11 @@ product (1e-3 of the product's largest entry: cuSOLVER's and LAPACK's
 f32 SVDs differ in their last bits).  Continuous batching's install: its
 row copy (``csrc/stage_install.cu``) equals its plain version bit for
 bit, idle and installing, and a replayed continuous window serves the
-eager continuous window's streams.
+eager continuous window's streams.  The mesh's kernels: every decode
+kernel with ``return_lse`` against its plain version's (o, m, l), its
+output bit for bit the bare launch's; and on 2 and 4 sequence shards
+merged by ``ops.merge_stacked``, against the unsharded kernel in float32
+and the unsharded plain version by the bf16 rule.
 """
 
 import dataclasses
@@ -1629,3 +1633,141 @@ def test_continuous_graph_streams_equal_eager(cuda, name, dense, flags, must):
     for gr in m["graphs"].values():
         assert gr["launches"][must] > 0
         assert gr["launches"].get("stage_install_rows", 0) == (0 if flags else 1)
+
+
+# -- return_lse: the merged softmax state, and a sequence-sharded merge -------
+
+def _lse_case(cuda, name, dtype, seed):
+    """(kernel, plain, args, kw, ring columns S, nq, page size or None,
+    the latents' positions in ``args``) at a small ragged shape: a ring of
+    96 columns (a page size of 16 on the pool), row 1 empty past 40, row 2
+    masked everywhere but its self columns."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    rn = lambda *sh: torch.randn(sh, generator=g, device=cuda)
+    dense, quant = name.startswith("dense"), "quant" in name
+    paged, nq = "paged" in name, 3 if "_mq" in name else 1
+    B, S, dh, ps = 3, 96, 128, 16
+    G, s, qpk, r = (4, 1, 4, dh) if dense else (2, 4, 2, 32)
+    Hg = s * qpk
+    pos = torch.arange(S, device=cuda).repeat(B, 1)
+    pos[1, 40:] = -1
+    cur = torch.full((B,), S, device=cuda)
+    pos_q = cur[:, None] + torch.arange(nq, device=cuda)
+    feed = torch.ones((B, nq), dtype=torch.bool, device=cuda)
+    bias = ops.verify_bias(torch.cat([pos, pos_q], 1), pos_q, feed, None, S)
+    bias[2, :, :S] = -1e30
+    if nq == 1:
+        bias = bias[:, 0, :S].contiguous()
+    q = rn(B, G, nq * Hg, dh).to(dtype)
+    zk, zv = rn(B, S, G, r), rn(B, S, G, r)
+    selfs = rn(B, nq, G, r), rn(B, nq, G, r)
+    one = (lambda x: x[:, 0]) if nq == 1 else (lambda x: x)
+    mod = KD if dense else KQ if quant else K1
+    kernel, plain = getattr(mod, name), getattr(mod, name + "_plain")
+    kw = dict(scale=dh ** -0.5)
+    if dense:
+        kw.update(self_k=one(selfs[0]).to(dtype), self_v=one(selfs[1]).to(dtype))
+        lat = (zk.to(dtype), zv.to(dtype))
+        args, lat_at = (q, *lat, bias), (1, 2)
+    else:
+        cos, sin = ops.rope_tables_for(pos, dh, 1e6)
+        cs, ss = ops.rope_tables_for(pos_q, dh, 1e6)
+        kw.update(k_norm=0.1 * rn(dh), self_cos=one(cs), self_sin=one(ss))
+        r_k = (rn(G, r, s * dh) / math.sqrt(r)).to(dtype)
+        if quant:
+            (zkq, zks), (zvq, zvs) = _quant(zk), _quant(zv)
+            (sk, sks), (sv, svs) = _quant(selfs[0]), _quant(selfs[1])
+            kw.update(self_zk_q=one(sk), self_zk_s=one(sks), self_zv_q=one(sv),
+                      self_zv_s=one(svs))
+            args, lat_at = (q, zkq, zks, zvq, zvs, r_k, cos, sin, bias), (1, 2, 3, 4, 6, 7)
+        else:
+            kw.update(self_zk=one(selfs[0]).to(dtype), self_zv=one(selfs[1]).to(dtype))
+            args, lat_at = (q, zk.to(dtype), zv.to(dtype), r_k, cos, sin, bias), (1, 2, 4, 5)
+    if paged:   # the ring's pages in order on pages 1.., the null page 0 first
+        ptab = (torch.arange(S // ps, device=cuda, dtype=torch.int32)[None] + 1
+                + torch.arange(B, device=cuda, dtype=torch.int32)[:, None] * (S // ps))
+        pool = lambda x: torch.cat([torch.zeros_like(x[0, :ps])[None],
+                                    x.reshape((B * S // ps, ps) + tuple(x.shape[2:]))])
+        args = (ptab, args[0], pool(args[1]), pool(args[2]), *args[3:])
+        lat_at = (2, 3, 5, 6)
+    return kernel, plain, args, kw, S, nq, (ps if paged else None), lat_at
+
+
+def _shard(args, kw, lat_at, S, nq, ps, i, n):
+    """Sequence shard i of n: ring columns [i S / n, (i + 1) S / n) (each
+    page's offsets on the pool), the self columns on the last shard only."""
+    last = i == n - 1
+    cols = torch.arange(S, device=args[-1].device)
+    if ps is None:
+        keep = cols[i * S // n:(i + 1) * S // n]
+    else:
+        w = ps // n
+        keep = cols[(cols % ps) // w == i]
+    out = list(args)
+    for j in lat_at:
+        x = args[j]
+        if ps is not None and x.dim() == 4 and x.shape[1] == ps:   # a pool leaf
+            out[j] = x[:, i * (ps // n):(i + 1) * (ps // n)].contiguous()
+        else:
+            out[j] = x[:, keep].contiguous()
+    b = args[-1]
+    kw = dict(kw)
+    if nq == 1:
+        out[-1] = b[:, keep].contiguous()
+        if not last:
+            kw.update({k: None for k in kw if k.startswith("self_")})
+    else:
+        tail = b[..., S:] if last else torch.full_like(b[..., S:], -1e30)
+        out[-1] = torch.cat([b[..., keep], tail], dim=-1).contiguous()
+    return tuple(out), kw
+
+
+LSE_NAMES = ["latent_decode_attention", "latent_decode_attention_quant",
+             "latent_decode_attention_paged", "latent_decode_attention_mq",
+             "latent_decode_attention_mq_quant", "latent_decode_attention_mq_paged",
+             "dense_decode_attention", "dense_decode_attention_mq"]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", LSE_NAMES)
+def test_return_lse_matches_plain_state(cuda, name, dtype):
+    """(o, m, l) against the plain version's: o in the usual limit, m and l
+    within 1e-4 (|l| + 1) in float32 and chip_smoke's relative bf16 limit;
+    o bit for bit the launch's without the state; rows that see nothing
+    m = NEG_INF, l = 0 (the verify's row 2 sees its self columns)."""
+    kernel, plain, args, kw, S, nq, ps, _ = _lse_case(cuda, name, dtype, 7)
+    o, m, l = kernel(*args, **kw, return_lse=True)
+    bare = kernel(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o, bare)
+    po, pm, pl = plain(*args, **kw, return_lse=True)
+    torch.testing.assert_close(o.float(), po.float(), atol=TOL[dtype], rtol=TOL[dtype])
+    for got, want in ((m, pm), (l, pl)):
+        assert got.shape == want.shape == o.shape[:-1] and got.dtype == torch.float32
+        dead = want.abs() > 1e29
+        assert torch.equal(got[dead], want[dead])
+        rel = 1e-4 if dtype == torch.float32 else 2e-2
+        assert ((got - want).abs() <= rel * (want.abs() + 1)).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", LSE_NAMES)
+def test_sequence_shards_merge_to_the_unsharded_kernel(cuda, name, dtype, n):
+    """Each shard's (o, m, l), merged by ``ops.merge_stacked`` (the mesh's
+    two all-reduces as reductions over the stacked parts), equals the
+    unsharded kernel within 1e-4 in float32; in bf16 (the merge reads each
+    shard's bf16 output) it is held to the unsharded plain version by
+    chip_smoke's bf16 rule, as the kernel is."""
+    kernel, plain, args, kw, S, nq, ps, lat_at = _lse_case(cuda, name, dtype, 11)
+    want = kernel(*args, **kw) if dtype == torch.float32 else plain(*args, **kw)
+    parts = [kernel(*a, **k, return_lse=True)
+             for a, k in (_shard(args, kw, lat_at, S, nq, ps, i, n) for i in range(n))]
+    got = ops.merge_stacked(*(torch.stack(x) for x in zip(*parts)))
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+    else:
+        _within_bf16_limit(got, want)
