@@ -142,9 +142,10 @@ Phases, in order (any failure exits non-zero; none is caught):
    read from the allocated tensors; then the serving CLI
    (``repro_torch.launch.serve.main``) at full width with ``--continuous
    --aot``: 16 requests must finish;
-7. the families at full width and depth (``phase_families``, bf16, random
-   weights from seed 0, 8 slots, max_len 4096, each model freed before
-   the next): gemma3-12b dense, its logits through both backends (prompts
+7. the families at full width (``phase_families``, bf16, random weights
+   from seed 0, 8 slots, max_len 4096, each model freed before the next;
+   gemma3-12b at full depth, minicpm-2b and h2o-danube-1.8b at half
+   theirs, ``MINICPM_LAYERS`` / ``DANUBE_LAYERS``): gemma3-12b dense, its logits through both backends (prompts
    of 1,536 and 700 tokens in 2,048-token rings: the 1,024-token local
    rings wrap), then V (A's prompts, float ring, sync), V+ (V overlapped
    with graphs: V's streams) and V3 (C's prompts, spec_depth 3, "ngram");
@@ -155,11 +156,11 @@ Phases, in order (any failure exits non-zero; none is caught):
    minicpm-2b at ratio 0.5, M (D's pool and traffic), and dense, M3 (the
    dense pool, C's prompts, "ngram"); cache bytes per token and layer
    8,192 (V), 4,096 (U), 4,608 (M), 9,216 (M3); then h2o-danube-1.8b
-   (24 local layers of window 4,096, d_head 80) dense, its logits through
+   (12 of its 24 local layers of window 4,096, d_head 80) dense, its logits through
    both backends, N (A's prompts) and N3 (C's, "ngram"), compressed in
    the run (G 2, r 160, not saved), both backends' logits again, NU, NU3
    and NUB (B's: int8 ring, "layers:4"); then qwen3-moe-235b-a22b at full
-   width and 8 of its 94 layers (MOE_LAYERS: 42.3 GB of weights; the
+   width and 4 of its 94 layers (MOE_LAYERS: 22.4 GB of weights; the
    card's 80 GB hold about 14 layers), first both backends' logits in
    float32 on 2 layers, dense and compressed (bf16 rounding flips top-8
    expert choices between the backends), then the bf16 model: decode and
@@ -214,8 +215,18 @@ Phases, in order (any failure exits non-zero; none is caught):
    streams' agreement, and where they part the top-2 logit margin, are
    reported), MD (D's pool and prompts; must share pages), and short
    runs that launch the other kernels' ``return_lse`` variants (MB, MB2,
-   MC2, MD2, MH, MH2); depth, tokens and windows cut as ``MESH_RUNS``
-   says (every weight is gathered across the host at every step).  The
+   MC2, MD2, MH, MH2); then the paths the einsum readers' merge serves:
+   MM32 / MM2 deepseek-v3-671b at 1 layer (f32 streams equal;
+   bf16 n-gram verify, its first merged ``verify_attn_mla`` held to the
+   unsharded one), MW / MWU whisper-small dense / latent (f32, streams
+   equal; the sharded cross caches), MF falcon-mamba-7b at 2 layers on a
+   (2, 1) mesh (f32, streams equal), MR recurrentgemma-9b at 3 layers
+   (bf16: the state gathered over "model", the window ring's first
+   merged K1 checked), ML qwen3-4b with the layer draft (bf16: the
+   draft's sharded ring, K1 and K5 with the state) and ME qwen3-4b on the
+   einsum backend (f32, streams equal, no kernel); depth, tokens and
+   windows cut as ``MESH_RUNS`` says (every weight is gathered across the
+   host at every step).  The
    tok/s of (c) are two ranks time-slicing one card over a host
    transport, not a mesh's speed; rows ``<kernel>+lse`` of the kernels
    line count the return_lse launches of (c);
@@ -241,6 +252,7 @@ import shutil
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -325,6 +337,21 @@ def bound(bytes_: int, flops: float) -> tuple[float, str]:
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
 
+def worst_ratio(got, want, dtype, scale=1.0, mag=None):
+    """(|got - want|, rms of want, the worst |got - want| over the
+    tolerance above times ``scale``) for :func:`compare`."""
+    import torch
+    got, want = got.float(), want.float()
+    diff = (got - want).abs()
+    rms = want.square().mean().sqrt().item()
+    if dtype == torch.float32:
+        limit = torch.full_like(want, F32_TOL)
+    else:
+        size = want.abs() if mag is None else torch.maximum(want.abs(), mag.float())
+        limit = scale * (BF16_REL * size + BF16_RMS * rms)
+    return diff, rms, (diff / limit).max().item()
+
+
 def compare(name, got, want, dtype, scale=1.0, mag=None) -> float:
     """Max |got - want|, after checking it against the tolerance above
     (times ``scale``: 2 where both sides carry their own bf16 rounding of
@@ -333,17 +360,10 @@ def compare(name, got, want, dtype, scale=1.0, mag=None) -> float:
     |want| in the bf16 limit where it is larger: each part's rounding
     carries into the merge at its own size, whatever the parts cancel to."""
     import torch
-    got, want = got.float(), want.float()
-    if not torch.isfinite(got).all():
+    if not torch.isfinite(got.float()).all():
         raise AssertionError(f"{name}: kernel output is not finite")
-    diff = (got - want).abs()
-    rms = want.square().mean().sqrt().item()
-    if dtype == torch.float32:
-        limit = torch.full_like(want, F32_TOL)
-    else:
-        size = want.abs() if mag is None else torch.maximum(want.abs(), mag.float())
-        limit = scale * (BF16_REL * size + BF16_RMS * rms)
-    worst = (diff / limit).max().item()
+    diff, rms, worst = worst_ratio(got, want, dtype, scale, mag)
+    want = want.float()
     log(f"{name} {dtype}: max abs err {diff.max().item():.3e}, output rms {rms:.3e} "
         f"max {want.abs().max().item():.3e}, worst err / limit {worst:.3f}")
     if worst > 1:
@@ -390,11 +410,15 @@ FAMILY_RUNS = {"gemma3-12b": ("gemma3 steps", "V", "V+", "V3", "gemma3 latent st
                # the trained qwen3-4b's Fisher artifact (``phase_train``): its
                # K1 / K2 rows at the artifact's smallest and largest ranks
                "fisher": ("FI", "FI+")}
-# qwen3-moe-235b-a22b serves 8 of its 94 layers: a layer is 4.97 GB of bf16
+# qwen3-moe-235b-a22b serves 4 of its 94 layers: a layer is 4.97 GB of bf16
 # (attention 71 M, experts 2,416 M, router 0.5 M parameters), so the card's
-# 80 GB hold about 14 beside the 2.49 GB embedding and head; 8 leave room
-# for the rings, the prefill's MoE buffers and the compression.
-MOE_LAYERS = 8
+# 80 GB hold about 14 beside the 2.49 GB embedding and head; 4 keep the
+# script inside its time limit.
+MOE_LAYERS = 4
+# Two families' depth, cut to keep the script inside its time limit (their
+# layers are all of one kind, so every kernel shape stays): minicpm-2b 20
+# of 40 layers, h2o-danube-1.8b 12 of 24 (PERF.md: the seconds each saves).
+MINICPM_LAYERS, DANUBE_LAYERS = 20, 12
 # deepseek-v3-671b serves 4 of its 61 layers: its 3 attn_dense layers (0.58 B
 # parameters each) and 1 MoE layer (256 experts of 3 x 7,168 x 2,048, one
 # shared: 11.5 B), beside the 1.85 B embedding and head: 15.1 B, 30.2 GB of
@@ -523,6 +547,39 @@ def sdpa_time(torch, qg, k, v, self_k, self_v, bias, nq):
     ms = cuda_ms(lambda: sdpa(q, kt, vt, attn_mask=mask, scale=dh ** -0.5,
                               enable_gqa=True), iters=50)
     return ms, SDPBackend(choice).name
+
+
+def sdpa_lse_time(torch, qg, k, v, self_k, self_v, bias, nq):
+    """The library yardstick of a dense core with its softmax state: one
+    ``aten._scaled_dot_product_efficient_attention`` call with
+    ``compute_log_sumexp`` over the same ring plus the self columns, the
+    kv heads repeated to the query heads and the mask laid out (row
+    stride a multiple of 16) outside the timed region; the port never
+    calls it.  Returns ms, or None (logged) where the call is refused."""
+    B, G, QH, dh = qg.shape
+    Hg = QH // nq
+    q = qg.reshape(B, G, nq, Hg, dh).permute(0, 1, 3, 2, 4).reshape(B, G * Hg, nq, dh)
+    if self_k.dim() == 3:
+        self_k, self_v = self_k[:, None], self_v[:, None]
+        bias = torch.cat([bias, bias.new_zeros(B, 1)], dim=1)[:, None]
+    kt = torch.cat([k, self_k.to(k.dtype)], 1).transpose(1, 2).repeat_interleave(Hg, dim=1)
+    vt = torch.cat([v, self_v.to(v.dtype)], 1).transpose(1, 2).repeat_interleave(Hg, dim=1)
+    kt, vt = kt.contiguous(), vt.contiguous()
+    S = kt.shape[2]
+    mask = torch.zeros((B, G * Hg, nq, -(-S // 16) * 16), dtype=q.dtype, device=q.device)
+    mask = mask[..., :S]
+    mask.copy_(bias[:, None].to(q.dtype).expand(B, G * Hg, nq, S))
+    call = torch.ops.aten._scaled_dot_product_efficient_attention
+    try:
+        out, lse = call(q, kt, vt, mask, True, scale=dh ** -0.5)[:2]
+        torch.cuda.synchronize()
+        if (lse.shape[:2] != (B, G * Hg) or lse.shape[2] < nq   # lse rows padded to 32
+                or not torch.isfinite(out).all()):
+            raise ValueError(f"output {tuple(out.shape)}, lse {tuple(lse.shape)}")
+        return cuda_ms(lambda: call(q, kt, vt, mask, True, scale=dh ** -0.5), iters=50)
+    except (RuntimeError, ValueError) as e:
+        log(f"_scaled_dot_product_efficient_attention refused the shape: {e}")
+        return None
 
 
 def phase_dense(torch, gen, paged, nq, arch="qwen3-4b"):
@@ -1926,7 +1983,7 @@ def phase_families(torch, by_run, streams, serving, backends) -> dict:
         f"{time.perf_counter() - t1:.1f} s")
     t1 = time.perf_counter()
     for run, ratio in (("M", 0.5), ("M3", None)):
-        cfg, params = family_model(torch, "minicpm-2b", ratio)
+        cfg, params = family_model(torch, "minicpm-2b", ratio, layers=MINICPM_LAYERS)
         by_run[run], streams[run], serving[run] = phase_engine(torch, cfg, params, run)
         del params
         torch.cuda.empty_cache()
@@ -1954,7 +2011,7 @@ def phase_danube(torch, by_run, streams, serving, backends) -> dict:
     int8 ring, "layers:4").  Returns the compression record."""
     from repro_torch import kernels
     t0 = time.perf_counter()
-    cfg, params = family_model(torch, "h2o-danube-1.8b")
+    cfg, params = family_model(torch, "h2o-danube-1.8b", layers=DANUBE_LAYERS)
     kernels.reset_launch_counts()
     backends["h2o-danube-1.8b dense"] = phase_backends(torch, cfg, params, (None,))
     by_run["danube steps"] = launch_counts(kernels)
@@ -2479,8 +2536,8 @@ def phase_train(torch, by_run, streams, serving) -> tuple[dict, list]:
     ``RankPolicy(keep_ratio=0.5, use_fisher=True)`` (G 2, the kernel
     backend), ``save_artifact`` / ``load_artifact``; per-layer ranks not
     uniform; the loaded artifact serves runs FI (A's traffic, its decode
-    steps counted: 36 K1 a step) and FI+ (overlapped + graphs: FI's
-    streams, 36 K1 a replay).  Then K1 and K2 at the artifact's smallest and
+    steps counted: a K1 a layer a step) and FI+ (overlapped + graphs: FI's
+    streams, a K1 a layer a replay).  Then K1 and K2 at the artifact's smallest and
     largest (rank_k, rank_v) against their plain versions (rows tagged
     "new shape").  Returns (the phase's record, kernel rows)."""
     from repro_torch import api, kernels
@@ -2533,7 +2590,8 @@ def phase_train(torch, by_run, streams, serving) -> tuple[dict, list]:
     warm = [r["wall_s"] for r in steps[1:]]
     rec["train"] = {"steps": steps, "peak_gib": peak, "layers": cfg.num_layers,
                     "tokens_per_s_warm": TRAIN_B * TRAIN_T * len(warm) / sum(warm)}
-    log(f"train qwen3-4b (36 layers, bf16, f32 moments, remat, B {TRAIN_B} x T {TRAIN_T}): "
+    log(f"train qwen3-4b ({cfg.num_layers} layers, bf16, f32 moments, remat, B {TRAIN_B} x "
+        f"T {TRAIN_T}): "
         f"loss {losses[0]:.4f} -> {losses[-1]:.4f}, warm steps "
         f"{', '.join(f'{w:.3f}' for w in warm)} s, "
         f"{rec['train']['tokens_per_s_warm']:.1f} tokens/s (their tokens over their "
@@ -2586,7 +2644,7 @@ def phase_train(torch, by_run, streams, serving) -> tuple[dict, list]:
     log(f"Fisher compression of the trained qwen3-4b: fisher_scores {fisher_s:.2f} s, "
         f"calibrate(fisher=True) {calib_s:.2f} s, compress {compress_s:.2f} s, save "
         f"{save_s:.2f} s, load {load_s:.2f} s, peak {fisher_peak:.2f} GiB; ranks "
-        f"(r_k, r_v) by layer {ranks}; cache bytes per token over the 36 layers "
+        f"(r_k, r_v) by layer {ranks}; cache bytes per token over the {cfg.num_layers} layers "
         f"{per_token:,} (uniform r 256: {uniform:,})")
 
     (by_run["FI"], streams["FI"], serving["FI"]), n_steps = count_decode_steps(
@@ -2820,11 +2878,15 @@ def phase_lse(torch, gen) -> list:
         else:
             moved = nbytes(*tensors, bare)
         b_ms, by = bound(moved + nbytes(m, l), flops)
+        lib_ms = None
+        if dense:   # the library call that also returns the log-sum-exp
+            lib_ms = sdpa_lse_time(torch, *args[:3], kw["self_k"], kw["self_v"], args[3], nq)
         log(f"{name}+lse {shape}: max err f32 {err[torch.float32]} bf16 "
             f"{err[torch.bfloat16]} (o, m, l); merged over 2 / 4 shards vs unsharded, bf16 "
             f"{split[(torch.bfloat16, 2)]:.3e} / {split[(torch.bfloat16, 4)]:.3e}; kernel "
             f"{ms:.4f} ms with the state, {ms_bare:.4f} ms without; plain {plain_ms:.4f} ms; "
-            f"bound {b_ms:.4f} ms ({by})")
+            f"bound {b_ms:.4f} ms ({by}); library (efficient attention + lse) "
+            f"{lib_ms if lib_ms is None else f'{lib_ms:.4f} ms'}")
         f, line = LSE_REPLACES[name]
         rows.append({"name": f"{name}+lse", "launch_key": f"{name}+lse", "route": "cuda",
                      "source": f"src/repro_torch/csrc/{src}.cu",
@@ -2835,27 +2897,51 @@ def phase_lse(torch, gen) -> list:
                      "state_err_f32": err[torch.float32][1:],
                      "merge_err": {f"{str(dt)[6:]} x{n}": v for (dt, n), v in split.items()},
                      "ms": ms, "ms_without_lse": ms_bare, "plain_ms": plain_ms,
-                     "bound_ms": b_ms, "bound_by": by, "library_ms": None,
+                     "bound_ms": b_ms, "bound_by": by, "library_ms": lib_ms,
+                     "library": None if lib_ms is None else
+                     "aten._scaled_dot_product_efficient_attention(compute_log_sumexp=True)",
                      "shape": shape + " bf16", "runs": tuple(MESH_RUNS)})
     return rows
 
 
 # (c): two ranks on one card.  qwen3-4b at full width, cut to a few of its
 # 36 layers (each rank gathers every weight it reads across the host at
-# every step: see PERF.md), on a (1, 2) mesh over gloo.  MA32 / MA: A's
-# prompts (8 of 512-2,048, prefilled whole), f32 / bf16; MD: D's pool
-# (page 16, 385 pages, prefix-affinity) and its first 8 prompts (one
-# wave).  Then one short run for each other decode kernel's return_lse
+# every step: see PERF.md), on a (1, 2) mesh over gloo, at MESH_LAYERS
+# (2: the depth cut that keeps the script inside its limit).  MA32 / MA:
+# A's prompts (8 of 512-2,048, prefilled whole), f32 / bf16, 4 tokens
+# each in windows of 3 decode steps (later steps read the columns earlier
+# ones wrote); MD: D's pool (page 16, 385 pages, prefix-affinity) and its
+# first 8 prompts (one wave).  Then one short run for each other decode kernel's return_lse
 # variant: MB (int8 ring, K3), MB2 (int8 ring at spec_depth 2, K6), MC2
 # (float ring at spec_depth 2, K5), MD2 (the pool at spec_depth 2, K7),
 # MH / MH2 (the dense cache: its decode and verify kernels).  "layers",
 # "new" (tokens a request), "sync" (sync_every) and "first" (prompts)
 # cut each run to size: a step costs what its gathers cost (PERF.md),
 # the tied embedding's twice whatever the depth.
-MESH_LAYERS = 4
+# Then the paths the einsum readers' merge serves, each at full width:
+# MM32 / MM2, deepseek-v3-671b cut to its first layer (MLA + the dense
+# FFN; its untied 129,280 x 7,168 embedding and head dominate the
+# gathers), f32 on A's first 4 prompts / bf16 with n-gram speculation
+# on C's (MLA's absorbed decode / verify merged in c_kv space); MW / MWU,
+# whisper-small at full depth, dense / latent (random latents at ratio
+# 0.5), f32, on A's first 4 prompts and W's source (the encoder, the
+# sharded cross caches and their merged readers; the self halves on the
+# dense decode / K1 with the state); MF, falcon-mamba-7b at 2 of its 64
+# layers, f32, on a (2, 1) mesh, R's first 4 prompts (one prefill
+# bucket: the state runs over its wave's pads, and two data ranks form
+# other waves); MR, recurrentgemma-9b at one period of 3 layers (two
+# RG-LRU blocks, one local attention), latent, bf16 (the state gathered
+# over "model", the window ring on K1 with the state); ML, qwen3-4b at 4
+# layers with the layer draft of 2 (the draft's own sharded ring: K1 /
+# K5 with the state), bf16; ME, qwen3-4b at 1 layer on the einsum
+# backend, f32 (its readers merged in einsum form).  "arch", "mesh"
+# (data, model), "source" (a seed) and "check" (the reader whose first
+# merged call is held to the unsharded one: "latent" K1, "mla") set the
+# rest.
+MESH_LAYERS = 2
 MESH_RUNS = {
-    "MA32": dict(dtype="float32", prompts="A", ratio=0.5, new=4, sync=3),
-    "MA": dict(dtype="bfloat16", prompts="A", ratio=0.5, new=4, sync=3),
+    "MA32": dict(dtype="float32", prompts="A", ratio=0.5, new=4, sync=3, check="latent"),
+    "MA": dict(dtype="bfloat16", prompts="A", ratio=0.5, new=4, sync=3, check="latent"),
     "MD": dict(dtype="bfloat16", prompts="D", ratio=0.5, new=2, sync=1, first=8,
                kw=dict(cache_layout="paged", page_size=PAGE, n_pages=D_PAGES,
                        policy="prefix-affinity")),
@@ -2870,23 +2956,51 @@ MESH_RUNS = {
     "MH": dict(dtype="bfloat16", prompts="C", ratio=None, layers=1, new=2, sync=1),
     "MH2": dict(dtype="bfloat16", prompts="C", ratio=None, layers=1, new=2, sync=1,
                 kw=dict(spec_depth=2, draft="ngram")),
+    "MM32": dict(arch="deepseek-v3-671b", dtype="float32", prompts="A", first=4,
+                 ratio=None, layers=1, new=2, sync=1),
+    "MM2": dict(arch="deepseek-v3-671b", dtype="bfloat16", prompts="C", ratio=None,
+                layers=1, new=2, sync=1, check="mla", kw=dict(spec_depth=2, draft="ngram")),
+    "MW": dict(arch="whisper-small", dtype="float32", prompts="A", first=4, ratio=None,
+               layers=None, new=2, sync=1, source=SEED + 8),
+    "MWU": dict(arch="whisper-small", dtype="float32", prompts="A", first=4, ratio=0.5,
+                layers=None, new=2, sync=1, source=SEED + 8),
+    "MF": dict(arch="falcon-mamba-7b", dtype="float32", prompts="R", first=4, ratio=None,
+               layers=2, new=2, sync=1, mesh=(2, 1)),
+    "MR": dict(arch="recurrentgemma-9b", dtype="bfloat16", prompts="A", first=4, ratio=0.5,
+               layers=3, new=2, sync=1, check="latent"),
+    "ML": dict(dtype="bfloat16", prompts="C", ratio=0.5, layers=4, new=2, sync=1,
+               check="latent", kw=dict(spec_depth=2, draft="layers:2")),
+    "ME": dict(dtype="float32", prompts="C", ratio=0.5, layers=1, new=2, sync=1,
+               kw=dict(backend="einsum")),
 }
-MESH_MUST = {"MA32": "latent_decode_attention+lse", "MA": "latent_decode_attention+lse",
-             "MD": "latent_decode_attention_paged+lse",
-             "MB": "latent_decode_attention_quant+lse",
-             "MB2": "latent_decode_attention_mq_quant+lse",
-             "MC2": "latent_decode_attention_mq+lse",
-             "MD2": "latent_decode_attention_mq_paged+lse",
-             "MH": "dense_decode_attention+lse", "MH2": "dense_decode_attention_mq+lse"}
+# each run's return_lse variants that must launch; () where no kernel may
+# launch at all (MLA, the einsum backend, an attention-free model)
+MESH_MUST = {"MA32": ("latent_decode_attention+lse",), "MA": ("latent_decode_attention+lse",),
+             "MD": ("latent_decode_attention_paged+lse",),
+             "MB": ("latent_decode_attention_quant+lse",),
+             "MB2": ("latent_decode_attention_mq_quant+lse",),
+             "MC2": ("latent_decode_attention_mq+lse",),
+             "MD2": ("latent_decode_attention_mq_paged+lse",),
+             "MH": ("dense_decode_attention+lse",), "MH2": ("dense_decode_attention_mq+lse",),
+             "MM32": (), "MM2": (), "MW": ("dense_decode_attention+lse",),
+             "MWU": ("latent_decode_attention+lse",), "MF": (),
+             "MR": ("latent_decode_attention+lse",),
+             "ML": ("latent_decode_attention+lse", "latent_decode_attention_mq+lse"),
+             "ME": ()}
+MESH_NEW = ("MM32", "MM2", "MW", "MWU", "MF", "MR", "ML", "ME")   # this slice's cells
 
 
 def mesh_model(torch, run, layers):
+    """A run's model on the card: its arch at full width (qwen3-4b by
+    default), cut to its layers (a leading prefix too: deepseek's
+    attn_dense layers), random weights from seed 0."""
     from repro_torch.configs import get_config
     from repro_torch.models.weights import init_params
     spec = MESH_RUNS[run]
-    cfg = get_config("qwen3-4b", recalkv_ratio=spec["ratio"])
-    cfg = dataclasses.replace(cfg, attn_backend="kernel",
-                              num_layers=spec.get("layers", layers),
+    cfg = get_config(spec.get("arch", "qwen3-4b"), recalkv_ratio=spec["ratio"])
+    n = spec.get("layers", layers) or cfg.num_layers
+    cfg = dataclasses.replace(cfg, attn_backend="kernel", num_layers=n,
+                              prefix_pattern=cfg.prefix_pattern[:n],
                               dtype=getattr(torch, spec["dtype"]),
                               cache_quant_bits=spec.get("bits"))
     return cfg, init_params(cfg, torch.Generator(device="cuda").manual_seed(SEED))
@@ -2898,6 +3012,55 @@ def mesh_requests(torch, run, vocab):
     return [(p, spec["new"]) for p, _ in reqs]
 
 
+def _checked_first(torch, run, first, orig):
+    """``orig`` (a reader taking ``mesh=``, its cache the third argument
+    or, for ``ops.latent_decode``, the second) wrapped so that its first
+    merged call also runs unsharded on the cache gathered over "model",
+    the two outputs held to the run's dtype's limit in ``first``: the
+    kernel's at the limit; an einsum reader's (MLA's, whose output is
+    checked after its value and output products) at twice it in bf16,
+    where both sides carry their own rounding of one function (the
+    unsharded reader rounds its weights and its latent output, the merged
+    one keeps its parts in float32 and rounds once; the two read 1.459 of
+    the limit apart on an H100, PERF.md).  So that twice the limit still
+    tells a faulty merge, the einsum reader's output of one rank's
+    columns alone (what a merge that loses the other rank's part gives)
+    must read past it on some rank (a rank whose columns hold every
+    prompt loses nothing alone).  A verify step's rows with no fed column (idle
+    slots) are left out: they see no column, which the merge makes 0 and
+    the unsharded einsum an average of every column, and the engine
+    discards both."""
+    from repro_torch.kernels import ops
+    at = 1 if orig is ops.latent_decode else 2
+    scale = 1.0 if at == 1 else 2.0
+
+    def checked(*a, **kw):
+        out = orig(*a, **kw)
+        m = kw.get("mesh")
+        if m is not None and not first:
+            full = {k: m.all_gather(v, "model", dim=1) for k, v in a[at].items()}
+            want = orig(*a[:at], full, *a[at + 1:], **{**kw, "mesh": None})
+            o, w = (out, want) if at == 1 else (out[0], want[0])
+            live = a[5].any(dim=1) if orig.__name__.startswith("verify") else slice(None)
+            torch.cuda.synchronize()
+            name = f"engine run {run}: the first merged {orig.__name__} (layer 0)"
+            first["max_abs_err"] = compare(name, o[live], w[live], o.dtype, scale=scale)
+            if at != 1:
+                alone = orig(*a, **{**kw, "mesh": None})[0]
+                mine = worst_ratio(alone[live], w[live], o.dtype, scale)[2]
+                first["unmerged_worst"] = m.all_reduce(
+                    torch.tensor([mine], dtype=torch.float64), "model", "max").item()
+                log(f"{name}: one rank's columns alone, unmerged, worst err / limit "
+                    f"{mine:.3f} on this rank, {first['unmerged_worst']:.3f} over the ranks "
+                    f"(x{scale:g})")
+                if first["unmerged_worst"] <= 1:
+                    raise AssertionError(f"{name}: an unmerged output passes the check "
+                                         f"({first['unmerged_worst']:.3f}): it cannot tell "
+                                         f"a lost part")
+        return out
+    return checked
+
+
 def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
     """One MESH_RUNS run on this process's card: the single-device engine
     (``mesh`` None) or this rank's engine on ``mesh``.  With
@@ -2906,33 +3069,31 @@ def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
     unsharded kernel's, in the run's dtype's limit.  Returns the record."""
     from repro_torch import kernels
     from repro_torch.kernels import ops
+    from repro_torch.models import kv_cache as KC
     from repro_torch.serving import Engine, Request
+    t_start = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cfg, params = mesh_model(torch, run, layers)
     spec = MESH_RUNS[run]
-    eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=spec["sync"], mesh=mesh,
-                 **spec.get("kw", {}))
+    src = (None if spec.get("source") is None
+           else make_source(torch, cfg, spec["source"]))
+    with warnings.catch_warnings():   # MLA and cross layers: the einsum readers
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=spec["sync"],
+                     mesh=mesh, source=src, **spec.get("kw", {}))
     del params   # on a mesh the engine keeps this rank's shards only
     gc.collect()
     torch.cuda.empty_cache()
     for uid, (prompt, n_new) in enumerate(mesh_requests(torch, run, cfg.vocab_size)):
         eng.submit(Request(uid=uid, prompt=prompt, max_new_tokens=n_new))
     first = {}
-    orig = ops.latent_decode
-
-    def checked(q, cache, r_k, cur, **kw):
-        out = orig(q, cache, r_k, cur, **kw)
-        m = kw.get("mesh")
-        if m is not None and not first:
-            full = {k: m.all_gather(v, "model", dim=1) for k, v in cache.items()}
-            want = orig(q, full, r_k, cur, **{**kw, "mesh": None})
-            torch.cuda.synchronize()
-            first["max_abs_err"] = compare(f"engine run {run}: the first decode step's merged "
-                                           f"attention (layer 0)", out, want, out.dtype)
-        return out
-    if check_first:
-        ops.latent_decode = checked
+    check = spec.get("check") if check_first else None
+    origs = {"latent": [(ops, "latent_decode")],
+             "mla": [(KC, "decode_attn_mla"), (KC, "verify_attn_mla")]}.get(check, [])
+    saved = [(mod, name, getattr(mod, name)) for mod, name in origs]
+    for mod, name, fn in saved:
+        setattr(mod, name, _checked_first(torch, run, first, fn))
     kernels.reset_launch_counts()
     if mesh is not None:   # this run's collectives only
         mesh.stats = dict.fromkeys(mesh.stats, 0)
@@ -2942,7 +3103,8 @@ def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
     try:
         done = eng.run()
     finally:
-        ops.latent_decode = orig
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     m = eng.metrics()
@@ -2965,10 +3127,12 @@ def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
            "host_syncs": m["host_syncs"], "admission_syncs": m["admission_syncs"],
            "launches": launches, "mesh": m["mesh"], "mesh_stats": m["mesh_stats"],
            "pages_shared": m["pages_shared"], "peak_gib": torch.cuda.max_memory_allocated()
-           / 2 ** 30, "first_step": first, "layers": cfg.num_layers}
+           / 2 ** 30, "first_step": first, "layers": cfg.num_layers, "vocab": cfg.vocab_size,
+           "draft_proposed": m["draft_proposed"]}
     del eng
     gc.collect()
     torch.cuda.empty_cache()
+    rec["total_s"] = time.perf_counter() - t_start
     return rec
 
 
@@ -2981,9 +3145,13 @@ def _mesh_rank(rank, folder, runs, layers):
     from repro_torch.launch.mesh import make_mesh
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.cuda.set_device(0)
-    mesh = make_mesh(1, 2, backend="gloo", store=dist.FileStore(str(Path(folder) / "store"), 2),
-                     rank=rank, world_size=2)
-    out = {run: serve_mesh_run(torch, run, layers, mesh, check_first=run in ("MA32", "MA"))
+    store = dist.FileStore(str(Path(folder) / "store"), 2)
+    meshes = {}
+    for shape in dict.fromkeys(MESH_RUNS[run].get("mesh", (1, 2)) for run in runs):
+        meshes[shape] = make_mesh(*shape, backend="gloo", store=store, rank=rank,
+                                  world_size=2)
+    out = {run: serve_mesh_run(torch, run, layers, meshes[MESH_RUNS[run].get("mesh", (1, 2))],
+                               check_first=True)
            for run in runs}
     dist.destroy_process_group()
     if rank == 0:
@@ -2995,9 +3163,12 @@ def top2_margin(torch, run, layers, uid, tokens) -> float:
     prompt and the stream up to where two streams part)."""
     from repro_torch.models import transformer as T
     cfg, params = mesh_model(torch, run, layers)
+    spec = MESH_RUNS[run]
+    src = (None if spec.get("source") is None
+           else make_source(torch, cfg, spec["source"])[uid:uid + 1])
     toks = torch.tensor(tokens, device="cuda")[None]
     logits, _ = T.prefill(cfg, params, toks, torch.tensor([len(tokens)], device="cuda"),
-                          4096)
+                          4096, source=src)
     top = logits[0].float().topk(2).values
     del params
     torch.cuda.empty_cache()
@@ -3006,12 +3177,13 @@ def top2_margin(torch, run, layers, uid, tokens) -> float:
 
 def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
     """Part (c): each run on the single-device engine in this process, then
-    on two spawned ranks sharing the card; MA32's streams must equal, MA's
-    first step must be within the bf16 limit (its streams' agreement and,
-    where they part, the position and the top-2 margin are reported), MD /
-    MB / MH must serve every request with their kernels' return_lse
-    variants.  The tok/s are two ranks time-slicing one card over a host
-    transport, not a mesh's speed."""
+    on two spawned ranks sharing the card; an f32 run's streams must
+    equal, a checked run's first merged call must be within its dtype's
+    limit (a bf16 run's streams' agreement and, where they part, the
+    position and the top-2 margin are reported), every run must serve
+    every request with its kernels' return_lse variants (``MESH_MUST``;
+    a run with none may launch no kernel).  The tok/s are two ranks
+    time-slicing one card over a host transport, not a mesh's speed."""
     import tempfile
     import torch.multiprocessing as mp
     t0 = time.perf_counter()
@@ -3060,22 +3232,32 @@ def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
              "peak_gib_rank0": two["peak_gib"], "pages_shared": two["pages_shared"]}
         if r["host_syncs"] != r["windows"] + r["admission_syncs"]:
             raise AssertionError(f"engine run {run} on the mesh: host syncs {r}")
-        if two["launches"][MESH_MUST[run]] <= 0:
-            raise AssertionError(f"engine run {run} on the mesh never launched "
-                                 f"{MESH_MUST[run]}: {two['launches']}")
-        if run == "MA32" and not r["equal"]:
-            raise AssertionError(f"engine run MA32: mesh streams differ from the "
+        spec = MESH_RUNS[run]
+        for key in MESH_MUST[run]:
+            if two["launches"][key] <= 0:
+                raise AssertionError(f"engine run {run} on the mesh never launched "
+                                     f"{key}: {two['launches']}")
+        if not MESH_MUST[run] and any(two["launches"].values()):
+            raise AssertionError(f"engine run {run} on the mesh launched a kernel: "
+                                 f"{two['launches']}")
+        if spec["dtype"] == "float32" and not r["equal"]:
+            raise AssertionError(f"engine run {run} (float32): mesh streams differ from the "
                                  f"single-device engine's at {parted}")
-        if run in ("MA32", "MA") and "max_abs_err" not in two["first_step"]:
-            raise AssertionError(f"engine run {run}: the first decode step was not checked")
-        if run == "MA" and parted:
+        if spec.get("check") and "max_abs_err" not in two["first_step"]:
+            raise AssertionError(f"engine run {run}: the first merged call was not checked")
+        if spec.get("kw", {}).get("draft", "").startswith("layers") and two["draft_proposed"] <= 0:
+            raise AssertionError(f"engine run {run} on the mesh: the layer draft proposed "
+                                 f"no token")
+        if spec["dtype"] == "bfloat16" and parted:
             uid, k = parted[0]
-            prompt = mesh_requests(torch, run, 151936)[uid][0]
+            prompt = mesh_requests(torch, run, two["vocab"])[uid][0]
             r["top2_margin_at_first_part"] = top2_margin(
                 torch, run, layers, uid, list(prompt) + one["streams"][str(uid)][:k])
         if run == "MD" and r["pages_shared"] < 1:
             raise AssertionError(f"engine run MD on the mesh shared no page: {r}")
-        log(f"engine run {run} on the mesh (1, 2), two ranks sharing the card over gloo, "
+        r["single_total_s"], r["mesh_total_s"] = one["total_s"], two["total_s"]
+        log(f"engine run {run} ({spec.get('arch', 'qwen3-4b')}, {spec['dtype']}) on the mesh "
+            f"{spec.get('mesh', (1, 2))}, two ranks sharing the card over gloo, "
             f"{two['layers']} layers: streams equal {r['equal']} ({agree}/{total} tokens agree"
             f"{', parted at ' + str(parted) if parted else ''}); single device "
             f"{one['tokens_per_s']:.2f} tok/s, two ranks on one card over a host "
@@ -3085,8 +3267,11 @@ def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
             f"first step {two['first_step']}; lse launches "
             f"{ {k: v for k, v in two['launches'].items() if k.endswith('+lse') and v} }")
         rec[run] = r
+    new = [run for run in runs if run in MESH_NEW]
+    rec["new_cells_s"] = {"single": sum(rec[run]["single_total_s"] for run in new),
+                          "mesh_rank0": sum(rec[run]["mesh_total_s"] for run in new)}
     log(f"the mesh runs took {rec['single_s']:.1f} s single-device and {rec['mesh_s']:.1f} s "
-        f"on the two ranks")
+        f"on the two ranks; this slice's cells {new}: {rec['new_cells_s']} s")
     return rec
 
 

@@ -53,7 +53,7 @@ from repro_torch.kernels.dense_decode import (
 from repro_torch.kernels.flash_prefill import flash_prefill_attention
 from repro_torch.kernels.latent_decode import (
     NEG_INF, gather_pages, latent_decode_attention, latent_decode_attention_mq,
-    latent_decode_attention_mq_paged, latent_decode_attention_paged)
+    latent_decode_attention_mq_paged, latent_decode_attention_paged, softmax_state)
 from repro_torch.kernels.latent_decode_q import (
     latent_decode_attention_mq_quant, latent_decode_attention_quant)
 
@@ -85,7 +85,36 @@ def merge_stacked(o, m, l):
     return merge_partial_softmax(o, m, l, combine)
 
 
-def _seq_sharded(mesh) -> bool:
+def merge_einsum(o: torch.Tensor, m: torch.Tensor, l: torch.Tensor, mesh):
+    """An einsum reader's float32 partial output ``o`` (..., rows, r),
+    weighted by its :func:`softmax_merge` weights, merged over "model"."""
+    return merge_over_mesh((o, m, l), mesh)
+
+
+def softmax_merge(logits: torch.Tensor, dtype, mesh):
+    """An einsum reader's softmax over the last axis of float32 ``logits``
+    (masked with NEG_INF) and the merge of the output it weights:
+    (weights, finish), ``finish(o)`` taking o (..., rows, r) whose rows
+    are the logits' leading dims in their order.  Off a sequence-sharded
+    mesh: the softmax in ``dtype``, ``finish`` the identity.  On one:
+    this rank's partial softmax over its columns in the kernels'
+    ``return_lse`` contract (a row masked everywhere has weights 0, m =
+    NEG_INF and l = 0, so it drops out of the merge), in float32; the
+    reader casts its values to the weights' dtype, so its partial output
+    stays float32 through :func:`merge_einsum` and ``finish`` rounds the
+    merged output to ``dtype`` once (no rank's part is rounded before
+    the parts are summed)."""
+    if not seq_sharded(mesh):
+        return torch.softmax(logits, dim=-1).to(dtype), lambda o: o
+    w, m, l = softmax_state(logits, logits.amax(dim=-1) <= 0.5 * NEG_INF)
+
+    def finish(o):
+        rows = o.shape[:-1]
+        return merge_einsum(o, m.reshape(rows), l.reshape(rows), mesh).to(dtype)
+    return w, finish
+
+
+def seq_sharded(mesh) -> bool:
     """Whether the cache is sequence-sharded over more than one "model"
     rank."""
     return mesh is not None and mesh.shape.get("model", 1) > 1
@@ -97,13 +126,13 @@ def seq_local(cache: dict, mesh) -> dict:
     leave the int8 ring's latents and scales whole on every rank (JAX's
     kernel call reshards them to its ring slice); each leaf wider than
     ``pos`` is cut here to the same columns (or page offsets)."""
-    if not _seq_sharded(mesh):
+    if not seq_sharded(mesh):
         return cache
     w, m = cache["pos"].shape[1], mesh.axis_index("model")
     return {k: v if v.shape[1] == w else v.narrow(1, m * w, w) for k, v in cache.items()}
 
 
-def _self_on(mesh) -> bool:
+def self_on(mesh) -> bool:
     """The self columns score on the last "model" rank only."""
     return mesh.axis_index("model") == mesh.shape["model"] - 1
 
@@ -199,8 +228,8 @@ def _ring_operands(cache: dict, entry: dict | None):
 
 def _decode(q, cache, r_k, cur, ptab, *, theta, window, scale, self_entry,
             k_norm, norm_eps, mesh=None):
-    sharded = _seq_sharded(mesh)
-    if sharded and not _self_on(mesh):
+    sharded = seq_sharded(mesh)
+    if sharded and not self_on(mesh):
         self_entry = None
     cache = seq_local(cache, mesh)
     ring, selfs, quant = _ring_operands(cache, self_entry)
@@ -258,7 +287,7 @@ def latent_decode_paged(q, cache, ptab, r_k, cur, *, theta: float,
 def _mask_self_cols(bias: torch.Tensor, mesh, start: int) -> torch.Tensor:
     """Mask the self columns (from ``start``) off on every "model" rank but
     the last, so each scores once across the mesh."""
-    if _seq_sharded(mesh) and not _self_on(mesh):
+    if seq_sharded(mesh) and not self_on(mesh):
         bias = bias.clone()
         bias[..., start:] = NEG_INF
     return bias
@@ -280,7 +309,7 @@ def _decode_mq(q, cache, r_k, cur, feed_mask, self_entries, ptab, *, theta,
     bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
                        feed_mask, window, pos.shape[1])
     bias = _mask_self_cols(bias, mesh, pos.shape[1])
-    sharded = _seq_sharded(mesh)
+    sharded = seq_sharded(mesh)
     kw = dict(scale=scale, k_norm=k_norm, norm_eps=norm_eps, self_cos=cos_s,
               self_sin=sin_s, return_lse=sharded, **selfs)
     qg = group_queries_mq(q, G)
@@ -323,8 +352,8 @@ def latent_decode_mq_paged(q, cache, ptab, r_k, cur, feed_mask, self_entries,
 
 
 def _dense(q, cache, ptab, cur, *, window, scale, self_entry, mesh):
-    sharded = _seq_sharded(mesh)
-    e = {} if self_entry is None or (sharded and not _self_on(mesh)) else self_entry
+    sharded = seq_sharded(mesh)
+    e = {} if self_entry is None or (sharded and not self_on(mesh)) else self_entry
     pos = cache["pos"] if ptab is None else gather_pages(cache["pos"], ptab)
     kw = dict(scale=scale, self_k=e.get("k"), self_v=e.get("v"), return_lse=sharded)
     qg = group_queries(q, cache["k"].shape[2])
@@ -364,7 +393,7 @@ def _dense_mq(q, cache, ptab, cur, feed_mask, self_entries, *, window, scale,
     bias = verify_bias(torch.cat([pos, pos_q.to(pos.dtype)], dim=1), pos_q,
                        feed_mask, window, pos.shape[1])
     bias = _mask_self_cols(bias, mesh, pos.shape[1])
-    sharded = _seq_sharded(mesh)
+    sharded = seq_sharded(mesh)
     qg = group_queries_mq(q, cache["k"].shape[2])
     kw = dict(scale=scale, self_k=self_entries["k"], self_v=self_entries["v"],
               return_lse=sharded)

@@ -21,10 +21,11 @@ process a rank under ``torchrun`` (rank and world size from its
 environment): ``torchrun --nproc-per-node N -m repro_torch.launch.serve
 --mesh D,M`` with N = D * M, each rank on ``cuda:LOCAL_RANK`` over
 ``nccl``; ``--dist-backend gloo`` runs the collectives through the host
-(two ranks may then share one card, ``--device cuda:0``).  The mesh
-engine is the synchronous one: ``--overlap`` is off by default there,
-and ``--overlap``, ``--continuous`` and ``--aot`` are refused with
-ROADMAP.md Queue 1 item 5c.  Rank 0 prints.  ``--recalkv`` on an arch ReCalKV does not
+(two ranks may then share one card, ``--device cuda:0``).  A mesh
+serves every registered ``--arch``, ``--draft layers:K`` and ``--backend
+einsum`` too.  The mesh engine is the synchronous one: ``--overlap`` is
+off by default there, and ``--overlap``, ``--continuous`` and ``--aot``
+are refused with ROADMAP.md Queue 1 item 5c.  Rank 0 prints.  ``--recalkv`` on an arch ReCalKV does not
 apply to (deepseek's MLA, falcon-mamba's attention-free stack) raises
 ValueError with the JAX CLI's words, "ReCalKV inapplicable to <arch>".  ``--backend pallas`` names the
 port's CUDA kernels, as ``ModelConfig.from_dict`` reads it.

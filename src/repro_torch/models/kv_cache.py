@@ -36,6 +36,17 @@ speculative decoding) returns (B, S, ...) entries, and
 JAX package (whose arrays are immutable) these writes update the ring
 tensors IN PLACE.
 
+On a mesh (``mesh`` with more than one "model" rank) every leaf is this
+rank's slice by ``sharding.rules.CACHE_RULES``: a ring's or a cross
+source's positions, a pool page's offsets, a recurrent state's channels.
+The kernel readers merge in ``kernels.ops``; the einsum readers here
+(MLA's, the cross readers, the einsum backend's) do the same in einsum
+form: each scores its columns, the self and verify-window columns on the
+last "model" rank only, and the partial softmaxes merge by log-sum-exp
+(``kops.softmax_merge``).  A recurrent state is
+gathered whole over "model" where it is read and each rank keeps its
+channels of the new one.
+
 Paged layout: the same leaves live page-major in a pool shared by all
 slots — ``(n_pages, page_size, ...)`` instead of ``(B, max_len, ...)``
 (int8 scales stay page-local) — and a ``(B, n_sp)`` int32 page table maps
@@ -55,6 +66,7 @@ from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.config import RECURRENT_KINDS, ModelConfig
 from repro_torch.quant import dequantize, quantize
+from repro_torch.sharding import rules as R
 
 Params = dict[str, Any]
 NEG_INF = L.NEG_INF
@@ -254,14 +266,44 @@ def _own_targets(targets, ps_local: int, mesh):
     return torch.where(ok, page, 0), off % ps_local, ok
 
 
-def _leaf_mesh(leaf: torch.Tensor, self_cache: Params, mesh):
-    """The mesh a leaf's writes are sharded by: ``mesh`` for a leaf held as
-    this rank's sequence slice (as wide as ``pos``), None for one held
-    whole on every "model" rank (the int8 ring's, see
+def _leaf_mesh(name: str, mesh):
+    """The mesh a ring or pool leaf's writes are sharded by: ``mesh`` for
+    a leaf ``CACHE_RULES`` split by position over "model" (the engine
+    refuses ring lengths and page sizes that do not split), None for one
+    they keep whole on every "model" rank (the int8 ring's, see
     ``kernels.ops.seq_local``), which every rank writes in full."""
-    if mesh is None or leaf.shape[1] != self_cache["pos"].shape[1]:
+    if mesh is None or ("model", 1) not in R.CACHE_RULES.get(name, ()):
         return None
     return mesh
+
+
+def model_slice(full: torch.Tensor, name: str, mesh) -> torch.Tensor:
+    """This rank's slice of a FULL cache leaf ``name`` (a prefill's ring,
+    pool tiles or cross source, a recurrent state) along the dim
+    ``CACHE_RULES`` split over "model"; ``full`` itself off a mesh or
+    where the rules keep the leaf whole."""
+    if not kops.seq_sharded(mesh):
+        return full
+    d = R.cache_model_dim(name, full.shape, full.dtype, mesh)
+    if d is None:
+        return full
+    n = full.shape[d] // mesh.axis_size("model")
+    return full.narrow(d, mesh.axis_index("model") * n, n)
+
+
+def read_state(cfg: ModelConfig, kind: str, state: Params, mesh) -> Params:
+    """A recurrent layer's state as its mixer reads it: whole; on a mesh
+    each leaf this rank holds is its channel slice, gathered over "model"
+    along the dim ``CACHE_RULES`` split (the write keeps this rank's
+    slice of the new state, :func:`apply_decode_writes`)."""
+    if not kops.seq_sharded(mesh):
+        return state
+    full = init_state_cache(cfg, kind, 1, "meta")
+    out = {}
+    for name, leaf in state.items():
+        d = R.cache_model_dim(name, full[name].shape, full[name].dtype, mesh)
+        out[name] = leaf if d is None else mesh.all_gather(leaf, "model", dim=d)
+    return out
 
 
 def _pool_writes_of_all_slots(mesh, pages, cur, mask, updates):
@@ -296,14 +338,26 @@ def _decode_mask(pos: torch.Tensor, cur: torch.Tensor,
     return m
 
 
-def _two_part_softmax(logits_c: torch.Tensor, logits_s: torch.Tensor):
-    """Softmax over [cache columns | self column] without concatenating.
-    logits_c: (..., S); logits_s: (..., 1).  Returns (w_c, w_s)."""
-    m = torch.maximum(logits_c.amax(dim=-1, keepdim=True), logits_s)
+def _joint_softmax(logits_c: torch.Tensor, logits_s: torch.Tensor, dtype, mesh=None):
+    """Softmax over [ring columns | self columns]: logits_c (..., S_ring),
+    logits_s (..., S_new).  Returns (w_c, w_s, finish): the weights, and
+    ``finish(o)`` the merge of the output they weight, as
+    ``kops.softmax_merge`` gives them.  Off a mesh without concatenating,
+    the weights in ``dtype`` and ``finish`` the identity; on one, this
+    rank's partial softmax, the self columns scoring on the last "model"
+    rank only (``kops.self_on``)."""
+    if kops.seq_sharded(mesh):
+        if not kops.self_on(mesh):
+            logits_s = torch.full_like(logits_s, NEG_INF)
+        n = logits_c.shape[-1]
+        w, finish = kops.softmax_merge(torch.cat([logits_c, logits_s], dim=-1), dtype, mesh)
+        return w[..., :n], w[..., n:], finish
+    m = torch.maximum(logits_c.amax(dim=-1, keepdim=True),
+                      logits_s.amax(dim=-1, keepdim=True))
     e_c = torch.exp(logits_c - m)
     e_s = torch.exp(logits_s - m)
-    denom = e_c.sum(dim=-1, keepdim=True) + e_s
-    return e_c / denom, e_s / denom
+    denom = e_c.sum(dim=-1, keepdim=True) + e_s.sum(dim=-1, keepdim=True)
+    return (e_c / denom).to(dtype), (e_s / denom).to(dtype), lambda o: o
 
 
 def kernel_fallback_kinds(cfg: ModelConfig) -> list[str]:
@@ -373,10 +427,9 @@ def decode_attn_dense(p: Params, x: torch.Tensor, cache: Params,
     mask = _decode_mask(cache["pos"], cur, window)[:, None, None, :]
     logits_c = torch.where(mask, logits_c, torch.full_like(logits_c, NEG_INF))
     logits_s = (torch.einsum("bkgd,bkd->bkg", qr, k_new).float() * scale)[..., None]
-    w_c, w_s = _two_part_softmax(logits_c, logits_s)
-    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
-    o = (torch.einsum("bkgs,bskd->bkgd", w_c, cache["v"].to(x.dtype))
-         + w_s * v_new[:, :, None, :])
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
+    o = finish(torch.einsum("bkgs,bskd->bkgd", w_c, cache["v"].to(w_c.dtype))
+               + w_s * v_new[:, :, None, :])
     return o.reshape(B, 1, H * dh) @ p["wo"], updates
 
 
@@ -434,11 +487,11 @@ def decode_attn_latent(p: Params, x: torch.Tensor, cache: Params,
     mask = _decode_mask(cache["pos"], cur, window)[:, None, None, :]
     logits_c = torch.where(mask, logits_c, torch.full_like(logits_c, NEG_INF))
     logits_s = (torch.einsum("bkgd,bkd->bkg", qr, k_self).float() * scale)[..., None]
-    w_c, w_s = _two_part_softmax(logits_c, logits_s)
-    w_c = w_c.to(x.dtype).reshape(B, G, s * g, -1)
-    w_s = w_s.to(x.dtype).reshape(B, G, s * g, 1)
-    o_lat = (torch.einsum("bGhs,bsGr->bGhr", w_c, zv_c)
-             + w_s * zv_self[:, :, None, :])
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
+    w_c = w_c.reshape(B, G, s * g, -1)
+    w_s = w_s.reshape(B, G, s * g, 1)
+    o_lat = finish(torch.einsum("bGhs,bsGr->bGhr", w_c, zv_c.to(w_c.dtype))
+                   + w_s * zv_self[:, :, None, :])
     o_lat = o_lat.reshape(B, 1, H, -1)
     return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"]), updates
 
@@ -470,14 +523,16 @@ def _mla_inputs(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def decode_attn_mla(p: Params, x: torch.Tensor, cache: Params,
                     cfg: ModelConfig, cur: torch.Tensor,
-                    pages: tuple | None = None):
+                    pages: tuple | None = None, mesh=None):
     """Absorbed MLA decode: scores and outputs are computed in the c_kv
     latent space (q_nope through ``wkv_b``'s key columns, the output through
     its value columns), so no per-head key or value is ever built.  The
     new token's entry is a self column and comes back as the deferred
     update.  No kernel: a pool is read through its gathered view, as in
-    the JAX package (never page-major, whatever the backend).  Returns
-    (y (B, 1, d), deferred update {"ckv", "krope", "pos"})."""
+    the JAX package (never page-major, whatever the backend).  On a
+    ``mesh`` the latent output merges over "model" before the value
+    columns' product (r_kv floats a row, not H * dv).  Returns (y (B, 1,
+    d), deferred update {"ckv", "krope", "pos"})."""
     if pages is not None:
         cache = paged_view(cache, pages[0])
     a = cfg.mla
@@ -493,9 +548,9 @@ def decode_attn_mla(p: Params, x: torch.Tensor, cache: Params,
     logits_c = torch.where(mask, logits_c, torch.full_like(logits_c, NEG_INF))
     logits_s = ((torch.einsum("bhr,br->bh", q_abs, ckv_new)
                  + torch.einsum("bhd,bd->bh", q_pe, kr_new)).float() * scale)[..., None]
-    w_c, w_s = _two_part_softmax(logits_c, logits_s)
-    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
-    o_lat = torch.einsum("bhs,bsr->bhr", w_c, ckv) + w_s * ckv_new[:, None, :]
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
+    o_lat = finish(torch.einsum("bhs,bsr->bhr", w_c, ckv.to(w_c.dtype))
+                   + w_s * ckv_new[:, None, :])
     o = torch.einsum("bhr,rhd->bhd", o_lat, w_v)
     y = o.reshape(B, 1, H * dv) @ p["wo"]
     return y, {"ckv": ckv_new, "krope": kr_new, "pos": cur.to(torch.int64)}
@@ -528,8 +583,9 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
                         pages: tuple | None = None, mesh=None) -> list:
     """Merge the deferred per-layer decode entries into the rings (or,
     with ``pages``, the pools), in place (one pass after the layer loop);
-    a recurrent layer's new state replaces its state whole.  ``active``
-    (B,) bool freezes the rows of inactive sequences entirely.  On a
+    a recurrent layer's new state replaces its state whole (on a mesh,
+    its channel slice).  ``active`` (B,) bool freezes the rows of
+    inactive sequences entirely.  On a
     ``mesh`` each rank writes the entries whose column (or page offset)
     it holds; a pool, whole on every "data" rank, takes every data
     rank's slots' entries (gathered over "data")."""
@@ -540,12 +596,12 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
         pages[1])
     for cache, upd in zip(caches, updates):
         for name, leaf in cache.get("state", {}).items():
-            new = upd["state"][name].to(leaf.dtype)
+            new = model_slice(upd["state"][name], name, mesh).to(leaf.dtype)
             if active is not None:
                 new = torch.where(active.reshape((-1,) + (1,) * (leaf.dim() - 1)), new, leaf)
             leaf.copy_(new)
         for name, leaf in cache.get("self", {}).items():
-            lmesh = _leaf_mesh(leaf, cache["self"], mesh)
+            lmesh = _leaf_mesh(name, mesh)
             if pages is None:
                 _merge_leaf(leaf, upd["self"][name], cur, active, lmesh)
             else:
@@ -563,17 +619,6 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
 # writes stay deferred: the (B, S, ...) entries go back to the caller,
 # which commits only the accepted prefix (apply_verify_writes), so a
 # rejected draft token never touches a ring.
-
-
-def _joint_softmax(logits_c: torch.Tensor, logits_s: torch.Tensor):
-    """Softmax over [ring columns | S self columns] without concatenating.
-    logits_c: (..., S_ring); logits_s: (..., S_new)."""
-    m = torch.maximum(logits_c.amax(dim=-1, keepdim=True),
-                      logits_s.amax(dim=-1, keepdim=True))
-    e_c = torch.exp(logits_c - m)
-    e_s = torch.exp(logits_s - m)
-    denom = e_c.sum(dim=-1, keepdim=True) + e_s.sum(dim=-1, keepdim=True)
-    return e_c / denom, e_s / denom
 
 
 def _verify_masks(cache_pos: torch.Tensor, cur: torch.Tensor, S: int,
@@ -636,10 +681,10 @@ def verify_attn_dense(p: Params, x: torch.Tensor, cache: Params,
     logits_s = torch.einsum("bjkgd,bnkd->bkgjn", qr, k_new).float() * scale
     logits_s = torch.where(self_m[:, None, None], logits_s,
                            torch.full_like(logits_s, NEG_INF))
-    w_c, w_s = _joint_softmax(logits_c, logits_s)
-    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
-    o = (torch.einsum("bkgjs,bskd->bjkgd", w_c, cache["v"].to(x.dtype))
-         + torch.einsum("bkgjn,bnkd->bjkgd", w_s, v_new))
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
+    o = finish(torch.einsum("bkgjs,bskd->bkgjd", w_c, cache["v"].to(w_c.dtype))
+               + torch.einsum("bkgjn,bnkd->bkgjd", w_s, v_new.to(w_s.dtype)))
+    o = o.permute(0, 3, 1, 2, 4)
     return o.reshape(B, S, H * dh) @ p["wo"], updates
 
 
@@ -702,23 +747,24 @@ def verify_attn_latent(p: Params, x: torch.Tensor, cache: Params,
     logits_s = torch.einsum("bjkgd,bnkd->bkgjn", qr, k_self).float() * scale
     logits_s = torch.where(self_m[:, None, None], logits_s,
                            torch.full_like(logits_s, NEG_INF))
-    w_c, w_s = _joint_softmax(logits_c, logits_s)
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
     Lr = zk_c.shape[1]
-    w_cg = w_c.to(x.dtype).reshape(B, G, s * g, S, Lr)
-    w_sg = w_s.to(x.dtype).reshape(B, G, s * g, S, S)
-    o_lat = (torch.einsum("bGhjs,bsGr->bjGhr", w_cg, zv_c)
-             + torch.einsum("bGhjn,bnGr->bjGhr", w_sg, zv_self))
-    o_lat = o_lat.reshape(B, S, H, -1)
+    w_cg = w_c.reshape(B, G, s * g, S, Lr)
+    w_sg = w_s.reshape(B, G, s * g, S, S)
+    o_lat = finish(torch.einsum("bGhjs,bsGr->bGhjr", w_cg, zv_c.to(w_cg.dtype))
+                   + torch.einsum("bGhjn,bnGr->bGhjr", w_sg, zv_self.to(w_sg.dtype)))
+    o_lat = o_lat.permute(0, 3, 1, 2, 4).reshape(B, S, H, -1)
     return torch.einsum("bjhr,hrd->bjd", o_lat, p["wo_fused"]), updates
 
 
 def verify_attn_mla(p: Params, x: torch.Tensor, cache: Params,
                     cfg: ModelConfig, cur: torch.Tensor,
-                    feed_mask: torch.Tensor, pages: tuple | None = None):
+                    feed_mask: torch.Tensor, pages: tuple | None = None,
+                    mesh=None):
     """Absorbed-MLA S-token verify: :func:`decode_attn_mla`'s latent-space
-    scores over the ring plus a causal block over the S fresh entries.
-    Returns (y (B, S, d), deferred entries with (B, S, ...) leaves and
-    "pos" (B, S))."""
+    scores over the ring plus a causal block over the S fresh entries
+    (``mesh`` as there).  Returns (y (B, S, d), deferred entries with (B,
+    S, ...) leaves and "pos" (B, S))."""
     if pages is not None:
         cache = paged_view(cache, pages[0])
     a = cfg.mla
@@ -734,10 +780,10 @@ def verify_attn_mla(p: Params, x: torch.Tensor, cache: Params,
     logits_s = (torch.einsum("bjhr,bnr->bhjn", q_abs, ckv_new)
                 + torch.einsum("bjhd,bnd->bhjn", q_pe, kr_new)).float() * scale
     logits_s = torch.where(self_m[:, None], logits_s, torch.full_like(logits_s, NEG_INF))
-    w_c, w_s = _joint_softmax(logits_c, logits_s)
-    w_c, w_s = w_c.to(x.dtype), w_s.to(x.dtype)
-    o_lat = (torch.einsum("bhjs,bsr->bjhr", w_c, ckv)
-             + torch.einsum("bhjn,bnr->bjhr", w_s, ckv_new))
+    w_c, w_s, finish = _joint_softmax(logits_c, logits_s, x.dtype, mesh)
+    o_lat = finish(torch.einsum("bhjs,bsr->bhjr", w_c, ckv.to(w_c.dtype))
+                   + torch.einsum("bhjn,bnr->bhjr", w_s, ckv_new.to(w_s.dtype)))
+    o_lat = o_lat.transpose(1, 2)
     o = torch.einsum("bjhr,rhd->bjhd", o_lat, w_v)
     y = o.reshape(B, S, H * dv) @ p["wo"]
     return y, {"ckv": ckv_new, "krope": kr_new, "pos": pos_q.to(torch.int64)}
@@ -766,7 +812,7 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     for cache, upd in zip(caches, updates):
         for name, leaf in cache.get("self", {}).items():
             new = upd["self"][name]
-            lmesh = _leaf_mesh(leaf, cache["self"], mesh)
+            lmesh = _leaf_mesh(name, mesh)
             if pages is not None:
                 _paged_merge_leaf(leaf, new, _own_targets(targets, leaf.shape[1], lmesh))
                 continue
@@ -783,17 +829,17 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
 
 
 def invalidate_positions(caches: list, cur: torch.Tensor,
-                         mask: torch.Tensor) -> list:
+                         mask: torch.Tensor, mesh=None) -> list:
     """Mark the ring entry at position ``cur`` empty (pos = -1) in every
     layer, in place, for rows where ``mask``: retires a draft model's
-    entries for rejected proposals, which it wrote as it proposed."""
+    entries for rejected proposals, which it wrote as it proposed.  On a
+    ``mesh`` the rank holding the column marks it."""
     for cache in caches:
         if "self" not in cache:
             continue
         pos = cache["self"]["pos"]
-        rows = torch.arange(pos.shape[0], device=pos.device)
-        slot = cur.to(torch.int64) % pos.shape[1]
-        pos[rows, slot] = torch.where(mask, -1, pos[rows, slot])
+        _merge_leaf(pos, torch.full_like(cur, -1, dtype=pos.dtype), cur, mask,
+                    _leaf_mesh("pos", mesh))
     return caches
 
 
@@ -801,18 +847,33 @@ def invalidate_positions(caches: list, cur: torch.Tensor,
 # Cross-attention readers (the static source cache; einsum, as in JAX)
 # ---------------------------------------------------------------------------
 
+def _cross_mesh(cache: Params, cfg: ModelConfig, mesh):
+    """``mesh`` where ``CACHE_RULES`` split the cross source's positions
+    over "model" (:func:`model_slice` cut each rank's slice), else None:
+    every rank holds the whole source."""
+    if not kops.seq_sharded(mesh):
+        return None
+    name, leaf = next(iter(cache.items()))
+    full = (leaf.shape[0], cfg.cross_source_len) + tuple(leaf.shape[2:])
+    return None if R.cache_model_dim(name, full, leaf.dtype, mesh) is None else mesh
+
+
 def decode_cross_dense(p: Params, x: torch.Tensor, cache: Params,
-                       cfg: ModelConfig) -> torch.Tensor:
+                       cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Cross-attention of a decode (x (B, 1, d)) or verify (x (B, S, d))
     step over the dense cross cache: the source is static, so the token
-    axis is just a query axis and nothing is written."""
+    axis is just a query axis and nothing is written.  On a ``mesh`` each
+    rank scores its source slice and the softmaxes merge over "model"
+    (no self column, no mask)."""
     return L.cross_attention_dense(
-        p, x, (cache["k"].to(x.dtype), cache["v"].to(x.dtype)), cfg)
+        p, x, (cache["k"].to(x.dtype), cache["v"].to(x.dtype)), cfg,
+        mesh=_cross_mesh(cache, cfg, mesh))
 
 
 def decode_cross_latent(p: Params, x: torch.Tensor, cache: Params,
-                        cfg: ModelConfig) -> torch.Tensor:
+                        cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """As :func:`decode_cross_dense` over the latent cross cache (key
     absorption, values through ``wo_fused``)."""
     return L.cross_attention_latent(
-        p, x, (cache["zk"].to(x.dtype), cache["zv"].to(x.dtype)), cfg)
+        p, x, (cache["zk"].to(x.dtype), cache["zv"].to(x.dtype)), cfg,
+        mesh=_cross_mesh(cache, cfg, mesh))

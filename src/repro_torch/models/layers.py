@@ -66,9 +66,11 @@ def maybe_head_norm(x: torch.Tensor, scale: torch.Tensor | None,
 # Masked softmax attention with latent values (query-chunked)
 # ---------------------------------------------------------------------------
 
-def _attend_latent_v(q, k, zv, mask, scale: float, group_size: int):
+def _attend_latent_v(q, k, zv, mask, scale: float, group_size: int, mesh=None):
     """q (B, Tq, Hq, dh), k (B, S, Hkv, dh) reconstructed keys, zv
     (B, S, G, r_v) value latents; mask broadcastable to (B, Hq, Tq, S).
+    With ``mesh`` k and zv are this rank's slice of the S columns, and
+    the partial softmaxes merge over "model" (``kops.softmax_merge``).
     Returns (B, Tq, Hq, r_v)."""
     B, Tq, Hq, dh = q.shape
     S, Hkv = k.shape[1], k.shape[2]
@@ -79,11 +81,11 @@ def _attend_latent_v(q, k, zv, mask, scale: float, group_size: int):
     if mask is not None:
         m = torch.broadcast_to(mask, (B, Hq, Tq, S)).reshape(B, Hkv, g, Tq, S)
         logits = torch.where(m, logits, torch.full_like(logits, NEG_INF))
-    w = torch.softmax(logits, dim=-1).to(zv.dtype)
+    w, finish = kops.softmax_merge(logits, zv.dtype, mesh)
     # kv-head (G, s) reads value-group G: fold kv axis -> (G, s*g) query heads
     wg = w.reshape(B, G, group_size * g, Tq, S)
-    o = torch.einsum("bGhqs,bsGr->bqGhr", wg, zv)
-    return o.reshape(B, Tq, Hq, zv.shape[-1])
+    o = finish(torch.einsum("bGhqs,bsGr->bGhqr", wg, zv.to(wg.dtype)))
+    return o.permute(0, 3, 1, 2, 4).reshape(B, Tq, Hq, zv.shape[-1])
 
 
 def causal_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
@@ -194,27 +196,29 @@ def self_attention_latent(p: Params, x: torch.Tensor, cfg: ModelConfig,
 
 def cross_attention_dense(p: Params, x: torch.Tensor,
                           source_kv: tuple[torch.Tensor, torch.Tensor],
-                          cfg: ModelConfig) -> torch.Tensor:
+                          cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """x (B, T, d) attends every source position; source_kv = (k, v),
     each (B, S, Hkv, dh).  Serves prefill, decode and verify alike: the
-    token axis is just a query axis."""
+    token axis is just a query axis.  With ``mesh`` the source is this
+    rank's slice of its positions, merged over "model"."""
     B, T, _ = x.shape
     H, dh = cfg.num_heads, cfg.d_head
     k, v = source_kv
     q = (x @ p["wq"]).reshape(B, T, H, dh)
     q = maybe_head_norm(q, p.get("q_norm"), cfg.norm_eps)
-    o = _attend_latent_v(q, k, v, None, dh ** -0.5, 1)
+    o = _attend_latent_v(q, k, v, None, dh ** -0.5, 1, mesh=mesh)
     return o.reshape(B, T, H * dh) @ p["wo"]
 
 
 def cross_attention_latent(p: Params, x: torch.Tensor,
                            source_latents: tuple[torch.Tensor, torch.Tensor],
-                           cfg: ModelConfig) -> torch.Tensor:
+                           cfg: ModelConfig, mesh=None) -> torch.Tensor:
     """Latent cross-attention with key absorption: cross keys carry no
     RoPE, so the reconstruction commutes with the score product and
     ``q' = q R_k^T`` scores against ``zk`` directly (keys are never
     rebuilt); values stay latent through ``wo_fused``.  source_latents =
-    (zk (B, S, G, r_k), zv (B, S, G, r_v))."""
+    (zk (B, S, G, r_k), zv (B, S, G, r_v)); ``mesh`` as for
+    :func:`cross_attention_dense`."""
     B, T, _ = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.d_head
     zk, zv = source_latents
@@ -227,8 +231,9 @@ def cross_attention_latent(p: Params, x: torch.Tensor,
     qg = q.reshape(B, T, G, s, g, dh)
     q_abs = torch.einsum("btGsgd,Grsd->btGsgr", qg, r_k)
     logits = torch.einsum("btGsgr,bSGr->bGsgtS", q_abs, zk).float()
-    w = torch.softmax(logits * dh ** -0.5, dim=-1).to(zv.dtype)
-    o_lat = torch.einsum("bGsgtS,bSGr->btGsgr", w, zv).reshape(B, T, H, rank_v)
+    w, finish = kops.softmax_merge(logits * dh ** -0.5, zv.dtype, mesh)
+    o_lat = finish(torch.einsum("bGsgtS,bSGr->bGsgtr", w, zv.to(w.dtype)))
+    o_lat = o_lat.permute(0, 4, 1, 2, 3, 5).reshape(B, T, H, rank_v)
     return torch.einsum("bthr,hrd->btd", o_lat, p["wo_fused"])
 
 

@@ -18,8 +18,10 @@ never write.
 
 On a mesh (``ctx["mesh"]``, see ``launch.mesh``) the decode and verify
 steps take this rank's cache shards and its slot rows: the attention
-readers score their sequence slice and merge (``kernels.ops``), the
-writes land where the column lives (``kv_cache``), and, with more than
+readers, kernel or einsum, self or cross, score their sequence slice and
+merge (``kernels.ops``), a recurrent block reads its state gathered over
+"model", the writes land where the column (or channel) lives
+(``kv_cache``), and, with more than
 one "data" rank, an MoE FFN runs on every data rank's tokens, gathered,
 so its expert capacity and drops are the single-device ones.  Params
 read through ``sharding.place.MeshParams`` arrive gathered.
@@ -98,21 +100,21 @@ def _cross_full(cfg: ModelConfig, p: Params, h: torch.Tensor, ctx: dict):
 
 
 def _cross_step(cfg: ModelConfig, p: Params, h: torch.Tensor,
-                cache: Params) -> torch.Tensor:
+                cache: Params, mesh=None) -> torch.Tensor:
     """A cross half of a decode or verify step, over the static cache."""
     reader = (KC.decode_cross_dense if cfg.recalkv is None
               else KC.decode_cross_latent)
-    return reader(p, h, cache, cfg)
+    return reader(p, h, cache, cfg, mesh=mesh)
 
 
 def _cross_residual(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
-                    cache: Params) -> torch.Tensor:
+                    cache: Params, mesh=None) -> torch.Tensor:
     """An ``attn_cross`` block's cross half on the residual of a decode or
     verify step (the other kinds pass ``x`` through)."""
     if kind != "attn_cross":
         return x
     return x + _cross_step(cfg, p["cross"], L.rmsnorm(x, p["lnx"], cfg.norm_eps),
-                           cache["cross"])
+                           cache["cross"], mesh)
 
 
 def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
@@ -186,26 +188,29 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     """One block for a (B, 1, d) decode step.  Returns (x, deferred
     updates) — written by ``kv_cache.apply_decode_writes`` after the layer
     loop; a cross half reads its static cache and defers nothing; a
-    recurrent block defers its whole new state."""
+    recurrent block defers its whole new state (on a mesh it reads its
+    state gathered over "model", ``kv_cache.read_state``)."""
+    mesh = ctx.get("mesh")
     if kind in RECURRENT_KINDS:
-        x, state = _mixer_block(cfg, kind, p, x, cache["state"])
+        x, state = _mixer_block(cfg, kind, p, x,
+                                KC.read_state(cfg, kind, cache["state"], mesh))
         return x, {"state": state}
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                        cache["cross"])
+                        cache["cross"], mesh)
         return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.decode_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                   pages=ctx.get("pages"))
+                                   pages=ctx.get("pages"), mesh=mesh)
     else:
         reader = (KC.decode_attn_dense if cfg.recalkv is None
                   else KC.decode_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        cfg.window_for(kind), theta=_theta(cfg, kind),
-                       pages=ctx.get("pages"), mesh=ctx.get("mesh"))
-    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache),
-                mesh=ctx.get("mesh"))
+                       pages=ctx.get("pages"), mesh=mesh)
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache, mesh),
+                mesh=mesh)
     return x, {"self": sc}
 
 
@@ -221,23 +226,24 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     if kind in RECURRENT_KINDS:
         raise NotImplementedError(
             f"speculative verify is unsupported for recurrent {kind!r} blocks")
+    mesh = ctx.get("mesh")
     if kind == "cross":
         y = _cross_step(cfg, p["cross"], L.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                        cache["cross"])
+                        cache["cross"], mesh)
         return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
     if cfg.mla is not None:
         y, sc = KC.verify_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                   ctx["feed_mask"], pages=ctx.get("pages"))
+                                   ctx["feed_mask"], pages=ctx.get("pages"), mesh=mesh)
     else:
         reader = (KC.verify_attn_dense if cfg.recalkv is None
                   else KC.verify_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        ctx["feed_mask"], cfg.window_for(kind),
                        theta=_theta(cfg, kind), pages=ctx.get("pages"),
-                       mesh=ctx.get("mesh"))
-    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache),
-                mesh=ctx.get("mesh"))
+                       mesh=mesh)
+    x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache, mesh),
+                mesh=mesh)
     return x, {"self": sc}
 
 

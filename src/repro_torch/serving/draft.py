@@ -22,6 +22,7 @@ import dataclasses
 import torch
 
 from repro_torch.models.config import RECURRENT_KINDS, ModelConfig
+from repro_torch.sharding.place import MeshParams
 
 
 @dataclasses.dataclass(frozen=True)
@@ -98,8 +99,10 @@ def make_layer_draft(cfg: ModelConfig, params: dict,
     """Self-draft from the target's first ``k`` layers.  Returns
     (draft_cfg, draft_params): the params are a view that shares the
     target's tensors (embed, final norm, lm_head, an encoder, the first
-    k layer dicts) — no copies.  The config keeps ``cache_quant_bits``, so the
-    draft's ring is int8 when the target's is."""
+    k layer dicts) — no copies; on a mesh (``params`` a
+    ``sharding.place.MeshParams``) a view over the target's shards.  The
+    config keeps ``cache_quant_bits``, so the draft's ring is int8 when
+    the target's is."""
     if not 1 <= k <= cfg.num_layers:
         raise ValueError(
             f"layers draft wants {k} layers; target has {cfg.num_layers}")
@@ -107,6 +110,8 @@ def make_layer_draft(cfg: ModelConfig, params: dict,
     if any(kd in RECURRENT_KINDS for kd in kinds):
         raise ValueError("layers draft cannot include recurrent blocks")
     dcfg = dataclasses.replace(cfg, name=f"{cfg.name}-draft{k}", num_layers=k)
+    if isinstance(params, MeshParams):
+        return dcfg, params.first_layers(k)
     dparams = {kk: params[kk] for kk in ("embed", "final_norm", "lm_head", "encoder")
                if kk in params}
     dparams["layers"] = params["layers"][:k]

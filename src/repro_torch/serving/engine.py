@@ -125,22 +125,25 @@ submitted requests).  The params rest as each rank's shards by
 ``sharding.rules.param_specs`` (head-grained) and each layer's leaves are
 gathered where the model reads them (``sharding.place.MeshParams``); the
 cache is each rank's shard by ``cache_specs``: ring slots over "data" and
-ring positions over "model", a pool's page offsets over "model".  Data
-rank k steps slots [k * B / D, (k + 1) * B / D) (the scheduler packs a
-wave into one such group, ``slot_shards``); the model ranks of a data
-rank run the same rows, each scoring its sequence slice, merged by
-log-sum-exp (``kernels.ops``).  The wave prefill runs on every rank over
-replicated operands and each rank keeps its slots' rows and columns (on
-the pool, every page's offsets).  One all-gather over "data" a window
-brings the window's tokens and final state to every rank's host mirror,
-so every rank's scheduler takes the same decisions and
-``host_syncs == windows + admission_syncs`` still holds.  Refused by name
-on a mesh of more than one rank (ROADMAP.md Queue 1 items 5b-5c):
-``overlap``, ``continuous`` and ``aot``; MLA, cross-attention and
-recurrent blocks; the layer draft; the einsum backend (its readers would
-need the merge in einsum form); and shapes the rules do not split evenly
-(slots over "data", every ring length and the page size over "model", a
-pool whose page count "data" would split).
+ring positions over "model", a pool's page offsets over "model", a cross
+cache's source positions and a recurrent state's channels over "model".
+Data rank k steps slots [k * B / D, (k + 1) * B / D) (the scheduler
+packs a wave into one such group, ``slot_shards``); the model ranks of a
+data rank run the same rows, each scoring its sequence slice, merged by
+log-sum-exp: the kernels' (``kernels.ops``) and the einsum readers' (MLA,
+cross-attention, the einsum backend; ``models.kv_cache``) alike, while a
+recurrent block reads its state gathered over "model".  The wave prefill
+runs on every rank over replicated operands and each rank keeps its
+slots' rows and its "model" slice of every leaf.  The layer draft's
+params are a view over the target's shards and its ring is sharded as
+the target's.  One all-gather over "data" a window brings the window's
+tokens and final state to every rank's host mirror, so every rank's
+scheduler takes the same decisions and ``host_syncs == windows +
+admission_syncs`` still holds.  Refused by name on a mesh of more than
+one rank: ``overlap``, ``continuous`` and ``aot`` (ROADMAP.md Queue 1
+item 5c), and shapes the rules do not split evenly (item 5b.4: slots
+over "data", every ring length and the page size over "model", a pool
+whose page count "data" would split).
 """
 
 from __future__ import annotations
@@ -183,29 +186,22 @@ __all__ = ["DraftSpec", "Engine", "Request", "SamplingParams"]
 STAGE_FREE = np.iinfo(np.int32).max
 
 
-def _model_slice(src: torch.Tensor, local: int, mesh) -> torch.Tensor:
-    """This rank's slice of dim 1 (ring columns, or a page's offsets) of a
-    full prefill leaf, ``local`` wide (the whole leaf off a mesh)."""
-    if mesh is None or src.shape[1] == local:
-        return src
-    m = mesh.axis_index("model")
-    return src[:, m * local:(m + 1) * local]
-
-
 def _merge_slot(pool_cache: list, new_cache: list, slots: torch.Tensor,
                 rows: torch.Tensor | None = None, mesh=None) -> list:
     """Copy batch rows of ``new_cache`` into ``pool_cache`` at ``slots``, in
     place: the leading ``len(slots)`` rows (the prefill wave may be padded
     past that for shape bucketing; the pad rows are dropped here), or the
     wave rows ``rows`` when given.  On a ``mesh`` ``slots`` are this
-    rank's local slot rows and each leaf takes its column slice."""
+    rank's local slot rows and each leaf takes its "model" slice by the
+    rules (``kv_cache.model_slice``: ring columns, cross source
+    positions, state channels)."""
     n = slots.shape[0]
     for pool, new in zip(pool_cache, new_cache):
         for part, leaves in pool.items():
             for name, leaf in leaves.items():
                 src = new[part][name]
                 src = src[:n] if rows is None else src[rows]
-                leaf[slots] = _model_slice(src, leaf.shape[1], mesh).to(leaf.dtype)
+                leaf[slots] = KC.model_slice(src, name, mesh).to(leaf.dtype)
     return pool_cache
 
 
@@ -222,7 +218,7 @@ def _merge_slot_paged(pool_cache: list, new_cache: list, rows, cols, phys,
             src = new["self"][name]
             tiles = src.reshape((src.shape[0], src.shape[1] // page_size,
                                  page_size) + tuple(src.shape[2:]))
-            leaf[phys] = _model_slice(tiles[rows, cols], leaf.shape[1], mesh).to(leaf.dtype)
+            leaf[phys] = KC.model_slice(tiles[rows, cols], name, mesh).to(leaf.dtype)
     return pool_cache
 
 
@@ -342,7 +338,7 @@ class Engine:
         if self._mesh is not None:
             self._check_mesh(cfg, max_slots, max_len, cache_layout, page_size,
                              n_pages, overlap=overlap, continuous=continuous,
-                             aot=aot, draft=parsed_draft)
+                             aot=aot)
         resolved_policy = get_policy(policy)
         if pin_prefixes < 0:
             raise ValueError("pin_prefixes must be >= 0")
@@ -395,15 +391,10 @@ class Engine:
             self._slot_pages: list[list[int]] = [[] for _ in range(max_slots)]
         self.policy.configure(page_size=page_size, registry=self._prefixes)
         pages_shape = None if self._pages is None else (n_pages, page_size)
-        if self._mesh is None:
-            self.cache = T.init_decode_cache(cfg, max_slots, max_len, self.device,
-                                             pages=pages_shape)
-        else:
+        if self._mesh is not None:
             self.params = SP.MeshParams(cfg, params, self._mesh,
                                         grains=SR.head_grains(cfg))
-            self.cache = SP.local_cache(
-                T.init_decode_cache(cfg, max_slots, max_len, "meta", pages=pages_shape),
-                self._mesh, self.device)
+        self.cache = self._init_cache(cfg, pages_shape)
         # this rank's slot rows: [lo, lo + B / D)
         self._slot_n = max_slots // self.mesh.shape["data"]
         self._slot_lo = self.mesh.axis_index("data") * self._slot_n
@@ -425,13 +416,13 @@ class Engine:
             else "kernel" if cfg.attn_backend == "kernel" and cfg.mla is None
             else "einsum")
         # Layer draft: a view over the target's first K layers (no new
-        # weights) with its own, much smaller, ring cache.
+        # weights; on a mesh over their shards) with its own, much
+        # smaller, ring cache (on a mesh, this rank's shard of it).
         self.draft_cfg = self.draft_params = self.draft_cache = None
         if self.draft is not None and self.draft.kind == "layers":
             self.draft_cfg, self.draft_params = D.make_layer_draft(
-                cfg, params, self.draft.layers)
-            self.draft_cache = T.init_decode_cache(self.draft_cfg, max_slots,
-                                                   max_len, self.device)
+                cfg, self.params, self.draft.layers)
+            self.draft_cache = self._init_cache(self.draft_cfg, None)
         self.finished: list[Request] = []
         # per-slot host mirror of the window's loop state (synced once per
         # window); the cache itself never leaves the device
@@ -552,9 +543,21 @@ class Engine:
         if self.aot and self.device.type == "cuda":
             self._capture()
 
+    def _init_cache(self, cfg, pages_shape):
+        """Empty decode caches for ``cfg``: whole, or on a mesh this rank's
+        shards of them (``sharding.place.local_cache``)."""
+        if self._mesh is None:
+            return T.init_decode_cache(cfg, self.B, self.max_len, self.device,
+                                       pages=pages_shape)
+        return SP.local_cache(
+            T.init_decode_cache(cfg, self.B, self.max_len, "meta", pages=pages_shape),
+            self._mesh, self.device)
+
     def _check_mesh(self, cfg, max_slots, max_len, cache_layout, page_size, n_pages,
-                    *, overlap, continuous, aot, draft):
-        """What a mesh of more than one rank refuses, by name."""
+                    *, overlap, continuous, aot):
+        """What a mesh of more than one rank refuses, by name: the
+        overlapped engine's flags (item 5c) and shapes the rules do not
+        split evenly (item 5b.4)."""
         item = "ROADMAP.md Queue 1 item"
         for flag, on in (("continuous", continuous), ("aot", aot), ("overlap", overlap)):
             if on:
@@ -562,38 +565,25 @@ class Engine:
                     f"{flag}=True is not ported to a mesh yet ({item} 5c): the mesh "
                     f"engine is the synchronous one (gloo collectives cannot be "
                     f"captured in a CUDA graph; NCCL capture is still to come)")
-        kinds = sorted({k for k in cfg.expanded_layers()
-                        if k in RECURRENT_KINDS or k in ("cross", "attn_cross")})
-        if cfg.mla is not None or kinds:
-            what = "MLA" if cfg.mla is not None else f"{kinds} blocks"
-            raise ValueError(
-                f"{cfg.name}: {what} are not served on a mesh yet ({item} 5b): "
-                f"their einsum readers need the log-sum-exp merge in einsum form")
-        if draft is not None and draft.kind == "layers":
-            raise ValueError(f"the layer draft is not ported to a mesh yet ({item} 5b)")
-        if cfg.attn_backend != "kernel":
-            raise ValueError(
-                f"a mesh serves through the decode kernels (backend='kernel'); the "
-                f"einsum readers would need the merge in einsum form ({item} 5b)")
         D, M = self.mesh.shape["data"], self.mesh.shape["model"]
         if max_slots % D:
             raise ValueError(f"max_slots={max_slots} does not split over {D} data "
-                             f"ranks ({item} 5b)")
+                             f"ranks ({item} 5b.4)")
         if cache_layout == "paged":
             if page_size % M:
                 raise ValueError(f"page_size={page_size} does not split over {M} "
-                                 f"model ranks ({item} 5b)")
+                                 f"model ranks ({item} 5b.4)")
             if D > 1 and n_pages % D == 0:
                 raise ValueError(
                     f"n_pages={n_pages} would split the pool's pages over {D} data "
                     f"ranks; the mesh engine keeps every page on every data rank "
-                    f"({item} 5b): take a page count {D} does not divide")
+                    f"({item} 5b.4): take a page count {D} does not divide")
         else:
             bad = sorted({n for n in (cfg.cache_len(k, max_len)
                                       for k in cfg.expanded_layers()) if n % M})
             if bad:
                 raise ValueError(f"ring lengths {bad} do not split over {M} model "
-                                 f"ranks ({item} 5b)")
+                                 f"ranks ({item} 5b.4)")
 
     def _check_source(self, cfg, source):
         """``source`` on the engine's device in ``cfg.dtype`` (None for a
@@ -970,10 +960,10 @@ class Engine:
         Returns the first_lens, a skip member's set to its shared coverage."""
         t = self._dev
         lens = [fl for *_, fl in entries]
+        # a ring never skips; on a mesh this rank keeps its own slots
+        lo, n = self._slot_lo, self._slot_n
+        mine = [(s - lo, ri) for s, _, ri, _ in entries if lo <= s < lo + n and ri >= 0]
         if self._pages is None:
-            # the ring never skips; on a mesh this rank keeps its own slots
-            lo, n = self._slot_lo, self._slot_n
-            mine = [(s - lo, ri) for s, _, ri, _ in entries if lo <= s < lo + n]
             if mine:
                 _merge_slot(self.cache, new_cache, t([s for s, _ in mine]),
                             rows=t([ri for _, ri in mine]), mesh=self._mesh)
@@ -990,10 +980,9 @@ class Engine:
             if phys:
                 _merge_slot_paged(self.cache, new_cache, t(rws), t(cols), t(phys),
                                   self.page_size, mesh=self._mesh)
-        pre = [(s, ri) for s, _, ri, _ in entries if ri >= 0]
-        if draft_new_cache is not None and pre:
-            _merge_slot(self.draft_cache, draft_new_cache, t([s for s, _ in pre]),
-                        rows=t([ri for _, ri in pre]))
+        if draft_new_cache is not None and mine:
+            _merge_slot(self.draft_cache, draft_new_cache, t([s for s, _ in mine]),
+                        rows=t([ri for _, ri in mine]), mesh=self._mesh)
         return lens
 
     def _admit(self):
@@ -1427,7 +1416,7 @@ class Engine:
             act_j = stepping if j == 0 else speculating & cap_ok[:, j]
             dlogits, self.draft_cache = T.decode_step(
                 self.draft_cfg, self.draft_params, self.draft_cache, d_tok,
-                d_cur, act_j)
+                d_cur, act_j, mesh=self._mesh)
             d_cur = d_cur + act_j.to(d_cur.dtype)
             if j < depth:
                 d_tok = dlogits.argmax(dim=-1)
@@ -1495,7 +1484,7 @@ class Engine:
             # its position index so they cannot shadow the slot
             for j in range(1, S_pos):
                 KC.invalidate_positions(self.draft_cache, cur + j,
-                                        cand[:, j] & ~valid[:, j])
+                                        cand[:, j] & ~valid[:, j], mesh=self._mesh)
         hist = st["hist"]
         rows = torch.arange(hist.shape[0], device=hist.device)
         for j in range(S_pos):

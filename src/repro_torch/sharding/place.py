@@ -72,16 +72,18 @@ def tree_bytes(tree) -> int:
 
 
 class _Layers:
-    """``params["layers"]`` of a :class:`MeshParams`: item i is layer i's
-    tree, gathered on access."""
+    """``params["layers"]`` of a :class:`MeshParams`: item i < ``n`` is
+    layer i's tree, gathered on access."""
 
-    def __init__(self, owner: "MeshParams"):
-        self._owner = owner
+    def __init__(self, owner: "MeshParams", n: int):
+        self._owner, self._n = owner, n
 
     def __len__(self) -> int:
-        return len(self._owner.local["layers"])
+        return self._n
 
     def __getitem__(self, i):
+        if not 0 <= i < self._n:
+            raise IndexError(i)
         o = self._owner
         return o.gathered(o.local["layers"][i], o.specs["layers"][i])
 
@@ -101,6 +103,11 @@ class MeshParams:
         self.local = shard_tree(params, self.specs, mesh)
         self.gathered_bytes = 0
 
+    def first_layers(self, k: int) -> "LayerPrefix":
+        """The first ``k`` layers and the top-level leaves, read over the
+        same shards (the layer draft's params)."""
+        return LayerPrefix(self, k)
+
     def gathered(self, tree, specs):
         out = gather_tree(tree, specs, self.mesh)
         self.gathered_bytes += tree_bytes(out)
@@ -108,7 +115,7 @@ class MeshParams:
 
     def __getitem__(self, key):
         if key == "layers":
-            return _Layers(self)
+            return _Layers(self, len(self.local["layers"]))
         return self.gathered(self.local[key], self.specs[key])
 
     def __contains__(self, key) -> bool:
@@ -135,3 +142,21 @@ def local_cache(full_meta: list, mesh, device) -> list:
                     for name, leaf in leaves.items()}
              for part, leaves in layer.items()}
             for i, layer in enumerate(full_meta)]
+
+
+class LayerPrefix:
+    """A :class:`MeshParams` read as its first ``k`` layers and its
+    top-level leaves, no copy: the layer draft's params.  Its reads
+    gather through the owner, so their bytes count in the owner's
+    ``gathered_bytes``."""
+
+    def __init__(self, owner: MeshParams, k: int):
+        self._owner, self._k = owner, k
+
+    def __getitem__(self, key):
+        if key == "layers":
+            return _Layers(self._owner, self._k)
+        return self._owner[key]
+
+    def __contains__(self, key) -> bool:
+        return key in self._owner

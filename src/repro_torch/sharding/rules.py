@@ -218,6 +218,18 @@ def cache_specs(caches: list, mesh) -> list:
              for part, leaves in layer.items()} for layer in caches]
 
 
+def cache_model_dim(name: str, shape, dtype, mesh) -> int | None:
+    """The dim of a cache leaf ``name`` of FULL shape ``shape`` that
+    :func:`cache_specs` splits over "model" (a ring's or cross source's
+    positions, a pool page's offsets, a recurrent state's channels), or
+    None where it keeps the leaf whole there."""
+    spec = _spec_for([name], tuple(shape), dtype, mesh, CACHE_RULES)
+    for d, entry in enumerate(spec):
+        if entry == "model" or (isinstance(entry, tuple) and "model" in entry):
+            return d
+    return None
+
+
 def carry_specs(carry: dict, mesh) -> dict:
     """Specs of the engine's per-slot carry (``Engine._st``): dim 0 is the
     slot dim, over the batch axes when it divides; the rest whole."""

@@ -53,6 +53,8 @@ from repro_torch.models.weights import params_from_jax, params_to_jax
 from repro_torch.quant import hadamard as had
 from repro_torch.serving import Request
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 LOGITS = dict(atol=1e-4, rtol=0)

@@ -39,6 +39,8 @@ from repro_torch.models.weights import caches_from_jax, params_from_jax
 from repro_torch.serving import Engine, Request, SamplingParams
 from repro_torch.serving.engine import STAGE_FREE
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 CASES = {"dense": {}, "latent": {"recalkv_ratio": 0.5},
          "int8_latent": {"recalkv_ratio": 0.5, "cache_quant_bits": 8}}

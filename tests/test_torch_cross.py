@@ -64,6 +64,8 @@ from repro_torch.models.weights import (caches_from_jax, caches_to_jax, init_par
                                         params_from_jax, params_to_jax)
 from repro_torch.serving import Engine, Request, SamplingParams
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 VISION, WHISPER = "llama-3.2-vision-11b", "whisper-small"
 TOL = dict(rtol=1e-5, atol=1e-5)

@@ -37,6 +37,8 @@ from repro_torch.models.weights import (caches_from_jax, init_params,
                                         params_from_jax, params_to_jax)
 from repro_torch.serving import Engine, Request, SamplingParams
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -32,6 +32,8 @@ from repro_torch.kernels import dense_decode as D
 from repro_torch.kernels import latent_decode as K
 from repro_torch.kernels import ops
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 TOL = dict(atol=1e-5, rtol=1e-5)

@@ -42,6 +42,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving import Engine, Request
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 ENGINE = dict(max_slots=2, max_len=40, sync_every=4)
 POLICY = dict(keep_ratio=0.5, group_size=2, use_fisher=True)

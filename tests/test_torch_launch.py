@@ -20,6 +20,8 @@ from repro_torch.launch import serve
 from repro_torch.models.weights import init_params
 from repro_torch.serving import Engine, Request
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 BASE = ["--arch", "qwen3-4b", "--smoke", "--device", "cpu", "--requests", "6",
         "--slots", "2", "--max-len", "48", "--new-tokens", "5", "--recalkv", "0.5"]
 

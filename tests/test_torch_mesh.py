@@ -17,7 +17,10 @@ and a two-request wave in one slot group.  On (1, 4): latent greedy and
 the pool.  Every stream equals the port's single-device engine's and the
 JAX single-device engine's (which n-gram speculation and chunking leave
 unchanged).  The refusals are checked in this process: a mesh's checks
-run before it touches a process group.
+run before it touches a process group; so is the construction of what a
+mesh serves since its einsum readers merge (MLA, cross-attention, the
+recurrent state, the layer draft, the einsum backend), whose streams
+``test_torch_mesh_families.py`` holds.
 """
 
 import dataclasses
@@ -34,6 +37,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.serving import Engine, Request, SamplingParams
+
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
 
 TIME_LIMIT_S = 120
 SLOTS, MAX_LEN = 4, 40
@@ -262,28 +267,57 @@ REFUSED = [
     ("continuous", "qwen3-4b", {"overlap": True, "continuous": True},
      "continuous=True is not ported to a mesh"),
     ("aot", "qwen3-4b", {"aot": True}, "aot=True is not ported to a mesh"),
-    ("mla", "deepseek-v3-671b", {}, "MLA are not served on a mesh"),
-    ("cross", "llama-3.2-vision-11b", {}, "blocks are not served on a mesh"),
-    ("encoder_decoder", "whisper-small", {}, "blocks are not served on a mesh"),
-    ("recurrent", "falcon-mamba-7b", {}, "blocks are not served on a mesh"),
-    ("layer_draft", "qwen3-4b", {"spec_depth": 2, "draft": "layers:1"},
-     "layer draft is not ported to a mesh"),
-    ("einsum", "qwen3-4b", {"backend": "einsum"}, "merge in einsum form"),
     ("uneven_slots", "qwen3-4b", {"max_slots": 3}, "does not split over 2 data ranks"),
     ("pool_pages_split", "qwen3-4b", {"cache_layout": "paged", "n_pages": 20},
      "would split the pool's pages"),
+    ("uneven_ring", "qwen3-4b", {"max_len": 41}, r"ring lengths \[41\] do not split"),
+    ("uneven_page", "qwen3-4b", {"cache_layout": "paged", "page_size": 5},
+     "page_size=5 does not split over 2 model ranks"),
 ]
+
+
+def _smoke(arch):
+    from repro_torch.models.weights import init_params
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
+    return cfg, init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
 
 
 @pytest.mark.parametrize("case,arch,kw,msg", REFUSED, ids=[r[0] for r in REFUSED])
 def test_mesh_refusals_name_their_roadmap_item(case, arch, kw, msg):
-    from repro_torch.models.weights import init_params
-    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype=torch.float32)
-    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    kw = {"backend": "kernel", "max_slots": SLOTS, **kw}
+    cfg, params = _smoke(arch)
+    kw = {"backend": "kernel", "max_slots": SLOTS, "max_len": MAX_LEN, **kw}
     with pytest.raises(ValueError, match=msg) as e:
-        Engine(cfg, params, max_len=MAX_LEN, device="cpu", mesh=Mesh(2, 2), **kw)
+        Engine(cfg, params, device="cpu", mesh=Mesh(2, 2), **kw)
     assert "ROADMAP.md Queue 1 item 5" in str(e.value)
+
+
+# Paths the mesh refused before the einsum readers merged over "model": built
+# on a (2, 2) mesh here, no process group touched (their streams are held in
+# tests/test_torch_mesh_families.py).
+SERVED = [
+    ("mla", "deepseek-v3-671b", {}),
+    ("cross", "llama-3.2-vision-11b", {}),
+    ("encoder_decoder", "whisper-small", {}),
+    ("recurrent", "falcon-mamba-7b", {}),
+    ("layer_draft", "qwen3-4b", {"spec_depth": 2, "draft": "layers:1"}),
+    ("einsum", "qwen3-4b", {"backend": "einsum"}),
+]
+
+
+@pytest.mark.parametrize("case,arch,kw", SERVED, ids=[r[0] for r in SERVED])
+def test_mesh_accepts_what_it_now_serves(case, arch, kw):
+    import warnings
+    cfg, params = _smoke(arch)
+    src = (np.zeros((SLOTS, cfg.cross_source_len, cfg.d_model), np.float32)
+           if cfg.cross_source_len else None)
+    kw = {"backend": "kernel", **kw}
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        eng = Engine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN, device="cpu",
+                     source=src, mesh=Mesh(2, 2), **kw)
+    assert eng.mesh_str == "2x2" and eng.mesh.stats["all_gather"] == 0
+    leaves = [leaf for c in eng.cache for part in c.values() for leaf in part.values()]
+    assert leaves and all(leaf.shape[0] == SLOTS // 2 for leaf in leaves)
 
 
 def test_single_device_mesh_launches_no_collective(models):

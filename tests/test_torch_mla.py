@@ -58,6 +58,8 @@ from repro_torch.models.weights import (caches_from_jax, caches_to_jax, init_par
 from repro_torch.serving import Engine, Request, SamplingParams
 from repro_torch.serving.engine import _merge_slot_paged
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 ARCH = "deepseek-v3-671b"
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -52,6 +52,8 @@ from repro_torch.models.config import (MambaConfig, MLAConfig, ModelConfig, MoEC
 from repro_torch.models.weights import params_from_jax, params_to_jax
 from repro_torch.serving import Engine, Request
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 ARCH = "qwen3-moe-235b-a22b"

@@ -24,6 +24,8 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import params_from_jax
 from repro_torch.serving import Engine, Request, SamplingParams
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 SAMPLED = dict(temperature=0.9, top_k=32, top_p=0.9, seed=11)
 MIXED_KW = dict(max_slots=2, max_len=40, sync_every=4, prefill_chunk=8)

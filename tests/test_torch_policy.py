@@ -23,6 +23,8 @@ from repro_torch.models.weights import params_from_jax
 from repro_torch.serving import Engine, Request
 from repro_torch.serving import policy as ppolicy
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 POLICIES = ("fifo", "prefix-affinity", "reach-packing")
 
 

@@ -35,6 +35,8 @@ from repro_torch.models.weights import params_from_jax
 from repro_torch.quant import dequantize, fake_quant, quantize
 from repro_torch.serving import Engine, Request
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 TOL = dict(atol=1e-5, rtol=1e-5)
 LOGITS = dict(atol=1e-4, rtol=0)

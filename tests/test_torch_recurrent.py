@@ -66,6 +66,8 @@ from repro_torch.models.weights import (caches_from_jax, caches_to_jax, init_par
 from repro_torch.serving import Engine, Request, SamplingParams
 from repro_torch.serving import draft as D
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 MAMBA, RG = "falcon-mamba-7b", "recurrentgemma-9b"
 TOL = dict(rtol=1e-5, atol=1e-5)

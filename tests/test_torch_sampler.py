@@ -26,6 +26,8 @@ from repro_torch.serving import Engine, Request, SamplingParams
 from repro_torch.serving import prng as P
 from repro_torch.serving import sampler as S
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 TINY = float(np.finfo(np.float32).tiny)
 SEEDS_UIDS = [(0, 0), (0, 7), (11, 1), (2 ** 31 + 5, 123456), (-3, 2)]

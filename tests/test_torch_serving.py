@@ -31,6 +31,8 @@ from repro_torch.models.weights import init_params, params_from_jax
 from repro_torch.serving import Engine, Request, SamplingParams
 from repro_torch.serving.sampler import filtered_logits
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

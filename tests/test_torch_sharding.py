@@ -23,6 +23,8 @@ from repro_torch.models import transformer as TT
 from repro_torch.models import weights as W
 from repro_torch.sharding import rules as TR
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 MESHES = [(16, 16), (2, 4), (1, 4), (4, 1)]
 KEY = jax.ShapeDtypeStruct((2,), jnp.uint32)
 

@@ -68,6 +68,8 @@ from repro_torch.kernels import latent_decode as K1
 from repro_torch.kernels import latent_decode_q as KQ
 from repro_torch.kernels import ops
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 NEG_INF = -1e30
 BF16_REL, BF16_RMS = 2e-2, 1e-2     # chip_smoke.py's bf16 limit
 F32_TOL = 1e-4

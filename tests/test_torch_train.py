@@ -65,6 +65,8 @@ from repro_torch.runtime import (TrainConfig, Watchdog, WatchdogTimeout,
                                  make_train_step, train_loop)
 from repro_torch.serving import prng
 
+torch.set_num_threads(1)   # one thread a test worker: the suite's workers share the cores (README)
+
 torch.backends.cuda.matmul.allow_tf32 = False
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _RUNS = {}
