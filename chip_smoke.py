@@ -2917,7 +2917,7 @@ def phase_lse(torch, gen) -> list:
 # MH / MH2 (the dense cache: its decode and verify kernels).  "layers",
 # "new" (tokens a request), "sync" (sync_every) and "first" (prompts)
 # cut each run to size: a step costs what its gathers cost (PERF.md),
-# the tied embedding's twice whatever the depth.
+# the tied embedding's once a step (MeshParams.step) whatever the depth.
 # Then the paths the einsum readers' merge serves, each at full width:
 # MM32 / MM2, deepseek-v3-671b cut to its first layer (MLA + the dense
 # FFN; its untied 129,280 x 7,168 embedding and head dominate the
@@ -2938,6 +2938,18 @@ def phase_lse(torch, gen) -> list:
 # (data, model), "source" (a seed) and "check" (the reader whose first
 # merged call is held to the unsharded one: "latent" K1, "mla") set the
 # rest.
+# Then the overlapped engines and the shapes a mesh does not split, each
+# against the single-device SYNC engine ("mesh_kw" applies on the mesh
+# only), qwen3-4b latent, f32: MO32 (2 layers, A's first 4 prompts, the
+# overlapped engine at depth 2 with the admission thread, (1, 2)); MC32
+# (1 layer, A's first 6 prompts over 4 slots with budgets of 2-5 tokens,
+# so that slots free mid-window: the continuous engine at depth 3 on
+# (2, 1), each data rank installing into its own slots); MU32 (1 layer,
+# max_len 4,095: the ring stays whole on both "model" ranks, read by the
+# bare K1 with no merge); MP32 (1 layer, 3 slots on (2, 1), which stay
+# whole on both data ranks, and D's pool at an even page count, 384
+# pages of 16, kept whole on each data rank).  "slots", "max_len" and a
+# tuple "new" (budgets cycled) size them.
 MESH_LAYERS = 2
 MESH_RUNS = {
     "MA32": dict(dtype="float32", prompts="A", ratio=0.5, new=4, sync=3, check="latent"),
@@ -2972,6 +2984,18 @@ MESH_RUNS = {
                check="latent", kw=dict(spec_depth=2, draft="layers:2")),
     "ME": dict(dtype="float32", prompts="C", ratio=0.5, layers=1, new=2, sync=1,
                kw=dict(backend="einsum")),
+    "MO32": dict(dtype="float32", prompts="A", first=4, ratio=0.5, new=4, sync=3,
+                 check="latent", mesh_kw=dict(overlap=True, pipeline_depth=2,
+                                              admission_thread=True)),
+    "MC32": dict(dtype="float32", prompts="A", first=6, ratio=0.5, layers=1,
+                 new=(2, 3, 4, 5), sync=3, slots=4, mesh=(2, 1),
+                 mesh_kw=dict(overlap=True, continuous=True, pipeline_depth=3)),
+    "MU32": dict(dtype="float32", prompts="A", first=4, ratio=0.5, layers=1, new=2,
+                 sync=1, max_len=4095),
+    "MP32": dict(dtype="float32", prompts="D", first=4, ratio=0.5, layers=1, new=2,
+                 sync=1, slots=3, mesh=(2, 1),
+                 kw=dict(cache_layout="paged", page_size=PAGE, n_pages=384,
+                         policy="prefix-affinity")),
 }
 # each run's return_lse variants that must launch; () where no kernel may
 # launch at all (MLA, the einsum backend, an attention-free model)
@@ -2986,8 +3010,14 @@ MESH_MUST = {"MA32": ("latent_decode_attention+lse",), "MA": ("latent_decode_att
              "MWU": ("latent_decode_attention+lse",), "MF": (),
              "MR": ("latent_decode_attention+lse",),
              "ML": ("latent_decode_attention+lse", "latent_decode_attention_mq+lse"),
-             "ME": ()}
-MESH_NEW = ("MM32", "MM2", "MW", "MWU", "MF", "MR", "ML", "ME")   # this slice's cells
+             "ME": (), "MO32": ("latent_decode_attention+lse",),
+             "MC32": ("latent_decode_attention", "stage_install_rows"),
+             "MU32": ("latent_decode_attention",),
+             "MP32": ("latent_decode_attention_paged",)}
+MESH_NEW = ("MO32", "MC32", "MU32", "MP32")   # this slice's cells
+# qwen3-4b mesh cells whose kernels launch bare (no "model" merge): their
+# launches count in the bare kernels' rows of the kernels line
+MESH_BARE = ("MC32", "MU32", "MP32")
 
 
 def mesh_model(torch, run, layers):
@@ -3009,7 +3039,8 @@ def mesh_model(torch, run, layers):
 def mesh_requests(torch, run, vocab):
     spec = MESH_RUNS[run]
     reqs = engine_prompts(torch, spec["prompts"], vocab)[:spec.get("first")]
-    return [(p, spec["new"]) for p, _ in reqs]
+    new = spec["new"] if isinstance(spec["new"], tuple) else (spec["new"],)
+    return [(p, new[i % len(new)]) for i, (p, _) in enumerate(reqs)]
 
 
 def _checked_first(torch, run, first, orig):
@@ -3080,8 +3111,10 @@ def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
            else make_source(torch, cfg, spec["source"]))
     with warnings.catch_warnings():   # MLA and cross layers: the einsum readers
         warnings.simplefilter("ignore", RuntimeWarning)
-        eng = Engine(cfg, params, max_slots=8, max_len=4096, sync_every=spec["sync"],
-                     mesh=mesh, source=src, **spec.get("kw", {}))
+        eng = Engine(cfg, params, max_slots=spec.get("slots", 8),
+                     max_len=spec.get("max_len", 4096), sync_every=spec["sync"],
+                     mesh=mesh, source=src, **spec.get("kw", {}),
+                     **(spec.get("mesh_kw", {}) if mesh is not None else {}))
     del params   # on a mesh the engine keeps this rank's shards only
     gc.collect()
     torch.cuda.empty_cache()
@@ -3128,7 +3161,10 @@ def serve_mesh_run(torch, run, layers, mesh=None, check_first=False):
            "launches": launches, "mesh": m["mesh"], "mesh_stats": m["mesh_stats"],
            "pages_shared": m["pages_shared"], "peak_gib": torch.cuda.max_memory_allocated()
            / 2 ** 30, "first_step": first, "layers": cfg.num_layers, "vocab": cfg.vocab_size,
-           "draft_proposed": m["draft_proposed"]}
+           "draft_proposed": m["draft_proposed"], "slot_swaps": m["slot_swaps"],
+           "slot_shards": eng.scheduler.slot_shards, "overlap": m["overlap"],
+           "continuous": m["continuous"], "window_overlap": m["window_overlap"]}
+    eng.close()
     del eng
     gc.collect()
     torch.cuda.empty_cache()
@@ -3255,6 +3291,19 @@ def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
                 torch, run, layers, uid, list(prompt) + one["streams"][str(uid)][:k])
         if run == "MD" and r["pages_shared"] < 1:
             raise AssertionError(f"engine run MD on the mesh shared no page: {r}")
+        for key, want in spec.get("mesh_kw", {}).items():
+            if key in ("overlap", "continuous") and two[key] != want:
+                raise AssertionError(f"engine run {run} on the mesh: {key} is {two[key]}")
+        if run == "MC32" and two["slot_swaps"] <= 0:
+            raise AssertionError(f"engine run MC32 on the mesh installed nothing: {r}")
+        if run == "MU32" and (two["mesh_stats"]["all_reduce"] or any(
+                v for k, v in two["launches"].items() if k.endswith("+lse"))):
+            raise AssertionError(f"engine run MU32 on the mesh merged a whole ring: "
+                                 f"{two['mesh_stats']}, {two['launches']}")
+        if run == "MP32" and two["slot_shards"] != 1:
+            raise AssertionError(f"engine run MP32 on the mesh split 3 slots: {r}")
+        r.update(slot_swaps=two["slot_swaps"], slot_shards=two["slot_shards"],
+                 window_overlap=two["window_overlap"])
         r["single_total_s"], r["mesh_total_s"] = one["total_s"], two["total_s"]
         log(f"engine run {run} ({spec.get('arch', 'qwen3-4b')}, {spec['dtype']}) on the mesh "
             f"{spec.get('mesh', (1, 2))}, two ranks sharing the card over gloo, "
@@ -3455,7 +3504,8 @@ def main() -> int:
     recurrent = phase_recurrent(torch, by_run, streams, serving, backends)
     train, rows = phase_train(torch, by_run, streams, serving)
     entries += rows
-    family = {run for runs in FAMILY_RUNS.values() for run in runs} | set(MESH_RUNS)
+    family = ({run for runs in FAMILY_RUNS.values() for run in runs}
+              | (set(MESH_RUNS) - set(MESH_BARE)))
     qwen_runs = [run for run in by_run if run not in family]
     for e in entries:
         key = e.get("launch_key", e["name"])

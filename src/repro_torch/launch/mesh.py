@@ -19,12 +19,27 @@ and back.  A backend that fails to initialise raises; nothing switches to
 another.  The mesh counts its collectives, their bytes and their
 seconds on the host clock (``stats``; a CUDA tensor's collective waits
 for the device there).
+
+Collectives on one group must run in the same order on every rank, so
+two threads of a rank must not share a group.  Each axis therefore has
+one group per *lane*: "main" for the serving loop's thread, "admission"
+for the overlapped engine's admission worker (its wave prefill gathers
+the params beside the window's gathers).  A thread picks its lane with
+``with mesh.lane("admission"):``; the counters are shared and locked.
+
+``without(axis)`` views the same ranks with ``axis`` read as size 1 (no
+collective over it): the engine's steps on slots that do not split over
+"data", and a layer whose ring or pool the rules keep whole over
+"model" (``layer``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import datetime
 import os
+import threading
 import time
 
 import torch
@@ -36,6 +51,8 @@ class Mesh:
     rank's coordinates, its two axis groups and the collectives over them.
     ``shape`` maps axis -> size, as the sharding rules read it."""
 
+    LANES = ("main", "admission")
+
     def __init__(self, data: int = 1, model: int = 1, *, backend: str | None = None,
                  groups: dict | None = None, rank: int = 0):
         if data < 1 or model < 1:
@@ -44,10 +61,25 @@ class Mesh:
         self.size = data * model
         self.rank = int(rank)
         self.backend = backend
-        self._groups = groups or {}
+        self._groups = groups or {}      # lane -> axis -> process group
         self.index = {"data": self.rank // model, "model": self.rank % model}
-        self.stats = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
-                      "all_reduce_s": 0.0, "all_gather_s": 0.0}
+        self._stats = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
+                       "all_reduce_s": 0.0, "all_gather_s": 0.0}
+        self._lock = threading.Lock()
+        self._tls = threading.local()
+        self._whole_layers: frozenset = frozenset()
+
+    @property
+    def stats(self) -> dict:
+        """The collectives' counters, one dict that every view shares."""
+        return self._stats
+
+    @stats.setter
+    def stats(self, value: dict):
+        # in place: the views made of this mesh keep counting into it
+        with self._lock:
+            self._stats.clear()
+            self._stats.update(value)
 
     def __str__(self) -> str:
         return f"{self.shape['data']}x{self.shape['model']}"
@@ -60,13 +92,61 @@ class Mesh:
     def axis_index(self, axis: str) -> int:
         return self.index[axis]
 
+    def without(self, axis: str) -> "Mesh":
+        """A view of this mesh with ``axis`` read as size 1 (index 0): the
+        same ranks, groups, lanes and counters; no collective over
+        ``axis``."""
+        v = copy.copy(self)
+        v.shape = dict(self.shape, **{axis: 1})
+        v.index = dict(self.index, **{axis: 0})
+        v.size = v.shape["data"] * v.shape["model"]
+        v._whole_layers = frozenset()
+        return v
+
+    def with_whole_layers(self, layers) -> "Mesh":
+        """A view whose :meth:`layer` reads the self caches of ``layers``
+        (indices) as whole over "model"."""
+        v = copy.copy(self)
+        v._whole_layers = frozenset(layers)
+        v._model_less = v.without("model")
+        return v
+
+    def layer(self, i: int) -> "Mesh":
+        """The mesh layer ``i``'s self cache (ring or pool) is sharded by:
+        this mesh, or, where the rules keep it whole on every "model"
+        rank (a ring length or page size "model" does not divide), this
+        mesh without "model"."""
+        return self._model_less if i in self._whole_layers else self
+
+    @contextlib.contextmanager
+    def lane(self, name: str):
+        """Run this thread's collectives on lane ``name``'s groups."""
+        if name not in self.LANES:
+            raise ValueError(f"lane {name!r}: expected one of {self.LANES}")
+        prev = getattr(self._tls, "lane", "main")
+        self._tls.lane = name
+        try:
+            yield
+        finally:
+            self._tls.lane = prev
+
+    def _group(self, axis: str):
+        return self._groups[getattr(self._tls, "lane", "main")][axis]
+
     def _host(self, t: torch.Tensor) -> torch.Tensor:
-        return t.cpu() if self.backend == "gloo" else t
+        """``t`` where the backend's collectives take it: the host for
+        gloo, the card for nccl."""
+        if self.backend == "gloo":
+            return t.cpu()
+        if self.backend == "nccl" and not t.is_cuda:
+            return t.cuda()
+        return t
 
     def _count(self, op: str, t: torch.Tensor, t0: float):
-        self.stats[op] += 1
-        self.stats["bytes"] += t.numel() * t.element_size()
-        self.stats[op + "_s"] += time.perf_counter() - t0
+        with self._lock:
+            self.stats[op] += 1
+            self.stats["bytes"] += t.numel() * t.element_size()
+            self.stats[op + "_s"] += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
         """Sum or max of ``t`` over ``axis``, on every rank of it (a new
@@ -76,7 +156,7 @@ class Mesh:
         red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op]
         t0 = time.perf_counter()
         buf = self._host(t).clone()
-        dist.all_reduce(buf, op=red, group=self._groups[axis])
+        dist.all_reduce(buf, op=red, group=self._group(axis))
         out = buf.to(t.device)
         self._count("all_reduce", buf, t0)
         return out
@@ -93,7 +173,7 @@ class Mesh:
         if src.dtype == torch.bool:
             src = src.to(torch.uint8)
         parts = [torch.empty_like(src) for _ in range(n)]
-        dist.all_gather(parts, src, group=self._groups[axis])
+        dist.all_gather(parts, src, group=self._group(axis))
         out = torch.cat(parts, dim=dim).to(device=t.device, dtype=t.dtype)
         self._count("all_gather", src, t0)
         return out
@@ -139,7 +219,8 @@ def make_mesh(data: int = 1, model: int = 1, *, backend: str | None = None,
     """A (data, model) mesh over the default process group, initialised
     first if needed (``init`` as for :func:`init_distributed`).  The
     group's world size must be data * model.  ``backend`` defaults to
-    ``nccl`` when CUDA is available, else ``gloo``.  (1, 1) touches no
+    ``nccl`` when CUDA is available, else ``gloo``.  Each lane
+    (:attr:`Mesh.LANES`) gets its own group per axis.  (1, 1) touches no
     process group."""
     if data * model == 1:
         return Mesh(1, 1)
@@ -150,14 +231,16 @@ def make_mesh(data: int = 1, model: int = 1, *, backend: str | None = None,
         raise ValueError(f"mesh ({data}, {model}) needs {data * model} ranks, "
                          f"the process group has {world}")
     groups = {}
-    for d in range(data):     # every rank creates every group, in this order
-        g = dist.new_group(list(range(d * model, (d + 1) * model)), backend=backend)
-        if rank // model == d:
-            groups["model"] = g
-    for m in range(model):
-        g = dist.new_group(list(range(m, data * model, model)), backend=backend)
-        if rank % model == m:
-            groups["data"] = g
+    for lane in Mesh.LANES:   # every rank creates every group, in this order
+        mine = groups[lane] = {}
+        for d in range(data):
+            g = dist.new_group(list(range(d * model, (d + 1) * model)), backend=backend)
+            if rank // model == d:
+                mine["model"] = g
+        for m in range(model):
+            g = dist.new_group(list(range(m, data * model, model)), backend=backend)
+            if rank % model == m:
+                mine["data"] = g
     return Mesh(data, model, backend=backend, groups=groups, rank=rank)
 
 

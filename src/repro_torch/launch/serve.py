@@ -22,10 +22,13 @@ environment): ``torchrun --nproc-per-node N -m repro_torch.launch.serve
 --mesh D,M`` with N = D * M, each rank on ``cuda:LOCAL_RANK`` over
 ``nccl``; ``--dist-backend gloo`` runs the collectives through the host
 (two ranks may then share one card, ``--device cuda:0``).  A mesh
-serves every registered ``--arch``, ``--draft layers:K`` and ``--backend
-einsum`` too.  The mesh engine is the synchronous one: ``--overlap`` is
-off by default there, and ``--overlap``, ``--continuous`` and ``--aot``
-are refused with ROADMAP.md Queue 1 item 5c.  Rank 0 prints.  ``--recalkv`` on an arch ReCalKV does not
+serves every registered ``--arch``, ``--draft layers:K``, ``--backend
+einsum``, the overlapped engine (``--overlap``, on by default there as
+off a mesh, ``--pipeline-depth``, the admission thread) and
+``--continuous`` too, and slot counts, ``--max-len`` and page sizes
+the mesh does not split (they stay whole); ``--aot`` is refused with
+ROADMAP.md Queue 1 item 5e (CUDA graphs cannot capture gloo's host
+collectives).  Every rank serves the same requests.  Rank 0 prints.  ``--recalkv`` on an arch ReCalKV does not
 apply to (deepseek's MLA, falcon-mamba's attention-free stack) raises
 ValueError with the JAX CLI's words, "ReCalKV inapplicable to <arch>".  ``--backend pallas`` names the
 port's CUDA kernels, as ``ModelConfig.from_dict`` reads it.
@@ -46,8 +49,9 @@ from repro_torch.launch.mesh import mesh_from_spec, parse_mesh_spec
 from repro_torch.models.weights import init_params
 from repro_torch.serving import Engine, Request, SamplingParams
 
-MESH_SYNC_ONLY = ("--overlap, --continuous and --aot are not ported to a mesh yet "
-                  "(ROADMAP.md, Queue 1 item 5c): the mesh engine is the synchronous one")
+MESH_NO_AOT = ("--aot is not ported to a mesh yet (ROADMAP.md Queue 1 item 5e): CUDA "
+               "graphs cannot capture gloo's host collectives, and NCCL will not run "
+               "two ranks on one card")
 
 
 def cache_bytes(caches, part: str = "self") -> int:
@@ -111,7 +115,7 @@ def main(argv=None):
                     help="overlapped pipeline: decode windows in flight, token "
                          "handling on a backlog thread (--no-overlap for the "
                          "blocking step loop; streams are identical either way; "
-                         "default on, off on a mesh)")
+                         "default on)")
     ap.add_argument("--aot", action="store_true",
                     help="capture the window iteration as CUDA graphs at boot "
                          "(a card only), so a window is graph replays")
@@ -149,10 +153,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     on_mesh = parse_mesh_spec(args.mesh) != (1, 1)
-    if on_mesh and (args.overlap or args.continuous or args.aot):
-        raise ValueError(f"--mesh {args.mesh}: {MESH_SYNC_ONLY}")
+    if on_mesh and args.aot:
+        raise ValueError(f"--mesh {args.mesh}: {MESH_NO_AOT}")
     if args.overlap is None:
-        args.overlap = not on_mesh
+        args.overlap = True
     device = args.device
     if on_mesh and device == "cuda" and (args.dist_backend or "nccl") == "nccl":
         device = f"cuda:{int(os.environ.get('LOCAL_RANK', 0))}"

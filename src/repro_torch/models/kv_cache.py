@@ -45,7 +45,10 @@ form: each scores its columns, the self and verify-window columns on the
 last "model" rank only, and the partial softmaxes merge by log-sum-exp
 (``kops.softmax_merge``).  A recurrent state is
 gathered whole over "model" where it is read and each rank keeps its
-channels of the new one.
+channels of the new one.  A self ring or pool the rules keep whole over
+"model" (its length, or the page size, does not divide) is read and
+written whole on every "model" rank, with no merge: its layer's readers
+and writes take the mesh without "model" (``launch.mesh.Mesh.layer``).
 
 Paged layout: the same leaves live page-major in a pool shared by all
 slots — ``(n_pages, page_size, ...)`` instead of ``(B, max_len, ...)``
@@ -266,15 +269,16 @@ def _own_targets(targets, ps_local: int, mesh):
     return torch.where(ok, page, 0), off % ps_local, ok
 
 
-def _leaf_mesh(name: str, mesh):
-    """The mesh a ring or pool leaf's writes are sharded by: ``mesh`` for
-    a leaf ``CACHE_RULES`` split by position over "model" (the engine
-    refuses ring lengths and page sizes that do not split), None for one
-    they keep whole on every "model" rank (the int8 ring's, see
+def _leaf_mesh(name: str, mesh, i: int):
+    """The mesh layer ``i``'s ring or pool leaf ``name``'s writes are
+    sharded by: ``mesh.layer(i)`` for a leaf ``CACHE_RULES`` split by
+    position over "model" (that view drops "model" where the ring length
+    or page size does not divide, ``launch.mesh.Mesh.layer``), None for a
+    leaf they keep whole on every "model" rank (the int8 ring's, see
     ``kernels.ops.seq_local``), which every rank writes in full."""
     if mesh is None or ("model", 1) not in R.CACHE_RULES.get(name, ()):
         return None
-    return mesh
+    return mesh.layer(i)
 
 
 def model_slice(full: torch.Tensor, name: str, mesh) -> torch.Tensor:
@@ -594,14 +598,14 @@ def apply_decode_writes(caches: list, updates: list, cur: torch.Tensor,
     targets = None if pages is None else _paged_targets(
         pages[0], cur.to(torch.int64)[:, None], None if active is None else active[:, None],
         pages[1])
-    for cache, upd in zip(caches, updates):
+    for i, (cache, upd) in enumerate(zip(caches, updates)):
         for name, leaf in cache.get("state", {}).items():
             new = model_slice(upd["state"][name], name, mesh).to(leaf.dtype)
             if active is not None:
                 new = torch.where(active.reshape((-1,) + (1,) * (leaf.dim() - 1)), new, leaf)
             leaf.copy_(new)
         for name, leaf in cache.get("self", {}).items():
-            lmesh = _leaf_mesh(name, mesh)
+            lmesh = _leaf_mesh(name, mesh, i)
             if pages is None:
                 _merge_leaf(leaf, upd["self"][name], cur, active, lmesh)
             else:
@@ -809,10 +813,10 @@ def apply_verify_writes(caches: list, updates: list, cur: torch.Tensor,
     cols = torch.arange(S, device=cur.device)
     targets = None if pages is None else _paged_targets(
         pages[0], cur.to(torch.int64)[:, None] + cols, mask, pages[1])
-    for cache, upd in zip(caches, updates):
+    for i, (cache, upd) in enumerate(zip(caches, updates)):
         for name, leaf in cache.get("self", {}).items():
             new = upd["self"][name]
-            lmesh = _leaf_mesh(name, mesh)
+            lmesh = _leaf_mesh(name, mesh, i)
             if pages is not None:
                 _paged_merge_leaf(leaf, new, _own_targets(targets, leaf.shape[1], lmesh))
                 continue
@@ -834,12 +838,12 @@ def invalidate_positions(caches: list, cur: torch.Tensor,
     layer, in place, for rows where ``mask``: retires a draft model's
     entries for rejected proposals, which it wrote as it proposed.  On a
     ``mesh`` the rank holding the column marks it."""
-    for cache in caches:
+    for i, cache in enumerate(caches):
         if "self" not in cache:
             continue
         pos = cache["self"]["pos"]
         _merge_leaf(pos, torch.full_like(cur, -1, dtype=pos.dtype), cur, mask,
-                    _leaf_mesh("pos", mesh))
+                    _leaf_mesh("pos", mesh, i))
     return caches
 
 

@@ -21,7 +21,9 @@ steps take this rank's cache shards and its slot rows: the attention
 readers, kernel or einsum, self or cross, score their sequence slice and
 merge (``kernels.ops``), a recurrent block reads its state gathered over
 "model", the writes land where the column (or channel) lives
-(``kv_cache``), and, with more than
+(``kv_cache``); a layer whose self ring or pool the rules keep whole
+over "model" reads it whole on every rank (``ctx["self_mesh"]``, the
+mesh's view for that layer, ``launch.mesh.Mesh.layer``), and, with more than
 one "data" rank, an MoE FFN runs on every data rank's tokens, gathered,
 so its expert capacity and drops are the single-device ones.  Params
 read through ``sharding.place.MeshParams`` arrive gathered.
@@ -200,15 +202,16 @@ def block_decode(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                         cache["cross"], mesh)
         return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    smesh = ctx.get("self_mesh", mesh)
     if cfg.mla is not None:
         y, sc = KC.decode_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                   pages=ctx.get("pages"), mesh=mesh)
+                                   pages=ctx.get("pages"), mesh=smesh)
     else:
         reader = (KC.decode_attn_dense if cfg.recalkv is None
                   else KC.decode_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        cfg.window_for(kind), theta=_theta(cfg, kind),
-                       pages=ctx.get("pages"), mesh=mesh)
+                       pages=ctx.get("pages"), mesh=smesh)
     x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache, mesh),
                 mesh=mesh)
     return x, {"self": sc}
@@ -232,16 +235,17 @@ def block_verify(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
                         cache["cross"], mesh)
         return _ffn(cfg, kind, p, x + y)[0], {}
     h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    smesh = ctx.get("self_mesh", mesh)
     if cfg.mla is not None:
         y, sc = KC.verify_attn_mla(p["attn"], h, cache["self"], cfg, ctx["cur"],
-                                   ctx["feed_mask"], pages=ctx.get("pages"), mesh=mesh)
+                                   ctx["feed_mask"], pages=ctx.get("pages"), mesh=smesh)
     else:
         reader = (KC.verify_attn_dense if cfg.recalkv is None
                   else KC.verify_attn_latent)
         y, sc = reader(p["attn"], h, cache["self"], cfg, ctx["cur"],
                        ctx["feed_mask"], cfg.window_for(kind),
                        theta=_theta(cfg, kind), pages=ctx.get("pages"),
-                       mesh=mesh)
+                       mesh=smesh)
     x, _ = _ffn(cfg, kind, p, _cross_residual(cfg, kind, p, x + y, cache, mesh),
                 mesh=mesh)
     return x, {"self": sc}
@@ -272,12 +276,13 @@ def run_stack(cfg: ModelConfig, params: Params, x: torch.Tensor, ctx: dict,
                 aux = aux + a
         return x, aux
     outs = []
+    mesh = ctx.get("mesh")
     for i, kind in enumerate(cfg.expanded_layers()):
         p = params["layers"][i]
-        if verify:
-            x, o = block_verify(cfg, kind, p, x, caches[i], ctx)
-        elif decode:
-            x, o = block_decode(cfg, kind, p, x, caches[i], ctx)
+        if verify or decode:
+            lctx = {**ctx, "self_mesh": None if mesh is None else mesh.layer(i)}
+            block = block_verify if verify else block_decode
+            x, o = block(cfg, kind, p, x, caches[i], lctx)
         else:
             x, o, _ = block_full(cfg, kind, p, x, ctx, want_cache)
         outs.append(o)

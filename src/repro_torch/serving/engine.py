@@ -123,27 +123,43 @@ Mesh serving (``mesh``, a ``launch.mesh.Mesh`` of ("data", "model")
 ranks; one process a rank, every rank running this engine on the same
 submitted requests).  The params rest as each rank's shards by
 ``sharding.rules.param_specs`` (head-grained) and each layer's leaves are
-gathered where the model reads them (``sharding.place.MeshParams``); the
+gathered where the model reads them (``sharding.place.MeshParams``; a
+top-level leaf once a step, ``_step_scope``); the
 cache is each rank's shard by ``cache_specs``: ring slots over "data" and
-ring positions over "model", a pool's page offsets over "model", a cross
-cache's source positions and a recurrent state's channels over "model".
-Data rank k steps slots [k * B / D, (k + 1) * B / D) (the scheduler
-packs a wave into one such group, ``slot_shards``); the model ranks of a
-data rank run the same rows, each scoring its sequence slice, merged by
-log-sum-exp: the kernels' (``kernels.ops``) and the einsum readers' (MLA,
-cross-attention, the einsum backend; ``models.kv_cache``) alike, while a
-recurrent block reads its state gathered over "model".  The wave prefill
-runs on every rank over replicated operands and each rank keeps its
-slots' rows and its "model" slice of every leaf.  The layer draft's
-params are a view over the target's shards and its ring is sharded as
-the target's.  One all-gather over "data" a window brings the window's
-tokens and final state to every rank's host mirror, so every rank's
-scheduler takes the same decisions and ``host_syncs == windows +
-admission_syncs`` still holds.  Refused by name on a mesh of more than
-one rank: ``overlap``, ``continuous`` and ``aot`` (ROADMAP.md Queue 1
-item 5c), and shapes the rules do not split evenly (item 5b.4: slots
-over "data", every ring length and the page size over "model", a pool
-whose page count "data" would split).
+ring positions over "model", a pool's page offsets over "model" (every
+data rank keeps every page: the page table holds global page ids), a
+cross cache's source positions and a recurrent state's channels over
+"model".  What the rules do not split stays whole, as in JAX: slots that
+do not split over "data" are held and stepped by every data rank (one
+slot group, ``slot_shards == 1``, and no step gathers over "data"), and a
+layer whose ring length or page size "model" does not divide is read by
+the bare kernels on every "model" rank, with no merge
+(``sharding.place.step_mesh``, decided per layer).  Data rank k steps the
+slots of group k (the scheduler packs a wave into one group,
+``slot_shards``); the model ranks of a data rank run the same rows, each
+scoring its sequence slice, merged by log-sum-exp: the kernels'
+(``kernels.ops``) and the einsum readers' (MLA, cross-attention, the
+einsum backend; ``models.kv_cache``) alike, while a recurrent block reads
+its state gathered over "model".  The wave prefill runs on every rank
+over replicated operands and each rank keeps its slots' rows and its
+"model" slice of every leaf.  The layer draft's params are a view over
+the target's shards and its ring is sharded as the target's.  One
+all-gather over "data" a window brings the window's tokens and final
+state to every rank's host mirror (the overlapped engine's at its
+harvest, on the main thread), so every rank's scheduler takes the same
+decisions and ``host_syncs == windows + admission_syncs`` still holds.
+The overlapped engine writes its carry rows on the rank that holds them;
+its admission worker gathers params on a process group of its own (the
+mesh's "admission" lane) and runs in lockstep: each boundary collects
+the waves submitted at earlier boundaries (waiting for them) and submits
+the next one, formed on the main thread, so no decision depends on a
+thread's timing.  Continuous batching keeps each data rank's staging
+rows and stage cache to its own slot group: the host stages a request
+into a group, and that rank installs it into one of its slots.  A
+preempted slot's carry row is gathered from the rank holding it.
+Refused on a mesh of more than one rank: ``aot`` (ROADMAP.md Queue 1
+item 5e: CUDA graphs cannot capture gloo's host collectives, and NCCL
+will not run two ranks on one card).
 """
 
 from __future__ import annotations
@@ -335,10 +351,15 @@ class Engine:
         self.mesh_str = str(self.mesh)
         # the mesh the steps see: None on one rank (no collective at all)
         self._mesh = self.mesh if self.mesh.size > 1 else None
-        if self._mesh is not None:
-            self._check_mesh(cfg, max_slots, max_len, cache_layout, page_size,
-                             n_pages, overlap=overlap, continuous=continuous,
-                             aot=aot)
+        if self._mesh is not None and aot:
+            raise ValueError(
+                "aot=True is not ported to a mesh yet (ROADMAP.md Queue 1 item 5e): "
+                "CUDA graphs cannot capture gloo's host collectives, and NCCL will "
+                "not run two ranks on one card")
+        # slot groups: the data ranks when max_slots splits over them, else
+        # one group that every data rank holds and steps whole
+        n_data = self.mesh.shape["data"]
+        self._slot_groups = n_data if max_slots % n_data == 0 else 1
         resolved_policy = get_policy(policy)
         if pin_prefixes < 0:
             raise ValueError("pin_prefixes must be >= 0")
@@ -377,7 +398,7 @@ class Engine:
         self.scheduler = Scheduler(max_slots, max_len,
                                    prefill_chunk=prefill_chunk,
                                    policy=resolved_policy,
-                                   slot_shards=self.mesh.shape["data"])
+                                   slot_shards=self._slot_groups)
         self.policy = self.scheduler.policy
         self.cache_layout = cache_layout
         self.page_size, self.n_pages = page_size, n_pages
@@ -394,10 +415,15 @@ class Engine:
         if self._mesh is not None:
             self.params = SP.MeshParams(cfg, params, self._mesh,
                                         grains=SR.head_grains(cfg))
+            # the steps' view: without "data" when the slots do not split,
+            # each layer's self cache read whole where the rules keep it so
+            self._mesh = SP.step_mesh(self._mesh, T.init_decode_cache(
+                cfg, max_slots, max_len, "meta", pages=pages_shape), max_slots)
         self.cache = self._init_cache(cfg, pages_shape)
-        # this rank's slot rows: [lo, lo + B / D)
-        self._slot_n = max_slots // self.mesh.shape["data"]
-        self._slot_lo = self.mesh.axis_index("data") * self._slot_n
+        # this rank's slot rows: [lo, lo + B / groups)
+        self._slot_n = max_slots // self._slot_groups
+        self._slot_lo = (self.mesh.axis_index("data") * self._slot_n
+                         if self._slot_groups > 1 else 0)
         self.spec_depth = spec_depth
         self.draft = (parsed_draft or DraftSpec("ngram")) if spec_depth else None
         # A requested kernel backend that still routes layer kinds through
@@ -531,9 +557,15 @@ class Engine:
                 self._adm_stream = torch.cuda.Stream(self.device)
                 # the worker's first prefill reads weights made on this stream
                 self._adm_stream.wait_stream(torch.cuda.current_stream(self.device))
+            # on a mesh the worker's collectives run on a lane of their own
+            # and its waves are formed and adopted in lockstep (every rank
+            # takes the same decisions at the same boundaries)
+            def prepare(reqs):
+                with (self.mesh.lane("admission") if self._mesh is not None
+                      else contextlib.nullcontext()):
+                    return self._prepare_wave(reqs, self._adm_stream)
             self._admission = AdmissionWorker(
-                self._take_staged_locked,
-                lambda reqs: self._prepare_wave(reqs, self._adm_stream))
+                self._take_staged_locked, prepare, lockstep=self._mesh is not None)
         # aot: the window iteration captured as CUDA graphs over static
         # state buffers (``_gst``) and window outputs (``_gout``)
         self.captures = 0
@@ -545,45 +577,14 @@ class Engine:
 
     def _init_cache(self, cfg, pages_shape):
         """Empty decode caches for ``cfg``: whole, or on a mesh this rank's
-        shards of them (``sharding.place.local_cache``)."""
+        shards of them (``sharding.place.local_cache``; a pool keeps every
+        page on every data rank)."""
         if self._mesh is None:
             return T.init_decode_cache(cfg, self.B, self.max_len, self.device,
                                        pages=pages_shape)
         return SP.local_cache(
             T.init_decode_cache(cfg, self.B, self.max_len, "meta", pages=pages_shape),
-            self._mesh, self.device)
-
-    def _check_mesh(self, cfg, max_slots, max_len, cache_layout, page_size, n_pages,
-                    *, overlap, continuous, aot):
-        """What a mesh of more than one rank refuses, by name: the
-        overlapped engine's flags (item 5c) and shapes the rules do not
-        split evenly (item 5b.4)."""
-        item = "ROADMAP.md Queue 1 item"
-        for flag, on in (("continuous", continuous), ("aot", aot), ("overlap", overlap)):
-            if on:
-                raise ValueError(
-                    f"{flag}=True is not ported to a mesh yet ({item} 5c): the mesh "
-                    f"engine is the synchronous one (gloo collectives cannot be "
-                    f"captured in a CUDA graph; NCCL capture is still to come)")
-        D, M = self.mesh.shape["data"], self.mesh.shape["model"]
-        if max_slots % D:
-            raise ValueError(f"max_slots={max_slots} does not split over {D} data "
-                             f"ranks ({item} 5b.4)")
-        if cache_layout == "paged":
-            if page_size % M:
-                raise ValueError(f"page_size={page_size} does not split over {M} "
-                                 f"model ranks ({item} 5b.4)")
-            if D > 1 and n_pages % D == 0:
-                raise ValueError(
-                    f"n_pages={n_pages} would split the pool's pages over {D} data "
-                    f"ranks; the mesh engine keeps every page on every data rank "
-                    f"({item} 5b.4): take a page count {D} does not divide")
-        else:
-            bad = sorted({n for n in (cfg.cache_len(k, max_len)
-                                      for k in cfg.expanded_layers()) if n % M})
-            if bad:
-                raise ValueError(f"ring lengths {bad} do not split over {M} model "
-                                 f"ranks ({item} 5b.4)")
+            self._mesh, self.device, pool=pages_shape is not None)
 
     def _check_source(self, cfg, source):
         """``source`` on the engine's device in ``cfg.dtype`` (None for a
@@ -662,7 +663,7 @@ class Engine:
     def submit(self, req: Request) -> Request:
         with self._sched_lock:
             self.scheduler.submit(req)
-        if self._admission is not None:
+        if self._admission is not None and not self._admission.lockstep:
             self._admission.kick(self._staging_capacity())
         return req
 
@@ -739,8 +740,14 @@ class Engine:
                     f"0..{toks.shape[0] - 1}; source has {self.source.shape[0]} "
                     f"(give it max(max_slots, staging_depth) rows under overlap)")
             src = self.source[: toks.shape[0]]
-        return T.prefill(cfg, params, self._dev(toks), self._dev(lens), self.max_len,
-                         source=src)
+        with self._step_scope():
+            return T.prefill(cfg, params, self._dev(toks), self._dev(lens), self.max_len,
+                             source=src)
+
+    def _step_scope(self):
+        """One step's reads of the params: on a mesh each top-level leaf
+        is gathered once in it (``MeshParams.step``)."""
+        return self.params.step() if self._mesh is not None else contextlib.nullcontext()
 
     def _count_prefill(self):
         """One admission or rebuild prefill (any thread)."""
@@ -1167,7 +1174,7 @@ class Engine:
         already finished on the device (it retires at its harvest)."""
         if self.overlap:
             self._ensure_dev_state()
-            row = {k: v[slot].cpu().numpy().copy() for k, v in self._st_dev.items()}
+            row = self._carry_row(slot)
         else:
             row = {k: np.array(v[slot]) for k, v in self._st.items()}
         if not bool(row["act"]):
@@ -1175,7 +1182,7 @@ class Engine:
         if self.overlap:
             # windows dispatched from here on skip the slot; in-flight
             # statuses are stale for it
-            self._st_dev["act"][slot].fill_(False)
+            self._put_rows(self._st_dev, [slot], {"act": np.zeros(1, bool)})
             self._slot_epoch[slot] = self._dispatch_index
             self._buf_epoch[slot] = self._dispatch_index
         st = self._st
@@ -1262,6 +1269,16 @@ class Engine:
             self._update_pins()
             self._preempted.popleft()
 
+    def _carry_row(self, slot: int) -> dict:
+        """Slot ``slot``'s row of the device carry, on the host (it waits
+        for every dispatched window).  On a mesh whose slots split over
+        "data" the carry is gathered from the data ranks: every rank
+        preempts at the same boundary, so every rank calls this."""
+        if self._slot_groups > 1:
+            return {k: v[slot].numpy().copy()
+                    for k, v in self._gather_rows(self._st_dev).items()}
+        return {k: v[slot].cpu().numpy().copy() for k, v in self._st_dev.items()}
+
     def _rebuild_pages(self, rec: PreemptedRecord, mapping, rebuild):
         """Recompute recycled pages: prefill the tokens the slot had fed
         (cache content at position t is a function of the tokens fed up to
@@ -1328,12 +1345,16 @@ class Engine:
         """The device staging area (static buffers: the captured graphs
         read them by pointer): ``seq`` keys (``STAGE_FREE`` = empty row),
         one carry row per staged request and, on the ring, a stage cache
-        of ``max_slots`` rows with the ring's layout."""
-        stage = {"seq": self._dev(np.full(self.B, STAGE_FREE, np.int32)),
-                 "rows": {k: torch.zeros_like(self._dev(v)) for k, v in self._st.items()}}
+        of ``max_slots`` rows with the ring's layout.  On a mesh whose
+        slots split over "data" each rank holds its slot group's staging
+        rows, sharded like the carry and the ring: the host stages a
+        request into a group (``_free_stage_row``) and the group's rank
+        installs it into one of its own slots."""
+        n = self._slot_n
+        stage = {"seq": self._dev(np.full(n, STAGE_FREE, np.int32)),
+                 "rows": {k: torch.zeros_like(self._dev(v[:n])) for k, v in self._st.items()}}
         if self._pages is None:
-            stage["cache"] = T.init_decode_cache(self.cfg, self.B, self.max_len,
-                                                 self.device)
+            stage["cache"] = self._init_cache(self.cfg, None)
             stage["table"] = T.install_table(self.cache, stage["cache"])
         return stage
 
@@ -1523,7 +1544,8 @@ class Engine:
         it = self._spec_iter if self.spec_depth else self._decode_iter
         ys = []
         for _ in range(self.sync_every):
-            st, y = it(st, any_sampled)
+            with self._step_scope():
+                st, y = it(st, any_sampled)
             ys.append(y)
         return st, {k: torch.stack([y[k] for y in ys]) for k in ys[0]}
 
@@ -1629,9 +1651,10 @@ class Engine:
     def _harvest(self, state, ys, occ: int, qd: int):
         """The sync window's one host sync: mirror state, counters, emitted
         tokens (toks / emits are (K, B[, S]) with S = spec_depth + 1).  On
-        a mesh the window ran this rank's slot rows: one all-gather over
-        "data" brings every rank's (``_gather_window``)."""
-        if self._mesh is not None:
+        a mesh whose slots split over "data" the window ran this rank's
+        slot rows: one all-gather over "data" brings every rank's
+        (``_gather_window``)."""
+        if self._slot_groups > 1:
             state, ys = self._gather_window(state, ys)
         toks = ys["toks"].cpu().numpy()
         emits = ys["emits"].cpu().numpy()
@@ -1660,38 +1683,43 @@ class Engine:
             if r is not None and not self._st["act"][slot]:
                 self._finish(slot)
 
-    def _gather_window(self, state: dict, ys: dict):
-        """Every data rank's slot rows of a window's final state and
-        outputs, in one all-gather over "data": each leaf is carried as
-        int64 words (floats by their bits), packed per slot row; the
-        (K,) active counts ride every row and sum over the data ranks.
-        Returns (state, ys) over all B slots, on the host."""
+    def _gather_rows(self, rows: dict) -> dict:
+        """Every data rank's slot rows of ``rows`` (key -> (n, ...) tensor,
+        this rank's n slot rows) in one all-gather over "data": each leaf
+        is carried as int64 words (floats by their bits), packed per slot
+        row.  Returns key -> (B, ...), on the host."""
         n = self._slot_n
-        K = ys["n_act"].shape[0]
         parts, layout = [], []
-
-        def put(key, t):
+        for key, t in rows.items():
             flat = t.reshape(n, -1)
             if flat.dtype == torch.float32:
                 flat = flat.view(torch.int32)
             parts.append(flat.to(torch.int64))
             layout.append((key, t.dtype, tuple(t.shape[1:]), flat.shape[1]))
-        for k, v in state.items():
-            put(("st", k), v)
-        for k, v in ys.items():
-            if k == "n_act":
-                put(("ys", k), v.reshape(1, K).expand(n, K))
-            else:   # (K, n[, S]) -> (n, K[, S])
-                put(("ys", k), v.movedim(1, 0))
         full = self._mesh.all_gather(torch.cat(parts, dim=1), "data").cpu()
-        out = {"st": {}, "ys": {}}
-        col = 0
-        for (kind, k), dt, shape, w in layout:
+        out, col = {}, 0
+        for key, dt, shape, w in layout:
             x = full[:, col:col + w]
             col += w
             x = (x.to(torch.int32).view(torch.float32) if dt == torch.float32
                  else x.to(dt))
-            x = x.reshape((self.B,) + shape)
+            out[key] = x.reshape((self.B,) + shape)
+        return out
+
+    def _gather_window(self, state: dict, ys: dict):
+        """Every data rank's slot rows of a window's final state and
+        outputs (``_gather_rows``); the (K,) active counts ride every row
+        and sum over the data ranks.  Returns (state, ys) over all B
+        slots, on the host."""
+        n = self._slot_n
+        K = ys["n_act"].shape[0]
+        rows = {("st", k): v for k, v in state.items()}
+        for k, v in ys.items():
+            rows[("ys", k)] = (v.reshape(1, K).expand(n, K) if k == "n_act"
+                               else v.movedim(1, 0))    # (K, n[, S]) -> (n, K[, S])
+        full = self._gather_rows(rows)
+        out = {"st": {}, "ys": {}}
+        for (kind, k), x in full.items():
             if kind == "ys":
                 x = x[::n].sum(dim=0) if k == "n_act" else x.movedim(0, 1)
             out[kind][k] = x
@@ -1778,8 +1806,19 @@ class Engine:
                   guard=None):
         """Write rows ``slots`` of the device leaves ``st``, in place, from
         host rows and device rows; with ``guard`` (host ``gen`` values)
-        only where ``st["gen"]`` equals it."""
-        idx = self._dev(np.asarray(slots, np.int64))
+        only where ``st["gen"]`` equals it.  ``slots`` index all B slots
+        (or staging rows); on a mesh whose slots split over "data" ``st``
+        holds this rank's group, which takes its own rows only."""
+        lo, n = self._slot_lo, self._slot_n
+        mine = [i for i, s in enumerate(slots) if lo <= s < lo + n]
+        if not mine:
+            return
+        if len(mine) < len(slots):
+            host_rows = {k: np.asarray(v)[mine] for k, v in host_rows.items()}
+            pick = self._dev(np.asarray(mine, np.int64))
+            dev_rows = {k: v.index_select(0, pick) for k, v in (dev_rows or {}).items()}
+            guard = None if guard is None else np.asarray(guard)[mine]
+        idx = self._dev(np.asarray([slots[i] - lo for i in mine], np.int64))
         ok = None
         if guard is not None:
             ok = st["gen"].index_select(0, idx) == self._dev(np.asarray(guard, np.int32))
@@ -1852,8 +1891,14 @@ class Engine:
         prepared inline) and merge them into free slots, or under
         continuous batching into the device staging queue.
         ``host_syncs`` / ``admission_syncs`` tick once per wave at its
-        first merge, keeping host_syncs == windows + admission_syncs."""
-        if self._admission is not None:
+        first merge, keeping host_syncs == windows + admission_syncs.
+        In lockstep (a mesh) the waves submitted at earlier boundaries are
+        collected here, waited for if need be, and this boundary submits
+        the next one: what a boundary merges never depends on the worker's
+        timing, so every rank merges the same waves at the same boundary."""
+        if self._admission is not None and self._admission.lockstep:
+            self._staged_waves.extend(self._admission.collect())
+        elif self._admission is not None:
             self._staged_waves.extend(self._admission.poll())
         else:
             cap = self._staging_capacity()
@@ -1865,7 +1910,12 @@ class Engine:
             self._stage_from_waves()
         else:
             self._place_from_waves()
-        if self._admission is not None:
+        if self._admission is not None and self._admission.lockstep:
+            cap = self._staging_capacity()
+            reqs = self._take_staged_locked(cap) if cap > 0 else []
+            if reqs:
+                self._admission.submit(reqs)
+        elif self._admission is not None:
             self._admission.kick(self._staging_capacity())
 
     def _place_from_waves(self):
@@ -1996,35 +2046,50 @@ class Engine:
         stages only once its whole reach fits the free pages.  Requests
         stay in ``scheduler.staged`` until a harvest reports their
         install; the window picks the slot."""
-        free_rows = [q for q, e in enumerate(self._stage_tab) if e is None]
-        while self._staged_waves and free_rows:
+        while self._staged_waves:
             wv = self._staged_waves[0]
             if wv.merged >= len(wv.reqs):
                 self._staged_waves.popleft()
                 continue
-            n = self._stage_run(wv, free_rows)
-            if n == 0:
+            if self._stage_run(wv) == 0:
                 return
-            free_rows = free_rows[n:]
-        while self._staged_waves and self._staged_waves[0].merged >= len(
-                self._staged_waves[0].reqs):
-            self._staged_waves.popleft()
 
-    def _stage_run(self, wv: StagedWave, free_rows: list[int]) -> int:
-        """Stage wave requests from ``wv.merged`` on into ``free_rows``, in
-        order, while rows (and pages) last.  Per request, on the host: its
-        pages (mapped now; the pool's content is scattered now, onto pages
-        no window reads until the install copies their table row), its
-        carry row, its ``seq`` key.  Then one batched device write per
-        leaf on the main stream, the keys last, so a window that sees a
-        key sees its row.  Returns the number staged."""
+    def _free_stage_row(self) -> int | None:
+        """The staging row for the next staged request, None when every row
+        is taken: the lowest free one; on a mesh whose slots split over
+        "data", in the slot group whose slots are least spoken for (its
+        staged requests less its free slots, by the host's view), lowest
+        group first, so a request waits where a slot frees soonest."""
+        n, best = self._slot_n, None
+        for g in range(self._slot_groups):
+            rows = range(g * n, (g + 1) * n)
+            free = [q for q in rows if self._stage_tab[q] is None]
+            if not free:
+                continue
+            load = (n - len(free)) - sum(self.scheduler.slot_req[s] is None for s in rows)
+            if best is None or load < best[0]:
+                best = (load, free[0])
+        return None if best is None else best[1]
+
+    def _stage_run(self, wv: StagedWave) -> int:
+        """Stage wave requests from ``wv.merged`` on into free staging rows
+        (``_free_stage_row``), in order, while rows (and pages) last.  Per
+        request, on the host: its pages (mapped now; the pool's content is
+        scattered now, onto pages no window reads until the install copies
+        their table row), its carry row, its ``seq`` key.  Then one
+        batched device write per leaf on the main stream, the keys last,
+        so a window that sees a key sees its row.  Returns the number
+        staged."""
         idx, qs, ents = [], [], []
         rws, cols, phys = [], [], []
-        while wv.merged + len(idx) < len(wv.reqs) and len(idx) < len(free_rows):
+        while wv.merged + len(idx) < len(wv.reqs):
             i = wv.merged + len(idx)
             r, ri = wv.reqs[i], wv.rows[i]
             if (self._pages is not None
                     and self._pages_needed(r) > self._pages.free_count):
+                break
+            q = self._free_stage_row()
+            if q is None:
                 break
             if not idx and wv.merged == 0:
                 self.host_syncs += 1
@@ -2043,7 +2108,6 @@ class Engine:
             row, pending = self._stage_bookkeep(r, wv.specs[i], wv.first_lens[i])
             if mapping is not None:
                 row["ptab"][: len(mapping)] = mapping
-            q = free_rows[len(idx)]
             ent = StagedEntry(req=r, host_row=row, pending=pending, pages=mapping,
                               seq=self._stage_seq_next, keys0=wv.keys0[i],
                               full=bool(wv.full[i]))
@@ -2059,11 +2123,14 @@ class Engine:
         stage = self._stage
         if phys:
             _merge_slot_paged(self.cache, wv.new_cache, t(rws), t(cols), t(phys),
-                              self.page_size)
-        pre = [(q, wv.rows[i]) for q, i in zip(qs, idx) if wv.rows[i] >= 0]
+                              self.page_size, mesh=self._mesh)
+        # the stage cache takes this rank's rows (its slot group's)
+        lo, n = self._slot_lo, self._slot_n
+        pre = [(q - lo, wv.rows[i]) for q, i in zip(qs, idx)
+               if wv.rows[i] >= 0 and lo <= q < lo + n]
         if "cache" in stage and pre:
             _merge_slot(stage["cache"], wv.new_cache, t([q for q, _ in pre]),
-                        rows=t([ri for _, ri in pre]))
+                        rows=t([ri for _, ri in pre]), mesh=self._mesh)
         host_rows = {k: np.stack([e.host_row[k] for e in ents])
                      for k in self._st if k not in ("tok", "keys", "act")}
         self._put_rows(stage["rows"], qs, host_rows, self._first_rows(wv, idx))
@@ -2170,6 +2237,8 @@ class Engine:
         t0 = time.perf_counter()
         if w.ready is not None:
             w.ready.synchronize()
+        if self._slot_groups > 1:
+            self._gather_inflight(w)
         status = w.status.numpy()
         t1 = time.perf_counter()
         self._prof_add("harvest", t0, t1 - t0)
@@ -2187,13 +2256,16 @@ class Engine:
             off += 2 * B
         installs = []
         if self.continuous:
+            # K installs a slot group's window iteration can make, per group
             K = self.sync_every
-            sw_seq, sw_slot = status[off: off + K], status[off + K: off + 2 * K]
-            off += 2 * K
-            for k in range(K):
-                if sw_seq[k] >= 0:
-                    q, ent = self._stage_by_seq.pop(int(sw_seq[k]))
-                    installs.append((k, int(sw_slot[k]), q, ent))
+            nsw = K * self._slot_groups
+            sw_seq, sw_slot = status[off: off + nsw], status[off + nsw: off + 2 * nsw]
+            off += 2 * nsw
+            for j in range(nsw):
+                if sw_seq[j] >= 0:
+                    q, ent = self._stage_by_seq.pop(int(sw_seq[j]))
+                    installs.append((j % K, int(sw_slot[j]), q, ent))
+            installs.sort(key=lambda x: x[0])
         self._act_iters += int(status[off])
         # the item credits each iteration's tokens to whoever held the slot
         # then: the map at dispatch, changed at each install's iteration
@@ -2215,6 +2287,34 @@ class Engine:
                 self._finish(slot)
         self.slot_swaps += len(installs)
         self._prof_add("bookkeep", t1, time.perf_counter() - t1)
+
+    def _gather_inflight(self, w: InflightWindow):
+        """A window's host copies over every slot group, in place, in one
+        all-gather over "data" (``_gather_rows``): the per-slot status
+        fields and the tokens concatenate in group order, an install's
+        slot becomes global, the stepping counts and the draft totals sum
+        (the per-group values ride every row, as in ``_gather_window``):
+        one device's window layout, but for the installs, K per group."""
+        n, G, K = self._slot_n, self._slot_groups, self.sync_every
+        nf = 3 + self.continuous + 2 * self.adaptive_spec     # per-slot fields
+        rows = {"slot": w.status[:nf * n].reshape(nf, n).T,
+                "group": w.status[nf * n:].reshape(1, -1).expand(n, -1),
+                "toks": w.toks.movedim(1, 0), "emits": w.emits.movedim(1, 0)}
+        if w.acc is not None:
+            rows["draft"] = torch.stack([w.acc, w.prop]).reshape(1, 2).expand(n, 2)
+        full = self._gather_rows(rows)
+        group = full["group"][::n]                 # (G, [2K sw +] 1 n_act)
+        out = [full["slot"].T.reshape(-1)]
+        if self.continuous:
+            sw_slot = group[:, K:2 * K]
+            base = n * torch.arange(G, dtype=sw_slot.dtype)[:, None]
+            out += [group[:, :K].reshape(-1),
+                    torch.where(sw_slot >= 0, sw_slot + base, sw_slot).reshape(-1)]
+        out.append(group[:, -1].sum().reshape(1))
+        w.status = torch.cat(out)
+        w.toks, w.emits = full["toks"].movedim(0, 1), full["emits"].movedim(0, 1)
+        if w.acc is not None:
+            w.acc, w.prop = full["draft"][::n].sum(dim=0)
 
     def _window_item(self, w: InflightWindow, slot_reqs: list, swaps=()):
         """The backlog item crediting ``w``'s tokens: ``slot_reqs`` is the
@@ -2272,7 +2372,7 @@ class Engine:
                 # drain a window, whose harvest may retire slots and
                 # unblock the queue
                 self._harvest_trailing()
-            elif (self._admission is not None
+            elif (self._admission is not None and not self._admission.lockstep
                   and (self._admission.busy or self.scheduler.queue_depth > 0)):
                 # nothing on the device, but a wave is being prepared: wait
                 # (bounded) for it instead of spinning the idle guard down

@@ -25,6 +25,11 @@ device carry) or deferred onto a worker thread:
     host-visible merges on the main thread at a window boundary, which is
     what keeps streams token for token equal to the sync engine's
     (prefill is row-independent and the first-token sample is per row).
+    In ``lockstep`` (a mesh, where every rank must take the same
+    decisions at the same boundaries) the main thread forms each wave and
+    ``submit``s it, and ``collect`` at the next boundary hands back every
+    wave submitted before it, waiting for any not prepared yet: no
+    decision depends on the worker's timing.
   * ``StagedEntry`` (continuous batching) is one request scattered into
     the device staging queue: the host-known carry row it was staged with,
     kept until a harvested window confirms the in-window install, so the
@@ -40,6 +45,7 @@ import dataclasses
 import queue
 import threading
 import time
+from collections import deque
 from typing import Any, Callable
 
 __all__ = ["AdmissionWorker", "InflightWindow", "PreemptedRecord",
@@ -218,15 +224,25 @@ class AdmissionWorker:
 
     ``kick(capacity)`` bounds look-ahead: the worker stages at most that
     many requests beyond what the main thread has merged.  A worker
-    exception is re-raised on the main thread at the next ``poll``."""
+    exception is re-raised on the main thread at the next ``poll``.
 
-    def __init__(self, take: Callable[[int], list], prepare: Callable[[list], Any],
-                 name: str = "admission-prefill"):
+    With ``lockstep`` the worker takes no requests itself: the main
+    thread ``submit``s each wave's requests and ``collect``s the waves
+    (in submission order) at a later boundary; ``busy`` is then whether
+    a submitted wave is not collected yet, which only the main thread
+    moves, and ``close`` lets every submitted wave finish first (on a
+    mesh each rank's worker runs collectives the others' wait for)."""
+
+    def __init__(self, take: Callable[[int], list] | None, prepare: Callable[[list], Any],
+                 name: str = "admission-prefill", lockstep: bool = False):
         self._take = take
         self._prepare = prepare
         self._name = name
+        self.lockstep = lockstep
         self._cv = threading.Condition()
         self._out: list = []
+        self._jobs: deque = deque()     # lockstep: submitted, not yet taken
+        self._submitted = self._collected = 0
         self._err: BaseException | None = None
         self._capacity = 0
         self._busy = False
@@ -241,9 +257,37 @@ class AdmissionWorker:
 
     @property
     def busy(self) -> bool:
-        """True while the worker holds unpolled output or is preparing."""
+        """True while the worker holds unpolled output or is preparing;
+        in lockstep, while a submitted wave is not collected."""
+        if self.lockstep:
+            return self._submitted > self._collected
         with self._cv:
             return self._busy or bool(self._out)
+
+    def submit(self, reqs: list):
+        """Main thread, lockstep: queue a wave of ``reqs`` for the worker."""
+        with self._cv:
+            self._jobs.append(reqs)
+            self._submitted += 1
+            self._ensure_thread()
+            self._cv.notify_all()
+
+    def collect(self) -> list:
+        """Main thread, lockstep: every wave submitted so far, in order,
+        waiting for those still being prepared; re-raises a worker crash."""
+        with self._cv:
+            self._cv.wait_for(lambda: self._err is not None
+                              or self._collected + len(self._out) == self._submitted)
+            out, self._out = self._out, []
+            self._collected += len(out)
+        self._reraise()
+        return out
+
+    def _reraise(self):
+        with self._cv:
+            err, self._err = self._err, None
+        if err is not None:
+            raise RuntimeError(f"{self._name} worker failed while staging") from err
 
     def _ensure_thread(self):
         if self._thread is None and not self._stop:
@@ -262,13 +306,14 @@ class AdmissionWorker:
     def _run(self):
         while True:
             with self._cv:
-                while not self._stop and self._capacity <= 0:
+                while not self._stop and self._capacity <= 0 and not self._jobs:
                     self._cv.wait()
-                if self._stop:
+                if not self._jobs and self._stop:
                     return
+                job = self._jobs.popleft() if self._jobs else None
                 cap = self._capacity
             try:
-                reqs = self._take(cap)
+                reqs = job if job is not None else self._take(cap)
                 if not reqs:
                     with self._cv:
                         # nothing queued: sleep until the next kick
@@ -278,7 +323,8 @@ class AdmissionWorker:
                     continue
                 with self._cv:
                     self._busy = True
-                    self._capacity -= len(reqs)
+                    if job is None:
+                        self._capacity -= len(reqs)
                 t0 = time.perf_counter()
                 wave = self._prepare(reqs)
                 dt = time.perf_counter() - t0
@@ -301,9 +347,7 @@ class AdmissionWorker:
         crash (once), so a failed prefill fails the run."""
         with self._cv:
             out, self._out = self._out, []
-            err, self._err = self._err, None
-        if err is not None:
-            raise RuntimeError(f"{self._name} worker failed while staging") from err
+        self._reraise()
         return out
 
     def wait(self, timeout: float | None = None) -> bool:
@@ -315,6 +359,8 @@ class AdmissionWorker:
             return bool(self._out) or self._err is not None
 
     def close(self):
+        """Stop and join the worker; a lockstep worker first prepares
+        every wave submitted to it."""
         with self._cv:
             self._stop = True
             self._cv.notify_all()

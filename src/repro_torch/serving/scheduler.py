@@ -75,7 +75,9 @@ class Scheduler:
         # engine re-seats through ``place``, not through the queue
         self.parked: list[Request] = []
         # popped off the queue for a staged prefill, not yet in a slot;
-        # ``place`` consumes them strictly in this order
+        # ``place`` consumes them strictly in this order (with slot groups,
+        # in this order within each group: a continuous engine on a mesh
+        # stages into groups and each group installs its own)
         self.staged: deque[Request] = deque()
 
     def submit(self, req: Request) -> Request:
@@ -149,7 +151,8 @@ class Scheduler:
         return out
 
     def place(self, slot: int, req: Request):
-        """Bind a staged request (the head of ``staged``) or a parked
+        """Bind a staged request (the head of ``staged``; with slot groups
+        any staged one, since each group installs its own) or a parked
         (preempted) one to a free slot."""
         if self.slot_req[slot] is not None:
             raise RuntimeError(f"slot {slot} is occupied by uid="
@@ -159,12 +162,13 @@ class Scheduler:
                 self.parked.pop(i)
                 break
         else:
-            if not self.staged or self.staged[0] is not req:
+            at = next((i for i, p in enumerate(self.staged) if p is req), None)
+            if at is None or (at > 0 and self.slot_shards == 1):
                 raise RuntimeError(
                     f"place(uid={req.uid}): neither parked nor the head of the "
                     f"staged queue (head uid="
                     f"{self.staged[0].uid if self.staged else None})")
-            self.staged.popleft()
+            del self.staged[at]
         self.slot_req[slot] = req
         self.admitted_uids.append(req.uid)
 

@@ -7,10 +7,14 @@ params at rest as this rank's shards and gathers a layer's leaves (or a
 top-level leaf) each time the model reads them, so the products after it
 are the single-device products; the gathered copies are dropped with the
 reference.  ``local_cache`` builds the decode caches as this rank's
-shards of ``rules.cache_specs``.
+shards of ``rules.cache_specs`` (a pool keeps every page on every data
+rank), and ``step_mesh`` the mesh view the engine's steps read them by.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 
@@ -95,13 +99,18 @@ class MeshParams:
     """A model's params at rest as this rank's shards (``local``, by
     ``specs``), read like the params dict: a top-level leaf, or a layer
     of ``["layers"]``, is gathered whole over the mesh when it is read.
-    ``gathered_bytes`` counts the bytes the gathers rebuilt."""
+    Within :meth:`step` a top-level leaf is gathered once, at its first
+    read, and kept to the block's end: a step reads the tied embedding
+    twice (the lookup and the logits).  ``gathered_bytes`` counts the
+    bytes the gathers rebuilt."""
 
     def __init__(self, cfg, params: dict, mesh, grains=None):
         self.mesh = mesh
         self.specs = R.param_specs(cfg, params, mesh, grains=grains)
         self.local = shard_tree(params, self.specs, mesh)
         self.gathered_bytes = 0
+        self._lock = threading.Lock()     # the admission worker reads too
+        self._tls = threading.local()     # this thread's step memo
 
     def first_layers(self, k: int) -> "LayerPrefix":
         """The first ``k`` layers and the top-level leaves, read over the
@@ -110,28 +119,53 @@ class MeshParams:
 
     def gathered(self, tree, specs):
         out = gather_tree(tree, specs, self.mesh)
-        self.gathered_bytes += tree_bytes(out)
+        with self._lock:
+            self.gathered_bytes += tree_bytes(out)
         return out
+
+    @contextlib.contextmanager
+    def step(self):
+        """One step's reads on this thread: each top-level leaf gathered
+        once (nested blocks share the outer one's)."""
+        outer = getattr(self._tls, "memo", None)
+        if outer is None:
+            self._tls.memo = {}
+        try:
+            yield
+        finally:
+            if outer is None:
+                self._tls.memo = None
 
     def __getitem__(self, key):
         if key == "layers":
             return _Layers(self, len(self.local["layers"]))
-        return self.gathered(self.local[key], self.specs[key])
+        memo = getattr(self._tls, "memo", None)
+        if memo is not None and key in memo:
+            return memo[key]
+        out = self.gathered(self.local[key], self.specs[key])
+        if memo is not None:
+            memo[key] = out
+        return out
 
     def __contains__(self, key) -> bool:
         return key in self.local
 
 
-def local_cache(full_meta: list, mesh, device) -> list:
+def local_cache(full_meta: list, mesh, device, pool: bool = False) -> list:
     """Empty decode caches as this rank's shards: ``full_meta`` are the
     full caches on the meta device (``transformer.init_decode_cache``),
     each leaf made at its slice's shape, ``pos`` -1 and the rest 0 as
-    there."""
+    there.  A ``pool``'s leaves keep their page dim whole, whatever the
+    spec says of it: the page table holds global page ids, so every data
+    rank keeps every page (JAX's kernel call keeps it whole too; at rest
+    JAX splits it over "data" where the count divides)."""
     specs = R.cache_specs(full_meta, mesh)
 
     def local_shape(shape, spec):
         out = list(shape)
         for d, entry in enumerate(spec):
+            if pool and d == 0:
+                continue
             for axis in _axes(entry):
                 out[d] //= mesh.axis_size(axis)
         return tuple(out)
@@ -142,6 +176,24 @@ def local_cache(full_meta: list, mesh, device) -> list:
                     for name, leaf in leaves.items()}
              for part, leaves in layer.items()}
             for i, layer in enumerate(full_meta)]
+
+
+def step_mesh(mesh, full_meta: list, n_slots: int):
+    """The view of ``mesh`` the engine's steps read caches of FULL shapes
+    ``full_meta`` (``n_slots`` slot rows, or a pool) by: without "data"
+    where ``n_slots`` does not split over it (every data rank then holds
+    and steps every slot, and no step gathers over "data"), and reading
+    whole (:meth:`launch.mesh.Mesh.layer`) each layer whose self ring or
+    pool ``rules.cache_specs`` keeps whole over "model" (a ring length or
+    page size the "model" ranks do not divide).  Decided per layer: one
+    model's rings may differ in length (gemma3's window and global)."""
+    view = mesh if n_slots % mesh.axis_size("data") == 0 else mesh.without("data")
+    if mesh.axis_size("model") == 1:
+        return view
+    whole = [i for i, layer in enumerate(full_meta) if "self" in layer
+             and R.cache_model_dim("pos", layer["self"]["pos"].shape,
+                                   layer["self"]["pos"].dtype, mesh) is None]
+    return view.with_whole_layers(whole)
 
 
 class LayerPrefix:

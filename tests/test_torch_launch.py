@@ -70,17 +70,19 @@ def test_cli_continuous_equals_sync():
 
 def test_cli_refusals():
     """What the port does not serve yet raises with its ROADMAP item (a
-    mesh with the overlapped or continuous engine: item 5c); a mesh needs
-    a process group (torchrun's); a one-device mesh is the port's own
-    layout; ``--recalkv`` where ReCalKV does not apply (falcon-mamba,
-    deepseek) raises with the JAX CLI's words; an unregistered arch raises
-    KeyError."""
-    with pytest.raises(ValueError, match="Queue 1 item 5c"):
-        serve.main(BASE + ["--mesh", "2,4", "--continuous"])
-    with pytest.raises(ValueError, match="Queue 1 item 5c"):
-        serve.main(BASE + ["--mesh", "2x4", "--overlap"])
+    mesh with CUDA graphs: item 5e); a mesh needs a process group
+    (torchrun's), the overlapped and continuous engines on one too; a
+    one-device mesh is the port's own layout; ``--recalkv`` where ReCalKV
+    does not apply (falcon-mamba, deepseek) raises with the JAX CLI's
+    words; an unregistered arch raises KeyError."""
+    with pytest.raises(ValueError, match="Queue 1 item 5e"):
+        serve.main(BASE + ["--mesh", "2,4", "--aot"])
+    with pytest.raises(ValueError, match="Queue 1 item 5e"):
+        serve.main(BASE + ["--mesh", "2x4", "--continuous", "--aot"])
     with pytest.raises(RuntimeError, match="torchrun"):
         serve.main(BASE + ["--mesh", "2,4"])
+    with pytest.raises(RuntimeError, match="torchrun"):
+        serve.main(BASE + ["--mesh", "2x4", "--continuous", "--pipeline-depth", "2"])
     with pytest.raises(ValueError, match="ReCalKV inapplicable to falcon-mamba-7b"):
         serve.main(["--arch", "falcon-mamba-7b", "--smoke", "--device", "cpu",
                     "--recalkv", "0.5"])

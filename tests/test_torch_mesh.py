@@ -13,14 +13,23 @@ and int8 caches, the two kinds mixed), chunked prefill at 7 and at 5 with
 ``sync_every=3`` on a cap-length prompt, the paged pool, n-gram
 speculation at depth 2; ``host_syncs == windows + admission_syncs``; ring
 leaves held as (slots / 2, positions / 2) shards; ``slot_shards == 2``
-and a two-request wave in one slot group.  On (1, 4): latent greedy and
-the pool.  Every stream equals the port's single-device engine's and the
-JAX single-device engine's (which n-gram speculation and chunking leave
-unchanged).  The refusals are checked in this process: a mesh's checks
-run before it touches a process group; so is the construction of what a
-mesh serves since its einsum readers merge (MLA, cross-attention, the
-recurrent state, the layer draft, the einsum backend), whose streams
-``test_torch_mesh_families.py`` holds.
+and a two-request wave in one slot group.  Then the shapes the mesh does
+not split evenly, which stay whole as the JAX rules leave them: 3 slots
+(every data rank holds and steps all three, ``slot_shards == 1``), a
+ring of 41 positions and a pool of 5-token pages (whole on both "model"
+ranks, read by the bare kernels with no merge: no all-reduce), and a
+pool of 20 pages, a count "data" divides (every page kept on each data
+rank).  On (1, 4): latent greedy and the pool.  Every stream equals the
+port's single-device engine's and the JAX single-device engine's (which
+n-gram speculation, chunking and these shapes leave unchanged: the JAX
+reference runs once per cache, at 4 slots of 40 positions).  The one
+refusal left (``aot``, item 5e) is checked in this process: a mesh's
+checks run before it touches a process group; so is the construction of
+what a mesh serves since its einsum readers merge (MLA, cross-attention,
+the recurrent state, the layer draft, the einsum backend), whose streams
+``test_torch_mesh_families.py`` holds, and of the overlapped and
+continuous engines and the uneven shapes (their layouts), whose streams
+this file and ``test_torch_mesh_async.py`` hold.
 """
 
 import dataclasses
@@ -55,6 +64,10 @@ CASES_22 = [
     ("chunk5_sync3", "latent", {"prefill_chunk": 5, "sync_every": 3}, "cap"),
     ("pool", "latent", {"cache_layout": "paged"}, "mixed"),
     ("ngram2", "latent", {"spec_depth": 2, "draft": "ngram"}, "mixed"),
+    ("uneven_slots", "latent", {"max_slots": 3}, "mixed"),
+    ("uneven_ring", "latent", {"max_len": 41}, "mixed"),
+    ("uneven_page", "latent", {"cache_layout": "paged", "page_size": 5}, "mixed"),
+    ("pool_pages_even", "latent", {"cache_layout": "paged", "n_pages": 20}, "mixed"),
 ]
 CASES_14 = [
     ("latent", "latent", {}, "mixed"),
@@ -75,8 +88,8 @@ def _prompts(vocab):
 
 
 def _serve(cfg, params, prompts, mesh=None, device="cpu", **kw):
-    eng = Engine(cfg, params, max_slots=SLOTS, max_len=MAX_LEN, backend="kernel",
-                 device=device, mesh=mesh, **kw)
+    kw = {"max_slots": SLOTS, "max_len": MAX_LEN, **kw}
+    eng = Engine(cfg, params, backend="kernel", device=device, mesh=mesh, **kw)
     for uid, pr, sampled in prompts:
         eng.submit(Request(uid=uid, prompt=pr.copy(), max_new_tokens=6,
                            sampling=SamplingParams(**SAMPLED) if sampled else None))
@@ -104,6 +117,7 @@ def _rank_main(rank, world, shape, cases, folder):
     for case, model, kw, pset in cases:
         cfg = _config(model)
         prompts = _prompts(cfg.vocab_size)[pset]
+        before = dict(mesh.stats)
         streams, eng = _serve(cfg, params["dense" if model == "dense" else "latent"],
                               prompts, mesh=mesh, **kw)
         m = eng.metrics()
@@ -113,7 +127,8 @@ def _rank_main(rank, world, shape, cases, folder):
                      "admission_syncs": m["admission_syncs"], "tokens": m["tokens"],
                      "mesh": m["mesh"], "slot_shards": eng.scheduler.slot_shards,
                      "ring_shape": list(ring["pos"].shape), "layout": eng.cache_layout,
-                     "draft_proposed": m["draft_proposed"]}
+                     "draft_proposed": m["draft_proposed"],
+                     "all_reduce": mesh.stats["all_reduce"] - before["all_reduce"]}
     # a two-request wave lands in one slot group
     cfg = _config("latent")
     eng = Engine(cfg, params["latent"], max_slots=SLOTS, max_len=MAX_LEN, backend="kernel",
@@ -246,6 +261,21 @@ def test_mesh22_ring_is_sharded_on_both_axes_and_waves_fill_one_group(mesh22):
     # the pool keeps every page on each data rank and splits its offsets
     pool = mesh22["pool"]
     assert pool["ring_shape"][1] == 8 // 2, pool
+    assert lat["all_reduce"] > 0 and pool["all_reduce"] > 0
+
+
+def test_mesh22_uneven_shapes_stay_whole(mesh22):
+    """What does not split stays whole, as the JAX rules leave it: 3 slots
+    on every data rank (one slot group), a 41-position ring and 5-token
+    pages on every "model" rank (bare kernels, no merge), and a pool of 20
+    pages on every data rank with its 8-token pages split."""
+    slots, ring, page, even = (mesh22[c] for c in ("uneven_slots", "uneven_ring",
+                                                   "uneven_page", "pool_pages_even"))
+    assert slots["slot_shards"] == 1 and slots["ring_shape"] == [3, MAX_LEN // 2], slots
+    assert ring["slot_shards"] == 2 and ring["ring_shape"] == [SLOTS // 2, 41], ring
+    assert page["ring_shape"][1] == 5 and page["all_reduce"] == 0, page
+    assert ring["all_reduce"] == 0, ring
+    assert even["ring_shape"] == [20, 8 // 2] and even["all_reduce"] > 0, even
 
 
 @pytest.mark.parametrize("case,model,kw,pset", CASES_14, ids=[c[0] for c in CASES_14])
@@ -263,16 +293,8 @@ def test_mesh14_streams_equal_single_device(mesh14, references, models, case, mo
 # -- refusals, by name --------------------------------------------------------
 
 REFUSED = [
-    ("overlap", "qwen3-4b", {"overlap": True}, "overlap=True is not ported to a mesh"),
-    ("continuous", "qwen3-4b", {"overlap": True, "continuous": True},
-     "continuous=True is not ported to a mesh"),
-    ("aot", "qwen3-4b", {"aot": True}, "aot=True is not ported to a mesh"),
-    ("uneven_slots", "qwen3-4b", {"max_slots": 3}, "does not split over 2 data ranks"),
-    ("pool_pages_split", "qwen3-4b", {"cache_layout": "paged", "n_pages": 20},
-     "would split the pool's pages"),
-    ("uneven_ring", "qwen3-4b", {"max_len": 41}, r"ring lengths \[41\] do not split"),
-    ("uneven_page", "qwen3-4b", {"cache_layout": "paged", "page_size": 5},
-     "page_size=5 does not split over 2 model ranks"),
+    ("aot", "qwen3-4b", {"overlap": True, "aot": True},
+     r"aot=True is not ported to a mesh yet \(ROADMAP.md Queue 1 item 5e\)"),
 ]
 
 
@@ -289,6 +311,36 @@ def test_mesh_refusals_name_their_roadmap_item(case, arch, kw, msg):
     with pytest.raises(ValueError, match=msg) as e:
         Engine(cfg, params, device="cpu", mesh=Mesh(2, 2), **kw)
     assert "ROADMAP.md Queue 1 item 5" in str(e.value)
+
+
+# What the mesh refused before this slice (the overlapped engines, item 5c;
+# the uneven shapes, item 5b.4): built on a (2, 2) mesh here, no process
+# group touched, each with the layout it serves on; (case, keywords, the
+# layer-0 "pos" shape, slot groups).  Their streams are held on spawned
+# ranks (mesh22 above, tests/test_torch_mesh_async.py).
+BUILT = [
+    ("overlap", {"overlap": True}, [SLOTS // 2, MAX_LEN // 2], 2),
+    ("continuous", {"overlap": True, "continuous": True}, [SLOTS // 2, MAX_LEN // 2], 2),
+    ("uneven_slots", {"max_slots": 3}, [3, MAX_LEN // 2], 1),
+    ("pool_pages_split", {"cache_layout": "paged", "n_pages": 20}, [20, 4], 2),
+    ("uneven_ring", {"max_len": 41}, [SLOTS // 2, 41], 2),
+    ("uneven_page", {"cache_layout": "paged", "page_size": 5}, [SLOTS * 8 + 1, 5], 2),
+]
+
+
+@pytest.mark.parametrize("case,kw,pos,groups", BUILT, ids=[r[0] for r in BUILT])
+def test_mesh_builds_the_overlapped_engines_and_uneven_shapes(case, kw, pos, groups):
+    cfg, params = _smoke("qwen3-4b")
+    kw = {"backend": "kernel", "max_slots": SLOTS, "max_len": MAX_LEN, **kw}
+    eng = Engine(cfg, params, device="cpu", mesh=Mesh(2, 2), **kw)
+    assert eng.mesh.stats["all_gather"] == 0
+    assert list(eng.cache[0]["self"]["pos"].shape) == pos
+    assert eng.scheduler.slot_shards == groups
+    if eng.overlap:      # the worker's waves are formed and adopted in lockstep
+        assert eng._admission.lockstep
+    if eng.continuous:   # each data rank stages for its own slot group
+        assert eng._stage["seq"].shape == (SLOTS // 2,)
+        assert eng._stage["cache"][0]["self"]["pos"].shape == eng.cache[0]["self"]["pos"].shape
 
 
 # Paths the mesh refused before the einsum readers merged over "model": built
