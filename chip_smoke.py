@@ -229,7 +229,16 @@ Phases, in order (any failure exits non-zero; none is caught):
    host at every step).  The
    tok/s of (c) are two ranks time-slicing one card over a host
    transport, not a mesh's speed; rows ``<kernel>+lse`` of the kernels
-   line count the return_lse launches of (c);
+   line count the return_lse launches of (c); then (d) training on the
+   mesh (``phase_mesh_train``, still holding no model): MT32, qwen3-4b
+   at full width and 1 layer in float32, two steps of B 4 x T 256 with
+   two microbatches and int8 error feedback, on a (2, 1) mesh of two
+   spawned ranks sharing the card over gloo (``runtime.make_train_step(
+   ..., mesh=)``: FSDP over "data"), against the same steps on the
+   single-device step in this process: loss and lr per step within
+   1e-5 relative, grad_norm 1e-4, every gathered leaf within 1e-3 of its
+   norm, no kernel launched; per step its wall time, the bytes gathered
+   and all-reduced (``Mesh.stats``) and each rank's peak memory;
 10. a ``{"kernels": [...]}`` line (per kernel: ``ms`` is the kernel's
    bf16 time, ``max_abs_err`` its bf16 error, ``max_err_f32`` its float32
    error, ``launches`` its launches over the runs, ``launches_by_run`` by
@@ -2907,7 +2916,8 @@ def phase_lse(torch, gen) -> list:
 # (c): two ranks on one card.  qwen3-4b at full width, cut to a few of its
 # 36 layers (each rank gathers every weight it reads across the host at
 # every step: see PERF.md), on a (1, 2) mesh over gloo, at MESH_LAYERS
-# (2: the depth cut that keeps the script inside its limit).  MA32 / MA:
+# (1 since PR 34, 2 before: the depth cut that keeps the script inside
+# its limit).  MA32 / MA:
 # A's prompts (8 of 512-2,048, prefilled whole), f32 / bf16, 4 tokens
 # each in windows of 3 decode steps (later steps read the columns earlier
 # ones wrote); MD: D's pool (page 16, 385 pages, prefix-affinity) and its
@@ -2931,8 +2941,8 @@ def phase_lse(torch, gen) -> list:
 # bucket: the state runs over its wave's pads, and two data ranks form
 # other waves); MR, recurrentgemma-9b at one period of 3 layers (two
 # RG-LRU blocks, one local attention), latent, bf16 (the state gathered
-# over "model", the window ring on K1 with the state); ML, qwen3-4b at 4
-# layers with the layer draft of 2 (the draft's own sharded ring: K1 /
+# over "model", the window ring on K1 with the state); ML, qwen3-4b at 3
+# layers (4 before PR 34) with the layer draft of 2 (the draft's own sharded ring: K1 /
 # K5 with the state), bf16; ME, qwen3-4b at 1 layer on the einsum
 # backend, f32 (its readers merged in einsum form).  "arch", "mesh"
 # (data, model), "source" (a seed) and "check" (the reader whose first
@@ -2940,7 +2950,7 @@ def phase_lse(torch, gen) -> list:
 # rest.
 # Then the overlapped engines and the shapes a mesh does not split, each
 # against the single-device SYNC engine ("mesh_kw" applies on the mesh
-# only), qwen3-4b latent, f32: MO32 (2 layers, A's first 4 prompts, the
+# only), qwen3-4b latent, f32: MO32 (MESH_LAYERS, A's first 4 prompts, the
 # overlapped engine at depth 2 with the admission thread, (1, 2)); MC32
 # (1 layer, A's first 6 prompts over 4 slots with budgets of 2-5 tokens,
 # so that slots free mid-window: the continuous engine at depth 3 on
@@ -2950,7 +2960,7 @@ def phase_lse(torch, gen) -> list:
 # whole on both data ranks, and D's pool at an even page count, 384
 # pages of 16, kept whole on each data rank).  "slots", "max_len" and a
 # tuple "new" (budgets cycled) size them.
-MESH_LAYERS = 2
+MESH_LAYERS = 1     # PR 34: 2 -> 1 (MA32, MA, MD, MO32), room for MT32
 MESH_RUNS = {
     "MA32": dict(dtype="float32", prompts="A", ratio=0.5, new=4, sync=3, check="latent"),
     "MA": dict(dtype="bfloat16", prompts="A", ratio=0.5, new=4, sync=3, check="latent"),
@@ -2980,7 +2990,7 @@ MESH_RUNS = {
                layers=2, new=2, sync=1, mesh=(2, 1)),
     "MR": dict(arch="recurrentgemma-9b", dtype="bfloat16", prompts="A", first=4, ratio=0.5,
                layers=3, new=2, sync=1, check="latent"),
-    "ML": dict(dtype="bfloat16", prompts="C", ratio=0.5, layers=4, new=2, sync=1,
+    "ML": dict(dtype="bfloat16", prompts="C", ratio=0.5, layers=3, new=2, sync=1,
                check="latent", kw=dict(spec_depth=2, draft="layers:2")),
     "ME": dict(dtype="float32", prompts="C", ratio=0.5, layers=1, new=2, sync=1,
                kw=dict(backend="einsum")),
@@ -3324,6 +3334,182 @@ def phase_mesh_runs(torch, layers=MESH_LAYERS, runs=tuple(MESH_RUNS)) -> dict:
     return rec
 
 
+# (d) training on the mesh: MT32 (``phase_mesh_train``).
+MESH_TRAIN_LAYERS = 1
+MESH_TRAIN = dict(mesh=(2, 1), steps=2, rows=4, seq=256, vocab=4096, microbatches=2)
+MT_LOSS_REL = 1e-5      # loss and lr per step, relative
+MT_GNORM_REL = 1e-4     # grad_norm per step, relative
+# each gathered leaf to its norm: a gradient element within an ulp of an
+# int8 rounding tie quantizes a level apart in the two runs, and Adam
+# turns that level into a full step of the element (the port's
+# ``test_train_steps_match_jax`` compress case, whose limit this is)
+MT_PARAM_REL = 1e-3
+
+
+def mesh_train_setup(torch):
+    """MT32's config, optimizer, train config and batches."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, batch
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.runtime import TrainConfig
+    cfg = dataclasses.replace(get_config("qwen3-4b"), num_layers=MESH_TRAIN_LAYERS,
+                              dtype=torch.float32)
+    tc = TrainConfig(microbatches=MESH_TRAIN["microbatches"], grad_compress=True,
+                     warmup_steps=0, total_steps=8)
+    dc = DataConfig(vocab_size=MESH_TRAIN["vocab"], seq_len=MESH_TRAIN["seq"])
+    batches = [batch(dc, "train", i, MESH_TRAIN["rows"]) for i in range(MESH_TRAIN["steps"])]
+    return cfg, AdamWConfig(), tc, batches
+
+
+def _mesh_train_rank(rank, folder):
+    """One of MT32's two ranks: the seeded model sharded over the (2, 1)
+    gloo mesh, MESH_TRAIN's steps; each rank writes its readings, rank 0
+    also each gathered leaf against the reference's (``ref.pt``)."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import kernels
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.weights import leaves_in_jax_order
+    from repro_torch.runtime import init_train_state, make_train_step, shard_train_state
+    from repro_torch.sharding.place import gather_tree
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.set_device(0)
+    mesh = make_mesh(*MESH_TRAIN["mesh"], backend="gloo", rank=rank, world_size=2,
+                     store=dist.FileStore(str(Path(folder) / "store"), 2))
+    cfg, opt_cfg, tc, batches = mesh_train_setup(torch)
+    params, opt = init_train_state(cfg, opt_cfg, tc, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    mp, opt = shard_train_state(cfg, params, opt, mesh)
+    del params
+    torch.cuda.empty_cache()
+    step = make_train_step(cfg, opt_cfg, tc, mesh=mesh)
+    kernels.reset_launch_counts()
+    out = {"steps": [], "local_param_bytes": sum(
+        t.numel() * t.element_size() for _, ts, _ in leaves_in_jax_order(None, mp.local)
+        for t in ts)}
+    for b in batches:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before, g0, t0 = dict(mesh.stats), mp.gathered_bytes, time.perf_counter()
+        _, opt, m = step(mp, opt, b)
+        torch.cuda.synchronize()
+        r = {k: float(v) for k, v in m.items()}
+        r["wall_s"] = time.perf_counter() - t0
+        r.update({k: mesh.stats[k] - before[k] for k in (
+            "all_gather", "all_gather_bytes", "all_gather_s", "all_reduce",
+            "all_reduce_bytes", "all_reduce_s")})
+        r["gathered_leaf_bytes"] = mp.gathered_bytes - g0
+        r["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        out["steps"].append(r)
+    out["launches"] = launch_counts(kernels)
+    t0 = time.perf_counter()
+    full = gather_tree(mp.local, mp.specs, mesh)     # the params only: what is compared
+    out["final_gather_s"] = time.perf_counter() - t0
+    if rank == 0:
+        ref = torch.load(str(Path(folder) / "ref.pt"), mmap=True)
+        worst = (0.0, None)
+        for (path, (a,), _), (_, (g,), _) in zip(leaves_in_jax_order(None, ref),
+                                                 leaves_in_jax_order(None, full),
+                                                 strict=True):
+            a = a.to("cuda")
+            rel = float((g - a).norm() / a.norm().clamp(min=1e-30))
+            if rel > worst[0]:
+                worst = (rel, path)
+        out["param_rel"], out["param_leaf"] = worst
+    dist.destroy_process_group()
+    (Path(folder) / f"rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_mesh_train(torch) -> dict:
+    """Part (d): MT32 (MESH_TRAIN) on the single-device step in this
+    process, its params written for rank 0, then on two spawned ranks
+    sharing the card; the limits MT_*; nothing of the model stays here
+    while the ranks run."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch import kernels
+    from repro_torch.models.weights import map_tree
+    from repro_torch.runtime import init_train_state, make_train_step
+    t0 = time.perf_counter()
+    cfg, opt_cfg, tc, batches = mesh_train_setup(torch)
+    params, opt = init_train_state(cfg, opt_cfg, tc, torch.Generator(
+        device="cuda").manual_seed(SEED), device="cuda")
+    step = make_train_step(cfg, opt_cfg, tc)
+    kernels.reset_launch_counts()
+    single = []
+    for b in batches:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt, m = step(params, opt, b)
+        torch.cuda.synchronize()
+        single.append({**{k: float(v) for k, v in m.items()},
+                       "wall_s": time.perf_counter() - t1})
+    if any(launch_counts(kernels).values()):
+        raise AssertionError(f"MT32 single-device steps launched a kernel: "
+                             f"{launch_counts(kernels)}")
+    (ROOT / "build").mkdir(exist_ok=True)   # gitignored
+    with tempfile.TemporaryDirectory(dir=str(ROOT / "build")) as folder:
+        t1 = time.perf_counter()
+        torch.save(map_tree(params, lambda t: t.cpu()), str(Path(folder) / "ref.pt"))
+        save_s = time.perf_counter() - t1
+        del params, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        ctx = mp.get_context("spawn")
+        procs = [ctx.Process(target=_mesh_train_rank, args=(r, folder)) for r in range(2)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(600)
+        hung = [p for p in procs if p.is_alive()]
+        for p in hung:
+            p.kill()
+            p.join()
+        if hung or any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"MT32 ranks failed: exit codes {[p.exitcode for p in procs]}")
+        ranks = [json.loads((Path(folder) / f"rank{r}.json").read_text()) for r in range(2)]
+    rec = {"layers": MESH_TRAIN_LAYERS, **MESH_TRAIN, "single": single,
+           "ranks": ranks, "ref_save_s": save_s, "mesh_s": time.perf_counter() - t1}
+    for i, want in enumerate(single):
+        for r, got in enumerate(ranks):
+            got = got["steps"][i]
+            for k, lim in (("loss", MT_LOSS_REL), ("lr", MT_LOSS_REL),
+                           ("grad_norm", MT_GNORM_REL)):
+                rel = abs(got[k] - want[k]) / abs(want[k])
+                if rel > lim:
+                    raise AssertionError(f"MT32 step {i} rank {r}: {k} {got[k]} vs the "
+                                         f"single device's {want[k]} ({rel:.3e} relative)")
+    if ranks[0]["param_rel"] > MT_PARAM_REL:
+        raise AssertionError(f"MT32: gathered leaf {ranks[0]['param_leaf']} is "
+                             f"{ranks[0]['param_rel']:.3e} (relative norm) from the single "
+                             f"device's")
+    for r, got in enumerate(ranks):
+        if any(got["launches"].values()):
+            raise AssertionError(f"MT32 rank {r} launched a kernel: {got['launches']}")
+    rec["total_s"] = time.perf_counter() - t0
+    for i, want in enumerate(single):
+        steps = [got["steps"][i] for got in ranks]
+        log(f"MT32 step {i} (qwen3-4b, {MESH_TRAIN_LAYERS} layer, f32, (2, 1) mesh, two "
+            f"ranks sharing the card over gloo): loss {steps[0]['loss']:.7f} / single "
+            f"{want['loss']:.7f}, grad_norm {steps[0]['grad_norm']:.7f} / "
+            f"{want['grad_norm']:.7f}; wall {[round(s['wall_s'], 3) for s in steps]} s "
+            f"(single {want['wall_s']:.3f} s); rank 0 gathered "
+            f"{steps[0]['all_gather_bytes']} B sent in {steps[0]['all_gather']} gathers "
+            f"({steps[0]['all_gather_s']:.3f} s), {steps[0]['gathered_leaf_bytes']} B "
+            f"of leaves rebuilt, all-reduced {steps[0]['all_reduce_bytes']} B in "
+            f"{steps[0]['all_reduce']} reductions ({steps[0]['all_reduce_s']:.3f} s); "
+            f"peak {[round(s['peak_gib'], 3) for s in steps]} GiB by rank")
+    log(f"MT32: every gathered leaf within {ranks[0]['param_rel']:.3e} of the single "
+        f"device's (worst {ranks[0]['param_leaf']}; limit {MT_PARAM_REL:g}); no kernel "
+        f"launched; {rec['total_s']:.1f} s in all ({rec['mesh_s']:.1f} s on the ranks, "
+        f"{save_s:.1f} s writing the reference, {ranks[0]['final_gather_s']:.1f} s "
+        f"gathering the params to compare)")
+    return rec
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3422,6 +3608,7 @@ def main() -> int:
     entries += phase_lse(torch, gen)
     torch.cuda.empty_cache()
     mesh = phase_mesh_runs(torch)
+    mesh["train"] = phase_mesh_train(torch)
     log(f"the mesh phase took {time.perf_counter() - t_mesh:.1f} s")
 
     cfg = get_config("qwen3-4b", recalkv_ratio=0.5)

@@ -49,6 +49,31 @@ RECALKV_APPLICABLE = {
 }
 
 
+# (seq_len, global_batch, kind): the JAX package's dry-run cells; "train"
+# is a train step, "prefill" a prefill, "decode" one token against a
+# seq_len cache (``launch.dryrun`` reports each).
+SHAPES = {
+    "train_4k": (4096, 256, "train"),
+    "prefill_32k": (32768, 32, "prefill"),
+    "decode_32k": (32768, 128, "decode"),
+    "long_500k": (524288, 1, "decode"),
+}
+
+# long_500k needs a sub-quadratic cache: the SSM, hybrid and windowed
+# archs run it; pure full-attention archs (and whisper's 448-position
+# decoder) skip it, as in the JAX package.
+LONG_CONTEXT_ARCHS = {
+    "falcon-mamba-7b", "recurrentgemma-9b", "gemma3-12b", "h2o-danube-1.8b",
+}
+
+
+def shape_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """(whether ``arch`` runs the ``SHAPES`` cell ``shape``, why not)."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, "pure full-attention arch: 500k decode is quadratic-cost"
+    return True, ""
+
+
 def effective_rank_for_ratio(width: int, keep_ratio: float,
                              multiple: int = 8, min_rank: int = 8) -> int:
     """Rank giving a ``keep_ratio`` cache footprint, rounded to a multiple

@@ -16,9 +16,10 @@ The backend is the caller's: ``nccl`` by default on CUDA, ``gloo`` when
 asked for (the CPU tests; two ranks sharing one card).  Gloo's
 collectives run on host tensors, so a CUDA tensor goes through the host
 and back.  A backend that fails to initialise raises; nothing switches to
-another.  The mesh counts its collectives, their bytes and their
-seconds on the host clock (``stats``; a CUDA tensor's collective waits
-for the device there).
+another.  The mesh counts its collectives, their bytes (each rank's
+contribution: the shard it sends to a gather, the tensor it reduces; in
+all and per collective) and their seconds on the host clock (``stats``;
+a CUDA tensor's collective waits for the device there).
 
 Collectives on one group must run in the same order on every rank, so
 two threads of a rank must not share a group.  Each axis therefore has
@@ -64,6 +65,7 @@ class Mesh:
         self._groups = groups or {}      # lane -> axis -> process group
         self.index = {"data": self.rank // model, "model": self.rank % model}
         self._stats = {"all_reduce": 0, "all_gather": 0, "bytes": 0,
+                       "all_reduce_bytes": 0, "all_gather_bytes": 0,
                        "all_reduce_s": 0.0, "all_gather_s": 0.0}
         self._lock = threading.Lock()
         self._tls = threading.local()
@@ -143,9 +145,11 @@ class Mesh:
         return t
 
     def _count(self, op: str, t: torch.Tensor, t0: float):
+        n = t.numel() * t.element_size()
         with self._lock:
             self.stats[op] += 1
-            self.stats["bytes"] += t.numel() * t.element_size()
+            self.stats["bytes"] += n
+            self.stats[op + "_bytes"] += n
             self.stats[op + "_s"] += time.perf_counter() - t0
 
     def all_reduce(self, t: torch.Tensor, axis: str, op: str = "sum") -> torch.Tensor:
@@ -177,6 +181,31 @@ class Mesh:
         out = torch.cat(parts, dim=dim).to(device=t.device, dtype=t.dtype)
         self._count("all_gather", src, t0)
         return out
+
+
+    def all_gather_grad(self, t: torch.Tensor, axis: str, dim: int = 0) -> torch.Tensor:
+        """:meth:`all_gather` under autograd: the backward sums the
+        upstream gradient over ``axis`` (every rank's use of the gathered
+        rows) and keeps this rank's part along ``dim``.  The training
+        forward's MoE reads activation rows of every data rank this way."""
+        if self.shape[axis] == 1:
+            return t
+        return _AllGatherRows.apply(t, self, axis, dim)
+
+
+class _AllGatherRows(torch.autograd.Function):
+    """The gather of :meth:`Mesh.all_gather_grad`."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim, ctx.n = mesh, axis, dim, t.shape[dim]
+        return mesh.all_gather(t, axis, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        total = ctx.mesh.all_reduce(g.float(), ctx.axis)      # summed in float32
+        i = ctx.mesh.axis_index(ctx.axis)
+        return total.narrow(ctx.dim, i * ctx.n, ctx.n).to(g.dtype), None, None, None
 
 
 def _env_int(name: str) -> int | None:

@@ -252,8 +252,8 @@ PORTED_KINDS = BLOCK_KINDS
 def check_supported(cfg: ModelConfig, device=None) -> None:
     """Raise NotImplementedError for configurations the port does not
     serve.  Every block kind runs on the CPU and on a card (``PORTED_KINDS``);
-    what the port still lacks is training on a mesh and some of serving on
-    one (ROADMAP.md Queue 1 items 5a-5e, which ``Engine(mesh=...)`` and the
+    what the port still lacks on a mesh is ``aot`` and a "pod" axis
+    (ROADMAP.md Queue 1 items 5e and 5f, which ``Engine(mesh=...)`` and the
     CLIs refuse by name).  On a CUDA ``device``
     with the kernel backend this refuses widths no Hopper body serves
     (ROADMAP.md, Queue 3 item 2); the CPU's plain versions serve every

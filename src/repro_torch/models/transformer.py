@@ -59,14 +59,16 @@ def _ffn(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
     cross-attention kinds and ``rglru``.  Returns (x, the MoE's aux loss
     term with ``with_aux``, else None).  With a ``mesh`` of more than one
     "data" rank an MoE FFN runs on the gathered slot rows of every data
-    rank and keeps its own."""
+    rank and keeps its own (under autograd the gather's backward sums the
+    rows' gradient over "data": the training forward on a mesh)."""
     dense = kind in ("attn_dense", "cross", "attn_cross", "rglru")
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
     split = (mesh is not None and mesh.axis_size("data") > 1
              and cfg.moe is not None and not dense)
     if split:
         b = h.shape[0]
-        h = mesh.all_gather(h, "data")
+        h = (mesh.all_gather_grad(h, "data") if torch.is_grad_enabled()
+             else mesh.all_gather(h, "data"))
     y, aux = L.ffn(p["mlp"], h, cfg, dense=dense, with_aux=with_aux)
     if split:
         y = y[mesh.axis_index("data") * b:(mesh.axis_index("data") + 1) * b]
@@ -160,7 +162,7 @@ def block_full(cfg: ModelConfig, kind: str, p: Params, x: torch.Tensor,
         y, cross = _cross_full(cfg, p["cross"],
                                L.rmsnorm(x, p["lnx"], cfg.norm_eps), ctx)
         x = x + y
-    x, aux = _ffn(cfg, kind, p, x, with_aux)
+    x, aux = _ffn(cfg, kind, p, x, with_aux, mesh=ctx.get("mesh"))
     if not want_cache:
         return x, None, aux
     cache = {"self": _prefill_self_cache(cfg, kind, ctx, values)}
@@ -338,18 +340,21 @@ def cross_source(cfg: ModelConfig, params: Params, source: torch.Tensor | None):
 
 
 def forward_hidden(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-                   source: torch.Tensor | None = None):
+                   source: torch.Tensor | None = None, mesh=None):
     """The training forward: tokens (B, T) -> (hidden (B, T, d) after the
     final norm, aux), ``aux`` the float32 sum of the MoE blocks'
     load-balance and router z-loss terms (0 without MoE blocks).  Every
     layer takes the einsum path, as in the JAX package; under autograd
-    with ``cfg.remat`` each block is recomputed in the backward pass."""
+    with ``cfg.remat`` each block is recomputed in the backward pass.
+    With a ``mesh`` of more than one "data" rank, ``tokens`` are this
+    rank's rows and an MoE block runs on every data rank's rows, so its
+    capacity, drops and aux are those of the whole batch."""
     check_supported(cfg)
     B, T_ = tokens.shape
     dev = tokens.device
     ctx = {"positions": torch.arange(T_, device=dev).expand(B, T_),
            "lengths": torch.full((B,), T_, dtype=torch.int64, device=dev),
-           "source": cross_source(cfg, params, source), "max_len": T_}
+           "source": cross_source(cfg, params, source), "max_len": T_, "mesh": mesh}
     x = embed_tokens(cfg, params, tokens)
     x, aux = run_stack(cfg, params, x, ctx, want_cache=False)
     return L.rmsnorm(x, params["final_norm"], cfg.norm_eps), aux

@@ -20,6 +20,7 @@ second copy of its 48 GB of state on one card.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import torch
@@ -27,6 +28,7 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import leaves_in_jax_order, map_tree
 from repro_torch.serving import prng
+from repro_torch.sharding.place import full_shape, shard, spec_by_id
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,21 +83,57 @@ def _stochastic_round(x: torch.Tensor, dtype: torch.dtype, noise: torch.Tensor):
     return (x + noise * ulp).to(dtype)
 
 
+def _mesh_global_norm(leaves: list[list[torch.Tensor]], specs: list, mesh) -> torch.Tensor:
+    """:func:`global_norm` of a tree of shards: each (JAX) leaf's sum of
+    squares over this rank's shards, counted on one rank of every axis
+    the leaf is not split on (its other ranks hold the same values), then
+    summed over "data" and "model" and over the leaves in order."""
+    sq = []
+    for parts, spec in zip(leaves, specs, strict=True):
+        s = None
+        for g in parts:
+            t = torch.sum(torch.square(g.float()))
+            s = t if s is None else s + t
+        split = {a for entry in spec for a in (
+            () if entry is None else (entry,) if isinstance(entry, str) else entry)}
+        owner = all(mesh.axis_index(a) == 0 for a in ("data", "model") if a not in split)
+        sq.append(s if owner else torch.zeros_like(s))
+    sq = torch.stack(sq)
+    for axis in ("data", "model"):
+        sq = mesh.all_reduce(sq, axis)
+    total = None
+    for t in sq:
+        total = t if total is None else total + t
+    return sqrt32(total)
+
+
 @torch.no_grad()
 def apply_updates(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0, *,
-                  model: ModelConfig) -> tuple[Any, dict, dict]:
+                  model: ModelConfig, mesh=None, specs=None) -> tuple[Any, dict, dict]:
     """One AdamW step, in place.  ``model`` is the model config whose JAX
     layout defines the leaves.  ``lr_scale`` a float or a 0-d float32
     tensor (a schedule's).  Returns
     (params, state, metrics {"grad_norm", "lr"} as 0-d float32 tensors) —
-    the same params and state objects, updated."""
+    the same params and state objects, updated.
+
+    With a ``mesh`` the trees are this rank's shards, every tree at the
+    param spec tree ``specs`` (``sharding.rules.param_specs``): the
+    update is elementwise, so each rank updates its slice; the gradient
+    norm is reduced over the mesh, and a bf16 moment's noise is this
+    rank's slice of the full leaf's, so the result equals one device's."""
     flat_p = leaves_in_jax_order(model, params)
     flat_g = [ts for _, ts, _ in leaves_in_jax_order(model, grads)]
     flat_mu = [ts for _, ts, _ in leaves_in_jax_order(model, state["mu"])]
     flat_nu = [ts for _, ts, _ in leaves_in_jax_order(model, state["nu"])]
     dev = flat_p[0][1][0].device
     step = state["step"] + 1
-    gnorm = global_norm(flat_g)
+    if mesh is None:
+        gnorm = global_norm(flat_g)
+        leaf_specs = [None] * len(flat_p)
+    else:
+        by_id = spec_by_id(params, specs)
+        leaf_specs = [by_id[id(ps[0])] for _, ps, _ in flat_p]
+        gnorm = _mesh_global_norm(flat_g, leaf_specs, mesh)
     clip = torch.clamp(cfg.grad_clip / (gnorm + 1e-9), max=1.0)
     stepf = step.to(torch.float32)
     bc1 = 1.0 - torch.tensor(cfg.b1, dtype=torch.float32, device=dev) ** stepf
@@ -107,12 +145,13 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0, *,
     rounding = cfg.moment_dtype != torch.float32
     if rounding:
         key = prng.fold_in(prng.prng_key(0, dev), step.to(torch.int64))
-    for i, ((_, ps, stacked), gs, mus, nus) in enumerate(
-            zip(flat_p, flat_g, flat_mu, flat_nu, strict=True)):
+    for i, ((_, ps, stacked), gs, mus, nus, spec) in enumerate(
+            zip(flat_p, flat_g, flat_mu, flat_nu, leaf_specs, strict=True)):
         decay = ps[0].dim() + stacked >= 2      # decoupled decay on matrices only
         if rounding:
             k = prng.fold_in(key, i)
-            n = ps[0].numel()
+            shape = ps[0].shape if mesh is None else full_shape(ps[0].shape, spec, mesh)
+            n = math.prod(shape)
             noise_mu = prng.uniform(k, n * len(ps)) - 0.5
             noise_nu = prng.uniform(prng.fold_in(k, 1), n * len(ps)) - 0.5
         for j, (p, g, mu, nu) in enumerate(zip(ps, gs, mus, nus, strict=True)):
@@ -128,7 +167,10 @@ def apply_updates(params, grads, state: dict, cfg: AdamWConfig, lr_scale=1.0, *,
             del upd
             if rounding:
                 sl = slice(j * n, (j + 1) * n)
-                mu.copy_(_stochastic_round(mu_f, mu.dtype, noise_mu[sl].view(mu.shape)))
-                nu.copy_(_stochastic_round(nu_f, nu.dtype, noise_nu[sl].view(nu.shape)))
+                n_mu, n_nu = noise_mu[sl].view(shape), noise_nu[sl].view(shape)
+                if mesh is not None:
+                    n_mu, n_nu = shard(n_mu, spec, mesh), shard(n_nu, spec, mesh)
+                mu.copy_(_stochastic_round(mu_f, mu.dtype, n_mu))
+                nu.copy_(_stochastic_round(nu_f, nu.dtype, n_nu))
     state["step"] = step
     return params, state, {"grad_norm": gnorm, "lr": lr}

@@ -6,8 +6,12 @@ leaf with one all-gather per sharded dim.  ``MeshParams`` holds a model's
 params at rest as this rank's shards and gathers a layer's leaves (or a
 top-level leaf) each time the model reads them, so the products after it
 are the single-device products; the gathered copies are dropped with the
-reference.  ``local_cache`` builds the decode caches as this rank's
-shards of ``rules.cache_specs`` (a pool keeps every page on every data
+reference.  In a training step (``MeshParams.step(train=GradReduce(...))``)
+the gathers carry a gradient (:class:`GatherShard`): each leaf is gathered
+once a step, and its backward sums the upstream gradient over the axes
+whose ranks saw different rows and keeps this rank's slice.
+``local_cache`` builds the decode caches as this rank's shards of
+``rules.cache_specs`` (a pool keeps every page on every data
 rank), and ``step_mesh`` the mesh view the engine's steps read them by.
 """
 
@@ -47,6 +51,66 @@ def gather(t: torch.Tensor, spec, mesh) -> torch.Tensor:
         for axis in reversed(_axes(spec[d])):
             out = mesh.all_gather(out, axis, dim=d)
     return out
+
+
+class GradReduce:
+    """How a training step's weight gathers (:class:`GatherShard`) turn
+    their upstream gradient into this rank's shard gradient: summed over
+    ``axes`` (the axes whose ranks ran different rows: "data", or none
+    where every data rank ran the whole batch), in float32.  While
+    ``defer`` is set (every microbatch but the last) a backward only adds
+    the gradient to its leaf's float32 sum and returns none; the last
+    microbatch reduces the sum once, so a step moves each leaf's gradient
+    over the mesh once whatever the microbatch count."""
+
+    def __init__(self, axes):
+        self.axes = tuple(axes)
+        self.defer = False
+
+
+class GatherShard(torch.autograd.Function):
+    """:func:`gather` under autograd.  Forward: the full leaf from this
+    rank's shard.  Backward: the upstream gradient summed over the
+    ``GradReduce``'s axes in float32, this rank's slice of it (the
+    inverse of the gather), in the shard's dtype.  The "model" ranks of one
+    data lane run the same rows, so their gradients are equal and are
+    sliced, not summed.  Nothing is saved for the backward, so one
+    gathered leaf may serve several microbatches' graphs."""
+
+    @staticmethod
+    def forward(ctx, t, spec, mesh, red):
+        ctx.spec, ctx.mesh, ctx.red, ctx.pending = spec, mesh, red, None
+        return gather(t, spec, mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.pending is None:
+            total = g.to(torch.float32, copy=True)
+        else:
+            total = ctx.pending.add_(g)
+        if ctx.red.defer:
+            ctx.pending = total
+            return None, None, None, None
+        ctx.pending = None
+        for axis in ctx.red.axes:
+            total = ctx.mesh.all_reduce(total, axis)
+        return shard(total, ctx.spec, ctx.mesh).to(g.dtype), None, None, None
+
+
+def spec_by_id(tree, specs) -> dict:
+    """{id(leaf): spec} over a tree and its spec tree."""
+    out = {}
+    _map2(tree, specs, lambda t, s: out.__setitem__(id(t), s))
+    return out
+
+
+def full_shape(shape, spec, mesh) -> tuple:
+    """The full leaf's shape from a shard's ``shape`` under ``spec``."""
+    out = list(shape)
+    for d, entry in enumerate(spec):
+        for axis in _axes(entry):
+            out[d] *= mesh.axis_size(axis)
+    return tuple(out)
 
 
 def _map2(tree, specs, fn):
@@ -89,7 +153,13 @@ class _Layers:
         if not 0 <= i < self._n:
             raise IndexError(i)
         o = self._owner
-        return o.gathered(o.local["layers"][i], o.specs["layers"][i])
+        memo = getattr(o._tls, "memo", None)
+        if getattr(o._tls, "train", None) is None or memo is None:
+            return o.gathered(o.local["layers"][i], o.specs["layers"][i])
+        key = ("layers", i)      # a training step keeps every layer it read
+        if key not in memo:
+            memo[key] = o.gathered(o.local["layers"][i], o.specs["layers"][i])
+        return memo[key]
 
     def __iter__(self):
         return (self[i] for i in range(len(self)))
@@ -102,7 +172,10 @@ class MeshParams:
     Within :meth:`step` a top-level leaf is gathered once, at its first
     read, and kept to the block's end: a step reads the tied embedding
     twice (the lookup and the logits).  ``gathered_bytes`` counts the
-    bytes the gathers rebuilt."""
+    bytes the gathers rebuilt.  A training step (``step(train=...)``)
+    gathers through :class:`GatherShard` and keeps every leaf it read,
+    layers too, to the step's end: its microbatches share one gather of
+    each leaf, and a block recomputed under remat reads the kept copy."""
 
     def __init__(self, cfg, params: dict, mesh, grains=None):
         self.mesh = mesh
@@ -118,23 +191,31 @@ class MeshParams:
         return LayerPrefix(self, k)
 
     def gathered(self, tree, specs):
-        out = gather_tree(tree, specs, self.mesh)
+        red = getattr(self._tls, "train", None)
+        if red is None:
+            out = gather_tree(tree, specs, self.mesh)
+        else:
+            out = _map2(tree, specs, lambda t, s: GatherShard.apply(t, s, self.mesh, red))
         with self._lock:
             self.gathered_bytes += tree_bytes(out)
         return out
 
     @contextlib.contextmanager
-    def step(self):
+    def step(self, train: GradReduce | None = None):
         """One step's reads on this thread: each top-level leaf gathered
-        once (nested blocks share the outer one's)."""
+        once (nested blocks share the outer one's).  With ``train`` the
+        gathers carry gradients reduced as it says, and layers are kept
+        too (class docstring)."""
         outer = getattr(self._tls, "memo", None)
         if outer is None:
             self._tls.memo = {}
+            self._tls.train = train
         try:
             yield
         finally:
             if outer is None:
                 self._tls.memo = None
+                self._tls.train = None
 
     def __getitem__(self, key):
         if key == "layers":

@@ -207,6 +207,36 @@ def param_specs(cfg, params, mesh, grains=None):
     return W.map_tree(params, lambda t: by_id[id(t)])
 
 
+def opt_specs(cfg, opt_state: dict, mesh) -> dict:
+    """Spec tree for the AdamW state (port of the JAX ``opt_specs``): each
+    of "mu", "nu" and "residual" by the param rules over its own leaves
+    (no head grains, as the JAX training launcher shards), so a moment
+    takes its param's spec wherever its dtype keeps the leaf on the same
+    side of the FSDP threshold; "step" and any other scalar replicated.
+    ``opt_state`` may hold meta tensors."""
+    return {k: param_specs(cfg, v, mesh) if k in W.OPT_TREES else ()
+            for k, v in opt_state.items()}
+
+
+def batch_specs(batch, mesh):
+    """Spec tree for model inputs (port of the JAX ``batch_specs``): dim 0
+    over the batch axes ("pod", "data") where their product divides it,
+    else the leaf replicated; a 0-d leaf replicated.  ``batch`` is a nest
+    of dicts whose leaves have a ``shape`` (tensors, numpy arrays)."""
+    names = batch_axes(mesh)
+    n = math.prod(axis_sizes(mesh)[a] for a in names)
+
+    def one(leaf):
+        shape = tuple(leaf.shape)
+        if not shape:
+            return ()
+        if names and shape[0] % n == 0:
+            return (_batch_entry(mesh),) + (None,) * (len(shape) - 1)
+        return (None,) * len(shape)
+
+    return W.map_tree(batch, one)
+
+
 def cache_specs(caches: list, mesh) -> list:
     """Spec tree for the decode caches (a list of per-layer dicts of
     parts): sequence-sharded rings and pools.  A cache rule has no size

@@ -3,7 +3,9 @@ JAX package's (``repro.sharding.rules``), for every registered arch at
 FULL shapes — JAX through ``jax.eval_shape``, the port on the meta device,
 so no weights are made — on ("data", "model") meshes of (16, 16), (2, 4),
 (1, 4) and (4, 1): params with head grains, the ring, int8 and paged
-caches, and the engine's carry."""
+caches, and the engine's carry; the AdamW state (float32 and bf16
+moments, the residual) and model inputs, also on the ("pod", "data",
+"model") mesh (2, 16, 16) the memory report reads."""
 
 import dataclasses
 import functools
@@ -181,3 +183,60 @@ def test_carry_and_stacked_specs_equal_jax():
 def test_head_grains_equal_jax(arch):
     jcfg, tcfg = _configs(arch)
     assert TR.head_grains(tcfg) == JR.head_grains(jcfg)
+
+
+POD = (2, 16, 16)
+
+
+def _any_mesh(shape):
+    """(JAX AbstractMesh, the port's axis sizes) of a 2- or 3-axis shape."""
+    names = ("pod", "data", "model")[-len(shape):]
+    return AbstractMesh(shape, names), dict(zip(names, shape))
+
+
+@pytest.mark.parametrize("arch", jconfigs.ARCHS)
+def test_opt_specs_equal_jax_for_full_configs(arch):
+    """``opt_specs`` of the AdamW state at FULL shapes (float32 and bf16
+    moments, a float32 residual, the step) against JAX's, leaf for leaf in
+    JAX's order: a moment takes the param rules over its own dtype, so a
+    bf16 moment can fall under the FSDP threshold its param is over."""
+    from repro.optim import adamw as JA
+    from repro_torch.sharding.place import spec_by_id
+    jcfg, tcfg = _configs(arch)
+    shapes, params = _jax_param_shapes(arch), _port_meta_params(arch)
+    for mdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        jst = jax.eval_shape(functools.partial(JA.init_state, cfg=JA.AdamWConfig(
+            moment_dtype=mdt)), shapes)
+        jst["residual"] = jax.tree.map(lambda s: jax.ShapeDtypeStruct(s.shape, jnp.float32),
+                                       shapes)
+        tst = {k: W.map_tree(params, lambda t, dt=dt: torch.empty(t.shape, dtype=dt,
+                                                                  device="meta"))
+               for k, dt in (("mu", tdt), ("nu", tdt), ("residual", torch.float32))}
+        tst["step"] = torch.empty((), dtype=torch.int32, device="meta")
+        for shape in MESHES + [POD]:
+            jm, tm = _any_mesh(shape)
+            want = JR.opt_specs(jst, None, jm)
+            got = TR.opt_specs(tcfg, tst, tm)
+            assert got["step"] == tuple(want["step"]) == ()
+            for k in ("mu", "nu", "residual"):
+                by_id = spec_by_id(tst[k], got[k])
+                flat = [(path, (None,) + by_id[id(ts[0])] if stacked and by_id[id(ts[0])]
+                         else by_id[id(ts[0])])
+                        for path, ts, stacked in W.leaves_in_jax_order(tcfg, tst[k])]
+                assert flat == _jax_flat(want[k]), (arch, k, mdt, shape)
+
+
+def test_batch_specs_equal_jax():
+    """``batch_specs`` against JAX's on inputs whose leading dim the batch
+    axes divide, do not divide, and a 0-d leaf, on every mesh and the pod
+    mesh."""
+    for B in (256, 32, 6, 3, 1):
+        leaves = {"tokens": (B, 64), "labels": (B, 64), "lengths": (B,),
+                  "source": (B, 10, 8), "scalar": ()}
+        jb = {k: jax.ShapeDtypeStruct(v, jnp.int32) for k, v in leaves.items()}
+        tb = {k: torch.empty(v, dtype=torch.int32, device="meta") for k, v in leaves.items()}
+        for shape in MESHES + [POD, (3, 1)]:
+            jm, tm = _any_mesh(shape)
+            want = {k: tuple(v) for k, v in JR.batch_specs(jb, jm).items()}
+            assert TR.batch_specs(tb, tm) == want, (B, shape)
+

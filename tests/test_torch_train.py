@@ -21,8 +21,10 @@ off, on numpy-seeded inputs and params carried by ``params_from_jax``:
   checkpoint equals going straight through; the optimizer-state bridges
   both ways bit for bit; ``restore``'s refusals; the watchdog firing;
 * the CLI (``python -m repro_torch.launch.train --grad-compress``)
-  against JAX's, ``--mesh`` refused, and the two training examples on
-  the CPU.
+  against JAX's, ``--mesh`` asking for torchrun and a three-axis mesh
+  refused, and the two training examples on the CPU;
+* ``compressed_psum`` on 2 and 4 stacked shards against JAX's under
+  ``jax.vmap`` with an axis name, bit for bit in float32 and bf16.
 
 One JAX reference run per flag set is shared through a module cache.
 """
@@ -54,6 +56,7 @@ from repro.runtime import train_loop as j_train_loop
 from repro_torch import checkpoint as ckpt
 from repro_torch.data import DataConfig, batch as data_batch
 from repro_torch.launch import train as launch
+from repro_torch.launch.mesh import Mesh
 from repro_torch.models import transformer as T
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.weights import (leaves_in_jax_order, map_tree, opt_state_from_jax,
@@ -209,7 +212,8 @@ def test_error_feedback_equals_jax(scan):
     """``with_error_feedback`` on seeded grads and residual: decompressed
     grads and new residual bit for bit; with ``scan_layers`` the scale is
     the stacked leaf's amax (per-layer scales would differ); ``None``
-    residual starts from zeros; ``compressed_psum`` names Queue 1 item 5."""
+    residual starts from zeros; ``compressed_psum`` reduces over a mesh
+    (``test_compressed_psum_equals_jax_under_vmap``)."""
     cfg, params, pcfg = _model("qwen3-4b", scan)
     g = np.random.default_rng(2)
     grads = jax.tree.map(lambda p: jnp.asarray(g.normal(size=p.shape).astype(np.float32)),
@@ -227,8 +231,66 @@ def test_error_feedback_equals_jax(scan):
         i = min(range(len(layers)), key=lambda i: float(layers[i]["attn"]["wq"].abs().max()))
         own = G.dequantize_leaf(*G.quantize_leaf(layers[i]["attn"]["wq"]))
         assert not torch.equal(own, td["layers"][i]["attn"]["wq"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        G.compressed_psum({}, "data")
+    assert G.compressed_psum({}, "data", Mesh(1, 1)) == {}
+
+
+class _ThreadMesh:
+    """Rank ``rank`` of ``n`` threads of one process, one axis: the
+    reductions of ``launch.mesh.Mesh`` over the threads' tensors, in
+    rank order (int32 sums and maxima are exact in any order)."""
+
+    def __init__(self, shared, rank):
+        self.shared, self.rank = shared, rank
+
+    def axis_size(self, axis):
+        return len(self.shared["slots"])
+
+    def all_reduce(self, t, axis, op="sum"):
+        sh = self.shared
+        sh["slots"][self.rank] = t
+        sh["barrier"].wait()
+        st = torch.stack(sh["slots"])
+        out = st.amax(0) if op == "max" else st.sum(0)
+        sh["barrier"].wait()
+        return out
+
+
+@pytest.mark.parametrize("n", [2, 4])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compressed_psum_equals_jax_under_vmap(n, dtype):
+    """``compressed_psum`` on ``n`` shards, run as ``n`` threads of one
+    process over a mesh of threads, against JAX's under ``jax.vmap(...,
+    axis_name="data")`` (``pmax`` / ``psum`` over the mapped axis) on
+    seeded leaves of unequal scales: every shard's tree bit for bit (each
+    shard quantized on its own scale, the scales max-reduced, int32 sums,
+    then q32 * scale / n).  ``test_torch_mesh_train.py`` runs the port's
+    gloo mesh."""
+    import threading
+    g = np.random.default_rng(7 + n)
+    leaves = {"a": g.normal(size=(n, 5, 7)) * np.arange(1, n + 1)[:, None, None],
+              "b": g.normal(size=(n, 33)) * 1e-3, "z": np.zeros((n, 4))}
+    jdt = getattr(jnp, dtype)
+    jin = {k: jnp.asarray(v, jnp.float32).astype(jdt) for k, v in leaves.items()}
+    want = jax.vmap(lambda t: JG.compressed_psum(t, "data"), axis_name="data")(jin)
+    tin = {k: torch.tensor(np.asarray(v.astype(jnp.float32))).to(getattr(torch, dtype))
+           for k, v in jin.items()}
+    shared = {"slots": [None] * n, "barrier": threading.Barrier(n)}
+    got = [None] * n
+
+    def rank(i):
+        got[i] = G.compressed_psum({k: v[i] for k, v in tin.items()}, "data",
+                                   _ThreadMesh(shared, i))
+
+    threads = [threading.Thread(target=rank, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(60)
+    for i in range(n):
+        for k in tin:
+            assert got[i][k].dtype == tin[k].dtype
+            np.testing.assert_array_equal(got[i][k].float().numpy(),
+                                          np.asarray(want[k][i].astype(jnp.float32)))
 
 
 # ---------------------------------------------------------------------------
@@ -514,7 +576,9 @@ def test_train_cli_matches_jax(tmp_path, capsys):
     same flags (the plain step is ``test_train_steps_match_jax``'s).  The two draw their random
     init from different generators, so both resume JAX's 3-step checkpoint
     (``--ckpt-dir``) and run to step 6: the port's losses within 1e-5 of
-    JAX's.  ``--mesh`` names Queue 1 item 5; an unknown arch is refused."""
+    JAX's.  ``--mesh`` without a process group asks for torchrun (the mesh
+    runs in ``test_torch_mesh_train.py``), a three-axis spec is refused
+    with its ROADMAP item (5f); an unknown arch is refused."""
     argv = ["--arch", "qwen3-4b", "--smoke", "--batch", "4", "--seq", "32",
             "--grad-compress", "--microbatches", "2"]
     jlaunch.main(argv + ["--steps", "3", "--ckpt-dir", str(tmp_path / "j")])
@@ -528,8 +592,10 @@ def test_train_cli_matches_jax(tmp_path, capsys):
     np.testing.assert_allclose(got["losses"], want["losses"], rtol=1e-5)
     out = capsys.readouterr().out
     assert "restored step 3" in out and "final loss" in out
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         launch.main(argv + ["--device", "cpu", "--mesh", "2x4"])
+    with pytest.raises(ValueError, match="Queue 1 item 5f"):
+        launch.main(argv + ["--device", "cpu", "--mesh", "2x2x2"])
     with pytest.raises(SystemExit):
         launch.main(["--arch", "no-such-arch", "--device", "cpu"])
     plain = launch.main(argv[:7] + ["--steps", "2", "--device", "cpu"])
